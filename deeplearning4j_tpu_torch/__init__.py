@@ -12,6 +12,8 @@ CUDA kernel under ``kernels/``, built at first use; on the CPU each
 kernel's wrapper runs its plain PyTorch version instead.
 
 Ported so far: the GPT serving path (``models.zoo.transformer.gpt`` ->
-``MultiLayerNetwork.generate``), its config JSON and model zip, and the
-flash-attention forward kernel.
+``MultiLayerNetwork.generate``), GPT training (``fit``, ``score``, the
+losses and updaters), the config JSON and model zip with its updater
+state, and the flash-attention kernels: the forward and the backward
+(dq, dk/dv).
 """

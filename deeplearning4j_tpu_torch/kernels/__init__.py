@@ -2,10 +2,11 @@
 first use.
 
 Each ``<name>.cu`` exposes plain C functions and includes no PyTorch
-header, so ``nvcc`` takes seconds. :func:`load` compiles one source with
-``torch.utils.cpp_extension.load`` for ``sm_90a`` into ``_build/`` and
-opens the shared library with ``ctypes``. A build that fails raises:
-there is no fallback to the plain PyTorch versions on a CUDA device.
+header, so ``nvcc`` takes seconds. :func:`load` compiles one source for
+``sm_90a`` into ``_build/lib<name>.so`` and opens it with ``ctypes``;
+:func:`build` starts one ``nvcc`` per source, all at once, and waits for
+them. A build that fails raises: there is no fallback to the plain
+PyTorch versions on a CUDA device.
 
 ``LAUNCHES`` counts kernel launches by kernel name. Each wrapper adds
 one where it launches its kernel and nowhere else, so a caller can reset
@@ -17,14 +18,20 @@ from __future__ import annotations
 import collections
 import ctypes
 import os
+import shutil
+import subprocess
+from typing import Dict, Iterable
 
-BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
-CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
+_HERE = os.path.dirname(os.path.abspath(__file__))
+BUILD_DIR = os.path.join(_HERE, "_build")
+SOURCES = ("flash_fwd", "flash_bwd")
+NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 #: kernel name -> launches since the last :func:`reset_launches`
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
 
-_LIBS: dict = {}
+_LIBS: Dict[str, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
@@ -32,21 +39,58 @@ def reset_launches() -> None:
 
 
 def source_path(name: str) -> str:
-    return os.path.join(os.path.dirname(os.path.abspath(__file__)), name + ".cu")
+    return os.path.join(_HERE, name + ".cu")
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    path = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else None
+    path = path if path and os.path.exists(path) else shutil.which("nvcc")
+    if not path:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (CUDA_HOME or nvcc on PATH)")
+    return path
+
+
+def _lib_path(name: str) -> str:
+    return os.path.join(BUILD_DIR, f"lib{name}.so")
+
+
+def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
+    """Compile each source in ``names`` with its own ``nvcc`` process,
+    all started together, into ``_build/``. Returns the compiler's
+    report (``-Xptxas -v``: registers, shared memory, spills) per source;
+    a failed compile raises with its output."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for name in names:
+        tmp = f"{_lib_path(name)}.{os.getpid()}.tmp"
+        procs[name] = (tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, source_path(name)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    reports, failed = {}, []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        reports[name] = out
+        if proc.returncode:
+            failed.append(f"{name}.cu (exit {proc.returncode}):\n{out}")
+        else:
+            os.replace(tmp, _lib_path(name))  # readers never see a partial file
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    return reports
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Build (once per process) and open the kernel library ``name``."""
+    """Open the kernel library ``name``, building it first when it is
+    missing or older than its source (once per process)."""
     lib = _LIBS.get(name)
-    if lib is not None:
-        return lib
-    from torch.utils.cpp_extension import load as cpp_load
-
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    module = f"dl4j_{name}"
-    cpp_load(name=module, sources=[source_path(name)],
-             extra_cuda_cflags=CUDA_FLAGS, build_directory=BUILD_DIR,
-             is_python_module=False, verbose=False)
-    lib = ctypes.CDLL(os.path.join(BUILD_DIR, module + ".so"))
-    _LIBS[name] = lib
+    if lib is None:
+        path = _lib_path(name)
+        if (not os.path.exists(path)
+                or os.path.getmtime(path) < os.path.getmtime(source_path(name))):
+            build([name])
+        lib = _LIBS[name] = ctypes.CDLL(path)
     return lib

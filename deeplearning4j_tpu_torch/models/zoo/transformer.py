@@ -1,8 +1,9 @@
 """GPT-style causal language model for the zoo.
 
-Counterpart of ``deeplearning4j_tpu/models/zoo/transformer.py`` (``gpt``
-and ``generate``): token+position embedding -> N pre-LN transformer
-blocks (the flash-attention kernel on the card) -> softmax LM head.
+Counterpart of ``deeplearning4j_tpu/models/zoo/transformer.py`` (``gpt``,
+``generate`` and ``gpt_train_flops_per_token``): token+position
+embedding -> N pre-LN transformer blocks (the flash-attention kernels on
+the card) -> softmax LM head, trained with Adam by ``net.fit``.
 """
 
 from __future__ import annotations
@@ -47,6 +48,19 @@ def gpt(vocab_size: int = 50257, d_model: int = 512, n_layers: int = 8,
                                    loss_function="mcxent"))
             .build())
     return MultiLayerNetwork(conf, device=device)
+
+
+def gpt_train_flops_per_token(vocab_size: int, d_model: int, n_layers: int,
+                              seq_len: int, ffn_mult: int = 4) -> float:
+    """Train FLOPs per token, the reference's count: 6 x the MACs of
+    the qkv, output and MLP projections, the causal attention products,
+    the head and the embedding gather."""
+    per_layer = 3 * d_model * d_model + d_model * d_model \
+        + 2 * ffn_mult * d_model * d_model          # qkv + proj + mlp
+    attn = 2 * seq_len * d_model / 2                # causal qk^T + pv
+    head = d_model * vocab_size
+    macs = n_layers * (per_layer + attn) + head + d_model  # + embed gather
+    return 6.0 * macs
 
 
 def generate(net: MultiLayerNetwork, prompt_ids: np.ndarray,

@@ -15,6 +15,7 @@ import json
 from typing import Any, Dict, List, Optional
 
 from deeplearning4j_tpu_torch.nn.conf import layers as L
+from deeplearning4j_tpu_torch.nn.updater import UpdaterConfig
 
 
 class OptimizationAlgorithm:
@@ -63,6 +64,32 @@ class NeuralNetConfiguration:
     lr_schedule: Optional[Dict[int, float]] = None
     max_iterations: int = 1
     compute_dtype: str = "float32"
+
+    def updater_config_for(self, layer: L.Layer) -> UpdaterConfig:
+        """The layer's updater config: these global defaults with the
+        layer's overrides (updater, learning rate, momentum) applied."""
+        return UpdaterConfig(
+            updater=layer.updater or self.updater,
+            learning_rate=(layer.learning_rate if layer.learning_rate is not None
+                           else self.learning_rate),
+            momentum=layer.momentum if layer.momentum is not None else self.momentum,
+            adam_mean_decay=self.adam_mean_decay,
+            adam_var_decay=self.adam_var_decay,
+            rho=self.rho,
+            rms_decay=self.rms_decay,
+            epsilon=self.epsilon,
+            lr_policy=self.lr_policy,
+            lr_policy_decay_rate=self.lr_policy_decay_rate,
+            lr_policy_power=self.lr_policy_power,
+            lr_policy_steps=self.lr_policy_steps,
+            lr_schedule=self.lr_schedule,
+            max_iterations=self.max_iterations,
+        )
+
+    def resolve(self, layer: L.Layer, field: str):
+        """Layer-over-global field resolution."""
+        v = getattr(layer, field, None)
+        return v if v is not None else getattr(self, field)
 
     class Builder:
         def __init__(self):

@@ -36,11 +36,10 @@ from deeplearning4j_tpu_torch.nn.layers.transformer import (
     SequenceEmbeddingImpl,
     TransformerBlockImpl,
 )
+from deeplearning4j_tpu_torch.util.rng import MASK64, mix64 as _mix
 
 #: (temperature, top_k, top_p, eos_token-or-None)
 SamplerSig = Tuple[float, int, float, Optional[int]]
-
-_M64 = (1 << 64) - 1
 
 
 def sampler_sig(temperature: float = 0.0, top_k: int = 0,
@@ -51,17 +50,9 @@ def sampler_sig(temperature: float = 0.0, top_k: int = 0,
             None if eos_token is None else int(eos_token))
 
 
-def _mix(x: int) -> int:
-    """splitmix64's finalizer: a well-spread 64-bit hash of ``x``."""
-    x = (x + 0x9E3779B97F4A7C15) & _M64
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _M64
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _M64
-    return x ^ (x >> 31)
-
-
 def row_keys(seed: int, rows: int) -> List[int]:
     """Per-row 63-bit keys from ``(seed, row)``."""
-    base = _mix(int(seed) & _M64)
+    base = _mix(int(seed) & MASK64)
     return [_mix(base ^ r) >> 1 for r in range(rows)]
 
 

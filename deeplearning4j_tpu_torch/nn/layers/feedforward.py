@@ -1,7 +1,8 @@
-"""Output heads: ``OutputLayer`` / ``RnnOutputLayer`` forward.
+"""Output heads: ``OutputLayer`` / ``RnnOutputLayer`` forward and score.
 
 Counterpart of the head part of ``deeplearning4j_tpu/nn/layers/
-feedforward.py``. Scoring (the losses) waits for the training slice.
+feedforward.py``. Scoring takes the fused from-logits loss where the
+activation and loss allow it (softmax + mcxent/nll, sigmoid + xent).
 """
 
 from __future__ import annotations
@@ -13,12 +14,25 @@ import torch
 from deeplearning4j_tpu_torch.nn.conf import layers as L
 from deeplearning4j_tpu_torch.nn.layers.base import LayerImpl, register_impl
 from deeplearning4j_tpu_torch.nn.weights import init_weights
-from deeplearning4j_tpu_torch.ops.activations import activate
+from deeplearning4j_tpu_torch.ops.activations import Activation, activate
+from deeplearning4j_tpu_torch.ops.losses import LossFunction, compute_loss
+
+
+def _fused_logits_pair(activation: str, loss_function: str) -> bool:
+    """True when activation + loss compute through the numerically
+    stable fused from-logits path (the same function)."""
+    act = Activation(activation)
+    lf = LossFunction(loss_function)
+    return (act is Activation.SOFTMAX and lf in (
+        LossFunction.MCXENT, LossFunction.NEGATIVELOGLIKELIHOOD)) or \
+        (act is Activation.SIGMOID and lf is LossFunction.XENT)
 
 
 @register_impl(L.OutputLayer)
 class OutputImpl(LayerImpl):
     """Dense + loss head: z = x.W + b, a = act(z)."""
+
+    applies_drop_connect = True
 
     def has_loss(self) -> bool:
         return True
@@ -45,10 +59,25 @@ class OutputImpl(LayerImpl):
             z = x @ W
         return z + params["b"].to(z.dtype) if "b" in params else z
 
-    def forward(self, params, x, state, train, mask=None):
-        if train:
-            raise NotImplementedError("training is not ported yet")
+    @property
+    def loss_function(self) -> str:
+        return self.conf.loss_function
+
+    def forward(self, params, x, state, train, rng=None, mask=None):
+        x = self.maybe_dropout_input(x, train, rng)
+        params = self.maybe_drop_connect(params, train, rng)
         return activate(self.activation, self.preout(params, x)), state
+
+    def score(self, params, x, labels, state, train, rng=None, mask=None):
+        """Mean-over-examples data loss of this head (f32 logits)."""
+        x = self.maybe_dropout_input(x, train, rng)
+        params = self.maybe_drop_connect(params, train, rng)
+        z = self.preout(params, x)
+        if _fused_logits_pair(self.activation, self.loss_function):
+            return compute_loss(self.loss_function, labels, z, mask=mask,
+                                from_logits=True)
+        return compute_loss(self.loss_function, labels,
+                            activate(self.activation, z), mask=mask)
 
 
 @register_impl(L.RnnOutputLayer)

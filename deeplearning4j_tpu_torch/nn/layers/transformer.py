@@ -1,7 +1,9 @@
 """Transformer block + sequence embedding layer impls.
 
 Counterpart of ``deeplearning4j_tpu/nn/layers/transformer.py``, dense
-blocks with a dense KV cache: ``forward``, ``prefill`` (through the
+blocks with a dense KV cache: ``forward`` (inference or training, with
+dropout on the attention and MLP outputs; the gradient of attention runs
+through the flash backward kernels), ``prefill`` (through the
 flash-attention kernel) and ``decode_step`` (plain attention over the
 cache, as in the reference). Routed experts (``num_experts > 0``), the
 paged-pool branch and quantized weights are not ported yet and raise
@@ -25,9 +27,14 @@ import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.nn.conf import layers as L
 from deeplearning4j_tpu_torch.nn.layers.attention import dispatch_attention
-from deeplearning4j_tpu_torch.nn.layers.base import LayerImpl, register_impl
+from deeplearning4j_tpu_torch.nn.layers.base import (
+    LayerImpl,
+    apply_dropout,
+    register_impl,
+)
 from deeplearning4j_tpu_torch.nn.weights import init_weights
 from deeplearning4j_tpu_torch.ops.attention import softmax_scale
+from deeplearning4j_tpu_torch.util.rng import fold_in, generator
 
 
 def _layer_norm(x, gamma, beta, eps=1e-5):
@@ -38,15 +45,10 @@ def _layer_norm(x, gamma, beta, eps=1e-5):
     return out.to(x.dtype)
 
 
-def _no_train(train: bool) -> None:
-    if train:
-        raise NotImplementedError(
-            "training is not ported yet: ROADMAP Queue B5 and the fit slice")
-
-
 @register_impl(L.SequenceEmbeddingLayer)
 class SequenceEmbeddingImpl(LayerImpl):
-    """int ids [b, t] -> [b, t, d]: token gather + learned positions."""
+    """int ids [b, t] -> [b, t, d]: token gather + learned positions. In
+    training the gather's gradient scatter-adds into W."""
 
     cast_input = False
 
@@ -59,8 +61,7 @@ class SequenceEmbeddingImpl(LayerImpl):
                                device=device)
         return {"W": W, "P": P}
 
-    def forward(self, params, x, state, train, mask=None):
-        _no_train(train)
+    def forward(self, params, x, state, train, rng=None, mask=None):
         idx = x
         if idx.ndim == 3:  # one-hot input tolerated
             idx = idx.argmax(dim=-1)
@@ -119,20 +120,29 @@ class TransformerBlockImpl(LayerImpl):
                      + params["b1"].to(h2.dtype), approximate="tanh")
         return mlp @ params["W2"].to(h2.dtype) + params["b2"].to(h2.dtype)
 
-    def _attn_ffn(self, params, x, o):
-        """x + o.Wo, then + MLP(LN2(.)); o is [b, t, h, hd]."""
-        x = x + o.reshape(x.shape) @ params["Wo"].to(x.dtype)
-        h2 = _layer_norm(x, params["ln2_g"], params["ln2_b"])
-        return x + self._ffn(params, h2)
+    def _attn_ffn(self, params, x, o, rng=None):
+        """x + o.Wo, then + MLP(LN2(.)); o is [b, t, h, hd]. With a
+        training stream key ``rng`` and a dropout rate, the attention
+        output and the MLP output each take dropout on their own stream
+        (``rng`` folded with 1 and with 2, as in the reference)."""
+        rate = self.dropout_rate if rng is not None else 0.0
 
-    def forward(self, params, x, state, train, mask=None):
-        _no_train(train)
+        def drop(z, stream):
+            if rate <= 0.0:
+                return z
+            return apply_dropout(z, rate, generator(fold_in(rng, stream), z.device))
+
+        x = x + drop(o.reshape(x.shape) @ params["Wo"].to(x.dtype), 1)
+        h2 = _layer_norm(x, params["ln2_g"], params["ln2_b"])
+        return x + drop(self._ffn(params, h2), 2)
+
+    def forward(self, params, x, state, train, rng=None, mask=None):
         if x.ndim != 3:
             raise ValueError(f"TransformerBlock needs [b, t, d], got "
                              f"{tuple(x.shape)}")
         q, k, v = self._qkv(params, x)
         o = dispatch_attention(q, k, v, causal=self.conf.causal, mask=mask)
-        out = self._attn_ffn(params, x, o)
+        out = self._attn_ffn(params, x, o, rng if train else None)
         if mask is not None:
             out = out * mask[:, :, None].to(out.dtype)
         return out, state

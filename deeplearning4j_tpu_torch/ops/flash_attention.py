@@ -1,14 +1,14 @@
-"""Flash attention forward: the hand-written CUDA kernel, its plain
-PyTorch version, and the reference's dispatch rules.
+"""Flash attention, forward and backward: the hand-written CUDA kernels,
+their plain PyTorch versions, and the reference's dispatch rules.
 
 Counterpart of ``deeplearning4j_tpu/ops/flash_attention.py``. The TPU
-kernel ``_flash_fwd_impl`` -> ``_fwd_kernel`` becomes
-``kernels/flash_fwd.cu`` (see its header for the Hopper design). Which
-of the two runs is decided by the tensor's device alone: on the CPU the
-plain version, on a CUDA device the kernel (a build or launch that
-fails raises). Only the forward is ported; the backward kernels (dq,
-dk/dv) are ROADMAP Queue B5, and until then a gradient through the
-kernel raises.
+kernels become CUDA kernels: ``_flash_fwd_impl`` -> ``_fwd_kernel`` is
+``kernels/flash_fwd.cu``; ``_flash_bwd_impl`` -> ``_dq_kernel`` and
+``_dkv_kernel`` are ``flash_dq`` and ``flash_dkv`` in
+``kernels/flash_bwd.cu`` (see each file's header for its Hopper design).
+Which of the two runs is decided by the tensor's device alone: on the
+CPU the plain version, on a CUDA device the kernel (a build or launch
+that fails raises).
 """
 
 from __future__ import annotations
@@ -23,7 +23,10 @@ from deeplearning4j_tpu_torch.ops.attention import scaled_dot_product_attention
 
 _NEG_INF = -1e30  # the reference's finite sentinel for masked scores
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-KERNEL = "flash_fwd"
+KERNEL = "flash_fwd"  # the forward's kernel and source name
+BWD_SOURCE = "flash_bwd"  # kernels/flash_bwd.cu: the two backward kernels
+DQ_KERNEL = "flash_dq"
+DKV_KERNEL = "flash_dkv"
 
 
 def _pick_block(t: int, preferred: int) -> int:
@@ -84,8 +87,7 @@ def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
     return o, lse
 
 
-def _flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     bh, tq, d = q.shape
     tk = k.shape[1]
     if q.dtype not in _DTYPE_CODES:
@@ -97,6 +99,13 @@ def _flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     if not (k.device == q.device and v.device == q.device):
         raise ValueError("flash kernel needs q, k and v on one device")
+
+
+def _flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    bh, tq, d = q.shape
+    tk = k.shape[1]
+    _check_inputs(q, k, v)
     lib = kernels.load(KERNEL)
     lib.dl4j_flash_fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
         + [ctypes.c_void_p]
@@ -135,16 +144,169 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
 
 
+def _bwd_block(t: int, block: int) -> int:
+    """The reference's backward block rule (``_flash_bwd``): cap at 512;
+    where no candidate <= 512 divides ``t``, keep the forward block
+    (it ran, so it divides ``t``)."""
+    return _pick_block(t, min(block, 512)) or block
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              lse: torch.Tensor, do: torch.Tensor,
+                              causal: bool, block_q: int = 64,
+                              block_k: int = 64
+                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernels' algorithm in torch ops: (q, k, v, o, lse,
+    dO) -> (dq, dk, dv) in the dtypes of q, k, v. q is pre-scaled once,
+    ``delta = rowsum(dO * O)`` is f32, and the probabilities are rebuilt
+    blockwise from (q, k, lse): a dq pass with the keys innermost and a
+    dk/dv pass with the queries innermost, causal key blocks above the
+    diagonal skipped, masked scores at the -1e30 sentinel. ``p`` and
+    ``ds`` are rounded to the operand dtype before their products (as
+    on the tensor cores); dq takes the scale at the end."""
+    bh, tq, d = q.shape
+    tk = k.shape[1]
+    offset = tk - tq
+    scale = 1.0 / d ** 0.5
+    qs = _prescale(q)
+    delta = (do.float() * o.float()).sum(dim=-1, keepdim=True)  # [bh, tq, 1]
+    lse = lse.reshape(bh, tq, 1)
+    dev = q.device
+
+    def scores(q0, qb, k0, kb):
+        """s = qs kᵀ for one block, causal entries at the sentinel."""
+        s = qb @ kb.transpose(1, 2)
+        if causal:
+            rows = torch.arange(q0, q0 + qb.shape[1], device=dev)[:, None]
+            cols = torch.arange(k0, k0 + kb.shape[1], device=dev)
+            s = s.masked_fill(rows + offset < cols[None, :], _NEG_INF)
+        return s
+
+    def dead(q0, bq, k0):
+        return causal and k0 > q0 + bq - 1 + offset
+
+    def block(q0, k0, bq, bk):
+        qb = qs[:, q0:q0 + bq].float()
+        kb = k[:, k0:k0 + bk].float()
+        dob = do[:, q0:q0 + bq].float()
+        p = torch.exp(scores(q0, qb, k0, kb) - lse[:, q0:q0 + bq])
+        dp = dob @ v[:, k0:k0 + bk].float().transpose(1, 2)
+        ds = (p * (dp - delta[:, q0:q0 + bq])).to(q.dtype).float()
+        return qb, kb, dob, p, ds
+
+    dq = torch.empty_like(q)
+    for q0 in range(0, tq, block_q):
+        bq = min(block_q, tq - q0)
+        acc = torch.zeros(bh, bq, d, device=dev)
+        for k0 in range(0, tk, block_k):
+            if dead(q0, bq, k0):
+                break  # this and every later key block is dead
+            _, kb, _, _, ds = block(q0, k0, bq, block_k)
+            acc = acc + ds @ kb
+        dq[:, q0:q0 + bq] = (acc * scale).to(q.dtype)
+
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    for k0 in range(0, tk, block_k):
+        bk = min(block_k, tk - k0)
+        dk_acc = torch.zeros(bh, bk, d, device=dev)
+        dv_acc = torch.zeros(bh, bk, d, device=dev)
+        for q0 in range(0, tq, block_q):
+            if dead(q0, min(block_q, tq - q0), k0):
+                continue
+            qb, _, dob, p, ds = block(q0, k0, block_q, bk)
+            dv_acc = dv_acc + p.to(v.dtype).float().transpose(1, 2) @ dob
+            dk_acc = dk_acc + ds.transpose(1, 2) @ qb
+        dk[:, k0:k0 + bk] = dk_acc.to(k.dtype)
+        dv[:, k0:k0 + bk] = dv_acc.to(v.dtype)
+    return dq, dk, dv
+
+
+def _flash_bwd_cuda(q, k, v, o, lse, do, causal
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    bh, tq, d = q.shape
+    tk = k.shape[1]
+    _check_inputs(q, k, v)
+    if o.shape != q.shape or do.shape != q.shape or lse.numel() != bh * tq:
+        raise ValueError(f"flash backward shapes o {tuple(o.shape)}, "
+                         f"dO {tuple(do.shape)}, lse {tuple(lse.shape)} "
+                         f"for q {tuple(q.shape)}")
+    lib = kernels.load(BWD_SOURCE)
+    lib.dl4j_flash_dq.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 \
+        + [ctypes.c_float, ctypes.c_void_p]
+    lib.dl4j_flash_dq.restype = ctypes.c_int
+    lib.dl4j_flash_dkv.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 \
+        + [ctypes.c_void_p]
+    lib.dl4j_flash_dkv.restype = ctypes.c_int
+    if not lib.dl4j_flash_bwd_supports(d):
+        raise ValueError(f"flash backward kernels are built for head size "
+                         f"64 or 128, got {d}")
+    qs = _prescale(q).contiguous()
+    k, v = k.contiguous(), v.contiguous()
+    do = do.to(q.dtype).contiguous()
+    # delta = rowsum(dO * O) in f32: one torch expression, as the
+    # reference computes it in XLA outside its kernels
+    delta = (do.float() * o.float()).sum(dim=-1).contiguous()
+    lse = lse.reshape(bh, tq).float().contiguous()
+    for t in (qs, k, v, do):
+        if t.data_ptr() % 16:
+            raise ValueError("flash kernels need 16-byte aligned inputs")
+    dq, dk, dv = torch.empty_like(qs), torch.empty_like(k), torch.empty_like(v)
+    dtype = _DTYPE_CODES[q.dtype]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.dl4j_flash_dq(qs.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                do.data_ptr(), lse.data_ptr(),
+                                delta.data_ptr(), dq.data_ptr(), bh, tq, tk,
+                                d, int(bool(causal)), dtype, 1.0 / d ** 0.5,
+                                stream)
+        if err:
+            raise RuntimeError(f"flash_dq kernel launch failed: CUDA error {err}")
+        kernels.LAUNCHES[DQ_KERNEL] += 1
+        err = lib.dl4j_flash_dkv(qs.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                 do.data_ptr(), lse.data_ptr(),
+                                 delta.data_ptr(), dk.data_ptr(),
+                                 dv.data_ptr(), bh, tq, tk, d,
+                                 int(bool(causal)), dtype, stream)
+        if err:
+            raise RuntimeError(f"flash_dkv kernel launch failed: CUDA error {err}")
+        kernels.LAUNCHES[DKV_KERNEL] += 1
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal: bool,
+                        block_q: int = 64, block_k: int = 64
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv): the two CUDA kernels for CUDA tensors, the plain
+    version (with these blocks) for CPU ones. The kernels tile by their
+    own 64 x 64 blocks."""
+    if q.device.type == "cuda":
+        return _flash_bwd_cuda(q, k, v, o, lse, do, causal)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal,
+                                         block_q, block_k)
+    raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
+
+
 class _FlashAttention(torch.autograd.Function):
+    """The reference's ``custom_vjp``: the forward saves (q, k, v, o,
+    lse); the backward takes its blocks by ``_bwd_block``."""
+
     @staticmethod
     def forward(ctx, q, k, v, causal, block_q, block_k):
-        return flash_attention_fwd(q, k, v, causal, block_q, block_k)[0]
+        o, lse = flash_attention_fwd(q, k, v, causal, block_q, block_k)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        ctx.blocks = (_bwd_block(q.shape[1], block_q),
+                      _bwd_block(k.shape[1], block_k))
+        return o
 
     @staticmethod
     def backward(ctx, grad):
-        raise NotImplementedError(
-            "the flash-attention backward kernels (dq, dk/dv) are not "
-            "ported yet: ROADMAP Queue B5")
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, grad, ctx.causal,
+                                         *ctx.blocks)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(

@@ -6,11 +6,13 @@ written with ``zipfile`` and numpy only:
 - ``configuration.json``: ``{"model_type", "conf"}``;
 - ``coefficients.npz``: one array per ``layerN/name`` key;
 - ``modelState.npz``: non-trainable state (empty for the GPT stack);
+- ``updaterState.npz``: the step counter ``step`` (int32) and the
+  updater state, one array per ``updater/layerN/param/name`` key
+  (``m``/``v`` for Adam), so training resumes where it stopped;
 - ``manifest.json``: a CRC32 per member, checked on restore.
 
-A zip written by either package restores in the other. The updater
-state (``updaterState.npz``) is neither read nor written until the
-port trains. Quantized weights (``*_qscale`` keys) are not ported yet.
+A zip written by either package restores in the other, updater state
+included. Quantized weights (``*_qscale`` keys) are not ported yet.
 """
 
 from __future__ import annotations
@@ -105,7 +107,46 @@ def params_from_numpy(net: MultiLayerNetwork,
     return net
 
 
-def write_model(model: MultiLayerNetwork, path: str) -> None:
+def _overlay(template: Dict[str, Any], stored: Dict[str, Any],
+             device: torch.device, where: str) -> Dict[str, Any]:
+    """``stored`` arrays over ``template``'s tree of tensors, as float32
+    on ``device``: a stored key the template lacks, or a shape that
+    differs, raises; a key ``stored`` lacks keeps the template's tensor
+    (the reference's ``_merge``)."""
+    extra = set(stored) - set(template)
+    if extra:
+        raise ValueError(f"{where}: unknown keys {sorted(extra)}")
+    out: Dict[str, Any] = {}
+    for k, t in template.items():
+        if k not in stored:
+            out[k] = t
+        elif isinstance(t, dict):
+            out[k] = _overlay(t, stored[k], device, f"{where}/{k}")
+        else:
+            a = np.asarray(stored[k])
+            if a.shape != tuple(t.shape):
+                raise ValueError(f"{where}/{k}: shape {a.shape}, expected "
+                                 f"{tuple(t.shape)}")
+            out[k] = torch.as_tensor(a.astype(np.float32), device=device).contiguous()
+    return out
+
+
+def opt_state_from_numpy(net: MultiLayerNetwork,
+                         tree: Dict[str, Any]) -> MultiLayerNetwork:
+    """Load ``{"step": int, "updater": {layer: {param: {name: ndarray}}}}``
+    (the reference's ``net.opt_state`` converted to numpy, or an
+    ``updaterState.npz``) into ``net``. States the tree lacks stay at
+    their initial zeros; unknown keys or shapes raise."""
+    if net.params is None:
+        net.init()
+    updater = _overlay(net.opt_state["updater"], tree.get("updater", {}),
+                       net.device, "updater")
+    net.opt_state = {"step": int(np.asarray(tree["step"])), "updater": updater}
+    return net
+
+
+def write_model(model: MultiLayerNetwork, path: str,
+                save_updater: bool = True) -> None:
     """Write ``model`` as a zip the reference's
     ``restore_multi_layer_network`` loads: temp file, fsync, rename."""
     payload = {"model_type": "MultiLayerNetwork",
@@ -115,6 +156,10 @@ def write_model(model: MultiLayerNetwork, path: str) -> None:
         "coefficients.npz": _npz_bytes(model.params),
         "modelState.npz": _npz_bytes(model.states),
     }
+    if save_updater and model.opt_state is not None:
+        members["updaterState.npz"] = _npz_bytes(
+            {"step": np.asarray(model.opt_state["step"], np.int32),
+             "updater": model.opt_state["updater"]})
     manifest = {"format": 1,
                 "crc32": {n: _crc32(b) for n, b in members.items()}}
     path = os.path.abspath(path)
@@ -150,21 +195,29 @@ def _verify(z: zipfile.ZipFile, path: str) -> None:
         raise CheckpointCorruptError(f"{path}: " + "; ".join(problems))
 
 
-def restore_multi_layer_network(path: str, device: DeviceLike = None
+def _npz_tree(data: bytes) -> Dict[str, Any]:
+    with np.load(io.BytesIO(data)) as npz:
+        return _unflatten({k: npz[k] for k in npz.files})
+
+
+def restore_multi_layer_network(path: str, device: DeviceLike = None,
+                                load_updater: bool = True
                                 ) -> MultiLayerNetwork:
     """Rebuild a net from a zip written by either package (on ``device``,
-    cuda by default). The updater state, if present, is not read."""
+    cuda by default), with its updater state when the zip has one."""
     try:
         with zipfile.ZipFile(path) as z:
             _verify(z, path)
             payload = json.loads(z.read("configuration.json"))
-            with np.load(io.BytesIO(z.read("coefficients.npz"))) as npz:
-                flat = {k: npz[k] for k in npz.files}
+            params = _npz_tree(z.read("coefficients.npz"))
+            upd = None
+            if load_updater and "updaterState.npz" in z.namelist():
+                upd = _npz_tree(z.read("updaterState.npz"))
     except (zipfile.BadZipFile, zlib.error) as e:
         raise CheckpointCorruptError(f"{path}: unreadable checkpoint ({e})")
     if payload["model_type"] != "MultiLayerNetwork":
         raise ValueError(f"checkpoint is a {payload['model_type']}, "
                          "expected MultiLayerNetwork")
     conf = MultiLayerConfiguration.from_json(json.dumps(payload["conf"]))
-    net = MultiLayerNetwork(conf, device=device).init()
-    return params_from_numpy(net, _unflatten(flat))
+    net = params_from_numpy(MultiLayerNetwork(conf, device=device).init(), params)
+    return net if upd is None else opt_state_from_numpy(net, upd)

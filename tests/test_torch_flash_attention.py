@@ -151,11 +151,16 @@ def test_cpu_path_launches_no_kernel(rng):
 
 
 def test_backward_raises_until_ported(rng):
-    q, k, v = (torch.tensor(a, requires_grad=True) for a in
-               _arrays(rng, [(1, 64, 2, 16)] * 3))
-    out = flash_attention(q, k, v, causal=True)
-    with pytest.raises(NotImplementedError, match="B5"):
-        out.sum().backward()
+    """The backward is ported (B5): it no longer raises, and its
+    gradients are those of the plain formulation."""
+    arrays = _arrays(rng, [(1, 64, 2, 16)] * 3)
+    q, k, v = (torch.tensor(a, requires_grad=True) for a in arrays)
+    flash_attention(q, k, v, causal=True).sum().backward()
+    rq, rk, rv = (torch.tensor(a, requires_grad=True) for a in arrays)
+    scaled_dot_product_attention(rq, rk, rv, causal=True).sum().backward()
+    for got, want in ((q, rq), (k, rk), (v, rv)):
+        np.testing.assert_allclose(got.grad.numpy(), want.grad.numpy(),
+                                   rtol=2e-4, atol=2e-4)
 
 
 def test_unsupported_device_raises(rng):

@@ -44,6 +44,23 @@ def test_importing_every_module_loads_no_jax():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_training_slice_modules_are_scanned():
+    """The training slice's modules (updaters, losses, DataSet, the
+    flash backward's wrapper and kernel source) are among the modules
+    and files the two scans above cover."""
+    mods = _modules()
+    for name in ("nn.updater", "nn.updater.updaters", "ops.losses",
+                 "datasets.dataset", "datasets.iterators",
+                 "ops.flash_attention", "util.rng", "kernels"):
+        assert f"deeplearning4j_tpu_torch.{name}" in mods, name
+    kernel_dir = os.path.join(_PKG, "kernels")
+    assert {"flash_fwd.cu", "flash_bwd.cu"} <= set(os.listdir(kernel_dir))
+    for src in ("flash_fwd.cu", "flash_bwd.cu"):
+        with open(os.path.join(kernel_dir, src)) as f:
+            text = f.read()
+        assert "torch/extension.h" not in text and "jax" not in text.lower()
+
+
 def _imports(path):
     with open(path) as f:
         tree = ast.parse(f.read(), path)
