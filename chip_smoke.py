@@ -2,7 +2,8 @@
 """Smoke test of the PyTorch port (deeplearning4j_tpu_torch) on one
 NVIDIA GPU; the quickest proof that the port still starts on the card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every phase, as the check runs it
+    python3 chip_smoke.py --only 2b,5     # phases 0 and 1, then just these
 
 Phases (any failure ends the run with a non-zero exit and no result):
 
@@ -19,6 +20,13 @@ Phases (any failure ends the run with a non-zero exit and no result):
    the card's work per call); ``call_ms`` columns are CUDA-event time per
    single call, which includes the host's launch work. The forward
    (``flash_fwd``) first, then the backward (``flash_dq``, ``flash_dkv``).
+2b. LSTM kernels: ``lstm_fwd_only``, ``lstm_fwd`` and the backward pair
+   ``lstm_bwd`` + ``lstm_dw`` against their plain versions, f32 and bf16,
+   nonzero h0 and c0, at the char-RNN's two main shapes (b 1024, t 128,
+   n 512 bf16 for training; b 32, t 1, n 512 f32 for serving) and at
+   n 128 / 1024, b 8 / 32 / 1024, t 1 / 9 / 128; the yardstick is
+   PyTorch's ``nn.LSTM`` (cuDNN where it takes the dtype), which has no
+   peepholes: the same products, not the same function.
 3. serving at full width: ``gpt`` (vocab 8192, d_model 512, 8 layers,
    8 heads, max_len 512, bf16) with random weights from a numpy seed,
    greedy ``generate`` of 128 tokens for 8 prompts of 64. Launch counts
@@ -36,10 +44,27 @@ Phases (any failure ends the run with a non-zero exit and no result):
    plain versions on the card; 20 steps on the batch give finite losses
    that fall; step time, tokens/s, MFU, the device busy share and the
    attention kernels' device time per step are printed.
+5. char-RNN serving at full width: the JAX package's LSTM decode
+   benchmark (vocab 64, two GravesLSTM of 512, RnnOutputLayer softmax,
+   f32), random weights from a numpy seed, greedy ``generate`` of 128
+   tokens for 32 prompts of 32. ``lstm_fwd_only`` launches once per layer
+   per prompt step and per decode step, 2 x (32 + 127) times, and no
+   other LSTM kernel; ``generate`` equals ``generate_eager``; ``output``
+   on the prompt agrees with the plain versions; ``rnn_time_step`` fed
+   the prompt step by step ends on ``output``'s last step.
+6. char-RNN training at full width: the JAX package's LSTM training
+   benchmark (the same stack, bf16, Adam at 0.01, batch 1024, seq 128,
+   one-hot ids of a seeded Markov chain, labels the ids rolled by one). One
+   ``gradient_and_score`` with the kernels against the plain versions;
+   one ``fit`` step launches ``lstm_fwd``, ``lstm_bwd`` and ``lstm_dw``
+   once per layer and ``lstm_fwd_only`` never; 20 steps give finite
+   losses that fall; step time, tokens/s, MFU, busy share, the LSTM
+   kernels' device ms per step and peak memory are printed.
 
 The last lines are the card's name and power limit, one JSON object
-with every kernel's numbers, and ``{"ok": true, "device": {...}}``.
-Imports nothing of JAX or of the JAX package.
+with every kernel's numbers, and ``{"ok": true, "device": {...}}``
+(only when every phase ran). Imports nothing of JAX or of the JAX
+package.
 """
 
 from __future__ import annotations
@@ -84,6 +109,35 @@ TRAIN_BATCH, TRAIN_STEPS = 16, 20
 # versions on the card: bf16 attention outputs and gradients that differ
 # by bf16 roundings pass through 8 bf16 layers
 TRAIN_LOSS_TOL, TRAIN_GRAD_REL = 1e-2, 2e-2
+
+# LSTM kernels vs their plain versions (phase 2b). f32: CUDA-core FMAs
+# (no TF32) against cuBLAS f32, so only the order of the sums differs,
+# carried through up to 128 steps of the recurrence (forward outputs are
+# at most ~1 in size: an absolute bound; gradients relative to max
+# |ref|). bf16: both sides round h, the streams and dg at the same
+# points, but a product that differs in its last f32 bit can round to
+# the neighbouring bf16 value, and the recurrence carries that on; so
+# the bound is relative to max(1, max |ref|), as the flash backward's.
+LSTM_TOL_F32, LSTM_BWD_REL_F32 = 5e-5, 1e-4
+LSTM_REL_BF16 = 3e-2
+LSTM_CASES = [  # (dtype, b, t, n); the training and serving shapes first
+    ("bfloat16", 1024, 128, 512), ("float32", 32, 1, 512),
+    ("bfloat16", 32, 1, 512), ("float32", 32, 128, 512),
+    ("bfloat16", 8, 9, 128), ("float32", 8, 9, 128),
+    ("bfloat16", 1024, 9, 128), ("float32", 1024, 9, 128),
+    ("bfloat16", 32, 9, 1024), ("float32", 32, 9, 1024),
+    ("bfloat16", 128, 128, 1024), ("float32", 8, 128, 1024),
+]
+CHAR_VOCAB, CHAR_HIDDEN = 64, 512
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 32, 32, 128
+# output with the kernels vs the plain versions (f32): the sums of the
+# recurrent product in another order, through two layers and 32 steps
+SERVE_OUT_TOL = 1e-5
+CHAR_BATCH, CHAR_SEQ, CHAR_STEPS = 1024, 128, 20
+# one bf16 step, kernels vs plain versions on the card: loss, and the
+# relative L2 of each parameter's gradient (bf16 roundings of h and dg
+# that differ, carried through 128 steps and two layers)
+CHAR_LOSS_TOL, CHAR_GRAD_REL = 1e-2, 3e-2
 
 
 def _check(ok: bool, what: str) -> None:
@@ -143,6 +197,28 @@ def _sum_ms(per_name: dict, match: str = "") -> float:
 def _device_ms(torch, fn, reps: int, match: str = "") -> float:
     """Device ms per call of ``fn``, of the names containing ``match``."""
     return _sum_ms(_device_times(torch, fn, reps), match)
+
+
+def _clocks() -> str:
+    """The card's SM and memory clocks, power draw and temperature now."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,"
+                        "power.draw,temperature.gpu", "--format=csv,noheader"],
+                       capture_output=True, text=True, timeout=60, check=True)
+    return r.stdout.strip().splitlines()[0]
+
+
+def _ptxas(report):
+    """[(kernel, registers, spill store bytes)] from ``-Xptxas -v``."""
+    out, fn, spill = [], None, 0
+    for ln in report.splitlines():
+        if "Compiling entry function" in ln:
+            fn, spill = ln.split("'")[1], 0
+        elif "bytes spill stores" in ln:
+            spill = int(ln.split("bytes spill stores")[0].split(",")[-1])
+        elif "Used " in ln and fn is not None:
+            out.append((fn, int(ln.split("Used ")[1].split()[0]), spill))
+            fn = None
+    return out
 
 
 def _card() -> str:
@@ -516,10 +592,372 @@ def phase_train(torch, np, kernels, flash):
     return launches, metrics
 
 
-def main() -> int:
+def _lstm_bounds(dtype, b, t, n):
+    """{kernel: (bound_ms, bound_by)}: the recurrent product's flops
+    (2 t b n 4n, the dh recurrence and dWr alike) over the peak rate of
+    the type, or each kernel's own bytes (every input read once, every
+    output written once) over the memory rate, whichever is larger."""
+    s = 2 if dtype == "bfloat16" else 4
+    seq = t * b * n * s            # one [t, b, n] stream
+    w, carry, peep = 4 * n * n * s, b * n * (s + 4), 3 * n * 4
+    nbytes = {
+        "lstm_fwd_only": 4 * seq + w + carry + peep + seq + carry,
+        "lstm_fwd": 4 * seq + w + carry + peep + 6 * seq,
+        # five residuals, gout, h0, c0, dc_T in; dg, h_prev, dh0, dc0 out
+        "lstm_bwd": 6 * seq + w + peep + carry + 4 * b * n + 5 * seq + 8 * b * n,
+        "lstm_dw": 5 * seq + 16 * n * n + peep,
+    }
+    flops = 2.0 * t * b * n * 4 * n
+    out = {}
+    for name, nb in nbytes.items():
+        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+        t_bytes = nb / PEAK_BYTES * 1e3
+        out[name] = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return out
+
+
+def _lstm_check(what, dtype, got, want, forward):
+    """max |got - want| within the stated tolerance; returns it."""
+    _check(bool(got.float().isfinite().all()), f"finite {what}")
+    err = (got.float() - want.float()).abs().max().item()
+    ref = want.float().abs().max().item()
+    if dtype == "float32":
+        tol = LSTM_TOL_F32 if forward else LSTM_BWD_REL_F32 * max(1.0, ref)
+    else:
+        tol = LSTM_REL_BF16 * max(1.0, ref)
+    _check(err <= tol, f"{what}: err {err} > tol {tol}")
+    return err
+
+
+def phase_lstm_kernels(torch, lk):
+    """Phase 2b: the LSTM kernels against their plain versions."""
+    rows = []
+    g = torch.Generator(device="cuda").manual_seed(2024)
+    for dtype, b, t, n in LSTM_CASES:
+        dt = getattr(torch, dtype)
+
+        def r(*shape, scale=1.0):
+            return torch.randn(*shape, generator=g, device="cuda") * scale
+        xg, wr = r(t, b, 4 * n).to(dt), r(n, 4 * n, scale=n ** -0.5).to(dt)
+        pe = tuple(r(n, scale=0.1) for _ in range(3))
+        h0, c0 = r(b, n, scale=0.5).to(dt), r(b, n, scale=0.5)
+        gout, gcl = r(t, b, n).to(dt), r(b, n)
+        tag = f"{dtype} b{b} t{t} n{n}"
+
+        fo = lk.lstm_fwd(xg, wr, *pe, h0, c0, with_residuals=False)
+        hs, res = lk.lstm_fwd(xg, wr, *pe, h0, c0)
+        bwd = lk.lstm_bwd(res, wr, *pe, h0, c0, gout, gcl)
+        torch.cuda.synchronize()
+        fo_p = lk.lstm_fwd_plain(xg, wr, *pe, h0, c0, with_residuals=False)
+        hs_p, res_p = lk.lstm_fwd_plain(xg, wr, *pe, h0, c0)
+        bwd_p = lk.lstm_bwd_plain(res, wr, *pe, h0, c0, gout, gcl)
+        err_fo = max(_lstm_check(f"lstm_fwd_only {nm} {tag}", dtype, a, p, True)
+                     for nm, a, p in zip(("h", "h_T", "c_T"),
+                                         (fo[0], *fo[1]), (fo_p[0], *fo_p[1])))
+        err_fwd = max(_lstm_check(f"lstm_fwd {nm} {tag}", dtype, a, p, True)
+                      for nm, a, p in zip(("h", "i", "f", "o", "blk", "c"),
+                                          (hs, *res), (hs_p, *res_p)))
+        errs_bwd = {nm: _lstm_check(f"lstm_bwd {nm} {tag}", dtype, a, p, False)
+                    for nm, a, p in zip(("dg", "dWr", "dwci", "dwcf", "dwco",
+                                         "dh0", "dc0"), bwd, bwd_p)}
+
+        run_fo = lambda: lk.lstm_fwd(xg, wr, *pe, h0, c0,  # noqa: E731
+                                     with_residuals=False)
+        run_fwd = lambda: lk.lstm_fwd(xg, wr, *pe, h0, c0)  # noqa: E731
+        run_bwd = lambda: lk.lstm_bwd(res, wr, *pe, h0, c0, gout, gcl)  # noqa: E731
+        plain_fo = lambda: lk.lstm_fwd_plain(  # noqa: E731
+            xg, wr, *pe, h0, c0, with_residuals=False)
+        plain_fwd = lambda: lk.lstm_fwd_plain(xg, wr, *pe, h0, c0)  # noqa: E731
+        plain_bwd = lambda: lk.lstm_bwd_plain(  # noqa: E731
+            res, wr, *pe, h0, c0, gout, gcl)
+        # yardstick: nn.LSTM at the same b, n, t and dtype, input size 16
+        # (its input product is left small), no peepholes
+        ref_lstm = torch.nn.LSTM(16, n).to("cuda", dt)
+        xs = r(t, b, 16).to(dt)
+        hc = (h0[None].contiguous(), c0.to(dt)[None].contiguous())
+        go = r(t, b, n).to(dt)
+
+        def lib_fwd():
+            with torch.no_grad():
+                return ref_lstm(xs, hc)
+
+        def lib_fb():
+            out, _ = ref_lstm(xs, hc)
+            return torch.autograd.grad(out, list(ref_lstm.parameters()), go)
+
+        reps = 5 if t * b * n >= 1 << 24 else 20
+        t_fo = _device_times(torch, run_fo, reps)
+        t_fwd = _device_times(torch, run_fwd, reps)
+        t_bwd = _device_times(torch, run_bwd, reps)
+        lib_f = _device_ms(torch, lib_fwd, reps)
+        bounds = _lstm_bounds(dtype, b, t, n)
+        row = dict(
+            dtype=dtype, b=b, t=t, n=n, err_fwd_only=err_fo, err_fwd=err_fwd,
+            err_bwd=errs_bwd,
+            fwd_only_ms=_sum_ms(t_fo, "lstm_fwd_kernel"),
+            fwd_only_call_device_ms=_sum_ms(t_fo),
+            fwd_ms=_sum_ms(t_fwd, "lstm_fwd_kernel"),
+            fwd_call_device_ms=_sum_ms(t_fwd),
+            bwd_ms=_sum_ms(t_bwd, "lstm_bwd_kernel"),
+            dw_ms=_sum_ms(t_bwd, "lstm_dw_kernel"),
+            backward_ms=_sum_ms(t_bwd),
+            plain_fwd_only_ms=_device_ms(torch, plain_fo, 2),
+            plain_fwd_ms=_device_ms(torch, plain_fwd, 2),
+            plain_bwd_ms=_device_ms(torch, plain_bwd, 2),
+            library_fwd_ms=lib_f,
+            library_bwd_ms=_device_ms(torch, lib_fb, reps) - lib_f,
+            bounds={k: list(v) for k, v in bounds.items()},
+            fwd_only_call_ms=_time_ms(torch, run_fo, reps),
+            fwd_call_ms=_time_ms(torch, run_fwd, reps),
+            bwd_call_ms=_time_ms(torch, run_bwd, reps),
+            plain_fwd_only_call_ms=_time_ms(torch, plain_fo, 2, warmup=1))
+        print("lstm " + json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
+@contextlib.contextmanager
+def _plain_lstm(lk):
+    """Run the fused LSTM scan through the kernels' plain versions on the
+    same card tensors, forward and backward (comparisons only)."""
+    saved = lk.lstm_fwd, lk.lstm_bwd
+    lk.lstm_fwd = lambda *a, with_residuals=True: lk.lstm_fwd_plain(  # noqa: E731
+        *a, with_residuals=with_residuals)
+    lk.lstm_bwd = lk.lstm_bwd_plain
+    try:
+        yield
+    finally:
+        lk.lstm_fwd, lk.lstm_bwd = saved
+
+
+def _char_rnn(compute_dtype):
+    """The JAX package's char-RNN benchmark stack (``bench.py``
+    ``bench_lstm``/``bench_lstm_decode``), built by the port's builder."""
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    builder = (NeuralNetConfiguration.builder().seed(1).learning_rate(0.01)
+               .updater("adam").activation("tanh"))
+    if compute_dtype:
+        builder = builder.compute_dtype(compute_dtype)
+    conf = (builder.list()
+            .layer(L.GravesLSTM(n_in=CHAR_VOCAB, n_out=CHAR_HIDDEN))
+            .layer(L.GravesLSTM(n_in=CHAR_HIDDEN, n_out=CHAR_HIDDEN))
+            .layer(L.RnnOutputLayer(n_in=CHAR_HIDDEN, n_out=CHAR_VOCAB,
+                                    activation="softmax",
+                                    loss_function="mcxent"))
+            .build())
+    return MultiLayerNetwork(conf).init()
+
+
+def char_rnn_flops_per_token(vocab, hidden):
+    """``bench.py`` ``bench_lstm``'s count: 3 x 2 x the multiply-adds per
+    token of both layers' input and recurrent products and the head."""
+    macs = (vocab * 4 * hidden + hidden * 4 * hidden
+            + hidden * 4 * hidden + hidden * 4 * hidden + hidden * vocab)
+    return 6.0 * macs
+
+
+def _lstm_launches(kernels, lk):
+    return {k: kernels.LAUNCHES.get(k, 0) for k in (
+        lk.FWD_ONLY_KERNEL, lk.FWD_KERNEL, lk.BWD_KERNEL, lk.DW_KERNEL)}
+
+
+def phase_char_serve(torch, np, kernels, lk):
+    """Phase 5: char-RNN generation at full width; returns (launches,
+    metrics)."""
+    from deeplearning4j_tpu_torch.nn import generate as gen_mod
+    from deeplearning4j_tpu_torch.util.model_serializer import params_from_numpy
+
+    net = _char_rnn(None)
+    params_from_numpy(net, _random_params(net, seed=21))
+    prompts = np.random.default_rng(22).integers(0, CHAR_VOCAB,
+                                                 (SERVE_BATCH, SERVE_PROMPT))
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = net.generate(prompts, SERVE_NEW)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = _lstm_launches(kernels, lk)
+    bucket = gen_mod._pow2_bucket(SERVE_PROMPT)
+    want = {lk.FWD_ONLY_KERNEL: 2 * (bucket + SERVE_NEW - 1), lk.FWD_KERNEL: 0,
+            lk.BWD_KERNEL: 0, lk.DW_KERNEL: 0}
+    _check(launches == want, f"char-RNN generate launches {launches}, "
+           f"expected {want}")
+
+    _check(out.shape == (SERVE_BATCH, SERVE_PROMPT + SERVE_NEW),
+           f"output shape {out.shape}")
+    _check(bool((out[:, :SERVE_PROMPT] == prompts).all()), "prompt echoed")
+    _check(bool(((out >= 0) & (out < CHAR_VOCAB)).all()), "token range")
+    eager = gen_mod.generate_eager(net, prompts, SERVE_NEW)
+    _check(bool((out == eager).all()), "char-RNN generate == generate_eager")
+
+    x = np.eye(CHAR_VOCAB, dtype=np.float32)[prompts]
+    probs = net.output(x)
+    with _plain_lstm(lk):
+        probs_p = net.output(x)
+    _check(bool(np.isfinite(probs).all()), "finite output")
+    out_err = float(np.abs(probs - probs_p).max())
+    _check(out_err <= SERVE_OUT_TOL,
+           f"output kernels vs plain: {out_err} > {SERVE_OUT_TOL}")
+    net.rnn_clear_previous_state()
+    for s in range(SERVE_PROMPT):
+        last = net.rnn_time_step(x[:, s])
+    net.rnn_clear_previous_state()
+    step_err = float(np.abs(last - probs[:, -1]).max())
+    _check(step_err <= SERVE_OUT_TOL,
+           f"rnn_time_step vs output's last step: {step_err}")
+
+    g = gen_mod.build_generator(net)
+    ids = torch.as_tensor(prompts, device="cuda")
+    lengths = torch.full((SERVE_BATCH,), SERVE_PROMPT, device="cuda")
+    prefill_ms = _time_ms(torch, lambda: g.prefill(net.params, ids, lengths), 5)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.generate(prompts, SERVE_NEW)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    gen_s = statistics.median(times)
+    per_gen = _device_times(torch, lambda: net.generate(prompts, SERVE_NEW), 1)
+    dev_ms = _sum_ms(per_gen)
+    metrics = dict(first_generate_s=first_s, generate_s=gen_s,
+                   tokens_per_s=SERVE_BATCH * SERVE_NEW / gen_s,
+                   prefill_ms=prefill_ms,
+                   decode_ms_per_token=(gen_s * 1e3 - prefill_ms) / (SERVE_NEW - 1),
+                   generate_device_ms=dev_ms,
+                   device_busy_share=dev_ms / (gen_s * 1e3),
+                   lstm_fwd_only_ms_per_generate=_sum_ms(per_gen, "lstm_fwd_kernel"),
+                   output_max_abs_diff_vs_plain=out_err,
+                   rnn_time_step_max_abs_diff=step_err)
+    print("char_serve " + json.dumps(metrics), flush=True)
+    return launches, metrics
+
+
+def _markov_ids(np, rng, b, t):
+    """[b, t] ids of a seeded first-order Markov chain over the vocab:
+    each id is followed by one fixed successor with probability 0.9,
+    else by a uniform draw. Unlike uniform ids (whose loss starts at its
+    floor, log vocab, under small random weights) it leaves the net
+    something to learn in 20 steps."""
+    succ = rng.permutation(CHAR_VOCAB)
+    ids = np.empty((b, t), np.int64)
+    ids[:, 0] = rng.integers(0, CHAR_VOCAB, b)
+    noise = rng.random((b, t)) < 0.1
+    draws = rng.integers(0, CHAR_VOCAB, (b, t))
+    for s in range(1, t):
+        ids[:, s] = np.where(noise[:, s], draws[:, s], succ[ids[:, s - 1]])
+    return ids
+
+
+def phase_char_train(torch, np, kernels, lk):
+    """Phase 6: char-RNN training at full width; returns (launches,
+    metrics)."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.util.model_serializer import params_from_numpy
+
+    net = _char_rnn("bfloat16")
+    params_from_numpy(net, _random_params(net, seed=31))
+    ids = _markov_ids(np, np.random.default_rng(32), CHAR_BATCH, CHAR_SEQ)
+    eye = np.eye(CHAR_VOCAB, dtype=np.float32)
+    ds = DataSet(eye[ids], eye[np.roll(ids, -1, axis=1)])
+
+    grads, loss = net.gradient_and_score(ds)
+    with _plain_lstm(lk):
+        grads_p, loss_p = net.gradient_and_score(ds)
+    _check(abs(loss - loss_p) <= CHAR_LOSS_TOL,
+           f"char-RNN loss kernels {loss} vs plain {loss_p}")
+    worst = 0.0
+    for layer, gl in grads.items():
+        for name, gk in gl.items():
+            gp = grads_p[layer][name]
+            _check(bool(torch.isfinite(gk).all()), f"finite grad {layer}/{name}")
+            rel = ((gk - gp).norm() / gp.norm().clamp_min(1e-30)).item()
+            _check(rel <= CHAR_GRAD_REL,
+                   f"char-RNN grad {layer}/{name} kernels vs plain: rel L2 {rel}")
+            worst = max(worst, rel)
+    del grads, grads_p
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    net.fit(ds)
+    torch.cuda.synchronize()
+    launches = _lstm_launches(kernels, lk)
+    want = {lk.FWD_ONLY_KERNEL: 0, lk.FWD_KERNEL: 2, lk.BWD_KERNEL: 2,
+            lk.DW_KERNEL: 2}
+    _check(launches == want, f"char-RNN train step launches {launches}, "
+           f"expected {want}")
+
+    losses, times = [net.score()], []
+    for _ in range(CHAR_STEPS - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(ds)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(net.score())
+    _check(all(np.isfinite(losses)), f"finite losses {losses}")
+    _check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    step_s = statistics.median(times[1:])
+    per_step = _device_times(torch, lambda: net.fit(ds), 3)
+    dev = {m: _sum_ms(per_step, m) for m in
+           ("", "lstm_fwd_kernel", "lstm_bwd_kernel", "lstm_dw_kernel")}
+    # lstm_fwd alone on the step's own layer-0 gates (phase 2b times it on
+    # N(0, 1) gates): the kernel's time in and out of the step's context
+    p0 = net.cast_params(net.params)["layer0"]
+    x0 = torch.as_tensor(ds.features, device="cuda").to(torch.bfloat16)
+    xg0 = torch.matmul(x0.transpose(0, 1), p0["Wx"]) + p0["b"]
+    zeros = torch.zeros(CHAR_BATCH, CHAR_HIDDEN, dtype=torch.bfloat16,
+                        device="cuda")
+    fwd_alone = _device_ms(torch, lambda: lk.lstm_fwd(
+        xg0, p0["Wr"], p0["wci"], p0["wcf"], p0["wco"], zeros, zeros), 5,
+        "lstm_fwd_kernel")
+    del x0, xg0
+    top = sorted(per_step.items(), key=lambda kv: -kv[1])[:12]
+    tokens = CHAR_BATCH * CHAR_SEQ
+    flops = char_rnn_flops_per_token(CHAR_VOCAB, CHAR_HIDDEN)
+    torch.cuda.reset_peak_memory_stats()
+    net.fit(ds)
+    torch.cuda.synchronize()
+    metrics = dict(step_ms=step_s * 1e3, tokens_per_s=tokens / step_s,
+                   mfu=tokens / step_s * flops / PEAK_FLOPS["bfloat16"],
+                   flops_per_token=flops,
+                   step_device_ms=dev[""],
+                   device_busy_share=dev[""] / (step_s * 1e3),
+                   lstm_fwd_ms_per_step=dev["lstm_fwd_kernel"],
+                   lstm_bwd_ms_per_step=dev["lstm_bwd_kernel"],
+                   lstm_dw_ms_per_step=dev["lstm_dw_kernel"],
+                   lstm_fwd_ms_alone_on_step_gates=fwd_alone,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   loss_first=losses[0], loss_last=losses[-1],
+                   loss_vs_plain=abs(loss - loss_p),
+                   grad_rel_l2_vs_plain_max=worst, losses=losses,
+                   top_kernels_ms_per_step=[[k[:90], ms] for k, ms in top])
+    print("char_train " + json.dumps(metrics), flush=True)
+    return launches, metrics
+
+
+PHASES = ("2", "2b", "3", "4", "5", "6")
+
+
+def _phases(argv):
+    """The phases after 0 and 1 to run: all of them, or ``--only a,b``."""
+    if not argv:
+        return PHASES
+    if len(argv) != 2 or argv[0] != "--only" or \
+            not set(argv[1].split(",")) <= set(PHASES):
+        raise SystemExit(f"usage: chip_smoke.py [--only {','.join(PHASES)}]")
+    return tuple(p for p in PHASES if p in argv[1].split(","))
+
+
+def main(argv) -> int:
     import numpy as np
     import torch
 
+    phases = _phases(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false: this needs an "
               "NVIDIA GPU", file=sys.stderr)
@@ -530,6 +968,7 @@ def main() -> int:
     sys.path.insert(0, root)
     from deeplearning4j_tpu_torch import kernels
     from deeplearning4j_tpu_torch.ops import flash_attention as flash
+    from deeplearning4j_tpu_torch.ops import lstm_kernel as lk
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -545,31 +984,76 @@ def main() -> int:
     t0 = time.perf_counter()
     reports = kernels.build()
     for name, report in reports.items():
-        regs = sorted({ln.split("Used ")[1] for ln in report.splitlines()
-                       if "Used " in ln})
-        print(f"phase 1: {name}.cu ptxas: {regs}", flush=True)
+        fns = _ptxas(report)
+        regs = [r for _, r, _ in fns]
+        spills = [(f[f.find("kernel"):][:60], sp) for f, _, sp in fns if sp]
+        print(f"phase 1: {name}.cu ptxas: {len(fns)} kernels, "
+              f"{min(regs)}-{max(regs)} registers, spills {spills}", flush=True)
     print(f"phase 1: built {sorted(reports)} in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
-    # phase 2: kernels against their plain versions
-    rows = phase_kernels(torch, F, flash)
-    print(f"phase 2: {len(rows)} flash_fwd cases within tolerance", flush=True)
-    bwd_rows = phase_bwd_kernels(torch, F, flash)
-    print(f"phase 2: {len(bwd_rows)} flash_dq/flash_dkv cases within tolerance",
-          flush=True)
+    done = {}
+    if "2" in phases:  # kernels against their plain versions
+        done["2"] = phase_kernels(torch, F, flash)
+        print(f"phase 2: {len(done['2'])} flash_fwd cases within tolerance",
+              flush=True)
+        done["2bwd"] = phase_bwd_kernels(torch, F, flash)
+        print(f"phase 2: {len(done['2bwd'])} flash_dq/flash_dkv cases within "
+              "tolerance", flush=True)
+    if "2b" in phases:
+        print(f"clocks: {_clocks()}", flush=True)
+        done["2b"] = phase_lstm_kernels(torch, lk)
+        print(f"phase 2b: {len(done['2b'])} LSTM cases (lstm_fwd_only, lstm_fwd, "
+              "lstm_bwd + lstm_dw) within tolerance", flush=True)
+    if "3" in phases:  # serving at full width
+        done["3"] = phase_gpt(torch, np, kernels, flash)
+        m = done["3"][1]
+        print(f"phase 3: gpt generate {m['tokens_per_s']:.1f} tokens/s, "
+              f"prefill {m['prefill_ms']:.3f} ms on {card}", flush=True)
+    if "4" in phases:  # training at full width
+        print(f"clocks: {_clocks()}", flush=True)
+        done["4"] = phase_train(torch, np, kernels, flash)
+        m = done["4"][1]
+        print(f"phase 4: gpt train step {m['step_ms']:.2f} ms, "
+              f"{m['tokens_per_s']:.0f} tokens/s, MFU {m['mfu']:.4f}, "
+              f"loss {m['loss_first']:.4f} -> {m['loss_last']:.4f} on {card}",
+              flush=True)
+    if "5" in phases:  # char-RNN serving at full width
+        print(f"clocks: {_clocks()}", flush=True)
+        done["5"] = phase_char_serve(torch, np, kernels, lk)
+        m = done["5"][1]
+        print(f"phase 5: char-RNN generate {m['tokens_per_s']:.1f} tokens/s, "
+              f"prefill {m['prefill_ms']:.3f} ms on {card}", flush=True)
+    if "6" in phases:  # char-RNN training at full width
+        print(f"clocks: {_clocks()}", flush=True)
+        done["6"] = phase_char_train(torch, np, kernels, lk)
+        m = done["6"][1]
+        print(f"phase 6: char-RNN train step {m['step_ms']:.2f} ms, "
+              f"{m['tokens_per_s']:.0f} tokens/s, MFU {m['mfu']:.4f}, "
+              f"loss {m['loss_first']:.4f} -> {m['loss_last']:.4f} on {card}",
+              flush=True)
+    if phases != PHASES:
+        print(f"chip_smoke: ran phases 0, 1, {', '.join(phases)} only; "
+              "no result", flush=True)
+        return 0
 
-    # phase 3: serving at full width
-    launches, metrics = phase_gpt(torch, np, kernels, flash)
-    print(f"phase 3: gpt generate {metrics['tokens_per_s']:.1f} tokens/s, "
-          f"prefill {metrics['prefill_ms']:.3f} ms on {card}", flush=True)
+    summary = {"kernels": _flash_summary(done) + _lstm_summary(done, lk)}
+    print(card)
+    print(json.dumps(summary))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
 
-    # phase 4: training at full width
-    train_launches, train = phase_train(torch, np, kernels, flash)
-    print(f"phase 4: gpt train step {train['step_ms']:.2f} ms, "
-          f"{train['tokens_per_s']:.0f} tokens/s, MFU {train['mfu']:.4f}, "
-          f"loss {train['loss_first']:.4f} -> {train['loss_last']:.4f} on {card}",
-          flush=True)
 
+SRC = "deeplearning4j_tpu_torch/kernels/"
+
+
+def _flash_summary(done):
+    """The flash kernels' entries of the kernels line (phases 2-4)."""
+    from deeplearning4j_tpu_torch.ops import flash_attention as flash
+
+    rows, bwd_rows = done["2"], done["2bwd"]
+    launches, train_launches = done["3"][0], done["4"][0]
     main_row = next(r for r in rows if r["dtype"] == "bfloat16" and r["d"] == 64
                     and r["tq"] == PROMPT and r["tk"] == PROMPT and r["causal"]
                     and r["bh"] == BATCH * GPT["num_heads"])
@@ -583,10 +1067,9 @@ def main() -> int:
                     and r["bh"] == train_bh)
 
     fwd_train, bwd_row = train_row(rows), train_row(bwd_rows)
-    src = "deeplearning4j_tpu_torch/kernels/"
-    summary = {"kernels": [{
+    return [{
         "name": flash.KERNEL, "route": "cuda",
-        "source": src + "flash_fwd.cu",
+        "source": SRC + "flash_fwd.cu",
         "replaces": "deeplearning4j_tpu/ops/flash_attention.py:150",
         "launches": launches.get(flash.KERNEL, 0),
         "max_abs_err": main_row["err_o"],
@@ -602,7 +1085,7 @@ def main() -> int:
         | {"max_abs_err": fwd_train["err_o"],
            "shape": [train_bh, TRAIN["max_len"], d_head]},
     }] + [{
-        "name": name, "route": "cuda", "source": src + "flash_bwd.cu",
+        "name": name, "route": "cuda", "source": SRC + "flash_bwd.cu",
         "replaces": f"deeplearning4j_tpu/ops/flash_attention.py:{line}",
         "launches": train_launches.get(name, 0),
         "max_abs_err": max(bwd_row[f"err_{g}"] for g in grads),
@@ -620,13 +1103,54 @@ def main() -> int:
                                      for g in grads),
     } for name, line, key, grads in (
         (flash.DQ_KERNEL, 220, "dq", ("dq",)),
-        (flash.DKV_KERNEL, 252, "dkv", ("dk", "dv")))]}
-    print(card)
-    print(json.dumps(summary))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
-    return 0
+        (flash.DKV_KERNEL, 252, "dkv", ("dk", "dv")))]
+
+
+def _lstm_summary(done, lk):
+    """The LSTM kernels' entries of the kernels line (phases 2b, 5, 6):
+    ``lstm_fwd_only`` at the serving shape, the training kernels at the
+    training shape. The plain backward and the yardstick's backward
+    compute every gradient together: read their plain_ms and library_ms
+    beside backward_ms (the whole lstm_bwd call: sweep and weights)."""
+    rows = done["2b"]
+    serve_launches, train_launches = done["5"][0], done["6"][0]
+
+    def row(dtype, b, t, n):
+        return next(r for r in rows if (r["dtype"], r["b"], r["t"], r["n"])
+                    == (dtype, b, t, n))
+
+    serve = row("float32", SERVE_BATCH, 1, CHAR_HIDDEN)
+    train = row("bfloat16", CHAR_BATCH, CHAR_SEQ, CHAR_HIDDEN)
+    replaces = "deeplearning4j_tpu/ops/lstm_kernel.py:"
+    entries = []
+    for name, r, line, key, err, plain, lib, src in (
+            (lk.FWD_ONLY_KERNEL, serve, 101, "fwd_only", "err_fwd_only",
+             "plain_fwd_only_ms", "library_fwd_ms", "lstm_fwd.cu"),
+            (lk.FWD_KERNEL, train, 86, "fwd", "err_fwd", "plain_fwd_ms",
+             "library_fwd_ms", "lstm_fwd.cu"),
+            (lk.BWD_KERNEL, train, 181, "bwd", None, "plain_bwd_ms",
+             "library_bwd_ms", "lstm_bwd.cu"),
+            (lk.DW_KERNEL, train, 181, "dw", None, "plain_bwd_ms",
+             "library_bwd_ms", "lstm_bwd.cu")):
+        bound_ms, bound_by = r["bounds"][name]
+        errs = (lambda x: x[err]) if err else (lambda x: max(x["err_bwd"].values()))
+        entry = {
+            "name": name, "route": "cuda", "source": SRC + src,
+            "replaces": replaces + str(line),
+            "launches": serve_launches[name] if name == lk.FWD_ONLY_KERNEL
+            else train_launches[name],
+            "max_abs_err": errs(r), "ms": r[f"{key}_ms"], "plain_ms": r[plain],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": r[lib],
+            "shape": [r["b"], r["t"], r["n"], r["dtype"]],
+            "max_abs_err_all_cases": max(errs(x) for x in rows),
+            "serve_launches": serve_launches[name],
+            "train_launches": train_launches[name],
+        }
+        if key in ("bwd", "dw"):
+            entry["backward_ms"] = r["backward_ms"]
+        entries.append(entry)
+    return entries
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -2,7 +2,8 @@
 first use.
 
 Each ``<name>.cu`` exposes plain C functions and includes no PyTorch
-header, so ``nvcc`` takes seconds. :func:`load` compiles one source for
+header (only CUDA's and this directory's ``.cuh`` files), so ``nvcc``
+takes seconds. :func:`load` compiles one source for
 ``sm_90a`` into ``_build/lib<name>.so`` and opens it with ``ctypes``;
 :func:`build` starts one ``nvcc`` per source, all at once, and waits for
 them. A build that fails raises: there is no fallback to the plain
@@ -24,7 +25,7 @@ from typing import Dict, Iterable
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("flash_fwd", "flash_bwd")
+SOURCES = ("flash_fwd", "flash_bwd", "lstm_fwd", "lstm_bwd")
 NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -51,6 +52,14 @@ def _nvcc() -> str:
         raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
                            "toolkit (CUDA_HOME or nvcc on PATH)")
     return path
+
+
+def _newest_source(name: str) -> float:
+    """The latest modification time of ``name``'s source and the shared
+    headers it may include."""
+    headers = [os.path.join(_HERE, f) for f in os.listdir(_HERE)
+               if f.endswith(".cuh")]
+    return max(os.path.getmtime(p) for p in [source_path(name), *headers])
 
 
 def _lib_path(name: str) -> str:
@@ -90,7 +99,7 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         path = _lib_path(name)
         if (not os.path.exists(path)
-                or os.path.getmtime(path) < os.path.getmtime(source_path(name))):
+                or os.path.getmtime(path) < _newest_source(name)):
             build([name])
         lib = _LIBS[name] = ctypes.CDLL(path)
     return lib

@@ -3,10 +3,11 @@
 Counterpart of ``deeplearning4j_tpu/nn/conf/layers.py``: the same frozen
 dataclasses, field for field and default for default, so a config JSON
 written by the reference parses here and serializes back to the same
-text. Every type parses; only the layers of the GPT stack
-(``SequenceEmbeddingLayer``, ``TransformerBlock``, ``RnnOutputLayer``,
-``OutputLayer``) have implementations yet, and building another raises
-``NotImplementedError``.
+text. Every type parses; the layers of the GPT stack
+(``SequenceEmbeddingLayer``, ``TransformerBlock``), of the char-RNN
+(``GravesLSTM``, ``GravesBidirectionalLSTM``) and the output layers
+(``RnnOutputLayer``, ``OutputLayer``) have implementations, and building
+another raises ``NotImplementedError``.
 
 Fields with value ``None`` inherit the global default from the enclosing
 :class:`~deeplearning4j_tpu_torch.nn.conf.NeuralNetConfiguration`.

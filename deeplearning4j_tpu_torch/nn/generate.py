@@ -1,17 +1,23 @@
-"""Autoregressive generation: bucketed prefill + KV-cache decode.
+"""Autoregressive generation: bucketed prefill + decode.
 
-Counterpart of ``deeplearning4j_tpu/nn/generate.py`` for
-SequenceEmbedding -> TransformerBlock* -> head stacks:
+Counterpart of ``deeplearning4j_tpu/nn/generate.py``:
 
-- **prefill**: one batched forward over the prompt, right-padded up the
+- **transformer stacks** (SequenceEmbedding -> TransformerBlock* ->
+  head): one batched prefill over the prompt, right-padded up the
   power-of-two bucket ladder, writes every block's KV cache through the
   flash-attention kernel and returns the logits of each row's last real
-  token (``lengths - 1``);
-- **decode**: one ``decode_step`` per new token over the dense caches,
-  with per-row positions. ``run`` keeps tokens, positions and the EOS
-  done-mask on the device and fetches the tokens once at the end;
-  ``run_eager`` is the per-token host-loop reference (one fetch per
-  token). Both give the same tokens.
+  token (``lengths - 1``); then one ``decode_step`` per new token over
+  the dense caches, with per-row positions;
+- **recurrent stacks** (layers with ``rnn_time_step`` under a head, the
+  char-RNN): the one-hot prompt, padded to a power of two, streams
+  through the stack one timestep at a time (the fused LSTM scan at
+  t = 1), each row's carries held past its own length; then one step
+  per token, the sampled ids fed back as one-hot rows. No positions:
+  the carry is the history;
+- ``run`` keeps tokens, positions and the EOS done-mask on the device
+  and fetches the tokens once at the end; ``run_eager`` is the
+  per-token host-loop reference (one fetch per token). Both give the
+  same tokens;
 - **sampling**: greedy, or temperature with the reference's top-k and
   top-p filters and a Gumbel-max draw. The noise of row ``r`` at step
   ``s`` comes from a ``torch.Generator`` seeded from the row's key
@@ -19,9 +25,8 @@ SequenceEmbedding -> TransformerBlock* -> head stacks:
   depend on its batch mates. ``jax.random`` cannot be replayed, so
   sampled paths match the reference in distribution, not draw for draw.
 
-The reference's decode metrics and spans, the paged pool programs, the
-speculative programs and the recurrent generator wait for later slices
-(ROADMAP Queue A).
+The reference's decode metrics and spans, the paged pool programs and
+the speculative programs wait for later slices (ROADMAP Queue A).
 """
 
 from __future__ import annotations
@@ -30,12 +35,14 @@ from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.datasets.iterators import bucket_for, bucket_sizes
 from deeplearning4j_tpu_torch.nn.layers.transformer import (
     SequenceEmbeddingImpl,
     TransformerBlockImpl,
 )
+from deeplearning4j_tpu_torch.util.dtypes import cast_floats
 from deeplearning4j_tpu_torch.util.rng import MASK64, mix64 as _mix
 
 #: (temperature, top_k, top_p, eos_token-or-None)
@@ -54,6 +61,12 @@ def row_keys(seed: int, rows: int) -> List[int]:
     """Per-row 63-bit keys from ``(seed, row)``."""
     base = _mix(int(seed) & MASK64)
     return [_mix(base ^ r) >> 1 for r in range(rows)]
+
+
+def _pow2_bucket(n: int) -> int:
+    """Smallest power of two >= n (the bucket ladder of recurrent
+    prompts, which have no max_len to cap at)."""
+    return 1 << max(0, int(n) - 1).bit_length() if n > 1 else 1
 
 
 def _gumbel(keys: Sequence[int], folds: Sequence[int], vocab: int,
@@ -128,7 +141,70 @@ def sample_tokens_rowwise(logits, keys, folds, temp_v, top_k_v, top_p_v):
     return torch.where(temp_v > 0.0, sampled, greedy)
 
 
-class TransformerGenerator:
+class _Generator:
+    """The sampling loop both generators share. A generator supplies
+    ``_start(params, ids, lengths, max_new) -> (state, logits of each
+    row's last prompt token)`` (ids and lengths on the device) and
+    ``_next(state, tok) -> (state, next logits)``."""
+
+    def _begin(self, params, ids, lengths, max_new):
+        dev = self.net.device
+        ids_d = torch.as_tensor(np.asarray(ids), dtype=torch.long, device=dev)
+        len_d = torch.as_tensor(np.asarray(lengths), dtype=torch.long,
+                                device=dev)
+        return (len_d, *self._start(params, ids_d, len_d, max_new))
+
+    def run(self, params, ids: np.ndarray, lengths: np.ndarray, max_new: int,
+            sampler: SamplerSig, keys: Sequence[int]) -> np.ndarray:
+        """Generation over a bucket-padded prompt batch: ``ids`` [b, t_pad]
+        (rows right-padded past ``lengths``) -> the [b, max_new]
+        generated ids. Tokens and the done-mask stay on the device; the
+        tokens are fetched once."""
+        temperature, top_k, top_p, eos = sampler
+        len_d, state, logits0 = self._begin(params, ids, lengths, max_new)
+        tok = sample_tokens(logits0, keys, 0, temperature, top_k, top_p)
+        if eos is not None:
+            tok = torch.where(len_d == 0, eos, tok)
+            done = tok == eos
+        out = [tok]
+        for s in range(1, max_new):
+            state, logits = self._next(state, tok)
+            nxt = sample_tokens(logits, keys, s, temperature, top_k, top_p)
+            if eos is not None:
+                nxt = torch.where(done, eos, nxt)
+                done = done | (nxt == eos)
+            out.append(nxt)
+            tok = nxt
+        return torch.stack(out, dim=1).cpu().numpy()
+
+    def run_eager(self, params, ids, lengths, max_new, sampler, keys
+                  ) -> np.ndarray:
+        """Per-token host-loop reference for :meth:`run`: same prefill
+        and math, the tokens and the done-mask kept on the host and
+        fetched after every step."""
+        temperature, top_k, top_p, eos = sampler
+        dev = self.net.device
+        _, state, logits0 = self._begin(params, ids, lengths, max_new)
+        tok = sample_tokens(logits0, keys, 0, temperature, top_k,
+                            top_p).cpu().numpy()
+        done = np.zeros(tok.shape[0], bool)
+        if eos is not None:
+            tok = np.where(np.asarray(lengths) == 0, eos, tok)
+            done |= tok == eos
+        out = [tok]
+        for s in range(1, max_new):
+            state, logits = self._next(state, torch.as_tensor(tok, device=dev))
+            nxt = sample_tokens(logits, keys, s, temperature, top_k,
+                                top_p).cpu().numpy()
+            if eos is not None:
+                nxt = np.where(done, eos, nxt)
+                done |= nxt == eos
+            out.append(nxt)
+            tok = nxt
+        return np.stack(out, axis=1)
+
+
+class TransformerGenerator(_Generator):
     """KV-cache generation for SequenceEmbedding -> TransformerBlock* ->
     head stacks: bucketed batched prefill + per-token decode."""
 
@@ -187,87 +263,106 @@ class TransformerGenerator:
         return self._head_logits(pc, x)
 
     # --------------------------------------------------------- run
+    # state: (compute-dtype params, caches, each row's next position)
 
     def _start(self, params, ids, lengths, max_new):
-        dev = self.net.device
         pc = self.net.cast_params(params)
-        ids_d = torch.as_tensor(np.asarray(ids), dtype=torch.long, device=dev)
-        len_d = torch.as_tensor(np.asarray(lengths), dtype=torch.long,
-                                device=dev)
-        caches, logits0 = self.prefill(pc, ids_d, len_d,
-                                       ids_d.shape[1] + max_new)
-        return pc, len_d, caches, logits0
+        caches, logits0 = self.prefill(pc, ids, lengths,
+                                       ids.shape[1] + max_new)
+        return (pc, caches, lengths.clone()), logits0
 
-    def run(self, params, ids: np.ndarray, lengths: np.ndarray, max_new: int,
-            sampler: SamplerSig, keys: Sequence[int]) -> np.ndarray:
-        """Generation over a bucket-padded prompt batch: ``ids`` [b, t_pad]
-        (rows right-padded past ``lengths``) -> the [b, max_new]
-        generated ids. Tokens, positions and the done-mask stay on the
-        device; the tokens are fetched once."""
-        temperature, top_k, top_p, eos = sampler
-        pc, len_d, caches, logits0 = self._start(params, ids, lengths, max_new)
-        tok = sample_tokens(logits0, keys, 0, temperature, top_k, top_p)
-        if eos is not None:
-            tok = torch.where(len_d == 0, eos, tok)
-            done = tok == eos
-        pos = len_d.clone()
-        out = [tok]
-        for s in range(1, max_new):
-            nxt = sample_tokens(self.decode(pc, caches, tok, pos), keys, s,
-                                temperature, top_k, top_p)
-            if eos is not None:
-                nxt = torch.where(done, eos, nxt)
-                done = done | (nxt == eos)
-            pos = pos + 1
-            out.append(nxt)
-            tok = nxt
-        return torch.stack(out, dim=1).cpu().numpy()
-
-    def run_eager(self, params, ids, lengths, max_new, sampler, keys
-                  ) -> np.ndarray:
-        """Per-token host-loop reference for :meth:`run`: same prefill
-        and math, the tokens and the done-mask kept on the host and
-        fetched after every step."""
-        temperature, top_k, top_p, eos = sampler
-        dev = self.net.device
-        pc, len_d, caches, logits0 = self._start(params, ids, lengths, max_new)
-        tok = sample_tokens(logits0, keys, 0, temperature, top_k,
-                            top_p).cpu().numpy()
-        done = np.zeros(tok.shape[0], bool)
-        if eos is not None:
-            tok = np.where(np.asarray(lengths) == 0, eos, tok)
-            done |= tok == eos
-        pos = np.asarray(lengths, np.int64)
-        out = [tok]
-        for s in range(1, max_new):
-            logits = self.decode(pc, caches, torch.as_tensor(tok, device=dev),
-                                 torch.as_tensor(pos, device=dev))
-            nxt = sample_tokens(logits, keys, s, temperature, top_k,
-                                top_p).cpu().numpy()
-            if eos is not None:
-                nxt = np.where(done, eos, nxt)
-                done |= nxt == eos
-            pos = pos + 1
-            out.append(nxt)
-            tok = nxt
-        return np.stack(out, axis=1)
+    def _next(self, state, tok):
+        pc, caches, pos = state
+        return (pc, caches, pos + 1), self.decode(pc, caches, tok, pos)
 
 
-def build_generator(net) -> TransformerGenerator:
-    """Build (or return the cached) generator of a SequenceEmbedding ->
-    TransformerBlock* -> head stack. Anything else raises."""
+class RecurrentGenerator(_Generator):
+    """Char-RNN generation for stacks of recurrent (``rnn_time_step``)
+    layers under a head: the prompt streams through the stack's
+    one-timestep forward (the ``MultiLayerNetwork.rnn_time_step``
+    recurrence, on the f32 parameters), then one step per token."""
+
+    def __init__(self, net, impls: List[Any]):
+        self.net = net
+        self.impls = impls
+        self.head = impls[-1]
+        self.cd = net._cd
+        self.n_in = impls[0].conf.n_in
+        self._head_in = impls[-2].conf.n_out
+
+    def prompt_bucket(self, t_in: int, max_new: int) -> int:
+        if t_in < 1:
+            raise ValueError(f"empty prompt (length {t_in})")
+        return _pow2_bucket(t_in)
+
+    def _one_step(self, params, rstate, xt):
+        """The stack below the head, one timestep: returns (the head's
+        input [b, f], the new carries)."""
+        return self.net._rnn_step(params, rstate, xt, self.impls[:-1])
+
+    def _head_logits(self, params, h) -> torch.Tensor:
+        """f32 logits: the head's product on compute-dtype operands."""
+        p = params[self.head.name]
+        if self.cd is not None and "W" in p:
+            p = cast_floats(p, self.cd)
+        return self.head.preout(p, h).float()
+
+    @torch.no_grad()
+    def prefill(self, params, ids: torch.Tensor, lengths: torch.Tensor):
+        """ids [b, t_pad] -> (carries after each row's last real token,
+        that token's logits [b, V] f32)."""
+        b, t_pad = ids.shape
+        xs = F.one_hot(ids, self.n_in).float()
+        rstate = self.net._init_rnn_state(b)
+        last_h = torch.zeros(b, self._head_in, device=ids.device)
+        for t in range(t_pad):
+            h, new = self._one_step(params, rstate, xs[:, t])
+            upd = (t < lengths)[:, None]  # hold carries past each row's end
+            rstate = {k: {s: torch.where(upd, new[k][s], rstate[k][s])
+                          for s in rstate[k]} for k in rstate}
+            last_h = torch.where((t == lengths - 1)[:, None], h, last_h)
+        return rstate, self._head_logits(params, last_h)
+
+    @torch.no_grad()
+    def step(self, params, rstate, tok: torch.Tensor):
+        """Feed tokens [b]; returns (the new carries, next logits [b, V])."""
+        h, rstate = self._one_step(params, rstate,
+                                   F.one_hot(tok, self.n_in).float())
+        return rstate, self._head_logits(params, h)
+
+    # state: (params, the carries)
+
+    def _start(self, params, ids, lengths, max_new):
+        rstate, logits0 = self.prefill(params, ids, lengths)
+        return (params, rstate), logits0
+
+    def _next(self, state, tok):
+        params, rstate = state
+        rstate, logits = self.step(params, rstate, tok)
+        return (params, rstate), logits
+
+
+def build_generator(net):
+    """Build (or return the cached) generator: SequenceEmbedding ->
+    TransformerBlock* -> head stacks get KV-cache prefill/decode; stacks
+    with ``rnn_time_step`` layers under a head get the recurrent path.
+    Anything else raises."""
     gen = net.__dict__.get("_generator")
     if gen is not None and gen.net is net:
         return gen
     impls = net.impls
-    if not (len(impls) >= 3 and isinstance(impls[0], SequenceEmbeddingImpl)
+    if (len(impls) >= 3 and isinstance(impls[0], SequenceEmbeddingImpl)
             and all(isinstance(i, TransformerBlockImpl) for i in impls[1:-1])
             and impls[-1].has_loss()):
+        gen = TransformerGenerator(net, impls)
+    elif (len(impls) >= 2 and impls[-1].has_loss()
+          and any(hasattr(i, "rnn_time_step") for i in impls[:-1])):
+        gen = RecurrentGenerator(net, impls)
+    else:
         raise ValueError(
             "generate() needs a SequenceEmbedding + TransformerBlock stack "
-            "under an output head (recurrent generation is not ported "
-            f"yet); got {[type(i).__name__ for i in impls]}")
-    gen = TransformerGenerator(net, impls)
+            "or a recurrent (rnn_time_step) stack under an output head; "
+            f"got {[type(i).__name__ for i in impls]}")
     net.__dict__["_generator"] = gen
     return gen
 

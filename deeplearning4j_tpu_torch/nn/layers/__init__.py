@@ -1,3 +1,7 @@
 """Layer impls; importing this package registers them."""
 
-from deeplearning4j_tpu_torch.nn.layers import feedforward, transformer  # noqa: F401
+from deeplearning4j_tpu_torch.nn.layers import (  # noqa: F401
+    feedforward,
+    recurrent,
+    transformer,
+)

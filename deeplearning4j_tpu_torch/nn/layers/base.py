@@ -38,8 +38,8 @@ def build_layer(global_conf: NeuralNetConfiguration, layer_conf: L.Layer,
             return _IMPL_REGISTRY[cls](global_conf, layer_conf, name)
     raise NotImplementedError(
         f"{type(layer_conf).__name__} has no implementation in the port yet "
-        "(this slice builds SequenceEmbeddingLayer, TransformerBlock and "
-        "the output layers)")
+        "(it builds SequenceEmbeddingLayer, TransformerBlock, GravesLSTM, "
+        "GravesBidirectionalLSTM and the output layers)")
 
 
 def apply_dropout(x: torch.Tensor, rate: float,

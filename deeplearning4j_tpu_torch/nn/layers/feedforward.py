@@ -50,13 +50,15 @@ class OutputImpl(LayerImpl):
         f32 and the logits stay f32 (never rounded to bf16 in between):
         both operands are upcast after their half-precision cast, which
         gives the exact products the reference's
-        ``preferred_element_type=f32`` matmul sums."""
+        ``preferred_element_type=f32`` matmul sums. Mixed operands (f32
+        activations on a bf16 head) compute in the promoted dtype, as the
+        reference's matmul does."""
         W = params["W"]
-        if torch.promote_types(x.dtype, W.dtype) in (torch.bfloat16,
-                                                     torch.float16):
+        dt = torch.promote_types(x.dtype, W.dtype)
+        if dt in (torch.bfloat16, torch.float16):
             z = x.float() @ W.float()
         else:
-            z = x @ W
+            z = x.to(dt) @ W.to(dt)
         return z + params["b"].to(z.dtype) if "b" in params else z
 
     @property

@@ -6,7 +6,12 @@ Counterpart of ``deeplearning4j_tpu/nn/multilayer.py``: construction,
 ``conf.iterations`` steps of forward, loss (``_score_fn``: the head's
 loss plus the L1/L2 penalties), ``torch.autograd`` backward, per-layer
 gradient normalization and the updater, ``params -= update``; ``score``
-and ``gradient_and_score`` evaluate without dropout. Parameters are a
+and ``gradient_and_score`` evaluate without dropout. Truncated BPTT
+cuts long sequences into ``tbptt_fwd_length`` chunks with the LSTM
+carries crossing them as state; ``rnn_time_step`` streams one timestep
+(or a burst, step by step) with the carries kept between calls. The
+forward and the score return the layers' new states, cast back to the
+stored dtypes. Parameters are a
 dict per layer of float32 tensors on the net's device, in the
 reference's layout (``params["layer1"]["Wqkv"]``), and so is the updater
 state (``opt_state["updater"]["layer1"]["Wqkv"]["m"]``), so both carry
@@ -39,7 +44,11 @@ from deeplearning4j_tpu_torch.nn.updater import (
     normalize_gradient,
 )
 from deeplearning4j_tpu_torch.util.device import DeviceLike, resolve_device
-from deeplearning4j_tpu_torch.util.dtypes import cast_floats, resolve_compute_dtype
+from deeplearning4j_tpu_torch.util.dtypes import (
+    cast_floats,
+    cast_like,
+    resolve_compute_dtype,
+)
 from deeplearning4j_tpu_torch.util.rng import fold_in
 
 Params = Dict[str, Dict[str, torch.Tensor]]
@@ -77,6 +86,8 @@ class MultiLayerNetwork:
             for impl in self.impls]
         # the fit path's dropout streams: step key = fold_in(this, step)
         self._train_key = int(self.gc.seed) + 7919
+        #: rnn_time_step's carries, {layer: {"h", "c"}}; None = no history
+        self._rnn_state: Optional[Dict[str, Any]] = None
 
     def init(self) -> "MultiLayerNetwork":
         """Draw every layer's parameters from one generator seeded with
@@ -99,30 +110,35 @@ class MultiLayerNetwork:
         return cast_floats(params, self._cd) if self._cd is not None else params
 
     @torch.no_grad()
-    def _forward(self, params: Params, x: torch.Tensor,
-                 fmask: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
-        """All-layer inference forward; returns every layer's output."""
-        acts = []
+    def _forward(self, params: Params, states: Dict[str, Any], x: torch.Tensor,
+                 fmask: Optional[torch.Tensor] = None
+                 ) -> Tuple[List[torch.Tensor], Dict[str, Any]]:
+        """All-layer inference forward; returns (every layer's output,
+        the layers' new states)."""
+        acts, new_states = [], {}
         if self._cd is not None and self.impls[0].cast_input:
             x = x.to(self._cd)
         params = self.cast_params(params)
         for impl in self.impls:
-            x, _ = impl.forward(params[impl.name], x, self.states[impl.name],
-                                False, mask=fmask)
+            x, ns = impl.forward(params[impl.name], x, states[impl.name],
+                                 False, mask=fmask)
+            new_states[impl.name] = cast_like(ns, states[impl.name])
             acts.append(x)
-        return acts
+        return acts, new_states
 
     def output(self, x, train: bool = False,
                features_mask: Optional[np.ndarray] = None) -> np.ndarray:
-        """Network output for ``x`` (token ids for a GPT stack): the
-        head's activations, f32, as a numpy array."""
+        """Network output for ``x`` (token ids for a GPT stack, [b, t, f]
+        features for a recurrent one, with an optional [b, t] features
+        mask): the head's activations, f32, as a numpy array."""
         if train:
             raise ValueError("use fit() for training-mode passes")
         xt = torch.as_tensor(np.asarray(x), dtype=torch.float32,
                              device=self.device)
         fm = None if features_mask is None else torch.as_tensor(
             np.asarray(features_mask), dtype=torch.float32, device=self.device)
-        return self._forward(self.params, xt, fm)[-1].float().cpu().numpy()
+        acts, _ = self._forward(self.params, self.states, xt, fm)
+        return acts[-1].float().cpu().numpy()
 
     # ------------------------------------------------------------ training
 
@@ -138,13 +154,16 @@ class MultiLayerNetwork:
         return (self._tensor(ds.features), self._tensor(ds.labels),
                 self._tensor(ds.features_mask), self._tensor(ds.labels_mask))
 
-    def _score_fn(self, params: Params, x: torch.Tensor, y: torch.Tensor,
-                  train: bool, rng: Optional[int],
-                  fmask: Optional[torch.Tensor],
-                  lmask: Optional[torch.Tensor]) -> torch.Tensor:
-        """Data loss (the output layer's) plus the L1/L2 penalties: the
-        quantity a step minimizes. Layers compute on the compute-dtype
-        copy of ``params``; the penalties read the f32 parameters."""
+    def _score_fn(self, params: Params, states: Dict[str, Any],
+                  x: torch.Tensor, y: torch.Tensor, train: bool,
+                  rng: Optional[int], fmask: Optional[torch.Tensor],
+                  lmask: Optional[torch.Tensor]
+                  ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """(data loss (the output layer's) plus the L1/L2 penalties, the
+        layers' new states): the quantity a step minimizes. Layers
+        compute on the compute-dtype copy of ``params``; the penalties
+        read the f32 parameters."""
+        new_states: Dict[str, Any] = {}
         if self._cd is not None and self.impls[0].cast_input:
             x = x.to(self._cd)
         for i, impl in enumerate(self.impls[:-1]):
@@ -152,8 +171,9 @@ class MultiLayerNetwork:
             if self._cd is not None:
                 p = cast_floats(p, self._cd)
             lrng = fold_in(rng, i) if rng is not None else None
-            x, _ = impl.forward(p, x, self.states[impl.name], train, lrng,
-                                mask=fmask)
+            x, ns = impl.forward(p, x, states[impl.name], train, lrng,
+                                 mask=fmask)
+            new_states[impl.name] = cast_like(ns, states[impl.name])
         i_out = len(self.impls) - 1
         p_out = params[self.out.name]
         if self._cd is not None:
@@ -162,19 +182,24 @@ class MultiLayerNetwork:
             else:
                 x = x.float()  # the loss is always f32
         lrng = fold_in(rng, i_out) if rng is not None else None
-        score = self.out.score(p_out, x, y, self.states[self.out.name], train,
+        score = self.out.score(p_out, x, y, states[self.out.name], train,
                                lrng, mask=lmask)
+        new_states[self.out.name] = states[self.out.name]
         for impl in self.impls:
             score = score + impl.regularization_penalty(
                 params[impl.name]).to(score.dtype)
-        return score
+        return score, new_states
 
-    def _grads(self, params: Params, loss_fn) -> Tuple[torch.Tensor, Params]:
-        """(loss, d loss / d params) by ``torch.autograd``."""
+    def _grads(self, params: Params, loss_fn
+               ) -> Tuple[torch.Tensor, Params, Dict[str, Any]]:
+        """(loss, d loss / d params, the new states) by
+        ``torch.autograd``; ``loss_fn`` returns (loss, new states). The
+        states leave detached: a carry crosses into the next step as
+        data, so gradients stop there (truncated BPTT)."""
         leaves = {l: {n: t.detach().requires_grad_() for n, t in p.items()}
                   for l, p in params.items()}
         with torch.enable_grad():
-            loss = loss_fn(leaves)
+            loss, new_states = loss_fn(leaves)
             flat = [t for p in leaves.values() for t in p.values()]
             gs = iter(torch.autograd.grad(loss, flat, allow_unused=True))
         grads: Params = {}
@@ -183,15 +208,16 @@ class MultiLayerNetwork:
             for n, t in p.items():
                 g = next(gs)  # None: the loss does not read this parameter
                 grads[l][n] = torch.zeros_like(t) if g is None else g
-        return loss.detach(), grads
+        return loss.detach(), grads, _detach(new_states)
 
     def _train_step(self, x, y, fmask, lmask) -> torch.Tensor:
         """One optimization step; returns the step's score (a device
         scalar, fetched only when asked for)."""
         it = self.opt_state["step"]
         rng = fold_in(self._train_key, it)
-        score, grads = self._grads(self.params, lambda p: self._score_fn(
-            p, x, y, True, rng, fmask, lmask))
+        score, grads, new_states = self._grads(
+            self.params, lambda p: self._score_fn(
+                p, self.states, x, y, True, rng, fmask, lmask))
         new_params: Params = {}
         new_upd: Dict[str, Any] = {}
         for impl, (nt, thr), ucfg in zip(self.impls, self._gn_specs, self._ucfgs):
@@ -205,6 +231,7 @@ class MultiLayerNetwork:
                 new_params[name][pname] = p - upd.to(p.dtype)
                 new_upd[name][pname] = ust
         self.params = new_params
+        self.states = new_states
         self.opt_state = {"step": it + 1, "updater": new_upd}
         return score
 
@@ -239,8 +266,8 @@ class MultiLayerNetwork:
         if (self.conf.backprop_type == BackpropType.TRUNCATED_BPTT
                 and np.ndim(ds.features) == 3
                 and ds.features.shape[1] > self.conf.tbptt_fwd_length):
-            raise NotImplementedError(
-                "truncated BPTT is not ported yet: ROADMAP Queue A4")
+            self._fit_tbptt(ds)
+            return
         x, y, fm, lm = self._batch(ds)
         for _ in range(max(1, self.gc.iterations)):
             self._score = self._train_step(x, y, fm, lm)
@@ -252,15 +279,117 @@ class MultiLayerNetwork:
             return float(self._score)
         x, y, fm, lm = self._batch(ds)
         with torch.no_grad():
-            return float(self._score_fn(self.params, x, y, False, None, fm, lm))
+            return float(self._score_fn(self.params, self.states, x, y,
+                                        False, None, fm, lm)[0])
 
     def gradient_and_score(self, ds: DataSet) -> Tuple[Params, float]:
         """Gradients and score in eval mode (no dropout), the
         gradient-check entry point."""
         x, y, fm, lm = self._batch(ds)
-        score, grads = self._grads(self.params, lambda p: self._score_fn(
-            p, x, y, False, None, fm, lm))
+        score, grads, _ = self._grads(self.params, lambda p: self._score_fn(
+            p, self.states, x, y, False, None, fm, lm))
         return grads, float(score)
+
+    # ----------------------------------------------------------- tbptt
+
+    def _recurrent_impls(self) -> list:
+        from deeplearning4j_tpu_torch.nn.layers.recurrent import GravesLSTMImpl
+        return [i for i in self.impls if isinstance(i, GravesLSTMImpl)]
+
+    def _fit_tbptt(self, ds: DataSet) -> None:
+        """Truncated BPTT: the sequence is cut into ``tbptt_fwd_length``
+        chunks, one step each; the LSTM carries cross the chunks as
+        state (gradients stop at the boundaries) and the stored states
+        come back after the last chunk."""
+        T = ds.features.shape[1]
+        L = self.conf.tbptt_fwd_length
+        b = ds.features.shape[0]
+        labels = np.asarray(ds.labels)
+        # sparse ids must be integers, so that a dense [b, nOut] label
+        # matrix with nOut == T is never read as per-timestep ids
+        sparse_ids = (labels.ndim == 2 and labels.shape == (b, T)
+                      and np.issubdtype(labels.dtype, np.integer))
+        if not (labels.ndim == 3 or sparse_ids):
+            hint = ""
+            if labels.ndim == 2 and labels.shape == (b, T):
+                hint = (f" Labels have the [batch, T] shape but float dtype "
+                        f"{labels.dtype}; cast to an integer dtype to use "
+                        f"the sparse-id path.")
+            raise ValueError(
+                f"TBPTT requires per-timestep labels [batch, T, nOut] (or "
+                f"sparse INT ids [batch, T]); got shape {labels.shape}. "
+                f"For sequence-level labels use backprop_type='standard'."
+                + hint)
+        rec = self._recurrent_impls()
+        if not rec:
+            raise ValueError("TBPTT configured but no recurrent layers present")
+        saved = {}
+        for impl in rec:
+            saved[impl.name] = self.states[impl.name]
+            zeros = torch.zeros(b, impl.conf.n_out, device=self.device)
+            self.states[impl.name] = {"h": zeros, "c": zeros.clone()}
+        cut = lambda a, sl: None if a is None else a[:, sl]  # noqa: E731
+        try:
+            for t0 in range(0, T, L):
+                sl = slice(t0, t0 + L)
+                self._fit_batch(DataSet(ds.features[:, sl], ds.labels[:, sl],
+                                        cut(ds.features_mask, sl),
+                                        cut(ds.labels_mask, sl)))
+        finally:
+            for impl in rec:  # rnnClearPreviousState after the fit
+                self.states[impl.name] = saved[impl.name]
+
+    # --------------------------------------------------- streaming rnn
+
+    def _init_rnn_state(self, b: int) -> Dict[str, Any]:
+        state = {}
+        for impl in self.impls:
+            if hasattr(impl, "rnn_time_step"):
+                zeros = torch.zeros(b, impl.conf.n_out, device=self.device)
+                state[impl.name] = {"h": zeros, "c": zeros.clone()}
+        return state
+
+    @torch.no_grad()
+    def _rnn_step(self, params: Params, rstate: Dict[str, Any],
+                  xt: torch.Tensor, impls: Optional[list] = None):
+        """One timestep through ``impls`` (the whole stack by default):
+        recurrent layers advance their carries, the others run their
+        inference forward. Returns (the last layer's output, the new
+        carries)."""
+        new_rstate = dict(rstate)
+        for impl in self.impls if impls is None else impls:
+            if hasattr(impl, "rnn_time_step"):
+                xt, new_rstate[impl.name] = impl.rnn_time_step(
+                    params[impl.name], xt, rstate[impl.name])
+            else:
+                xt, _ = impl.forward(params[impl.name], xt,
+                                     self.states[impl.name], False, None)
+        return xt, new_rstate
+
+    def rnn_time_step(self, x) -> np.ndarray:
+        """Stateful streaming inference: one timestep [b, f] -> [b, out],
+        or a burst [b, t, f] -> [b, t, out] run step by step; the LSTM
+        carries persist across calls until
+        :meth:`rnn_clear_previous_state`. The stack runs on the f32
+        parameters, as the reference's."""
+        x = np.asarray(x)
+        if self._rnn_state is None:
+            self._rnn_state = self._init_rnn_state(x.shape[0])
+        xt = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        if x.ndim == 3:
+            outs = []
+            for s in range(xt.shape[1]):
+                o, self._rnn_state = self._rnn_step(self.params,
+                                                    self._rnn_state, xt[:, s])
+                outs.append(o)
+            out = torch.stack(outs, dim=1)
+        else:
+            out, self._rnn_state = self._rnn_step(self.params,
+                                                  self._rnn_state, xt)
+        return out.float().cpu().numpy()
+
+    def rnn_clear_previous_state(self) -> None:
+        self._rnn_state = None
 
     # ----------------------------------------------------- flat param views
 
@@ -292,9 +421,17 @@ class MultiLayerNetwork:
         return sum(t.numel() for p in self.params.values() for t in p.values())
 
     def generate(self, prompt_ids, max_new_tokens: int, **kwargs) -> np.ndarray:
-        """Autoregressive generation (``nn/generate.py``): bucketed
-        prefill through the flash kernel, then a KV-cache decode loop.
+        """Autoregressive generation (``nn/generate.py``): for a GPT
+        stack a bucketed prefill through the flash kernel, then a
+        KV-cache decode loop; for a recurrent stack the prompt streamed
+        step by step through the LSTM scan, then one step per token.
         Knobs: ``temperature`` / ``top_k`` / ``top_p`` / ``eos_token`` /
         ``seed``. Returns [b, t0 + max_new_tokens] int64 token ids."""
         from deeplearning4j_tpu_torch.nn.generate import generate
         return generate(self, prompt_ids, max_new_tokens, **kwargs)
+
+
+def _detach(tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _detach(v) for k, v in tree.items()}
+    return tree.detach() if isinstance(tree, torch.Tensor) else tree

@@ -32,3 +32,17 @@ def cast_floats(tree: Any, dtype: torch.dtype) -> Any:
     if isinstance(tree, torch.Tensor) and tree.is_floating_point():
         return tree.to(dtype)
     return tree
+
+
+def cast_like(new_tree: Any, old_tree: Any) -> Any:
+    """Cast the floating tensors of ``new_tree`` back to the dtypes of
+    the same entries of ``old_tree``: carried state keeps its stored
+    dtype whatever the compute dtype."""
+    if isinstance(new_tree, dict) and isinstance(old_tree, dict):
+        return {k: cast_like(v, old_tree[k]) if k in old_tree else v
+                for k, v in new_tree.items()}
+    if (isinstance(new_tree, torch.Tensor) and isinstance(old_tree, torch.Tensor)
+            and new_tree.is_floating_point() and old_tree.is_floating_point()
+            and new_tree.dtype != old_tree.dtype):
+        return new_tree.to(old_tree.dtype)
+    return new_tree

@@ -5,7 +5,8 @@ written with ``zipfile`` and numpy only:
 
 - ``configuration.json``: ``{"model_type", "conf"}``;
 - ``coefficients.npz``: one array per ``layerN/name`` key;
-- ``modelState.npz``: non-trainable state (empty for the GPT stack);
+- ``modelState.npz``: non-trainable state (empty for the GPT and
+  char-RNN stacks: an LSTM's carries live outside the saved state);
 - ``updaterState.npz``: the step counter ``step`` (int32) and the
   updater state, one array per ``updater/layerN/param/name`` key
   (``m``/``v`` for Adam), so training resumes where it stopped;
@@ -210,6 +211,7 @@ def restore_multi_layer_network(path: str, device: DeviceLike = None,
             _verify(z, path)
             payload = json.loads(z.read("configuration.json"))
             params = _npz_tree(z.read("coefficients.npz"))
+            states = _npz_tree(z.read("modelState.npz"))
             upd = None
             if load_updater and "updaterState.npz" in z.namelist():
                 upd = _npz_tree(z.read("updaterState.npz"))
@@ -220,4 +222,5 @@ def restore_multi_layer_network(path: str, device: DeviceLike = None,
                          "expected MultiLayerNetwork")
     conf = MultiLayerConfiguration.from_json(json.dumps(payload["conf"]))
     net = params_from_numpy(MultiLayerNetwork(conf, device=device).init(), params)
+    net.states = _overlay(net.states, states, net.device, "state")
     return net if upd is None else opt_state_from_numpy(net, upd)

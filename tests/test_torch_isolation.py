@@ -61,6 +61,24 @@ def test_training_slice_modules_are_scanned():
         assert "torch/extension.h" not in text and "jax" not in text.lower()
 
 
+def test_char_rnn_slice_modules_are_scanned():
+    """The char-RNN slice's modules (the recurrent layers, the LSTM
+    kernels' wrapper, the activations) and the LSTM kernel sources are
+    among what the scans cover; the sources include no PyTorch header."""
+    mods = _modules()
+    for name in ("nn.layers.recurrent", "ops.lstm_kernel", "ops.activations",
+                 "nn.generate", "util.dtypes"):
+        assert f"deeplearning4j_tpu_torch.{name}" in mods, name
+    kernel_dir = os.path.join(_PKG, "kernels")
+    srcs = ("lstm_fwd.cu", "lstm_bwd.cu", "lstm_common.cuh")
+    assert set(srcs) <= set(os.listdir(kernel_dir))
+    for src in srcs:
+        with open(os.path.join(kernel_dir, src)) as f:
+            text = f.read()
+        assert "torch/extension.h" not in text and "jax" not in text.lower()
+        assert "cudnn" not in text.lower() and "cublas" not in text.lower()
+
+
 def _imports(path):
     with open(path) as f:
         tree = ast.parse(f.read(), path)

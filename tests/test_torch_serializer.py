@@ -131,6 +131,10 @@ def test_port_builder_writes_the_reference_json():
 
 
 def test_unported_layers_parse_but_do_not_build():
-    conf = MultiLayerConfiguration.from_json(list(_jax_confs())[2].to_json())
-    with pytest.raises(NotImplementedError, match="GravesLSTM"):
+    conf = MultiLayerConfiguration.from_json(
+        JaxNNC.builder().list()
+        .layer(JL.DenseLayer(n_in=4, n_out=3))
+        .layer(JL.OutputLayer(n_in=3, n_out=2, activation="softmax"))
+        .build().to_json())
+    with pytest.raises(NotImplementedError, match="DenseLayer"):
         MultiLayerNetwork(conf, device="cpu")
