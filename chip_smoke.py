@@ -10,16 +10,21 @@ Phases (any failure ends the run with a non-zero exit and no result):
 0. device: the card's name and power limit (nvidia-smi); fails without
    CUDA.
 1. build: every kernel source in this checkout, one ``nvcc`` each, all
-   started together, from an empty build directory, timed.
+   started together, from an empty build directory, timed; fails if a
+   bf16 ``flash_fwd_kernel`` spills registers.
 2. kernels: each kernel's wrapper on card tensors against its plain
-   PyTorch version on the same inputs, at the main paths' shapes and at
-   larger ones, with stated tolerances; median times beside the plain
-   version, the one PyTorch call that computes the same function (a
-   yardstick only, never used by the port) and the least time the card
-   could take (the bound). ``ms`` columns are device time (torch.profiler:
-   the card's work per call); ``call_ms`` columns are CUDA-event time per
-   single call, which includes the host's launch work. The forward
-   (``flash_fwd``) first, then the backward (``flash_dq``, ``flash_dkv``).
+   PyTorch version on the same inputs, at the main paths' shapes, at
+   larger ones and at ragged ones (t = 200, tq 72 / tk 200, one head of
+   2048), with stated tolerances; a forward call must be one launch of
+   ``flash_fwd_kernel``, and the bf16 forward is also run and timed at
+   both of its tilings (64 and 128 query rows per block); median times
+   beside the plain version, the one PyTorch call that computes the same
+   function (a yardstick only, never used by the port) and the least
+   time the card could take (the bound). ``ms`` columns are device time
+   (torch.profiler: the card's work per call); ``call_ms`` columns are
+   CUDA-event time per single call, which includes the host's launch
+   work. The forward (``flash_fwd``) first, then the backward
+   (``flash_dq``, ``flash_dkv``).
 2b. LSTM kernels: ``lstm_fwd_only``, ``lstm_fwd`` and the backward pair
    ``lstm_bwd`` + ``lstm_dw`` against their plain versions, f32 and bf16,
    nonzero h0 and c0, at the char-RNN's two main shapes (b 1024, t 128,
@@ -162,28 +167,59 @@ def _time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+# the one name of _device_times's result when torch.profiler saw nothing
+EVENT_TIMED = "whole call, by CUDA events (torch.profiler recorded nothing)"
+
+
+# seconds of idle host time around the calls inside each profile, per
+# attempt: the profiler keeps only device events whose timestamps, mapped
+# to the host's clock, fall inside the profile; where that mapping is off
+# by more than the margin, a profile can come back empty
+PROFILE_PADS = (0.02, 0.1, 0.5, 1.0, 2.0)
+
+
 def _device_times(torch, fn, reps: int) -> dict:
     """Device ms per call of ``fn`` for each kernel, copy and fill name
     that torch.profiler saw in ``reps`` calls (after one warm-up call).
     Unlike the event time it leaves out the host's share. A profile that
-    recorded no device time at all is taken again, up to three times,
-    then fails."""
+    recorded no device time at all is taken again with a wider idle
+    margin around the calls (``PROFILE_PADS``); if none did, the result
+    is the CUDA-event time of ``reps`` calls issued back to back, per
+    call, under the one name ``EVENT_TIMED`` (so a query for a kernel's
+    own name then fails)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for attempt, pad in enumerate(PROFILE_PADS):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(pad)
         per_name = {e.key: e.self_device_time_total / 1e3 / reps
                     for e in prof.key_averages()
                     if e.self_device_time_total > 0}
         if per_name:
+            if attempt:
+                print(f"chip_smoke: torch.profiler recorded no device time "
+                      f"with margins {PROFILE_PADS[:attempt]} s, and did "
+                      f"with {pad} s", flush=True)
             return per_name
-    raise RuntimeError("chip_smoke: check failed: torch.profiler recorded "
-                       "no device time")
+        print(f"chip_smoke: empty profile at margin {pad} s: "
+              f"{len(prof.events())} events, none on the device", flush=True)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / reps
+    print(f"chip_smoke: torch.profiler recorded no device time in "
+          f"{len(PROFILE_PADS)} profiles; {EVENT_TIMED}: {ms} ms", flush=True)
+    return {EVENT_TIMED: ms}
 
 
 def _sum_ms(per_name: dict, match: str = "") -> float:
@@ -208,13 +244,15 @@ def _clocks() -> str:
 
 
 def _ptxas(report):
-    """[(kernel, registers, spill store bytes)] from ``-Xptxas -v``."""
+    """[(kernel, registers, spill bytes stored and loaded)] from
+    ``-Xptxas -v``."""
     out, fn, spill = [], None, 0
     for ln in report.splitlines():
         if "Compiling entry function" in ln:
             fn, spill = ln.split("'")[1], 0
         elif "bytes spill stores" in ln:
-            spill = int(ln.split("bytes spill stores")[0].split(",")[-1])
+            spill = int(ln.split("bytes spill stores")[0].split(",")[-1]) \
+                + int(ln.split("bytes spill loads")[0].split(",")[-1])
         elif "Used " in ln and fn is not None:
             out.append((fn, int(ln.split("Used ")[1].split()[0]), spill))
             fn = None
@@ -342,20 +380,30 @@ def phase_kernels(torch, F, flash):
                 for causal in (False, True):
                     cases.append((dtype, d, bh, t, t, causal))
             cases.append((dtype, d, 16, 512, 2048, True))  # tq < tk: offset
+            # ragged last q- and k-tiles; an offset with a ragged diagonal;
+            # few blocks with a long key loop
+            cases += [(dtype, d, 8, 200, 200, False), (dtype, d, 8, 200, 200, True),
+                      (dtype, d, 8, 72, 200, True), (dtype, d, 1, 2048, 2048, False),
+                      (dtype, d, 1, 2048, 2048, True)]
     for dtype, d, bh, tq, tk, causal in cases:
         dt = getattr(torch, dtype)
         q, k, v = (torch.randn(bh, t, d, generator=g, device="cuda").to(dt)
                    for t in (tq, tk, tk))
-        o, lse = flash.flash_attention_fwd(q, k, v, causal)
-        torch.cuda.synchronize()
         op, lp = flash.flash_attention_fwd_plain(q, k, v, causal)
-        err_o = (o.float() - op.float()).abs().max().item()
-        err_l = (lse - lp).abs().max().item()
         tol_o, tol_l = TOL[dtype]
-        _check(bool(torch.isfinite(o.float()).all()), f"finite o {dtype} d{d}")
-        _check(err_o <= tol_o and err_l <= tol_l,
-               f"flash {dtype} d{d} bh{bh} tq{tq} tk{tk} causal={causal}: "
-               f"o err {err_o} (tol {tol_o}), lse err {err_l} (tol {tol_l})")
+        tag = f"{dtype} d{d} bh{bh} tq{tq} tk{tk} causal={causal}"
+
+        def errors(o, lse, what):
+            torch.cuda.synchronize()
+            _check(bool(torch.isfinite(o.float()).all()), f"finite o {what} {tag}")
+            err_o = (o.float() - op.float()).abs().max().item()
+            err_l = (lse - lp).abs().max().item()
+            _check(err_o <= tol_o and err_l <= tol_l,
+                   f"flash {what} {tag}: o err {err_o} (tol {tol_o}), "
+                   f"lse err {err_l} (tol {tol_l})")
+            return err_o, err_l
+
+        err_o, err_l = errors(*flash.flash_attention_fwd(q, k, v, causal), "")
         # SDPA as a yardstick, on [1, bh, t, d]: is_causal where tq == tk
         # (which lets it pick its flash backend), an explicit mask otherwise
         mask = None
@@ -367,11 +415,21 @@ def phase_kernels(torch, F, flash):
             q[None], k[None], v[None], attn_mask=mask,
             is_causal=causal and mask is None)
         bound_ms, bound_by = _flash_bound(bh, tq, tk, d, causal, dtype)
+        times = _device_times(torch, kernel, 20)
+        # the whole call is one launch of the kernel (q is scaled inside)
+        _check(all("flash_fwd_kernel" in name for name in times),
+               f"flash_fwd call {tag} ran more than its kernel: {sorted(times)}")
+        by_block_q = {}
+        if dtype == "bfloat16" and tq > 64:  # the bf16 kernel's two tilings
+            for bq in (64, 128):
+                run = lambda: flash._flash_fwd_cuda(q, k, v, causal, bq)  # noqa: E731
+                errors(*run(), f"block_q {bq}")
+                by_block_q[bq] = _device_ms(torch, run, 20, "flash_fwd_kernel")
         row = dict(dtype=dtype, bh=bh, tq=tq, tk=tk, d=d, causal=causal,
                    err_o=err_o, err_lse=err_l,
-                   ms=_device_ms(torch, kernel, 20),
-                   kernel_only_ms=_device_ms(torch, kernel, 20,
-                                             match="flash_fwd_kernel"),
+                   ms=_sum_ms(times),
+                   kernel_only_ms=_sum_ms(times, "flash_fwd_kernel"),
+                   kernel_only_ms_by_block_q=by_block_q,
                    plain_ms=_device_ms(torch, plain, 3),
                    library_ms=_device_ms(torch, library, 20),
                    bound_ms=bound_ms, bound_by=bound_by,
@@ -989,6 +1047,13 @@ def main(argv) -> int:
         spills = [(f[f.find("kernel"):][:60], sp) for f, _, sp in fns if sp]
         print(f"phase 1: {name}.cu ptxas: {len(fns)} kernels, "
               f"{min(regs)}-{max(regs)} registers, spills {spills}", flush=True)
+        if name == flash.KERNEL:  # the bf16 kernels keep S, P and O in registers
+            bf16_fns = [(f, r, sp) for f, r, sp in fns
+                        if "flash_fwd_kernelI" in f and "bfloat16" in f]
+            print(f"phase 1: bf16 flash_fwd_kernel registers, spill bytes: "
+                  f"{[(r, sp) for _, r, sp in bf16_fns]}", flush=True)
+            _check(bf16_fns and not any(sp for _, _, sp in bf16_fns),
+                   f"bf16 flash_fwd_kernel spills: {bf16_fns}")
     print(f"phase 1: built {sorted(reports)} in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
@@ -1076,13 +1141,17 @@ def _flash_summary(done):
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
+        "kernel_only_ms": main_row["kernel_only_ms"],
+        "bound_share": main_row["bound_ms"] / main_row["kernel_only_ms"],
         "shape": [main_row["bh"], main_row["tq"], main_row["d"]],
         "max_abs_err_all_cases": max(r["err_o"] for r in rows),
         "train_launches": train_launches.get(flash.KERNEL, 0),
         # the same numbers at the training path's shape
         "train": {k: fwd_train[k] for k in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "kernel_only_ms", "kernel_only_ms_by_block_q")}
         | {"max_abs_err": fwd_train["err_o"],
+           "bound_share": fwd_train["bound_ms"] / fwd_train["kernel_only_ms"],
            "shape": [train_bh, TRAIN["max_len"], d_head]},
     }] + [{
         "name": name, "route": "cuda", "source": SRC + "flash_bwd.cu",

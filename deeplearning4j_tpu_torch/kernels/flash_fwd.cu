@@ -2,169 +2,450 @@
 //
 // Replaces the Pallas TPU kernel deeplearning4j_tpu/ops/flash_attention.py
 // `_flash_fwd_impl` -> `_fwd_kernel`: blocked online-softmax attention over
-// q, k, v [bh, t, d] (q already scaled by 1/sqrt(d) in its own dtype),
-// causal mask with offset = tk - tq, key blocks above the diagonal skipped,
-// softmax statistics and the output accumulated in f32. Emits o [bh, tq, d]
-// in q's dtype and lse = m + log(max(l, 1e-30)) [bh, tq] in f32.
+// q, k, v [bh, t, d], q scaled by 1/sqrt(d) rounded to q's dtype, causal
+// mask with offset = tk - tq (masked scores at the reference's -1e30, keys
+// past tk a true -inf), key tiles wholly above the diagonal skipped,
+// softmax statistics and the output accumulated in f32, the probabilities
+// rounded to bf16 before P.V. Emits o [bh, tq, d] in q's dtype and
+// lse = m + log(max(l, 1e-30)) [bh, tq] in f32.
 //
-// What bounds it: at the shapes the GPT prefill gives it (t = 64, d = 64)
-// the work is tiny and launch latency dominates; at long t it is bound by
-// operations (4 * t^2 * d flops against 4 * t * d elements moved). The TPU
-// version sized 1024 x 1024 blocks for 16 MB of VMEM; here a block of 128
-// threads (4 warps) owns 64 query rows and walks 64-key tiles of K and V
-// through shared memory (about 104 KB at d = 128 in bf16), so several
-// blocks share an SM and the O(t^2) scores never reach device memory.
-// bf16 products run on the tensor cores through WMMA 16x16x16 fragments
-// with f32 accumulation (each warp owns 16 query rows); f32 inputs use
-// CUDA-core FMAs so the result keeps full f32 precision. This is the
-// simple first version: no TMA, no wgmma, no warp specialisation.
+// What bounds it on the H100: at the GPT prefill shape ([64, 64, 64] bf16
+// causal) the least time is 0.00063 ms, set by bytes, so a call is bound by
+// launch latency and one wave of 64 blocks; at the training shape
+// ([128, 1024, 64] bf16 causal) it is bound by bytes at d = 64 (0.0202 ms,
+// against 0.0174 ms of tensor-core operations), so a kernel near the bound
+// has to keep both the tensor cores and the copies busy at once.
+//
+// The bf16 kernel (every main path: GPT prefill and training are bf16) is
+// the FlashAttention-2 structure on Hopper's warp-level tensor cores:
+// - a warp owns 16 query rows for the whole key loop; a block is 8 warps
+//   (BQ = 128: K and V are re-read from L2 once per 128 query rows) where
+//   that grid still fills every SM twice, else 4 (BQ = 64: the prefill's
+//   64 rows, or few heads); the q-tiles with the most key tiles go first;
+// - Q is read once, scaled (q * scale rounded to bf16, bit for bit the
+//   reference's pre-scale, so no separate launch scales q) and kept in
+//   registers as ldmatrix-loaded A fragments;
+// - K and V tiles of 64 keys come through a ring of shared-memory stages
+//   (three at d = 64, two at d = 128) filled by 16-byte cp.async.cg
+//   copies: the next tiles are in flight while the current one is
+//   multiplied, with one __syncthreads() per key tile (the old kernel
+//   loaded synchronously and met 4 barriers);
+// - both products are mma.sync m16n8k16 (bf16 in, f32 accumulate), B
+//   fragments from ldmatrix (K) and ldmatrix.trans (V); rows are padded
+//   by 16 bytes so the 8 rows an ldmatrix phase reads hit distinct banks;
+// - S, P and O never touch shared memory (the old kernel staged S in f32,
+//   P and O through it): the softmax runs on the S accumulators, a row's
+//   max and sum take two shuffles within the quad of threads that share
+//   the row, the correction scales the O accumulators in registers, and
+//   the S accumulators, rounded to bf16 pairs, are the A fragments of P.V;
+// - only tiles on the diagonal or past tk evaluate the masks;
+// - the epilogue divides by max(l, 1e-30), stages O through the warp's own
+//   Q rows of shared memory and writes 16-byte coalesced stores; lse is
+//   written once per row; rows at or past tq are neither read nor written.
+// Shared memory per block: (BQ + 2 * STAGES * 64) * (d + 8) * 2 bytes: at
+// d = 64, 63 KB for 4 warps and 72 KB for 8 (the old kernel took 72 KB for
+// 4). At d = 64 the kernel keeps to 128 registers, so two 8-warp blocks
+// (16 warps) share an SM, where the old kernel's blocks left 12.
+//
+// The f32 kernel is on no main path and was not redesigned: the first
+// version's CUDA-core FMAs through shared memory (full f32 precision, no
+// TF32), now taking the unscaled q and the scale like the bf16 kernel.
 //
 // Exposed as a plain C function so that no PyTorch header is compiled.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
-constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 64;        // keys per tile
-constexpr int NT = 128;       // 4 warps; warp w owns query rows [16w, 16w + 16)
+constexpr int BK = 64;                      // keys per tile
 constexpr float NEG_INF_SENTINEL = -1e30f;  // the reference's finite -inf
+constexpr float LOG2E = 1.4426950408889634f;
 
-template <typename T> struct Pad;
-template <> struct Pad<float> { static constexpr int value = 1; };  // bank spread
-template <> struct Pad<bf16> { static constexpr int value = 8; };   // keeps WMMA rows 16-byte aligned
+// ------------------------------------------------------------ PTX helpers
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16(x); }
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-constexpr size_t round32(size_t n) { return (n + 31) / 32 * 32; }
+// 16 bytes global -> shared through L2 (not L1); src_bytes = 0 writes zeros
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
 
-// Shared-memory layout of one block. Every array starts on a 32-byte
-// boundary, which WMMA loads and stores require.
-template <typename T, int D>
-struct Layout {
-  static constexpr int LDT = D + Pad<T>::value;   // q, k, v rows
-  static constexpr int LDP = BK + Pad<T>::value;  // probabilities, in T
-  static constexpr int LDS = BK + 4;              // f32 scores
-  static constexpr int LDO = D + 4;               // f32 output accumulator
-  static constexpr size_t q_off = 0;
-  static constexpr size_t k_off = q_off + round32(sizeof(T) * BQ * LDT);
-  static constexpr size_t v_off = k_off + round32(sizeof(T) * BK * LDT);
-  static constexpr size_t s_off = v_off + round32(sizeof(T) * BK * LDT);
-  static constexpr size_t p_off = s_off + round32(sizeof(float) * BQ * LDS);
-  static constexpr size_t o_off = p_off + round32(sizeof(T) * BQ * LDP);
-  static constexpr size_t m_off = o_off + round32(sizeof(float) * BQ * LDO);
-  static constexpr size_t l_off = m_off + round32(sizeof(float) * BQ);
-  static constexpr size_t c_off = l_off + round32(sizeof(float) * BQ);
-  static constexpr size_t bytes = c_off + round32(sizeof(float) * BQ);
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's copy groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// d += a b: a 16 x 16 (row), b 16 x 8 (col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats as a bf16 pair, lo in the low half (the lower column index)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 r = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&r);
+}
+
+// a bf16 pair times a bf16 scale, each product rounded once to bf16
+__device__ __forceinline__ uint32_t scale_pair(uint32_t x, float scale) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&x));
+  return pack_bf16(f.x * scale, f.y * scale);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// -------------------------------------------------------- the bf16 kernel
+
+template <int D, int BQ>
+struct Bf16Tiles {
+  // K/V ring depth: three stages at d = 64; at d = 128 a third stage
+  // would leave one 4-warp block per SM (122 KB of shared memory)
+  static constexpr int STAGES = D == 64 ? 3 : 2;
+  static constexpr int LD = D + 8;  // row stride in elements: 16 bytes of padding
+  static constexpr size_t bytes = sizeof(bf16) * (size_t)(BQ + 2 * STAGES * BK) * LD;
+  // d = 64: at most 128 registers, so 512 threads (two 8-warp blocks) fit an SM
+  static constexpr int MIN_BLOCKS = D == 64 ? 512 / (2 * BQ) : 1;
 };
 
-// Rows [row0, row0 + nrows) of a row-major [t, D] matrix into shared
-// memory with leading dimension LD; rows at or past t become zeros.
-template <typename T, int D, int LD>
-__device__ __forceinline__ void load_rows(T* dst, const T* src, int row0, int t, int nrows) {
-  if constexpr (sizeof(T) == 2) {
-    constexpr int CH = D / 8;  // 16-byte chunks per row
-    for (int i = threadIdx.x; i < nrows * CH; i += NT) {
-      const int r = i / CH, c = (i % CH) * 8;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (row0 + r < t) val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c);
-      *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
+// Fragment layout of mma.m16n8k16 (g = lane / 4, c = lane % 4): the
+// accumulator holds rows g (registers 0, 1) and g + 8 (2, 3) at columns
+// 2c and 2c + 1 of its 8-column tile, which is also where the A fragment
+// of a 16 x 16 block keeps the same rows' columns 2c, 2c + 1 (registers
+// 0, 1) and 8 + 2c, 8 + 2c + 1 (2, 3): two S tiles are one P fragment.
+template <int D, int BQ>
+__global__ void __launch_bounds__(BQ * 2, Bf16Tiles<D, BQ>::MIN_BLOCKS)
+flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                 int bh, int tq, int tk, int n_qtiles, int causal, float scale) {
+  constexpr int NT = BQ * 2;      // BQ / 16 warps
+  constexpr int LD = Bf16Tiles<D, BQ>::LD;
+  constexpr int STAGES = Bf16Tiles<D, BQ>::STAGES;
+  constexpr int CH = D / 8;       // 16-byte chunks per row
+  constexpr int NS = BK / 8;      // S accumulator tiles (8 keys each)
+  constexpr int NO = D / 8;       // O accumulator tiles (8 columns each)
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Ks = Qs + BQ * LD;            // STAGES tiles of BK rows
+  bf16* Vs = Ks + STAGES * BK * LD;   // STAGES tiles of BK rows
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, c = lane % 4;
+  // the q-tiles with the most key tiles (the last ones, under the causal
+  // mask) first, so the last wave of blocks is not the longest
+  const int qt = n_qtiles - 1 - (int)(blockIdx.x / bh);
+  const int b = blockIdx.x % bh;
+  const int q0 = qt * BQ;
+  const int r0 = q0 + 16 * warp;  // this warp's first query row
+  const int offset = tk - tq;
+  const bf16* qb = q + (size_t)b * tq * D;
+  const bf16* kb = k + (size_t)b * tk * D;
+  const bf16* vb = v + (size_t)b * tk * D;
+  bf16* Qw = Qs + 16 * warp * LD;  // this warp's rows: Q, later its O
+
+  // this warp's 16 Q rows (zeros past tq): copy group 0
+  for (int i = lane; i < 16 * CH; i += 32) {
+    const int r = i / CH, col = (i % CH) * 8;
+    const bool in = r0 + r < tq;
+    cp_async16(smem_addr(Qw + r * LD + col), in ? qb + (size_t)(r0 + r) * D + col : qb,
+               in ? 16 : 0);
+  }
+  cp_async_commit();
+
+  // causal: the last key any valid row of this tile may see
+  int k_end = tk;
+  if (causal) k_end = min(tk, min(q0 + BQ, tq) + offset);
+  const int n_kt = k_end > 0 ? (k_end + BK - 1) / BK : 0;
+
+  // key tile kt (zeros past tk) into ring stage kt % STAGES
+  auto load_kv = [&](int kt) {
+    const int k0 = kt * BK, st = kt % STAGES;
+    bf16* kd = Ks + st * BK * LD;
+    bf16* vd = Vs + st * BK * LD;
+    for (int i = threadIdx.x; i < BK * CH; i += NT) {
+      const int r = i / CH, col = (i % CH) * 8;
+      const bool in = k0 + r < tk;
+      const size_t off = in ? (size_t)(k0 + r) * D + col : 0;
+      cp_async16(smem_addr(kd + r * LD + col), kb + off, in ? 16 : 0);
+      cp_async16(smem_addr(vd + r * LD + col), vb + off, in ? 16 : 0);
     }
-  } else {
-    for (int i = threadIdx.x; i < nrows * D; i += NT) {
-      const int r = i / D, c = i % D;
-      dst[r * LD + c] = (row0 + r < t) ? src[(size_t)(row0 + r) * D + c] : from_f<T>(0.f);
+  };
+  // groups 1 .. STAGES - 1: the first tiles (empty groups past the last)
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_kt) load_kv(s);
+    cp_async_commit();
+  }
+
+  // Q as A fragments, scaled: rows (lane % 16), columns 16 kk + 8 (lane / 16)
+  cp_async_wait<STAGES - 1>();  // group 0 (this thread's Q copies) landed
+  __syncwarp();                 // ... and the other lanes' too
+  uint32_t qa[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    ldmatrix_x4(qa[kk], smem_addr(Qw + (lane % 16) * LD + 16 * kk + 8 * (lane / 16)));
+#pragma unroll
+    for (int j = 0; j < 4; ++j) qa[kk][j] = scale_pair(qa[kk][j], scale);
+  }
+
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m[2] = {NEG_INF_SENTINEL, NEG_INF_SENTINEL};  // rows g, g + 8
+  float l[2] = {0.f, 0.f};                            // this thread's share
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    // tile kt has landed for every thread, and every warp is done with
+    // tile kt - 1, whose stage the next copy refills
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    if (kt + STAGES - 1 < n_kt) load_kv(kt + STAGES - 1);
+    cp_async_commit();
+
+    const bf16* Kt = Ks + (kt % STAGES) * BK * LD;
+    const bf16* Vt = Vs + (kt % STAGES) * BK * LD;
+    const int k0 = kt * BK;
+
+    // S = Q K^T: B fragments of keys 16 np + (lane % 8) + 8 (lane / 16),
+    // columns 16 kk + 8 ((lane / 8) % 2), two 8-key tiles per ldmatrix
+    float s[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+      for (int np = 0; np < BK / 16; ++np) {
+        uint32_t bfr[4];
+        ldmatrix_x4(bfr, smem_addr(Kt + (16 * np + lane % 8 + 8 * (lane / 16)) * LD
+                                   + 16 * kk + 8 * ((lane / 8) % 2)));
+        mma_bf16(s[2 * np], qa[kk], bfr[0], bfr[1]);
+        mma_bf16(s[2 * np + 1], qa[kk], bfr[2], bfr[3]);
+      }
+    }
+
+    // masks only where the tile reaches past tk or above this warp's diagonal
+    if (k0 + BK > tk || (causal && k0 + BK - 1 > r0 + offset)) {
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = k0 + 8 * n + 2 * c + (j % 2);
+          const int row = r0 + g + 8 * (j / 2);
+          if (col >= tk) s[n][j] = -INFINITY;  // past the last key: not in the row
+          else if (causal && row + offset < col) s[n][j] = NEG_INF_SENTINEL;
+        }
+      }
+    }
+
+    // online softmax on the accumulators; h = 0: row g, h = 1: row g + 8
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = m[h];
+#pragma unroll
+      for (int n = 0; n < NS; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * h], s[n][2 * h + 1]));
+      const float m_new = quad_max(mx);
+      // (x - m) * log2(e), not fma(x, log2(e), -m log2(e)): a sentinel
+      // score against a sentinel max must give exactly exp(0)
+      const float corr = exp2f((m[h] - m_new) * LOG2E);
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+#pragma unroll
+        for (int j = 2 * h; j < 2 * h + 2; ++j) {
+          s[n][j] = exp2f((s[n][j] - m_new) * LOG2E);
+          sum += s[n][j];
+        }
+      }
+      l[h] = corr * l[h] + sum;
+      m[h] = m_new;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        acc[n][2 * h] *= corr;
+        acc[n][2 * h + 1] *= corr;
+      }
+    }
+
+    // O += P V: P from the S accumulators; B fragments by ldmatrix.trans
+    // of keys 16 kk + (lane % 16), columns 16 np + 8 (lane / 16)
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int np = 0; np < D / 16; ++np) {
+        uint32_t bfr[4];
+        ldmatrix_x4_trans(bfr, smem_addr(Vt + (16 * kk + lane % 16) * LD
+                                         + 16 * np + 8 * (lane / 16)));
+        mma_bf16(acc[2 * np], pa, bfr[0], bfr[1]);
+        mma_bf16(acc[2 * np + 1], pa, bfr[2], bfr[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();  // the trailing (empty) groups
+
+  // epilogue: O / max(l, 1e-30) into this warp's Q rows, then coalesced
+  // 16-byte stores; lse once per row
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float denom = fmaxf(quad_sum(l[h]), 1e-30f);
+    const int row = r0 + g + 8 * h;
+    if (c == 0 && row < tq) lse[(size_t)b * tq + row] = m[h] + logf(denom);
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      *reinterpret_cast<uint32_t*>(Qw + (g + 8 * h) * LD + 8 * n + 2 * c) =
+          pack_bf16(acc[n][2 * h] / denom, acc[n][2 * h + 1] / denom);
+    }
+  }
+  __syncwarp();
+  bf16* ob = o + (size_t)b * tq * D;
+  for (int i = lane; i < 16 * CH; i += 32) {
+    const int r = i / CH, col = (i % CH) * 8;
+    if (r0 + r < tq) {
+      *reinterpret_cast<uint4*>(ob + (size_t)(r0 + r) * D + col) =
+          *reinterpret_cast<const uint4*>(Qw + r * LD + col);
     }
   }
 }
 
+template <int D, int BQ>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
+                int bh, int tq, int tk, int causal, float scale, cudaStream_t stream) {
+  constexpr size_t smem = Bf16Tiles<D, BQ>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D, BQ>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_qtiles = (tq + BQ - 1) / BQ;
+  flash_fwd_kernel<D, BQ><<<bh * n_qtiles, BQ * 2, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), lse, bh, tq, tk, n_qtiles, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+// --------------------------------------------------------- the f32 kernel
+
+constexpr int F32_BQ = 64;   // query rows per block
+constexpr int F32_NT = 128;  // threads per block
+
+constexpr size_t round32(size_t n) { return (n + 31) / 32 * 32; }
+
+template <int D>
+struct F32Layout {
+  static constexpr int LDT = D + 1;   // q, k, v rows (bank spread)
+  static constexpr int LDS = BK + 1;  // scores, then probabilities
+  static constexpr size_t q_off = 0;
+  static constexpr size_t k_off = q_off + round32(sizeof(float) * F32_BQ * LDT);
+  static constexpr size_t v_off = k_off + round32(sizeof(float) * BK * LDT);
+  static constexpr size_t s_off = v_off + round32(sizeof(float) * BK * LDT);
+  static constexpr size_t o_off = s_off + round32(sizeof(float) * F32_BQ * LDS);
+  static constexpr size_t m_off = o_off + round32(sizeof(float) * F32_BQ * D);
+  static constexpr size_t l_off = m_off + round32(sizeof(float) * F32_BQ);
+  static constexpr size_t c_off = l_off + round32(sizeof(float) * F32_BQ);
+  static constexpr size_t bytes = c_off + round32(sizeof(float) * F32_BQ);
+};
+
+// rows [row0, row0 + nrows) of a row-major [t, D] matrix, times mul, into
+// shared memory with leading dimension LD; rows at or past t become zeros
+template <int D, int LD>
+__device__ __forceinline__ void load_rows_f32(float* dst, const float* src, int row0, int t,
+                                              int nrows, float mul) {
+  for (int i = threadIdx.x; i < nrows * D; i += F32_NT) {
+    const int r = i / D, col = i % D;
+    dst[r * LD + col] = (row0 + r < t) ? src[(size_t)(row0 + r) * D + col] * mul : 0.f;
+  }
+}
+
 __device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
   return x;
 }
 
 __device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(NT)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse,
-                 int tq, int tk, int n_qtiles, int causal) {
-  using Lay = Layout<T, D>;
-  constexpr int LDT = Lay::LDT, LDP = Lay::LDP, LDS = Lay::LDS, LDO = Lay::LDO;
+template <int D>
+__global__ void __launch_bounds__(F32_NT)
+flash_fwd_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                     int tq, int tk, int n_qtiles, int causal, float scale) {
+  using Lay = F32Layout<D>;
+  constexpr int LDT = Lay::LDT, LDS = Lay::LDS;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem + Lay::q_off);
-  T* Ks = reinterpret_cast<T*>(smem + Lay::k_off);
-  T* Vs = reinterpret_cast<T*>(smem + Lay::v_off);
+  float* Qs = reinterpret_cast<float*>(smem + Lay::q_off);
+  float* Ks = reinterpret_cast<float*>(smem + Lay::k_off);
+  float* Vs = reinterpret_cast<float*>(smem + Lay::v_off);
   float* Ss = reinterpret_cast<float*>(smem + Lay::s_off);
-  T* Ps = reinterpret_cast<T*>(smem + Lay::p_off);
   float* Os = reinterpret_cast<float*>(smem + Lay::o_off);
   float* m_s = reinterpret_cast<float*>(smem + Lay::m_off);
   float* l_s = reinterpret_cast<float*>(smem + Lay::l_off);
   float* c_s = reinterpret_cast<float*>(smem + Lay::c_off);
 
   const int bh = blockIdx.x / n_qtiles;
-  const int q0 = (blockIdx.x % n_qtiles) * BQ;
+  const int q0 = (blockIdx.x % n_qtiles) * F32_BQ;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int offset = tk - tq;
-  const T* qb = q + (size_t)bh * tq * D;
-  const T* kb = k + (size_t)bh * tk * D;
-  const T* vb = v + (size_t)bh * tk * D;
+  const float* kb = k + (size_t)bh * tk * D;
+  const float* vb = v + (size_t)bh * tk * D;
 
-  load_rows<T, D, LDT>(Qs, qb, q0, tq, BQ);
-  for (int i = threadIdx.x; i < BQ * LDO; i += NT) Os[i] = 0.f;
-  for (int i = threadIdx.x; i < BQ; i += NT) {
+  load_rows_f32<D, LDT>(Qs, q + (size_t)bh * tq * D, q0, tq, F32_BQ, scale);
+  for (int i = threadIdx.x; i < F32_BQ * D; i += F32_NT) Os[i] = 0.f;
+  for (int i = threadIdx.x; i < F32_BQ; i += F32_NT) {
     m_s[i] = NEG_INF_SENTINEL;
     l_s[i] = 0.f;
   }
 
-  // causal: the last key any valid row of this tile may see
   int k_end = tk;
-  if (causal) k_end = min(tk, min(q0 + BQ, tq) + offset);
-  const int n_ktiles = (k_end + BK - 1) / BK;
+  if (causal) k_end = min(tk, min(q0 + F32_BQ, tq) + offset);
+  const int n_ktiles = k_end > 0 ? (k_end + BK - 1) / BK : 0;
 
   for (int kt = 0; kt < n_ktiles; ++kt) {
     const int k0 = kt * BK;
-    load_rows<T, D, LDT>(Ks, kb, k0, tk, BK);
-    load_rows<T, D, LDT>(Vs, vb, k0, tk, BK);
+    load_rows_f32<D, LDT>(Ks, kb, k0, tk, BK, 1.f);
+    load_rows_f32<D, LDT>(Vs, vb, k0, tk, BK, 1.f);
     __syncthreads();
 
-    // S = Q K^T  (f32)
-    if constexpr (sizeof(T) == 2) {
-      for (int n = 0; n < BK / 16; ++n) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-        wmma::fill_fragment(acc, 0.f);
-        for (int kk = 0; kk < D / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-          wmma::load_matrix_sync(a, Qs + (16 * warp) * LDT + kk * 16, LDT);
-          wmma::load_matrix_sync(b, Ks + (16 * n) * LDT + kk * 16, LDT);
-          wmma::mma_sync(acc, a, b, acc);
-        }
-        wmma::store_matrix_sync(Ss + (16 * warp) * LDS + n * 16, acc, LDS, wmma::mem_row_major);
-      }
-    } else {
-      for (int i = threadIdx.x; i < BQ * BK; i += NT) {
-        const int r = i / BK, c = i % BK;
-        float s = 0.f;
+    for (int i = threadIdx.x; i < F32_BQ * BK; i += F32_NT) {
+      const int r = i / BK, col = i % BK;
+      float s = 0.f;
 #pragma unroll 8
-        for (int d = 0; d < D; ++d) s += to_f(Qs[r * LDT + d]) * to_f(Ks[c * LDT + d]);
-        Ss[r * LDS + c] = s;
-      }
+      for (int d = 0; d < D; ++d) s += Qs[r * LDT + d] * Ks[col * LDT + d];
+      Ss[r * LDS + col] = s;
     }
     __syncthreads();
 
@@ -176,9 +457,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       float mx = -INFINITY;
 #pragma unroll
       for (int j = 0; j < BK / 32; ++j) {
-        const int c = lane + 32 * j;
-        const int kcol = k0 + c;
-        float x = Ss[r * LDS + c];
+        const int col = lane + 32 * j;
+        const int kcol = k0 + col;
+        float x = Ss[r * LDS + col];
         if (kcol >= tk) x = -INFINITY;  // past the last key: not in the row at all
         else if (causal && qrow + offset < kcol) x = NEG_INF_SENTINEL;
         s[j] = x;
@@ -192,7 +473,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       for (int j = 0; j < BK / 32; ++j) {
         const float p = expf(s[j] - m_new);
         sum += p;
-        Ps[r * LDP + lane + 32 * j] = from_f<T>(p);
+        Ss[r * LDS + lane + 32 * j] = p;
       }
       sum = warp_sum(sum);
       if (lane == 0) {
@@ -205,78 +486,72 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     __syncthreads();
 
     // O = O * corr + P V
-    if constexpr (sizeof(T) == 2) {
-      for (int i = lane; i < 16 * D; i += 32) {
-        const int r = 16 * warp + i / D;
-        Os[r * LDO + i % D] *= c_s[r];
-      }
-      __syncwarp();
-      for (int n = 0; n < D / 16; ++n) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-        wmma::load_matrix_sync(acc, Os + (16 * warp) * LDO + n * 16, LDO, wmma::mem_row_major);
-        for (int kk = 0; kk < BK / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-          wmma::load_matrix_sync(a, Ps + (16 * warp) * LDP + kk * 16, LDP);
-          wmma::load_matrix_sync(b, Vs + (16 * kk) * LDT + n * 16, LDT);
-          wmma::mma_sync(acc, a, b, acc);
-        }
-        wmma::store_matrix_sync(Os + (16 * warp) * LDO + n * 16, acc, LDO, wmma::mem_row_major);
-      }
-    } else {
-      for (int i = threadIdx.x; i < BQ * D; i += NT) {
-        const int r = i / D, c = i % D;
-        float acc = 0.f;
+    for (int i = threadIdx.x; i < F32_BQ * D; i += F32_NT) {
+      const int r = i / D, col = i % D;
+      float a = 0.f;
 #pragma unroll 8
-        for (int j = 0; j < BK; ++j) acc += to_f(Ps[r * LDP + j]) * to_f(Vs[j * LDT + c]);
-        Os[r * LDO + c] = Os[r * LDO + c] * c_s[r] + acc;
-      }
+      for (int j = 0; j < BK; ++j) a += Ss[r * LDS + j] * Vs[j * LDT + col];
+      Os[r * D + col] = Os[r * D + col] * c_s[r] + a;
     }
     __syncthreads();
   }
 
-  for (int i = threadIdx.x; i < BQ * D; i += NT) {
-    const int r = i / D, c = i % D;
+  for (int i = threadIdx.x; i < F32_BQ * D; i += F32_NT) {
+    const int r = i / D, col = i % D;
     if (q0 + r < tq) {
       const float denom = fmaxf(l_s[r], 1e-30f);
-      o[((size_t)bh * tq + q0 + r) * D + c] = from_f<T>(Os[r * LDO + c] / denom);
+      o[((size_t)bh * tq + q0 + r) * D + col] = Os[r * D + col] / denom;
     }
   }
-  for (int r = threadIdx.x; r < BQ; r += NT) {
+  for (int r = threadIdx.x; r < F32_BQ; r += F32_NT) {
     if (q0 + r < tq) lse[(size_t)bh * tq + q0 + r] = m_s[r] + logf(fmaxf(l_s[r], 1e-30f));
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int bh, int tq, int tk, int causal, cudaStream_t stream) {
-  constexpr size_t smem = Layout<T, D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
+               int bh, int tq, int tk, int causal, float scale, cudaStream_t stream) {
+  constexpr size_t smem = F32Layout<D>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel_f32<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int n_qtiles = (tq + BQ - 1) / BQ;
-  flash_fwd_kernel<T, D><<<bh * n_qtiles, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, tq, tk, n_qtiles, causal);
+  const int n_qtiles = (tq + F32_BQ - 1) / F32_BQ;
+  flash_fwd_kernel_f32<D><<<bh * n_qtiles, F32_NT, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), lse, tq, tk, n_qtiles, causal, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q, k, v, o: contiguous [bh, t, d], 16-byte aligned; lse: contiguous f32
-// [bh, tq]. dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t
-// (0 on success); an unsupported head size returns cudaErrorInvalidValue.
+// [bh, tq]; q unscaled, scale = 1/sqrt(d) rounded to q's dtype. dtype: 0 =
+// float32, 1 = bfloat16. block_q (bf16 only): 64 or 128 query rows per
+// block, or 0 to choose by tq. Returns a cudaError_t (0 on success); an
+// unsupported head size or block returns cudaErrorInvalidValue.
 extern "C" int dl4j_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                               int bh, int tq, int tk, int d, int causal, int dtype,
-                              void* stream) {
+                              float scale, int block_q, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bh < 1 || tq < 1 || tk < 1) return (int)cudaErrorInvalidValue;
   if (dtype == 1) {
-    if (d == 64) return launch<bf16, 64>(q, k, v, o, lse, bh, tq, tk, causal, s);
-    if (d == 128) return launch<bf16, 128>(q, k, v, o, lse, bh, tq, tk, causal, s);
-  } else if (dtype == 0) {
-    if (d == 64) return launch<float, 64>(q, k, v, o, lse, bh, tq, tk, causal, s);
-    if (d == 128) return launch<float, 128>(q, k, v, o, lse, bh, tq, tk, causal, s);
+    // 8 warps where the grid still fills every SM twice (fewer re-reads
+    // of K and V), else 4 (short queries such as the prefill's 64 rows,
+    // or few heads: more blocks in flight)
+    if (block_q == 0) {
+      int dev = 0, sms = 0;
+      if (cudaGetDevice(&dev) != cudaSuccess ||
+          cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+        return (int)cudaGetLastError();
+      block_q = tq > 64 && (long long)bh * ((tq + 127) / 128) >= 2LL * sms ? 128 : 64;
+    }
+    if (d == 64 && block_q == 64) return launch_bf16<64, 64>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
+    if (d == 64 && block_q == 128) return launch_bf16<64, 128>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
+    if (d == 128 && block_q == 64) return launch_bf16<128, 64>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
+    if (d == 128 && block_q == 128) return launch_bf16<128, 128>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
+  } else if (dtype == 0 && block_q == 0) {
+    if (d == 64) return launch_f32<64>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
+    if (d == 128) return launch_f32<128>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }

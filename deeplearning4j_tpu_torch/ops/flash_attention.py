@@ -36,12 +36,17 @@ def _pick_block(t: int, preferred: int) -> int:
     return 0
 
 
+def _scale(q: torch.Tensor) -> float:
+    """1/sqrt(d) rounded to q's dtype (as the reference's weakly typed
+    scalar is), as an exact Python float."""
+    return torch.tensor(1.0 / q.shape[-1] ** 0.5, dtype=q.dtype).item()
+
+
 def _prescale(q: torch.Tensor) -> torch.Tensor:
-    """q * 1/sqrt(d), the scale rounded to q's dtype first (as the
-    reference's weakly typed scalar is). The rounded scale is an exact
-    Python float, so the product rounds as a same-dtype product would."""
-    scale = torch.tensor(1.0 / q.shape[-1] ** 0.5, dtype=q.dtype).item()
-    return q * scale
+    """q * 1/sqrt(d) with the scale of :func:`_scale`: the product rounds
+    as a same-dtype product would (the forward kernel does this itself
+    as it loads q)."""
+    return q * _scale(q)
 
 
 def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
@@ -102,18 +107,22 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def _flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+                    causal: bool, block_q: int = 0
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the kernel on the unscaled q (it scales q as it
+    loads it). ``block_q``: the bf16 kernel's query rows per block, 64
+    or 128 (for measurements only), or 0: the kernel chooses by tq and
+    the size of the grid."""
     bh, tq, d = q.shape
     tk = k.shape[1]
     _check_inputs(q, k, v)
     lib = kernels.load(KERNEL)
     lib.dl4j_flash_fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
-        + [ctypes.c_void_p]
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     lib.dl4j_flash_fwd.restype = ctypes.c_int
     if not lib.dl4j_flash_fwd_supports(d):
         raise ValueError(f"flash kernel is built for head size 64 or 128, got {d}")
-    q = _prescale(q).contiguous()
-    k, v = k.contiguous(), v.contiguous()
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     for t in (q, k, v):
         if t.data_ptr() % 16:
             raise ValueError("flash kernel needs 16-byte aligned inputs")
@@ -124,7 +133,7 @@ def _flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = lib.dl4j_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                  o.data_ptr(), lse.data_ptr(), bh, tq, tk, d,
                                  int(bool(causal)), _DTYPE_CODES[q.dtype],
-                                 stream)
+                                 _scale(q), block_q, stream)
     if err:
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
     kernels.LAUNCHES[KERNEL] += 1
@@ -136,7 +145,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q, k, v [bh, t, d] -> (o, lse [bh, tq, 1]): the CUDA kernel for
     CUDA tensors, the plain version (with these blocks) for CPU ones.
-    The kernel tiles by its own 64 x 64 blocks."""
+    The kernel tiles by its own blocks (64 keys; 64 or 128 queries)."""
     if q.device.type == "cuda":
         return _flash_fwd_cuda(q, k, v, causal)
     if q.device.type == "cpu":

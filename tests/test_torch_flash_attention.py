@@ -78,6 +78,23 @@ def test_plain_matches_pallas_fwd(rng, dtype, causal, tq, tk, bq, bk):
     _close(tl.numpy(), jl, dtype)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("tq,tk", [(40, 40), (24, 40)])
+def test_plain_at_kernel_tiles_matches_pallas_on_ragged_tiles(rng, dtype,
+                                                              causal, tq, tk):
+    """The kernel's oracle at the kernel's own 64 x 64 tiles, where the
+    one tile is ragged in q and in k (and, at tq < tk, the diagonal is
+    offset), against the Pallas kernel at exact blocks of 8."""
+    q, k, v = _arrays(rng, [(3, tq, 16), (3, tk, 16), (3, tk, 16)])
+    jo, jl = _flash_fwd_impl(_jax(q, dtype), _jax(k, dtype), _jax(v, dtype),
+                             causal, 8, 8, interpret=True)
+    to, tl = flash_attention_fwd_plain(_torch(q, dtype), _torch(k, dtype),
+                                       _torch(v, dtype), causal, 64, 64)
+    _close(to.float().numpy(), jo, dtype)
+    _close(tl.numpy(), jl, dtype)
+
+
 @pytest.mark.parametrize("causal", [False, True])
 def test_plain_blocking_does_not_change_the_result(rng, causal):
     """The kernel tiles 64 x 64; the plain version with other blocks,
@@ -150,9 +167,9 @@ def test_cpu_path_launches_no_kernel(rng):
     assert kernels.LAUNCHES["flash_fwd"] == 0
 
 
-def test_backward_raises_until_ported(rng):
-    """The backward is ported (B5): it no longer raises, and its
-    gradients are those of the plain formulation."""
+def test_backward_matches_plain_formulation(rng):
+    """The flash backward's gradients are those of the plain
+    formulation."""
     arrays = _arrays(rng, [(1, 64, 2, 16)] * 3)
     q, k, v = (torch.tensor(a, requires_grad=True) for a in arrays)
     flash_attention(q, k, v, causal=True).sum().backward()
@@ -175,10 +192,17 @@ def test_unsupported_device_raises(rng):
 @pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 2e-2)])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("causal", [False, True])
-def test_kernel_matches_plain_on_card(cuda_device, dtype, tol, d, causal):
+@pytest.mark.parametrize("bh,tq,tk", [
+    (8, 128, 320),     # tq < tk: the causal offset
+    (8, 200, 200),     # ragged last q- and k-tiles
+    (8, 72, 200),      # an offset with a ragged diagonal
+    (1, 2048, 2048),   # few blocks, a long key loop
+])
+def test_kernel_matches_plain_on_card(cuda_device, dtype, tol, d, causal,
+                                      bh, tq, tk):
     g = torch.Generator(device=cuda_device).manual_seed(0)
-    q, k, v = (torch.randn(8, t, d, generator=g, device=cuda_device)
-               .to(getattr(torch, dtype)) for t in (128, 320, 320))
+    q, k, v = (torch.randn(bh, t, d, generator=g, device=cuda_device)
+               .to(getattr(torch, dtype)) for t in (tq, tk, tk))
     kernels.reset_launches()
     o, lse = flash_attention_fwd(q, k, v, causal)
     torch.cuda.synchronize()
