@@ -51,83 +51,18 @@
 // version's CUDA-core FMAs through shared memory (full f32 precision, no
 // TF32), now taking the unscaled q and the scale like the bf16 kernel.
 //
+// The PTX helpers (cp.async, ldmatrix, mma.sync, bf16 packing, the q
+// pre-scale, quad reductions) and the pieces built on them (row copies,
+// fragment loads and packing, the epilogue store) live in
+// flash_common.cuh, shared with the backward kernels of flash_bwd.cu.
+//
 // Exposed as a plain C function so that no PyTorch header is compiled.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int BK = 64;                      // keys per tile
-constexpr float NEG_INF_SENTINEL = -1e30f;  // the reference's finite -inf
-constexpr float LOG2E = 1.4426950408889634f;
-
-// ------------------------------------------------------------ PTX helpers
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared through L2 (not L1); src_bytes = 0 writes zeros
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N of this thread's copy groups are still in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-// d += a b: a 16 x 16 (row), b 16 x 8 (col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats as a bf16 pair, lo in the low half (the lower column index)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 r = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&r);
-}
-
-// a bf16 pair times a bf16 scale, each product rounded once to bf16
-__device__ __forceinline__ uint32_t scale_pair(uint32_t x, float scale) {
-  const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&x));
-  return pack_bf16(f.x * scale, f.y * scale);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
+constexpr int BK = 64;  // keys per tile
 
 // -------------------------------------------------------- the bf16 kernel
 
@@ -142,11 +77,7 @@ struct Bf16Tiles {
   static constexpr int MIN_BLOCKS = D == 64 ? 512 / (2 * BQ) : 1;
 };
 
-// Fragment layout of mma.m16n8k16 (g = lane / 4, c = lane % 4): the
-// accumulator holds rows g (registers 0, 1) and g + 8 (2, 3) at columns
-// 2c and 2c + 1 of its 8-column tile, which is also where the A fragment
-// of a 16 x 16 block keeps the same rows' columns 2c, 2c + 1 (registers
-// 0, 1) and 8 + 2c, 8 + 2c + 1 (2, 3): two S tiles are one P fragment.
+// Two S accumulator tiles are one P fragment (pack_a, flash_common.cuh).
 template <int D, int BQ>
 __global__ void __launch_bounds__(BQ * 2, Bf16Tiles<D, BQ>::MIN_BLOCKS)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -155,7 +86,6 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int NT = BQ * 2;      // BQ / 16 warps
   constexpr int LD = Bf16Tiles<D, BQ>::LD;
   constexpr int STAGES = Bf16Tiles<D, BQ>::STAGES;
-  constexpr int CH = D / 8;       // 16-byte chunks per row
   constexpr int NS = BK / 8;      // S accumulator tiles (8 keys each)
   constexpr int NO = D / 8;       // O accumulator tiles (8 columns each)
   extern __shared__ __align__(128) unsigned char smem[];
@@ -178,12 +108,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* Qw = Qs + 16 * warp * LD;  // this warp's rows: Q, later its O
 
   // this warp's 16 Q rows (zeros past tq): copy group 0
-  for (int i = lane; i < 16 * CH; i += 32) {
-    const int r = i / CH, col = (i % CH) * 8;
-    const bool in = r0 + r < tq;
-    cp_async16(smem_addr(Qw + r * LD + col), in ? qb + (size_t)(r0 + r) * D + col : qb,
-               in ? 16 : 0);
-  }
+  load_warp_rows<D, LD>(Qw, qb, r0, tq, lane);
   cp_async_commit();
 
   // causal: the last key any valid row of this tile may see
@@ -193,16 +118,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // key tile kt (zeros past tk) into ring stage kt % STAGES
   auto load_kv = [&](int kt) {
-    const int k0 = kt * BK, st = kt % STAGES;
-    bf16* kd = Ks + st * BK * LD;
-    bf16* vd = Vs + st * BK * LD;
-    for (int i = threadIdx.x; i < BK * CH; i += NT) {
-      const int r = i / CH, col = (i % CH) * 8;
-      const bool in = k0 + r < tk;
-      const size_t off = in ? (size_t)(k0 + r) * D + col : 0;
-      cp_async16(smem_addr(kd + r * LD + col), kb + off, in ? 16 : 0);
-      cp_async16(smem_addr(vd + r * LD + col), vb + off, in ? 16 : 0);
-    }
+    const int st = kt % STAGES;
+    load_tile_pair<D, LD, BK, NT>(Ks + st * BK * LD, Vs + st * BK * LD, kb, vb, kt * BK, tk);
   };
   // groups 1 .. STAGES - 1: the first tiles (empty groups past the last)
   for (int s = 0; s < STAGES - 1; ++s) {
@@ -216,7 +133,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   uint32_t qa[D / 16][4];
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    ldmatrix_x4(qa[kk], smem_addr(Qw + (lane % 16) * LD + 16 * kk + 8 * (lane / 16)));
+    load_a<LD>(qa[kk], Qw, kk, lane);
 #pragma unroll
     for (int j = 0; j < 4; ++j) qa[kk][j] = scale_pair(qa[kk][j], scale);
   }
@@ -239,8 +156,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* Vt = Vs + (kt % STAGES) * BK * LD;
     const int k0 = kt * BK;
 
-    // S = Q K^T: B fragments of keys 16 np + (lane % 8) + 8 (lane / 16),
-    // columns 16 kk + 8 ((lane / 8) % 2), two 8-key tiles per ldmatrix
+    // S = Q K^T: two 8-key tiles per ldmatrix
     float s[NS][4];
 #pragma unroll
     for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
@@ -249,8 +165,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int np = 0; np < BK / 16; ++np) {
         uint32_t bfr[4];
-        ldmatrix_x4(bfr, smem_addr(Kt + (16 * np + lane % 8 + 8 * (lane / 16)) * LD
-                                   + 16 * kk + 8 * ((lane / 8) % 2)));
+        load_bt<LD>(bfr, Kt, np, kk, lane);
         mma_bf16(s[2 * np], qa[kk], bfr[0], bfr[1]);
         mma_bf16(s[2 * np + 1], qa[kk], bfr[2], bfr[3]);
       }
@@ -299,18 +214,15 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 
     // O += P V: P from the S accumulators; B fragments by ldmatrix.trans
-    // of keys 16 kk + (lane % 16), columns 16 np + 8 (lane / 16)
+    // of keys 16 kk .. 16 kk + 15
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      uint32_t pa[4];
+      pack_a(pa, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
       for (int np = 0; np < D / 16; ++np) {
         uint32_t bfr[4];
-        ldmatrix_x4_trans(bfr, smem_addr(Vt + (16 * kk + lane % 16) * LD
-                                         + 16 * np + 8 * (lane / 16)));
+        load_b<LD>(bfr, Vt + 16 * kk * LD, np, lane);
         mma_bf16(acc[2 * np], pa, bfr[0], bfr[1]);
         mma_bf16(acc[2 * np + 1], pa, bfr[2], bfr[3]);
       }
@@ -318,28 +230,17 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   cp_async_wait<0>();  // the trailing (empty) groups
 
-  // epilogue: O / max(l, 1e-30) into this warp's Q rows, then coalesced
-  // 16-byte stores; lse once per row
+  // epilogue: lse once per row; O / max(l, 1e-30) into this warp's Q rows,
+  // then coalesced 16-byte stores
+  float denom[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const float denom = fmaxf(quad_sum(l[h]), 1e-30f);
+    denom[h] = fmaxf(quad_sum(l[h]), 1e-30f);
     const int row = r0 + g + 8 * h;
-    if (c == 0 && row < tq) lse[(size_t)b * tq + row] = m[h] + logf(denom);
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      *reinterpret_cast<uint32_t*>(Qw + (g + 8 * h) * LD + 8 * n + 2 * c) =
-          pack_bf16(acc[n][2 * h] / denom, acc[n][2 * h + 1] / denom);
-    }
+    if (c == 0 && row < tq) lse[(size_t)b * tq + row] = m[h] + logf(denom[h]);
   }
-  __syncwarp();
-  bf16* ob = o + (size_t)b * tq * D;
-  for (int i = lane; i < 16 * CH; i += 32) {
-    const int r = i / CH, col = (i % CH) * 8;
-    if (r0 + r < tq) {
-      *reinterpret_cast<uint4*>(ob + (size_t)(r0 + r) * D + col) =
-          *reinterpret_cast<const uint4*>(Qw + r * LD + col);
-    }
-  }
+  store_warp_rows<D, LD>(o + (size_t)b * tq * D, Qw, acc,
+                         [=](float x, int h) { return x / denom[h]; }, r0, tq, lane);
 }
 
 template <int D, int BQ>
@@ -539,11 +440,7 @@ extern "C" int dl4j_flash_fwd(const void* q, const void* k, const void* v, void*
     // of K and V), else 4 (short queries such as the prefill's 64 rows,
     // or few heads: more blocks in flight)
     if (block_q == 0) {
-      int dev = 0, sms = 0;
-      if (cudaGetDevice(&dev) != cudaSuccess ||
-          cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-        return (int)cudaGetLastError();
-      block_q = tq > 64 && (long long)bh * ((tq + 127) / 128) >= 2LL * sms ? 128 : 64;
+      if (int err = block_rows(bh, tq, &block_q)) return err;
     }
     if (d == 64 && block_q == 64) return launch_bf16<64, 64>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
     if (d == 64 && block_q == 128) return launch_bf16<64, 128>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
@@ -555,6 +452,3 @@ extern "C" int dl4j_flash_fwd(const void* q, const void* k, const void* v, void*
   }
   return (int)cudaErrorInvalidValue;
 }
-
-// The head sizes the kernel is built for, for the wrapper's checks.
-extern "C" int dl4j_flash_fwd_supports(int d) { return d == 64 || d == 128; }

@@ -8,7 +8,8 @@ kernels become CUDA kernels: ``_flash_fwd_impl`` -> ``_fwd_kernel`` is
 ``kernels/flash_bwd.cu`` (see each file's header for its Hopper design).
 Which of the two runs is decided by the tensor's device alone: on the
 CPU the plain version, on a CUDA device the kernel (a build or launch
-that fails raises).
+that fails raises). The kernels are built for head sizes 64 and 128; a
+smaller head runs zero-padded to the next of them, a larger one raises.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch import kernels
 from deeplearning4j_tpu_torch.ops.attention import scaled_dot_product_attention
@@ -42,10 +44,27 @@ def _scale(q: torch.Tensor) -> float:
     return torch.tensor(1.0 / q.shape[-1] ** 0.5, dtype=q.dtype).item()
 
 
+def _head_width(d: int) -> int:
+    """The head size the kernels run a head of ``d`` at: 64 or 128, the
+    sizes they are built for. A smaller head is padded with zeros up to
+    it, which adds 0 to every score and product, so the unpadded columns
+    of every output are the same; the scales stay those of ``d``."""
+    for width in (64, 128):
+        if d <= width:
+            return width
+    raise ValueError(f"flash kernels take head sizes up to 128, got {d}")
+
+
+def _pad_head(x: torch.Tensor, width: int) -> torch.Tensor:
+    """x [.., d] contiguous, zero-padded to [.., width]."""
+    d = x.shape[-1]
+    return x.contiguous() if d == width else F.pad(x, (0, width - d))
+
+
 def _prescale(q: torch.Tensor) -> torch.Tensor:
     """q * 1/sqrt(d) with the scale of :func:`_scale`: the product rounds
-    as a same-dtype product would (the forward kernel does this itself
-    as it loads q)."""
+    as a same-dtype product would (the plain versions' pre-scale; every
+    kernel does this itself as it loads q)."""
     return q * _scale(q)
 
 
@@ -110,19 +129,18 @@ def _flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool, block_q: int = 0
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch of the kernel on the unscaled q (it scales q as it
-    loads it). ``block_q``: the bf16 kernel's query rows per block, 64
-    or 128 (for measurements only), or 0: the kernel chooses by tq and
-    the size of the grid."""
+    loads it), at the head width of :func:`_head_width`. ``block_q``:
+    the bf16 kernel's query rows per block, 64 or 128 (for measurements
+    only), or 0: the kernel chooses by tq and the size of the grid."""
     bh, tq, d = q.shape
     tk = k.shape[1]
     _check_inputs(q, k, v)
+    width, scale = _head_width(d), _scale(q)
     lib = kernels.load(KERNEL)
     lib.dl4j_flash_fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     lib.dl4j_flash_fwd.restype = ctypes.c_int
-    if not lib.dl4j_flash_fwd_supports(d):
-        raise ValueError(f"flash kernel is built for head size 64 or 128, got {d}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (_pad_head(x, width) for x in (q, k, v))
     for t in (q, k, v):
         if t.data_ptr() % 16:
             raise ValueError("flash kernel needs 16-byte aligned inputs")
@@ -131,13 +149,13 @@ def _flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.dl4j_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                 o.data_ptr(), lse.data_ptr(), bh, tq, tk, d,
-                                 int(bool(causal)), _DTYPE_CODES[q.dtype],
-                                 _scale(q), block_q, stream)
+                                 o.data_ptr(), lse.data_ptr(), bh, tq, tk,
+                                 width, int(bool(causal)),
+                                 _DTYPE_CODES[q.dtype], scale, block_q, stream)
     if err:
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
     kernels.LAUNCHES[KERNEL] += 1
-    return o, lse
+    return (o if width == d else o[..., :d].contiguous()), lse
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -233,6 +251,12 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
 
 def _flash_bwd_cuda(q, k, v, o, lse, do, causal
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One launch of each backward kernel on the unscaled q (each scales
+    q by :func:`_scale` as it loads it; ``flash_dq`` also takes the f32
+    1/sqrt(d) that multiplies its sum), at the head width of
+    :func:`_head_width`. ``flash_dq`` computes delta = rowsum(dO * O) in
+    f32 and writes it for ``flash_dkv``, which runs after it on the same
+    stream."""
     bh, tq, d = q.shape
     tk = k.shape[1]
     _check_inputs(q, k, v)
@@ -240,46 +264,43 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, causal
         raise ValueError(f"flash backward shapes o {tuple(o.shape)}, "
                          f"dO {tuple(do.shape)}, lse {tuple(lse.shape)} "
                          f"for q {tuple(q.shape)}")
+    width, q_scale = _head_width(d), _scale(q)
     lib = kernels.load(BWD_SOURCE)
-    lib.dl4j_flash_dq.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 \
-        + [ctypes.c_float, ctypes.c_void_p]
+    lib.dl4j_flash_dq.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 \
+        + [ctypes.c_float] * 2 + [ctypes.c_void_p]
     lib.dl4j_flash_dq.restype = ctypes.c_int
     lib.dl4j_flash_dkv.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 \
-        + [ctypes.c_void_p]
+        + [ctypes.c_float, ctypes.c_void_p]
     lib.dl4j_flash_dkv.restype = ctypes.c_int
-    if not lib.dl4j_flash_bwd_supports(d):
-        raise ValueError(f"flash backward kernels are built for head size "
-                         f"64 or 128, got {d}")
-    qs = _prescale(q).contiguous()
-    k, v = k.contiguous(), v.contiguous()
-    do = do.to(q.dtype).contiguous()
-    # delta = rowsum(dO * O) in f32: one torch expression, as the
-    # reference computes it in XLA outside its kernels
-    delta = (do.float() * o.float()).sum(dim=-1).contiguous()
+    dt = q.dtype
+    q, k, v, o, do = (_pad_head(x.to(dt), width) for x in (q, k, v, o, do))
     lse = lse.reshape(bh, tq).float().contiguous()
-    for t in (qs, k, v, do):
+    for t in (q, k, v, o, do):
         if t.data_ptr() % 16:
             raise ValueError("flash kernels need 16-byte aligned inputs")
-    dq, dk, dv = torch.empty_like(qs), torch.empty_like(k), torch.empty_like(v)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty(bh, tq, dtype=torch.float32, device=q.device)
     dtype = _DTYPE_CODES[q.dtype]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.dl4j_flash_dq(qs.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                do.data_ptr(), lse.data_ptr(),
+        err = lib.dl4j_flash_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                o.data_ptr(), do.data_ptr(), lse.data_ptr(),
                                 delta.data_ptr(), dq.data_ptr(), bh, tq, tk,
-                                d, int(bool(causal)), dtype, 1.0 / d ** 0.5,
-                                stream)
+                                width, int(bool(causal)), dtype, q_scale,
+                                1.0 / d ** 0.5, stream)
         if err:
             raise RuntimeError(f"flash_dq kernel launch failed: CUDA error {err}")
         kernels.LAUNCHES[DQ_KERNEL] += 1
-        err = lib.dl4j_flash_dkv(qs.data_ptr(), k.data_ptr(), v.data_ptr(),
+        err = lib.dl4j_flash_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                  do.data_ptr(), lse.data_ptr(),
                                  delta.data_ptr(), dk.data_ptr(),
-                                 dv.data_ptr(), bh, tq, tk, d,
-                                 int(bool(causal)), dtype, stream)
+                                 dv.data_ptr(), bh, tq, tk, width,
+                                 int(bool(causal)), dtype, q_scale, stream)
         if err:
             raise RuntimeError(f"flash_dkv kernel launch failed: CUDA error {err}")
         kernels.LAUNCHES[DKV_KERNEL] += 1
+    if width != d:
+        dq, dk, dv = (x[..., :d].contiguous() for x in (dq, dk, dv))
     return dq, dk, dv
 
 

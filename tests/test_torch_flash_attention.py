@@ -24,6 +24,7 @@ from deeplearning4j_tpu.ops.flash_attention import (
 from deeplearning4j_tpu_torch import kernels
 from deeplearning4j_tpu_torch.ops.attention import scaled_dot_product_attention
 from deeplearning4j_tpu_torch.ops.flash_attention import (
+    _head_width,
     flash_attention,
     flash_attention_fwd,
     flash_attention_fwd_plain,
@@ -186,6 +187,17 @@ def test_unsupported_device_raises(rng):
         flash_attention_fwd(q, q, q, False)
 
 
+@pytest.mark.parametrize("d,width", [(8, 64), (63, 64), (64, 64), (96, 128),
+                                     (128, 128)])
+def test_head_width_pads_up_to_a_built_size(d, width):
+    assert _head_width(d) == width
+
+
+def test_head_width_rejects_heads_past_128():
+    with pytest.raises(ValueError, match="up to 128"):
+        _head_width(129)
+
+
 # ------------------------------------------------- the kernel on the card
 
 @pytest.mark.cuda
@@ -207,6 +219,26 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype, tol, d, causal,
     o, lse = flash_attention_fwd(q, k, v, causal)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["flash_fwd"] == 1
+    op, lp = flash_attention_fwd_plain(q, k, v, causal)
+    assert (o.float() - op.float()).abs().max().item() <= tol
+    assert (lse - lp).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("d", [8, 96])  # zero-padded to 64 and 128
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("bh,tq,tk", [(8, 200, 200), (8, 72, 200)])
+def test_kernel_takes_other_head_sizes_on_card(cuda_device, dtype, tol, d,
+                                               causal, bh, tq, tk):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = (torch.randn(bh, t, d, generator=g, device=cuda_device)
+               .to(getattr(torch, dtype)) for t in (tq, tk, tk))
+    kernels.reset_launches()
+    o, lse = flash_attention_fwd(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_fwd"] == 1
+    assert o.shape == q.shape and o.is_contiguous()
     op, lp = flash_attention_fwd_plain(q, k, v, causal)
     assert (o.float() - op.float()).abs().max().item() <= tol
     assert (lse - lp).abs().max().item() <= 1e-4

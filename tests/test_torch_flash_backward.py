@@ -26,6 +26,8 @@ from deeplearning4j_tpu.ops.flash_attention import (
 from deeplearning4j_tpu_torch import kernels
 from deeplearning4j_tpu_torch.ops.flash_attention import (
     _bwd_block,
+    _prescale,
+    _scale,
     flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_plain,
@@ -84,6 +86,49 @@ def test_plain_matches_pallas_bwd(rng, dtype, causal, tq, tk, bq, bk):
     for t, w in zip(got, want):
         assert t.dtype == getattr(torch, dtype) and t.shape == w.shape
         _close(t.float().numpy(), w, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("tq,tk", [(40, 40), (24, 40)])
+def test_plain_bwd_at_kernel_tiles_matches_pallas_on_ragged_tiles(
+        rng, dtype, causal, tq, tk):
+    """The kernels' oracle at the kernels' own 64 x 64 tiles, where the
+    one tile is ragged in q and in k (and, at tq < tk, the diagonal is
+    offset), against the Pallas backward at exact blocks of 8."""
+    q, k, v = _arrays(rng, [(3, tq, 16), (3, tk, 16), (3, tk, 16)])
+    (g,) = _arrays(rng, [(3, tq, 16)])
+    jq, jk, jv, jg = (_jax(a, dtype) for a in (q, k, v, g))
+    jo, jl = _flash_fwd_impl(jq, jk, jv, causal, 8, 8, interpret=True)
+    want = _flash_bwd_impl(jq, jk, jv, jo, jl, jg, causal, 8, 8,
+                           interpret=True)
+    got = flash_attention_bwd_plain(
+        *(_torch(a, dtype) for a in (q, k, v, jo)),
+        torch.tensor(np.asarray(jl)), _torch(g, dtype), causal, 64, 64)
+    for t, w in zip(got, want):
+        assert t.dtype == getattr(torch, dtype) and t.shape == w.shape
+        _close(t.float().numpy(), w, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_prescale_is_one_rounding_of_the_exact_product(dtype, d):
+    """What lets the kernels pre-scale q themselves: the bf16 kernels
+    round the f32 product of a bf16 q and the bf16 scale (exact in f32)
+    once to bf16, the f32 kernels round q * scale once to f32; both equal
+    the plain versions' torch product bit for bit (at d = 128 the scale
+    is not a power of two)."""
+    rng = np.random.default_rng(d)
+    x = rng.standard_normal((4, 256, d)) * np.exp(rng.uniform(-20, 20, (4, 256, 1)))
+    q = torch.tensor(x, dtype=torch.float32).to(getattr(torch, dtype))
+    if dtype == "bfloat16":
+        one_rounding = (q.float() * _scale(q)).to(torch.bfloat16)
+    else:  # an f32 x f32 product is exact in f64
+        one_rounding = (q.double() * _scale(q)).to(torch.float32)
+    assert torch.equal(one_rounding.view(torch.int16 if dtype == "bfloat16"
+                                         else torch.int32),
+                       _prescale(q).view(torch.int16 if dtype == "bfloat16"
+                                         else torch.int32))
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -189,11 +234,18 @@ def test_unsupported_device_raises_in_backward(rng):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("tq,tk", [(128, 128), (100, 164), (128, 320)])
-def test_kernels_match_plain_on_card(cuda_device, dtype, d, causal, tq, tk):
+@pytest.mark.parametrize("bh,tq,tk", [
+    (4, 128, 128),
+    (4, 100, 164),
+    (4, 128, 320),     # tq < tk: the causal offset
+    (8, 200, 200),     # ragged last q- and k-tiles
+    (8, 72, 200),      # an offset with a ragged diagonal
+    (1, 2048, 2048),   # few blocks, a long loop
+])
+def test_kernels_match_plain_on_card(cuda_device, dtype, d, causal, bh, tq, tk):
     g = torch.Generator(device=cuda_device).manual_seed(0)
     dt = getattr(torch, dtype)
-    q, k, v, do = (torch.randn(4, t, d, generator=g, device=cuda_device).to(dt)
+    q, k, v, do = (torch.randn(bh, t, d, generator=g, device=cuda_device).to(dt)
                    for t in (tq, tk, tk, tq))
     o, lse = flash_attention_fwd(q, k, v, causal)
     kernels.reset_launches()
@@ -206,6 +258,30 @@ def test_kernels_match_plain_on_card(cuda_device, dtype, d, causal, tq, tk):
         ref = b.float().abs().max().item()
         # f32: CUDA-core FMAs in another order; bf16: ds is rounded to
         # bf16 and summed in another order, so the bound scales with |ref|
+        tol = 2e-5 if dtype == "float32" else 2e-2 * ref
+        assert (a.float() - b.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [8, 96])  # zero-padded to 64 and 128
+@pytest.mark.parametrize("causal", [False, True])
+def test_kernels_take_other_head_sizes_on_card(cuda_device, dtype, d, causal):
+    bh, tq, tk = 8, 72, 200
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.randn(bh, t, d, generator=g, device=cuda_device).to(dt)
+                   for t in (tq, tk, tk, tq))
+    o, lse = flash_attention_fwd(q, k, v, causal)
+    kernels.reset_launches()
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_dq"] == 1
+    assert kernels.LAUNCHES["flash_dkv"] == 1
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.is_contiguous()
+        ref = b.float().abs().max().item()
         tol = 2e-5 if dtype == "float32" else 2e-2 * ref
         assert (a.float() - b.float()).abs().max().item() <= tol
 

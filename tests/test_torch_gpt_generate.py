@@ -33,9 +33,9 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _pair(compute_dtype="float32", seed=3, device="cpu"):
-    jn = jax_gpt(compute_dtype=compute_dtype, seed=seed, **SIZE).init()
-    tn = gpt(compute_dtype=compute_dtype, seed=seed, device=device, **SIZE)
+def _pair(compute_dtype="float32", seed=3, device="cpu", size=SIZE):
+    jn = jax_gpt(compute_dtype=compute_dtype, seed=seed, **size).init()
+    tn = gpt(compute_dtype=compute_dtype, seed=seed, device=device, **size)
     params_from_numpy(tn, jax.tree.map(np.asarray, jn.params))
     return jn, tn
 
@@ -247,10 +247,14 @@ def test_bad_requests_raise(nets):
 
 
 @pytest.mark.cuda
-def test_generate_on_card_runs_the_kernel(cuda_device):
-    _, tn = _pair("bfloat16", device=cuda_device)
+@pytest.mark.parametrize("size", [
+    SIZE,                                  # head size 8: padded to 64
+    dict(SIZE, d_model=128, num_heads=2),  # head size 64
+], ids=["head8", "head64"])
+def test_generate_on_card_runs_the_kernel(cuda_device, size):
+    _, tn = _pair("bfloat16", device=cuda_device, size=size)
     prompt = _prompt(4, 16)
     kernels.reset_launches()
     got = tn.generate(prompt, 12)
-    assert kernels.LAUNCHES["flash_fwd"] == SIZE["n_layers"]
+    assert kernels.LAUNCHES["flash_fwd"] == size["n_layers"]
     np.testing.assert_array_equal(got, tgen.generate_eager(tn, prompt, 12))
