@@ -11,8 +11,8 @@ Phases (any failure ends the run with a non-zero exit and no result):
    CUDA.
 1. build: every kernel source in this checkout, one ``nvcc`` each, all
    started together, from an empty build directory, timed; fails if a
-   bf16 ``flash_fwd_kernel``, ``flash_dq_kernel`` or ``flash_dkv_kernel``
-   spills registers.
+   bf16 ``flash_fwd_kernel``, ``flash_dq_kernel``, ``flash_dkv_kernel``
+   or ``lstm_fwd_kernel`` spills registers (``BF16_KERNELS``).
 2. kernels: each kernel's wrapper on card tensors against its plain
    PyTorch version on the same inputs, at the main paths' shapes, at
    larger ones and at ragged ones (t = 200, tq 72 / tk 200, one head of
@@ -27,9 +27,15 @@ Phases (any failure ends the run with a non-zero exit and no result):
    work. The forward (``flash_fwd``) first, then the backward
    (``flash_dq``, ``flash_dkv``) at the same shapes, ragged ones
    included; a backward call must launch each of the two once.
-2b. LSTM kernels: ``lstm_fwd_only``, ``lstm_fwd`` and the backward pair
-   ``lstm_bwd`` + ``lstm_dw`` against their plain versions, f32 and bf16,
-   nonzero h0 and c0, at the char-RNN's two main shapes (b 1024, t 128,
+2b. LSTM kernels: first one call of ``lstm_fwd``'s timed bf16
+   instantiation at the training shape, printed as ``lstm_fwd_phases``:
+   the mean µs per step (over blocks and steps) of the barrier wait, the
+   h chunks up to the landing of the last one (their copies and waits
+   and the products of all but the last), the last chunk's product, and
+   the cell with its stores, from the card's globaltimer. Then
+   ``lstm_fwd_only``, ``lstm_fwd`` and the backward pair ``lstm_bwd`` +
+   ``lstm_dw`` against their plain versions, f32 and bf16, nonzero h0
+   and c0, at the char-RNN's two main shapes (b 1024, t 128,
    n 512 bf16 for training; b 32, t 1, n 512 f32 for serving) and at
    n 128 / 1024, b 8 / 32 / 1024, t 1 / 9 / 128; the yardstick is
    PyTorch's ``nn.LSTM`` (cuDNN where it takes the dtype), which has no
@@ -68,7 +74,12 @@ Phases (any failure ends the run with a non-zero exit and no result):
    once per layer and ``lstm_fwd_only`` never; 20 steps give finite
    losses that fall; step time, tokens/s, MFU, busy share (and kept
    share), the LSTM
-   kernels' device ms per step and peak memory are printed.
+   kernels' device ms per step and peak memory are printed. Then a
+   witness (printed, not gated): 20 steps through the plain scan on the
+   card, from these weights and from a second seed of weights and ids;
+   before each, the loss and gradients on the same weights through the
+   kernels, and through the forward kernel with the plain backward,
+   against the plain scan's.
 
 The last lines are the card's name and power limit, one JSON object
 with every kernel's numbers, and ``{"ok": true, "device": {...}}``
@@ -782,6 +793,64 @@ def _lstm_check(what, dtype, got, want, forward):
     return err
 
 
+# the phases between the four stamps of lstm_fwd's timed kernel per block
+# and step (after the barrier, after the last h chunk landed, after the
+# product, after the cell and its stores), named for what they hold: the
+# copies and waits of every h chunk interleave with the products of the
+# chunks before it, so "chunks_but_last" is the copies, waits and
+# products of all chunks but the last, ending when the last one has
+# landed, and "last_chunk" the last chunk's product (with the wait for
+# the step's xg rows); the barrier wait runs from the previous step's
+# last stamp to this step's first
+PHASE_NAMES = ("barrier_wait", "chunks_but_last", "last_chunk", "cell_stores")
+
+
+def _phase_breakdown(stamps):
+    """Mean µs per step, over blocks and steps 1 .. t-1 (each has a
+    barrier before it), of each phase of ``PHASE_NAMES`` and of the whole
+    step (the sum of the four), from stamps [blocks, t, 4] in ns (numpy)."""
+    import numpy as np
+
+    st = stamps.astype("float64") / 1e3
+    _check(st.ndim == 3 and st.shape[1] > 1 and st.shape[2] == 4,
+           f"the timer needs t > 1 and 4 stamps per step: {st.shape}")
+    spans = {"barrier_wait": st[:, 1:, 0] - st[:, :-1, 3]}
+    for k, name in enumerate(PHASE_NAMES[1:]):
+        spans[name] = st[:, 1:, k + 1] - st[:, 1:, k]
+    spans["step"] = st[:, 1:, 3] - st[:, :-1, 3]
+    _check(all(v.min() >= 0 for v in spans.values()),
+           "the stamps of a step are not in order")
+    out = {f"{k}_us": float(v.mean()) for k, v in spans.items()}
+    ticks = np.diff(np.unique(stamps))
+    out.update(blocks=int(st.shape[0]), steps=int(st.shape[1]),
+               kernel_us=float(st[:, :, 3].max() - st[:, :, 0].min()),
+               # the least step of the card's globaltimer seen in the stamps
+               timer_tick_ns=int(ticks.min()) if ticks.size else None)
+    return out
+
+
+def phase_lstm_timer(torch, lk):
+    """The per-step breakdown of lstm_fwd's bf16 kernel at the training
+    shape, from its timed instantiation (one call after a warm-up)."""
+    dtype, b, t, n = LSTM_CASES[0]
+    _check(dtype == "bfloat16", "LSTM_CASES[0] is the bf16 training shape")
+    g = torch.Generator(device="cuda").manual_seed(2025)
+    dt = torch.bfloat16
+    xg = torch.randn(t, b, 4 * n, generator=g, device="cuda").to(dt)
+    wr = (torch.randn(n, 4 * n, generator=g, device="cuda") * n ** -0.5).to(dt)
+    pe = tuple(torch.randn(n, generator=g, device="cuda") * 0.1 for _ in range(3))
+    h0 = (torch.randn(b, n, generator=g, device="cuda") * 0.5).to(dt)
+    c0 = torch.randn(b, n, generator=g, device="cuda") * 0.5
+    lk.lstm_fwd_timed(xg, wr, *pe, h0, c0)
+    hs, _, stamps = lk.lstm_fwd_timed(xg, wr, *pe, h0, c0)
+    torch.cuda.synchronize()
+    want, _ = lk.lstm_fwd(xg, wr, *pe, h0, c0)
+    _lstm_check(f"timed lstm_fwd h {dtype} b{b} t{t} n{n}", dtype, hs, want, True)
+    out = dict(dtype=dtype, b=b, t=t, n=n,
+               **_phase_breakdown(stamps.cpu().numpy()))
+    print("lstm_fwd_phases " + json.dumps(out), flush=True)
+
+
 def phase_lstm_kernels(torch, lk):
     """Phase 2b: the LSTM kernels against their plain versions."""
     rows = []
@@ -870,12 +939,14 @@ def phase_lstm_kernels(torch, lk):
 
 
 @contextlib.contextmanager
-def _plain_lstm(lk):
+def _plain_lstm(lk, fwd=True):
     """Run the fused LSTM scan through the kernels' plain versions on the
-    same card tensors, forward and backward (comparisons only)."""
+    same card tensors, forward (unless ``fwd`` is false) and backward
+    (comparisons only)."""
     saved = lk.lstm_fwd, lk.lstm_bwd
-    lk.lstm_fwd = lambda *a, with_residuals=True: lk.lstm_fwd_plain(  # noqa: E731
-        *a, with_residuals=with_residuals)
+    if fwd:
+        lk.lstm_fwd = lambda *a, with_residuals=True: lk.lstm_fwd_plain(  # noqa: E731
+            *a, with_residuals=with_residuals)
     lk.lstm_bwd = lk.lstm_bwd_plain
     try:
         yield
@@ -1007,6 +1078,62 @@ def _markov_ids(np, rng, b, t):
     return ids
 
 
+def _char_train_witness(torch, np, lk, seed, ds):
+    """CHAR_STEPS ``fit`` steps through the plain scan on the card from
+    the weights of ``seed``; before each, the loss and gradients on the
+    same weights through the kernels, and through the forward kernel
+    with the plain backward, against the plain scan's. A difference of
+    the kernels that builds up over steps shows at the step where it
+    does (two free-running trajectories at Adam 0.01 cannot tell it from
+    the growth of rounding differences), and the second comparison tells
+    the forward's share from the backward's. Read, not gated: the first
+    step is gated in phase 6. Returns the plain trajectory's losses and,
+    per step, the loss difference and the two worst gradient rel L2."""
+    from deeplearning4j_tpu_torch.util.model_serializer import params_from_numpy
+
+    net = _char_rnn("bfloat16")
+    params_from_numpy(net, _random_params(net, seed=seed))
+    out = collections.defaultdict(list)
+    for s in range(CHAR_STEPS):
+        grads, loss = net.gradient_and_score(ds)
+        with _plain_lstm(lk, fwd=False):
+            grads_f, _ = net.gradient_and_score(ds)
+        with _plain_lstm(lk):
+            grads_p, loss_p = net.gradient_and_score(ds)
+            net.fit(ds)
+        out["losses"].append(net.score())
+        out["loss_vs_plain"].append(abs(loss - loss_p))
+        out["grad_rel_l2_vs_plain"].append(_grad_rel(torch, grads, grads_p))
+        out["grad_rel_l2_fwd_kernel_vs_plain"].append(_grad_rel(torch, grads_f, grads_p))
+    _check(all(np.isfinite(out["losses"])), f"char-RNN seed {seed}: {dict(out)}")
+    return dict(out)
+
+
+def _grad_rel(torch, grads, grads_p):
+    """The worst rel L2, over the layers' gradients, of ``grads`` against
+    ``grads_p``, and where it is; inf for a non-finite gradient."""
+    worst, at = 0.0, ""
+    for layer, gl in grads.items():
+        for name, gk in gl.items():
+            gp = grads_p[layer][name]
+            rel = ((gk - gp).norm() / gp.norm().clamp_min(1e-30)).item()
+            if not bool(torch.isfinite(gk).all()):
+                rel = float("inf")
+            if rel >= worst:
+                worst, at = rel, f"{layer}/{name}"
+    return worst, at
+
+
+def _grads_vs_plain(torch, what, grads, grads_p):
+    """The worst rel L2 over the layers' gradients of ``grads`` (kernels)
+    against ``grads_p`` (plain); fails past CHAR_GRAD_REL or on a
+    non-finite gradient."""
+    worst, at = _grad_rel(torch, grads, grads_p)
+    _check(worst != float("inf"), f"{what}: finite grad {at}")
+    _check(worst <= CHAR_GRAD_REL, f"{what}: grad {at} kernels vs plain: rel L2 {worst}")
+    return worst
+
+
 def phase_char_train(torch, np, kernels, lk):
     """Phase 6: char-RNN training at full width; returns (launches,
     metrics)."""
@@ -1024,15 +1151,7 @@ def phase_char_train(torch, np, kernels, lk):
         grads_p, loss_p = net.gradient_and_score(ds)
     _check(abs(loss - loss_p) <= CHAR_LOSS_TOL,
            f"char-RNN loss kernels {loss} vs plain {loss_p}")
-    worst = 0.0
-    for layer, gl in grads.items():
-        for name, gk in gl.items():
-            gp = grads_p[layer][name]
-            _check(bool(torch.isfinite(gk).all()), f"finite grad {layer}/{name}")
-            rel = ((gk - gp).norm() / gp.norm().clamp_min(1e-30)).item()
-            _check(rel <= CHAR_GRAD_REL,
-                   f"char-RNN grad {layer}/{name} kernels vs plain: rel L2 {rel}")
-            worst = max(worst, rel)
+    worst = _grads_vs_plain(torch, "char-RNN", grads, grads_p)
     del grads, grads_p
 
     torch.cuda.synchronize()
@@ -1091,14 +1210,42 @@ def phase_char_train(torch, np, kernels, lk):
                    loss_vs_plain=abs(loss - loss_p),
                    grad_rel_l2_vs_plain_max=worst, losses=losses,
                    top_kernels_ms_per_step=[[k[:90], ms] for k, ms in top])
+    # the kernels held against the plain scan along the plain scan's own
+    # trajectory: these weights and ids, and a second seed of both
+    ids2 = _markov_ids(np, np.random.default_rng(34), CHAR_BATCH, CHAR_SEQ)
+    ds2 = DataSet(eye[ids2], eye[np.roll(ids2, -1, axis=1)])
+    metrics.update(witness_seed31=_char_train_witness(torch, np, lk, 31, ds),
+                   witness_seed33=_char_train_witness(torch, np, lk, 33, ds2))
     print("char_train " + json.dumps(metrics), flush=True)
     return launches, metrics
 
 
 PHASES = ("2", "2b", "3", "4", "5", "6")
-# source -> its bf16 kernels, each of whose instantiations must not spill
-FLASH_BF16_KERNELS = {"flash_fwd": ("flash_fwd_kernel",),
-                      "flash_bwd": ("flash_dq_kernel", "flash_dkv_kernel")}
+# source -> its bf16 kernels, each of whose instantiations must not spill:
+# the mma.sync designs keep their tiles, sums and (LSTM) cell state in
+# registers
+BF16_KERNELS = {"flash_fwd": ("flash_fwd_kernel",),
+                "flash_bwd": ("flash_dq_kernel", "flash_dkv_kernel"),
+                "lstm_fwd": ("lstm_fwd_kernel",)}
+
+
+def _spill_gate(name, report):
+    """Phase 1's reading of one source's ``-Xptxas -v`` report: prints
+    its registers and spills, and for each of its ``BF16_KERNELS`` the
+    registers and spill bytes of every bf16 instantiation; fails if one
+    spills or there is none."""
+    fns = _ptxas(report)
+    regs = [r for _, r, _ in fns]
+    spills = [(f[f.find("kernel"):][:60], sp) for f, _, sp in fns if sp]
+    print(f"phase 1: {name}.cu ptxas: {len(fns)} kernels, "
+          f"{min(regs)}-{max(regs)} registers, spills {spills}", flush=True)
+    for kernel in BF16_KERNELS.get(name, ()):
+        bf16_fns = [(f, r, sp) for f, r, sp in fns
+                    if kernel + "I" in f and "bfloat16" in f]
+        print(f"phase 1: bf16 {kernel} registers, spill bytes: "
+              f"{[(r, sp) for _, r, sp in bf16_fns]}", flush=True)
+        _check(bf16_fns and not any(sp for _, _, sp in bf16_fns),
+               f"bf16 {kernel} spills: {bf16_fns}")
 
 
 def _phases(argv):
@@ -1142,19 +1289,7 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     reports = kernels.build()
     for name, report in reports.items():
-        fns = _ptxas(report)
-        regs = [r for _, r, _ in fns]
-        spills = [(f[f.find("kernel"):][:60], sp) for f, _, sp in fns if sp]
-        print(f"phase 1: {name}.cu ptxas: {len(fns)} kernels, "
-              f"{min(regs)}-{max(regs)} registers, spills {spills}", flush=True)
-        # the bf16 flash kernels keep their tiles and sums in registers
-        for kernel in FLASH_BF16_KERNELS.get(name, ()):
-            bf16_fns = [(f, r, sp) for f, r, sp in fns
-                        if kernel + "I" in f and "bfloat16" in f]
-            print(f"phase 1: bf16 {kernel} registers, spill bytes: "
-                  f"{[(r, sp) for _, r, sp in bf16_fns]}", flush=True)
-            _check(bf16_fns and not any(sp for _, _, sp in bf16_fns),
-                   f"bf16 {kernel} spills: {bf16_fns}")
+        _spill_gate(name, report)
     print(f"phase 1: built {sorted(reports)} in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
@@ -1168,6 +1303,7 @@ def main(argv) -> int:
               "tolerance", flush=True)
     if "2b" in phases:
         print(f"clocks: {_clocks()}", flush=True)
+        phase_lstm_timer(torch, lk)
         done["2b"] = phase_lstm_kernels(torch, lk)
         print(f"phase 2b: {len(done['2b'])} LSTM cases (lstm_fwd_only, lstm_fwd, "
               "lstm_bwd + lstm_dw) within tolerance", flush=True)

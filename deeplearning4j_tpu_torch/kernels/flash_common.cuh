@@ -1,12 +1,10 @@
 // Shared pieces of the hand-written flash-attention kernels (flash_fwd.cu,
-// flash_bwd.cu) for Hopper (sm_90a): the reference's constants and the
-// PTX helpers of the mma.sync designs: 16-byte cp.async copies into a
-// ring of shared-memory stages, ldmatrix (plain and transposed) into
-// tensor-core fragments, mma.sync m16n8k16 (bf16 in, f32 accumulate),
-// bf16 packing and the q pre-scale, the reductions within the quad of
-// threads that share an accumulator row, and the block size rule; then
-// the warp- and block-level pieces built on them: row copies into shared
-// memory, fragment loads and packing, and the coalesced epilogue store.
+// flash_bwd.cu) for Hopper (sm_90a): the reference's constants, the q
+// pre-scale, the reductions within the quad of threads that share an
+// accumulator row, and the block size rule; then the warp- and
+// block-level pieces built on the PTX helpers of ptx_common.cuh (cp.async,
+// ldmatrix, mma.sync, bf16 packing): row copies into shared memory,
+// fragment loads and packing, and the coalesced epilogue store.
 
 #pragma once
 
@@ -15,57 +13,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "ptx_common.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
 
 constexpr float NEG_INF_SENTINEL = -1e30f;  // the reference's finite -inf
 constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared through L2 (not L1); src_bytes = 0 writes zeros
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N of this thread's copy groups are still in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-// d += a b: a 16 x 16 (row), b 16 x 8 (col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats as a bf16 pair, lo in the low half (the lower column index)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 r = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&r);
-}
 
 // a bf16 pair times a bf16 scale, each product rounded once to bf16
 __device__ __forceinline__ uint32_t scale_pair(uint32_t x, float scale) {

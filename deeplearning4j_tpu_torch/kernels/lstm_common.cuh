@@ -3,12 +3,17 @@
 // barrier of the persistent kernels, the double-buffered staging of row
 // chunks through shared memory (cp.async), and the per-step block
 // product on the tensor cores (bf16, WMMA 16x16x16 with f32
-// accumulation) or the CUDA cores (f32).
+// accumulation) or the CUDA cores (f32); then the pieces of the bf16
+// forward's mma.sync design (lstm_fwd.cu): the card's nanosecond timer,
+// the batch-group barrier split into a release arrival and an acquire
+// wait, the warp layout over a block's rows and units, and the copy of
+// one chunk into a ring stage.
 //
 // Layout shared by both sweeps: a block (bi, j) of the persistent grid
 // owns batch rows [bi * BB, +BB) and hidden units [j * U, +U) for the
 // whole sequence. The blocks of one batch group (same bi) exchange only
-// through device memory, between steps, behind group_barrier.
+// through device memory, between steps, behind group_barrier (or, in
+// the bf16 forward, group_arrive and group_wait).
 
 #pragma once
 
@@ -17,6 +22,8 @@
 #include <math.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "ptx_common.cuh"
 
 namespace lstm {
 
@@ -69,14 +76,6 @@ __device__ __forceinline__ void group_barrier(unsigned int* counter, unsigned in
   __syncthreads();
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned int d = static_cast<unsigned int>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
 // Starts copying rows [0, nrows) x columns [col0, col0 + KC) of a
 // row-major matrix with row stride ``ld_src`` into shared memory with
 // row stride ``ld_dst``; rows at or past ``valid`` become zeros. The
@@ -92,7 +91,7 @@ __device__ __forceinline__ void issue_chunk(T* dst, int ld_dst, const T* src, si
     const int r = i / CPR, c = (i % CPR) * VEC;
     T* d = dst + r * ld_dst + c;
     if (r < valid)
-      cp_async16(d, src + (size_t)r * ld_src + col0 + c);
+      cp_async16(smem_addr(d), src + (size_t)r * ld_src + col0 + c, 16);
     else
       *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
   }
@@ -206,6 +205,87 @@ __device__ void block_product(float* out, int ldo, T* stage, const T* A, size_t 
     }
   }
   __syncthreads();
+}
+
+// ---------------------------------------------------------------- the
+// bf16 forward's mma.sync design (lstm_fwd.cu)
+
+constexpr int STAGES = 3;  // ring stages of h_{t-1} chunks (2 in flight)
+
+// the card's nanosecond clock (the same on every SM)
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// group_barrier in two halves, with a release add and an acquire poll on
+// the group's counter instead of fences around a relaxed atomic and a
+// sleeping poll, so that a block can do work between its arrival and its
+// wait. group_arrive: the __syncthreads orders every thread's stores
+// before it ahead of thread 0's add (a release is cumulative); stores
+// after it are not ordered for the other blocks. group_wait: the
+// __syncthreads after the poll orders every thread's later reads after
+// it. A wait longer than four seconds is a fault and traps.
+__device__ __forceinline__ void group_arrive(unsigned int* counter) {
+  __syncthreads();
+  if (threadIdx.x == 0)
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n" ::"l"(counter) : "memory");
+}
+
+__device__ __forceinline__ void group_wait(const unsigned int* counter, unsigned int target) {
+  if (threadIdx.x == 0) {
+    const unsigned long long t0 = globaltimer();
+    unsigned int seen;
+    for (;;) {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(seen) : "l"(counter) : "memory");
+      if (seen >= target) break;
+      if (globaltimer() - t0 > 4000000000ull) __trap();
+    }
+  }
+  __syncthreads();
+}
+
+// How the 8 warps of a block of BB rows and U units share the product
+// and the cell: RG row groups x UG unit groups (RG * UG <= 8 warps take
+// part; the rest only copy). Warp (rg, ug) owns MT 16-row tiles and UH
+// 8-unit slices, so it holds all four gates of its (row, unit) pairs in
+// 4 UH 8-column accumulator tiles per row tile: gate q's tile uh holds,
+// at column 2c + p, unit 2 UH c + 2 uh + p of the warp's 8 UH units, so
+// that the thread of lane c owns 2 UH neighbouring units (one vector of
+// xg, h and each stream per row).
+template <int BB, int U> struct WarpLayout {
+  static constexpr int RG = BB / 16 < 4 ? BB / 16 : 4;
+  static constexpr int UG = U / 8 < 8 / RG ? U / 8 : 8 / RG;
+  static constexpr int WARPS = RG * UG;
+  static constexpr int MT = BB / 16 / RG;
+  static constexpr int UH = U / 8 / UG;
+  static_assert(BB % 16 == 0 && U % 8 == 0 && WARPS <= NT / 32, "warp layout");
+  static_assert(MT * RG * 16 == BB && UH * UG * 8 == U, "warp layout");
+  // the column, among a gate's U columns in shared memory, of the unit
+  // (within the block's U) at ``unit``
+  __host__ __device__ static constexpr int col_at(int unit) {
+    return unit / (8 * UH) * 8 * UH + 8 * (unit % (2 * UH) / 2) + 2 * (unit % (8 * UH) / (2 * UH)) +
+           unit % 2;
+  }
+};
+
+// Starts copying BB rows x columns [col0, col0 + KC) of a row-major bf16
+// matrix (row stride ld_src, written by other blocks of this launch:
+// through L2, not L1) into a ring stage of row stride LD; the caller
+// commits.
+template <int BB, int LD>
+__device__ __forceinline__ void issue_rows(bf16* dst, const bf16* src, int ld_src, int col0) {
+  constexpr int CPR = KC / 8;  // 16-byte pieces per row
+  constexpr int PIECES = BB * CPR;
+#pragma unroll
+  for (int q = 0; q < (PIECES + NT - 1) / NT; ++q) {
+    const int i = threadIdx.x + q * NT;
+    if (PIECES % NT == 0 || i < PIECES) {
+      const int r = i / CPR, c = (i % CPR) * 8;
+      cp_async16(smem_addr(dst + r * LD + c), src + (size_t)r * ld_src + col0 + c, 16);
+    }
+  }
 }
 
 }  // namespace lstm

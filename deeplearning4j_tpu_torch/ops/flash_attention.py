@@ -9,7 +9,8 @@ kernels become CUDA kernels: ``_flash_fwd_impl`` -> ``_fwd_kernel`` is
 Which of the two runs is decided by the tensor's device alone: on the
 CPU the plain version, on a CUDA device the kernel (a build or launch
 that fails raises). The kernels are built for head sizes 64 and 128; a
-smaller head runs zero-padded to the next of them, a larger one raises.
+smaller head runs zero-padded to the next of them, a larger one raises
+on the card (the CPU's plain versions take any head size).
 """
 
 from __future__ import annotations
@@ -351,7 +352,8 @@ def flash_attention(
     """Drop-in for ``scaled_dot_product_attention`` with the reference's
     dispatch rules: a key mask, a length that no block in
     (preferred, 512, ..., 8) divides, or causal with tq > tk takes the
-    plain formulation; every other case runs the flash forward."""
+    plain formulation; every other case runs the flash forward (on the
+    card a head wider than the kernels' 128 raises)."""
     b, tq, h, d = q.shape
     tk = k.shape[1]
     if block_q is None:

@@ -41,6 +41,7 @@ FWD_SOURCE = "lstm_fwd"      # kernels/lstm_fwd.cu: both forward kernels
 BWD_SOURCE = "lstm_bwd"      # kernels/lstm_bwd.cu: the sweep and the weights
 FWD_KERNEL = "lstm_fwd"      # forward with residuals (training)
 FWD_ONLY_KERNEL = "lstm_fwd_only"
+TIMED_KERNEL = "lstm_fwd_timed"  # lstm_fwd's bf16 kernel with its step timer
 BWD_KERNEL = "lstm_bwd"
 DW_KERNEL = "lstm_dw"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -184,7 +185,9 @@ def _lib(source: str) -> ctypes.CDLL:
     if source == FWD_SOURCE:
         lib.dl4j_lstm_fwd.argtypes = [ptr] * 14 + [i32] * 6 + [ptr]
         lib.dl4j_lstm_fwd_only.argtypes = [ptr] * 11 + [i32] * 6 + [ptr]
+        lib.dl4j_lstm_fwd_timed.argtypes = [ptr] * 15 + [i32] * 6 + [ptr]
         lib.dl4j_lstm_fwd.restype = lib.dl4j_lstm_fwd_only.restype = i32
+        lib.dl4j_lstm_fwd_timed.restype = i32
     else:
         lib.dl4j_lstm_bwd.argtypes = [ptr] * 19 + [i32] * 6 + [ptr]
         lib.dl4j_lstm_dw.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
@@ -245,7 +248,10 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _lstm_fwd_cuda(xg, wr, wci, wcf, wco, h0, c0, with_residuals: bool):
+def _lstm_fwd_cuda(xg, wr, wci, wcf, wco, h0, c0, with_residuals: bool,
+                   timed: bool = False):
+    """The forward kernels on CUDA tensors; ``timed`` (with residuals,
+    bf16) launches the timed instantiation and also returns its stamps."""
     t, b, g4 = xg.shape
     n = g4 // 4
     _check_shapes(xg, wr, (wci, wcf, wco), (h0, c0), n)
@@ -267,12 +273,20 @@ def _lstm_fwd_cuda(xg, wr, wci, wcf, wco, h0, c0, with_residuals: bool):
     with torch.cuda.device(dev):
         if with_residuals:
             res = [torch.empty(t, bp, n, dtype=dt, device=dev) for _ in range(5)]
-            err = lib.dl4j_lstm_fwd(*ins, h_seq.data_ptr(),
-                                    *[r.data_ptr() for r in res], cptr,
-                                    *dims, _stream(dev))
-            _check(FWD_KERNEL, err)
-            kernels.LAUNCHES[FWD_KERNEL] += 1
-            return h_seq[:, :b], tuple(r[:, :b] for r in res)
+            ptrs = [*ins, h_seq.data_ptr(), *[r.data_ptr() for r in res], cptr]
+            if timed:
+                stamps = torch.zeros((bp // bb) * (n // u), t, 4,
+                                     dtype=torch.int64, device=dev)
+                name = TIMED_KERNEL
+                err = lib.dl4j_lstm_fwd_timed(*ptrs, stamps.data_ptr(), *dims,
+                                              _stream(dev))
+            else:
+                name = FWD_KERNEL
+                err = lib.dl4j_lstm_fwd(*ptrs, *dims, _stream(dev))
+            _check(name, err)
+            kernels.LAUNCHES[name] += 1
+            out = (h_seq[:, :b], tuple(r[:, :b] for r in res))
+            return out + (stamps,) if timed else out
         h_t = torch.empty(bp, n, dtype=dt, device=dev)
         c_t = torch.empty(bp, n, dtype=torch.float32, device=dev)
         err = lib.dl4j_lstm_fwd_only(*ins, h_seq.data_ptr(), h_t.data_ptr(),
@@ -338,6 +352,19 @@ def lstm_fwd(xg, wr, wci, wcf, wco, h0, c0, with_residuals: bool = True):
     if xg.device.type == "cpu":
         return lstm_fwd_plain(xg, wr, wci, wcf, wco, h0, c0, with_residuals)
     raise ValueError(f"the LSTM scan runs on cuda or cpu, not {xg.device}")
+
+
+def lstm_fwd_timed(xg, wr, wci, wcf, wco, h0, c0):
+    """``lstm_fwd``'s bf16 kernel in its timed instantiation, on CUDA
+    tensors only: ``(h_seq, residuals, stamps)``, with stamps [blocks, t,
+    4] int64 the card's globaltimer (ns) per block and step after the
+    barrier, after the last h chunk landed, after its product, and after
+    the cell and its stores. A measurement entry point: no path of the
+    port calls it."""
+    if xg.device.type != "cuda" or xg.dtype != torch.bfloat16:
+        raise ValueError("the timed LSTM kernel runs on bfloat16 CUDA "
+                         f"tensors, not {xg.dtype} on {xg.device}")
+    return _lstm_fwd_cuda(xg, wr, wci, wcf, wco, h0, c0, True, timed=True)
 
 
 def lstm_bwd(res: Residuals, wr, wci, wcf, wco, h0, c0, gout, g_clast):

@@ -1,12 +1,16 @@
-"""``chip_smoke._device_times`` on a stand-in profiler: the port's
-kernels are read by their launch counts however many of their events the
-profile kept, and a profile that kept none of a kernel that ran is taken
-again. (The script itself needs the card; these parts run anywhere.)"""
+"""Parts of ``chip_smoke.py`` on stand-ins. ``_device_times`` on a
+stand-in profiler: the port's kernels are read by their launch counts
+however many of their events the profile kept, and a profile that kept
+none of a kernel that ran is taken again. Phase 1's spill gate on a
+stand-in ptxas report, the LSTM step timer's summary on stand-in
+stamps, and phase 6's gradient comparison on small CPU gradients. (The
+script itself needs the card; these parts run anywhere.)"""
 
 import os
 import sys
 import types
 
+import numpy as np
 import pytest
 import torch.profiler
 
@@ -112,3 +116,107 @@ def test_no_whole_profile_falls_back_to_event_time(monkeypatch):
     assert times == {chip_smoke.EVENT_TIMED: pytest.approx(0.25)}
     with pytest.raises(RuntimeError, match="flash_dq_kernel"):
         chip_smoke._sum_ms(times, "flash_dq_kernel")
+
+
+def _ptxas_report(spills):
+    """A stand-in ``-Xptxas -v`` report of lstm_fwd.cu: an f32 and a
+    bf16 instantiation of lstm_fwd_kernel, the bf16 one with ``spills``
+    bytes stored and loaded."""
+    lines = []
+    for name, regs, sp in (
+            ("_ZN12_GLOBAL__N_115lstm_fwd_kernelIfLi32ELb1ELi128ELb0EEEvNS_7FwdArgsE",
+             255, 516),
+            ("_ZN12_GLOBAL__N_115lstm_fwd_kernelI13__nv_bfloat16Li32ELb1ELi128ELb0EE"
+             "EvNS_7FwdArgsE", 168, spills)):
+        lines += [f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'",
+                  f"ptxas info    : Function properties for {name}",
+                  f"    {sp} bytes stack frame, {sp // 2} bytes spill stores, "
+                  f"{sp - sp // 2} bytes spill loads",
+                  f"ptxas info    : Used {regs} registers, used 1 barriers"]
+    return "\n".join(lines)
+
+
+def test_spill_gate_accepts_a_clean_bf16_lstm_fwd(capsys):
+    chip_smoke._spill_gate("lstm_fwd", _ptxas_report(0))
+    assert "bf16 lstm_fwd_kernel registers, spill bytes: [(168, 0)]" in \
+        capsys.readouterr().out
+
+
+@pytest.mark.parametrize("spills", [8, 224])
+def test_spill_gate_rejects_a_spilling_bf16_lstm_fwd(spills):
+    with pytest.raises(RuntimeError, match="bf16 lstm_fwd_kernel spills"):
+        chip_smoke._spill_gate("lstm_fwd", _ptxas_report(spills))
+
+
+def test_spill_gate_needs_a_bf16_instantiation():
+    report = "\n".join(_ptxas_report(0).splitlines()[:4])  # the f32 one only
+    with pytest.raises(RuntimeError, match="bf16 lstm_fwd_kernel"):
+        chip_smoke._spill_gate("lstm_fwd", report)
+
+
+def test_phase_breakdown_means_over_blocks_and_steps():
+    """Two blocks, three steps; block 1 runs 1 us behind block 0. The
+    means leave out step 0, which has no barrier before it."""
+    # per step: barrier 2 (steps 1, 2), chunks but the last 3, the last
+    # chunk 4 (or 6 in block 1), cell + stores 1
+    stamps = np.zeros((2, 3, 4), np.int64)
+    for blk, product in ((0, 4000), (1, 6000)):
+        end = 1000 * blk
+        for s in range(3):
+            start = end + (2000 if s else 0)
+            stamps[blk, s] = [start, start + 3000, start + 3000 + product,
+                              start + 4000 + product]
+            end = stamps[blk, s, 3]
+    out = chip_smoke._phase_breakdown(stamps)
+    assert out["barrier_wait_us"] == pytest.approx(2.0)
+    assert out["chunks_but_last_us"] == pytest.approx(3.0)
+    assert out["last_chunk_us"] == pytest.approx(5.0)
+    assert out["cell_stores_us"] == pytest.approx(1.0)
+    assert out["step_us"] == pytest.approx(11.0)
+    assert out["step_us"] == pytest.approx(sum(
+        out[f"{k}_us"] for k in chip_smoke.PHASE_NAMES))
+    assert (out["blocks"], out["steps"]) == (2, 3)
+    assert out["kernel_us"] == pytest.approx((stamps[1, 2, 3] - 0) / 1e3)
+
+
+def test_phase_breakdown_refuses_stamps_out_of_order():
+    stamps = np.zeros((1, 2, 4), np.int64)
+    stamps[0] = [[0, 1, 2, 3], [10, 9, 12, 13]]
+    with pytest.raises(RuntimeError, match="not in order"):
+        chip_smoke._phase_breakdown(stamps)
+
+
+def _grads(scale, bad=None):
+    """Two layers' stand-in gradients, each times ``scale``; ``bad``
+    replaces one entry of layer1/W."""
+    g = torch.Generator().manual_seed(3)
+    grads = {layer: {name: torch.randn(8, 4, generator=g) for name in ("W", "b")}
+             for layer in ("layer0", "layer1")}
+    out = {layer: {name: x * scale for name, x in gl.items()}
+           for layer, gl in grads.items()}
+    if bad is not None:
+        out["layer1"]["W"][2, 1] = bad
+    return out
+
+
+def test_grads_vs_plain_reads_the_worst_layer():
+    assert chip_smoke._grads_vs_plain(torch, "t", _grads(1.01), _grads(1.0)) \
+        == pytest.approx(0.01, rel=1e-4)
+
+
+@pytest.mark.parametrize("scale,bad,match", [
+    (1.0 + 2 * chip_smoke.CHAR_GRAD_REL, None, "rel L2"),
+    (1.0, float("nan"), "finite grad layer1/W"),
+    (1.0, float("inf"), "finite grad layer1/W")])
+def test_grads_vs_plain_refuses(scale, bad, match):
+    with pytest.raises(RuntimeError, match=match):
+        chip_smoke._grads_vs_plain(torch, "t", _grads(scale, bad), _grads(1.0))
+
+
+def test_grad_rel_names_the_worst_gradient():
+    got = _grads(1.0)
+    got["layer0"]["b"] = got["layer0"]["b"] * 1.05
+    worst, at = chip_smoke._grad_rel(torch, got, _grads(1.0))
+    assert worst == pytest.approx(0.05, rel=1e-4) and at == "layer0/b"
+    worst, at = chip_smoke._grad_rel(torch, _grads(1.0, float("nan")), _grads(1.0))
+    assert worst == float("inf") and at == "layer1/W"

@@ -193,6 +193,25 @@ def test_head_width_pads_up_to_a_built_size(d, width):
     assert _head_width(d) == width
 
 
+@pytest.mark.parametrize("d", [160, 256])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wide_heads_match_reference_wrapper(rng, dtype, causal, d):
+    """A head wider than the kernels' 128 runs through the flash
+    wrapper's plain version on the CPU and matches the reference's
+    wrapper, which runs its Pallas kernel at any head size."""
+    b, h, t = 1, 2, 64
+    q, k, v = _arrays(rng, [(b, t, h, d)] * 3)
+    want = jax_flash(_jax(q, dtype), _jax(k, dtype), _jax(v, dtype),
+                     causal=causal)
+    kernels.reset_launches()
+    got = flash_attention(_torch(q, dtype), _torch(k, dtype),
+                          _torch(v, dtype), causal=causal)
+    assert sum(kernels.LAUNCHES.values()) == 0
+    assert got.dtype == getattr(torch, dtype) and got.shape == (b, t, h, d)
+    _close(got.float().numpy(), want, dtype)
+
+
 def test_head_width_rejects_heads_past_128():
     with pytest.raises(ValueError, match="up to 128"):
         _head_width(129)
@@ -242,3 +261,20 @@ def test_kernel_takes_other_head_sizes_on_card(cuda_device, dtype, tol, d,
     op, lp = flash_attention_fwd_plain(q, k, v, causal)
     assert (o.float() - op.float()).abs().max().item() <= tol
     assert (lse - lp).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [160, 256])
+@pytest.mark.parametrize("causal", [False, True])
+def test_wide_heads_on_card_raise(cuda_device, dtype, d, causal):
+    """On the card a head above 128 raises in ``flash_attention`` (no
+    kernel is built for it, and no plain formulation stands in) and
+    launches nothing."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = (torch.randn(2, 128, 4, d, generator=g, device=cuda_device)
+               .to(getattr(torch, dtype)) for _ in range(3))
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="up to 128"):
+        flash_attention(q, k, v, causal=causal)
+    assert sum(kernels.LAUNCHES.values()) == 0

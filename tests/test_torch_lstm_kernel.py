@@ -233,7 +233,14 @@ def test_cpu_runs_launch_no_kernel():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,b,t,n", [
     ("float32", 8, 9, 128), ("bfloat16", 16, 9, 128), ("float32", 32, 1, 512),
-    ("bfloat16", 32, 5, 512), ("bfloat16", 24, 3, 1024)])
+    ("bfloat16", 32, 5, 512), ("bfloat16", 24, 3, 1024),
+    # the bf16 design's edges (BB, U on 132 SMs in the comments)
+    ("bfloat16", 200, 9, 512),    # b no multiple of BB: 128, U 16
+    ("bfloat16", 1024, 4, 512),   # the training layout: 128, U 32
+    ("bfloat16", 16, 9, 64),      # the smallest n: 16, U 16
+    ("bfloat16", 128, 3, 1024),   # the largest n: 128, U 16
+    ("bfloat16", 64, 1, 512),     # t 1: 64, U 16
+    ("bfloat16", 32, 128, 512)])  # t 128: 32, U 16
 def test_kernels_match_plain_on_card(cuda_device, dtype, b, t, n):
     """Forward-only, residual forward and the backward pair against their
     plain versions on the card (tolerances as ``chip_smoke.py`` 2b)."""
@@ -260,3 +267,23 @@ def test_kernels_match_plain_on_card(cuda_device, dtype, b, t, n):
         err = (a.float() - p.float()).abs().max().item()
         ref = max(1.0, p.float().abs().max().item())
         assert err <= (rel or 1e-4) * ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("with_residuals", [False, True])
+def test_nan_in_gates_reaches_h_on_card(cuda_device, dtype, with_residuals):
+    """A NaN pre-activation spreads through the cell and the recurrence
+    as in the plain version: every output has the plain version's NaNs,
+    so a diverged run cannot pass for a finite one."""
+    b, t, n = 128, 4, 512
+    _, ts = _both(_inputs(n, seed=10, b=b, t=t), dtype)
+    ts = [z.to(cuda_device) for z in ts]
+    ts[0][1, 3, 7] = float("nan")          # step 1, row 3: i of unit 7
+    ts[0][2, 5, 3 * n + 9] = float("nan")  # step 2, row 5: blk of unit 9
+    got = lk.lstm_fwd(*ts, with_residuals=with_residuals)
+    want = lk.lstm_fwd_plain(*ts, with_residuals=with_residuals)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(got[0][1, 3, 7])) and bool(torch.isnan(got[0][3, 5]).all())
+    for a, p in zip((got[0], *got[1]), (want[0], *want[1])):
+        assert torch.equal(torch.isnan(a), torch.isnan(p))
