@@ -11,8 +11,9 @@ Phases (any failure ends the run with a non-zero exit and no result):
    CUDA.
 1. build: every kernel source in this checkout, one ``nvcc`` each, all
    started together, from an empty build directory, timed; fails if a
-   bf16 ``flash_fwd_kernel``, ``flash_dq_kernel``, ``flash_dkv_kernel``
-   or ``lstm_fwd_kernel`` spills registers (``BF16_KERNELS``).
+   bf16 ``flash_fwd_kernel``, ``flash_dq_kernel``, ``flash_dkv_kernel``,
+   ``lstm_fwd_kernel``, ``lstm_bwd_kernel`` or ``lstm_dw_kernel`` spills
+   registers (``BF16_KERNELS``).
 2. kernels: each kernel's wrapper on card tensors against its plain
    PyTorch version on the same inputs, at the main paths' shapes, at
    larger ones and at ragged ones (t = 200, tq 72 / tk 200, one head of
@@ -32,7 +33,12 @@ Phases (any failure ends the run with a non-zero exit and no result):
    the mean µs per step (over blocks and steps) of the barrier wait, the
    h chunks up to the landing of the last one (their copies and waits
    and the products of all but the last), the last chunk's product, and
-   the cell with its stores, from the card's globaltimer. Then
+   the cell with its stores, from the card's globaltimer; then one call
+   of ``lstm_bwd``'s timed bf16 sweep on that forward's residuals,
+   printed as ``lstm_bwd_phases`` (the same four phases of its step:
+   barrier wait, dg chunks but the last, the last chunk's product, the
+   gate chain with its stores and the next step's prefetch), whose
+   outputs must equal the untimed kernels' bit for bit. Then
    ``lstm_fwd_only``, ``lstm_fwd`` and the backward pair ``lstm_bwd`` +
    ``lstm_dw`` against their plain versions, f32 and bf16, nonzero h0
    and c0, at the char-RNN's two main shapes (b 1024, t 128,
@@ -127,6 +133,13 @@ BWD_REL_BF16 = 2e-2
 TRAIN = dict(vocab_size=8192, d_model=512, n_layers=8, num_heads=8,
              max_len=1024, compute_dtype="bfloat16")
 TRAIN_BATCH, TRAIN_STEPS = 16, 20
+# the flash kernels' wide heads (the SIMT design, phase 2): the shape
+# their times are recorded at, [32, 1024, 256] causal, and a ragged head
+# of 512 (t 200: no multiple of its 16-row tiles)
+WIDE_HEAD = (256, 32, 1024)
+WIDE_HEAD_CASES = {dtype: [(dtype, WIDE_HEAD[0], WIDE_HEAD[1], WIDE_HEAD[2],
+                            WIDE_HEAD[2], True), (dtype, 512, 8, 200, 200, True)]
+                   for dtype in ("bfloat16", "float32")}
 # one step's loss and gradients with the kernels vs with the plain
 # versions on the card: bf16 attention outputs and gradients that differ
 # by bf16 roundings pass through 8 bf16 layers
@@ -410,6 +423,7 @@ def phase_bwd_kernels(torch, F, kernels, flash):
             cases += [(dtype, d, 8, 200, 200, False), (dtype, d, 8, 200, 200, True),
                       (dtype, d, 8, 72, 200, True), (dtype, d, 1, 2048, 2048, False),
                       (dtype, d, 1, 2048, 2048, True)]
+        cases += WIDE_HEAD_CASES[dtype]
     for dtype, d, bh, tq, tk, causal in cases:
         dt = getattr(torch, dtype)
         q, k, v, do = (torch.randn(bh, t, d, generator=g, device="cuda").to(dt)
@@ -487,6 +501,7 @@ def phase_kernels(torch, F, flash):
             cases += [(dtype, d, 8, 200, 200, False), (dtype, d, 8, 200, 200, True),
                       (dtype, d, 8, 72, 200, True), (dtype, d, 1, 2048, 2048, False),
                       (dtype, d, 1, 2048, 2048, True)]
+        cases += WIDE_HEAD_CASES[dtype]
     for dtype, d, bh, tq, tk, causal in cases:
         dt = getattr(torch, dtype)
         q, k, v = (torch.randn(bh, t, d, generator=g, device="cuda").to(dt)
@@ -522,7 +537,7 @@ def phase_kernels(torch, F, flash):
         _check(all("flash_fwd_kernel" in name for name in times),
                f"flash_fwd call {tag} ran more than its kernel: {sorted(times)}")
         by_block_q = {}
-        if dtype == "bfloat16" and tq > 64:  # the bf16 kernel's two tilings
+        if dtype == "bfloat16" and tq > 64 and d <= 128:  # the mma kernel's two tilings
             for bq in (64, 128):
                 run = lambda: flash._flash_fwd_cuda(q, k, v, causal, bq)  # noqa: E731
                 errors(*run(), f"block_q {bq}")
@@ -793,29 +808,37 @@ def _lstm_check(what, dtype, got, want, forward):
     return err
 
 
-# the phases between the four stamps of lstm_fwd's timed kernel per block
-# and step (after the barrier, after the last h chunk landed, after the
-# product, after the cell and its stores), named for what they hold: the
-# copies and waits of every h chunk interleave with the products of the
-# chunks before it, so "chunks_but_last" is the copies, waits and
-# products of all chunks but the last, ending when the last one has
-# landed, and "last_chunk" the last chunk's product (with the wait for
-# the step's xg rows); the barrier wait runs from the previous step's
-# last stamp to this step's first
+# the phases between the four stamps of a timed LSTM sweep per block and
+# step, named for what they hold. lstm_fwd stamps after the barrier,
+# after the last h chunk landed, after the product, after the cell and
+# its stores: the copies and waits of every h chunk interleave with the
+# products of the chunks before it, so "chunks_but_last" is the copies,
+# waits and products of all chunks but the last, ending when the last
+# one has landed, and "last_chunk" the last chunk's product (with the
+# wait for the step's xg rows); the barrier wait runs from the previous
+# step's last stamp to this step's first. lstm_bwd stamps at the same
+# points of its step (dg chunks, then the gate chain and its stores;
+# its barrier wait also holds what a block does between its arrival and
+# its wait)
 PHASE_NAMES = ("barrier_wait", "chunks_but_last", "last_chunk", "cell_stores")
+BWD_PHASE_NAMES = ("barrier_wait", "chunks_but_last", "last_chunk", "chain_stores")
 
 
-def _phase_breakdown(stamps):
+def _phase_breakdown(stamps, names):
     """Mean µs per step, over blocks and steps 1 .. t-1 (each has a
-    barrier before it), of each phase of ``PHASE_NAMES`` and of the whole
-    step (the sum of the four), from stamps [blocks, t, 4] in ns (numpy)."""
+    barrier before it), of each of the four phases ``names`` (the first
+    the barrier wait, from the previous step's last stamp) and of the
+    whole step (the sum of the four), from stamps [blocks, t, 4] in ns
+    (numpy)."""
     import numpy as np
 
     st = stamps.astype("float64") / 1e3
-    _check(st.ndim == 3 and st.shape[1] > 1 and st.shape[2] == 4,
-           f"the timer needs t > 1 and 4 stamps per step: {st.shape}")
-    spans = {"barrier_wait": st[:, 1:, 0] - st[:, :-1, 3]}
-    for k, name in enumerate(PHASE_NAMES[1:]):
+    _check(st.ndim == 3 and st.shape[1] > 1 and st.shape[2] == 4
+           and len(names) == 4,
+           f"the timer needs t > 1, 4 stamps per step and 4 names: "
+           f"{st.shape}, {names}")
+    spans = {names[0]: st[:, 1:, 0] - st[:, :-1, 3]}
+    for k, name in enumerate(names[1:]):
         spans[name] = st[:, 1:, k + 1] - st[:, 1:, k]
     spans["step"] = st[:, 1:, 3] - st[:, :-1, 3]
     _check(all(v.min() >= 0 for v in spans.values()),
@@ -830,8 +853,10 @@ def _phase_breakdown(stamps):
 
 
 def phase_lstm_timer(torch, lk):
-    """The per-step breakdown of lstm_fwd's bf16 kernel at the training
-    shape, from its timed instantiation (one call after a warm-up)."""
+    """The per-step breakdowns of lstm_fwd's and lstm_bwd's bf16 sweeps at
+    the training shape, from their timed instantiations (one call each
+    after a warm-up); each timed call's outputs against the untimed
+    kernel's."""
     dtype, b, t, n = LSTM_CASES[0]
     _check(dtype == "bfloat16", "LSTM_CASES[0] is the bf16 training shape")
     g = torch.Generator(device="cuda").manual_seed(2025)
@@ -844,11 +869,25 @@ def phase_lstm_timer(torch, lk):
     lk.lstm_fwd_timed(xg, wr, *pe, h0, c0)
     hs, _, stamps = lk.lstm_fwd_timed(xg, wr, *pe, h0, c0)
     torch.cuda.synchronize()
-    want, _ = lk.lstm_fwd(xg, wr, *pe, h0, c0)
+    want, res = lk.lstm_fwd(xg, wr, *pe, h0, c0)
     _lstm_check(f"timed lstm_fwd h {dtype} b{b} t{t} n{n}", dtype, hs, want, True)
     out = dict(dtype=dtype, b=b, t=t, n=n,
-               **_phase_breakdown(stamps.cpu().numpy()))
+               **_phase_breakdown(stamps.cpu().numpy(), PHASE_NAMES))
     print("lstm_fwd_phases " + json.dumps(out), flush=True)
+
+    gout = torch.randn(t, b, n, generator=g, device="cuda").to(dt)
+    gcl = torch.randn(b, n, generator=g, device="cuda")
+    lk.lstm_bwd_timed(res, wr, *pe, h0, c0, gout, gcl)
+    *got, stamps = lk.lstm_bwd_timed(res, wr, *pe, h0, c0, gout, gcl)
+    want = lk.lstm_bwd(res, wr, *pe, h0, c0, gout, gcl)
+    torch.cuda.synchronize()
+    out = dict(dtype=dtype, b=b, t=t, n=n,
+               **_phase_breakdown(stamps.cpu().numpy(), BWD_PHASE_NAMES))
+    print("lstm_bwd_phases " + json.dumps(out), flush=True)
+    for name, a, w in zip(("dg", "dWr", "dwci", "dwcf", "dwco", "dh0", "dc0"),
+                          got, want):
+        _check(torch.equal(a, w), f"timed lstm_bwd {name} differs from "
+               f"lstm_bwd's: {(a.float() - w.float()).abs().max().item()}")
 
 
 def phase_lstm_kernels(torch, lk):
@@ -1226,7 +1265,8 @@ PHASES = ("2", "2b", "3", "4", "5", "6")
 # registers
 BF16_KERNELS = {"flash_fwd": ("flash_fwd_kernel",),
                 "flash_bwd": ("flash_dq_kernel", "flash_dkv_kernel"),
-                "lstm_fwd": ("lstm_fwd_kernel",)}
+                "lstm_fwd": ("lstm_fwd_kernel",),
+                "lstm_bwd": ("lstm_bwd_kernel", "lstm_dw_kernel")}
 
 
 def _spill_gate(name, report):
@@ -1369,6 +1409,23 @@ def _flash_summary(done):
                     and r["bh"] == train_bh)
 
     fwd_train, bwd_row = train_row(rows), train_row(bwd_rows)
+
+    def wide_row(rs):
+        d, bh, t = WIDE_HEAD
+        return next(r for r in rs if r["dtype"] == "bfloat16" and r["d"] == d
+                    and r["bh"] == bh and r["tq"] == t and r["causal"])
+
+    def wide(r, key, err):
+        """a wide head's numbers ([32, 1024, 256] bf16 causal, the SIMT
+        design): this kernel's time beside the plain version and the
+        library call (SDPA; its whole backward for the two backward
+        kernels)"""
+        return {"ms": r[f"{key}kernel_only_ms"], "plain_ms": r["plain_ms"],
+                "library_ms": r["library_ms"], "max_abs_err": err,
+                "bound_ms": r[f"{key}bound_ms"], "bound_by": r[f"{key}bound_by"],
+                "shape": [r["bh"], r["tq"], r["d"]]}
+
+    fwd_wide, bwd_wide = wide_row(rows), wide_row(bwd_rows)
     return [{
         "name": flash.KERNEL, "route": "cuda",
         "source": SRC + "flash_fwd.cu",
@@ -1390,6 +1447,7 @@ def _flash_summary(done):
         | {"max_abs_err": fwd_train["err_o"],
            "bound_share": fwd_train["bound_ms"] / fwd_train["kernel_only_ms"],
            "shape": [train_bh, TRAIN["max_len"], d_head]},
+        "wide_head": wide(fwd_wide, "", fwd_wide["err_o"]),
     }] + [{
         "name": name, "route": "cuda", "source": SRC + "flash_bwd.cu",
         "replaces": f"deeplearning4j_tpu/ops/flash_attention.py:{line}",
@@ -1410,6 +1468,9 @@ def _flash_summary(done):
         "shape": [train_bh, TRAIN["max_len"], d_head],
         "max_abs_err_all_cases": max(r[f"err_{g}"] for r in bwd_rows
                                      for g in grads),
+        "wide_head": wide(bwd_wide, f"{key}_",
+                          max(bwd_wide[f"err_{g}"] for g in grads))
+        | {"backward_ms": bwd_wide["ms"]},
     } for name, line, key, grads in (
         (flash.DQ_KERNEL, 220, "dq", ("dq",)),
         (flash.DKV_KERNEL, 252, "dkv", ("dk", "dv")))]

@@ -69,11 +69,21 @@
 // 6 % slower at the training shape); at d = 128 dk and dv alone take 128
 // registers, and one block runs per SM.
 //
-// The f32 kernels are on no main path and were not redesigned: the first
-// version's CUDA-core FMAs through shared memory (full f32 precision, no
-// TF32), now taking the unscaled q and multiplying it by the f32 scale as
-// they load it (one rounding, the torch product), and, in flash_dq,
-// computing and writing delta as the bf16 kernel does.
+// The SIMT kernels (flash_dq_kernel_f32, flash_dkv_kernel_f32) are on no
+// main path and were not redesigned: the first version's CUDA-core FMAs
+// through shared memory in f32 (full f32 precision, no TF32), taking the
+// unscaled q and multiplying it by the scale as they load it (one
+// rounding, the torch product), and, in flash_dq, computing and writing
+// delta as the bf16 kernel does. They run every f32 head and the bf16
+// heads of 256 and 512 (wider than the mma.sync kernels' registers hold;
+// 129-256 and 257-512 are zero-padded to them). Their tiles are template
+// parameters (simt_tile, flash_common.cuh): flash_dq 64 x 64 up to d =
+// 128, 32 x 32 at 256, 16 x 16 at 512 (~177 and ~168 KB of shared
+// memory); flash_dkv 64 keys and 32-query steps up to 128, 32 and 16 at
+// 256, 16 and 8 at 512 (~173 and ~167 KB). Their global loads and stores
+// are templated on the element type: bf16 is widened on load, and p and
+// ds are rounded to bf16 before their products, as the reference rounds
+// them. Correct, slow first kernels for those heads: nothing was tuned.
 //
 // Exposed as plain C functions so that no PyTorch header is compiled.
 
@@ -470,26 +480,9 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
   return (int)cudaGetLastError();
 }
 
-// ------------------------------------------------------- the f32 kernels
+// ------------------------------------------------ the f32 (SIMT) design
 
-constexpr int F32_BQ = 64;   // flash_dq: query rows per block
-constexpr int F32_BK = 64;   // keys per tile (flash_dq: per step; flash_dkv: per block)
-constexpr int F32_BQT = 32;  // flash_dkv: query rows per step
-constexpr int F32_NT = 128;  // 4 warps
-constexpr int LDS_PAD = 1;   // f32 rows padded by one element (bank spread)
-
-constexpr size_t round32(size_t n) { return (n + 31) / 32 * 32; }
-
-// Rows [row0, row0 + nrows) of a row-major [t, D] matrix, times mul, into
-// shared memory with leading dimension LD; rows at or past t become zeros.
-template <int D, int LD>
-__device__ __forceinline__ void load_rows_f32(float* dst, const float* src, int row0, int t,
-                                              int nrows, float mul) {
-  for (int i = threadIdx.x; i < nrows * D; i += F32_NT) {
-    const int r = i / D, c = i % D;
-    dst[r * LD + c] = (row0 + r < t) ? src[(size_t)(row0 + r) * D + c] * mul : 0.f;
-  }
-}
+constexpr int LDS_PAD = 1;  // f32 rows padded by one element (bank spread)
 
 // C[M, N] = A[M, K] . B[N, K]^T, A and B row-major in shared memory.
 template <int M, int N, int K>
@@ -525,31 +518,33 @@ __device__ __forceinline__ float prob(float s, float lse, int qrow, int kcol, in
   return expf(s - lse);
 }
 
-template <int D>
+// flash_dq: a block of BQ query rows over key tiles of BK keys
+template <int D, int BQ, int BK>
 struct DqLayoutF32 {
-  static constexpr int LDT = D + LDS_PAD;       // qs, dO, k, v rows
-  static constexpr int LDS = F32_BK + LDS_PAD;  // s, dP, ds tiles
+  static constexpr int LDT = D + LDS_PAD;   // qs, dO, k, v rows
+  static constexpr int LDS = BK + LDS_PAD;  // s, dP, ds tiles
   static constexpr size_t q_off = 0;
-  static constexpr size_t do_off = q_off + round32(sizeof(float) * F32_BQ * LDT);
-  static constexpr size_t k_off = do_off + round32(sizeof(float) * F32_BQ * LDT);
-  static constexpr size_t v_off = k_off + round32(sizeof(float) * F32_BK * LDT);
-  static constexpr size_t s_off = v_off + round32(sizeof(float) * F32_BK * LDT);
-  static constexpr size_t dp_off = s_off + round32(sizeof(float) * F32_BQ * LDS);
-  static constexpr size_t ds_off = dp_off + round32(sizeof(float) * F32_BQ * LDS);
-  static constexpr size_t acc_off = ds_off + round32(sizeof(float) * F32_BQ * LDS);
-  static constexpr size_t lse_off = acc_off + round32(sizeof(float) * F32_BQ * LDT);
-  static constexpr size_t dl_off = lse_off + round32(sizeof(float) * F32_BQ);
-  static constexpr size_t bytes = dl_off + round32(sizeof(float) * F32_BQ);
+  static constexpr size_t do_off = q_off + round32(sizeof(float) * BQ * LDT);
+  static constexpr size_t k_off = do_off + round32(sizeof(float) * BQ * LDT);
+  static constexpr size_t v_off = k_off + round32(sizeof(float) * BK * LDT);
+  static constexpr size_t s_off = v_off + round32(sizeof(float) * BK * LDT);
+  static constexpr size_t dp_off = s_off + round32(sizeof(float) * BQ * LDS);
+  static constexpr size_t ds_off = dp_off + round32(sizeof(float) * BQ * LDS);
+  static constexpr size_t acc_off = ds_off + round32(sizeof(float) * BQ * LDS);
+  static constexpr size_t lse_off = acc_off + round32(sizeof(float) * BQ * LDT);
+  static constexpr size_t dl_off = lse_off + round32(sizeof(float) * BQ);
+  static constexpr size_t bytes = dl_off + round32(sizeof(float) * BQ);
+  static_assert(bytes <= SMEM_LIMIT, "flash_dq f32 layout exceeds shared memory");
 };
 
-template <int D>
+template <typename T, int D, int BQ, int BK>
 __global__ void __launch_bounds__(F32_NT)
-flash_dq_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ o,
-                    const float* __restrict__ dout, const float* __restrict__ lse,
-                    float* __restrict__ delta, float* __restrict__ dq, int tq, int tk,
+flash_dq_kernel_f32(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ o,
+                    const T* __restrict__ dout, const float* __restrict__ lse,
+                    float* __restrict__ delta, T* __restrict__ dq, int tq, int tk,
                     int n_qtiles, int causal, float q_scale, float scale) {
-  using Lay = DqLayoutF32<D>;
+  using Lay = DqLayoutF32<D, BQ, BK>;
   constexpr int LDT = Lay::LDT, LDS = Lay::LDS;
   extern __shared__ __align__(128) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem + Lay::q_off);
@@ -564,26 +559,26 @@ flash_dq_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
   float* dl_s = reinterpret_cast<float*>(smem + Lay::dl_off);
 
   const int bh = blockIdx.x / n_qtiles;
-  const int q0 = (blockIdx.x % n_qtiles) * F32_BQ;
+  const int q0 = (blockIdx.x % n_qtiles) * BQ;
   const int offset = tk - tq;
-  const float* kb = k + (size_t)bh * tk * D;
-  const float* vb = v + (size_t)bh * tk * D;
+  const T* kb = k + (size_t)bh * tk * D;
+  const T* vb = v + (size_t)bh * tk * D;
 
-  load_rows_f32<D, LDT>(Qs, q + (size_t)bh * tq * D, q0, tq, F32_BQ, q_scale);
-  load_rows_f32<D, LDT>(dOs, dout + (size_t)bh * tq * D, q0, tq, F32_BQ, 1.f);
-  for (int r = threadIdx.x; r < F32_BQ; r += F32_NT) {
+  load_rows_f32<D, LDT>(Qs, q + (size_t)bh * tq * D, q0, tq, BQ, q_scale);
+  load_rows_f32<D, LDT>(dOs, dout + (size_t)bh * tq * D, q0, tq, BQ, 1.f);
+  for (int r = threadIdx.x; r < BQ; r += F32_NT) {
     lse_s[r] = q0 + r < tq ? lse[(size_t)bh * tq + q0 + r] : 0.f;
   }
-  for (int i = threadIdx.x; i < F32_BQ * LDT; i += F32_NT) Acc[i] = 0.f;
+  for (int i = threadIdx.x; i < BQ * LDT; i += F32_NT) Acc[i] = 0.f;
   // delta = rowsum(dO O), warp w summing rows w, w + 4, ..., written once
   // per row for flash_dkv (zero past tq)
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < F32_BQ; r += F32_NT / 32) {
+  for (int r = warp; r < BQ; r += F32_NT / 32) {
     const bool ok = q0 + r < tq;
     const size_t at = ((size_t)bh * tq + q0 + r) * D;
     float part = 0.f;
     if (ok) {
-      for (int c = lane; c < D; c += 32) part = fmaf(dout[at + c], o[at + c], part);
+      for (int c = lane; c < D; c += 32) part = fmaf(to_f(dout[at + c]), to_f(o[at + c]), part);
     }
     for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
     if (lane == 0) {
@@ -594,60 +589,62 @@ flash_dq_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   // causal: the last key any valid row of this tile may see
   int k_end = tk;
-  if (causal) k_end = min(tk, min(q0 + F32_BQ, tq) + offset);
-  const int n_ktiles = (k_end + F32_BK - 1) / F32_BK;
+  if (causal) k_end = min(tk, min(q0 + BQ, tq) + offset);
+  const int n_ktiles = (k_end + BK - 1) / BK;
 
   for (int kt = 0; kt < n_ktiles; ++kt) {
-    const int k0 = kt * F32_BK;
-    load_rows_f32<D, LDT>(Ks, kb, k0, tk, F32_BK, 1.f);
-    load_rows_f32<D, LDT>(Vs, vb, k0, tk, F32_BK, 1.f);
+    const int k0 = kt * BK;
+    load_rows_f32<D, LDT>(Ks, kb, k0, tk, BK, 1.f);
+    load_rows_f32<D, LDT>(Vs, vb, k0, tk, BK, 1.f);
     __syncthreads();
-    mm_abt<F32_BQ, F32_BK, D>(Ss, LDS, Qs, LDT, Ks, LDT);    // s = qs k^T
-    mm_abt<F32_BQ, F32_BK, D>(dPs, LDS, dOs, LDT, Vs, LDT);  // dP = dO v^T
+    mm_abt<BQ, BK, D>(Ss, LDS, Qs, LDT, Ks, LDT);    // s = qs k^T
+    mm_abt<BQ, BK, D>(dPs, LDS, dOs, LDT, Vs, LDT);  // dP = dO v^T
     __syncthreads();
-    for (int i = threadIdx.x; i < F32_BQ * F32_BK; i += F32_NT) {
-      const int r = i / F32_BK, c = i % F32_BK;
+    for (int i = threadIdx.x; i < BQ * BK; i += F32_NT) {
+      const int r = i / BK, c = i % BK;
       const float p = prob(Ss[r * LDS + c], lse_s[r], q0 + r, k0 + c, tq, tk, offset, causal);
-      dSs[r * LDS + c] = p * (dPs[r * LDS + c] - dl_s[r]);
+      dSs[r * LDS + c] = round_to<T>(p * (dPs[r * LDS + c] - dl_s[r]));
     }
     __syncthreads();
-    mm_ab_acc<F32_BQ, D, F32_BK>(Acc, LDT, dSs, LDS, Ks, LDT);  // acc += ds k
+    mm_ab_acc<BQ, D, BK>(Acc, LDT, dSs, LDS, Ks, LDT);  // acc += ds k
     __syncthreads();
   }
 
-  for (int i = threadIdx.x; i < F32_BQ * D; i += F32_NT) {
+  for (int i = threadIdx.x; i < BQ * D; i += F32_NT) {
     const int r = i / D, c = i % D;
-    if (q0 + r < tq) dq[((size_t)bh * tq + q0 + r) * D + c] = Acc[r * LDT + c] * scale;
+    if (q0 + r < tq) dq[((size_t)bh * tq + q0 + r) * D + c] = from_f<T>(Acc[r * LDT + c] * scale);
   }
 }
 
-template <int D>
+// flash_dkv: a block of BK keys over query tiles of BQT rows
+template <int D, int BK, int BQT>
 struct DkvLayoutF32 {
-  static constexpr int LDT = D + LDS_PAD;        // k, v, qs, dO rows
-  static constexpr int LDS = F32_BQT + LDS_PAD;  // s^T, dP^T, p^T, ds^T tiles [BK, BQT]
+  static constexpr int LDT = D + LDS_PAD;    // k, v, qs, dO rows
+  static constexpr int LDS = BQT + LDS_PAD;  // s^T, dP^T, p^T, ds^T tiles [BK, BQT]
   static constexpr size_t k_off = 0;
-  static constexpr size_t v_off = k_off + round32(sizeof(float) * F32_BK * LDT);
-  static constexpr size_t q_off = v_off + round32(sizeof(float) * F32_BK * LDT);
-  static constexpr size_t do_off = q_off + round32(sizeof(float) * F32_BQT * LDT);
-  static constexpr size_t s_off = do_off + round32(sizeof(float) * F32_BQT * LDT);
-  static constexpr size_t dp_off = s_off + round32(sizeof(float) * F32_BK * LDS);
-  static constexpr size_t p_off = dp_off + round32(sizeof(float) * F32_BK * LDS);
-  static constexpr size_t ds_off = p_off + round32(sizeof(float) * F32_BK * LDS);
-  static constexpr size_t dk_off = ds_off + round32(sizeof(float) * F32_BK * LDS);
-  static constexpr size_t dv_off = dk_off + round32(sizeof(float) * F32_BK * LDT);
-  static constexpr size_t lse_off = dv_off + round32(sizeof(float) * F32_BK * LDT);
-  static constexpr size_t dl_off = lse_off + round32(sizeof(float) * F32_BQT);
-  static constexpr size_t bytes = dl_off + round32(sizeof(float) * F32_BQT);
+  static constexpr size_t v_off = k_off + round32(sizeof(float) * BK * LDT);
+  static constexpr size_t q_off = v_off + round32(sizeof(float) * BK * LDT);
+  static constexpr size_t do_off = q_off + round32(sizeof(float) * BQT * LDT);
+  static constexpr size_t s_off = do_off + round32(sizeof(float) * BQT * LDT);
+  static constexpr size_t dp_off = s_off + round32(sizeof(float) * BK * LDS);
+  static constexpr size_t p_off = dp_off + round32(sizeof(float) * BK * LDS);
+  static constexpr size_t ds_off = p_off + round32(sizeof(float) * BK * LDS);
+  static constexpr size_t dk_off = ds_off + round32(sizeof(float) * BK * LDS);
+  static constexpr size_t dv_off = dk_off + round32(sizeof(float) * BK * LDT);
+  static constexpr size_t lse_off = dv_off + round32(sizeof(float) * BK * LDT);
+  static constexpr size_t dl_off = lse_off + round32(sizeof(float) * BQT);
+  static constexpr size_t bytes = dl_off + round32(sizeof(float) * BQT);
+  static_assert(bytes <= SMEM_LIMIT, "flash_dkv f32 layout exceeds shared memory");
 };
 
-template <int D>
+template <typename T, int D, int BK, int BQT>
 __global__ void __launch_bounds__(F32_NT)
-flash_dkv_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ dout,
+flash_dkv_kernel_f32(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
-                     float* __restrict__ dk, float* __restrict__ dv, int tq, int tk,
+                     T* __restrict__ dk, T* __restrict__ dv, int tq, int tk,
                      int n_ktiles, int causal, float q_scale) {
-  using Lay = DkvLayoutF32<D>;
+  using Lay = DkvLayoutF32<D, BK, BQT>;
   constexpr int LDT = Lay::LDT, LDS = Lay::LDS;
   extern __shared__ __align__(128) unsigned char smem[];
   float* Ks = reinterpret_cast<float*>(smem + Lay::k_off);
@@ -664,14 +661,14 @@ flash_dkv_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
   float* dl_s = reinterpret_cast<float*>(smem + Lay::dl_off);
 
   const int bh = blockIdx.x / n_ktiles;
-  const int k0 = (blockIdx.x % n_ktiles) * F32_BK;
+  const int k0 = (blockIdx.x % n_ktiles) * BK;
   const int offset = tk - tq;
-  const float* qb = q + (size_t)bh * tq * D;
-  const float* db = dout + (size_t)bh * tq * D;
+  const T* qb = q + (size_t)bh * tq * D;
+  const T* db = dout + (size_t)bh * tq * D;
 
-  load_rows_f32<D, LDT>(Ks, k + (size_t)bh * tk * D, k0, tk, F32_BK, 1.f);
-  load_rows_f32<D, LDT>(Vs, v + (size_t)bh * tk * D, k0, tk, F32_BK, 1.f);
-  for (int i = threadIdx.x; i < F32_BK * LDT; i += F32_NT) {
+  load_rows_f32<D, LDT>(Ks, k + (size_t)bh * tk * D, k0, tk, BK, 1.f);
+  load_rows_f32<D, LDT>(Vs, v + (size_t)bh * tk * D, k0, tk, BK, 1.f);
+  for (int i = threadIdx.x; i < BK * LDT; i += F32_NT) {
     dKa[i] = 0.f;
     dVa[i] = 0.f;
   }
@@ -679,72 +676,78 @@ flash_dkv_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
   // causal: the first query row that sees any key of this tile (< tq,
   // since k0 - offset <= tq - 1)
   const int q_begin = causal ? max(0, k0 - offset) : 0;
-  const int n_qtiles = (tq + F32_BQT - 1) / F32_BQT;
+  const int n_qtiles = (tq + BQT - 1) / BQT;
 
-  for (int qt = q_begin / F32_BQT; qt < n_qtiles; ++qt) {
-    const int q0 = qt * F32_BQT;
-    load_rows_f32<D, LDT>(Qs, qb, q0, tq, F32_BQT, q_scale);
-    load_rows_f32<D, LDT>(dOs, db, q0, tq, F32_BQT, 1.f);
-    for (int c = threadIdx.x; c < F32_BQT; c += F32_NT) {
+  for (int qt = q_begin / BQT; qt < n_qtiles; ++qt) {
+    const int q0 = qt * BQT;
+    load_rows_f32<D, LDT>(Qs, qb, q0, tq, BQT, q_scale);
+    load_rows_f32<D, LDT>(dOs, db, q0, tq, BQT, 1.f);
+    for (int c = threadIdx.x; c < BQT; c += F32_NT) {
       const bool ok = q0 + c < tq;
       lse_s[c] = ok ? lse[(size_t)bh * tq + q0 + c] : 0.f;
       dl_s[c] = ok ? delta[(size_t)bh * tq + q0 + c] : 0.f;
     }
     __syncthreads();
-    mm_abt<F32_BK, F32_BQT, D>(St, LDS, Ks, LDT, Qs, LDT);    // s^T = k qs^T
-    mm_abt<F32_BK, F32_BQT, D>(dPt, LDS, Vs, LDT, dOs, LDT);  // dP^T = v dO^T
+    mm_abt<BK, BQT, D>(St, LDS, Ks, LDT, Qs, LDT);    // s^T = k qs^T
+    mm_abt<BK, BQT, D>(dPt, LDS, Vs, LDT, dOs, LDT);  // dP^T = v dO^T
     __syncthreads();
-    for (int i = threadIdx.x; i < F32_BK * F32_BQT; i += F32_NT) {
-      const int r = i / F32_BQT, c = i % F32_BQT;  // r: key, c: query
+    for (int i = threadIdx.x; i < BK * BQT; i += F32_NT) {
+      const int r = i / BQT, c = i % BQT;  // r: key, c: query
       const float p = prob(St[r * LDS + c], lse_s[c], q0 + c, k0 + r, tq, tk, offset, causal);
-      Pt[r * LDS + c] = p;
-      dSt[r * LDS + c] = p * (dPt[r * LDS + c] - dl_s[c]);
+      // p and ds rounded to the operand dtype before their products
+      Pt[r * LDS + c] = round_to<T>(p);
+      dSt[r * LDS + c] = round_to<T>(p * (dPt[r * LDS + c] - dl_s[c]));
     }
     __syncthreads();
-    mm_ab_acc<F32_BK, D, F32_BQT>(dVa, LDT, Pt, LDS, dOs, LDT);  // dv += p^T dO
-    mm_ab_acc<F32_BK, D, F32_BQT>(dKa, LDT, dSt, LDS, Qs, LDT);  // dk += ds^T qs
+    mm_ab_acc<BK, D, BQT>(dVa, LDT, Pt, LDS, dOs, LDT);  // dv += p^T dO
+    mm_ab_acc<BK, D, BQT>(dKa, LDT, dSt, LDS, Qs, LDT);  // dk += ds^T qs
     __syncthreads();
   }
 
-  for (int i = threadIdx.x; i < F32_BK * D; i += F32_NT) {
+  for (int i = threadIdx.x; i < BK * D; i += F32_NT) {
     const int r = i / D, c = i % D;
     if (k0 + r < tk) {
       const size_t at = ((size_t)bh * tk + k0 + r) * D + c;
-      dk[at] = dKa[r * LDT + c];
-      dv[at] = dVa[r * LDT + c];
+      dk[at] = from_f<T>(dKa[r * LDT + c]);
+      dv[at] = from_f<T>(dVa[r * LDT + c]);
     }
   }
 }
 
-template <int D>
+template <typename T, int D>
 int launch_dq_f32(const void* q, const void* k, const void* v, const void* o, const void* dout,
                   const float* lse, float* delta, void* dq, int bh, int tq, int tk,
                   int causal, float q_scale, float scale, cudaStream_t stream) {
-  constexpr size_t smem = DqLayoutF32<D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_dq_kernel_f32<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  constexpr int TILE = simt_tile(D);
+  constexpr size_t smem = DqLayoutF32<D, TILE, TILE>::bytes;
+  auto kernel = flash_dq_kernel_f32<T, D, TILE, TILE>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int n_qtiles = (tq + F32_BQ - 1) / F32_BQ;
-  flash_dq_kernel_f32<D><<<bh * n_qtiles, F32_NT, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(o), static_cast<const float*>(dout), lse, delta,
-      static_cast<float*>(dq), tq, tk, n_qtiles, causal, q_scale, scale);
+  const int n_qtiles = (tq + TILE - 1) / TILE;
+  kernel<<<bh * n_qtiles, F32_NT, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(o), static_cast<const T*>(dout), lse, delta,
+      static_cast<T*>(dq), tq, tk, n_qtiles, causal, q_scale, scale);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <typename T, int D>
 int launch_dkv_f32(const void* q, const void* k, const void* v, const void* dout,
                    const float* lse, const float* delta, void* dk, void* dv, int bh, int tq,
                    int tk, int causal, float q_scale, cudaStream_t stream) {
-  constexpr size_t smem = DkvLayoutF32<D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_dkv_kernel_f32<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // keys per block as flash_dq's tile, query rows per step half of it
+  constexpr int BK = simt_tile(D), BQT = BK / 2;
+  constexpr size_t smem = DkvLayoutF32<D, BK, BQT>::bytes;
+  auto kernel = flash_dkv_kernel_f32<T, D, BK, BQT>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int n_ktiles = (tk + F32_BK - 1) / F32_BK;
-  flash_dkv_kernel_f32<D><<<bh * n_ktiles, F32_NT, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk),
-      static_cast<float*>(dv), tq, tk, n_ktiles, causal, q_scale);
+  const int n_ktiles = (tk + BK - 1) / BK;
+  kernel<<<bh * n_ktiles, F32_NT, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), tq,
+      tk, n_ktiles, causal, q_scale);
   return (int)cudaGetLastError();
 }
 
@@ -769,9 +772,13 @@ extern "C" int dl4j_flash_dq(const void* q, const void* k, const void* v, const 
     if (d == 64 && rows == 128) return launch_dq<64, 128>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
     if (d == 128 && rows == 64) return launch_dq<128, 64>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
     if (d == 128 && rows == 128) return launch_dq<128, 128>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
+    if (d == 256) return launch_dq_f32<bf16, 256>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
+    if (d == 512) return launch_dq_f32<bf16, 512>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
   } else if (dtype == 0) {
-    if (d == 64) return launch_dq_f32<64>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
-    if (d == 128) return launch_dq_f32<128>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
+    if (d == 64) return launch_dq_f32<float, 64>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
+    if (d == 128) return launch_dq_f32<float, 128>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
+    if (d == 256) return launch_dq_f32<float, 256>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
+    if (d == 512) return launch_dq_f32<float, 512>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -791,9 +798,13 @@ extern "C" int dl4j_flash_dkv(const void* q, const void* k, const void* v, const
     if (d == 64 && rows == 128) return launch_dkv<64, 128>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
     if (d == 128 && rows == 64) return launch_dkv<128, 64>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
     if (d == 128 && rows == 128) return launch_dkv<128, 128>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
+    if (d == 256) return launch_dkv_f32<bf16, 256>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
+    if (d == 512) return launch_dkv_f32<bf16, 512>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
   } else if (dtype == 0) {
-    if (d == 64) return launch_dkv_f32<64>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
-    if (d == 128) return launch_dkv_f32<128>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
+    if (d == 64) return launch_dkv_f32<float, 64>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
+    if (d == 128) return launch_dkv_f32<float, 128>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
+    if (d == 256) return launch_dkv_f32<float, 256>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
+    if (d == 512) return launch_dkv_f32<float, 512>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }

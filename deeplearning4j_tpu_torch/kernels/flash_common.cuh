@@ -38,6 +38,46 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+// ---------------------------------------------- the f32 (SIMT) design
+
+// The first design, on the CUDA cores through shared memory in f32, of
+// flash_fwd.cu and flash_bwd.cu: every f32 head, and the bf16 heads of
+// 256 and 512, whose tiles the mma.sync kernels' registers cannot hold.
+// T is the element type in device memory: bf16 is widened to f32 on load,
+// rounded back where the reference rounds (the q pre-scale, p and ds
+// before their products) and narrowed on store.
+constexpr int F32_NT = 128;  // threads per block: 4 warps
+constexpr size_t SMEM_LIMIT = 232448;  // dynamic shared memory a block may use
+
+constexpr size_t round32(size_t n) { return (n + 31) / 32 * 32; }
+
+// the tile of a head of D (rows and keys): 64 up to d = 128; 32 at 256
+// and 16 at 512, so that the f32 rows fit shared memory
+__host__ __device__ constexpr int simt_tile(int D) { return D <= 128 ? 64 : 8192 / D; }
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16(x); }
+// x rounded to T's precision, as f32 (the reference's casts before a product)
+template <typename T> __device__ __forceinline__ float round_to(float x) {
+  return to_f(from_f<T>(x));
+}
+
+// Rows [row0, row0 + nrows) of a row-major [t, D] matrix, times mul and
+// rounded to T (mul = 1 leaves a value as it is), into f32 shared memory
+// with leading dimension LD; rows at or past t become zeros.
+template <int D, int LD, typename T>
+__device__ __forceinline__ void load_rows_f32(float* dst, const T* src, int row0, int t,
+                                              int nrows, float mul) {
+  for (int i = threadIdx.x; i < nrows * D; i += F32_NT) {
+    const int r = i / D, c = i % D;
+    dst[r * LD + c] = (row0 + r < t) ? round_to<T>(to_f(src[(size_t)(row0 + r) * D + c]) * mul)
+                                     : 0.f;
+  }
+}
+
 // Rows per block of the bf16 kernels, for t rows (queries in flash_fwd
 // and flash_dq, keys in flash_dkv) in each of bh heads: 128 (8 warps, so
 // fewer re-reads of the other operand) where that grid still fills every

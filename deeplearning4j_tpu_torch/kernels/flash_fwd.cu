@@ -47,9 +47,18 @@
 // 4). At d = 64 the kernel keeps to 128 registers, so two 8-warp blocks
 // (16 warps) share an SM, where the old kernel's blocks left 12.
 //
-// The f32 kernel is on no main path and was not redesigned: the first
-// version's CUDA-core FMAs through shared memory (full f32 precision, no
-// TF32), now taking the unscaled q and the scale like the bf16 kernel.
+// The SIMT kernel (flash_fwd_kernel_f32) is on no main path and was not
+// redesigned: the first version's CUDA-core FMAs through shared memory
+// in f32 (full f32 precision, no TF32), taking the unscaled q and the
+// scale like the bf16 kernel. It runs every f32 head and the bf16 heads
+// of 256 and 512 (a wider head than the mma.sync kernel's registers
+// hold; 129-256 and 257-512 are zero-padded to them): its tiles are
+// template parameters, 64 x 64 up to d = 128, 32 x 32 at 256 and 16 x 16
+// at 512 (simt_tile, flash_common.cuh), so that the f32 rows fit shared
+// memory (~136 KB at 256, ~133 KB at 512), and its global loads and
+// stores are templated on the element type: bf16 is widened on load,
+// and p is rounded to bf16 before P.V, as the reference rounds it. A
+// correct, slow first kernel for those heads: nothing was tuned.
 //
 // The PTX helpers (cp.async, ldmatrix, mma.sync, bf16 packing, the q
 // pre-scale, quad reductions) and the pieces built on them (row copies,
@@ -257,38 +266,25 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse
   return (int)cudaGetLastError();
 }
 
-// --------------------------------------------------------- the f32 kernel
+// ------------------------------------------------ the f32 (SIMT) design
 
-constexpr int F32_BQ = 64;   // query rows per block
-constexpr int F32_NT = 128;  // threads per block
-
-constexpr size_t round32(size_t n) { return (n + 31) / 32 * 32; }
-
-template <int D>
+// Shared-memory layout of a block of BQ query rows over key tiles of BKT
+// keys, all in f32.
+template <int D, int BQ, int BKT>
 struct F32Layout {
-  static constexpr int LDT = D + 1;   // q, k, v rows (bank spread)
-  static constexpr int LDS = BK + 1;  // scores, then probabilities
+  static constexpr int LDT = D + 1;    // q, k, v rows (bank spread)
+  static constexpr int LDS = BKT + 1;  // scores, then probabilities
   static constexpr size_t q_off = 0;
-  static constexpr size_t k_off = q_off + round32(sizeof(float) * F32_BQ * LDT);
-  static constexpr size_t v_off = k_off + round32(sizeof(float) * BK * LDT);
-  static constexpr size_t s_off = v_off + round32(sizeof(float) * BK * LDT);
-  static constexpr size_t o_off = s_off + round32(sizeof(float) * F32_BQ * LDS);
-  static constexpr size_t m_off = o_off + round32(sizeof(float) * F32_BQ * D);
-  static constexpr size_t l_off = m_off + round32(sizeof(float) * F32_BQ);
-  static constexpr size_t c_off = l_off + round32(sizeof(float) * F32_BQ);
-  static constexpr size_t bytes = c_off + round32(sizeof(float) * F32_BQ);
+  static constexpr size_t k_off = q_off + round32(sizeof(float) * BQ * LDT);
+  static constexpr size_t v_off = k_off + round32(sizeof(float) * BKT * LDT);
+  static constexpr size_t s_off = v_off + round32(sizeof(float) * BKT * LDT);
+  static constexpr size_t o_off = s_off + round32(sizeof(float) * BQ * LDS);
+  static constexpr size_t m_off = o_off + round32(sizeof(float) * BQ * D);
+  static constexpr size_t l_off = m_off + round32(sizeof(float) * BQ);
+  static constexpr size_t c_off = l_off + round32(sizeof(float) * BQ);
+  static constexpr size_t bytes = c_off + round32(sizeof(float) * BQ);
+  static_assert(bytes <= SMEM_LIMIT, "flash_fwd f32 layout exceeds shared memory");
 };
-
-// rows [row0, row0 + nrows) of a row-major [t, D] matrix, times mul, into
-// shared memory with leading dimension LD; rows at or past t become zeros
-template <int D, int LD>
-__device__ __forceinline__ void load_rows_f32(float* dst, const float* src, int row0, int t,
-                                              int nrows, float mul) {
-  for (int i = threadIdx.x; i < nrows * D; i += F32_NT) {
-    const int r = i / D, col = i % D;
-    dst[r * LD + col] = (row0 + r < t) ? src[(size_t)(row0 + r) * D + col] * mul : 0.f;
-  }
-}
 
 __device__ __forceinline__ float warp_max(float x) {
   for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
@@ -300,13 +296,15 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <int D>
+template <typename T, int D, int BQ, int BKT>
 __global__ void __launch_bounds__(F32_NT)
-flash_fwd_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+flash_fwd_kernel_f32(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
                      int tq, int tk, int n_qtiles, int causal, float scale) {
-  using Lay = F32Layout<D>;
+  using Lay = F32Layout<D, BQ, BKT>;
   constexpr int LDT = Lay::LDT, LDS = Lay::LDS;
+  constexpr int RPW = BQ / (F32_NT / 32);  // softmax rows per warp
+  constexpr int CPL = (BKT + 31) / 32;     // softmax columns per lane
   extern __shared__ __align__(128) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem + Lay::q_off);
   float* Ks = reinterpret_cast<float*>(smem + Lay::k_off);
@@ -318,31 +316,31 @@ flash_fwd_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
   float* c_s = reinterpret_cast<float*>(smem + Lay::c_off);
 
   const int bh = blockIdx.x / n_qtiles;
-  const int q0 = (blockIdx.x % n_qtiles) * F32_BQ;
+  const int q0 = (blockIdx.x % n_qtiles) * BQ;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int offset = tk - tq;
-  const float* kb = k + (size_t)bh * tk * D;
-  const float* vb = v + (size_t)bh * tk * D;
+  const T* kb = k + (size_t)bh * tk * D;
+  const T* vb = v + (size_t)bh * tk * D;
 
-  load_rows_f32<D, LDT>(Qs, q + (size_t)bh * tq * D, q0, tq, F32_BQ, scale);
-  for (int i = threadIdx.x; i < F32_BQ * D; i += F32_NT) Os[i] = 0.f;
-  for (int i = threadIdx.x; i < F32_BQ; i += F32_NT) {
+  load_rows_f32<D, LDT>(Qs, q + (size_t)bh * tq * D, q0, tq, BQ, scale);
+  for (int i = threadIdx.x; i < BQ * D; i += F32_NT) Os[i] = 0.f;
+  for (int i = threadIdx.x; i < BQ; i += F32_NT) {
     m_s[i] = NEG_INF_SENTINEL;
     l_s[i] = 0.f;
   }
 
   int k_end = tk;
-  if (causal) k_end = min(tk, min(q0 + F32_BQ, tq) + offset);
-  const int n_ktiles = k_end > 0 ? (k_end + BK - 1) / BK : 0;
+  if (causal) k_end = min(tk, min(q0 + BQ, tq) + offset);
+  const int n_ktiles = k_end > 0 ? (k_end + BKT - 1) / BKT : 0;
 
   for (int kt = 0; kt < n_ktiles; ++kt) {
-    const int k0 = kt * BK;
-    load_rows_f32<D, LDT>(Ks, kb, k0, tk, BK, 1.f);
-    load_rows_f32<D, LDT>(Vs, vb, k0, tk, BK, 1.f);
+    const int k0 = kt * BKT;
+    load_rows_f32<D, LDT>(Ks, kb, k0, tk, BKT, 1.f);
+    load_rows_f32<D, LDT>(Vs, vb, k0, tk, BKT, 1.f);
     __syncthreads();
 
-    for (int i = threadIdx.x; i < F32_BQ * BK; i += F32_NT) {
-      const int r = i / BK, col = i % BK;
+    for (int i = threadIdx.x; i < BQ * BKT; i += F32_NT) {
+      const int r = i / BKT, col = i % BKT;
       float s = 0.f;
 #pragma unroll 8
       for (int d = 0; d < D; ++d) s += Qs[r * LDT + d] * Ks[col * LDT + d];
@@ -350,19 +348,21 @@ flash_fwd_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();
 
-    // online softmax: each warp walks its 16 rows, each lane two columns
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = 16 * warp + rr;
+    // online softmax: each warp walks its RPW rows, each lane CPL columns
+    // (lanes past BKT hold none)
+    for (int rr = 0; rr < RPW; ++rr) {
+      const int r = RPW * warp + rr;
       const int qrow = q0 + r;
-      float s[BK / 32];
+      float s[CPL];
       float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < BK / 32; ++j) {
+      for (int j = 0; j < CPL; ++j) {
         const int col = lane + 32 * j;
         const int kcol = k0 + col;
-        float x = Ss[r * LDS + col];
-        if (kcol >= tk) x = -INFINITY;  // past the last key: not in the row at all
-        else if (causal && qrow + offset < kcol) x = NEG_INF_SENTINEL;
+        // past the tile or the last key: not in the row at all
+        float x = -INFINITY;
+        if (col < BKT && kcol < tk)
+          x = causal && qrow + offset < kcol ? NEG_INF_SENTINEL : Ss[r * LDS + col];
         s[j] = x;
         mx = fmaxf(mx, x);
       }
@@ -371,10 +371,12 @@ flash_fwd_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
       const float m_new = fmaxf(m_prev, mx);
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < BK / 32; ++j) {
+      for (int j = 0; j < CPL; ++j) {
+        const int col = lane + 32 * j;
         const float p = expf(s[j] - m_new);
         sum += p;
-        Ss[r * LDS + lane + 32 * j] = p;
+        // P.V takes p rounded to v's dtype; l sums it unrounded
+        if (col < BKT) Ss[r * LDS + col] = round_to<T>(p);
       }
       sum = warp_sum(sum);
       if (lane == 0) {
@@ -387,39 +389,41 @@ flash_fwd_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
 
     // O = O * corr + P V
-    for (int i = threadIdx.x; i < F32_BQ * D; i += F32_NT) {
+    for (int i = threadIdx.x; i < BQ * D; i += F32_NT) {
       const int r = i / D, col = i % D;
       float a = 0.f;
 #pragma unroll 8
-      for (int j = 0; j < BK; ++j) a += Ss[r * LDS + j] * Vs[j * LDT + col];
+      for (int j = 0; j < BKT; ++j) a += Ss[r * LDS + j] * Vs[j * LDT + col];
       Os[r * D + col] = Os[r * D + col] * c_s[r] + a;
     }
     __syncthreads();
   }
 
-  for (int i = threadIdx.x; i < F32_BQ * D; i += F32_NT) {
+  for (int i = threadIdx.x; i < BQ * D; i += F32_NT) {
     const int r = i / D, col = i % D;
     if (q0 + r < tq) {
       const float denom = fmaxf(l_s[r], 1e-30f);
-      o[((size_t)bh * tq + q0 + r) * D + col] = Os[r * D + col] / denom;
+      o[((size_t)bh * tq + q0 + r) * D + col] = from_f<T>(Os[r * D + col] / denom);
     }
   }
-  for (int r = threadIdx.x; r < F32_BQ; r += F32_NT) {
+  for (int r = threadIdx.x; r < BQ; r += F32_NT) {
     if (q0 + r < tq) lse[(size_t)bh * tq + q0 + r] = m_s[r] + logf(fmaxf(l_s[r], 1e-30f));
   }
 }
 
-template <int D>
+template <typename T, int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
                int bh, int tq, int tk, int causal, float scale, cudaStream_t stream) {
-  constexpr size_t smem = F32Layout<D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel_f32<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  constexpr int TILE = simt_tile(D);
+  constexpr size_t smem = F32Layout<D, TILE, TILE>::bytes;
+  auto kernel = flash_fwd_kernel_f32<T, D, TILE, TILE>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int n_qtiles = (tq + F32_BQ - 1) / F32_BQ;
-  flash_fwd_kernel_f32<D><<<bh * n_qtiles, F32_NT, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), lse, tq, tk, n_qtiles, causal, scale);
+  const int n_qtiles = (tq + TILE - 1) / TILE;
+  kernel<<<bh * n_qtiles, F32_NT, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), lse, tq, tk, n_qtiles, causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -427,15 +431,15 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
 
 // q, k, v, o: contiguous [bh, t, d], 16-byte aligned; lse: contiguous f32
 // [bh, tq]; q unscaled, scale = 1/sqrt(d) rounded to q's dtype. dtype: 0 =
-// float32, 1 = bfloat16. block_q (bf16 only): 64 or 128 query rows per
-// block, or 0 to choose by tq. Returns a cudaError_t (0 on success); an
+// float32, 1 = bfloat16; d: 64, 128, 256 or 512. block_q (bf16 d 64 and
+// 128 only): 64 or 128 query rows per block, or 0 to choose by tq. Returns a cudaError_t (0 on success); an
 // unsupported head size or block returns cudaErrorInvalidValue.
 extern "C" int dl4j_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                               int bh, int tq, int tk, int d, int causal, int dtype,
                               float scale, int block_q, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bh < 1 || tq < 1 || tk < 1) return (int)cudaErrorInvalidValue;
-  if (dtype == 1) {
+  if (dtype == 1 && d <= 128) {
     // 8 warps where the grid still fills every SM twice (fewer re-reads
     // of K and V), else 4 (short queries such as the prefill's 64 rows,
     // or few heads: more blocks in flight)
@@ -446,9 +450,17 @@ extern "C" int dl4j_flash_fwd(const void* q, const void* k, const void* v, void*
     if (d == 64 && block_q == 128) return launch_bf16<64, 128>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
     if (d == 128 && block_q == 64) return launch_bf16<128, 64>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
     if (d == 128 && block_q == 128) return launch_bf16<128, 128>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
-  } else if (dtype == 0 && block_q == 0) {
-    if (d == 64) return launch_f32<64>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
-    if (d == 128) return launch_f32<128>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (block_q != 0) return (int)cudaErrorInvalidValue;
+  if (dtype == 1) {  // the wide heads: the SIMT design
+    if (d == 256) return launch_f32<bf16, 256>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
+    if (d == 512) return launch_f32<bf16, 512>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
+  } else if (dtype == 0) {
+    if (d == 64) return launch_f32<float, 64>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
+    if (d == 128) return launch_f32<float, 128>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
+    if (d == 256) return launch_f32<float, 256>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
+    if (d == 512) return launch_f32<float, 512>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }

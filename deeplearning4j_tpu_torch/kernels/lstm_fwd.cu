@@ -113,7 +113,7 @@ size_t smem_bytes(int n, int BB) {
     return w + STAGES * round128(sizeof(T) * (size_t)BB * lda<T>()) +
            round128(sizeof(T) * (size_t)BB * ldw<T, U>());
   const size_t out = sizeof(float) * (size_t)BB * ldo<U>();
-  const size_t stage = stage_bytes<T>(BB);
+  const size_t stage = stage_bytes(BB);
   return w + round128(out > stage ? out : stage);
 }
 
@@ -197,7 +197,7 @@ __device__ void fwd_simt(const FwdArgs& a, unsigned char* smem) {
   for (int s = 0; s < a.t; ++s) {
     const T* hprev = s == 0 ? static_cast<const T*>(a.h0) + (size_t)b0 * n
                             : hseq + ((size_t)(s - 1) * bp + b0) * n;
-    block_product<T, 4 * U, false, MAXB>(out, LDO, stage, hprev, n, W, LDW, n, BB);
+    block_product<4 * U, false, MAXB>(out, LDO, stage, hprev, n, W, LDW, n, BB);
     // the gates, QB (row, unit) pairs at a time: their loads of xg
     // (streamed from device memory) in flight together
 #pragma unroll
@@ -242,20 +242,11 @@ __device__ void fwd_simt(const FwdArgs& a, unsigned char* smem) {
         }
       }
     }
-    if (s + 1 < a.t) group_barrier(a.counter + bi, (unsigned int)((s + 1) * nj));
+    if (s + 1 < a.t) {
+      group_arrive(a.counter + bi);
+      group_wait(a.counter + bi, (unsigned int)((s + 1) * nj));
+    }
   }
-}
-
-__device__ __forceinline__ float2 unpack_bf16(uint32_t x) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
-}
-
-// V 32-bit words to p (4 V-byte aligned) as one store
-template <int V> __device__ __forceinline__ void store_words(void* p, const uint32_t (&w)[V]) {
-  if constexpr (V == 2)
-    *static_cast<uint2*>(p) = make_uint2(w[0], w[1]);
-  else
-    *static_cast<uint32_t*>(p) = w[0];
 }
 
 // The bf16 design (see the header): a block of exactly BB rows. TIMED
@@ -340,7 +331,7 @@ __device__ void fwd_mma(const FwdArgs& a, unsigned char* smem) {
     const bf16* hprev = s == 0 ? static_cast<const bf16*>(a.h0) + (size_t)b0 * n
                                : hseq + ((size_t)(s - 1) * bp + b0) * n;
     auto fetch = [&](int kc) {  // chunk kc of h_{s-1} into its ring stage
-      issue_rows<BB, LDA>(ring + (kc % STAGES) * STAGE, hprev, n, kc * KC);
+      issue_rows<BB, LDA>(ring + (kc % STAGES) * STAGE, hprev + kc * KC, n);
     };
     // the ring: chunks 0 .. STAGES - 2 in flight at once; each iteration
     // waits for its chunk, then refills the stage the iteration before

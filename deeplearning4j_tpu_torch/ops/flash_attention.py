@@ -8,9 +8,9 @@ kernels become CUDA kernels: ``_flash_fwd_impl`` -> ``_fwd_kernel`` is
 ``kernels/flash_bwd.cu`` (see each file's header for its Hopper design).
 Which of the two runs is decided by the tensor's device alone: on the
 CPU the plain version, on a CUDA device the kernel (a build or launch
-that fails raises). The kernels are built for head sizes 64 and 128; a
-smaller head runs zero-padded to the next of them, a larger one raises
-on the card (the CPU's plain versions take any head size).
+that fails raises). The kernels are built for head sizes 64, 128, 256
+and 512; a smaller head runs zero-padded to the next of them, a larger
+one raises on the card (the CPU's plain versions take any head size).
 """
 
 from __future__ import annotations
@@ -46,14 +46,16 @@ def _scale(q: torch.Tensor) -> float:
 
 
 def _head_width(d: int) -> int:
-    """The head size the kernels run a head of ``d`` at: 64 or 128, the
-    sizes they are built for. A smaller head is padded with zeros up to
-    it, which adds 0 to every score and product, so the unpadded columns
-    of every output are the same; the scales stay those of ``d``."""
-    for width in (64, 128):
+    """The head size the kernels run a head of ``d`` at: 64, 128, 256 or
+    512, the sizes they are built for (the bf16 heads of 64 and 128 on
+    the tensor cores, the rest on the CUDA cores). A smaller head is
+    padded with zeros up to it, which adds 0 to every score and product,
+    so the unpadded columns of every output are the same; the scales stay
+    those of ``d``."""
+    for width in (64, 128, 256, 512):
         if d <= width:
             return width
-    raise ValueError(f"flash kernels take head sizes up to 128, got {d}")
+    raise ValueError(f"flash kernels take head sizes up to 512, got {d}")
 
 
 def _pad_head(x: torch.Tensor, width: int) -> torch.Tensor:
@@ -131,8 +133,9 @@ def _flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch of the kernel on the unscaled q (it scales q as it
     loads it), at the head width of :func:`_head_width`. ``block_q``:
-    the bf16 kernel's query rows per block, 64 or 128 (for measurements
-    only), or 0: the kernel chooses by tq and the size of the grid."""
+    the bf16 tensor-core kernel's query rows per block (heads of 64 and
+    128), 64 or 128 (for measurements only), or 0: the kernel chooses by
+    tq and the size of the grid."""
     bh, tq, d = q.shape
     tk = k.shape[1]
     _check_inputs(q, k, v)
@@ -353,7 +356,7 @@ def flash_attention(
     dispatch rules: a key mask, a length that no block in
     (preferred, 512, ..., 8) divides, or causal with tq > tk takes the
     plain formulation; every other case runs the flash forward (on the
-    card a head wider than the kernels' 128 raises)."""
+    card a head wider than the kernels' 512 raises)."""
     b, tq, h, d = q.shape
     tk = k.shape[1]
     if block_q is None:

@@ -43,6 +43,7 @@ FWD_KERNEL = "lstm_fwd"      # forward with residuals (training)
 FWD_ONLY_KERNEL = "lstm_fwd_only"
 TIMED_KERNEL = "lstm_fwd_timed"  # lstm_fwd's bf16 kernel with its step timer
 BWD_KERNEL = "lstm_bwd"
+BWD_TIMED_KERNEL = "lstm_bwd_timed"  # lstm_bwd's bf16 sweep, timed
 DW_KERNEL = "lstm_dw"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -160,9 +161,10 @@ def _block_shape(b: int, n: int, itemsize: int, sms: int) -> Tuple[int, int, int
 
 def _grid_fits(b: int, n: int, itemsize: int, sms: int) -> bool:
     """The Hopper kernels' own limits: 64 <= n <= 1024 with n % 64 == 0
-    (64-deep product chunks and 64 x 64 dWr tiles; U >= 16 for the bf16
-    tensor-core tiles), and a persistent grid of (bp / BB) x (n / U)
-    blocks that fits a card of ``sms`` SMs at one block per SM (each
+    (64-deep product chunks and the f32 lstm_dw's 64 x 64 dWr tiles; U
+    >= 16 for the bf16 tensor-core tiles), and a persistent grid of
+    (bp / BB) x (n / U) blocks that fits a card of ``sms`` SMs at one
+    block per SM (each
     takes ~128 KB of shared memory), since the blocks of a batch group
     wait for each other every step."""
     if itemsize not in (2, 4) or n % 64 or not 64 <= n <= 1024 or b < 1:
@@ -190,9 +192,38 @@ def _lib(source: str) -> ctypes.CDLL:
         lib.dl4j_lstm_fwd_timed.restype = i32
     else:
         lib.dl4j_lstm_bwd.argtypes = [ptr] * 19 + [i32] * 6 + [ptr]
-        lib.dl4j_lstm_dw.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
+        lib.dl4j_lstm_bwd_timed.argtypes = [ptr] * 20 + [i32] * 6 + [ptr]
+        lib.dl4j_lstm_dw.argtypes = [ptr] * 9 + [i32] * 5 + [ptr]
         lib.dl4j_lstm_bwd.restype = lib.dl4j_lstm_dw.restype = i32
+        lib.dl4j_lstm_bwd_timed.restype = i32
     return lib
+
+
+_DW_TILE = (128, 256)  # the bf16 lstm_dw's tile of dWr: units x gate columns
+
+
+def _dw_tiles(n: int) -> int:
+    return -(-n // _DW_TILE[0]) * (4 * n // _DW_TILE[1])
+
+
+_DW_MAX_SPLITS = 8  # the last split of a tile sums the others' partials alone
+_DW_MIN_CHUNKS = 8  # 64-row chunks a split walks, at least
+
+
+def _dw_splits(m: int, n: int, itemsize: int, sms: int) -> int:
+    """The ranges of the m = t * bp rows the bf16 ``lstm_dw`` splits its
+    sum into: as many as keep its grid (tiles x splits) within one wave
+    of the card's ``sms`` SMs (n 512: 32 tiles, 4 splits), at most
+    ``_DW_MAX_SPLITS`` (n 128: 2 tiles, 8 splits rather than 66, whose
+    one summing block took ~0.3 ms) and none shorter than
+    ``_DW_MIN_CHUNKS`` chunks (b 8, t 9, n 128: 1 split rather than 3 of
+    one chunk, which took 0.045 ms against 0.0055 before the split); 1
+    for f32, whose grid is its tiles alone."""
+    if itemsize != 2:
+        return 1
+    chunks = -(-m // 64)
+    return max(1, min(sms // _dw_tiles(n), chunks // _DW_MIN_CHUNKS,
+                      _DW_MAX_SPLITS))
 
 
 def _pad(z: torch.Tensor, bp: int, dim: int, dtype=None) -> torch.Tensor:
@@ -296,7 +327,10 @@ def _lstm_fwd_cuda(xg, wr, wci, wcf, wco, h0, c0, with_residuals: bool,
         return h_seq[:, :b], (h_t[:b], c_t[:b])
 
 
-def _lstm_bwd_cuda(res: Residuals, wr, wci, wcf, wco, h0, c0, gout, g_clast):
+def _lstm_bwd_cuda(res: Residuals, wr, wci, wcf, wco, h0, c0, gout, g_clast,
+                   timed: bool = False):
+    """The backward kernels on CUDA tensors; ``timed`` (bf16) launches the
+    sweep's timed instantiation and also returns its stamps."""
     t, b, n = res[0].shape
     dt = res[0].dtype
     _check_shapes(gout, wr, (wci, wcf, wco), (h0, c0, g_clast), n)
@@ -320,25 +354,42 @@ def _lstm_bwd_cuda(res: Residuals, wr, wci, wcf, wco, h0, c0, gout, g_clast):
     dh0 = torch.empty(bp, n, dtype=torch.float32, device=dev)
     dc0 = torch.empty_like(dh0)
     partial = torch.empty(nb, 3, n, dtype=torch.float32, device=dev)
-    counter = torch.zeros(nb, dtype=torch.int32, device=dev)
+    splits = _dw_splits(t * bp, n, res[0].element_size(), _sm_count(dev))
+    # the sweep's batch-group counters and lstm_dw's per-tile counters
+    counters = torch.zeros(nb + (_dw_tiles(n) if splits > 1 else 0),
+                           dtype=torch.int32, device=dev)
+    counter = counters[:nb]
+    ws = (torch.empty(splits, n, 4 * n, dtype=torch.float32, device=dev)
+          if splits > 1 else None)
     dwr = torch.empty(n, 4 * n, dtype=torch.float32, device=dev)
     dwci, dwcf, dwco = (torch.empty(n, dtype=torch.float32, device=dev)
                         for _ in range(3))
     code = _DTYPE_CODES[dt]
+    ptrs = [z.data_ptr() for z in (*res_p, gout_p, wr, wci, wcf, wco, h0_p,
+                                   c0_p, gcl_p, dg, hp, dh0, dc0, partial,
+                                   counter)]
+    dims = [t, bp, n, bb, u, code]
     with torch.cuda.device(dev):
-        err = lib.dl4j_lstm_bwd(
-            *[z.data_ptr() for z in (*res_p, gout_p, wr, wci, wcf, wco, h0_p,
-                                     c0_p, gcl_p, dg, hp, dh0, dc0, partial,
-                                     counter)],
-            t, bp, n, bb, u, code, _stream(dev))
-        _check(BWD_KERNEL, err)
-        kernels.LAUNCHES[BWD_KERNEL] += 1
+        if timed:
+            stamps = torch.zeros(nb * (n // u), t, 4, dtype=torch.int64,
+                                 device=dev)
+            name = BWD_TIMED_KERNEL
+            err = lib.dl4j_lstm_bwd_timed(*ptrs, stamps.data_ptr(), *dims,
+                                          _stream(dev))
+        else:
+            name = BWD_KERNEL
+            err = lib.dl4j_lstm_bwd(*ptrs, *dims, _stream(dev))
+        _check(name, err)
+        kernels.LAUNCHES[name] += 1
         err = lib.dl4j_lstm_dw(
             *[z.data_ptr() for z in (hp, dg, partial, dwr, dwci, dwcf, dwco)],
-            t * bp, n, nb, code, _stream(dev))
+            None if ws is None else ws.data_ptr(),
+            None if ws is None else counters[nb:].data_ptr(),
+            t * bp, n, nb, splits, code, _stream(dev))
         _check(DW_KERNEL, err)
         kernels.LAUNCHES[DW_KERNEL] += 1
-    return dg[:, :b], dwr, dwci, dwcf, dwco, dh0[:b], dc0[:b]
+    out = (dg[:, :b], dwr, dwci, dwcf, dwco, dh0[:b], dc0[:b])
+    return out + (stamps,) if timed else out
 
 
 # ------------------------------------------------------------ dispatch
@@ -375,6 +426,20 @@ def lstm_bwd(res: Residuals, wr, wci, wcf, wco, h0, c0, gout, g_clast):
     if res[0].device.type == "cpu":
         return lstm_bwd_plain(res, wr, wci, wcf, wco, h0, c0, gout, g_clast)
     raise ValueError(f"the LSTM scan runs on cuda or cpu, not {res[0].device}")
+
+
+def lstm_bwd_timed(res: Residuals, wr, wci, wcf, wco, h0, c0, gout, g_clast):
+    """``lstm_bwd`` with the bf16 sweep in its timed instantiation, on
+    CUDA tensors only: its outputs, then stamps [blocks, t, 4] int64, the
+    card's globaltimer (ns) per block and step after the barrier, after
+    the last dg chunk landed, after the product, and after the gate chain
+    and its stores. A measurement entry point: no path of the port calls
+    it."""
+    if res[0].device.type != "cuda" or res[0].dtype != torch.bfloat16:
+        raise ValueError("the timed LSTM kernel runs on bfloat16 CUDA "
+                         f"tensors, not {res[0].dtype} on {res[0].device}")
+    return _lstm_bwd_cuda(res, wr, wci, wcf, wco, h0, c0, gout, g_clast,
+                          timed=True)
 
 
 class _FusedLSTM(torch.autograd.Function):

@@ -118,22 +118,28 @@ def test_no_whole_profile_falls_back_to_event_time(monkeypatch):
         chip_smoke._sum_ms(times, "flash_dq_kernel")
 
 
-def _ptxas_report(spills):
-    """A stand-in ``-Xptxas -v`` report of lstm_fwd.cu: an f32 and a
-    bf16 instantiation of lstm_fwd_kernel, the bf16 one with ``spills``
-    bytes stored and loaded."""
+def _ptxas_lines(entries):
+    """``-Xptxas -v`` report lines for (mangled name, registers, spill
+    bytes stored and loaded)."""
     lines = []
-    for name, regs, sp in (
-            ("_ZN12_GLOBAL__N_115lstm_fwd_kernelIfLi32ELb1ELi128ELb0EEEvNS_7FwdArgsE",
-             255, 516),
-            ("_ZN12_GLOBAL__N_115lstm_fwd_kernelI13__nv_bfloat16Li32ELb1ELi128ELb0EE"
-             "EvNS_7FwdArgsE", 168, spills)):
+    for name, regs, sp in entries:
         lines += [f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'",
                   f"ptxas info    : Function properties for {name}",
                   f"    {sp} bytes stack frame, {sp // 2} bytes spill stores, "
                   f"{sp - sp // 2} bytes spill loads",
                   f"ptxas info    : Used {regs} registers, used 1 barriers"]
     return "\n".join(lines)
+
+
+def _ptxas_report(spills):
+    """A stand-in ``-Xptxas -v`` report of lstm_fwd.cu: an f32 and a
+    bf16 instantiation of lstm_fwd_kernel, the bf16 one with ``spills``
+    bytes stored and loaded."""
+    return _ptxas_lines([
+        ("_ZN12_GLOBAL__N_115lstm_fwd_kernelIfLi32ELb1ELi128ELb0EEEvNS_7FwdArgsE",
+         255, 516),
+        ("_ZN12_GLOBAL__N_115lstm_fwd_kernelI13__nv_bfloat16Li32ELb1ELi128ELb0EE"
+         "EvNS_7FwdArgsE", 168, spills)])
 
 
 def test_spill_gate_accepts_a_clean_bf16_lstm_fwd(capsys):
@@ -146,6 +152,34 @@ def test_spill_gate_accepts_a_clean_bf16_lstm_fwd(capsys):
 def test_spill_gate_rejects_a_spilling_bf16_lstm_fwd(spills):
     with pytest.raises(RuntimeError, match="bf16 lstm_fwd_kernel spills"):
         chip_smoke._spill_gate("lstm_fwd", _ptxas_report(spills))
+
+
+def _bwd_report(bwd_spills, dw_spills):
+    """A stand-in report of lstm_bwd.cu: the f32 and bf16 sweeps (a
+    timed bf16 one too) and both lstm_dw kernels; the bf16 sweeps spill
+    ``bwd_spills`` bytes, the bf16 lstm_dw ``dw_spills``."""
+    sweep = "_ZN12_GLOBAL__N_115lstm_bwd_kernelI{}Li32ELi128ELb{}EEEvNS_7BwdArgsE"
+    dw = "_ZN12_GLOBAL__N_114lstm_dw_kernelI{}EEvNS_6DwArgsE"
+    bf = "13__nv_bfloat16"
+    return _ptxas_lines([(sweep.format("f", 0), 200, 96),
+                         (sweep.format(bf, 0), 230, bwd_spills),
+                         (sweep.format(bf, 1), 236, bwd_spills),
+                         (dw.format("f"), 90, 0), (dw.format(bf), 190, dw_spills)])
+
+
+def test_spill_gate_accepts_clean_bf16_lstm_bwd_and_lstm_dw(capsys):
+    chip_smoke._spill_gate("lstm_bwd", _bwd_report(0, 0))
+    out = capsys.readouterr().out
+    assert "bf16 lstm_bwd_kernel registers, spill bytes: [(230, 0), (236, 0)]" in out
+    assert "bf16 lstm_dw_kernel registers, spill bytes: [(190, 0)]" in out
+
+
+@pytest.mark.parametrize("bwd_spills,dw_spills,kernel", [
+    (64, 0, "lstm_bwd_kernel"), (0, 8, "lstm_dw_kernel")])
+def test_spill_gate_rejects_a_spilling_bf16_lstm_bwd_or_lstm_dw(bwd_spills, dw_spills,
+                                                               kernel):
+    with pytest.raises(RuntimeError, match=f"bf16 {kernel} spills"):
+        chip_smoke._spill_gate("lstm_bwd", _bwd_report(bwd_spills, dw_spills))
 
 
 def test_spill_gate_needs_a_bf16_instantiation():
@@ -167,7 +201,7 @@ def test_phase_breakdown_means_over_blocks_and_steps():
             stamps[blk, s] = [start, start + 3000, start + 3000 + product,
                               start + 4000 + product]
             end = stamps[blk, s, 3]
-    out = chip_smoke._phase_breakdown(stamps)
+    out = chip_smoke._phase_breakdown(stamps, chip_smoke.PHASE_NAMES)
     assert out["barrier_wait_us"] == pytest.approx(2.0)
     assert out["chunks_but_last_us"] == pytest.approx(3.0)
     assert out["last_chunk_us"] == pytest.approx(5.0)
@@ -179,11 +213,30 @@ def test_phase_breakdown_means_over_blocks_and_steps():
     assert out["kernel_us"] == pytest.approx((stamps[1, 2, 3] - 0) / 1e3)
 
 
+def test_phase_breakdown_names_the_sweeps_phases():
+    """The backward sweep's stamps under its own names: one block, four
+    steps of 1 us barrier, 6 us of dg chunks, 2 us of the last chunk's
+    product and 3 us of the gate chain."""
+    stamps = np.zeros((1, 4, 4), np.int64)
+    for s in range(4):
+        start = 12000 * s
+        stamps[0, s] = [start, start + 6000, start + 8000, start + 11000]
+    out = chip_smoke._phase_breakdown(stamps, chip_smoke.BWD_PHASE_NAMES)
+    assert set(out) >= {f"{k}_us" for k in chip_smoke.BWD_PHASE_NAMES}
+    assert "cell_stores_us" not in out
+    assert out["barrier_wait_us"] == pytest.approx(1.0)
+    assert out["chunks_but_last_us"] == pytest.approx(6.0)
+    assert out["last_chunk_us"] == pytest.approx(2.0)
+    assert out["chain_stores_us"] == pytest.approx(3.0)
+    assert out["step_us"] == pytest.approx(12.0)
+    assert out["timer_tick_ns"] == 1000
+
+
 def test_phase_breakdown_refuses_stamps_out_of_order():
     stamps = np.zeros((1, 2, 4), np.int64)
     stamps[0] = [[0, 1, 2, 3], [10, 9, 12, 13]]
     with pytest.raises(RuntimeError, match="not in order"):
-        chip_smoke._phase_breakdown(stamps)
+        chip_smoke._phase_breakdown(stamps, chip_smoke.PHASE_NAMES)
 
 
 def _grads(scale, bad=None):

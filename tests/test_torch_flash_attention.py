@@ -26,6 +26,8 @@ from deeplearning4j_tpu_torch.ops.attention import scaled_dot_product_attention
 from deeplearning4j_tpu_torch.ops.flash_attention import (
     _head_width,
     flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_plain,
     flash_attention_fwd,
     flash_attention_fwd_plain,
 )
@@ -188,18 +190,20 @@ def test_unsupported_device_raises(rng):
 
 
 @pytest.mark.parametrize("d,width", [(8, 64), (63, 64), (64, 64), (96, 128),
-                                     (128, 128)])
+                                     (128, 128), (129, 256), (256, 256),
+                                     (257, 512), (512, 512)])
 def test_head_width_pads_up_to_a_built_size(d, width):
     assert _head_width(d) == width
 
 
-@pytest.mark.parametrize("d", [160, 256])
+@pytest.mark.parametrize("d", [160, 256, 320, 512])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_wide_heads_match_reference_wrapper(rng, dtype, causal, d):
-    """A head wider than the kernels' 128 runs through the flash
-    wrapper's plain version on the CPU and matches the reference's
-    wrapper, which runs its Pallas kernel at any head size."""
+    """A head wider than 128 (the kernels pad 129-256 to 256 and 257-512
+    to 512) runs through the flash wrapper's plain version on the CPU and
+    matches the reference's wrapper, which runs its Pallas kernel at any
+    head size."""
     b, h, t = 1, 2, 64
     q, k, v = _arrays(rng, [(b, t, h, d)] * 3)
     want = jax_flash(_jax(q, dtype), _jax(k, dtype), _jax(v, dtype),
@@ -212,9 +216,9 @@ def test_wide_heads_match_reference_wrapper(rng, dtype, causal, d):
     _close(got.float().numpy(), want, dtype)
 
 
-def test_head_width_rejects_heads_past_128():
-    with pytest.raises(ValueError, match="up to 128"):
-        _head_width(129)
+def test_head_width_rejects_heads_past_512():
+    with pytest.raises(ValueError, match="up to 512"):
+        _head_width(513)
 
 
 # ------------------------------------------------- the kernel on the card
@@ -264,17 +268,49 @@ def test_kernel_takes_other_head_sizes_on_card(cuda_device, dtype, tol, d,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [160, 256])
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("d", [160, 256, 320, 512])  # run at 256 and 512
 @pytest.mark.parametrize("causal", [False, True])
-def test_wide_heads_on_card_raise(cuda_device, dtype, d, causal):
-    """On the card a head above 128 raises in ``flash_attention`` (no
+def test_wide_heads_run_the_kernels_on_card(cuda_device, dtype, tol, d, causal):
+    """A head of 129-512 runs the kernels on the card, forward and
+    backward, one launch of each, at a ragged length (t 200: no multiple
+    of any tile), and matches their plain versions (the backward within
+    the bf16 bound relative to max |ref|, as in
+    tests/test_torch_flash_backward.py)."""
+    bh, tq, tk = 4, 72, 200
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.randn(bh, t, d, generator=g, device=cuda_device).to(dt)
+                   for t in (tq, tk, tk, tq))
+    kernels.reset_launches()
+    o, lse = flash_attention_fwd(q, k, v, causal)
+    grads = flash_attention_bwd(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert dict(kernels.LAUNCHES) == {"flash_fwd": 1, "flash_dq": 1,
+                                      "flash_dkv": 1}
+    op, lp = flash_attention_fwd_plain(q, k, v, causal)
+    assert o.shape == q.shape and o.is_contiguous()
+    assert (o.float() - op.float()).abs().max().item() <= tol
+    assert (lse - lp).abs().max().item() <= 1e-4
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    for a, b in zip(grads, want):
+        assert a.shape == b.shape and a.is_contiguous()
+        ref = b.float().abs().max().item()
+        bound = tol if dtype == "float32" else tol * ref
+        assert (a.float() - b.float()).abs().max().item() <= bound
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_wide_heads_on_card_raise(cuda_device, dtype, causal):
+    """On the card a head above 512 raises in ``flash_attention`` (no
     kernel is built for it, and no plain formulation stands in) and
     launches nothing."""
     g = torch.Generator(device=cuda_device).manual_seed(0)
-    q, k, v = (torch.randn(2, 128, 4, d, generator=g, device=cuda_device)
+    q, k, v = (torch.randn(2, 128, 4, 513, generator=g, device=cuda_device)
                .to(getattr(torch, dtype)) for _ in range(3))
     kernels.reset_launches()
-    with pytest.raises(ValueError, match="up to 128"):
+    with pytest.raises(ValueError, match="up to 512"):
         flash_attention(q, k, v, causal=causal)
     assert sum(kernels.LAUNCHES.values()) == 0

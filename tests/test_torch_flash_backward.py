@@ -194,6 +194,28 @@ def test_gradients_match_jax_grad(rng, case):
         _close(t.grad.numpy(), g, GRAD_TOL)
 
 
+@pytest.mark.parametrize("d", [160, 256, 320, 512])
+@pytest.mark.parametrize("causal", [False, True])
+def test_wide_head_gradients_match_jax_grad(rng, d, causal):
+    """Heads wider than 128 (run at 256 and 512 on the card) through the
+    wrapper's plain backward on the CPU against ``jax.grad`` of the
+    reference's wrapper, whose Pallas backward takes any head size."""
+    b, h, t = 1, 2, 64
+    q, k, v, w = _arrays(rng, [(b, t, h, d)] * 4)
+
+    def jloss(q, k, v):
+        return jnp.sum(jax_flash(q, k, v, causal=causal) * jnp.asarray(w))
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(
+        *(_jax(a, "float32") for a in (q, k, v)))
+    ts = [torch.tensor(a, requires_grad=True) for a in (q, k, v)]
+    kernels.reset_launches()
+    (flash_attention(*ts, causal=causal) * torch.tensor(w)).sum().backward()
+    assert sum(kernels.LAUNCHES.values()) == 0
+    for t_, g in zip(ts, want):
+        _close(t_.grad.numpy(), g, GRAD_TOL)
+
+
 def test_bf16_gradients_close_to_jax(rng):
     q, k, v, w = _arrays(rng, [(2, 64, 2, 16)] * 4)
 

@@ -212,6 +212,20 @@ def test_block_shape():
     assert lk._block_shape(200, 1024, 4, 132) == (128, 8, 256)
 
 
+def test_dw_splits():
+    """The bf16 lstm_dw's ranges of m on a card of 132 SMs: the training
+    shape (32 tiles of 128 x 256) splits m 4 ways, one wave of 128
+    blocks; small n stops at 8 splits, short m at one split per 8 of its
+    64-row chunks; n 1024 (128 tiles) and f32 do not split."""
+    assert lk._dw_tiles(512) == 32 and lk._dw_tiles(64) == 1
+    assert lk._dw_splits(128 * 1024, 512, 2, 132) == 4
+    assert lk._dw_splits(9 * 1024, 128, 2, 132) == 8
+    assert lk._dw_splits(32 * 64, 128, 2, 132) == 4
+    assert lk._dw_splits(9 * 16, 128, 2, 132) == 1
+    assert lk._dw_splits(9 * 32, 1024, 2, 132) == 1
+    assert lk._dw_splits(128 * 1024, 512, 4, 132) == 1
+
+
 def test_wrappers_refuse_other_devices():
     _, t = _both(_inputs(32), "float32")
     meta = [z.to("meta") for z in t]
@@ -287,3 +301,69 @@ def test_nan_in_gates_reaches_h_on_card(cuda_device, dtype, with_residuals):
     assert bool(torch.isnan(got[0][1, 3, 7])) and bool(torch.isnan(got[0][3, 5]).all())
     for a, p in zip((got[0], *got[1]), (want[0], *want[1])):
         assert torch.equal(torch.isnan(a), torch.isnan(p))
+
+
+def _backward_inputs(device, dtype, b, t, n, seed):
+    """Residuals of the forward kernel on seeded inputs, and gout and
+    dL/dc_T, on the card."""
+    _, ts = _both(_inputs(n, seed=seed, b=b, t=t), dtype)
+    ts = [z.to(device) for z in ts]
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    gout = torch.randn(t, b, n, generator=g, device=device).to(ts[0].dtype)
+    gcl = torch.randn(b, n, generator=g, device=device)
+    _, res = lk.lstm_fwd(*ts)
+    return res, ts[1:], gout, gcl
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_nan_in_gout_reaches_dg_and_dwr_on_card(cuda_device, dtype):
+    """A NaN in dL/dh spreads through the gate chain, the dh recurrence
+    and the weight gradient as in the plain version: dg and dWr have the
+    plain version's NaNs."""
+    b, t, n = 128, 4, 512
+    res, rest, gout, gcl = _backward_inputs(cuda_device, dtype, b, t, n, 11)
+    gout[2, 5, 9] = float("nan")  # step 2, row 5, unit 9
+    got = lk.lstm_bwd(res, *rest, gout, gcl)
+    want = lk.lstm_bwd_plain(res, *rest, gout, gcl)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(got[0][2, 5, 9])) and bool(torch.isnan(got[0][1, 5]).all())
+    assert bool(torch.isnan(got[1]).any())
+    for a, p in zip(got[:2], want[:2]):  # dg, dWr
+        assert torch.equal(torch.isnan(a), torch.isnan(p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,b,t,n", [
+    ("bfloat16", 1024, 8, 512),   # the training layout: lstm_dw splits m
+    ("bfloat16", 1024, 9, 128),   # one dWr row tile, m split 8 ways
+    ("float32", 64, 9, 128)])
+def test_backward_is_deterministic_on_card(cuda_device, dtype, b, t, n):
+    """Two calls on the same inputs give bitwise the same gradients: no
+    atomics on a result, and the m splits of lstm_dw summed in a fixed
+    order."""
+    res, rest, gout, gcl = _backward_inputs(cuda_device, dtype, b, t, n, 12)
+    first = lk.lstm_bwd(res, *rest, gout, gcl)
+    second = lk.lstm_bwd(res, *rest, gout, gcl)
+    torch.cuda.synchronize()
+    for a, p in zip(first, second):  # dg, dWr, dwci, dwcf, dwco, dh0, dc0
+        assert torch.equal(a, p)
+
+
+@pytest.mark.cuda
+def test_timed_backward_gives_the_same_outputs_on_card(cuda_device):
+    """The sweep's timed instantiation computes what the untimed one
+    does, bit for bit, and stamps each block's steps in order."""
+    b, t, n = 256, 4, 512
+    res, rest, gout, gcl = _backward_inputs(cuda_device, "bfloat16", b, t, n, 13)
+    kernels.reset_launches()
+    *got, stamps = lk.lstm_bwd_timed(res, *rest, gout, gcl)
+    want = lk.lstm_bwd(res, *rest, gout, gcl)
+    torch.cuda.synchronize()
+    assert dict(kernels.LAUNCHES) == {lk.BWD_TIMED_KERNEL: 1, lk.BWD_KERNEL: 1,
+                                      lk.DW_KERNEL: 2}
+    for a, p in zip(got, want):
+        assert torch.equal(a, p)
+    st = stamps.cpu()
+    assert st.shape[1:] == (t, 4) and bool((st > 0).all())
+    assert bool((st.flatten(1).diff(dim=1) >= 0).all())
