@@ -86,6 +86,33 @@ Phases (any failure ends the run with a non-zero exit and no result):
    before each, the loss and gradients on the same weights through the
    kernels, and through the forward kernel with the plain backward,
    against the plain scan's.
+7. LeNet-MNIST training at full width: the JAX package's flagship
+   (``__graft_entry__._flagship``: conv 20@5x5, max 2x2/2, conv 50@5x5,
+   max 2x2/2, dense 500, softmax 10; relu, Adam at 0.01, seed 12345,
+   bf16), rebuilt by the port's builder with ``set_input_type``, on 8
+   batches of 2048 of the port's synthetic MNIST. No port kernel runs
+   on this path (cuDNN and cuBLAS do its work): the counts, zeroed
+   before the first step and read after it, must stay empty. 20 steps
+   give finite losses that fall; the median step of steps 3-20,
+   examples/s, MFU (``bench.py``'s 13.758 MFLOP per example over 989
+   TFLOP/s) and the busy share are printed; ``evaluate`` on 10,000
+   synthetic test examples prints an accuracy marked as synthetic. f32
+   copies of the net before and after training on the card, with
+   cuDNN's TF32 switched on, match the port on the CPU for 64 examples:
+   outputs within 1e-4 (relative), and the untrained copy's gradients
+   within 1e-3 over the examples away from a kink (``kink_free``: a
+   ReLU input or a max-pool tie within reach of f32 rounding makes the
+   gradient jump; at least 56 of the 64 must qualify). Printed, not
+   gated: the gradients over all 64 and the trained copy's (its softmax
+   saturates), and the untrained copy's output error with the port's
+   f32 scope taken away (TF32). The trained copy's zip, saved on the
+   card, restores on the CPU with the CPU net's outputs.
+8. MLP-Iris training at full width: the JAX package's benchmark net
+   (4-64-64-3, relu, Adam at 0.1, seed 3, bf16) on the 150 Iris rows
+   tiled 256 times, 20 steps of 4096 (no port kernel either): losses
+   that fall, step ms, examples/s and busy share; ``evaluate`` on the
+   150 rows; ``check_gradients`` in f64 on the card over every
+   parameter of the trained net must pass.
 
 The last lines are the card's name and power limit, one JSON object
 with every kernel's numbers, and ``{"ok": true, "device": {...}}``
@@ -173,6 +200,25 @@ CHAR_BATCH, CHAR_SEQ, CHAR_STEPS = 1024, 128, 20
 # relative L2 of each parameter's gradient (bf16 roundings of h and dg
 # that differ, carried through 128 steps and two layers)
 CHAR_LOSS_TOL, CHAR_GRAD_REL = 1e-2, 3e-2
+# LeNet-MNIST (phase 7): the JAX package's benchmark batch and epoch
+LENET_BATCH, LENET_BATCHES, LENET_STEPS, LENET_TEST = 2048, 8, 20, 10000
+# an f32 copy of the net on the card vs on the CPU (64 examples): cuDNN
+# and the CPU sum the convolutions and products in other orders, in f32
+LENET_CHECK = 64
+LENET_OUT_REL, LENET_GRAD_REL = 1e-4, 1e-3
+# a gradient jumps where a ReLU input crosses 0 (or a max-pool window's
+# two largest cells swap); with ~19,000 of them per LeNet example one can
+# lie within reach of f32 rounding, the card and the CPU then round to
+# either side, and their gradients part by the jump (one example of 64
+# moved the whole gradient by 3e-2, PR 9). A smooth gradient moves in
+# proportion to a change of the parameters, a jump does not shrink with
+# it. So the gradient gate leaves out the examples whose f64 gradient
+# moves by more than KINK_TOL (relative) when the parameters move by
+# KINK_REL (relative: KINK_DRAWS random directions, each both ways), and
+# needs LENET_MIN_KEPT of them
+KINK_REL, KINK_TOL, KINK_DRAWS, LENET_MIN_KEPT = 1e-6, 1e-4, 2, 56
+# MLP-Iris (phase 8): the JAX package's benchmark, its 150 rows tiled
+IRIS_TILES, IRIS_BATCH, IRIS_STEPS = 256, 4096, 20
 
 
 def _check(ok: bool, what: str) -> None:
@@ -1259,7 +1305,311 @@ def phase_char_train(torch, np, kernels, lk):
     return launches, metrics
 
 
-PHASES = ("2", "2b", "3", "4", "5", "6")
+def lenet_train_flops_per_example() -> float:
+    """``bench.py``'s count for the LeNet flagship: 3 x 2 x the
+    multiply-adds of conv1 5x5x1x20 at 24x24, conv2 5x5x20x50 at 8x8,
+    dense 800->500 and the head 500->10 (13.758 MFLOP)."""
+    macs = (24 * 24 * 20 * 25 + 8 * 8 * 50 * 25 * 20 + 800 * 500 + 500 * 10)
+    return 3.0 * 2.0 * macs
+
+
+def _lenet_conf(compute_dtype):
+    """The JAX package's flagship (``__graft_entry__._flagship``):
+    LeNet on 28x28x1, n_in and the flatten wired by ``set_input_type``,
+    built by the port's builder."""
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+
+    return (NeuralNetConfiguration.builder()
+            .seed(12345).learning_rate(0.01).updater("adam")
+            .activation("relu").weight_init("relu")
+            .compute_dtype(compute_dtype)
+            .list()
+            .layer(L.ConvolutionLayer(n_out=20, kernel_size=(5, 5)))
+            .layer(L.SubsamplingLayer(kernel_size=(2, 2), stride=(2, 2)))
+            .layer(L.ConvolutionLayer(n_out=50, kernel_size=(5, 5)))
+            .layer(L.SubsamplingLayer(kernel_size=(2, 2), stride=(2, 2)))
+            .layer(L.DenseLayer(n_out=500))
+            .layer(L.OutputLayer(n_out=10, activation="softmax",
+                                 loss_function="mcxent"))
+            .set_input_type(InputType.convolutional(28, 28, 1))
+            .build())
+
+
+def _mlp_iris_conf(compute_dtype):
+    """The JAX package's MLP-Iris benchmark net (``bench.py``
+    ``bench_mlp_iris``): 4-64-64-3, relu, Adam at 0.1, seed 3."""
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+
+    return (NeuralNetConfiguration.builder()
+            .seed(3).learning_rate(0.1).updater("adam").activation("relu")
+            .compute_dtype(compute_dtype)
+            .list()
+            .layer(L.DenseLayer(n_in=4, n_out=64))
+            .layer(L.DenseLayer(n_in=64, n_out=64))
+            .layer(L.OutputLayer(n_in=64, n_out=3, activation="softmax",
+                                 loss_function="mcxent"))
+            .build())
+
+
+def accuracy_line(what, ev, n, synthetic):
+    """The printed evaluation summary; accuracy on synthetic data says
+    so, since it claims nothing about the real data set."""
+    import numpy as np
+
+    data = "SYNTHETIC data (no accuracy claim)" if synthetic else "real data"
+    return (f"{what}: accuracy {ev.accuracy():.4f} over {n} examples of "
+            f"{data}; confusion diagonal {np.diag(ev.confusion.counts).tolist()}")
+
+
+def _rel_err(a, b) -> float:
+    """max |a - b| over max |b|."""
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def _grads_rel(a, b, ds) -> float:
+    """The largest, over parameters, of max |ga - gb| / max |gb|, the
+    gradients of nets ``a`` and ``b`` on ``ds``."""
+    ga, _ = a.gradient_and_score(ds)
+    gb, _ = b.gradient_and_score(ds)
+    return max(_rel_err(ga[l][n].cpu().numpy(), gb[l][n].cpu().numpy())
+               for l in gb for n in gb[l])
+
+
+def kink_free(net64, x, y):
+    """A mask of the examples whose gradient is continuous at f32's
+    rounding: each example's f64 gradient on its own (``net64``, f64
+    parameters), against the same with the parameters scaled by 1 +-
+    ``KINK_REL`` x N(0, 1) noise (``KINK_DRAWS`` seeded draws, each
+    both ways, so a ReLU input at 0 crosses it), moves by at most
+    ``KINK_TOL`` of its largest entry."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+
+    def per_example(params):
+        net64.params, rows = params, []
+        for i in range(len(x)):
+            g, _ = net64.gradient_and_score(DataSet(x[i:i + 1], y[i:i + 1]))
+            rows.append(np.concatenate([g[l][n].cpu().numpy().ravel()
+                                        for l, n in net64._flat_order()]))
+        return np.stack(rows)
+
+    params = net64.params
+    try:
+        base = per_example(params)
+        moved = np.zeros(len(x))
+        for d in range(KINK_DRAWS):
+            dev = next(t for p in params.values() for t in p.values()).device
+            gen = torch.Generator(device=dev).manual_seed(d)
+            noise = {l: {n: KINK_REL * torch.randn(
+                v.shape, generator=gen, dtype=v.dtype, device=v.device)
+                for n, v in p.items()} for l, p in params.items()}
+            for sign in (1, -1):
+                noisy = {l: {n: v * (1 + sign * noise[l][n]) for n, v in p.items()}
+                         for l, p in params.items()}
+                moved = np.maximum(moved, np.abs(per_example(noisy) - base).max(1))
+    finally:
+        net64.params = params
+    return moved <= KINK_TOL * np.maximum(np.abs(base).max(1), 1e-300)
+
+
+def _host_tree(net) -> dict:
+    """The net's parameters as numpy, {layer: {name: array}}."""
+    return {l: {n: v.cpu().numpy() for n, v in p.items()}
+            for l, p in net.params.items()}
+
+
+def _port_launches(kernels) -> dict:
+    """The port's kernel launches counted since the last reset."""
+    return {k: v for k, v in kernels.LAUNCHES.items() if v}
+
+
+def _train_metrics(torch, net, batches, steps, flops_per_example):
+    """``steps`` fit steps cycling over ``batches`` (the first one with
+    the launch counts zeroed before it and read after it): the losses,
+    the median step of steps 3.., examples/s, MFU, and the device time
+    and busy share of one step by torch.profiler."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    net.fit(batches[0])
+    torch.cuda.synchronize()
+    launches = _port_launches(kernels)
+    losses, times = [net.score()], []
+    for s in range(1, steps):
+        t0 = time.perf_counter()
+        net.fit(batches[s % len(batches)])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(net.score())
+    _check(all(np.isfinite(losses)), f"finite losses {losses}")
+    _check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    step_s = statistics.median(times[1:])
+    per_step = _device_times(torch, lambda: net.fit(batches[0]), 3)
+    dev = _sum_ms(per_step)
+    b = batches[0].num_examples()
+    top = sorted(per_step.items(), key=lambda kv: -kv[1])[:8]
+    return dict(step_ms=step_s * 1e3, examples_per_s=b / step_s,
+                mfu=(b / step_s * flops_per_example / PEAK_FLOPS["bfloat16"]
+                     if flops_per_example else None),
+                step_device_ms=dev, device_busy_share=dev / (step_s * 1e3),
+                loss_first=losses[0], loss_last=losses[-1], losses=losses,
+                port_kernel_launches=launches,
+                top_kernels_ms_per_step=[[k[:90], ms] for k, ms in top])
+
+
+def phase_lenet(torch, np, kernels):
+    """Phase 7: LeNet-MNIST at full width; returns its metrics."""
+    import tempfile
+    from unittest import mock
+
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.datasets.mnist import load_mnist
+    from deeplearning4j_tpu_torch.nn.layers import convolution
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.util import model_serializer as ser
+
+    t0 = time.perf_counter()
+    net = MultiLayerNetwork(_lenet_conf("bfloat16")).init()
+    init_tree = _host_tree(net)
+    train = load_mnist(train=True, num_examples=LENET_BATCH * LENET_BATCHES)
+    x = train.features.reshape(-1, 28, 28, 1)
+    batches = [DataSet(x[i:i + LENET_BATCH], train.labels[i:i + LENET_BATCH])
+               for i in range(0, len(x), LENET_BATCH)]
+    setup_s = time.perf_counter() - t0
+    m = _train_metrics(torch, net, batches, LENET_STEPS,
+                       lenet_train_flops_per_example())
+    _check(not m["port_kernel_launches"], "the LeNet step launched port "
+           f"kernels: {m['port_kernel_launches']}")
+
+    test = load_mnist(train=False, num_examples=LENET_TEST)
+    ev = net.evaluate(DataSet(test.features.reshape(-1, 28, 28, 1), test.labels),
+                      batch_size=LENET_BATCH)
+    _check(ev.confusion.counts.sum() == LENET_TEST, "evaluate counted "
+           f"{ev.confusion.counts.sum()} examples")
+    print(accuracy_line("lenet evaluate", ev, LENET_TEST, synthetic=True),
+          flush=True)
+
+    # f32 copies of the net, before and after training, on the card and on
+    # the CPU, with cuDNN's TF32 on (PyTorch's default): the port's
+    # convolutions must still compute in f32. The outputs of both copies
+    # are held to LENET_OUT_REL. The gradients are held to LENET_GRAD_REL
+    # on the untrained copy, over the examples away from a kink; the
+    # trained copy's softmax saturates, its f32 gradients are rounding
+    # noise on p - y, and they are printed only
+    xc = test.features[:LENET_CHECK].reshape(-1, 28, 28, 1)
+    yc = test.labels[:LENET_CHECK]
+    conv = torch.backends.cudnn.conv
+    prev = conv.fp32_precision
+    conv.fp32_precision = "tf32"
+    try:
+        out_rel, grads = {}, {}
+        for when, tree in (("init", init_tree), ("trained", _host_tree(net))):
+            card, cpu = (ser.params_from_numpy(
+                MultiLayerNetwork(_lenet_conf("float32"), device=d).init(), tree)
+                for d in ("cuda", "cpu"))
+            out_cpu = cpu.output(xc)
+            out_rel[when] = _rel_err(card.output(xc), out_cpu)
+            grads[when + "_all"] = _grads_rel(card, cpu, DataSet(xc, yc))
+            if when == "init":
+                # a witness, not gated: the same output with the port's
+                # f32 scope taken away, i.e. the convolutions in TF32
+                with mock.patch.object(convolution, "_ieee_f32", contextlib.nullcontext):
+                    tf32_witness = _rel_err(card.output(xc), out_cpu)
+                cpu64 = ser.params_from_numpy(MultiLayerNetwork(
+                    _lenet_conf("float32"), device="cpu").init(torch.float64), tree)
+                kept = kink_free(cpu64, xc, yc)
+                grads["init_kept"] = _grads_rel(card, cpu, DataSet(xc[kept], yc[kept]))
+                # which side of a jump the f64 gradient takes
+                grads["init_all_vs_cpu_f64"] = _grads_rel(card, cpu64, DataSet(xc, yc))
+                grads["cpu_f32_vs_cpu_f64"] = _grads_rel(cpu, cpu64, DataSet(xc, yc))
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "lenet.zip")
+            ser.write_model(card, path)
+            back = ser.restore_multi_layer_network(path, device="cpu")
+            restored_equal = bool(np.array_equal(back.output(xc), out_cpu))
+    finally:
+        conv.fp32_precision = prev
+    for when, rel in out_rel.items():
+        _check(rel <= LENET_OUT_REL, f"f32 LeNet ({when}) output card vs CPU {rel}")
+    _check(int(kept.sum()) >= LENET_MIN_KEPT, f"only {int(kept.sum())} of "
+           f"{LENET_CHECK} examples away from a kink")
+    _check(grads["init_kept"] <= LENET_GRAD_REL, "f32 LeNet gradients card vs "
+           f"CPU {grads['init_kept']} over {int(kept.sum())} examples")
+    _check(restored_equal, "the zip saved on the card restores on the CPU "
+           "with other outputs")
+    m.update(setup_s=setup_s, flops_per_example=lenet_train_flops_per_example(),
+             synthetic_test_accuracy=ev.accuracy(),
+             f32_out_rel_card_vs_cpu=out_rel, f32_grad_rel_card_vs_cpu=grads,
+             kink_free_examples=int(kept.sum()),
+             kink_examples=np.flatnonzero(~kept).tolist(),
+             f32_out_rel_with_tf32_witness=tf32_witness,
+             zip_card_to_cpu_equal=restored_equal,
+             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print("lenet_train " + json.dumps(m), flush=True)
+    return m
+
+
+def iris_batches(np):
+    """The Iris rows (min-max scaled, in file order) tiled
+    ``IRIS_TILES`` times, cut into the full batches of ``IRIS_BATCH``."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.datasets.iris import load_iris_dataset
+
+    iris = load_iris_dataset()
+    x = np.tile(iris.features, (IRIS_TILES, 1)).astype(np.float32)
+    y = np.tile(iris.labels, (IRIS_TILES, 1)).astype(np.float32)
+    return [DataSet(x[i:i + IRIS_BATCH], y[i:i + IRIS_BATCH])
+            for i in range(0, len(x) - IRIS_BATCH + 1, IRIS_BATCH)]
+
+
+def phase_mlp_iris(torch, np, kernels):
+    """Phase 8: MLP-Iris at full width; returns its metrics."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.datasets.iris import load_iris_dataset
+    from deeplearning4j_tpu_torch.nn.gradientcheck import check_gradients
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.util.model_serializer import params_from_numpy
+
+    net = MultiLayerNetwork(_mlp_iris_conf("bfloat16")).init()
+    m = _train_metrics(torch, net, iris_batches(np), IRIS_STEPS, None)
+    _check(not m["port_kernel_launches"], "the MLP step launched port "
+           f"kernels: {m['port_kernel_launches']}")
+    iris = load_iris_dataset()
+    ev = net.evaluate(DataSet(iris.features.astype(np.float32),
+                              iris.labels.astype(np.float32)))
+    print(accuracy_line("mlp_iris evaluate", ev, 150, synthetic=False), flush=True)
+
+    # the finite-difference oracle in f64 on the card, on the trained
+    # parameters, every one of them
+    net64 = MultiLayerNetwork(_mlp_iris_conf("float32")).init(torch.float64)
+    params_from_numpy(net64, _host_tree(net))
+    t0 = time.perf_counter()
+    gc = check_gradients(net64, DataSet(iris.features, iris.labels))
+    gc_s = time.perf_counter() - t0
+    _check(net64.params["layer0"]["W"].device.type == "cuda"
+           and net64.params["layer0"]["W"].dtype == torch.float64,
+           "the gradient check ran off the card or not in f64")
+    _check(gc.ok and gc.n_checked == net64.num_params(),
+           f"f64 gradient check on the card: {gc.n_failed} of {gc.n_checked} "
+           f"failed: {gc.failures[:5]}")
+    m.update(accuracy=ev.accuracy(), gradcheck_n_checked=gc.n_checked,
+             gradcheck_max_rel_error=gc.max_rel_error, gradcheck_s=gc_s)
+    print("mlp_iris_train " + json.dumps(m), flush=True)
+    return m
+
+
+PHASES = ("2", "2b", "3", "4", "5", "6", "7", "8")
 # source -> its bf16 kernels, each of whose instantiations must not spill:
 # the mma.sync designs keep their tiles, sums and (LSTM) cell state in
 # registers
@@ -1374,6 +1724,21 @@ def main(argv) -> int:
               f"{m['tokens_per_s']:.0f} tokens/s, MFU {m['mfu']:.4f}, "
               f"loss {m['loss_first']:.4f} -> {m['loss_last']:.4f} on {card}",
               flush=True)
+    if "7" in phases:  # LeNet-MNIST training at full width
+        print(f"clocks: {_clocks()}", flush=True)
+        m = done["7"] = phase_lenet(torch, np, kernels)
+        print(f"phase 7: LeNet-MNIST train step {m['step_ms']:.3f} ms, "
+              f"{m['examples_per_s']:.0f} examples/s, MFU {m['mfu']:.4f}, "
+              f"busy {m['device_busy_share']:.3f}, loss {m['loss_first']:.4f} -> "
+              f"{m['loss_last']:.4f} on {card}", flush=True)
+    if "8" in phases:  # MLP-Iris training at full width
+        print(f"clocks: {_clocks()}", flush=True)
+        m = done["8"] = phase_mlp_iris(torch, np, kernels)
+        print(f"phase 8: MLP-Iris train step {m['step_ms']:.3f} ms, "
+              f"{m['examples_per_s']:.0f} examples/s, busy "
+              f"{m['device_busy_share']:.3f}, loss {m['loss_first']:.4f} -> "
+              f"{m['loss_last']:.4f}, f64 gradient check passed "
+              f"({m['gradcheck_n_checked']} parameters) on {card}", flush=True)
     if phases != PHASES:
         print(f"chip_smoke: ran phases 0, 1, {', '.join(phases)} only; "
               "no result", flush=True)

@@ -13,7 +13,10 @@ kernel's wrapper runs its plain PyTorch version instead.
 
 Ported so far: the GPT serving path (``models.zoo.transformer.gpt`` ->
 ``MultiLayerNetwork.generate``), GPT training (``fit``, ``score``, the
-losses and updaters), the config JSON and model zip with its updater
-state, and the flash-attention kernels: the forward and the backward
-(dq, dk/dv).
+losses and updaters), the GravesLSTM char-RNN, the feed-forward and CNN
+path (dense, convolution, pooling, batch and local response
+normalization, the input types and preprocessors, ``evaluate``, the
+listeners, the f64 gradient check, the MNIST and Iris data), the config
+JSON and YAML and the model zip with its updater and layer state, and
+the flash-attention and LSTM kernels.
 """

@@ -23,6 +23,11 @@ class DataSet:
     def num_examples(self) -> int:
         return int(self.features.shape[0])
 
+    def shuffle(self, seed: Optional[int] = None) -> "DataSet":
+        """The rows in the order of numpy ``default_rng(seed)``'s
+        permutation, as the reference's."""
+        return self[np.random.default_rng(seed).permutation(self.num_examples())]
+
     def __getitem__(self, idx) -> "DataSet":
         pick = lambda a: None if a is None else a[idx]  # noqa: E731
         return DataSet(self.features[idx], self.labels[idx],

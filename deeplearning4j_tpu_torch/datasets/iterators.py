@@ -13,22 +13,37 @@ from __future__ import annotations
 
 from typing import Iterator, List, Sequence, Tuple
 
+import numpy as np
+
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet
 
 
 class ListDataSetIterator:
     """Minibatches of ``batch_size`` rows of an in-memory DataSet, in
-    order; the last one may be short."""
+    order, or with ``shuffle`` in a new order each pass (numpy
+    ``default_rng(seed + pass)``, the reference's orders); the last one
+    may be short."""
 
-    def __init__(self, data: DataSet, batch_size: int = 32):
+    def __init__(self, data: DataSet, batch_size: int = 32,
+                 shuffle: bool = False, seed: int = 0):
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         self._data = data
         self._batch = batch_size
+        self._shuffle = shuffle
+        self._seed = seed
+        # the reference draws one order at construction, then one per pass
+        self._epoch = 1 if shuffle else 0
 
     def __iter__(self) -> Iterator[DataSet]:
         n = self._data.num_examples()
-        return (self._data[i:i + self._batch] for i in range(0, n, self._batch))
+        if not self._shuffle:
+            return (self._data[i:i + self._batch]
+                    for i in range(0, n, self._batch))
+        order = np.random.default_rng(self._seed + self._epoch).permutation(n)
+        self._epoch += 1
+        return (self._data[order[i:i + self._batch]]
+                for i in range(0, n, self._batch))
 
     def batch(self) -> int:
         return self._batch

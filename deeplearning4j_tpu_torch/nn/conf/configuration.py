@@ -1,20 +1,30 @@
 """Network configuration: global hyperparameters + layer list.
 
 Counterpart of ``deeplearning4j_tpu/nn/conf/configuration.py``: the
-fluent builder and the JSON format. A config written by the reference
-parses here and ``to_json`` gives the same text back. Input
-preprocessors and the input type are carried as the JSON objects they
-were read from; the slice builds no net that has preprocessors, and
-``ListBuilder`` does not wire n_in from an input type yet.
+fluent builder, the JSON and YAML formats, and the wiring from an input
+type: ``ListBuilder.set_input_type`` infers each layer's n_in and
+inserts the shape preprocessors between layer families. A config
+written by the reference parses here and ``to_json`` gives the same text
+back.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 from typing import Any, Dict, List, Optional
 
 from deeplearning4j_tpu_torch.nn.conf import layers as L
+from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
+    CnnToFeedForwardPreProcessor,
+    CnnToRnnPreProcessor,
+    FeedForwardToRnnPreProcessor,
+    InputPreProcessor,
+    RnnToFeedForwardPreProcessor,
+    preprocessor_from_dict,
+)
 from deeplearning4j_tpu_torch.nn.updater import UpdaterConfig
 
 
@@ -134,27 +144,27 @@ class MultiLayerConfiguration:
 
     conf: NeuralNetConfiguration
     layers: List[L.Layer]
-    input_preprocessors: Dict[int, Dict[str, Any]] = dataclasses.field(
+    input_preprocessors: Dict[int, InputPreProcessor] = dataclasses.field(
         default_factory=dict)
     pretrain: bool = False
     backprop: bool = True
     backprop_type: str = BackpropType.STANDARD
     tbptt_fwd_length: int = 20
     tbptt_back_length: int = 20
-    input_type: Optional[Dict[str, Any]] = None
+    input_type: Optional[InputType] = None
 
     def to_json(self) -> str:
         d = {
             "conf": self.conf.to_dict(),
             "layers": [layer.to_dict() for layer in self.layers],
-            "input_preprocessors": {str(k): v for k, v
+            "input_preprocessors": {str(k): v.to_dict() for k, v
                                     in self.input_preprocessors.items()},
             "pretrain": self.pretrain,
             "backprop": self.backprop,
             "backprop_type": self.backprop_type,
             "tbptt_fwd_length": self.tbptt_fwd_length,
             "tbptt_back_length": self.tbptt_back_length,
-            "input_type": self.input_type,
+            "input_type": self.input_type.to_dict() if self.input_type else None,
         }
         return json.dumps(d, indent=2)
 
@@ -164,23 +174,42 @@ class MultiLayerConfiguration:
         return MultiLayerConfiguration(
             conf=NeuralNetConfiguration.from_dict(d["conf"]),
             layers=[L.layer_from_dict(ld) for ld in d["layers"]],
-            input_preprocessors={int(k): v for k, v
+            input_preprocessors={int(k): preprocessor_from_dict(v) for k, v
                                  in d.get("input_preprocessors", {}).items()},
             pretrain=d.get("pretrain", False),
             backprop=d.get("backprop", True),
             backprop_type=d.get("backprop_type", BackpropType.STANDARD),
             tbptt_fwd_length=d.get("tbptt_fwd_length", 20),
             tbptt_back_length=d.get("tbptt_back_length", 20),
-            input_type=d.get("input_type") or None,
+            input_type=(InputType.from_dict(d["input_type"])
+                        if d.get("input_type") else None),
         )
+
+    def to_yaml(self) -> str:
+        """Block-style YAML of the same dict as the JSON."""
+        from deeplearning4j_tpu_torch.util.yaml_io import json_to_yaml
+        return json_to_yaml(self.to_json())
+
+    @staticmethod
+    def from_yaml(s: str) -> "MultiLayerConfiguration":
+        from deeplearning4j_tpu_torch.util.yaml_io import yaml_to_json
+        return MultiLayerConfiguration.from_json(yaml_to_json(s))
 
 
 class ListBuilder:
-    """Collects the layer list of a :class:`MultiLayerConfiguration`."""
+    """Collects the layer list of a :class:`MultiLayerConfiguration`, and
+    wires n_in and preprocessors from an input type."""
 
     def __init__(self, conf: NeuralNetConfiguration):
         self._conf = conf
         self._layers: List[L.Layer] = []
+        self._preprocessors: Dict[int, InputPreProcessor] = {}
+        self._input_type: Optional[InputType] = None
+        self._pretrain = False
+        self._backprop = True
+        self._backprop_type = BackpropType.STANDARD
+        self._tbptt_fwd = 20
+        self._tbptt_back = 20
 
     def layer(self, index_or_layer, maybe_layer: Optional[L.Layer] = None
               ) -> "ListBuilder":
@@ -188,6 +217,155 @@ class ListBuilder:
         self._layers.append(layer)
         return self
 
+    def input_preprocessor(self, index: int, pre: InputPreProcessor
+                           ) -> "ListBuilder":
+        self._preprocessors[index] = pre
+        return self
+
+    def set_input_type(self, t: InputType) -> "ListBuilder":
+        self._input_type = t
+        return self
+
+    def pretrain(self, flag: bool) -> "ListBuilder":
+        self._pretrain = flag
+        return self
+
+    def backprop(self, flag: bool) -> "ListBuilder":
+        self._backprop = flag
+        return self
+
+    def backprop_type(self, t: str) -> "ListBuilder":
+        self._backprop_type = t
+        return self
+
+    def t_bptt_forward_length(self, n: int) -> "ListBuilder":
+        self._tbptt_fwd = n
+        return self
+
+    def t_bptt_backward_length(self, n: int) -> "ListBuilder":
+        self._tbptt_back = n
+        return self
+
     def build(self) -> MultiLayerConfiguration:
-        return MultiLayerConfiguration(conf=self._conf,
-                                       layers=list(self._layers))
+        # deep copy: _auto_wire writes n_in into the (frozen) layer
+        # configs, and a config the caller holds must not change
+        mlc = MultiLayerConfiguration(
+            conf=self._conf,
+            layers=copy.deepcopy(list(self._layers)),
+            input_preprocessors=dict(self._preprocessors),
+            pretrain=self._pretrain,
+            backprop=self._backprop,
+            backprop_type=self._backprop_type,
+            tbptt_fwd_length=self._tbptt_fwd,
+            tbptt_back_length=self._tbptt_back,
+            input_type=self._input_type,
+        )
+        if self._input_type is not None:
+            _auto_wire(mlc)
+        return mlc
+
+
+def _auto_wire(mlc: MultiLayerConfiguration) -> None:
+    """Walk the stack tracking the current input type: set each layer's
+    missing n_in and insert a preprocessor where the family changes
+    (cnn <-> ff <-> rnn), unless one was given for that index."""
+    t = mlc.input_type
+    for i, layer in enumerate(mlc.layers):
+        pre = mlc.input_preprocessors.get(i)
+        if pre is None:
+            pre = _transition(t, layer)
+            if pre is not None:
+                mlc.input_preprocessors[i] = pre
+        if pre is not None:
+            t = pre.output_type(t)
+        t = _wire_layer(layer, t)
+
+
+def _family(layer: L.Layer) -> str:
+    if isinstance(layer, (L.ConvolutionLayer, L.SubsamplingLayer,
+                          L.LocalResponseNormalization)):
+        return "cnn"
+    if isinstance(layer, (L.GravesLSTM, L.GravesBidirectionalLSTM,
+                          L.RnnOutputLayer, L.AttentionLayer)):
+        return "rnn"
+    if isinstance(layer, (L.BatchNormalization, L.ActivationLayer, L.LossLayer,
+                          L.DropoutLayer, L.GlobalPoolingLayer)):
+        return "any"
+    return "ff"
+
+
+def _transition(t: InputType, layer: L.Layer) -> Optional[InputPreProcessor]:
+    fam = _family(layer)
+    if fam == "any" or fam == t.kind:
+        return None
+    if t.kind == "cnn" and fam == "ff":
+        return CnnToFeedForwardPreProcessor()
+    if t.kind == "ff" and fam == "cnn":
+        raise ValueError("ff->cnn transition needs an explicit "
+                         "FeedForwardToCnnPreProcessor (target h/w/c is "
+                         "ambiguous)")
+    if t.kind == "rnn" and fam == "ff":
+        return RnnToFeedForwardPreProcessor()
+    if t.kind == "ff" and fam == "rnn":
+        if t.timesteps is None:
+            raise ValueError("ff->rnn transition needs a known sequence length; "
+                             "set an explicit FeedForwardToRnnPreProcessor("
+                             "timesteps=...)")
+        return FeedForwardToRnnPreProcessor(timesteps=t.timesteps)
+    if t.kind == "cnn" and fam == "rnn":
+        return CnnToRnnPreProcessor()
+    raise ValueError(f"no automatic preprocessor for {t.kind} -> {fam}")
+
+
+def _conv_out(size: int, k: int, s: int, p: int, mode: str) -> int:
+    if mode == "same":
+        return -(-size // s)
+    return (size + 2 * p - k) // s + 1
+
+
+def _wire_layer(layer: L.Layer, t: InputType) -> InputType:
+    """Set the layer's n_in from the current input type; return the
+    layer's output type."""
+
+    def set_nin(v: int):
+        if getattr(layer, "n_in", None) is None and hasattr(layer, "n_in"):
+            object.__setattr__(layer, "n_in", int(v))
+
+    def set_nout_to_nin():
+        if getattr(layer, "n_out", None) is None:
+            object.__setattr__(layer, "n_out", layer.n_in)
+
+    if isinstance(layer, L.ConvolutionLayer):
+        set_nin(t.channels)
+        h = _conv_out(t.height, layer.kernel_size[0], layer.stride[0],
+                      layer.padding[0], layer.convolution_mode)
+        w = _conv_out(t.width, layer.kernel_size[1], layer.stride[1],
+                      layer.padding[1], layer.convolution_mode)
+        return InputType.convolutional(h, w, layer.n_out)
+    if isinstance(layer, L.SubsamplingLayer):
+        h = _conv_out(t.height, layer.kernel_size[0], layer.stride[0],
+                      layer.padding[0], "truncate")
+        w = _conv_out(t.width, layer.kernel_size[1], layer.stride[1],
+                      layer.padding[1], "truncate")
+        return InputType.convolutional(h, w, t.channels)
+    if isinstance(layer, L.BatchNormalization):
+        set_nin(t.channels if t.kind == "cnn" else t.flat_size())
+        set_nout_to_nin()
+        return t
+    if isinstance(layer, (L.GravesLSTM, L.RnnOutputLayer)):
+        set_nin(t.size)
+        return InputType.recurrent(layer.n_out, t.timesteps)
+    if isinstance(layer, L.AttentionLayer):
+        set_nin(t.size)
+        set_nout_to_nin()
+        return InputType.recurrent(layer.n_out, t.timesteps)
+    if isinstance(layer, L.GlobalPoolingLayer):
+        if t.kind == "rnn":
+            return InputType.feed_forward(t.size)
+        if t.kind == "cnn":
+            return InputType.feed_forward(t.channels)
+        return t
+    if isinstance(layer, L.FeedForwardLayer) and not isinstance(layer, L.DropoutLayer):
+        set_nin(t.flat_size())
+        return InputType.feed_forward(layer.n_out)
+    return t

@@ -1,7 +1,9 @@
 """Layer impls; importing this package registers them."""
 
 from deeplearning4j_tpu_torch.nn.layers import (  # noqa: F401
+    convolution,
     feedforward,
+    normalization,
     recurrent,
     transformer,
 )

@@ -38,8 +38,8 @@ def build_layer(global_conf: NeuralNetConfiguration, layer_conf: L.Layer,
             return _IMPL_REGISTRY[cls](global_conf, layer_conf, name)
     raise NotImplementedError(
         f"{type(layer_conf).__name__} has no implementation in the port yet "
-        "(it builds SequenceEmbeddingLayer, TransformerBlock, GravesLSTM, "
-        "GravesBidirectionalLSTM and the output layers)")
+        "(AutoEncoder, RBM, AttentionLayer and MoELayer wait for later "
+        "slices)")
 
 
 def apply_dropout(x: torch.Tensor, rate: float,
@@ -53,8 +53,9 @@ def apply_dropout(x: torch.Tensor, rate: float,
 
 
 class LayerImpl:
-    """``init_params(gen, device)`` + ``forward(params, x, state, train,
-    rng)``."""
+    """``init_params(gen, device)``, ``init_state(device)`` (the
+    non-trainable state, such as BN's moving statistics) and
+    ``forward(params, x, state, train, rng)``."""
 
     conf_cls: Type[L.Layer] = L.Layer
 
@@ -62,15 +63,19 @@ class LayerImpl:
     # compute-dtype cast must not touch them (bf16 rounds ids >= 256)
     cast_input = True
 
+    # impls that honor has_bias=False set this (dense and conv); the
+    # others reject the flag instead of silently training a bias
+    supports_no_bias = False
+
     def __init__(self, global_conf: NeuralNetConfiguration, conf: L.Layer,
                  name: str):
         self.gc = global_conf
         self.conf = conf
         self.name = name
-        if not getattr(conf, "has_bias", True):
-            raise NotImplementedError(
+        if not getattr(conf, "has_bias", True) and not self.supports_no_bias:
+            raise ValueError(
                 f"{type(conf).__name__} ({name}): has_bias=False is not "
-                "ported yet")
+                f"supported by {type(self).__name__}")
 
     @property
     def activation(self) -> str:
@@ -105,7 +110,7 @@ class LayerImpl:
                     device: torch.device) -> Dict[str, torch.Tensor]:
         return {}
 
-    def init_state(self) -> Dict[str, Any]:
+    def init_state(self, device: torch.device) -> Dict[str, Any]:
         return {}
 
     def forward(self, params: Dict[str, torch.Tensor], x: torch.Tensor,

@@ -99,7 +99,7 @@ class GravesLSTMImpl(LayerImpl):
                             c.dist_mean, c.dist_std, c.forget_gate_bias_init,
                             dist=c.dist)
 
-    def init_state(self):
+    def init_state(self, device):
         return {}
 
     def forward(self, params, x, state, train, rng=None, mask=None):

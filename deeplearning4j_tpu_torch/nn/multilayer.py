@@ -1,30 +1,34 @@
 """MultiLayerNetwork, the sequential-stack model container.
 
 Counterpart of ``deeplearning4j_tpu/nn/multilayer.py``: construction,
-``init`` (parameters and the updater state), the all-layer forward,
-``output``, ``generate``, and training: ``fit`` runs, per minibatch,
-``conf.iterations`` steps of forward, loss (``_score_fn``: the head's
-loss plus the L1/L2 penalties), ``torch.autograd`` backward, per-layer
+``init`` (parameters and the updater state), the all-layer forward
+(each layer's input preprocessor first), ``output``, ``feed_forward``,
+``predict``, ``evaluate``, ``generate``, and training: ``fit`` runs,
+per minibatch, ``conf.iterations`` steps of forward, loss
+(``_score_fn``: the head's loss plus the L1/L2 penalties),
+``torch.autograd`` backward, per-layer
 gradient normalization and the updater, ``params -= update``; ``score``
 and ``gradient_and_score`` evaluate without dropout. Truncated BPTT
 cuts long sequences into ``tbptt_fwd_length`` chunks with the LSTM
 carries crossing them as state; ``rnn_time_step`` streams one timestep
 (or a burst, step by step) with the carries kept between calls. The
-forward and the score return the layers' new states, cast back to the
-stored dtypes. Parameters are a
-dict per layer of float32 tensors on the net's device, in the
-reference's layout (``params["layer1"]["Wqkv"]``), and so is the updater
-state (``opt_state["updater"]["layer1"]["Wqkv"]["m"]``), so both carry
-across in both directions. Under a bf16 ``compute_dtype`` the layers
-compute on a bf16 copy of the parameters, the head's logits and the loss
-stay f32, and the gradients, the updater state and the parameters are
-f32. Unlike the reference, which compiles the whole step into one
-program, each step runs eagerly.
+forward and the score return the layers' new states (BN's moving
+statistics, the LSTM carries), cast back to the stored dtypes; listeners
+(``set_listeners``) see every step's score. Parameters are a dict per
+layer of float32 tensors (float64 after ``init(torch.float64)``, the
+gradient check's path) on the net's device, in the reference's layout
+(``params["layer1"]["Wqkv"]``), and so is the updater state
+(``opt_state["updater"]["layer1"]["Wqkv"]["m"]``), so both carry across
+in both directions; batches are moved to the parameters' dtype. Under a
+bf16 ``compute_dtype`` the layers compute on a bf16 copy of the
+parameters, the head's logits and the loss stay f32, and the gradients,
+the updater state and the parameters are f32. Unlike the reference,
+which compiles the whole step into one program, each step runs eagerly.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -58,9 +62,6 @@ class MultiLayerNetwork:
     def __init__(self, conf: MultiLayerConfiguration, device: DeviceLike = None):
         """``device`` defaults to ``cuda``; without a card that raises
         unless ``device="cpu"`` is given."""
-        if conf.input_preprocessors:
-            raise NotImplementedError(
-                "input preprocessors are not ported yet")
         self.device = resolve_device(device)
         self.conf = conf
         self.gc = conf.conf
@@ -75,6 +76,8 @@ class MultiLayerNetwork:
         self.states: Optional[Dict[str, Any]] = None
         #: {"step": int, "updater": {layer: {param: {state name: tensor}}}}
         self.opt_state: Optional[Dict[str, Any]] = None
+        self.listeners: List[Callable[["MultiLayerNetwork", int, float], None]] = []
+        self._dtype = torch.float32
         self._score: Union[float, torch.Tensor] = float("nan")
         # mixed precision: params stay f32, layer compute in
         # gc.compute_dtype, logits in f32 (util/dtypes.py policy)
@@ -89,66 +92,134 @@ class MultiLayerNetwork:
         #: rnn_time_step's carries, {layer: {"h", "c"}}; None = no history
         self._rnn_state: Optional[Dict[str, Any]] = None
 
-    def init(self) -> "MultiLayerNetwork":
-        """Draw every layer's parameters from one generator seeded with
-        the config's seed, and zero the updater state."""
+    def init(self, dtype: torch.dtype = torch.float32) -> "MultiLayerNetwork":
+        """Draw every layer's parameters (f32, then cast to ``dtype``)
+        from one generator seeded with the config's seed, and zero the
+        updater state."""
+        self._dtype = dtype
         gen = torch.Generator(device=self.device).manual_seed(int(self.gc.seed))
         self.params = {}
         self.states = {}
         upd = {}
         for impl, ucfg in zip(self.impls, self._ucfgs):
-            p = impl.init_params(gen, self.device)
+            p = {n: v.to(dtype) for n, v in
+                 impl.init_params(gen, self.device).items()}
             self.params[impl.name] = p
-            self.states[impl.name] = impl.init_state()
+            self.states[impl.name] = impl.init_state(self.device)
             upd[impl.name] = {n: init_updater_state(ucfg, v) for n, v in p.items()}
         self.opt_state = {"step": 0, "updater": upd}
         return self
+
+    def set_listeners(self, *listeners) -> None:
+        """Callables ``(net, iteration, score)``, called after every
+        training step with the step's number (from 1) and score."""
+        self.listeners = list(listeners)
 
     def cast_params(self, params: Params) -> Params:
         """The compute-dtype copy of ``params`` (a no-op under f32). The
         output head is cast too: its product accumulates in f32."""
         return cast_floats(params, self._cd) if self._cd is not None else params
 
-    @torch.no_grad()
-    def _forward(self, params: Params, states: Dict[str, Any], x: torch.Tensor,
-                 fmask: Optional[torch.Tensor] = None
-                 ) -> Tuple[List[torch.Tensor], Dict[str, Any]]:
-        """All-layer inference forward; returns (every layer's output,
-        the layers' new states)."""
-        acts, new_states = [], {}
+    def _cast_input(self, x: torch.Tensor) -> torch.Tensor:
         if self._cd is not None and self.impls[0].cast_input:
-            x = x.to(self._cd)
-        params = self.cast_params(params)
-        for impl in self.impls:
-            x, ns = impl.forward(params[impl.name], x, states[impl.name],
-                                 False, mask=fmask)
+            return x.to(self._cd)
+        return x
+
+    def _layer_input(self, i: int, p: Dict[str, torch.Tensor], x: torch.Tensor
+                     ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        """Layer i's preprocessor applied to ``x``, and its compute-dtype
+        parameters; a matmul-free head (LossLayer) takes its input in
+        f32 instead, so the loss runs in f32."""
+        pre = self.conf.input_preprocessors.get(i)
+        if pre is not None:
+            x = pre(x)
+        if self._cd is not None:
+            if i == len(self.impls) - 1 and self.out.has_loss() and "W" not in p:
+                x = x.float()
+            else:
+                p = cast_floats(p, self._cd)
+        return p, x
+
+    def _forward(self, params: Params, states: Dict[str, Any], x: torch.Tensor,
+                 train: bool = False, rng: Optional[int] = None,
+                 fmask: Optional[torch.Tensor] = None, n: Optional[int] = None
+                 ) -> Tuple[List[torch.Tensor], Dict[str, Any]]:
+        """The forward of the first ``n`` layers (all by default):
+        (each layer's output, their new states)."""
+        acts, new_states = [], {}
+        x = self._cast_input(x)
+        for i, impl in enumerate(self.impls[:n]):
+            p, x = self._layer_input(i, params[impl.name], x)
+            lrng = fold_in(rng, i) if rng is not None else None
+            x, ns = impl.forward(p, x, states[impl.name], train, lrng, mask=fmask)
             new_states[impl.name] = cast_like(ns, states[impl.name])
             acts.append(x)
         return acts, new_states
 
+    @torch.no_grad()
     def output(self, x, train: bool = False,
                features_mask: Optional[np.ndarray] = None) -> np.ndarray:
         """Network output for ``x`` (token ids for a GPT stack, [b, t, f]
         features for a recurrent one, with an optional [b, t] features
-        mask): the head's activations, f32, as a numpy array."""
+        mask; NHWC images for a CNN): the head's activations, in the
+        parameters' dtype (f32 under bf16 compute), as a numpy array.
+        Dropout is off and BN uses its moving statistics."""
         if train:
             raise ValueError("use fit() for training-mode passes")
-        xt = torch.as_tensor(np.asarray(x), dtype=torch.float32,
-                             device=self.device)
-        fm = None if features_mask is None else torch.as_tensor(
-            np.asarray(features_mask), dtype=torch.float32, device=self.device)
-        acts, _ = self._forward(self.params, self.states, xt, fm)
-        return acts[-1].float().cpu().numpy()
+        acts, _ = self._forward(self.params, self.states, self._tensor(x),
+                                fmask=self._tensor(features_mask))
+        return _numpy(acts[-1])
+
+    @torch.no_grad()
+    def feed_forward(self, x, train: bool = False) -> List[np.ndarray]:
+        """Every layer's activations. ``train=True`` runs the training
+        forward (dropout from a fixed key, BN on the batch's moments)
+        without keeping its new states."""
+        acts, _ = self._forward(self.params, self.states, self._tensor(x),
+                                train=train, rng=0 if train else None)
+        return [_numpy(a) for a in acts]
+
+    @torch.no_grad()
+    def predict(self, x) -> np.ndarray:
+        """Class ids: the argmax of ``output``, taken on the device."""
+        acts, _ = self._forward(self.params, self.states, self._tensor(x))
+        return torch.argmax(acts[-1], dim=-1).cpu().numpy().astype(np.int64)
+
+    def evaluate(self, data, num_classes: Optional[int] = None,
+                 batch_size: Optional[int] = None, labels_list=None):
+        """Classification ``Evaluation`` over a DataSet (in batches of
+        ``batch_size``, all at once by default) or an iterable of them.
+        For unmasked one-hot [b, C] labels only the predicted ids leave
+        the device; masked or time-series batches go through ``output``
+        and ``Evaluation.eval``."""
+        from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
+        if isinstance(data, DataSet):
+            data = ListDataSetIterator(data, batch_size or data.num_examples())
+        ev = Evaluation(num_classes=num_classes, labels_list=labels_list)
+        for ds in data:
+            labels = np.asarray(ds.labels)
+            masked = ds.features_mask is not None or ds.labels_mask is not None
+            if (not masked and labels.ndim == 2
+                    and not np.issubdtype(labels.dtype, np.integer)):
+                ev._ensure(labels.shape[-1])
+                ev.confusion.add_batch(np.argmax(labels, axis=-1),
+                                       self.predict(ds.features))
+            else:
+                ev.eval(labels, self.output(ds.features,
+                                            features_mask=ds.features_mask),
+                        mask=ds.labels_mask)
+        return ev
 
     # ------------------------------------------------------------ training
 
     def _tensor(self, a) -> Optional[torch.Tensor]:
-        """A batch array as f32 on the net's device: features and labels
-        are float, as in the reference (ids become exact floats and the
-        layers take them back to ints)."""
+        """A batch array on the net's device in the parameters' dtype:
+        features and labels are float, as in the reference (ids become
+        exact floats and the layers take them back to ints)."""
         if a is None:
             return None
-        return torch.as_tensor(a, dtype=torch.float32, device=self.device)
+        return torch.as_tensor(np.asarray(a), dtype=self._dtype,
+                               device=self.device)
 
     def _batch(self, ds: DataSet):
         return (self._tensor(ds.features), self._tensor(ds.labels),
@@ -163,24 +234,11 @@ class MultiLayerNetwork:
         layers' new states): the quantity a step minimizes. Layers
         compute on the compute-dtype copy of ``params``; the penalties
         read the f32 parameters."""
-        new_states: Dict[str, Any] = {}
-        if self._cd is not None and self.impls[0].cast_input:
-            x = x.to(self._cd)
-        for i, impl in enumerate(self.impls[:-1]):
-            p = params[impl.name]
-            if self._cd is not None:
-                p = cast_floats(p, self._cd)
-            lrng = fold_in(rng, i) if rng is not None else None
-            x, ns = impl.forward(p, x, states[impl.name], train, lrng,
-                                 mask=fmask)
-            new_states[impl.name] = cast_like(ns, states[impl.name])
+        hidden, new_states = self._forward(params, states, x, train, rng,
+                                           fmask, n=-1)
+        x = hidden[-1] if hidden else self._cast_input(x)
         i_out = len(self.impls) - 1
-        p_out = params[self.out.name]
-        if self._cd is not None:
-            if "W" in p_out:  # bf16 head operands, f32 logits (preout)
-                p_out = cast_floats(p_out, self._cd)
-            else:
-                x = x.float()  # the loss is always f32
+        p_out, x = self._layer_input(i_out, params[self.out.name], x)
         lrng = fold_in(rng, i_out) if rng is not None else None
         score = self.out.score(p_out, x, y, states[self.out.name], train,
                                lrng, mask=lmask)
@@ -271,6 +329,10 @@ class MultiLayerNetwork:
         x, y, fm, lm = self._batch(ds)
         for _ in range(max(1, self.gc.iterations)):
             self._score = self._train_step(x, y, fm, lm)
+            if self.listeners:
+                score = float(self._score)
+                for cb in self.listeners:
+                    cb(self, self.opt_state["step"], score)
 
     def score(self, ds: Optional[DataSet] = None) -> float:
         """Loss on ``ds`` in eval mode (no dropout), or the last training
@@ -326,7 +388,8 @@ class MultiLayerNetwork:
         saved = {}
         for impl in rec:
             saved[impl.name] = self.states[impl.name]
-            zeros = torch.zeros(b, impl.conf.n_out, device=self.device)
+            zeros = torch.zeros(b, impl.conf.n_out, dtype=self._dtype,
+                                device=self.device)
             self.states[impl.name] = {"h": zeros, "c": zeros.clone()}
         cut = lambda a, sl: None if a is None else a[:, sl]  # noqa: E731
         try:
@@ -345,7 +408,8 @@ class MultiLayerNetwork:
         state = {}
         for impl in self.impls:
             if hasattr(impl, "rnn_time_step"):
-                zeros = torch.zeros(b, impl.conf.n_out, device=self.device)
+                zeros = torch.zeros(b, impl.conf.n_out, dtype=self._dtype,
+                                    device=self.device)
                 state[impl.name] = {"h": zeros, "c": zeros.clone()}
         return state
 
@@ -375,7 +439,7 @@ class MultiLayerNetwork:
         x = np.asarray(x)
         if self._rnn_state is None:
             self._rnn_state = self._init_rnn_state(x.shape[0])
-        xt = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        xt = self._tensor(x)
         if x.ndim == 3:
             outs = []
             for s in range(xt.shape[1]):
@@ -386,7 +450,7 @@ class MultiLayerNetwork:
         else:
             out, self._rnn_state = self._rnn_step(self.params,
                                                   self._rnn_state, xt)
-        return out.float().cpu().numpy()
+        return _numpy(out)
 
     def rnn_clear_previous_state(self) -> None:
         self._rnn_state = None
@@ -399,13 +463,12 @@ class MultiLayerNetwork:
         return [(l, n) for l in sorted(self.params) for n in sorted(self.params[l])]
 
     def params_flat(self) -> np.ndarray:
-        """One flat f32 vector of every parameter."""
+        """One flat vector of every parameter."""
         return torch.cat([self.params[l][n].reshape(-1)
                           for l, n in self._flat_order()]).cpu().numpy()
 
     def set_params_flat(self, vec) -> None:
-        flat = torch.as_tensor(np.asarray(vec), dtype=torch.float32,
-                               device=self.device)
+        flat = self._tensor(vec)
         if flat.numel() != self.num_params():
             raise ValueError(f"flat vector of {flat.numel()} values, the net "
                              f"has {self.num_params()} parameters")
@@ -429,6 +492,13 @@ class MultiLayerNetwork:
         ``seed``. Returns [b, t0 + max_new_tokens] int64 token ids."""
         from deeplearning4j_tpu_torch.nn.generate import generate
         return generate(self, prompt_ids, max_new_tokens, **kwargs)
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A result on the host; half-precision values as f32."""
+    if t.dtype in (torch.bfloat16, torch.float16):
+        t = t.float()
+    return t.cpu().numpy()
 
 
 def _detach(tree: Any) -> Any:

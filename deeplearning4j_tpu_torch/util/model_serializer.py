@@ -3,10 +3,12 @@
 Counterpart of ``deeplearning4j_tpu/util/model_serializer.py``, read and
 written with ``zipfile`` and numpy only:
 
-- ``configuration.json``: ``{"model_type", "conf"}``;
+- ``configuration.json``: ``{"model_type", "conf"}``, the input
+  preprocessors and the input type inside the conf;
 - ``coefficients.npz``: one array per ``layerN/name`` key;
-- ``modelState.npz``: non-trainable state (empty for the GPT and
-  char-RNN stacks: an LSTM's carries live outside the saved state);
+- ``modelState.npz``: non-trainable state, one array per
+  ``layerN/name`` key (BN's moving ``mean`` and ``var``; an LSTM's
+  carries live outside the saved state);
 - ``updaterState.npz``: the step counter ``step`` (int32) and the
   updater state, one array per ``updater/layerN/param/name`` key
   (``m``/``v`` for Adam), so training resumes where it stopped;
@@ -80,7 +82,8 @@ def params_from_numpy(net: MultiLayerNetwork,
     """Load a ``{layer: {name: ndarray}}`` tree (the reference's
     ``net.params`` converted to numpy) into ``net``: every parameter of
     every layer must be present with the shape the net expects, and no
-    other key may be. Values land as float32 on the net's device."""
+    other key may be. Values land on the net's device in the dtype of
+    the parameter they replace."""
     if net.params is None:
         net.init()
     extra = set(tree) - set(net.params)
@@ -102,16 +105,15 @@ def params_from_numpy(net: MultiLayerNetwork,
             if a.shape != tuple(t.shape):
                 raise ValueError(f"{layer}/{name}: shape {a.shape}, "
                                  f"expected {tuple(t.shape)}")
-            new[layer][name] = torch.as_tensor(
-                a.astype(np.float32), device=net.device).contiguous()
+            new[layer][name] = torch.tensor(a, dtype=t.dtype, device=net.device)
     net.params = new
     return net
 
 
 def _overlay(template: Dict[str, Any], stored: Dict[str, Any],
              device: torch.device, where: str) -> Dict[str, Any]:
-    """``stored`` arrays over ``template``'s tree of tensors, as float32
-    on ``device``: a stored key the template lacks, or a shape that
+    """``stored`` arrays over ``template``'s tree of tensors, in the
+    template's dtypes on ``device``: a stored key the template lacks, or a shape that
     differs, raises; a key ``stored`` lacks keeps the template's tensor
     (the reference's ``_merge``)."""
     extra = set(stored) - set(template)
@@ -128,7 +130,7 @@ def _overlay(template: Dict[str, Any], stored: Dict[str, Any],
             if a.shape != tuple(t.shape):
                 raise ValueError(f"{where}/{k}: shape {a.shape}, expected "
                                  f"{tuple(t.shape)}")
-            out[k] = torch.as_tensor(a.astype(np.float32), device=device).contiguous()
+            out[k] = torch.tensor(a, dtype=t.dtype, device=device)
     return out
 
 
@@ -143,6 +145,18 @@ def opt_state_from_numpy(net: MultiLayerNetwork,
     updater = _overlay(net.opt_state["updater"], tree.get("updater", {}),
                        net.device, "updater")
     net.opt_state = {"step": int(np.asarray(tree["step"])), "updater": updater}
+    return net
+
+
+def states_from_numpy(net: MultiLayerNetwork,
+                      tree: Dict[str, Any]) -> MultiLayerNetwork:
+    """Load ``{layer: {name: ndarray}}`` (the reference's ``net.states``
+    converted to numpy, or a ``modelState.npz``: BN's moving ``mean``
+    and ``var``) into ``net``. States the tree lacks keep their initial
+    values; unknown keys or shapes raise."""
+    if net.params is None:
+        net.init()
+    net.states = _overlay(net.states, tree, net.device, "state")
     return net
 
 
@@ -222,5 +236,5 @@ def restore_multi_layer_network(path: str, device: DeviceLike = None,
                          "expected MultiLayerNetwork")
     conf = MultiLayerConfiguration.from_json(json.dumps(payload["conf"]))
     net = params_from_numpy(MultiLayerNetwork(conf, device=device).init(), params)
-    net.states = _overlay(net.states, states, net.device, "state")
+    states_from_numpy(net, states)
     return net if upd is None else opt_state_from_numpy(net, upd)

@@ -273,3 +273,106 @@ def test_grad_rel_names_the_worst_gradient():
     assert worst == pytest.approx(0.05, rel=1e-4) and at == "layer0/b"
     worst, at = chip_smoke._grad_rel(torch, _grads(1.0, float("nan")), _grads(1.0))
     assert worst == float("inf") and at == "layer1/W"
+
+
+# ------------------------------------------------- phases 7 and 8 (CPU)
+
+
+def test_lenet_flops_per_example_is_the_benchmarks():
+    import bench
+    assert chip_smoke.lenet_train_flops_per_example() == 13.758e6
+    assert chip_smoke.lenet_train_flops_per_example() == \
+        bench.lenet_train_flops_per_example()
+
+
+def test_lenet_conf_is_the_flagship():
+    """Phase 7 rebuilds ``__graft_entry__._flagship``'s configuration
+    with the port's builder, without importing that file."""
+    import __graft_entry__
+    want = __graft_entry__._flagship(compute_dtype="bfloat16").conf.to_json()
+    assert chip_smoke._lenet_conf("bfloat16").to_json() == want
+
+
+def test_mlp_iris_conf_and_batches_are_the_benchmarks():
+    """``bench.py`` ``bench_mlp_iris``: the net, and its data (the 150
+    rows tiled 256 times, full batches of 4096)."""
+    from deeplearning4j_tpu.datasets.iris import load_iris_dataset
+    from deeplearning4j_tpu.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu.nn.conf.layers import DenseLayer, OutputLayer
+    want = (NeuralNetConfiguration.builder()
+            .seed(3).learning_rate(0.1).updater("adam").activation("relu")
+            .compute_dtype("bfloat16").list()
+            .layer(DenseLayer(n_in=4, n_out=64))
+            .layer(DenseLayer(n_in=64, n_out=64))
+            .layer(OutputLayer(n_in=64, n_out=3, activation="softmax",
+                               loss_function="mcxent"))
+            .build())
+    assert chip_smoke._mlp_iris_conf("bfloat16").to_json() == want.to_json()
+    batches = chip_smoke.iris_batches(np)
+    assert len(batches) == 256 * 150 // 4096 == 9
+    iris = load_iris_dataset()
+    x = np.tile(iris.features, (256, 1)).astype(np.float32)
+    np.testing.assert_array_equal(batches[4].features, x[4 * 4096:5 * 4096])
+    assert all(b.labels.shape == (4096, 3) for b in batches)
+
+
+def test_accuracy_line_marks_synthetic_data():
+    from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
+    ev = Evaluation()
+    ev.eval(np.eye(3)[[0, 1, 2, 2]], np.eye(3)[[0, 1, 1, 2]])
+    line = chip_smoke.accuracy_line("lenet evaluate", ev, 4, synthetic=True)
+    assert "accuracy 0.7500" in line and "SYNTHETIC" in line
+    assert "SYNTHETIC" not in chip_smoke.accuracy_line("x", ev, 4, synthetic=False)
+    assert chip_smoke._rel_err([1.0, 2.0], [1.0, 4.0]) == 0.5
+
+
+def _tiny_mlp(lr):
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    conf = (NeuralNetConfiguration.builder().seed(3).learning_rate(lr)
+            .updater("sgd").activation("relu").list()
+            .layer(L.DenseLayer(n_in=4, n_out=8))
+            .layer(L.OutputLayer(n_in=8, n_out=3, activation="softmax"))
+            .build())
+    return MultiLayerNetwork(conf, device="cpu").init()
+
+
+@pytest.mark.parametrize("lr,falls", [(0.5, True), (0.0, False)])
+def test_train_metrics_gates_a_falling_loss(monkeypatch, lr, falls):
+    """The steps of phases 7 and 8 on a stand-in card: metrics from the
+    step times and the profile, and a refusal where the loss does not
+    fall."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    monkeypatch.setattr(chip_smoke, "_device_times",
+                        lambda torch, fn, reps: (fn(), {"gemm": 0.5, "relu": 0.25})[1])
+    rng = np.random.default_rng(0)
+    x = rng.random((32, 4)).astype(np.float32)
+    y = np.eye(3, dtype=np.float32)[(x[:, 0] * 3).astype(int)]
+    batches = [DataSet(x, y)]
+    net = _tiny_mlp(lr)
+    if not falls:
+        with pytest.raises(RuntimeError, match="loss did not fall"):
+            chip_smoke._train_metrics(_fake_torch(), net, batches, 6, 100.0)
+        return
+    m = chip_smoke._train_metrics(_fake_torch(), net, batches, 6, 100.0)
+    assert len(m["losses"]) == 6 and m["loss_last"] < m["loss_first"]
+    assert m["step_device_ms"] == 0.75 and m["port_kernel_launches"] == {}
+    assert m["examples_per_s"] == pytest.approx(32 / (m["step_ms"] / 1e3))
+    assert m["mfu"] == pytest.approx(m["examples_per_s"] * 100.0 / 989e12)
+
+
+def test_kink_free_leaves_out_an_example_on_a_relu_kink():
+    """Example 0 puts a ReLU input exactly at 0 (0.5 - 0.5): its gradient
+    jumps under any change of the parameters, so phase 7's gradient gate
+    leaves it out; example 1 is far from every kink and stays."""
+    import torch
+    net = _tiny_mlp(0.1).init(torch.float64)
+    W = np.zeros((4, 8))
+    W[0, 0], W[1, 0] = 1.0, -1.0
+    W[:, 1:] = np.random.default_rng(0).random((4, 7)) + 0.5
+    net.params["layer0"]["W"] = torch.tensor(W)
+    x = np.array([[0.5, 0.5, 0.0, 0.0], [1.0, 0.1, 0.0, 0.0]])
+    y = np.eye(3)[[0, 1]]
+    assert list(chip_smoke.kink_free(net, x, y)) == [False, True]
+    assert net.params["layer0"]["W"].dtype == torch.float64  # restored

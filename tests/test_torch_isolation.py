@@ -115,3 +115,26 @@ def test_default_device_is_cuda_and_never_silently_cpu(tmp_path):
         model_serializer.restore_multi_layer_network(path)
     assert model_serializer.restore_multi_layer_network(
         path, device="cpu").device.type == "cpu"
+
+
+def test_cnn_slice_modules_are_scanned():
+    """The feed-forward and CNN slice's modules are among what the scans
+    cover, its Iris rows ship in the package, and importing every module
+    of the port loads no ``yaml`` (the YAML form imports it on use)."""
+    mods = _modules()
+    for name in ("nn.conf.inputs", "nn.conf.preprocessors", "util.yaml_io",
+                 "nn.layers.convolution", "nn.layers.normalization",
+                 "ops.pooling", "eval.evaluation", "optimize.listeners",
+                 "datasets.mnist", "datasets.iris", "nn.gradientcheck"):
+        assert f"deeplearning4j_tpu_torch.{name}" in mods, name
+    assert os.path.exists(os.path.join(_PKG, "datasets", "iris.csv"))
+    code = ("import importlib, sys\n"
+            "before = set(sys.modules)\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "print(sorted(m for m in set(sys.modules) - before "
+            "if m == 'yaml' or m.startswith('yaml.')))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = _ROOT
+    r = subprocess.run([sys.executable, "-c", code], cwd=_ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0 and r.stdout.strip() == "[]", r.stdout + r.stderr
