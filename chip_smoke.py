@@ -12,8 +12,9 @@ Phases (any failure ends the run with a non-zero exit and no result):
 1. build: every kernel source in this checkout, one ``nvcc`` each, all
    started together, from an empty build directory, timed; fails if a
    bf16 ``flash_fwd_kernel``, ``flash_dq_kernel``, ``flash_dkv_kernel``,
-   ``lstm_fwd_kernel``, ``lstm_bwd_kernel`` or ``lstm_dw_kernel`` spills
-   registers (``BF16_KERNELS``).
+   ``lstm_fwd_kernel``, ``lstm_bwd_kernel`` or ``lstm_dw_kernel``, or an
+   f32 ``lstm_fwd_kernel``, spills registers (``BF16_KERNELS``,
+   ``F32_KERNELS``).
 2. kernels: each kernel's wrapper on card tensors against its plain
    PyTorch version on the same inputs, at the main paths' shapes, at
    larger ones and at ragged ones (t = 200, tq 72 / tk 200, one head of
@@ -38,7 +39,15 @@ Phases (any failure ends the run with a non-zero exit and no result):
    printed as ``lstm_bwd_phases`` (the same four phases of its step:
    barrier wait, dg chunks but the last, the last chunk's product, the
    gate chain with its stores and the next step's prefetch), whose
-   outputs must equal the untimed kernels' bit for bit. Then
+   outputs must equal the untimed kernels' bit for bit; then
+   ``lstm_fwd_phases`` of the f32 forward (``F32_TIMER_CASES``): 50
+   timed calls of ``lstm_fwd_only`` at the serving shape (b 32, t 1,
+   n 512: no barrier, and the first phase runs from the kernel's entry,
+   so it holds the loads of W, h and xg), reading Wr and then its copy
+   packed per block (``pack_wr``, as generate does), and 3 of
+   ``lstm_fwd`` at b 32, t 128, n 512, each call's outputs equal to the
+   untimed kernel's; every f32 row also times ``lstm_fwd_only`` on the
+   packed copy (its outputs equal bit for bit). Then
    ``lstm_fwd_only``, ``lstm_fwd`` and the backward pair ``lstm_bwd`` +
    ``lstm_dw`` against their plain versions, f32 and bf16, nonzero h0
    and c0, at the char-RNN's two main shapes (b 1024, t 128,
@@ -871,38 +880,59 @@ BWD_PHASE_NAMES = ("barrier_wait", "chunks_but_last", "last_chunk", "chain_store
 
 
 def _phase_breakdown(stamps, names):
-    """Mean µs per step, over blocks and steps 1 .. t-1 (each has a
-    barrier before it), of each of the four phases ``names`` (the first
+    """Mean µs per step of each of the four phases ``names`` (the first
     the barrier wait, from the previous step's last stamp) and of the
-    whole step (the sum of the four), from stamps [blocks, t, 4] in ns
-    (numpy)."""
+    whole step (the sum of the four), over blocks and steps 1 .. t-1
+    (each has a barrier before it), from stamps [blocks, t, 4] in ns
+    (numpy), or [calls, blocks, t, 4] for several calls of one kernel
+    (their means pooled; ``kernel_us`` the mean over calls). At t = 1
+    there is no barrier: the phases are step 0's, the first of them from
+    the kernel's entry (so it holds the loads the product waits for),
+    and ``barrier_wait_us`` is None."""
     import numpy as np
 
     st = stamps.astype("float64") / 1e3
-    _check(st.ndim == 3 and st.shape[1] > 1 and st.shape[2] == 4
-           and len(names) == 4,
-           f"the timer needs t > 1, 4 stamps per step and 4 names: "
-           f"{st.shape}, {names}")
-    spans = {names[0]: st[:, 1:, 0] - st[:, :-1, 3]}
+    st = st[None] if st.ndim == 3 else st
+    _check(st.ndim == 4 and st.shape[3] == 4 and len(names) == 4,
+           f"the timer needs 4 stamps per step and 4 names: {st.shape}, "
+           f"{names}")
+    if st.shape[2] > 1:
+        spans = {names[0]: st[:, :, 1:, 0] - st[:, :, :-1, 3]}
+        steps = st[:, :, 1:]
+        spans["step"] = steps[..., 3] - st[:, :, :-1, 3]
+    else:
+        spans, steps = {}, st
+        spans["step"] = st[..., 3] - st[..., 0]
     for k, name in enumerate(names[1:]):
-        spans[name] = st[:, 1:, k + 1] - st[:, 1:, k]
-    spans["step"] = st[:, 1:, 3] - st[:, :-1, 3]
+        spans[name] = steps[..., k + 1] - steps[..., k]
     _check(all(v.min() >= 0 for v in spans.values()),
            "the stamps of a step are not in order")
     out = {f"{k}_us": float(v.mean()) for k, v in spans.items()}
+    out.setdefault(f"{names[0]}_us", None)
     ticks = np.diff(np.unique(stamps))
-    out.update(blocks=int(st.shape[0]), steps=int(st.shape[1]),
-               kernel_us=float(st[:, :, 3].max() - st[:, :, 0].min()),
+    out.update(calls=int(st.shape[0]), blocks=int(st.shape[1]),
+               steps=int(st.shape[2]),
+               kernel_us=float((st[..., 3].max(axis=(1, 2))
+                                - st[..., 0].min(axis=(1, 2))).mean()),
                # the least step of the card's globaltimer seen in the stamps
                timer_tick_ns=int(ticks.min()) if ticks.size else None)
     return out
 
 
+# the f32 forward's timer (phase 2b): (dtype, b, t, n, with residuals, calls,
+# Wr packed) at the serving shape (lstm_fwd_only, t 1: one step per call, so
+# many calls), reading Wr and its packed copy (generate's), and at t 128
+# (lstm_fwd)
+F32_TIMER_CASES = (("float32", 32, 1, 512, False, 50, False),
+                   ("float32", 32, 1, 512, False, 50, True),
+                   ("float32", 32, 128, 512, True, 3, False))
+
+
 def phase_lstm_timer(torch, lk):
     """The per-step breakdowns of lstm_fwd's and lstm_bwd's bf16 sweeps at
     the training shape, from their timed instantiations (one call each
-    after a warm-up); each timed call's outputs against the untimed
-    kernel's."""
+    after a warm-up), then the f32 forward's (``F32_TIMER_CASES``); each
+    timed call's outputs against the untimed kernel's."""
     dtype, b, t, n = LSTM_CASES[0]
     _check(dtype == "bfloat16", "LSTM_CASES[0] is the bf16 training shape")
     g = torch.Generator(device="cuda").manual_seed(2025)
@@ -917,7 +947,7 @@ def phase_lstm_timer(torch, lk):
     torch.cuda.synchronize()
     want, res = lk.lstm_fwd(xg, wr, *pe, h0, c0)
     _lstm_check(f"timed lstm_fwd h {dtype} b{b} t{t} n{n}", dtype, hs, want, True)
-    out = dict(dtype=dtype, b=b, t=t, n=n,
+    out = dict(kernel=lk.FWD_KERNEL, dtype=dtype, b=b, t=t, n=n,
                **_phase_breakdown(stamps.cpu().numpy(), PHASE_NAMES))
     print("lstm_fwd_phases " + json.dumps(out), flush=True)
 
@@ -934,6 +964,38 @@ def phase_lstm_timer(torch, lk):
                           got, want):
         _check(torch.equal(a, w), f"timed lstm_bwd {name} differs from "
                f"lstm_bwd's: {(a.float() - w.float()).abs().max().item()}")
+    for case in F32_TIMER_CASES:
+        _f32_fwd_timer(torch, lk, g, *case)
+
+
+def _f32_fwd_timer(torch, lk, g, dtype, b, t, n, with_residuals, calls,
+                   packed):
+    """The f32 forward's step phases (``lstm_fwd_phases``): ``calls``
+    timed calls after a warm-up one, pooled, reading Wr or (``packed``)
+    ``pack_wr``'s copy; each call's outputs must equal the untimed
+    kernel's on Wr bit for bit."""
+    xg = torch.randn(t, b, 4 * n, generator=g, device="cuda")
+    wr = torch.randn(n, 4 * n, generator=g, device="cuda") * n ** -0.5
+    pe = tuple(torch.randn(n, generator=g, device="cuda") * 0.1 for _ in range(3))
+    h0 = torch.randn(b, n, generator=g, device="cuda") * 0.5
+    c0 = torch.randn(b, n, generator=g, device="cuda") * 0.5
+    args = (xg, wr, *pe, h0, c0)
+    want = lk.lstm_fwd(*args, with_residuals=with_residuals)
+    kw = dict(with_residuals=with_residuals,
+              wr_packed=lk.pack_wr(wr, b) if packed else None)
+    lk.lstm_fwd_timed(*args, **kw)
+    stamps = []
+    for _ in range(calls):
+        hs, rest, st = lk.lstm_fwd_timed(*args, **kw)
+        stamps.append(st)
+    torch.cuda.synchronize()
+    name = lk.FWD_KERNEL if with_residuals else lk.FWD_ONLY_KERNEL
+    for a, w in zip((hs, *rest), (want[0], *want[1])):
+        _check(torch.equal(a, w), f"timed {name} {dtype} b{b} t{t} n{n} differs "
+               f"from the untimed kernel: {(a - w).abs().max().item()}")
+    out = dict(kernel=name, dtype=dtype, b=b, t=t, n=n, wr_packed=packed,
+               **_phase_breakdown(torch.stack(stamps).cpu().numpy(), PHASE_NAMES))
+    print("lstm_fwd_phases " + json.dumps(out), flush=True)
 
 
 def phase_lstm_kernels(torch, lk):
@@ -993,6 +1055,17 @@ def phase_lstm_kernels(torch, lk):
             return torch.autograd.grad(out, list(ref_lstm.parameters()), go)
 
         reps = 5 if t * b * n >= 1 << 24 else 20
+        # the f32 forward-only kernel reading generate's packed Wr
+        packed = lk.pack_wr(wr, b)
+        if packed is not None:
+            fo_pk = lk.lstm_fwd(xg, wr, *pe, h0, c0, with_residuals=False,
+                                wr_packed=packed)
+            _check(all(torch.equal(a, p) for a, p in zip(
+                (fo_pk[0], *fo_pk[1]), (fo[0], *fo[1]))),
+                f"lstm_fwd_only {tag}: packed Wr differs from Wr")
+            t_fo_pk = _device_times(torch, lambda: lk.lstm_fwd(  # noqa: E731
+                xg, wr, *pe, h0, c0, with_residuals=False, wr_packed=packed),
+                reps)
         t_fo = _device_times(torch, run_fo, reps)
         t_fwd = _device_times(torch, run_fwd, reps)
         t_bwd = _device_times(torch, run_bwd, reps)
@@ -1002,6 +1075,8 @@ def phase_lstm_kernels(torch, lk):
             dtype=dtype, b=b, t=t, n=n, err_fwd_only=err_fo, err_fwd=err_fwd,
             err_bwd=errs_bwd,
             fwd_only_ms=_sum_ms(t_fo, "lstm_fwd_kernel"),
+            fwd_only_packed_ms=(_sum_ms(t_fo_pk, "lstm_fwd_kernel")
+                                if packed is not None else None),
             fwd_only_call_device_ms=_sum_ms(t_fo),
             fwd_ms=_sum_ms(t_fwd, "lstm_fwd_kernel"),
             fwd_call_device_ms=_sum_ms(t_fwd),
@@ -1030,8 +1105,8 @@ def _plain_lstm(lk, fwd=True):
     (comparisons only)."""
     saved = lk.lstm_fwd, lk.lstm_bwd
     if fwd:
-        lk.lstm_fwd = lambda *a, with_residuals=True: lk.lstm_fwd_plain(  # noqa: E731
-            *a, with_residuals=with_residuals)
+        lk.lstm_fwd = lambda *a, with_residuals=True, wr_packed=None: (  # noqa: E731
+            lk.lstm_fwd_plain(*a, with_residuals=with_residuals))
     lk.lstm_bwd = lk.lstm_bwd_plain
     try:
         yield
@@ -1122,7 +1197,8 @@ def phase_char_serve(torch, np, kernels, lk):
     g = gen_mod.build_generator(net)
     ids = torch.as_tensor(prompts, device="cuda")
     lengths = torch.full((SERVE_BATCH,), SERVE_PROMPT, device="cuda")
-    prefill_ms = _time_ms(torch, lambda: g.prefill(net.params, ids, lengths), 5)
+    prefill_ms = _time_ms(torch, lambda: g.prefill(
+        g.serving_params(net.params, SERVE_BATCH), ids, lengths), 5)
     times = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -1617,25 +1693,31 @@ BF16_KERNELS = {"flash_fwd": ("flash_fwd_kernel",),
                 "flash_bwd": ("flash_dq_kernel", "flash_dkv_kernel"),
                 "lstm_fwd": ("lstm_fwd_kernel",),
                 "lstm_bwd": ("lstm_bwd_kernel", "lstm_dw_kernel")}
+# source -> its f32 kernels held to the same gate: the f32 forward keeps
+# its register tile, xg and c carry in registers too
+F32_KERNELS = {"lstm_fwd": ("lstm_fwd_kernel",)}
 
 
 def _spill_gate(name, report):
     """Phase 1's reading of one source's ``-Xptxas -v`` report: prints
-    its registers and spills, and for each of its ``BF16_KERNELS`` the
-    registers and spill bytes of every bf16 instantiation; fails if one
-    spills or there is none."""
+    its registers and spills, and for each of its ``BF16_KERNELS`` and
+    ``F32_KERNELS`` the registers and spill bytes of every instantiation
+    of that element type; fails if one spills or there is none."""
     fns = _ptxas(report)
     regs = [r for _, r, _ in fns]
     spills = [(f[f.find("kernel"):][:60], sp) for f, _, sp in fns if sp]
     print(f"phase 1: {name}.cu ptxas: {len(fns)} kernels, "
           f"{min(regs)}-{max(regs)} registers, spills {spills}", flush=True)
-    for kernel in BF16_KERNELS.get(name, ()):
-        bf16_fns = [(f, r, sp) for f, r, sp in fns
-                    if kernel + "I" in f and "bfloat16" in f]
-        print(f"phase 1: bf16 {kernel} registers, spill bytes: "
-              f"{[(r, sp) for _, r, sp in bf16_fns]}", flush=True)
-        _check(bf16_fns and not any(sp for _, _, sp in bf16_fns),
-               f"bf16 {kernel} spills: {bf16_fns}")
+    gated = [("bf16", k, lambda f, k=k: k + "I" in f and "bfloat16" in f)
+             for k in BF16_KERNELS.get(name, ())]
+    gated += [("f32", k, lambda f, k=k: k + "If" in f)
+              for k in F32_KERNELS.get(name, ())]
+    for dtype, kernel, match in gated:
+        typed = [(f, r, sp) for f, r, sp in fns if match(f)]
+        print(f"phase 1: {dtype} {kernel} registers, spill bytes: "
+              f"{[(r, sp) for _, r, sp in typed]}", flush=True)
+        _check(typed and not any(sp for _, _, sp in typed),
+               f"{dtype} {kernel} spills: {typed}")
 
 
 def _phases(argv):
@@ -1843,8 +1925,10 @@ def _flash_summary(done):
 
 def _lstm_summary(done, lk):
     """The LSTM kernels' entries of the kernels line (phases 2b, 5, 6):
-    ``lstm_fwd_only`` at the serving shape, the training kernels at the
-    training shape. The plain backward and the yardstick's backward
+    ``lstm_fwd_only`` at the serving shape (reading Wr packed, as
+    generate does), the training kernels at the training shape, and the
+    f32 ``lstm_fwd`` at b 32, t 128, n 512 under ``lstm_fwd``'s key
+    ``f32``. The plain backward and the yardstick's backward
     compute every gradient together: read their plain_ms and library_ms
     beside backward_ms (the whole lstm_bwd call: sweep and weights)."""
     rows = done["2b"]
@@ -1856,6 +1940,7 @@ def _lstm_summary(done, lk):
 
     serve = row("float32", SERVE_BATCH, 1, CHAR_HIDDEN)
     train = row("bfloat16", CHAR_BATCH, CHAR_SEQ, CHAR_HIDDEN)
+    f32_fwd = row("float32", SERVE_BATCH, CHAR_SEQ, CHAR_HIDDEN)
     replaces = "deeplearning4j_tpu/ops/lstm_kernel.py:"
     entries = []
     for name, r, line, key, err, plain, lib, src in (
@@ -1883,6 +1968,22 @@ def _lstm_summary(done, lk):
         }
         if key in ("bwd", "dw"):
             entry["backward_ms"] = r["backward_ms"]
+        if name == lk.FWD_ONLY_KERNEL:
+            # generate reads Wr packed per block (pack_wr): its time is the
+            # main path's; the same kernel reading Wr itself beside it
+            entry["ms"] = r["fwd_only_packed_ms"]
+            entry["ms_reading_wr"] = r["fwd_only_ms"]
+        if name == lk.FWD_KERNEL:
+            # the f32 lstm_fwd (the serving layout at t 128); on no main
+            # path: the f32 path is serving's (training's is bf16)
+            bound_ms, bound_by = f32_fwd["bounds"][name]
+            entry["f32"] = {
+                "ms": f32_fwd["fwd_ms"], "plain_ms": f32_fwd["plain_fwd_ms"],
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": f32_fwd["library_fwd_ms"],
+                "max_abs_err": f32_fwd["err_fwd"],
+                "launches": serve_launches[name],
+                "shape": [f32_fwd["b"], f32_fwd["t"], f32_fwd["n"], "float32"]}
         entries.append(entry)
     return entries
 

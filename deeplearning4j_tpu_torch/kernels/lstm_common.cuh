@@ -2,8 +2,8 @@
 // lstm_bwd.cu) for Hopper (sm_90a): conversions, the card's nanosecond
 // timer, the batch-group barrier of the persistent kernels (a release
 // arrival and an acquire wait), the copy of row chunks into shared
-// memory (cp.async), the f32 designs' per-step block product on the CUDA
-// cores, the bf16 forward's warp layout, and bf16 vector accesses.
+// memory (cp.async), the f32 backward's per-step block product on the
+// CUDA cores, the bf16 forward's warp layout, and bf16 vector accesses.
 //
 // Layout shared by both sweeps: a block (bi, j) of the persistent grid
 // owns batch rows [bi * BB, +BB) and hidden units [j * U, +U) for the
@@ -86,6 +86,30 @@ __device__ __forceinline__ void group_wait(const unsigned int* counter, unsigned
   __syncthreads();
 }
 
+// cp_async_wait<N> for a count known only at run time (0 .. 15; more
+// waits for every group)
+__device__ __forceinline__ void cp_async_wait_upto(int pending) {
+  switch (pending) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 6: cp_async_wait<6>(); break;
+    case 7: cp_async_wait<7>(); break;
+    case 8: cp_async_wait<8>(); break;
+    case 9: cp_async_wait<9>(); break;
+    case 10: cp_async_wait<10>(); break;
+    case 11: cp_async_wait<11>(); break;
+    case 12: cp_async_wait<12>(); break;
+    case 13: cp_async_wait<13>(); break;
+    case 14: cp_async_wait<14>(); break;
+    case 15: cp_async_wait<15>(); break;
+    default: cp_async_wait<0>(); break;
+  }
+}
+
 // Starts copying a ROWS x COLS tile of a row-major matrix at src (row
 // stride ld_src; perhaps written by other blocks of this launch: through
 // L2, not L1) into shared memory of row stride LD, in 16-byte pieces;
@@ -114,7 +138,7 @@ __device__ __forceinline__ void issue_rows(T* dst, const T* src, size_t ld_src, 
   }
 }
 
-// ---------------------------------------------------------- the f32 designs
+// ---------------------------------------------------- the f32 backward sweep
 
 // Bytes of the two staging buffers of block_product (for BB rows).
 __host__ __device__ constexpr size_t stage_bytes(int BB) {

@@ -14,7 +14,8 @@
 //
 // Layout. On the TPU the whole [n, 4n] Wr stays in VMEM across the
 // sequential t axis; on Hopper it does not fit one SM (2 MB at n = 512 in
-// bf16). So one persistent cooperative launch covers the whole sequence:
+// bf16). So one persistent cooperative launch covers the whole sequence
+// (at t = 1, a plain launch: no barrier, no counter):
 // block (bi, j) owns batch rows [bi BB, +BB) and hidden units [j U, +U),
 // keeps the 4U columns of Wr for those units resident in shared memory
 // (~140 KB; the wrapper narrows U, down to 16 in bf16 and 4 in f32, where
@@ -49,9 +50,27 @@
 // - The barrier is a release add after h_t is stored and an acquire poll
 //   (group_arrive, group_wait); the five residual streams are stored
 //   between the two, off the path the other blocks wait on.
-// f32 (the serving path): the first design, unchanged (fwd_simt): the
-// product on the CUDA cores into an f32 buffer in shared memory
-// (block_product), then the cell per (row, unit).
+// f32 (the serving path: b 32, t 1, n 512, 318 launches per char-RNN
+// generate): full f32 FMAs on the CUDA cores, no TF32 (fwd_simt).
+// - At t = 1 the kernel is a plain launch with no counter, and every load
+//   is issued at entry by cp.async: W's rows and h's columns chunk by
+//   chunk (one group per 64-deep chunk, so the product starts on chunk 0
+//   while the rest are in flight), the step's xg, c0 and the peepholes
+//   into registers. At t > 1 W stays resident, the h_{t-1} chunks come
+//   through a ring (every chunk in flight where they fit), and the steps
+//   meet at the same split barrier as the bf16 design.
+// - A thread owns a 4 x 4 register tile: 4 rows x 4 neighbouring
+//   columns of W (F32Layout), fed by 16-byte shared loads. A block too
+//   small to give every thread its own tile splits each chunk's depth over
+//   KS k-groups (at the serving shape 8: 4 rows x 4 columns x 8 deep per
+//   thread and chunk, 16 shared loads per 128 FMAs); one too large for the
+//   registers (16 and 32 units of 128 rows) runs its rows in passes.
+// - The k-groups' sums meet in shared memory with a unit's i, f, o and blk
+//   side by side; the thread that adds them up for a (row, unit) pair
+//   holds its four gates and applies the cell in registers (library expf
+//   and tanhf, as the plain version), keeping the pair's c carry for the
+//   whole sequence. h_t leaves before the barrier's arrival, the five
+//   residuals after it.
 //
 // What the timer showed (chip_smoke.py phase 2b, lstm_fwd_phases; NVIDIA
 // H100 80GB HBM3, 700 W; bf16 b 1024, t 128, n 512). Its stamps fall
@@ -74,7 +93,27 @@
 // ~2.2 us per step at the tensor cores' peak); wgmma with B read once per
 // warpgroup, and TMA multicast of h within a cluster, are the next steps.
 //
+// The f32 design's timer (b 32, t 1, n 512, lstm_fwd_only; same card): the
+// first design spent ~12.8 us from the kernel's entry to its last store,
+// ~10.9 of them until the last h chunk landed (the 32 KB W slice loaded
+// synchronously first, then h staged two chunks at a time). This design
+// spends ~6.8 reading Wr and ~5.1 reading the packed copy: ~6.0 or ~4.2
+// until the last chunk landed, ~0.4 for the last chunk's product and the
+// k-groups' sums, ~0.5 in the cell and its stores (PERF.md). From
+// Wr a block gathers 2,048 pieces of 16 bytes (4 gates x 512 rows, each
+// in its own 128-byte line); packed per block (pack_wr) its 32 KB are
+// contiguous. In trials both the copies alone and the product alone then
+// take ~3.4 us: ~96 KB per SM come from L2 (each block reads all of h),
+// and the product's 16-byte shared loads cost 4 wavefronts each (~0.4 us
+// a chunk). Multicasting h to clusters of 2, 4 or 8 blocks by bulk
+// copies, or loading W by the copy engine, was slower (the clusters of 4
+// and 8 did not all fit at once). Its floor is its bytes (W, xg, h0, c0
+// in; h, h_T, c_T out: ~1.4 us at 3.35 TB/s); 8 x 8 register tiles (half
+// the shared loads per FMA), and 3xTF32 on the tensor cores, are next.
+//
 // Exposed as plain C functions so that no PyTorch header is compiled.
+
+#include <atomic>
 
 #include "lstm_common.cuh"
 
@@ -97,24 +136,83 @@ struct FwdArgs {
   unsigned int* counter;  // [bp / BB] zeros, or null when t == 1
   unsigned long long* stamps;  // [grid, t, 4] (timed variant)
   int t, bp, n, BB;
+  // f32: h chunks in flight ahead of the one multiplied, ring stages, the
+  // byte offsets in shared memory of the ring and the k-group sums, and
+  // whether the sums overlay the ring (set by f32_plan)
+  int la, stages;
+  unsigned int ring_off, red_off;
+  int red_alias;
+  // f32: wr is packed per block, [n / U][n][4][U] (pack_wr), so that a
+  // block's slice is contiguous
+  int w_packed;
 };
 
-template <int U> __host__ __device__ constexpr int ldw_f32() { return 4 * U + 4; }
 template <int U> __host__ __device__ constexpr int ldw_bf16() { return 4 * U + 8; }
-template <typename T, int U> __host__ __device__ constexpr int ldw() {
-  return sizeof(T) == 2 ? ldw_bf16<U>() : ldw_f32<U>();
-}
-template <int U> __host__ __device__ constexpr int ldo() { return 4 * U + 4; }
 
-template <typename T, int U>
-size_t smem_bytes(int n, int BB) {
-  const size_t w = round128(sizeof(T) * (size_t)n * ldw<T, U>());
-  if (sizeof(T) == 2)  // W, the ring, and one step's xg rows ([BB][4U], W's row stride)
-    return w + STAGES * round128(sizeof(T) * (size_t)BB * lda<T>()) +
-           round128(sizeof(T) * (size_t)BB * ldw<T, U>());
-  const size_t out = sizeof(float) * (size_t)BB * ldo<U>();
-  const size_t stage = stage_bytes(BB);
-  return w + round128(out > stage ? out : stage);
+size_t bf16_smem_bytes(int U, int n, int BB) {
+  // W, the ring, and one step's xg rows ([BB][4U], W's row stride)
+  const size_t w = round128(sizeof(bf16) * (size_t)n * (4 * U + 8));
+  return w + STAGES * round128(sizeof(bf16) * (size_t)BB * lda<bf16>()) +
+         round128(sizeof(bf16) * (size_t)BB * (4 * U + 8));
+}
+
+// How the f32 design's block of BB rows and U units shares its work.
+// The product runs in PASSES passes of BBP rows (one where BB U <= 1024;
+// 16 and 32 units of 128 rows take 2 and 4, so that the sums fit the
+// registers). In a pass, TILES thread tiles of 4 rows (rg + RG i) x 4
+// neighbouring columns of W (4 units of one gate), repeated over KS
+// k-groups, each of which sums a KD-deep share of every 64-deep chunk
+// (so that a small block still gives each thread a 4 x 4 register tile:
+// 8 16-byte shared loads per 64 FMAs). The cell: PAIRS (row, unit) pairs
+// per thread, all of one unit (the thread's tid % U), rows (q NT + tid) /
+// U; the first CELLERS threads take part.
+// the row stride of the f32 design's k-group sums: 4 U + 4 spreads the
+// rows of a tile's scattered stores over the banks
+template <int U> __host__ __device__ constexpr int ldr_f32() { return 4 * U + 4; }
+
+template <int BB, int U> struct F32Layout {
+  static constexpr int BBP = BB * U > 1024 ? 1024 / U : BB;
+  static constexpr int PASSES = BB / BBP;
+  static constexpr int TR = 4;
+  static constexpr int RG = BBP / TR;
+  static constexpr int TILES = RG * U;
+  static constexpr int KS = NT / TILES;
+  static constexpr int KD = KC / KS;
+  static constexpr int PAIRS = BB * U > NT ? BB * U / NT : 1;
+  static constexpr int CELLERS = BB * U < NT ? BB * U : NT;
+  static constexpr int QB = PAIRS < 4 ? PAIRS : 4;  // pairs whose xg loads fly together
+  // xg loaded ahead, under the product and the barrier (else in the cell,
+  // QB pairs at a time, where a thread has more than QB pairs)
+  static constexpr bool AHEAD = PAIRS == QB;
+  static_assert(PASSES * BBP == BB && RG * TR == BBP && TILES * KS == NT && KD % 4 == 0 &&
+                    PAIRS % QB == 0,
+                "f32 layout");
+};
+
+// The f32 design's shared memory, in bytes: W [n][4U] (gate-major, as
+// Wr), a ring of h_{t-1} chunks [BBP][lda] (all of them when they fit,
+// else as many as fit, 2 at least) and the k-groups' sums [KS][BB][ldr]
+// (a unit's four gates side by side; after the ring where there is room,
+// else over it, in one pass only). Fills a's plan; returns 0 where it
+// does not fit.
+template <int U, int BB>
+size_t f32_plan(FwdArgs& a) {
+  using L = F32Layout<BB, U>;
+  const size_t w = round128(sizeof(float) * (size_t)a.n * 4 * U);
+  const size_t stage = sizeof(float) * (size_t)L::BBP * lda<float>();
+  const size_t red = sizeof(float) * (size_t)L::KS * BB * ldr_f32<U>();
+  const int nk = a.n / KC;
+  // what W and the ring may take
+  const size_t room = L::PASSES > 1 ? SMEM_LIMIT - red : SMEM_LIMIT;
+  if (w + red > SMEM_LIMIT || w + (nk > 1 ? 2 : 1) * stage > room) return 0;
+  const int fit = (int)((room - w) / stage);
+  a.stages = fit >= nk ? nk : fit;
+  a.la = fit >= nk ? nk : fit - 1;
+  const size_t ring = a.stages * stage;
+  a.ring_off = (unsigned int)w;
+  a.red_alias = w + ring + red > SMEM_LIMIT;
+  a.red_off = (unsigned int)(a.red_alias ? w : w + ring);
+  return a.red_alias ? w + (ring > red ? ring : red) : w + ring + red;
 }
 
 // sig(x) = 1 / (1 + e^-x) and tanh. FAST (the bf16 design, whose streams
@@ -146,106 +244,194 @@ __device__ __forceinline__ float cell(float gi, float gf, float go, float gg, fl
   return o * tanh_<FAST>(c);
 }
 
-// (row, unit) pairs a thread owns, at most, for MAXB rows of U units,
-// and how many of them are worked on together (f32 design)
-template <int U, int MAXB> __host__ __device__ constexpr int pairs() {
-  return (MAXB * U + NT - 1) / NT;
-}
-template <int U, int MAXB> __host__ __device__ constexpr int pair_batch() {
-  return pairs<U, MAXB>() < 4 ? pairs<U, MAXB>() : 4;
+__device__ __forceinline__ void fma4(float (&acc)[4], float h, const float4& w) {
+  acc[0] = fmaf(h, w.x, acc[0]);
+  acc[1] = fmaf(h, w.y, acc[1]);
+  acc[2] = fmaf(h, w.z, acc[2]);
+  acc[3] = fmaf(h, w.w, acc[3]);
 }
 
-// The f32 design: block_product into an f32 buffer, then the cell per
-// (row, unit); BB <= MAXB.
-template <int U, bool RES, int MAXB>
+// The f32 design (see the header): a block of exactly BB rows. TIMED
+// stamps the globaltimer per step (thread 0) at the step's start (the
+// kernel's entry at step 0, the end of the barrier wait after it), when
+// the last h chunk has landed, after the product and after the cell and
+// all its stores.
+template <int U, int BB, bool RES, bool TIMED>
 __device__ void fwd_simt(const FwdArgs& a, unsigned char* smem) {
-  using T = float;
-  constexpr int LDW = ldw<T, U>(), LDO = ldo<U>();
-  constexpr int PAIRS = pairs<U, MAXB>(), QB = pair_batch<U, MAXB>();
-  const int n = a.n, BB = a.BB, bp = a.bp, G = 4 * n;
-  T* W = reinterpret_cast<T*>(smem);
-  unsigned char* rest = smem + round128(sizeof(T) * (size_t)n * LDW);
-  float* out = reinterpret_cast<float*>(rest);
-  T* stage = reinterpret_cast<T*>(rest);
+  using L = F32Layout<BB, U>;
+  constexpr int LDW = 4 * U, LDR = ldr_f32<U>(), LDA = lda<float>(), TR = L::TR, RG = L::RG;
+  constexpr int KD = L::KD, BBP = L::BBP, PAIRS = L::PAIRS, QB = L::QB, STAGE = BBP * LDA;
+  const int n = a.n, bp = a.bp, G = 4 * n, nk = n / KC, la = a.la, stages = a.stages;
+  float* W = reinterpret_cast<float*>(smem);
+  float* ring = reinterpret_cast<float*>(smem + a.ring_off);
+  float* red = reinterpret_cast<float*>(smem + a.red_off);
 
   const int nj = n / U;
   const int bi = blockIdx.x / nj, j = blockIdx.x % nj;
   const int b0 = bi * BB, u0 = j * U;
   const int tid = threadIdx.x;
+  if (TIMED && tid == 0) a.stamps[(size_t)blockIdx.x * a.t * 4] = globaltimer();
+  // the product's tile: k-group kg, W's columns 4 cg .. 4 cg + 3 (units
+  // uq .. uq + 3 of gate gq), rows rg + RG i of the pass
+  const int kg = tid / L::TILES, cg = tid % L::TILES % U, rg = tid % L::TILES / U;
+  const int gq = 4 * cg / U, uq = 4 * cg % U;
+  // the cell's unit; its rows are row_of(q)
+  const int cu = tid % U;
+  const bool celler = tid < L::CELLERS;
+  auto row_of = [&](int q) { return (q * NT + tid) / U; };
 
-  // resident: W[k][gate * U + u] = Wr[k][gate * n + u0 + u]
-  {
-    const T* wr = static_cast<const T*>(a.wr);
-    constexpr int VEC = 16 / sizeof(T);
-    constexpr int CPG = U / VEC;  // 16-byte pieces per gate slice
-    for (int i = tid; i < n * 4 * CPG; i += NT) {
-      const int k = i / (4 * CPG), rem = i % (4 * CPG), gate = rem / CPG, c = (rem % CPG) * VEC;
-      *reinterpret_cast<uint4*>(W + (size_t)k * LDW + gate * U + c) =
-          *reinterpret_cast<const uint4*>(wr + (size_t)k * G + gate * n + u0 + c);
-    }
-  }
-  float creg[PAIRS];  // this thread's slice of the c carry
+  const float* wr = static_cast<const float*>(a.wr);
+  const float* xg = static_cast<const float*>(a.xg);
+  float* hseq = static_cast<float*>(a.hseq);
+  // chunk kc of a pass's h_{s-1} rows into its ring stage; at step 0 also
+  // W's rows of that chunk, W[k][gate U + u] = Wr[k][gate n + u0 + u]
+  // (16-byte pieces, U / 4 per thread): from Wr, 4 U-float pieces per row
+  // each in its own 128-byte line, or from the packed copy, where the
+  // block's rows lie side by side
+  auto issue = [&](const float* hrows, int kc, bool with_w) {
+    issue_rows<BBP, LDA>(ring + (kc % stages) * STAGE, hrows + kc * KC, n);
+    if (with_w) {
 #pragma unroll
-  for (int q = 0; q < PAIRS; ++q) {
-    const int p = tid + q * NT;
-    creg[q] = p < BB * U ? a.c0[(size_t)(b0 + p / U) * n + u0 + p % U] : 0.f;
-  }
-  __syncthreads();
-
-  const T* xg = static_cast<const T*>(a.xg);
-  T* hseq = static_cast<T*>(a.hseq);
-  for (int s = 0; s < a.t; ++s) {
-    const T* hprev = s == 0 ? static_cast<const T*>(a.h0) + (size_t)b0 * n
-                            : hseq + ((size_t)(s - 1) * bp + b0) * n;
-    block_product<4 * U, false, MAXB>(out, LDO, stage, hprev, n, W, LDW, n, BB);
-    // the gates, QB (row, unit) pairs at a time: their loads of xg
-    // (streamed from device memory) in flight together
-#pragma unroll
-    for (int q0 = 0; q0 < PAIRS; q0 += QB) {
-      float xv[QB][4];
-#pragma unroll
-      for (int jj = 0; jj < QB; ++jj) {
-        const int p = tid + (q0 + jj) * NT;
-        if (p < BB * U) {
-          const T* x = xg + ((size_t)s * bp + b0 + p / U) * G + u0 + p % U;
-#pragma unroll
-          for (int g = 0; g < 4; ++g) xv[jj][g] = to_f(x[(size_t)g * n]);
-        }
+      for (int q = 0; q < KC * U / NT; ++q) {
+        const int e = tid + q * NT, k = kc * KC + e / U, c = 4 * (e % U);
+        const float* src = a.w_packed ? wr + ((size_t)j * n + k) * LDW + c
+                                      : wr + (size_t)k * G + c / U * n + u0 + c % U;
+        cp_async16(smem_addr(W + k * LDW + c), src, 16);
       }
+    }
+  };
+  // step s's xg for the pairs q0 .. q0 + QB - 1, into registers
+  float xr[QB][4];
+  auto load_xg = [&](int s, int q0) {
 #pragma unroll
-      for (int jj = 0; jj < QB; ++jj) {
-        const int q = q0 + jj, p = tid + q * NT;
-        if (p < BB * U) {
-          const int r = p / U, u = p % U;
-          const size_t row = (size_t)s * bp + b0 + r;
-          const float* o_r = out + r * LDO + u;
-          float i, f, o, blk;
-          const float h = cell<false>(o_r[0] + xv[jj][0], o_r[U] + xv[jj][1],
-                                      o_r[2 * U] + xv[jj][2], o_r[3 * U] + xv[jj][3],
-                                      a.wci[u0 + u], a.wcf[u0 + u], a.wco[u0 + u], creg[q], i,
-                                      f, o, blk);
-          const size_t at = row * n + u0 + u;
-          hseq[at] = from_f<T>(h);
-          if constexpr (RES) {
-            static_cast<T*>(a.res[0])[at] = from_f<T>(i);
-            static_cast<T*>(a.res[1])[at] = from_f<T>(f);
-            static_cast<T*>(a.res[2])[at] = from_f<T>(o);
-            static_cast<T*>(a.res[3])[at] = from_f<T>(blk);
-            static_cast<T*>(a.res[4])[at] = from_f<T>(creg[q]);
-          } else {
-            if (s == a.t - 1) {
-              const size_t last = (size_t)(b0 + r) * n + u0 + u;
-              static_cast<T*>(a.hT)[last] = from_f<T>(h);
-              a.cT[last] = creg[q];
-            }
+    for (int jj = 0; jj < QB; ++jj) {
+      const float* x = xg + ((size_t)s * bp + b0 + row_of(q0 + jj)) * G + u0 + cu;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) xr[jj][g] = __ldg(x + (size_t)g * n);
+    }
+  };
+  float creg[PAIRS];  // the c carry of the thread's pairs
+  float pci = 0.f, pcf = 0.f, pco = 0.f;
+  if (celler) {
+    if (L::AHEAD) load_xg(0, 0);
+    pci = a.wci[u0 + cu];
+    pcf = a.wcf[u0 + cu];
+    pco = a.wco[u0 + cu];
+#pragma unroll
+    for (int q = 0; q < PAIRS; ++q) creg[q] = a.c0[(size_t)(b0 + row_of(q)) * n + u0 + cu];
+  }
+
+  for (int s = 0; s < a.t; ++s) {
+    unsigned long long* st = TIMED ? a.stamps + ((size_t)blockIdx.x * a.t + s) * 4 : nullptr;
+    if (TIMED && s > 0 && tid == 0) st[0] = globaltimer();
+    const float* hprev = s == 0 ? static_cast<const float*>(a.h0) + (size_t)b0 * n
+                                : hseq + ((size_t)(s - 1) * bp + b0) * n;
+#pragma unroll 1
+    for (int pass = 0; pass < L::PASSES; ++pass) {
+      const float* hrows = hprev + (size_t)pass * BBP * n;
+      // the ring: la chunks in flight at once (every chunk where they
+      // fit); each iteration waits for its chunk, then refills the stage
+      // the iteration before read (one group committed per chunk)
+      if (pass > 0) __syncthreads();  // the last pass's chunks are read
+      for (int q = 0; q < la; ++q) {
+        issue(hrows, q, s == 0 && pass == 0);
+        cp_async_commit();
+      }
+      float acc[TR][4];
+#pragma unroll
+      for (int i = 0; i < TR; ++i)
+#pragma unroll
+        for (int g = 0; g < 4; ++g) acc[i][g] = 0.f;
+      for (int kc = 0; kc < nk; ++kc) {
+        cp_async_wait_upto(la - 1);  // this thread's copies of chunk kc landed
+        __syncthreads();             // everyone's did; chunk kc - 1 is read
+        if (TIMED && pass + 1 == L::PASSES && kc + 1 == nk && tid == 0) st[1] = globaltimer();
+        if (kc + la < nk) issue(hrows, kc + la, s == 0 && pass == 0);
+        cp_async_commit();
+        const float* hs = ring + (kc % stages) * STAGE + rg * LDA + kg * KD;
+        const float* ws = W + (size_t)(kc * KC + kg * KD) * LDW + 4 * cg;
+#pragma unroll 4
+        for (int kk = 0; kk < KD; kk += 4) {  // 4 loads of W, 4 of h, 64 FMAs
+          float4 w[4];
+#pragma unroll
+          for (int m = 0; m < 4; ++m) w[m] = *reinterpret_cast<const float4*>(ws + (kk + m) * LDW);
+#pragma unroll
+          for (int i = 0; i < TR; ++i) {
+            const float4 h = *reinterpret_cast<const float4*>(hs + i * RG * LDA + kk);
+            fma4(acc[i], h.x, w[0]);
+            fma4(acc[i], h.y, w[1]);
+            fma4(acc[i], h.z, w[2]);
+            fma4(acc[i], h.w, w[3]);
           }
         }
       }
+      // each k-group's sums to shared memory, a unit's four gates side by
+      // side (over the ring: once every warp is done with it)
+      if (a.red_alias) __syncthreads();
+#pragma unroll
+      for (int i = 0; i < TR; ++i) {
+        float* out = red + ((size_t)kg * BB + pass * BBP + rg + RG * i) * LDR + 4 * uq + gq;
+#pragma unroll
+        for (int m = 0; m < 4; ++m) out[4 * m] = acc[i][m];
+      }
     }
-    if (s + 1 < a.t) {
-      group_arrive(a.counter + bi);
-      group_wait(a.counter + bi, (unsigned int)((s + 1) * nj));
+    __syncthreads();
+    if (TIMED && tid == 0) st[2] = globaltimer();
+
+    // the cell per pair: the k-groups' sums in order, + xg; h_t leaves at
+    // once (the other blocks wait for it), the residuals after the arrival
+    // (LATE), or at once where a thread has more than QB pairs (registers)
+    constexpr bool LATE = RES && L::AHEAD;
+    float rv[LATE ? PAIRS : 1][5];
+    if (celler) {
+#pragma unroll
+      for (int q0 = 0; q0 < PAIRS; q0 += QB) {
+        if (!L::AHEAD) load_xg(s, q0);
+#pragma unroll
+        for (int jj = 0; jj < QB; ++jj) {
+          const int q = q0 + jj, r = row_of(q);
+          float4 g4 = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+          for (int k = 0; k < L::KS; ++k) {
+            const float4 p = *reinterpret_cast<const float4*>(red + ((size_t)k * BB + r) * LDR + 4 * cu);
+            g4.x += p.x; g4.y += p.y; g4.z += p.z; g4.w += p.w;
+          }
+          float i, f, o, blk;
+          const float h = cell<false>(g4.x + xr[jj][0], g4.y + xr[jj][1], g4.z + xr[jj][2],
+                                      g4.w + xr[jj][3], pci, pcf, pco, creg[q], i, f, o, blk);
+          hseq[((size_t)s * bp + b0 + r) * n + u0 + cu] = h;
+          if constexpr (LATE) {
+            rv[q][0] = i; rv[q][1] = f; rv[q][2] = o; rv[q][3] = blk; rv[q][4] = creg[q];
+          } else if constexpr (RES) {
+            const size_t at = ((size_t)s * bp + b0 + r) * n + u0 + cu;
+            const float v[5] = {i, f, o, blk, creg[q]};
+#pragma unroll
+            for (int k = 0; k < 5; ++k) static_cast<float*>(a.res[k])[at] = v[k];
+          } else if (s == a.t - 1) {
+            const size_t last = (size_t)(b0 + r) * n + u0 + cu;
+            static_cast<float*>(a.hT)[last] = h;
+            a.cT[last] = creg[q];
+          }
+        }
+      }
+      if (L::AHEAD && s + 1 < a.t) load_xg(s + 1, 0);  // in flight across the barrier
     }
+    if (s + 1 < a.t) group_arrive(a.counter + bi);
+    if constexpr (LATE) {
+      if (celler) {
+#pragma unroll
+        for (int q = 0; q < PAIRS; ++q) {
+          const size_t at = ((size_t)s * bp + b0 + row_of(q)) * n + u0 + cu;
+#pragma unroll
+          for (int k = 0; k < 5; ++k) static_cast<float*>(a.res[k])[at] = rv[q][k];
+        }
+      }
+    }
+    if (TIMED) {
+      __syncthreads();
+      if (tid == 0) st[3] = globaltimer();
+    }
+    if (s + 1 < a.t) group_wait(a.counter + bi, (unsigned int)((s + 1) * nj));
   }
 }
 
@@ -465,33 +651,56 @@ __device__ void fwd_mma(const FwdArgs& a, unsigned char* smem) {
   }
 }
 
-// One kernel for both designs and both variants: T float (MAXB: the
-// most rows a block may own) or bf16 (MAXB: exactly the rows it owns).
-template <typename T, int U, bool RES, int MAXB, bool TIMED = false>
+// One kernel for both designs and both variants: a block of exactly
+// BB rows of U units, xg's element type T.
+template <typename T, int U, bool RES, int BB, bool TIMED = false>
 __global__ void __launch_bounds__(NT, 1) lstm_fwd_kernel(FwdArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   if constexpr (sizeof(T) == 2) {
-    fwd_mma<U, MAXB, RES, TIMED>(a, smem);
+    fwd_mma<U, BB, RES, TIMED>(a, smem);
   } else {
-    static_assert(!TIMED, "the timer is built for the bf16 design");
-    fwd_simt<U, RES, MAXB>(a, smem);
+    fwd_simt<U, BB, RES, TIMED>(a, smem);
   }
 }
 
-template <typename T, int U, bool RES, int MAXB, bool TIMED = false>
-int launch(const FwdArgs& args, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T, U>(args.n, args.BB);
-  if (smem > SMEM_LIMIT || args.BB > MAXB || (sizeof(T) == 2 && args.BB != MAXB))
-    return (int)cudaErrorInvalidValue;
-  auto kernel = lstm_fwd_kernel<T, U, RES, MAXB, TIMED>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+// Sets a kernel's dynamic shared-memory limit to the most a block may
+// use, once per device (bit d of ``done``).
+template <typename K>
+cudaError_t allow_smem(K kernel, std::atomic<unsigned long long>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (done.load() & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_LIMIT);
+  if (err == cudaSuccess) done.fetch_or(bit);
+  return err;
+}
+
+// One launch: t = 1 is a plain launch (no barrier, no counter); a longer
+// scan a cooperative one, whose blocks are all resident at once.
+template <typename T, int U, bool RES, int BB, bool TIMED = false>
+int launch(FwdArgs args, cudaStream_t stream) {
+  if (args.BB != BB) return (int)cudaErrorInvalidValue;
+  size_t smem;
+  if constexpr (sizeof(T) == 2) {
+    smem = bf16_smem_bytes(U, args.n, BB);
+  } else {
+    smem = f32_plan<U, BB>(args);
+  }
+  if (smem == 0 || smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  auto kernel = lstm_fwd_kernel<T, U, RES, BB, TIMED>;
+  static std::atomic<unsigned long long> done{0};
+  cudaError_t err = allow_smem(kernel, done);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((args.bp / args.BB) * (args.n / U));
-  FwdArgs copy = args;
-  void* params[] = {&copy};
-  err = cudaLaunchCooperativeKernel((const void*)kernel, grid, dim3(NT), params, smem, stream);
-  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((args.bp / BB) * (args.n / U));
+  if (args.t == 1) {
+    kernel<<<grid, NT, smem, stream>>>(args);
+  } else {
+    void* params[] = {&args};
+    err = cudaLaunchCooperativeKernel((const void*)kernel, grid, dim3(NT), params, smem, stream);
+    if (err != cudaSuccess) return (int)err;
+  }
   return (int)cudaGetLastError();
 }
 
@@ -515,6 +724,26 @@ int launch_bf16(const FwdArgs& a, int u, cudaStream_t s) {
   return (int)cudaErrorInvalidValue;
 }
 
+// the f32 instantiation for the block's rows BB and units u: every
+// layout the wrapper's _block_shape gives at a power-of-two U (16 and 32
+// units only in 128-row blocks)
+template <bool RES>
+int launch_f32(const FwdArgs& a, int u, cudaStream_t s) {
+  switch (u * 1000 + a.BB) {
+    case 4016: return launch<float, 4, RES, 16>(a, s);
+    case 4032: return launch<float, 4, RES, 32>(a, s);
+    case 4064: return launch<float, 4, RES, 64>(a, s);
+    case 4128: return launch<float, 4, RES, 128>(a, s);
+    case 8016: return launch<float, 8, RES, 16>(a, s);
+    case 8032: return launch<float, 8, RES, 32>(a, s);
+    case 8064: return launch<float, 8, RES, 64>(a, s);
+    case 8128: return launch<float, 8, RES, 128>(a, s);
+    case 16128: return launch<float, 16, RES, 128>(a, s);
+    case 32128: return launch<float, 32, RES, 128>(a, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 bool shape_ok(const FwdArgs& a) {
   return a.t >= 1 && a.n % 64 == 0 && a.n <= 1024 && a.BB % 16 == 0 && a.BB >= 16 &&
          a.BB <= MAX_BB && a.bp % a.BB == 0 && (a.t == 1 || a.counter != nullptr);
@@ -523,23 +752,18 @@ bool shape_ok(const FwdArgs& a) {
 template <bool RES>
 int dispatch(const FwdArgs& a, int u, int dtype, cudaStream_t s) {
   if (!shape_ok(a)) return (int)cudaErrorInvalidValue;
-  if (dtype == 1) return launch_bf16<RES, false>(a, u, s);  // U >= 16: 8-unit slices
-  if (dtype == 0) {  // f32: the per-thread row arrays sized by BB
-    const bool small = a.BB <= 32;
-    if (u == 32) return small ? launch<float, 32, RES, 32>(a, s) : launch<float, 32, RES, MAX_BB>(a, s);
-    if (u == 16) return small ? launch<float, 16, RES, 32>(a, s) : launch<float, 16, RES, MAX_BB>(a, s);
-    if (u == 8) return small ? launch<float, 8, RES, 32>(a, s) : launch<float, 8, RES, MAX_BB>(a, s);
-    if (u == 4) return small ? launch<float, 4, RES, 32>(a, s) : launch<float, 4, RES, MAX_BB>(a, s);
-  }
+  if (dtype == 1 && !a.w_packed) return launch_bf16<RES, false>(a, u, s);  // U >= 16
+  if (dtype == 0) return launch_f32<RES>(a, u, s);
   return (int)cudaErrorInvalidValue;
 }
 
 FwdArgs make_args(const void* xg, const void* wr, const float* wci, const float* wcf,
                   const float* wco, const void* h0, const float* c0, void* hseq,
-                  unsigned int* counter, int t, int bp, int n, int bb) {
+                  unsigned int* counter, int t, int bp, int n, int bb, int w_packed) {
   FwdArgs a = {};
   a.xg = xg; a.wr = wr; a.wci = wci; a.wcf = wcf; a.wco = wco; a.h0 = h0; a.c0 = c0;
   a.hseq = hseq; a.counter = counter; a.t = t; a.bp = bp; a.n = n; a.BB = bb;
+  a.w_packed = w_packed;
   return a;
 }
 
@@ -547,7 +771,9 @@ FwdArgs make_args(const void* xg, const void* wr, const float* wci, const float*
 
 // All tensors contiguous and 16-byte aligned, batch padded to bp (a
 // multiple of bb); bb rows and u units per block; dtype 0 = float32,
-// 1 = bfloat16 (xg, wr, h0 and the streams). Returns a cudaError_t (0
+// 1 = bfloat16 (xg, wr, h0 and the streams); w_packed 1 where f32 wr is
+// packed per block, [n / u][n][4][u] (ops/lstm_kernel.py pack_wr; bf16
+// takes Wr as it is). Returns a cudaError_t (0
 // on success); a shape or layout the kernel is not built for returns
 // cudaErrorInvalidValue, a grid that cannot be co-resident
 // cudaErrorCooperativeLaunchTooLarge.
@@ -555,35 +781,44 @@ extern "C" int dl4j_lstm_fwd(const void* xg, const void* wr, const float* wci, c
                              const float* wco, const void* h0, const float* c0, void* hseq,
                              void* i, void* f, void* o, void* blk, void* c,
                              unsigned int* counter, int t, int bp, int n, int bb, int u,
-                             int dtype, void* stream) {
-  FwdArgs a = make_args(xg, wr, wci, wcf, wco, h0, c0, hseq, counter, t, bp, n, bb);
+                             int dtype, int w_packed, void* stream) {
+  FwdArgs a = make_args(xg, wr, wci, wcf, wco, h0, c0, hseq, counter, t, bp, n, bb, w_packed);
   a.res[0] = i; a.res[1] = f; a.res[2] = o; a.res[3] = blk; a.res[4] = c;
   return dispatch<true>(a, u, dtype, static_cast<cudaStream_t>(stream));
 }
 
-// dl4j_lstm_fwd's bf16 kernel with its step timer (bb 128 only): per
-// block and step, the globaltimer (ns) after the barrier, after the last
-// h chunk landed, after its product and after the cell and its stores,
-// into stamps [grid, t, 4] (grid = (bp / bb) * (n / u)).
+// The forward kernels with their step timer: bf16 with residuals (bb
+// 128), or f32 either variant (bb 32, u 4: the serving layout); per
+// block and step, the globaltimer (ns) at the step's start (the kernel's
+// entry at step 0, after the barrier after it), when the last h chunk
+// has landed, after the product and after the cell and its stores, into
+// stamps [grid, t, 4] (grid = (bp / bb) * (n / u)). res: 1 for
+// dl4j_lstm_fwd's outputs (i .. c), 0 for dl4j_lstm_fwd_only's (hT, cT).
 extern "C" int dl4j_lstm_fwd_timed(const void* xg, const void* wr, const float* wci,
                                    const float* wcf, const float* wco, const void* h0,
                                    const float* c0, void* hseq, void* i, void* f, void* o,
-                                   void* blk, void* c, unsigned int* counter,
-                                   unsigned long long* stamps, int t, int bp, int n, int bb,
-                                   int u, int dtype, void* stream) {
-  FwdArgs a = make_args(xg, wr, wci, wcf, wco, h0, c0, hseq, counter, t, bp, n, bb);
+                                   void* blk, void* c, void* hT, float* cT,
+                                   unsigned int* counter, unsigned long long* stamps, int t,
+                                   int bp, int n, int bb, int u, int dtype, int res,
+                                   int w_packed, void* stream) {
+  FwdArgs a = make_args(xg, wr, wci, wcf, wco, h0, c0, hseq, counter, t, bp, n, bb, w_packed);
   a.res[0] = i; a.res[1] = f; a.res[2] = o; a.res[3] = blk; a.res[4] = c;
+  a.hT = hT; a.cT = cT;
   a.stamps = stamps;
-  if (dtype != 1 || stamps == nullptr || !shape_ok(a)) return (int)cudaErrorInvalidValue;
-  return launch_bf16<true, true>(a, u, static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (stamps == nullptr || !shape_ok(a)) return (int)cudaErrorInvalidValue;
+  if (dtype == 1 && res && !w_packed) return launch_bf16<true, true>(a, u, s);
+  if (dtype == 0 && u == 4)
+    return res ? launch<float, 4, true, 32, true>(a, s) : launch<float, 4, false, 32, true>(a, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int dl4j_lstm_fwd_only(const void* xg, const void* wr, const float* wci,
                                   const float* wcf, const float* wco, const void* h0,
                                   const float* c0, void* hseq, void* hT, float* cT,
                                   unsigned int* counter, int t, int bp, int n, int bb, int u,
-                                  int dtype, void* stream) {
-  FwdArgs a = make_args(xg, wr, wci, wcf, wco, h0, c0, hseq, counter, t, bp, n, bb);
+                                  int dtype, int w_packed, void* stream) {
+  FwdArgs a = make_args(xg, wr, wci, wcf, wco, h0, c0, hseq, counter, t, bp, n, bb, w_packed);
   a.hT = hT; a.cT = cT;
   return dispatch<false>(a, u, dtype, static_cast<cudaStream_t>(stream));
 }

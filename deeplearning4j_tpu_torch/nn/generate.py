@@ -42,6 +42,7 @@ from deeplearning4j_tpu_torch.nn.layers.transformer import (
     SequenceEmbeddingImpl,
     TransformerBlockImpl,
 )
+from deeplearning4j_tpu_torch.ops.lstm_kernel import pack_wr
 from deeplearning4j_tpu_torch.util.dtypes import cast_floats
 from deeplearning4j_tpu_torch.util.rng import MASK64, mix64 as _mix
 
@@ -332,7 +333,22 @@ class RecurrentGenerator(_Generator):
 
     # state: (params, the carries)
 
+    def serving_params(self, params, b: int):
+        """The parameters a call runs on: each recurrent layer's Wr also
+        packed for the f32 forward kernel at batch b (``Wr_packed``,
+        ``pack_wr``), once per call, where the kernel would read it; the
+        other entries are the same tensors."""
+        out = dict(params)
+        for impl in self.impls[:-1]:
+            p = params[impl.name]
+            if hasattr(impl, "rnn_time_step") and "Wr" in p:
+                packed = pack_wr(p["Wr"], b)
+                if packed is not None:
+                    out[impl.name] = dict(p, Wr_packed=packed)
+        return out
+
     def _start(self, params, ids, lengths, max_new):
+        params = self.serving_params(params, ids.shape[0])
         rstate, logits0 = self.prefill(params, ids, lengths)
         return (params, rstate), logits0
 

@@ -50,9 +50,10 @@ def _lstm_scan(p, x, h0, c0, gate_act: str, block_act: str, mask=None,
     """Run the LSTM over time. x [b, t, f] -> (outputs [b, t, n], (h, c)).
 
     The fused scan takes the default configuration (``train`` picks the
-    training gate); the reverse direction runs it on the time-reversed
-    gates. Everything else (masks, other activations, shapes the kernels
-    do not take) runs the plain scan below."""
+    training gate; ``p["Wr_packed"]``, where present, is Wr packed for
+    the f32 forward kernel, ``pack_wr``); the reverse direction runs it on
+    the time-reversed gates. Everything else (masks, other activations,
+    shapes the kernels do not take) runs the plain scan below."""
     n = h0.shape[-1]
     # the input projection of every step, laid out time-major [t, b, 4n]
     # as the scan reads it (x is small: no copy of the gates is needed)
@@ -63,7 +64,8 @@ def _lstm_scan(p, x, h0, c0, gate_act: str, block_act: str, mask=None,
                   itemsize=xg_t.element_size(), device=x.device):
         xg_k = xg_t.flip(0) if reverse else xg_t
         h_seq, (h, c) = fused_lstm_scan(xg_k, p["Wr"], p["wci"], p["wcf"],
-                                        p["wco"], h0, c0)
+                                        p["wco"], h0, c0,
+                                        wr_packed=p.get("Wr_packed"))
         if reverse:
             h_seq = h_seq.flip(0)
         return h_seq.transpose(0, 1), (h.to(x.dtype), c.to(x.dtype))

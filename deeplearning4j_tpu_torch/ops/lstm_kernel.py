@@ -9,7 +9,9 @@ design):
   ``lstm_fwd`` in ``kernels/lstm_fwd.cu``: h and the residuals i, f, o,
   blk, c for the backward;
 - ``_fwd_only_kernel`` is ``lstm_fwd_only`` in the same source: h, h_T
-  and c_T, no residual streams;
+  and c_T, no residual streams (its f32 design also reads Wr packed per
+  block, :func:`pack_wr`, for callers that run it many times on one Wr:
+  char-RNN generation);
 - ``_bwd_pallas`` -> ``_bwd_kernel`` is two kernels in
   ``kernels/lstm_bwd.cu``: ``lstm_bwd``, the reverse-time sweep (the
   gate chain and the dh recurrence), and ``lstm_dw``, the weight and
@@ -41,7 +43,7 @@ FWD_SOURCE = "lstm_fwd"      # kernels/lstm_fwd.cu: both forward kernels
 BWD_SOURCE = "lstm_bwd"      # kernels/lstm_bwd.cu: the sweep and the weights
 FWD_KERNEL = "lstm_fwd"      # forward with residuals (training)
 FWD_ONLY_KERNEL = "lstm_fwd_only"
-TIMED_KERNEL = "lstm_fwd_timed"  # lstm_fwd's bf16 kernel with its step timer
+TIMED_KERNEL = "lstm_fwd_timed"  # the forward kernels with their step timer
 BWD_KERNEL = "lstm_bwd"
 BWD_TIMED_KERNEL = "lstm_bwd_timed"  # lstm_bwd's bf16 sweep, timed
 DW_KERNEL = "lstm_dw"
@@ -146,11 +148,14 @@ _BATCH_BLOCKS = (16, 32, 64, 128)  # batch rows a block may own
 def _block_shape(b: int, n: int, itemsize: int, sms: int) -> Tuple[int, int, int]:
     """(BB, U, bp): the batch rows and hidden units one block owns, and
     the batch padded to a multiple of BB. U keeps Wr's slice for the
-    block's units at about 128 KB of shared memory (n 4U elements); a
-    grid that would fill under half of the card's ``sms`` SMs takes
-    narrower slices (down to 16 units in bf16, the tensor-core tile, and
-    4 in f32), so that small batches spread over more SMs."""
+    block's units at about 128 KB of shared memory (n 4U elements), a
+    power of two (the unit counts the kernels are built for, which then
+    divide any n % 64 == 0); a grid that would fill under half of the
+    card's ``sms`` SMs takes narrower slices (down to 16 units in bf16,
+    the tensor-core tile, and 4 in f32), so that small batches spread
+    over more SMs."""
     u = min(32, (16384 if itemsize == 2 else 8192) // n)
+    u = 1 << (u.bit_length() - 1)
     bb = next(c for c in _BATCH_BLOCKS if c >= min(b, 128))
     bp = -(-b // bb) * bb
     u_min = 16 if itemsize == 2 else 4
@@ -185,9 +190,9 @@ def _lib(source: str) -> ctypes.CDLL:
     lib = kernels.load(source)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     if source == FWD_SOURCE:
-        lib.dl4j_lstm_fwd.argtypes = [ptr] * 14 + [i32] * 6 + [ptr]
-        lib.dl4j_lstm_fwd_only.argtypes = [ptr] * 11 + [i32] * 6 + [ptr]
-        lib.dl4j_lstm_fwd_timed.argtypes = [ptr] * 15 + [i32] * 6 + [ptr]
+        lib.dl4j_lstm_fwd.argtypes = [ptr] * 14 + [i32] * 7 + [ptr]
+        lib.dl4j_lstm_fwd_only.argtypes = [ptr] * 11 + [i32] * 7 + [ptr]
+        lib.dl4j_lstm_fwd_timed.argtypes = [ptr] * 17 + [i32] * 8 + [ptr]
         lib.dl4j_lstm_fwd.restype = lib.dl4j_lstm_fwd_only.restype = i32
         lib.dl4j_lstm_fwd_timed.restype = i32
     else:
@@ -279,10 +284,37 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _pack_wr(wr: torch.Tensor, u: int) -> torch.Tensor:
+    """Wr [n, 4n] -> [n / u, n, 4, u]: block j's 4u columns (gate g's
+    units [j u, +u) at g u) of every row, side by side."""
+    n = wr.shape[0]
+    return wr.reshape(n, 4, n // u, u).permute(2, 0, 1, 3).contiguous()
+
+
+def pack_wr(wr: torch.Tensor, b: int) -> Optional[torch.Tensor]:
+    """Wr in the f32 forward kernel's per-block layout for a batch of b
+    rows (its block shape on wr's card), for callers that run many
+    forward calls on one Wr (``RecurrentGenerator``: 318 per char-RNN
+    generate): from Wr itself each block gathers 4 x n pieces of 16
+    bytes, each in its own 128-byte line; from the packed copy it reads
+    its rows side by side. None where the kernel would not read it (CPU
+    tensors, bf16, shapes the kernels do not take). The copy must be
+    made again after Wr changes."""
+    if (wr.device.type != "cuda" or wr.dtype != torch.float32 or wr.dim() != 2
+            or tuple(wr.shape) != (wr.shape[0], 4 * wr.shape[0])):
+        return None
+    n = wr.shape[0]
+    if not _kernel_takes(b, n, 4, wr.device):
+        return None
+    _, u, _ = _block_shape(b, n, 4, _sm_count(wr.device))
+    return _pack_wr(wr, u)
+
+
 def _lstm_fwd_cuda(xg, wr, wci, wcf, wco, h0, c0, with_residuals: bool,
-                   timed: bool = False):
-    """The forward kernels on CUDA tensors; ``timed`` (with residuals,
-    bf16) launches the timed instantiation and also returns its stamps."""
+                   timed: bool = False, wr_packed=None):
+    """The forward kernels on CUDA tensors; ``timed`` launches the timed
+    instantiation of the same variant and also returns its stamps;
+    ``wr_packed`` (``pack_wr(wr, b)``) is read in Wr's place."""
     t, b, g4 = xg.shape
     n = g4 // 4
     _check_shapes(xg, wr, (wci, wcf, wco), (h0, c0), n)
@@ -292,6 +324,17 @@ def _lstm_fwd_cuda(xg, wr, wci, wcf, wco, h0, c0, with_residuals: bool,
     xg_p = _pad(xg, bp, 1)
     h0_p, c0_p = _pad(h0, bp, 0, dt), _pad(c0, bp, 0, torch.float32)
     wr = wr.contiguous()
+    if wr_packed is not None:
+        want = (n // u, n, 4, u)
+        if (dt != torch.float32 or wr_packed.dtype != dt
+                or tuple(wr_packed.shape) != want
+                or wr_packed.device != xg.device
+                or not wr_packed.is_contiguous()):
+            raise ValueError(
+                f"packed Wr {tuple(wr_packed.shape)} {wr_packed.dtype}: the "
+                f"f32 kernel takes {want} float32 for b {b}, n {n} "
+                "(pack_wr(wr, b))")
+        wr = wr_packed
     wci, wcf, wco = (w.float().contiguous() for w in (wci, wcf, wco))
     _check_aligned(xg_p, wr, h0_p, c0_p)
     dev = xg.device
@@ -301,30 +344,40 @@ def _lstm_fwd_cuda(xg, wr, wci, wcf, wco, h0, c0, with_residuals: bool,
     cptr = None if counter is None else counter.data_ptr()
     ins = [z.data_ptr() for z in (xg_p, wr, wci, wcf, wco, h0_p, c0_p)]
     dims = [t, bp, n, bb, u, _DTYPE_CODES[dt]]
+    packed = int(wr_packed is not None)
     with torch.cuda.device(dev):
         if with_residuals:
             res = [torch.empty(t, bp, n, dtype=dt, device=dev) for _ in range(5)]
-            ptrs = [*ins, h_seq.data_ptr(), *[r.data_ptr() for r in res], cptr]
-            if timed:
-                stamps = torch.zeros((bp // bb) * (n // u), t, 4,
-                                     dtype=torch.int64, device=dev)
-                name = TIMED_KERNEL
-                err = lib.dl4j_lstm_fwd_timed(*ptrs, stamps.data_ptr(), *dims,
-                                              _stream(dev))
-            else:
-                name = FWD_KERNEL
-                err = lib.dl4j_lstm_fwd(*ptrs, *dims, _stream(dev))
-            _check(name, err)
-            kernels.LAUNCHES[name] += 1
-            out = (h_seq[:, :b], tuple(r[:, :b] for r in res))
-            return out + (stamps,) if timed else out
-        h_t = torch.empty(bp, n, dtype=dt, device=dev)
-        c_t = torch.empty(bp, n, dtype=torch.float32, device=dev)
-        err = lib.dl4j_lstm_fwd_only(*ins, h_seq.data_ptr(), h_t.data_ptr(),
-                                     c_t.data_ptr(), cptr, *dims, _stream(dev))
-        _check(FWD_ONLY_KERNEL, err)
-        kernels.LAUNCHES[FWD_ONLY_KERNEL] += 1
-        return h_seq[:, :b], (h_t[:b], c_t[:b])
+            outs = [h_seq.data_ptr(), *[r.data_ptr() for r in res]]
+            last = [None, None]
+        else:
+            h_t = torch.empty(bp, n, dtype=dt, device=dev)
+            c_t = torch.empty(bp, n, dtype=torch.float32, device=dev)
+            outs = [h_seq.data_ptr()] + [None] * 5
+            last = [h_t.data_ptr(), c_t.data_ptr()]
+        if timed:
+            stamps = torch.zeros((bp // bb) * (n // u), t, 4, dtype=torch.int64,
+                                 device=dev)
+            name = TIMED_KERNEL
+            err = lib.dl4j_lstm_fwd_timed(*ins, *outs, *last, cptr,
+                                          stamps.data_ptr(), *dims,
+                                          int(with_residuals), packed,
+                                          _stream(dev))
+        elif with_residuals:
+            name = FWD_KERNEL
+            err = lib.dl4j_lstm_fwd(*ins, *outs, cptr, *dims, packed,
+                                    _stream(dev))
+        else:
+            name = FWD_ONLY_KERNEL
+            err = lib.dl4j_lstm_fwd_only(*ins, outs[0], *last, cptr, *dims,
+                                         packed, _stream(dev))
+        _check(name, err)
+        kernels.LAUNCHES[name] += 1
+    if with_residuals:
+        out = (h_seq[:, :b], tuple(r[:, :b] for r in res))
+    else:
+        out = (h_seq[:, :b], (h_t[:b], c_t[:b]))
+    return out + (stamps,) if timed else out
 
 
 def _lstm_bwd_cuda(res: Residuals, wr, wci, wcf, wco, h0, c0, gout, g_clast,
@@ -394,28 +447,37 @@ def _lstm_bwd_cuda(res: Residuals, wr, wci, wcf, wco, h0, c0, gout, g_clast,
 
 # ------------------------------------------------------------ dispatch
 
-def lstm_fwd(xg, wr, wci, wcf, wco, h0, c0, with_residuals: bool = True):
+def lstm_fwd(xg, wr, wci, wcf, wco, h0, c0, with_residuals: bool = True,
+             wr_packed: Optional[torch.Tensor] = None):
     """The forward: ``lstm_fwd`` (with residuals) or ``lstm_fwd_only``
     for CUDA tensors, the plain version for CPU ones (see
-    :func:`lstm_fwd_plain` for what it returns)."""
+    :func:`lstm_fwd_plain` for what it returns). The f32 kernel reads
+    ``wr_packed`` (``pack_wr(wr, b)``, optional) in Wr's place: the same
+    values, so the same results bit for bit."""
     if xg.device.type == "cuda":
-        return _lstm_fwd_cuda(xg, wr, wci, wcf, wco, h0, c0, with_residuals)
+        return _lstm_fwd_cuda(xg, wr, wci, wcf, wco, h0, c0, with_residuals,
+                              wr_packed=wr_packed)
     if xg.device.type == "cpu":
         return lstm_fwd_plain(xg, wr, wci, wcf, wco, h0, c0, with_residuals)
     raise ValueError(f"the LSTM scan runs on cuda or cpu, not {xg.device}")
 
 
-def lstm_fwd_timed(xg, wr, wci, wcf, wco, h0, c0):
-    """``lstm_fwd``'s bf16 kernel in its timed instantiation, on CUDA
-    tensors only: ``(h_seq, residuals, stamps)``, with stamps [blocks, t,
-    4] int64 the card's globaltimer (ns) per block and step after the
-    barrier, after the last h chunk landed, after its product, and after
-    the cell and its stores. A measurement entry point: no path of the
-    port calls it."""
-    if xg.device.type != "cuda" or xg.dtype != torch.bfloat16:
-        raise ValueError("the timed LSTM kernel runs on bfloat16 CUDA "
-                         f"tensors, not {xg.dtype} on {xg.device}")
-    return _lstm_fwd_cuda(xg, wr, wci, wcf, wco, h0, c0, True, timed=True)
+def lstm_fwd_timed(xg, wr, wci, wcf, wco, h0, c0, with_residuals: bool = True,
+                   wr_packed: Optional[torch.Tensor] = None):
+    """A forward kernel in its timed instantiation, on CUDA tensors only:
+    ``lstm_fwd``'s outputs (``with_residuals``) or ``lstm_fwd_only``'s,
+    then stamps [blocks, t, 4] int64, the card's globaltimer (ns) per
+    block and step at the step's start (the kernel's entry at step 0,
+    the end of the barrier wait after it), when the last h chunk has
+    landed, after the product, and after the cell and its stores. Built
+    for bf16 with residuals at 128-row blocks and for f32 at the serving
+    layout (32-row blocks of 4 units); other shapes raise. A measurement
+    entry point: no path of the port calls it."""
+    if xg.device.type != "cuda" or xg.dtype not in _DTYPE_CODES:
+        raise ValueError("the timed LSTM kernels run on float32 or bfloat16 "
+                         f"CUDA tensors, not {xg.dtype} on {xg.device}")
+    return _lstm_fwd_cuda(xg, wr, wci, wcf, wco, h0, c0, with_residuals,
+                          timed=True, wr_packed=wr_packed)
 
 
 def lstm_bwd(res: Residuals, wr, wci, wcf, wco, h0, c0, gout, g_clast):
@@ -468,17 +530,19 @@ class _FusedLSTM(torch.autograd.Function):
                 dc0.to(c0.dtype))
 
 
-def fused_lstm_scan(xg, wr, wci, wcf, wco, h0, c0
+def fused_lstm_scan(xg, wr, wci, wcf, wco, h0, c0,
+                    wr_packed: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """xg [t, b, 4n] pre-projected gates -> (h_seq [t, b, n], (h_T, c_T)).
 
     With no gradient wanted (grad mode off, or no input requires one)
-    the forward-only kernel runs, as the reference's ``_fused`` primal;
-    otherwise the residual forward, with the BPTT kernels as its
-    backward. The final carries take gradients too."""
+    the forward-only kernel runs, as the reference's ``_fused`` primal
+    (reading ``wr_packed``, ``pack_wr(wr, b)``, where given); otherwise
+    the residual forward, with the BPTT kernels as its backward. The
+    final carries take gradients too."""
     ins = (xg, wr, wci, wcf, wco, h0, c0)
     if not (torch.is_grad_enabled() and any(z.requires_grad for z in ins)):
-        return lstm_fwd(*ins, with_residuals=False)
+        return lstm_fwd(*ins, with_residuals=False, wr_packed=wr_packed)
     h_seq, h_t, c_t = _FusedLSTM.apply(*ins)
     return h_seq, (h_t, c_t)
 

@@ -306,6 +306,16 @@ def test_cpu_slice_launches_no_kernel():
     assert sum(kernels.LAUNCHES.values()) == 0
 
 
+def test_cpu_generate_packs_no_weights():
+    """On the CPU the generator runs on the parameters as they are: the
+    plain scan reads Wr itself."""
+    _, tn = _pair()
+    gen = tgen.build_generator(tn)
+    sp = gen.serving_params(tn.params, B)
+    assert sp.keys() == tn.params.keys()
+    assert all(sp[k] is tn.params[k] for k in sp)
+
+
 def test_config_json_round_trips():
     jc = _conf(second="GravesBidirectionalLSTM", tbptt=5)
     text = jc.to_json()
@@ -342,3 +352,23 @@ def test_slice_runs_the_kernels_on_card(cuda_device):
     nets["cuda"].fit(DataSet(x, y))
     torch.cuda.synchronize()
     assert dict(kernels.LAUNCHES) == {"lstm_fwd": 2, "lstm_bwd": 2, "lstm_dw": 2}
+
+
+@pytest.mark.cuda
+def test_generate_reads_packed_f32_weights_on_card(cuda_device, monkeypatch):
+    """On the card each f32 GravesLSTM's Wr is packed once per generate
+    call (``serving_params``), and the tokens are those of a run that
+    reads Wr itself."""
+    jc = _conf(hidden=128)
+    net = MultiLayerNetwork(MultiLayerConfiguration.from_json(jc.to_json()),
+                            device="cuda")
+    params_from_numpy(net, _random_tree(JaxMLN(jc).init().params, 8))
+    gen = tgen.build_generator(net)
+    sp = gen.serving_params(net.params, B)
+    lstm_layers = [i.name for i in net.impls[:-1]]
+    assert all("Wr_packed" in sp[name] for name in lstm_layers)
+    prompts = np.random.default_rng(9).integers(0, V, (B, 5))
+    packed = net.generate(prompts, 6)
+    monkeypatch.setattr(tgen, "pack_wr", lambda wr, b: None)
+    assert "Wr_packed" not in gen.serving_params(net.params, B)[lstm_layers[0]]
+    np.testing.assert_array_equal(net.generate(prompts, 6), packed)

@@ -131,21 +131,30 @@ def _ptxas_lines(entries):
     return "\n".join(lines)
 
 
-def _ptxas_report(spills):
+def _ptxas_report(spills, f32_spills=0):
     """A stand-in ``-Xptxas -v`` report of lstm_fwd.cu: an f32 and a
     bf16 instantiation of lstm_fwd_kernel, the bf16 one with ``spills``
-    bytes stored and loaded."""
+    bytes stored and loaded, the f32 one with ``f32_spills``."""
     return _ptxas_lines([
         ("_ZN12_GLOBAL__N_115lstm_fwd_kernelIfLi32ELb1ELi128ELb0EEEvNS_7FwdArgsE",
-         255, 516),
+         168, f32_spills),
         ("_ZN12_GLOBAL__N_115lstm_fwd_kernelI13__nv_bfloat16Li32ELb1ELi128ELb0EE"
          "EvNS_7FwdArgsE", 168, spills)])
 
 
 def test_spill_gate_accepts_a_clean_bf16_lstm_fwd(capsys):
     chip_smoke._spill_gate("lstm_fwd", _ptxas_report(0))
-    assert "bf16 lstm_fwd_kernel registers, spill bytes: [(168, 0)]" in \
-        capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "bf16 lstm_fwd_kernel registers, spill bytes: [(168, 0)]" in out
+    assert "f32 lstm_fwd_kernel registers, spill bytes: [(168, 0)]" in out
+
+
+@pytest.mark.parametrize("spills", [8, 516])
+def test_spill_gate_rejects_a_spilling_f32_lstm_fwd(spills):
+    """The f32 forward is gated too (the first f32 design spilled 420 and
+    676 bytes at 32 units and 128 rows)."""
+    with pytest.raises(RuntimeError, match="f32 lstm_fwd_kernel spills"):
+        chip_smoke._spill_gate("lstm_fwd", _ptxas_report(0, f32_spills=spills))
 
 
 @pytest.mark.parametrize("spills", [8, 224])
@@ -230,6 +239,65 @@ def test_phase_breakdown_names_the_sweeps_phases():
     assert out["chain_stores_us"] == pytest.approx(3.0)
     assert out["step_us"] == pytest.approx(12.0)
     assert out["timer_tick_ns"] == 1000
+
+
+def test_phase_breakdown_at_t1_pools_calls():
+    """t = 1 (the f32 serving step): no barrier; the phases are step 0's,
+    the first from the kernel's entry, pooled over calls [calls, blocks,
+    1, 4]; kernel_us is the mean over calls."""
+    stamps = np.zeros((2, 3, 1, 4), np.int64)
+    for call in range(2):
+        for blk in range(3):
+            start = 100000 * call + 500 * blk
+            stamps[call, blk, 0] = [start, start + 2000, start + 2500,
+                                    start + 3000 + 1000 * call]
+    out = chip_smoke._phase_breakdown(stamps, chip_smoke.PHASE_NAMES)
+    assert out["barrier_wait_us"] is None
+    assert out["chunks_but_last_us"] == pytest.approx(2.0)
+    assert out["last_chunk_us"] == pytest.approx(0.5)
+    assert out["cell_stores_us"] == pytest.approx(1.0)
+    assert out["step_us"] == pytest.approx(3.5)
+    assert (out["calls"], out["blocks"], out["steps"]) == (2, 3, 1)
+    assert out["kernel_us"] == pytest.approx(4.5)
+
+
+def _lstm_row(dtype, b, t, n):
+    """A stand-in phase 2b row: every kernel at 1 ms, its bound 0.5."""
+    names = ("lstm_fwd_only", "lstm_fwd", "lstm_bwd", "lstm_dw")
+    return dict(dtype=dtype, b=b, t=t, n=n, err_fwd_only=1e-7, err_fwd=2e-7,
+                err_bwd={"dg": 3e-7}, fwd_only_ms=1.0,
+                fwd_only_packed_ms=0.75 if dtype == "float32" else None,
+                fwd_ms=1.0, bwd_ms=1.0, dw_ms=1.0, backward_ms=2.0,
+                plain_fwd_only_ms=3.0, plain_fwd_ms=3.0, plain_bwd_ms=6.0,
+                library_fwd_ms=2.0, library_bwd_ms=4.0,
+                bounds={k: [0.5, "bytes"] for k in names})
+
+
+def test_lstm_summary_gives_every_kernel_the_lines_keys():
+    """The kernels line's LSTM entries carry every key of the contract;
+    ``lstm_fwd_only`` reads generate's packed time, ``lstm_fwd`` has its
+    f32 entry at b 32, t 128, n 512."""
+    from deeplearning4j_tpu_torch.ops import lstm_kernel as lk
+
+    rows = [_lstm_row(*case) for case in chip_smoke.LSTM_CASES]
+    serve = {lk.FWD_ONLY_KERNEL: 318, lk.FWD_KERNEL: 0, lk.BWD_KERNEL: 0,
+             lk.DW_KERNEL: 0}
+    train = {lk.FWD_ONLY_KERNEL: 0, lk.FWD_KERNEL: 2, lk.BWD_KERNEL: 2,
+             lk.DW_KERNEL: 2}
+    entries = chip_smoke._lstm_summary(
+        {"2b": rows, "5": (serve, {}), "6": (train, {})}, lk)
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    assert [e["name"] for e in entries] == [
+        lk.FWD_ONLY_KERNEL, lk.FWD_KERNEL, lk.BWD_KERNEL, lk.DW_KERNEL]
+    assert all(keys <= set(e) for e in entries)
+    fo, fwd = entries[0], entries[1]
+    assert (fo["ms"], fo["ms_reading_wr"], fo["launches"]) == (0.75, 1.0, 318)
+    assert fo["shape"] == [32, 1, 512, "float32"]
+    # the f32 path is serving's: training's 2 launches are bf16
+    assert fwd["f32"]["shape"] == [32, 128, 512, "float32"]
+    assert (fwd["launches"], fwd["f32"]["launches"]) == (2, 0)
+    assert keys - {"name", "route", "source", "replaces"} <= set(fwd["f32"])
 
 
 def test_phase_breakdown_refuses_stamps_out_of_order():

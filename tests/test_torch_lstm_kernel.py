@@ -67,28 +67,35 @@ def _np(x):
     return np.asarray(jnp.asarray(x, jnp.float32))
 
 
-@pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("n", [32, 128])
-def test_forward_only_matches_jax_kernel(dtype, n):
-    j, t = _both(_inputs(n, seed=1), dtype)
+# (n, dtype, b, t): both dtypes at b 16, t 9; f32 also at the char-RNN's
+# serving batch, at t 1 (its serving step) and t 9
+FWD_CASES = ([pytest.param(n, dtype, B, T, id=f"{n}-{dtype}")
+              for n in (32, 128) for dtype in DTYPES]
+             + [pytest.param(n, "float32", 32, t, id=f"{n}-float32-b32-t{t}")
+                for n in (32, 128) for t in (1, 9)])
+
+
+@pytest.mark.parametrize("n,dtype,b,t", FWD_CASES)
+def test_forward_only_matches_jax_kernel(n, dtype, b, t):
+    j, ts = _both(_inputs(n, seed=1, b=b, t=t), dtype)
     h_j, (hl_j, cl_j) = jlk._fwd_pallas(*j, block_b=8, interpret=True,
                                          with_residuals=False)
-    h_t, (hl_t, cl_t) = lk.lstm_fwd_plain(*t, with_residuals=False)
+    h_t, (hl_t, cl_t) = lk.lstm_fwd_plain(*ts, with_residuals=False)
     assert h_t.dtype == DTYPES[dtype][1] and cl_t.dtype == torch.float32
-    for a, b in ((h_j, h_t), (hl_j, hl_t), (cl_j, cl_t)):
-        np.testing.assert_allclose(_np(b), _np(a), **FWD_TOL[dtype])
+    assert h_t.shape == (t, b, n)
+    for a, z in ((h_j, h_t), (hl_j, hl_t), (cl_j, cl_t)):
+        np.testing.assert_allclose(_np(z), _np(a), **FWD_TOL[dtype])
 
 
-@pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("n", [32, 128])
-def test_residual_forward_matches_jax_kernel(dtype, n):
+@pytest.mark.parametrize("n,dtype,b,t", FWD_CASES)
+def test_residual_forward_matches_jax_kernel(n, dtype, b, t):
     """All six streams: h, i, f, o, blk, c."""
-    j, t = _both(_inputs(n, seed=2), dtype)
+    j, ts = _both(_inputs(n, seed=2, b=b, t=t), dtype)
     h_j, res_j = jlk._fwd_pallas(*j, block_b=8, interpret=True)
-    h_t, res_t = lk.lstm_fwd_plain(*t)
-    for name, a, b in zip("h i f o blk c".split(), (h_j, *res_j), (h_t, *res_t)):
-        assert b.dtype == DTYPES[dtype][1], name
-        np.testing.assert_allclose(_np(b), _np(a), err_msg=name,
+    h_t, res_t = lk.lstm_fwd_plain(*ts)
+    for name, a, z in zip("h i f o blk c".split(), (h_j, *res_j), (h_t, *res_t)):
+        assert z.dtype == DTYPES[dtype][1] and z.shape == (t, b, n), name
+        np.testing.assert_allclose(_np(z), _np(a), err_msg=name,
                                    **FWD_TOL[dtype])
 
 
@@ -210,6 +217,26 @@ def test_block_shape():
     assert lk._block_shape(8, 1024, 2, 132) == (16, 16, 16)
     assert lk._block_shape(8, 1024, 4, 132) == (16, 8, 16)
     assert lk._block_shape(200, 1024, 4, 132) == (128, 8, 256)
+    # n not 64 times a power of two: U a power of two all the same
+    assert lk._block_shape(32, 320, 4, 132) == (32, 4, 32)
+    assert lk._block_shape(32, 576, 2, 132) == (32, 16, 32)
+
+
+def test_every_grid_that_fits_has_a_built_layout():
+    """Wherever the gate sends a shape to the kernels (132 SMs), its block
+    layout is one they are built for: bf16 16 or 32 units; f32 4 or 8
+    units at any rows, 16 or 32 only at 128 rows (``launch_f32``,
+    ``launch_bf16`` and the backward's switches)."""
+    built = {2: {(u, bb) for u in (16, 32) for bb in (16, 32, 64, 128)},
+             4: {(u, bb) for u in (4, 8) for bb in (16, 32, 64, 128)}
+             | {(16, 128), (32, 128)}}
+    for itemsize, layouts in built.items():
+        for n in range(64, 1025, 64):
+            for b in (*range(1, 130), *range(130, 4097, 61)):
+                if lk._grid_fits(b, n, itemsize, 132):
+                    bb, u, bp = lk._block_shape(b, n, itemsize, 132)
+                    assert (u, bb) in layouts and n % u == 0 and bp % bb == 0, \
+                        (itemsize, b, n, bb, u)
 
 
 def test_dw_splits():
@@ -224,6 +251,26 @@ def test_dw_splits():
     assert lk._dw_splits(9 * 16, 128, 2, 132) == 1
     assert lk._dw_splits(9 * 32, 1024, 2, 132) == 1
     assert lk._dw_splits(128 * 1024, 512, 4, 132) == 1
+
+
+@pytest.mark.parametrize("u", [4, 8, 16, 32])
+def test_pack_wr_puts_each_blocks_columns_side_by_side(u):
+    """``_pack_wr``: packed[j, k, g, i] = Wr[k, g n + j u + i]."""
+    n = 64
+    wr = torch.arange(n * 4 * n, dtype=torch.float32).reshape(n, 4 * n)
+    packed = lk._pack_wr(wr, u)
+    assert packed.shape == (n // u, n, 4, u) and packed.is_contiguous()
+    j, k, g, i = (torch.arange(m).reshape(-1, 1, 1, 1).movedim(0, d)
+                  for d, m in enumerate(packed.shape))
+    assert torch.equal(packed, wr[k, g * n + j * u + i])
+
+
+def test_pack_wr_is_none_off_the_card():
+    """Only the f32 kernel reads a packed Wr: none for CPU (or meta)
+    tensors, whose forward is the plain version."""
+    wr = torch.zeros(64, 256)
+    assert lk.pack_wr(wr, 32) is None
+    assert lk.pack_wr(wr.to("meta"), 32) is None
 
 
 def test_wrappers_refuse_other_devices():
@@ -254,7 +301,18 @@ def test_cpu_runs_launch_no_kernel():
     ("bfloat16", 16, 9, 64),      # the smallest n: 16, U 16
     ("bfloat16", 128, 3, 1024),   # the largest n: 128, U 16
     ("bfloat16", 64, 1, 512),     # t 1: 64, U 16
-    ("bfloat16", 32, 128, 512)])  # t 128: 32, U 16
+    ("bfloat16", 32, 128, 512),   # t 128: 32, U 16
+    # the f32 design's layouts (BB, U; k-groups KS; h chunks in flight)
+    ("float32", 32, 128, 512),    # the serving layout over a scan: 32, 4; 8; all 8
+    ("float32", 64, 3, 512),      # 64, 4; 4
+    ("float32", 200, 5, 512),     # b no multiple of BB: 128, 8; 1; 3 of 8
+    ("float32", 512, 3, 512),     # 128, 16; sums over the ring
+    ("float32", 1152, 2, 256),    # 128, 32 (16 rows a thread)
+    ("float32", 8, 9, 1024),      # 16, 8; 8; all 16
+    ("float32", 32, 9, 1024),     # 32, 8; 4; 10 of 16
+    # n not 64 times a power of two (U rounded down to a power of two)
+    ("float32", 32, 5, 320),      # 32, 4
+    ("bfloat16", 32, 5, 576)])    # 32, 16
 def test_kernels_match_plain_on_card(cuda_device, dtype, b, t, n):
     """Forward-only, residual forward and the backward pair against their
     plain versions on the card (tolerances as ``chip_smoke.py`` 2b)."""
@@ -367,3 +425,112 @@ def test_timed_backward_gives_the_same_outputs_on_card(cuda_device):
     st = stamps.cpu()
     assert st.shape[1:] == (t, 4) and bool((st > 0).all())
     assert bool((st.flatten(1).diff(dim=1) >= 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_residuals", [False, True])
+@pytest.mark.parametrize("b,t,n", [(32, 1, 512), (32, 9, 512), (1024, 3, 128)])
+def test_f32_forward_is_deterministic_on_card(cuda_device, b, t, n,
+                                              with_residuals):
+    """Two calls of the f32 forward on the same inputs give the same
+    bits: the k-groups' sums are added in a fixed order."""
+    _, ts = _both(_inputs(n, seed=16, b=b, t=t), "float32")
+    ts = [z.to(cuda_device) for z in ts]
+    first = lk.lstm_fwd(*ts, with_residuals=with_residuals)
+    second = lk.lstm_fwd(*ts, with_residuals=with_residuals)
+    torch.cuda.synchronize()
+    for a, p in zip((first[0], *first[1]), (second[0], *second[1])):
+        assert torch.equal(a, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_t1_forward_needs_no_counter_on_card(cuda_device, dtype):
+    """At t = 1 the forward kernels take a null counter (a plain launch,
+    no barrier); at t > 1 they refuse one."""
+    b, n = 32, 512
+    lib = lk._lib(lk.FWD_SOURCE)
+    for t, want_ok in ((1, True), (2, False)):
+        _, ts = _both(_inputs(n, seed=17, b=b, t=t), dtype)
+        ts = [z.to(cuda_device).contiguous() for z in ts]
+        bb, u, bp = lk._block_shape(b, n, ts[0].element_size(),
+                                    lk._sm_count(cuda_device))
+        assert bp == b
+        h_seq = torch.empty(t, b, n, dtype=ts[0].dtype, device=cuda_device)
+        h_t = torch.empty(b, n, dtype=ts[0].dtype, device=cuda_device)
+        c_t = torch.empty(b, n, dtype=torch.float32, device=cuda_device)
+        err = lib.dl4j_lstm_fwd_only(
+            *[z.data_ptr() for z in ts], h_seq.data_ptr(), h_t.data_ptr(),
+            c_t.data_ptr(), None, t, bp, n, bb, u, lk._DTYPE_CODES[ts[0].dtype],
+            0, lk._stream(cuda_device))
+        torch.cuda.synchronize()
+        assert (err == 0) is want_ok, (t, err)
+        if want_ok:
+            want = lk.lstm_fwd_plain(*ts, with_residuals=False)
+            rel = 3e-2 if dtype == "bfloat16" else None
+            for a, p in zip((h_seq, h_t, c_t), (want[0], *want[1])):
+                err = (a.float() - p.float()).abs().max().item()
+                assert err <= (rel * max(1.0, p.float().abs().max().item())
+                               if rel else 5e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,b,t,with_residuals", [
+    ("float32", 32, 1, False), ("float32", 32, 4, True),
+    ("bfloat16", 256, 4, True)])
+def test_timed_forward_gives_the_same_outputs_on_card(cuda_device, dtype, b, t,
+                                                      with_residuals):
+    """The forward's timed instantiations compute what the untimed ones
+    do, bit for bit, and stamp each block's steps in order."""
+    n = 512
+    _, ts = _both(_inputs(n, seed=18, b=b, t=t), dtype)
+    ts = [z.to(cuda_device) for z in ts]
+    kernels.reset_launches()
+    *got, stamps = lk.lstm_fwd_timed(*ts, with_residuals=with_residuals)
+    want = lk.lstm_fwd(*ts, with_residuals=with_residuals)
+    torch.cuda.synchronize()
+    name = lk.FWD_KERNEL if with_residuals else lk.FWD_ONLY_KERNEL
+    assert dict(kernels.LAUNCHES) == {lk.TIMED_KERNEL: 1, name: 1}
+    for a, p in zip((got[0], *got[1]), (want[0], *want[1])):
+        assert torch.equal(a, p)
+    st = stamps.cpu()
+    assert st.shape[1:] == (t, 4) and bool((st > 0).all())
+    assert bool((st.flatten(1).diff(dim=1) >= 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_residuals", [False, True])
+@pytest.mark.parametrize("b,t,n", [(32, 1, 512), (32, 5, 512), (8, 9, 128),
+                                   (1024, 3, 128), (512, 2, 512),
+                                   (32, 9, 1024)])
+def test_packed_wr_gives_the_same_bits_on_card(cuda_device, b, t, n,
+                                               with_residuals):
+    """The f32 kernel reading ``pack_wr``'s copy computes what it computes
+    from Wr, bit for bit, at every f32 layout (4 to 16 units, a ring that
+    refills, row passes)."""
+    _, ts = _both(_inputs(n, seed=19, b=b, t=t), "float32")
+    ts = [z.to(cuda_device) for z in ts]
+    packed = lk.pack_wr(ts[1], b)
+    assert packed is not None
+    got = lk.lstm_fwd(*ts, with_residuals=with_residuals, wr_packed=packed)
+    want = lk.lstm_fwd(*ts, with_residuals=with_residuals)
+    torch.cuda.synchronize()
+    for a, p in zip((got[0], *got[1]), (want[0], *want[1])):
+        assert torch.equal(a, p)
+
+
+@pytest.mark.cuda
+def test_packed_wr_of_another_batch_raises_on_card(cuda_device):
+    """A copy packed for another block shape (b 512: 16 units a block)
+    is refused at b 32 (4 units), as is one for bf16."""
+    n = 512
+    _, ts = _both(_inputs(n, seed=20, b=32, t=1), "float32")
+    ts = [z.to(cuda_device) for z in ts]
+    with pytest.raises(ValueError, match="packed Wr"):
+        lk.lstm_fwd(*ts, with_residuals=False,
+                    wr_packed=lk.pack_wr(ts[1], 512))
+    _, tb = _both(_inputs(n, seed=20, b=32, t=1), "bfloat16")
+    tb = [z.to(cuda_device) for z in tb]
+    with pytest.raises(ValueError, match="packed Wr"):
+        lk.lstm_fwd(*tb, with_residuals=False,
+                    wr_packed=lk.pack_wr(ts[1], 32))
