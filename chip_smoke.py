@@ -13,8 +13,8 @@ Phases (any failure ends the run with a non-zero exit and no result):
    started together, from an empty build directory, timed; fails if a
    bf16 ``flash_fwd_kernel``, ``flash_dq_kernel``, ``flash_dkv_kernel``,
    ``lstm_fwd_kernel``, ``lstm_bwd_kernel`` or ``lstm_dw_kernel``, or an
-   f32 ``lstm_fwd_kernel``, spills registers (``BF16_KERNELS``,
-   ``F32_KERNELS``).
+   f32 ``lstm_fwd_kernel``, ``lstm_bwd_kernel`` or ``lstm_dw_kernel``,
+   spills registers (``BF16_KERNELS``, ``F32_KERNELS``).
 2. kernels: each kernel's wrapper on card tensors against its plain
    PyTorch version on the same inputs, at the main paths' shapes, at
    larger ones and at ragged ones (t = 200, tq 72 / tk 200, one head of
@@ -40,6 +40,10 @@ Phases (any failure ends the run with a non-zero exit and no result):
    barrier wait, dg chunks but the last, the last chunk's product, the
    gate chain with its stores and the next step's prefetch), whose
    outputs must equal the untimed kernels' bit for bit; then
+   ``lstm_bwd_phases`` of the f32 sweep (``F32_BWD_TIMER_CASES``: b 32,
+   t 128, n 512 and the char-RNN example's b 64, t 64, n 256; barrier
+   wait, the sums of the dh partials, the gate chain with its stores,
+   the product with its stores), bit for bit too; then
    ``lstm_fwd_phases`` of the f32 forward (``F32_TIMER_CASES``): 50
    timed calls of ``lstm_fwd_only`` at the serving shape (b 32, t 1,
    n 512: no barrier, and the first phase runs from the kernel's entry,
@@ -94,7 +98,15 @@ Phases (any failure ends the run with a non-zero exit and no result):
    card, from these weights and from a second seed of weights and ids;
    before each, the loss and gradients on the same weights through the
    kernels, and through the forward kernel with the plain backward,
-   against the plain scan's.
+   against the plain scan's. Then ``examples/train_char_rnn.py``'s f32
+   training at full width (one ``GravesLSTM(256)`` and its output layer
+   over the corpus's 28 characters, Adam 0.01, batch 64, seq 64, ids of
+   a seeded Markov chain, per-step ``fit``): loss and gradients with the
+   kernels against the plain scan within ``EXAMPLE_*_REL``; one step
+   launches ``lstm_fwd``, ``lstm_bwd`` and ``lstm_dw`` once and
+   ``lstm_fwd_only`` never; 20 steps give a loss that falls; step time,
+   tokens/s, MFU at the f32 peak, busy share and the three kernels' ms
+   per step are printed (``char_train_f32``).
 7. LeNet-MNIST training at full width: the JAX package's flagship
    (``__graft_entry__._flagship``: conv 20@5x5, max 2x2/2, conv 50@5x5,
    max 2x2/2, dense 500, softmax 10; relu, Adam at 0.01, seed 12345,
@@ -198,6 +210,7 @@ LSTM_CASES = [  # (dtype, b, t, n); the training and serving shapes first
     ("bfloat16", 1024, 9, 128), ("float32", 1024, 9, 128),
     ("bfloat16", 32, 9, 1024), ("float32", 32, 9, 1024),
     ("bfloat16", 128, 128, 1024), ("float32", 8, 128, 1024),
+    ("float32", 64, 64, 256),  # examples/train_char_rnn.py's f32 training
 ]
 CHAR_VOCAB, CHAR_HIDDEN = 64, 512
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 32, 32, 128
@@ -209,6 +222,15 @@ CHAR_BATCH, CHAR_SEQ, CHAR_STEPS = 1024, 128, 20
 # relative L2 of each parameter's gradient (bf16 roundings of h and dg
 # that differ, carried through 128 steps and two layers)
 CHAR_LOSS_TOL, CHAR_GRAD_REL = 1e-2, 3e-2
+# examples/train_char_rnn.py at full width (phase 6's f32 run): one
+# GravesLSTM(256) and its output layer over the example corpus's 28
+# characters, f32, batch 64, seq 64, Adam 0.01
+EXAMPLE_VOCAB, EXAMPLE_HIDDEN, EXAMPLE_BATCH, EXAMPLE_SEQ = 28, 256, 64, 64
+# one f32 step, kernels vs plain versions on the card: both sum the
+# products in f32 (CUDA-core FMAs against cuBLAS without TF32), in other
+# orders, through 64 steps: the loss relative to itself, each gradient's
+# relative L2
+EXAMPLE_LOSS_REL, EXAMPLE_GRAD_REL = 1e-4, 1e-4
 # LeNet-MNIST (phase 7): the JAX package's benchmark batch and epoch
 LENET_BATCH, LENET_BATCHES, LENET_STEPS, LENET_TEST = 2048, 8, 20, 10000
 # an f32 copy of the net on the card vs on the CPU (64 examples): cuDNN
@@ -877,6 +899,11 @@ def _lstm_check(what, dtype, got, want, forward):
 # its wait)
 PHASE_NAMES = ("barrier_wait", "chunks_but_last", "last_chunk", "cell_stores")
 BWD_PHASE_NAMES = ("barrier_wait", "chunks_but_last", "last_chunk", "chain_stores")
+# the f32 sweep's step: the barrier wait (from its arrival), the sums of
+# the batch group's partials of dh for its rows and units, the gate chain
+# with its stores, and the product of its dg by its Wr columns with the
+# stores of that partial for every unit's owner
+F32_BWD_PHASE_NAMES = ("barrier_wait", "partial_sums", "chain_stores", "product_stores")
 
 
 def _phase_breakdown(stamps, names):
@@ -926,6 +953,9 @@ def _phase_breakdown(stamps, names):
 F32_TIMER_CASES = (("float32", 32, 1, 512, False, 50, False),
                    ("float32", 32, 1, 512, False, 50, True),
                    ("float32", 32, 128, 512, True, 3, False))
+# the f32 sweep's timer (phase 2b): (b, t, n) at phase 2b's f32 scan shape
+# and at examples/train_char_rnn.py's training shape
+F32_BWD_TIMER_CASES = ((32, 128, 512), (EXAMPLE_BATCH, EXAMPLE_SEQ, EXAMPLE_HIDDEN))
 
 
 def phase_lstm_timer(torch, lk):
@@ -960,12 +990,43 @@ def phase_lstm_timer(torch, lk):
     out = dict(dtype=dtype, b=b, t=t, n=n,
                **_phase_breakdown(stamps.cpu().numpy(), BWD_PHASE_NAMES))
     print("lstm_bwd_phases " + json.dumps(out), flush=True)
-    for name, a, w in zip(("dg", "dWr", "dwci", "dwcf", "dwco", "dh0", "dc0"),
-                          got, want):
-        _check(torch.equal(a, w), f"timed lstm_bwd {name} differs from "
-               f"lstm_bwd's: {(a.float() - w.float()).abs().max().item()}")
+    _check_bwd_equal(torch, got, want, dtype)
+    for case in F32_BWD_TIMER_CASES:
+        _f32_bwd_timer(torch, lk, g, *case)
     for case in F32_TIMER_CASES:
         _f32_fwd_timer(torch, lk, g, *case)
+
+
+def _check_bwd_equal(torch, got, want, what):
+    """The timed sweep's outputs equal the untimed kernels' bit for bit."""
+    for name, a, w in zip(("dg", "dWr", "dwci", "dwcf", "dwco", "dh0", "dc0"),
+                          got, want):
+        _check(torch.equal(a, w), f"timed lstm_bwd {what} {name} differs from "
+               f"lstm_bwd's: {(a.float() - w.float()).abs().max().item()}")
+
+
+def _f32_bwd_timer(torch, lk, g, b, t, n):
+    """The f32 sweep's step phases (``lstm_bwd_phases``) on the f32
+    forward kernel's residuals: one timed call after a warm-up one, whose
+    outputs must equal the untimed kernels' bit for bit."""
+    xg = torch.randn(t, b, 4 * n, generator=g, device="cuda")
+    wr = torch.randn(n, 4 * n, generator=g, device="cuda") * n ** -0.5
+    pe = tuple(torch.randn(n, generator=g, device="cuda") * 0.1 for _ in range(3))
+    h0 = torch.randn(b, n, generator=g, device="cuda") * 0.5
+    c0 = torch.randn(b, n, generator=g, device="cuda") * 0.5
+    _, res = lk.lstm_fwd(xg, wr, *pe, h0, c0)
+    gout = torch.randn(t, b, n, generator=g, device="cuda")
+    gcl = torch.randn(b, n, generator=g, device="cuda")
+    args = (res, wr, *pe, h0, c0, gout, gcl)
+    lk.lstm_bwd_timed(*args)
+    *got, stamps = lk.lstm_bwd_timed(*args)
+    want = lk.lstm_bwd(*args)
+    torch.cuda.synchronize()
+    tag = f"float32 b{b} t{t} n{n}"
+    _check_bwd_equal(torch, got, want, tag)
+    out = dict(dtype="float32", b=b, t=t, n=n,
+               **_phase_breakdown(stamps.cpu().numpy(), F32_BWD_PHASE_NAMES))
+    print("lstm_bwd_phases " + json.dumps(out), flush=True)
 
 
 def _f32_fwd_timer(torch, lk, g, dtype, b, t, n, with_residuals, calls,
@@ -1135,11 +1196,11 @@ def _char_rnn(compute_dtype):
     return MultiLayerNetwork(conf).init()
 
 
-def char_rnn_flops_per_token(vocab, hidden):
+def char_rnn_flops_per_token(vocab, hidden, layers=2):
     """``bench.py`` ``bench_lstm``'s count: 3 x 2 x the multiply-adds per
-    token of both layers' input and recurrent products and the head."""
-    macs = (vocab * 4 * hidden + hidden * 4 * hidden
-            + hidden * 4 * hidden + hidden * 4 * hidden + hidden * vocab)
+    token of the layers' input and recurrent products and the head."""
+    macs = (vocab * 4 * hidden + (layers - 1) * hidden * 4 * hidden
+            + layers * hidden * 4 * hidden + hidden * vocab)
     return 6.0 * macs
 
 
@@ -1223,17 +1284,17 @@ def phase_char_serve(torch, np, kernels, lk):
     return launches, metrics
 
 
-def _markov_ids(np, rng, b, t):
-    """[b, t] ids of a seeded first-order Markov chain over the vocab:
+def _markov_ids(np, rng, b, t, vocab=CHAR_VOCAB):
+    """[b, t] ids of a seeded first-order Markov chain over ``vocab`` ids:
     each id is followed by one fixed successor with probability 0.9,
     else by a uniform draw. Unlike uniform ids (whose loss starts at its
     floor, log vocab, under small random weights) it leaves the net
     something to learn in 20 steps."""
-    succ = rng.permutation(CHAR_VOCAB)
+    succ = rng.permutation(vocab)
     ids = np.empty((b, t), np.int64)
-    ids[:, 0] = rng.integers(0, CHAR_VOCAB, b)
+    ids[:, 0] = rng.integers(0, vocab, b)
     noise = rng.random((b, t)) < 0.1
-    draws = rng.integers(0, CHAR_VOCAB, (b, t))
+    draws = rng.integers(0, vocab, (b, t))
     for s in range(1, t):
         ids[:, s] = np.where(noise[:, s], draws[:, s], succ[ids[:, s - 1]])
     return ids
@@ -1378,7 +1439,100 @@ def phase_char_train(torch, np, kernels, lk):
     metrics.update(witness_seed31=_char_train_witness(torch, np, lk, 31, ds),
                    witness_seed33=_char_train_witness(torch, np, lk, 33, ds2))
     print("char_train " + json.dumps(metrics), flush=True)
+    metrics["f32"] = _char_train_f32(torch, np, kernels, lk)
     return launches, metrics
+
+
+def _char_rnn_example():
+    """``examples/train_char_rnn.py``'s net at full width, built by the
+    port's builder: one GravesLSTM(256) and a softmax output layer over
+    the corpus's characters, Adam 0.01, the default f32."""
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    conf = (NeuralNetConfiguration.builder().seed(12).learning_rate(0.01)
+            .updater("adam").activation("tanh").list()
+            .layer(L.GravesLSTM(n_in=EXAMPLE_VOCAB, n_out=EXAMPLE_HIDDEN))
+            .layer(L.RnnOutputLayer(n_in=EXAMPLE_HIDDEN, n_out=EXAMPLE_VOCAB,
+                                    activation="softmax",
+                                    loss_function="mcxent"))
+            .build())
+    return MultiLayerNetwork(conf).init()
+
+
+def _char_train_f32(torch, np, kernels, lk):
+    """Phase 6's f32 run: the char-RNN example's training at full width
+    (per-step ``fit``), on ids of a seeded Markov chain over its 28
+    characters. Gates: the loss and every gradient with the kernels
+    against the plain scan on the card (``EXAMPLE_*_REL``), one step
+    launching ``lstm_fwd``, ``lstm_bwd`` and ``lstm_dw`` once each and
+    ``lstm_fwd_only`` never, and a loss that falls over CHAR_STEPS steps.
+    Returns (and prints as ``char_train_f32``) its metrics, the launches
+    among them."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.util.model_serializer import params_from_numpy
+
+    net = _char_rnn_example()
+    _check(net.gc.compute_dtype == "float32",
+           f"the example trains in f32, not {net.gc.compute_dtype}")
+    params_from_numpy(net, _random_params(net, seed=41))
+    ids = _markov_ids(np, np.random.default_rng(42), EXAMPLE_BATCH,
+                      EXAMPLE_SEQ, EXAMPLE_VOCAB)
+    eye = np.eye(EXAMPLE_VOCAB, dtype=np.float32)
+    ds = DataSet(eye[ids], eye[np.roll(ids, -1, axis=1)])
+
+    grads, loss = net.gradient_and_score(ds)
+    with _plain_lstm(lk):
+        grads_p, loss_p = net.gradient_and_score(ds)
+    loss_rel = abs(loss - loss_p) / abs(loss_p)
+    _check(loss_rel <= EXAMPLE_LOSS_REL,
+           f"f32 char-RNN loss kernels {loss} vs plain {loss_p}")
+    worst, at = _grad_rel(torch, grads, grads_p)
+    _check(worst <= EXAMPLE_GRAD_REL,
+           f"f32 char-RNN grad {at} kernels vs plain: rel L2 {worst}")
+    del grads, grads_p
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    net.fit(ds)
+    torch.cuda.synchronize()
+    launches = _lstm_launches(kernels, lk)
+    want = {lk.FWD_ONLY_KERNEL: 0, lk.FWD_KERNEL: 1, lk.BWD_KERNEL: 1,
+            lk.DW_KERNEL: 1}
+    _check(launches == want, f"f32 char-RNN train step launches {launches}, "
+           f"expected {want}")
+    losses, times = [net.score()], []
+    for _ in range(CHAR_STEPS - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(ds)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(net.score())
+    _check(all(np.isfinite(losses)), f"f32 finite losses {losses}")
+    _check(losses[-1] < losses[0], f"f32 loss did not fall: {losses}")
+    step_s = statistics.median(times[1:])
+    per_step = _device_times(torch, lambda: net.fit(ds), 3)
+    dev = {m: _sum_ms(per_step, m) for m in
+           ("", "lstm_fwd_kernel", "lstm_bwd_kernel", "lstm_dw_kernel")}
+    tokens = EXAMPLE_BATCH * EXAMPLE_SEQ
+    flops = char_rnn_flops_per_token(EXAMPLE_VOCAB, EXAMPLE_HIDDEN, layers=1)
+    top = sorted(per_step.items(), key=lambda kv: -kv[1])[:8]
+    metrics = dict(step_ms=step_s * 1e3, tokens_per_s=tokens / step_s,
+                   mfu=tokens / step_s * flops / PEAK_FLOPS["float32"],
+                   flops_per_token=flops, step_device_ms=dev[""],
+                   device_busy_share=dev[""] / (step_s * 1e3),
+                   profile_kept_share=per_step.kept_share,
+                   lstm_fwd_ms_per_step=dev["lstm_fwd_kernel"],
+                   lstm_bwd_ms_per_step=dev["lstm_bwd_kernel"],
+                   lstm_dw_ms_per_step=dev["lstm_dw_kernel"],
+                   loss_first=losses[0], loss_last=losses[-1],
+                   loss_rel_vs_plain=loss_rel, grad_rel_l2_vs_plain_max=worst,
+                   grad_worst_at=at, launches=launches, losses=losses,
+                   top_kernels_ms_per_step=[[k[:90], ms] for k, ms in top])
+    print("char_train_f32 " + json.dumps(metrics), flush=True)
+    return metrics
 
 
 def lenet_train_flops_per_example() -> float:
@@ -1693,9 +1847,10 @@ BF16_KERNELS = {"flash_fwd": ("flash_fwd_kernel",),
                 "flash_bwd": ("flash_dq_kernel", "flash_dkv_kernel"),
                 "lstm_fwd": ("lstm_fwd_kernel",),
                 "lstm_bwd": ("lstm_bwd_kernel", "lstm_dw_kernel")}
-# source -> its f32 kernels held to the same gate: the f32 forward keeps
-# its register tile, xg and c carry in registers too
-F32_KERNELS = {"lstm_fwd": ("lstm_fwd_kernel",)}
+# source -> its f32 kernels held to the same gate: the f32 forward and
+# backward keep their register tiles, streams and carries in registers too
+F32_KERNELS = {"lstm_fwd": ("lstm_fwd_kernel",),
+               "lstm_bwd": ("lstm_bwd_kernel", "lstm_dw_kernel")}
 
 
 def _spill_gate(name, report):
@@ -1806,6 +1961,11 @@ def main(argv) -> int:
               f"{m['tokens_per_s']:.0f} tokens/s, MFU {m['mfu']:.4f}, "
               f"loss {m['loss_first']:.4f} -> {m['loss_last']:.4f} on {card}",
               flush=True)
+        m = m["f32"]
+        print(f"phase 6: f32 char-RNN example train step {m['step_ms']:.3f} ms, "
+              f"{m['tokens_per_s']:.0f} tokens/s, MFU {m['mfu']:.4f}, busy "
+              f"{m['device_busy_share']:.3f}, loss {m['loss_first']:.4f} -> "
+              f"{m['loss_last']:.4f} on {card}", flush=True)
     if "7" in phases:  # LeNet-MNIST training at full width
         print(f"clocks: {_clocks()}", flush=True)
         m = done["7"] = phase_lenet(torch, np, kernels)
@@ -1926,13 +2086,16 @@ def _flash_summary(done):
 def _lstm_summary(done, lk):
     """The LSTM kernels' entries of the kernels line (phases 2b, 5, 6):
     ``lstm_fwd_only`` at the serving shape (reading Wr packed, as
-    generate does), the training kernels at the training shape, and the
-    f32 ``lstm_fwd`` at b 32, t 128, n 512 under ``lstm_fwd``'s key
-    ``f32``. The plain backward and the yardstick's backward
+    generate does), the training kernels at the training shape, and
+    under the key ``f32`` the f32 ``lstm_fwd`` at b 32, t 128, n 512 and
+    the f32 ``lstm_bwd`` and ``lstm_dw`` at the char-RNN example's
+    training shape (b 64, t 64, n 256; launches from phase 6's f32 run).
+    The plain backward and the yardstick's backward
     compute every gradient together: read their plain_ms and library_ms
     beside backward_ms (the whole lstm_bwd call: sweep and weights)."""
     rows = done["2b"]
     serve_launches, train_launches = done["5"][0], done["6"][0]
+    f32_train_launches = done["6"][1]["f32"]["launches"]
 
     def row(dtype, b, t, n):
         return next(r for r in rows if (r["dtype"], r["b"], r["t"], r["n"])
@@ -1941,6 +2104,7 @@ def _lstm_summary(done, lk):
     serve = row("float32", SERVE_BATCH, 1, CHAR_HIDDEN)
     train = row("bfloat16", CHAR_BATCH, CHAR_SEQ, CHAR_HIDDEN)
     f32_fwd = row("float32", SERVE_BATCH, CHAR_SEQ, CHAR_HIDDEN)
+    f32_train = row("float32", EXAMPLE_BATCH, EXAMPLE_SEQ, EXAMPLE_HIDDEN)
     replaces = "deeplearning4j_tpu/ops/lstm_kernel.py:"
     entries = []
     for name, r, line, key, err, plain, lib, src in (
@@ -1984,6 +2148,18 @@ def _lstm_summary(done, lk):
                 "max_abs_err": f32_fwd["err_fwd"],
                 "launches": serve_launches[name],
                 "shape": [f32_fwd["b"], f32_fwd["t"], f32_fwd["n"], "float32"]}
+        if key in ("bwd", "dw"):
+            # the f32 pair on the char-RNN example's training path
+            bound_ms, bound_by = f32_train["bounds"][name]
+            entry["f32"] = {
+                "ms": f32_train[f"{key}_ms"], "plain_ms": f32_train[plain],
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": f32_train[lib],
+                "max_abs_err": errs(f32_train),
+                "backward_ms": f32_train["backward_ms"],
+                "launches": f32_train_launches[name],
+                "shape": [f32_train["b"], f32_train["t"], f32_train["n"],
+                          "float32"]}
         entries.append(entry)
     return entries
 

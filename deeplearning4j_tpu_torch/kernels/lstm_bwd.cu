@@ -45,9 +45,25 @@
 // - The barrier is a release add after the dg stores and an acquire poll
 //   before the next step's chunks (group_arrive, group_wait); h_prev
 //   stores and the prefetch sit between the two.
-// The f32 sweep (sweep_simt) keeps the first design: the product on the
-// CUDA cores into an f32 buffer in shared memory (block_product), then
-// the chain per (row, unit).
+// The f32 sweep (sweep_simt; the char-RNN example's f32 training at b 64,
+// n 256, and phase 2b's b 32, n 512): full f32 FMAs on the CUDA cores, no
+// TF32. The first design did as the bf16 one, each block pulling its
+// group's whole dg_{t+1} [BB][4n] through 64-deep chunks for its U rows of
+// Wr: 32 dependent rounds a step at n 512, 93 % of a 47 us step on an H100
+// (PERF.md).
+// This one turns the product around, as the f32 forward keeps Wr:
+// - Block j keeps Wr's 4U columns of its own units resident, transposed
+//   (Wt [4U][n]), runs the chain for its (row, unit) pairs, and then
+//   multiplies the dg_t it has just computed ([BB][4U], in shared memory)
+//   by Wt: a [BB][n] partial of dh_{t-1} for every unit, depth 4U, in
+//   8 x 8 register tiles fed by 16-byte shared loads (SweepF32). It stores
+//   each owner's [BB][U] share of it and arrives at the barrier.
+// - After the barrier, a block sums the nj partials of its own units (the
+//   batch group's, in block order, by groups of threads, then the groups
+//   in order: the same bits every call) into dh for its chain.
+// - Per step a block moves 2 BB n floats (64 KB out and 64 KB in at BB 32,
+//   n 512) instead of BB 4n in (256 KB), with one barrier per step; the
+//   dg stores leave the critical path (only lstm_dw reads them).
 //
 // `lstm_dw`, the weight gradients. The TPU kernel accumulates
 // dWr += h_prev^T . dg in a VMEM buffer shared by the batch blocks,
@@ -61,8 +77,10 @@
 // one wave; each split writes its f32 partial tile to a workspace, and
 // the last split of a tile to finish (a counter per tile) sums the
 // partials in split order and writes dWr: no atomics on the result, so
-// it is bitwise the same on every run. The f32 kernel (dw_simt) keeps
-// the first design: 64 x 64 tiles on the CUDA cores. The block that
+// it is bitwise the same on every run. The f32 kernel (dw_simt) is the
+// same GEMM on the CUDA cores: 128 x 128 tiles, an 8 x 8 register tile a
+// thread fed by 16-byte shared loads, m split and summed as bf16's. The
+// block that
 // writes a tile of the first column of tiles also adds up the sweep's
 // peephole partials of its units, in a fixed order.
 //
@@ -79,6 +97,12 @@
 // as often) saved 0.6 us of the 15.6 and was not kept. lstm_dw does 275
 // GFLOP on ~0.8 GB, so operations (0.28 ms); its tiles re-read h_prev 8
 // times and dg 4 times from L2 (~3 GB), and it runs at ~0.93 ms.
+// In f32 (b 32, t 128, n 512) both kernels are bound by their 8.6 GFLOP
+// (0.128 ms at 67 TFLOP/s). The sweep's step takes ~6.45 us on an H100
+// (PERF.md): the product with the partials' stores ~2.95 (its FMAs ~1),
+// the barrier ~1.8 (its release waits for the 8 MB of stores over the
+// card), the sums ~1.4, the chain ~0.3; summing the partials within a
+// cluster first is the next step. lstm_dw runs at ~0.21 ms.
 //
 // Exposed as plain C functions so that no PyTorch header is compiled.
 
@@ -106,149 +130,327 @@ struct BwdArgs {
   float* dc0;           // [bp, n]
   float* partial;       // [bp / BB, 3, n]: peephole sums per batch block
   unsigned int* counter;  // [bp / BB] zeros
+  float* dhp;           // f32: [2][bp / BB][nj][nj][BB][U], the dh partials
   unsigned long long* stamps;  // [grid, t, 4] (timed variant)
   int t, bp, n, BB;
 };
 
-template <typename T> __host__ __device__ int ldr(int n) { return 4 * n + (sizeof(T) == 2 ? 8 : 1); }
+// the bf16 sweep's row stride of its resident W rows (4n columns)
+__host__ __device__ constexpr int ldr_bf16(int n) { return 4 * n + 8; }
 
-template <typename T, int U>
-size_t sweep_smem(int n, int BB) {
-  const size_t w = round128(sizeof(T) * (size_t)U * ldr<T>(n));
-  if (sizeof(T) == 2)  // W, the ring, the block's peephole weights and each thread's sums
-    return w + BWD_STAGES * round128(sizeof(bf16) * (size_t)BB * lda<bf16>()) +
-           round128(sizeof(float) * 3 * U) + sizeof(float) * 5 * (U / 4) * NT;
-  size_t rest = sizeof(float) * (size_t)BB * (U + 4);
-  const size_t stage = stage_bytes(BB);
-  if (stage > rest) rest = stage;
-  return w + round128(rest);
+// How the f32 sweep's block of BB rows and U units shares its work.
+// - The chain: PAIRS (row, unit) pairs per thread, all of one unit (tid
+//   % U), rows (q NT + tid) / U; the first CELLERS threads take part. A
+//   thread of at most 4 pairs has its next step's streams in flight
+//   ahead (AHEAD), else it loads them in the chain, 4 pairs at a time.
+// - The dh sums: the [BB][U] sums of the block's rows and units, as NQ
+//   4-unit quads, each summed over the nj partials of the batch group by
+//   JG groups of threads (a contiguous share of the partials each, in
+//   order), QPT quads a thread; the chain adds the JG group sums in order.
+// - The product: thread (rg, vg) = (tid % RG, tid / RG) owns an 8 x 8
+//   register tile of dh's partial [BB][n]: rows rg + RG i (i < 8) and
+//   units p + 4 vg + k, p + PW / 2 + 4 vg + k (k < 4) of each PW-wide
+//   pass p over n; its 8 rows sit side by side in dgs (dg_pos), so both
+//   operands come as 16-byte shared loads of neighbouring addresses.
+template <int BB, int U> struct SweepF32 {
+  static constexpr int PAIRS = BB * U > NT ? BB * U / NT : 1;
+  static constexpr int CELLERS = BB * U < NT ? BB * U : NT;
+  static constexpr bool AHEAD = PAIRS <= 4;
+  static constexpr int QB = AHEAD ? PAIRS : 4;  // pairs whose streams fly together
+  static constexpr int NQ = BB * U / 4;
+  static constexpr int JG = NQ >= NT ? 1 : NT / NQ;
+  static constexpr int QPT = NQ >= NT ? NQ / NT : 1;
+  static constexpr int RG = BB / 8;
+  static constexpr int PW = 8 * (NT / RG);
+  static constexpr int LDG = BB + 4;        // dgs row stride (floats)
+  static constexpr int RED = JG * BB * U;   // floats of the groups' sums
+  static_assert(BB % 16 == 0 && U % 4 == 0 && NT % U == 0 && PAIRS % QB == 0 &&
+                    (NQ >= NT ? QPT * NT == NQ : JG * NQ == NT),
+                "f32 sweep layout");
+};
+
+// The place of row r among dgs's columns: the rows rg + RG i of a product
+// tile (rg = r % RG) side by side, i < 4 at 4 rg + i, i >= 4 at BB / 2 +
+// 4 rg + i - 4.
+template <int BB> __device__ __forceinline__ int dg_pos(int r) {
+  constexpr int RG = BB / 8;
+  const int i = r / RG;
+  return (i < 4 ? 0 : BB / 2 - 4) + 4 * (r % RG) + i;
 }
 
-// The f32 design (see the header); BB <= MAXB.
-template <int U, int MAXB>
+// Shared memory of the f32 sweep: Wt [4U][n], dgs [4U][LDG] and the
+// groups' sums [JG][BB][U].
+template <int U> __host__ __device__ constexpr size_t f32_wt_bytes(int n) {
+  return round128(sizeof(float) * 4 * U * (size_t)n);
+}
+template <int U, int BB> __host__ __device__ constexpr size_t f32_dgs_bytes() {
+  return round128(sizeof(float) * 4 * U * SweepF32<BB, U>::LDG);
+}
+
+template <typename T, int U, int BB>
+size_t sweep_smem(int n) {
+  if constexpr (sizeof(T) == 2) {  // W, the ring, the block's peephole weights and each thread's sums
+    return round128(sizeof(bf16) * (size_t)U * ldr_bf16(n)) +
+           BWD_STAGES * round128(sizeof(bf16) * (size_t)BB * lda<bf16>()) +
+           round128(sizeof(float) * 3 * U) + sizeof(float) * 5 * (U / 4) * NT;
+  } else {
+    return f32_wt_bytes<U>(n) + f32_dgs_bytes<U, BB>() +
+           sizeof(float) * SweepF32<BB, U>::RED;
+  }
+}
+
+__device__ __forceinline__ void fma8x4(float (&acc)[8][8], int h, const float4& a0,
+                                       const float4& a1, const float4& w) {
+  const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    acc[i][4 * h] = fmaf(av[i], w.x, acc[i][4 * h]);
+    acc[i][4 * h + 1] = fmaf(av[i], w.y, acc[i][4 * h + 1]);
+    acc[i][4 * h + 2] = fmaf(av[i], w.z, acc[i][4 * h + 2]);
+    acc[i][4 * h + 3] = fmaf(av[i], w.w, acc[i][4 * h + 3]);
+  }
+}
+
+// The f32 design (see the header): a block of exactly BB rows. Step s
+// (tt = t - 1 - s) waits for the batch group's partials of step s - 1,
+// sums this block's share of them (dh_rec of its rows and units), runs
+// the chain on it, then multiplies its dg_tt [BB][4U] by its resident Wt
+// into a partial of dh for all n units, stored for their owners, and
+// arrives; a last round of sums gives dh0. The partials live in
+// a.dhp, [2][bp / BB][nj][nj][BB][U] (buffer s % 2, batch group, owner
+// block, writing block): a block overwrites a buffer two steps later,
+// after every block of its group has read it. TIMED stamps the
+// globaltimer per step (thread 0) after the barrier, after the sums,
+// after the chain and its stores, and after the product and its stores.
+template <int U, int BB, bool TIMED>
 __device__ void sweep_simt(const BwdArgs& a, unsigned char* smem) {
-  using T = float;
-  constexpr int LDO = U + 4;
-  // (row, unit) pairs a thread owns, at most, and how many are worked on
-  // together
-  constexpr int PAIRS = (MAXB * U + NT - 1) / NT, QB = PAIRS < 2 ? PAIRS : 2;
-  const int n = a.n, BB = a.BB, bp = a.bp, G = 4 * n, LDR = ldr<T>(n);
-  T* W = reinterpret_cast<T*>(smem);
-  unsigned char* rest = smem + round128(sizeof(T) * (size_t)U * LDR);
-  float* out = reinterpret_cast<float*>(rest);
-  float* stage = reinterpret_cast<float*>(rest);
+  using L = SweepF32<BB, U>;
+  constexpr int PAIRS = L::PAIRS, QB = L::QB, NQ = L::NQ, JG = L::JG, RG = L::RG;
+  constexpr int PW = L::PW, LDG = L::LDG;
+  const int n = a.n, bp = a.bp, G = 4 * n, t = a.t;
+  float* Wt = reinterpret_cast<float*>(smem);
+  float* dgs = reinterpret_cast<float*>(smem + f32_wt_bytes<U>(n));
+  float* red = reinterpret_cast<float*>(smem + f32_wt_bytes<U>(n) + f32_dgs_bytes<U, BB>());
 
   const int nj = n / U;
   const int bi = blockIdx.x / nj, j = blockIdx.x % nj;
   const int b0 = bi * BB, u0 = j * U;
   const int tid = threadIdx.x;
+  // one step's partials of this batch group (BB n nj floats): owner jo's
+  // nj partials of [BB][U] side by side
+  auto partials = [&](int s) {
+    return a.dhp + ((size_t)(s & 1) * (bp / BB) + bi) * ((size_t)BB * n * nj);
+  };
 
-  // resident: W[u][k] = Wr[u0 + u][k], the rows of this block's units
+  // resident: Wt[q U + u][v] = Wr[v][q n + u0 + u], the 4U columns of Wr
+  // for the block's units, transposed (16-byte pieces of 4 units in)
   {
-    const T* wr = static_cast<const T*>(a.wr) + (size_t)u0 * G;
-    for (int i = tid; i < U * G; i += NT) W[(size_t)(i / G) * LDR + i % G] = wr[i];
+    const float* wr = static_cast<const float*>(a.wr);
+    for (int i = tid; i < n * U; i += NT) {
+      const int v = i / U, c = 4 * (i % U);  // column c of the 4U: gate c / U, unit c % U
+      const float4 w = __ldg(reinterpret_cast<const float4*>(wr + (size_t)v * G + c / U * n + u0 + c % U));
+      float* dst = Wt + (size_t)c * n + v;
+      dst[0] = w.x;
+      dst[n] = w.y;
+      dst[2 * n] = w.z;
+      dst[3 * n] = w.w;
+    }
   }
-  float dc[PAIRS], pi[PAIRS], pf[PAIRS], po[PAIRS];
+
+  const float *ri = static_cast<const float*>(a.res[0]), *rf = static_cast<const float*>(a.res[1]),
+              *ro = static_cast<const float*>(a.res[2]), *rb = static_cast<const float*>(a.res[3]),
+              *rc = static_cast<const float*>(a.res[4]), *gout = static_cast<const float*>(a.gout),
+              *h0 = static_cast<const float*>(a.h0);
+  float* dg = static_cast<float*>(a.dg);
+  float* hp = static_cast<float*>(a.hp);
+  const int cu = tid % U;  // the chain's unit
+  const bool celler = tid < L::CELLERS;
+  auto row_of = [&](int q) { return (q * NT + tid) / U; };  // in the block
+  // a pair's streams of step tt: i, f, o, blk, gout, c_{tt-1} (c0 at 0)
+  auto load = [&](float (&v)[6], int tt, int q) {
+    const int r = row_of(q);
+    const size_t at = ((size_t)tt * bp + b0 + r) * n + u0 + cu;
+    v[0] = __ldg(ri + at);
+    v[1] = __ldg(rf + at);
+    v[2] = __ldg(ro + at);
+    v[3] = __ldg(rb + at);
+    v[4] = __ldg(gout + at);
+    v[5] = __ldg(tt > 0 ? rc + at - (size_t)bp * n : a.c0 + (size_t)(b0 + r) * n + u0 + cu);
+  };
+  float wci = 0.f, wcf = 0.f, wco = 0.f;
+  // per pair: the dc carry and c_t of the coming step; the peephole sums
+  // of the thread's pairs (one unit) over its steps
+  float dc[PAIRS], cc[PAIRS], pi = 0.f, pf = 0.f, po = 0.f;
+  float nx[L::AHEAD ? PAIRS : 1][6];  // the coming step's streams (AHEAD)
+  if (celler) {
+    wci = a.wci[u0 + cu];
+    wcf = a.wcf[u0 + cu];
+    wco = a.wco[u0 + cu];
 #pragma unroll
-  for (int q = 0; q < PAIRS; ++q) {
-    const int p = tid + q * NT;
-    dc[q] = p < BB * U ? a.gclast[(size_t)(b0 + p / U) * n + u0 + p % U] : 0.f;
-    pi[q] = pf[q] = po[q] = 0.f;
+    for (int q = 0; q < PAIRS; ++q) {
+      const size_t at = (size_t)(b0 + row_of(q)) * n + u0 + cu;
+      dc[q] = a.gclast[at];
+      cc[q] = __ldg(rc + (size_t)(t - 1) * bp * n + at);
+      if (L::AHEAD) load(nx[L::AHEAD ? q : 0], t - 1, q);
+    }
   }
+  // this block's dh sums of a step's partials into red[jg][BB][U]
+  auto sum_partials = [&](const float* P) {
+    const float4* src = reinterpret_cast<const float4*>(P + (size_t)j * BB * n);
+    const int jg = NQ >= NT ? 0 : tid / NQ;
+    const int j0 = jg * nj / JG, j1 = (jg + 1) * nj / JG;
+#pragma unroll
+    for (int qi = 0; qi < L::QPT; ++qi) {
+      const int qd = (NQ >= NT ? tid : tid % NQ) + qi * NT;
+      const float4* p = src + (size_t)j0 * NQ + qd;
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 16
+      for (int jj = j0; jj < j1; ++jj, p += NQ) {
+        const float4 v = __ldcg(p);
+        acc.x += v.x;
+        acc.y += v.y;
+        acc.z += v.z;
+        acc.w += v.w;
+      }
+      reinterpret_cast<float4*>(red)[jg * NQ + qd] = acc;
+    }
+  };
+  auto dh_sum = [&](int r) {  // the groups' sums of (r, cu) in order
+    float x = 0.f;
+#pragma unroll
+    for (int g = 0; g < JG; ++g) x += red[(g * BB + r) * U + cu];
+    return x;
+  };
   __syncthreads();
 
-  const T *ri = static_cast<const T*>(a.res[0]), *rf = static_cast<const T*>(a.res[1]),
-          *ro = static_cast<const T*>(a.res[2]), *rb = static_cast<const T*>(a.res[3]),
-          *rc = static_cast<const T*>(a.res[4]), *gout = static_cast<const T*>(a.gout),
-          *h0 = static_cast<const T*>(a.h0);
-  T* dg = static_cast<T*>(a.dg);
-  T* hp = static_cast<T*>(a.hp);
-  for (int s = 0; s < a.t; ++s) {
-    const int tt = a.t - 1 - s;
-    const bool has_next = tt + 1 < a.t;
-    if (has_next)
-      block_product<U, true, MAXB>(out, LDO, stage, dg + ((size_t)(tt + 1) * bp + b0) * G, G, W,
-                                   LDR, G, BB);
-    // the chain, QB (row, unit) pairs at a time: their loads of the
-    // residuals and gout (streamed from device memory) in flight together
+  for (int s = 0;; ++s) {
+    unsigned long long* st = TIMED ? a.stamps + ((size_t)blockIdx.x * t + (s < t ? s : 0)) * 4 : nullptr;
+    if (s > 0) {
+      group_wait(a.counter + bi, (unsigned int)(s * nj));
+      if (TIMED && s < t && tid == 0) st[0] = globaltimer();
+      sum_partials(partials(s - 1));
+      __syncthreads();
+    } else if (TIMED && tid == 0) {
+      st[0] = globaltimer();
+    }
+    if (s == t) break;
+    if (TIMED && tid == 0) st[1] = globaltimer();
+    const int tt = t - 1 - s;
+
+    // the chain per pair: dh = gout + the sums (none at the last step)
+    if (celler) {
 #pragma unroll
-    for (int q0 = 0; q0 < PAIRS; q0 += QB) {
-      float v[QB][7];  // i, f, o, blk, c, c_prev, gout
+      for (int q0 = 0; q0 < PAIRS; q0 += QB) {
+        float ld[L::AHEAD ? 1 : QB][6];
+        if (!L::AHEAD) {
 #pragma unroll
-      for (int jj = 0; jj < QB; ++jj) {
-        const int p = tid + (q0 + jj) * NT;
-        if (p < BB * U) {
-          const size_t at = ((size_t)tt * bp + b0 + p / U) * n + u0 + p % U;
-          v[jj][0] = ri[at];
-          v[jj][1] = rf[at];
-          v[jj][2] = ro[at];
-          v[jj][3] = rb[at];
-          v[jj][4] = rc[at];
-          v[jj][5] = tt > 0 ? rc[at - (size_t)bp * n] : a.c0[(size_t)(b0 + p / U) * n + u0 + p % U];
-          v[jj][6] = gout[at];
+          for (int jj = 0; jj < QB; ++jj) load(ld[L::AHEAD ? 0 : jj], tt, q0 + jj);
         }
-      }
 #pragma unroll
-      for (int jj = 0; jj < QB; ++jj) {
-        const int q = q0 + jj, p = tid + q * NT;
-        if (p < BB * U) {
-          const int r = p / U, u = p % U;
-          const size_t row = (size_t)tt * bp + b0 + r;
-          const size_t at = row * n + u0 + u;
-          const float it = v[jj][0], ft = v[jj][1], ot = v[jj][2], bt = v[jj][3];
-          const float ct = v[jj][4], cp = v[jj][5];
+        for (int jj = 0; jj < QB; ++jj) {
+          const int q = q0 + jj, r = row_of(q);
+          const float* v = L::AHEAD ? nx[L::AHEAD ? q : 0] : ld[L::AHEAD ? 0 : jj];
+          const float it = v[0], ft = v[1], ot = v[2], bt = v[3], cp = v[5], ct = cc[q];
           const float th = tanhf(ct);
-          const float dh = v[jj][6] + (has_next ? out[r * LDO + u] : 0.f);
+          const float dh = v[4] + (s > 0 ? dh_sum(r) : 0.f);
           // the gate chain (`_bptt_gates`)
           const float dout = dh * th;
           const float da_o = dout * ot * (1.f - ot);
-          const float dcc = dh * ot * (1.f - th * th) + dc[q] + da_o * a.wco[u0 + u];
+          const float dcc = dh * ot * (1.f - th * th) + dc[q] + da_o * wco;
           const float da_g = dcc * it * (1.f - bt * bt);
           const float da_i = dcc * bt * it * (1.f - it);
           const float da_f = dcc * cp * ft * (1.f - ft);
-          dc[q] = dcc * ft + da_i * a.wci[u0 + u] + da_f * a.wcf[u0 + u];
-          T* d = dg + row * G + u0 + u;
+          dc[q] = dcc * ft + da_i * wci + da_f * wcf;
+          const size_t row = (size_t)tt * bp + b0 + r;
+          float* d = dg + row * G + u0 + cu;
           d[0] = da_i;
           d[n] = da_f;
           d[2 * n] = da_o;
           d[3 * n] = da_g;
-          pi[q] += da_i * cp;
-          pf[q] += da_f * cp;
-          po[q] += da_o * ct;
-          if (has_next) hp[at + (size_t)bp * n] = ot * th;
+          float* ds = dgs + cu * LDG + dg_pos<BB>(r);
+          ds[0] = da_i;
+          ds[U * LDG] = da_f;
+          ds[2 * U * LDG] = da_o;
+          ds[3 * U * LDG] = da_g;
+          pi += da_i * cp;
+          pf += da_f * cp;
+          po += da_o * ct;
+          const size_t at = row * n + u0 + cu;
+          if (tt + 1 < t) hp[at + (size_t)bp * n] = ot * th;
           if (tt == 0) hp[at] = h0[at];
+          cc[q] = cp;
+        }
+      }
+      if (L::AHEAD && tt > 0) {  // in flight under the product and the barrier
+#pragma unroll
+        for (int q = 0; q < PAIRS; ++q) load(nx[L::AHEAD ? q : 0], tt - 1, q);
+      }
+    }
+    __syncthreads();  // dgs is whole
+    if (TIMED && tid == 0) st[2] = globaltimer();
+
+    // the partial of dh: dg_tt [BB][4U] . Wt [4U][n], for every unit's owner
+    {
+      const int rg = tid % RG, vg = tid / RG;
+      const float4* A = reinterpret_cast<const float4*>(dgs) + rg;
+      float* P = partials(s) + (size_t)j * BB * U;  // + owner jo's offset jo nj BB U
+      for (int p0 = 0; p0 < n; p0 += PW) {
+        int v[2] = {p0 + 4 * vg, p0 + PW / 2 + 4 * vg};
+        const bool ok[2] = {v[0] < n, v[1] < n};
+        v[0] = ok[0] ? v[0] : 0;  // a half past n reads unit 0 and stores nothing
+        v[1] = ok[1] ? v[1] : 0;
+        float acc[8][8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int k = 0; k < 8; ++k) acc[i][k] = 0.f;
+        const float* w0 = Wt + v[0];
+        const float* w1 = Wt + v[1];
+#pragma unroll 4
+        for (int c = 0; c < 4 * U; ++c) {
+          const float4 a0 = A[c * (LDG / 4)], a1 = A[c * (LDG / 4) + BB / 8];
+          fma8x4(acc, 0, a0, a1, *reinterpret_cast<const float4*>(w0 + (size_t)c * n));
+          fma8x4(acc, 1, a0, a1, *reinterpret_cast<const float4*>(w1 + (size_t)c * n));
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (ok[h]) {
+            float* dst = P + (size_t)(v[h] / U) * nj * BB * U + v[h] % U;
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+              __stcg(reinterpret_cast<float4*>(dst + (size_t)(rg + RG * i) * U),
+                     make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                                 acc[i][4 * h + 3]));
+          }
         }
       }
     }
-    group_arrive(a.counter + bi);
-    group_wait(a.counter + bi, (unsigned int)((s + 1) * nj));
+    if (TIMED) {
+      __syncthreads();
+      if (tid == 0) st[3] = globaltimer();
+    }
+    group_arrive(a.counter + bi);  // the partials are out: the owners wait for them
   }
 
-  // dh0 = dg_0 . Wr^T and dc0
-  block_product<U, true, MAXB>(out, LDO, stage, dg + (size_t)b0 * G, G, W, LDR, G, BB);
+  // dh0 = dg_0 . Wr^T (the last sums) and dc0
+  if (celler) {
 #pragma unroll
-  for (int q = 0; q < PAIRS; ++q) {
-    const int p = tid + q * NT;
-    if (p < BB * U) {
-      const int r = p / U, u = p % U;
-      const size_t at = (size_t)(b0 + r) * n + u0 + u;
-      a.dh0[at] = out[r * LDO + u];
+    for (int q = 0; q < PAIRS; ++q) {
+      const int r = row_of(q);
+      const size_t at = (size_t)(b0 + r) * n + u0 + cu;
+      a.dh0[at] = dh_sum(r);
       a.dc0[at] = dc[q];
     }
   }
-  // peephole partials of this block: sums over its rows, in row order
-  float* red = out;
+  // peephole partials of this block: the sums of a unit's threads, in
+  // thread order (in row order where a thread has one pair)
   for (int g = 0; g < 3; ++g) {
     __syncthreads();
-#pragma unroll
-    for (int q = 0; q < PAIRS; ++q) {
-      const int p = tid + q * NT;
-      if (p < BB * U) red[p] = g == 0 ? pi[q] : (g == 1 ? pf[q] : po[q]);
-    }
+    if (celler) red[tid] = g == 0 ? pi : (g == 1 ? pf : po);
     __syncthreads();
     if (tid < U) {
       float acc = 0.f;
-      for (int r = 0; r < BB; ++r) acc += red[r * U + tid];
+      for (int k = tid; k < L::CELLERS; k += U) acc += red[k];
       a.partial[((size_t)bi * 3 + g) * n + u0 + tid] = acc;
     }
   }
@@ -326,7 +528,7 @@ __device__ void sweep_mma(const BwdArgs& a, unsigned char* smem) {
   constexpr int NTL = U / 8;  // accumulator tiles; also words per stream vector
   constexpr int E = 2 * NTL;  // units per thread
   static_assert(U % 16 == 0 && BB % 16 == 0 && BB / 16 <= NT / 32, "bf16 sweep layout");
-  const int n = a.n, bp = a.bp, G = 4 * n, LDR = ldr<bf16>(n);
+  const int n = a.n, bp = a.bp, G = 4 * n, LDR = ldr_bf16(n);
   bf16* W = reinterpret_cast<bf16*>(smem);
   bf16* ring = reinterpret_cast<bf16*>(smem + round128(sizeof(bf16) * (size_t)U * LDR));
   // after the ring: wci, wcf, wco of the block's units (pw[q U + u]), then
@@ -528,25 +730,24 @@ __device__ void sweep_mma(const BwdArgs& a, unsigned char* smem) {
   }
 }
 
-// One kernel for both designs: T float (MAXB: the most rows a block may
-// own) or bf16 (MAXB: exactly the rows it owns).
-template <typename T, int U, int MAXB, bool TIMED = false>
+// One kernel for both designs: a block of exactly BB rows of U units,
+// the residuals' element type T.
+template <typename T, int U, int BB, bool TIMED = false>
 __global__ void __launch_bounds__(NT, 1) lstm_bwd_kernel(BwdArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   if constexpr (sizeof(T) == 2) {
-    sweep_mma<U, MAXB, TIMED>(a, smem);
+    sweep_mma<U, BB, TIMED>(a, smem);
   } else {
-    static_assert(!TIMED, "the timer is built for the bf16 design");
-    sweep_simt<U, MAXB>(a, smem);
+    sweep_simt<U, BB, TIMED>(a, smem);
   }
 }
 
-template <typename T, int U, int MAXB, bool TIMED = false>
+template <typename T, int U, int BB, bool TIMED = false>
 int launch_sweep(const BwdArgs& args, cudaStream_t stream) {
-  const size_t smem = sweep_smem<T, U>(args.n, args.BB);
-  if (smem > SMEM_LIMIT || args.BB > MAXB || (sizeof(T) == 2 && args.BB != MAXB))
+  const size_t smem = sweep_smem<T, U, BB>(args.n);
+  if (smem > SMEM_LIMIT || args.BB != BB || (sizeof(T) == 4 && args.dhp == nullptr))
     return (int)cudaErrorInvalidValue;
-  auto kernel = lstm_bwd_kernel<T, U, MAXB, TIMED>;
+  auto kernel = lstm_bwd_kernel<T, U, BB, TIMED>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -578,6 +779,30 @@ int launch_sweep_bf16(const BwdArgs& a, int u, cudaStream_t s) {
   return (int)cudaErrorInvalidValue;
 }
 
+// the f32 instantiation for the block's rows BB and units u: every layout
+// the wrapper's _block_shape gives (16 and 32 units only in 128-row
+// blocks); the timer at 4 units of 32 and 64 rows
+template <bool TIMED>
+int launch_sweep_f32(const BwdArgs& a, int u, cudaStream_t s) {
+  switch (u * 1000 + a.BB) {
+    case 4032: return launch_sweep<float, 4, 32, TIMED>(a, s);
+    case 4064: return launch_sweep<float, 4, 64, TIMED>(a, s);
+  }
+  if constexpr (!TIMED) {
+    switch (u * 1000 + a.BB) {
+      case 4016: return launch_sweep<float, 4, 16>(a, s);
+      case 4128: return launch_sweep<float, 4, 128>(a, s);
+      case 8016: return launch_sweep<float, 8, 16>(a, s);
+      case 8032: return launch_sweep<float, 8, 32>(a, s);
+      case 8064: return launch_sweep<float, 8, 64>(a, s);
+      case 8128: return launch_sweep<float, 8, 128>(a, s);
+      case 16128: return launch_sweep<float, 16, 128>(a, s);
+      case 32128: return launch_sweep<float, 32, 128>(a, s);
+    }
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 // ------------------------------------------------------------- lstm_dw
 
 struct DwArgs {
@@ -588,8 +813,8 @@ struct DwArgs {
   float* dwci;           // [n] each
   float* dwcf;
   float* dwco;
-  float* ws;             // [splits, n, 4n] (bf16, splits > 1): the splits' partial tiles
-  unsigned int* tiles_done;  // [tiles] zeros (bf16, splits > 1)
+  float* ws;             // [splits, n, 4n] (splits > 1): the splits' partial tiles
+  unsigned int* tiles_done;  // [tiles] zeros (splits > 1)
   int m, n, nb, splits;
 };
 
@@ -604,6 +829,19 @@ __device__ __forceinline__ void peephole_sums(const DwArgs& a, int u0, int count
       (g == 0 ? a.dwci : (g == 1 ? a.dwcf : a.dwco))[u] = acc;
     }
   }
+}
+
+// Once a split has stored its partial tile to ws: whether this block is
+// the tile's last split to arrive, which sums them all (every split's
+// partial is then visible to it). flag: a word of shared memory.
+__device__ __forceinline__ bool last_split(const DwArgs& a, int tile, unsigned int* flag) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) *flag = atomicAdd(a.tiles_done + tile, 1u) == (unsigned int)a.splits - 1;
+  __syncthreads();
+  if (!*flag) return false;
+  __threadfence();
+  return true;
 }
 
 // the bf16 GEMM (see the header): tiles of DW_TM units x DW_TN gate columns
@@ -696,13 +934,7 @@ __device__ void dw_mma(const DwArgs& a, unsigned char* smem) {
     // the partial tile out; the last split of the tile to arrive sums
     // them all in split order (its own from registers)
     store(a.ws + (size_t)split * n * G, mine);
-    __threadfence();
-    __syncthreads();
-    unsigned int* last = reinterpret_cast<unsigned int*>(smem + DW_MMA_SMEM - 128);
-    if (tid == 0) *last = atomicAdd(a.tiles_done + tile, 1u) == (unsigned int)a.splits - 1;
-    __syncthreads();
-    if (!*last) return;
-    __threadfence();
+    if (!last_split(a, tile, reinterpret_cast<unsigned int*>(smem + DW_MMA_SMEM - 128))) return;
     store(a.dwr, [&](int mt, int nt, int h, size_t at) {
       float2 sum = make_float2(0.f, 0.f);
       for (int sp = 0; sp < a.splits; ++sp) {
@@ -720,67 +952,122 @@ __device__ void dw_mma(const DwArgs& a, unsigned char* smem) {
   if (tile % ntn == 0) peephole_sums(a, r0, DW_TM);
 }
 
-// the f32 design: one 64 x 64 tile of dWr per block on the CUDA cores
-constexpr int DW_TILE = 64;
-constexpr int DW_LDS = DW_TILE + 4;  // f32 row stride of both chunk tiles
-constexpr size_t DW_CHUNK = round128(sizeof(float) * (size_t)KC * DW_LDS);
-constexpr size_t DW_SIMT_SMEM = 4 * DW_CHUNK;  // two A, two B chunks
+// the f32 design: tiles of DWF_T units x DWF_T gate columns on the CUDA
+// cores, fed by a DWF_STAGES-stage cp.async ring of DWF_KD-row chunks of
+// h_prev and dg (both m-major: all threads read one chunk row at a time)
+constexpr int DWF_T = 128, DWF_KD = 32, DWF_STAGES = 3;
+constexpr size_t DWF_CHUNK = round128(sizeof(float) * (size_t)DWF_KD * DWF_T);
+constexpr size_t DWF_SMEM = DWF_STAGES * 2 * DWF_CHUNK + 128;
 
+// A tile's m range split as dw_mma's: each split's 128 x 128 partial to
+// ws, the last split of the tile to finish sums them in split order.
+// Thread (ty, tx) = (tid / 16, tid % 16) owns an 8 x 8 register tile:
+// rows 4 ty + i and 64 + 4 ty + i, columns 4 tx + k and 64 + 4 tx + k
+// (i, k < 4), so that a warp's 16-byte shared loads of a chunk row fall
+// on neighbouring addresses (4 per 64 FMAs).
 __device__ void dw_simt(const DwArgs& a, unsigned char* smem) {
-  // chunk buffers: A = h_prev [KC rows][TILE units], B = dg [KC rows][TILE
-  // gate columns]; the next pair is in flight while one is multiplied
-  float* As[2] = {reinterpret_cast<float*>(smem), reinterpret_cast<float*>(smem + DW_CHUNK)};
-  float* Bs[2] = {reinterpret_cast<float*>(smem + 2 * DW_CHUNK),
-                  reinterpret_cast<float*>(smem + 3 * DW_CHUNK)};
-  const int n = a.n, G = 4 * n, ncol = G / DW_TILE;
-  const int rt = blockIdx.x / ncol, ct = blockIdx.x % ncol;
-  const int r0 = rt * DW_TILE, c0 = ct * DW_TILE;
-  const int tid = threadIdx.x;
+  const int n = a.n, G = 4 * n, ntn = G / DWF_T;
+  const int tiles = (n + DWF_T - 1) / DWF_T * ntn;
+  const int tile = blockIdx.x % tiles, split = blockIdx.x / tiles;
+  const int r0 = tile / ntn * DWF_T, c0 = tile % ntn * DWF_T;
+  const int nk = (a.m + DWF_KD - 1) / DWF_KD;
+  const int k_begin = (int)((long long)split * nk / a.splits);
+  const int k_end = (int)((long long)(split + 1) * nk / a.splits);
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const float* hp = static_cast<const float*>(a.hp);
   const float* dg = static_cast<const float*>(a.dg);
-  const int nk = (a.m + KC - 1) / KC;
-  auto issue = [&](int kc) {
-    const int m0 = kc * KC;
-    issue_rows<KC, DW_LDS, DW_TILE, true>(As[kc & 1], hp + (size_t)m0 * n + r0, n, a.m - m0);
-    issue_rows<KC, DW_LDS, DW_TILE, true>(Bs[kc & 1], dg + (size_t)m0 * G + c0, G, a.m - m0);
+  auto As = [&](int st) { return reinterpret_cast<float*>(smem + 2 * st * DWF_CHUNK); };
+  auto Bs = [&](int st) { return reinterpret_cast<float*>(smem + (2 * st + 1) * DWF_CHUNK); };
+  auto fetch = [&](int kc) {  // rows [kc KD, +KD) of h_prev's and dg's tile columns
+    const int m0 = kc * DWF_KD, st = (kc - k_begin) % DWF_STAGES, rows = a.m - m0;
+    issue_rows<DWF_KD, DWF_T, DWF_T, true>(As(st), hp + (size_t)m0 * n + r0, n, rows, n - r0);
+    issue_rows<DWF_KD, DWF_T, DWF_T, true>(Bs(st), dg + (size_t)m0 * G + c0, G, rows);
   };
-  issue(0);
-  cp_async_commit();
-  const int tr = tid / 16, tc = tid % 16;  // a 4 x 4 micro tile each
-  float acc[4][4] = {};
-  for (int kc = 0; kc < nk; ++kc) {
-    if (kc + 1 < nk) issue(kc + 1);
+#pragma unroll
+  for (int q = 0; q < DWF_STAGES - 1; ++q) {
+    if (k_begin + q < k_end) fetch(k_begin + q);
     cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const float* A = As[kc & 1];
-    const float* Bm = Bs[kc & 1];
+  }
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc[i][k] = 0.f;
+  for (int kc = k_begin; kc < k_end; ++kc) {
+    cp_async_wait<DWF_STAGES - 2>();  // this thread's copies of chunk kc landed
+    __syncthreads();                  // everyone's did; chunk kc - 1 is read
+    if (kc + DWF_STAGES - 1 < k_end) fetch(kc + DWF_STAGES - 1);
+    cp_async_commit();
+    const int st = (kc - k_begin) % DWF_STAGES;
+    const float* A = As(st) + 4 * ty;
+    const float* B = Bs(st) + 4 * tx;
 #pragma unroll 4
-    for (int k = 0; k < KC; ++k) {
-      float x[4], y[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        x[i] = A[k * DW_LDS + tr * 4 + i];
-        y[i] = Bm[k * DW_LDS + tc * 4 + i];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) acc[i][jj] += x[i] * y[jj];
+    for (int k = 0; k < DWF_KD; ++k) {
+      const float4 a0 = *reinterpret_cast<const float4*>(A + k * DWF_T);
+      const float4 a1 = *reinterpret_cast<const float4*>(A + k * DWF_T + 64);
+      fma8x4(acc, 0, a0, a1, *reinterpret_cast<const float4*>(B + k * DWF_T));
+      fma8x4(acc, 1, a0, a1, *reinterpret_cast<const float4*>(B + k * DWF_T + 64));
     }
-    __syncthreads();
   }
   cp_async_wait<0>();
+
+  // the tile: row r0 + 4 ty + (i < 4 ? i : 60 + i), columns c0 + 64 h + 4 tx + [0, 4)
+  auto store = [&](float* dst, auto value) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 8; ++i) {
+      const int row = r0 + 4 * ty + (i < 4 ? i : 60 + i);
+      if (row < n) {
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj)
-      a.dwr[(size_t)(r0 + tr * 4 + i) * G + c0 + tc * 4 + jj] = acc[i][jj];
-  if (ct == 0) peephole_sums(a, r0, DW_TILE);
+        for (int h = 0; h < 2; ++h) {
+          const size_t at = (size_t)row * G + c0 + 64 * h + 4 * tx;
+          *reinterpret_cast<float4*>(dst + at) = value(i, h, at);
+        }
+      }
+    }
+  };
+  const auto mine = [&](int i, int h, size_t) {
+    return make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
+  };
+  if (a.splits > 1) {
+    store(a.ws + (size_t)split * n * G, mine);
+    if (!last_split(a, tile, reinterpret_cast<unsigned int*>(smem + DWF_SMEM - 128))) return;
+    // the splits' partials summed in split order (its own from registers),
+    // a split's 8 rows of one column half at a time, their loads in
+    // flight together (one at a time, the sum waited on each load)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float4 sum[8];
+      for (int sp = 0; sp < a.splits; ++sp) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int row = r0 + 4 * ty + (i < 4 ? i : 60 + i);
+          const size_t at = (size_t)(row < n ? row : 0) * G + c0 + 64 * h + 4 * tx;
+          const float4 v = sp == split ? mine(i, h, at)
+                                       : __ldcg(reinterpret_cast<const float4*>(
+                                             a.ws + (size_t)sp * n * G + at));
+          if (sp == 0) {
+            sum[i] = v;
+          } else {
+            sum[i].x += v.x;
+            sum[i].y += v.y;
+            sum[i].z += v.z;
+            sum[i].w += v.w;
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int row = r0 + 4 * ty + (i < 4 ? i : 60 + i);
+        if (row < n)
+          *reinterpret_cast<float4*>(a.dwr + (size_t)row * G + c0 + 64 * h + 4 * tx) = sum[i];
+      }
+    }
+  } else {
+    store(a.dwr, mine);
+  }
+  if (tile % ntn == 0) peephole_sums(a, r0, DWF_T);
 }
 
-// No minimum of blocks per SM: with one asked for, the f32 kernel took
-// 103 registers and ran 7-10% slower than at 60 on an H100 (PERF.md).
 template <typename T>
 __global__ void __launch_bounds__(NT) lstm_dw_kernel(DwArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -803,12 +1090,12 @@ BwdArgs make_args(const void* i, const void* f, const void* o, const void* blk, 
                   const void* gout, const void* wr, const float* wci, const float* wcf,
                   const float* wco, const void* h0, const float* c0, const float* gclast,
                   void* dg, void* hp, float* dh0, float* dc0, float* partial,
-                  unsigned int* counter, int t, int bp, int n, int bb) {
+                  unsigned int* counter, float* dhp, int t, int bp, int n, int bb) {
   BwdArgs a = {};
   a.res[0] = i; a.res[1] = f; a.res[2] = o; a.res[3] = blk; a.res[4] = c;
   a.gout = gout; a.wr = wr; a.wci = wci; a.wcf = wcf; a.wco = wco; a.h0 = h0; a.c0 = c0;
   a.gclast = gclast; a.dg = dg; a.hp = hp; a.dh0 = dh0; a.dc0 = dc0; a.partial = partial;
-  a.counter = counter; a.t = t; a.bp = bp; a.n = n; a.BB = bb;
+  a.counter = counter; a.dhp = dhp; a.t = t; a.bp = bp; a.n = n; a.BB = bb;
   return a;
 }
 
@@ -821,7 +1108,8 @@ bool shape_ok(const BwdArgs& a) {
 
 // The sweep. All tensors contiguous and 16-byte aligned, batch padded
 // to bp (a multiple of bb); bb rows and u units per block; dtype 0 =
-// float32, 1 = bfloat16 (residuals, gout, wr, h0, dg, hp). Returns a
+// float32, 1 = bfloat16 (residuals, gout, wr, h0, dg, hp); dhp, the f32
+// sweep's scratch of 2 bp (n / u) n floats (null for bf16). Returns a
 // cudaError_t (0 on success); a shape or layout the kernel is not built
 // for returns cudaErrorInvalidValue, a grid that cannot be co-resident
 // cudaErrorCooperativeLaunchTooLarge.
@@ -829,49 +1117,48 @@ extern "C" int dl4j_lstm_bwd(const void* i, const void* f, const void* o, const 
                              const void* c, const void* gout, const void* wr, const float* wci,
                              const float* wcf, const float* wco, const void* h0, const float* c0,
                              const float* gclast, void* dg, void* hp, float* dh0, float* dc0,
-                             float* partial, unsigned int* counter, int t, int bp, int n, int bb,
-                             int u, int dtype, void* stream) {
+                             float* partial, unsigned int* counter, float* dhp, int t, int bp,
+                             int n, int bb, int u, int dtype, void* stream) {
   const BwdArgs a = make_args(i, f, o, blk, c, gout, wr, wci, wcf, wco, h0, c0, gclast, dg, hp,
-                              dh0, dc0, partial, counter, t, bp, n, bb);
+                              dh0, dc0, partial, counter, dhp, t, bp, n, bb);
   if (!shape_ok(a)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) return launch_sweep_bf16<false>(a, u, s);  // U >= 16: 8-unit tile pairs
-  if (dtype == 0) {  // f32: the per-thread row arrays sized by BB
-    const bool small = bb <= 32;
-    if (u == 32) return small ? launch_sweep<float, 32, 32>(a, s) : launch_sweep<float, 32, MAX_BB>(a, s);
-    if (u == 16) return small ? launch_sweep<float, 16, 32>(a, s) : launch_sweep<float, 16, MAX_BB>(a, s);
-    if (u == 8) return small ? launch_sweep<float, 8, 32>(a, s) : launch_sweep<float, 8, MAX_BB>(a, s);
-    if (u == 4) return small ? launch_sweep<float, 4, 32>(a, s) : launch_sweep<float, 4, MAX_BB>(a, s);
-  }
+  if (dtype == 0) return launch_sweep_f32<false>(a, u, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// dl4j_lstm_bwd's bf16 sweep with its step timer (bb 128 only): per
-// block and step, the globaltimer (ns) after the barrier, after the last
-// dg chunk landed, after the product and after the chain, its stores and
-// the next step's prefetch, into stamps [grid, t, 4] (grid = (bp / bb) *
-// (n / u)).
+// dl4j_lstm_bwd with the sweep's step timer (bf16: bb 128; f32: u 4, bb
+// 32 or 64): per block and step, the globaltimer (ns) at four points
+// into stamps [grid, t, 4] (grid = (bp / bb) * (n / u)). bf16: after the
+// barrier, after the last dg chunk landed, after the product and after
+// the chain, its stores and the next step's prefetch; f32: after the
+// barrier, after the dh sums, after the chain and its stores and after
+// the product and its stores.
 extern "C" int dl4j_lstm_bwd_timed(const void* i, const void* f, const void* o,
                                    const void* blk, const void* c, const void* gout,
                                    const void* wr, const float* wci, const float* wcf,
                                    const float* wco, const void* h0, const float* c0,
                                    const float* gclast, void* dg, void* hp, float* dh0,
-                                   float* dc0, float* partial, unsigned int* counter,
+                                   float* dc0, float* partial, unsigned int* counter, float* dhp,
                                    unsigned long long* stamps, int t, int bp, int n, int bb,
                                    int u, int dtype, void* stream) {
   BwdArgs a = make_args(i, f, o, blk, c, gout, wr, wci, wcf, wco, h0, c0, gclast, dg, hp, dh0,
-                        dc0, partial, counter, t, bp, n, bb);
+                        dc0, partial, counter, dhp, t, bp, n, bb);
   a.stamps = stamps;
-  if (dtype != 1 || stamps == nullptr || !shape_ok(a)) return (int)cudaErrorInvalidValue;
-  return launch_sweep_bf16<true>(a, u, static_cast<cudaStream_t>(stream));
+  if (stamps == nullptr || !shape_ok(a)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) return launch_sweep_bf16<true>(a, u, s);
+  if (dtype == 0) return launch_sweep_f32<true>(a, u, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // The weight gradients: dwr [n, 4n] f32 from hp [m, n] and dg [m, 4n]
 // (m = t * bp rows, the sweep's outputs), and the peephole gradients
-// from the sweep's partials [nb, 3, n]. bf16: ``splits`` ranges of m
-// (the caller's choice, about the card's SMs over the tiles), ws [splits,
-// n, 4n] f32 and tiles_done [ceil(n / 128) * (4n / 256)] zeros where
-// splits > 1; f32: splits 1 (ws and tiles_done unused).
+// from the sweep's partials [nb, 3, n]: ``splits`` ranges of m (the
+// caller's choice, about the card's SMs over the tiles), ws [splits, n,
+// 4n] f32 and tiles_done [tiles] zeros where splits > 1 (tiles: ceil(n /
+// 128) * (4n / 256) in bf16, ceil(n / 128) * (4n / 128) in f32).
 extern "C" int dl4j_lstm_dw(const void* hp, const void* dg, const float* partial, float* dwr,
                             float* dwci, float* dwcf, float* dwco, float* ws,
                             unsigned int* tiles_done, int m, int n, int nb, int splits,
@@ -880,12 +1167,12 @@ extern "C" int dl4j_lstm_dw(const void* hp, const void* dg, const float* partial
     return (int)cudaErrorInvalidValue;
   DwArgs a = {hp, dg, partial, dwr, dwci, dwcf, dwco, ws, tiles_done, m, n, nb, splits};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype < 0 || dtype > 1 || (splits > 1 && (ws == nullptr || tiles_done == nullptr)))
+    return (int)cudaErrorInvalidValue;
   if (dtype == 1) {
-    if (splits > 1 && (ws == nullptr || tiles_done == nullptr)) return (int)cudaErrorInvalidValue;
     const int tiles = (n + DW_TM - 1) / DW_TM * (4 * n / DW_TN);
     return launch_dw<bf16>(a, dim3(tiles * splits), DW_MMA_SMEM, s);
   }
-  if (dtype == 0 && splits == 1)
-    return launch_dw<float>(a, dim3((n / DW_TILE) * (4 * n / DW_TILE)), DW_SIMT_SMEM, s);
-  return (int)cudaErrorInvalidValue;
+  const int tiles = (n + DWF_T - 1) / DWF_T * (4 * n / DWF_T);
+  return launch_dw<float>(a, dim3(tiles * splits), DWF_SMEM, s);
 }

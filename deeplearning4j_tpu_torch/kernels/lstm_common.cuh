@@ -2,8 +2,8 @@
 // lstm_bwd.cu) for Hopper (sm_90a): conversions, the card's nanosecond
 // timer, the batch-group barrier of the persistent kernels (a release
 // arrival and an acquire wait), the copy of row chunks into shared
-// memory (cp.async), the f32 backward's per-step block product on the
-// CUDA cores, the bf16 forward's warp layout, and bf16 vector accesses.
+// memory (cp.async), the bf16 forward's warp layout, and bf16 vector
+// accesses.
 //
 // Layout shared by both sweeps: a block (bi, j) of the persistent grid
 // owns batch rows [bi * BB, +BB) and hidden units [j * U, +U) for the
@@ -136,70 +136,6 @@ __device__ __forceinline__ void issue_rows(T* dst, const T* src, size_t ld_src, 
       }
     }
   }
-}
-
-// ---------------------------------------------------- the f32 backward sweep
-
-// Bytes of the two staging buffers of block_product (for BB rows).
-__host__ __device__ constexpr size_t stage_bytes(int BB) {
-  return 2 * round128(sizeof(float) * (size_t)BB * lda<float>());
-}
-
-// out[BB][NC] (f32, row stride ldo, shared memory) = A[BB][K] . B[K][NC]
-// on the CUDA cores, with A's rows read from device memory (row stride
-// lda_g) through two staging buffers at ``stage`` (the next chunk is in
-// flight while the current one is multiplied; ``out`` may alias them: it
-// is written only after the last chunk is consumed) and B resident in
-// shared memory: B(k, c) = W[k * ldw + c] (B_COL false) or W[c * ldw + k]
-// (B_COL true). NC is 4U (the forward's gates) or U (the backward's
-// units); BB <= MAXB, the rows the per-thread arrays are sized for.
-template <int NC, bool B_COL, int MAXB>
-__device__ void block_product(float* out, int ldo, float* stage, const float* A, size_t lda_g,
-                              const float* W, int ldw, int K, int BB) {
-  constexpr int LDA = lda<float>();
-  constexpr int RP = NT / NC;                 // rows per pass
-  constexpr int RPT = (MAXB + RP - 1) / RP;   // rows per thread, at most
-  // the staging buffer of chunk kc (no array: its index is not constant)
-  const size_t half = stage_bytes(BB) / 2 / sizeof(float);
-  auto buf = [&](int kc) { return stage + (kc & 1) * half; };
-  const int tid = threadIdx.x;
-  const int nk = K / KC;
-  const int c = tid % NC, rg = tid / NC;
-  // BB rows of a chunk, 16 at a time (one 16-byte piece per thread each)
-  auto issue = [&](float* dst, int col0) {
-    for (int r0 = 0; r0 < BB; r0 += 16)
-      issue_rows<16, LDA>(dst + r0 * LDA, A + (size_t)r0 * lda_g + col0, lda_g);
-  };
-  issue(buf(0), 0);
-  cp_async_commit();
-  float acc[RPT];
-#pragma unroll
-  for (int rr = 0; rr < RPT; ++rr) acc[rr] = 0.f;
-  for (int kc = 0; kc < nk; ++kc) {
-    if (kc + 1 < nk) issue(buf(kc + 1), (kc + 1) * KC);
-    cp_async_commit();
-    cp_async_wait<1>();  // chunk kc has landed
-    __syncthreads();
-    const float* cur = buf(kc);
-    const int k0 = kc * KC;
-#pragma unroll 4
-    for (int kk = 0; kk < KC; ++kk) {
-      const float b = B_COL ? W[(size_t)c * ldw + k0 + kk] : W[(size_t)(k0 + kk) * ldw + c];
-#pragma unroll
-      for (int rr = 0; rr < RPT; ++rr) {
-        const int r = rg + rr * RP;
-        if (r < BB) acc[rr] += cur[r * LDA + kk] * b;
-      }
-    }
-    __syncthreads();  // everyone is done with this buffer before it refills
-  }
-  cp_async_wait<0>();
-#pragma unroll
-  for (int rr = 0; rr < RPT; ++rr) {
-    const int r = rg + rr * RP;
-    if (r < BB) out[r * ldo + c] = acc[rr];
-  }
-  __syncthreads();
 }
 
 // ---------------------------------------------------------- the bf16 designs

@@ -45,7 +45,7 @@ FWD_KERNEL = "lstm_fwd"      # forward with residuals (training)
 FWD_ONLY_KERNEL = "lstm_fwd_only"
 TIMED_KERNEL = "lstm_fwd_timed"  # the forward kernels with their step timer
 BWD_KERNEL = "lstm_bwd"
-BWD_TIMED_KERNEL = "lstm_bwd_timed"  # lstm_bwd's bf16 sweep, timed
+BWD_TIMED_KERNEL = "lstm_bwd_timed"  # lstm_bwd's sweep, timed
 DW_KERNEL = "lstm_dw"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -196,39 +196,40 @@ def _lib(source: str) -> ctypes.CDLL:
         lib.dl4j_lstm_fwd.restype = lib.dl4j_lstm_fwd_only.restype = i32
         lib.dl4j_lstm_fwd_timed.restype = i32
     else:
-        lib.dl4j_lstm_bwd.argtypes = [ptr] * 19 + [i32] * 6 + [ptr]
-        lib.dl4j_lstm_bwd_timed.argtypes = [ptr] * 20 + [i32] * 6 + [ptr]
+        lib.dl4j_lstm_bwd.argtypes = [ptr] * 20 + [i32] * 6 + [ptr]
+        lib.dl4j_lstm_bwd_timed.argtypes = [ptr] * 21 + [i32] * 6 + [ptr]
         lib.dl4j_lstm_dw.argtypes = [ptr] * 9 + [i32] * 5 + [ptr]
         lib.dl4j_lstm_bwd.restype = lib.dl4j_lstm_dw.restype = i32
         lib.dl4j_lstm_bwd_timed.restype = i32
     return lib
 
 
-_DW_TILE = (128, 256)  # the bf16 lstm_dw's tile of dWr: units x gate columns
+# lstm_dw's tile of dWr, units x gate columns: bf16 (tensor cores), f32
+_DW_TILE = {2: (128, 256), 4: (128, 128)}
 
 
-def _dw_tiles(n: int) -> int:
-    return -(-n // _DW_TILE[0]) * (4 * n // _DW_TILE[1])
+def _dw_tiles(n: int, itemsize: int = 2) -> int:
+    rows, cols = _DW_TILE[itemsize]
+    return -(-n // rows) * (4 * n // cols)
 
 
 _DW_MAX_SPLITS = 8  # the last split of a tile sums the others' partials alone
-_DW_MIN_CHUNKS = 8  # 64-row chunks a split walks, at least
+# 64-row chunks a split walks, at least: bf16 8 (b 8, t 9, n 128: 1
+# split rather than 3 of one chunk, which took 0.045 ms against 0.0055
+# before the split); f32 1 (its CUDA-core chunks cost more than the sum)
+_DW_MIN_CHUNKS = {2: 8, 4: 1}
 
 
 def _dw_splits(m: int, n: int, itemsize: int, sms: int) -> int:
-    """The ranges of the m = t * bp rows the bf16 ``lstm_dw`` splits its
-    sum into: as many as keep its grid (tiles x splits) within one wave
-    of the card's ``sms`` SMs (n 512: 32 tiles, 4 splits), at most
-    ``_DW_MAX_SPLITS`` (n 128: 2 tiles, 8 splits rather than 66, whose
-    one summing block took ~0.3 ms) and none shorter than
-    ``_DW_MIN_CHUNKS`` chunks (b 8, t 9, n 128: 1 split rather than 3 of
-    one chunk, which took 0.045 ms against 0.0055 before the split); 1
-    for f32, whose grid is its tiles alone."""
-    if itemsize != 2:
-        return 1
+    """The ranges of the m = t * bp rows ``lstm_dw`` splits its sum into:
+    as many as keep its grid (tiles x splits) within one wave of the
+    card's ``sms`` SMs (bf16 n 512: 32 tiles, 4 splits; f32 n 512: 64
+    tiles, 2 splits), at most ``_DW_MAX_SPLITS`` (bf16 n 128: 2 tiles, 8
+    splits rather than 66, whose one summing block took ~0.3 ms) and
+    none shorter than ``_DW_MIN_CHUNKS`` chunks."""
     chunks = -(-m // 64)
-    return max(1, min(sms // _dw_tiles(n), chunks // _DW_MIN_CHUNKS,
-                      _DW_MAX_SPLITS))
+    return max(1, min(sms // _dw_tiles(n, itemsize),
+                      chunks // _DW_MIN_CHUNKS[itemsize], _DW_MAX_SPLITS))
 
 
 def _pad(z: torch.Tensor, bp: int, dim: int, dtype=None) -> torch.Tensor:
@@ -382,7 +383,7 @@ def _lstm_fwd_cuda(xg, wr, wci, wcf, wco, h0, c0, with_residuals: bool,
 
 def _lstm_bwd_cuda(res: Residuals, wr, wci, wcf, wco, h0, c0, gout, g_clast,
                    timed: bool = False):
-    """The backward kernels on CUDA tensors; ``timed`` (bf16) launches the
+    """The backward kernels on CUDA tensors; ``timed`` launches the
     sweep's timed instantiation and also returns its stamps."""
     t, b, n = res[0].shape
     dt = res[0].dtype
@@ -402,16 +403,22 @@ def _lstm_bwd_cuda(res: Residuals, wr, wci, wcf, wco, h0, c0, gout, g_clast,
     _check_aligned(*res_p, gout_p, wr, h0_p)
     dev = res[0].device
     nb = bp // bb
+    itemsize = res[0].element_size()
     dg = torch.empty(t, bp, 4 * n, dtype=dt, device=dev)
     hp = torch.empty(t, bp, n, dtype=dt, device=dev)
     dh0 = torch.empty(bp, n, dtype=torch.float32, device=dev)
     dc0 = torch.empty_like(dh0)
     partial = torch.empty(nb, 3, n, dtype=torch.float32, device=dev)
-    splits = _dw_splits(t * bp, n, res[0].element_size(), _sm_count(dev))
+    splits = _dw_splits(t * bp, n, itemsize, _sm_count(dev))
     # the sweep's batch-group counters and lstm_dw's per-tile counters
-    counters = torch.zeros(nb + (_dw_tiles(n) if splits > 1 else 0),
+    counters = torch.zeros(nb + (_dw_tiles(n, itemsize) if splits > 1 else 0),
                            dtype=torch.int32, device=dev)
     counter = counters[:nb]
+    # the f32 sweep's partials of dh, two steps' worth: per batch group,
+    # each block's [bb, n] product for the n / u owners of its units
+    # (2 bp (n / u) n floats: 16.8 MB at b 32, n 512)
+    dhp = (torch.empty(2 * bp * (n // u) * n, dtype=torch.float32, device=dev)
+           if dt == torch.float32 else None)
     ws = (torch.empty(splits, n, 4 * n, dtype=torch.float32, device=dev)
           if splits > 1 else None)
     dwr = torch.empty(n, 4 * n, dtype=torch.float32, device=dev)
@@ -421,6 +428,7 @@ def _lstm_bwd_cuda(res: Residuals, wr, wci, wcf, wco, h0, c0, gout, g_clast,
     ptrs = [z.data_ptr() for z in (*res_p, gout_p, wr, wci, wcf, wco, h0_p,
                                    c0_p, gcl_p, dg, hp, dh0, dc0, partial,
                                    counter)]
+    ptrs.append(None if dhp is None else dhp.data_ptr())
     dims = [t, bp, n, bb, u, code]
     with torch.cuda.device(dev):
         if timed:
@@ -491,15 +499,18 @@ def lstm_bwd(res: Residuals, wr, wci, wcf, wco, h0, c0, gout, g_clast):
 
 
 def lstm_bwd_timed(res: Residuals, wr, wci, wcf, wco, h0, c0, gout, g_clast):
-    """``lstm_bwd`` with the bf16 sweep in its timed instantiation, on
-    CUDA tensors only: its outputs, then stamps [blocks, t, 4] int64, the
-    card's globaltimer (ns) per block and step after the barrier, after
-    the last dg chunk landed, after the product, and after the gate chain
-    and its stores. A measurement entry point: no path of the port calls
-    it."""
-    if res[0].device.type != "cuda" or res[0].dtype != torch.bfloat16:
-        raise ValueError("the timed LSTM kernel runs on bfloat16 CUDA "
-                         f"tensors, not {res[0].dtype} on {res[0].device}")
+    """``lstm_bwd`` with the sweep in its timed instantiation, on CUDA
+    tensors only: its outputs, then stamps [blocks, t, 4] int64, the
+    card's globaltimer (ns) per block and step. bf16 (128-row blocks):
+    after the barrier, after the last dg chunk landed, after the product,
+    and after the gate chain and its stores; f32 (4 units in blocks of 32
+    or 64 rows): after the barrier, after the sums of the dh partials,
+    after the gate chain and its stores, and after the product and the
+    partials' stores. Other shapes raise. A measurement entry point: no
+    path of the port calls it."""
+    if res[0].device.type != "cuda" or res[0].dtype not in _DTYPE_CODES:
+        raise ValueError("the timed LSTM kernel runs on float32 or bfloat16 "
+                         f"CUDA tensors, not {res[0].dtype} on {res[0].device}")
     return _lstm_bwd_cuda(res, wr, wci, wcf, wco, h0, c0, gout, g_clast,
                           timed=True)
 

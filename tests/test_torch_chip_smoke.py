@@ -163,17 +163,20 @@ def test_spill_gate_rejects_a_spilling_bf16_lstm_fwd(spills):
         chip_smoke._spill_gate("lstm_fwd", _ptxas_report(spills))
 
 
-def _bwd_report(bwd_spills, dw_spills):
+def _bwd_report(bwd_spills, dw_spills, f32_bwd_spills=0, f32_dw_spills=0):
     """A stand-in report of lstm_bwd.cu: the f32 and bf16 sweeps (a
-    timed bf16 one too) and both lstm_dw kernels; the bf16 sweeps spill
-    ``bwd_spills`` bytes, the bf16 lstm_dw ``dw_spills``."""
+    timed one of each too) and both lstm_dw kernels; the bf16 sweeps spill
+    ``bwd_spills`` bytes, the bf16 lstm_dw ``dw_spills``, the f32 sweeps
+    ``f32_bwd_spills`` and the f32 lstm_dw ``f32_dw_spills``."""
     sweep = "_ZN12_GLOBAL__N_115lstm_bwd_kernelI{}Li32ELi128ELb{}EEEvNS_7BwdArgsE"
     dw = "_ZN12_GLOBAL__N_114lstm_dw_kernelI{}EEvNS_6DwArgsE"
     bf = "13__nv_bfloat16"
-    return _ptxas_lines([(sweep.format("f", 0), 200, 96),
+    return _ptxas_lines([(sweep.format("f", 0), 200, f32_bwd_spills),
+                         (sweep.format("f", 1), 204, f32_bwd_spills),
                          (sweep.format(bf, 0), 230, bwd_spills),
                          (sweep.format(bf, 1), 236, bwd_spills),
-                         (dw.format("f"), 90, 0), (dw.format(bf), 190, dw_spills)])
+                         (dw.format("f"), 90, f32_dw_spills),
+                         (dw.format(bf), 190, dw_spills)])
 
 
 def test_spill_gate_accepts_clean_bf16_lstm_bwd_and_lstm_dw(capsys):
@@ -181,6 +184,18 @@ def test_spill_gate_accepts_clean_bf16_lstm_bwd_and_lstm_dw(capsys):
     out = capsys.readouterr().out
     assert "bf16 lstm_bwd_kernel registers, spill bytes: [(230, 0), (236, 0)]" in out
     assert "bf16 lstm_dw_kernel registers, spill bytes: [(190, 0)]" in out
+    assert "f32 lstm_bwd_kernel registers, spill bytes: [(200, 0), (204, 0)]" in out
+    assert "f32 lstm_dw_kernel registers, spill bytes: [(90, 0)]" in out
+
+
+@pytest.mark.parametrize("bwd_spills,dw_spills,kernel", [
+    (8, 0, "lstm_bwd_kernel"), (0, 16, "lstm_dw_kernel")])
+def test_spill_gate_rejects_a_spilling_f32_lstm_bwd_or_lstm_dw(bwd_spills, dw_spills,
+                                                              kernel):
+    """The f32 backward is gated too (the first f32 sweep spilled 8 bytes
+    at 32 units and 128 rows)."""
+    with pytest.raises(RuntimeError, match=f"f32 {kernel} spills"):
+        chip_smoke._spill_gate("lstm_bwd", _bwd_report(0, 0, bwd_spills, dw_spills))
 
 
 @pytest.mark.parametrize("bwd_spills,dw_spills,kernel", [
@@ -276,7 +291,8 @@ def _lstm_row(dtype, b, t, n):
 def test_lstm_summary_gives_every_kernel_the_lines_keys():
     """The kernels line's LSTM entries carry every key of the contract;
     ``lstm_fwd_only`` reads generate's packed time, ``lstm_fwd`` has its
-    f32 entry at b 32, t 128, n 512."""
+    f32 entry at b 32, t 128, n 512, ``lstm_bwd`` and ``lstm_dw`` theirs
+    at the char-RNN example's training shape with phase 6's f32 launches."""
     from deeplearning4j_tpu_torch.ops import lstm_kernel as lk
 
     rows = [_lstm_row(*case) for case in chip_smoke.LSTM_CASES]
@@ -284,8 +300,11 @@ def test_lstm_summary_gives_every_kernel_the_lines_keys():
              lk.DW_KERNEL: 0}
     train = {lk.FWD_ONLY_KERNEL: 0, lk.FWD_KERNEL: 2, lk.BWD_KERNEL: 2,
              lk.DW_KERNEL: 2}
+    f32_train = {lk.FWD_ONLY_KERNEL: 0, lk.FWD_KERNEL: 1, lk.BWD_KERNEL: 1,
+                 lk.DW_KERNEL: 1}
     entries = chip_smoke._lstm_summary(
-        {"2b": rows, "5": (serve, {}), "6": (train, {})}, lk)
+        {"2b": rows, "5": (serve, {}),
+         "6": (train, {"f32": {"launches": f32_train}})}, lk)
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     assert [e["name"] for e in entries] == [
@@ -298,6 +317,41 @@ def test_lstm_summary_gives_every_kernel_the_lines_keys():
     assert fwd["f32"]["shape"] == [32, 128, 512, "float32"]
     assert (fwd["launches"], fwd["f32"]["launches"]) == (2, 0)
     assert keys - {"name", "route", "source", "replaces"} <= set(fwd["f32"])
+    for bwd in entries[2:]:
+        assert bwd["f32"]["shape"] == [64, 64, 256, "float32"]
+        assert (bwd["launches"], bwd["f32"]["launches"]) == (2, 1)
+        assert keys - {"name", "route", "source", "replaces"} <= set(bwd["f32"])
+        assert bwd["f32"]["backward_ms"] == 2.0
+
+
+def test_lstm_cases_hold_the_f32_example_shape():
+    """Phase 2b holds the f32 backward at the char-RNN example's training
+    shape, which its timer and phase 6's f32 run use too."""
+    shape = (chip_smoke.EXAMPLE_BATCH, chip_smoke.EXAMPLE_SEQ,
+             chip_smoke.EXAMPLE_HIDDEN)
+    assert ("float32", *shape) in chip_smoke.LSTM_CASES
+    assert shape in chip_smoke.F32_BWD_TIMER_CASES
+    assert (32, 128, 512) in chip_smoke.F32_BWD_TIMER_CASES
+
+
+def test_markov_ids_take_the_vocab():
+    """The example's ids lie in its 28 characters; phase 6's bf16 run
+    keeps the 64 of the benchmark's vocab."""
+    rng = np.random.default_rng(0)
+    ids = chip_smoke._markov_ids(np, rng, 64, 64, chip_smoke.EXAMPLE_VOCAB)
+    assert ids.shape == (64, 64) and ids.min() >= 0 and ids.max() < 28
+    assert chip_smoke._markov_ids(np, np.random.default_rng(1), 8, 9).max() \
+        < chip_smoke.CHAR_VOCAB
+
+
+def test_example_flops_per_token_counts_one_layer():
+    """One GravesLSTM layer: the input and recurrent products and the head;
+    the two-layer benchmark count is unchanged."""
+    v, h = chip_smoke.EXAMPLE_VOCAB, chip_smoke.EXAMPLE_HIDDEN
+    assert chip_smoke.char_rnn_flops_per_token(v, h, layers=1) == \
+        6.0 * (v * 4 * h + h * 4 * h + h * v)
+    assert chip_smoke.char_rnn_flops_per_token(64, 512) == \
+        6.0 * (64 * 2048 + 3 * 512 * 2048 + 512 * 64)
 
 
 def test_phase_breakdown_refuses_stamps_out_of_order():

@@ -239,18 +239,75 @@ def test_every_grid_that_fits_has_a_built_layout():
                         (itemsize, b, n, bb, u)
 
 
+# the f32 sweep's layouts (units, rows), as launch_sweep_f32 builds them
+F32_BWD_LAYOUTS = {(u, bb) for u in (4, 8) for bb in (16, 32, 64, 128)} \
+    | {(16, 128), (32, 128)}
+
+
+def _f32_sweep_smem(n, bb, u):
+    """The f32 sweep's shared memory in bytes (``sweep_smem``): the
+    resident Wt [4u][n], dg [4u][bb + 4] and the dh sums of its JG groups
+    of threads [JG][bb][u]."""
+    r128 = lambda x: -(-x // 128) * 128  # noqa: E731
+    return r128(16 * u * n) + r128(16 * u * (bb + 4)) + 4 * max(1024, bb * u)
+
+
+def test_every_grid_that_fits_has_a_built_f32_backward_layout():
+    """Wherever the gate sends an f32 shape to the kernels (132 SMs), the
+    backward sweep is built for its block layout, its shared memory fits
+    a block (227 KB), and its scratch of dh partials is 2 bp (n / u) n
+    floats, at most ~135 MB (b 128, n 1024)."""
+    worst = 0
+    for n in range(64, 1025, 64):
+        for b in (*range(1, 130), *range(130, 4097, 61)):
+            if lk._grid_fits(b, n, 4, 132):
+                bb, u, bp = lk._block_shape(b, n, 4, 132)
+                assert (u, bb) in F32_BWD_LAYOUTS, (b, n, bb, u)
+                assert _f32_sweep_smem(n, bb, u) <= 232448, (b, n, bb, u)
+                worst = max(worst, 2 * bp * (n // u) * n * 4)
+    assert worst <= 135 * 2 ** 20
+
+
+def test_timed_backward_refuses_cpu_tensors():
+    """The timed sweep is a kernel only: CPU tensors of either dtype
+    raise, they do not run the plain version."""
+    for dtype in DTYPES:
+        _, ts = _both(_inputs(32), dtype)
+        res = tuple(ts[:1] * 5)
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            lk.lstm_bwd_timed(res, *ts[1:], ts[5], ts[6])
+
+
 def test_dw_splits():
     """The bf16 lstm_dw's ranges of m on a card of 132 SMs: the training
     shape (32 tiles of 128 x 256) splits m 4 ways, one wave of 128
     blocks; small n stops at 8 splits, short m at one split per 8 of its
-    64-row chunks; n 1024 (128 tiles) and f32 do not split."""
+    64-row chunks; n 1024 (128 tiles) does not split. f32 at the same
+    shape (64 tiles of 128 x 128) splits m 2 ways."""
     assert lk._dw_tiles(512) == 32 and lk._dw_tiles(64) == 1
     assert lk._dw_splits(128 * 1024, 512, 2, 132) == 4
     assert lk._dw_splits(9 * 1024, 128, 2, 132) == 8
     assert lk._dw_splits(32 * 64, 128, 2, 132) == 4
     assert lk._dw_splits(9 * 16, 128, 2, 132) == 1
     assert lk._dw_splits(9 * 32, 1024, 2, 132) == 1
-    assert lk._dw_splits(128 * 1024, 512, 4, 132) == 1
+    assert lk._dw_splits(128 * 1024, 512, 4, 132) == 2
+
+
+def test_f32_dw_splits():
+    """The f32 lstm_dw's tiles are 128 x 128 of dWr: b 32, t 128, n 512
+    (64 tiles) splits m 2 ways and the char-RNN example (b 64, t 64, n
+    256: 16 tiles) 8 ways, a grid of 128 blocks each; n 1024 (256 tiles,
+    two waves) does not split; short m splits down to one 64-row chunk a
+    split (b 8, t 9, n 128: 3 of 144 rows); a ragged n (320: 3 row tiles,
+    the last half empty) counts whole tiles."""
+    assert lk._dw_tiles(512, 4) == 64 and lk._dw_tiles(256, 4) == 16
+    assert lk._dw_tiles(64, 4) == 2 and lk._dw_tiles(320, 4) == 30
+    assert lk._dw_splits(128 * 32, 512, 4, 132) == 2
+    assert lk._dw_splits(64 * 64, 256, 4, 132) == 8
+    assert lk._dw_splits(128 * 16, 1024, 4, 132) == 1
+    assert lk._dw_splits(9 * 16, 128, 4, 132) == 3
+    assert lk._dw_splits(1 * 32, 512, 4, 132) == 1
+    assert lk._dw_splits(9 * 1024, 128, 4, 132) == 8
 
 
 @pytest.mark.parametrize("u", [4, 8, 16, 32])
@@ -312,7 +369,16 @@ def test_cpu_runs_launch_no_kernel():
     ("float32", 32, 9, 1024),     # 32, 8; 4; 10 of 16
     # n not 64 times a power of two (U rounded down to a power of two)
     ("float32", 32, 5, 320),      # 32, 4
-    ("bfloat16", 32, 5, 576)])    # 32, 16
+    ("bfloat16", 32, 5, 576),     # 32, 16
+    # the f32 backward's layouts (BB, U; the product's passes over n;
+    # lstm_dw's m splits): each built sweep instantiation at least once
+    ("float32", 64, 64, 256),     # the char-RNN example: 64, 4; 1 pass; 8
+    ("float32", 128, 9, 256),     # 128, 4; 2 passes
+    ("float32", 64, 5, 1024),     # 64, 8; 4 passes
+    ("float32", 1024, 9, 128),    # 128, 8 over 8 batch groups; 8 splits
+    ("float32", 16, 3, 64),       # 16, 4: half of each tile past n; 2 tiles
+    ("float32", 8, 130, 512),     # 16, 4: the dh partials' two buffers, 130 steps
+    ("float32", 4352, 1, 64)])    # 128, 32 over 34 batch groups at t 1
 def test_kernels_match_plain_on_card(cuda_device, dtype, b, t, n):
     """Forward-only, residual forward and the backward pair against their
     plain versions on the card (tolerances as ``chip_smoke.py`` 2b)."""
@@ -395,7 +461,10 @@ def test_nan_in_gout_reaches_dg_and_dwr_on_card(cuda_device, dtype):
 @pytest.mark.parametrize("dtype,b,t,n", [
     ("bfloat16", 1024, 8, 512),   # the training layout: lstm_dw splits m
     ("bfloat16", 1024, 9, 128),   # one dWr row tile, m split 8 ways
-    ("float32", 64, 9, 128)])
+    ("float32", 64, 9, 128),
+    ("float32", 32, 16, 512),     # the f32 scan layout: m split 2 ways
+    ("float32", 64, 64, 256),     # the char-RNN example: m split 8 ways
+    ("float32", 512, 3, 512)])    # 16 units, 128 rows: the product in 4 passes
 def test_backward_is_deterministic_on_card(cuda_device, dtype, b, t, n):
     """Two calls on the same inputs give bitwise the same gradients: no
     atomics on a result, and the m splits of lstm_dw summed in a fixed
@@ -409,11 +478,14 @@ def test_backward_is_deterministic_on_card(cuda_device, dtype, b, t, n):
 
 
 @pytest.mark.cuda
-def test_timed_backward_gives_the_same_outputs_on_card(cuda_device):
-    """The sweep's timed instantiation computes what the untimed one
-    does, bit for bit, and stamps each block's steps in order."""
-    b, t, n = 256, 4, 512
-    res, rest, gout, gcl = _backward_inputs(cuda_device, "bfloat16", b, t, n, 13)
+@pytest.mark.parametrize("dtype,b,t,n", [
+    ("bfloat16", 256, 4, 512), ("float32", 32, 9, 512),
+    ("float32", 64, 5, 256)])
+def test_timed_backward_gives_the_same_outputs_on_card(cuda_device, dtype, b,
+                                                       t, n):
+    """The sweep's timed instantiations compute what the untimed ones
+    do, bit for bit, and stamp each block's steps in order."""
+    res, rest, gout, gcl = _backward_inputs(cuda_device, dtype, b, t, n, 13)
     kernels.reset_launches()
     *got, stamps = lk.lstm_bwd_timed(res, *rest, gout, gcl)
     want = lk.lstm_bwd(res, *rest, gout, gcl)
