@@ -11,16 +11,21 @@ Phases (any failure ends the run with a non-zero exit and no result):
    CUDA.
 1. build: every kernel source in this checkout, one ``nvcc`` each, all
    started together, from an empty build directory, timed; fails if a
-   bf16 ``flash_fwd_kernel``, ``flash_dq_kernel``, ``flash_dkv_kernel``,
-   ``lstm_fwd_kernel``, ``lstm_bwd_kernel`` or ``lstm_dw_kernel``, or an
+   bf16 ``flash_fwd_kernel``, ``flash_fwd_kernel_wide``,
+   ``flash_dq_kernel``, ``flash_dkv_kernel``, ``lstm_fwd_kernel``,
+   ``lstm_bwd_kernel`` or ``lstm_dw_kernel``, or an
    f32 ``lstm_fwd_kernel``, ``lstm_bwd_kernel`` or ``lstm_dw_kernel``,
    spills registers (``BF16_KERNELS``, ``F32_KERNELS``).
 2. kernels: each kernel's wrapper on card tensors against its plain
    PyTorch version on the same inputs, at the main paths' shapes, at
    larger ones and at ragged ones (t = 200, tq 72 / tk 200, one head of
-   2048), with stated tolerances; a forward call must be one launch of
-   ``flash_fwd_kernel``, and the bf16 forward is also run and timed at
-   both of its tilings (64 and 128 query rows per block); median times
+   2048; the wide heads of 256, 512 and 1024, ``WIDE_HEAD_CASES`` and
+   the forward's ``WIDE_FWD_CASES``), with stated tolerances; a forward
+   call must be one launch of the kernel its dtype and head take
+   (``fwd_kernel_name``: the bf16 heads of 256 and 512 run
+   ``flash_fwd_kernel_wide``), and the bf16 forward at heads of 64 and
+   128 is also run and timed at both of its tilings (64 and 128 query
+   rows per block); median times
    beside the plain version, the one PyTorch call that computes the same
    function (a yardstick only, never used by the port) and the least
    time the card could take (the bound). ``ms`` columns are device time
@@ -181,13 +186,18 @@ BWD_REL_BF16 = 2e-2
 TRAIN = dict(vocab_size=8192, d_model=512, n_layers=8, num_heads=8,
              max_len=1024, compute_dtype="bfloat16")
 TRAIN_BATCH, TRAIN_STEPS = 16, 20
-# the flash kernels' wide heads (the SIMT design, phase 2): the shape
-# their times are recorded at, [32, 1024, 256] causal, and a ragged head
-# of 512 (t 200: no multiple of its 16-row tiles)
+# the flash kernels' wide heads (phase 2, forward and backward): the
+# shape their times are recorded at, [32, 1024, 256] causal, a ragged head
+# of 512 and one of 1024 (t 200: no multiple of their 16- and 8-row SIMT
+# tiles)
 WIDE_HEAD = (256, 32, 1024)
 WIDE_HEAD_CASES = {dtype: [(dtype, WIDE_HEAD[0], WIDE_HEAD[1], WIDE_HEAD[2],
-                            WIDE_HEAD[2], True), (dtype, 512, 8, 200, 200, True)]
+                            WIDE_HEAD[2], True), (dtype, 512, 8, 200, 200, True),
+                           (dtype, 1024, 4, 200, 200, True)]
                    for dtype in ("bfloat16", "float32")}
+# the bf16 wide forward at d 512 and the same bound as WIDE_HEAD's (the
+# forward only: the SIMT backward at that shape would lengthen the run)
+WIDE_FWD_CASES = [("bfloat16", 512, 16, 1024, 1024, True)]
 # one step's loss and gradients with the kernels vs with the plain
 # versions on the card: bf16 attention outputs and gradients that differ
 # by bf16 roundings pass through 8 bf16 layers
@@ -299,7 +309,7 @@ PORT_KERNELS = {"flash_fwd_kernel": ("flash_fwd",),
 
 def _port_kernel(name: str):
     """The ``PORT_KERNELS`` key of a profiler name, or None."""
-    m = re.search(r"::(\w+?_kernel)(?:_f32)?<", name)
+    m = re.search(r"::(\w+?_kernel)(?:_f32|_wide)?<", name)
     return m.group(1) if m and m.group(1) in PORT_KERNELS else None
 
 
@@ -447,6 +457,18 @@ def _card() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
+def fwd_kernel_name(dtype: str, d: int) -> str:
+    """The profiled name (up to its template arguments) of the forward
+    kernel that a padded head of ``d`` runs in ``dtype``: the bf16 heads
+    of 64 and 128 the mma.sync kernel, of 256 and 512 the wide mma.sync
+    kernel, every other head the SIMT kernel."""
+    if dtype == "bfloat16" and d <= 128:
+        return "flash_fwd_kernel<"
+    if dtype == "bfloat16" and d <= 512:
+        return "flash_fwd_kernel_wide<"
+    return "flash_fwd_kernel_f32<"
+
+
 def _live_pairs(tq, tk, causal):
     """The (q, k) pairs the causal mask leaves (all of them otherwise)."""
     offset = tk - tq
@@ -579,6 +601,7 @@ def phase_kernels(torch, F, flash):
                       (dtype, d, 8, 72, 200, True), (dtype, d, 1, 2048, 2048, False),
                       (dtype, d, 1, 2048, 2048, True)]
         cases += WIDE_HEAD_CASES[dtype]
+    cases += WIDE_FWD_CASES
     for dtype, d, bh, tq, tk, causal in cases:
         dt = getattr(torch, dtype)
         q, k, v = (torch.randn(bh, t, d, generator=g, device="cuda").to(dt)
@@ -610,9 +633,11 @@ def phase_kernels(torch, F, flash):
             is_causal=causal and mask is None)
         bound_ms, bound_by = _flash_bound(bh, tq, tk, d, causal, dtype)
         times = _device_times(torch, kernel, 20)
-        # the whole call is one launch of the kernel (q is scaled inside)
-        _check(all("flash_fwd_kernel" in name for name in times),
-               f"flash_fwd call {tag} ran more than its kernel: {sorted(times)}")
+        # the whole call is one launch of the kernel (q is scaled inside),
+        # the one this dtype and head take
+        _check(all(fwd_kernel_name(dtype, d) in name for name in times),
+               f"flash_fwd call {tag} ran more than its kernel "
+               f"{fwd_kernel_name(dtype, d)}: {sorted(times)}")
         by_block_q = {}
         if dtype == "bfloat16" and tq > 64 and d <= 128:  # the mma kernel's two tilings
             for bq in (64, 128):
@@ -1843,7 +1868,7 @@ PHASES = ("2", "2b", "3", "4", "5", "6", "7", "8")
 # source -> its bf16 kernels, each of whose instantiations must not spill:
 # the mma.sync designs keep their tiles, sums and (LSTM) cell state in
 # registers
-BF16_KERNELS = {"flash_fwd": ("flash_fwd_kernel",),
+BF16_KERNELS = {"flash_fwd": ("flash_fwd_kernel", "flash_fwd_kernel_wide"),
                 "flash_bwd": ("flash_dq_kernel", "flash_dkv_kernel"),
                 "lstm_fwd": ("lstm_fwd_kernel",),
                 "lstm_bwd": ("lstm_bwd_kernel", "lstm_dw_kernel")}
@@ -2023,13 +2048,15 @@ def _flash_summary(done):
                     and r["bh"] == bh and r["tq"] == t and r["causal"])
 
     def wide(r, key, err):
-        """a wide head's numbers ([32, 1024, 256] bf16 causal, the SIMT
-        design): this kernel's time beside the plain version and the
-        library call (SDPA; its whole backward for the two backward
-        kernels)"""
-        return {"ms": r[f"{key}kernel_only_ms"], "plain_ms": r["plain_ms"],
+        """a wide head's numbers ([32, 1024, 256] bf16 causal: the wide
+        mma.sync forward, the SIMT backward): this kernel's time beside
+        the plain version and the library call (SDPA; its whole backward
+        for the two backward kernels)"""
+        ms = r[f"{key}kernel_only_ms"]
+        return {"ms": ms, "plain_ms": r["plain_ms"],
                 "library_ms": r["library_ms"], "max_abs_err": err,
                 "bound_ms": r[f"{key}bound_ms"], "bound_by": r[f"{key}bound_by"],
+                "bound_share": r[f"{key}bound_ms"] / ms,
                 "shape": [r["bh"], r["tq"], r["d"]]}
 
     fwd_wide, bwd_wide = wide_row(rows), wide_row(bwd_rows)

@@ -75,12 +75,13 @@
 // unscaled q and multiplying it by the scale as they load it (one
 // rounding, the torch product), and, in flash_dq, computing and writing
 // delta as the bf16 kernel does. They run every f32 head and the bf16
-// heads of 256 and 512 (wider than the mma.sync kernels' registers hold;
-// 129-256 and 257-512 are zero-padded to them). Their tiles are template
-// parameters (simt_tile, flash_common.cuh): flash_dq 64 x 64 up to d =
-// 128, 32 x 32 at 256, 16 x 16 at 512 (~177 and ~168 KB of shared
-// memory); flash_dkv 64 keys and 32-query steps up to 128, 32 and 16 at
-// 256, 16 and 8 at 512 (~173 and ~167 KB). Their global loads and stores
+// heads of 256, 512 and 1024 (wider than the mma.sync kernels' registers
+// hold; 129-256, 257-512 and 513-1024 are zero-padded to them). Their
+// tiles are template parameters (simt_tile, flash_common.cuh): flash_dq
+// 64 x 64 up to d = 128, 32 x 32 at 256, 16 x 16 at 512, 8 x 8 at 1024
+// (~177, ~168 and ~161 KB of shared memory); flash_dkv 64 keys and
+// 32-query steps up to 128, 32 and 16 at 256, 16 and 8 at 512, 8 and 4
+// at 1024 (~173, ~167 and ~161 KB). Their global loads and stores
 // are templated on the element type: bf16 is widened on load, and p and
 // ds are rounded to bf16 before their products, as the reference rounds
 // them. Correct, slow first kernels for those heads: nothing was tuned.
@@ -774,11 +775,13 @@ extern "C" int dl4j_flash_dq(const void* q, const void* k, const void* v, const 
     if (d == 128 && rows == 128) return launch_dq<128, 128>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
     if (d == 256) return launch_dq_f32<bf16, 256>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
     if (d == 512) return launch_dq_f32<bf16, 512>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
+    if (d == 1024) return launch_dq_f32<bf16, 1024>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
   } else if (dtype == 0) {
     if (d == 64) return launch_dq_f32<float, 64>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
     if (d == 128) return launch_dq_f32<float, 128>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
     if (d == 256) return launch_dq_f32<float, 256>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
     if (d == 512) return launch_dq_f32<float, 512>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
+    if (d == 1024) return launch_dq_f32<float, 1024>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -800,11 +803,13 @@ extern "C" int dl4j_flash_dkv(const void* q, const void* k, const void* v, const
     if (d == 128 && rows == 128) return launch_dkv<128, 128>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
     if (d == 256) return launch_dkv_f32<bf16, 256>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
     if (d == 512) return launch_dkv_f32<bf16, 512>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
+    if (d == 1024) return launch_dkv_f32<bf16, 1024>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
   } else if (dtype == 0) {
     if (d == 64) return launch_dkv_f32<float, 64>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
     if (d == 128) return launch_dkv_f32<float, 128>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
     if (d == 256) return launch_dkv_f32<float, 256>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
     if (d == 512) return launch_dkv_f32<float, 512>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
+    if (d == 1024) return launch_dkv_f32<float, 1024>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }

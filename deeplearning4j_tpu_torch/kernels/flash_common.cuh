@@ -41,8 +41,9 @@ __device__ __forceinline__ float quad_sum(float x) {
 // ---------------------------------------------- the f32 (SIMT) design
 
 // The first design, on the CUDA cores through shared memory in f32, of
-// flash_fwd.cu and flash_bwd.cu: every f32 head, and the bf16 heads of
-// 256 and 512, whose tiles the mma.sync kernels' registers cannot hold.
+// flash_fwd.cu and flash_bwd.cu: every f32 head, the bf16 heads of 1024
+// in all three kernels, and of 256 and 512 in the backward (the mma.sync
+// backward kernels' registers cannot hold those tiles).
 // T is the element type in device memory: bf16 is widened to f32 on load,
 // rounded back where the reference rounds (the q pre-scale, p and ds
 // before their products) and narrowed on store.
@@ -51,8 +52,8 @@ constexpr size_t SMEM_LIMIT = 232448;  // dynamic shared memory a block may use
 
 constexpr size_t round32(size_t n) { return (n + 31) / 32 * 32; }
 
-// the tile of a head of D (rows and keys): 64 up to d = 128; 32 at 256
-// and 16 at 512, so that the f32 rows fit shared memory
+// the tile of a head of D (rows and keys): 64 up to d = 128; 32 at 256,
+// 16 at 512 and 8 at 1024, so that the f32 rows fit shared memory
 __host__ __device__ constexpr int simt_tile(int D) { return D <= 128 ? 64 : 8192 / D; }
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -164,8 +165,10 @@ __device__ __forceinline__ void load_b(uint32_t (&b)[4], const bf16* x, int np, 
 // Epilogue of a warp's 16 x D f32 accumulators (fragment layout): each
 // value x of row g + 8 h becomes bf16(f(x, h)) in the warp's own rows of
 // shared memory at `stage` (which its lanes have finished reading), then
-// 16-byte coalesced stores of the rows < t to dst.
-template <int D, int LD, typename F>
+// 16-byte coalesced stores of the rows < t to dst, whose rows are LDG
+// elements apart (D, or the whole head where the warp owns D of its
+// columns).
+template <int D, int LD, int LDG = D, typename F>
 __device__ __forceinline__ void store_warp_rows(bf16* dst, bf16* stage,
                                                 const float (&acc)[D / 8][4], F f, int row0,
                                                 int t, int lane) {
@@ -184,7 +187,7 @@ __device__ __forceinline__ void store_warp_rows(bf16* dst, bf16* stage,
   for (int i = lane; i < 16 * CH; i += 32) {
     const int r = i / CH, col = (i % CH) * 8;
     if (row0 + r < t) {
-      *reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * D + col) =
+      *reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * LDG + col) =
           *reinterpret_cast<const uint4*>(stage + r * LD + col);
     }
   }

@@ -47,18 +47,49 @@
 // 4). At d = 64 the kernel keeps to 128 registers, so two 8-warp blocks
 // (16 warps) share an SM, where the old kernel's blocks left 12.
 //
+// The wide bf16 kernel (flash_fwd_kernel_wide) runs the bf16 heads of
+// 256 and 512 (129-256 and 257-512 are zero-padded to them) on the same
+// tensor-core tools. The kernel above cannot: a warp there keeps Q as A
+// fragments (d / 4 registers) and O as accumulators (d / 2), 192 + 32 of
+// S at d = 256 and more than 255 at 512. So:
+// - Q is not held in registers: the block's 64 rows are copied once by
+//   cp.async, scaled in place (each thread the chunks it copied) and read
+//   as A fragments by ldmatrix at each 16-column step of every key tile;
+// - a block is 64 query rows in four row groups of 16, with one warp to
+//   a row group at d = 256 (4 warps) and two at d = 512 (8 warps); each
+//   warp owns 256 of the head's columns, so O takes 128 f32 registers
+//   and S (32 keys) 16, within 255 at both widths without spills;
+// - at d = 512 each warp of a pair contracts S over its own 256 columns
+//   of d, and the two 16 x 32 f32 partials (2 KB a warp) are summed
+//   through shared memory under the pair's named barrier (bar.sync 1 +
+//   row group, 64 threads): a + b == b + a, so both warps hold the same S
+//   and compute the same m, l and P, then each multiplies P by its own
+//   columns of V (no product is computed twice);
+// - K and V tiles of 32 keys come through two cp.async.cg stages with
+//   rows padded by 16 bytes, one __syncthreads() per key tile (which also
+//   orders the partials' reuse); S and P stay in registers, the softmax,
+//   masks, epilogue and the order of the q-tiles are the kernel above's;
+// - shared memory: 99 KB at d = 256, so two blocks share an SM (8
+//   warps), and 211 KB at 512 (one 8-warp block: Q 65 KB, two stages of
+//   K and V 130 KB, the partials 16 KB).
+// What bounds it at [32, 1024, 256] bf16 causal: bytes, 0.0201 ms,
+// against 0.0174 ms of tensor-core operations. Each warp reads 40 KB of
+// shared memory by ldmatrix per 32-key tile for 128 mma.sync (Q 8, K 16,
+// V 16), so shared-memory reads, not the tensor cores, are its likely
+// limit; K and V come from L2 once per 64 query rows.
+//
 // The SIMT kernel (flash_fwd_kernel_f32) is on no main path and was not
 // redesigned: the first version's CUDA-core FMAs through shared memory
 // in f32 (full f32 precision, no TF32), taking the unscaled q and the
-// scale like the bf16 kernel. It runs every f32 head and the bf16 heads
-// of 256 and 512 (a wider head than the mma.sync kernel's registers
-// hold; 129-256 and 257-512 are zero-padded to them): its tiles are
-// template parameters, 64 x 64 up to d = 128, 32 x 32 at 256 and 16 x 16
-// at 512 (simt_tile, flash_common.cuh), so that the f32 rows fit shared
-// memory (~136 KB at 256, ~133 KB at 512), and its global loads and
-// stores are templated on the element type: bf16 is widened on load,
-// and p is rounded to bf16 before P.V, as the reference rounds it. A
-// correct, slow first kernel for those heads: nothing was tuned.
+// scale like the bf16 kernels. It runs every f32 head and the bf16 heads
+// of 1024 (513-1024 are zero-padded to it): its tiles are template
+// parameters, 64 x 64 up to d = 128, 32 x 32 at 256, 16 x 16 at 512 and
+// 8 x 8 at 1024 (simt_tile, flash_common.cuh), so that the f32 rows fit
+// shared memory (~136 KB at 256, ~133 KB at 512, ~129 KB at 1024), and
+// its global loads and stores are templated on the element type: bf16
+// is widened on load, and p is rounded to bf16 before P.V, as the
+// reference rounds it. A correct, slow first kernel for those heads:
+// nothing was tuned.
 //
 // The PTX helpers (cp.async, ldmatrix, mma.sync, bf16 packing, the q
 // pre-scale, quad reductions) and the pieces built on them (row copies,
@@ -74,6 +105,61 @@ namespace {
 constexpr int BK = 64;  // keys per tile
 
 // -------------------------------------------------------- the bf16 kernel
+
+// The masks of a warp's S accumulators (NS 8-key tiles from key k0, rows
+// r0 + g and r0 + g + 8), evaluated only where the tile reaches past tk
+// or above the warp's diagonal: a key past tk is not in the row (-inf),
+// a key above the diagonal takes the reference's sentinel.
+template <int NS>
+__device__ __forceinline__ void mask_scores(float (&s)[NS][4], int k0, int r0, int tk,
+                                            int offset, int causal, int lane) {
+  if (k0 + 8 * NS <= tk && !(causal && k0 + 8 * NS - 1 > r0 + offset)) return;
+  const int g = lane / 4, c = lane % 4;
+#pragma unroll
+  for (int n = 0; n < NS; ++n) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = k0 + 8 * n + 2 * c + (j % 2);
+      const int row = r0 + g + 8 * (j / 2);
+      if (col >= tk) s[n][j] = -INFINITY;
+      else if (causal && row + offset < col) s[n][j] = NEG_INF_SENTINEL;
+    }
+  }
+}
+
+// One key tile of the online softmax on the accumulators (h = 0: row g,
+// h = 1: row g + 8): the row's max m and this thread's share of its sum l
+// move on, the O accumulators take the correction, and s becomes p.
+template <int NS, int NO>
+__device__ __forceinline__ void online_softmax(float (&s)[NS][4], float (&acc)[NO][4],
+                                               float (&m)[2], float (&l)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = m[h];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * h], s[n][2 * h + 1]));
+    const float m_new = quad_max(mx);
+    // (x - m) * log2(e), not fma(x, log2(e), -m log2(e)): a sentinel
+    // score against a sentinel max must give exactly exp(0)
+    const float corr = exp2f((m[h] - m_new) * LOG2E);
+    float sum = 0.f;
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+#pragma unroll
+      for (int j = 2 * h; j < 2 * h + 2; ++j) {
+        s[n][j] = exp2f((s[n][j] - m_new) * LOG2E);
+        sum += s[n][j];
+      }
+    }
+    l[h] = corr * l[h] + sum;
+    m[h] = m_new;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      acc[n][2 * h] *= corr;
+      acc[n][2 * h + 1] *= corr;
+    }
+  }
+}
 
 template <int D, int BQ>
 struct Bf16Tiles {
@@ -180,47 +266,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
 
-    // masks only where the tile reaches past tk or above this warp's diagonal
-    if (k0 + BK > tk || (causal && k0 + BK - 1 > r0 + offset)) {
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int col = k0 + 8 * n + 2 * c + (j % 2);
-          const int row = r0 + g + 8 * (j / 2);
-          if (col >= tk) s[n][j] = -INFINITY;  // past the last key: not in the row
-          else if (causal && row + offset < col) s[n][j] = NEG_INF_SENTINEL;
-        }
-      }
-    }
-
-    // online softmax on the accumulators; h = 0: row g, h = 1: row g + 8
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float mx = m[h];
-#pragma unroll
-      for (int n = 0; n < NS; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * h], s[n][2 * h + 1]));
-      const float m_new = quad_max(mx);
-      // (x - m) * log2(e), not fma(x, log2(e), -m log2(e)): a sentinel
-      // score against a sentinel max must give exactly exp(0)
-      const float corr = exp2f((m[h] - m_new) * LOG2E);
-      float sum = 0.f;
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-#pragma unroll
-        for (int j = 2 * h; j < 2 * h + 2; ++j) {
-          s[n][j] = exp2f((s[n][j] - m_new) * LOG2E);
-          sum += s[n][j];
-        }
-      }
-      l[h] = corr * l[h] + sum;
-      m[h] = m_new;
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        acc[n][2 * h] *= corr;
-        acc[n][2 * h + 1] *= corr;
-      }
-    }
+    mask_scores(s, k0, r0, tk, offset, causal, lane);
+    online_softmax(s, acc, m, l);
 
     // O += P V: P from the S accumulators; B fragments by ldmatrix.trans
     // of keys 16 kk .. 16 kk + 15
@@ -261,6 +308,215 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse
   if (err != cudaSuccess) return (int)err;
   const int n_qtiles = (tq + BQ - 1) / BQ;
   flash_fwd_kernel<D, BQ><<<bh * n_qtiles, BQ * 2, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), lse, bh, tq, tk, n_qtiles, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------ the wide bf16 kernel
+
+// Heads of 256 and 512: a block of 64 query rows in four row groups of 16,
+// WPR warps to a row group, each owning DW = 256 of the head's columns
+// (its share of the contraction for S, and its columns of O).
+template <int D>
+struct WideTiles {
+  static constexpr int BQ = 64;        // query rows per block
+  static constexpr int BKW = 32;       // keys per tile
+  static constexpr int WPR = D / 256;  // warps per row group
+  static constexpr int DW = D / WPR;   // head columns per warp
+  static constexpr int NT = 4 * WPR * 32;
+  static constexpr int STAGES = 2;
+  static constexpr int LD = D + 8;  // row stride in elements: 16 bytes of padding
+  static constexpr int NS = BKW / 8;  // S accumulator tiles (8 keys each)
+  static constexpr size_t tile_bytes = sizeof(bf16) * (size_t)(BQ + 2 * STAGES * BKW) * LD;
+  // WPR = 2: each warp's partial S (NS tiles of 4 floats a thread)
+  static constexpr size_t bytes = tile_bytes + (WPR > 1 ? sizeof(float) * NT * NS * 4 : 0);
+  // d = 256: two 4-warp blocks an SM (2 x 99 KB of shared memory); both
+  // layouts leave 255 registers a thread
+  static constexpr int MIN_BLOCKS = WPR == 1 ? 2 : 1;
+  static_assert(DW == 256 && (WPR == 1 || WPR == 2), "wide heads are 256 or 512");
+  static_assert(bytes <= SMEM_LIMIT, "flash_fwd wide layout exceeds shared memory");
+};
+
+// barrier of the `n` threads (whole warps) that meet at barrier `id` (0 is
+// __syncthreads()'s)
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+template <int D>
+__global__ void __launch_bounds__(WideTiles<D>::NT, WideTiles<D>::MIN_BLOCKS)
+flash_fwd_kernel_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, bf16* __restrict__ o,
+                      float* __restrict__ lse, int bh, int tq, int tk, int n_qtiles,
+                      int causal, float scale) {
+  using Tl = WideTiles<D>;
+  constexpr int BQ = Tl::BQ, BKW = Tl::BKW, WPR = Tl::WPR, DW = Tl::DW, NT = Tl::NT;
+  constexpr int LD = Tl::LD, STAGES = Tl::STAGES, NS = Tl::NS;
+  constexpr int NO = DW / 8;  // O accumulator tiles (8 columns each)
+  constexpr int CH = D / 8;   // 16-byte chunks per row
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Ks = Qs + BQ * LD;             // STAGES tiles of BKW rows
+  bf16* Vs = Ks + STAGES * BKW * LD;   // STAGES tiles of BKW rows
+  float4* X = reinterpret_cast<float4*>(smem + Tl::tile_bytes);  // partial S (WPR = 2)
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, c = lane % 4;
+  const int rg = warp / WPR, part = warp % WPR;  // row group, share of the columns
+  // the q-tiles with the most key tiles first, as flash_fwd_kernel
+  const int qt = n_qtiles - 1 - (int)(blockIdx.x / bh);
+  const int b = blockIdx.x % bh;
+  const int q0 = qt * BQ;
+  const int r0 = q0 + 16 * rg;  // this warp's first query row
+  const int offset = tk - tq;
+  const bf16* qb = q + (size_t)b * tq * D;
+  const bf16* kb = k + (size_t)b * tk * D;
+  const bf16* vb = v + (size_t)b * tk * D;
+  // this warp's rows and columns of Q; the only ones it reads, later its O
+  bf16* Qw = Qs + 16 * rg * LD + part * DW;
+
+  // the block's Q rows (zeros past tq): copy group 0
+  for (int i = threadIdx.x; i < BQ * CH; i += NT) {
+    const int r = i / CH, col = (i % CH) * 8;
+    const bool in = q0 + r < tq;
+    cp_async16(smem_addr(Qs + r * LD + col), in ? qb + (size_t)(q0 + r) * D + col : qb,
+               in ? 16 : 0);
+  }
+  cp_async_commit();
+
+  // causal: the last key any valid row of this tile may see
+  int k_end = tk;
+  if (causal) k_end = min(tk, min(q0 + BQ, tq) + offset);
+  const int n_kt = k_end > 0 ? (k_end + BKW - 1) / BKW : 0;
+
+  // key tile kt (zeros past tk) into ring stage kt % STAGES
+  auto load_kv = [&](int kt) {
+    const int st = kt % STAGES;
+    load_tile_pair<D, LD, BKW, NT>(Ks + st * BKW * LD, Vs + st * BKW * LD, kb, vb, kt * BKW, tk);
+  };
+  // groups 1 .. STAGES - 1: the first tiles (empty groups past the last)
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_kt) load_kv(s);
+    cp_async_commit();
+  }
+
+  // Q scaled in place (q * scale rounded to bf16, the reference's
+  // pre-scale): each thread the chunks it copied, once group 0 landed;
+  // then the block's barrier, after which every warp reads its A
+  // fragments by ldmatrix at each key tile
+  cp_async_wait<STAGES - 1>();
+  for (int i = threadIdx.x; i < BQ * CH; i += NT) {
+    uint4* p = reinterpret_cast<uint4*>(Qs + (i / CH) * LD + (i % CH) * 8);
+    uint4 x = *p;
+    x.x = scale_pair(x.x, scale);
+    x.y = scale_pair(x.y, scale);
+    x.z = scale_pair(x.z, scale);
+    x.w = scale_pair(x.w, scale);
+    *p = x;
+  }
+  __syncthreads();
+
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m[2] = {NEG_INF_SENTINEL, NEG_INF_SENTINEL};  // rows g, g + 8
+  float l[2] = {0.f, 0.f};                            // this thread's share
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    // tile kt has landed for every thread, every warp is done with tile
+    // kt - 1 (whose stage the next copy refills) and with its partner's
+    // partial S of tile kt - 1
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    if (kt + STAGES - 1 < n_kt) load_kv(kt + STAGES - 1);
+    cp_async_commit();
+
+    const bf16* Kt = Ks + (kt % STAGES) * BKW * LD + part * DW;
+    const bf16* Vt = Vs + (kt % STAGES) * BKW * LD + part * DW;
+    const int k0 = kt * BKW;
+
+    // S = Q K^T over this warp's columns: A fragments of Q by ldmatrix
+    // (Q stays in shared memory), two 8-key tiles per ldmatrix of K
+    float s[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DW / 16; ++kk) {
+      uint32_t qa[4];
+      load_a<LD>(qa, Qw, kk, lane);
+#pragma unroll
+      for (int np = 0; np < BKW / 16; ++np) {
+        uint32_t bfr[4];
+        load_bt<LD>(bfr, Kt, np, kk, lane);
+        mma_bf16(s[2 * np], qa, bfr[0], bfr[1]);
+        mma_bf16(s[2 * np + 1], qa, bfr[2], bfr[3]);
+      }
+    }
+
+    if constexpr (WPR > 1) {
+      // S over the whole head: this warp's partial plus its partner's
+      // (the other half of d), exchanged through shared memory under the
+      // pair's own barrier; a + b == b + a, so both warps hold the same
+      // S and compute the same statistics
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+        X[(warp * NS + n) * 32 + lane] = make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
+      bar_sync(1 + rg, 32 * WPR);
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        const float4 y = X[((warp ^ 1) * NS + n) * 32 + lane];
+        s[n][0] += y.x;
+        s[n][1] += y.y;
+        s[n][2] += y.z;
+        s[n][3] += y.w;
+      }
+    }
+
+    mask_scores(s, k0, r0, tk, offset, causal, lane);
+    online_softmax(s, acc, m, l);
+
+    // O += P V over this warp's columns: P from the S accumulators; B
+    // fragments by ldmatrix.trans of keys 16 kk .. 16 kk + 15
+#pragma unroll
+    for (int kk = 0; kk < BKW / 16; ++kk) {
+      uint32_t pa[4];
+      pack_a(pa, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int np = 0; np < DW / 16; ++np) {
+        uint32_t bfr[4];
+        load_b<LD>(bfr, Vt + 16 * kk * LD, np, lane);
+        mma_bf16(acc[2 * np], pa, bfr[0], bfr[1]);
+        mma_bf16(acc[2 * np + 1], pa, bfr[2], bfr[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();  // the trailing (empty) groups
+
+  // epilogue: lse once per row (by the row group's first warp); O /
+  // max(l, 1e-30) into this warp's rows and columns of Q, then coalesced
+  // 16-byte stores of its columns
+  float denom[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    denom[h] = fmaxf(quad_sum(l[h]), 1e-30f);
+    const int row = r0 + g + 8 * h;
+    if (part == 0 && c == 0 && row < tq) lse[(size_t)b * tq + row] = m[h] + logf(denom[h]);
+  }
+  store_warp_rows<DW, LD, D>(o + (size_t)b * tq * D + part * DW, Qw, acc,
+                             [=](float x, int h) { return x / denom[h]; }, r0, tq, lane);
+}
+
+template <int D>
+int launch_wide(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
+                int tq, int tk, int causal, float scale, cudaStream_t stream) {
+  using Tl = WideTiles<D>;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel_wide<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)Tl::bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int n_qtiles = (tq + Tl::BQ - 1) / Tl::BQ;
+  flash_fwd_kernel_wide<D><<<bh * n_qtiles, Tl::NT, Tl::bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(o), lse, bh, tq, tk, n_qtiles, causal, scale);
   return (int)cudaGetLastError();
@@ -431,9 +687,10 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
 
 // q, k, v, o: contiguous [bh, t, d], 16-byte aligned; lse: contiguous f32
 // [bh, tq]; q unscaled, scale = 1/sqrt(d) rounded to q's dtype. dtype: 0 =
-// float32, 1 = bfloat16; d: 64, 128, 256 or 512. block_q (bf16 d 64 and
-// 128 only): 64 or 128 query rows per block, or 0 to choose by tq. Returns a cudaError_t (0 on success); an
-// unsupported head size or block returns cudaErrorInvalidValue.
+// float32, 1 = bfloat16; d: 64, 128, 256, 512 or 1024. block_q (bf16 d 64
+// and 128 only): 64 or 128 query rows per block, or 0 to choose by tq.
+// Returns a cudaError_t (0 on success); an unsupported head size or block
+// returns cudaErrorInvalidValue.
 extern "C" int dl4j_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                               int bh, int tq, int tk, int d, int causal, int dtype,
                               float scale, int block_q, void* stream) {
@@ -453,14 +710,16 @@ extern "C" int dl4j_flash_fwd(const void* q, const void* k, const void* v, void*
     return (int)cudaErrorInvalidValue;
   }
   if (block_q != 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 1) {  // the wide heads: the SIMT design
-    if (d == 256) return launch_f32<bf16, 256>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
-    if (d == 512) return launch_f32<bf16, 512>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
+  if (dtype == 1) {  // the wide heads on the tensor cores; 1024 on the SIMT design
+    if (d == 256) return launch_wide<256>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
+    if (d == 512) return launch_wide<512>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
+    if (d == 1024) return launch_f32<bf16, 1024>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
   } else if (dtype == 0) {
     if (d == 64) return launch_f32<float, 64>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
     if (d == 128) return launch_f32<float, 128>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
     if (d == 256) return launch_f32<float, 256>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
     if (d == 512) return launch_f32<float, 512>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
+    if (d == 1024) return launch_f32<float, 1024>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -8,9 +8,10 @@ kernels become CUDA kernels: ``_flash_fwd_impl`` -> ``_fwd_kernel`` is
 ``kernels/flash_bwd.cu`` (see each file's header for its Hopper design).
 Which of the two runs is decided by the tensor's device alone: on the
 CPU the plain version, on a CUDA device the kernel (a build or launch
-that fails raises). The kernels are built for head sizes 64, 128, 256
-and 512; a smaller head runs zero-padded to the next of them, a larger
-one raises on the card (the CPU's plain versions take any head size).
+that fails raises). The kernels are built for head sizes 64, 128, 256,
+512 and 1024; a smaller head runs zero-padded to the next of them, a
+larger one raises on the card (the CPU's plain versions take any head
+size).
 """
 
 from __future__ import annotations
@@ -46,16 +47,16 @@ def _scale(q: torch.Tensor) -> float:
 
 
 def _head_width(d: int) -> int:
-    """The head size the kernels run a head of ``d`` at: 64, 128, 256 or
-    512, the sizes they are built for (the bf16 heads of 64 and 128 on
-    the tensor cores, the rest on the CUDA cores). A smaller head is
-    padded with zeros up to it, which adds 0 to every score and product,
-    so the unpadded columns of every output are the same; the scales stay
-    those of ``d``."""
-    for width in (64, 128, 256, 512):
+    """The head size the kernels run a head of ``d`` at: 64, 128, 256,
+    512 or 1024, the sizes they are built for (in bf16 the forward runs
+    64 to 512 and the backward 64 and 128 on the tensor cores; the rest
+    run on the CUDA cores). A smaller head is padded with zeros up to it,
+    which adds 0 to every score and product, so the unpadded columns of
+    every output are the same; the scales stay those of ``d``."""
+    for width in (64, 128, 256, 512, 1024):
         if d <= width:
             return width
-    raise ValueError(f"flash kernels take head sizes up to 512, got {d}")
+    raise ValueError(f"flash kernels take head sizes up to 1024, got {d}")
 
 
 def _pad_head(x: torch.Tensor, width: int) -> torch.Tensor:
@@ -356,7 +357,7 @@ def flash_attention(
     dispatch rules: a key mask, a length that no block in
     (preferred, 512, ..., 8) divides, or causal with tq > tk takes the
     plain formulation; every other case runs the flash forward (on the
-    card a head wider than the kernels' 512 raises)."""
+    card a head wider than the kernels' 1024 raises)."""
     b, tq, h, d = q.shape
     tk = k.shape[1]
     if block_q is None:

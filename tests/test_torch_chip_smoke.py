@@ -206,6 +206,70 @@ def test_spill_gate_rejects_a_spilling_bf16_lstm_bwd_or_lstm_dw(bwd_spills, dw_s
         chip_smoke._spill_gate("lstm_bwd", _bwd_report(bwd_spills, dw_spills))
 
 
+def _fwd_report(wide_spills):
+    """A stand-in report of flash_fwd.cu: the bf16 mma.sync kernel, the
+    wide one at 256 and 512 (spilling ``wide_spills`` bytes), and an f32
+    and a bf16 SIMT instantiation (never gated)."""
+    ns = "_ZN12_GLOBAL__N_1"
+    args = "EEvPK13__nv_bfloat16S3_S3_PS1_Pfiiiiif"
+    return _ptxas_lines([
+        (f"{ns}16flash_fwd_kernelILi64ELi128{args}", 128, 0),
+        (f"{ns}21flash_fwd_kernel_wideILi256{args}", 200, wide_spills),
+        (f"{ns}21flash_fwd_kernel_wideILi512{args}", 210, wide_spills),
+        (f"{ns}20flash_fwd_kernel_f32IfLi64ELi64ELi64EEEvPKT_S3_S3_PS1_Pfiiiiif",
+         90, 16),
+        (f"{ns}20flash_fwd_kernel_f32I13__nv_bfloat16Li1024ELi8ELi8EEEvPKT_"
+         "S4_S4_PS2_Pfiiiiif", 80, 16)])
+
+
+def test_spill_gate_reads_the_wide_flash_forward(capsys):
+    chip_smoke._spill_gate("flash_fwd", _fwd_report(0))
+    out = capsys.readouterr().out
+    assert "bf16 flash_fwd_kernel registers, spill bytes: [(128, 0)]" in out
+    assert ("bf16 flash_fwd_kernel_wide registers, spill bytes: "
+            "[(200, 0), (210, 0)]") in out
+
+
+@pytest.mark.parametrize("spills", [8, 384])
+def test_spill_gate_rejects_a_spilling_wide_flash_forward(spills):
+    with pytest.raises(RuntimeError, match="bf16 flash_fwd_kernel_wide spills"):
+        chip_smoke._spill_gate("flash_fwd", _fwd_report(spills))
+
+
+@pytest.mark.parametrize("name,key", [
+    ("void (anonymous namespace)::flash_fwd_kernel<64, 128>(Args)", "flash_fwd_kernel"),
+    ("void (anonymous namespace)::flash_fwd_kernel_wide<512>(Args)", "flash_fwd_kernel"),
+    ("void (anonymous namespace)::flash_fwd_kernel_f32<float, 64, 64, 64>(Args)",
+     "flash_fwd_kernel"),
+    (DKV, "flash_dkv_kernel"),
+    (COPY, None)])
+def test_port_kernel_reads_every_forward_kernel(name, key):
+    assert chip_smoke._port_kernel(name) == key
+
+
+@pytest.mark.parametrize("dtype,d,kernel", [
+    ("bfloat16", 64, "flash_fwd_kernel<"), ("bfloat16", 128, "flash_fwd_kernel<"),
+    ("bfloat16", 256, "flash_fwd_kernel_wide<"),
+    ("bfloat16", 512, "flash_fwd_kernel_wide<"),
+    ("bfloat16", 1024, "flash_fwd_kernel_f32<"),
+    ("float32", 64, "flash_fwd_kernel_f32<"), ("float32", 512, "flash_fwd_kernel_f32<")])
+def test_fwd_kernel_name_follows_the_dispatch(dtype, d, kernel):
+    assert chip_smoke.fwd_kernel_name(dtype, d) == kernel
+
+
+def test_wide_head_cases_reach_1024_and_time_the_forward_at_512():
+    for dtype, cases in chip_smoke.WIDE_HEAD_CASES.items():
+        assert (dtype, 1024, 4, 200, 200, True) in cases
+        assert {d for _, d, *_ in cases} == {256, 512, 1024}
+    assert chip_smoke.WIDE_FWD_CASES == [("bfloat16", 512, 16, 1024, 1024, True)]
+    # the d 512 timing row has the WIDE_HEAD row's bound (but for half
+    # the lse bytes), set by bytes
+    d, bh, t = chip_smoke.WIDE_HEAD
+    ms, by = chip_smoke._flash_bound(16, 1024, 1024, 512, True, "bfloat16")
+    ms_256, by_256 = chip_smoke._flash_bound(bh, t, t, d, True, "bfloat16")
+    assert by == by_256 == "bytes" and ms == pytest.approx(ms_256, rel=1e-3)
+
+
 def test_spill_gate_needs_a_bf16_instantiation():
     report = "\n".join(_ptxas_report(0).splitlines()[:4])  # the f32 one only
     with pytest.raises(RuntimeError, match="bf16 lstm_fwd_kernel"):

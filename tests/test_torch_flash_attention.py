@@ -191,17 +191,19 @@ def test_unsupported_device_raises(rng):
 
 @pytest.mark.parametrize("d,width", [(8, 64), (63, 64), (64, 64), (96, 128),
                                      (128, 128), (129, 256), (256, 256),
-                                     (257, 512), (512, 512)])
+                                     (257, 512), (512, 512), (513, 1024),
+                                     (1024, 1024)])
 def test_head_width_pads_up_to_a_built_size(d, width):
     assert _head_width(d) == width
 
 
-@pytest.mark.parametrize("d", [160, 256, 320, 512])
+@pytest.mark.parametrize("d", [160, 256, 320, 512, 1024])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_wide_heads_match_reference_wrapper(rng, dtype, causal, d):
-    """A head wider than 128 (the kernels pad 129-256 to 256 and 257-512
-    to 512) runs through the flash wrapper's plain version on the CPU and
+    """A head wider than 128 (the kernels pad 129-256 to 256, 257-512 to
+    512 and 513-1024 to 1024) runs through the flash wrapper's plain
+    version on the CPU and
     matches the reference's wrapper, which runs its Pallas kernel at any
     head size."""
     b, h, t = 1, 2, 64
@@ -216,9 +218,9 @@ def test_wide_heads_match_reference_wrapper(rng, dtype, causal, d):
     _close(got.float().numpy(), want, dtype)
 
 
-def test_head_width_rejects_heads_past_512():
-    with pytest.raises(ValueError, match="up to 512"):
-        _head_width(513)
+def test_head_width_rejects_heads_past_1024():
+    with pytest.raises(ValueError, match="up to 1024"):
+        _head_width(1025)
 
 
 # ------------------------------------------------- the kernel on the card
@@ -268,11 +270,37 @@ def test_kernel_takes_other_head_sizes_on_card(cuda_device, dtype, tol, d,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [160, 256, 320, 512])  # the wide kernel at 256, 512
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("bh,tq,tk", [
+    (8, 128, 320),     # tq < tk: the causal offset
+    (8, 72, 200),      # an offset with a ragged diagonal
+    (1, 2048, 2048),   # few blocks, a long key loop
+])
+def test_wide_bf16_forward_matches_plain_on_card(cuda_device, d, causal, bh,
+                                                 tq, tk):
+    """The bf16 heads of 129-512 run the wide tensor-core forward (one
+    launch a call) and match its plain version within bf16's 2e-2 on o
+    and 1e-4 on lse."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = (torch.randn(bh, t, d, generator=g, device=cuda_device)
+               .to(torch.bfloat16) for t in (tq, tk, tk))
+    kernels.reset_launches()
+    o, lse = flash_attention_fwd(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert dict(kernels.LAUNCHES) == {"flash_fwd": 1}
+    assert o.shape == q.shape and o.is_contiguous()
+    op, lp = flash_attention_fwd_plain(q, k, v, causal)
+    assert (o.float() - op.float()).abs().max().item() <= 2e-2
+    assert (lse - lp).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 2e-2)])
-@pytest.mark.parametrize("d", [160, 256, 320, 512])  # run at 256 and 512
+@pytest.mark.parametrize("d", [160, 256, 320, 512, 1024])  # run at 256, 512, 1024
 @pytest.mark.parametrize("causal", [False, True])
 def test_wide_heads_run_the_kernels_on_card(cuda_device, dtype, tol, d, causal):
-    """A head of 129-512 runs the kernels on the card, forward and
+    """A head of 129-1024 runs the kernels on the card, forward and
     backward, one launch of each, at a ragged length (t 200: no multiple
     of any tile), and matches their plain versions (the backward within
     the bf16 bound relative to max |ref|, as in
@@ -304,13 +332,13 @@ def test_wide_heads_run_the_kernels_on_card(cuda_device, dtype, tol, d, causal):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [False, True])
 def test_wide_heads_on_card_raise(cuda_device, dtype, causal):
-    """On the card a head above 512 raises in ``flash_attention`` (no
+    """On the card a head above 1024 raises in ``flash_attention`` (no
     kernel is built for it, and no plain formulation stands in) and
     launches nothing."""
     g = torch.Generator(device=cuda_device).manual_seed(0)
-    q, k, v = (torch.randn(2, 128, 4, 513, generator=g, device=cuda_device)
+    q, k, v = (torch.randn(2, 128, 4, 1025, generator=g, device=cuda_device)
                .to(getattr(torch, dtype)) for _ in range(3))
     kernels.reset_launches()
-    with pytest.raises(ValueError, match="up to 512"):
+    with pytest.raises(ValueError, match="up to 1024"):
         flash_attention(q, k, v, causal=causal)
     assert sum(kernels.LAUNCHES.values()) == 0

@@ -194,10 +194,10 @@ def test_gradients_match_jax_grad(rng, case):
         _close(t.grad.numpy(), g, GRAD_TOL)
 
 
-@pytest.mark.parametrize("d", [160, 256, 320, 512])
+@pytest.mark.parametrize("d", [160, 256, 320, 512, 1024])
 @pytest.mark.parametrize("causal", [False, True])
 def test_wide_head_gradients_match_jax_grad(rng, d, causal):
-    """Heads wider than 128 (run at 256 and 512 on the card) through the
+    """Heads wider than 128 (run at 256, 512 and 1024 on the card) through the
     wrapper's plain backward on the CPU against ``jax.grad`` of the
     reference's wrapper, whose Pallas backward takes any head size."""
     b, h, t = 1, 2, 64
