@@ -12,7 +12,8 @@ Phases (any failure ends the run with a non-zero exit and no result):
 1. build: every kernel source in this checkout, one ``nvcc`` each, all
    started together, from an empty build directory, timed; fails if a
    bf16 ``flash_fwd_kernel``, ``flash_fwd_kernel_wide``,
-   ``flash_dq_kernel``, ``flash_dkv_kernel``, ``lstm_fwd_kernel``,
+   ``flash_dq_kernel``, ``flash_dkv_kernel``, ``flash_dq_kernel_wide``,
+   ``flash_dkv_kernel_wide``, ``lstm_fwd_kernel``,
    ``lstm_bwd_kernel`` or ``lstm_dw_kernel``, or an
    f32 ``lstm_fwd_kernel``, ``lstm_bwd_kernel`` or ``lstm_dw_kernel``,
    spills registers (``BF16_KERNELS``, ``F32_KERNELS``).
@@ -20,10 +21,13 @@ Phases (any failure ends the run with a non-zero exit and no result):
    PyTorch version on the same inputs, at the main paths' shapes, at
    larger ones and at ragged ones (t = 200, tq 72 / tk 200, one head of
    2048; the wide heads of 256, 512 and 1024, ``WIDE_HEAD_CASES`` and
-   the forward's ``WIDE_FWD_CASES``), with stated tolerances; a forward
-   call must be one launch of the kernel its dtype and head take
+   ``WIDE_512_CASES``), with stated tolerances; a forward call must be
+   one launch of the kernel its dtype and head take
    (``fwd_kernel_name``: the bf16 heads of 256 and 512 run
-   ``flash_fwd_kernel_wide``), and the bf16 forward at heads of 64 and
+   ``flash_fwd_kernel_wide``), a backward call one launch of each of
+   the two its dtype and head take (``bwd_kernel_names``: the bf16
+   heads of 256 and 512 run ``flash_dq_kernel_wide`` and
+   ``flash_dkv_kernel_wide``), and the bf16 forward at heads of 64 and
    128 is also run and timed at both of its tilings (64 and 128 query
    rows per block); median times
    beside the plain version, the one PyTorch call that computes the same
@@ -81,7 +85,13 @@ Phases (any failure ends the run with a non-zero exit and no result):
    plain versions on the card; 20 steps on the batch give finite losses
    that fall; step time, tokens/s, MFU, the device busy share (beside
    the share of the port's kernel events the profile kept) and the
-   attention kernels' device time per step are printed.
+   attention kernels' device time per step are printed. Then one
+   ``gradient_and_score`` step at a wide head (``WIDE_TRAIN``: d_model
+   1024 over 4 heads of 256, 2 layers, seq 1024, batch 8, bf16), with
+   the kernels against the plain versions on the card at the same
+   tolerances: each flash kernel launches once per block, and its
+   device step time and the wide kernels' share of it are printed
+   (``train_wide``).
 5. char-RNN serving at full width: the JAX package's LSTM decode
    benchmark (vocab 64, two GravesLSTM of 512, RnnOutputLayer softmax,
    f32), random weights from a numpy seed, greedy ``generate`` of 128
@@ -195,13 +205,19 @@ WIDE_HEAD_CASES = {dtype: [(dtype, WIDE_HEAD[0], WIDE_HEAD[1], WIDE_HEAD[2],
                             WIDE_HEAD[2], True), (dtype, 512, 8, 200, 200, True),
                            (dtype, 1024, 4, 200, 200, True)]
                    for dtype in ("bfloat16", "float32")}
-# the bf16 wide forward at d 512 and the same bound as WIDE_HEAD's (the
-# forward only: the SIMT backward at that shape would lengthen the run)
-WIDE_FWD_CASES = [("bfloat16", 512, 16, 1024, 1024, True)]
+# the bf16 wide kernels at d 512, forward and backward, at the same bound
+# as WIDE_HEAD's
+WIDE_512_CASES = [("bfloat16", 512, 16, 1024, 1024, True)]
 # one step's loss and gradients with the kernels vs with the plain
 # versions on the card: bf16 attention outputs and gradients that differ
 # by bf16 roundings pass through 8 bf16 layers
 TRAIN_LOSS_TOL, TRAIN_GRAD_REL = 1e-2, 2e-2
+# phase 4's wide-head step: heads of 256 (Gemma-7B's head_dim), so that
+# training runs the wide bf16 flash kernels; two blocks, held to the
+# tolerances above
+WIDE_TRAIN = dict(vocab_size=8192, d_model=1024, n_layers=2, num_heads=4,
+                  max_len=1024, compute_dtype="bfloat16")
+WIDE_TRAIN_BATCH = 8
 
 # LSTM kernels vs their plain versions (phase 2b). f32: CUDA-core FMAs
 # (no TF32) against cuBLAS f32, so only the order of the sums differs,
@@ -469,6 +485,19 @@ def fwd_kernel_name(dtype: str, d: int) -> str:
     return "flash_fwd_kernel_f32<"
 
 
+def bwd_kernel_names(dtype: str, d: int) -> tuple:
+    """The profiled names (up to their template arguments) of the two
+    backward kernels that a padded head of ``d`` runs in ``dtype``, as
+    ``fwd_kernel_name`` has the forward's."""
+    if dtype == "bfloat16" and d <= 128:
+        suffix = ""
+    elif dtype == "bfloat16" and d <= 512:
+        suffix = "_wide"
+    else:
+        suffix = "_f32"
+    return (f"flash_dq_kernel{suffix}<", f"flash_dkv_kernel{suffix}<")
+
+
 def _live_pairs(tq, tk, causal):
     """The (q, k) pairs the causal mask leaves (all of them otherwise)."""
     offset = tk - tq
@@ -505,11 +534,8 @@ def _flash_bwd_bound(bh, tq, tk, d, causal, dtype, flops_per_pair, n_out):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def phase_bwd_kernels(torch, F, kernels, flash):
-    """Phase 2, backward: flash_dq and flash_dkv against the plain
-    backward on the same (q, k, v, o, lse, dO)."""
-    rows = []
-    g = torch.Generator(device="cuda").manual_seed(4321)
+def bwd_cases():
+    """Phase 2's backward cases: (dtype, d, bh, tq, tk, causal)."""
     cases = []
     for dtype in ("bfloat16", "float32"):
         for d in (64, 128):
@@ -523,7 +549,15 @@ def phase_bwd_kernels(torch, F, kernels, flash):
                       (dtype, d, 8, 72, 200, True), (dtype, d, 1, 2048, 2048, False),
                       (dtype, d, 1, 2048, 2048, True)]
         cases += WIDE_HEAD_CASES[dtype]
-    for dtype, d, bh, tq, tk, causal in cases:
+    return cases + WIDE_512_CASES
+
+
+def phase_bwd_kernels(torch, F, kernels, flash):
+    """Phase 2, backward: flash_dq and flash_dkv against the plain
+    backward on the same (q, k, v, o, lse, dO)."""
+    rows = []
+    g = torch.Generator(device="cuda").manual_seed(4321)
+    for dtype, d, bh, tq, tk, causal in bwd_cases():
         dt = getattr(torch, dtype)
         q, k, v, do = (torch.randn(bh, t, d, generator=g, device="cuda").to(dt)
                        for t in (tq, tk, tk, tq))
@@ -564,6 +598,12 @@ def phase_bwd_kernels(torch, F, kernels, flash):
         lib_fb = lambda: torch.autograd.grad(  # noqa: E731
             lib_fwd(), (qs_, ks_, vs_), do[None])
         times = _device_times(torch, kernel, 10)
+        # the whole call is one launch of each of the two kernels that
+        # this dtype and head take
+        names = bwd_kernel_names(dtype, d)
+        _check(all(any(n in name for n in names) for name in times)
+               and all(any(n in name for name in times) for n in names),
+               f"flash_bwd call {tag} ran {sorted(times)}, not {names}")
         dq_bound = _flash_bwd_bound(bh, tq, tk, d, causal, dtype, 6 * d, 1)
         dkv_bound = _flash_bwd_bound(bh, tq, tk, d, causal, dtype, 8 * d, 2)
         row = dict(dtype=dtype, bh=bh, tq=tq, tk=tk, d=d, causal=causal,
@@ -601,7 +641,7 @@ def phase_kernels(torch, F, flash):
                       (dtype, d, 8, 72, 200, True), (dtype, d, 1, 2048, 2048, False),
                       (dtype, d, 1, 2048, 2048, True)]
         cases += WIDE_HEAD_CASES[dtype]
-    cases += WIDE_FWD_CASES
+    cases += WIDE_512_CASES
     for dtype, d, bh, tq, tk, causal in cases:
         dt = getattr(torch, dtype)
         q, k, v = (torch.randn(bh, t, d, generator=g, device="cuda").to(dt)
@@ -870,7 +910,59 @@ def phase_train(torch, np, kernels, flash):
                    grad_rel_l2_vs_plain_max=worst, losses=losses,
                    top_kernels_ms_per_step=[[k[:90], ms] for k, ms in top])
     print("train " + json.dumps(metrics), flush=True)
+    del net
+    metrics["wide_head"] = phase_train_wide(torch, np, kernels, flash)
     return launches, metrics
+
+
+def phase_train_wide(torch, np, kernels, flash):
+    """Phase 4's wide-head step (``WIDE_TRAIN``, heads of 256): one
+    ``gradient_and_score`` with the kernels against the same step with
+    the plain versions on the card (``TRAIN_LOSS_TOL``,
+    ``TRAIN_GRAD_REL``); each flash kernel launches once per block; the
+    step's device time and the wide kernels' share of it."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.models.zoo.transformer import gpt
+    from deeplearning4j_tpu_torch.nn.layers import transformer
+    from deeplearning4j_tpu_torch.util.model_serializer import params_from_numpy
+
+    t, layers = WIDE_TRAIN["max_len"], WIDE_TRAIN["n_layers"]
+    net = gpt(**WIDE_TRAIN).init()
+    params_from_numpy(net, _random_params(net, seed=13))
+    ids = np.random.default_rng(14).integers(0, WIDE_TRAIN["vocab_size"],
+                                             (WIDE_TRAIN_BATCH, t))
+    ds = DataSet(ids.astype(np.float32),
+                 np.roll(ids, -1, axis=1).astype(np.float32))
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    grads, loss = net.gradient_and_score(ds)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    for name in (flash.KERNEL, flash.DQ_KERNEL, flash.DKV_KERNEL):
+        _check(launches.get(name, 0) == layers,
+               f"{name} launched {launches.get(name, 0)} times in one wide-head "
+               f"step, expected {layers}: {launches}")
+    with _plain_attention(torch, flash, transformer):
+        grads_p, loss_p = net.gradient_and_score(ds)
+    _check(abs(loss - loss_p) <= TRAIN_LOSS_TOL,
+           f"wide-head loss kernels {loss} vs plain {loss_p}")
+    worst, at = _grad_rel(torch, grads, grads_p)
+    _check(worst <= TRAIN_GRAD_REL,
+           f"wide-head grad {at} kernels vs plain: rel L2 {worst}")
+    del grads, grads_p
+    per_step = _device_times(torch, lambda: net.gradient_and_score(ds), 3)
+    wide = {m: _sum_ms(per_step, m) for m in (
+        "flash_fwd_kernel_wide", "flash_dq_kernel_wide", "flash_dkv_kernel_wide")}
+    step_ms = _sum_ms(per_step)
+    metrics = dict(launches=launches, loss=loss, loss_vs_plain=abs(loss - loss_p),
+                   grad_rel_l2_vs_plain_max=worst, grad_worst_at=at,
+                   step_device_ms=step_ms, profile_kept_share=per_step.kept_share,
+                   wide_kernels_ms_per_step=wide,
+                   wide_kernels_share=sum(wide.values()) / step_ms,
+                   shape=[WIDE_TRAIN_BATCH * WIDE_TRAIN["num_heads"], t,
+                          WIDE_TRAIN["d_model"] // WIDE_TRAIN["num_heads"]])
+    print("train_wide " + json.dumps(metrics), flush=True)
+    return metrics
 
 
 def _lstm_bounds(dtype, b, t, n):
@@ -1869,7 +1961,8 @@ PHASES = ("2", "2b", "3", "4", "5", "6", "7", "8")
 # the mma.sync designs keep their tiles, sums and (LSTM) cell state in
 # registers
 BF16_KERNELS = {"flash_fwd": ("flash_fwd_kernel", "flash_fwd_kernel_wide"),
-                "flash_bwd": ("flash_dq_kernel", "flash_dkv_kernel"),
+                "flash_bwd": ("flash_dq_kernel", "flash_dkv_kernel",
+                              "flash_dq_kernel_wide", "flash_dkv_kernel_wide"),
                 "lstm_fwd": ("lstm_fwd_kernel",),
                 "lstm_bwd": ("lstm_bwd_kernel", "lstm_dw_kernel")}
 # source -> its f32 kernels held to the same gate: the f32 forward and
@@ -1972,6 +2065,10 @@ def main(argv) -> int:
               f"{m['tokens_per_s']:.0f} tokens/s, MFU {m['mfu']:.4f}, "
               f"loss {m['loss_first']:.4f} -> {m['loss_last']:.4f} on {card}",
               flush=True)
+        w = m["wide_head"]
+        print(f"phase 4: wide-head (256) step {w['step_device_ms']:.3f} device ms, "
+              f"wide flash kernels {w['wide_kernels_share']:.3f} of it, "
+              f"within tolerance of the plain attention on {card}", flush=True)
     if "5" in phases:  # char-RNN serving at full width
         print(f"clocks: {_clocks()}", flush=True)
         done["5"] = phase_char_serve(torch, np, kernels, lk)
@@ -2042,24 +2139,25 @@ def _flash_summary(done):
 
     fwd_train, bwd_row = train_row(rows), train_row(bwd_rows)
 
-    def wide_row(rs):
-        d, bh, t = WIDE_HEAD
+    def wide_row(rs, d, bh, t):
         return next(r for r in rs if r["dtype"] == "bfloat16" and r["d"] == d
                     and r["bh"] == bh and r["tq"] == t and r["causal"])
 
-    def wide(r, key, err):
-        """a wide head's numbers ([32, 1024, 256] bf16 causal: the wide
-        mma.sync forward, the SIMT backward): this kernel's time beside
-        the plain version and the library call (SDPA; its whole backward
-        for the two backward kernels)"""
+    def wide(r, kernel, key, err):
+        """a wide head's numbers (bf16 causal, the wide mma.sync kernels):
+        this kernel's time beside the plain version and the library call
+        (SDPA; its whole backward for the two backward kernels)"""
         ms = r[f"{key}kernel_only_ms"]
-        return {"ms": ms, "plain_ms": r["plain_ms"],
+        return {"kernel": kernel, "ms": ms, "plain_ms": r["plain_ms"],
                 "library_ms": r["library_ms"], "max_abs_err": err,
                 "bound_ms": r[f"{key}bound_ms"], "bound_by": r[f"{key}bound_by"],
                 "bound_share": r[f"{key}bound_ms"] / ms,
                 "shape": [r["bh"], r["tq"], r["d"]]}
 
-    fwd_wide, bwd_wide = wide_row(rows), wide_row(bwd_rows)
+    _, d512, bh512, t512, _, _ = WIDE_512_CASES[0]
+    fwd_wide, bwd_wide = (wide_row(rs, *WIDE_HEAD) for rs in (rows, bwd_rows))
+    fwd_512, bwd_512 = (wide_row(rs, d512, bh512, t512) for rs in (rows, bwd_rows))
+    wide_train = done["4"][1]["wide_head"]
     return [{
         "name": flash.KERNEL, "route": "cuda",
         "source": SRC + "flash_fwd.cu",
@@ -2081,7 +2179,9 @@ def _flash_summary(done):
         | {"max_abs_err": fwd_train["err_o"],
            "bound_share": fwd_train["bound_ms"] / fwd_train["kernel_only_ms"],
            "shape": [train_bh, TRAIN["max_len"], d_head]},
-        "wide_head": wide(fwd_wide, "", fwd_wide["err_o"]),
+        "wide_head": wide(fwd_wide, "flash_fwd_kernel_wide", "", fwd_wide["err_o"]),
+        "wide_head_512": wide(fwd_512, "flash_fwd_kernel_wide", "", fwd_512["err_o"]),
+        "wide_train_launches": wide_train["launches"].get(flash.KERNEL, 0),
     }] + [{
         "name": name, "route": "cuda", "source": SRC + "flash_bwd.cu",
         "replaces": f"deeplearning4j_tpu/ops/flash_attention.py:{line}",
@@ -2102,9 +2202,13 @@ def _flash_summary(done):
         "shape": [train_bh, TRAIN["max_len"], d_head],
         "max_abs_err_all_cases": max(r[f"err_{g}"] for r in bwd_rows
                                      for g in grads),
-        "wide_head": wide(bwd_wide, f"{key}_",
+        "wide_head": wide(bwd_wide, f"{name}_kernel_wide", f"{key}_",
                           max(bwd_wide[f"err_{g}"] for g in grads))
         | {"backward_ms": bwd_wide["ms"]},
+        "wide_head_512": wide(bwd_512, f"{name}_kernel_wide", f"{key}_",
+                              max(bwd_512[f"err_{g}"] for g in grads))
+        | {"backward_ms": bwd_512["ms"]},
+        "wide_train_launches": wide_train["launches"].get(name, 0),
     } for name, line, key, grads in (
         (flash.DQ_KERNEL, 220, "dq", ("dq",)),
         (flash.DKV_KERNEL, 252, "dkv", ("dk", "dv")))]

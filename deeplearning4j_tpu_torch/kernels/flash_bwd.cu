@@ -29,7 +29,8 @@
 // What bounds it on the H100: at the training shape [128, 1024, 64] bf16
 // causal the work is operations, 6 d flops per live (q, k) pair in dq
 // (0.0261 ms at 989 TFLOP/s) and 8 d in dk/dv (0.0348 ms), against a few
-// MB moved. The bf16 kernels (every main path) are the structure of the
+// MB moved. The bf16 kernels of heads up to 128 (every main path:
+// flash_dq_kernel, flash_dkv_kernel) are the structure of the
 // forward (flash_fwd.cu) on the warp-level tensor cores, so that the
 // products, not the copies or shared-memory round trips, take the time:
 // - flash_dkv: a warp owns 16 key rows for the whole query loop; a block
@@ -69,14 +70,59 @@
 // 6 % slower at the training shape); at d = 128 dk and dv alone take 128
 // registers, and one block runs per SM.
 //
+// The wide bf16 kernels (flash_dq_kernel_wide, flash_dkv_kernel_wide) run
+// the bf16 heads of 256 and 512 (129-256 and 257-512 are zero-padded to
+// them) on the same tensor-core tools, with the structure of the wide
+// forward (flash_fwd.cu). The kernels above cannot: a warp there holds a
+// 16 x d f32 accumulator (d / 2 registers; flash_dkv two of them) and its
+// qs and dO rows as A fragments (d / 4 each), past 255 registers at 256.
+// What bounds them at [32, 1024, 256] bf16 causal: 0.0301 ms of bytes
+// for flash_dq (0.0261 of operations) and 0.0348 ms of operations for
+// flash_dkv. So:
+// - a warp owns at most 256 of the head's columns of dq (128 f32
+//   registers) or 128 of dk and of dv (64 + 64); its operand rows stay
+//   in shared memory and are read by ldmatrix at every step, as the
+//   wide forward reads Q;
+// - flash_dq_kernel_wide: 8 warps a block. At d = 256 one warp owns 16
+//   query rows and all 256 columns: 128 rows a block, so K and V come
+//   from L2 once per 128 rows (q and dO 132 KB, two cp.async stages of
+//   32-key K/V tiles 66 KB, one block an SM); a warp's step is the whole
+//   tile, so it reads its qs and dO fragments once per 32 keys (on the
+//   H100 at [32, 1024, 256] causal 1.16x faster than 16-key steps; 243
+//   registers). At d = 512 two warps share 16 rows, each with 256
+//   columns of dq, and contract S = qs K^T and dP = dO V^T over their
+//   own half of d; the pair sums its 16 x 16 partials of both through
+//   shared memory under its named barrier (a + b == b + a: both hold
+//   the same p and ds). q and dO of 64 rows take 130 KB, so K/V tiles
+//   are 16 keys (two stages, 65 KB): one exchange a tile, whose buffer's
+//   reuse the block barrier orders. Each warp of a pair sums delta over
+//   the whole row alike; the first writes it;
+// - flash_dkv_kernel_wide: 8 warps a block. A key group of 16 keys has
+//   WPK = d / 128 warps, each owning 128 columns of dk and dv: two at
+//   d = 256 (64 keys a block; query tiles of 32, a warp's step, in
+//   three cp.async stages: on the H100 at [32, 1024, 256] causal 1.10x
+//   faster than 16-query steps; 242 registers) and four at 512 (32 keys
+//   a block, query tiles of 16). K and V of the block stay resident.
+//   Each warp contracts S^T = K qs^T and dP^T = V dO^T over its own
+//   columns; the group writes its partials to shared memory, meets at
+//   its named barrier, and every warp sums the WPK partials in the
+//   order of their columns, so all hold the same p^T and ds^T; each then
+//   adds p^T dO and ds^T qs into its own columns, B from ldmatrix.trans
+//   of the query stage;
+// - the numbers are those of the kernels above (q pre-scaled as it
+//   lands, p from exp2 of the rescaled score, ds and p rounded to bf16
+//   before their products, dq scaled once at the end), each block owns
+//   its output rows (no atomics: deterministic), the causal tiles with
+//   the most work go first, and masks are evaluated only on steps that
+//   cross the diagonal, tq or tk; 0 spills (chip_smoke.py phase 1).
+//
 // The SIMT kernels (flash_dq_kernel_f32, flash_dkv_kernel_f32) are on no
 // main path and were not redesigned: the first version's CUDA-core FMAs
 // through shared memory in f32 (full f32 precision, no TF32), taking the
 // unscaled q and multiplying it by the scale as they load it (one
 // rounding, the torch product), and, in flash_dq, computing and writing
 // delta as the bf16 kernel does. They run every f32 head and the bf16
-// heads of 256, 512 and 1024 (wider than the mma.sync kernels' registers
-// hold; 129-256, 257-512 and 513-1024 are zero-padded to them). Their
+// heads of 1024 (513-1024 are zero-padded to it). Their
 // tiles are template parameters (simt_tile, flash_common.cuh): flash_dq
 // 64 x 64 up to d = 128, 32 x 32 at 256, 16 x 16 at 512, 8 x 8 at 1024
 // (~177, ~168 and ~161 KB of shared memory); flash_dkv 64 keys and
@@ -318,7 +364,6 @@ flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int NT = BKB * 2;  // BKB / 16 warps
   constexpr int LD = Tiles::LD;
   constexpr int STAGES = Tiles::STAGES;
-  constexpr int CH = D / 8;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);
   bf16* Vs = Ks + BKB * LD;
@@ -383,15 +428,7 @@ flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float* Lt = Ls + 2 * st * TILE;  // lse, then delta
     // tile t has landed for this thread: pre-scale the q chunks it copied
     cp_async_wait<STAGES - 2>();
-    for (int i = threadIdx.x; i < TILE * CH; i += NT) {
-      uint4* p = reinterpret_cast<uint4*>(Qt + (i / CH) * LD + (i % CH) * 8);
-      uint4 x = *p;
-      x.x = scale_pair(x.x, q_scale);
-      x.y = scale_pair(x.y, q_scale);
-      x.z = scale_pair(x.z, q_scale);
-      x.w = scale_pair(x.w, q_scale);
-      *p = x;
-    }
+    scale_rows<D, LD, TILE, NT>(Qt, q_scale);
     // every thread's share of tile t is in place, and every warp is done
     // with tile t - 1, whose stage the next copy refills
     __syncthreads();
@@ -475,6 +512,467 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
   if (err != cudaSuccess) return (int)err;
   const int n_ktiles = (tk + BKB - 1) / BKB;
   flash_dkv_kernel<D, BKB><<<bh * n_ktiles, BKB * 2, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      bh, tq, tk, causal, q_scale);
+  return (int)cudaGetLastError();
+}
+
+// ----------------------------------------------- the wide bf16 kernels
+
+// Heads of 256 and 512: flash_dq_kernel_wide. A block of BQ query rows in
+// row groups of 16, WPR warps to a row group, each owning DW = 256 of the
+// head's columns (its share of the contraction of S and dP, and its
+// columns of dq); K and V tiles of BKW keys through a cp.async ring, one
+// step of each warp a tile.
+template <int D>
+struct WideDqTiles {
+  static constexpr int WPR = D / 256;             // warps per row group
+  static constexpr int DW = D / WPR;              // head columns per warp
+  static constexpr int BQ = WPR == 1 ? 128 : 64;  // query rows per block
+  static constexpr int NT = BQ / 16 * WPR * 32;   // 8 warps at both widths
+  static constexpr int BKW = WPR == 1 ? 32 : 16;  // keys per K/V tile
+  static constexpr int NJ = BKW / 16;             // 16-key blocks per tile
+  static constexpr int STAGES = 2;
+  static constexpr int LD = D + 8;  // row stride in elements: 16 bytes of padding
+  // q and dO rows of the block, then STAGES tiles of K and of V
+  static constexpr size_t tile_bytes =
+      sizeof(bf16) * (size_t)(2 * BQ + 2 * STAGES * BKW) * LD;
+  // WPR = 2: each warp's partial S and dP (2 NJ accumulator tiles each)
+  static constexpr size_t bytes = tile_bytes + (WPR > 1 ? sizeof(float4) * NT * 4 * NJ : 0);
+  static_assert(DW == 256 && (WPR == 1 || WPR == 2), "wide heads are 256 or 512");
+  static_assert(bytes <= SMEM_LIMIT, "flash_dq wide layout exceeds shared memory");
+};
+
+template <int D>
+__global__ void __launch_bounds__(WideDqTiles<D>::NT, 1)
+flash_dq_kernel_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const bf16* __restrict__ o,
+                     const bf16* __restrict__ dout, const float* __restrict__ lse,
+                     float* __restrict__ delta, bf16* __restrict__ dq, int bh, int tq,
+                     int tk, int n_qtiles, int causal, float q_scale, float scale) {
+  using Tl = WideDqTiles<D>;
+  constexpr int BQ = Tl::BQ, BKW = Tl::BKW, NJ = Tl::NJ;
+  constexpr int WPR = Tl::WPR, DW = Tl::DW, NT = Tl::NT, LD = Tl::LD, STAGES = Tl::STAGES;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* dOs = Qs + BQ * LD;
+  bf16* Ks = dOs + BQ * LD;            // STAGES tiles of BKW rows
+  bf16* Vs = Ks + STAGES * BKW * LD;   // STAGES tiles of BKW rows
+  float4* X = reinterpret_cast<float4*>(smem + Tl::tile_bytes);  // partials (WPR = 2)
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, c = lane % 4;
+  const int rg = warp / WPR, part = warp % WPR;  // row group, share of the columns
+  // the q-tiles with the most key tiles (the last ones, under the causal
+  // mask) first, so the last wave of blocks is not the longest
+  const int qt = n_qtiles - 1 - (int)(blockIdx.x / bh);
+  const int b = blockIdx.x % bh;
+  const int q0 = qt * BQ;
+  const int r0 = q0 + 16 * rg;  // this warp's first query row
+  const int offset = tk - tq;
+  const bf16* kb = k + (size_t)b * tk * D;
+  const bf16* vb = v + (size_t)b * tk * D;
+  // this warp's rows and columns of q (later its dq) and of dO
+  bf16* Qw = Qs + 16 * rg * LD + part * DW;
+  const bf16* dOw = dOs + 16 * rg * LD + part * DW;
+
+  // the block's q and dO rows (zeros past tq): copy group 0
+  load_tile_pair<D, LD, BQ, NT>(Qs, dOs, q + (size_t)b * tq * D, dout + (size_t)b * tq * D,
+                                q0, tq);
+  cp_async_commit();
+
+  // causal: the last key any valid row of this tile may see
+  int k_end = tk;
+  if (causal) k_end = min(tk, min(q0 + BQ, tq) + offset);
+  const int n_kt = k_end > 0 ? (k_end + BKW - 1) / BKW : 0;
+
+  // key tile kt (zeros past tk) into ring stage kt % STAGES
+  auto load_kv = [&](int kt) {
+    const int st = kt % STAGES;
+    load_tile_pair<D, LD, BKW, NT>(Ks + st * BKW * LD, Vs + st * BKW * LD, kb, vb, kt * BKW, tk);
+  };
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_kt) load_kv(s);
+    cp_async_commit();
+  }
+
+  // lse (times log2 e) of rows g and g + 8; zeros past tq
+  float lse2[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + g + 8 * h;
+    lse2[h] = row < tq ? lse[(size_t)b * tq + row] * LOG2E : 0.f;
+  }
+
+  // q scaled in place (each thread the chunks it copied, once group 0
+  // landed), then the block's barrier: every warp reads its q and dO
+  // fragments by ldmatrix at each step
+  cp_async_wait<STAGES - 1>();
+  scale_rows<D, LD, BQ, NT>(Qs, q_scale);
+  __syncthreads();
+
+  // delta = rowsum(dO O) in f32 over the whole head (both warps of a pair
+  // sum it alike): lanes l and l + 16 sum the two halves of row
+  // r0 + l % 16 (O read once a warp, straight from device memory; zero
+  // past tq), written once per row for flash_dkv; then rows g and g + 8
+  float dsum = 0.f;
+  if (r0 + lane % 16 < tq) {
+    const int r = lane % 16, c0 = (lane / 16) * (D / 2);
+    const bf16* orow = o + ((size_t)b * tq + r0 + r) * D + c0;
+    const bf16* drow = dOs + (16 * rg + r) * LD + c0;
+#pragma unroll 4
+    for (int i = 0; i < D / 2; i += 8) {
+      const uint4 ov = *reinterpret_cast<const uint4*>(orow + i);
+      const uint4 dv = *reinterpret_cast<const uint4*>(drow + i);
+      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+      const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 x = __bfloat1622float2(o2[e]), y = __bfloat1622float2(d2[e]);
+        dsum = fmaf(x.x, y.x, dsum);
+        dsum = fmaf(x.y, y.y, dsum);
+      }
+    }
+  }
+  dsum += __shfl_xor_sync(0xffffffffu, dsum, 16);
+  if (part == 0 && lane < 16 && r0 + lane < tq) delta[(size_t)b * tq + r0 + lane] = dsum;
+  const float dlt[2] = {__shfl_sync(0xffffffffu, dsum, g), __shfl_sync(0xffffffffu, dsum, g + 8)};
+
+  float acc[DW / 8][4];
+#pragma unroll
+  for (int n = 0; n < DW / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    // tile kt has landed for every thread, every warp is done with tile
+    // kt - 1 (whose stage the next copy refills) and with its partner's
+    // partials of tile kt - 1
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    if (kt + STAGES - 1 < n_kt) load_kv(kt + STAGES - 1);
+    cp_async_commit();
+    if (r0 >= tq) continue;  // this row group's rows are all past tq
+
+    // keys kc0 .. kc0 + BKW - 1 (kc0 < tk): wholly above this row group's
+    // diagonal, p = 0 throughout
+    const int kc0 = kt * BKW;
+    if (causal && kc0 > r0 + 15 + offset) continue;
+    const bf16* Kt = Ks + (kt % STAGES) * BKW * LD + part * DW;
+    const bf16* Vt = Vs + (kt % STAGES) * BKW * LD + part * DW;
+    // S = qs K^T and dP = dO V^T over this warp's columns: A fragments of
+    // qs and dO by ldmatrix (they stay in shared memory), B of K and V two
+    // 8-key tiles per ldmatrix
+    float s[2 * NJ][4] = {}, dp[2 * NJ][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < DW / 16; ++kk) {
+      uint32_t qa[4], da[4];
+      load_a<LD>(qa, Qw, kk, lane);
+      load_a<LD>(da, dOw, kk, lane);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        uint32_t bk[4], bv[4];
+        load_bt<LD>(bk, Kt, j, kk, lane);
+        load_bt<LD>(bv, Vt, j, kk, lane);
+        mma_bf16(s[2 * j], qa, bk[0], bk[1]);
+        mma_bf16(s[2 * j + 1], qa, bk[2], bk[3]);
+        mma_bf16(dp[2 * j], da, bv[0], bv[1]);
+        mma_bf16(dp[2 * j + 1], da, bv[2], bv[3]);
+      }
+    }
+    if constexpr (WPR > 1) {
+      // S and dP over the whole head: this warp's partials plus its
+      // partner's (the other half of d), through shared memory under the
+      // pair's own barrier (the block's barrier of the next tile orders
+      // the buffer's reuse); a + b == b + a, so both warps hold the same
+      // p and ds
+#pragma unroll
+      for (int n = 0; n < 2 * NJ; ++n) {
+        X[(warp * 4 * NJ + n) * 32 + lane] = make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
+        X[(warp * 4 * NJ + 2 * NJ + n) * 32 + lane] =
+            make_float4(dp[n][0], dp[n][1], dp[n][2], dp[n][3]);
+      }
+      bar_sync(1 + rg, 32 * WPR);
+#pragma unroll
+      for (int n = 0; n < 2 * NJ; ++n) {
+        const float4 y = X[((warp ^ 1) * 4 * NJ + n) * 32 + lane];
+        const float4 z = X[((warp ^ 1) * 4 * NJ + 2 * NJ + n) * 32 + lane];
+        s[n][0] += y.x, s[n][1] += y.y, s[n][2] += y.z, s[n][3] += y.w;
+        dp[n][0] += z.x, dp[n][1] += z.y, dp[n][2] += z.z, dp[n][3] += z.w;
+      }
+    }
+    // ds = p (dP - delta) in the S accumulators; masks only where the tile
+    // crosses tk or this row group's diagonal
+    const bool edge = kc0 + BKW > tk || (causal && kc0 + BKW - 1 > r0 + offset);
+#pragma unroll
+    for (int n = 0; n < 2 * NJ; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(fmaf(s[n][e], LOG2E, -lse2[e / 2]));
+        if (edge) {
+          const int col = kc0 + 8 * n + 2 * c + (e % 2);
+          const int row = r0 + g + 8 * (e / 2);
+          if (col >= tk || (causal && row + offset < col)) p = 0.f;
+        }
+        s[n][e] = p * (dp[n][e] - dlt[e / 2]);
+      }
+    }
+    // dq += ds K over this warp's columns: B by ldmatrix.trans of the same
+    // K rows
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      uint32_t dsa[4];
+      pack_a(dsa, s[2 * j], s[2 * j + 1]);
+#pragma unroll
+      for (int np = 0; np < DW / 16; ++np) {
+        uint32_t bfr[4];
+        load_b<LD>(bfr, Kt + 16 * j * LD, np, lane);
+        mma_bf16(acc[2 * np], dsa, bfr[0], bfr[1]);
+        mma_bf16(acc[2 * np + 1], dsa, bfr[2], bfr[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();  // the trailing (empty) groups
+
+  // dq times its scale, staged through this warp's rows and columns of q
+  store_warp_rows<DW, LD, D>(dq + (size_t)b * tq * D + part * DW, Qw, acc,
+                             [=](float x, int) { return x * scale; }, r0, tq, lane);
+}
+
+template <int D>
+int launch_dq_wide(const void* q, const void* k, const void* v, const void* o,
+                   const void* dout, const float* lse, float* delta, void* dq, int bh, int tq,
+                   int tk, int causal, float q_scale, float scale, cudaStream_t stream) {
+  using Tl = WideDqTiles<D>;
+  cudaError_t err = cudaFuncSetAttribute(flash_dq_kernel_wide<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)Tl::bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int n_qtiles = (tq + Tl::BQ - 1) / Tl::BQ;
+  flash_dq_kernel_wide<D><<<bh * n_qtiles, Tl::NT, Tl::bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, delta,
+      static_cast<bf16*>(dq), bh, tq, tk, n_qtiles, causal, q_scale, scale);
+  return (int)cudaGetLastError();
+}
+
+// Heads of 256 and 512: flash_dkv_kernel_wide. A block of BKB keys in key
+// groups of 16, WPK warps to a key group, each owning DW = 128 of the
+// head's columns (its share of the contraction of S^T and dP^T, and its
+// columns of dk and dv); query tiles of QT rows through a cp.async ring,
+// one step of each warp a tile.
+template <int D>
+struct WideDkvTiles {
+  static constexpr int WPK = D / 128;              // warps per key group
+  static constexpr int DW = D / WPK;               // head columns per warp
+  static constexpr int BKB = WPK == 2 ? 64 : 32;   // keys per block
+  static constexpr int NT = BKB / 16 * WPK * 32;   // 8 warps at both widths
+  static constexpr int QT = WPK == 2 ? 32 : 16;    // queries per ring tile
+  static constexpr int NQ = QT / 16;               // 16-query blocks per tile
+  static constexpr int STAGES = 3;
+  static constexpr int LD = D + 8;
+  // K and V rows of the block, then STAGES tiles of qs and of dO, then
+  // the partials (4 NQ accumulator tiles a thread), then
+  // STAGES tiles of lse and of delta (f32)
+  static constexpr size_t stage_elems = (size_t)2 * QT * LD;
+  static constexpr size_t rows_bytes =
+      sizeof(bf16) * (2 * (size_t)BKB * LD + STAGES * stage_elems);
+  static constexpr size_t x_bytes = sizeof(float4) * NT * 4 * NQ;
+  static constexpr size_t bytes = rows_bytes + x_bytes + sizeof(float) * 2 * STAGES * QT;
+  static_assert(DW == 128 && (WPK == 2 || WPK == 4), "wide heads are 256 or 512");
+  static_assert(bytes <= SMEM_LIMIT, "flash_dkv wide layout exceeds shared memory");
+};
+
+template <int D>
+__global__ void __launch_bounds__(WideDkvTiles<D>::NT, 1)
+flash_dkv_kernel_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                      const float* __restrict__ lse, const float* __restrict__ delta,
+                      bf16* __restrict__ dk, bf16* __restrict__ dv, int bh, int tq, int tk,
+                      int causal, float q_scale) {
+  using Tl = WideDkvTiles<D>;
+  constexpr int BKB = Tl::BKB, QT = Tl::QT, NQ = Tl::NQ, WPK = Tl::WPK, DW = Tl::DW;
+  constexpr int NT = Tl::NT, LD = Tl::LD, STAGES = Tl::STAGES;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + BKB * LD;
+  bf16* Rs = Vs + BKB * LD;  // stage st: qs rows at st * stage_elems, dO rows QT * LD on
+  float4* X = reinterpret_cast<float4*>(smem + Tl::rows_bytes);  // partials
+  float* Ls = reinterpret_cast<float*>(smem + Tl::rows_bytes + Tl::x_bytes);  // lse, delta
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, c = lane % 4;
+  const int kg = warp / WPK, part = warp % WPK;  // key group, share of the columns
+  // the key tiles with the most query tiles (the first ones, under the
+  // causal mask) first
+  const int k0 = (int)(blockIdx.x / bh) * BKB;
+  const int b = blockIdx.x % bh;
+  const int kw0 = k0 + 16 * kg;  // this warp's first key row
+  const int offset = tk - tq;
+  const bf16* qb = q + (size_t)b * tq * D;
+  const bf16* db = dout + (size_t)b * tq * D;
+  // this warp's rows and columns of K (later its dk) and of V (later dv)
+  bf16* Kw = Ks + 16 * kg * LD + part * DW;
+  bf16* Vw = Vs + 16 * kg * LD + part * DW;
+
+  // the block's K and V rows (zeros past tk): copy group 0
+  load_tile_pair<D, LD, BKB, NT>(Ks, Vs, k + (size_t)b * tk * D, v + (size_t)b * tk * D, k0,
+                                 tk);
+  cp_async_commit();
+
+  // causal: the first query row that sees any key of this block (< tq,
+  // since k0 - offset <= tq - 1)
+  const int qt0 = (causal ? max(0, k0 - offset) : 0) / QT;
+  const int n_qt = (tq + QT - 1) / QT - qt0;
+
+  // query tile qt0 + t (zeros past tq) into ring stage t % STAGES
+  auto load_q = [&](int t) {
+    const int q0 = (qt0 + t) * QT, st = t % STAGES;
+    bf16* qd = Rs + st * Tl::stage_elems;
+    load_tile_pair<D, LD, QT, NT>(qd, qd + QT * LD, qb, db, q0, tq);
+    for (int i = threadIdx.x; i < 2 * QT; i += NT) {
+      const int r = i % QT;
+      const bool in = q0 + r < tq;
+      const size_t off = in ? (size_t)b * tq + q0 + r : 0;
+      cp_async4(smem_addr(Ls + (2 * st + i / QT) * QT + r), (i < QT ? lse : delta) + off,
+                in ? 4 : 0);
+    }
+  };
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_qt) load_q(s);
+    cp_async_commit();
+  }
+
+  float dka[DW / 8][4], dva[DW / 8][4];
+#pragma unroll
+  for (int n = 0; n < DW / 8; ++n) {
+    dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.f;
+    dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
+  }
+
+  for (int t = 0; t < n_qt; ++t) {
+    const int st = t % STAGES;
+    bf16* Qt = Rs + st * Tl::stage_elems;
+    const float* Lt = Ls + 2 * st * QT;  // lse, then delta
+    // tile t (and, at t = 0, K and V) has landed for this thread:
+    // pre-scale the q chunks it copied
+    cp_async_wait<STAGES - 2>();
+    scale_rows<D, LD, QT, NT>(Qt, q_scale);
+    // every thread's share of tile t is in place, and every warp is done
+    // with tile t - 1 (whose stage the next copy refills) and with its
+    // group's partials of tile t - 1
+    __syncthreads();
+    if (t + STAGES - 1 < n_qt) load_q(t + STAGES - 1);
+    cp_async_commit();
+
+    // queries q0 .. q0 + QT - 1: past tq, or wholly below this key
+    // group's keys under the mask, p = 0 throughout (q0 < tq always)
+    const int q0 = (qt0 + t) * QT;
+    if (kw0 >= tk || (causal && q0 + QT - 1 + offset < kw0)) continue;
+    const bf16* Qp = Qt + part * DW;  // this warp's columns of qs and dO
+    const bf16* dOp = Qp + QT * LD;
+    // S^T = K qs^T and dP^T = V dO^T over this warp's columns: A of K and
+    // V by ldmatrix from the resident rows, B of qs and dO
+    float s[2 * NQ][4] = {}, dp[2 * NQ][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < DW / 16; ++kk) {
+      uint32_t ka[4], va[4];
+      load_a<LD>(ka, Kw, kk, lane);
+      load_a<LD>(va, Vw, kk, lane);
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) {
+        uint32_t bq[4], bd[4];
+        load_bt<LD>(bq, Qp, j, kk, lane);
+        load_bt<LD>(bd, dOp, j, kk, lane);
+        mma_bf16(s[2 * j], ka, bq[0], bq[1]);
+        mma_bf16(s[2 * j + 1], ka, bq[2], bq[3]);
+        mma_bf16(dp[2 * j], va, bd[0], bd[1]);
+        mma_bf16(dp[2 * j + 1], va, bd[2], bd[3]);
+      }
+    }
+    // over the whole head: the key group's WPK partials, summed by every
+    // warp of the group in the order of their columns, so that all of
+    // them hold the same p^T and ds^T (the block's barrier of the next
+    // tile orders the buffer's reuse)
+#pragma unroll
+    for (int n = 0; n < 2 * NQ; ++n) {
+      X[(warp * 4 * NQ + n) * 32 + lane] = make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
+      X[(warp * 4 * NQ + 2 * NQ + n) * 32 + lane] =
+          make_float4(dp[n][0], dp[n][1], dp[n][2], dp[n][3]);
+    }
+    bar_sync(1 + kg, 32 * WPK);
+    const auto group_sum = [&](int n, float (&x)[4]) {
+      float4 y = X[(kg * WPK * 4 * NQ + n) * 32 + lane];
+#pragma unroll
+      for (int i = 1; i < WPK; ++i) {
+        const float4 z = X[((kg * WPK + i) * 4 * NQ + n) * 32 + lane];
+        y.x += z.x, y.y += z.y, y.z += z.z, y.w += z.w;
+      }
+      x[0] = y.x, x[1] = y.y, x[2] = y.z, x[3] = y.w;
+    };
+#pragma unroll
+    for (int n = 0; n < 2 * NQ; ++n) {
+      group_sum(n, s[n]);
+      group_sum(2 * NQ + n, dp[n]);
+    }
+    // p^T and ds^T in the accumulators: row (key) kw0 + g + 8 (e / 2),
+    // column (query) q0 + 8 n + 2 c + (e % 2); masks only where the tile
+    // crosses tq or this key group's diagonal
+    const bool edge = q0 + QT > tq || (causal && q0 + offset < kw0 + 15);
+#pragma unroll
+    for (int n = 0; n < 2 * NQ; ++n) {
+      const int col = 8 * n + 2 * c;  // in the tile
+      const float2 l2 = *reinterpret_cast<const float2*>(Lt + col);
+      const float2 d2 = *reinterpret_cast<const float2*>(Lt + QT + col);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(fmaf(s[n][e], LOG2E, -(e % 2 ? l2.y : l2.x) * LOG2E));
+        if (edge) {
+          const int qi = q0 + col + (e % 2);
+          const int ki = kw0 + g + 8 * (e / 2);
+          if (qi >= tq || (causal && qi + offset < ki)) p = 0.f;
+        }
+        s[n][e] = p;
+        dp[n][e] = p * (dp[n][e] - (e % 2 ? d2.y : d2.x));
+      }
+    }
+    // dv += p^T dO, dk += ds^T qs over this warp's columns: B by
+    // ldmatrix.trans of the same rows
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+      uint32_t pa[4], dsa[4];
+      pack_a(pa, s[2 * j], s[2 * j + 1]);
+      pack_a(dsa, dp[2 * j], dp[2 * j + 1]);
+#pragma unroll
+      for (int np = 0; np < DW / 16; ++np) {
+        uint32_t bd[4], bq[4];
+        load_b<LD>(bd, dOp + 16 * j * LD, np, lane);
+        load_b<LD>(bq, Qp + 16 * j * LD, np, lane);
+        mma_bf16(dva[2 * np], pa, bd[0], bd[1]);
+        mma_bf16(dva[2 * np + 1], pa, bd[2], bd[3]);
+        mma_bf16(dka[2 * np], dsa, bq[0], bq[1]);
+        mma_bf16(dka[2 * np + 1], dsa, bq[2], bq[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();  // the trailing (empty) groups
+
+  // dk and dv staged through this warp's rows and columns of K and V
+  const auto same = [](float x, int) { return x; };
+  store_warp_rows<DW, LD, D>(dk + (size_t)b * tk * D + part * DW, Kw, dka, same, kw0, tk, lane);
+  store_warp_rows<DW, LD, D>(dv + (size_t)b * tk * D + part * DW, Vw, dva, same, kw0, tk, lane);
+}
+
+template <int D>
+int launch_dkv_wide(const void* q, const void* k, const void* v, const void* dout,
+                    const float* lse, const float* delta, void* dk, void* dv, int bh, int tq,
+                    int tk, int causal, float q_scale, cudaStream_t stream) {
+  using Tl = WideDkvTiles<D>;
+  cudaError_t err = cudaFuncSetAttribute(flash_dkv_kernel_wide<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)Tl::bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int n_ktiles = (tk + Tl::BKB - 1) / Tl::BKB;
+  flash_dkv_kernel_wide<D><<<bh * n_ktiles, Tl::NT, Tl::bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
       bh, tq, tk, causal, q_scale);
@@ -773,8 +1271,8 @@ extern "C" int dl4j_flash_dq(const void* q, const void* k, const void* v, const 
     if (d == 64 && rows == 128) return launch_dq<64, 128>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
     if (d == 128 && rows == 64) return launch_dq<128, 64>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
     if (d == 128 && rows == 128) return launch_dq<128, 128>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
-    if (d == 256) return launch_dq_f32<bf16, 256>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
-    if (d == 512) return launch_dq_f32<bf16, 512>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
+    if (d == 256) return launch_dq_wide<256>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
+    if (d == 512) return launch_dq_wide<512>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
     if (d == 1024) return launch_dq_f32<bf16, 1024>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
   } else if (dtype == 0) {
     if (d == 64) return launch_dq_f32<float, 64>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
@@ -801,8 +1299,8 @@ extern "C" int dl4j_flash_dkv(const void* q, const void* k, const void* v, const
     if (d == 64 && rows == 128) return launch_dkv<64, 128>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
     if (d == 128 && rows == 64) return launch_dkv<128, 64>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
     if (d == 128 && rows == 128) return launch_dkv<128, 128>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
-    if (d == 256) return launch_dkv_f32<bf16, 256>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
-    if (d == 512) return launch_dkv_f32<bf16, 512>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
+    if (d == 256) return launch_dkv_wide<256>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
+    if (d == 512) return launch_dkv_wide<512>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
     if (d == 1024) return launch_dkv_f32<bf16, 1024>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
   } else if (dtype == 0) {
     if (d == 64) return launch_dkv_f32<float, 64>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);

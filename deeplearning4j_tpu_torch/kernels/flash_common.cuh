@@ -3,8 +3,9 @@
 // pre-scale, the reductions within the quad of threads that share an
 // accumulator row, and the block size rule; then the warp- and
 // block-level pieces built on the PTX helpers of ptx_common.cuh (cp.async,
-// ldmatrix, mma.sync, bf16 packing): row copies into shared memory,
-// fragment loads and packing, and the coalesced epilogue store.
+// ldmatrix, mma.sync, bf16 packing): row copies into shared memory, the
+// q pre-scale in place, named barriers, fragment loads and packing, and
+// the coalesced epilogue store.
 
 #pragma once
 
@@ -41,9 +42,9 @@ __device__ __forceinline__ float quad_sum(float x) {
 // ---------------------------------------------- the f32 (SIMT) design
 
 // The first design, on the CUDA cores through shared memory in f32, of
-// flash_fwd.cu and flash_bwd.cu: every f32 head, the bf16 heads of 1024
-// in all three kernels, and of 256 and 512 in the backward (the mma.sync
-// backward kernels' registers cannot hold those tiles).
+// flash_fwd.cu and flash_bwd.cu: every f32 head, and the bf16 heads of
+// 1024 in all three kernels (the bf16 heads up to 512 run on the tensor
+// cores).
 // T is the element type in device memory: bf16 is widened to f32 on load,
 // rounded back where the reference rounds (the q pre-scale, p and ds
 // before their products) and narrowed on store.
@@ -121,6 +122,32 @@ __device__ __forceinline__ void load_tile_pair(bf16* a_dst, bf16* b_dst, const b
     cp_async16(smem_addr(a_dst + r * LD + col), a + off, in ? 16 : 0);
     cp_async16(smem_addr(b_dst + r * LD + col), b + off, in ? 16 : 0);
   }
+}
+
+// The q pre-scale in place: each 16-byte chunk of the ROWS x D bf16 rows
+// at `rows` (leading dimension LD) that this thread copied by
+// load_tile_pair<D, LD, ROWS, NT> (the same walk of the chunks), times
+// scale, each product rounded once to bf16 (scale_pair). Call it once
+// this thread's copies have landed; a barrier then shows every chunk to
+// every warp.
+template <int D, int LD, int ROWS, int NT>
+__device__ __forceinline__ void scale_rows(bf16* rows, float scale) {
+  constexpr int CH = D / 8;
+  for (int i = threadIdx.x; i < ROWS * CH; i += NT) {
+    uint4* p = reinterpret_cast<uint4*>(rows + (i / CH) * LD + (i % CH) * 8);
+    uint4 x = *p;
+    x.x = scale_pair(x.x, scale);
+    x.y = scale_pair(x.y, scale);
+    x.z = scale_pair(x.z, scale);
+    x.w = scale_pair(x.w, scale);
+    *p = x;
+  }
+}
+
+// barrier of the `n` threads (whole warps) that meet at barrier `id` (0 is
+// __syncthreads()'s)
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
 }
 
 // Fragment layout of mma.m16n8k16 (g = lane / 4, c = lane % 4): the

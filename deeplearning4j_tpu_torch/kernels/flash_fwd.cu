@@ -93,8 +93,10 @@
 //
 // The PTX helpers (cp.async, ldmatrix, mma.sync, bf16 packing, the q
 // pre-scale, quad reductions) and the pieces built on them (row copies,
-// fragment loads and packing, the epilogue store) live in
-// flash_common.cuh, shared with the backward kernels of flash_bwd.cu.
+// the pre-scale of copied rows, named barriers, fragment loads and
+// packing, the epilogue store) live in flash_common.cuh, shared with the
+// backward kernels of flash_bwd.cu (whose wide kernels take this wide
+// kernel's structure).
 //
 // Exposed as a plain C function so that no PyTorch header is compiled.
 
@@ -338,12 +340,6 @@ struct WideTiles {
   static_assert(bytes <= SMEM_LIMIT, "flash_fwd wide layout exceeds shared memory");
 };
 
-// barrier of the `n` threads (whole warps) that meet at barrier `id` (0 is
-// __syncthreads()'s)
-__device__ __forceinline__ void bar_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
-}
-
 template <int D>
 __global__ void __launch_bounds__(WideTiles<D>::NT, WideTiles<D>::MIN_BLOCKS)
 flash_fwd_kernel_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -406,15 +402,7 @@ flash_fwd_kernel_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // then the block's barrier, after which every warp reads its A
   // fragments by ldmatrix at each key tile
   cp_async_wait<STAGES - 1>();
-  for (int i = threadIdx.x; i < BQ * CH; i += NT) {
-    uint4* p = reinterpret_cast<uint4*>(Qs + (i / CH) * LD + (i % CH) * 8);
-    uint4 x = *p;
-    x.x = scale_pair(x.x, scale);
-    x.y = scale_pair(x.y, scale);
-    x.z = scale_pair(x.z, scale);
-    x.w = scale_pair(x.w, scale);
-    *p = x;
-  }
+  scale_rows<D, LD, BQ, NT>(Qs, scale);
   __syncthreads();
 
   float acc[NO][4];

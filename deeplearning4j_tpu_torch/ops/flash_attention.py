@@ -6,6 +6,9 @@ kernels become CUDA kernels: ``_flash_fwd_impl`` -> ``_fwd_kernel`` is
 ``kernels/flash_fwd.cu``; ``_flash_bwd_impl`` -> ``_dq_kernel`` and
 ``_dkv_kernel`` are ``flash_dq`` and ``flash_dkv`` in
 ``kernels/flash_bwd.cu`` (see each file's header for its Hopper design).
+In bf16 all three run on the tensor cores up to heads of 512 (the
+``_wide`` kernels at 256 and 512); f32 heads and bf16 heads of 1024 run
+the CUDA-core (SIMT) kernels.
 Which of the two runs is decided by the tensor's device alone: on the
 CPU the plain version, on a CUDA device the kernel (a build or launch
 that fails raises). The kernels are built for head sizes 64, 128, 256,
@@ -48,11 +51,12 @@ def _scale(q: torch.Tensor) -> float:
 
 def _head_width(d: int) -> int:
     """The head size the kernels run a head of ``d`` at: 64, 128, 256,
-    512 or 1024, the sizes they are built for (in bf16 the forward runs
-    64 to 512 and the backward 64 and 128 on the tensor cores; the rest
-    run on the CUDA cores). A smaller head is padded with zeros up to it,
-    which adds 0 to every score and product, so the unpadded columns of
-    every output are the same; the scales stay those of ``d``."""
+    512 or 1024, the sizes they are built for (in bf16 the forward and
+    the backward run 64 to 512 on the tensor cores, 256 and 512 in the
+    ``_wide`` kernels; the rest run on the CUDA cores). A smaller head
+    is padded with zeros up to it, which adds 0 to every score and
+    product, so the unpadded columns of every output are the same; the
+    scales stay those of ``d``."""
     for width in (64, 128, 256, 512, 1024):
         if d <= width:
             return width
@@ -261,7 +265,10 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, causal
     1/sqrt(d) that multiplies its sum), at the head width of
     :func:`_head_width`. ``flash_dq`` computes delta = rowsum(dO * O) in
     f32 and writes it for ``flash_dkv``, which runs after it on the same
-    stream."""
+    stream. The kernel library picks each kernel by dtype and width: in
+    bf16 ``flash_dq_kernel`` / ``flash_dkv_kernel`` at 64 and 128,
+    ``flash_dq_kernel_wide`` / ``flash_dkv_kernel_wide`` at 256 and 512,
+    the SIMT ``_f32`` kernels at 1024 and for every f32 head."""
     bh, tq, d = q.shape
     tk = k.shape[1]
     _check_inputs(q, k, v)

@@ -261,13 +261,137 @@ def test_wide_head_cases_reach_1024_and_time_the_forward_at_512():
     for dtype, cases in chip_smoke.WIDE_HEAD_CASES.items():
         assert (dtype, 1024, 4, 200, 200, True) in cases
         assert {d for _, d, *_ in cases} == {256, 512, 1024}
-    assert chip_smoke.WIDE_FWD_CASES == [("bfloat16", 512, 16, 1024, 1024, True)]
+    assert chip_smoke.WIDE_512_CASES == [("bfloat16", 512, 16, 1024, 1024, True)]
     # the d 512 timing row has the WIDE_HEAD row's bound (but for half
     # the lse bytes), set by bytes
     d, bh, t = chip_smoke.WIDE_HEAD
     ms, by = chip_smoke._flash_bound(16, 1024, 1024, 512, True, "bfloat16")
     ms_256, by_256 = chip_smoke._flash_bound(bh, t, t, d, True, "bfloat16")
     assert by == by_256 == "bytes" and ms == pytest.approx(ms_256, rel=1e-3)
+
+
+def _bwd_flash_report(dq_spills, dkv_spills):
+    """A stand-in report of flash_bwd.cu: the bf16 mma.sync kernels, the
+    wide ones at 256 and 512 (flash_dq_kernel_wide spilling
+    ``dq_spills`` bytes, flash_dkv_kernel_wide ``dkv_spills``), and an
+    f32 and a bf16 SIMT instantiation (never gated)."""
+    ns = "_ZN12_GLOBAL__N_1"
+    args = "EEvPK13__nv_bfloat16S3_S3_S3_S3_PKfPfPS1_iiiiiff"
+    return _ptxas_lines([
+        (f"{ns}15flash_dq_kernelILi64ELi128{args}", 125, 0),
+        (f"{ns}16flash_dkv_kernelILi64ELi128{args}", 128, 0),
+        (f"{ns}20flash_dq_kernel_wideILi256{args}", 243, dq_spills),
+        (f"{ns}20flash_dq_kernel_wideILi512{args}", 223, dq_spills),
+        (f"{ns}21flash_dkv_kernel_wideILi256{args}", 242, dkv_spills),
+        (f"{ns}21flash_dkv_kernel_wideILi512{args}", 225, dkv_spills),
+        (f"{ns}19flash_dq_kernel_f32IfLi64ELi64ELi64EEEvPKT_S3_S3_S3_S3_PKfPfPS1_"
+         "iiiiiff", 90, 16),
+        (f"{ns}20flash_dkv_kernel_f32I13__nv_bfloat16Li1024ELi8ELi4EEEvPKT_S4_S4_"
+         "S4_PKfS6_PS2_S7_iiiiif", 56, 16)])
+
+
+def test_spill_gate_reads_the_wide_flash_backward(capsys):
+    chip_smoke._spill_gate("flash_bwd", _bwd_flash_report(0, 0))
+    out = capsys.readouterr().out
+    assert "bf16 flash_dq_kernel registers, spill bytes: [(125, 0)]" in out
+    assert "bf16 flash_dkv_kernel registers, spill bytes: [(128, 0)]" in out
+    assert ("bf16 flash_dq_kernel_wide registers, spill bytes: "
+            "[(243, 0), (223, 0)]") in out
+    assert ("bf16 flash_dkv_kernel_wide registers, spill bytes: "
+            "[(242, 0), (225, 0)]") in out
+
+
+@pytest.mark.parametrize("dq_spills,dkv_spills,kernel", [
+    (8, 0, "flash_dq_kernel_wide"), (0, 296, "flash_dkv_kernel_wide")])
+def test_spill_gate_rejects_a_spilling_wide_flash_backward(dq_spills, dkv_spills,
+                                                          kernel):
+    with pytest.raises(RuntimeError, match=f"bf16 {kernel} spills"):
+        chip_smoke._spill_gate("flash_bwd", _bwd_flash_report(dq_spills, dkv_spills))
+
+
+@pytest.mark.parametrize("dtype,d,names", [
+    ("bfloat16", 64, ("flash_dq_kernel<", "flash_dkv_kernel<")),
+    ("bfloat16", 128, ("flash_dq_kernel<", "flash_dkv_kernel<")),
+    ("bfloat16", 256, ("flash_dq_kernel_wide<", "flash_dkv_kernel_wide<")),
+    ("bfloat16", 512, ("flash_dq_kernel_wide<", "flash_dkv_kernel_wide<")),
+    ("bfloat16", 1024, ("flash_dq_kernel_f32<", "flash_dkv_kernel_f32<")),
+    ("float32", 64, ("flash_dq_kernel_f32<", "flash_dkv_kernel_f32<")),
+    ("float32", 512, ("flash_dq_kernel_f32<", "flash_dkv_kernel_f32<"))])
+def test_bwd_kernel_names_follow_the_dispatch(dtype, d, names):
+    assert chip_smoke.bwd_kernel_names(dtype, d) == names
+    # each name finds its kernel's profiled name and no other's
+    assert chip_smoke._port_kernel(f"void (anonymous namespace)::{names[0]}256>(Args)") \
+        == "flash_dq_kernel"
+    assert chip_smoke._port_kernel(f"void (anonymous namespace)::{names[1]}256>(Args)") \
+        == "flash_dkv_kernel"
+
+
+def test_wide_backward_cases_reach_512_at_t1024():
+    """Phase 2's backward times the wide kernels at [32, 1024, 256] and
+    [16, 1024, 512] causal (the same bound by operations: 6 d and 8 d
+    flops per live pair), checks both at t 200, and keeps 1024's SIMT
+    kernels."""
+    cases = chip_smoke.bwd_cases()
+    d, bh, t = chip_smoke.WIDE_HEAD
+    for case in [("bfloat16", d, bh, t, t, True), ("bfloat16", 512, 16, 1024, 1024, True),
+                 ("bfloat16", 512, 8, 200, 200, True), ("bfloat16", 1024, 4, 200, 200, True)]:
+        assert case in cases
+    assert len(set(cases)) == len(cases)
+    for flops, n_out in ((6, 1), (8, 2)):
+        ms, _ = chip_smoke._flash_bwd_bound(16, 1024, 1024, 512, True, "bfloat16",
+                                            flops * 512, n_out)
+        ms_256, _ = chip_smoke._flash_bwd_bound(bh, t, t, d, True, "bfloat16",
+                                                flops * d, n_out)
+        assert ms == pytest.approx(ms_256, rel=2e-3)
+
+
+def _flash_rows():
+    """Stand-in phase-2 rows for the kernels line: the forward's prefill,
+    training and wide rows, and the backward's training and wide rows."""
+    def fwd(bh, t, d):
+        return dict(dtype="bfloat16", bh=bh, tq=t, tk=t, d=d, causal=True,
+                    err_o=0.01, ms=0.1, kernel_only_ms=0.1,
+                    kernel_only_ms_by_block_q={}, plain_ms=5.0, library_ms=0.05,
+                    bound_ms=0.02, bound_by="bytes")
+
+    def bwd(bh, t, d):
+        return dict(dtype="bfloat16", bh=bh, tq=t, tk=t, d=d, causal=True,
+                    err_dq=0.01, err_dk=0.02, err_dv=0.03, ms=0.3,
+                    dq_kernel_only_ms=0.1, dkv_kernel_only_ms=0.2, plain_ms=5.0,
+                    library_ms=0.2, dq_bound_ms=0.03, dq_bound_by="bytes",
+                    dkv_bound_ms=0.035, dkv_bound_by="operations")
+
+    shapes = [(chip_smoke.BATCH * chip_smoke.GPT["num_heads"], chip_smoke.PROMPT, 64),
+              (chip_smoke.TRAIN_BATCH * chip_smoke.TRAIN["num_heads"], 1024, 64),
+              (32, 1024, 256), (16, 1024, 512)]
+    return [fwd(*s) for s in shapes], [bwd(*s) for s in shapes[1:]]
+
+
+def test_flash_summary_names_the_wide_kernels():
+    """The kernels line's flash entries carry every key of the contract;
+    their wide-head entries name the wide kernels at 256 and 512 with
+    their bound shares and the wide training step's launches."""
+    rows, bwd_rows = _flash_rows()
+    train = {"flash_fwd": 8, "flash_dq": 8, "flash_dkv": 8}
+    wide_train = {"launches": {"flash_fwd": 2, "flash_dq": 2, "flash_dkv": 2}}
+    entries = chip_smoke._flash_summary({
+        "2": rows, "2bwd": bwd_rows, "3": ({"flash_fwd": 8}, {}),
+        "4": (train, {"wide_head": wide_train})})
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    assert [e["name"] for e in entries] == ["flash_fwd", "flash_dq", "flash_dkv"]
+    assert all(keys <= set(e) for e in entries)
+    for e, kernel in zip(entries, ("flash_fwd_kernel_wide", "flash_dq_kernel_wide",
+                                   "flash_dkv_kernel_wide")):
+        assert (e["wide_head"]["kernel"], e["wide_head_512"]["kernel"]) == (kernel, kernel)
+        assert e["wide_head"]["shape"] == [32, 1024, 256]
+        assert e["wide_head_512"]["shape"] == [16, 1024, 512]
+        assert e["wide_train_launches"] == 2
+    dq, dkv = entries[1], entries[2]
+    assert dq["wide_head"]["bound_share"] == pytest.approx(0.3)
+    assert dkv["wide_head_512"]["bound_share"] == pytest.approx(0.175)
+    assert dkv["wide_head"]["max_abs_err"] == 0.03
+    assert dq["wide_head_512"]["backward_ms"] == 0.3
 
 
 def test_spill_gate_needs_a_bf16_instantiation():

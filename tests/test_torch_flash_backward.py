@@ -317,3 +317,32 @@ def test_autograd_runs_the_kernels_on_card(cuda_device):
     flash_attention(q, k, v, causal=True).float().sum().backward()
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["flash_dq"] == 1 and kernels.LAUNCHES["flash_dkv"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [160, 256, 320, 512])  # run at 256 and 512
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("bh,tq,tk", [
+    (8, 200, 200),     # ragged last q- and k-tiles
+    (8, 72, 200),      # tq < tk: an offset with a ragged diagonal
+    (1, 2048, 2048),   # one head: few blocks, a long loop
+])
+def test_wide_bf16_backward_matches_plain_on_card(cuda_device, d, causal, bh, tq, tk):
+    """The bf16 heads of 129-512 run flash_dq_kernel_wide and
+    flash_dkv_kernel_wide, one launch each per backward call, within
+    2e-2 x max |ref| of the plain backward (ds and p rounded to bf16,
+    the partial scores summed in another order)."""
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    q, k, v, do = (torch.randn(bh, t, d, generator=g, device=cuda_device)
+                   .to(torch.bfloat16) for t in (tq, tk, tk, tq))
+    o, lse = flash_attention_fwd(q, k, v, causal)
+    kernels.reset_launches()
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert dict(kernels.LAUNCHES) == {"flash_dq": 1, "flash_dkv": 1}
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.is_contiguous()
+        assert bool(torch.isfinite(a.float()).all())
+        ref = b.float().abs().max().item()
+        assert (a.float() - b.float()).abs().max().item() <= 2e-2 * ref

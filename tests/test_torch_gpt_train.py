@@ -55,12 +55,14 @@ def _np(tree):
     return jax.tree.map(lambda a: np.asarray(a, np.float32), tree)
 
 
-def _pair(compute_dtype="float32", seed=3, block_dropout=None, **conf):
+def _pair(compute_dtype="float32", seed=3, block_dropout=None, size=SIZE,
+          **conf):
     """A JAX net and the port's net with its parameters; ``conf``
     overrides fields of the global configuration on both sides,
-    ``block_dropout`` the transformer blocks' dropout."""
+    ``block_dropout`` the transformer blocks' dropout, ``size`` the
+    model's widths."""
     d = json.loads(jax_gpt(compute_dtype=compute_dtype, seed=seed,
-                           **SIZE).conf.to_json())
+                           **size).conf.to_json())
     d["conf"].update(conf)
     if block_dropout is not None:
         for layer in d["layers"]:
@@ -107,6 +109,33 @@ def test_loss_and_gradients_match(nets, t):
     assert set(tg) == set(jg) and all(set(tg[k]) == set(jg[k]) for k in jg)
     _assert_tree_close(tg, jg, TOL, TOL)
     assert abs(tn.score(tds) - js) <= TOL * max(1.0, abs(js))
+
+
+def test_wide_head_loss_and_gradients_match(monkeypatch):
+    """Heads of 160 (d_model 320 over 2 heads; the wide bf16 flash
+    kernels' width on the card, run at 256): at t = 16 the blocks take
+    the flash branch, whose plain backward runs on the CPU, and give the
+    JAX package's loss and gradients."""
+    from deeplearning4j_tpu_torch.ops import flash_attention as flash_mod
+
+    calls = []
+    plain_bwd = flash_mod.flash_attention_bwd_plain
+
+    def counted(q, *args, **kw):
+        calls.append(tuple(q.shape))
+        return plain_bwd(q, *args, **kw)
+
+    monkeypatch.setattr(flash_mod, "flash_attention_bwd_plain", counted)
+    size = dict(SIZE, d_model=320, num_heads=2)
+    jn, tn = _pair(size=size)
+    jds, tds = _both(*_data(2, 16, seed=4))
+    jg, js = jn.gradient_and_score(jds)
+    kernels.reset_launches()
+    tg, ts = tn.gradient_and_score(tds)
+    assert sum(kernels.LAUNCHES.values()) == 0
+    assert calls == [(2 * 2, 16, 160)] * size["n_layers"]
+    assert abs(ts - js) <= TOL * max(1.0, abs(js))
+    _assert_tree_close(tg, jg, TOL, TOL)
 
 
 def test_labels_mask_and_ignore_ids_match(nets):
