@@ -21,23 +21,26 @@ Phases (any failure ends the run with a non-zero exit and no result):
    PyTorch version on the same inputs, at the main paths' shapes, at
    larger ones and at ragged ones (t = 200, tq 72 / tk 200, one head of
    2048; the wide heads of 256, 512 and 1024, ``WIDE_HEAD_CASES`` and
-   ``WIDE_512_CASES``), with stated tolerances; a forward call must be
+   ``WIDE_512_CASES``, and the forward alone at [8, 1024, 1024],
+   ``FWD_ONLY_CASES``), with stated tolerances; a forward call must be
    one launch of the kernel its dtype and head take
-   (``fwd_kernel_name``: the bf16 heads of 256 and 512 run
+   (``fwd_kernel_name``: the bf16 heads of 256, 512 and 1024 run
    ``flash_fwd_kernel_wide``), a backward call one launch of each of
    the two its dtype and head take (``bwd_kernel_names``: the bf16
    heads of 256 and 512 run ``flash_dq_kernel_wide`` and
-   ``flash_dkv_kernel_wide``), and the bf16 forward at heads of 64 and
-   128 is also run and timed at both of its tilings (64 and 128 query
-   rows per block); median times
-   beside the plain version, the one PyTorch call that computes the same
+   ``flash_dkv_kernel_wide``, 1024 the SIMT kernels), and the bf16
+   forward at heads of 64 and 128 is also run and timed at both of its
+   tilings (64 and 128 query rows per block), at 1024 at both of the
+   wide kernel's (16 and 32); median times beside the
+   plain version, the one PyTorch call that computes the same
    function (a yardstick only, never used by the port) and the least
    time the card could take (the bound). ``ms`` columns are device time
    (torch.profiler: the card's work per call); ``call_ms`` columns are
    CUDA-event time per single call, which includes the host's launch
    work. The forward (``flash_fwd``) first, then the backward
-   (``flash_dq``, ``flash_dkv``) at the same shapes, ragged ones
-   included; a backward call must launch each of the two once.
+   (``flash_dq``, ``flash_dkv``) at the same shapes but the
+   forward-only ones, ragged ones included; a backward call must launch
+   each of the two once.
 2b. LSTM kernels: first one call of ``lstm_fwd``'s timed bf16
    instantiation at the training shape, printed as ``lstm_fwd_phases``:
    the mean µs per step (over blocks and steps) of the barrier wait, the
@@ -208,6 +211,9 @@ WIDE_HEAD_CASES = {dtype: [(dtype, WIDE_HEAD[0], WIDE_HEAD[1], WIDE_HEAD[2],
 # the bf16 wide kernels at d 512, forward and backward, at the same bound
 # as WIDE_HEAD's
 WIDE_512_CASES = [("bfloat16", 512, 16, 1024, 1024, True)]
+# the bf16 wide forward at d 1024 alone, at the same bound by bytes (bh x
+# d = 8192); the backward at 1024 still runs the SIMT kernels
+FWD_ONLY_CASES = [("bfloat16", 1024, 8, 1024, 1024, True)]
 # one step's loss and gradients with the kernels vs with the plain
 # versions on the card: bf16 attention outputs and gradients that differ
 # by bf16 roundings pass through 8 bf16 layers
@@ -476,11 +482,11 @@ def _card() -> str:
 def fwd_kernel_name(dtype: str, d: int) -> str:
     """The profiled name (up to its template arguments) of the forward
     kernel that a padded head of ``d`` runs in ``dtype``: the bf16 heads
-    of 64 and 128 the mma.sync kernel, of 256 and 512 the wide mma.sync
-    kernel, every other head the SIMT kernel."""
+    of 64 and 128 the mma.sync kernel, of 256, 512 and 1024 the wide
+    mma.sync kernel, every f32 head the SIMT kernel."""
     if dtype == "bfloat16" and d <= 128:
         return "flash_fwd_kernel<"
-    if dtype == "bfloat16" and d <= 512:
+    if dtype == "bfloat16" and d <= 1024:
         return "flash_fwd_kernel_wide<"
     return "flash_fwd_kernel_f32<"
 
@@ -488,7 +494,8 @@ def fwd_kernel_name(dtype: str, d: int) -> str:
 def bwd_kernel_names(dtype: str, d: int) -> tuple:
     """The profiled names (up to their template arguments) of the two
     backward kernels that a padded head of ``d`` runs in ``dtype``, as
-    ``fwd_kernel_name`` has the forward's."""
+    ``fwd_kernel_name`` has the forward's (the bf16 heads of 1024 still
+    run the SIMT backward)."""
     if dtype == "bfloat16" and d <= 128:
         suffix = ""
     elif dtype == "bfloat16" and d <= 512:
@@ -623,10 +630,8 @@ def phase_bwd_kernels(torch, F, kernels, flash):
     return rows
 
 
-def phase_kernels(torch, F, flash):
-    """Phase 2: the flash kernel against its plain version."""
-    rows = []
-    g = torch.Generator(device="cuda").manual_seed(1234)
+def fwd_cases():
+    """Phase 2's forward cases: (dtype, d, bh, tq, tk, causal)."""
     cases = []
     for dtype in ("bfloat16", "float32"):
         for d in (64, 128):
@@ -641,60 +646,82 @@ def phase_kernels(torch, F, flash):
                       (dtype, d, 8, 72, 200, True), (dtype, d, 1, 2048, 2048, False),
                       (dtype, d, 1, 2048, 2048, True)]
         cases += WIDE_HEAD_CASES[dtype]
-    cases += WIDE_512_CASES
-    for dtype, d, bh, tq, tk, causal in cases:
-        dt = getattr(torch, dtype)
-        q, k, v = (torch.randn(bh, t, d, generator=g, device="cuda").to(dt)
-                   for t in (tq, tk, tk))
-        op, lp = flash.flash_attention_fwd_plain(q, k, v, causal)
-        tol_o, tol_l = TOL[dtype]
-        tag = f"{dtype} d{d} bh{bh} tq{tq} tk{tk} causal={causal}"
+    return cases + WIDE_512_CASES + FWD_ONLY_CASES
 
-        def errors(o, lse, what):
-            torch.cuda.synchronize()
-            _check(bool(torch.isfinite(o.float()).all()), f"finite o {what} {tag}")
-            err_o = (o.float() - op.float()).abs().max().item()
-            err_l = (lse - lp).abs().max().item()
-            _check(err_o <= tol_o and err_l <= tol_l,
-                   f"flash {what} {tag}: o err {err_o} (tol {tol_o}), "
-                   f"lse err {err_l} (tol {tol_l})")
-            return err_o, err_l
 
-        err_o, err_l = errors(*flash.flash_attention_fwd(q, k, v, causal), "")
-        # SDPA as a yardstick, on [1, bh, t, d]: is_causal where tq == tk
-        # (which lets it pick its flash backend), an explicit mask otherwise
-        mask = None
-        if causal and tq != tk:
-            mask = torch.ones(tq, tk, dtype=torch.bool, device="cuda").tril(tk - tq)
-        kernel = lambda: flash.flash_attention_fwd(q, k, v, causal)  # noqa: E731
-        plain = lambda: flash.flash_attention_fwd_plain(q, k, v, causal)  # noqa: E731
-        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            q[None], k[None], v[None], attn_mask=mask,
-            is_causal=causal and mask is None)
-        bound_ms, bound_by = _flash_bound(bh, tq, tk, d, causal, dtype)
-        times = _device_times(torch, kernel, 20)
-        # the whole call is one launch of the kernel (q is scaled inside),
-        # the one this dtype and head take
-        _check(all(fwd_kernel_name(dtype, d) in name for name in times),
-               f"flash_fwd call {tag} ran more than its kernel "
-               f"{fwd_kernel_name(dtype, d)}: {sorted(times)}")
-        by_block_q = {}
-        if dtype == "bfloat16" and tq > 64 and d <= 128:  # the mma kernel's two tilings
-            for bq in (64, 128):
-                run = lambda: flash._flash_fwd_cuda(q, k, v, causal, bq)  # noqa: E731
-                errors(*run(), f"block_q {bq}")
-                by_block_q[bq] = _device_ms(torch, run, 20, "flash_fwd_kernel")
-        row = dict(dtype=dtype, bh=bh, tq=tq, tk=tk, d=d, causal=causal,
-                   err_o=err_o, err_lse=err_l,
-                   ms=_sum_ms(times),
-                   kernel_only_ms=_sum_ms(times, "flash_fwd_kernel"),
-                   kernel_only_ms_by_block_q=by_block_q,
-                   plain_ms=_device_ms(torch, plain, 3),
-                   library_ms=_device_ms(torch, library, 20),
-                   bound_ms=bound_ms, bound_by=bound_by,
-                   call_ms=_time_ms(torch, kernel, 20),
-                   plain_call_ms=_time_ms(torch, plain, 3, warmup=1),
-                   library_call_ms=_time_ms(torch, library, 20))
+def fwd_row(torch, F, flash, g, case, kernel):
+    """One forward case: the wrapper's output against the plain version
+    on the same inputs (made by ``g``), then the device times of the
+    wrapper, the plain version and SDPA beside the bound, and of each
+    tiling the kernel offers at this head. ``kernel``: the profiled name
+    the call must run and nothing else, or None to take whatever it
+    runs (another checkout's, for a comparison, whose tilings are not
+    known, so none is timed); the row's ``kernels`` lists the names it
+    ran."""
+    dtype, d, bh, tq, tk, causal = case
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn(bh, t, d, generator=g, device="cuda").to(dt)
+               for t in (tq, tk, tk))
+    op, lp = flash.flash_attention_fwd_plain(q, k, v, causal)
+    tol_o, tol_l = TOL[dtype]
+    tag = f"{dtype} d{d} bh{bh} tq{tq} tk{tk} causal={causal}"
+
+    def errors(o, lse, what):
+        torch.cuda.synchronize()
+        _check(bool(torch.isfinite(o.float()).all()), f"finite o {what} {tag}")
+        err_o = (o.float() - op.float()).abs().max().item()
+        err_l = (lse - lp).abs().max().item()
+        _check(err_o <= tol_o and err_l <= tol_l,
+               f"flash {what} {tag}: o err {err_o} (tol {tol_o}), "
+               f"lse err {err_l} (tol {tol_l})")
+        return err_o, err_l
+
+    err_o, err_l = errors(*flash.flash_attention_fwd(q, k, v, causal), "")
+    # SDPA as a yardstick, on [1, bh, t, d]: is_causal where tq == tk
+    # (which lets it pick its flash backend), an explicit mask otherwise
+    mask = None
+    if causal and tq != tk:
+        mask = torch.ones(tq, tk, dtype=torch.bool, device="cuda").tril(tk - tq)
+    run = lambda: flash.flash_attention_fwd(q, k, v, causal)  # noqa: E731
+    plain = lambda: flash.flash_attention_fwd_plain(q, k, v, causal)  # noqa: E731
+    library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q[None], k[None], v[None], attn_mask=mask,
+        is_causal=causal and mask is None)
+    bound_ms, bound_by = _flash_bound(bh, tq, tk, d, causal, dtype)
+    times = _device_times(torch, run, 20)
+    # the whole call is one launch of the kernel (q is scaled inside),
+    # the one this dtype and head take
+    _check(kernel is None or all(kernel in name for name in times),
+           f"flash_fwd call {tag} ran more than its kernel {kernel}: "
+           f"{sorted(times)}")
+    by_block_q = {}
+    # the two tilings of the mma kernel (d <= 128) and of the wide one at 1024
+    tilings = {64: (64, 128), 128: (64, 128), 1024: (16, 32)}.get(d, ())
+    if dtype == "bfloat16" and tq > 64 and kernel is not None:
+        for bq in tilings:
+            tiled = lambda: flash._flash_fwd_cuda(q, k, v, causal, bq)  # noqa: E731
+            errors(*tiled(), f"block_q {bq}")
+            by_block_q[bq] = _device_ms(torch, tiled, 20, "flash_fwd_kernel")
+    return dict(dtype=dtype, bh=bh, tq=tq, tk=tk, d=d, causal=causal,
+                err_o=err_o, err_lse=err_l,
+                ms=_sum_ms(times),
+                kernel_only_ms=_sum_ms(times, "flash_fwd_kernel"),
+                kernel_only_ms_by_block_q=by_block_q,
+                plain_ms=_device_ms(torch, plain, 3),
+                library_ms=_device_ms(torch, library, 20),
+                bound_ms=bound_ms, bound_by=bound_by,
+                call_ms=_time_ms(torch, run, 20),
+                plain_call_ms=_time_ms(torch, plain, 3, warmup=1),
+                library_call_ms=_time_ms(torch, library, 20),
+                kernels=sorted(times))
+
+
+def phase_kernels(torch, F, flash):
+    """Phase 2: the flash kernel against its plain version."""
+    rows = []
+    g = torch.Generator(device="cuda").manual_seed(1234)
+    for case in fwd_cases():
+        row = fwd_row(torch, F, flash, g, case, fwd_kernel_name(case[0], case[1]))
         print("flash_fwd " + json.dumps(row), flush=True)
         rows.append(row)
     return rows
@@ -2155,8 +2182,10 @@ def _flash_summary(done):
                 "shape": [r["bh"], r["tq"], r["d"]]}
 
     _, d512, bh512, t512, _, _ = WIDE_512_CASES[0]
+    _, d1024, bh1024, t1024, _, _ = FWD_ONLY_CASES[0]
     fwd_wide, bwd_wide = (wide_row(rs, *WIDE_HEAD) for rs in (rows, bwd_rows))
     fwd_512, bwd_512 = (wide_row(rs, d512, bh512, t512) for rs in (rows, bwd_rows))
+    fwd_1024 = wide_row(rows, d1024, bh1024, t1024)
     wide_train = done["4"][1]["wide_head"]
     return [{
         "name": flash.KERNEL, "route": "cuda",
@@ -2181,6 +2210,8 @@ def _flash_summary(done):
            "shape": [train_bh, TRAIN["max_len"], d_head]},
         "wide_head": wide(fwd_wide, "flash_fwd_kernel_wide", "", fwd_wide["err_o"]),
         "wide_head_512": wide(fwd_512, "flash_fwd_kernel_wide", "", fwd_512["err_o"]),
+        "wide_head_1024": wide(fwd_1024, "flash_fwd_kernel_wide", "", fwd_1024["err_o"])
+        | {"ms_by_block_q": fwd_1024["kernel_only_ms_by_block_q"]},
         "wide_train_launches": wide_train["launches"].get(flash.KERNEL, 0),
     }] + [{
         "name": name, "route": "cuda", "source": SRC + "flash_bwd.cu",

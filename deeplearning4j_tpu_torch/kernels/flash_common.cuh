@@ -43,8 +43,8 @@ __device__ __forceinline__ float quad_sum(float x) {
 
 // The first design, on the CUDA cores through shared memory in f32, of
 // flash_fwd.cu and flash_bwd.cu: every f32 head, and the bf16 heads of
-// 1024 in all three kernels (the bf16 heads up to 512 run on the tensor
-// cores).
+// 1024 in the two backward kernels (the bf16 forward at every head, and
+// the backward up to 512, run on the tensor cores).
 // T is the element type in device memory: bf16 is widened to f32 on load,
 // rounded back where the reference rounds (the q pre-scale, p and ds
 // before their products) and narrowed on store.
@@ -80,16 +80,23 @@ __device__ __forceinline__ void load_rows_f32(float* dst, const T* src, int row0
   }
 }
 
+// The current device's SM count. Returns a cudaError_t.
+inline int sm_count(int* sms) {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return (int)cudaGetLastError();
+  return 0;
+}
+
 // Rows per block of the bf16 kernels, for t rows (queries in flash_fwd
 // and flash_dq, keys in flash_dkv) in each of bh heads: 128 (8 warps, so
 // fewer re-reads of the other operand) where that grid still fills every
 // SM twice, else 64 (4 warps: short sequences or few heads, more blocks
 // in flight). Returns a cudaError_t.
 inline int block_rows(int bh, int t, int* rows) {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    return (int)cudaGetLastError();
+  int sms = 0;
+  if (int err = sm_count(&sms)) return err;
   *rows = t > 64 && (long long)bh * ((t + 127) / 128) >= 2LL * sms ? 128 : 64;
   return 0;
 }

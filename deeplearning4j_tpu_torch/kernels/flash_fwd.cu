@@ -48,48 +48,61 @@
 // (16 warps) share an SM, where the old kernel's blocks left 12.
 //
 // The wide bf16 kernel (flash_fwd_kernel_wide) runs the bf16 heads of
-// 256 and 512 (129-256 and 257-512 are zero-padded to them) on the same
-// tensor-core tools. The kernel above cannot: a warp there keeps Q as A
-// fragments (d / 4 registers) and O as accumulators (d / 2), 192 + 32 of
-// S at d = 256 and more than 255 at 512. So:
-// - Q is not held in registers: the block's 64 rows are copied once by
+// 256, 512 and 1024 (129-256, 257-512 and 513-1024 are zero-padded to
+// them) on the same tensor-core tools. The kernel above cannot: a warp
+// there keeps Q as A fragments (d / 4 registers) and O as accumulators
+// (d / 2), 192 + 32 of S at d = 256 and more than 255 at 512. So:
+// - Q is not held in registers: the block's rows are copied once by
 //   cp.async, scaled in place (each thread the chunks it copied) and read
 //   as A fragments by ldmatrix at each 16-column step of every key tile;
-// - a block is 64 query rows in four row groups of 16, with one warp to
-//   a row group at d = 256 (4 warps) and two at d = 512 (8 warps); each
-//   warp owns 256 of the head's columns, so O takes 128 f32 registers
-//   and S (32 keys) 16, within 255 at both widths without spills;
-// - at d = 512 each warp of a pair contracts S over its own 256 columns
-//   of d, and the two 16 x 32 f32 partials (2 KB a warp) are summed
-//   through shared memory under the pair's named barrier (bar.sync 1 +
-//   row group, 64 threads): a + b == b + a, so both warps hold the same S
-//   and compute the same m, l and P, then each multiplies P by its own
-//   columns of V (no product is computed twice);
-// - K and V tiles of 32 keys come through two cp.async.cg stages with
-//   rows padded by 16 bytes, one __syncthreads() per key tile (which also
-//   orders the partials' reuse); S and P stay in registers, the softmax,
-//   masks, epilogue and the order of the q-tiles are the kernel above's;
+// - each warp owns 256 of the head's columns, so O takes 128 f32
+//   registers and S 8 per 8-key tile, within 255 without spills; the
+//   warps of a row group of 16 query rows split the head between them:
+//   one at d = 256 (64 rows, 4 warps a block), two at 512 (64 rows, 8
+//   warps) and four at 1024 (32 rows in two row groups, 8 warps: 8 warps
+//   of ~240 registers are what an SM's 65,536 hold; or 16 rows, 4 warps,
+//   where a grid of 32-row blocks would not fill every SM: twice the
+//   blocks in flight, at twice the reads of K and V from L2);
+// - where a row group has more than one warp, each contracts S over its
+//   own 256 columns of d, and the partials (16 x 8 f32 a warp and 8-key
+//   tile) are exchanged through shared memory under the row group's
+//   named barrier (bar.sync 1 + row group, 32 x WPR threads); every warp
+//   of the group sums them in the order of their columns, so all hold
+//   bitwise the same S and compute the same m, l and P, then each
+//   multiplies P by its own columns of V (no product is computed twice);
+// - K and V tiles come through two cp.async.cg stages with rows padded by
+//   16 bytes, one __syncthreads() per key tile (which also orders the
+//   partials' reuse): 32 keys at 256 and 512, 16 at 1024, where two
+//   stages of 32 would not fit beside Q; S and P stay in registers, the
+//   softmax, masks, epilogue and the order of the q-tiles are the kernel
+//   above's;
 // - shared memory: 99 KB at d = 256, so two blocks share an SM (8
-//   warps), and 211 KB at 512 (one 8-warp block: Q 65 KB, two stages of
-//   K and V 130 KB, the partials 16 KB).
+//   warps), 211 KB at 512 (one 8-warp block: Q 65 KB, two stages of K and
+//   V 130 KB, the partials 16 KB) and 202 KB at 1024 (Q 64.5 KB for 32
+//   rows, two stages of 16-key K and V 129 KB, the partials 8 KB; 165 KB
+//   for 16 rows): one block an SM.
 // What bounds it at [32, 1024, 256] bf16 causal: bytes, 0.0201 ms,
-// against 0.0174 ms of tensor-core operations. Each warp reads 40 KB of
-// shared memory by ldmatrix per 32-key tile for 128 mma.sync (Q 8, K 16,
-// V 16), so shared-memory reads, not the tensor cores, are its likely
-// limit; K and V come from L2 once per 64 query rows.
+// against 0.0174 ms of tensor-core operations (the same at [16, 1024,
+// 512] and [8, 1024, 1024]). Each warp reads 40 KB of shared memory by
+// ldmatrix per 32-key tile for 128 mma.sync (Q 8, K 16, V 16); at 1024
+// 24 KB per 16-key tile for 64 (Q 8, K 8, V 8) and the exchange's 1 KB
+// written and 3 KB read. So shared-memory reads, not the tensor cores,
+// are its likely limit. K and V come from L2 once per 64 query rows; at
+// 1024 once per 32 (or 16), 554 MB a call at [8, 1024, 1024] causal, so
+// there L2's bandwidth is a second likely limit.
 //
 // The SIMT kernel (flash_fwd_kernel_f32) is on no main path and was not
 // redesigned: the first version's CUDA-core FMAs through shared memory
 // in f32 (full f32 precision, no TF32), taking the unscaled q and the
-// scale like the bf16 kernels. It runs every f32 head and the bf16 heads
-// of 1024 (513-1024 are zero-padded to it): its tiles are template
+// scale like the bf16 kernels. It runs every f32 head (the f32 heads of
+// 129-1024 zero-padded as the bf16 ones): its tiles are template
 // parameters, 64 x 64 up to d = 128, 32 x 32 at 256, 16 x 16 at 512 and
 // 8 x 8 at 1024 (simt_tile, flash_common.cuh), so that the f32 rows fit
-// shared memory (~136 KB at 256, ~133 KB at 512, ~129 KB at 1024), and
-// its global loads and stores are templated on the element type: bf16
-// is widened on load, and p is rounded to bf16 before P.V, as the
-// reference rounds it. A correct, slow first kernel for those heads:
-// nothing was tuned.
+// shared memory (~136 KB at 256, ~133 KB at 512, ~129 KB at 1024). Its
+// global loads and stores are templated on the element type (bf16 is
+// widened on load, and p rounded to bf16 before P.V, as the reference
+// rounds it), though every bf16 head now runs on the tensor cores. A
+// correct, slow first kernel for those heads: nothing was tuned.
 //
 // The PTX helpers (cp.async, ldmatrix, mma.sync, bf16 packing, the q
 // pre-scale, quad reductions) and the pieces built on them (row copies,
@@ -317,37 +330,41 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse
 
 // ------------------------------------------------ the wide bf16 kernel
 
-// Heads of 256 and 512: a block of 64 query rows in four row groups of 16,
-// WPR warps to a row group, each owning DW = 256 of the head's columns
-// (its share of the contraction for S, and its columns of O).
-template <int D>
+// Heads of 256, 512 and 1024: a block of BQ query rows in row groups of
+// 16, WPR warps to a row group, each owning DW = 256 of the head's
+// columns (its share of the contraction for S, and its columns of O).
+// BQ: 64 (four row groups) at 256 and 512; 32 or 16 at 1024, so that the
+// block stays within 8 warps of up to 255 registers.
+template <int D, int BQ>
 struct WideTiles {
-  static constexpr int BQ = 64;        // query rows per block
-  static constexpr int BKW = 32;       // keys per tile
   static constexpr int WPR = D / 256;  // warps per row group
   static constexpr int DW = D / WPR;   // head columns per warp
-  static constexpr int NT = 4 * WPR * 32;
+  // keys per tile: 16 at 1024, so that two stages of K and V fit beside Q
+  static constexpr int BKW = WPR == 4 ? 16 : 32;
+  static constexpr int NT = BQ / 16 * WPR * 32;
   static constexpr int STAGES = 2;
   static constexpr int LD = D + 8;  // row stride in elements: 16 bytes of padding
   static constexpr int NS = BKW / 8;  // S accumulator tiles (8 keys each)
   static constexpr size_t tile_bytes = sizeof(bf16) * (size_t)(BQ + 2 * STAGES * BKW) * LD;
-  // WPR = 2: each warp's partial S (NS tiles of 4 floats a thread)
+  // WPR > 1: each warp's partial S (NS tiles of 4 floats a thread)
   static constexpr size_t bytes = tile_bytes + (WPR > 1 ? sizeof(float) * NT * NS * 4 : 0);
-  // d = 256: two 4-warp blocks an SM (2 x 99 KB of shared memory); both
-  // layouts leave 255 registers a thread
+  // d = 256: two 4-warp blocks an SM (2 x 99 KB of shared memory); every
+  // layout leaves 255 registers a thread
   static constexpr int MIN_BLOCKS = WPR == 1 ? 2 : 1;
-  static_assert(DW == 256 && (WPR == 1 || WPR == 2), "wide heads are 256 or 512");
+  static_assert(DW == 256 && (WPR == 1 || WPR == 2 || WPR == 4),
+                "wide heads are 256, 512 or 1024");
+  static_assert(WPR == 4 ? BQ == 32 || BQ == 16 : BQ == 64, "wide rows per block");
   static_assert(bytes <= SMEM_LIMIT, "flash_fwd wide layout exceeds shared memory");
 };
 
-template <int D>
-__global__ void __launch_bounds__(WideTiles<D>::NT, WideTiles<D>::MIN_BLOCKS)
+template <int D, int BQ>
+__global__ void __launch_bounds__(WideTiles<D, BQ>::NT, WideTiles<D, BQ>::MIN_BLOCKS)
 flash_fwd_kernel_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, bf16* __restrict__ o,
                       float* __restrict__ lse, int bh, int tq, int tk, int n_qtiles,
                       int causal, float scale) {
-  using Tl = WideTiles<D>;
-  constexpr int BQ = Tl::BQ, BKW = Tl::BKW, WPR = Tl::WPR, DW = Tl::DW, NT = Tl::NT;
+  using Tl = WideTiles<D, BQ>;
+  constexpr int BKW = Tl::BKW, WPR = Tl::WPR, DW = Tl::DW, NT = Tl::NT;
   constexpr int LD = Tl::LD, STAGES = Tl::STAGES, NS = Tl::NS;
   constexpr int NO = DW / 8;  // O accumulator tiles (8 columns each)
   constexpr int CH = D / 8;   // 16-byte chunks per row
@@ -355,7 +372,7 @@ flash_fwd_kernel_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* Ks = Qs + BQ * LD;             // STAGES tiles of BKW rows
   bf16* Vs = Ks + STAGES * BKW * LD;   // STAGES tiles of BKW rows
-  float4* X = reinterpret_cast<float4*>(smem + Tl::tile_bytes);  // partial S (WPR = 2)
+  float4* X = reinterpret_cast<float4*>(smem + Tl::tile_bytes);  // partial S (WPR > 1)
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, c = lane % 4;
@@ -413,8 +430,8 @@ flash_fwd_kernel_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   for (int kt = 0; kt < n_kt; ++kt) {
     // tile kt has landed for every thread, every warp is done with tile
-    // kt - 1 (whose stage the next copy refills) and with its partner's
-    // partial S of tile kt - 1
+    // kt - 1 (whose stage the next copy refills) and with its row group's
+    // partials of S of tile kt - 1
     cp_async_wait<STAGES - 2>();
     __syncthreads();
     if (kt + STAGES - 1 < n_kt) load_kv(kt + STAGES - 1);
@@ -443,21 +460,26 @@ flash_fwd_kernel_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 
     if constexpr (WPR > 1) {
-      // S over the whole head: this warp's partial plus its partner's
-      // (the other half of d), exchanged through shared memory under the
-      // pair's own barrier; a + b == b + a, so both warps hold the same
-      // S and compute the same statistics
+      // S over the whole head: the row group's WPR partials (each over
+      // its warp's columns of d), exchanged through shared memory under
+      // the group's own barrier and summed by every warp of the group in
+      // the order of their columns (its own from registers), so that all
+      // of them hold bitwise the same S and compute the same m, l and P
+      // (at WPR = 2 that is own + other, as a + b == b + a)
 #pragma unroll
       for (int n = 0; n < NS; ++n)
         X[(warp * NS + n) * 32 + lane] = make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
       bar_sync(1 + rg, 32 * WPR);
 #pragma unroll
       for (int n = 0; n < NS; ++n) {
-        const float4 y = X[((warp ^ 1) * NS + n) * 32 + lane];
-        s[n][0] += y.x;
-        s[n][1] += y.y;
-        s[n][2] += y.z;
-        s[n][3] += y.w;
+        const float4 own = make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
+        float4 y = part == 0 ? own : X[(rg * WPR * NS + n) * 32 + lane];
+#pragma unroll
+        for (int i = 1; i < WPR; ++i) {
+          const float4 z = i == part ? own : X[((rg * WPR + i) * NS + n) * 32 + lane];
+          y.x += z.x, y.y += z.y, y.z += z.z, y.w += z.w;
+        }
+        s[n][0] = y.x, s[n][1] = y.y, s[n][2] = y.z, s[n][3] = y.w;
       }
     }
 
@@ -495,16 +517,16 @@ flash_fwd_kernel_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
                              [=](float x, int h) { return x / denom[h]; }, r0, tq, lane);
 }
 
-template <int D>
+template <int D, int BQ = 64>
 int launch_wide(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
                 int tq, int tk, int causal, float scale, cudaStream_t stream) {
-  using Tl = WideTiles<D>;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel_wide<D>,
+  using Tl = WideTiles<D, BQ>;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel_wide<D, BQ>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)Tl::bytes);
   if (err != cudaSuccess) return (int)err;
-  const int n_qtiles = (tq + Tl::BQ - 1) / Tl::BQ;
-  flash_fwd_kernel_wide<D><<<bh * n_qtiles, Tl::NT, Tl::bytes, stream>>>(
+  const int n_qtiles = (tq + BQ - 1) / BQ;
+  flash_fwd_kernel_wide<D, BQ><<<bh * n_qtiles, Tl::NT, Tl::bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(o), lse, bh, tq, tk, n_qtiles, causal, scale);
   return (int)cudaGetLastError();
@@ -676,7 +698,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
 // q, k, v, o: contiguous [bh, t, d], 16-byte aligned; lse: contiguous f32
 // [bh, tq]; q unscaled, scale = 1/sqrt(d) rounded to q's dtype. dtype: 0 =
 // float32, 1 = bfloat16; d: 64, 128, 256, 512 or 1024. block_q (bf16 d 64
-// and 128 only): 64 or 128 query rows per block, or 0 to choose by tq.
+// and 128: 64 or 128; bf16 d 1024: 16 or 32): query rows per block, or 0
+// to choose by tq and bh (every other head takes only 0).
 // Returns a cudaError_t (0 on success); an unsupported head size or block
 // returns cudaErrorInvalidValue.
 extern "C" int dl4j_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
@@ -697,11 +720,23 @@ extern "C" int dl4j_flash_fwd(const void* q, const void* k, const void* v, void*
     if (d == 128 && block_q == 128) return launch_bf16<128, 128>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
     return (int)cudaErrorInvalidValue;
   }
+  if (dtype == 1 && d == 1024) {
+    // 32 rows a block (K and V read from L2 once per 32 query rows) where
+    // that grid fills every SM, else 16 (twice the blocks in flight:
+    // short sequences or few heads)
+    if (block_q == 0) {
+      int sms = 0;
+      if (int err = sm_count(&sms)) return err;
+      block_q = (long long)bh * ((tq + 31) / 32) >= sms ? 32 : 16;
+    }
+    if (block_q == 32) return launch_wide<1024, 32>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
+    if (block_q == 16) return launch_wide<1024, 16>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
+    return (int)cudaErrorInvalidValue;
+  }
   if (block_q != 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 1) {  // the wide heads on the tensor cores; 1024 on the SIMT design
+  if (dtype == 1) {  // the wide heads on the tensor cores
     if (d == 256) return launch_wide<256>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
     if (d == 512) return launch_wide<512>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
-    if (d == 1024) return launch_f32<bf16, 1024>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
   } else if (dtype == 0) {
     if (d == 64) return launch_f32<float, 64>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
     if (d == 128) return launch_f32<float, 128>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);

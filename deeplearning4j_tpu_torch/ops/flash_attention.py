@@ -6,9 +6,10 @@ kernels become CUDA kernels: ``_flash_fwd_impl`` -> ``_fwd_kernel`` is
 ``kernels/flash_fwd.cu``; ``_flash_bwd_impl`` -> ``_dq_kernel`` and
 ``_dkv_kernel`` are ``flash_dq`` and ``flash_dkv`` in
 ``kernels/flash_bwd.cu`` (see each file's header for its Hopper design).
-In bf16 all three run on the tensor cores up to heads of 512 (the
-``_wide`` kernels at 256 and 512); f32 heads and bf16 heads of 1024 run
-the CUDA-core (SIMT) kernels.
+In bf16 the forward runs on the tensor cores at every head (the
+``_wide`` kernel at 256, 512 and 1024) and the backward up to heads of
+512 (the ``_wide`` kernels at 256 and 512); f32 heads and the bf16
+backward at 1024 run the CUDA-core (SIMT) kernels.
 Which of the two runs is decided by the tensor's device alone: on the
 CPU the plain version, on a CUDA device the kernel (a build or launch
 that fails raises). The kernels are built for head sizes 64, 128, 256,
@@ -51,9 +52,10 @@ def _scale(q: torch.Tensor) -> float:
 
 def _head_width(d: int) -> int:
     """The head size the kernels run a head of ``d`` at: 64, 128, 256,
-    512 or 1024, the sizes they are built for (in bf16 the forward and
-    the backward run 64 to 512 on the tensor cores, 256 and 512 in the
-    ``_wide`` kernels; the rest run on the CUDA cores). A smaller head
+    512 or 1024, the sizes they are built for (in bf16 the forward runs
+    every one of them on the tensor cores, 256 to 1024 in its ``_wide``
+    kernel, and the backward 64 to 512, 256 and 512 in its ``_wide``
+    kernels; the rest run on the CUDA cores). A smaller head
     is padded with zeros up to it, which adds 0 to every score and
     product, so the unpadded columns of every output are the same; the
     scales stay those of ``d``."""
@@ -138,9 +140,10 @@ def _flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch of the kernel on the unscaled q (it scales q as it
     loads it), at the head width of :func:`_head_width`. ``block_q``:
-    the bf16 tensor-core kernel's query rows per block (heads of 64 and
-    128), 64 or 128 (for measurements only), or 0: the kernel chooses by
-    tq and the size of the grid."""
+    the bf16 kernels' query rows per block (for measurements only), 64
+    or 128 at heads of 64 and 128, 16 or 32 at 1024; or 0: the kernel
+    chooses by tq and the size of the grid (every other head takes only
+    0)."""
     bh, tq, d = q.shape
     tk = k.shape[1]
     _check_inputs(q, k, v)

@@ -206,16 +206,21 @@ def test_spill_gate_rejects_a_spilling_bf16_lstm_bwd_or_lstm_dw(bwd_spills, dw_s
         chip_smoke._spill_gate("lstm_bwd", _bwd_report(bwd_spills, dw_spills))
 
 
-def _fwd_report(wide_spills):
+def _fwd_report(wide_spills, wide_1024_spills=None):
     """A stand-in report of flash_fwd.cu: the bf16 mma.sync kernel, the
-    wide one at 256 and 512 (spilling ``wide_spills`` bytes), and an f32
-    and a bf16 SIMT instantiation (never gated)."""
+    wide one at 256 and 512 (spilling ``wide_spills`` bytes) and at 1024
+    in 32- and 16-row blocks (``wide_1024_spills``, by default the same),
+    and an f32 and a bf16 SIMT instantiation (never gated)."""
     ns = "_ZN12_GLOBAL__N_1"
     args = "EEvPK13__nv_bfloat16S3_S3_PS1_Pfiiiiif"
+    if wide_1024_spills is None:
+        wide_1024_spills = wide_spills
     return _ptxas_lines([
         (f"{ns}16flash_fwd_kernelILi64ELi128{args}", 128, 0),
-        (f"{ns}21flash_fwd_kernel_wideILi256{args}", 200, wide_spills),
-        (f"{ns}21flash_fwd_kernel_wideILi512{args}", 210, wide_spills),
+        (f"{ns}21flash_fwd_kernel_wideILi256ELi64{args}", 200, wide_spills),
+        (f"{ns}21flash_fwd_kernel_wideILi512ELi64{args}", 210, wide_spills),
+        (f"{ns}21flash_fwd_kernel_wideILi1024ELi32{args}", 220, wide_1024_spills),
+        (f"{ns}21flash_fwd_kernel_wideILi1024ELi16{args}", 190, 0),
         (f"{ns}20flash_fwd_kernel_f32IfLi64ELi64ELi64EEEvPKT_S3_S3_PS1_Pfiiiiif",
          90, 16),
         (f"{ns}20flash_fwd_kernel_f32I13__nv_bfloat16Li1024ELi8ELi8EEEvPKT_"
@@ -227,13 +232,20 @@ def test_spill_gate_reads_the_wide_flash_forward(capsys):
     out = capsys.readouterr().out
     assert "bf16 flash_fwd_kernel registers, spill bytes: [(128, 0)]" in out
     assert ("bf16 flash_fwd_kernel_wide registers, spill bytes: "
-            "[(200, 0), (210, 0)]") in out
+            "[(200, 0), (210, 0), (220, 0), (190, 0)]") in out
 
 
 @pytest.mark.parametrize("spills", [8, 384])
 def test_spill_gate_rejects_a_spilling_wide_flash_forward(spills):
     with pytest.raises(RuntimeError, match="bf16 flash_fwd_kernel_wide spills"):
         chip_smoke._spill_gate("flash_fwd", _fwd_report(spills))
+
+
+@pytest.mark.parametrize("spills", [4, 512])
+def test_spill_gate_rejects_a_spilling_wide_flash_forward_at_1024(spills):
+    """The instantiation at 1024 alone spilling is enough to fail."""
+    with pytest.raises(RuntimeError, match=r"bf16 flash_fwd_kernel_wide spills.*1024"):
+        chip_smoke._spill_gate("flash_fwd", _fwd_report(0, spills))
 
 
 @pytest.mark.parametrize("name,key", [
@@ -251,8 +263,10 @@ def test_port_kernel_reads_every_forward_kernel(name, key):
     ("bfloat16", 64, "flash_fwd_kernel<"), ("bfloat16", 128, "flash_fwd_kernel<"),
     ("bfloat16", 256, "flash_fwd_kernel_wide<"),
     ("bfloat16", 512, "flash_fwd_kernel_wide<"),
-    ("bfloat16", 1024, "flash_fwd_kernel_f32<"),
-    ("float32", 64, "flash_fwd_kernel_f32<"), ("float32", 512, "flash_fwd_kernel_f32<")])
+    ("bfloat16", 640, "flash_fwd_kernel_wide<"),
+    ("bfloat16", 1024, "flash_fwd_kernel_wide<"),
+    ("float32", 64, "flash_fwd_kernel_f32<"), ("float32", 512, "flash_fwd_kernel_f32<"),
+    ("float32", 1024, "flash_fwd_kernel_f32<")])
 def test_fwd_kernel_name_follows_the_dispatch(dtype, d, kernel):
     assert chip_smoke.fwd_kernel_name(dtype, d) == kernel
 
@@ -364,7 +378,8 @@ def _flash_rows():
     shapes = [(chip_smoke.BATCH * chip_smoke.GPT["num_heads"], chip_smoke.PROMPT, 64),
               (chip_smoke.TRAIN_BATCH * chip_smoke.TRAIN["num_heads"], 1024, 64),
               (32, 1024, 256), (16, 1024, 512)]
-    return [fwd(*s) for s in shapes], [bwd(*s) for s in shapes[1:]]
+    return ([fwd(*s) for s in shapes + [(8, 1024, 1024)]],
+            [bwd(*s) for s in shapes[1:]])
 
 
 def test_flash_summary_names_the_wide_kernels():
@@ -387,11 +402,84 @@ def test_flash_summary_names_the_wide_kernels():
         assert e["wide_head"]["shape"] == [32, 1024, 256]
         assert e["wide_head_512"]["shape"] == [16, 1024, 512]
         assert e["wide_train_launches"] == 2
+    assert "wide_head_1024" not in entries[1] and "wide_head_1024" not in entries[2]
     dq, dkv = entries[1], entries[2]
     assert dq["wide_head"]["bound_share"] == pytest.approx(0.3)
     assert dkv["wide_head_512"]["bound_share"] == pytest.approx(0.175)
     assert dkv["wide_head"]["max_abs_err"] == 0.03
     assert dq["wide_head_512"]["backward_ms"] == 0.3
+
+
+def test_forward_only_case_times_the_wide_forward_at_1024():
+    """Phase 2 times the wide forward at [8, 1024, 1024] bf16 causal (the
+    other wide rows' bound by bytes: bh x d = 8192), the forward alone:
+    the backward at 1024 still runs the SIMT kernels, and stays at t
+    200."""
+    assert chip_smoke.FWD_ONLY_CASES == [("bfloat16", 1024, 8, 1024, 1024, True)]
+    fwd, bwd = chip_smoke.fwd_cases(), chip_smoke.bwd_cases()
+    assert fwd[-1] == chip_smoke.FWD_ONLY_CASES[0] and len(set(fwd)) == len(fwd)
+    assert chip_smoke.FWD_ONLY_CASES[0] not in bwd
+    assert [c for c in bwd if c[1] == 1024] == [("bfloat16", 1024, 4, 200, 200, True),
+                                                ("float32", 1024, 4, 200, 200, True)]
+    assert chip_smoke.bwd_kernel_names("bfloat16", 1024) == (
+        "flash_dq_kernel_f32<", "flash_dkv_kernel_f32<")
+    ms, by = chip_smoke._flash_bound(8, 1024, 1024, 1024, True, "bfloat16")
+    d, bh, t = chip_smoke.WIDE_HEAD
+    ms_256, _ = chip_smoke._flash_bound(bh, t, t, d, True, "bfloat16")
+    assert by == "bytes" and ms == pytest.approx(ms_256, rel=2e-3)
+
+
+def test_forward_cases_keep_every_earlier_row():
+    """The forward cases are the backward's (bar its prefill-length
+    rows and the forward-only one) plus the forward's own t 512 rows."""
+    fwd, bwd = set(chip_smoke.fwd_cases()), set(chip_smoke.bwd_cases())
+    assert bwd <= fwd
+    extra = fwd - bwd - set(chip_smoke.FWD_ONLY_CASES)
+    assert {(t, tk, bh) for _, _, bh, t, tk, _ in extra} == {(512, 512, 16)}
+
+
+def test_flash_summary_gives_the_forward_its_1024_row():
+    """The forward's entry carries ``wide_head_1024``: the wide kernel at
+    [8, 1024, 1024], its time beside the plain version, SDPA and the
+    bound."""
+    rows, bwd_rows = _flash_rows()
+    rows[-1] |= dict(kernel_only_ms=0.2, err_o=0.0078, library_ms=0.3,
+                     plain_ms=40.0, bound_ms=0.02,
+                     kernel_only_ms_by_block_q={16: 0.4, 32: 0.2})
+    train = {"flash_fwd": 8, "flash_dq": 8, "flash_dkv": 8}
+    wide_train = {"launches": {"flash_fwd": 2, "flash_dq": 2, "flash_dkv": 2}}
+    fwd = chip_smoke._flash_summary({
+        "2": rows, "2bwd": bwd_rows, "3": ({"flash_fwd": 8}, {}),
+        "4": (train, {"wide_head": wide_train})})[0]
+    w = fwd["wide_head_1024"]
+    assert w["kernel"] == "flash_fwd_kernel_wide" and w["shape"] == [8, 1024, 1024]
+    assert (w["ms"], w["plain_ms"], w["library_ms"], w["max_abs_err"]) == \
+        (0.2, 40.0, 0.3, 0.0078)
+    assert w["bound_share"] == pytest.approx(0.1) and w["bound_by"] == "bytes"
+    assert w["ms_by_block_q"] == {16: 0.4, 32: 0.2}
+
+
+def test_parent_rows_script_needs_the_card_and_no_jax():
+    """``scripts/flash_fwd_rows.py`` (the parent's time at the
+    forward-only rows) imports nothing of JAX and exits 2 without a
+    card, printing no row."""
+    import ast
+    import subprocess
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = os.path.join(root, "scripts", "flash_fwd_rows.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names]
+    names += [n.module for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.module]
+    assert not [m for m in names if m.split(".")[0] in ("jax", "deeplearning4j_tpu")]
+    if torch.cuda.is_available():
+        pytest.skip("the card is there: the script would run")
+    r = subprocess.run([sys.executable, path, root], capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 2 and "flash_fwd " not in r.stdout, r.stdout + r.stderr
 
 
 def test_spill_gate_needs_a_bf16_instantiation():

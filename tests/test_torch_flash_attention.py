@@ -24,6 +24,7 @@ from deeplearning4j_tpu.ops.flash_attention import (
 from deeplearning4j_tpu_torch import kernels
 from deeplearning4j_tpu_torch.ops.attention import scaled_dot_product_attention
 from deeplearning4j_tpu_torch.ops.flash_attention import (
+    _flash_fwd_cuda,
     _head_width,
     flash_attention,
     flash_attention_bwd,
@@ -94,6 +95,24 @@ def test_plain_at_kernel_tiles_matches_pallas_on_ragged_tiles(rng, dtype,
                              causal, 8, 8, interpret=True)
     to, tl = flash_attention_fwd_plain(_torch(q, dtype), _torch(k, dtype),
                                        _torch(v, dtype), causal, 64, 64)
+    _close(to.float().numpy(), jo, dtype)
+    _close(tl.numpy(), jl, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("tq,tk", [(40, 40), (24, 40)])
+@pytest.mark.parametrize("block_q", [32, 16])
+def test_plain_at_wide_1024_tiles_matches_pallas(rng, dtype, causal, tq, tk,
+                                                 block_q):
+    """The oracle at the wide kernel's tiles for heads of 1024 (32 or 16
+    query rows, 16 keys), ragged in q and in k (and, at tq < tk, with the
+    diagonal offset), against the Pallas kernel at exact blocks of 8."""
+    q, k, v = _arrays(rng, [(2, tq, 1024), (2, tk, 1024), (2, tk, 1024)])
+    jo, jl = _flash_fwd_impl(_jax(q, dtype), _jax(k, dtype), _jax(v, dtype),
+                             causal, 8, 8, interpret=True)
+    to, tl = flash_attention_fwd_plain(_torch(q, dtype), _torch(k, dtype),
+                                       _torch(v, dtype), causal, block_q, 16)
     _close(to.float().numpy(), jo, dtype)
     _close(tl.numpy(), jl, dtype)
 
@@ -270,7 +289,8 @@ def test_kernel_takes_other_head_sizes_on_card(cuda_device, dtype, tol, d,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [160, 256, 320, 512])  # the wide kernel at 256, 512
+# the wide kernel at 256, 512 and 1024 (640 and 1000 zero-padded to 1024)
+@pytest.mark.parametrize("d", [160, 256, 320, 512, 640, 1000, 1024])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("bh,tq,tk", [
     (8, 128, 320),     # tq < tk: the causal offset
@@ -279,7 +299,7 @@ def test_kernel_takes_other_head_sizes_on_card(cuda_device, dtype, tol, d,
 ])
 def test_wide_bf16_forward_matches_plain_on_card(cuda_device, d, causal, bh,
                                                  tq, tk):
-    """The bf16 heads of 129-512 run the wide tensor-core forward (one
+    """The bf16 heads of 129-1024 run the wide tensor-core forward (one
     launch a call) and match its plain version within bf16's 2e-2 on o
     and 1e-4 on lse."""
     g = torch.Generator(device=cuda_device).manual_seed(0)
@@ -290,6 +310,31 @@ def test_wide_bf16_forward_matches_plain_on_card(cuda_device, d, causal, bh,
     torch.cuda.synchronize()
     assert dict(kernels.LAUNCHES) == {"flash_fwd": 1}
     assert o.shape == q.shape and o.is_contiguous()
+    op, lp = flash_attention_fwd_plain(q, k, v, causal)
+    assert (o.float() - op.float()).abs().max().item() <= 2e-2
+    assert (lse - lp).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_q", [0, 16, 32])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("bh,tq,tk", [(8, 72, 200), (2, 1024, 1024)])
+def test_wide_1024_forward_sums_the_four_partials_alike_on_card(
+        cuda_device, causal, bh, tq, tk, block_q):
+    """At d 1024 the four warps of a row group each contract S over 256
+    columns and sum the four partials; with q's columns 0-255 scaled by 8
+    the first partial dominates the others, so a warp that left one out,
+    counted one twice or summed another row group's would give o and lse
+    far from the plain version's. In both tilings (16 and 32 query rows a
+    block) and the one the kernel picks (0)."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    q, k, v = (torch.randn(bh, t, 1024, generator=g, device=cuda_device)
+               .to(torch.bfloat16) for t in (tq, tk, tk))
+    q[..., :256] *= 8
+    kernels.reset_launches()
+    o, lse = _flash_fwd_cuda(q, k, v, causal, block_q)
+    torch.cuda.synchronize()
+    assert dict(kernels.LAUNCHES) == {"flash_fwd": 1}
     op, lp = flash_attention_fwd_plain(q, k, v, causal)
     assert (o.float() - op.float()).abs().max().item() <= 2e-2
     assert (lse - lp).abs().max().item() <= 1e-4
@@ -326,6 +371,20 @@ def test_wide_heads_run_the_kernels_on_card(cuda_device, dtype, tol, d, causal):
         ref = b.float().abs().max().item()
         bound = tol if dtype == "float32" else tol * ref
         assert (a.float() - b.float()).abs().max().item() <= bound
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,block_q", [(1024, 64), (1024, 8), (512, 16), (512, 32),
+                                       (256, 64)])
+def test_kernel_refuses_other_tilings_on_card(cuda_device, d, block_q):
+    """The kernel takes a block of query rows only where it has that
+    tiling (64 or 128 at heads of 64 and 128, 16 or 32 at 1024) and
+    raises on any other, launching nothing."""
+    q = torch.zeros(2, 128, d, dtype=torch.bfloat16, device=cuda_device)
+    kernels.reset_launches()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _flash_fwd_cuda(q, q, q, True, block_q)
+    assert sum(kernels.LAUNCHES.values()) == 0
 
 
 @pytest.mark.cuda
