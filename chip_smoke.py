@@ -15,7 +15,8 @@ Phases (any failure ends the run with a non-zero exit and no result):
    ``flash_dq_kernel``, ``flash_dkv_kernel``, ``flash_dq_kernel_wide``,
    ``flash_dkv_kernel_wide``, ``lstm_fwd_kernel``,
    ``lstm_bwd_kernel`` or ``lstm_dw_kernel``, or an
-   f32 ``lstm_fwd_kernel``, ``lstm_bwd_kernel`` or ``lstm_dw_kernel``,
+   f32 ``flash_dq_kernel_tf32x3``, ``flash_dkv_kernel_tf32x3``,
+   ``lstm_fwd_kernel``, ``lstm_bwd_kernel`` or ``lstm_dw_kernel``,
    spills registers (``BF16_KERNELS``, ``F32_KERNELS``).
 2. kernels: each kernel's wrapper on card tensors against its plain
    PyTorch version on the same inputs, at the main paths' shapes, at
@@ -28,7 +29,9 @@ Phases (any failure ends the run with a non-zero exit and no result):
    ``flash_fwd_kernel_wide``), a backward call one launch of each of
    the two its dtype and head take (``bwd_kernel_names``: the bf16
    heads of 256 and 512 run ``flash_dq_kernel_wide`` and
-   ``flash_dkv_kernel_wide``, 1024 the SIMT kernels), and the bf16
+   ``flash_dkv_kernel_wide``, 1024 the SIMT kernels; the f32 heads up
+   to 128 ``flash_dq_kernel_tf32x3`` and ``flash_dkv_kernel_tf32x3``,
+   256-1024 the SIMT kernels), and the bf16
    forward at heads of 64 and 128 is also run and timed at both of its
    tilings (64 and 128 query rows per block), at 1024 at both of the
    wide kernel's (16 and 32); median times beside the
@@ -40,7 +43,10 @@ Phases (any failure ends the run with a non-zero exit and no result):
    work. The forward (``flash_fwd``) first, then the backward
    (``flash_dq``, ``flash_dkv``) at the same shapes but the
    forward-only ones, ragged ones included; a backward call must launch
-   each of the two once.
+   each of the two once. The f32 backward rows also print the bound of
+   each kernel on the tensor cores in 3xTF32 (``dq_bound_tf32x3_ms``,
+   ``dkv_bound_tf32x3_ms``: three TF32 products per f32 one at 495
+   TFLOP/s) beside the f32 CUDA-core bound.
 2b. LSTM kernels: first one call of ``lstm_fwd``'s timed bf16
    instantiation at the training shape, printed as ``lstm_fwd_phases``:
    the mean µs per step (over blocks and steps) of the barrier wait, the
@@ -94,7 +100,14 @@ Phases (any failure ends the run with a non-zero exit and no result):
    the kernels against the plain versions on the card at the same
    tolerances: each flash kernel launches once per block, and its
    device step time and the wide kernels' share of it are printed
-   (``train_wide``).
+   (``train_wide``). Then one ``gradient_and_score`` step of the
+   training width in f32 (``F32_TRAIN``: every attention call [128,
+   1024, 64] f32 causal): each flash kernel launches once per block,
+   the backward runs only the 3xTF32 kernels, the loss and every
+   gradient agree with the plain attention's within
+   ``F32_TRAIN_LOSS_REL`` and ``F32_TRAIN_GRAD_REL``, and its device
+   step time and the flash kernels' ms and share of it are printed
+   (``train_f32``).
 5. char-RNN serving at full width: the JAX package's LSTM decode
    benchmark (vocab 64, two GravesLSTM of 512, RnnOutputLayer softmax,
    f32), random weights from a numpy seed, greedy ``generate`` of 128
@@ -182,6 +195,9 @@ TOL = {  # kernel vs its plain version: max |o - o_plain|, max |lse - lse_plain|
 }
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # H100 SXM dense
 PEAK_BYTES = 3.35e12
+# the f32 flash backward at heads <= 128 runs on the tensor cores in
+# 3xTF32: three TF32 products for each f32 one, at the dense TF32 rate
+PEAK_TF32, TF32X3_PRODUCTS = 495e12, 3
 GPT = dict(vocab_size=8192, d_model=512, n_layers=8, num_heads=8, max_len=512,
            compute_dtype="bfloat16")
 BATCH, PROMPT, NEW = 8, 64, 128
@@ -199,6 +215,16 @@ BWD_REL_BF16 = 2e-2
 TRAIN = dict(vocab_size=8192, d_model=512, n_layers=8, num_heads=8,
              max_len=1024, compute_dtype="bfloat16")
 TRAIN_BATCH, TRAIN_STEPS = 16, 20
+# phase 4's f32 step: the training width in f32 (the dtype of
+# examples/train_gpt.py --smoke), so that every attention call is [128,
+# 1024, 64] f32 causal and the backward runs the 3xTF32 kernels
+F32_TRAIN = dict(TRAIN, compute_dtype="float32")
+# one f32 step, kernels vs plain versions on the card: the loss relative
+# to itself and each gradient's worst relative L2. On the H100 the step
+# read 1.0e-7 and 1.4e-6 through the 3xTF32 backward, and 1.0e-7 and
+# 1.0e-6 through the SIMT kernels it replaced (the f32 noise floor: the
+# same step, the same forward kernel); the bounds are ten times those
+F32_TRAIN_LOSS_REL, F32_TRAIN_GRAD_REL = 1e-6, 1e-5
 # the flash kernels' wide heads (phase 2, forward and backward): the
 # shape their times are recorded at, [32, 1024, 256] causal, a ragged head
 # of 512 and one of 1024 (t 200: no multiple of their 16- and 8-row SIMT
@@ -331,7 +357,7 @@ PORT_KERNELS = {"flash_fwd_kernel": ("flash_fwd",),
 
 def _port_kernel(name: str):
     """The ``PORT_KERNELS`` key of a profiler name, or None."""
-    m = re.search(r"::(\w+?_kernel)(?:_f32|_wide)?<", name)
+    m = re.search(r"::(\w+?_kernel)(?:_f32|_wide|_tf32x3)?<", name)
     return m.group(1) if m and m.group(1) in PORT_KERNELS else None
 
 
@@ -494,12 +520,16 @@ def fwd_kernel_name(dtype: str, d: int) -> str:
 def bwd_kernel_names(dtype: str, d: int) -> tuple:
     """The profiled names (up to their template arguments) of the two
     backward kernels that a padded head of ``d`` runs in ``dtype``, as
-    ``fwd_kernel_name`` has the forward's (the bf16 heads of 1024 still
-    run the SIMT backward)."""
+    ``fwd_kernel_name`` has the forward's: in bf16 the mma.sync kernels
+    up to 128 and the wide ones at 256 and 512, in f32 the 3xTF32
+    kernels up to 128; the f32 heads of 256-1024 and the bf16 heads of
+    1024 still run the SIMT backward."""
     if dtype == "bfloat16" and d <= 128:
         suffix = ""
     elif dtype == "bfloat16" and d <= 512:
         suffix = "_wide"
+    elif dtype == "float32" and d <= 128:
+        suffix = "_tf32x3"
     else:
         suffix = "_f32"
     return (f"flash_dq_kernel{suffix}<", f"flash_dkv_kernel{suffix}<")
@@ -525,20 +555,31 @@ def _flash_bound(bh, tq, tk, d, causal, dtype):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def _flash_bwd_bound(bh, tq, tk, d, causal, dtype, flops_per_pair, n_out):
+def _flash_bwd_bound(bh, tq, tk, d, causal, dtype, flops_per_pair, n_out,
+                     peak=None):
     """(bound_ms, bound_by) of one backward kernel: ``flops_per_pair``
     per live (q, k) pair (6 d for dq: the s, dP and ds.k products; 8 d
-    for dk/dv: s, dP, p^T.dO and ds^T.q) over the peak rate of its type,
-    or its bytes (q, k, v, dO read once, lse and delta once, ``n_out``
-    [.., d] outputs written once; dq, which computes delta, also reads
-    O) over the memory rate."""
+    for dk/dv: s, dP, p^T.dO and ds^T.q) over the peak rate of its type
+    (or ``peak``), or its bytes (q, k, v, dO read once, lse and delta
+    once, ``n_out`` [.., d] outputs written once; dq, which computes
+    delta, also reads O) over the memory rate."""
     flops = float(flops_per_pair) * bh * _live_pairs(tq, tk, causal)
     size = 2 if dtype == "bfloat16" else 4
     nbytes = size * bh * d * (2 * tq + 2 * tk) + 8 * bh * tq \
         + size * bh * d * (2 * tq if n_out == 1 else 2 * tk)
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = flops / (peak or PEAK_FLOPS[dtype]) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _flash_bwd_bound_tf32x3(bh, tq, tk, d, causal, flops_per_pair, n_out):
+    """(bound_ms, bound_by) of one f32 backward kernel on the tensor
+    cores in 3xTF32: ``TF32X3_PRODUCTS`` TF32 flops for each f32 flop at
+    the dense TF32 rate, or the bytes of ``_flash_bwd_bound``. The f32
+    kernels at heads <= 128 run so, and may beat the CUDA-core bound
+    (a share of it above 1 is not an error)."""
+    return _flash_bwd_bound(bh, tq, tk, d, causal, "float32",
+                            TF32X3_PRODUCTS * flops_per_pair, n_out, PEAK_TF32)
 
 
 def bwd_cases():
@@ -625,6 +666,10 @@ def phase_bwd_kernels(torch, F, kernels, flash):
                    dkv_bound_ms=dkv_bound[0], dkv_bound_by=dkv_bound[1],
                    call_ms=_time_ms(torch, kernel, 10),
                    plain_call_ms=_time_ms(torch, plain, 2, warmup=1))
+        if dtype == "float32":
+            for key, flops, n_out in (("dq", 6 * d, 1), ("dkv", 8 * d, 2)):
+                ms, by = _flash_bwd_bound_tf32x3(bh, tq, tk, d, causal, flops, n_out)
+                row[f"{key}_bound_tf32x3_ms"], row[f"{key}_bound_tf32x3_by"] = ms, by
         print("flash_bwd " + json.dumps(row), flush=True)
         rows.append(row)
     return rows
@@ -939,6 +984,7 @@ def phase_train(torch, np, kernels, flash):
     print("train " + json.dumps(metrics), flush=True)
     del net
     metrics["wide_head"] = phase_train_wide(torch, np, kernels, flash)
+    metrics["f32"] = phase_train_f32(torch, np, kernels, flash)
     return launches, metrics
 
 
@@ -989,6 +1035,79 @@ def phase_train_wide(torch, np, kernels, flash):
                    shape=[WIDE_TRAIN_BATCH * WIDE_TRAIN["num_heads"], t,
                           WIDE_TRAIN["d_model"] // WIDE_TRAIN["num_heads"]])
     print("train_wide " + json.dumps(metrics), flush=True)
+    return metrics
+
+
+def f32_step(torch, np, kernels, flash):
+    """One ``gradient_and_score`` of ``F32_TRAIN`` (random weights and ids
+    from numpy seeds, labels the ids rolled by one) through ``flash``'s
+    kernels, then the same step with its plain versions on the card.
+    Returns (net, ds, the kernels' step's launches, loss, plain loss,
+    worst gradient rel L2, where); ``scripts/f32_train_step.py`` runs it
+    on another checkout's port."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.models.zoo.transformer import gpt
+    from deeplearning4j_tpu_torch.nn.layers import transformer
+    from deeplearning4j_tpu_torch.util.model_serializer import params_from_numpy
+
+    t = F32_TRAIN["max_len"]
+    net = gpt(**F32_TRAIN).init()
+    params_from_numpy(net, _random_params(net, seed=15))
+    ids = np.random.default_rng(16).integers(0, F32_TRAIN["vocab_size"],
+                                             (TRAIN_BATCH, t))
+    ds = DataSet(ids.astype(np.float32),
+                 np.roll(ids, -1, axis=1).astype(np.float32))
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    grads, loss = net.gradient_and_score(ds)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    with _plain_attention(torch, flash, transformer):
+        grads_p, loss_p = net.gradient_and_score(ds)
+    worst, at = _grad_rel(torch, grads, grads_p)
+    return net, ds, launches, loss, loss_p, worst, at
+
+
+def phase_train_f32(torch, np, kernels, flash):
+    """Phase 4's f32 step (``F32_TRAIN``: the training width in f32, every
+    attention call [128, 1024, 64] f32 causal; ``f32_step``): each flash
+    kernel launches once per block, and the step's backward runs only
+    the 3xTF32 kernels (``bwd_kernel_names``); the loss and every
+    gradient against the same step with the plain attention
+    (``F32_TRAIN_LOSS_REL``, ``F32_TRAIN_GRAD_REL``); the step's device
+    time and the flash kernels' ms per step and share of it."""
+    t, layers, heads = F32_TRAIN["max_len"], F32_TRAIN["n_layers"], F32_TRAIN["num_heads"]
+    d_head = F32_TRAIN["d_model"] // heads
+    net, ds, launches, loss, loss_p, worst, at = f32_step(torch, np, kernels, flash)
+    for name in (flash.KERNEL, flash.DQ_KERNEL, flash.DKV_KERNEL):
+        _check(launches.get(name, 0) == layers,
+               f"{name} launched {launches.get(name, 0)} times in one f32 "
+               f"step, expected {layers}: {launches}")
+    loss_rel = abs(loss - loss_p) / abs(loss_p)
+    _check(loss_rel <= F32_TRAIN_LOSS_REL,
+           f"f32 loss kernels {loss} vs plain {loss_p}: rel {loss_rel}")
+    _check(worst <= F32_TRAIN_GRAD_REL,
+           f"f32 grad {at} kernels vs plain: rel L2 {worst}")
+    per_step = _device_times(torch, lambda: net.gradient_and_score(ds), 3)
+    names = bwd_kernel_names("float32", d_head)
+    ran = [n for n in per_step if "flash_dq_kernel" in n or "flash_dkv_kernel" in n]
+    _check(all(any(k in n for k in names) for n in ran)
+           and all(any(k in n for n in ran) for k in names),
+           f"the f32 step's backward ran {ran}, not {names}")
+    step_ms = _sum_ms(per_step)
+    flash_ms = {m: _sum_ms(per_step, m) for m in (
+        "flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")}
+    top = sorted(per_step.items(), key=lambda kv: -kv[1])[:12]
+    metrics = dict(launches=launches, loss=loss, loss_rel_vs_plain=loss_rel,
+                   grad_rel_l2_vs_plain_max=worst, grad_worst_at=at,
+                   step_device_ms=step_ms, profile_kept_share=per_step.kept_share,
+                   flash_ms_per_step=flash_ms,
+                   flash_share={m: ms / step_ms for m, ms in flash_ms.items()},
+                   backward_pair_share=(flash_ms["flash_dq_kernel"]
+                                        + flash_ms["flash_dkv_kernel"]) / step_ms,
+                   shape=[TRAIN_BATCH * heads, t, d_head],
+                   top_kernels_ms_per_step=[[k[:90], ms] for k, ms in top])
+    print("train_f32 " + json.dumps(metrics), flush=True)
     return metrics
 
 
@@ -1992,9 +2111,12 @@ BF16_KERNELS = {"flash_fwd": ("flash_fwd_kernel", "flash_fwd_kernel_wide"),
                               "flash_dq_kernel_wide", "flash_dkv_kernel_wide"),
                 "lstm_fwd": ("lstm_fwd_kernel",),
                 "lstm_bwd": ("lstm_bwd_kernel", "lstm_dw_kernel")}
-# source -> its f32 kernels held to the same gate: the f32 forward and
-# backward keep their register tiles, streams and carries in registers too
-F32_KERNELS = {"lstm_fwd": ("lstm_fwd_kernel",),
+# source -> its f32 kernels held to the same gate: the f32 LSTM forward
+# and backward keep their register tiles, streams and carries in
+# registers too, and the 3xTF32 flash backward its accumulators and
+# split fragments
+F32_KERNELS = {"flash_bwd": ("flash_dq_kernel_tf32x3", "flash_dkv_kernel_tf32x3"),
+               "lstm_fwd": ("lstm_fwd_kernel",),
                "lstm_bwd": ("lstm_bwd_kernel", "lstm_dw_kernel")}
 
 
@@ -2010,7 +2132,9 @@ def _spill_gate(name, report):
           f"{min(regs)}-{max(regs)} registers, spills {spills}", flush=True)
     gated = [("bf16", k, lambda f, k=k: k + "I" in f and "bfloat16" in f)
              for k in BF16_KERNELS.get(name, ())]
-    gated += [("f32", k, lambda f, k=k: k + "If" in f)
+    # an f32 instantiation: of a kernel templated on its element type
+    # (``<float, ..>``) or of one that is f32 only (no bf16 in its name)
+    gated += [("f32", k, lambda f, k=k: k + "I" in f and "bfloat16" not in f)
               for k in F32_KERNELS.get(name, ())]
     for dtype, kernel, match in gated:
         typed = [(f, r, sp) for f, r, sp in fns if match(f)]
@@ -2096,6 +2220,10 @@ def main(argv) -> int:
         print(f"phase 4: wide-head (256) step {w['step_device_ms']:.3f} device ms, "
               f"wide flash kernels {w['wide_kernels_share']:.3f} of it, "
               f"within tolerance of the plain attention on {card}", flush=True)
+        w = m["f32"]
+        print(f"phase 4: f32 step {w['step_device_ms']:.3f} device ms, flash "
+              f"backward pair {w['backward_pair_share']:.3f} of it, within "
+              f"tolerance of the plain attention on {card}", flush=True)
     if "5" in phases:  # char-RNN serving at full width
         print(f"clocks: {_clocks()}", flush=True)
         done["5"] = phase_char_serve(torch, np, kernels, lk)
@@ -2183,6 +2311,30 @@ def _flash_summary(done):
 
     _, d512, bh512, t512, _, _ = WIDE_512_CASES[0]
     _, d1024, bh1024, t1024, _, _ = FWD_ONLY_CASES[0]
+    f32_bwd = next(r for r in bwd_rows if r["dtype"] == "float32"
+                   and r["d"] == d_head and r["tq"] == TRAIN["max_len"]
+                   and r["tk"] == TRAIN["max_len"] and r["causal"]
+                   and r["bh"] == train_bh)
+    f32_train = done["4"][1]["f32"]
+
+    def f32(name, key, grads):
+        """the f32 backward at the training shape ([128, 1024, 64] causal,
+        the 3xTF32 kernels) as phase 4's f32 step runs it: this kernel's
+        time beside the whole call, the plain version and the library call
+        (both the whole backward), and its bound on the CUDA cores (f32)
+        and on the tensor cores in 3xTF32, with their shares"""
+        r, ms = f32_bwd, f32_bwd[f"{key}_kernel_only_ms"]
+        return {"kernel": f"{name}_kernel_tf32x3", "ms": ms, "backward_ms": r["ms"],
+                "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
+                "max_abs_err": max(r[f"err_{g}"] for g in grads),
+                "bound_ms": r[f"{key}_bound_ms"], "bound_by": r[f"{key}_bound_by"],
+                "bound_share": r[f"{key}_bound_ms"] / ms,
+                "bound_tf32x3_ms": r[f"{key}_bound_tf32x3_ms"],
+                "bound_tf32x3_by": r[f"{key}_bound_tf32x3_by"],
+                "bound_tf32x3_share": r[f"{key}_bound_tf32x3_ms"] / ms,
+                "launches": f32_train["launches"].get(name, 0),
+                "shape": [r["bh"], r["tq"], r["d"]]}
+
     fwd_wide, bwd_wide = (wide_row(rs, *WIDE_HEAD) for rs in (rows, bwd_rows))
     fwd_512, bwd_512 = (wide_row(rs, d512, bh512, t512) for rs in (rows, bwd_rows))
     fwd_1024 = wide_row(rows, d1024, bh1024, t1024)
@@ -2213,6 +2365,7 @@ def _flash_summary(done):
         "wide_head_1024": wide(fwd_1024, "flash_fwd_kernel_wide", "", fwd_1024["err_o"])
         | {"ms_by_block_q": fwd_1024["kernel_only_ms_by_block_q"]},
         "wide_train_launches": wide_train["launches"].get(flash.KERNEL, 0),
+        "f32_train_launches": f32_train["launches"].get(flash.KERNEL, 0),
     }] + [{
         "name": name, "route": "cuda", "source": SRC + "flash_bwd.cu",
         "replaces": f"deeplearning4j_tpu/ops/flash_attention.py:{line}",
@@ -2240,6 +2393,7 @@ def _flash_summary(done):
                               max(bwd_512[f"err_{g}"] for g in grads))
         | {"backward_ms": bwd_512["ms"]},
         "wide_train_launches": wide_train["launches"].get(name, 0),
+        "f32": f32(name, key, grads),
     } for name, line, key, grads in (
         (flash.DQ_KERNEL, 220, "dq", ("dq",)),
         (flash.DKV_KERNEL, 252, "dkv", ("dk", "dv")))]

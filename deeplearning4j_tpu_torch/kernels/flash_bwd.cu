@@ -116,17 +116,52 @@
 //   the most work go first, and masks are evaluated only on steps that
 //   cross the diagonal, tq or tk; 0 spills (chip_smoke.py phase 1).
 //
+// The f32 kernels of heads up to 128 (flash_dq_kernel_tf32x3,
+// flash_dkv_kernel_tf32x3; 1-128 zero-padded to 64 or 128) run on the
+// tensor cores in 3xTF32 (flash_common.cuh): each f32 operand is split
+// into a TF32 value and the rest, and each product is three mma.sync
+// m16n8k8 TF32 products, small terms first, into an f32 accumulator.
+// What bounds them at [128, 1024, 64] f32 causal: 6 d flops per live pair
+// in dq and 8 d in dk/dv, three times over at the dense TF32 rate (0.156
+// and 0.208 ms at 495 TFLOP/s; 0.385 and 0.513 ms of f32 on the CUDA
+// cores). Their structure is the bf16 kernels' (a warp owns 16 rows, the
+// causal tiles with the most work first, masks only on steps that cross
+// the diagonal, tq or tk, no atomics, 16-byte stores), in f32:
+// - 8 warps and 128 resident rows a block (q and dO in dq, K and V in
+//   dkv), the other axis through a cp.async ring (tiles of 64 rows in
+//   three stages at d = 64, 32 rows in two at 128: 176 and 203 KB, one
+//   block an SM); f32 rows 4 words (mod 32) apart;
+// - the operand of a product whose rows are the product's rows or
+//   columns (qs, dO, K, V in S and dP) comes by ldmatrix, which moves an
+//   f32 element as two 16-bit halves, split as it is read: the
+//   resident rows stay in shared memory (held split, a warp's qs and dO
+//   alone would take 128 registers at d = 64);
+// - TF32 m16n8k8's accumulator (rows g, g + 8; columns 2c, 2c + 1) is
+//   not its A fragment (columns c, c + 4), so the products over the
+//   accumulator's columns (dq += ds K, dv += p^T dO, dk += ds^T qs) take
+//   their depth in a permuted order, column 2c as c and 2c + 1 as c + 4,
+//   and read their B operand's rows in that order by scalar loads (there
+//   is no transposed 32-bit ldmatrix), which the 4-word row padding
+//   spreads over the 32 banks;
+// - each 8-column tile of dq, dk and dv sums a step in a zeroed partial,
+//   added to its f32 accumulator with a rounded add: the tensor cores'
+//   accumulation is not rounded to nearest, and a chain over the whole
+//   sequence carries that error;
+// - p = expf(s - lse), as the SIMT kernels and the plain version;
+//   registers 147-254, 0 spills (chip_smoke.py phase 1).
+//
 // The SIMT kernels (flash_dq_kernel_f32, flash_dkv_kernel_f32) are on no
 // main path and were not redesigned: the first version's CUDA-core FMAs
 // through shared memory in f32 (full f32 precision, no TF32), taking the
 // unscaled q and multiplying it by the scale as they load it (one
 // rounding, the torch product), and, in flash_dq, computing and writing
-// delta as the bf16 kernel does. They run every f32 head and the bf16
-// heads of 1024 (513-1024 are zero-padded to it). Their
+// delta as the bf16 kernel does. They run the f32 heads of 256, 512 and
+// 1024 (129-1024 are zero-padded to them) and the bf16 heads of 1024
+// (513-1024). Their
 // tiles are template parameters (simt_tile, flash_common.cuh): flash_dq
-// 64 x 64 up to d = 128, 32 x 32 at 256, 16 x 16 at 512, 8 x 8 at 1024
-// (~177, ~168 and ~161 KB of shared memory); flash_dkv 64 keys and
-// 32-query steps up to 128, 32 and 16 at 256, 16 and 8 at 512, 8 and 4
+// 32 x 32 at 256, 16 x 16 at 512, 8 x 8 at 1024
+// (~177, ~168 and ~161 KB of shared memory); flash_dkv 32 keys and
+// 16-query steps at 256, 16 and 8 at 512, 8 and 4
 // at 1024 (~173, ~167 and ~161 KB). Their global loads and stores
 // are templated on the element type: bf16 is widened on load, and p and
 // ds are rounded to bf16 before their products, as the reference rounds
@@ -979,6 +1014,402 @@ int launch_dkv_wide(const void* q, const void* k, const void* v, const void* dou
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------ the f32 kernels at heads <= 128
+
+// flash_dq_kernel_tf32x3 and flash_dkv_kernel_tf32x3: the bf16 kernels'
+// structure in f32 on the tensor cores, each product in 3xTF32
+// (flash_common.cuh). A block owns ROWS = 128 rows (query rows in
+// flash_dq, keys in flash_dkv), 16 a warp, resident in shared memory;
+// the other axis comes through a cp.async ring of T-row tiles. f32 rows
+// are twice bf16's bytes, so at d = 128 the tiles are 32 rows in two
+// stages (203 KB), at d = 64 64 rows in three (176 KB): one block an SM.
+template <int D>
+struct Tf32Tiles {
+  static constexpr int ROWS = 128;              // query rows or keys a block
+  static constexpr int NT = ROWS * 2;           // 8 warps
+  static constexpr int T = D == 64 ? 64 : 32;   // rows a ring tile
+  static constexpr int STAGES = D == 64 ? 3 : 2;
+  // f32 row stride in words: 4 (mod 32), so that ldmatrix and the
+  // permuted scalar reads of B (load_b_perm_tf32) are free of conflicts
+  static constexpr int LD = D + 4;
+  // the resident rows (two matrices), then STAGES tiles of two
+  static constexpr size_t rows_bytes = sizeof(float) * (size_t)(2 * ROWS + 2 * STAGES * T) * LD;
+  // flash_dkv: then STAGES tiles of lse and of delta
+  static constexpr size_t dkv_bytes = rows_bytes + sizeof(float) * 2 * STAGES * T;
+  static_assert(D == 64 || D == 128, "the 3xTF32 kernels take heads of 64 and 128");
+  static_assert(dkv_bytes <= SMEM_LIMIT, "3xTF32 layout exceeds shared memory");
+};
+
+// flash_dq in f32: a warp owns 16 query rows (qs and dO resident, read by
+// ldmatrix at each step and split as read); steps of NS = 32 keys: S = qs
+// K^T and dP = dO V^T (B by ldmatrix of the K and V stage), ds in the S
+// accumulators, then dq += ds K with ds's accumulators as A fragments
+// (c_to_a_tf32) and K's rows read in the same permuted order. Each
+// 8-column tile of dq sums a step in a zeroed partial that is then added
+// to the f32 accumulator with one rounded add: the tensor cores'
+// accumulation is not rounded to nearest, and a chain of mma.sync over
+// the whole sequence would carry that error along.
+template <int D>
+__global__ void __launch_bounds__(Tf32Tiles<D>::NT, 1)
+flash_dq_kernel_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, const float* __restrict__ o,
+                       const float* __restrict__ dout, const float* __restrict__ lse,
+                       float* __restrict__ delta, float* __restrict__ dq, int bh, int tq,
+                       int tk, int n_qtiles, int causal, float q_scale, float scale) {
+  using Tl = Tf32Tiles<D>;
+  constexpr int BQ = Tl::ROWS, NT = Tl::NT, TK = Tl::T, STAGES = Tl::STAGES, LD = Tl::LD;
+  constexpr int NS = 32;  // keys a step
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* dOs = Qs + BQ * LD;
+  float* Ks = dOs + BQ * LD;           // STAGES tiles of TK rows
+  float* Vs = Ks + STAGES * TK * LD;   // STAGES tiles of TK rows
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, c = lane % 4;
+  // the q-tiles with the most key tiles (the last ones, under the causal
+  // mask) first
+  const int qt = n_qtiles - 1 - (int)(blockIdx.x / bh);
+  const int b = blockIdx.x % bh;
+  const int q0 = qt * BQ;
+  const int r0 = q0 + 16 * warp;  // this warp's first query row
+  const int offset = tk - tq;
+  const float* kb = k + (size_t)b * tk * D;
+  const float* vb = v + (size_t)b * tk * D;
+  float* Qw = Qs + 16 * warp * LD;  // this warp's rows: q, later its dq
+  float* dOw = dOs + 16 * warp * LD;
+
+  // this warp's q and dO rows: copy group 0
+  load_warp_rows<D, LD>(Qw, q + (size_t)b * tq * D, r0, tq, lane);
+  load_warp_rows<D, LD>(dOw, dout + (size_t)b * tq * D, r0, tq, lane);
+  cp_async_commit();
+
+  // causal: the last key any valid row of this tile may see
+  int k_end = tk;
+  if (causal) k_end = min(tk, min(q0 + BQ, tq) + offset);
+  const int n_kt = k_end > 0 ? (k_end + TK - 1) / TK : 0;
+
+  auto load_kv = [&](int kt) {  // key tile kt (zeros past tk) into stage kt % STAGES
+    const int st = kt % STAGES;
+    load_tile_pair<D, LD, TK, NT>(Ks + st * TK * LD, Vs + st * TK * LD, kb, vb, kt * TK, tk);
+  };
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_kt) load_kv(s);
+    cp_async_commit();
+  }
+
+  float lse_r[2];  // lse of rows g and g + 8; zeros past tq
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + g + 8 * h;
+    lse_r[h] = row < tq ? lse[(size_t)b * tq + row] : 0.f;
+  }
+
+  cp_async_wait<STAGES - 1>();  // group 0 (this lane's copies) landed:
+  scale_rows_f32<D, LD, 16, 32>(Qw, q_scale, lane);  // pre-scale them
+  __syncwarp();                 // ... and every lane's
+
+  // delta = rowsum(dO O) in f32: lanes l and l + 16 sum the two halves of
+  // row r0 + l % 16 (O read once from device memory; zero past tq),
+  // written once per row for flash_dkv; then rows g and g + 8
+  float part = 0.f;
+  if (r0 + lane % 16 < tq) {
+    const int r = lane % 16, c0 = (lane / 16) * (D / 2);
+    const float* orow = o + ((size_t)b * tq + r0 + r) * D + c0;
+#pragma unroll 4
+    for (int i = 0; i < D / 2; i += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(orow + i);
+      const float4 y = *reinterpret_cast<const float4*>(dOw + r * LD + c0 + i);
+      part = fmaf(x.x, y.x, part);
+      part = fmaf(x.y, y.y, part);
+      part = fmaf(x.z, y.z, part);
+      part = fmaf(x.w, y.w, part);
+    }
+  }
+  part += __shfl_xor_sync(0xffffffffu, part, 16);
+  if (lane < 16 && r0 + lane < tq) delta[(size_t)b * tq + r0 + lane] = part;
+  const float dlt[2] = {__shfl_sync(0xffffffffu, part, g), __shfl_sync(0xffffffffu, part, g + 8)};
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    // tile kt has landed for every thread, and every warp is done with
+    // tile kt - 1, whose stage the next copy refills
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    if (kt + STAGES - 1 < n_kt) load_kv(kt + STAGES - 1);
+    cp_async_commit();
+    if (r0 >= tq) continue;  // this warp's rows are all past tq
+
+#pragma unroll 1
+    for (int j = 0; j < TK / NS; ++j) {  // keys kc0 .. kc0 + NS - 1
+      const int kc0 = kt * TK + NS * j;
+      // wholly above this warp's diagonal, or past tk: p = 0 throughout
+      if (kc0 >= tk || (causal && kc0 > r0 + 15 + offset)) continue;
+      const float* Kt = Ks + (kt % STAGES) * TK * LD + NS * j * LD;
+      const float* Vt = Vs + (kt % STAGES) * TK * LD + NS * j * LD;
+      float s[NS / 8][4] = {}, dp[NS / 8][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        FragA qa, da;
+        load_a_tf32<LD>(qa, Qw, kk, lane);
+        load_a_tf32<LD>(da, dOw, kk, lane);
+#pragma unroll
+        for (int jj = 0; jj < NS / 16; ++jj) {
+          FragB bk[2], bv[2];
+          load_bt_tf32<LD>(bk, Kt, jj, kk, lane);
+          load_bt_tf32<LD>(bv, Vt, jj, kk, lane);
+          mma_tf32x3(s[2 * jj], qa, bk[0]);
+          mma_tf32x3(s[2 * jj + 1], qa, bk[1]);
+          mma_tf32x3(dp[2 * jj], da, bv[0]);
+          mma_tf32x3(dp[2 * jj + 1], da, bv[1]);
+        }
+      }
+      // ds = p (dP - delta); masks only where the step crosses tk or this
+      // warp's diagonal
+      const bool edge = kc0 + NS > tk || (causal && kc0 + NS - 1 > r0 + offset);
+      FragA dsa[NS / 8];
+#pragma unroll
+      for (int n = 0; n < NS / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = expf(s[n][e] - lse_r[e / 2]);
+          if (edge) {
+            const int col = kc0 + 8 * n + 2 * c + (e % 2);
+            const int row = r0 + g + 8 * (e / 2);
+            if (col >= tk || (causal && row + offset < col)) p = 0.f;
+          }
+          s[n][e] = p * (dp[n][e] - dlt[e / 2]);
+        }
+        c_to_a_tf32(dsa[n], s[n]);
+      }
+      // dq += ds K, one 8-column tile of dq at a time: B of K's rows in
+      // c_to_a_tf32's order, summed over the step in a zeroed partial
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd) {
+        float part_dq[4] = {};
+#pragma unroll
+        for (int n = 0; n < NS / 8; ++n) {
+          FragB bk;
+          load_b_perm_tf32<LD>(bk, Kt + 8 * n * LD, 8 * nd, lane);
+          mma_tf32x3(part_dq, dsa[n], bk);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nd][e] += part_dq[e];
+      }
+    }
+  }
+  cp_async_wait<0>();  // the trailing (empty) groups
+
+  // dq times its scale, staged through this warp's rows of q
+  store_warp_rows_f32<D, LD>(dq + (size_t)b * tq * D, Qw, acc, scale, r0, tq, lane);
+}
+
+template <int D>
+int launch_dq_tf32x3(const void* q, const void* k, const void* v, const void* o,
+                     const void* dout, const float* lse, float* delta, void* dq, int bh, int tq,
+                     int tk, int causal, float q_scale, float scale, cudaStream_t stream) {
+  using Tl = Tf32Tiles<D>;
+  cudaError_t err = cudaFuncSetAttribute(flash_dq_kernel_tf32x3<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)Tl::rows_bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int n_qtiles = (tq + Tl::ROWS - 1) / Tl::ROWS;
+  flash_dq_kernel_tf32x3<D><<<bh * n_qtiles, Tl::NT, Tl::rows_bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(o), static_cast<const float*>(dout), lse, delta,
+      static_cast<float*>(dq), bh, tq, tk, n_qtiles, causal, q_scale, scale);
+  return (int)cudaGetLastError();
+}
+
+// flash_dkv in f32: a warp owns 16 keys (K and V resident, read by
+// ldmatrix at each step and split as read) for the whole query loop;
+// query tiles (q, dO, lse, delta) through the ring, q pre-scaled in place
+// by the thread that copied it; steps of NS queries (32 at d = 64, 16 at
+// 128: dk and dv take D f32 registers): S^T = K qs^T and dP^T = V dO^T
+// (B by ldmatrix of the stage), p^T and ds^T in the accumulators (lse
+// and delta indexed by the accumulator's column, the query), then dv +=
+// p^T dO and dk += ds^T qs with the accumulators as A fragments and the
+// stage's rows read in the same permuted order, each 8-column tile summed
+// over the step in zeroed partials (as flash_dq's).
+template <int D>
+__global__ void __launch_bounds__(Tf32Tiles<D>::NT, 1)
+flash_dkv_kernel_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        float* __restrict__ dk, float* __restrict__ dv, int bh, int tq, int tk,
+                        int causal, float q_scale) {
+  using Tl = Tf32Tiles<D>;
+  constexpr int BKB = Tl::ROWS, NT = Tl::NT, QT = Tl::T, STAGES = Tl::STAGES, LD = Tl::LD;
+  constexpr int NS = D == 64 ? 32 : 16;  // queries a step
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Ks = reinterpret_cast<float*>(smem);
+  float* Vs = Ks + BKB * LD;
+  float* Rs = Vs + BKB * LD;  // stage st: qs rows at 2 st QT LD, dO rows QT LD on
+  float* Ls = reinterpret_cast<float*>(smem + Tl::rows_bytes);  // stage st: lse, then delta
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, c = lane % 4;
+  // the key tiles with the most query tiles (the first ones, under the
+  // causal mask) first
+  const int k0 = (int)(blockIdx.x / bh) * BKB;
+  const int b = blockIdx.x % bh;
+  const int kw0 = k0 + 16 * warp;  // this warp's first key row
+  const int offset = tk - tq;
+  const float* qb = q + (size_t)b * tq * D;
+  const float* db = dout + (size_t)b * tq * D;
+  float* Kw = Ks + 16 * warp * LD;  // this warp's rows: K, later its dk
+  float* Vw = Vs + 16 * warp * LD;  // V, later dv
+
+  // this warp's K and V rows: copy group 0
+  load_warp_rows<D, LD>(Kw, k + (size_t)b * tk * D, kw0, tk, lane);
+  load_warp_rows<D, LD>(Vw, v + (size_t)b * tk * D, kw0, tk, lane);
+  cp_async_commit();
+
+  // causal: the first query row that sees any key of this block (< tq,
+  // since k0 - offset <= tq - 1)
+  const int qt0 = (causal ? max(0, k0 - offset) : 0) / QT;
+  const int n_qt = (tq + QT - 1) / QT - qt0;
+
+  auto load_q = [&](int t) {  // query tile qt0 + t (zeros past tq) into stage t % STAGES
+    const int q0 = (qt0 + t) * QT, st = t % STAGES;
+    float* qd = Rs + st * 2 * QT * LD;
+    load_tile_pair<D, LD, QT, NT>(qd, qd + QT * LD, qb, db, q0, tq);
+    for (int i = threadIdx.x; i < 2 * QT; i += NT) {
+      const int r = i % QT;
+      const bool in = q0 + r < tq;
+      const size_t off = in ? (size_t)b * tq + q0 + r : 0;
+      cp_async4(smem_addr(Ls + (2 * st + i / QT) * QT + r), (i < QT ? lse : delta) + off,
+                in ? 4 : 0);
+    }
+  };
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_qt) load_q(s);
+    cp_async_commit();
+  }
+
+  cp_async_wait<STAGES - 1>();  // group 0 (this warp's K and V) landed
+  __syncwarp();
+
+  float dka[D / 8][4], dva[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.f;
+    dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
+  }
+
+  for (int t = 0; t < n_qt; ++t) {
+    const int st = t % STAGES;
+    float* Qt = Rs + st * 2 * QT * LD;
+    const float* dOt = Qt + QT * LD;
+    const float* Lt = Ls + 2 * st * QT;  // lse, then delta
+    // tile t has landed for this thread: pre-scale the q chunks it copied
+    cp_async_wait<STAGES - 2>();
+    scale_rows_f32<D, LD, QT, NT>(Qt, q_scale, threadIdx.x);
+    // every thread's share of tile t is in place, and every warp is done
+    // with tile t - 1, whose stage the next copy refills
+    __syncthreads();
+    if (t + STAGES - 1 < n_qt) load_q(t + STAGES - 1);
+    cp_async_commit();
+
+    const int q0 = (qt0 + t) * QT;
+    if (kw0 >= tk) continue;  // this warp's keys are all past tk
+#pragma unroll 1
+    for (int j = 0; j < QT / NS; ++j) {  // queries qc0 .. qc0 + NS - 1
+      const int qc0 = q0 + NS * j;
+      // past tq, or wholly below this warp's keys under the mask: p = 0
+      if (qc0 >= tq || (causal && qc0 + NS - 1 + offset < kw0)) continue;
+      const float* Qj = Qt + NS * j * LD;
+      const float* dOj = dOt + NS * j * LD;
+      float s[NS / 8][4] = {}, dp[NS / 8][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        FragA ka, va;
+        load_a_tf32<LD>(ka, Kw, kk, lane);
+        load_a_tf32<LD>(va, Vw, kk, lane);
+#pragma unroll
+        for (int jj = 0; jj < NS / 16; ++jj) {
+          FragB bq[2], bd[2];
+          load_bt_tf32<LD>(bq, Qj, jj, kk, lane);
+          load_bt_tf32<LD>(bd, dOj, jj, kk, lane);
+          mma_tf32x3(s[2 * jj], ka, bq[0]);
+          mma_tf32x3(s[2 * jj + 1], ka, bq[1]);
+          mma_tf32x3(dp[2 * jj], va, bd[0]);
+          mma_tf32x3(dp[2 * jj + 1], va, bd[1]);
+        }
+      }
+      // p^T and ds^T in the accumulators: row (key) kw0 + g + 8 (e / 2),
+      // column (query) qc0 + 8 n + 2 c + (e % 2); masks only where the
+      // step crosses tq or this warp's diagonal
+      const bool edge = qc0 + NS > tq || (causal && qc0 + offset < kw0 + 15);
+      FragA pa[NS / 8], dsa[NS / 8];
+#pragma unroll
+      for (int n = 0; n < NS / 8; ++n) {
+        const int col = NS * j + 8 * n + 2 * c;  // in the tile
+        const float2 l2 = *reinterpret_cast<const float2*>(Lt + col);
+        const float2 d2 = *reinterpret_cast<const float2*>(Lt + QT + col);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = expf(s[n][e] - (e % 2 ? l2.y : l2.x));
+          if (edge) {
+            const int qi = q0 + col + (e % 2);
+            const int ki = kw0 + g + 8 * (e / 2);
+            if (qi >= tq || (causal && qi + offset < ki)) p = 0.f;
+          }
+          s[n][e] = p;
+          dp[n][e] = p * (dp[n][e] - (e % 2 ? d2.y : d2.x));
+        }
+        c_to_a_tf32(pa[n], s[n]);
+        c_to_a_tf32(dsa[n], dp[n]);
+      }
+      // dv += p^T dO, dk += ds^T qs, one 8-column tile at a time: B of the
+      // stage's rows in c_to_a_tf32's order, summed over the step in
+      // zeroed partials
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd) {
+        float part_dv[4] = {}, part_dk[4] = {};
+#pragma unroll
+        for (int n = 0; n < NS / 8; ++n) {
+          FragB bd, bq;
+          load_b_perm_tf32<LD>(bd, dOj + 8 * n * LD, 8 * nd, lane);
+          load_b_perm_tf32<LD>(bq, Qj + 8 * n * LD, 8 * nd, lane);
+          mma_tf32x3(part_dv, pa[n], bd);
+          mma_tf32x3(part_dk, dsa[n], bq);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dva[nd][e] += part_dv[e];
+          dka[nd][e] += part_dk[e];
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();  // the trailing (empty) groups
+
+  // dk and dv staged through this warp's rows of K and V
+  store_warp_rows_f32<D, LD>(dk + (size_t)b * tk * D, Kw, dka, 1.f, kw0, tk, lane);
+  store_warp_rows_f32<D, LD>(dv + (size_t)b * tk * D, Vw, dva, 1.f, kw0, tk, lane);
+}
+
+template <int D>
+int launch_dkv_tf32x3(const void* q, const void* k, const void* v, const void* dout,
+                      const float* lse, const float* delta, void* dk, void* dv, int bh, int tq,
+                      int tk, int causal, float q_scale, cudaStream_t stream) {
+  using Tl = Tf32Tiles<D>;
+  cudaError_t err = cudaFuncSetAttribute(flash_dkv_kernel_tf32x3<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)Tl::dkv_bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int n_ktiles = (tk + Tl::ROWS - 1) / Tl::ROWS;
+  flash_dkv_kernel_tf32x3<D><<<bh * n_ktiles, Tl::NT, Tl::dkv_bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk),
+      static_cast<float*>(dv), bh, tq, tk, causal, q_scale);
+  return (int)cudaGetLastError();
+}
+
 // ------------------------------------------------ the f32 (SIMT) design
 
 constexpr int LDS_PAD = 1;  // f32 rows padded by one element (bank spread)
@@ -1275,8 +1706,8 @@ extern "C" int dl4j_flash_dq(const void* q, const void* k, const void* v, const 
     if (d == 512) return launch_dq_wide<512>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
     if (d == 1024) return launch_dq_f32<bf16, 1024>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
   } else if (dtype == 0) {
-    if (d == 64) return launch_dq_f32<float, 64>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
-    if (d == 128) return launch_dq_f32<float, 128>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
+    if (d == 64) return launch_dq_tf32x3<64>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
+    if (d == 128) return launch_dq_tf32x3<128>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
     if (d == 256) return launch_dq_f32<float, 256>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
     if (d == 512) return launch_dq_f32<float, 512>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
     if (d == 1024) return launch_dq_f32<float, 1024>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
@@ -1303,8 +1734,8 @@ extern "C" int dl4j_flash_dkv(const void* q, const void* k, const void* v, const
     if (d == 512) return launch_dkv_wide<512>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
     if (d == 1024) return launch_dkv_f32<bf16, 1024>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
   } else if (dtype == 0) {
-    if (d == 64) return launch_dkv_f32<float, 64>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
-    if (d == 128) return launch_dkv_f32<float, 128>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
+    if (d == 64) return launch_dkv_tf32x3<64>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
+    if (d == 128) return launch_dkv_tf32x3<128>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
     if (d == 256) return launch_dkv_f32<float, 256>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
     if (d == 512) return launch_dkv_f32<float, 512>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
     if (d == 1024) return launch_dkv_f32<float, 1024>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);

@@ -5,7 +5,9 @@
 // block-level pieces built on the PTX helpers of ptx_common.cuh (cp.async,
 // ldmatrix, mma.sync, bf16 packing): row copies into shared memory, the
 // q pre-scale in place, named barriers, fragment loads and packing, and
-// the coalesced epilogue store.
+// the coalesced epilogue store; then the 3xTF32 pieces of the f32 kernels
+// on the tensor cores (the TF32 split, mma.sync m16n8k8, fragments of f32
+// rows and the f32 epilogue).
 
 #pragma once
 
@@ -42,9 +44,10 @@ __device__ __forceinline__ float quad_sum(float x) {
 // ---------------------------------------------- the f32 (SIMT) design
 
 // The first design, on the CUDA cores through shared memory in f32, of
-// flash_fwd.cu and flash_bwd.cu: every f32 head, and the bf16 heads of
-// 1024 in the two backward kernels (the bf16 forward at every head, and
-// the backward up to 512, run on the tensor cores).
+// flash_fwd.cu and flash_bwd.cu: the f32 forward at every head, the f32
+// backward at 256, 512 and 1024, and the bf16 backward at 1024 (the bf16
+// forward at every head, the bf16 backward up to 512 and the f32
+// backward up to 128 run on the tensor cores).
 // T is the element type in device memory: bf16 is widened to f32 on load,
 // rounded back where the reference rounds (the q pre-scale, p and ds
 // before their products) and narrowed on store.
@@ -101,29 +104,32 @@ inline int block_rows(int bh, int t, int* rows) {
   return 0;
 }
 
-// A warp's 16 rows [row0, row0 + 16) of a row-major [t, D] bf16 matrix into
-// its shared-memory rows (leading dimension LD), zeros at or past t.
-template <int D, int LD>
-__device__ __forceinline__ void load_warp_rows(bf16* dst, const bf16* src, int row0, int t,
+// A warp's 16 rows [row0, row0 + 16) of a row-major [t, D] matrix (bf16 or
+// f32) into its shared-memory rows (leading dimension LD), zeros at or
+// past t.
+template <int D, int LD, typename T>
+__device__ __forceinline__ void load_warp_rows(T* dst, const T* src, int row0, int t,
                                                int lane) {
-  constexpr int CH = D / 8;  // 16-byte chunks per row
+  constexpr int EL = 16 / sizeof(T);  // elements per 16-byte chunk
+  constexpr int CH = D / EL;          // 16-byte chunks per row
   for (int i = lane; i < 16 * CH; i += 32) {
-    const int r = i / CH, col = (i % CH) * 8;
+    const int r = i / CH, col = (i % CH) * EL;
     const bool in = row0 + r < t;
     cp_async16(smem_addr(dst + r * LD + col), in ? src + (size_t)(row0 + r) * D + col : src,
                in ? 16 : 0);
   }
 }
 
-// Rows [row0, row0 + ROWS) of two row-major [t, D] bf16 matrices a and b
-// (K and V, or q and dO) into the shared tiles a_dst and b_dst (leading
-// dimension LD), zeros at or past t, by the block's NT threads.
-template <int D, int LD, int ROWS, int NT>
-__device__ __forceinline__ void load_tile_pair(bf16* a_dst, bf16* b_dst, const bf16* a,
-                                               const bf16* b, int row0, int t) {
-  constexpr int CH = D / 8;
+// Rows [row0, row0 + ROWS) of two row-major [t, D] matrices a and b (K
+// and V, or q and dO; bf16 or f32) into the shared tiles a_dst and b_dst
+// (leading dimension LD), zeros at or past t, by the block's NT threads.
+template <int D, int LD, int ROWS, int NT, typename T>
+__device__ __forceinline__ void load_tile_pair(T* a_dst, T* b_dst, const T* a, const T* b,
+                                               int row0, int t) {
+  constexpr int EL = 16 / sizeof(T);
+  constexpr int CH = D / EL;
   for (int i = threadIdx.x; i < ROWS * CH; i += NT) {
-    const int r = i / CH, col = (i % CH) * 8;
+    const int r = i / CH, col = (i % CH) * EL;
     const bool in = row0 + r < t;
     const size_t off = in ? (size_t)(row0 + r) * D + col : 0;
     cp_async16(smem_addr(a_dst + r * LD + col), a + off, in ? 16 : 0);
@@ -223,6 +229,156 @@ __device__ __forceinline__ void store_warp_rows(bf16* dst, bf16* stage,
     if (row0 + r < t) {
       *reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * LDG + col) =
           *reinterpret_cast<const uint4*>(stage + r * LD + col);
+    }
+  }
+}
+
+// ------------------------------------------------------------ 3xTF32
+//
+// The f32 kernels on the tensor cores: each f32 operand x is the pair big
+// = x rounded to TF32 (10 mantissa bits, nearest, ties away from zero:
+// the bits cvt.rna.tf32.f32 gives) and small = x - big (exact in f32),
+// and each product a b is a_small b_big + a_big b_small + a_big b_big,
+// three mma.sync m16n8k8 TF32 products into one f32 accumulator. The
+// tensor cores read a TF32 operand's top 19 bits, so small enters
+// truncated to 11 significant bits: with |small| <= 2^-11 |x| that is
+// under 2^-21 |x|, and the dropped a_small b_small about 2^-22 of the
+// product. big is rounded by an integer add and mask (2 instructions)
+// rather than cvt.rna (4 on sm_90a: a finiteness test, the add, the mask
+// and a select): with small's own cvt.rna the split took 9 instructions,
+// and the kernels were bound by issuing them (in a trial on the H100
+// that split made the backward a third slower, with errors no smaller).
+// A NaN still propagates through small.
+//
+// Fragment layout of mma.m16n8k8 TF32 (g = lane / 4, c = lane % 4): A
+// (16 x 8) holds (row g, col c), (g + 8, c), (g, c + 4), (g + 8, c + 4) in
+// registers 0-3; B (8 x 8) holds (k c, n g) and (k c + 4, n g); the
+// accumulator (16 x 8) holds rows g (registers 0, 1) and g + 8 (2, 3) at
+// columns 2c and 2c + 1, as m16n8k16's does. An f32 element is a pair of
+// 16-bit halves, so ldmatrix (non-transposed) of 8 rows x 4 words hands
+// thread t the word (t / 4, t % 4): the A fragment and the B fragment of
+// rows that are the product's columns (K in S = qs K^T) come by
+// ldmatrix; there is no transposed 32-bit ldmatrix, so a B operand whose
+// depth runs along the rows (K in dq = ds K) is read by scalar loads.
+
+struct FragA {  // a split A fragment
+  uint32_t big[4], small[4];
+};
+struct FragB {  // a split B fragment
+  uint32_t big[2], small[2];
+};
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(__fsub_rn(x, __uint_as_float(big)));
+}
+
+// d += a b: a 16 x 8 (row), b 8 x 8 (col), TF32 in, f32 accumulate
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b in 3xTF32: the two small terms first, then big times big
+__device__ __forceinline__ void mma_tf32x3(float (&d)[4], const FragA& a, const FragB& b) {
+  mma_tf32(d, a.small, b.big[0], b.big[1]);
+  mma_tf32(d, a.big, b.small[0], b.small[1]);
+  mma_tf32(d, a.big, b.big[0], b.big[1]);
+}
+
+// The A fragment of the 16 x 8 block at `base` (f32 rows, leading
+// dimension LD; columns 8 kk ..), split: rows lane % 16, words 8 kk + 4
+// (lane / 16)
+template <int LD>
+__device__ __forceinline__ void load_a_tf32(FragA& f, const float* base, int kk, int lane) {
+  uint32_t r[4];
+  ldmatrix_x4(r, smem_addr(base + (lane % 16) * LD + 8 * kk + 4 * (lane / 16)));
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(r[i]), f.big[i], f.small[i]);
+}
+
+// B fragments of x^T for the two 8-column tiles 2 j and 2 j + 1, x f32
+// rows (the product's columns, as K is in S = qs K^T), depth columns 8 kk
+// ..: rows 16 j + lane % 8 + 8 (lane / 16), words 8 kk + 4 ((lane / 8) % 2)
+template <int LD>
+__device__ __forceinline__ void load_bt_tf32(FragB (&f)[2], const float* x, int j, int kk,
+                                             int lane) {
+  uint32_t r[4];
+  ldmatrix_x4(r, smem_addr(x + (16 * j + lane % 8 + 8 * (lane / 16)) * LD + 8 * kk
+                           + 4 * ((lane / 8) % 2)));
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    split_tf32(__uint_as_float(r[i]), f[i / 2].big[i % 2], f[i / 2].small[i % 2]);
+}
+
+// A 16 x 8 accumulator tile x as the A fragment of a product over its 8
+// columns, split, with its columns permuted: the product's depth index c
+// is column 2c and c + 4 is column 2c + 1, so that each thread's own
+// accumulator registers are its A registers (no shuffles). The B operand
+// of that product must read its depth rows in the same order
+// (load_b_perm_tf32).
+__device__ __forceinline__ void c_to_a_tf32(FragA& f, const float (&x)[4]) {
+  split_tf32(x[0], f.big[0], f.small[0]);
+  split_tf32(x[2], f.big[1], f.small[1]);
+  split_tf32(x[1], f.big[2], f.small[2]);
+  split_tf32(x[3], f.big[3], f.small[3]);
+}
+
+// The B fragment, split, of the 8 f32 rows at x (the product's depth, in
+// c_to_a_tf32's order: depth c is row 2c, c + 4 is row 2c + 1) and the 8
+// columns n0 ..: scalar loads of rows 2c and 2c + 1 at column n0 + g.
+// With LD = 4 (mod 32) words the 32 lanes hit 32 banks.
+template <int LD>
+__device__ __forceinline__ void load_b_perm_tf32(FragB& f, const float* x, int n0, int lane) {
+  const int g = lane / 4, c = lane % 4;
+  split_tf32(x[(2 * c) * LD + n0 + g], f.big[0], f.small[0]);
+  split_tf32(x[(2 * c + 1) * LD + n0 + g], f.big[1], f.small[1]);
+}
+
+// The q pre-scale in place for f32 rows: each 16-byte chunk of the ROWS x
+// D rows at `rows` (leading dimension LD) that thread `tid` of NT copied
+// (the walk of load_tile_pair<D, LD, ROWS, NT>; ROWS = 16 and NT = 32 are
+// load_warp_rows' walk by lane), times scale, each product rounded once.
+// Call it once this thread's copies have landed.
+template <int D, int LD, int ROWS, int NT>
+__device__ __forceinline__ void scale_rows_f32(float* rows, float scale, int tid) {
+  constexpr int CH = D / 4;
+  for (int i = tid; i < ROWS * CH; i += NT) {
+    float4* p = reinterpret_cast<float4*>(rows + (i / CH) * LD + (i % CH) * 4);
+    float4 x = *p;
+    x.x *= scale, x.y *= scale, x.z *= scale, x.w *= scale;
+    *p = x;
+  }
+}
+
+// Epilogue of a warp's 16 x D f32 accumulators (fragment layout): each
+// value times mul into the warp's own f32 rows at `stage` (which its
+// lanes have finished reading), then 16-byte coalesced stores of the rows
+// < t to dst ([t, D] row-major).
+template <int D, int LD>
+__device__ __forceinline__ void store_warp_rows_f32(float* dst, float* stage,
+                                                    const float (&acc)[D / 8][4], float mul,
+                                                    int row0, int t, int lane) {
+  constexpr int CH = D / 4;
+  const int g = lane / 4, c = lane % 4;
+  __syncwarp();  // every lane is done reading the rows it overwrites
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<float2*>(stage + (g + 8 * h) * LD + 8 * n + 2 * c) =
+          make_float2(acc[n][2 * h] * mul, acc[n][2 * h + 1] * mul);
+    }
+  }
+  __syncwarp();
+  for (int i = lane; i < 16 * CH; i += 32) {
+    const int r = i / CH, col = (i % CH) * 4;
+    if (row0 + r < t) {
+      *reinterpret_cast<float4*>(dst + (size_t)(row0 + r) * D + col) =
+          *reinterpret_cast<const float4*>(stage + r * LD + col);
     }
   }
 }

@@ -6,10 +6,19 @@ kernels become CUDA kernels: ``_flash_fwd_impl`` -> ``_fwd_kernel`` is
 ``kernels/flash_fwd.cu``; ``_flash_bwd_impl`` -> ``_dq_kernel`` and
 ``_dkv_kernel`` are ``flash_dq`` and ``flash_dkv`` in
 ``kernels/flash_bwd.cu`` (see each file's header for its Hopper design).
-In bf16 the forward runs on the tensor cores at every head (the
-``_wide`` kernel at 256, 512 and 1024) and the backward up to heads of
-512 (the ``_wide`` kernels at 256 and 512); f32 heads and the bf16
-backward at 1024 run the CUDA-core (SIMT) kernels.
+Which kernel runs which dtype and head:
+
+- forward: bf16 on the tensor cores at every head (``flash_fwd_kernel``
+  up to 128, ``flash_fwd_kernel_wide`` at 256, 512 and 1024); f32 on the
+  CUDA cores (``flash_fwd_kernel_f32``) at every head;
+- backward: bf16 on the tensor cores up to 512 (``flash_dq_kernel`` /
+  ``flash_dkv_kernel`` up to 128, the ``_wide`` pair at 256 and 512);
+  f32 up to 128 on the tensor cores in 3xTF32
+  (``flash_dq_kernel_tf32x3`` / ``flash_dkv_kernel_tf32x3``: each f32
+  operand split into two TF32 values, three products for each); the f32
+  heads of 256-1024 and the bf16 heads of 1024 on the CUDA cores (the
+  ``_f32`` pair).
+
 Which of the two runs is decided by the tensor's device alone: on the
 CPU the plain version, on a CUDA device the kernel (a build or launch
 that fails raises). The kernels are built for head sizes 64, 128, 256,
@@ -52,10 +61,12 @@ def _scale(q: torch.Tensor) -> float:
 
 def _head_width(d: int) -> int:
     """The head size the kernels run a head of ``d`` at: 64, 128, 256,
-    512 or 1024, the sizes they are built for (in bf16 the forward runs
-    every one of them on the tensor cores, 256 to 1024 in its ``_wide``
+    512 or 1024, the sizes they are built for (on the tensor cores: in
+    bf16 the forward at every one of them, 256 to 1024 in its ``_wide``
     kernel, and the backward 64 to 512, 256 and 512 in its ``_wide``
-    kernels; the rest run on the CUDA cores). A smaller head
+    kernels; in f32 the backward at 64 and 128, in 3xTF32. The f32
+    forward, the f32 backward at 256 to 1024 and the bf16 backward at
+    1024 run on the CUDA cores). A smaller head
     is padded with zeros up to it, which adds 0 to every score and
     product, so the unpadded columns of every output are the same; the
     scales stay those of ``d``."""
@@ -271,7 +282,9 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, causal
     stream. The kernel library picks each kernel by dtype and width: in
     bf16 ``flash_dq_kernel`` / ``flash_dkv_kernel`` at 64 and 128,
     ``flash_dq_kernel_wide`` / ``flash_dkv_kernel_wide`` at 256 and 512,
-    the SIMT ``_f32`` kernels at 1024 and for every f32 head."""
+    the SIMT ``_f32`` kernels at 1024; in f32
+    ``flash_dq_kernel_tf32x3`` / ``flash_dkv_kernel_tf32x3`` at 64 and
+    128, the SIMT ``_f32`` kernels at 256, 512 and 1024."""
     bh, tq, d = q.shape
     tk = k.shape[1]
     _check_inputs(q, k, v)
@@ -324,7 +337,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv): the two CUDA kernels for CUDA tensors, the plain
     version (with these blocks) for CPU ones. The kernels tile by their
-    own 64 x 64 blocks."""
+    own blocks."""
     if q.device.type == "cuda":
         return _flash_bwd_cuda(q, k, v, o, lse, do, causal)
     if q.device.type == "cpu":

@@ -284,14 +284,21 @@ def test_wide_head_cases_reach_1024_and_time_the_forward_at_512():
     assert by == by_256 == "bytes" and ms == pytest.approx(ms_256, rel=1e-3)
 
 
-def _bwd_flash_report(dq_spills, dkv_spills):
+def _bwd_flash_report(dq_spills, dkv_spills, tf32_dq_spills=0, tf32_dkv_spills=0):
     """A stand-in report of flash_bwd.cu: the bf16 mma.sync kernels, the
     wide ones at 256 and 512 (flash_dq_kernel_wide spilling
-    ``dq_spills`` bytes, flash_dkv_kernel_wide ``dkv_spills``), and an
-    f32 and a bf16 SIMT instantiation (never gated)."""
+    ``dq_spills`` bytes, flash_dkv_kernel_wide ``dkv_spills``), the f32
+    3xTF32 kernels at 64 and 128 (``tf32_dq_spills``,
+    ``tf32_dkv_spills`` at 128), and an f32 and a bf16 SIMT
+    instantiation (never gated)."""
     ns = "_ZN12_GLOBAL__N_1"
     args = "EEvPK13__nv_bfloat16S3_S3_S3_S3_PKfPfPS1_iiiiiff"
+    f32_args = "EEvPKfS1_S1_S1_S1_S1_PfS2_iiiiiff"
     return _ptxas_lines([
+        (f"{ns}22flash_dq_kernel_tf32x3ILi64{f32_args}", 149, 0),
+        (f"{ns}22flash_dq_kernel_tf32x3ILi128{f32_args}", 203, tf32_dq_spills),
+        (f"{ns}23flash_dkv_kernel_tf32x3ILi64{f32_args}", 241, 0),
+        (f"{ns}23flash_dkv_kernel_tf32x3ILi128{f32_args}", 254, tf32_dkv_spills),
         (f"{ns}15flash_dq_kernelILi64ELi128{args}", 125, 0),
         (f"{ns}16flash_dkv_kernelILi64ELi128{args}", 128, 0),
         (f"{ns}20flash_dq_kernel_wideILi256{args}", 243, dq_spills),
@@ -313,6 +320,12 @@ def test_spill_gate_reads_the_wide_flash_backward(capsys):
             "[(243, 0), (223, 0)]") in out
     assert ("bf16 flash_dkv_kernel_wide registers, spill bytes: "
             "[(242, 0), (225, 0)]") in out
+    assert "f32 flash_dq_kernel_tf32x3 registers, spill bytes: [(149, 0), (203, 0)]" in out
+    assert "f32 flash_dkv_kernel_tf32x3 registers, spill bytes: [(241, 0), (254, 0)]" in out
+    # the SIMT kernels are not gated, and the bf16 gate does not read the
+    # 3xTF32 kernels
+    assert "flash_dq_kernel_f32 registers" not in out
+    assert "bf16 flash_dq_kernel registers, spill bytes: [(125, 0)]" in out
 
 
 @pytest.mark.parametrize("dq_spills,dkv_spills,kernel", [
@@ -323,14 +336,35 @@ def test_spill_gate_rejects_a_spilling_wide_flash_backward(dq_spills, dkv_spills
         chip_smoke._spill_gate("flash_bwd", _bwd_flash_report(dq_spills, dkv_spills))
 
 
+@pytest.mark.parametrize("tf32_dq_spills,tf32_dkv_spills,kernel", [
+    (8, 0, "flash_dq_kernel_tf32x3"), (0, 132, "flash_dkv_kernel_tf32x3")])
+def test_spill_gate_rejects_a_spilling_tf32x3_flash_backward(tf32_dq_spills,
+                                                            tf32_dkv_spills, kernel):
+    """The f32 backward's 3xTF32 kernels are gated: one instantiation
+    spilling (here the one at 128) is enough to fail."""
+    with pytest.raises(RuntimeError, match=f"f32 {kernel} spills"):
+        chip_smoke._spill_gate("flash_bwd", _bwd_flash_report(
+            0, 0, tf32_dq_spills, tf32_dkv_spills))
+
+
+def test_spill_gate_needs_the_tf32x3_kernels():
+    """A flash_bwd.cu report without the 3xTF32 kernels fails the gate."""
+    lines = _bwd_flash_report(0, 0).splitlines()
+    with pytest.raises(RuntimeError, match="f32 flash_dq_kernel_tf32x3"):
+        chip_smoke._spill_gate("flash_bwd", "\n".join(lines[16:]))
+
+
 @pytest.mark.parametrize("dtype,d,names", [
     ("bfloat16", 64, ("flash_dq_kernel<", "flash_dkv_kernel<")),
     ("bfloat16", 128, ("flash_dq_kernel<", "flash_dkv_kernel<")),
     ("bfloat16", 256, ("flash_dq_kernel_wide<", "flash_dkv_kernel_wide<")),
     ("bfloat16", 512, ("flash_dq_kernel_wide<", "flash_dkv_kernel_wide<")),
     ("bfloat16", 1024, ("flash_dq_kernel_f32<", "flash_dkv_kernel_f32<")),
-    ("float32", 64, ("flash_dq_kernel_f32<", "flash_dkv_kernel_f32<")),
-    ("float32", 512, ("flash_dq_kernel_f32<", "flash_dkv_kernel_f32<"))])
+    ("float32", 64, ("flash_dq_kernel_tf32x3<", "flash_dkv_kernel_tf32x3<")),
+    ("float32", 128, ("flash_dq_kernel_tf32x3<", "flash_dkv_kernel_tf32x3<")),
+    ("float32", 256, ("flash_dq_kernel_f32<", "flash_dkv_kernel_f32<")),
+    ("float32", 512, ("flash_dq_kernel_f32<", "flash_dkv_kernel_f32<")),
+    ("float32", 1024, ("flash_dq_kernel_f32<", "flash_dkv_kernel_f32<"))])
 def test_bwd_kernel_names_follow_the_dispatch(dtype, d, names):
     assert chip_smoke.bwd_kernel_names(dtype, d) == names
     # each name finds its kernel's profiled name and no other's
@@ -378,8 +412,23 @@ def _flash_rows():
     shapes = [(chip_smoke.BATCH * chip_smoke.GPT["num_heads"], chip_smoke.PROMPT, 64),
               (chip_smoke.TRAIN_BATCH * chip_smoke.TRAIN["num_heads"], 1024, 64),
               (32, 1024, 256), (16, 1024, 512)]
+    f32 = bwd(*shapes[1]) | dict(
+        dtype="float32", err_dq=1e-5, err_dk=2e-5, err_dv=1.5e-5, ms=1.6,
+        dq_kernel_only_ms=0.7, dkv_kernel_only_ms=0.9, plain_ms=7.3,
+        library_ms=1.6, dq_bound_ms=0.385, dq_bound_by="operations",
+        dkv_bound_ms=0.513, dkv_bound_by="operations",
+        dq_bound_tf32x3_ms=0.156, dq_bound_tf32x3_by="operations",
+        dkv_bound_tf32x3_ms=0.208, dkv_bound_tf32x3_by="operations")
     return ([fwd(*s) for s in shapes + [(8, 1024, 1024)]],
-            [bwd(*s) for s in shapes[1:]])
+            [bwd(*s) for s in shapes[1:]] + [f32])
+
+
+def _phase4(train, wide_launches, f32_launches=None):
+    """Stand-in phase-4 result: the step's launches, the wide step's and
+    the f32 step's."""
+    f32_launches = f32_launches or {"flash_fwd": 8, "flash_dq": 8, "flash_dkv": 8}
+    return (train, {"wide_head": {"launches": wide_launches},
+                    "f32": {"launches": f32_launches}})
 
 
 def test_flash_summary_names_the_wide_kernels():
@@ -388,10 +437,9 @@ def test_flash_summary_names_the_wide_kernels():
     their bound shares and the wide training step's launches."""
     rows, bwd_rows = _flash_rows()
     train = {"flash_fwd": 8, "flash_dq": 8, "flash_dkv": 8}
-    wide_train = {"launches": {"flash_fwd": 2, "flash_dq": 2, "flash_dkv": 2}}
     entries = chip_smoke._flash_summary({
         "2": rows, "2bwd": bwd_rows, "3": ({"flash_fwd": 8}, {}),
-        "4": (train, {"wide_head": wide_train})})
+        "4": _phase4(train, {"flash_fwd": 2, "flash_dq": 2, "flash_dkv": 2})})
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     assert [e["name"] for e in entries] == ["flash_fwd", "flash_dq", "flash_dkv"]
@@ -447,10 +495,9 @@ def test_flash_summary_gives_the_forward_its_1024_row():
                      plain_ms=40.0, bound_ms=0.02,
                      kernel_only_ms_by_block_q={16: 0.4, 32: 0.2})
     train = {"flash_fwd": 8, "flash_dq": 8, "flash_dkv": 8}
-    wide_train = {"launches": {"flash_fwd": 2, "flash_dq": 2, "flash_dkv": 2}}
     fwd = chip_smoke._flash_summary({
         "2": rows, "2bwd": bwd_rows, "3": ({"flash_fwd": 8}, {}),
-        "4": (train, {"wide_head": wide_train})})[0]
+        "4": _phase4(train, {"flash_fwd": 2, "flash_dq": 2, "flash_dkv": 2})})[0]
     w = fwd["wide_head_1024"]
     assert w["kernel"] == "flash_fwd_kernel_wide" and w["shape"] == [8, 1024, 1024]
     assert (w["ms"], w["plain_ms"], w["library_ms"], w["max_abs_err"]) == \
@@ -459,15 +506,88 @@ def test_flash_summary_gives_the_forward_its_1024_row():
     assert w["ms_by_block_q"] == {16: 0.4, 32: 0.2}
 
 
+def test_flash_summary_gives_the_backward_its_f32_row():
+    """The backward entries carry ``f32``: the 3xTF32 kernel at [128, 1024,
+    64] f32 causal, its time beside the whole call, the plain version and
+    SDPA, both bounds with their shares (the tensor-core one may be
+    beaten by no kernel; the CUDA-core one may), and the f32 step's
+    launches."""
+    rows, bwd_rows = _flash_rows()
+    train = {"flash_fwd": 8, "flash_dq": 8, "flash_dkv": 8}
+    entries = chip_smoke._flash_summary({
+        "2": rows, "2bwd": bwd_rows, "3": ({"flash_fwd": 8}, {}),
+        "4": _phase4(train, {"flash_fwd": 2, "flash_dq": 2, "flash_dkv": 2},
+                     {"flash_fwd": 8, "flash_dq": 8, "flash_dkv": 7})})
+    fwd, dq, dkv = entries
+    assert fwd["f32_train_launches"] == 8
+    assert dq["f32"]["kernel"] == "flash_dq_kernel_tf32x3"
+    assert dkv["f32"]["kernel"] == "flash_dkv_kernel_tf32x3"
+    assert dq["f32"]["shape"] == dkv["f32"]["shape"] == [128, 1024, 64]
+    assert (dq["f32"]["ms"], dq["f32"]["backward_ms"], dq["f32"]["plain_ms"],
+            dq["f32"]["library_ms"]) == (0.7, 1.6, 7.3, 1.6)
+    assert dq["f32"]["max_abs_err"] == 1e-5 and dkv["f32"]["max_abs_err"] == 2e-5
+    assert dq["f32"]["bound_share"] == pytest.approx(0.385 / 0.7)
+    assert dkv["f32"]["bound_tf32x3_share"] == pytest.approx(0.208 / 0.9)
+    assert (dq["f32"]["launches"], dkv["f32"]["launches"]) == (8, 7)
+    # the bf16 training row stays the entry's own
+    assert dq["ms"] == 0.1 and dq["shape"] == [128, 1024, 64]
+
+
+def test_tf32x3_bound_is_three_products_at_the_tf32_rate():
+    """At [128, 1024, 64] f32 causal: dq's 6 d flops per live pair, three
+    times over at 495 TFLOP/s, 0.156 ms, and dkv's 8 d 0.208 ms (both
+    set by operations); the f32 CUDA-core bounds stay 0.385 and 0.513."""
+    pairs = chip_smoke._live_pairs(1024, 1024, True)
+    assert pairs == 1024 * 1025 // 2
+    for flops, n_out, tc, cuda_core in ((6 * 64, 1, 0.156, 0.385),
+                                        (8 * 64, 2, 0.208, 0.513)):
+        ms, by = chip_smoke._flash_bwd_bound_tf32x3(128, 1024, 1024, 64, True,
+                                                     flops, n_out)
+        assert by == "operations"
+        assert ms == pytest.approx(3 * flops * 128 * pairs / 495e12 * 1e3)
+        assert ms == pytest.approx(tc, abs=1e-3)
+        f32_ms, f32_by = chip_smoke._flash_bwd_bound(128, 1024, 1024, 64, True,
+                                                     "float32", flops, n_out)
+        assert f32_by == "operations" and f32_ms == pytest.approx(cuda_core, abs=1e-3)
+
+
+def test_f32_train_is_the_training_width_in_f32():
+    """Phase 4's f32 step is ``TRAIN`` with only its dtype changed, at
+    the training batch: every attention call is [128, 1024, 64] f32
+    causal, the timed backward row of phase 2."""
+    f32 = dict(chip_smoke.F32_TRAIN)
+    assert f32.pop("compute_dtype") == "float32"
+    train = dict(chip_smoke.TRAIN)
+    assert train.pop("compute_dtype") == "bfloat16"
+    assert f32 == train
+    heads = chip_smoke.F32_TRAIN["num_heads"]
+    shape = (chip_smoke.TRAIN_BATCH * heads, chip_smoke.F32_TRAIN["max_len"],
+             chip_smoke.F32_TRAIN["d_model"] // heads)
+    assert shape == (128, 1024, 64)
+    assert ("float32", 64, 128, 1024, 1024, True) in chip_smoke.bwd_cases()
+    assert chip_smoke.bwd_kernel_names("float32", shape[2]) == (
+        "flash_dq_kernel_tf32x3<", "flash_dkv_kernel_tf32x3<")
+
+
 def test_parent_rows_script_needs_the_card_and_no_jax():
     """``scripts/flash_fwd_rows.py`` (the parent's time at the
     forward-only rows) imports nothing of JAX and exits 2 without a
     card, printing no row."""
+    _script_needs_the_card_and_no_jax("flash_fwd_rows.py", "flash_fwd ")
+
+
+def test_f32_step_script_needs_the_card_and_no_jax():
+    """``scripts/f32_train_step.py`` (phase 4's f32 step through another
+    checkout's port) likewise."""
+    _script_needs_the_card_and_no_jax("f32_train_step.py", "f32_train_step ")
+
+
+def _script_needs_the_card_and_no_jax(script, line):
     import ast
     import subprocess
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    path = os.path.join(root, "scripts", "flash_fwd_rows.py")
+    path = os.path.join(root, "scripts", script)
     with open(path) as f:
         tree = ast.parse(f.read())
     names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
@@ -479,7 +599,7 @@ def test_parent_rows_script_needs_the_card_and_no_jax():
         pytest.skip("the card is there: the script would run")
     r = subprocess.run([sys.executable, path, root], capture_output=True,
                        text=True, timeout=120)
-    assert r.returncode == 2 and "flash_fwd " not in r.stdout, r.stdout + r.stderr
+    assert r.returncode == 2 and line not in r.stdout, r.stdout + r.stderr
 
 
 def test_spill_gate_needs_a_bf16_instantiation():

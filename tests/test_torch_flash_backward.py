@@ -9,8 +9,13 @@ The port's CPU side is the kernels' plain version; the CUDA kernels
 the card (``cuda`` tests, and ``chip_smoke.py``). Tolerances: the
 reference's own, 2e-5 in f32 and 3e-2 in bf16 for the backward pass;
 2e-4 for gradients through the whole wrapper, as
-tests/test_flash_attention.py holds its gradients.
+tests/test_flash_attention.py holds its gradients. The f32 kernels at
+heads up to 128 compute each product in 3xTF32; an emulation of those
+products on the CPU runs through the plain backward against the JAX
+package at the f32 tolerance.
 """
+
+import time
 
 import jax
 import jax.numpy as jnp
@@ -37,6 +42,14 @@ from deeplearning4j_tpu_torch.ops.flash_attention import (
 
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 GRAD_TOL = 2e-4
+# the 3xTF32 kernels against the plain f32 backward at inputs drawn at
+# scale 4 (test_tf32x3_kernels_hold_hard_f32_inputs_on_card), relative to
+# max |ref|: scores of ±40 and more, where p's exponential scales up each
+# score's rounding; on the H100 the kernels' error from an f64 backward
+# there is several times the plain f32 version's (most at d 128, whose
+# scores sum 48 TF32 products on the tensor cores) and under this bound,
+# one TF32 product's dozens of times over it
+SCALE4_REL = 1e-4
 
 
 @pytest.fixture
@@ -108,6 +121,122 @@ def test_plain_bwd_at_kernel_tiles_matches_pallas_on_ragged_tiles(
     for t, w in zip(got, want):
         assert t.dtype == getattr(torch, dtype) and t.shape == w.shape
         _close(t.float().numpy(), w, TOL[dtype])
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("tq,tk", [(40, 40), (24, 40)])
+@pytest.mark.parametrize("bq,bk", [
+    (128, 64), (128, 32),          # flash_dq_kernel_tf32x3: 128 rows, key tiles of 64 / 32
+    (64, 128), (32, 128), (16, 128),  # flash_dkv_kernel_tf32x3: 128 keys, query tiles and steps
+])
+def test_plain_bwd_at_tf32x3_tiles_matches_pallas_on_ragged_tiles(
+        rng, causal, tq, tk, bq, bk):
+    """The f32 kernels' oracle at the 3xTF32 kernels' own tiles (one
+    ragged tile in q and in k; at tq < tk an offset diagonal) against the
+    Pallas backward at exact blocks of 8, at the f32 tolerance."""
+    q, k, v = _arrays(rng, [(3, tq, 16), (3, tk, 16), (3, tk, 16)])
+    (g,) = _arrays(rng, [(3, tq, 16)])
+    jq, jk, jv, jg = (_jax(a, "float32") for a in (q, k, v, g))
+    jo, jl = _flash_fwd_impl(jq, jk, jv, causal, 8, 8, interpret=True)
+    want = _flash_bwd_impl(jq, jk, jv, jo, jl, jg, causal, 8, 8,
+                           interpret=True)
+    got = flash_attention_bwd_plain(
+        *(_torch(a, "float32") for a in (q, k, v, jo)),
+        torch.tensor(np.asarray(jl)), _torch(g, "float32"), causal, bq, bk)
+    for t, w in zip(got, want):
+        assert t.dtype == torch.float32 and t.shape == w.shape
+        _close(t.numpy(), w, TOL["float32"])
+
+
+# ------------------- the 3xTF32 products of the f32 kernels, emulated
+
+def _tf32_round(x):
+    """x (f32) rounded to TF32, 10 mantissa bits, nearest with ties away
+    from zero: cvt.rna.tf32.f32's bits, which the kernels get by an
+    integer add and mask."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_read(x):
+    """x as the tensor cores read a TF32 operand: its top 19 bits (sign,
+    exponent, 10 mantissa bits), the rest dropped."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _matmul_tf32x3(a, b):
+    """a @ b as the f32 kernels compute it: each f32 operand split into
+    big = TF32(x) and small = x - big (read as the tensor cores read it),
+    and a_small b_big + a_big b_small + a_big b_big, each product exact
+    (f64), the sum rounded once to f32."""
+    ab, bb = _tf32_round(a), _tf32_round(b)
+    as_, bs = _tf32_read(a - ab), _tf32_read(b - bb)
+    return (as_.double() @ bb.double() + ab.double() @ bs.double()
+            + ab.double() @ bb.double()).float()
+
+
+def _matmul_tf32(a, b):
+    """a @ b from the big halves alone: one TF32 product (what a kernel
+    that dropped the small terms would compute)."""
+    return (_tf32_round(a).double() @ _tf32_round(b).double()).float()
+
+
+class _Products(torch.overrides.TorchFunctionMode):
+    """Every f32 ``a @ b`` inside the block computed by ``matmul`` (the
+    mode is off inside its own handler, so ``matmul`` runs plain torch)."""
+
+    def __init__(self, matmul):
+        super().__init__()
+        self.matmul = matmul
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func in (torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__) and \
+                all(a.dtype == torch.float32 for a in args):
+            return self.matmul(*args)
+        return func(*args, **(kwargs or {}))
+
+
+def _bwd_with_products(matmul, *args):
+    """``flash_attention_bwd_plain(*args)`` with its products by ``matmul``."""
+    with _Products(matmul):
+        return flash_attention_bwd_plain(*args)
+
+
+def test_tf32_split_is_exact_and_small():
+    """big + small is x, big is a TF32 value (nearest, ties away from
+    zero), and |small| is at most half a TF32 ulp of x."""
+    x = torch.tensor([1.0, -1.0, 1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -12,
+                      3.14159265, -2.718281828e-20, 6.5e30, 0.0], dtype=torch.float32)
+    big = _tf32_round(x)
+    assert torch.equal(big + (x - big), x)
+    assert torch.equal(_tf32_read(big), big)
+    # ties round away from zero, below half an ulp rounds down
+    assert big[2].item() == 1.0 + 2.0 ** -10 and big[3].item() == -(1.0 + 2.0 ** -10)
+    assert big[4].item() == 1.0
+    assert bool(((x - big).abs() <= x.abs() * 2.0 ** -11).all())
+
+
+def test_tf32x3_products_hold_the_f32_tolerance(rng):
+    """The precision argument of the f32 kernels on the CPU: the blocked
+    backward with every product in emulated 3xTF32, at [2, 512, 128] f32
+    causal with q scaled so that the scores span about ±8, holds dq, dk
+    and dv within 2e-5 of the JAX package's Pallas backward; from the
+    big halves alone (one TF32 product) it does not."""
+    bh, t, d = 2, 512, 128
+    q, k, v, g = _arrays(rng, [(bh, t, d)] * 4)
+    q = q * 1.8
+    jq, jk, jv, jg = (_jax(a, "float32") for a in (q, k, v, g))
+    jo, jl = _flash_fwd_impl(jq, jk, jv, True, 256, 256, interpret=True)
+    want = [np.asarray(w) for w in _flash_bwd_impl(
+        jq, jk, jv, jo, jl, jg, True, 256, 256, interpret=True)]
+    args = (*(torch.tensor(a) for a in (q, k, v)), torch.tensor(np.asarray(jo)),
+            torch.tensor(np.asarray(jl)), torch.tensor(g), True, 128, 32)
+    span = (_prescale(args[0]) @ args[1].transpose(1, 2)).abs().max().item()
+    assert 6.0 < span < 12.0
+    got = _bwd_with_products(_matmul_tf32x3, *args)
+    for a, w in zip(got, want):
+        _close(a.numpy(), w, TOL["float32"])
+    one = _bwd_with_products(_matmul_tf32, *args)
+    assert max(np.abs(a.numpy() - w).max() for a, w in zip(one, want)) > 1e-4
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -252,6 +381,40 @@ def test_unsupported_device_raises_in_backward(rng):
 
 # ------------------------------------------------ the kernels on the card
 
+def _bwd_kernel_names(dtype, d):
+    """The two backward kernels a padded head of ``d`` runs in ``dtype``
+    (as chip_smoke.bwd_kernel_names has them)."""
+    if dtype == "bfloat16":
+        suffix = "" if d <= 128 else "_wide" if d <= 512 else "_f32"
+    else:
+        suffix = "_tf32x3" if d <= 128 else "_f32"
+    return (f"flash_dq_kernel{suffix}<", f"flash_dkv_kernel{suffix}<")
+
+
+def _assert_profiled(fn, names):
+    """torch.profiler sees one call of ``fn`` run the two backward
+    kernels ``names`` and no other flash backward kernel. A profile that
+    kept none of them (the card's machine sometimes drops device events)
+    is taken again with a wider idle margin around the call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    seen = set()
+    for pad in (0.02, 0.2, 1.0, 2.0):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(pad)
+        seen = {e.key for e in prof.key_averages() if e.self_device_time_total > 0
+                and ("flash_dq_kernel" in e.key or "flash_dkv_kernel" in e.key)}
+        if len(seen) == 2:
+            break
+    assert all(any(n in key for n in names) for key in seen), (seen, names)
+    assert all(any(n in key for key in seen) for n in names), (seen, names)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("d", [64, 128])
@@ -278,10 +441,13 @@ def test_kernels_match_plain_on_card(cuda_device, dtype, d, causal, bh, tq, tk):
     want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
     for a, b in zip(got, want):
         ref = b.float().abs().max().item()
-        # f32: CUDA-core FMAs in another order; bf16: ds is rounded to
+        # f32: 3xTF32 products in another order; bf16: ds is rounded to
         # bf16 and summed in another order, so the bound scales with |ref|
         tol = 2e-5 if dtype == "float32" else 2e-2 * ref
         assert (a.float() - b.float()).abs().max().item() <= tol
+    # the f32 heads run the 3xTF32 kernels, the bf16 heads the mma.sync ones
+    _assert_profiled(lambda: flash_attention_bwd(q, k, v, o, lse, do, causal),
+                     _bwd_kernel_names(dtype, d))
 
 
 @pytest.mark.cuda
@@ -306,6 +472,83 @@ def test_kernels_take_other_head_sizes_on_card(cuda_device, dtype, d, causal):
         ref = b.float().abs().max().item()
         tol = 2e-5 if dtype == "float32" else 2e-2 * ref
         assert (a.float() - b.float()).abs().max().item() <= tol
+    _assert_profiled(lambda: flash_attention_bwd(q, k, v, o, lse, do, causal),
+                     _bwd_kernel_names(dtype, d))
+
+
+def _hard_f32_inputs(kind, bh, tq, tk, d, device):
+    """f32 (q, k, v, dO) that a fault of the 3xTF32 kernels would show
+    on: "scale4" draws them at scale 4 (scores of ±40 and more: p is
+    peaked, so a wrong permutation of the depth index or a misread
+    fragment moves whole rows); "fine" adds 1e-3 x randn to randn, so
+    every value needs more than TF32's 10 mantissa bits (a kernel that
+    dropped the small terms misses the f32 tolerance)."""
+    g = torch.Generator(device=device).manual_seed(5)
+    xs = [torch.randn(bh, t, d, generator=g, device=device) for t in (tq, tk, tk, tq)]
+    if kind == "scale4":
+        return [4.0 * x for x in xs]
+    return [x + 1e-3 * torch.randn(x.shape, generator=g, device=device) for x in xs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("bh,tq,tk", [(4, 128, 128), (8, 72, 200)])
+@pytest.mark.parametrize("kind", ["scale4", "fine"])
+def test_tf32x3_kernels_hold_hard_f32_inputs_on_card(cuda_device, kind, d, causal,
+                                                     bh, tq, tk):
+    """The 3xTF32 kernels on inputs that a wrong depth permutation, a
+    misread fragment or a dropped small term would fail. "fine": within
+    the f32 tolerance 2e-5 of the plain backward, which the big halves
+    alone (one TF32 product, emulated on the card through the same
+    blocked backward) miss. "scale4": scores of ±40 and more carry f32
+    roundings of their own in both versions, which p's exponential
+    scales up (SCALE4_REL x max |ref|, against errors of 1e-3 x max |ref|
+    and more from the faults)."""
+    q, k, v, do = _hard_f32_inputs(kind, bh, tq, tk, d, cuda_device)
+    o, lse = flash_attention_fwd(q, k, v, causal)
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    one = _bwd_with_products(_matmul_tf32, q, k, v, o, lse, do, causal)
+    errs, ones, refs = [], [], []
+    for a, b, c in zip(got, want, one):
+        assert bool(torch.isfinite(a).all())
+        errs.append((a - b).abs().max().item())
+        ones.append((c - b).abs().max().item())
+        refs.append(b.abs().max().item())
+    if kind == "fine":
+        assert max(errs) <= 2e-5 < max(ones), (errs, ones)
+    else:
+        assert all(e <= SCALE4_REL * r < o for e, r, o in zip(errs, refs, ones)), \
+            (errs, ones, refs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [("float32", 256), ("float32", 512), ("float32", 1024),
+                                     ("bfloat16", 1024)])
+def test_simt_backward_keeps_the_heads_it_had_on_card(cuda_device, dtype, d):
+    """The f32 heads of 256-1024 and the bf16 heads of 1024 still run
+    the SIMT kernels (flash_dq_kernel_f32, flash_dkv_kernel_f32), one
+    launch each, within the tolerances of the plain backward."""
+    bh, tq, tk = 2, 72, 200
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.randn(bh, t, d, generator=g, device=cuda_device).to(dt)
+                   for t in (tq, tk, tk, tq))
+    o, lse = flash_attention_fwd(q, k, v, True)
+    kernels.reset_launches()
+    got = flash_attention_bwd(q, k, v, o, lse, do, True)
+    torch.cuda.synchronize()
+    assert dict(kernels.LAUNCHES) == {"flash_dq": 1, "flash_dkv": 1}
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, True)
+    for a, b in zip(got, want):
+        ref = b.float().abs().max().item()
+        tol = 2e-5 if dtype == "float32" else 2e-2 * ref
+        assert (a.float() - b.float()).abs().max().item() <= tol
+    assert _bwd_kernel_names(dtype, d) == ("flash_dq_kernel_f32<", "flash_dkv_kernel_f32<")
+    _assert_profiled(lambda: flash_attention_bwd(q, k, v, o, lse, do, True),
+                     _bwd_kernel_names(dtype, d))
 
 
 @pytest.mark.cuda
