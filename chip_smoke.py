@@ -16,14 +16,16 @@ Phases (any failure ends the run with a non-zero exit and no result):
    ``flash_dkv_kernel_wide``, ``lstm_fwd_kernel``,
    ``lstm_bwd_kernel`` or ``lstm_dw_kernel``, or an
    f32 ``flash_dq_kernel_tf32x3``, ``flash_dkv_kernel_tf32x3``,
+   ``flash_dq_kernel_wide_tf32x3``, ``flash_dkv_kernel_wide_tf32x3``,
    ``lstm_fwd_kernel``, ``lstm_bwd_kernel`` or ``lstm_dw_kernel``,
    spills registers (``BF16_KERNELS``, ``F32_KERNELS``).
 2. kernels: each kernel's wrapper on card tensors against its plain
    PyTorch version on the same inputs, at the main paths' shapes, at
    larger ones and at ragged ones (t = 200, tq 72 / tk 200, one head of
-   2048; the wide heads of 256, 512 and 1024, ``WIDE_HEAD_CASES`` and
-   ``WIDE_512_CASES``, and the forward alone at [8, 1024, 1024],
-   ``FWD_ONLY_CASES``), with stated tolerances; a forward call must be
+   2048; the wide heads of 256, 512 and 1024, ``WIDE_HEAD_CASES``,
+   ``WIDE_512_CASES`` and ``WIDE_F32_512_CASES``, and the forward alone
+   at [8, 1024, 1024], ``FWD_ONLY_CASES``), with stated tolerances; a
+   forward call must be
    one launch of the kernel its dtype and head take
    (``fwd_kernel_name``: the bf16 heads of 256, 512 and 1024 run
    ``flash_fwd_kernel_wide``), a backward call one launch of each of
@@ -31,7 +33,8 @@ Phases (any failure ends the run with a non-zero exit and no result):
    heads of 256 and 512 run ``flash_dq_kernel_wide`` and
    ``flash_dkv_kernel_wide``, 1024 the SIMT kernels; the f32 heads up
    to 128 ``flash_dq_kernel_tf32x3`` and ``flash_dkv_kernel_tf32x3``,
-   256-1024 the SIMT kernels), and the bf16
+   256 and 512 ``flash_dq_kernel_wide_tf32x3`` and
+   ``flash_dkv_kernel_wide_tf32x3``, 1024 the SIMT kernels), and the bf16
    forward at heads of 64 and 128 is also run and timed at both of its
    tilings (64 and 128 query rows per block), at 1024 at both of the
    wide kernel's (16 and 32); median times beside the
@@ -46,7 +49,13 @@ Phases (any failure ends the run with a non-zero exit and no result):
    each of the two once. The f32 backward rows also print the bound of
    each kernel on the tensor cores in 3xTF32 (``dq_bound_tf32x3_ms``,
    ``dkv_bound_tf32x3_ms``: three TF32 products per f32 one at 495
-   TFLOP/s) beside the f32 CUDA-core bound.
+   TFLOP/s) beside the f32 CUDA-core bound, and each kernel's share of
+   both (the tensor-core kernels may beat the CUDA-core bound: a share
+   of it above 1 is no error). Last, C3 (``flash_bwd_scale4`` lines,
+   printed, not gated): at each head the f32 backward's tensor-core
+   kernels run, on inputs drawn at scale 4 from numpy seeds
+   (``scale4_arrays``: scores of ±60 and more), the kernels' and the
+   plain backward's errors from an f64 backward (``bwd_f64``).
 2b. LSTM kernels: first one call of ``lstm_fwd``'s timed bf16
    instantiation at the training shape, printed as ``lstm_fwd_phases``:
    the mean µs per step (over blocks and steps) of the barrier wait, the
@@ -107,7 +116,10 @@ Phases (any failure ends the run with a non-zero exit and no result):
    gradient agree with the plain attention's within
    ``F32_TRAIN_LOSS_REL`` and ``F32_TRAIN_GRAD_REL``, and its device
    step time and the flash kernels' ms and share of it are printed
-   (``train_f32``).
+   (``train_f32``). Then the same for the wide-head step in f32
+   (``WIDE_F32_TRAIN``: ``WIDE_TRAIN`` in f32, every attention call [32,
+   1024, 256] f32 causal, the backward through the wide 3xTF32 kernels,
+   the forward the SIMT kernel; ``train_wide_f32``).
 5. char-RNN serving at full width: the JAX package's LSTM decode
    benchmark (vocab 64, two GravesLSTM of 512, RnnOutputLayer softmax,
    f32), random weights from a numpy seed, greedy ``generate`` of 128
@@ -237,6 +249,10 @@ WIDE_HEAD_CASES = {dtype: [(dtype, WIDE_HEAD[0], WIDE_HEAD[1], WIDE_HEAD[2],
 # the bf16 wide kernels at d 512, forward and backward, at the same bound
 # as WIDE_HEAD's
 WIDE_512_CASES = [("bfloat16", 512, 16, 1024, 1024, True)]
+# the f32 wide kernels at d 512 (flash_dq_kernel_wide_tf32x3,
+# flash_dkv_kernel_wide_tf32x3; the forward is the SIMT kernel), at the
+# same bound as WIDE_HEAD's
+WIDE_F32_512_CASES = [("float32", 512, 16, 1024, 1024, True)]
 # the bf16 wide forward at d 1024 alone, at the same bound by bytes (bh x
 # d = 8192); the backward at 1024 still runs the SIMT kernels
 FWD_ONLY_CASES = [("bfloat16", 1024, 8, 1024, 1024, True)]
@@ -250,6 +266,15 @@ TRAIN_LOSS_TOL, TRAIN_GRAD_REL = 1e-2, 2e-2
 WIDE_TRAIN = dict(vocab_size=8192, d_model=1024, n_layers=2, num_heads=4,
                   max_len=1024, compute_dtype="bfloat16")
 WIDE_TRAIN_BATCH = 8
+# phase 4's wide step in f32 (the dtype of examples/train_gpt.py
+# --smoke): every attention call [32, 1024, 256] f32 causal, the
+# backward through the wide 3xTF32 kernels; held to F32_TRAIN's bounds
+WIDE_F32_TRAIN = dict(WIDE_TRAIN, compute_dtype="float32")
+# C3 (ROADMAP Queue C): the f32 backward at scores of ±60 and more
+# (scale4_arrays), from an f64 backward, at each head its tensor-core
+# kernels run; the CPU tests measure the JAX package's own f32 error on
+# the same arrays
+SCALE4_HEADS, SCALE4_BH, SCALE4_T = (64, 128, 256, 512), 2, 128
 
 # LSTM kernels vs their plain versions (phase 2b). f32: CUDA-core FMAs
 # (no TF32) against cuBLAS f32, so only the order of the sums differs,
@@ -357,7 +382,7 @@ PORT_KERNELS = {"flash_fwd_kernel": ("flash_fwd",),
 
 def _port_kernel(name: str):
     """The ``PORT_KERNELS`` key of a profiler name, or None."""
-    m = re.search(r"::(\w+?_kernel)(?:_f32|_wide|_tf32x3)?<", name)
+    m = re.search(r"::(\w+?_kernel)(?:_f32|_wide_tf32x3|_wide|_tf32x3)?<", name)
     return m.group(1) if m and m.group(1) in PORT_KERNELS else None
 
 
@@ -521,15 +546,17 @@ def bwd_kernel_names(dtype: str, d: int) -> tuple:
     """The profiled names (up to their template arguments) of the two
     backward kernels that a padded head of ``d`` runs in ``dtype``, as
     ``fwd_kernel_name`` has the forward's: in bf16 the mma.sync kernels
-    up to 128 and the wide ones at 256 and 512, in f32 the 3xTF32
-    kernels up to 128; the f32 heads of 256-1024 and the bf16 heads of
-    1024 still run the SIMT backward."""
+    up to 128 and the wide ones at 256 and 512; in f32 the 3xTF32
+    kernels up to 128 and the wide 3xTF32 ones at 256 and 512; the f32
+    and bf16 heads of 1024 still run the SIMT backward."""
     if dtype == "bfloat16" and d <= 128:
         suffix = ""
     elif dtype == "bfloat16" and d <= 512:
         suffix = "_wide"
     elif dtype == "float32" and d <= 128:
         suffix = "_tf32x3"
+    elif dtype == "float32" and d <= 512:
+        suffix = "_wide_tf32x3"
     else:
         suffix = "_f32"
     return (f"flash_dq_kernel{suffix}<", f"flash_dkv_kernel{suffix}<")
@@ -597,80 +624,159 @@ def bwd_cases():
                       (dtype, d, 8, 72, 200, True), (dtype, d, 1, 2048, 2048, False),
                       (dtype, d, 1, 2048, 2048, True)]
         cases += WIDE_HEAD_CASES[dtype]
-    return cases + WIDE_512_CASES
+    return cases + WIDE_512_CASES + WIDE_F32_512_CASES
+
+
+def bwd_row(torch, F, kernels, flash, g, case, names):
+    """One backward case: flash_dq and flash_dkv against the plain
+    backward on the same (q, k, v, o, lse, dO) (made by ``g``), then the
+    device times of the call, each kernel, the plain version and SDPA's
+    backward beside the bounds. ``names``: the profiled names the call
+    must run (``bwd_kernel_names``) and nothing else, or None to take
+    whatever it runs (another checkout's, for a comparison); the row's
+    ``kernels`` lists the names it ran."""
+    dtype, d, bh, tq, tk, causal = case
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.randn(bh, t, d, generator=g, device="cuda").to(dt)
+                   for t in (tq, tk, tk, tq))
+    o, lse = flash.flash_attention_fwd(q, k, v, causal)
+    blocks = (flash._bwd_block(tq, 1024 if causal else 512),
+              flash._bwd_block(tk, 1024))
+    kernels.reset_launches()
+    got = flash.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    tag = f"{dtype} d{d} bh{bh} tq{tq} tk{tk} causal={causal}"
+    launched = dict(kernels.LAUNCHES)
+    _check(launched == {flash.DQ_KERNEL: 1, flash.DKV_KERNEL: 1},
+           f"flash bwd {tag}: one call launched {launched}")
+    want = flash.flash_attention_bwd_plain(q, k, v, o, lse, do, causal,
+                                           *blocks)
+    errs = {}
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        _check(bool(torch.isfinite(a.float()).all()), f"finite {name}")
+        err = (a.float() - b.float()).abs().max().item()
+        ref = b.float().abs().max().item()
+        tol = BWD_TOL_F32 if dtype == "float32" else BWD_REL_BF16 * ref
+        _check(err <= tol, f"flash bwd {name} {tag}: err {err} > tol {tol}")
+        errs[name] = err
+    kernel = lambda: flash.flash_attention_bwd(  # noqa: E731
+        q, k, v, o, lse, do, causal)
+    plain = lambda: flash.flash_attention_bwd_plain(  # noqa: E731
+        q, k, v, o, lse, do, causal, *blocks)
+    # SDPA's backward as a yardstick: its fwd+bwd device time less
+    # its fwd time, on [1, bh, t, d] (is_causal where tq == tk, which
+    # lets it pick its flash backend; an explicit mask otherwise)
+    qs_, ks_, vs_ = (z[None].detach().requires_grad_() for z in (q, k, v))
+    mask = None
+    if causal and tq != tk:
+        mask = torch.ones(tq, tk, dtype=torch.bool, device="cuda").tril(tk - tq)
+    lib_kw = dict(attn_mask=mask, is_causal=causal and mask is None)
+    lib_fwd = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qs_, ks_, vs_, **lib_kw)
+    lib_fb = lambda: torch.autograd.grad(  # noqa: E731
+        lib_fwd(), (qs_, ks_, vs_), do[None])
+    times = _device_times(torch, kernel, 10)
+    # the whole call is one launch of each of the two kernels that
+    # this dtype and head take
+    _check(names is None
+           or (all(any(n in name for n in names) for name in times)
+               and all(any(n in name for name in times) for n in names)),
+           f"flash_bwd call {tag} ran {sorted(times)}, not {names}")
+    dq_bound = _flash_bwd_bound(bh, tq, tk, d, causal, dtype, 6 * d, 1)
+    dkv_bound = _flash_bwd_bound(bh, tq, tk, d, causal, dtype, 8 * d, 2)
+    row = dict(dtype=dtype, bh=bh, tq=tq, tk=tk, d=d, causal=causal,
+               err_dq=errs["dq"], err_dk=errs["dk"], err_dv=errs["dv"],
+               ms=_sum_ms(times),
+               dq_kernel_only_ms=_sum_ms(times, "flash_dq_kernel"),
+               dkv_kernel_only_ms=_sum_ms(times, "flash_dkv_kernel"),
+               plain_ms=_device_ms(torch, plain, 2),
+               library_ms=(_device_ms(torch, lib_fb, 10)
+                           - _device_ms(torch, lib_fwd, 10)),
+               dq_bound_ms=dq_bound[0], dq_bound_by=dq_bound[1],
+               dkv_bound_ms=dkv_bound[0], dkv_bound_by=dkv_bound[1],
+               call_ms=_time_ms(torch, kernel, 10),
+               plain_call_ms=_time_ms(torch, plain, 2, warmup=1),
+               kernels=sorted(times))
+    if dtype == "float32":
+        # the bound on the tensor cores in 3xTF32 beside the f32 CUDA-core
+        # one, and each kernel's share of both: the 3xTF32 kernels may beat
+        # the CUDA-core bound (a share of it above 1 is no error)
+        for key, flops, n_out in (("dq", 6 * d, 1), ("dkv", 8 * d, 2)):
+            ms, by = _flash_bwd_bound_tf32x3(bh, tq, tk, d, causal, flops, n_out)
+            row[f"{key}_bound_tf32x3_ms"], row[f"{key}_bound_tf32x3_by"] = ms, by
+            row[f"{key}_bound_tf32x3_share"] = ms / row[f"{key}_kernel_only_ms"]
+            row[f"{key}_bound_share"] = (row[f"{key}_bound_ms"]
+                                         / row[f"{key}_kernel_only_ms"])
+    return row
 
 
 def phase_bwd_kernels(torch, F, kernels, flash):
     """Phase 2, backward: flash_dq and flash_dkv against the plain
-    backward on the same (q, k, v, o, lse, dO)."""
+    backward on the same (q, k, v, o, lse, dO), each call running the
+    two kernels of ``bwd_kernel_names``."""
     rows = []
     g = torch.Generator(device="cuda").manual_seed(4321)
-    for dtype, d, bh, tq, tk, causal in bwd_cases():
-        dt = getattr(torch, dtype)
-        q, k, v, do = (torch.randn(bh, t, d, generator=g, device="cuda").to(dt)
-                       for t in (tq, tk, tk, tq))
-        o, lse = flash.flash_attention_fwd(q, k, v, causal)
-        blocks = (flash._bwd_block(tq, 1024 if causal else 512),
-                  flash._bwd_block(tk, 1024))
-        kernels.reset_launches()
-        got = flash.flash_attention_bwd(q, k, v, o, lse, do, causal)
-        torch.cuda.synchronize()
-        tag = f"{dtype} d{d} bh{bh} tq{tq} tk{tk} causal={causal}"
-        launched = dict(kernels.LAUNCHES)
-        _check(launched == {flash.DQ_KERNEL: 1, flash.DKV_KERNEL: 1},
-               f"flash bwd {tag}: one call launched {launched}")
-        want = flash.flash_attention_bwd_plain(q, k, v, o, lse, do, causal,
-                                               *blocks)
-        errs = {}
-        for name, a, b in zip(("dq", "dk", "dv"), got, want):
-            _check(bool(torch.isfinite(a.float()).all()), f"finite {name}")
-            err = (a.float() - b.float()).abs().max().item()
-            ref = b.float().abs().max().item()
-            tol = BWD_TOL_F32 if dtype == "float32" else BWD_REL_BF16 * ref
-            _check(err <= tol, f"flash bwd {name} {tag}: err {err} > tol {tol}")
-            errs[name] = err
-        kernel = lambda: flash.flash_attention_bwd(  # noqa: E731
-            q, k, v, o, lse, do, causal)
-        plain = lambda: flash.flash_attention_bwd_plain(  # noqa: E731
-            q, k, v, o, lse, do, causal, *blocks)
-        # SDPA's backward as a yardstick: its fwd+bwd device time less
-        # its fwd time, on [1, bh, t, d] (is_causal where tq == tk, which
-        # lets it pick its flash backend; an explicit mask otherwise)
-        qs_, ks_, vs_ = (z[None].detach().requires_grad_() for z in (q, k, v))
-        mask = None
-        if causal and tq != tk:
-            mask = torch.ones(tq, tk, dtype=torch.bool, device="cuda").tril(tk - tq)
-        lib_kw = dict(attn_mask=mask, is_causal=causal and mask is None)
-        lib_fwd = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qs_, ks_, vs_, **lib_kw)
-        lib_fb = lambda: torch.autograd.grad(  # noqa: E731
-            lib_fwd(), (qs_, ks_, vs_), do[None])
-        times = _device_times(torch, kernel, 10)
-        # the whole call is one launch of each of the two kernels that
-        # this dtype and head take
-        names = bwd_kernel_names(dtype, d)
-        _check(all(any(n in name for n in names) for name in times)
-               and all(any(n in name for name in times) for n in names),
-               f"flash_bwd call {tag} ran {sorted(times)}, not {names}")
-        dq_bound = _flash_bwd_bound(bh, tq, tk, d, causal, dtype, 6 * d, 1)
-        dkv_bound = _flash_bwd_bound(bh, tq, tk, d, causal, dtype, 8 * d, 2)
-        row = dict(dtype=dtype, bh=bh, tq=tq, tk=tk, d=d, causal=causal,
-                   err_dq=errs["dq"], err_dk=errs["dk"], err_dv=errs["dv"],
-                   ms=_sum_ms(times),
-                   dq_kernel_only_ms=_sum_ms(times, "flash_dq_kernel"),
-                   dkv_kernel_only_ms=_sum_ms(times, "flash_dkv_kernel"),
-                   plain_ms=_device_ms(torch, plain, 2),
-                   library_ms=(_device_ms(torch, lib_fb, 10)
-                               - _device_ms(torch, lib_fwd, 10)),
-                   dq_bound_ms=dq_bound[0], dq_bound_by=dq_bound[1],
-                   dkv_bound_ms=dkv_bound[0], dkv_bound_by=dkv_bound[1],
-                   call_ms=_time_ms(torch, kernel, 10),
-                   plain_call_ms=_time_ms(torch, plain, 2, warmup=1))
-        if dtype == "float32":
-            for key, flops, n_out in (("dq", 6 * d, 1), ("dkv", 8 * d, 2)):
-                ms, by = _flash_bwd_bound_tf32x3(bh, tq, tk, d, causal, flops, n_out)
-                row[f"{key}_bound_tf32x3_ms"], row[f"{key}_bound_tf32x3_by"] = ms, by
+    for case in bwd_cases():
+        row = bwd_row(torch, F, kernels, flash, g, case,
+                      bwd_kernel_names(case[0], case[1]))
         print("flash_bwd " + json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
+def scale4_arrays(np, d):
+    """C3's inputs at a head of ``d``: q, k, v and dO [SCALE4_BH,
+    SCALE4_T, d] f32, 4 x standard normal from the numpy seed 4000 + d
+    (scores of ±60 and more). The CPU tests draw the same arrays for the
+    JAX package's own f32 error."""
+    rng = np.random.default_rng(4000 + d)
+    return [(4.0 * rng.standard_normal((SCALE4_BH, SCALE4_T, d))).astype(np.float32)
+            for _ in range(4)]
+
+
+def bwd_f64(torch, q, k, v, do, causal):
+    """(dq, dk, dv) in f64 of o = softmax(qs k^T) v on [bh, t, d] inputs
+    (qs = q times 1/sqrt(d) rounded to f32, the port's pre-scale factor),
+    dense: C3's reference, on any device."""
+    q, k, v, do = (x.double() for x in (q, k, v, do))
+    tq, tk, d = q.shape[1], k.shape[1], q.shape[2]
+    c = torch.tensor(1.0 / d ** 0.5, dtype=torch.float32).item()
+    qs = q * c
+    s = qs @ k.transpose(1, 2)
+    if causal:
+        rows = torch.arange(tq, device=q.device)[:, None] + (tk - tq)
+        s = s.masked_fill(rows < torch.arange(tk, device=q.device)[None], float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    ds = p * (do @ v.transpose(1, 2) - (do * (p @ v)).sum(-1, keepdim=True))
+    return c * (ds @ k), ds.transpose(1, 2) @ qs, p.transpose(1, 2) @ do
+
+
+def rel_errors(got, ref):
+    """max |got - ref| / max |ref| of each output, as floats."""
+    return [((a.double() - r).abs().max() / r.abs().max()).item()
+            for a, r in zip(got, ref)]
+
+
+def phase_scale4(torch, np, flash):
+    """Phase 2, C3: at each head the f32 backward's tensor-core kernels
+    run (``SCALE4_HEADS``), on ``scale4_arrays`` (causal), the errors
+    from ``bwd_f64`` of the kernels (after the port's f32 forward) and
+    of the plain f32 backward on the same o and lse, relative to max
+    |ref| (``scripts/flash_bwd_rows.py`` prints them for another
+    checkout's port). Printed, not gated here: the card tests hold the
+    kernels at heads 256 and 512 to twice the JAX package's own f32
+    error on these arrays."""
+    rows = []
+    for d in SCALE4_HEADS:
+        q, k, v, do = (torch.tensor(a, device="cuda") for a in scale4_arrays(np, d))
+        ref = bwd_f64(torch, q, k, v, do, True)
+        o, lse = flash.flash_attention_fwd(q, k, v, True)
+        row = dict(d=d, bh=SCALE4_BH, t=SCALE4_T, causal=True,
+                   kernels=rel_errors(flash.flash_attention_bwd(q, k, v, o, lse, do, True),
+                                      ref),
+                   plain=rel_errors(flash.flash_attention_bwd_plain(
+                       q, k, v, o, lse, do, True), ref))
+        print("flash_bwd_scale4 " + json.dumps(row), flush=True)
         rows.append(row)
     return rows
 
@@ -691,7 +797,7 @@ def fwd_cases():
                       (dtype, d, 8, 72, 200, True), (dtype, d, 1, 2048, 2048, False),
                       (dtype, d, 1, 2048, 2048, True)]
         cases += WIDE_HEAD_CASES[dtype]
-    return cases + WIDE_512_CASES + FWD_ONLY_CASES
+    return cases + WIDE_512_CASES + WIDE_F32_512_CASES + FWD_ONLY_CASES
 
 
 def fwd_row(torch, F, flash, g, case, kernel):
@@ -985,6 +1091,7 @@ def phase_train(torch, np, kernels, flash):
     del net
     metrics["wide_head"] = phase_train_wide(torch, np, kernels, flash)
     metrics["f32"] = phase_train_f32(torch, np, kernels, flash)
+    metrics["wide_f32"] = phase_train_f32(torch, np, kernels, flash, "train_wide_f32")
     return launches, metrics
 
 
@@ -1038,23 +1145,30 @@ def phase_train_wide(torch, np, kernels, flash):
     return metrics
 
 
-def f32_step(torch, np, kernels, flash):
-    """One ``gradient_and_score`` of ``F32_TRAIN`` (random weights and ids
-    from numpy seeds, labels the ids rolled by one) through ``flash``'s
-    kernels, then the same step with its plain versions on the card.
-    Returns (net, ds, the kernels' step's launches, loss, plain loss,
-    worst gradient rel L2, where); ``scripts/f32_train_step.py`` runs it
-    on another checkout's port."""
+# phase 4's f32 steps: (configuration, batch, weight seed, id seed)
+F32_STEPS = {"train_f32": (F32_TRAIN, TRAIN_BATCH, 15, 16),
+             "train_wide_f32": (WIDE_F32_TRAIN, WIDE_TRAIN_BATCH, 13, 14)}
+
+
+def f32_step(torch, np, kernels, flash, step="train_f32"):
+    """One ``gradient_and_score`` of an f32 step of ``F32_STEPS``
+    (``train_f32``: ``F32_TRAIN``; ``train_wide_f32``: ``WIDE_F32_TRAIN``,
+    with the wide bf16 step's seeds; random weights and ids from numpy
+    seeds, labels the ids rolled by one) through ``flash``'s kernels,
+    then the same step with its plain versions on the card. Returns
+    (net, ds, the kernels' step's launches, loss, plain loss, worst
+    gradient rel L2, where); ``scripts/f32_train_step.py`` runs it on
+    another checkout's port."""
     from deeplearning4j_tpu_torch.datasets.dataset import DataSet
     from deeplearning4j_tpu_torch.models.zoo.transformer import gpt
     from deeplearning4j_tpu_torch.nn.layers import transformer
     from deeplearning4j_tpu_torch.util.model_serializer import params_from_numpy
 
-    t = F32_TRAIN["max_len"]
-    net = gpt(**F32_TRAIN).init()
-    params_from_numpy(net, _random_params(net, seed=15))
-    ids = np.random.default_rng(16).integers(0, F32_TRAIN["vocab_size"],
-                                             (TRAIN_BATCH, t))
+    conf, batch, weight_seed, id_seed = F32_STEPS[step]
+    t = conf["max_len"]
+    net = gpt(**conf).init()
+    params_from_numpy(net, _random_params(net, seed=weight_seed))
+    ids = np.random.default_rng(id_seed).integers(0, conf["vocab_size"], (batch, t))
     ds = DataSet(ids.astype(np.float32),
                  np.roll(ids, -1, axis=1).astype(np.float32))
     torch.cuda.synchronize()
@@ -1068,32 +1182,38 @@ def f32_step(torch, np, kernels, flash):
     return net, ds, launches, loss, loss_p, worst, at
 
 
-def phase_train_f32(torch, np, kernels, flash):
-    """Phase 4's f32 step (``F32_TRAIN``: the training width in f32, every
-    attention call [128, 1024, 64] f32 causal; ``f32_step``): each flash
+def phase_train_f32(torch, np, kernels, flash, step="train_f32"):
+    """Phase 4's f32 steps (``f32_step``): ``train_f32``, the training
+    width in f32 (every attention call [128, 1024, 64] f32 causal, the
+    backward through the 3xTF32 kernels), and ``train_wide_f32``, the
+    wide-head step in f32 (every attention call [32, 1024, 256] f32
+    causal, the backward through the wide 3xTF32 kernels). Each flash
     kernel launches once per block, and the step's backward runs only
-    the 3xTF32 kernels (``bwd_kernel_names``); the loss and every
-    gradient against the same step with the plain attention
+    the kernels of ``bwd_kernel_names``; the loss and every gradient
+    against the same step with the plain attention
     (``F32_TRAIN_LOSS_REL``, ``F32_TRAIN_GRAD_REL``); the step's device
-    time and the flash kernels' ms per step and share of it."""
-    t, layers, heads = F32_TRAIN["max_len"], F32_TRAIN["n_layers"], F32_TRAIN["num_heads"]
-    d_head = F32_TRAIN["d_model"] // heads
-    net, ds, launches, loss, loss_p, worst, at = f32_step(torch, np, kernels, flash)
+    time, the flash kernels' ms per step and share of it (the forward,
+    ``flash_fwd_kernel_f32``, on the CUDA cores) are printed as a line
+    named ``step``."""
+    conf, batch = F32_STEPS[step][:2]
+    t, layers, heads = conf["max_len"], conf["n_layers"], conf["num_heads"]
+    d_head = conf["d_model"] // heads
+    net, ds, launches, loss, loss_p, worst, at = f32_step(torch, np, kernels, flash, step)
     for name in (flash.KERNEL, flash.DQ_KERNEL, flash.DKV_KERNEL):
         _check(launches.get(name, 0) == layers,
-               f"{name} launched {launches.get(name, 0)} times in one f32 "
+               f"{name} launched {launches.get(name, 0)} times in one {step} "
                f"step, expected {layers}: {launches}")
     loss_rel = abs(loss - loss_p) / abs(loss_p)
     _check(loss_rel <= F32_TRAIN_LOSS_REL,
-           f"f32 loss kernels {loss} vs plain {loss_p}: rel {loss_rel}")
+           f"{step} loss kernels {loss} vs plain {loss_p}: rel {loss_rel}")
     _check(worst <= F32_TRAIN_GRAD_REL,
-           f"f32 grad {at} kernels vs plain: rel L2 {worst}")
+           f"{step} grad {at} kernels vs plain: rel L2 {worst}")
     per_step = _device_times(torch, lambda: net.gradient_and_score(ds), 3)
     names = bwd_kernel_names("float32", d_head)
     ran = [n for n in per_step if "flash_dq_kernel" in n or "flash_dkv_kernel" in n]
     _check(all(any(k in n for k in names) for n in ran)
            and all(any(k in n for n in ran) for k in names),
-           f"the f32 step's backward ran {ran}, not {names}")
+           f"the {step} step's backward ran {ran}, not {names}")
     step_ms = _sum_ms(per_step)
     flash_ms = {m: _sum_ms(per_step, m) for m in (
         "flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")}
@@ -1105,9 +1225,10 @@ def phase_train_f32(torch, np, kernels, flash):
                    flash_share={m: ms / step_ms for m, ms in flash_ms.items()},
                    backward_pair_share=(flash_ms["flash_dq_kernel"]
                                         + flash_ms["flash_dkv_kernel"]) / step_ms,
-                   shape=[TRAIN_BATCH * heads, t, d_head],
+                   backward_kernels=sorted(ran),
+                   shape=[batch * heads, t, d_head],
                    top_kernels_ms_per_step=[[k[:90], ms] for k, ms in top])
-    print("train_f32 " + json.dumps(metrics), flush=True)
+    print(f"{step} " + json.dumps(metrics), flush=True)
     return metrics
 
 
@@ -2115,7 +2236,9 @@ BF16_KERNELS = {"flash_fwd": ("flash_fwd_kernel", "flash_fwd_kernel_wide"),
 # and backward keep their register tiles, streams and carries in
 # registers too, and the 3xTF32 flash backward its accumulators and
 # split fragments
-F32_KERNELS = {"flash_bwd": ("flash_dq_kernel_tf32x3", "flash_dkv_kernel_tf32x3"),
+F32_KERNELS = {"flash_bwd": ("flash_dq_kernel_tf32x3", "flash_dkv_kernel_tf32x3",
+                             "flash_dq_kernel_wide_tf32x3",
+                             "flash_dkv_kernel_wide_tf32x3"),
                "lstm_fwd": ("lstm_fwd_kernel",),
                "lstm_bwd": ("lstm_bwd_kernel", "lstm_dw_kernel")}
 
@@ -2197,6 +2320,7 @@ def main(argv) -> int:
         done["2bwd"] = phase_bwd_kernels(torch, F, kernels, flash)
         print(f"phase 2: {len(done['2bwd'])} flash_dq/flash_dkv cases within "
               "tolerance", flush=True)
+        done["2scale4"] = phase_scale4(torch, np, flash)
     if "2b" in phases:
         print(f"clocks: {_clocks()}", flush=True)
         phase_lstm_timer(torch, lk)
@@ -2220,10 +2344,11 @@ def main(argv) -> int:
         print(f"phase 4: wide-head (256) step {w['step_device_ms']:.3f} device ms, "
               f"wide flash kernels {w['wide_kernels_share']:.3f} of it, "
               f"within tolerance of the plain attention on {card}", flush=True)
-        w = m["f32"]
-        print(f"phase 4: f32 step {w['step_device_ms']:.3f} device ms, flash "
-              f"backward pair {w['backward_pair_share']:.3f} of it, within "
-              f"tolerance of the plain attention on {card}", flush=True)
+        for key, what in (("f32", "f32 step"), ("wide_f32", "wide-head (256) f32 step")):
+            w = m[key]
+            print(f"phase 4: {what} {w['step_device_ms']:.3f} device ms, flash "
+                  f"backward pair {w['backward_pair_share']:.3f} of it, within "
+                  f"tolerance of the plain attention on {card}", flush=True)
     if "5" in phases:  # char-RNN serving at full width
         print(f"clocks: {_clocks()}", flush=True)
         done["5"] = phase_char_serve(torch, np, kernels, lk)
@@ -2315,16 +2440,20 @@ def _flash_summary(done):
                    and r["d"] == d_head and r["tq"] == TRAIN["max_len"]
                    and r["tk"] == TRAIN["max_len"] and r["causal"]
                    and r["bh"] == train_bh)
-    f32_train = done["4"][1]["f32"]
+    f32_wide_bwd = next(r for r in bwd_rows if r["dtype"] == "float32"
+                        and r["d"] == WIDE_HEAD[0] and r["bh"] == WIDE_HEAD[1]
+                        and r["tq"] == r["tk"] == WIDE_HEAD[2] and r["causal"])
+    f32_train, f32_wide_train = done["4"][1]["f32"], done["4"][1]["wide_f32"]
 
-    def f32(name, key, grads):
-        """the f32 backward at the training shape ([128, 1024, 64] causal,
-        the 3xTF32 kernels) as phase 4's f32 step runs it: this kernel's
-        time beside the whole call, the plain version and the library call
-        (both the whole backward), and its bound on the CUDA cores (f32)
-        and on the tensor cores in 3xTF32, with their shares"""
-        r, ms = f32_bwd, f32_bwd[f"{key}_kernel_only_ms"]
-        return {"kernel": f"{name}_kernel_tf32x3", "ms": ms, "backward_ms": r["ms"],
+    def f32(name, key, grads, r=f32_bwd, train=f32_train, suffix="_tf32x3"):
+        """the f32 backward as one of phase 4's f32 steps runs it (by
+        default at the training shape, [128, 1024, 64] causal, the 3xTF32
+        kernels): this kernel's time beside the whole call, the plain
+        version and the library call (both the whole backward), its bound
+        on the CUDA cores (f32) and on the tensor cores in 3xTF32 with
+        their shares, and the step's launches"""
+        ms = r[f"{key}_kernel_only_ms"]
+        return {"kernel": f"{name}_kernel{suffix}", "ms": ms, "backward_ms": r["ms"],
                 "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
                 "max_abs_err": max(r[f"err_{g}"] for g in grads),
                 "bound_ms": r[f"{key}_bound_ms"], "bound_by": r[f"{key}_bound_by"],
@@ -2332,7 +2461,7 @@ def _flash_summary(done):
                 "bound_tf32x3_ms": r[f"{key}_bound_tf32x3_ms"],
                 "bound_tf32x3_by": r[f"{key}_bound_tf32x3_by"],
                 "bound_tf32x3_share": r[f"{key}_bound_tf32x3_ms"] / ms,
-                "launches": f32_train["launches"].get(name, 0),
+                "launches": train["launches"].get(name, 0),
                 "shape": [r["bh"], r["tq"], r["d"]]}
 
     fwd_wide, bwd_wide = (wide_row(rs, *WIDE_HEAD) for rs in (rows, bwd_rows))
@@ -2366,6 +2495,7 @@ def _flash_summary(done):
         | {"ms_by_block_q": fwd_1024["kernel_only_ms_by_block_q"]},
         "wide_train_launches": wide_train["launches"].get(flash.KERNEL, 0),
         "f32_train_launches": f32_train["launches"].get(flash.KERNEL, 0),
+        "wide_f32_train_launches": f32_wide_train["launches"].get(flash.KERNEL, 0),
     }] + [{
         "name": name, "route": "cuda", "source": SRC + "flash_bwd.cu",
         "replaces": f"deeplearning4j_tpu/ops/flash_attention.py:{line}",
@@ -2394,6 +2524,10 @@ def _flash_summary(done):
         | {"backward_ms": bwd_512["ms"]},
         "wide_train_launches": wide_train["launches"].get(name, 0),
         "f32": f32(name, key, grads),
+        # the wide f32 step's shape, [32, 1024, 256] causal: the wide 3xTF32
+        # kernels
+        "wide_head_f32": f32(name, key, grads, f32_wide_bwd, f32_wide_train,
+                             "_wide_tf32x3"),
     } for name, line, key, grads in (
         (flash.DQ_KERNEL, 220, "dq", ("dq",)),
         (flash.DKV_KERNEL, 252, "dkv", ("dk", "dv")))]

@@ -150,22 +150,60 @@
 // - p = expf(s - lse), as the SIMT kernels and the plain version;
 //   registers 147-254, 0 spills (chip_smoke.py phase 1).
 //
+// The f32 kernels of heads 256 and 512 (flash_dq_kernel_wide_tf32x3,
+// flash_dkv_kernel_wide_tf32x3; 129-512 zero-padded to them) take the
+// wide bf16 kernels' structure in f32, with the 3xTF32 tools of the
+// kernels above, which do not stretch to these heads: 128 resident f32
+// rows of two matrices take 266 KB at d = 256, and a warp owning all
+// the columns of dq would hold 128 accumulator registers on top of the
+// ~140 that d = 128 takes. What bounds them at [32, 1024, 256] f32
+// causal: the same work as [128, 1024, 64], 0.156 ms (dq) and 0.208 ms
+// (dk/dv) in 3xTF32 at 495 TFLOP/s. So:
+// - 8 warps a block; a row group (dq) or key group (dkv) of 16 rows has
+//   WP = d / 128 warps, each owning 128 of the head's columns (64
+//   accumulator registers of dq, 64 + 64 of dk and dv); 64 resident rows
+//   a block at 256 and 32 at 512 (130 KB), ring tiles of 16 rows at 256
+//   and 8 at 512 in two cp.async stages (65 KB); one block an SM;
+// - the scores are not taken on the tensor cores: each is one fma chain
+//   over the head's columns in order on the CUDA cores, bit for bit the
+//   score of flash_fwd_kernel_f32 from which lse came, so that s - lse
+//   cancels the forward's rounding of s as in the reference, whose two
+//   passes compute s alike. At scores of ±60 (ROADMAP C3) a score from
+//   the tensor cores, even an exact one, differs from the forward's by
+//   the forward's own roundings, and the exponential carries that to
+//   several times the reference's error. The group's 32 WP threads share
+//   its 16 x T scores (2 x 2 each at 256, one each at 512, a warp's lanes
+//   on shared rows so that their reads broadcast) and leave them in
+//   shared memory;
+// - dP is a product over the warp's own columns in 3xTF32 (A by ldmatrix
+//   of the resident rows, B by ldmatrix of the ring tile), each four
+//   depth steps of it in a zeroed partial added with a rounded add; the
+//   group's partials meet in shared memory under its named barrier, and
+//   every warp sums them in the order of their columns, so all hold the
+//   same dP (no atomics: deterministic); one exchange a tile, whose
+//   buffers' reuse the block's barrier of the next tile orders;
+// - dq += ds K, dv += p^T dO and dk += ds^T qs over the warp's columns in
+//   3xTF32, with the accumulators as A fragments (the permuted depth of
+//   the kernels above), each 8-column tile summed over the ring tile in
+//   a zeroed partial added with one rounded add;
+// - every warp of a row group sums delta over the whole row alike, and
+//   the first writes it; the causal tiles with the most work go first;
+//   masks are evaluated only on tiles that cross the diagonal, tq or
+//   tk; 0 spills (chip_smoke.py phase 1).
+//
 // The SIMT kernels (flash_dq_kernel_f32, flash_dkv_kernel_f32) are on no
 // main path and were not redesigned: the first version's CUDA-core FMAs
 // through shared memory in f32 (full f32 precision, no TF32), taking the
 // unscaled q and multiplying it by the scale as they load it (one
 // rounding, the torch product), and, in flash_dq, computing and writing
-// delta as the bf16 kernel does. They run the f32 heads of 256, 512 and
-// 1024 (129-1024 are zero-padded to them) and the bf16 heads of 1024
-// (513-1024). Their
-// tiles are template parameters (simt_tile, flash_common.cuh): flash_dq
-// 32 x 32 at 256, 16 x 16 at 512, 8 x 8 at 1024
-// (~177, ~168 and ~161 KB of shared memory); flash_dkv 32 keys and
-// 16-query steps at 256, 16 and 8 at 512, 8 and 4
-// at 1024 (~173, ~167 and ~161 KB). Their global loads and stores
-// are templated on the element type: bf16 is widened on load, and p and
-// ds are rounded to bf16 before their products, as the reference rounds
-// them. Correct, slow first kernels for those heads: nothing was tuned.
+// delta as the bf16 kernel does. They run the f32 and the bf16 heads of
+// 1024 (513-1024 are zero-padded to it), with 8 x 8 tiles in flash_dq
+// and 8 keys and 4-query steps in flash_dkv (simt_tile,
+// flash_common.cuh; ~161 KB of shared memory). Their global loads and
+// stores are templated on the element type: bf16 is widened on load, and
+// p and ds are rounded to bf16 before their products, as the reference
+// rounds them. Correct, slow first kernels for those heads: nothing was
+// tuned.
 //
 // Exposed as plain C functions so that no PyTorch header is compiled.
 
@@ -1410,6 +1448,514 @@ int launch_dkv_tf32x3(const void* q, const void* k, const void* v, const void* d
   return (int)cudaGetLastError();
 }
 
+// ------------------------------- the f32 kernels at heads 256 and 512
+
+// flash_dq_kernel_wide_tf32x3 and flash_dkv_kernel_wide_tf32x3: the wide
+// bf16 kernels' structure (warps that share rows split the head's
+// columns) in f32. 8 warps a block; a row group (dq: 16 query rows) or
+// key group (dkv: 16 keys) has WP = D / 128 warps, each owning DW = 128
+// of the head's columns (its share of dP, and its columns of dq, or of
+// dk and dv: 64 or 128 accumulator registers). 128 rows of f32 would not
+// fit shared memory at 256 (266 KB), so a block holds 64 resident rows at
+// 256 and 32 at 512 (two matrices, 130 KB), and the ring's tiles are 16
+// rows at 256 and 8 at 512 in two stages (65 KB).
+template <int D>
+struct WideTf32Tiles {
+  static constexpr int WP = D / 128;          // warps to a row or key group
+  static constexpr int DW = 128;              // head columns a warp
+  static constexpr int NT = 256;              // 8 warps
+  static constexpr int ROWS = 16 * (8 / WP);  // resident rows a block: 64 at 256, 32 at 512
+  static constexpr int T = WP == 2 ? 16 : 8;  // rows a ring tile: keys (dq), queries (dkv)
+  static constexpr int NT8 = T / 8;           // 8-row tiles in it
+  static constexpr int STAGES = 2;
+  static constexpr int KC = 4;  // depth steps of 8 columns a zeroed partial of dP sums
+  static constexpr int LD = D + 4;  // f32 row stride in words: 4 (mod 32), as Tf32Tiles'
+  // the resident rows (two matrices), then STAGES tiles of two
+  static constexpr size_t rows_bytes = sizeof(float) * (size_t)(2 * ROWS + 2 * STAGES * T) * LD;
+  // then each group's 16 x T scores and each thread's partial dP
+  static constexpr size_t s_bytes = sizeof(float) * (size_t)ROWS * T;
+  static constexpr size_t dq_bytes = rows_bytes + s_bytes + sizeof(float4) * NT * NT8;
+  // flash_dkv: then STAGES tiles of lse and of delta
+  static constexpr size_t dkv_bytes = dq_bytes + sizeof(float) * 2 * STAGES * T;
+  static_assert(D == 256 || D == 512, "the wide 3xTF32 kernels take heads of 256 and 512");
+  static_assert(dkv_bytes <= SMEM_LIMIT, "wide 3xTF32 layout exceeds shared memory");
+};
+
+// The 16 x T scores of a group (dq: its query rows a against the key
+// tile b; dkv: its keys a against the query tile b; rows of the whole
+// head, leading dimension LD) on the CUDA cores, each one fma chain over
+// the head's columns 0 .. D - 1 from 0: the order, and so the bits, of
+// flash_fwd_kernel_f32's scores, from which the forward took lse. Then s
+// - lse holds no rounding of s that the forward's lse does not hold too,
+// as in the reference, whose two passes compute s alike (a score of the
+// tensor cores differs from the forward's by its own roundings, and at
+// scores of ±40 the exponential carried that to several times the
+// reference's error). The group's 32 WP threads (t: the thread's index
+// in its group) take 2 x 2 scores each at WP = 2 (rows t % 8 and t % 8 +
+// 8, columns t / 8 and t / 8 + 8: a warp's eight rows of one read lie 4
+// banks apart, so they read without conflicts; rows 2 r and 2 r + 1 took
+// a sixth longer at [32, 1024, 256] on the H100) and one each at WP = 4,
+// a warp's lanes sharing rows so that their reads broadcast, and write
+// them to St (row-major, [16][T]).
+template <int D, int LD, int T, int WP>
+__device__ __forceinline__ void scores_fwd_order(float* St, const float* a, const float* b,
+                                                 int t) {
+  constexpr int RB = WP == 2 ? 2 : 1;  // rows and columns a thread
+  static_assert(16 * T == 32 * WP * RB * RB, "every score once");
+  const int r = RB == 2 ? t % 8 : t / T;
+  const int col = RB == 2 ? t / 8 : t % T;
+  float s[RB][RB] = {};
+#pragma unroll 2
+  for (int i = 0; i < D; i += 4) {
+    float4 x[RB], y[RB];
+#pragma unroll
+    for (int u = 0; u < RB; ++u) {
+      x[u] = *reinterpret_cast<const float4*>(a + (r + 8 * u) * LD + i);
+      y[u] = *reinterpret_cast<const float4*>(b + (col + 8 * u) * LD + i);
+    }
+#pragma unroll
+    for (int u = 0; u < RB; ++u) {
+#pragma unroll
+      for (int w = 0; w < RB; ++w) {
+        s[u][w] = fmaf(x[u].x, y[w].x, s[u][w]);
+        s[u][w] = fmaf(x[u].y, y[w].y, s[u][w]);
+        s[u][w] = fmaf(x[u].z, y[w].z, s[u][w]);
+        s[u][w] = fmaf(x[u].w, y[w].w, s[u][w]);
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < RB; ++u) {
+#pragma unroll
+    for (int w = 0; w < RB; ++w) St[(r + 8 * u) * T + col + 8 * w] = s[u][w];
+  }
+}
+
+// x = a b^T over a warp's DW head columns in 3xTF32: a its 16 rows (A by
+// ldmatrix, split as read), b the 8 NT8 rows of the tile (B by ldmatrix;
+// at NT8 = 1 one ldmatrix serves two depth steps). Each KC depth steps sum
+// in a zeroed partial, added to x with rounded adds.
+template <int LD, int DW, int NT8, int KC>
+__device__ __forceinline__ void product_tf32x3(float (&x)[NT8][4], const float* a,
+                                               const float* b, int lane) {
+#pragma unroll
+  for (int n = 0; n < NT8; ++n) x[n][0] = x[n][1] = x[n][2] = x[n][3] = 0.f;
+#pragma unroll
+  for (int k0 = 0; k0 < DW / 8; k0 += KC) {
+    float part[NT8][4] = {};
+#pragma unroll
+    for (int kk = k0; kk < k0 + KC; kk += 2) {
+      FragA fa[2];
+      load_a_tf32<LD>(fa[0], a, kk, lane);
+      load_a_tf32<LD>(fa[1], a, kk + 1, lane);
+      if constexpr (NT8 == 2) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          FragB fb[2];
+          load_bt_tf32<LD>(fb, b, 0, kk + h, lane);
+          mma_tf32x3(part[0], fa[h], fb[0]);
+          mma_tf32x3(part[1], fa[h], fb[1]);
+        }
+      } else {
+        FragB fb[2];
+        load_bt8_tf32<LD>(fb, b, kk, lane);
+        mma_tf32x3(part[0], fa[0], fb[0]);
+        mma_tf32x3(part[0], fa[1], fb[1]);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NT8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[n][e] += part[n][e];
+    }
+  }
+}
+
+// The group's scores (St) and its WP partials of dP (X, one float4 per
+// 8-row tile and thread, warp-major), after the group's barrier: every
+// warp sums the partials in the order of their columns, so all of them
+// hold the same s and dP (accumulator layout: rows g, g + 8, columns 8 n
+// + 2 c, + 1).
+template <int T, int WP>
+__device__ __forceinline__ void gather_group(float (&s)[T / 8][4], float (&dp)[T / 8][4],
+                                             const float* St, const float4* X, int group,
+                                             int lane) {
+  const int g = lane / 4, c = lane % 4;
+#pragma unroll
+  for (int n = 0; n < T / 8; ++n) {
+    float4 y = X[(group * WP * (T / 8) + n) * 32 + lane];
+#pragma unroll
+    for (int i = 1; i < WP; ++i) {
+      const float4 z = X[((group * WP + i) * (T / 8) + n) * 32 + lane];
+      y.x += z.x, y.y += z.y, y.z += z.z, y.w += z.w;
+    }
+    dp[n][0] = y.x, dp[n][1] = y.y, dp[n][2] = y.z, dp[n][3] = y.w;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = St[(g + 8 * (e / 2)) * T + 8 * n + 2 * c + (e % 2)];
+  }
+}
+
+// flash_dq at f32 heads of 256 and 512: a row group of 16 query rows, its
+// qs and dO resident; per key tile (TK keys) S over the whole head on the
+// CUDA cores (scores_fwd_order), each warp's dP over its columns in
+// 3xTF32, the exchange, ds in the accumulators, then dq += ds K over the
+// warp's columns with ds's accumulators as A fragments (c_to_a_tf32) and
+// K's rows in the same permuted order, each 8-column tile of dq summed
+// over the tile in a zeroed partial added with one rounded add.
+template <int D>
+__global__ void __launch_bounds__(WideTf32Tiles<D>::NT, 1)
+flash_dq_kernel_wide_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const float* __restrict__ o,
+                            const float* __restrict__ dout, const float* __restrict__ lse,
+                            float* __restrict__ delta, float* __restrict__ dq, int bh, int tq,
+                            int tk, int n_qtiles, int causal, float q_scale, float scale) {
+  using Tl = WideTf32Tiles<D>;
+  constexpr int BQ = Tl::ROWS, TK = Tl::T, NT8 = Tl::NT8, WP = Tl::WP, DW = Tl::DW;
+  constexpr int NT = Tl::NT, LD = Tl::LD, STAGES = Tl::STAGES;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* dOs = Qs + BQ * LD;
+  float* Ks = dOs + BQ * LD;           // STAGES tiles of TK rows
+  float* Vs = Ks + STAGES * TK * LD;   // STAGES tiles of TK rows
+  float* Ss = reinterpret_cast<float*>(smem + Tl::rows_bytes);  // each row group's scores
+  float4* X = reinterpret_cast<float4*>(smem + Tl::rows_bytes + Tl::s_bytes);  // partial dP
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, c = lane % 4;
+  const int rg = warp / WP, part = warp % WP;  // row group, share of the columns
+  // the q-tiles with the most key tiles (the last ones, under the causal
+  // mask) first
+  const int qt = n_qtiles - 1 - (int)(blockIdx.x / bh);
+  const int b = blockIdx.x % bh;
+  const int q0 = qt * BQ;
+  const int r0 = q0 + 16 * rg;  // this row group's first query row
+  const int offset = tk - tq;
+  const float* kb = k + (size_t)b * tk * D;
+  const float* vb = v + (size_t)b * tk * D;
+  const float* Qg = Qs + 16 * rg * LD;  // the row group's rows of qs and dO
+  const float* dOg = dOs + 16 * rg * LD;
+  float* St = Ss + 16 * rg * TK;
+  float* Qw = Qs + 16 * rg * LD + part * DW;  // this warp's columns of qs, later its dq
+
+  // the block's q and dO rows (zeros past tq): copy group 0
+  load_tile_pair<D, LD, BQ, NT>(Qs, dOs, q + (size_t)b * tq * D, dout + (size_t)b * tq * D,
+                                q0, tq);
+  cp_async_commit();
+
+  // causal: the last key any valid row of this tile may see
+  int k_end = tk;
+  if (causal) k_end = min(tk, min(q0 + BQ, tq) + offset);
+  const int n_kt = k_end > 0 ? (k_end + TK - 1) / TK : 0;
+
+  auto load_kv = [&](int kt) {  // key tile kt (zeros past tk) into stage kt % STAGES
+    const int st = kt % STAGES;
+    load_tile_pair<D, LD, TK, NT>(Ks + st * TK * LD, Vs + st * TK * LD, kb, vb, kt * TK, tk);
+  };
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_kt) load_kv(s);
+    cp_async_commit();
+  }
+
+  float lse_r[2];  // lse of rows g and g + 8; zeros past tq
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + g + 8 * h;
+    lse_r[h] = row < tq ? lse[(size_t)b * tq + row] : 0.f;
+  }
+
+  // q scaled in place (each thread the chunks it copied, once group 0
+  // landed), then the block's barrier: the rows are read at every tile
+  cp_async_wait<STAGES - 1>();
+  scale_rows_f32<D, LD, BQ, NT>(Qs, q_scale, threadIdx.x);
+  __syncthreads();
+
+  // delta = rowsum(dO O) in f32 over the whole head (every warp of a
+  // group sums it alike): lanes l and l + 16 sum the two halves of row
+  // r0 + l % 16 (O read once a warp from device memory; zero past tq),
+  // written once per row for flash_dkv; then rows g and g + 8
+  float dsum = 0.f;
+  if (r0 + lane % 16 < tq) {
+    const int r = lane % 16, c0 = (lane / 16) * (D / 2);
+    const float* orow = o + ((size_t)b * tq + r0 + r) * D + c0;
+    const float* drow = dOg + r * LD + c0;
+#pragma unroll 4
+    for (int i = 0; i < D / 2; i += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(orow + i);
+      const float4 y = *reinterpret_cast<const float4*>(drow + i);
+      dsum = fmaf(x.x, y.x, dsum);
+      dsum = fmaf(x.y, y.y, dsum);
+      dsum = fmaf(x.z, y.z, dsum);
+      dsum = fmaf(x.w, y.w, dsum);
+    }
+  }
+  dsum += __shfl_xor_sync(0xffffffffu, dsum, 16);
+  if (part == 0 && lane < 16 && r0 + lane < tq) delta[(size_t)b * tq + r0 + lane] = dsum;
+  const float dlt[2] = {__shfl_sync(0xffffffffu, dsum, g), __shfl_sync(0xffffffffu, dsum, g + 8)};
+
+  float acc[DW / 8][4];
+#pragma unroll
+  for (int n = 0; n < DW / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    // tile kt has landed for every thread, every warp is done with tile
+    // kt - 1 (whose stage the next copy refills) and with its group's
+    // scores and partials of tile kt - 1
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    if (kt + STAGES - 1 < n_kt) load_kv(kt + STAGES - 1);
+    cp_async_commit();
+    if (r0 >= tq) continue;  // this row group's rows are all past tq
+
+    // keys kc0 .. kc0 + TK - 1 (kc0 < tk): wholly above this row group's
+    // diagonal, p = 0 throughout
+    const int kc0 = kt * TK;
+    if (causal && kc0 > r0 + 15 + offset) continue;
+    const float* Kt = Ks + (kt % STAGES) * TK * LD;
+    const float* Vt = Vs + (kt % STAGES) * TK * LD;
+    scores_fwd_order<D, LD, TK, WP>(St, Qg, Kt, threadIdx.x - 32 * WP * rg);
+    float s[NT8][4], dp[NT8][4];
+    product_tf32x3<LD, DW, NT8, Tl::KC>(dp, dOg + part * DW, Vt + part * DW, lane);
+#pragma unroll
+    for (int n = 0; n < NT8; ++n)
+      X[(warp * NT8 + n) * 32 + lane] = make_float4(dp[n][0], dp[n][1], dp[n][2], dp[n][3]);
+    bar_sync(1 + rg, 32 * WP);
+    gather_group<TK, WP>(s, dp, St, X, rg, lane);
+    // ds = p (dP - delta); masks only where the tile crosses tk or this
+    // row group's diagonal
+    const bool edge = kc0 + TK > tk || (causal && kc0 + TK - 1 > r0 + offset);
+    FragA dsa[NT8];
+#pragma unroll
+    for (int n = 0; n < NT8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = expf(s[n][e] - lse_r[e / 2]);
+        if (edge) {
+          const int col = kc0 + 8 * n + 2 * c + (e % 2);
+          const int row = r0 + g + 8 * (e / 2);
+          if (col >= tk || (causal && row + offset < col)) p = 0.f;
+        }
+        s[n][e] = p * (dp[n][e] - dlt[e / 2]);
+      }
+      c_to_a_tf32(dsa[n], s[n]);
+    }
+    // dq += ds K over this warp's columns, one 8-column tile at a time: B
+    // of K's rows in c_to_a_tf32's order, summed over the tile in a zeroed
+    // partial
+#pragma unroll
+    for (int nd = 0; nd < DW / 8; ++nd) {
+      float part_dq[4] = {};
+#pragma unroll
+      for (int n = 0; n < NT8; ++n) {
+        FragB bk;
+        load_b_perm_tf32<LD>(bk, Kt + 8 * n * LD + part * DW, 8 * nd, lane);
+        mma_tf32x3(part_dq, dsa[n], bk);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nd][e] += part_dq[e];
+    }
+  }
+  cp_async_wait<0>();  // the trailing (empty) groups
+
+  // dq times its scale, staged through this warp's rows and columns of qs
+  // (after the group's last barrier no warp reads them)
+  store_warp_rows_f32<DW, LD, D>(dq + (size_t)b * tq * D + part * DW, Qw, acc, scale, r0, tq,
+                                 lane);
+}
+
+template <int D>
+int launch_dq_wide_tf32x3(const void* q, const void* k, const void* v, const void* o,
+                          const void* dout, const float* lse, float* delta, void* dq, int bh,
+                          int tq, int tk, int causal, float q_scale, float scale,
+                          cudaStream_t stream) {
+  using Tl = WideTf32Tiles<D>;
+  cudaError_t err = cudaFuncSetAttribute(flash_dq_kernel_wide_tf32x3<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)Tl::dq_bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int n_qtiles = (tq + Tl::ROWS - 1) / Tl::ROWS;
+  flash_dq_kernel_wide_tf32x3<D><<<bh * n_qtiles, Tl::NT, Tl::dq_bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(o), static_cast<const float*>(dout), lse, delta,
+      static_cast<float*>(dq), bh, tq, tk, n_qtiles, causal, q_scale, scale);
+  return (int)cudaGetLastError();
+}
+
+// flash_dkv at f32 heads of 256 and 512: a key group of 16 keys, K and V
+// of the block resident; query tiles (q, dO, lse, delta) through the
+// ring, q pre-scaled in place by the thread that copied it; per tile S^T
+// over the whole head on the CUDA cores (scores_fwd_order: a score's
+// chain does not depend on which operand is the row), each warp's dP^T =
+// V dO^T over its columns in 3xTF32, the exchange, p^T and ds^T in the
+// accumulators, then dv += p^T dO and dk += ds^T qs over the warp's
+// columns, each 8-column tile summed over the tile in zeroed partials.
+template <int D>
+__global__ void __launch_bounds__(WideTf32Tiles<D>::NT, 1)
+flash_dkv_kernel_wide_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, const float* __restrict__ dout,
+                             const float* __restrict__ lse, const float* __restrict__ delta,
+                             float* __restrict__ dk, float* __restrict__ dv, int bh, int tq,
+                             int tk, int causal, float q_scale) {
+  using Tl = WideTf32Tiles<D>;
+  constexpr int BKB = Tl::ROWS, QT = Tl::T, NT8 = Tl::NT8, WP = Tl::WP, DW = Tl::DW;
+  constexpr int NT = Tl::NT, LD = Tl::LD, STAGES = Tl::STAGES;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Ks = reinterpret_cast<float*>(smem);
+  float* Vs = Ks + BKB * LD;
+  float* Rs = Vs + BKB * LD;  // stage st: qs rows at 2 st QT LD, dO rows QT LD on
+  float* Ss = reinterpret_cast<float*>(smem + Tl::rows_bytes);  // each key group's scores
+  float4* X = reinterpret_cast<float4*>(smem + Tl::rows_bytes + Tl::s_bytes);  // partial dP^T
+  float* Ls = reinterpret_cast<float*>(smem + Tl::dq_bytes);  // stage st: lse, then delta
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, c = lane % 4;
+  const int kg = warp / WP, part = warp % WP;  // key group, share of the columns
+  // the key tiles with the most query tiles (the first ones, under the
+  // causal mask) first
+  const int k0 = (int)(blockIdx.x / bh) * BKB;
+  const int b = blockIdx.x % bh;
+  const int kw0 = k0 + 16 * kg;  // this key group's first key
+  const int offset = tk - tq;
+  const float* qb = q + (size_t)b * tq * D;
+  const float* db = dout + (size_t)b * tq * D;
+  const float* Kg = Ks + 16 * kg * LD;  // the key group's rows of K
+  float* St = Ss + 16 * kg * QT;
+  float* Kw = Ks + 16 * kg * LD + part * DW;  // this warp's columns of K (later dk), V (dv)
+  float* Vw = Vs + 16 * kg * LD + part * DW;
+
+  // the block's K and V rows (zeros past tk): copy group 0
+  load_tile_pair<D, LD, BKB, NT>(Ks, Vs, k + (size_t)b * tk * D, v + (size_t)b * tk * D, k0,
+                                 tk);
+  cp_async_commit();
+
+  // causal: the first query row that sees any key of this block (< tq,
+  // since k0 - offset <= tq - 1)
+  const int qt0 = (causal ? max(0, k0 - offset) : 0) / QT;
+  const int n_qt = (tq + QT - 1) / QT - qt0;
+
+  auto load_q = [&](int t) {  // query tile qt0 + t (zeros past tq) into stage t % STAGES
+    const int q0 = (qt0 + t) * QT, st = t % STAGES;
+    float* qd = Rs + st * 2 * QT * LD;
+    load_tile_pair<D, LD, QT, NT>(qd, qd + QT * LD, qb, db, q0, tq);
+    for (int i = threadIdx.x; i < 2 * QT; i += NT) {
+      const int r = i % QT;
+      const bool in = q0 + r < tq;
+      const size_t off = in ? (size_t)b * tq + q0 + r : 0;
+      cp_async4(smem_addr(Ls + (2 * st + i / QT) * QT + r), (i < QT ? lse : delta) + off,
+                in ? 4 : 0);
+    }
+  };
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_qt) load_q(s);
+    cp_async_commit();
+  }
+
+  float dka[DW / 8][4], dva[DW / 8][4];
+#pragma unroll
+  for (int n = 0; n < DW / 8; ++n) {
+    dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.f;
+    dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
+  }
+
+  for (int t = 0; t < n_qt; ++t) {
+    const int st = t % STAGES;
+    float* Qt = Rs + st * 2 * QT * LD;
+    const float* dOt = Qt + QT * LD;
+    const float* Lt = Ls + 2 * st * QT;  // lse, then delta
+    // tile t (and, at t = 0, K and V) has landed for this thread:
+    // pre-scale the q chunks it copied
+    cp_async_wait<STAGES - 2>();
+    scale_rows_f32<D, LD, QT, NT>(Qt, q_scale, threadIdx.x);
+    // every thread's share of tile t is in place, and every warp is done
+    // with tile t - 1 (whose stage the next copy refills) and with its
+    // group's scores and partials of tile t - 1
+    __syncthreads();
+    if (t + STAGES - 1 < n_qt) load_q(t + STAGES - 1);
+    cp_async_commit();
+
+    // queries q0 .. q0 + QT - 1: past tq, or wholly below this key
+    // group's keys under the mask, p = 0 throughout (q0 < tq always)
+    const int q0 = (qt0 + t) * QT;
+    if (kw0 >= tk || (causal && q0 + QT - 1 + offset < kw0)) continue;
+    scores_fwd_order<D, LD, QT, WP>(St, Kg, Qt, threadIdx.x - 32 * WP * kg);
+    float s[NT8][4], dp[NT8][4];
+    product_tf32x3<LD, DW, NT8, Tl::KC>(dp, Vw, dOt + part * DW, lane);
+#pragma unroll
+    for (int n = 0; n < NT8; ++n)
+      X[(warp * NT8 + n) * 32 + lane] = make_float4(dp[n][0], dp[n][1], dp[n][2], dp[n][3]);
+    bar_sync(1 + kg, 32 * WP);
+    gather_group<QT, WP>(s, dp, St, X, kg, lane);
+    // p^T and ds^T in the accumulators: row (key) kw0 + g + 8 (e / 2),
+    // column (query) q0 + 8 n + 2 c + (e % 2); masks only where the tile
+    // crosses tq or this key group's diagonal
+    const bool edge = q0 + QT > tq || (causal && q0 + offset < kw0 + 15);
+    FragA pa[NT8], dsa[NT8];
+#pragma unroll
+    for (int n = 0; n < NT8; ++n) {
+      const int col = 8 * n + 2 * c;  // in the tile
+      const float2 l2 = *reinterpret_cast<const float2*>(Lt + col);
+      const float2 d2 = *reinterpret_cast<const float2*>(Lt + QT + col);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = expf(s[n][e] - (e % 2 ? l2.y : l2.x));
+        if (edge) {
+          const int qi = q0 + col + (e % 2);
+          const int ki = kw0 + g + 8 * (e / 2);
+          if (qi >= tq || (causal && qi + offset < ki)) p = 0.f;
+        }
+        s[n][e] = p;
+        dp[n][e] = p * (dp[n][e] - (e % 2 ? d2.y : d2.x));
+      }
+      c_to_a_tf32(pa[n], s[n]);
+      c_to_a_tf32(dsa[n], dp[n]);
+    }
+    // dv += p^T dO, dk += ds^T qs over this warp's columns, one 8-column
+    // tile at a time: B of the stage's rows in c_to_a_tf32's order, summed
+    // over the tile in zeroed partials
+#pragma unroll
+    for (int nd = 0; nd < DW / 8; ++nd) {
+      float part_dv[4] = {}, part_dk[4] = {};
+#pragma unroll
+      for (int n = 0; n < NT8; ++n) {
+        FragB bd, bq;
+        load_b_perm_tf32<LD>(bd, dOt + 8 * n * LD + part * DW, 8 * nd, lane);
+        load_b_perm_tf32<LD>(bq, Qt + 8 * n * LD + part * DW, 8 * nd, lane);
+        mma_tf32x3(part_dv, pa[n], bd);
+        mma_tf32x3(part_dk, dsa[n], bq);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dva[nd][e] += part_dv[e];
+        dka[nd][e] += part_dk[e];
+      }
+    }
+  }
+  cp_async_wait<0>();  // the trailing (empty) groups
+
+  // dk and dv staged through this warp's rows and columns of K and V
+  // (after the group's last barrier no warp reads them)
+  store_warp_rows_f32<DW, LD, D>(dk + (size_t)b * tk * D + part * DW, Kw, dka, 1.f, kw0, tk,
+                                 lane);
+  store_warp_rows_f32<DW, LD, D>(dv + (size_t)b * tk * D + part * DW, Vw, dva, 1.f, kw0, tk,
+                                 lane);
+}
+
+template <int D>
+int launch_dkv_wide_tf32x3(const void* q, const void* k, const void* v, const void* dout,
+                           const float* lse, const float* delta, void* dk, void* dv, int bh,
+                           int tq, int tk, int causal, float q_scale, cudaStream_t stream) {
+  using Tl = WideTf32Tiles<D>;
+  cudaError_t err = cudaFuncSetAttribute(flash_dkv_kernel_wide_tf32x3<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)Tl::dkv_bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int n_ktiles = (tk + Tl::ROWS - 1) / Tl::ROWS;
+  flash_dkv_kernel_wide_tf32x3<D><<<bh * n_ktiles, Tl::NT, Tl::dkv_bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk),
+      static_cast<float*>(dv), bh, tq, tk, causal, q_scale);
+  return (int)cudaGetLastError();
+}
+
 // ------------------------------------------------ the f32 (SIMT) design
 
 constexpr int LDS_PAD = 1;  // f32 rows padded by one element (bank spread)
@@ -1708,8 +2254,8 @@ extern "C" int dl4j_flash_dq(const void* q, const void* k, const void* v, const 
   } else if (dtype == 0) {
     if (d == 64) return launch_dq_tf32x3<64>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
     if (d == 128) return launch_dq_tf32x3<128>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
-    if (d == 256) return launch_dq_f32<float, 256>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
-    if (d == 512) return launch_dq_f32<float, 512>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
+    if (d == 256) return launch_dq_wide_tf32x3<256>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
+    if (d == 512) return launch_dq_wide_tf32x3<512>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
     if (d == 1024) return launch_dq_f32<float, 1024>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
   }
   return (int)cudaErrorInvalidValue;
@@ -1736,8 +2282,8 @@ extern "C" int dl4j_flash_dkv(const void* q, const void* k, const void* v, const
   } else if (dtype == 0) {
     if (d == 64) return launch_dkv_tf32x3<64>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
     if (d == 128) return launch_dkv_tf32x3<128>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
-    if (d == 256) return launch_dkv_f32<float, 256>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
-    if (d == 512) return launch_dkv_f32<float, 512>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
+    if (d == 256) return launch_dkv_wide_tf32x3<256>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
+    if (d == 512) return launch_dkv_wide_tf32x3<512>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
     if (d == 1024) return launch_dkv_f32<float, 1024>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
   }
   return (int)cudaErrorInvalidValue;

@@ -44,10 +44,9 @@ __device__ __forceinline__ float quad_sum(float x) {
 // ---------------------------------------------- the f32 (SIMT) design
 
 // The first design, on the CUDA cores through shared memory in f32, of
-// flash_fwd.cu and flash_bwd.cu: the f32 forward at every head, the f32
-// backward at 256, 512 and 1024, and the bf16 backward at 1024 (the bf16
-// forward at every head, the bf16 backward up to 512 and the f32
-// backward up to 128 run on the tensor cores).
+// flash_fwd.cu and flash_bwd.cu: the f32 forward at every head and the
+// f32 and bf16 backward at 1024 (the bf16 forward at every head and the
+// bf16 and f32 backward up to 512 run on the tensor cores).
 // T is the element type in device memory: bf16 is widened to f32 on load,
 // rounded back where the reference rounds (the q pre-scale, p and ds
 // before their products) and narrowed on store.
@@ -314,6 +313,18 @@ __device__ __forceinline__ void load_bt_tf32(FragB (&f)[2], const float* x, int 
     split_tf32(__uint_as_float(r[i]), f[i / 2].big[i % 2], f[i / 2].small[i % 2]);
 }
 
+// B fragments of x^T for one 8-column tile, x 8 f32 rows (the product's
+// columns), at the two depth steps kk and kk + 1 (columns 8 kk ..): rows
+// lane % 8, words 8 kk + 4 (lane / 8); f[0] is step kk's, f[1] kk + 1's
+template <int LD>
+__device__ __forceinline__ void load_bt8_tf32(FragB (&f)[2], const float* x, int kk, int lane) {
+  uint32_t r[4];
+  ldmatrix_x4(r, smem_addr(x + (lane % 8) * LD + 8 * kk + 4 * (lane / 8)));
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    split_tf32(__uint_as_float(r[i]), f[i / 2].big[i % 2], f[i / 2].small[i % 2]);
+}
+
 // A 16 x 8 accumulator tile x as the A fragment of a product over its 8
 // columns, split, with its columns permuted: the product's depth index c
 // is column 2c and c + 4 is column 2c + 1, so that each thread's own
@@ -357,8 +368,9 @@ __device__ __forceinline__ void scale_rows_f32(float* rows, float scale, int tid
 // Epilogue of a warp's 16 x D f32 accumulators (fragment layout): each
 // value times mul into the warp's own f32 rows at `stage` (which its
 // lanes have finished reading), then 16-byte coalesced stores of the rows
-// < t to dst ([t, D] row-major).
-template <int D, int LD>
+// < t to dst, whose rows are LDG elements apart (D, or the whole head
+// where the warp owns D of its columns).
+template <int D, int LD, int LDG = D>
 __device__ __forceinline__ void store_warp_rows_f32(float* dst, float* stage,
                                                     const float (&acc)[D / 8][4], float mul,
                                                     int row0, int t, int lane) {
@@ -377,7 +389,7 @@ __device__ __forceinline__ void store_warp_rows_f32(float* dst, float* stage,
   for (int i = lane; i < 16 * CH; i += 32) {
     const int r = i / CH, col = (i % CH) * 4;
     if (row0 + r < t) {
-      *reinterpret_cast<float4*>(dst + (size_t)(row0 + r) * D + col) =
+      *reinterpret_cast<float4*>(dst + (size_t)(row0 + r) * LDG + col) =
           *reinterpret_cast<const float4*>(stage + r * LD + col);
     }
   }

@@ -13,10 +13,13 @@ Which kernel runs which dtype and head:
   CUDA cores (``flash_fwd_kernel_f32``) at every head;
 - backward: bf16 on the tensor cores up to 512 (``flash_dq_kernel`` /
   ``flash_dkv_kernel`` up to 128, the ``_wide`` pair at 256 and 512);
-  f32 up to 128 on the tensor cores in 3xTF32
-  (``flash_dq_kernel_tf32x3`` / ``flash_dkv_kernel_tf32x3``: each f32
-  operand split into two TF32 values, three products for each); the f32
-  heads of 256-1024 and the bf16 heads of 1024 on the CUDA cores (the
+  f32 up to 512 on the tensor cores in 3xTF32 (each f32 operand split
+  into two TF32 values, three products for each):
+  ``flash_dq_kernel_tf32x3`` / ``flash_dkv_kernel_tf32x3`` up to 128,
+  ``flash_dq_kernel_wide_tf32x3`` / ``flash_dkv_kernel_wide_tf32x3`` at
+  256 and 512 (whose scores are one f32 chain each on the CUDA cores, in
+  the order of the f32 forward, so that s - lse cancels the forward's
+  rounding of s); the f32 and bf16 heads of 1024 on the CUDA cores (the
   ``_f32`` pair).
 
 Which of the two runs is decided by the tensor's device alone: on the
@@ -64,9 +67,9 @@ def _head_width(d: int) -> int:
     512 or 1024, the sizes they are built for (on the tensor cores: in
     bf16 the forward at every one of them, 256 to 1024 in its ``_wide``
     kernel, and the backward 64 to 512, 256 and 512 in its ``_wide``
-    kernels; in f32 the backward at 64 and 128, in 3xTF32. The f32
-    forward, the f32 backward at 256 to 1024 and the bf16 backward at
-    1024 run on the CUDA cores). A smaller head
+    kernels; in f32 the backward 64 to 512 in 3xTF32, 256 and 512 in its
+    ``_wide_tf32x3`` kernels. The f32 forward and the f32 and bf16
+    backward at 1024 run on the CUDA cores). A smaller head
     is padded with zeros up to it, which adds 0 to every score and
     product, so the unpadded columns of every output are the same; the
     scales stay those of ``d``."""
@@ -284,7 +287,9 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, causal
     ``flash_dq_kernel_wide`` / ``flash_dkv_kernel_wide`` at 256 and 512,
     the SIMT ``_f32`` kernels at 1024; in f32
     ``flash_dq_kernel_tf32x3`` / ``flash_dkv_kernel_tf32x3`` at 64 and
-    128, the SIMT ``_f32`` kernels at 256, 512 and 1024."""
+    128, ``flash_dq_kernel_wide_tf32x3`` /
+    ``flash_dkv_kernel_wide_tf32x3`` at 256 and 512, the SIMT ``_f32``
+    kernels at 1024."""
     bh, tq, d = q.shape
     tk = k.shape[1]
     _check_inputs(q, k, v)

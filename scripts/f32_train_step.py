@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Phase 4's f32 training step (``chip_smoke.F32_TRAIN``) through the
-PyTorch port of another checkout (the parent of a change, say): the same
-step, weights and ids as ``chip_smoke.py``'s, its loss and gradients
-through that checkout's flash kernels against its plain attention (the
-noise floor of the comparison for that checkout's kernels), and the
-step's device time with its flash kernels' share.
+"""One of phase 4's f32 training steps (``chip_smoke.F32_STEPS``:
+``train_f32``, the default, or ``train_wide_f32``) through the PyTorch
+port of another checkout (the parent of a change, say): the same step,
+weights and ids as ``chip_smoke.py``'s, its loss and gradients through
+that checkout's flash kernels against its plain attention (the noise
+floor of the comparison for that checkout's kernels), and the step's
+device time with its flash kernels' share.
 
-    python3 scripts/f32_train_step.py DIR    # DIR: the other checkout's root
+    python3 scripts/f32_train_step.py DIR [STEP]   # DIR: the other checkout's root
 
 Prints one ``f32_train_step {...}`` line. Needs an NVIDIA GPU; imports
 nothing of JAX.
@@ -31,8 +32,8 @@ def _smoke():
 
 
 def main(argv) -> int:
-    if len(argv) != 1:
-        raise SystemExit("usage: f32_train_step.py DIR")
+    if len(argv) not in (1, 2):
+        raise SystemExit("usage: f32_train_step.py DIR [STEP]")
     import numpy as np
     import torch
 
@@ -41,6 +42,9 @@ def main(argv) -> int:
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
     smoke = _smoke()
+    step = argv[1] if len(argv) == 2 else "train_f32"
+    if step not in smoke.F32_STEPS:
+        raise SystemExit(f"f32_train_step: STEP is one of {sorted(smoke.F32_STEPS)}")
     root = os.path.abspath(argv[0])
     sys.path.insert(0, root)
     from deeplearning4j_tpu_torch import kernels
@@ -51,13 +55,14 @@ def main(argv) -> int:
                          f"the port under {root}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    net, ds, launches, loss, loss_p, worst, at = smoke.f32_step(torch, np, kernels, flash)
+    net, ds, launches, loss, loss_p, worst, at = smoke.f32_step(
+        torch, np, kernels, flash, step)
     per_step = smoke._device_times(torch, lambda: net.gradient_and_score(ds), 3)
     step_ms = smoke._sum_ms(per_step)
     flash_ms = {m: smoke._sum_ms(per_step, m) for m in (
         "flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")}
     print("f32_train_step " + json.dumps(dict(
-        root=root, launches=launches, loss=loss,
+        root=root, step=step, launches=launches, loss=loss,
         loss_rel_vs_plain=abs(loss - loss_p) / abs(loss_p),
         grad_rel_l2_vs_plain_max=worst, grad_worst_at=at,
         step_device_ms=step_ms, profile_kept_share=per_step.kept_share,

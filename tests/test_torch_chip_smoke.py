@@ -284,13 +284,16 @@ def test_wide_head_cases_reach_1024_and_time_the_forward_at_512():
     assert by == by_256 == "bytes" and ms == pytest.approx(ms_256, rel=1e-3)
 
 
-def _bwd_flash_report(dq_spills, dkv_spills, tf32_dq_spills=0, tf32_dkv_spills=0):
+def _bwd_flash_report(dq_spills, dkv_spills, tf32_dq_spills=0, tf32_dkv_spills=0,
+                      wide_tf32_dq_spills=0, wide_tf32_dkv_spills=0):
     """A stand-in report of flash_bwd.cu: the bf16 mma.sync kernels, the
     wide ones at 256 and 512 (flash_dq_kernel_wide spilling
     ``dq_spills`` bytes, flash_dkv_kernel_wide ``dkv_spills``), the f32
     3xTF32 kernels at 64 and 128 (``tf32_dq_spills``,
-    ``tf32_dkv_spills`` at 128), and an f32 and a bf16 SIMT
-    instantiation (never gated)."""
+    ``tf32_dkv_spills`` at 128), an f32 and a bf16 SIMT
+    instantiation (never gated), and the wide f32 3xTF32 kernels at 256
+    and 512 (``wide_tf32_dq_spills``, ``wide_tf32_dkv_spills`` at
+    512)."""
     ns = "_ZN12_GLOBAL__N_1"
     args = "EEvPK13__nv_bfloat16S3_S3_S3_S3_PKfPfPS1_iiiiiff"
     f32_args = "EEvPKfS1_S1_S1_S1_S1_PfS2_iiiiiff"
@@ -308,7 +311,12 @@ def _bwd_flash_report(dq_spills, dkv_spills, tf32_dq_spills=0, tf32_dkv_spills=0
         (f"{ns}19flash_dq_kernel_f32IfLi64ELi64ELi64EEEvPKT_S3_S3_S3_S3_PKfPfPS1_"
          "iiiiiff", 90, 16),
         (f"{ns}20flash_dkv_kernel_f32I13__nv_bfloat16Li1024ELi8ELi4EEEvPKT_S4_S4_"
-         "S4_PKfS6_PS2_S7_iiiiif", 56, 16)])
+         "S4_PKfS6_PS2_S7_iiiiif", 56, 16),
+        (f"{ns}27flash_dq_kernel_wide_tf32x3ILi256{f32_args}", 183, 0),
+        (f"{ns}27flash_dq_kernel_wide_tf32x3ILi512{f32_args}", 187, wide_tf32_dq_spills),
+        (f"{ns}28flash_dkv_kernel_wide_tf32x3ILi256{f32_args[:-1]}", 254, 0),
+        (f"{ns}28flash_dkv_kernel_wide_tf32x3ILi512{f32_args[:-1]}", 255,
+         wide_tf32_dkv_spills)])
 
 
 def test_spill_gate_reads_the_wide_flash_backward(capsys):
@@ -347,6 +355,32 @@ def test_spill_gate_rejects_a_spilling_tf32x3_flash_backward(tf32_dq_spills,
             0, 0, tf32_dq_spills, tf32_dkv_spills))
 
 
+def test_spill_gate_reads_the_wide_tf32x3_flash_backward(capsys):
+    """The wide f32 kernels at 256 and 512 are gated under their own
+    names, and the 3xTF32 gate of heads <= 128 does not read them (their
+    names extend its kernels' names)."""
+    chip_smoke._spill_gate("flash_bwd", _bwd_flash_report(0, 0))
+    out = capsys.readouterr().out
+    assert ("f32 flash_dq_kernel_wide_tf32x3 registers, spill bytes: "
+            "[(183, 0), (187, 0)]") in out
+    assert ("f32 flash_dkv_kernel_wide_tf32x3 registers, spill bytes: "
+            "[(254, 0), (255, 0)]") in out
+    assert "f32 flash_dq_kernel_tf32x3 registers, spill bytes: [(149, 0), (203, 0)]" in out
+    assert ("bf16 flash_dq_kernel_wide registers, spill bytes: "
+            "[(243, 0), (223, 0)]") in out
+
+
+@pytest.mark.parametrize("dq_spills,dkv_spills,kernel", [
+    (8, 0, "flash_dq_kernel_wide_tf32x3"), (0, 24, "flash_dkv_kernel_wide_tf32x3")])
+def test_spill_gate_rejects_a_spilling_wide_tf32x3_flash_backward(dq_spills, dkv_spills,
+                                                                 kernel):
+    """One spilling instantiation of a wide f32 kernel (the one at 512)
+    fails the gate."""
+    with pytest.raises(RuntimeError, match=f"f32 {kernel} spills"):
+        chip_smoke._spill_gate("flash_bwd", _bwd_flash_report(
+            0, 0, wide_tf32_dq_spills=dq_spills, wide_tf32_dkv_spills=dkv_spills))
+
+
 def test_spill_gate_needs_the_tf32x3_kernels():
     """A flash_bwd.cu report without the 3xTF32 kernels fails the gate."""
     lines = _bwd_flash_report(0, 0).splitlines()
@@ -362,8 +396,9 @@ def test_spill_gate_needs_the_tf32x3_kernels():
     ("bfloat16", 1024, ("flash_dq_kernel_f32<", "flash_dkv_kernel_f32<")),
     ("float32", 64, ("flash_dq_kernel_tf32x3<", "flash_dkv_kernel_tf32x3<")),
     ("float32", 128, ("flash_dq_kernel_tf32x3<", "flash_dkv_kernel_tf32x3<")),
-    ("float32", 256, ("flash_dq_kernel_f32<", "flash_dkv_kernel_f32<")),
-    ("float32", 512, ("flash_dq_kernel_f32<", "flash_dkv_kernel_f32<")),
+    ("float32", 256, ("flash_dq_kernel_wide_tf32x3<", "flash_dkv_kernel_wide_tf32x3<")),
+    ("float32", 320, ("flash_dq_kernel_wide_tf32x3<", "flash_dkv_kernel_wide_tf32x3<")),
+    ("float32", 512, ("flash_dq_kernel_wide_tf32x3<", "flash_dkv_kernel_wide_tf32x3<")),
     ("float32", 1024, ("flash_dq_kernel_f32<", "flash_dkv_kernel_f32<"))])
 def test_bwd_kernel_names_follow_the_dispatch(dtype, d, names):
     assert chip_smoke.bwd_kernel_names(dtype, d) == names
@@ -395,7 +430,8 @@ def test_wide_backward_cases_reach_512_at_t1024():
 
 def _flash_rows():
     """Stand-in phase-2 rows for the kernels line: the forward's prefill,
-    training and wide rows, and the backward's training and wide rows."""
+    training and wide rows, and the backward's training and wide rows,
+    bf16 and f32."""
     def fwd(bh, t, d):
         return dict(dtype="bfloat16", bh=bh, tq=t, tk=t, d=d, causal=True,
                     err_o=0.01, ms=0.1, kernel_only_ms=0.1,
@@ -419,16 +455,21 @@ def _flash_rows():
         dkv_bound_ms=0.513, dkv_bound_by="operations",
         dq_bound_tf32x3_ms=0.156, dq_bound_tf32x3_by="operations",
         dkv_bound_tf32x3_ms=0.208, dkv_bound_tf32x3_by="operations")
+    wide_f32 = f32 | dict(bh=32, d=256, err_dq=3e-6, err_dk=7e-6, err_dv=8e-6, ms=2.6,
+                          dq_kernel_only_ms=1.2, dkv_kernel_only_ms=1.4, plain_ms=3.5,
+                          library_ms=1.8)
     return ([fwd(*s) for s in shapes + [(8, 1024, 1024)]],
-            [bwd(*s) for s in shapes[1:]] + [f32])
+            [bwd(*s) for s in shapes[1:]] + [f32, wide_f32])
 
 
-def _phase4(train, wide_launches, f32_launches=None):
-    """Stand-in phase-4 result: the step's launches, the wide step's and
-    the f32 step's."""
+def _phase4(train, wide_launches, f32_launches=None, wide_f32_launches=None):
+    """Stand-in phase-4 result: the step's launches, the wide step's, the
+    f32 step's and the wide f32 step's."""
     f32_launches = f32_launches or {"flash_fwd": 8, "flash_dq": 8, "flash_dkv": 8}
+    wide_f32_launches = wide_f32_launches or {"flash_fwd": 2, "flash_dq": 2, "flash_dkv": 2}
     return (train, {"wide_head": {"launches": wide_launches},
-                    "f32": {"launches": f32_launches}})
+                    "f32": {"launches": f32_launches},
+                    "wide_f32": {"launches": wide_f32_launches}})
 
 
 def test_flash_summary_names_the_wide_kernels():
@@ -533,6 +574,105 @@ def test_flash_summary_gives_the_backward_its_f32_row():
     assert dq["ms"] == 0.1 and dq["shape"] == [128, 1024, 64]
 
 
+def test_flash_summary_gives_the_backward_its_wide_f32_row():
+    """The backward entries carry ``wide_head_f32``: the wide 3xTF32
+    kernel at [32, 1024, 256] f32 causal (the wide f32 step's shape), its
+    time beside the whole call, the plain version and SDPA, both bounds
+    with their shares, and the wide f32 step's launches."""
+    rows, bwd_rows = _flash_rows()
+    train = {"flash_fwd": 8, "flash_dq": 8, "flash_dkv": 8}
+    entries = chip_smoke._flash_summary({
+        "2": rows, "2bwd": bwd_rows, "3": ({"flash_fwd": 8}, {}),
+        "4": _phase4(train, {"flash_fwd": 2, "flash_dq": 2, "flash_dkv": 2}, None,
+                     {"flash_fwd": 2, "flash_dq": 2, "flash_dkv": 1})})
+    fwd, dq, dkv = entries
+    assert fwd["wide_f32_train_launches"] == 2
+    for e, name in ((dq, "flash_dq"), (dkv, "flash_dkv")):
+        w = e["wide_head_f32"]
+        assert w["kernel"] == f"{name}_kernel_wide_tf32x3"
+        assert w["shape"] == [32, 1024, 256]
+        assert (w["backward_ms"], w["plain_ms"], w["library_ms"]) == (2.6, 3.5, 1.8)
+    assert (dq["wide_head_f32"]["ms"], dkv["wide_head_f32"]["ms"]) == (1.2, 1.4)
+    assert dq["wide_head_f32"]["max_abs_err"] == 3e-6
+    assert dkv["wide_head_f32"]["max_abs_err"] == 8e-6
+    assert dq["wide_head_f32"]["bound_share"] == pytest.approx(0.385 / 1.2)
+    assert dkv["wide_head_f32"]["bound_tf32x3_share"] == pytest.approx(0.208 / 1.4)
+    assert (dq["wide_head_f32"]["launches"], dkv["wide_head_f32"]["launches"]) == (2, 1)
+    # the f32 row at the training shape stays the 3xTF32 kernels' of heads <= 128
+    assert dq["f32"]["kernel"] == "flash_dq_kernel_tf32x3"
+    assert dq["f32"]["shape"] == [128, 1024, 64]
+
+
+def test_wide_f32_512_row_is_timed_at_the_wide_bound():
+    """Phase 2 times the wide f32 kernels at [16, 1024, 512] causal too
+    (forward and backward; the bound of [32, 1024, 256]), beside their
+    rows at [32, 1024, 256] and t 200."""
+    assert chip_smoke.WIDE_F32_512_CASES == [("float32", 512, 16, 1024, 1024, True)]
+    fwd, bwd = chip_smoke.fwd_cases(), chip_smoke.bwd_cases()
+    d, bh, t = chip_smoke.WIDE_HEAD
+    for case in [("float32", 512, 16, 1024, 1024, True), ("float32", d, bh, t, t, True),
+                 ("float32", 512, 8, 200, 200, True)]:
+        assert case in bwd and case in fwd
+    assert len(set(bwd)) == len(bwd)
+    assert chip_smoke.bwd_kernel_names("float32", 512) == (
+        "flash_dq_kernel_wide_tf32x3<", "flash_dkv_kernel_wide_tf32x3<")
+    for flops, n_out in ((6, 1), (8, 2)):
+        ms, _ = chip_smoke._flash_bwd_bound_tf32x3(16, 1024, 1024, 512, True,
+                                                   flops * 512, n_out)
+        ms_256, _ = chip_smoke._flash_bwd_bound_tf32x3(bh, t, t, d, True,
+                                                       flops * d, n_out)
+        assert ms == pytest.approx(ms_256, rel=2e-3)
+
+
+def test_wide_f32_train_is_the_wide_step_in_f32():
+    """Phase 4's wide f32 step is ``WIDE_TRAIN`` with only its dtype
+    changed, at the wide step's batch: every attention call is [32,
+    1024, 256] f32 causal, the timed row of phase 2, run by the wide
+    3xTF32 kernels."""
+    wide_f32 = dict(chip_smoke.WIDE_F32_TRAIN)
+    assert wide_f32.pop("compute_dtype") == "float32"
+    wide = dict(chip_smoke.WIDE_TRAIN)
+    assert wide.pop("compute_dtype") == "bfloat16"
+    assert wide_f32 == wide
+    conf, batch, *_ = chip_smoke.F32_STEPS["train_wide_f32"]
+    assert conf is chip_smoke.WIDE_F32_TRAIN and batch == chip_smoke.WIDE_TRAIN_BATCH
+    heads = conf["num_heads"]
+    shape = (batch * heads, conf["max_len"], conf["d_model"] // heads)
+    assert shape == (32, 1024, 256)
+    d, bh, t = chip_smoke.WIDE_HEAD
+    assert shape == (bh, t, d)
+    assert ("float32", d, bh, t, t, True) in chip_smoke.bwd_cases()
+    assert chip_smoke.bwd_kernel_names("float32", shape[2]) == (
+        "flash_dq_kernel_wide_tf32x3<", "flash_dkv_kernel_wide_tf32x3<")
+    # the f32 step of the training width keeps its configuration
+    assert chip_smoke.F32_STEPS["train_f32"][:2] == (chip_smoke.F32_TRAIN,
+                                                      chip_smoke.TRAIN_BATCH)
+
+
+def test_scale4_arrays_are_seeded_and_span_large_scores():
+    """C3's inputs come from numpy seeds (the CPU and the card draw the
+    same arrays) at every 3xTF32 head, with scores past ±40; and
+    ``bwd_f64`` is the gradient of the dense f64 attention."""
+    import torch
+
+    for d in chip_smoke.SCALE4_HEADS:
+        a, b = chip_smoke.scale4_arrays(np, d), chip_smoke.scale4_arrays(np, d)
+        assert all(x.dtype == np.float32 and x.shape == (2, 128, d) for x in a)
+        assert all(np.array_equal(x, y) for x, y in zip(a, b))
+        s = a[0].astype(np.float64) / d ** 0.5 @ a[1].astype(np.float64).transpose(0, 2, 1)
+        assert np.abs(s).max() > 40
+    q, k, v, do = (torch.tensor(x[:, :16, :8], dtype=torch.float64, requires_grad=True)
+                   for x in chip_smoke.scale4_arrays(np, 64))
+    c = torch.tensor(8 ** -0.5, dtype=torch.float32).item()
+    s = (q * c) @ k.transpose(1, 2)
+    s = s.masked_fill(torch.ones(16, 16, dtype=torch.bool).triu(1), float("-inf"))
+    (torch.softmax(s, -1) @ v).backward(do.detach())
+    got = chip_smoke.bwd_f64(torch, q.detach(), k.detach(), v.detach(), do.detach(), True)
+    for x, y in zip(got, (q.grad, k.grad, v.grad)):
+        assert torch.allclose(x, y, rtol=1e-12, atol=1e-12)
+    assert chip_smoke.rel_errors([2 * y for y in got], got) == [1.0, 1.0, 1.0]
+
+
 def test_tf32x3_bound_is_three_products_at_the_tf32_rate():
     """At [128, 1024, 64] f32 causal: dq's 6 d flops per live pair, three
     times over at 495 TFLOP/s, 0.156 ms, and dkv's 8 d 0.208 ms (both
@@ -574,6 +714,12 @@ def test_parent_rows_script_needs_the_card_and_no_jax():
     forward-only rows) imports nothing of JAX and exits 2 without a
     card, printing no row."""
     _script_needs_the_card_and_no_jax("flash_fwd_rows.py", "flash_fwd ")
+
+
+def test_bwd_rows_script_needs_the_card_and_no_jax():
+    """``scripts/flash_bwd_rows.py`` (the parent's backward at the f32
+    [16, 1024, 512] row and its errors at scale 4) likewise."""
+    _script_needs_the_card_and_no_jax("flash_bwd_rows.py", "flash_bwd ")
 
 
 def test_f32_step_script_needs_the_card_and_no_jax():

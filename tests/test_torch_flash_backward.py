@@ -10,11 +10,15 @@ the card (``cuda`` tests, and ``chip_smoke.py``). Tolerances: the
 reference's own, 2e-5 in f32 and 3e-2 in bf16 for the backward pass;
 2e-4 for gradients through the whole wrapper, as
 tests/test_flash_attention.py holds its gradients. The f32 kernels at
-heads up to 128 compute each product in 3xTF32; an emulation of those
+heads up to 512 compute their products in 3xTF32; an emulation of those
 products on the CPU runs through the plain backward against the JAX
-package at the f32 tolerance.
+package at the f32 tolerance. C3: the JAX package's own f32 error at
+scores of ±60 (``chip_smoke.scale4_arrays``), from an f64 backward, is
+pinned here, and the wide f32 kernels are held to twice it on the card.
 """
 
+import os
+import sys
 import time
 
 import jax
@@ -40,6 +44,9 @@ from deeplearning4j_tpu_torch.ops.flash_attention import (
     flash_attention_fwd_plain,
 )
 
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import chip_smoke  # noqa: E402
+
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 GRAD_TOL = 2e-4
 # the 3xTF32 kernels against the plain f32 backward at inputs drawn at
@@ -50,6 +57,21 @@ GRAD_TOL = 2e-4
 # scores sum 48 TF32 products on the tensor cores) and under this bound,
 # one TF32 product's dozens of times over it
 SCALE4_REL = 1e-4
+# C3: the JAX package's own f32 error (``_flash_fwd_impl`` and
+# ``_flash_bwd_impl`` in interpret mode, one 128 x 128 block, causal) on
+# ``chip_smoke.scale4_arrays(d)`` ([2, 128, d], 4 x randn from numpy
+# seeds: scores of ±60 and more), from ``chip_smoke.bwd_f64``, relative
+# to max |ref|, for dq, dk and dv, measured on the CPU
+# (test_reference_error_at_scale4_is_pinned re-measures it). The
+# reference's two passes compute the scores alike, so s - lse cancels
+# their rounding; the wide f32 kernels (heads 256, 512) take the scores
+# in the f32 forward's order for that, and are held to twice these on
+# the card. The 3xTF32 kernels of heads <= 128 take them on the tensor
+# cores and miss twice them (ROADMAP Queue C, C4)
+REF_SCALE4_REL = {64: (3.4386e-06, 3.4765e-06, 1.3591e-06),
+                  128: (4.8767e-06, 3.2174e-06, 1.7877e-06),
+                  256: (1.0905e-05, 1.2654e-05, 2.6006e-06),
+                  512: (8.4214e-06, 7.7507e-06, 4.6950e-06)}
 
 
 @pytest.fixture
@@ -148,6 +170,75 @@ def test_plain_bwd_at_tf32x3_tiles_matches_pallas_on_ragged_tiles(
         _close(t.numpy(), w, TOL["float32"])
 
 
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("tq,tk", [(40, 40), (24, 40)])
+@pytest.mark.parametrize("d,bq,bk", [
+    (256, 64, 16), (512, 32, 8),   # flash_dq_kernel_wide_tf32x3: resident rows, key tiles
+    (256, 16, 64), (512, 8, 32),   # flash_dkv_kernel_wide_tf32x3: query tiles, resident keys
+])
+def test_plain_bwd_at_wide_tf32x3_tiles_matches_pallas_on_ragged_tiles(
+        rng, causal, tq, tk, d, bq, bk):
+    """The f32 kernels' oracle at the wide 3xTF32 kernels' own tiles and
+    heads (one ragged tile in q and in k; at tq < tk an offset diagonal)
+    against the Pallas backward at exact blocks of 8, at the f32
+    tolerance."""
+    q, k, v = _arrays(rng, [(2, tq, d), (2, tk, d), (2, tk, d)])
+    (g,) = _arrays(rng, [(2, tq, d)])
+    jq, jk, jv, jg = (_jax(a, "float32") for a in (q, k, v, g))
+    jo, jl = _flash_fwd_impl(jq, jk, jv, causal, 8, 8, interpret=True)
+    want = _flash_bwd_impl(jq, jk, jv, jo, jl, jg, causal, 8, 8,
+                           interpret=True)
+    got = flash_attention_bwd_plain(
+        *(_torch(a, "float32") for a in (q, k, v, jo)),
+        torch.tensor(np.asarray(jl)), _torch(g, "float32"), causal, bq, bk)
+    for t, w in zip(got, want):
+        assert t.dtype == torch.float32 and t.shape == w.shape
+        _close(t.numpy(), w, TOL["float32"])
+
+
+@pytest.mark.parametrize("d", sorted(REF_SCALE4_REL))
+def test_reference_error_at_scale4_is_pinned(d):
+    """C3 on the CPU: the JAX package's f32 backward on the scale-4
+    arrays, from the f64 backward, stays within twice the pinned
+    figures (either way): the yardstick of the card's C3 test."""
+    q, k, v, g = chip_smoke.scale4_arrays(np, d)
+    jq, jk, jv, jg = (jnp.asarray(a) for a in (q, k, v, g))
+    jo, jl = _flash_fwd_impl(jq, jk, jv, True, 128, 128, interpret=True)
+    got = _flash_bwd_impl(jq, jk, jv, jo, jl, jg, True, 128, 128, interpret=True)
+    ref = chip_smoke.bwd_f64(torch, *(torch.tensor(a) for a in (q, k, v, g)), True)
+    errs = chip_smoke.rel_errors([torch.tensor(np.asarray(a)) for a in got], ref)
+    for err, pinned in zip(errs, REF_SCALE4_REL[d]):
+        assert pinned / 2 <= err <= 2 * pinned, (d, errs)
+
+
+def test_scale4_emulation_puts_the_error_in_the_scores_order():
+    """C3's emulation (``scripts/scale4_emulation.py``): with lse from the
+    f32 forward's scores, the backward that takes its scores in the
+    forward's order stays within twice the JAX package's own error at
+    every head, and scores from the tensor cores, over the head's width
+    up to 128 or over halves of it, do not."""
+    import importlib.util
+    import io
+    import json
+    from contextlib import redirect_stdout
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "scale4_emulation", os.path.join(root, "scripts", "scale4_emulation.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    out = io.StringIO()
+    with redirect_stdout(out):
+        assert module.main() == 0
+    rows = [json.loads(ln.split(" ", 1)[1]) for ln in out.getvalue().splitlines()]
+    assert [r["d"] for r in rows] == sorted(REF_SCALE4_REL)
+    for r in rows:
+        ref, width = REF_SCALE4_REL[r["d"]], min(r["d"], 128)
+        assert all(e <= 2 * x for e, x in zip(r["errors"]["forward_order"], ref))
+        for chain in (width, width // 2):
+            assert any(e > 2 * x for e, x in zip(r["errors"][f"tensor_cores_{chain}"], ref))
+
+
 # ------------------- the 3xTF32 products of the f32 kernels, emulated
 
 def _tf32_round(x):
@@ -215,13 +306,18 @@ def test_tf32_split_is_exact_and_small():
     assert bool(((x - big).abs() <= x.abs() * 2.0 ** -11).all())
 
 
-def test_tf32x3_products_hold_the_f32_tolerance(rng):
+@pytest.mark.parametrize("bh,t,d,bq,bk", [
+    (2, 512, 128, 128, 32),   # flash_dq_kernel_tf32x3's tiles at d 128
+    (1, 256, 256, 64, 16),    # flash_dq_kernel_wide_tf32x3's at 256
+    (1, 256, 512, 32, 8),     # and at 512
+])
+def test_tf32x3_products_hold_the_f32_tolerance(rng, bh, t, d, bq, bk):
     """The precision argument of the f32 kernels on the CPU: the blocked
     backward with every product in emulated 3xTF32, at [2, 512, 128] f32
-    causal with q scaled so that the scores span about ±8, holds dq, dk
-    and dv within 2e-5 of the JAX package's Pallas backward; from the
-    big halves alone (one TF32 product) it does not."""
-    bh, t, d = 2, 512, 128
+    causal (and [1, 256, 256], [1, 256, 512]) with q scaled so that the
+    scores span about ±8, holds dq, dk and dv within 2e-5 of the JAX
+    package's Pallas backward; from the big halves alone (one TF32
+    product) it does not."""
     q, k, v, g = _arrays(rng, [(bh, t, d)] * 4)
     q = q * 1.8
     jq, jk, jv, jg = (_jax(a, "float32") for a in (q, k, v, g))
@@ -229,7 +325,7 @@ def test_tf32x3_products_hold_the_f32_tolerance(rng):
     want = [np.asarray(w) for w in _flash_bwd_impl(
         jq, jk, jv, jo, jl, jg, True, 256, 256, interpret=True)]
     args = (*(torch.tensor(a) for a in (q, k, v)), torch.tensor(np.asarray(jo)),
-            torch.tensor(np.asarray(jl)), torch.tensor(g), True, 128, 32)
+            torch.tensor(np.asarray(jl)), torch.tensor(g), True, bq, bk)
     span = (_prescale(args[0]) @ args[1].transpose(1, 2)).abs().max().item()
     assert 6.0 < span < 12.0
     got = _bwd_with_products(_matmul_tf32x3, *args)
@@ -387,7 +483,7 @@ def _bwd_kernel_names(dtype, d):
     if dtype == "bfloat16":
         suffix = "" if d <= 128 else "_wide" if d <= 512 else "_f32"
     else:
-        suffix = "_tf32x3" if d <= 128 else "_f32"
+        suffix = "_tf32x3" if d <= 128 else "_wide_tf32x3" if d <= 512 else "_f32"
     return (f"flash_dq_kernel{suffix}<", f"flash_dkv_kernel{suffix}<")
 
 
@@ -491,14 +587,15 @@ def _hard_f32_inputs(kind, bh, tq, tk, d, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256, 512])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("bh,tq,tk", [(4, 128, 128), (8, 72, 200)])
 @pytest.mark.parametrize("kind", ["scale4", "fine"])
 def test_tf32x3_kernels_hold_hard_f32_inputs_on_card(cuda_device, kind, d, causal,
                                                      bh, tq, tk):
-    """The 3xTF32 kernels on inputs that a wrong depth permutation, a
-    misread fragment or a dropped small term would fail. "fine": within
+    """The 3xTF32 kernels (the wide ones at 256 and 512) on inputs that a
+    wrong depth permutation, a misread fragment or a dropped small term
+    would fail. "fine": within
     the f32 tolerance 2e-5 of the plain backward, which the big halves
     alone (one TF32 product, emulated on the card through the same
     blocked backward) miss. "scale4": scores of ±40 and more carry f32
@@ -525,12 +622,11 @@ def test_tf32x3_kernels_hold_hard_f32_inputs_on_card(cuda_device, kind, d, causa
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,d", [("float32", 256), ("float32", 512), ("float32", 1024),
-                                     ("bfloat16", 1024)])
+@pytest.mark.parametrize("dtype,d", [("float32", 1024), ("bfloat16", 1024)])
 def test_simt_backward_keeps_the_heads_it_had_on_card(cuda_device, dtype, d):
-    """The f32 heads of 256-1024 and the bf16 heads of 1024 still run
-    the SIMT kernels (flash_dq_kernel_f32, flash_dkv_kernel_f32), one
-    launch each, within the tolerances of the plain backward."""
+    """The f32 and the bf16 heads of 1024 still run the SIMT kernels
+    (flash_dq_kernel_f32, flash_dkv_kernel_f32), one launch each, within
+    the tolerances of the plain backward."""
     bh, tq, tk = 2, 72, 200
     g = torch.Generator(device=cuda_device).manual_seed(6)
     dt = getattr(torch, dtype)
@@ -549,6 +645,51 @@ def test_simt_backward_keeps_the_heads_it_had_on_card(cuda_device, dtype, d):
     assert _bwd_kernel_names(dtype, d) == ("flash_dq_kernel_f32<", "flash_dkv_kernel_f32<")
     _assert_profiled(lambda: flash_attention_bwd(q, k, v, o, lse, do, True),
                      _bwd_kernel_names(dtype, d))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [160, 256, 320, 512])  # run at 256 and 512
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("bh,tq,tk", [
+    (2, 72, 200),      # tq < tk: an offset with a ragged diagonal
+    (8, 200, 200),     # ragged last q- and k-tiles
+])
+def test_wide_f32_backward_matches_plain_on_card(cuda_device, d, causal, bh, tq, tk):
+    """The f32 heads of 129-512 run flash_dq_kernel_wide_tf32x3 and
+    flash_dkv_kernel_wide_tf32x3, one launch each per backward call,
+    within 2e-5 of the plain f32 backward."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k, v, do = (torch.randn(bh, t, d, generator=g, device=cuda_device)
+                   for t in (tq, tk, tk, tq))
+    o, lse = flash_attention_fwd(q, k, v, causal)
+    kernels.reset_launches()
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert dict(kernels.LAUNCHES) == {"flash_dq": 1, "flash_dkv": 1}
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.is_contiguous()
+        assert bool(torch.isfinite(a).all())
+        assert (a - b).abs().max().item() <= 2e-5
+    assert _bwd_kernel_names("float32", d) == ("flash_dq_kernel_wide_tf32x3<",
+                                               "flash_dkv_kernel_wide_tf32x3<")
+    _assert_profiled(lambda: flash_attention_bwd(q, k, v, o, lse, do, causal),
+                     _bwd_kernel_names("float32", d))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [256, 512])
+def test_wide_tf32x3_kernels_hold_the_reference_error_at_scale4_on_card(cuda_device, d):
+    """C3 on the card: on the scale-4 arrays (scores of ±60 and more), the
+    wide f32 kernels' error from the f64 backward, after the port's f32
+    forward, is at most twice the JAX package's own f32 error
+    (REF_SCALE4_REL) for each of dq, dk and dv."""
+    q, k, v, do = (torch.tensor(a, device=cuda_device)
+                   for a in chip_smoke.scale4_arrays(np, d))
+    ref = chip_smoke.bwd_f64(torch, q, k, v, do, True)
+    o, lse = flash_attention_fwd(q, k, v, True)
+    errs = chip_smoke.rel_errors(flash_attention_bwd(q, k, v, o, lse, do, True), ref)
+    assert all(e <= 2 * r for e, r in zip(errs, REF_SCALE4_REL[d])), (errs, d)
 
 
 @pytest.mark.cuda
