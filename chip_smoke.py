@@ -15,7 +15,8 @@ Phases (any failure ends the run with a non-zero exit and no result):
    ``flash_dq_kernel``, ``flash_dkv_kernel``, ``flash_dq_kernel_wide``,
    ``flash_dkv_kernel_wide``, ``lstm_fwd_kernel``,
    ``lstm_bwd_kernel`` or ``lstm_dw_kernel``, or an
-   f32 ``flash_dq_kernel_tf32x3``, ``flash_dkv_kernel_tf32x3``,
+   f32 ``flash_fwd_kernel_tf32x3``, ``flash_dq_kernel_tf32x3``,
+   ``flash_dkv_kernel_tf32x3``,
    ``flash_dq_kernel_wide_tf32x3``, ``flash_dkv_kernel_wide_tf32x3``,
    ``lstm_fwd_kernel``, ``lstm_bwd_kernel`` or ``lstm_dw_kernel``,
    spills registers (``BF16_KERNELS``, ``F32_KERNELS``).
@@ -28,7 +29,9 @@ Phases (any failure ends the run with a non-zero exit and no result):
    forward call must be
    one launch of the kernel its dtype and head take
    (``fwd_kernel_name``: the bf16 heads of 256, 512 and 1024 run
-   ``flash_fwd_kernel_wide``), a backward call one launch of each of
+   ``flash_fwd_kernel_wide``, the f32 heads up to 512
+   ``flash_fwd_kernel_tf32x3`` and of 1024 the SIMT kernel), a backward
+   call one launch of each of
    the two its dtype and head take (``bwd_kernel_names``: the bf16
    heads of 256 and 512 run ``flash_dq_kernel_wide`` and
    ``flash_dkv_kernel_wide``, 1024 the SIMT kernels; the f32 heads up
@@ -51,11 +54,16 @@ Phases (any failure ends the run with a non-zero exit and no result):
    ``dkv_bound_tf32x3_ms``: three TF32 products per f32 one at 495
    TFLOP/s) beside the f32 CUDA-core bound, and each kernel's share of
    both (the tensor-core kernels may beat the CUDA-core bound: a share
-   of it above 1 is no error). Last, C3 (``flash_bwd_scale4`` lines,
-   printed, not gated): at each head the f32 backward's tensor-core
-   kernels run, on inputs drawn at scale 4 from numpy seeds
-   (``scale4_arrays``: scores of ±60 and more), the kernels' and the
-   plain backward's errors from an f64 backward (``bwd_f64``).
+   of it above 1 is no error); the f32 forward rows print the same two
+   bounds of the forward (``bound_ms``, ``bound_tf32x3_ms``) and its
+   shares of them. Last, C3 and C4 (``flash_bwd_scale4`` lines): at each
+   f32 head up to 512, on inputs drawn at scale 4 from numpy seeds
+   (``scale4_arrays``: scores of ±60 and more), the f32 forward's errors
+   from an f64 forward (``fwd_f64``) and the f32 backward's after it
+   from an f64 backward (``bwd_f64``), beside the plain backward's; the
+   run fails where the forward's or the backward's passes twice the JAX
+   package's own f32 error there (``REF_SCALE4_FWD_REL``,
+   ``REF_SCALE4_REL``).
 2b. LSTM kernels: first one call of ``lstm_fwd``'s timed bf16
    instantiation at the training shape, printed as ``lstm_fwd_phases``:
    the mean µs per step (over blocks and steps) of the barrier wait, the
@@ -118,8 +126,9 @@ Phases (any failure ends the run with a non-zero exit and no result):
    step time and the flash kernels' ms and share of it are printed
    (``train_f32``). Then the same for the wide-head step in f32
    (``WIDE_F32_TRAIN``: ``WIDE_TRAIN`` in f32, every attention call [32,
-   1024, 256] f32 causal, the backward through the wide 3xTF32 kernels,
-   the forward the SIMT kernel; ``train_wide_f32``).
+   1024, 256] f32 causal, the backward through the wide 3xTF32 kernels;
+   ``train_wide_f32``). Both f32 steps' forward runs
+   ``flash_fwd_kernel_tf32x3`` and nothing else.
 5. char-RNN serving at full width: the JAX package's LSTM decode
    benchmark (vocab 64, two GravesLSTM of 512, RnnOutputLayer softmax,
    f32), random weights from a numpy seed, greedy ``generate`` of 128
@@ -275,6 +284,27 @@ WIDE_F32_TRAIN = dict(WIDE_TRAIN, compute_dtype="float32")
 # kernels run; the CPU tests measure the JAX package's own f32 error on
 # the same arrays
 SCALE4_HEADS, SCALE4_BH, SCALE4_T = (64, 128, 256, 512), 2, 128
+# C3: the JAX package's own f32 backward error (``_flash_fwd_impl`` and
+# ``_flash_bwd_impl`` in interpret mode, one 128 x 128 block, causal) on
+# ``scale4_arrays(d)``, from ``bwd_f64``, relative to max |ref|, for dq,
+# dk and dv, measured on the CPU (tests/test_torch_flash_backward.py
+# re-measures it). The reference's two passes compute the scores alike,
+# so s - lse cancels their rounding; the port's f32 kernels take every
+# score in the forward's order for that, and phase 2 fails where one of
+# their errors passes twice these (ROADMAP C4)
+REF_SCALE4_REL = {64: (3.4386e-06, 3.4765e-06, 1.3591e-06),
+                  128: (4.8767e-06, 3.2174e-06, 1.7877e-06),
+                  256: (1.0905e-05, 1.2654e-05, 2.6006e-06),
+                  512: (8.4214e-06, 7.7507e-06, 4.6950e-06)}
+# the JAX package's own f32 forward error on the same arrays
+# (``_flash_fwd_impl`` in interpret mode, one 128 x 128 block, causal),
+# from ``fwd_f64``, relative to max |ref|, for o and lse, measured on the
+# CPU (tests/test_torch_flash_backward.py re-measures it); phase 2 fails
+# where the port's f32 forward passes twice these
+REF_SCALE4_FWD_REL = {64: (2.7395e-06, 2.6566e-07),
+                      128: (3.8382e-06, 3.5370e-07),
+                      256: (9.1207e-06, 6.5213e-07),
+                      512: (1.0374e-05, 6.3552e-07)}
 
 # LSTM kernels vs their plain versions (phase 2b). f32: CUDA-core FMAs
 # (no TF32) against cuBLAS f32, so only the order of the sums differs,
@@ -534,11 +564,15 @@ def fwd_kernel_name(dtype: str, d: int) -> str:
     """The profiled name (up to its template arguments) of the forward
     kernel that a padded head of ``d`` runs in ``dtype``: the bf16 heads
     of 64 and 128 the mma.sync kernel, of 256, 512 and 1024 the wide
-    mma.sync kernel, every f32 head the SIMT kernel."""
+    mma.sync kernel; the f32 heads up to 512 the 3xTF32 kernel (scores
+    on the CUDA cores, P V on the tensor cores), of 1024 the SIMT
+    kernel."""
     if dtype == "bfloat16" and d <= 128:
         return "flash_fwd_kernel<"
     if dtype == "bfloat16" and d <= 1024:
         return "flash_fwd_kernel_wide<"
+    if dtype == "float32" and d <= 512:
+        return "flash_fwd_kernel_tf32x3<"
     return "flash_fwd_kernel_f32<"
 
 
@@ -569,15 +603,16 @@ def _live_pairs(tq, tk, causal):
         else tq * tk
 
 
-def _flash_bound(bh, tq, tk, d, causal, dtype):
+def _flash_bound(bh, tq, tk, d, causal, dtype, peak=None, products=1):
     """(bound_ms, bound_by): the work this input needs (the (q, k) pairs
-    the causal mask leaves, at 4 d flops each) over the peak rate of its
-    type, or its bytes (q, k, v read once, o and lse written once) over
-    the memory rate, whichever is larger."""
-    flops = 4.0 * bh * d * _live_pairs(tq, tk, causal)
+    the causal mask leaves, at 4 d flops each, ``products`` times over)
+    over the peak rate of its type (or ``peak``), or its bytes (q, k, v
+    read once, o and lse written once) over the memory rate, whichever
+    is larger."""
+    flops = products * 4.0 * bh * d * _live_pairs(tq, tk, causal)
     size = 2 if dtype == "bfloat16" else 4
     nbytes = size * bh * d * (2 * tq + 2 * tk) + 4 * bh * tq
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = flops / (peak or PEAK_FLOPS[dtype]) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -597,6 +632,16 @@ def _flash_bwd_bound(bh, tq, tk, d, causal, dtype, flops_per_pair, n_out,
     t_ops = flops / (peak or PEAK_FLOPS[dtype]) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _flash_bound_tf32x3(bh, tq, tk, d, causal):
+    """(bound_ms, bound_by) of the f32 forward on the tensor cores in
+    3xTF32: ``TF32X3_PRODUCTS`` TF32 flops for each of its 4 d f32 flops
+    per live pair at the dense TF32 rate, or the bytes of
+    ``_flash_bound``. The f32 forward takes its scores (2 d of the 4 d)
+    on the CUDA cores, so it may not reach this bound; it may beat the
+    f32 CUDA-core one (a share of it above 1 is not an error)."""
+    return _flash_bound(bh, tq, tk, d, causal, "float32", PEAK_TF32, TF32X3_PRODUCTS)
 
 
 def _flash_bwd_bound_tf32x3(bh, tq, tk, d, causal, flops_per_pair, n_out):
@@ -751,33 +796,65 @@ def bwd_f64(torch, q, k, v, do, causal):
     return c * (ds @ k), ds.transpose(1, 2) @ qs, p.transpose(1, 2) @ do
 
 
+def fwd_f64(torch, q, k, v, causal):
+    """(o, lse [bh, tq, 1]) in f64 of softmax(qs k^T) v on [bh, t, d]
+    inputs (qs as ``bwd_f64``'s), dense: the forward's reference at
+    scale 4, on any device."""
+    q, k, v = (x.double() for x in (q, k, v))
+    tq, tk, d = q.shape[1], k.shape[1], q.shape[2]
+    s = (q * torch.tensor(1.0 / d ** 0.5, dtype=torch.float32).item()) @ k.transpose(1, 2)
+    if causal:
+        rows = torch.arange(tq, device=q.device)[:, None] + (tk - tq)
+        s = s.masked_fill(rows < torch.arange(tk, device=q.device)[None], float("-inf"))
+    return torch.softmax(s, dim=-1) @ v, torch.logsumexp(s, dim=-1, keepdim=True)
+
+
 def rel_errors(got, ref):
     """max |got - ref| / max |ref| of each output, as floats."""
     return [((a.double() - r).abs().max() / r.abs().max()).item()
             for a, r in zip(got, ref)]
 
 
+def scale4_row(torch, np, flash, d):
+    """C3 and C4 at a head of ``d``, on ``scale4_arrays`` (causal): the
+    errors from ``fwd_f64`` of the port's f32 forward (o, lse), and from
+    ``bwd_f64`` of its f32 backward after it (dq, dk, dv) and of the
+    plain f32 backward on the same o and lse, relative to max |ref|,
+    each beside its ratio to the JAX package's own error
+    (``REF_SCALE4_FWD_REL``, ``REF_SCALE4_REL``)."""
+    q, k, v, do = (torch.tensor(a, device="cuda") for a in scale4_arrays(np, d))
+    o, lse = flash.flash_attention_fwd(q, k, v, True)
+    fwd = rel_errors((o, lse), fwd_f64(torch, q, k, v, True))
+    ref = bwd_f64(torch, q, k, v, do, True)
+    bwd = rel_errors(flash.flash_attention_bwd(q, k, v, o, lse, do, True), ref)
+    return dict(d=d, bh=SCALE4_BH, t=SCALE4_T, causal=True, forward=fwd,
+                forward_ratio=[e / r for e, r in zip(fwd, REF_SCALE4_FWD_REL[d])],
+                kernels=bwd, ratio=[e / r for e, r in zip(bwd, REF_SCALE4_REL[d])],
+                plain=rel_errors(flash.flash_attention_bwd_plain(
+                    q, k, v, o, lse, do, True), ref))
+
+
+def scale4_gate(row):
+    """Fails where the port's f32 forward or backward on the scale-4
+    arrays passes twice the JAX package's own error (a ratio above 2)."""
+    _check(max(row["forward_ratio"] + row["ratio"]) <= 2,
+           f"flash_bwd_scale4 d {row['d']}: forward {row['forward']} (ratios "
+           f"{row['forward_ratio']}), backward {row['kernels']} (ratios "
+           f"{row['ratio']}) pass twice the reference's f32 error")
+
+
 def phase_scale4(torch, np, flash):
-    """Phase 2, C3: at each head the f32 backward's tensor-core kernels
-    run (``SCALE4_HEADS``), on ``scale4_arrays`` (causal), the errors
-    from ``bwd_f64`` of the kernels (after the port's f32 forward) and
-    of the plain f32 backward on the same o and lse, relative to max
-    |ref| (``scripts/flash_bwd_rows.py`` prints them for another
-    checkout's port). Printed, not gated here: the card tests hold the
-    kernels at heads 256 and 512 to twice the JAX package's own f32
-    error on these arrays."""
+    """Phase 2, C3 and C4: ``scale4_row`` at each head the f32 kernels
+    run up to 512 (``SCALE4_HEADS``), printed as ``flash_bwd_scale4``
+    lines and gated by ``scale4_gate`` (``scripts/flash_bwd_rows.py``
+    prints the rows of another checkout's port, ungated)."""
     rows = []
     for d in SCALE4_HEADS:
-        q, k, v, do = (torch.tensor(a, device="cuda") for a in scale4_arrays(np, d))
-        ref = bwd_f64(torch, q, k, v, do, True)
-        o, lse = flash.flash_attention_fwd(q, k, v, True)
-        row = dict(d=d, bh=SCALE4_BH, t=SCALE4_T, causal=True,
-                   kernels=rel_errors(flash.flash_attention_bwd(q, k, v, o, lse, do, True),
-                                      ref),
-                   plain=rel_errors(flash.flash_attention_bwd_plain(
-                       q, k, v, o, lse, do, True), ref))
+        row = scale4_row(torch, np, flash, d)
         print("flash_bwd_scale4 " + json.dumps(row), flush=True)
         rows.append(row)
+    for row in rows:
+        scale4_gate(row)
     return rows
 
 
@@ -853,18 +930,27 @@ def fwd_row(torch, F, flash, g, case, kernel):
             tiled = lambda: flash._flash_fwd_cuda(q, k, v, causal, bq)  # noqa: E731
             errors(*tiled(), f"block_q {bq}")
             by_block_q[bq] = _device_ms(torch, tiled, 20, "flash_fwd_kernel")
-    return dict(dtype=dtype, bh=bh, tq=tq, tk=tk, d=d, causal=causal,
-                err_o=err_o, err_lse=err_l,
-                ms=_sum_ms(times),
-                kernel_only_ms=_sum_ms(times, "flash_fwd_kernel"),
-                kernel_only_ms_by_block_q=by_block_q,
-                plain_ms=_device_ms(torch, plain, 3),
-                library_ms=_device_ms(torch, library, 20),
-                bound_ms=bound_ms, bound_by=bound_by,
-                call_ms=_time_ms(torch, run, 20),
-                plain_call_ms=_time_ms(torch, plain, 3, warmup=1),
-                library_call_ms=_time_ms(torch, library, 20),
-                kernels=sorted(times))
+    row = dict(dtype=dtype, bh=bh, tq=tq, tk=tk, d=d, causal=causal,
+               err_o=err_o, err_lse=err_l,
+               ms=_sum_ms(times),
+               kernel_only_ms=_sum_ms(times, "flash_fwd_kernel"),
+               kernel_only_ms_by_block_q=by_block_q,
+               plain_ms=_device_ms(torch, plain, 3),
+               library_ms=_device_ms(torch, library, 20),
+               bound_ms=bound_ms, bound_by=bound_by,
+               call_ms=_time_ms(torch, run, 20),
+               plain_call_ms=_time_ms(torch, plain, 3, warmup=1),
+               library_call_ms=_time_ms(torch, library, 20),
+               kernels=sorted(times))
+    if dtype == "float32":
+        # the bound on the tensor cores in 3xTF32 beside the f32 CUDA-core
+        # one (``bound_ms``), and the kernel's share of both, as the f32
+        # backward rows have them
+        ms, by = _flash_bound_tf32x3(bh, tq, tk, d, causal)
+        row |= dict(bound_tf32x3_ms=ms, bound_tf32x3_by=by,
+                    bound_tf32x3_share=ms / row["kernel_only_ms"],
+                    bound_share=bound_ms / row["kernel_only_ms"])
+    return row
 
 
 def phase_kernels(torch, F, flash):
@@ -1188,13 +1274,13 @@ def phase_train_f32(torch, np, kernels, flash, step="train_f32"):
     backward through the 3xTF32 kernels), and ``train_wide_f32``, the
     wide-head step in f32 (every attention call [32, 1024, 256] f32
     causal, the backward through the wide 3xTF32 kernels). Each flash
-    kernel launches once per block, and the step's backward runs only
-    the kernels of ``bwd_kernel_names``; the loss and every gradient
-    against the same step with the plain attention
+    kernel launches once per block, the step's forward runs only the
+    kernel of ``fwd_kernel_name`` (``flash_fwd_kernel_tf32x3``) and its
+    backward only those of ``bwd_kernel_names``; the loss and every
+    gradient against the same step with the plain attention
     (``F32_TRAIN_LOSS_REL``, ``F32_TRAIN_GRAD_REL``); the step's device
-    time, the flash kernels' ms per step and share of it (the forward,
-    ``flash_fwd_kernel_f32``, on the CUDA cores) are printed as a line
-    named ``step``."""
+    time, the flash kernels' ms per step and share of it are printed as
+    a line named ``step``."""
     conf, batch = F32_STEPS[step][:2]
     t, layers, heads = conf["max_len"], conf["n_layers"], conf["num_heads"]
     d_head = conf["d_model"] // heads
@@ -1214,6 +1300,10 @@ def phase_train_f32(torch, np, kernels, flash, step="train_f32"):
     _check(all(any(k in n for k in names) for n in ran)
            and all(any(k in n for n in ran) for k in names),
            f"the {step} step's backward ran {ran}, not {names}")
+    fwd_name = fwd_kernel_name("float32", d_head)
+    ran_fwd = [n for n in per_step if "flash_fwd_kernel" in n]
+    _check(ran_fwd and all(fwd_name in n for n in ran_fwd),
+           f"the {step} step's forward ran {ran_fwd}, not {fwd_name}")
     step_ms = _sum_ms(per_step)
     flash_ms = {m: _sum_ms(per_step, m) for m in (
         "flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")}
@@ -1225,7 +1315,7 @@ def phase_train_f32(torch, np, kernels, flash, step="train_f32"):
                    flash_share={m: ms / step_ms for m, ms in flash_ms.items()},
                    backward_pair_share=(flash_ms["flash_dq_kernel"]
                                         + flash_ms["flash_dkv_kernel"]) / step_ms,
-                   backward_kernels=sorted(ran),
+                   backward_kernels=sorted(ran), forward_kernels=sorted(ran_fwd),
                    shape=[batch * heads, t, d_head],
                    top_kernels_ms_per_step=[[k[:90], ms] for k, ms in top])
     print(f"{step} " + json.dumps(metrics), flush=True)
@@ -2234,9 +2324,10 @@ BF16_KERNELS = {"flash_fwd": ("flash_fwd_kernel", "flash_fwd_kernel_wide"),
                 "lstm_bwd": ("lstm_bwd_kernel", "lstm_dw_kernel")}
 # source -> its f32 kernels held to the same gate: the f32 LSTM forward
 # and backward keep their register tiles, streams and carries in
-# registers too, and the 3xTF32 flash backward its accumulators and
-# split fragments
-F32_KERNELS = {"flash_bwd": ("flash_dq_kernel_tf32x3", "flash_dkv_kernel_tf32x3",
+# registers too, and the 3xTF32 flash kernels their accumulators, score
+# chains and split fragments
+F32_KERNELS = {"flash_fwd": ("flash_fwd_kernel_tf32x3",),
+               "flash_bwd": ("flash_dq_kernel_tf32x3", "flash_dkv_kernel_tf32x3",
                              "flash_dq_kernel_wide_tf32x3",
                              "flash_dkv_kernel_wide_tf32x3"),
                "lstm_fwd": ("lstm_fwd_kernel",),
@@ -2445,6 +2536,29 @@ def _flash_summary(done):
                         and r["tq"] == r["tk"] == WIDE_HEAD[2] and r["causal"])
     f32_train, f32_wide_train = done["4"][1]["f32"], done["4"][1]["wide_f32"]
 
+    def f32_fwd(r, train):
+        """the f32 forward (``flash_fwd_kernel_tf32x3``) at one of phase
+        4's f32 steps' shapes, or at d 512 (``train`` None): its time
+        beside the plain version and SDPA, its bounds on the CUDA cores
+        (f32) and on the tensor cores in 3xTF32 with their shares, and
+        the step's launches (left out at d 512, where no step runs)"""
+        entry = {"kernel": "flash_fwd_kernel_tf32x3", "ms": r["kernel_only_ms"],
+                  "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
+                  "max_abs_err": r["err_o"], "max_abs_err_lse": r["err_lse"],
+                  "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                  "bound_share": r["bound_share"],
+                  "bound_tf32x3_ms": r["bound_tf32x3_ms"],
+                  "bound_tf32x3_by": r["bound_tf32x3_by"],
+                  "bound_tf32x3_share": r["bound_tf32x3_share"],
+                  "shape": [r["bh"], r["tq"], r["d"]]}
+        if train:
+            entry["launches"] = train["launches"].get(flash.KERNEL, 0)
+        return entry
+
+    def f32_fwd_row(d, bh, t):
+        return next(r for r in rows if r["dtype"] == "float32" and r["d"] == d
+                    and r["bh"] == bh and r["tq"] == r["tk"] == t and r["causal"])
+
     def f32(name, key, grads, r=f32_bwd, train=f32_train, suffix="_tf32x3"):
         """the f32 backward as one of phase 4's f32 steps runs it (by
         default at the training shape, [128, 1024, 64] causal, the 3xTF32
@@ -2496,6 +2610,10 @@ def _flash_summary(done):
         "wide_train_launches": wide_train["launches"].get(flash.KERNEL, 0),
         "f32_train_launches": f32_train["launches"].get(flash.KERNEL, 0),
         "wide_f32_train_launches": f32_wide_train["launches"].get(flash.KERNEL, 0),
+        # the f32 forward at the f32 steps' shapes and at d 512
+        "f32": f32_fwd(f32_fwd_row(d_head, train_bh, TRAIN["max_len"]), f32_train),
+        "wide_head_f32": f32_fwd(f32_fwd_row(*WIDE_HEAD), f32_wide_train),
+        "wide_head_f32_512": f32_fwd(f32_fwd_row(*WIDE_F32_512_CASES[0][1:4]), None),
     }] + [{
         "name": name, "route": "cuda", "source": SRC + "flash_bwd.cu",
         "replaces": f"deeplearning4j_tpu/ops/flash_attention.py:{line}",

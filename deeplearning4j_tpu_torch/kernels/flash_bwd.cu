@@ -117,14 +117,20 @@
 //   cross the diagonal, tq or tk; 0 spills (chip_smoke.py phase 1).
 //
 // The f32 kernels of heads up to 128 (flash_dq_kernel_tf32x3,
-// flash_dkv_kernel_tf32x3; 1-128 zero-padded to 64 or 128) run on the
-// tensor cores in 3xTF32 (flash_common.cuh): each f32 operand is split
-// into a TF32 value and the rest, and each product is three mma.sync
-// m16n8k8 TF32 products, small terms first, into an f32 accumulator.
-// What bounds them at [128, 1024, 64] f32 causal: 6 d flops per live pair
-// in dq and 8 d in dk/dv, three times over at the dense TF32 rate (0.156
-// and 0.208 ms at 495 TFLOP/s; 0.385 and 0.513 ms of f32 on the CUDA
-// cores). Their structure is the bf16 kernels' (a warp owns 16 rows, the
+// flash_dkv_kernel_tf32x3; 1-128 zero-padded to 64 or 128) take their
+// scores on the CUDA cores in the forward's order (score_chain,
+// flash_common.cuh: each score one fma chain over the head from 0, the
+// bits of flash_fwd_kernel_tf32x3's, from which lse came) and run every
+// other product on the tensor cores in 3xTF32 (flash_common.cuh): each
+// f32 operand is split into a TF32 value and the rest, and each product
+// is three mma.sync m16n8k8 TF32 products, small terms first, into an
+// f32 accumulator. What bounds them at [128, 1024, 64] f32 causal: 6 d
+// flops per live pair in dq and 8 d in dk/dv, three times over at the
+// dense TF32 rate (0.156 and 0.208 ms at 495 TFLOP/s; 0.385 and 0.513 ms
+// of f32 on the CUDA cores); the scores' 2 d flops on the CUDA cores
+// alone take 0.128 ms of them. With S on the tensor cores, as first
+// designed, their errors at scores of ±60 read 6-22x the reference's
+// (ROADMAP C4). Their structure is the bf16 kernels' (a warp owns 16 rows, the
 // causal tiles with the most work first, masks only on steps that cross
 // the diagonal, tq or tk, no atomics, 16-byte stores), in f32:
 // - 8 warps and 128 resident rows a block (q and dO in dq, K and V in
@@ -166,7 +172,7 @@
 //   and 8 at 512 in two cp.async stages (65 KB); one block an SM;
 // - the scores are not taken on the tensor cores: each is one fma chain
 //   over the head's columns in order on the CUDA cores, bit for bit the
-//   score of flash_fwd_kernel_f32 from which lse came, so that s - lse
+//   score of flash_fwd_kernel_tf32x3 from which lse came, so that s - lse
 //   cancels the forward's rounding of s as in the reference, whose two
 //   passes compute s alike. At scores of ±60 (ROADMAP C3) a score from
 //   the tensor cores, even an exact one, differs from the forward's by
@@ -1055,34 +1061,47 @@ int launch_dkv_wide(const void* q, const void* k, const void* v, const void* dou
 // ------------------------------------ the f32 kernels at heads <= 128
 
 // flash_dq_kernel_tf32x3 and flash_dkv_kernel_tf32x3: the bf16 kernels'
-// structure in f32 on the tensor cores, each product in 3xTF32
-// (flash_common.cuh). A block owns ROWS = 128 rows (query rows in
-// flash_dq, keys in flash_dkv), 16 a warp, resident in shared memory;
-// the other axis comes through a cp.async ring of T-row tiles. f32 rows
-// are twice bf16's bytes, so at d = 128 the tiles are 32 rows in two
-// stages (203 KB), at d = 64 64 rows in three (176 KB): one block an SM.
+// structure in f32, the scores in the forward's order on the CUDA cores
+// (score_chain, flash_common.cuh) and every other product on the tensor
+// cores in 3xTF32. A block owns ROWS = 128 rows (query rows in flash_dq,
+// keys in flash_dkv), 16 a warp, resident in shared memory; the other
+// axis comes through a cp.async ring of T-row tiles. f32 rows are twice
+// bf16's bytes, so at d = 128 the tiles are 32 rows in two stages, at
+// d = 64 64 rows in three; each warp stages its 16 x NS scores of a step
+// (40 words a row): 190-219 KB, one block an SM.
 template <int D>
 struct Tf32Tiles {
   static constexpr int ROWS = 128;              // query rows or keys a block
   static constexpr int NT = ROWS * 2;           // 8 warps
   static constexpr int T = D == 64 ? 64 : 32;   // rows a ring tile
   static constexpr int STAGES = D == 64 ? 3 : 2;
-  // f32 row stride in words: 4 (mod 32), so that ldmatrix and the
-  // permuted scalar reads of B (load_b_perm_tf32) are free of conflicts
+  static constexpr int NS_DQ = 32;              // keys a flash_dq step
+  static constexpr int NS_DKV = D == 64 ? 32 : 16;  // queries a flash_dkv step
+  // f32 row stride in words: 4 (mod 32), so that ldmatrix, the score
+  // chains' reads and the permuted scalar reads of B (load_b_perm_tf32)
+  // are free of conflicts
   static constexpr int LD = D + 4;
   // the resident rows (two matrices), then STAGES tiles of two
   static constexpr size_t rows_bytes = sizeof(float) * (size_t)(2 * ROWS + 2 * STAGES * T) * LD;
-  // flash_dkv: then STAGES tiles of lse and of delta
-  static constexpr size_t dkv_bytes = rows_bytes + sizeof(float) * 2 * STAGES * T;
+  // flash_dq: then each warp's scores of a step
+  static constexpr size_t dq_bytes = rows_bytes + sizeof(float) * ROWS * score_stride(NS_DQ);
+  // flash_dkv: then STAGES tiles of lse and of delta, then each warp's
+  // scores of a step
+  static constexpr size_t ls_bytes = sizeof(float) * 2 * STAGES * T;
+  static constexpr size_t dkv_bytes =
+      rows_bytes + ls_bytes + sizeof(float) * ROWS * score_stride(NS_DKV);
   static_assert(D == 64 || D == 128, "the 3xTF32 kernels take heads of 64 and 128");
-  static_assert(dkv_bytes <= SMEM_LIMIT, "3xTF32 layout exceeds shared memory");
+  static_assert(dq_bytes <= SMEM_LIMIT && dkv_bytes <= SMEM_LIMIT,
+                "3xTF32 layout exceeds shared memory");
 };
 
 // flash_dq in f32: a warp owns 16 query rows (qs and dO resident, read by
 // ldmatrix at each step and split as read); steps of NS = 32 keys: S = qs
-// K^T and dP = dO V^T (B by ldmatrix of the K and V stage), ds in the S
-// accumulators, then dq += ds K with ds's accumulators as A fragments
-// (c_to_a_tf32) and K's rows read in the same permuted order. Each
+// K^T in the forward's order on the CUDA cores (each lane a 4 x 4 tile of
+// chains, staged through the warp's rows of Ss into the accumulator
+// layout) and dP = dO V^T in 3xTF32 (B by ldmatrix of the V stage), ds
+// in the S accumulators, then dq += ds K with ds's accumulators as A
+// fragments (c_to_a_tf32) and K's rows read in the same permuted order. Each
 // 8-column tile of dq sums a step in a zeroed partial that is then added
 // to the f32 accumulator with one rounded add: the tensor cores'
 // accumulation is not rounded to nearest, and a chain of mma.sync over
@@ -1096,7 +1115,7 @@ flash_dq_kernel_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
                        int tk, int n_qtiles, int causal, float q_scale, float scale) {
   using Tl = Tf32Tiles<D>;
   constexpr int BQ = Tl::ROWS, NT = Tl::NT, TK = Tl::T, STAGES = Tl::STAGES, LD = Tl::LD;
-  constexpr int NS = 32;  // keys a step
+  constexpr int NS = Tl::NS_DQ, LS = score_stride(NS);  // keys a step; a score row's stride
   extern __shared__ __align__(128) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);
   float* dOs = Qs + BQ * LD;
@@ -1116,6 +1135,7 @@ flash_dq_kernel_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
   const float* vb = v + (size_t)b * tk * D;
   float* Qw = Qs + 16 * warp * LD;  // this warp's rows: q, later its dq
   float* dOw = dOs + 16 * warp * LD;
+  float* Sw = reinterpret_cast<float*>(smem + Tl::rows_bytes) + 16 * warp * LS;  // its scores
 
   // this warp's q and dO rows: copy group 0
   load_warp_rows<D, LD>(Qw, q + (size_t)b * tq * D, r0, tq, lane);
@@ -1188,23 +1208,25 @@ flash_dq_kernel_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
       if (kc0 >= tk || (causal && kc0 > r0 + 15 + offset)) continue;
       const float* Kt = Ks + (kt % STAGES) * TK * LD + NS * j * LD;
       const float* Vt = Vs + (kt % STAGES) * TK * LD + NS * j * LD;
-      float s[NS / 8][4] = {}, dp[NS / 8][4] = {};
+      // S in the forward's order, through this warp's rows of Ss (whose
+      // last scores every lane has read)
+      __syncwarp();
+      score_chain<D, LD, 4, NS / 8, LS>(Sw, Qw, Kt, lane);
+      float s[NS / 8][4], dp[NS / 8][4] = {};
 #pragma unroll
       for (int kk = 0; kk < D / 8; ++kk) {
-        FragA qa, da;
-        load_a_tf32<LD>(qa, Qw, kk, lane);
+        FragA da;
         load_a_tf32<LD>(da, dOw, kk, lane);
 #pragma unroll
         for (int jj = 0; jj < NS / 16; ++jj) {
-          FragB bk[2], bv[2];
-          load_bt_tf32<LD>(bk, Kt, jj, kk, lane);
+          FragB bv[2];
           load_bt_tf32<LD>(bv, Vt, jj, kk, lane);
-          mma_tf32x3(s[2 * jj], qa, bk[0]);
-          mma_tf32x3(s[2 * jj + 1], qa, bk[1]);
           mma_tf32x3(dp[2 * jj], da, bv[0]);
           mma_tf32x3(dp[2 * jj + 1], da, bv[1]);
         }
       }
+      __syncwarp();
+      gather_scores<NS / 8, LS>(s, Sw, lane);
       // ds = p (dP - delta); masks only where the step crosses tk or this
       // warp's diagonal
       const bool edge = kc0 + NS > tk || (causal && kc0 + NS - 1 > r0 + offset);
@@ -1252,10 +1274,10 @@ int launch_dq_tf32x3(const void* q, const void* k, const void* v, const void* o,
   using Tl = Tf32Tiles<D>;
   cudaError_t err = cudaFuncSetAttribute(flash_dq_kernel_tf32x3<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)Tl::rows_bytes);
+                                         (int)Tl::dq_bytes);
   if (err != cudaSuccess) return (int)err;
   const int n_qtiles = (tq + Tl::ROWS - 1) / Tl::ROWS;
-  flash_dq_kernel_tf32x3<D><<<bh * n_qtiles, Tl::NT, Tl::rows_bytes, stream>>>(
+  flash_dq_kernel_tf32x3<D><<<bh * n_qtiles, Tl::NT, Tl::dq_bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(o), static_cast<const float*>(dout), lse, delta,
       static_cast<float*>(dq), bh, tq, tk, n_qtiles, causal, q_scale, scale);
@@ -1266,8 +1288,10 @@ int launch_dq_tf32x3(const void* q, const void* k, const void* v, const void* o,
 // ldmatrix at each step and split as read) for the whole query loop;
 // query tiles (q, dO, lse, delta) through the ring, q pre-scaled in place
 // by the thread that copied it; steps of NS queries (32 at d = 64, 16 at
-// 128: dk and dv take D f32 registers): S^T = K qs^T and dP^T = V dO^T
-// (B by ldmatrix of the stage), p^T and ds^T in the accumulators (lse
+// 128: dk and dv take D f32 registers): S^T = K qs^T in the forward's
+// order on the CUDA cores (a lane's 4 x NS / 8 tile of chains, staged
+// through the warp's rows of Ss) and dP^T = V dO^T in 3xTF32 (B by
+// ldmatrix of the stage), p^T and ds^T in the accumulators (lse
 // and delta indexed by the accumulator's column, the query), then dv +=
 // p^T dO and dk += ds^T qs with the accumulators as A fragments and the
 // stage's rows read in the same permuted order, each 8-column tile summed
@@ -1281,7 +1305,7 @@ flash_dkv_kernel_tf32x3(const float* __restrict__ q, const float* __restrict__ k
                         int causal, float q_scale) {
   using Tl = Tf32Tiles<D>;
   constexpr int BKB = Tl::ROWS, NT = Tl::NT, QT = Tl::T, STAGES = Tl::STAGES, LD = Tl::LD;
-  constexpr int NS = D == 64 ? 32 : 16;  // queries a step
+  constexpr int NS = Tl::NS_DKV, LS = score_stride(NS);  // queries a step; a score row's stride
   extern __shared__ __align__(128) unsigned char smem[];
   float* Ks = reinterpret_cast<float*>(smem);
   float* Vs = Ks + BKB * LD;
@@ -1300,6 +1324,8 @@ flash_dkv_kernel_tf32x3(const float* __restrict__ q, const float* __restrict__ k
   const float* db = dout + (size_t)b * tq * D;
   float* Kw = Ks + 16 * warp * LD;  // this warp's rows: K, later its dk
   float* Vw = Vs + 16 * warp * LD;  // V, later dv
+  float* Sw = reinterpret_cast<float*>(smem + Tl::rows_bytes + Tl::ls_bytes)
+              + 16 * warp * LS;  // its scores
 
   // this warp's K and V rows: copy group 0
   load_warp_rows<D, LD>(Kw, k + (size_t)b * tk * D, kw0, tk, lane);
@@ -1361,23 +1387,25 @@ flash_dkv_kernel_tf32x3(const float* __restrict__ q, const float* __restrict__ k
       if (qc0 >= tq || (causal && qc0 + NS - 1 + offset < kw0)) continue;
       const float* Qj = Qt + NS * j * LD;
       const float* dOj = dOt + NS * j * LD;
-      float s[NS / 8][4] = {}, dp[NS / 8][4] = {};
+      // S^T in the forward's order, through this warp's rows of Ss (whose
+      // last scores every lane has read)
+      __syncwarp();
+      score_chain<D, LD, 4, NS / 8, LS>(Sw, Kw, Qj, lane);
+      float s[NS / 8][4], dp[NS / 8][4] = {};
 #pragma unroll
       for (int kk = 0; kk < D / 8; ++kk) {
-        FragA ka, va;
-        load_a_tf32<LD>(ka, Kw, kk, lane);
+        FragA va;
         load_a_tf32<LD>(va, Vw, kk, lane);
 #pragma unroll
         for (int jj = 0; jj < NS / 16; ++jj) {
-          FragB bq[2], bd[2];
-          load_bt_tf32<LD>(bq, Qj, jj, kk, lane);
+          FragB bd[2];
           load_bt_tf32<LD>(bd, dOj, jj, kk, lane);
-          mma_tf32x3(s[2 * jj], ka, bq[0]);
-          mma_tf32x3(s[2 * jj + 1], ka, bq[1]);
           mma_tf32x3(dp[2 * jj], va, bd[0]);
           mma_tf32x3(dp[2 * jj + 1], va, bd[1]);
         }
       }
+      __syncwarp();
+      gather_scores<NS / 8, LS>(s, Sw, lane);
       // p^T and ds^T in the accumulators: row (key) kw0 + g + 8 (e / 2),
       // column (query) qc0 + 8 n + 2 c + (e % 2); masks only where the
       // step crosses tq or this warp's diagonal
@@ -1480,56 +1508,6 @@ struct WideTf32Tiles {
   static_assert(D == 256 || D == 512, "the wide 3xTF32 kernels take heads of 256 and 512");
   static_assert(dkv_bytes <= SMEM_LIMIT, "wide 3xTF32 layout exceeds shared memory");
 };
-
-// The 16 x T scores of a group (dq: its query rows a against the key
-// tile b; dkv: its keys a against the query tile b; rows of the whole
-// head, leading dimension LD) on the CUDA cores, each one fma chain over
-// the head's columns 0 .. D - 1 from 0: the order, and so the bits, of
-// flash_fwd_kernel_f32's scores, from which the forward took lse. Then s
-// - lse holds no rounding of s that the forward's lse does not hold too,
-// as in the reference, whose two passes compute s alike (a score of the
-// tensor cores differs from the forward's by its own roundings, and at
-// scores of ±40 the exponential carried that to several times the
-// reference's error). The group's 32 WP threads (t: the thread's index
-// in its group) take 2 x 2 scores each at WP = 2 (rows t % 8 and t % 8 +
-// 8, columns t / 8 and t / 8 + 8: a warp's eight rows of one read lie 4
-// banks apart, so they read without conflicts; rows 2 r and 2 r + 1 took
-// a sixth longer at [32, 1024, 256] on the H100) and one each at WP = 4,
-// a warp's lanes sharing rows so that their reads broadcast, and write
-// them to St (row-major, [16][T]).
-template <int D, int LD, int T, int WP>
-__device__ __forceinline__ void scores_fwd_order(float* St, const float* a, const float* b,
-                                                 int t) {
-  constexpr int RB = WP == 2 ? 2 : 1;  // rows and columns a thread
-  static_assert(16 * T == 32 * WP * RB * RB, "every score once");
-  const int r = RB == 2 ? t % 8 : t / T;
-  const int col = RB == 2 ? t / 8 : t % T;
-  float s[RB][RB] = {};
-#pragma unroll 2
-  for (int i = 0; i < D; i += 4) {
-    float4 x[RB], y[RB];
-#pragma unroll
-    for (int u = 0; u < RB; ++u) {
-      x[u] = *reinterpret_cast<const float4*>(a + (r + 8 * u) * LD + i);
-      y[u] = *reinterpret_cast<const float4*>(b + (col + 8 * u) * LD + i);
-    }
-#pragma unroll
-    for (int u = 0; u < RB; ++u) {
-#pragma unroll
-      for (int w = 0; w < RB; ++w) {
-        s[u][w] = fmaf(x[u].x, y[w].x, s[u][w]);
-        s[u][w] = fmaf(x[u].y, y[w].y, s[u][w]);
-        s[u][w] = fmaf(x[u].z, y[w].z, s[u][w]);
-        s[u][w] = fmaf(x[u].w, y[w].w, s[u][w]);
-      }
-    }
-  }
-#pragma unroll
-  for (int u = 0; u < RB; ++u) {
-#pragma unroll
-    for (int w = 0; w < RB; ++w) St[(r + 8 * u) * T + col + 8 * w] = s[u][w];
-  }
-}
 
 // x = a b^T over a warp's DW head columns in 3xTF32: a its 16 rows (A by
 // ldmatrix, split as read), b the 8 NT8 rows of the tile (B by ldmatrix;

@@ -7,7 +7,9 @@
 // q pre-scale in place, named barriers, fragment loads and packing, and
 // the coalesced epilogue store; then the 3xTF32 pieces of the f32 kernels
 // on the tensor cores (the TF32 split, mma.sync m16n8k8, fragments of f32
-// rows and the f32 epilogue).
+// rows and the f32 epilogue); then the f32 kernels' scores, each one fma
+// chain in the forward's order on the CUDA cores (score_chain,
+// scores_fwd_order), and their gather into the accumulator layout.
 
 #pragma once
 
@@ -44,9 +46,9 @@ __device__ __forceinline__ float quad_sum(float x) {
 // ---------------------------------------------- the f32 (SIMT) design
 
 // The first design, on the CUDA cores through shared memory in f32, of
-// flash_fwd.cu and flash_bwd.cu: the f32 forward at every head and the
-// f32 and bf16 backward at 1024 (the bf16 forward at every head and the
-// bf16 and f32 backward up to 512 run on the tensor cores).
+// flash_fwd.cu and flash_bwd.cu: the f32 forward and the f32 and bf16
+// backward at 1024 (every other kernel runs its products on the tensor
+// cores).
 // T is the element type in device memory: bf16 is widened to f32 on load,
 // rounded back where the reference rounds (the q pre-scale, p and ds
 // before their products) and narrowed on store.
@@ -55,9 +57,9 @@ constexpr size_t SMEM_LIMIT = 232448;  // dynamic shared memory a block may use
 
 constexpr size_t round32(size_t n) { return (n + 31) / 32 * 32; }
 
-// the tile of a head of D (rows and keys): 64 up to d = 128; 32 at 256,
-// 16 at 512 and 8 at 1024, so that the f32 rows fit shared memory
-__host__ __device__ constexpr int simt_tile(int D) { return D <= 128 ? 64 : 8192 / D; }
+// the tile of a head of D (rows and keys): 8 at 1024, the one head the
+// SIMT kernels run, so that the f32 rows fit shared memory
+__host__ __device__ constexpr int simt_tile(int D) { return 8192 / D; }
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
@@ -133,6 +135,22 @@ __device__ __forceinline__ void load_tile_pair(T* a_dst, T* b_dst, const T* a, c
     const size_t off = in ? (size_t)(row0 + r) * D + col : 0;
     cp_async16(smem_addr(a_dst + r * LD + col), a + off, in ? 16 : 0);
     cp_async16(smem_addr(b_dst + r * LD + col), b + off, in ? 16 : 0);
+  }
+}
+
+// Columns [c0, c0 + C) of rows [row0, row0 + ROWS) of a row-major [t, D]
+// matrix (bf16 or f32) into the shared rows dst (leading dimension LD),
+// zeros at or past t, by the block's NT threads; with C = D the walk of
+// the chunks is load_tile_pair's.
+template <int D, int C, int LD, int ROWS, int NT, typename T>
+__device__ __forceinline__ void load_tile(T* dst, const T* src, int row0, int t, int c0) {
+  constexpr int EL = 16 / sizeof(T);
+  constexpr int CH = C / EL;
+  for (int i = threadIdx.x; i < ROWS * CH; i += NT) {
+    const int r = i / CH, col = (i % CH) * EL;
+    const bool in = row0 + r < t;
+    cp_async16(smem_addr(dst + r * LD + col), in ? src + (size_t)(row0 + r) * D + c0 + col : src,
+               in ? 16 : 0);
   }
 }
 
@@ -391,6 +409,144 @@ __device__ __forceinline__ void store_warp_rows_f32(float* dst, float* stage,
     if (row0 + r < t) {
       *reinterpret_cast<float4*>(dst + (size_t)(row0 + r) * LDG + col) =
           *reinterpret_cast<const float4*>(stage + r * LD + col);
+    }
+  }
+}
+
+// ------------------------------- the f32 scores, in the forward's order
+//
+// Every f32 kernel of heads up to 512 takes its scores s = qs k^T on the
+// CUDA cores, each score one fma chain over the head's columns 0 .. D - 1
+// in order, from 0, on the pre-scaled q (q times the scale, one rounding).
+// The forward takes lse from these scores and the backward rebuilds p =
+// exp(s - lse) from the same bits, so s - lse holds no rounding of s that
+// lse does not hold too, as in the reference, whose two passes compute s
+// alike. A score taken otherwise (on the tensor cores, or even exactly)
+// differs from the forward's by the forward's own roundings, and at
+// scores of ±60 the exponential carries that to several times the
+// reference's error (ROADMAP C3, C4; scripts/scale4_emulation.py). The
+// bits depend on each score's own chain alone (fmaf(a, b, s) is
+// fmaf(b, a, s)), so a thread may take any tile of scores.
+
+// The 16 x T scores of a group (dq: its query rows a against the key
+// tile b; dkv: its keys a against the query tile b; rows of the whole
+// head, leading dimension LD) in the forward's order (score_chain's), by
+// the wide backward kernels. The group's 32 WP threads (t: the thread's index
+// in its group) take 2 x 2 scores each at WP = 2 (rows t % 8 and t % 8 +
+// 8, columns t / 8 and t / 8 + 8: a warp's eight rows of one read lie 4
+// banks apart, so they read without conflicts; rows 2 r and 2 r + 1 took
+// a sixth longer at [32, 1024, 256] on the H100) and one each at WP = 4,
+// a warp's lanes sharing rows so that their reads broadcast, and write
+// them to St (row-major, [16][T]).
+template <int D, int LD, int T, int WP>
+__device__ __forceinline__ void scores_fwd_order(float* St, const float* a, const float* b,
+                                                 int t) {
+  constexpr int RB = WP == 2 ? 2 : 1;  // rows and columns a thread
+  static_assert(16 * T == 32 * WP * RB * RB, "every score once");
+  const int r = RB == 2 ? t % 8 : t / T;
+  const int col = RB == 2 ? t / 8 : t % T;
+  float s[RB][RB] = {};
+#pragma unroll 2
+  for (int i = 0; i < D; i += 4) {
+    float4 x[RB], y[RB];
+#pragma unroll
+    for (int u = 0; u < RB; ++u) {
+      x[u] = *reinterpret_cast<const float4*>(a + (r + 8 * u) * LD + i);
+      y[u] = *reinterpret_cast<const float4*>(b + (col + 8 * u) * LD + i);
+    }
+#pragma unroll
+    for (int u = 0; u < RB; ++u) {
+#pragma unroll
+      for (int w = 0; w < RB; ++w) {
+        s[u][w] = fmaf(x[u].x, y[w].x, s[u][w]);
+        s[u][w] = fmaf(x[u].y, y[w].y, s[u][w]);
+        s[u][w] = fmaf(x[u].z, y[w].z, s[u][w]);
+        s[u][w] = fmaf(x[u].w, y[w].w, s[u][w]);
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < RB; ++u) {
+#pragma unroll
+    for (int w = 0; w < RB; ++w) St[(r + 8 * u) * T + col + 8 * w] = s[u][w];
+  }
+}
+
+// The stride in words of a row of T staged scores (score_chain): at
+// least T and 8 (mod 32)
+__host__ __device__ constexpr int score_stride(int T) { return (T + 31) / 32 * 32 + 8; }
+
+// The forward's order by a warp's tile (the f32 forward at every head up
+// to 512 and the 3xTF32 backward up to 128): the 4 RB x 8 CB scores of
+// rows a (4 RB rows) against rows b (8 CB rows), each one fma chain over
+// the columns 0 .. D - 1 from 0. Lane l takes rows l / 8 + 4 u (u < RB)
+// and columns l % 8 + 8 w (w < CB), a register tile of RB x CB chains:
+// per 4 columns it reads RB + CB float4 for 4 RB CB fmas, and the 4 rows
+// and 8 columns a read touches lie 4 banks apart (leading dimensions 4
+// mod 32), so the lanes that share a row share its read. chain_columns
+// moves each chain on over C columns (a chain may stop after any column
+// and go on from its sum: the same fmas in the same order), and
+// store_scores writes the tile to St (leading dimension LS = 8 mod 32,
+// score_stride: the warp's 32 stores of one score hit 32 banks), whence
+// gather_scores takes the scores in the accumulator layout.
+template <int C, int LDA, int LDB, int RB, int CB>
+__device__ __forceinline__ void chain_columns(float (&s)[RB][CB], const float* a, const float* b,
+                                              int lane) {
+  static_assert(LDA % 32 == 4 && LDB % 32 == 4, "chain_columns' strides");
+  const int r = lane / 8, col = lane % 8;
+#pragma unroll 2
+  for (int i = 0; i < C; i += 4) {
+    float4 x[RB], y[CB];
+#pragma unroll
+    for (int u = 0; u < RB; ++u) x[u] = *reinterpret_cast<const float4*>(a + (r + 4 * u) * LDA + i);
+#pragma unroll
+    for (int w = 0; w < CB; ++w) y[w] = *reinterpret_cast<const float4*>(b + (col + 8 * w) * LDB + i);
+#pragma unroll
+    for (int u = 0; u < RB; ++u) {
+#pragma unroll
+      for (int w = 0; w < CB; ++w) {
+        s[u][w] = fmaf(x[u].x, y[w].x, s[u][w]);
+        s[u][w] = fmaf(x[u].y, y[w].y, s[u][w]);
+        s[u][w] = fmaf(x[u].z, y[w].z, s[u][w]);
+        s[u][w] = fmaf(x[u].w, y[w].w, s[u][w]);
+      }
+    }
+  }
+}
+
+template <int RB, int CB, int LS>
+__device__ __forceinline__ void store_scores(float* St, const float (&s)[RB][CB], int lane) {
+  static_assert(LS % 32 == 8, "store_scores' stride");
+  const int r = lane / 8, col = lane % 8;
+#pragma unroll
+  for (int u = 0; u < RB; ++u) {
+#pragma unroll
+    for (int w = 0; w < CB; ++w) St[(r + 4 * u) * LS + col + 8 * w] = s[u][w];
+  }
+}
+
+// The whole chains over D columns from 0 (leading dimension LD), to St.
+// Call it once every lane of the warp (and any other reader) is done with
+// St's last scores.
+template <int D, int LD, int RB, int CB, int LS>
+__device__ __forceinline__ void score_chain(float* St, const float* a, const float* b, int lane) {
+  float s[RB][CB] = {};
+  chain_columns<D, LD, LD, RB, CB>(s, a, b, lane);
+  store_scores<RB, CB, LS>(St, s, lane);
+}
+
+// A warp's NT8 accumulator tiles of the 16 x 8 NT8 scores at St (leading
+// dimension LS): rows g and g + 8, columns 8 n + 2 c and 8 n + 2 c + 1,
+// read as pairs (two wavefronts a read, the least for 256 bytes).
+template <int NT8, int LS>
+__device__ __forceinline__ void gather_scores(float (&s)[NT8][4], const float* St, int lane) {
+  const int g = lane / 4, c = lane % 4;
+#pragma unroll
+  for (int n = 0; n < NT8; ++n) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float2 x = *reinterpret_cast<const float2*>(St + (g + 8 * h) * LS + 8 * n + 2 * c);
+      s[n][2 * h] = x.x, s[n][2 * h + 1] = x.y;
     }
   }
 }

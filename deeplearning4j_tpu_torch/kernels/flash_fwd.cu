@@ -91,18 +91,67 @@
 // 1024 once per 32 (or 16), 554 MB a call at [8, 1024, 1024] causal, so
 // there L2's bandwidth is a second likely limit.
 //
-// The SIMT kernel (flash_fwd_kernel_f32) is on no main path and was not
-// redesigned: the first version's CUDA-core FMAs through shared memory
-// in f32 (full f32 precision, no TF32), taking the unscaled q and the
-// scale like the bf16 kernels. It runs every f32 head (the f32 heads of
-// 129-1024 zero-padded as the bf16 ones): its tiles are template
-// parameters, 64 x 64 up to d = 128, 32 x 32 at 256, 16 x 16 at 512 and
-// 8 x 8 at 1024 (simt_tile, flash_common.cuh), so that the f32 rows fit
-// shared memory (~136 KB at 256, ~133 KB at 512, ~129 KB at 1024). Its
-// global loads and stores are templated on the element type (bf16 is
-// widened on load, and p rounded to bf16 before P.V, as the reference
-// rounds it), though every bf16 head now runs on the tensor cores. A
-// correct, slow first kernel for those heads: nothing was tuned.
+// The f32 kernel (flash_fwd_kernel_tf32x3) runs the f32 heads of 64,
+// 128, 256 and 512 (1-512 zero-padded to them). Its scores must be bit
+// for bit the f32 backward's (flash_bwd.cu), which rebuilds p = exp(s -
+// lse) from lse: s - lse cancels the rounding of s only where both passes
+// computed s alike (at scores of ±60 a score taken otherwise carries
+// several times the reference's error; ROADMAP C3, C4). So each score is
+// one fma chain over the head's columns 0 .. D - 1 from 0 on the CUDA
+// cores (score_chain, flash_common.cuh), the order the backward kernels
+// take, and only P V runs on the tensor cores, in 3xTF32 (each f32
+// operand split into a TF32 value and the rest, three mma.sync m16n8k8
+// products). What bounds it at [128, 1024, 64] f32 causal: 4 d flops per
+// live pair, 0.257 ms at 67 TFLOP/s on the CUDA cores; the chains' 2 d of
+// them alone take 0.128 ms (the same at [32, 1024, 256] and [16, 1024,
+// 512]), P V in 3xTF32 (three TF32 products each) 0.052 ms at 495
+// TFLOP/s. So the chains are the kernel's floor, and its design keeps
+// them fed:
+// - 8 warps a block; a row group of 16 query rows has WP = 1 warp at 64
+//   and 128, 2 at 256 and 4 at 512, each owning DW = 64 or 128 of the
+//   head's columns of O (32 or 64 accumulator registers); 128 rows a
+//   block up to 128, 64 at 256, 32 at 512; the q-tiles with the most key
+//   tiles first;
+// - qs resident in shared memory (copied once, scaled in place: q *
+//   scale, one rounding, the backward's pre-scale), f32 rows 4 words
+//   (mod 32) apart; up to 256 K and V through a cp.async ring of T-key
+//   tiles (64 keys in three stages at 64, 32 in three at 128, 32 in two
+//   at 256); at 512 K in 256-column chunks of 32-key tiles (two stages)
+//   and V in whole tiles (one stage), since two stages of whole 32-key
+//   tiles would not fit beside qs: 172-205 KB, one block an SM;
+// - per tile the row group's 16 x T scores are chained by one warp of
+//   the group up to 256 (each lane a 4 x 8 tile of chains at 64, 4 x 4
+//   at 128 and 256) and by two at 512 (4 x 2 each, every chain carried
+//   from one chunk of K to the next), the chaining warps on different
+//   schedulers: a larger tile reads fewer bytes of shared memory per
+//   fma, and those reads bound the chains;
+//   staged in shared memory and read by every warp of the group in the
+//   accumulator layout after the group's barrier (a named barrier at
+//   256, the block's at 512), so that all of them hold the same s, m, l
+//   and p;
+// - online softmax in f32 on the accumulators (expf, logf, the -1e30
+//   sentinel and the 1e-30 floor of the SIMT kernel), masks only on
+//   tiles that cross tk or the group's diagonal, tiles wholly above it
+//   skipped;
+// - O += P V over the warp's columns with P's accumulators as A
+//   fragments (their depth permuted, flash_common.cuh) and V's rows read
+//   in that order; each 8-column tile of O sums a tile in a zeroed
+//   partial, added to O corr with one rounded fma (the tensor cores'
+//   accumulation truncates, and a chain over the whole sequence would
+//   carry that);
+// - the epilogue divides by max(l, 1e-30), stages each warp's O through
+//   its columns of its group's qs rows and writes 16-byte stores; lse is
+//   written once per row.
+//
+// The SIMT kernel (flash_fwd_kernel_f32) runs the f32 heads of 513-1024,
+// zero-padded to 1024, in the first design: CUDA-core FMAs through
+// shared memory in f32 (full f32 precision, no TF32), 8 x 8 tiles
+// (simt_tile, flash_common.cuh; ~129 KB of shared memory), taking the
+// unscaled q and the scale like the other kernels; its scores are one
+// fma chain each in the same order, so the SIMT backward at 1024 rebuilds
+// p from the same bits. Its global loads and stores are templated on the
+// element type, though only f32 runs it. A correct, slow first kernel:
+// nothing was tuned.
 //
 // The PTX helpers (cp.async, ldmatrix, mma.sync, bf16 packing, the q
 // pre-scale, quad reductions) and the pieces built on them (row copies,
@@ -532,6 +581,311 @@ int launch_wide(const void* q, const void* k, const void* v, void* o, float* lse
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------ the f32 kernel (3xTF32)
+
+// Heads of 64, 128, 256 and 512 in f32: a block of ROWS query rows in row
+// groups of 16, WP warps to a row group, each owning DW of the head's
+// columns of O (the whole head up to 128, else 128: 64 accumulator
+// registers). CW warps of the row group take its 16 x T scores of a key
+// tile, one fma chain each over the whole head, each lane a 4 x CB tile
+// of them (chain_columns, flash_common.cuh); every warp of the group then
+// runs the online softmax on all of them and P V over its own columns.
+// qs stays resident in shared memory, f32 rows 4 words (mod 32) apart.
+//
+// The tiles: a lane's RB x CB chains read RB + CB floats of shared memory
+// per column for RB CB fmas, and a warp's shared-memory reads deliver one
+// float a lane a cycle to the SM while its four schedulers issue four
+// warps' fmas, so the chains want large register tiles, spread over the
+// schedulers, and so many scores a block-tile. Up to 256, K and V come
+// through a cp.async ring of T-key tiles (64 keys in three stages at 64,
+// 32 in three at 128, 32 in two at 256), and one warp a row group chains
+// (4 x 8 at 64, 4 x 4 at 128 and 256; at 256 the chaining warps are 0, 2,
+// 5 and 7, one a scheduler, warp % 4). At 512, 32 rows of qs and two
+// stages of 32-key K and V tiles would not fit (264 KB), and 16-key
+// tiles leave 2 scores a lane, so K comes in chunks of KC = 256 columns
+// (two a tile, in two stages) and each chain goes on from its sum at the
+// next chunk (the same fmas in the same order), V in whole tiles (one
+// stage, loaded while the tile's last chunk is chained): two warps a row
+// group chain 4 x 2 each (warps 0, 1, 6 and 7). 172-205 KB: one block an
+// SM.
+template <int D>
+struct FwdTf32Tiles {
+  static constexpr int WP = D <= 128 ? 1 : D / 128;  // warps to a row group
+  static constexpr int DW = D / WP;                  // head columns a warp
+  static constexpr int NT = 256;                     // 8 warps
+  static constexpr int ROWS = 16 * (8 / WP);         // query rows a block
+  static constexpr int T = D == 64 ? 64 : 32;        // keys a tile
+  static constexpr int KC = D == 512 ? 256 : D;      // columns of a K chunk
+  static constexpr int NCH = D / KC;                 // K chunks a tile
+  static constexpr int STAGES = D <= 128 ? 3 : 2;    // the K and V ring (NCH = 1)
+  static constexpr int NT8 = T / 8;                  // 8-key accumulator tiles
+  static constexpr int CW = NCH > 1 ? 2 : 1;         // warps a row group that chain
+  static constexpr int CB = T / 8 / CW;  // a lane's tile of score chains: 4 rows x CB keys
+  static constexpr int LD = D + 4;       // f32 row stride in words: 4 (mod 32)
+  static constexpr int LDK = KC + 4;     // a K chunk's row stride
+  static constexpr int LS = score_stride(T);  // a score row's stride
+  // qs, then the ring (STAGES tiles of K and of V; or two K chunks and one
+  // V tile), then each row group's scores
+  static constexpr size_t ring_floats =
+      NCH == 1 ? (size_t)2 * STAGES * T * LD : (size_t)2 * T * LDK + (size_t)T * LD;
+  static constexpr size_t rows_bytes = sizeof(float) * ((size_t)ROWS * LD + ring_floats);
+  static constexpr size_t bytes = rows_bytes + sizeof(float) * (size_t)ROWS * LS;
+  static_assert(D == 64 || D == 128 || D == 256 || D == 512,
+                "the 3xTF32 forward takes heads of 64, 128, 256 and 512");
+  static_assert(bytes <= SMEM_LIMIT, "flash_fwd 3xTF32 layout exceeds shared memory");
+  // which share of row group rg's keys warp `part` of it chains (keys
+  // 8 CB h ..), or -1: one warp a scheduler (warp % 4)
+  __device__ static constexpr int chain_half(int rg, int part) {
+    return WP == 4 ? (part - 2 * rg == 0 || part - 2 * rg == 1 ? part - 2 * rg : -1)
+           : WP == 2 ? (part == (rg / 2) % 2 ? 0 : -1)
+                     : 0;
+  }
+};
+
+// One key tile of the online softmax in f32 on the score accumulators
+// (h = 0: row g, h = 1: row g + 8), as the SIMT kernel takes it: expf of
+// s - m (a masked score at the sentinel against a sentinel max gives
+// exp(0)); the row's max m and this thread's share of its sum l move on,
+// s becomes p, and corr[h] = exp(m_old - m_new) is the factor for O.
+template <int NS>
+__device__ __forceinline__ void online_softmax_f32(float (&s)[NS][4], float (&m)[2],
+                                                   float (&l)[2], float (&corr)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = m[h];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * h], s[n][2 * h + 1]));
+    const float m_new = quad_max(mx);
+    corr[h] = expf(m[h] - m_new);
+    float sum = 0.f;
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+#pragma unroll
+      for (int j = 2 * h; j < 2 * h + 2; ++j) {
+        s[n][j] = expf(s[n][j] - m_new);
+        sum += s[n][j];
+      }
+    }
+    l[h] = corr[h] * l[h] + sum;
+    m[h] = m_new;
+  }
+}
+
+// Per key tile: the row group's scores (the forward's order, by its
+// chaining warps into the group's rows of Ss), then, once a barrier shows
+// them to the group, every warp the masks and the online softmax on all
+// 16 x T, and O = O corr + P V over its own columns: P from the
+// accumulators as A fragments (c_to_a_tf32: the depth permuted), V's rows
+// read in that order (load_b_perm_tf32), each 8-column tile of O summed
+// over the tile in a zeroed partial (the 8-key steps outer, so that
+// consecutive mma.sync go to different partials) added with one rounded
+// fma (the tensor cores' accumulation is not rounded to nearest).
+template <int D>
+__global__ void __launch_bounds__(FwdTf32Tiles<D>::NT, 1)
+flash_fwd_kernel_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, float* __restrict__ o,
+                        float* __restrict__ lse, int bh, int tq, int tk, int n_qtiles,
+                        int causal, float scale) {
+  using Tl = FwdTf32Tiles<D>;
+  constexpr int ROWS = Tl::ROWS, NT = Tl::NT, T = Tl::T, STAGES = Tl::STAGES, NCH = Tl::NCH;
+  constexpr int WP = Tl::WP, DW = Tl::DW, NT8 = Tl::NT8, CB = Tl::CB;
+  constexpr int KC = Tl::KC, LD = Tl::LD, LDK = Tl::LDK, LS = Tl::LS;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* Rs = Qs + ROWS * LD;  // the ring
+  float* Ss = reinterpret_cast<float*>(smem + Tl::rows_bytes);  // each row group's scores
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rg = warp / WP, part = warp % WP;  // row group, share of the columns
+  const int half = Tl::chain_half(rg, part);   // the keys this warp chains, or -1
+  // the q-tiles with the most key tiles (the last ones, under the causal
+  // mask) first, so the last wave of blocks is not the longest
+  const int qt = n_qtiles - 1 - (int)(blockIdx.x / bh);
+  const int b = blockIdx.x % bh;
+  const int q0 = qt * ROWS;
+  const int r0 = q0 + 16 * rg;  // this row group's first query row
+  const int offset = tk - tq;
+  const float* kb = k + (size_t)b * tk * D;
+  const float* vb = v + (size_t)b * tk * D;
+  const float* Qg = Qs + 16 * rg * LD;  // the row group's rows of qs
+  float* Sg = Ss + 16 * rg * LS;        // and of the scores
+  // this warp's columns of its group's qs rows, later its O
+  float* Ow = Qs + 16 * rg * LD + part * DW;
+
+  // the block's q rows (zeros past tq): copy group 0
+  load_tile<D, D, LD, ROWS, NT>(Qs, q + (size_t)b * tq * D, q0, tq, 0);
+  cp_async_commit();
+
+  // causal: the last key any valid row of this tile may see
+  int k_end = tk;
+  if (causal) k_end = min(tk, min(q0 + ROWS, tq) + offset);
+  const int n_kt = k_end > 0 ? (k_end + T - 1) / T : 0;
+
+  float acc[DW / 8][4];
+#pragma unroll
+  for (int n = 0; n < DW / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m[2] = {NEG_INF_SENTINEL, NEG_INF_SENTINEL};  // rows g, g + 8
+  float l[2] = {0.f, 0.f};                            // this thread's share
+
+  // the tile's scores in Sg, seen by the group: masks, softmax, O += P V
+  // with Vt this warp's columns of the tile's V rows
+  auto softmax_pv = [&](const float* Vt, int k0) {
+    float sc[NT8][4];
+    gather_scores<NT8, LS>(sc, Sg, lane);
+    mask_scores(sc, k0, r0, tk, offset, causal, lane);
+    float corr[2];
+    online_softmax_f32(sc, m, l, corr);
+    float part_o[DW / 8][4] = {};
+#pragma unroll
+    for (int n = 0; n < NT8; ++n) {
+      FragA pa;
+      c_to_a_tf32(pa, sc[n]);
+#pragma unroll
+      for (int nd = 0; nd < DW / 8; ++nd) {
+        FragB bv;
+        load_b_perm_tf32<LD>(bv, Vt + 8 * n * LD, 8 * nd, lane);
+        mma_tf32x3(part_o[nd], pa, bv);
+      }
+    }
+#pragma unroll
+    for (int nd = 0; nd < DW / 8; ++nd) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nd][e] = fmaf(acc[nd][e], corr[e / 2], part_o[nd][e]);
+    }
+  };
+
+  if constexpr (NCH == 1) {
+    float* Ks = Rs;                    // STAGES tiles of T rows
+    float* Vs = Rs + STAGES * T * LD;  // STAGES tiles of T rows
+    // key tile kt (zeros past tk) into ring stage kt % STAGES
+    auto load_kv = [&](int kt) {
+      const int st = kt % STAGES;
+      load_tile_pair<D, LD, T, NT>(Ks + st * T * LD, Vs + st * T * LD, kb, vb, kt * T, tk);
+    };
+    // groups 1 .. STAGES - 1: the first tiles (empty groups past the last)
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (s < n_kt) load_kv(s);
+      cp_async_commit();
+    }
+    // q scaled in place (q * scale, one rounding: the backward's qs),
+    // each thread the chunks it copied once group 0 landed; then the
+    // block's barrier, after which every warp reads its group's rows
+    cp_async_wait<STAGES - 1>();
+    scale_rows_f32<D, LD, ROWS, NT>(Qs, scale, threadIdx.x);
+    __syncthreads();
+
+    for (int kt = 0; kt < n_kt; ++kt) {
+      // tile kt has landed for every thread, and every warp is done with
+      // tile kt - 1 (whose stage the next copy refills) and with its row
+      // group's scores of tile kt - 1
+      cp_async_wait<STAGES - 2>();
+      __syncthreads();
+      if (kt + STAGES - 1 < n_kt) load_kv(kt + STAGES - 1);
+      cp_async_commit();
+      if (r0 >= tq) continue;  // this row group's rows are all past tq
+      // keys k0 .. k0 + T - 1 (k0 < tk): wholly above this row group's
+      // diagonal, p = 0 throughout
+      const int k0 = kt * T;
+      if (causal && k0 > r0 + 15 + offset) continue;
+      if (half == 0) score_chain<D, LD, 4, CB, LS>(Sg, Qg, Ks + (kt % STAGES) * T * LD, lane);
+      if constexpr (WP > 1) {
+        bar_sync(1 + rg, 32 * WP);
+      } else {
+        __syncwarp();
+      }
+      softmax_pv(Vs + (kt % STAGES) * T * LD + part * DW, k0);
+    }
+  } else {
+    // a ring of steps: step u is chunk u % (NCH + 1) of K tile u / (NCH +
+    // 1), or (the last of a tile) its V tile; K chunks in two stages, V in
+    // one, each step's copy issued a step ahead (its buffer's last reader
+    // was two steps back, or at 512 the V of the last tile, NCH steps back)
+    float* Kc = Rs;                  // two chunks of T rows of KC columns
+    float* Vs = Rs + 2 * T * LDK;    // one tile of T rows
+    const int n_steps = n_kt * (NCH + 1);
+    auto load_step = [&](int u) {
+      const int kt = u / (NCH + 1), j = u % (NCH + 1);
+      if (j < NCH) {
+        load_tile<D, KC, LDK, T, NT>(Kc + ((kt * NCH + j) % 2) * T * LDK, kb, kt * T, tk, j * KC);
+      } else {
+        load_tile<D, D, LD, T, NT>(Vs, vb, kt * T, tk, 0);
+      }
+    };
+    if (n_steps > 0) load_step(0);
+    cp_async_commit();
+    cp_async_wait<1>();
+    scale_rows_f32<D, LD, ROWS, NT>(Qs, scale, threadIdx.x);
+    __syncthreads();
+
+    float cs[4][CB];  // a chaining warp's sums, carried from chunk to chunk
+    for (int u = 0; u < n_steps; ++u) {
+      // step u has landed for every thread, and every warp is done with
+      // step u - 1
+      cp_async_wait<0>();
+      __syncthreads();
+      if (u + 1 < n_steps) load_step(u + 1);
+      cp_async_commit();
+      const int kt = u / (NCH + 1), j = u % (NCH + 1);
+      if (r0 >= tq) continue;
+      const int k0 = kt * T;
+      if (causal && k0 > r0 + 15 + offset) continue;
+      if (j < NCH) {
+        if (half >= 0) {
+          if (j == 0) {
+#pragma unroll
+            for (int x = 0; x < 4; ++x) {
+#pragma unroll
+              for (int y = 0; y < CB; ++y) cs[x][y] = 0.f;
+            }
+          }
+          chain_columns<KC, LD, LDK, 4, CB>(
+              cs, Qg + j * KC, Kc + ((kt * NCH + j) % 2) * T * LDK + 8 * CB * half * LDK, lane);
+          if (j == NCH - 1) store_scores<4, CB, LS>(Sg + 8 * CB * half, cs, lane);
+        }
+        continue;
+      }
+      // the V step: the tile's scores are in Sg (the barrier above)
+      softmax_pv(Vs + part * DW, k0);
+    }
+  }
+  cp_async_wait<0>();  // the trailing (empty) groups
+
+  // epilogue: lse once per row (by the row group's first warp); O /
+  // max(l, 1e-30) staged through this warp's columns of its group's qs
+  // rows (after the tile loop no warp reads them), then coalesced 16-byte
+  // stores of its columns
+  const int g = lane / 4, c = lane % 4;
+  float denom[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    denom[h] = fmaxf(quad_sum(l[h]), 1e-30f);
+    const int row = r0 + g + 8 * h;
+    if (part == 0 && c == 0 && row < tq) lse[(size_t)b * tq + row] = m[h] + logf(denom[h]);
+  }
+#pragma unroll
+  for (int n = 0; n < DW / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] /= denom[e / 2];
+  }
+  store_warp_rows_f32<DW, LD, D>(o + (size_t)b * tq * D + part * DW, Ow, acc, 1.f, r0, tq,
+                                 lane);
+}
+
+template <int D>
+int launch_tf32x3(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
+                  int tq, int tk, int causal, float scale, cudaStream_t stream) {
+  using Tl = FwdTf32Tiles<D>;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel_tf32x3<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)Tl::bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int n_qtiles = (tq + Tl::ROWS - 1) / Tl::ROWS;
+  flash_fwd_kernel_tf32x3<D><<<bh * n_qtiles, Tl::NT, Tl::bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), lse, bh, tq, tk, n_qtiles, causal, scale);
+  return (int)cudaGetLastError();
+}
+
 // ------------------------------------------------ the f32 (SIMT) design
 
 // Shared-memory layout of a block of BQ query rows over key tiles of BKT
@@ -737,11 +1091,11 @@ extern "C" int dl4j_flash_fwd(const void* q, const void* k, const void* v, void*
   if (dtype == 1) {  // the wide heads on the tensor cores
     if (d == 256) return launch_wide<256>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
     if (d == 512) return launch_wide<512>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
-  } else if (dtype == 0) {
-    if (d == 64) return launch_f32<float, 64>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
-    if (d == 128) return launch_f32<float, 128>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
-    if (d == 256) return launch_f32<float, 256>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
-    if (d == 512) return launch_f32<float, 512>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
+  } else if (dtype == 0) {  // scores on the CUDA cores, P V in 3xTF32; 1024 the SIMT kernel
+    if (d == 64) return launch_tf32x3<64>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
+    if (d == 128) return launch_tf32x3<128>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
+    if (d == 256) return launch_tf32x3<256>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
+    if (d == 512) return launch_tf32x3<512>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
     if (d == 1024) return launch_f32<float, 1024>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
   }
   return (int)cudaErrorInvalidValue;

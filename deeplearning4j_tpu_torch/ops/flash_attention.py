@@ -9,17 +9,19 @@ kernels become CUDA kernels: ``_flash_fwd_impl`` -> ``_fwd_kernel`` is
 Which kernel runs which dtype and head:
 
 - forward: bf16 on the tensor cores at every head (``flash_fwd_kernel``
-  up to 128, ``flash_fwd_kernel_wide`` at 256, 512 and 1024); f32 on the
-  CUDA cores (``flash_fwd_kernel_f32``) at every head;
+  up to 128, ``flash_fwd_kernel_wide`` at 256, 512 and 1024); f32 up to
+  512 in ``flash_fwd_kernel_tf32x3`` (the scores on the CUDA cores, one
+  f32 fma chain each over the head in order, P.V on the tensor cores in
+  3xTF32), at 1024 on the CUDA cores (``flash_fwd_kernel_f32``);
 - backward: bf16 on the tensor cores up to 512 (``flash_dq_kernel`` /
   ``flash_dkv_kernel`` up to 128, the ``_wide`` pair at 256 and 512);
   f32 up to 512 on the tensor cores in 3xTF32 (each f32 operand split
-  into two TF32 values, three products for each):
+  into two TF32 values, three products for each), but for the scores:
   ``flash_dq_kernel_tf32x3`` / ``flash_dkv_kernel_tf32x3`` up to 128,
   ``flash_dq_kernel_wide_tf32x3`` / ``flash_dkv_kernel_wide_tf32x3`` at
-  256 and 512 (whose scores are one f32 chain each on the CUDA cores, in
-  the order of the f32 forward, so that s - lse cancels the forward's
-  rounding of s); the f32 and bf16 heads of 1024 on the CUDA cores (the
+  256 and 512, whose scores are the f32 forward's own chains, bit for
+  bit, so that s - lse cancels the forward's rounding of s as in the
+  reference; the f32 and bf16 heads of 1024 on the CUDA cores (the
   ``_f32`` pair).
 
 Which of the two runs is decided by the tensor's device alone: on the
@@ -67,7 +69,8 @@ def _head_width(d: int) -> int:
     512 or 1024, the sizes they are built for (on the tensor cores: in
     bf16 the forward at every one of them, 256 to 1024 in its ``_wide``
     kernel, and the backward 64 to 512, 256 and 512 in its ``_wide``
-    kernels; in f32 the backward 64 to 512 in 3xTF32, 256 and 512 in its
+    kernels; in f32 the forward 64 to 512 in ``flash_fwd_kernel_tf32x3``
+    and the backward 64 to 512 in 3xTF32, 256 and 512 in its
     ``_wide_tf32x3`` kernels. The f32 forward and the f32 and bf16
     backward at 1024 run on the CUDA cores). A smaller head
     is padded with zeros up to it, which adds 0 to every score and

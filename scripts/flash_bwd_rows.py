@@ -2,9 +2,10 @@
 """The PyTorch port's flash backward in another checkout (the parent of
 a change, say), timed at ``chip_smoke.py``'s f32 backward row at d 512
 (``WIDE_F32_512_CASES``) by phase 2's own measurement
-(``chip_smoke.bwd_row``), and its f32 errors at scores of ±60
-(``chip_smoke.phase_scale4``): a same-card comparison at rows that the
-other checkout's ``chip_smoke.py`` does not have.
+(``chip_smoke.bwd_row``), and its f32 forward's and backward's errors
+at scores of ±60 (``chip_smoke.scale4_row``, not gated): a same-card
+comparison at rows that the other checkout's ``chip_smoke.py`` does not
+have.
 
     python3 scripts/flash_bwd_rows.py DIR    # DIR: the other checkout's root
 
@@ -59,7 +60,9 @@ def main(argv) -> int:
     for case in smoke.WIDE_F32_512_CASES:
         row = smoke.bwd_row(torch, F, kernels, flash, g, case, None)
         print("flash_bwd " + json.dumps(row | {"root": root}), flush=True)
-    smoke.phase_scale4(torch, np, flash)
+    for d in smoke.SCALE4_HEADS:
+        row = smoke.scale4_row(torch, np, flash, d)
+        print("flash_bwd_scale4 " + json.dumps(row | {"root": root}), flush=True)
     return 0
 
 

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""C3 on the CPU: why the f32 flash backward's error at scores of ±60
-depends on how its scores are computed, by emulation (numpy, f64).
+"""C3 and C4 on the CPU: why the f32 flash backward's error at scores of
+±60 depends on how its scores are computed, by emulation (numpy, f64),
+and what the f32 forward of the tensor cores gives there.
 
 On ``chip_smoke.scale4_arrays`` (causal), each variant below computes
 the backward's scores s and dP one way, takes lse from the scores of the
@@ -16,8 +17,16 @@ tests):
 - ``tensor_cores_K``: 3xTF32 on the tensor cores as mma.sync m16n8k8
   sums them (each product exact, each mma's sum truncated to f32), over
   chains of K columns from zero added with rounded adds: the head's
-  whole width up to 128 (the kernels of heads <= 128), and halves and
-  quarters of it.
+  whole width up to 128 (the first design of the kernels of heads <= 128),
+  and halves and quarters of it.
+
+Then the f32 forward as ``flash_fwd_kernel_tf32x3`` computes it: the
+forward's scores, the online softmax over its key tiles in f32, and P V
+in 3xTF32 (each 8-key mma.sync's sum truncated, each tile's sum in a
+zeroed partial added to O with one rounded fma); it prints the
+forward's errors in o and lse from the exact forward (``forward``), and
+the errors of the backward in the forward's order that takes this
+forward's lse and o (``after_forward``).
 
     python3 scripts/scale4_emulation.py
 
@@ -84,18 +93,59 @@ def tensor_cores(a, b, chain):
     return out
 
 
-def backward(qs, k, v, do, s_fwd, s, dp):
+# key tiles of flash_fwd_kernel_tf32x3 (FwdTf32Tiles::T) at each head
+FWD_TILE = {64: 64, 128: 32, 256: 32, 512: 32}
+
+
+def _dead(t):
+    """The causal mask's dead (row, key) pairs."""
+    return np.arange(t)[:, None] < np.arange(t)[None]
+
+
+def forward(s, v, tile):
+    """(o, lse [bh, t, 1]) in f32 from the f32 scores s (causal) as the
+    3xTF32 forward takes them: per key tile the online softmax in f32
+    (masked scores at -1e30), P V in 3xTF32 into a zeroed partial, O =
+    O corr + partial rounded once, then o = O / l and lse = m + log l."""
+    bh, t, _ = s.shape
+    s = np.where(_dead(t), np.float32(-1e30), s).astype(np.float32)
+    m = np.full((bh, t, 1), -1e30, np.float32)
+    l = np.zeros((bh, t, 1), np.float32)
+    acc = np.zeros((bh, t, v.shape[-1]), np.float32)
+    for k0 in range(0, t, tile):
+        st = s[..., k0:k0 + tile]
+        m_new = np.maximum(m, st.max(-1, keepdims=True))
+        corr = np.exp(m - m_new)
+        p = np.exp(st - m_new)
+        l = (corr * l + p.sum(-1, keepdims=True, dtype=np.float32)).astype(np.float32)
+        part = tensor_cores(p, v[:, k0:k0 + tile].transpose(0, 2, 1), tile)
+        acc = (acc.astype(np.float64) * corr + part).astype(np.float32)
+        m = m_new
+    denom = np.maximum(l, np.float32(1e-30))
+    return acc / denom, (m + np.log(denom)).astype(np.float32)
+
+
+def backward(qs, k, v, do, s_fwd, s, dp, fwd=None):
     """(dq / scale, dk, dv) exactly from the scores s and dP, with lse
-    and delta from the forward's scores s_fwd (causal)."""
+    and delta from the forward's scores s_fwd (causal), or from ``fwd``,
+    a forward's (o, lse)."""
     t = s.shape[1]
-    dead = np.arange(t)[:, None] < np.arange(t)[None]
+    dead = _dead(t)
     sf, sb = (np.where(dead, -np.inf, x.astype(np.float64)) for x in (s_fwd, s))
     m = sf.max(-1, keepdims=True)
     lse = m + np.log(np.exp(sf - m).sum(-1, keepdims=True))
     delta = (do * (np.exp(sf - lse) @ v)).sum(-1, keepdims=True)
+    if fwd is not None:
+        o, lse = (x.astype(np.float64) for x in fwd)
+        delta = (do * o).sum(-1, keepdims=True)
     p = np.exp(sb - lse)
     ds = p * (dp - delta)
     return ds @ k, ds.transpose(0, 2, 1) @ qs, p.transpose(0, 2, 1) @ do
+
+
+def _rel(got, ref):
+    """max |got - ref| / max |ref| of each output."""
+    return [float(np.abs(a - r).max() / np.abs(r).max()) for a, r in zip(got, ref)]
 
 
 def main() -> int:
@@ -118,7 +168,17 @@ def main() -> int:
         errs = {}
         for name, (s, dp) in variants.items():
             got = backward(q64, k64, v64, do64, s_fwd, s, dp)
-            errs[name] = [float(np.abs(a - r).max() / np.abs(r).max()) for a, r in zip(got, ref)]
+            errs[name] = _rel(got, ref)
+        # the 3xTF32 forward, against the exact forward, and the backward
+        # in the forward's order after it
+        dead = _dead(q.shape[1])
+        s_ref = np.where(dead, -np.inf, s64)
+        lse_ref = np.log(np.exp(s_ref - s_ref.max(-1, keepdims=True)).sum(-1, keepdims=True)) \
+            + s_ref.max(-1, keepdims=True)
+        fwd = forward(s_fwd, v, FWD_TILE[d])
+        errs["forward"] = _rel(fwd, (np.exp(s_ref - lse_ref) @ v64, lse_ref))
+        errs["after_forward"] = _rel(backward(q64, k64, v64, do64, s_fwd, s_fwd,
+                                              fma_chain(do, v), fwd), ref)
         print("scale4_emulation " + json.dumps(dict(d=d, errors=errs)), flush=True)
     return 0
 

@@ -206,13 +206,16 @@ def test_spill_gate_rejects_a_spilling_bf16_lstm_bwd_or_lstm_dw(bwd_spills, dw_s
         chip_smoke._spill_gate("lstm_bwd", _bwd_report(bwd_spills, dw_spills))
 
 
-def _fwd_report(wide_spills, wide_1024_spills=None):
+def _fwd_report(wide_spills, wide_1024_spills=None, tf32_spills=0):
     """A stand-in report of flash_fwd.cu: the bf16 mma.sync kernel, the
     wide one at 256 and 512 (spilling ``wide_spills`` bytes) and at 1024
     in 32- and 16-row blocks (``wide_1024_spills``, by default the same),
-    and an f32 and a bf16 SIMT instantiation (never gated)."""
+    the f32 3xTF32 kernel at 64, 128, 256 and 512 (the one at 512
+    spilling ``tf32_spills``), and an f32 and a bf16 SIMT instantiation
+    at 1024 (never gated)."""
     ns = "_ZN12_GLOBAL__N_1"
     args = "EEvPK13__nv_bfloat16S3_S3_PS1_Pfiiiiif"
+    f32_args = "EEvPKfS1_S1_PfS2_iiiiif"
     if wide_1024_spills is None:
         wide_1024_spills = wide_spills
     return _ptxas_lines([
@@ -221,7 +224,11 @@ def _fwd_report(wide_spills, wide_1024_spills=None):
         (f"{ns}21flash_fwd_kernel_wideILi512ELi64{args}", 210, wide_spills),
         (f"{ns}21flash_fwd_kernel_wideILi1024ELi32{args}", 220, wide_1024_spills),
         (f"{ns}21flash_fwd_kernel_wideILi1024ELi16{args}", 190, 0),
-        (f"{ns}20flash_fwd_kernel_f32IfLi64ELi64ELi64EEEvPKT_S3_S3_PS1_Pfiiiiif",
+        (f"{ns}23flash_fwd_kernel_tf32x3ILi64{f32_args}", 225, 0),
+        (f"{ns}23flash_fwd_kernel_tf32x3ILi128{f32_args}", 209, 0),
+        (f"{ns}23flash_fwd_kernel_tf32x3ILi256{f32_args}", 212, 0),
+        (f"{ns}23flash_fwd_kernel_tf32x3ILi512{f32_args}", 188, tf32_spills),
+        (f"{ns}20flash_fwd_kernel_f32IfLi1024ELi8ELi8EEEvPKT_S3_S3_PS1_Pfiiiiif",
          90, 16),
         (f"{ns}20flash_fwd_kernel_f32I13__nv_bfloat16Li1024ELi8ELi8EEEvPKT_"
          "S4_S4_PS2_Pfiiiiif", 80, 16)])
@@ -233,6 +240,31 @@ def test_spill_gate_reads_the_wide_flash_forward(capsys):
     assert "bf16 flash_fwd_kernel registers, spill bytes: [(128, 0)]" in out
     assert ("bf16 flash_fwd_kernel_wide registers, spill bytes: "
             "[(200, 0), (210, 0), (220, 0), (190, 0)]") in out
+
+
+def test_spill_gate_reads_the_tf32x3_flash_forward(capsys):
+    """The f32 forward's 3xTF32 kernel is gated at every head it is built
+    for; the SIMT kernel at 1024 is not."""
+    chip_smoke._spill_gate("flash_fwd", _fwd_report(0))
+    out = capsys.readouterr().out
+    assert ("f32 flash_fwd_kernel_tf32x3 registers, spill bytes: "
+            "[(225, 0), (209, 0), (212, 0), (188, 0)]") in out
+    assert "flash_fwd_kernel_f32 registers" not in out
+
+
+@pytest.mark.parametrize("spills", [4, 640])
+def test_spill_gate_rejects_a_spilling_tf32x3_flash_forward(spills):
+    """One spilling instantiation of the 3xTF32 forward (the one at 512)
+    fails the gate."""
+    with pytest.raises(RuntimeError, match="f32 flash_fwd_kernel_tf32x3 spills"):
+        chip_smoke._spill_gate("flash_fwd", _fwd_report(0, tf32_spills=spills))
+
+
+def test_spill_gate_needs_the_tf32x3_flash_forward():
+    """A flash_fwd.cu report without the 3xTF32 forward fails the gate."""
+    lines = [ln for ln in _fwd_report(0).splitlines() if "tf32x3" not in ln]
+    with pytest.raises(RuntimeError, match="f32 flash_fwd_kernel_tf32x3"):
+        chip_smoke._spill_gate("flash_fwd", "\n".join(lines))
 
 
 @pytest.mark.parametrize("spills", [8, 384])
@@ -251,8 +283,9 @@ def test_spill_gate_rejects_a_spilling_wide_flash_forward_at_1024(spills):
 @pytest.mark.parametrize("name,key", [
     ("void (anonymous namespace)::flash_fwd_kernel<64, 128>(Args)", "flash_fwd_kernel"),
     ("void (anonymous namespace)::flash_fwd_kernel_wide<512>(Args)", "flash_fwd_kernel"),
-    ("void (anonymous namespace)::flash_fwd_kernel_f32<float, 64, 64, 64>(Args)",
+    ("void (anonymous namespace)::flash_fwd_kernel_f32<float, 1024, 8, 8>(Args)",
      "flash_fwd_kernel"),
+    ("void (anonymous namespace)::flash_fwd_kernel_tf32x3<64>(Args)", "flash_fwd_kernel"),
     (DKV, "flash_dkv_kernel"),
     (COPY, None)])
 def test_port_kernel_reads_every_forward_kernel(name, key):
@@ -265,7 +298,9 @@ def test_port_kernel_reads_every_forward_kernel(name, key):
     ("bfloat16", 512, "flash_fwd_kernel_wide<"),
     ("bfloat16", 640, "flash_fwd_kernel_wide<"),
     ("bfloat16", 1024, "flash_fwd_kernel_wide<"),
-    ("float32", 64, "flash_fwd_kernel_f32<"), ("float32", 512, "flash_fwd_kernel_f32<"),
+    ("float32", 64, "flash_fwd_kernel_tf32x3<"), ("float32", 128, "flash_fwd_kernel_tf32x3<"),
+    ("float32", 200, "flash_fwd_kernel_tf32x3<"), ("float32", 256, "flash_fwd_kernel_tf32x3<"),
+    ("float32", 512, "flash_fwd_kernel_tf32x3<"), ("float32", 640, "flash_fwd_kernel_f32<"),
     ("float32", 1024, "flash_fwd_kernel_f32<")])
 def test_fwd_kernel_name_follows_the_dispatch(dtype, d, kernel):
     assert chip_smoke.fwd_kernel_name(dtype, d) == kernel
@@ -430,8 +465,9 @@ def test_wide_backward_cases_reach_512_at_t1024():
 
 def _flash_rows():
     """Stand-in phase-2 rows for the kernels line: the forward's prefill,
-    training and wide rows, and the backward's training and wide rows,
-    bf16 and f32."""
+    training and wide rows, bf16, and its f32 rows at the f32 steps'
+    shapes and at d 512, and the backward's training and wide rows, bf16
+    and f32."""
     def fwd(bh, t, d):
         return dict(dtype="bfloat16", bh=bh, tq=t, tk=t, d=d, causal=True,
                     err_o=0.01, ms=0.1, kernel_only_ms=0.1,
@@ -458,7 +494,16 @@ def _flash_rows():
     wide_f32 = f32 | dict(bh=32, d=256, err_dq=3e-6, err_dk=7e-6, err_dv=8e-6, ms=2.6,
                           dq_kernel_only_ms=1.2, dkv_kernel_only_ms=1.4, plain_ms=3.5,
                           library_ms=1.8)
-    return ([fwd(*s) for s in shapes + [(8, 1024, 1024)]],
+    def fwd_f32(bh, t, d, ms):
+        return fwd(bh, t, d) | dict(
+            dtype="float32", err_o=1e-6, err_lse=2e-6, kernel_only_ms=ms, plain_ms=6.2,
+            library_ms=0.63, bound_ms=0.257, bound_by="operations", bound_share=0.257 / ms,
+            bound_tf32x3_ms=0.104, bound_tf32x3_by="operations",
+            bound_tf32x3_share=0.104 / ms)
+
+    return ([fwd(*s) for s in shapes]
+            + [fwd_f32(*s, ms) for s, ms in zip(shapes[1:], (0.5, 0.55, 0.7))]
+            + [fwd(8, 1024, 1024)],
             [bwd(*s) for s in shapes[1:]] + [f32, wide_f32])
 
 
@@ -572,6 +617,93 @@ def test_flash_summary_gives_the_backward_its_f32_row():
     assert (dq["f32"]["launches"], dkv["f32"]["launches"]) == (8, 7)
     # the bf16 training row stays the entry's own
     assert dq["ms"] == 0.1 and dq["shape"] == [128, 1024, 64]
+
+
+def test_flash_summary_gives_the_forward_its_f32_rows():
+    """The forward's entry carries ``f32``, ``wide_head_f32`` and
+    ``wide_head_f32_512``: the 3xTF32 kernel at [128, 1024, 64], [32,
+    1024, 256] and [16, 1024, 512] f32 causal, its time beside the plain
+    version and SDPA, both bounds with their shares, and the f32 steps'
+    launches, which d 512 leaves out since no step runs f32 there; the
+    bf16 rows stay the entry's own."""
+    rows, bwd_rows = _flash_rows()
+    train = {"flash_fwd": 8, "flash_dq": 8, "flash_dkv": 8}
+    fwd = chip_smoke._flash_summary({
+        "2": rows, "2bwd": bwd_rows, "3": ({"flash_fwd": 8}, {}),
+        "4": _phase4(train, {"flash_fwd": 2, "flash_dq": 2, "flash_dkv": 2},
+                     {"flash_fwd": 7, "flash_dq": 8, "flash_dkv": 8},
+                     {"flash_fwd": 1, "flash_dq": 2, "flash_dkv": 2})})[0]
+    for key, shape, ms, launches in (("f32", [128, 1024, 64], 0.5, 7),
+                                     ("wide_head_f32", [32, 1024, 256], 0.55, 1),
+                                     ("wide_head_f32_512", [16, 1024, 512], 0.7, None)):
+        e = fwd[key]
+        assert e["kernel"] == "flash_fwd_kernel_tf32x3" and e["shape"] == shape
+        assert (e["ms"], e["plain_ms"], e["library_ms"]) == (ms, 6.2, 0.63)
+        assert (e["max_abs_err"], e["max_abs_err_lse"]) == (1e-6, 2e-6)
+        assert e["bound_share"] == pytest.approx(0.257 / ms)
+        assert e["bound_tf32x3_share"] == pytest.approx(0.104 / ms)
+        assert e["bound_tf32x3_by"] == "operations"
+        assert e.get("launches") == launches and ("launches" in e) == (launches is not None)
+    assert fwd["ms"] == 0.1 and fwd["shape"] == [64, 64, 64]
+
+
+def test_tf32x3_forward_bound_is_three_products_at_the_tf32_rate():
+    """At [128, 1024, 64] f32 causal the forward's 4 d flops per live
+    pair, three times over at 495 TFLOP/s, take 0.104 ms (operations);
+    its f32 CUDA-core bound stays 0.257 ms."""
+    pairs = chip_smoke._live_pairs(1024, 1024, True)
+    ms, by = chip_smoke._flash_bound_tf32x3(128, 1024, 1024, 64, True)
+    assert by == "operations"
+    assert ms == pytest.approx(3 * 4 * 64 * 128 * pairs / 495e12 * 1e3)
+    assert ms == pytest.approx(0.104, abs=1e-3)
+    f32_ms, f32_by = chip_smoke._flash_bound(128, 1024, 1024, 64, True, "float32")
+    assert f32_by == "operations" and f32_ms == pytest.approx(0.257, abs=1e-3)
+    # a short sequence is bound by its bytes
+    ms, by = chip_smoke._flash_bound_tf32x3(8, 16, 16, 512, True)
+    assert by == "bytes" and ms == pytest.approx(
+        (4 * 8 * 512 * 64 + 4 * 8 * 16) / 3.35e12 * 1e3)
+
+
+@pytest.mark.parametrize("ratios,passes", [
+    (([1.1, 0.9], [1.3, 1.0, 2.0]), True),
+    (([2.2, 1.0], [1.0, 1.0, 1.0]), False),
+    (([1.0, 1.0], [1.0, 6.8, 1.0]), False)])
+def test_scale4_gate_holds_twice_the_reference(ratios, passes):
+    """Phase 2's C3/C4 gate: a forward (o, lse) or backward (dq, dk, dv)
+    error past twice the JAX package's own on the scale-4 arrays fails
+    the run."""
+    row = dict(d=64, forward=[1e-6, 1e-7], forward_ratio=ratios[0],
+               kernels=[1e-6] * 3, ratio=ratios[1])
+    if passes:
+        chip_smoke.scale4_gate(row)
+    else:
+        with pytest.raises(RuntimeError, match="twice the reference"):
+            chip_smoke.scale4_gate(row)
+
+
+def test_reference_scale4_errors_cover_every_head():
+    """The pinned errors of the JAX package (re-measured by
+    tests/test_torch_flash_backward.py) cover each of ``SCALE4_HEADS``:
+    three of the backward's, two of the forward's."""
+    for table, n in ((chip_smoke.REF_SCALE4_REL, 3), (chip_smoke.REF_SCALE4_FWD_REL, 2)):
+        assert sorted(table) == list(chip_smoke.SCALE4_HEADS)
+        assert all(len(v) == n and all(0 < x < 1e-4 for x in v) for v in table.values())
+
+
+def test_fwd_f64_is_the_dense_attention():
+    """``fwd_f64`` is softmax(qs k^T) v and its log-sum-exp in f64 (the
+    causal offset tk - tq), on the port's f32 pre-scale factor."""
+    import torch
+
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.tensor(rng.standard_normal((2, t, 8))) for t in (5, 9, 9))
+    o, lse = chip_smoke.fwd_f64(torch, q, k, v, True)
+    c = torch.tensor(8 ** -0.5, dtype=torch.float32).item()
+    s = (q * c) @ k.transpose(1, 2)
+    s = s.masked_fill(torch.ones(5, 9, dtype=torch.bool).triu(5), float("-inf"))
+    assert torch.allclose(o, torch.softmax(s, -1) @ v, rtol=1e-12, atol=1e-12)
+    assert torch.allclose(lse, torch.logsumexp(s, -1, keepdim=True), rtol=1e-12)
+    assert o.dtype == lse.dtype == torch.float64 and lse.shape == (2, 5, 1)
 
 
 def test_flash_summary_gives_the_backward_its_wide_f32_row():

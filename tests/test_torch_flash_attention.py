@@ -9,6 +9,10 @@ against that plain version on the card (``cuda`` tests, and
 2e-5 in f32, 3e-2 in bf16.
 """
 
+import os
+import sys
+import time
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -32,6 +36,9 @@ from deeplearning4j_tpu_torch.ops.flash_attention import (
     flash_attention_fwd,
     flash_attention_fwd_plain,
 )
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import chip_smoke  # noqa: E402
 
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 
@@ -371,6 +378,67 @@ def test_wide_heads_run_the_kernels_on_card(cuda_device, dtype, tol, d, causal):
         ref = b.float().abs().max().item()
         bound = tol if dtype == "float32" else tol * ref
         assert (a.float() - b.float()).abs().max().item() <= bound
+
+
+@pytest.mark.cuda
+# the 3xTF32 kernel at 64, 128, 256 and 512 (100, 200 and 300 zero-padded)
+@pytest.mark.parametrize("d", [64, 100, 128, 200, 256, 300, 512])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("bh,tq,tk", [
+    (8, 128, 320),     # tq < tk: the causal offset
+    (8, 200, 200),     # ragged last q- and k-tiles
+    (8, 72, 200),      # an offset with a ragged diagonal
+    (1, 2048, 2048),   # few blocks, a long key loop
+])
+def test_f32_forward_matches_plain_on_card(cuda_device, d, causal, bh, tq, tk):
+    """The f32 heads of 1-512 run flash_fwd_kernel_tf32x3 (the scores one
+    f32 chain each, P.V in 3xTF32), one launch a call, within the f32
+    tolerance of the plain version on o and lse."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    q, k, v = (torch.randn(bh, t, d, generator=g, device=cuda_device) for t in (tq, tk, tk))
+    kernels.reset_launches()
+    o, lse = flash_attention_fwd(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert dict(kernels.LAUNCHES) == {"flash_fwd": 1}
+    assert o.shape == q.shape and o.is_contiguous() and bool(torch.isfinite(o).all())
+    op, lp = flash_attention_fwd_plain(q, k, v, causal)
+    assert (o - op).abs().max().item() <= TOL["float32"]
+    assert (lse - lp).abs().max().item() <= TOL["float32"]
+
+
+def _profiled_forward(fn):
+    """The profiled names of the flash forward kernels one call of ``fn``
+    runs. A profile that kept none of them (the card's machine sometimes
+    drops device events) is taken again with a wider idle margin."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    seen = set()
+    for pad in (0.02, 0.2, 1.0, 2.0):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(pad)
+        seen = {e.key for e in prof.key_averages()
+                if e.self_device_time_total > 0 and "flash_fwd_kernel" in e.key}
+        if seen:
+            break
+    return seen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256, 512, 1024])
+def test_f32_forward_runs_the_kernel_its_head_takes_on_card(cuda_device, d):
+    """An f32 head up to 512 runs flash_fwd_kernel_tf32x3 and nothing
+    else; the heads of 1024 still run the SIMT flash_fwd_kernel_f32."""
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    q, k, v = (torch.randn(2, 200, d, generator=g, device=cuda_device) for _ in range(3))
+    name = chip_smoke.fwd_kernel_name("float32", d)
+    assert name == ("flash_fwd_kernel_tf32x3<" if d <= 512 else "flash_fwd_kernel_f32<")
+    seen = _profiled_forward(lambda: flash_attention_fwd(q, k, v, True))
+    assert seen and all(name in key for key in seen), (seen, name)
 
 
 @pytest.mark.cuda
