@@ -25,12 +25,13 @@ Phases (any failure ends the run with a non-zero exit and no result):
    larger ones and at ragged ones (t = 200, tq 72 / tk 200, one head of
    2048; the wide heads of 256, 512 and 1024, ``WIDE_HEAD_CASES``,
    ``WIDE_512_CASES`` and ``WIDE_F32_512_CASES``, and the forward alone
-   at [8, 1024, 1024], ``FWD_ONLY_CASES``), with stated tolerances; a
+   at [8, 1024, 1024] in bf16 and f32, ``FWD_ONLY_CASES``), with stated
+   tolerances; a
    forward call must be
    one launch of the kernel its dtype and head take
    (``fwd_kernel_name``: the bf16 heads of 256, 512 and 1024 run
-   ``flash_fwd_kernel_wide``, the f32 heads up to 512
-   ``flash_fwd_kernel_tf32x3`` and of 1024 the SIMT kernel), a backward
+   ``flash_fwd_kernel_wide``, the f32 heads of every width
+   ``flash_fwd_kernel_tf32x3``), a backward
    call one launch of each of
    the two its dtype and head take (``bwd_kernel_names``: the bf16
    heads of 256 and 512 run ``flash_dq_kernel_wide`` and
@@ -39,8 +40,8 @@ Phases (any failure ends the run with a non-zero exit and no result):
    256 and 512 ``flash_dq_kernel_wide_tf32x3`` and
    ``flash_dkv_kernel_wide_tf32x3``, 1024 the SIMT kernels), and the bf16
    forward at heads of 64 and 128 is also run and timed at both of its
-   tilings (64 and 128 query rows per block), at 1024 at both of the
-   wide kernel's (16 and 32); median times beside the
+   tilings (64 and 128 query rows per block), and the bf16 and f32
+   forward at 1024 at both of theirs (16 and 32); median times beside the
    plain version, the one PyTorch call that computes the same
    function (a yardstick only, never used by the port) and the least
    time the card could take (the bound). ``ms`` columns are device time
@@ -57,7 +58,7 @@ Phases (any failure ends the run with a non-zero exit and no result):
    of it above 1 is no error); the f32 forward rows print the same two
    bounds of the forward (``bound_ms``, ``bound_tf32x3_ms``) and its
    shares of them. Last, C3 and C4 (``flash_bwd_scale4`` lines): at each
-   f32 head up to 512, on inputs drawn at scale 4 from numpy seeds
+   f32 head from 64 to 1024, on inputs drawn at scale 4 from numpy seeds
    (``scale4_arrays``: scores of ±60 and more), the f32 forward's errors
    from an f64 forward (``fwd_f64``) and the f32 backward's after it
    from an f64 backward (``bwd_f64``), beside the plain backward's; the
@@ -259,12 +260,15 @@ WIDE_HEAD_CASES = {dtype: [(dtype, WIDE_HEAD[0], WIDE_HEAD[1], WIDE_HEAD[2],
 # as WIDE_HEAD's
 WIDE_512_CASES = [("bfloat16", 512, 16, 1024, 1024, True)]
 # the f32 wide kernels at d 512 (flash_dq_kernel_wide_tf32x3,
-# flash_dkv_kernel_wide_tf32x3; the forward is the SIMT kernel), at the
-# same bound as WIDE_HEAD's
+# flash_dkv_kernel_wide_tf32x3; the forward flash_fwd_kernel_tf32x3), at
+# the same bound as WIDE_HEAD's
 WIDE_F32_512_CASES = [("float32", 512, 16, 1024, 1024, True)]
-# the bf16 wide forward at d 1024 alone, at the same bound by bytes (bh x
-# d = 8192); the backward at 1024 still runs the SIMT kernels
-FWD_ONLY_CASES = [("bfloat16", 1024, 8, 1024, 1024, True)]
+# the forward alone at d 1024 (the backward at 1024 still runs the SIMT
+# kernels): the bf16 wide forward at the same bound by bytes (bh x d =
+# 8192), and flash_fwd_kernel_tf32x3 at the same bound by operations as
+# the f32 rows of WIDE_HEAD and WIDE_F32_512_CASES
+FWD_ONLY_CASES = [("bfloat16", 1024, 8, 1024, 1024, True),
+                  ("float32", 1024, 8, 1024, 1024, True)]
 # one step's loss and gradients with the kernels vs with the plain
 # versions on the card: bf16 attention outputs and gradients that differ
 # by bf16 roundings pass through 8 bf16 layers
@@ -279,11 +283,12 @@ WIDE_TRAIN_BATCH = 8
 # --smoke): every attention call [32, 1024, 256] f32 causal, the
 # backward through the wide 3xTF32 kernels; held to F32_TRAIN's bounds
 WIDE_F32_TRAIN = dict(WIDE_TRAIN, compute_dtype="float32")
-# C3 (ROADMAP Queue C): the f32 backward at scores of ±60 and more
-# (scale4_arrays), from an f64 backward, at each head its tensor-core
-# kernels run; the CPU tests measure the JAX package's own f32 error on
-# the same arrays
-SCALE4_HEADS, SCALE4_BH, SCALE4_T = (64, 128, 256, 512), 2, 128
+# C3 (ROADMAP Queue C): the f32 forward and backward at scores of ±60
+# and more (scale4_arrays), from an f64 forward and backward, at each head
+# the kernels are built for (at 1024 the SIMT backward after the 3xTF32
+# forward: its p must be rebuilt from the forward's own score bits); the
+# CPU tests measure the JAX package's own f32 error on the same arrays
+SCALE4_HEADS, SCALE4_BH, SCALE4_T = (64, 128, 256, 512, 1024), 2, 128
 # C3: the JAX package's own f32 backward error (``_flash_fwd_impl`` and
 # ``_flash_bwd_impl`` in interpret mode, one 128 x 128 block, causal) on
 # ``scale4_arrays(d)``, from ``bwd_f64``, relative to max |ref|, for dq,
@@ -295,7 +300,8 @@ SCALE4_HEADS, SCALE4_BH, SCALE4_T = (64, 128, 256, 512), 2, 128
 REF_SCALE4_REL = {64: (3.4386e-06, 3.4765e-06, 1.3591e-06),
                   128: (4.8767e-06, 3.2174e-06, 1.7877e-06),
                   256: (1.0905e-05, 1.2654e-05, 2.6006e-06),
-                  512: (8.4214e-06, 7.7507e-06, 4.6950e-06)}
+                  512: (8.4214e-06, 7.7507e-06, 4.6950e-06),
+                  1024: (4.3930e-06, 4.1917e-06, 2.9249e-06)}
 # the JAX package's own f32 forward error on the same arrays
 # (``_flash_fwd_impl`` in interpret mode, one 128 x 128 block, causal),
 # from ``fwd_f64``, relative to max |ref|, for o and lse, measured on the
@@ -304,7 +310,8 @@ REF_SCALE4_REL = {64: (3.4386e-06, 3.4765e-06, 1.3591e-06),
 REF_SCALE4_FWD_REL = {64: (2.7395e-06, 2.6566e-07),
                       128: (3.8382e-06, 3.5370e-07),
                       256: (9.1207e-06, 6.5213e-07),
-                      512: (1.0374e-05, 6.3552e-07)}
+                      512: (1.0374e-05, 6.3552e-07),
+                      1024: (6.8522e-06, 5.2006e-07)}
 
 # LSTM kernels vs their plain versions (phase 2b). f32: CUDA-core FMAs
 # (no TF32) against cuBLAS f32, so only the order of the sums differs,
@@ -564,16 +571,11 @@ def fwd_kernel_name(dtype: str, d: int) -> str:
     """The profiled name (up to its template arguments) of the forward
     kernel that a padded head of ``d`` runs in ``dtype``: the bf16 heads
     of 64 and 128 the mma.sync kernel, of 256, 512 and 1024 the wide
-    mma.sync kernel; the f32 heads up to 512 the 3xTF32 kernel (scores
-    on the CUDA cores, P V on the tensor cores), of 1024 the SIMT
-    kernel."""
-    if dtype == "bfloat16" and d <= 128:
-        return "flash_fwd_kernel<"
-    if dtype == "bfloat16" and d <= 1024:
-        return "flash_fwd_kernel_wide<"
-    if dtype == "float32" and d <= 512:
+    mma.sync kernel; the f32 heads of every width the 3xTF32 kernel
+    (scores on the CUDA cores, P V on the tensor cores)."""
+    if dtype == "float32":
         return "flash_fwd_kernel_tf32x3<"
-    return "flash_fwd_kernel_f32<"
+    return "flash_fwd_kernel<" if d <= 128 else "flash_fwd_kernel_wide<"
 
 
 def bwd_kernel_names(dtype: str, d: int) -> tuple:
@@ -845,7 +847,7 @@ def scale4_gate(row):
 
 def phase_scale4(torch, np, flash):
     """Phase 2, C3 and C4: ``scale4_row`` at each head the f32 kernels
-    run up to 512 (``SCALE4_HEADS``), printed as ``flash_bwd_scale4``
+    are built for (``SCALE4_HEADS``), printed as ``flash_bwd_scale4``
     lines and gated by ``scale4_gate`` (``scripts/flash_bwd_rows.py``
     prints the rows of another checkout's port, ungated)."""
     rows = []
@@ -923,9 +925,12 @@ def fwd_row(torch, F, flash, g, case, kernel):
            f"flash_fwd call {tag} ran more than its kernel {kernel}: "
            f"{sorted(times)}")
     by_block_q = {}
-    # the two tilings of the mma kernel (d <= 128) and of the wide one at 1024
+    # the two tilings of the bf16 mma kernel (d <= 128) and of the wide
+    # one and the f32 one at 1024
     tilings = {64: (64, 128), 128: (64, 128), 1024: (16, 32)}.get(d, ())
-    if dtype == "bfloat16" and tq > 64 and kernel is not None:
+    if dtype == "float32" and d != 1024:
+        tilings = ()
+    if tq > 64 and kernel is not None:
         for bq in tilings:
             tiled = lambda: flash._flash_fwd_cuda(q, k, v, causal, bq)  # noqa: E731
             errors(*tiled(), f"block_q {bq}")
@@ -2526,7 +2531,8 @@ def _flash_summary(done):
                 "shape": [r["bh"], r["tq"], r["d"]]}
 
     _, d512, bh512, t512, _, _ = WIDE_512_CASES[0]
-    _, d1024, bh1024, t1024, _, _ = FWD_ONLY_CASES[0]
+    (_, d1024, bh1024, t1024, _, _), f32_1024 = (
+        next(c for c in FWD_ONLY_CASES if c[0] == dtype) for dtype in ("bfloat16", "float32"))
     f32_bwd = next(r for r in bwd_rows if r["dtype"] == "float32"
                    and r["d"] == d_head and r["tq"] == TRAIN["max_len"]
                    and r["tk"] == TRAIN["max_len"] and r["causal"]
@@ -2538,7 +2544,7 @@ def _flash_summary(done):
 
     def f32_fwd(r, train):
         """the f32 forward (``flash_fwd_kernel_tf32x3``) at one of phase
-        4's f32 steps' shapes, or at d 512 (``train`` None): its time
+        4's f32 steps' shapes, or at d 512 or 1024 (``train`` None): its time
         beside the plain version and SDPA, its bounds on the CUDA cores
         (f32) and on the tensor cores in 3xTF32 with their shares, and
         the step's launches (left out at d 512, where no step runs)"""
@@ -2581,6 +2587,7 @@ def _flash_summary(done):
     fwd_wide, bwd_wide = (wide_row(rs, *WIDE_HEAD) for rs in (rows, bwd_rows))
     fwd_512, bwd_512 = (wide_row(rs, d512, bh512, t512) for rs in (rows, bwd_rows))
     fwd_1024 = wide_row(rows, d1024, bh1024, t1024)
+    fwd_f32_1024 = f32_fwd_row(*f32_1024[1:4])
     wide_train = done["4"][1]["wide_head"]
     return [{
         "name": flash.KERNEL, "route": "cuda",
@@ -2614,6 +2621,8 @@ def _flash_summary(done):
         "f32": f32_fwd(f32_fwd_row(d_head, train_bh, TRAIN["max_len"]), f32_train),
         "wide_head_f32": f32_fwd(f32_fwd_row(*WIDE_HEAD), f32_wide_train),
         "wide_head_f32_512": f32_fwd(f32_fwd_row(*WIDE_F32_512_CASES[0][1:4]), None),
+        "wide_head_f32_1024": f32_fwd(fwd_f32_1024, None)
+        | {"ms_by_block_q": fwd_f32_1024["kernel_only_ms_by_block_q"]},
     }] + [{
         "name": name, "route": "cuda", "source": SRC + "flash_bwd.cu",
         "replaces": f"deeplearning4j_tpu/ops/flash_attention.py:{line}",

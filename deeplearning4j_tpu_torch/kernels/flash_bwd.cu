@@ -205,7 +205,10 @@
 // delta as the bf16 kernel does. They run the f32 and the bf16 heads of
 // 1024 (513-1024 are zero-padded to it), with 8 x 8 tiles in flash_dq
 // and 8 keys and 4-query steps in flash_dkv (simt_tile,
-// flash_common.cuh; ~161 KB of shared memory). Their global loads and
+// flash_common.cuh; ~161 KB of shared memory). Their scores take the f32
+// forward's order (mm_abt over score_chain_cols: one chain over each
+// quarter of the head, the sums added in column order), so that p rebuilt
+// from the f32 forward's lse cancels its rounding of s. Their global loads and
 // stores are templated on the element type: bf16 is widened on load, and
 // p and ds are rounded to bf16 before their products, as the reference
 // rounds them. Correct, slow first kernels for those heads: nothing was
@@ -1938,15 +1941,23 @@ int launch_dkv_wide_tf32x3(const void* q, const void* k, const void* v, const vo
 
 constexpr int LDS_PAD = 1;  // f32 rows padded by one element (bank spread)
 
-// C[M, N] = A[M, K] . B[N, K]^T, A and B row-major in shared memory.
-template <int M, int N, int K>
+// C[M, N] = A[M, K] . B[N, K]^T, A and B row-major in shared memory: each
+// entry the sum, in column order, of fma chains over CH columns each from
+// 0 (CH = K: one chain; the scores take score_chain_cols, the order of
+// the f32 forward, flash_common.cuh).
+template <int M, int N, int K, int CH = K>
 __device__ __forceinline__ void mm_abt(float* C, int ldc, const float* A, int lda,
                                        const float* B, int ldb) {
+  static_assert(K % CH == 0, "whole chains");
   for (int i = threadIdx.x; i < M * N; i += F32_NT) {
     const int r = i / N, c = i % N;
     float s = 0.f;
+    for (int c0 = 0; c0 < K; c0 += CH) {
+      float x = 0.f;
 #pragma unroll 8
-    for (int kk = 0; kk < K; ++kk) s += A[r * lda + kk] * B[c * ldb + kk];
+      for (int kk = c0; kk < c0 + CH; ++kk) x += A[r * lda + kk] * B[c * ldb + kk];
+      s = c0 == 0 ? x : s + x;
+    }
     C[r * ldc + c] = s;
   }
 }
@@ -2051,7 +2062,7 @@ flash_dq_kernel_f32(const T* __restrict__ q, const T* __restrict__ k,
     load_rows_f32<D, LDT>(Ks, kb, k0, tk, BK, 1.f);
     load_rows_f32<D, LDT>(Vs, vb, k0, tk, BK, 1.f);
     __syncthreads();
-    mm_abt<BQ, BK, D>(Ss, LDS, Qs, LDT, Ks, LDT);    // s = qs k^T
+    mm_abt<BQ, BK, D, score_chain_cols(D)>(Ss, LDS, Qs, LDT, Ks, LDT);  // s = qs k^T
     mm_abt<BQ, BK, D>(dPs, LDS, dOs, LDT, Vs, LDT);  // dP = dO v^T
     __syncthreads();
     for (int i = threadIdx.x; i < BQ * BK; i += F32_NT) {
@@ -2142,7 +2153,7 @@ flash_dkv_kernel_f32(const T* __restrict__ q, const T* __restrict__ k,
       dl_s[c] = ok ? delta[(size_t)bh * tq + q0 + c] : 0.f;
     }
     __syncthreads();
-    mm_abt<BK, BQT, D>(St, LDS, Ks, LDT, Qs, LDT);    // s^T = k qs^T
+    mm_abt<BK, BQT, D, score_chain_cols(D)>(St, LDS, Ks, LDT, Qs, LDT);  // s^T = k qs^T
     mm_abt<BK, BQT, D>(dPt, LDS, Vs, LDT, dOs, LDT);  // dP^T = v dO^T
     __syncthreads();
     for (int i = threadIdx.x; i < BK * BQT; i += F32_NT) {

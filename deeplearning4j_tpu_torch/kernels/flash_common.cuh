@@ -46,9 +46,8 @@ __device__ __forceinline__ float quad_sum(float x) {
 // ---------------------------------------------- the f32 (SIMT) design
 
 // The first design, on the CUDA cores through shared memory in f32, of
-// flash_fwd.cu and flash_bwd.cu: the f32 forward and the f32 and bf16
-// backward at 1024 (every other kernel runs its products on the tensor
-// cores).
+// flash_bwd.cu: the f32 and bf16 backward at 1024 (every other kernel
+// runs its products on the tensor cores).
 // T is the element type in device memory: bf16 is widened to f32 on load,
 // rounded back where the reference rounds (the q pre-scale, p and ds
 // before their products) and narrowed on store.
@@ -58,7 +57,7 @@ constexpr size_t SMEM_LIMIT = 232448;  // dynamic shared memory a block may use
 constexpr size_t round32(size_t n) { return (n + 31) / 32 * 32; }
 
 // the tile of a head of D (rows and keys): 8 at 1024, the one head the
-// SIMT kernels run, so that the f32 rows fit shared memory
+// SIMT backward runs, so that the f32 rows fit shared memory
 __host__ __device__ constexpr int simt_tile(int D) { return 8192 / D; }
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -415,9 +414,11 @@ __device__ __forceinline__ void store_warp_rows_f32(float* dst, float* stage,
 
 // ------------------------------- the f32 scores, in the forward's order
 //
-// Every f32 kernel of heads up to 512 takes its scores s = qs k^T on the
-// CUDA cores, each score one fma chain over the head's columns 0 .. D - 1
-// in order, from 0, on the pre-scaled q (q times the scale, one rounding).
+// Every f32 kernel takes its scores s = qs k^T on the CUDA cores, each
+// score one fma chain over the head's columns 0 .. D - 1 in order, from
+// 0, on the pre-scaled q (q times the scale, one rounding); at 1024 the
+// sum in column order of one such chain over each quarter of the head
+// (score_chain_cols).
 // The forward takes lse from these scores and the backward rebuilds p =
 // exp(s - lse) from the same bits, so s - lse holds no rounding of s that
 // lse does not hold too, as in the reference, whose two passes compute s
@@ -427,6 +428,16 @@ __device__ __forceinline__ void store_warp_rows_f32(float* dst, float* stage,
 // reference's error (ROADMAP C3, C4; scripts/scale4_emulation.py). The
 // bits depend on each score's own chain alone (fmaf(a, b, s) is
 // fmaf(b, a, s)), so a thread may take any tile of scores.
+
+// The columns of one chain of a score at a head of D: the whole head up
+// to 512; at 1024 each quarter of it (256 columns), the four chains each
+// from 0 and their sums added in column order, ((c0 + c1) + c2) + c3
+// (the f32 forward's chain_columns over its 256-column chunks, the SIMT
+// backward's mm_abt). At scores of ±60 one chain over 1024 columns
+// carries about twice the reference's f32 error (o 2.35x, dv 2.08x in
+// scripts/scale4_emulation.py, and alike in a trial on the card), the
+// quarters 0.5-1x.
+__host__ __device__ constexpr int score_chain_cols(int D) { return D < 1024 ? D : 256; }
 
 // The 16 x T scores of a group (dq: its query rows a against the key
 // tile b; dkv: its keys a against the query tile b; rows of the whole
@@ -476,8 +487,8 @@ __device__ __forceinline__ void scores_fwd_order(float* St, const float* a, cons
 // least T and 8 (mod 32)
 __host__ __device__ constexpr int score_stride(int T) { return (T + 31) / 32 * 32 + 8; }
 
-// The forward's order by a warp's tile (the f32 forward at every head up
-// to 512 and the 3xTF32 backward up to 128): the 4 RB x 8 CB scores of
+// The forward's order by a warp's tile (the f32 forward at every head
+// and the 3xTF32 backward up to 128): the 4 RB x 8 CB scores of
 // rows a (4 RB rows) against rows b (8 CB rows), each one fma chain over
 // the columns 0 .. D - 1 from 0. Lane l takes rows l / 8 + 4 u (u < RB)
 // and columns l % 8 + 8 w (w < CB), a register tile of RB x CB chains:

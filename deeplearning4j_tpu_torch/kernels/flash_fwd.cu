@@ -92,45 +92,52 @@
 // there L2's bandwidth is a second likely limit.
 //
 // The f32 kernel (flash_fwd_kernel_tf32x3) runs the f32 heads of 64,
-// 128, 256 and 512 (1-512 zero-padded to them). Its scores must be bit
-// for bit the f32 backward's (flash_bwd.cu), which rebuilds p = exp(s -
-// lse) from lse: s - lse cancels the rounding of s only where both passes
-// computed s alike (at scores of ±60 a score taken otherwise carries
-// several times the reference's error; ROADMAP C3, C4). So each score is
-// one fma chain over the head's columns 0 .. D - 1 from 0 on the CUDA
-// cores (score_chain, flash_common.cuh), the order the backward kernels
-// take, and only P V runs on the tensor cores, in 3xTF32 (each f32
-// operand split into a TF32 value and the rest, three mma.sync m16n8k8
-// products). What bounds it at [128, 1024, 64] f32 causal: 4 d flops per
-// live pair, 0.257 ms at 67 TFLOP/s on the CUDA cores; the chains' 2 d of
-// them alone take 0.128 ms (the same at [32, 1024, 256] and [16, 1024,
-// 512]), P V in 3xTF32 (three TF32 products each) 0.052 ms at 495
-// TFLOP/s. So the chains are the kernel's floor, and its design keeps
-// them fed:
+// 128, 256, 512 and 1024 (1-1024 zero-padded to them). Its scores must be
+// bit for bit the f32 backward's (flash_bwd.cu), which rebuilds p = exp(s
+// - lse) from lse: s - lse cancels the rounding of s only where both
+// passes computed s alike (at scores of ±60 a score taken otherwise
+// carries several times the reference's error; ROADMAP C3, C4). So each
+// score is one fma chain over the head's columns 0 .. D - 1 from 0 on the
+// CUDA cores (score_chain, flash_common.cuh), at 1024 the sum in column
+// order of one chain over each quarter of the head (score_chain_cols:
+// one chain over 1024 columns carries twice the reference's error
+// there), the order the backward kernels take, and only P V runs on the
+// tensor cores, in 3xTF32 (each f32 operand split into a TF32 value and
+// the rest, three mma.sync m16n8k8 products). What bounds it at [128,
+// 1024, 64] f32 causal: 4 d flops per live pair, 0.257 ms at 67 TFLOP/s
+// on the CUDA cores; the chains' 2 d of them alone take 0.128 ms (the
+// same at [32, 1024, 256], [16, 1024, 512] and [8, 1024, 1024]), P V in
+// 3xTF32 (three TF32 products each) 0.052 ms at 495 TFLOP/s. So the
+// chains are the kernel's floor, and its design keeps them fed:
 // - 8 warps a block; a row group of 16 query rows has WP = 1 warp at 64
-//   and 128, 2 at 256 and 4 at 512, each owning DW = 64 or 128 of the
-//   head's columns of O (32 or 64 accumulator registers); 128 rows a
-//   block up to 128, 64 at 256, 32 at 512; the q-tiles with the most key
-//   tiles first;
+//   and 128, 2 at 256, 4 at 512 and 8 or 4 at 1024, each owning DW = 64
+//   or 128 of the head's columns of O (32 or 64 accumulator registers;
+//   at 1024 32 or 64 columns of each 256-column quarter); 128 rows a
+//   block up to 128, 64 at 256, 32 at 512, 16 or 32 at 1024 (32 where
+//   that grid fills every SM); the q-tiles with the most key tiles
+//   first;
 // - qs resident in shared memory (copied once, scaled in place: q *
 //   scale, one rounding, the backward's pre-scale), f32 rows 4 words
 //   (mod 32) apart; up to 256 K and V through a cp.async ring of T-key
 //   tiles (64 keys in three stages at 64, 32 in three at 128, 32 in two
 //   at 256); at 512 K in 256-column chunks of 32-key tiles (two stages)
 //   and V in whole tiles (one stage), since two stages of whole 32-key
-//   tiles would not fit beside qs: 172-205 KB, one block an SM;
+//   tiles would not fit beside qs; at 1024 K's and then V's 256-column
+//   chunks of 64-key (16 rows) or 32-key (32 rows) tiles alike through
+//   two stages: 172-205 KB, one block an SM;
 // - per tile the row group's 16 x T scores are chained by one warp of
 //   the group up to 256 (each lane a 4 x 8 tile of chains at 64, 4 x 4
-//   at 128 and 256) and by two at 512 (4 x 2 each, every chain carried
-//   from one chunk of K to the next), the chaining warps on different
-//   schedulers: a larger tile reads fewer bytes of shared memory per
-//   fma, and those reads bound the chains;
-//   staged in shared memory and read by every warp of the group in the
-//   accumulator layout after the group's barrier (a named barrier at
-//   256, the block's at 512), so that all of them hold the same s, m, l
-//   and p;
+//   at 128 and 256), by two at 512 (4 x 2 each, every chain carried from
+//   one chunk of K to the next) and at 1024 by four (16 rows: 2 x 4
+//   each) or two (32 rows: 4 x 2), a chain a chunk, the chaining warps on
+//   different schedulers: a larger tile
+//   reads fewer bytes of shared memory per fma, and those reads bound the
+//   chains; staged in shared memory and read by every warp of the group
+//   in the accumulator layout after the group's barrier (a named barrier
+//   at 256, the block's at 512 and 1024), so that all of them hold the
+//   same s, m, l and p;
 // - online softmax in f32 on the accumulators (expf, logf, the -1e30
-//   sentinel and the 1e-30 floor of the SIMT kernel), masks only on
+//   sentinel and the 1e-30 floor of the plain version), masks only on
 //   tiles that cross tk or the group's diagonal, tiles wholly above it
 //   skipped;
 // - O += P V over the warp's columns with P's accumulators as A
@@ -142,16 +149,11 @@
 // - the epilogue divides by max(l, 1e-30), stages each warp's O through
 //   its columns of its group's qs rows and writes 16-byte stores; lse is
 //   written once per row.
-//
-// The SIMT kernel (flash_fwd_kernel_f32) runs the f32 heads of 513-1024,
-// zero-padded to 1024, in the first design: CUDA-core FMAs through
-// shared memory in f32 (full f32 precision, no TF32), 8 x 8 tiles
-// (simt_tile, flash_common.cuh; ~129 KB of shared memory), taking the
-// unscaled q and the scale like the other kernels; its scores are one
-// fma chain each in the same order, so the SIMT backward at 1024 rebuilds
-// p from the same bits. Its global loads and stores are templated on the
-// element type, though only f32 runs it. A correct, slow first kernel:
-// nothing was tuned.
+// At 1024 a second limit is L2: K and V come from it once per block of
+// 16 query rows, 2.2 GB a call at [8, 1024, 1024] causal; in a trial on
+// the H100 the kernel with its chains and products taken out (copies,
+// barriers and the epilogue alone) took about half of its time there,
+// so a full grid takes blocks of 32 rows, which halve those reads.
 //
 // The PTX helpers (cp.async, ldmatrix, mma.sync, bf16 packing, the q
 // pre-scale, quad reductions) and the pieces built on them (row copies,
@@ -583,14 +585,16 @@ int launch_wide(const void* q, const void* k, const void* v, void* o, float* lse
 
 // ------------------------------------------ the f32 kernel (3xTF32)
 
-// Heads of 64, 128, 256 and 512 in f32: a block of ROWS query rows in row
-// groups of 16, WP warps to a row group, each owning DW of the head's
-// columns of O (the whole head up to 128, else 128: 64 accumulator
-// registers). CW warps of the row group take its 16 x T scores of a key
-// tile, one fma chain each over the whole head, each lane a 4 x CB tile
-// of them (chain_columns, flash_common.cuh); every warp of the group then
-// runs the online softmax on all of them and P V over its own columns.
-// qs stays resident in shared memory, f32 rows 4 words (mod 32) apart.
+// Heads of 64, 128, 256, 512 and 1024 in f32: a block of ROWS query rows
+// in row groups of 16, WP warps to a row group, each owning DW of the
+// head's columns of O (the whole head up to 128, 128 at 256 and 512, at
+// 1024 128 or 256: 64 or 128 accumulator registers). CW warps of the row
+// group take its 16 x T scores of a key tile, one fma chain each over
+// the whole head (at 1024 one over each quarter, score_chain_cols), each
+// lane an RB x CB tile of them (chain_columns, flash_common.cuh); every
+// warp of the group then runs the online softmax on all of them and P V
+// over its own columns. qs stays resident in shared memory, f32 rows 4
+// words (mod 32) apart.
 //
 // The tiles: a lane's RB x CB chains read RB + CB floats of shared memory
 // per column for RB CB fmas, and a warp's shared-memory reads deliver one
@@ -608,42 +612,72 @@ int launch_wide(const void* q, const void* k, const void* v, void* o, float* lse
 // stage, loaded while the tile's last chunk is chained): two warps a row
 // group chain 4 x 2 each (warps 0, 1, 6 and 7). 172-205 KB: one block an
 // SM.
-template <int D>
+//
+// At 1024 V too comes in 256-column chunks (VC): K's four chunks of a
+// tile, then V's four, alike through a ring of two stages, and each warp
+// owns PW columns of every chunk of O (NP = 4 pieces), so that all eight
+// multiply in each V step. K and V come from L2 once per block of rows
+// (2.2 GB a call at [8, 1024, 1024] causal in blocks of 16 rows), which
+// bounds the kernel on a full grid, so BQ, the rows a block, is 32 where
+// that grid fills every SM (two row groups of four warps of 256 columns,
+// 32-key tiles, warps 0, 1, 6 and 7 chaining 4 x 2 as at 512: half the
+// reads from L2; 199 KB) and 16 where it would not (one row group of
+// eight warps of 128 columns, 64-key tiles, warps 0-3 chaining 2 x 4:
+// twice the blocks in flight; 199 KB). In trials on the H100 those two
+// were the fastest of seven layouts on their grids, against 32-key tiles
+// of 16 rows in a ring of four stages (2 x 2 a lane, or two warps 4 x
+// 2), 64-key tiles of 128-column chunks in four, two warps 4 x 4, and
+// 16-key tiles with V whole (the 512 layout).
+template <int D, int BQ = D <= 128 ? 128 : D == 256 ? 64 : D == 512 ? 32 : 16>
 struct FwdTf32Tiles {
-  static constexpr int WP = D <= 128 ? 1 : D / 128;  // warps to a row group
+  static constexpr bool VC = D == 1024;              // V in chunks too
+  static constexpr int ROWS = BQ;                    // query rows a block
+  static constexpr int WP = 128 / BQ;                // warps to a row group
   static constexpr int DW = D / WP;                  // head columns a warp
   static constexpr int NT = 256;                     // 8 warps
-  static constexpr int ROWS = 16 * (8 / WP);         // query rows a block
-  static constexpr int T = D == 64 ? 64 : 32;        // keys a tile
-  static constexpr int KC = D == 512 ? 256 : D;      // columns of a K chunk
+  static constexpr int T = D == 64 || (VC && WP == 8) ? 64 : 32;  // keys a tile
+  static constexpr int KC = D >= 512 ? 256 : D;      // columns of a K (or V) chunk
   static constexpr int NCH = D / KC;                 // K chunks a tile
-  static constexpr int STAGES = D <= 128 ? 3 : 2;    // the K and V ring (NCH = 1)
+  static constexpr int STAGES = D <= 128 ? 3 : 2;    // the ring (NCH = 1, or VC)
   static constexpr int NT8 = T / 8;                  // 8-key accumulator tiles
-  static constexpr int CW = NCH > 1 ? 2 : 1;         // warps a row group that chain
-  static constexpr int CB = T / 8 / CW;  // a lane's tile of score chains: 4 rows x CB keys
+  static constexpr int CW = WP == 8 ? 4 : NCH > 1 ? 2 : 1;  // warps a row group that chain
+  static constexpr int RB = WP == 8 ? 2 : 4;         // a lane's tile of score chains:
+  static constexpr int CB = 16 * T / (32 * CW * RB);  // RB rows x CB keys
+  static constexpr int KH = T / (8 * CB);            // chaining warps along the keys
+  static constexpr int CPC = score_chain_cols(D) / KC;  // K chunks a chain (NCH > 1)
+  static constexpr int NP = VC ? NCH : 1;            // pieces of a warp's columns of O
+  static constexpr int PW = DW / NP;                 // columns a piece
   static constexpr int LD = D + 4;       // f32 row stride in words: 4 (mod 32)
-  static constexpr int LDK = KC + 4;     // a K chunk's row stride
+  static constexpr int LDK = KC + 4;     // a chunk's row stride
   static constexpr int LS = score_stride(T);  // a score row's stride
-  // qs, then the ring (STAGES tiles of K and of V; or two K chunks and one
-  // V tile), then each row group's scores
+  // qs, then the ring (STAGES tiles of K and of V; two K chunks and one V
+  // tile; or, VC, STAGES chunks of K or V), then each row group's scores
   static constexpr size_t ring_floats =
-      NCH == 1 ? (size_t)2 * STAGES * T * LD : (size_t)2 * T * LDK + (size_t)T * LD;
+      VC ? (size_t)STAGES * T * LDK
+      : NCH == 1 ? (size_t)2 * STAGES * T * LD : (size_t)2 * T * LDK + (size_t)T * LD;
   static constexpr size_t rows_bytes = sizeof(float) * ((size_t)ROWS * LD + ring_floats);
   static constexpr size_t bytes = rows_bytes + sizeof(float) * (size_t)ROWS * LS;
-  static_assert(D == 64 || D == 128 || D == 256 || D == 512,
-                "the 3xTF32 forward takes heads of 64, 128, 256 and 512");
+  static_assert(D == 64 || D == 128 || D == 256 || D == 512 || D == 1024,
+                "the 3xTF32 forward takes heads of 64, 128, 256, 512 and 1024");
+  static_assert(VC ? BQ == 16 || BQ == 32 : WP == (D <= 128 ? 1 : D / 128),
+                "rows a block: 16 or 32 at 1024, else one warp a row group per 128 columns");
+  static_assert(!VC || (2 * NCH) % STAGES == 0, "VC: a tile's steps start at stage 0");
+  static_assert(CW * 32 * RB * CB == 16 * T, "every score of the row group once");
+  static_assert(NCH == 1 || score_chain_cols(D) % KC == 0, "whole chunks a chain");
   static_assert(bytes <= SMEM_LIMIT, "flash_fwd 3xTF32 layout exceeds shared memory");
-  // which share of row group rg's keys warp `part` of it chains (keys
-  // 8 CB h ..), or -1: one warp a scheduler (warp % 4)
-  __device__ static constexpr int chain_half(int rg, int part) {
-    return WP == 4 ? (part - 2 * rg == 0 || part - 2 * rg == 1 ? part - 2 * rg : -1)
+  // which share of row group rg's scores warp `part` of it chains (rows
+  // 4 RB (h / KH) .., keys 8 CB (h % KH) ..), or -1: one warp a
+  // scheduler (warp % 4)
+  __device__ static constexpr int chainer(int rg, int part) {
+    return WP == 8   ? (part < CW ? part : -1)
+           : WP == 4 ? (part - 2 * rg == 0 || part - 2 * rg == 1 ? part - 2 * rg : -1)
            : WP == 2 ? (part == (rg / 2) % 2 ? 0 : -1)
                      : 0;
   }
 };
 
 // One key tile of the online softmax in f32 on the score accumulators
-// (h = 0: row g, h = 1: row g + 8), as the SIMT kernel takes it: expf of
+// (h = 0: row g, h = 1: row g + 8), as the plain version takes it: expf of
 // s - m (a masked score at the sentinel against a sentinel max gives
 // exp(0)); the row's max m and this thread's share of its sum l move on,
 // s becomes p, and corr[h] = exp(m_old - m_new) is the factor for O.
@@ -671,25 +705,52 @@ __device__ __forceinline__ void online_softmax_f32(float (&s)[NS][4], float (&m)
   }
 }
 
+// O = O corr + P V over PW columns of O (acc, 8 columns a tile): P the
+// tile's NT8 accumulator tiles of probabilities as A fragments
+// (c_to_a_tf32: the depth permuted), Vt the first of these columns of the
+// tile's V rows (leading dimension LDV) read in that order
+// (load_b_perm_tf32), each 8-column tile summed over the tile in a zeroed
+// partial (the 8-key steps outer, so that consecutive mma.sync go to
+// different partials) added with one rounded fma (the tensor cores'
+// accumulation is not rounded to nearest).
+template <int NT8, int PW, int LDV>
+__device__ __forceinline__ void pv_tf32x3(float (&acc)[PW / 8][4], const float (&p)[NT8][4],
+                                          const float* Vt, const float (&corr)[2], int lane) {
+  float part_o[PW / 8][4] = {};
+#pragma unroll
+  for (int n = 0; n < NT8; ++n) {
+    FragA pa;
+    c_to_a_tf32(pa, p[n]);
+#pragma unroll
+    for (int nd = 0; nd < PW / 8; ++nd) {
+      FragB bv;
+      load_b_perm_tf32<LDV>(bv, Vt + 8 * n * LDV, 8 * nd, lane);
+      mma_tf32x3(part_o[nd], pa, bv);
+    }
+  }
+#pragma unroll
+  for (int nd = 0; nd < PW / 8; ++nd) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nd][e] = fmaf(acc[nd][e], corr[e / 2], part_o[nd][e]);
+  }
+}
+
 // Per key tile: the row group's scores (the forward's order, by its
 // chaining warps into the group's rows of Ss), then, once a barrier shows
 // them to the group, every warp the masks and the online softmax on all
-// 16 x T, and O = O corr + P V over its own columns: P from the
-// accumulators as A fragments (c_to_a_tf32: the depth permuted), V's rows
-// read in that order (load_b_perm_tf32), each 8-column tile of O summed
-// over the tile in a zeroed partial (the 8-key steps outer, so that
-// consecutive mma.sync go to different partials) added with one rounded
-// fma (the tensor cores' accumulation is not rounded to nearest).
-template <int D>
-__global__ void __launch_bounds__(FwdTf32Tiles<D>::NT, 1)
+// 16 x T, and O = O corr + P V over its own columns (pv_tf32x3).
+template <int D, int BQ>
+__global__ void __launch_bounds__(FwdTf32Tiles<D, BQ>::NT, 1)
 flash_fwd_kernel_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, float* __restrict__ o,
                         float* __restrict__ lse, int bh, int tq, int tk, int n_qtiles,
                         int causal, float scale) {
-  using Tl = FwdTf32Tiles<D>;
+  using Tl = FwdTf32Tiles<D, BQ>;
   constexpr int ROWS = Tl::ROWS, NT = Tl::NT, T = Tl::T, STAGES = Tl::STAGES, NCH = Tl::NCH;
-  constexpr int WP = Tl::WP, DW = Tl::DW, NT8 = Tl::NT8, CB = Tl::CB;
+  constexpr int WP = Tl::WP, DW = Tl::DW, NT8 = Tl::NT8, RB = Tl::RB, CB = Tl::CB;
   constexpr int KC = Tl::KC, LD = Tl::LD, LDK = Tl::LDK, LS = Tl::LS;
+  constexpr int NP = Tl::NP, PW = Tl::PW, CPC = Tl::CPC;
+  constexpr bool VC = Tl::VC;
   extern __shared__ __align__(128) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);
   float* Rs = Qs + ROWS * LD;  // the ring
@@ -697,7 +758,8 @@ flash_fwd_kernel_tf32x3(const float* __restrict__ q, const float* __restrict__ k
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int rg = warp / WP, part = warp % WP;  // row group, share of the columns
-  const int half = Tl::chain_half(rg, part);   // the keys this warp chains, or -1
+  const int h = Tl::chainer(rg, part);         // the scores this warp chains, or -1
+  const int h_row = 4 * RB * (h / Tl::KH), h_key = 8 * CB * (h % Tl::KH);
   // the q-tiles with the most key tiles (the last ones, under the causal
   // mask) first, so the last wave of blocks is not the longest
   const int qt = n_qtiles - 1 - (int)(blockIdx.x / bh);
@@ -709,8 +771,6 @@ flash_fwd_kernel_tf32x3(const float* __restrict__ q, const float* __restrict__ k
   const float* vb = v + (size_t)b * tk * D;
   const float* Qg = Qs + 16 * rg * LD;  // the row group's rows of qs
   float* Sg = Ss + 16 * rg * LS;        // and of the scores
-  // this warp's columns of its group's qs rows, later its O
-  float* Ow = Qs + 16 * rg * LD + part * DW;
 
   // the block's q rows (zeros past tq): copy group 0
   load_tile<D, D, LD, ROWS, NT>(Qs, q + (size_t)b * tq * D, q0, tq, 0);
@@ -721,37 +781,45 @@ flash_fwd_kernel_tf32x3(const float* __restrict__ q, const float* __restrict__ k
   if (causal) k_end = min(tk, min(q0 + ROWS, tq) + offset);
   const int n_kt = k_end > 0 ? (k_end + T - 1) / T : 0;
 
-  float acc[DW / 8][4];
+  // this warp's columns of O: NP pieces of PW, piece i at columns i D /
+  // NP + part PW
+  float acc[NP][PW / 8][4];
 #pragma unroll
-  for (int n = 0; n < DW / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int i = 0; i < NP; ++i) {
+#pragma unroll
+    for (int n = 0; n < PW / 8; ++n) acc[i][n][0] = acc[i][n][1] = acc[i][n][2] = acc[i][n][3] = 0.f;
+  }
   float m[2] = {NEG_INF_SENTINEL, NEG_INF_SENTINEL};  // rows g, g + 8
   float l[2] = {0.f, 0.f};                            // this thread's share
 
-  // the tile's scores in Sg, seen by the group: masks, softmax, O += P V
-  // with Vt this warp's columns of the tile's V rows
-  auto softmax_pv = [&](const float* Vt, int k0) {
-    float sc[NT8][4];
+  // the tile's scores in Sg, seen by the group: masks and the online
+  // softmax, sc becoming p
+  auto softmax = [&](float (&sc)[NT8][4], float (&corr)[2], int k0) {
     gather_scores<NT8, LS>(sc, Sg, lane);
     mask_scores(sc, k0, r0, tk, offset, causal, lane);
-    float corr[2];
     online_softmax_f32(sc, m, l, corr);
-    float part_o[DW / 8][4] = {};
+  };
+  // K chunk j of the chaining warp's scores (NCH > 1): each chain over
+  // CPC chunks (score_chain_cols), carried from chunk to chunk in cc, and
+  // the chains' sums added in column order in cs, then staged in Sg
+  float cs[RB][CB], cc[RB][CB];
+  auto chain_chunk = [&](int j, const float* Kc) {
+    if (j % CPC == 0) {
 #pragma unroll
-    for (int n = 0; n < NT8; ++n) {
-      FragA pa;
-      c_to_a_tf32(pa, sc[n]);
+      for (int x = 0; x < RB; ++x) {
 #pragma unroll
-      for (int nd = 0; nd < DW / 8; ++nd) {
-        FragB bv;
-        load_b_perm_tf32<LD>(bv, Vt + 8 * n * LD, 8 * nd, lane);
-        mma_tf32x3(part_o[nd], pa, bv);
+        for (int y = 0; y < CB; ++y) cc[x][y] = 0.f;
       }
     }
+    chain_columns<KC, LD, LDK, RB, CB>(cc, Qg + h_row * LD + j * KC, Kc + h_key * LDK, lane);
+    if (j % CPC == CPC - 1) {
 #pragma unroll
-    for (int nd = 0; nd < DW / 8; ++nd) {
+      for (int x = 0; x < RB; ++x) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[nd][e] = fmaf(acc[nd][e], corr[e / 2], part_o[nd][e]);
+        for (int y = 0; y < CB; ++y) cs[x][y] = j == CPC - 1 ? cc[x][y] : cs[x][y] + cc[x][y];
+      }
     }
+    if (j == NCH - 1) store_scores<RB, CB, LS>(Sg + h_row * LS + h_key, cs, lane);
   };
 
   if constexpr (NCH == 1) {
@@ -787,19 +855,21 @@ flash_fwd_kernel_tf32x3(const float* __restrict__ q, const float* __restrict__ k
       // diagonal, p = 0 throughout
       const int k0 = kt * T;
       if (causal && k0 > r0 + 15 + offset) continue;
-      if (half == 0) score_chain<D, LD, 4, CB, LS>(Sg, Qg, Ks + (kt % STAGES) * T * LD, lane);
+      if (h == 0) score_chain<D, LD, RB, CB, LS>(Sg, Qg, Ks + (kt % STAGES) * T * LD, lane);
       if constexpr (WP > 1) {
         bar_sync(1 + rg, 32 * WP);
       } else {
         __syncwarp();
       }
-      softmax_pv(Vs + (kt % STAGES) * T * LD + part * DW, k0);
+      float sc[NT8][4], corr[2];
+      softmax(sc, corr, k0);
+      pv_tf32x3<NT8, PW, LD>(acc[0], sc, Vs + (kt % STAGES) * T * LD + part * DW, corr, lane);
     }
-  } else {
+  } else if constexpr (!VC) {
     // a ring of steps: step u is chunk u % (NCH + 1) of K tile u / (NCH +
     // 1), or (the last of a tile) its V tile; K chunks in two stages, V in
     // one, each step's copy issued a step ahead (its buffer's last reader
-    // was two steps back, or at 512 the V of the last tile, NCH steps back)
+    // was two steps back, or the V of the last tile, NCH steps back)
     float* Kc = Rs;                  // two chunks of T rows of KC columns
     float* Vs = Rs + 2 * T * LDK;    // one tile of T rows
     const int n_steps = n_kt * (NCH + 1);
@@ -817,7 +887,6 @@ flash_fwd_kernel_tf32x3(const float* __restrict__ q, const float* __restrict__ k
     scale_rows_f32<D, LD, ROWS, NT>(Qs, scale, threadIdx.x);
     __syncthreads();
 
-    float cs[4][CB];  // a chaining warp's sums, carried from chunk to chunk
     for (int u = 0; u < n_steps; ++u) {
       // step u has landed for every thread, and every warp is done with
       // step u - 1
@@ -830,22 +899,57 @@ flash_fwd_kernel_tf32x3(const float* __restrict__ q, const float* __restrict__ k
       const int k0 = kt * T;
       if (causal && k0 > r0 + 15 + offset) continue;
       if (j < NCH) {
-        if (half >= 0) {
-          if (j == 0) {
-#pragma unroll
-            for (int x = 0; x < 4; ++x) {
-#pragma unroll
-              for (int y = 0; y < CB; ++y) cs[x][y] = 0.f;
-            }
-          }
-          chain_columns<KC, LD, LDK, 4, CB>(
-              cs, Qg + j * KC, Kc + ((kt * NCH + j) % 2) * T * LDK + 8 * CB * half * LDK, lane);
-          if (j == NCH - 1) store_scores<4, CB, LS>(Sg + 8 * CB * half, cs, lane);
-        }
+        if (h >= 0) chain_chunk(j, Kc + ((kt * NCH + j) % 2) * T * LDK);
         continue;
       }
       // the V step: the tile's scores are in Sg (the barrier above)
-      softmax_pv(Vs + part * DW, k0);
+      float sc[NT8][4], corr[2];
+      softmax(sc, corr, k0);
+      pv_tf32x3<NT8, PW, LD>(acc[0], sc, Vs + part * DW, corr, lane);
+    }
+  } else {
+    // K's and V's chunks alike through one ring of STAGES: step j of a
+    // tile (2 NCH of them) brings K's columns j KC .. (j < NCH) or V's
+    // (j - NCH) KC .., into stage j % STAGES, issued STAGES - 1 steps
+    // ahead (into the stage of the step before this one, which every
+    // warp is done with).
+    float* Cs = Rs;  // STAGES chunks of T rows of KC columns
+    const int n_steps = n_kt * 2 * NCH;
+    auto load_step = [&](int u) {
+      const int kt = u / (2 * NCH), j = u % (2 * NCH);
+      load_tile<D, KC, LDK, T, NT>(Cs + (u % STAGES) * T * LDK, j < NCH ? kb : vb, kt * T, tk,
+                                   (j % NCH) * KC);
+    };
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (s < n_steps) load_step(s);
+      cp_async_commit();
+    }
+    cp_async_wait<STAGES - 1>();
+    scale_rows_f32<D, LD, ROWS, NT>(Qs, scale, threadIdx.x);
+    __syncthreads();
+
+    float sc[NT8][4], corr[2];  // the tile's p, kept over its V steps
+    for (int kt = 0; kt < n_kt; ++kt) {
+#pragma unroll
+      for (int j = 0; j < 2 * NCH; ++j) {
+        const int u = kt * 2 * NCH + j;
+        // step u has landed for every thread, and every warp is done with
+        // step u - 1
+        cp_async_wait<STAGES - 2>();
+        __syncthreads();
+        if (u + STAGES - 1 < n_steps) load_step(u + STAGES - 1);
+        cp_async_commit();
+        const float* C = Cs + (j % STAGES) * T * LDK;
+        // this row group's rows all past tq, or keys wholly above its diagonal
+        if (r0 >= tq || (causal && kt * T > r0 + 15 + offset)) continue;
+        if (j < NCH) {
+          if (h >= 0) chain_chunk(j, C);
+          continue;
+        }
+        // a V step: at the first the tile's scores are in Sg
+        if (j == NCH) softmax(sc, corr, kt * T);
+        pv_tf32x3<NT8, PW, LDK>(acc[j - NCH], sc, C + part * PW, corr, lane);
+      }
     }
   }
   cp_async_wait<0>();  // the trailing (empty) groups
@@ -857,193 +961,36 @@ flash_fwd_kernel_tf32x3(const float* __restrict__ q, const float* __restrict__ k
   const int g = lane / 4, c = lane % 4;
   float denom[2];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    denom[h] = fmaxf(quad_sum(l[h]), 1e-30f);
-    const int row = r0 + g + 8 * h;
-    if (part == 0 && c == 0 && row < tq) lse[(size_t)b * tq + row] = m[h] + logf(denom[h]);
+  for (int i = 0; i < 2; ++i) {
+    denom[i] = fmaxf(quad_sum(l[i]), 1e-30f);
+    const int row = r0 + g + 8 * i;
+    if (part == 0 && c == 0 && row < tq) lse[(size_t)b * tq + row] = m[i] + logf(denom[i]);
   }
 #pragma unroll
-  for (int n = 0; n < DW / 8; ++n) {
+  for (int i = 0; i < NP; ++i) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] /= denom[e / 2];
+    for (int n = 0; n < PW / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][n][e] /= denom[e / 2];
+    }
+    const int col = i * (D / NP) + part * PW;
+    store_warp_rows_f32<PW, LD, D>(o + (size_t)b * tq * D + col, Qs + 16 * rg * LD + col,
+                                   acc[i], 1.f, r0, tq, lane);
   }
-  store_warp_rows_f32<DW, LD, D>(o + (size_t)b * tq * D + part * DW, Ow, acc, 1.f, r0, tq,
-                                 lane);
 }
 
-template <int D>
+template <int D, int BQ = FwdTf32Tiles<D>::ROWS>
 int launch_tf32x3(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
                   int tq, int tk, int causal, float scale, cudaStream_t stream) {
-  using Tl = FwdTf32Tiles<D>;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel_tf32x3<D>,
+  using Tl = FwdTf32Tiles<D, BQ>;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel_tf32x3<D, BQ>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)Tl::bytes);
   if (err != cudaSuccess) return (int)err;
   const int n_qtiles = (tq + Tl::ROWS - 1) / Tl::ROWS;
-  flash_fwd_kernel_tf32x3<D><<<bh * n_qtiles, Tl::NT, Tl::bytes, stream>>>(
+  flash_fwd_kernel_tf32x3<D, BQ><<<bh * n_qtiles, Tl::NT, Tl::bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), lse, bh, tq, tk, n_qtiles, causal, scale);
-  return (int)cudaGetLastError();
-}
-
-// ------------------------------------------------ the f32 (SIMT) design
-
-// Shared-memory layout of a block of BQ query rows over key tiles of BKT
-// keys, all in f32.
-template <int D, int BQ, int BKT>
-struct F32Layout {
-  static constexpr int LDT = D + 1;    // q, k, v rows (bank spread)
-  static constexpr int LDS = BKT + 1;  // scores, then probabilities
-  static constexpr size_t q_off = 0;
-  static constexpr size_t k_off = q_off + round32(sizeof(float) * BQ * LDT);
-  static constexpr size_t v_off = k_off + round32(sizeof(float) * BKT * LDT);
-  static constexpr size_t s_off = v_off + round32(sizeof(float) * BKT * LDT);
-  static constexpr size_t o_off = s_off + round32(sizeof(float) * BQ * LDS);
-  static constexpr size_t m_off = o_off + round32(sizeof(float) * BQ * D);
-  static constexpr size_t l_off = m_off + round32(sizeof(float) * BQ);
-  static constexpr size_t c_off = l_off + round32(sizeof(float) * BQ);
-  static constexpr size_t bytes = c_off + round32(sizeof(float) * BQ);
-  static_assert(bytes <= SMEM_LIMIT, "flash_fwd f32 layout exceeds shared memory");
-};
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-template <typename T, int D, int BQ, int BKT>
-__global__ void __launch_bounds__(F32_NT)
-flash_fwd_kernel_f32(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
-                     int tq, int tk, int n_qtiles, int causal, float scale) {
-  using Lay = F32Layout<D, BQ, BKT>;
-  constexpr int LDT = Lay::LDT, LDS = Lay::LDS;
-  constexpr int RPW = BQ / (F32_NT / 32);  // softmax rows per warp
-  constexpr int CPL = (BKT + 31) / 32;     // softmax columns per lane
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem + Lay::q_off);
-  float* Ks = reinterpret_cast<float*>(smem + Lay::k_off);
-  float* Vs = reinterpret_cast<float*>(smem + Lay::v_off);
-  float* Ss = reinterpret_cast<float*>(smem + Lay::s_off);
-  float* Os = reinterpret_cast<float*>(smem + Lay::o_off);
-  float* m_s = reinterpret_cast<float*>(smem + Lay::m_off);
-  float* l_s = reinterpret_cast<float*>(smem + Lay::l_off);
-  float* c_s = reinterpret_cast<float*>(smem + Lay::c_off);
-
-  const int bh = blockIdx.x / n_qtiles;
-  const int q0 = (blockIdx.x % n_qtiles) * BQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int offset = tk - tq;
-  const T* kb = k + (size_t)bh * tk * D;
-  const T* vb = v + (size_t)bh * tk * D;
-
-  load_rows_f32<D, LDT>(Qs, q + (size_t)bh * tq * D, q0, tq, BQ, scale);
-  for (int i = threadIdx.x; i < BQ * D; i += F32_NT) Os[i] = 0.f;
-  for (int i = threadIdx.x; i < BQ; i += F32_NT) {
-    m_s[i] = NEG_INF_SENTINEL;
-    l_s[i] = 0.f;
-  }
-
-  int k_end = tk;
-  if (causal) k_end = min(tk, min(q0 + BQ, tq) + offset);
-  const int n_ktiles = k_end > 0 ? (k_end + BKT - 1) / BKT : 0;
-
-  for (int kt = 0; kt < n_ktiles; ++kt) {
-    const int k0 = kt * BKT;
-    load_rows_f32<D, LDT>(Ks, kb, k0, tk, BKT, 1.f);
-    load_rows_f32<D, LDT>(Vs, vb, k0, tk, BKT, 1.f);
-    __syncthreads();
-
-    for (int i = threadIdx.x; i < BQ * BKT; i += F32_NT) {
-      const int r = i / BKT, col = i % BKT;
-      float s = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) s += Qs[r * LDT + d] * Ks[col * LDT + d];
-      Ss[r * LDS + col] = s;
-    }
-    __syncthreads();
-
-    // online softmax: each warp walks its RPW rows, each lane CPL columns
-    // (lanes past BKT hold none)
-    for (int rr = 0; rr < RPW; ++rr) {
-      const int r = RPW * warp + rr;
-      const int qrow = q0 + r;
-      float s[CPL];
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < CPL; ++j) {
-        const int col = lane + 32 * j;
-        const int kcol = k0 + col;
-        // past the tile or the last key: not in the row at all
-        float x = -INFINITY;
-        if (col < BKT && kcol < tk)
-          x = causal && qrow + offset < kcol ? NEG_INF_SENTINEL : Ss[r * LDS + col];
-        s[j] = x;
-        mx = fmaxf(mx, x);
-      }
-      mx = warp_max(mx);
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < CPL; ++j) {
-        const int col = lane + 32 * j;
-        const float p = expf(s[j] - m_new);
-        sum += p;
-        // P.V takes p rounded to v's dtype; l sums it unrounded
-        if (col < BKT) Ss[r * LDS + col] = round_to<T>(p);
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float corr = expf(m_prev - m_new);
-        m_s[r] = m_new;
-        l_s[r] = corr * l_s[r] + sum;
-        c_s[r] = corr;
-      }
-    }
-    __syncthreads();
-
-    // O = O * corr + P V
-    for (int i = threadIdx.x; i < BQ * D; i += F32_NT) {
-      const int r = i / D, col = i % D;
-      float a = 0.f;
-#pragma unroll 8
-      for (int j = 0; j < BKT; ++j) a += Ss[r * LDS + j] * Vs[j * LDT + col];
-      Os[r * D + col] = Os[r * D + col] * c_s[r] + a;
-    }
-    __syncthreads();
-  }
-
-  for (int i = threadIdx.x; i < BQ * D; i += F32_NT) {
-    const int r = i / D, col = i % D;
-    if (q0 + r < tq) {
-      const float denom = fmaxf(l_s[r], 1e-30f);
-      o[((size_t)bh * tq + q0 + r) * D + col] = from_f<T>(Os[r * D + col] / denom);
-    }
-  }
-  for (int r = threadIdx.x; r < BQ; r += F32_NT) {
-    if (q0 + r < tq) lse[(size_t)bh * tq + q0 + r] = m_s[r] + logf(fmaxf(l_s[r], 1e-30f));
-  }
-}
-
-template <typename T, int D>
-int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
-               int bh, int tq, int tk, int causal, float scale, cudaStream_t stream) {
-  constexpr int TILE = simt_tile(D);
-  constexpr size_t smem = F32Layout<D, TILE, TILE>::bytes;
-  auto kernel = flash_fwd_kernel_f32<T, D, TILE, TILE>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int n_qtiles = (tq + TILE - 1) / TILE;
-  kernel<<<bh * n_qtiles, F32_NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, tq, tk, n_qtiles, causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1052,8 +999,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
 // q, k, v, o: contiguous [bh, t, d], 16-byte aligned; lse: contiguous f32
 // [bh, tq]; q unscaled, scale = 1/sqrt(d) rounded to q's dtype. dtype: 0 =
 // float32, 1 = bfloat16; d: 64, 128, 256, 512 or 1024. block_q (bf16 d 64
-// and 128: 64 or 128; bf16 d 1024: 16 or 32): query rows per block, or 0
-// to choose by tq and bh (every other head takes only 0).
+// and 128: 64 or 128; d 1024: 16 or 32): query rows per block, or 0 to
+// choose by tq and bh (every other head takes only 0).
 // Returns a cudaError_t (0 on success); an unsupported head size or block
 // returns cudaErrorInvalidValue.
 extern "C" int dl4j_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
@@ -1074,7 +1021,7 @@ extern "C" int dl4j_flash_fwd(const void* q, const void* k, const void* v, void*
     if (d == 128 && block_q == 128) return launch_bf16<128, 128>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
     return (int)cudaErrorInvalidValue;
   }
-  if (dtype == 1 && d == 1024) {
+  if (d == 1024) {
     // 32 rows a block (K and V read from L2 once per 32 query rows) where
     // that grid fills every SM, else 16 (twice the blocks in flight:
     // short sequences or few heads)
@@ -1083,20 +1030,21 @@ extern "C" int dl4j_flash_fwd(const void* q, const void* k, const void* v, void*
       if (int err = sm_count(&sms)) return err;
       block_q = (long long)bh * ((tq + 31) / 32) >= sms ? 32 : 16;
     }
-    if (block_q == 32) return launch_wide<1024, 32>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
-    if (block_q == 16) return launch_wide<1024, 16>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
+    if (dtype == 1 && block_q == 32) return launch_wide<1024, 32>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
+    if (dtype == 1 && block_q == 16) return launch_wide<1024, 16>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
+    if (dtype == 0 && block_q == 32) return launch_tf32x3<1024, 32>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
+    if (dtype == 0 && block_q == 16) return launch_tf32x3<1024, 16>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
     return (int)cudaErrorInvalidValue;
   }
   if (block_q != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 1) {  // the wide heads on the tensor cores
     if (d == 256) return launch_wide<256>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
     if (d == 512) return launch_wide<512>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
-  } else if (dtype == 0) {  // scores on the CUDA cores, P V in 3xTF32; 1024 the SIMT kernel
+  } else if (dtype == 0) {  // scores on the CUDA cores, P V in 3xTF32
     if (d == 64) return launch_tf32x3<64>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
     if (d == 128) return launch_tf32x3<128>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
     if (d == 256) return launch_tf32x3<256>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
     if (d == 512) return launch_tf32x3<512>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
-    if (d == 1024) return launch_f32<float, 1024>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -9,10 +9,11 @@ kernels become CUDA kernels: ``_flash_fwd_impl`` -> ``_fwd_kernel`` is
 Which kernel runs which dtype and head:
 
 - forward: bf16 on the tensor cores at every head (``flash_fwd_kernel``
-  up to 128, ``flash_fwd_kernel_wide`` at 256, 512 and 1024); f32 up to
-  512 in ``flash_fwd_kernel_tf32x3`` (the scores on the CUDA cores, one
-  f32 fma chain each over the head in order, P.V on the tensor cores in
-  3xTF32), at 1024 on the CUDA cores (``flash_fwd_kernel_f32``);
+  up to 128, ``flash_fwd_kernel_wide`` at 256, 512 and 1024); f32 at
+  every head in ``flash_fwd_kernel_tf32x3`` (the scores on the CUDA
+  cores, one f32 fma chain each over the head in order, at 1024 one over
+  each quarter of it with the sums added in order; P.V on the tensor
+  cores in 3xTF32);
 - backward: bf16 on the tensor cores up to 512 (``flash_dq_kernel`` /
   ``flash_dkv_kernel`` up to 128, the ``_wide`` pair at 256 and 512);
   f32 up to 512 on the tensor cores in 3xTF32 (each f32 operand split
@@ -22,7 +23,7 @@ Which kernel runs which dtype and head:
   256 and 512, whose scores are the f32 forward's own chains, bit for
   bit, so that s - lse cancels the forward's rounding of s as in the
   reference; the f32 and bf16 heads of 1024 on the CUDA cores (the
-  ``_f32`` pair).
+  ``_f32`` pair, whose scores take the f32 forward's order too).
 
 Which of the two runs is decided by the tensor's device alone: on the
 CPU the plain version, on a CUDA device the kernel (a build or launch
@@ -69,10 +70,10 @@ def _head_width(d: int) -> int:
     512 or 1024, the sizes they are built for (on the tensor cores: in
     bf16 the forward at every one of them, 256 to 1024 in its ``_wide``
     kernel, and the backward 64 to 512, 256 and 512 in its ``_wide``
-    kernels; in f32 the forward 64 to 512 in ``flash_fwd_kernel_tf32x3``
-    and the backward 64 to 512 in 3xTF32, 256 and 512 in its
-    ``_wide_tf32x3`` kernels. The f32 forward and the f32 and bf16
-    backward at 1024 run on the CUDA cores). A smaller head
+    kernels; in f32 the forward at every one of them in
+    ``flash_fwd_kernel_tf32x3`` and the backward 64 to 512 in 3xTF32, 256
+    and 512 in its ``_wide_tf32x3`` kernels. The f32 and bf16 backward at
+    1024 run on the CUDA cores). A smaller head
     is padded with zeros up to it, which adds 0 to every score and
     product, so the unpadded columns of every output are the same; the
     scales stay those of ``d``."""
@@ -157,10 +158,10 @@ def _flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch of the kernel on the unscaled q (it scales q as it
     loads it), at the head width of :func:`_head_width`. ``block_q``:
-    the bf16 kernels' query rows per block (for measurements only), 64
-    or 128 at heads of 64 and 128, 16 or 32 at 1024; or 0: the kernel
-    chooses by tq and the size of the grid (every other head takes only
-    0)."""
+    the kernels' query rows per block (for measurements only), in bf16
+    64 or 128 at heads of 64 and 128, in either dtype 16 or 32 at 1024;
+    or 0: the kernel chooses by tq and the size of the grid (every other
+    head takes only 0)."""
     bh, tq, d = q.shape
     tk = k.shape[1]
     _check_inputs(q, k, v)

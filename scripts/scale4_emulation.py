@@ -5,14 +5,18 @@ and what the f32 forward of the tensor cores gives there.
 
 On ``chip_smoke.scale4_arrays`` (causal), each variant below computes
 the backward's scores s and dP one way, takes lse from the scores of the
-f32 forward (``flash_fwd_kernel_f32``: one fma chain over the head in
-order, which the emulation repeats), and the rest exactly; it prints each
-variant's error in dq, dk and dv from the exact backward, relative to
-max |ref| (the measure of ``chip_smoke.phase_scale4`` and the card
-tests):
+f32 forward (``flash_fwd_kernel_tf32x3``: one fma chain over the head in
+order, at 1024 one over each quarter of it with the sums added in order,
+``score_chain_cols`` in ``flash_common.cuh``, which the emulation
+repeats), and the rest exactly; it prints each variant's error in dq, dk
+and dv from the exact backward, relative to max |ref| (the measure of
+``chip_smoke.phase_scale4`` and the card tests):
 
-- ``forward_order``: the forward's own chains (what the wide f32 kernels
-  and the SIMT kernels compute);
+- ``forward_order``: the forward's own chains (what every f32 backward
+  kernel computes);
+- ``one_chain`` (at 1024 only, where the forward's order splits the
+  head): one chain over the whole head, in the forward and the backward
+  alike, with the forward below run on it (``one_chain_forward``);
 - ``exact``: the exact scores, rounded once to f32;
 - ``tensor_cores_K``: 3xTF32 on the tensor cores as mma.sync m16n8k8
   sums them (each product exact, each mma's sum truncated to f32), over
@@ -93,8 +97,25 @@ def tensor_cores(a, b, chain):
     return out
 
 
-# key tiles of flash_fwd_kernel_tf32x3 (FwdTf32Tiles::T) at each head
-FWD_TILE = {64: 64, 128: 32, 256: 32, 512: 32}
+# key tiles of flash_fwd_kernel_tf32x3 (FwdTf32Tiles::T) at each head, at
+# 1024 in the 16-row blocks that the scale-4 arrays' small grid takes
+FWD_TILE = {64: 64, 128: 32, 256: 32, 512: 32, 1024: 64}
+
+
+def score_chain_cols(d):
+    """The columns of one chain of a score at a head of ``d``
+    (``score_chain_cols``, flash_common.cuh)."""
+    return d if d < 1024 else 256
+
+
+def forward_order(a, b):
+    """a b^T in the f32 kernels' order: fma chains over
+    ``score_chain_cols`` columns each, their sums added in column order."""
+    cols = score_chain_cols(a.shape[-1])
+    s = fma_chain(a[..., :cols], b[..., :cols])
+    for c0 in range(cols, a.shape[-1], cols):
+        s = (s + fma_chain(a[..., c0:c0 + cols], b[..., c0:c0 + cols])).astype(np.float32)
+    return s
 
 
 def _dead(t):
@@ -156,7 +177,7 @@ def main() -> int:
         q64, k64, v64, do64 = (x.astype(np.float64) for x in (qs, k, v, do))
         s64, dp64 = q64 @ k64.transpose(0, 2, 1), do64 @ v64.transpose(0, 2, 1)
         ref = backward(q64, k64, v64, do64, s64, s64, dp64)
-        s_fwd = fma_chain(qs, k)
+        s_fwd = forward_order(qs, k)
         variants = {"forward_order": (s_fwd, fma_chain(do, v)),
                     "exact": (s64.astype(np.float32), dp64.astype(np.float32))}
         width = min(d, 128)  # a warp's columns: the whole head up to 128
@@ -169,6 +190,10 @@ def main() -> int:
         for name, (s, dp) in variants.items():
             got = backward(q64, k64, v64, do64, s_fwd, s, dp)
             errs[name] = _rel(got, ref)
+        if score_chain_cols(d) < d:
+            s_one = fma_chain(qs, k)
+            errs["one_chain"] = _rel(backward(q64, k64, v64, do64, s_one, s_one,
+                                              fma_chain(do, v)), ref)
         # the 3xTF32 forward, against the exact forward, and the backward
         # in the forward's order after it
         dead = _dead(q.shape[1])
@@ -177,6 +202,9 @@ def main() -> int:
             + s_ref.max(-1, keepdims=True)
         fwd = forward(s_fwd, v, FWD_TILE[d])
         errs["forward"] = _rel(fwd, (np.exp(s_ref - lse_ref) @ v64, lse_ref))
+        if score_chain_cols(d) < d:
+            errs["one_chain_forward"] = _rel(forward(s_one, v, FWD_TILE[d]),
+                                             (np.exp(s_ref - lse_ref) @ v64, lse_ref))
         errs["after_forward"] = _rel(backward(q64, k64, v64, do64, s_fwd, s_fwd,
                                               fma_chain(do, v), fwd), ref)
         print("scale4_emulation " + json.dumps(dict(d=d, errors=errs)), flush=True)

@@ -206,13 +206,12 @@ def test_spill_gate_rejects_a_spilling_bf16_lstm_bwd_or_lstm_dw(bwd_spills, dw_s
         chip_smoke._spill_gate("lstm_bwd", _bwd_report(bwd_spills, dw_spills))
 
 
-def _fwd_report(wide_spills, wide_1024_spills=None, tf32_spills=0):
+def _fwd_report(wide_spills, wide_1024_spills=None, tf32_spills=0, tf32_1024_spills=0):
     """A stand-in report of flash_fwd.cu: the bf16 mma.sync kernel, the
     wide one at 256 and 512 (spilling ``wide_spills`` bytes) and at 1024
     in 32- and 16-row blocks (``wide_1024_spills``, by default the same),
-    the f32 3xTF32 kernel at 64, 128, 256 and 512 (the one at 512
-    spilling ``tf32_spills``), and an f32 and a bf16 SIMT instantiation
-    at 1024 (never gated)."""
+    and the f32 3xTF32 kernel at 64, 128, 256, 512 and 1024 (the one at
+    512 spilling ``tf32_spills``, the one at 1024 ``tf32_1024_spills``)."""
     ns = "_ZN12_GLOBAL__N_1"
     args = "EEvPK13__nv_bfloat16S3_S3_PS1_Pfiiiiif"
     f32_args = "EEvPKfS1_S1_PfS2_iiiiif"
@@ -228,10 +227,7 @@ def _fwd_report(wide_spills, wide_1024_spills=None, tf32_spills=0):
         (f"{ns}23flash_fwd_kernel_tf32x3ILi128{f32_args}", 209, 0),
         (f"{ns}23flash_fwd_kernel_tf32x3ILi256{f32_args}", 212, 0),
         (f"{ns}23flash_fwd_kernel_tf32x3ILi512{f32_args}", 188, tf32_spills),
-        (f"{ns}20flash_fwd_kernel_f32IfLi1024ELi8ELi8EEEvPKT_S3_S3_PS1_Pfiiiiif",
-         90, 16),
-        (f"{ns}20flash_fwd_kernel_f32I13__nv_bfloat16Li1024ELi8ELi8EEEvPKT_"
-         "S4_S4_PS2_Pfiiiiif", 80, 16)])
+        (f"{ns}23flash_fwd_kernel_tf32x3ILi1024{f32_args}", 241, tf32_1024_spills)])
 
 
 def test_spill_gate_reads_the_wide_flash_forward(capsys):
@@ -244,11 +240,11 @@ def test_spill_gate_reads_the_wide_flash_forward(capsys):
 
 def test_spill_gate_reads_the_tf32x3_flash_forward(capsys):
     """The f32 forward's 3xTF32 kernel is gated at every head it is built
-    for; the SIMT kernel at 1024 is not."""
+    for, 1024 included (no SIMT forward is left)."""
     chip_smoke._spill_gate("flash_fwd", _fwd_report(0))
     out = capsys.readouterr().out
     assert ("f32 flash_fwd_kernel_tf32x3 registers, spill bytes: "
-            "[(225, 0), (209, 0), (212, 0), (188, 0)]") in out
+            "[(225, 0), (209, 0), (212, 0), (188, 0), (241, 0)]") in out
     assert "flash_fwd_kernel_f32 registers" not in out
 
 
@@ -258,6 +254,14 @@ def test_spill_gate_rejects_a_spilling_tf32x3_flash_forward(spills):
     fails the gate."""
     with pytest.raises(RuntimeError, match="f32 flash_fwd_kernel_tf32x3 spills"):
         chip_smoke._spill_gate("flash_fwd", _fwd_report(0, tf32_spills=spills))
+
+
+@pytest.mark.parametrize("spills", [4, 256])
+def test_spill_gate_rejects_a_spilling_tf32x3_flash_forward_at_1024(spills):
+    """The instantiation at 1024 alone spilling fails phase 1, with the
+    other heads clean."""
+    with pytest.raises(RuntimeError, match=r"f32 flash_fwd_kernel_tf32x3 spills.*1024"):
+        chip_smoke._spill_gate("flash_fwd", _fwd_report(0, tf32_1024_spills=spills))
 
 
 def test_spill_gate_needs_the_tf32x3_flash_forward():
@@ -286,6 +290,7 @@ def test_spill_gate_rejects_a_spilling_wide_flash_forward_at_1024(spills):
     ("void (anonymous namespace)::flash_fwd_kernel_f32<float, 1024, 8, 8>(Args)",
      "flash_fwd_kernel"),
     ("void (anonymous namespace)::flash_fwd_kernel_tf32x3<64>(Args)", "flash_fwd_kernel"),
+    ("void (anonymous namespace)::flash_fwd_kernel_tf32x3<1024>(Args)", "flash_fwd_kernel"),
     (DKV, "flash_dkv_kernel"),
     (COPY, None)])
 def test_port_kernel_reads_every_forward_kernel(name, key):
@@ -300,8 +305,8 @@ def test_port_kernel_reads_every_forward_kernel(name, key):
     ("bfloat16", 1024, "flash_fwd_kernel_wide<"),
     ("float32", 64, "flash_fwd_kernel_tf32x3<"), ("float32", 128, "flash_fwd_kernel_tf32x3<"),
     ("float32", 200, "flash_fwd_kernel_tf32x3<"), ("float32", 256, "flash_fwd_kernel_tf32x3<"),
-    ("float32", 512, "flash_fwd_kernel_tf32x3<"), ("float32", 640, "flash_fwd_kernel_f32<"),
-    ("float32", 1024, "flash_fwd_kernel_f32<")])
+    ("float32", 512, "flash_fwd_kernel_tf32x3<"), ("float32", 640, "flash_fwd_kernel_tf32x3<"),
+    ("float32", 1024, "flash_fwd_kernel_tf32x3<")])
 def test_fwd_kernel_name_follows_the_dispatch(dtype, d, kernel):
     assert chip_smoke.fwd_kernel_name(dtype, d) == kernel
 
@@ -502,7 +507,8 @@ def _flash_rows():
             bound_tf32x3_share=0.104 / ms)
 
     return ([fwd(*s) for s in shapes]
-            + [fwd_f32(*s, ms) for s, ms in zip(shapes[1:], (0.5, 0.55, 0.7))]
+            + [fwd_f32(*s, ms) for s, ms in zip(shapes[1:] + [(8, 1024, 1024)],
+                                                (0.5, 0.55, 0.7, 0.86))]
             + [fwd(8, 1024, 1024)],
             [bwd(*s) for s in shapes[1:]] + [f32, wide_f32])
 
@@ -546,13 +552,14 @@ def test_flash_summary_names_the_wide_kernels():
 
 def test_forward_only_case_times_the_wide_forward_at_1024():
     """Phase 2 times the wide forward at [8, 1024, 1024] bf16 causal (the
-    other wide rows' bound by bytes: bh x d = 8192), the forward alone:
-    the backward at 1024 still runs the SIMT kernels, and stays at t
-    200."""
-    assert chip_smoke.FWD_ONLY_CASES == [("bfloat16", 1024, 8, 1024, 1024, True)]
+    other wide rows' bound by bytes: bh x d = 8192), and the f32 forward
+    there, the forward alone: the backward at 1024 still runs the SIMT
+    kernels, and stays at t 200."""
+    assert chip_smoke.FWD_ONLY_CASES == [("bfloat16", 1024, 8, 1024, 1024, True),
+                                         ("float32", 1024, 8, 1024, 1024, True)]
     fwd, bwd = chip_smoke.fwd_cases(), chip_smoke.bwd_cases()
-    assert fwd[-1] == chip_smoke.FWD_ONLY_CASES[0] and len(set(fwd)) == len(fwd)
-    assert chip_smoke.FWD_ONLY_CASES[0] not in bwd
+    assert fwd[-2:] == chip_smoke.FWD_ONLY_CASES and len(set(fwd)) == len(fwd)
+    assert not set(chip_smoke.FWD_ONLY_CASES) & set(bwd)
     assert [c for c in bwd if c[1] == 1024] == [("bfloat16", 1024, 4, 200, 200, True),
                                                 ("float32", 1024, 4, 200, 200, True)]
     assert chip_smoke.bwd_kernel_names("bfloat16", 1024) == (
@@ -645,6 +652,34 @@ def test_flash_summary_gives_the_forward_its_f32_rows():
         assert e["bound_tf32x3_by"] == "operations"
         assert e.get("launches") == launches and ("launches" in e) == (launches is not None)
     assert fwd["ms"] == 0.1 and fwd["shape"] == [64, 64, 64]
+
+
+def test_flash_summary_gives_the_forward_its_f32_1024_row():
+    """Phase 2's f32 forward-only case, [8, 1024, 1024] f32 causal, is
+    among the forward cases and gives the forward's entry
+    ``wide_head_f32_1024``: the 3xTF32 kernel's time beside the plain
+    version and SDPA, both bounds with their shares, the times of both
+    tilings (16 and 32 rows a block), and no launches (no step runs f32
+    at 1024)."""
+    case = ("float32", 1024, 8, 1024, 1024, True)
+    assert case in chip_smoke.FWD_ONLY_CASES and case in chip_smoke.fwd_cases()
+    assert chip_smoke.fwd_kernel_name("float32", 1024) == "flash_fwd_kernel_tf32x3<"
+    rows, bwd_rows = _flash_rows()
+    rows[-2]["kernel_only_ms_by_block_q"] = {16: 0.9, 32: 0.86}
+    train = {"flash_fwd": 8, "flash_dq": 8, "flash_dkv": 8}
+    fwd = chip_smoke._flash_summary({
+        "2": rows, "2bwd": bwd_rows, "3": ({"flash_fwd": 8}, {}),
+        "4": _phase4(train, {"flash_fwd": 2, "flash_dq": 2, "flash_dkv": 2})})[0]
+    e = fwd["wide_head_f32_1024"]
+    assert e["ms_by_block_q"] == {16: 0.9, 32: 0.86}
+    assert e["kernel"] == "flash_fwd_kernel_tf32x3" and e["shape"] == [8, 1024, 1024]
+    assert (e["ms"], e["plain_ms"], e["library_ms"]) == (0.86, 6.2, 0.63)
+    assert (e["max_abs_err"], e["max_abs_err_lse"]) == (1e-6, 2e-6)
+    assert e["bound_share"] == pytest.approx(0.257 / 0.86)
+    assert e["bound_tf32x3_share"] == pytest.approx(0.104 / 0.86)
+    assert "launches" not in e
+    # the bf16 row at the same shape stays the wide kernel's
+    assert fwd["wide_head_1024"]["kernel"] == "flash_fwd_kernel_wide"
 
 
 def test_tf32x3_forward_bound_is_three_products_at_the_tf32_rate():

@@ -406,6 +406,31 @@ def test_f32_forward_matches_plain_on_card(cuda_device, d, causal, bh, tq, tk):
     assert (lse - lp).abs().max().item() <= TOL["float32"]
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_q", [0, 16, 32])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("bh,tq,tk", [(8, 128, 320), (8, 200, 200), (8, 72, 200),
+                                      (2, 1024, 1024)])
+def test_f32_1024_forward_matches_plain_in_both_tilings_on_card(cuda_device, causal, bh,
+                                                                tq, tk, block_q):
+    """The f32 head of 1024 runs flash_fwd_kernel_tf32x3 in blocks of 16
+    rows (one row group, 64-key tiles) or 32 (two row groups, 32-key
+    tiles, a row group's rows past tq or keys above its diagonal
+    skipped), and the one the kernel picks (0): one launch, within the f32
+    tolerance of the plain version on o and lse, at an offset, ragged
+    tiles and a full tile."""
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    q, k, v = (torch.randn(bh, t, 1024, generator=g, device=cuda_device) for t in (tq, tk, tk))
+    kernels.reset_launches()
+    o, lse = _flash_fwd_cuda(q, k, v, causal, block_q)
+    torch.cuda.synchronize()
+    assert dict(kernels.LAUNCHES) == {"flash_fwd": 1}
+    assert bool(torch.isfinite(o).all())
+    op, lp = flash_attention_fwd_plain(q, k, v, causal)
+    assert (o - op).abs().max().item() <= TOL["float32"]
+    assert (lse - lp).abs().max().item() <= TOL["float32"]
+
+
 def _profiled_forward(fn):
     """The profiled names of the flash forward kernels one call of ``fn``
     runs. A profile that kept none of them (the card's machine sometimes
@@ -431,24 +456,25 @@ def _profiled_forward(fn):
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [64, 128, 256, 512, 1024])
 def test_f32_forward_runs_the_kernel_its_head_takes_on_card(cuda_device, d):
-    """An f32 head up to 512 runs flash_fwd_kernel_tf32x3 and nothing
-    else; the heads of 1024 still run the SIMT flash_fwd_kernel_f32."""
+    """An f32 head of every width the kernels are built for, 1024
+    included, runs flash_fwd_kernel_tf32x3 and nothing else."""
     g = torch.Generator(device=cuda_device).manual_seed(8)
     q, k, v = (torch.randn(2, 200, d, generator=g, device=cuda_device) for _ in range(3))
     name = chip_smoke.fwd_kernel_name("float32", d)
-    assert name == ("flash_fwd_kernel_tf32x3<" if d <= 512 else "flash_fwd_kernel_f32<")
+    assert name == "flash_fwd_kernel_tf32x3<"
     seen = _profiled_forward(lambda: flash_attention_fwd(q, k, v, True))
     assert seen and all(name in key for key in seen), (seen, name)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("d,block_q", [(1024, 64), (1024, 8), (512, 16), (512, 32),
                                        (256, 64)])
-def test_kernel_refuses_other_tilings_on_card(cuda_device, d, block_q):
+def test_kernel_refuses_other_tilings_on_card(cuda_device, d, block_q, dtype):
     """The kernel takes a block of query rows only where it has that
-    tiling (64 or 128 at heads of 64 and 128, 16 or 32 at 1024) and
-    raises on any other, launching nothing."""
-    q = torch.zeros(2, 128, d, dtype=torch.bfloat16, device=cuda_device)
+    tiling (bf16: 64 or 128 at heads of 64 and 128; 16 or 32 at 1024 in
+    either dtype) and raises on any other, launching nothing."""
+    q = torch.zeros(2, 128, d, dtype=getattr(torch, dtype), device=cuda_device)
     kernels.reset_launches()
     with pytest.raises(RuntimeError, match="launch failed"):
         _flash_fwd_cuda(q, q, q, True, block_q)

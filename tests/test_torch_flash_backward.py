@@ -15,7 +15,7 @@ products on the CPU runs through the plain backward against the JAX
 package at the f32 tolerance. C3 and C4: the JAX package's own f32
 errors at scores of ±60 (``chip_smoke.scale4_arrays``), from an f64
 forward and backward, are pinned in ``chip_smoke.py`` and re-measured
-here, and the f32 kernels of every head up to 512 are held to twice them
+here, and the f32 kernels of every head up to 1024 are held to twice them
 on the card.
 """
 
@@ -37,6 +37,7 @@ from deeplearning4j_tpu.ops.flash_attention import (
 from deeplearning4j_tpu_torch import kernels
 from deeplearning4j_tpu_torch.ops.flash_attention import (
     _bwd_block,
+    _flash_fwd_cuda,
     _prescale,
     _scale,
     flash_attention,
@@ -257,6 +258,22 @@ def test_scale4_emulation_puts_the_error_in_the_scores_order(scale4_emulation_ro
         assert all(e <= 2 * x for e, x in zip(r["errors"]["forward_order"], ref))
         for chain in (width, width // 2):
             assert any(e > 2 * x for e, x in zip(r["errors"][f"tensor_cores_{chain}"], ref))
+
+
+def test_scale4_emulation_splits_the_chain_at_1024(scale4_emulation_rows):
+    """Why the f32 kernels at 1024 sum a chain over each quarter of the
+    head (``score_chain_cols``): one chain over all 1024 columns, in the
+    forward and the backward alike, passes twice the JAX package's own
+    error in the forward or the backward after it, and the quarters
+    hold both."""
+    (r,) = [r for r in scale4_emulation_rows if r["d"] == 1024]
+    ref_f, ref_b = REF_SCALE4_FWD_REL[1024], REF_SCALE4_REL[1024]
+    errs = r["errors"]
+    assert any(e > 2 * x for e, x in zip(errs["one_chain_forward"], ref_f)) or \
+        any(e > 2 * x for e, x in zip(errs["one_chain"], ref_b)), errs
+    assert all(e <= 2 * x for e, x in zip(errs["forward"], ref_f)), errs
+    assert all(e <= 2 * x for e, x in zip(errs["forward_order"], ref_b)), errs
+    assert [x["d"] for x in scale4_emulation_rows if "one_chain" in x["errors"]] == [1024]
 
 
 @pytest.mark.parametrize("d", sorted(REF_SCALE4_FWD_REL))
@@ -713,14 +730,14 @@ def test_wide_f32_backward_matches_plain_on_card(cuda_device, d, causal, bh, tq,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128, 256, 512])
+@pytest.mark.parametrize("d", [64, 128, 256, 512, 1024])
 def test_wide_tf32x3_kernels_hold_the_reference_error_at_scale4_on_card(cuda_device, d):
     """C3 and C4 on the card: on the scale-4 arrays (scores of ±60 and
     more), the f32 backward's error from the f64 backward, after the
     port's f32 forward, is at most twice the JAX package's own f32 error
     (REF_SCALE4_REL) for each of dq, dk and dv: the 3xTF32 kernels at 64
-    and 128 and the wide ones at 256 and 512, all of whose scores are
-    the forward's own chains."""
+    and 128, the wide ones at 256 and 512 and the SIMT ones at 1024, all
+    of whose scores are the forward's own chains."""
     q, k, v, do = (torch.tensor(a, device=cuda_device)
                    for a in chip_smoke.scale4_arrays(np, d))
     ref = chip_smoke.bwd_f64(torch, q, k, v, do, True)
@@ -730,7 +747,7 @@ def test_wide_tf32x3_kernels_hold_the_reference_error_at_scale4_on_card(cuda_dev
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128, 256, 512])
+@pytest.mark.parametrize("d", [64, 128, 256, 512, 1024])
 def test_tf32x3_forward_holds_the_reference_error_at_scale4_on_card(cuda_device, d):
     """C4's forward on the card: on the scale-4 arrays the 3xTF32
     forward's o and lse, from the f64 forward, are within twice the JAX
@@ -742,6 +759,25 @@ def test_tf32x3_forward_holds_the_reference_error_at_scale4_on_card(cuda_device,
                                  chip_smoke.fwd_f64(torch, q, k, v, True))
     assert dict(kernels.LAUNCHES) == {"flash_fwd": 1}
     assert all(e <= 2 * r for e, r in zip(errs, REF_SCALE4_FWD_REL[d])), (errs, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_q", [16, 32])
+def test_f32_1024_forward_holds_the_reference_error_at_scale4_in_both_tilings_on_card(
+        cuda_device, block_q):
+    """C4 at 1024 in each tiling of the f32 forward (16 or 32 query rows a
+    block; the scale-4 arrays' small grid takes 16): its o and lse within
+    twice the JAX package's own forward error, and the SIMT backward after
+    it within twice its backward error (the two take the same quarter
+    chains, so s - lse cancels)."""
+    q, k, v, do = (torch.tensor(a, device=cuda_device)
+                   for a in chip_smoke.scale4_arrays(np, 1024))
+    o, lse = _flash_fwd_cuda(q, k, v, True, block_q)
+    fwd = chip_smoke.rel_errors((o, lse), chip_smoke.fwd_f64(torch, q, k, v, True))
+    assert all(e <= 2 * r for e, r in zip(fwd, REF_SCALE4_FWD_REL[1024])), fwd
+    bwd = chip_smoke.rel_errors(flash_attention_bwd(q, k, v, o, lse, do, True),
+                                chip_smoke.bwd_f64(torch, q, k, v, do, True))
+    assert all(e <= 2 * r for e, r in zip(bwd, REF_SCALE4_REL[1024])), bwd
 
 
 @pytest.mark.cuda
