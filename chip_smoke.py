@@ -24,9 +24,9 @@ Phases (any failure ends the run with a non-zero exit and no result):
    PyTorch version on the same inputs, at the main paths' shapes, at
    larger ones and at ragged ones (t = 200, tq 72 / tk 200, one head of
    2048; the wide heads of 256, 512 and 1024, ``WIDE_HEAD_CASES``,
-   ``WIDE_512_CASES`` and ``WIDE_F32_512_CASES``, and the forward alone
-   at [8, 1024, 1024] in bf16 and f32, ``FWD_ONLY_CASES``), with stated
-   tolerances; a
+   ``WIDE_512_CASES``, ``WIDE_F32_512_CASES`` and ``WIDE_F32_1024_CASES``,
+   and the bf16 forward alone at [8, 1024, 1024], ``FWD_ONLY_CASES``),
+   with stated tolerances; a
    forward call must be
    one launch of the kernel its dtype and head take
    (``fwd_kernel_name``: the bf16 heads of 256, 512 and 1024 run
@@ -37,8 +37,8 @@ Phases (any failure ends the run with a non-zero exit and no result):
    heads of 256 and 512 run ``flash_dq_kernel_wide`` and
    ``flash_dkv_kernel_wide``, 1024 the SIMT kernels; the f32 heads up
    to 128 ``flash_dq_kernel_tf32x3`` and ``flash_dkv_kernel_tf32x3``,
-   256 and 512 ``flash_dq_kernel_wide_tf32x3`` and
-   ``flash_dkv_kernel_wide_tf32x3``, 1024 the SIMT kernels), and the bf16
+   256, 512 and 1024 ``flash_dq_kernel_wide_tf32x3`` and
+   ``flash_dkv_kernel_wide_tf32x3``), and the bf16
    forward at heads of 64 and 128 is also run and timed at both of its
    tilings (64 and 128 query rows per block), and the bf16 and f32
    forward at 1024 at both of theirs (16 and 32); median times beside the
@@ -249,8 +249,7 @@ F32_TRAIN = dict(TRAIN, compute_dtype="float32")
 F32_TRAIN_LOSS_REL, F32_TRAIN_GRAD_REL = 1e-6, 1e-5
 # the flash kernels' wide heads (phase 2, forward and backward): the
 # shape their times are recorded at, [32, 1024, 256] causal, a ragged head
-# of 512 and one of 1024 (t 200: no multiple of their 16- and 8-row SIMT
-# tiles)
+# of 512 and one of 1024 (t 200: no multiple of their row and key tiles)
 WIDE_HEAD = (256, 32, 1024)
 WIDE_HEAD_CASES = {dtype: [(dtype, WIDE_HEAD[0], WIDE_HEAD[1], WIDE_HEAD[2],
                             WIDE_HEAD[2], True), (dtype, 512, 8, 200, 200, True),
@@ -263,12 +262,15 @@ WIDE_512_CASES = [("bfloat16", 512, 16, 1024, 1024, True)]
 # flash_dkv_kernel_wide_tf32x3; the forward flash_fwd_kernel_tf32x3), at
 # the same bound as WIDE_HEAD's
 WIDE_F32_512_CASES = [("float32", 512, 16, 1024, 1024, True)]
-# the forward alone at d 1024 (the backward at 1024 still runs the SIMT
-# kernels): the bf16 wide forward at the same bound by bytes (bh x d =
-# 8192), and flash_fwd_kernel_tf32x3 at the same bound by operations as
-# the f32 rows of WIDE_HEAD and WIDE_F32_512_CASES
-FWD_ONLY_CASES = [("bfloat16", 1024, 8, 1024, 1024, True),
-                  ("float32", 1024, 8, 1024, 1024, True)]
+# the f32 wide kernels at d 1024 (flash_dq_kernel_wide_tf32x3<1024>,
+# flash_dkv_kernel_wide_tf32x3<1024>; the forward flash_fwd_kernel_tf32x3),
+# at the same bound by operations as the f32 rows of WIDE_HEAD and
+# WIDE_F32_512_CASES (bh x d = 8192)
+WIDE_F32_1024_CASES = [("float32", 1024, 8, 1024, 1024, True)]
+# the forward alone at d 1024 in bf16 (the bf16 backward at 1024 still
+# runs the SIMT kernels): the bf16 wide forward at the same bound by bytes
+# (bh x d = 8192)
+FWD_ONLY_CASES = [("bfloat16", 1024, 8, 1024, 1024, True)]
 # one step's loss and gradients with the kernels vs with the plain
 # versions on the card: bf16 attention outputs and gradients that differ
 # by bf16 roundings pass through 8 bf16 layers
@@ -285,9 +287,10 @@ WIDE_TRAIN_BATCH = 8
 WIDE_F32_TRAIN = dict(WIDE_TRAIN, compute_dtype="float32")
 # C3 (ROADMAP Queue C): the f32 forward and backward at scores of ±60
 # and more (scale4_arrays), from an f64 forward and backward, at each head
-# the kernels are built for (at 1024 the SIMT backward after the 3xTF32
-# forward: its p must be rebuilt from the forward's own score bits); the
-# CPU tests measure the JAX package's own f32 error on the same arrays
+# the kernels are built for (at 1024 the wide 3xTF32 backward after the
+# 3xTF32 forward: its p must be rebuilt from the forward's own score
+# bits); the CPU tests measure the JAX package's own f32 error on the same
+# arrays
 SCALE4_HEADS, SCALE4_BH, SCALE4_T = (64, 128, 256, 512, 1024), 2, 128
 # C3: the JAX package's own f32 backward error (``_flash_fwd_impl`` and
 # ``_flash_bwd_impl`` in interpret mode, one 128 x 128 block, causal) on
@@ -583,15 +586,16 @@ def bwd_kernel_names(dtype: str, d: int) -> tuple:
     backward kernels that a padded head of ``d`` runs in ``dtype``, as
     ``fwd_kernel_name`` has the forward's: in bf16 the mma.sync kernels
     up to 128 and the wide ones at 256 and 512; in f32 the 3xTF32
-    kernels up to 128 and the wide 3xTF32 ones at 256 and 512; the f32
-    and bf16 heads of 1024 still run the SIMT backward."""
+    kernels up to 128 and the wide 3xTF32 ones at 256, 512 and 1024
+    (heads 129-1024); the bf16 heads of 1024 still run the SIMT
+    backward."""
     if dtype == "bfloat16" and d <= 128:
         suffix = ""
     elif dtype == "bfloat16" and d <= 512:
         suffix = "_wide"
     elif dtype == "float32" and d <= 128:
         suffix = "_tf32x3"
-    elif dtype == "float32" and d <= 512:
+    elif dtype == "float32":
         suffix = "_wide_tf32x3"
     else:
         suffix = "_f32"
@@ -671,7 +675,7 @@ def bwd_cases():
                       (dtype, d, 8, 72, 200, True), (dtype, d, 1, 2048, 2048, False),
                       (dtype, d, 1, 2048, 2048, True)]
         cases += WIDE_HEAD_CASES[dtype]
-    return cases + WIDE_512_CASES + WIDE_F32_512_CASES
+    return cases + WIDE_512_CASES + WIDE_F32_512_CASES + WIDE_F32_1024_CASES
 
 
 def bwd_row(torch, F, kernels, flash, g, case, names):
@@ -876,7 +880,8 @@ def fwd_cases():
                       (dtype, d, 8, 72, 200, True), (dtype, d, 1, 2048, 2048, False),
                       (dtype, d, 1, 2048, 2048, True)]
         cases += WIDE_HEAD_CASES[dtype]
-    return cases + WIDE_512_CASES + WIDE_F32_512_CASES + FWD_ONLY_CASES
+    return (cases + WIDE_512_CASES + WIDE_F32_512_CASES + WIDE_F32_1024_CASES
+            + FWD_ONLY_CASES)
 
 
 def fwd_row(torch, F, flash, g, case, kernel):
@@ -2531,8 +2536,8 @@ def _flash_summary(done):
                 "shape": [r["bh"], r["tq"], r["d"]]}
 
     _, d512, bh512, t512, _, _ = WIDE_512_CASES[0]
-    (_, d1024, bh1024, t1024, _, _), f32_1024 = (
-        next(c for c in FWD_ONLY_CASES if c[0] == dtype) for dtype in ("bfloat16", "float32"))
+    _, d1024, bh1024, t1024, _, _ = FWD_ONLY_CASES[0]
+    f32_1024 = WIDE_F32_1024_CASES[0]
     f32_bwd = next(r for r in bwd_rows if r["dtype"] == "float32"
                    and r["d"] == d_head and r["tq"] == TRAIN["max_len"]
                    and r["tk"] == TRAIN["max_len"] and r["causal"]
@@ -2540,6 +2545,8 @@ def _flash_summary(done):
     f32_wide_bwd = next(r for r in bwd_rows if r["dtype"] == "float32"
                         and r["d"] == WIDE_HEAD[0] and r["bh"] == WIDE_HEAD[1]
                         and r["tq"] == r["tk"] == WIDE_HEAD[2] and r["causal"])
+    f32_wide_bwd_1024 = next(r for r in bwd_rows if (
+        r["dtype"], r["d"], r["bh"], r["tq"], r["tk"], r["causal"]) == f32_1024)
     f32_train, f32_wide_train = done["4"][1]["f32"], done["4"][1]["wide_f32"]
 
     def f32_fwd(r, train):
@@ -2568,21 +2575,24 @@ def _flash_summary(done):
     def f32(name, key, grads, r=f32_bwd, train=f32_train, suffix="_tf32x3"):
         """the f32 backward as one of phase 4's f32 steps runs it (by
         default at the training shape, [128, 1024, 64] causal, the 3xTF32
-        kernels): this kernel's time beside the whole call, the plain
-        version and the library call (both the whole backward), its bound
-        on the CUDA cores (f32) and on the tensor cores in 3xTF32 with
-        their shares, and the step's launches"""
+        kernels), or at d 1024 (``train`` None): this kernel's time beside
+        the whole call, the plain version and the library call (both the
+        whole backward), its bound on the CUDA cores (f32) and on the
+        tensor cores in 3xTF32 with their shares, and the step's launches
+        (left out at d 1024, where no step runs)"""
         ms = r[f"{key}_kernel_only_ms"]
-        return {"kernel": f"{name}_kernel{suffix}", "ms": ms, "backward_ms": r["ms"],
-                "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
-                "max_abs_err": max(r[f"err_{g}"] for g in grads),
-                "bound_ms": r[f"{key}_bound_ms"], "bound_by": r[f"{key}_bound_by"],
-                "bound_share": r[f"{key}_bound_ms"] / ms,
-                "bound_tf32x3_ms": r[f"{key}_bound_tf32x3_ms"],
-                "bound_tf32x3_by": r[f"{key}_bound_tf32x3_by"],
-                "bound_tf32x3_share": r[f"{key}_bound_tf32x3_ms"] / ms,
-                "launches": train["launches"].get(name, 0),
-                "shape": [r["bh"], r["tq"], r["d"]]}
+        entry = {"kernel": f"{name}_kernel{suffix}", "ms": ms, "backward_ms": r["ms"],
+                 "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
+                 "max_abs_err": max(r[f"err_{g}"] for g in grads),
+                 "bound_ms": r[f"{key}_bound_ms"], "bound_by": r[f"{key}_bound_by"],
+                 "bound_share": r[f"{key}_bound_ms"] / ms,
+                 "bound_tf32x3_ms": r[f"{key}_bound_tf32x3_ms"],
+                 "bound_tf32x3_by": r[f"{key}_bound_tf32x3_by"],
+                 "bound_tf32x3_share": r[f"{key}_bound_tf32x3_ms"] / ms,
+                 "shape": [r["bh"], r["tq"], r["d"]]}
+        if train:
+            entry["launches"] = train["launches"].get(name, 0)
+        return entry
 
     fwd_wide, bwd_wide = (wide_row(rs, *WIDE_HEAD) for rs in (rows, bwd_rows))
     fwd_512, bwd_512 = (wide_row(rs, d512, bh512, t512) for rs in (rows, bwd_rows))
@@ -2655,6 +2665,10 @@ def _flash_summary(done):
         # kernels
         "wide_head_f32": f32(name, key, grads, f32_wide_bwd, f32_wide_train,
                              "_wide_tf32x3"),
+        # [8, 1024, 1024] causal, the wide 3xTF32 kernels at 1024 (no step
+        # runs them)
+        "wide_head_f32_1024": f32(name, key, grads, f32_wide_bwd_1024, None,
+                                  "_wide_tf32x3"),
     } for name, line, key, grads in (
         (flash.DQ_KERNEL, 220, "dq", ("dq",)),
         (flash.DKV_KERNEL, 252, "dkv", ("dk", "dv")))]

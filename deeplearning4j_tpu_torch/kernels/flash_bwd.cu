@@ -156,42 +156,67 @@
 // - p = expf(s - lse), as the SIMT kernels and the plain version;
 //   registers 147-254, 0 spills (chip_smoke.py phase 1).
 //
-// The f32 kernels of heads 256 and 512 (flash_dq_kernel_wide_tf32x3,
-// flash_dkv_kernel_wide_tf32x3; 129-512 zero-padded to them) take the
+// The f32 kernels of heads 256, 512 and 1024 (flash_dq_kernel_wide_tf32x3,
+// flash_dkv_kernel_wide_tf32x3; 129-1024 zero-padded to them) take the
 // wide bf16 kernels' structure in f32, with the 3xTF32 tools of the
 // kernels above, which do not stretch to these heads: 128 resident f32
 // rows of two matrices take 266 KB at d = 256, and a warp owning all
 // the columns of dq would hold 128 accumulator registers on top of the
 // ~140 that d = 128 takes. What bounds them at [32, 1024, 256] f32
 // causal: the same work as [128, 1024, 64], 0.156 ms (dq) and 0.208 ms
-// (dk/dv) in 3xTF32 at 495 TFLOP/s. So:
+// (dk/dv) in 3xTF32 at 495 TFLOP/s; at [8, 1024, 1024] the same. So:
 // - 8 warps a block; a row group (dq) or key group (dkv) of 16 rows has
 //   WP = d / 128 warps, each owning 128 of the head's columns (64
 //   accumulator registers of dq, 64 + 64 of dk and dv); 64 resident rows
-//   a block at 256 and 32 at 512 (130 KB), ring tiles of 16 rows at 256
-//   and 8 at 512 in two cp.async stages (65 KB); one block an SM;
+//   a block at 256, 32 at 512 and 16 at 1024 (130 KB), ring tiles of 16
+//   rows at 256 and 8 at 512 in two cp.async stages (65 KB); one block
+//   an SM;
 // - the scores are not taken on the tensor cores: each is one fma chain
-//   over the head's columns in order on the CUDA cores, bit for bit the
-//   score of flash_fwd_kernel_tf32x3 from which lse came, so that s - lse
-//   cancels the forward's rounding of s as in the reference, whose two
-//   passes compute s alike. At scores of ±60 (ROADMAP C3) a score from
-//   the tensor cores, even an exact one, differs from the forward's by
-//   the forward's own roundings, and the exponential carries that to
-//   several times the reference's error. The group's 32 WP threads share
-//   its 16 x T scores (2 x 2 each at 256, one each at 512, a warp's lanes
-//   on shared rows so that their reads broadcast) and leave them in
-//   shared memory;
+//   over the head's columns in order on the CUDA cores (at 1024 one over
+//   each 256-column quarter, the four sums added in order), bit for bit
+//   the score of flash_fwd_kernel_tf32x3 from which lse came, so that s -
+//   lse cancels the forward's rounding of s as in the reference, whose
+//   two passes compute s alike. At scores of ±60 (ROADMAP C3) a score
+//   from the tensor cores, even an exact one, differs from the forward's
+//   by the forward's own roundings, and the exponential carries that to
+//   several times the reference's error. A group's chaining warps take
+//   its 16 x T scores in register tiles (chain_columns: 2 x 2 chains a
+//   lane on both warps of a group at 256, 1 x 1 on all four at 512) and
+//   leave them in shared memory;
 // - dP is a product over the warp's own columns in 3xTF32 (A by ldmatrix
 //   of the resident rows, B by ldmatrix of the ring tile), each four
 //   depth steps of it in a zeroed partial added with a rounded add; the
 //   group's partials meet in shared memory under its named barrier, and
-//   every warp sums them in the order of their columns, so all hold the
-//   same dP (no atomics: deterministic); one exchange a tile, whose
-//   buffers' reuse the block's barrier of the next tile orders;
+//   every warp sums them in the order of the warps, so all hold the same
+//   dP (no atomics: deterministic); one exchange a tile, whose buffers'
+//   reuse the block's barrier of the next tile orders;
 // - dq += ds K, dv += p^T dO and dk += ds^T qs over the warp's columns in
 //   3xTF32, with the accumulators as A fragments (the permuted depth of
 //   the kernels above), each 8-column tile summed over the ring tile in
 //   a zeroed partial added with one rounded add;
+// - at 1024 (16 resident rows: 131 KB) two stages of whole tiles of two
+//   matrices do not fit beside the resident rows, so the ring brings
+//   256-column chunks of 32-row tiles (67 KB in two stages), and a tile
+//   takes twelve steps: the chunks of the scores' operand (dq: K; dkv: q,
+//   pre-scaled in place by the thread that copied it, all its loads
+//   first), on which four warps chain the quarters of the tile's 16 x 32
+//   scores, 2 x 2 a lane, each quarter's sum added to the last's in
+//   order; the chunks of dP's operand (V; dO), on which every warp sums
+//   its partial of dP over its 32 columns of the chunk (dkv: and adds p^T
+//   dO to its columns of dv there); and the first operand's chunks
+//   again, on which every warp adds ds K or ds^T qs to its columns of the
+//   chunk. A warp owns 32 columns of each chunk of dq, dk and dv, so
+//   every warp works at every step; dq reads K, and dkv q, twice from
+//   L2. In trials on the H100 this layout beat 8-row tiles with the other
+//   matrix held whole (K in dq, q in dkv, each step bringing one chunk of
+//   both: one chain a lane, latency-bound), 16-row tiles in three or four
+//   stages, two chaining warps of 4 x 2 or eight of 2 x 1, heads grouped
+//   so that the blocks in flight share their K and V in L2, and the steps
+//   unrolled by template (dkv then spilled). The partial products take
+//   their 8-row steps outer (consecutive mma.sync into different
+//   partials), and the pre-scale of a chunk issues all its loads first:
+//   done one load after another before the barrier, it showed in dkv's
+//   time;
 // - every warp of a row group sums delta over the whole row alike, and
 //   the first writes it; the causal tiles with the most work go first;
 //   masks are evaluated only on tiles that cross the diagonal, tq or
@@ -202,17 +227,15 @@
 // through shared memory in f32 (full f32 precision, no TF32), taking the
 // unscaled q and multiplying it by the scale as they load it (one
 // rounding, the torch product), and, in flash_dq, computing and writing
-// delta as the bf16 kernel does. They run the f32 and the bf16 heads of
-// 1024 (513-1024 are zero-padded to it), with 8 x 8 tiles in flash_dq
-// and 8 keys and 4-query steps in flash_dkv (simt_tile,
-// flash_common.cuh; ~161 KB of shared memory). Their scores take the f32
-// forward's order (mm_abt over score_chain_cols: one chain over each
-// quarter of the head, the sums added in column order), so that p rebuilt
-// from the f32 forward's lse cancels its rounding of s. Their global loads and
-// stores are templated on the element type: bf16 is widened on load, and
-// p and ds are rounded to bf16 before their products, as the reference
-// rounds them. Correct, slow first kernels for those heads: nothing was
-// tuned.
+// delta as the bf16 kernel does. They run the bf16 heads of 1024
+// (513-1024 are zero-padded to it), with 8 x 8 tiles in flash_dq and 8
+// keys and 4-query steps in flash_dkv (simt_tile, flash_common.cuh; ~161
+// KB of shared memory). Their scores take the f32 forward's order
+// (mm_abt over score_chain_cols: one chain over each quarter of the
+// head, the sums added in column order). Their global loads and stores
+// are templated on the element type: bf16 is widened on load, and p and
+// ds are rounded to bf16 before their products, as the reference rounds
+// them. Correct, slow first kernels for those heads: nothing was tuned.
 //
 // Exposed as plain C functions so that no PyTorch header is compiled.
 
@@ -1479,67 +1502,114 @@ int launch_dkv_tf32x3(const void* q, const void* k, const void* v, const void* d
   return (int)cudaGetLastError();
 }
 
-// ------------------------------- the f32 kernels at heads 256 and 512
+// ------------------------- the f32 kernels at heads 256, 512 and 1024
 
 // flash_dq_kernel_wide_tf32x3 and flash_dkv_kernel_wide_tf32x3: the wide
 // bf16 kernels' structure (warps that share rows split the head's
 // columns) in f32. 8 warps a block; a row group (dq: 16 query rows) or
 // key group (dkv: 16 keys) has WP = D / 128 warps, each owning DW = 128
-// of the head's columns (its share of dP, and its columns of dq, or of
-// dk and dv: 64 or 128 accumulator registers). 128 rows of f32 would not
-// fit shared memory at 256 (266 KB), so a block holds 64 resident rows at
-// 256 and 32 at 512 (two matrices, 130 KB), and the ring's tiles are 16
-// rows at 256 and 8 at 512 in two stages (65 KB).
+// of the head's columns of dq, or of dk and dv (64 or 128 accumulator
+// registers). 128 rows of f32 would not fit shared memory at 256 (266
+// KB), so a block holds 64 resident rows at 256, 32 at 512 and 16 at
+// 1024 (two matrices, 130 KB), and the ring's tiles are 16 rows at 256
+// and 8 at 512 and 1024, in two stages. The scores are score_chain's
+// (the forward's order), each chaining lane an RB x CB tile of chains
+// (chain_columns, flash_common.cuh): 2 x 2 on both warps of a group at
+// 256, 1 x 1 on its four at 512.
+//
+// At 1024 the resident rows are 16 (131 KB), and two stages of whole
+// ring tiles of two matrices would not fit beside them (8 rows: 131 KB),
+// so the ring (CH) brings 256-column chunks (CK, one chain's columns) of
+// T = 32 rows in CS = 2 stages (67 KB), and a tile of the other axis
+// takes 3 NCH steps: the chunks of its scores' operand (dq: K; dkv: q,
+// each pre-scaled by the thread that copied it), on which four warps
+// chain the scores, each lane 2 x 2 of them, quarter j at step j from 0
+// and the quarters' sums added in order (score_chain_cols); then
+// the chunks of dP's operand (dq: V; dkv: dO), on which every warp sums
+// its partial of dP over its PW = 32 columns of the chunk (dkv: and adds
+// p^T dO to its columns of dv there); then the first operand's chunks
+// again, on which every warp adds ds K (dq) or ds^T qs (dk) to its
+// columns of the chunk. A warp owns PW columns of each chunk (NP = NCH
+// pieces) of dq, or of dk and dv, so all eight work at every step.
 template <int D>
 struct WideTf32Tiles {
+  static constexpr bool CH = D == 1024;       // the ring in chunks
   static constexpr int WP = D / 128;          // warps to a row or key group
   static constexpr int DW = 128;              // head columns a warp
   static constexpr int NT = 256;              // 8 warps
-  static constexpr int ROWS = 16 * (8 / WP);  // resident rows a block: 64 at 256, 32 at 512
-  static constexpr int T = WP == 2 ? 16 : 8;  // rows a ring tile: keys (dq), queries (dkv)
+  static constexpr int ROWS = 16 * (8 / WP);  // resident rows a block: 64, 32, 16
+  // rows a ring tile: keys (dq), queries (dkv)
+  static constexpr int T = WP == 2 ? 16 : WP == 4 ? 8 : 32;
   static constexpr int NT8 = T / 8;           // 8-row tiles in it
-  static constexpr int STAGES = 2;
+  static constexpr int STAGES = 2;            // whole tiles in the ring; of lse and delta
   static constexpr int KC = 4;  // depth steps of 8 columns a zeroed partial of dP sums
   static constexpr int LD = D + 4;  // f32 row stride in words: 4 (mod 32), as Tf32Tiles'
-  // the resident rows (two matrices), then STAGES tiles of two
-  static constexpr size_t rows_bytes = sizeof(float) * (size_t)(2 * ROWS + 2 * STAGES * T) * LD;
+  // the scores: each chaining lane an RB x CB tile, CW chaining warps a
+  // group, warp `part` taking rows 4 RB (part % RH) .. and keys 8 CB (part
+  // / RH) .., staged with stride LS
+  static constexpr int RB = WP == 4 ? 1 : 2, CB = RB;
+  static constexpr int CW = 16 * T / (32 * RB * CB), RH = 16 / (4 * RB);
+  static constexpr int LS = score_stride(T);
+  // CH: chunks of CK columns (a chain's), NCH a row, CS of them in the
+  // ring, PW columns of each a warp's; steps a tile
+  static constexpr int CK = score_chain_cols(D), NCH = D / CK, LDC = CK + 4;
+  static constexpr int CS = 2, PW = CK / 8, STEPS = CH ? 3 * NCH : 1;
+  // a warp's columns of dq, dk and dv in NP pieces of PWV (CH: one a chunk)
+  static constexpr int NP = CH ? NCH : 1, PWV = DW / NP;
+  // the resident rows (two matrices), then STAGES whole tiles of two (CH:
+  // CS chunks)
+  static constexpr size_t ring_floats =
+      CH ? (size_t)CS * T * LDC : (size_t)2 * STAGES * T * LD;
+  static constexpr size_t rows_bytes = sizeof(float) * ((size_t)2 * ROWS * LD + ring_floats);
   // then each group's 16 x T scores and each thread's partial dP
-  static constexpr size_t s_bytes = sizeof(float) * (size_t)ROWS * T;
+  static constexpr size_t s_bytes = sizeof(float) * (size_t)ROWS * LS;
   static constexpr size_t dq_bytes = rows_bytes + s_bytes + sizeof(float4) * NT * NT8;
   // flash_dkv: then STAGES tiles of lse and of delta
   static constexpr size_t dkv_bytes = dq_bytes + sizeof(float) * 2 * STAGES * T;
-  static_assert(D == 256 || D == 512, "the wide 3xTF32 kernels take heads of 256 and 512");
+  static_assert(D == 256 || D == 512 || D == 1024,
+                "the wide 3xTF32 kernels take heads of 256, 512 and 1024");
+  static_assert(CW <= WP && CW * 32 * RB * CB == 16 * T && (CW - 1) / RH * 8 * CB < T,
+                "every score of a group once");
+  static_assert(!CH || (WP == 8 && PW == PWV && PW * 8 == CK && CS >= 2),
+                "CH: one group of 8 warps, each owning a piece of every chunk");
   static_assert(dkv_bytes <= SMEM_LIMIT, "wide 3xTF32 layout exceeds shared memory");
 };
 
-// x = a b^T over a warp's DW head columns in 3xTF32: a its 16 rows (A by
-// ldmatrix, split as read), b the 8 NT8 rows of the tile (B by ldmatrix;
-// at NT8 = 1 one ldmatrix serves two depth steps). Each KC depth steps sum
-// in a zeroed partial, added to x with rounded adds.
-template <int LD, int DW, int NT8, int KC>
+// x = a b^T over DW head columns in 3xTF32: a a warp's 16 rows (A by
+// ldmatrix, split as read; leading dimension LDA), b the 8 NT8 rows of
+// the tile (B by ldmatrix, LDB, two 8-row tiles at a time; at NT8 = 1
+// one ldmatrix serves two depth steps). Each KC depth steps sum in a
+// zeroed partial, added to x with rounded adds (to x as it was, with
+// ZERO false).
+template <int LDA, int LDB, int DW, int NT8, int KC, bool ZERO = true>
 __device__ __forceinline__ void product_tf32x3(float (&x)[NT8][4], const float* a,
                                                const float* b, int lane) {
+  if constexpr (ZERO) {
 #pragma unroll
-  for (int n = 0; n < NT8; ++n) x[n][0] = x[n][1] = x[n][2] = x[n][3] = 0.f;
+    for (int n = 0; n < NT8; ++n) x[n][0] = x[n][1] = x[n][2] = x[n][3] = 0.f;
+  }
 #pragma unroll
   for (int k0 = 0; k0 < DW / 8; k0 += KC) {
     float part[NT8][4] = {};
 #pragma unroll
     for (int kk = k0; kk < k0 + KC; kk += 2) {
       FragA fa[2];
-      load_a_tf32<LD>(fa[0], a, kk, lane);
-      load_a_tf32<LD>(fa[1], a, kk + 1, lane);
-      if constexpr (NT8 == 2) {
+      load_a_tf32<LDA>(fa[0], a, kk, lane);
+      load_a_tf32<LDA>(fa[1], a, kk + 1, lane);
+      if constexpr (NT8 % 2 == 0) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          FragB fb[2];
-          load_bt_tf32<LD>(fb, b, 0, kk + h, lane);
-          mma_tf32x3(part[0], fa[h], fb[0]);
-          mma_tf32x3(part[1], fa[h], fb[1]);
+#pragma unroll
+          for (int jj = 0; jj < NT8 / 2; ++jj) {
+            FragB fb[2];
+            load_bt_tf32<LDB>(fb, b, jj, kk + h, lane);
+            mma_tf32x3(part[2 * jj], fa[h], fb[0]);
+            mma_tf32x3(part[2 * jj + 1], fa[h], fb[1]);
+          }
         }
       } else {
         FragB fb[2];
-        load_bt8_tf32<LD>(fb, b, kk, lane);
+        load_bt8_tf32<LDB>(fb, b, kk, lane);
         mma_tf32x3(part[0], fa[0], fb[0]);
         mma_tf32x3(part[0], fa[1], fb[1]);
       }
@@ -1552,37 +1622,103 @@ __device__ __forceinline__ void product_tf32x3(float (&x)[NT8][4], const float* 
   }
 }
 
-// The group's scores (St) and its WP partials of dP (X, one float4 per
-// 8-row tile and thread, warp-major), after the group's barrier: every
-// warp sums the partials in the order of their columns, so all of them
-// hold the same s and dP (accumulator layout: rows g, g + 8, columns 8 n
-// + 2 c, + 1).
-template <int T, int WP>
-__device__ __forceinline__ void gather_group(float (&s)[T / 8][4], float (&dp)[T / 8][4],
-                                             const float* St, const float4* X, int group,
+// The group's WP partials of dP (X, one float4 per 8-row tile and thread,
+// warp-major), after the group's barrier, summed in the order of the
+// warps, so that every warp of the group holds the same dP (accumulator
+// layout: rows g, g + 8, columns 8 n + 2 c, + 1).
+template <int NT8, int WP>
+__device__ __forceinline__ void sum_partials(float (&dp)[NT8][4], const float4* X, int group,
                                              int lane) {
-  const int g = lane / 4, c = lane % 4;
 #pragma unroll
-  for (int n = 0; n < T / 8; ++n) {
-    float4 y = X[(group * WP * (T / 8) + n) * 32 + lane];
+  for (int n = 0; n < NT8; ++n) {
+    float4 y = X[(group * WP * NT8 + n) * 32 + lane];
 #pragma unroll
     for (int i = 1; i < WP; ++i) {
-      const float4 z = X[((group * WP + i) * (T / 8) + n) * 32 + lane];
+      const float4 z = X[((group * WP + i) * NT8 + n) * 32 + lane];
       y.x += z.x, y.y += z.y, y.z += z.z, y.w += z.w;
     }
     dp[n][0] = y.x, dp[n][1] = y.y, dp[n][2] = y.z, dp[n][3] = y.w;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[n][e] = St[(g + 8 * (e / 2)) * T + 8 * n + 2 * c + (e % 2)];
   }
 }
 
-// flash_dq at f32 heads of 256 and 512: a row group of 16 query rows, its
-// qs and dO resident; per key tile (TK keys) S over the whole head on the
-// CUDA cores (scores_fwd_order), each warp's dP over its columns in
-// 3xTF32, the exchange, ds in the accumulators, then dq += ds K over the
-// warp's columns with ds's accumulators as A fragments (c_to_a_tf32) and
-// K's rows in the same permuted order, each 8-column tile of dq summed
-// over the tile in a zeroed partial added with one rounded add.
+// The q pre-scale in place of a ring chunk at 1024 (CH): the walk of
+// load_tile<.., C, LD, ROWS, NT> by thread tid (the 16-byte pieces it
+// copied), all its loads first, then the products (one rounding each)
+// and the stores. Call it once this thread's copies have landed.
+template <int C, int LD, int ROWS, int NT>
+__device__ __forceinline__ void scale_chunk_f32(float* rows, float scale, int tid) {
+  constexpr int CH = C / 4, N = ROWS * CH / NT;
+  static_assert(ROWS * CH % NT == 0, "every thread the same number of pieces");
+  float4 x[N];
+#pragma unroll
+  for (int it = 0; it < N; ++it) {
+    const int i = tid + it * NT;
+    x[it] = *reinterpret_cast<const float4*>(rows + (i / CH) * LD + (i % CH) * 4);
+  }
+#pragma unroll
+  for (int it = 0; it < N; ++it) {
+    const int i = tid + it * NT;
+    x[it].x *= scale, x[it].y *= scale, x[it].z *= scale, x[it].w *= scale;
+    *reinterpret_cast<float4*>(rows + (i / CH) * LD + (i % CH) * 4) = x[it];
+  }
+}
+
+// Chunk j of a chaining lane's RB x CB scores at 1024 (CH): one chain a
+// score over the chunk's CK columns (rows a, leading dimension LDA;
+// rows b, LDB) from 0, added to the sums of the earlier chunks in order
+// (((c0 + c1) + c2) + c3, score_chain_cols: the f32 forward's bits);
+// after the last chunk the scores go to Sc (leading dimension LS).
+template <int CK, int NCH, int LDA, int LDB, int RB, int CB, int LS>
+__device__ __forceinline__ void chain_chunk(float (&cs)[RB][CB], float* Sc, const float* a,
+                                            const float* b, int j, int lane) {
+  float cc[RB][CB] = {};
+  chain_columns<CK, LDA, LDB, RB, CB>(cc, a, b, lane);
+#pragma unroll
+  for (int x = 0; x < RB; ++x) {
+#pragma unroll
+    for (int y = 0; y < CB; ++y) cs[x][y] = j == 0 ? cc[x][y] : cs[x][y] + cc[x][y];
+  }
+  if (j == NCH - 1) store_scores<RB, CB, LS>(Sc, cs, lane);
+}
+
+// x += a b in 3xTF32 over N columns: a the NT8 16 x 8 accumulator tiles
+// of ds, or of p^T, each taken as an A fragment (c_to_a_tf32: the depth
+// permuted) as it is used, b the 8 NT8 rows of the product's depth
+// (leading dimension LDB) read in that order (load_b_perm_tf32), each
+// 8-column tile of x summed over the depth in a zeroed partial added
+// with one rounded add. The 8-row steps are outer, so that consecutive
+// mma.sync go to different partials.
+template <int LDB, int N, int NT8>
+__device__ __forceinline__ void add_product_tf32x3(float (&x)[N / 8][4], const float (&a)[NT8][4],
+                                                   const float* b, int lane) {
+  float part[N / 8][4] = {};
+#pragma unroll
+  for (int n = 0; n < NT8; ++n) {
+    FragA fa;
+    c_to_a_tf32(fa, a[n]);
+#pragma unroll
+    for (int nd = 0; nd < N / 8; ++nd) {
+      FragB fb;
+      load_b_perm_tf32<LDB>(fb, b + 8 * n * LDB, 8 * nd, lane);
+      mma_tf32x3(part[nd], fa, fb);
+    }
+  }
+#pragma unroll
+  for (int nd = 0; nd < N / 8; ++nd) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[nd][e] += part[nd][e];
+  }
+}
+
+// flash_dq at f32 heads of 256, 512 and 1024: a row group of 16 query
+// rows, its qs and dO resident; per key tile (TK keys) S on the CUDA
+// cores in the forward's order (its CW chaining warps), each warp's dP
+// over its columns in 3xTF32, the exchange, ds in the accumulators, then
+// dq += ds K over the warp's columns with ds's accumulators as A
+// fragments (c_to_a_tf32) and K's rows in the same permuted order, each
+// 8-column tile of dq summed over the tile in a zeroed partial added with
+// one rounded add. At 1024 the tile comes in STEPS chunks (K's, V's, K's
+// again: WideTf32Tiles).
 template <int D>
 __global__ void __launch_bounds__(WideTf32Tiles<D>::NT, 1)
 flash_dq_kernel_wide_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
@@ -1592,11 +1728,16 @@ flash_dq_kernel_wide_tf32x3(const float* __restrict__ q, const float* __restrict
                             int tk, int n_qtiles, int causal, float q_scale, float scale) {
   using Tl = WideTf32Tiles<D>;
   constexpr int BQ = Tl::ROWS, TK = Tl::T, NT8 = Tl::NT8, WP = Tl::WP, DW = Tl::DW;
-  constexpr int NT = Tl::NT, LD = Tl::LD, STAGES = Tl::STAGES;
+  constexpr int NT = Tl::NT, LD = Tl::LD, STAGES = Tl::STAGES, LS = Tl::LS;
+  constexpr int RB = Tl::RB, CB = Tl::CB, RH = Tl::RH;
+  constexpr int CK = Tl::CK, NCH = Tl::NCH, LDC = Tl::LDC, CS = Tl::CS, PW = Tl::PW;
+  constexpr int NP = Tl::NP, PWV = Tl::PWV, STEPS = Tl::STEPS;
+  // steps a copy is issued ahead
+  constexpr int AHEAD = Tl::CH ? CS - 1 : STAGES - 1;
   extern __shared__ __align__(128) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);
   float* dOs = Qs + BQ * LD;
-  float* Ks = dOs + BQ * LD;           // STAGES tiles of TK rows
+  float* Ks = dOs + BQ * LD;           // STAGES tiles of TK rows (CH: CS chunks)
   float* Vs = Ks + STAGES * TK * LD;   // STAGES tiles of TK rows
   float* Ss = reinterpret_cast<float*>(smem + Tl::rows_bytes);  // each row group's scores
   float4* X = reinterpret_cast<float4*>(smem + Tl::rows_bytes + Tl::s_bytes);  // partial dP
@@ -1613,10 +1754,15 @@ flash_dq_kernel_wide_tf32x3(const float* __restrict__ q, const float* __restrict
   const int offset = tk - tq;
   const float* kb = k + (size_t)b * tk * D;
   const float* vb = v + (size_t)b * tk * D;
-  const float* Qg = Qs + 16 * rg * LD;  // the row group's rows of qs and dO
-  const float* dOg = dOs + 16 * rg * LD;
-  float* St = Ss + 16 * rg * TK;
-  float* Qw = Qs + 16 * rg * LD + part * DW;  // this warp's columns of qs, later its dq
+  const float* dOg = dOs + 16 * rg * LD;  // the row group's rows of dO
+  float* St = Ss + 16 * rg * LS;          // and of the scores
+  // the first column of this warp's piece i of dq (CH: in chunk i)
+  auto dq_col = [&](int i) { return Tl::CH ? i * CK + part * PW : part * DW; };
+  // the scores this warp chains (if part < CW): its rows of qs and of
+  // the scores, and its first key of the tile
+  const int h_row = 4 * RB * (part % RH), h_key = 8 * CB * (part / RH);
+  const float* Qc = Qs + (16 * rg + h_row) * LD;
+  float* Sc = St + h_row * LS + h_key;
 
   // the block's q and dO rows (zeros past tq): copy group 0
   load_tile_pair<D, LD, BQ, NT>(Qs, dOs, q + (size_t)b * tq * D, dout + (size_t)b * tq * D,
@@ -1627,13 +1773,23 @@ flash_dq_kernel_wide_tf32x3(const float* __restrict__ q, const float* __restrict
   int k_end = tk;
   if (causal) k_end = min(tk, min(q0 + BQ, tq) + offset);
   const int n_kt = k_end > 0 ? (k_end + TK - 1) / TK : 0;
+  const int n_steps = n_kt * STEPS;
 
-  auto load_kv = [&](int kt) {  // key tile kt (zeros past tk) into stage kt % STAGES
-    const int st = kt % STAGES;
-    load_tile_pair<D, LD, TK, NT>(Ks + st * TK * LD, Vs + st * TK * LD, kb, vb, kt * TK, tk);
+  // step u (zeros past tk): key tile u into stage u % STAGES, or (CH)
+  // step j of key tile u / STEPS into chunk stage u % CS: K's columns j CK
+  // .. (j < NCH), V's (j - NCH) CK .. (j < 2 NCH), K's (j - 2 NCH) CK ..
+  auto load_step = [&](int u) {
+    if constexpr (Tl::CH) {
+      const int kt = u / STEPS, j = u % STEPS;
+      load_tile<D, CK, LDC, TK, NT>(Ks + (u % CS) * TK * LDC, j / NCH == 1 ? vb : kb, kt * TK,
+                                    tk, (j % NCH) * CK);
+    } else {
+      const int st = u % STAGES;
+      load_tile_pair<D, LD, TK, NT>(Ks + st * TK * LD, Vs + st * TK * LD, kb, vb, u * TK, tk);
+    }
   };
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < n_kt) load_kv(s);
+  for (int s = 0; s < AHEAD; ++s) {
+    if (s < n_steps) load_step(s);
     cp_async_commit();
   }
 
@@ -1646,7 +1802,7 @@ flash_dq_kernel_wide_tf32x3(const float* __restrict__ q, const float* __restrict
 
   // q scaled in place (each thread the chunks it copied, once group 0
   // landed), then the block's barrier: the rows are read at every tile
-  cp_async_wait<STAGES - 1>();
+  cp_async_wait<AHEAD>();
   scale_rows_f32<D, LD, BQ, NT>(Qs, q_scale, threadIdx.x);
   __syncthreads();
 
@@ -1673,38 +1829,25 @@ flash_dq_kernel_wide_tf32x3(const float* __restrict__ q, const float* __restrict
   if (part == 0 && lane < 16 && r0 + lane < tq) delta[(size_t)b * tq + r0 + lane] = dsum;
   const float dlt[2] = {__shfl_sync(0xffffffffu, dsum, g), __shfl_sync(0xffffffffu, dsum, g + 8)};
 
-  float acc[DW / 8][4];
+  float acc[NP][PWV / 8][4];
 #pragma unroll
-  for (int n = 0; n < DW / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int i = 0; i < NP; ++i) {
+#pragma unroll
+    for (int n = 0; n < PWV / 8; ++n) acc[i][n][0] = acc[i][n][1] = acc[i][n][2] = acc[i][n][3] = 0.f;
+  }
 
-  for (int kt = 0; kt < n_kt; ++kt) {
-    // tile kt has landed for every thread, every warp is done with tile
-    // kt - 1 (whose stage the next copy refills) and with its group's
-    // scores and partials of tile kt - 1
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    if (kt + STAGES - 1 < n_kt) load_kv(kt + STAGES - 1);
-    cp_async_commit();
-    if (r0 >= tq) continue;  // this row group's rows are all past tq
-
-    // keys kc0 .. kc0 + TK - 1 (kc0 < tk): wholly above this row group's
-    // diagonal, p = 0 throughout
-    const int kc0 = kt * TK;
-    if (causal && kc0 > r0 + 15 + offset) continue;
-    const float* Kt = Ks + (kt % STAGES) * TK * LD;
-    const float* Vt = Vs + (kt % STAGES) * TK * LD;
-    scores_fwd_order<D, LD, TK, WP>(St, Qg, Kt, threadIdx.x - 32 * WP * rg);
-    float s[NT8][4], dp[NT8][4];
-    product_tf32x3<LD, DW, NT8, Tl::KC>(dp, dOg + part * DW, Vt + part * DW, lane);
+  // once the tile's scores are in St and this warp's partial of dP in dp:
+  // the exchange, then ds = p (dP - delta) in dp (masks only where the
+  // tile crosses tk or this row group's diagonal)
+  auto tile_ds = [&](float (&dp)[NT8][4], int kc0) {
 #pragma unroll
     for (int n = 0; n < NT8; ++n)
       X[(warp * NT8 + n) * 32 + lane] = make_float4(dp[n][0], dp[n][1], dp[n][2], dp[n][3]);
     bar_sync(1 + rg, 32 * WP);
-    gather_group<TK, WP>(s, dp, St, X, rg, lane);
-    // ds = p (dP - delta); masks only where the tile crosses tk or this
-    // row group's diagonal
+    float s[NT8][4];
+    gather_scores<NT8, LS>(s, St, lane);
+    sum_partials<NT8, WP>(dp, X, rg, lane);
     const bool edge = kc0 + TK > tk || (causal && kc0 + TK - 1 > r0 + offset);
-    FragA dsa[NT8];
 #pragma unroll
     for (int n = 0; n < NT8; ++n) {
 #pragma unroll
@@ -1715,32 +1858,95 @@ flash_dq_kernel_wide_tf32x3(const float* __restrict__ q, const float* __restrict
           const int row = r0 + g + 8 * (e / 2);
           if (col >= tk || (causal && row + offset < col)) p = 0.f;
         }
-        s[n][e] = p * (dp[n][e] - dlt[e / 2]);
+        dp[n][e] = p * (dp[n][e] - dlt[e / 2]);
       }
-      c_to_a_tf32(dsa[n], s[n]);
     }
-    // dq += ds K over this warp's columns, one 8-column tile at a time: B
-    // of K's rows in c_to_a_tf32's order, summed over the tile in a zeroed
-    // partial
+  };
+
+  if constexpr (!Tl::CH) {
+    for (int kt = 0; kt < n_kt; ++kt) {
+      // tile kt has landed for every thread, every warp is done with tile
+      // kt - 1 (whose stage the next copy refills) and with its group's
+      // scores and partials of tile kt - 1
+      cp_async_wait<STAGES - 2>();
+      __syncthreads();
+      if (kt + STAGES - 1 < n_kt) load_step(kt + STAGES - 1);
+      cp_async_commit();
+      if (r0 >= tq) continue;  // this row group's rows are all past tq
+
+      // keys kc0 .. kc0 + TK - 1 (kc0 < tk): wholly above this row group's
+      // diagonal, p = 0 throughout
+      const int kc0 = kt * TK;
+      if (causal && kc0 > r0 + 15 + offset) continue;
+      const float* Kt = Ks + (kt % STAGES) * TK * LD;
+      const float* Vt = Vs + (kt % STAGES) * TK * LD;
+      if (part < Tl::CW) score_chain<D, LD, RB, CB, LS>(Sc, Qc, Kt + h_key * LD, lane);
+      float dp[NT8][4];
+      product_tf32x3<LD, LD, DW, NT8, Tl::KC>(dp, dOg + part * DW, Vt + part * DW, lane);
+      tile_ds(dp, kc0);
+      // dq += ds K over this warp's columns: B of K's rows in
+      // c_to_a_tf32's order, each 8-column tile summed over the tile in a
+      // zeroed partial
+      FragA dsa[NT8];
 #pragma unroll
-    for (int nd = 0; nd < DW / 8; ++nd) {
-      float part_dq[4] = {};
+      for (int n = 0; n < NT8; ++n) c_to_a_tf32(dsa[n], dp[n]);
 #pragma unroll
-      for (int n = 0; n < NT8; ++n) {
-        FragB bk;
-        load_b_perm_tf32<LD>(bk, Kt + 8 * n * LD + part * DW, 8 * nd, lane);
-        mma_tf32x3(part_dq, dsa[n], bk);
+      for (int nd = 0; nd < DW / 8; ++nd) {
+        float part_dq[4] = {};
+#pragma unroll
+        for (int n = 0; n < NT8; ++n) {
+          FragB bk;
+          load_b_perm_tf32<LD>(bk, Kt + 8 * n * LD + part * DW, 8 * nd, lane);
+          mma_tf32x3(part_dq, dsa[n], bk);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[0][nd][e] += part_dq[e];
       }
+    }
+  } else {
+    // this lane's scores (a chaining warp's), this warp's partial of dP
+    // (then ds)
+    float cs[RB][CB] = {}, dp[NT8][4] = {};
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int kc0 = kt * TK;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[nd][e] += part_dq[e];
+      for (int j = 0; j < STEPS; ++j) {
+        const int u = kt * STEPS + j;
+        // step u has landed for every thread, and every warp is done with
+        // step u - 1, whose stage the next copy refills
+        cp_async_wait<CS - 2>();
+        __syncthreads();
+        if (u + CS - 1 < n_steps) load_step(u + CS - 1);
+        cp_async_commit();
+        if (r0 >= tq || (causal && kc0 > r0 + 15 + offset)) continue;
+        const float* C = Ks + (u % CS) * TK * LDC;  // the step's chunk
+        if (j < NCH) {  // K's chunk j: the scores
+          if (part < Tl::CW)
+            chain_chunk<CK, NCH, LD, LDC, RB, CB, LS>(cs, Sc, Qc + j * CK, C + h_key * LDC, j,
+                                                      lane);
+        } else if (j < 2 * NCH) {  // V's chunk jv: this warp's partial of dP
+          const int jv = j - NCH;
+          if (jv == 0) {
+            product_tf32x3<LD, LDC, PW, NT8, Tl::KC>(dp, dOg + part * PW, C + part * PW, lane);
+          } else {
+            product_tf32x3<LD, LDC, PW, NT8, Tl::KC, false>(dp, dOg + jv * CK + part * PW,
+                                                            C + part * PW, lane);
+          }
+          if (jv == NCH - 1) tile_ds(dp, kc0);
+        } else {  // K's chunk jk again: dq += ds K over this warp's columns of it
+          add_product_tf32x3<LDC, PW, NT8>(acc[j - 2 * NCH], dp, C + part * PW, lane);
+        }
+      }
     }
   }
   cp_async_wait<0>();  // the trailing (empty) groups
 
   // dq times its scale, staged through this warp's rows and columns of qs
   // (after the group's last barrier no warp reads them)
-  store_warp_rows_f32<DW, LD, D>(dq + (size_t)b * tq * D + part * DW, Qw, acc, scale, r0, tq,
-                                 lane);
+#pragma unroll
+  for (int i = 0; i < NP; ++i)
+    store_warp_rows_f32<PWV, LD, D>(dq + (size_t)b * tq * D + dq_col(i),
+                                    Qs + 16 * rg * LD + dq_col(i), acc[i], scale, r0, tq, lane);
 }
 
 template <int D>
@@ -1761,14 +1967,16 @@ int launch_dq_wide_tf32x3(const void* q, const void* k, const void* v, const voi
   return (int)cudaGetLastError();
 }
 
-// flash_dkv at f32 heads of 256 and 512: a key group of 16 keys, K and V
-// of the block resident; query tiles (q, dO, lse, delta) through the
-// ring, q pre-scaled in place by the thread that copied it; per tile S^T
-// over the whole head on the CUDA cores (scores_fwd_order: a score's
-// chain does not depend on which operand is the row), each warp's dP^T =
-// V dO^T over its columns in 3xTF32, the exchange, p^T and ds^T in the
-// accumulators, then dv += p^T dO and dk += ds^T qs over the warp's
-// columns, each 8-column tile summed over the tile in zeroed partials.
+// flash_dkv at f32 heads of 256, 512 and 1024: a key group of 16 keys, K
+// and V of the block resident; query tiles (q, dO, lse, delta) through
+// the ring, q pre-scaled in place by the thread that copied it; per tile
+// S^T on the CUDA cores in the forward's order (its CW chaining warps: a
+// score's chain does not depend on which operand is the row), each warp's
+// dP^T = V dO^T over its columns in 3xTF32, the exchange, p^T and ds^T in
+// the accumulators, then dv += p^T dO and dk += ds^T qs over the warp's
+// columns, each 8-column tile summed over the tile in zeroed partials. At
+// 1024 the tile comes in STEPS chunks (q's, dO's, q's again:
+// WideTf32Tiles), dv added on each of dO's.
 template <int D>
 __global__ void __launch_bounds__(WideTf32Tiles<D>::NT, 1)
 flash_dkv_kernel_wide_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
@@ -1778,11 +1986,17 @@ flash_dkv_kernel_wide_tf32x3(const float* __restrict__ q, const float* __restric
                              int tk, int causal, float q_scale) {
   using Tl = WideTf32Tiles<D>;
   constexpr int BKB = Tl::ROWS, QT = Tl::T, NT8 = Tl::NT8, WP = Tl::WP, DW = Tl::DW;
-  constexpr int NT = Tl::NT, LD = Tl::LD, STAGES = Tl::STAGES;
+  constexpr int NT = Tl::NT, LD = Tl::LD, STAGES = Tl::STAGES, LS = Tl::LS;
+  constexpr int RB = Tl::RB, CB = Tl::CB, RH = Tl::RH;
+  constexpr int CK = Tl::CK, NCH = Tl::NCH, LDC = Tl::LDC, CS = Tl::CS, PW = Tl::PW;
+  constexpr int NP = Tl::NP, PWV = Tl::PWV, STEPS = Tl::STEPS;
+  constexpr int AHEAD = Tl::CH ? CS - 1 : STAGES - 1;  // steps a copy is issued ahead
   extern __shared__ __align__(128) unsigned char smem[];
   float* Ks = reinterpret_cast<float*>(smem);
   float* Vs = Ks + BKB * LD;
-  float* Rs = Vs + BKB * LD;  // stage st: qs rows at 2 st QT LD, dO rows QT LD on
+  // the ring: stage st's qs rows at 2 st QT LD, its dO rows QT LD on (CH:
+  // CS chunks)
+  float* Rs = Vs + BKB * LD;
   float* Ss = reinterpret_cast<float*>(smem + Tl::rows_bytes);  // each key group's scores
   float4* X = reinterpret_cast<float4*>(smem + Tl::rows_bytes + Tl::s_bytes);  // partial dP^T
   float* Ls = reinterpret_cast<float*>(smem + Tl::dq_bytes);  // stage st: lse, then delta
@@ -1798,10 +2012,16 @@ flash_dkv_kernel_wide_tf32x3(const float* __restrict__ q, const float* __restric
   const int offset = tk - tq;
   const float* qb = q + (size_t)b * tq * D;
   const float* db = dout + (size_t)b * tq * D;
-  const float* Kg = Ks + 16 * kg * LD;  // the key group's rows of K
-  float* St = Ss + 16 * kg * QT;
-  float* Kw = Ks + 16 * kg * LD + part * DW;  // this warp's columns of K (later dk), V (dv)
-  float* Vw = Vs + 16 * kg * LD + part * DW;
+  float* St = Ss + 16 * kg * LS;
+  float* Kg = Ks + 16 * kg * LD;  // the key group's rows of K (later dk) and V (later dv)
+  float* Vg = Vs + 16 * kg * LD;
+  // the first column of this warp's piece i of dk and of dv (CH: in chunk i)
+  auto d_col = [&](int i) { return Tl::CH ? i * CK + part * PW : part * DW; };
+  // the scores this warp chains (if part < CW): its rows of K and of the
+  // scores, and its first query of the tile
+  const int h_row = 4 * RB * (part % RH), h_key = 8 * CB * (part / RH);
+  const float* Kc = Kg + h_row * LD;
+  float* Sc = St + h_row * LS + h_key;
 
   // the block's K and V rows (zeros past tk): copy group 0
   load_tile_pair<D, LD, BKB, NT>(Ks, Vs, k + (size_t)b * tk * D, v + (size_t)b * tk * D, k0,
@@ -1812,11 +2032,11 @@ flash_dkv_kernel_wide_tf32x3(const float* __restrict__ q, const float* __restric
   // since k0 - offset <= tq - 1)
   const int qt0 = (causal ? max(0, k0 - offset) : 0) / QT;
   const int n_qt = (tq + QT - 1) / QT - qt0;
+  const int n_steps = n_qt * STEPS;
 
-  auto load_q = [&](int t) {  // query tile qt0 + t (zeros past tq) into stage t % STAGES
+  // lse and delta of query tile qt0 + t (zeros past tq) into stage t % STAGES
+  auto load_ld = [&](int t) {
     const int q0 = (qt0 + t) * QT, st = t % STAGES;
-    float* qd = Rs + st * 2 * QT * LD;
-    load_tile_pair<D, LD, QT, NT>(qd, qd + QT * LD, qb, db, q0, tq);
     for (int i = threadIdx.x; i < 2 * QT; i += NT) {
       const int r = i % QT;
       const bool in = q0 + r < tq;
@@ -1825,88 +2045,183 @@ flash_dkv_kernel_wide_tf32x3(const float* __restrict__ q, const float* __restric
                 in ? 4 : 0);
     }
   };
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < n_qt) load_q(s);
-    cp_async_commit();
-  }
-
-  float dka[DW / 8][4], dva[DW / 8][4];
-#pragma unroll
-  for (int n = 0; n < DW / 8; ++n) {
-    dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.f;
-    dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
-  }
-
-  for (int t = 0; t < n_qt; ++t) {
-    const int st = t % STAGES;
-    float* Qt = Rs + st * 2 * QT * LD;
-    const float* dOt = Qt + QT * LD;
-    const float* Lt = Ls + 2 * st * QT;  // lse, then delta
-    // tile t (and, at t = 0, K and V) has landed for this thread:
-    // pre-scale the q chunks it copied
-    cp_async_wait<STAGES - 2>();
-    scale_rows_f32<D, LD, QT, NT>(Qt, q_scale, threadIdx.x);
-    // every thread's share of tile t is in place, and every warp is done
-    // with tile t - 1 (whose stage the next copy refills) and with its
-    // group's scores and partials of tile t - 1
-    __syncthreads();
-    if (t + STAGES - 1 < n_qt) load_q(t + STAGES - 1);
-    cp_async_commit();
-
-    // queries q0 .. q0 + QT - 1: past tq, or wholly below this key
-    // group's keys under the mask, p = 0 throughout (q0 < tq always)
-    const int q0 = (qt0 + t) * QT;
-    if (kw0 >= tk || (causal && q0 + QT - 1 + offset < kw0)) continue;
-    scores_fwd_order<D, LD, QT, WP>(St, Kg, Qt, threadIdx.x - 32 * WP * kg);
-    float s[NT8][4], dp[NT8][4];
-    product_tf32x3<LD, DW, NT8, Tl::KC>(dp, Vw, dOt + part * DW, lane);
-#pragma unroll
-    for (int n = 0; n < NT8; ++n)
-      X[(warp * NT8 + n) * 32 + lane] = make_float4(dp[n][0], dp[n][1], dp[n][2], dp[n][3]);
-    bar_sync(1 + kg, 32 * WP);
-    gather_group<QT, WP>(s, dp, St, X, kg, lane);
-    // p^T and ds^T in the accumulators: row (key) kw0 + g + 8 (e / 2),
-    // column (query) q0 + 8 n + 2 c + (e % 2); masks only where the tile
-    // crosses tq or this key group's diagonal
-    const bool edge = q0 + QT > tq || (causal && q0 + offset < kw0 + 15);
-    FragA pa[NT8], dsa[NT8];
-#pragma unroll
-    for (int n = 0; n < NT8; ++n) {
-      const int col = 8 * n + 2 * c;  // in the tile
-      const float2 l2 = *reinterpret_cast<const float2*>(Lt + col);
-      const float2 d2 = *reinterpret_cast<const float2*>(Lt + QT + col);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float p = expf(s[n][e] - (e % 2 ? l2.y : l2.x));
-        if (edge) {
-          const int qi = q0 + col + (e % 2);
-          const int ki = kw0 + g + 8 * (e / 2);
-          if (qi >= tq || (causal && qi + offset < ki)) p = 0.f;
-        }
-        s[n][e] = p;
-        dp[n][e] = p * (dp[n][e] - (e % 2 ? d2.y : d2.x));
-      }
-      c_to_a_tf32(pa[n], s[n]);
-      c_to_a_tf32(dsa[n], dp[n]);
+  // step u (zeros past tq): query tile u into stage u % STAGES, or (CH)
+  // step j of query tile t = u / STEPS into chunk stage u % CS: q's
+  // columns j CK .. (j < NCH; at j = 0 with the tile's lse and delta),
+  // dO's (j - NCH) CK .. (j < 2 NCH), q's (j - 2 NCH) CK ..
+  auto load_step = [&](int u) {
+    if constexpr (Tl::CH) {
+      const int t = u / STEPS, j = u % STEPS;
+      load_tile<D, CK, LDC, QT, NT>(Rs + (u % CS) * QT * LDC, j / NCH == 1 ? db : qb,
+                                    (qt0 + t) * QT, tq, (j % NCH) * CK);
+      if (j == 0) load_ld(t);
+    } else {
+      float* qd = Rs + (u % STAGES) * 2 * QT * LD;
+      load_tile_pair<D, LD, QT, NT>(qd, qd + QT * LD, qb, db, (qt0 + u) * QT, tq);
+      load_ld(u);
     }
-    // dv += p^T dO, dk += ds^T qs over this warp's columns, one 8-column
-    // tile at a time: B of the stage's rows in c_to_a_tf32's order, summed
-    // over the tile in zeroed partials
+  };
+  for (int s = 0; s < AHEAD; ++s) {
+    if (s < n_steps) load_step(s);
+    cp_async_commit();
+  }
+
+  float dka[NP][PWV / 8][4], dva[NP][PWV / 8][4];
 #pragma unroll
-    for (int nd = 0; nd < DW / 8; ++nd) {
-      float part_dv[4] = {}, part_dk[4] = {};
+  for (int i = 0; i < NP; ++i) {
+#pragma unroll
+    for (int n = 0; n < PWV / 8; ++n) {
+      dka[i][n][0] = dka[i][n][1] = dka[i][n][2] = dka[i][n][3] = 0.f;
+      dva[i][n][0] = dva[i][n][1] = dva[i][n][2] = dva[i][n][3] = 0.f;
+    }
+  }
+
+  if constexpr (!Tl::CH) {
+    for (int t = 0; t < n_qt; ++t) {
+      const int st = t % STAGES;
+      float* Qt = Rs + st * 2 * QT * LD;
+      const float* dOt = Qt + QT * LD;
+      const float* Lt = Ls + 2 * st * QT;  // lse, then delta
+      // tile t (and, at t = 0, K and V) has landed for this thread:
+      // pre-scale the q chunks it copied
+      cp_async_wait<STAGES - 2>();
+      scale_rows_f32<D, LD, QT, NT>(Qt, q_scale, threadIdx.x);
+      // every thread's share of tile t is in place, and every warp is done
+      // with tile t - 1 (whose stage the next copy refills) and with its
+      // group's scores and partials of tile t - 1
+      __syncthreads();
+      if (t + STAGES - 1 < n_qt) load_step(t + STAGES - 1);
+      cp_async_commit();
+
+      // queries q0 .. q0 + QT - 1: past tq, or wholly below this key
+      // group's keys under the mask, p = 0 throughout (q0 < tq always)
+      const int q0 = (qt0 + t) * QT;
+      if (kw0 >= tk || (causal && q0 + QT - 1 + offset < kw0)) continue;
+      if (part < Tl::CW) score_chain<D, LD, RB, CB, LS>(Sc, Kc, Qt + h_key * LD, lane);
+      float s[NT8][4], dp[NT8][4];
+      product_tf32x3<LD, LD, DW, NT8, Tl::KC>(dp, Vg + part * DW, dOt + part * DW, lane);
+#pragma unroll
+      for (int n = 0; n < NT8; ++n)
+        X[(warp * NT8 + n) * 32 + lane] = make_float4(dp[n][0], dp[n][1], dp[n][2], dp[n][3]);
+      bar_sync(1 + kg, 32 * WP);
+      gather_scores<NT8, LS>(s, St, lane);
+      sum_partials<NT8, WP>(dp, X, kg, lane);
+      // p^T and ds^T in the accumulators: row (key) kw0 + g + 8 (e / 2),
+      // column (query) q0 + 8 n + 2 c + (e % 2); masks only where the tile
+      // crosses tq or this key group's diagonal
+      const bool edge = q0 + QT > tq || (causal && q0 + offset < kw0 + 15);
+      FragA pa[NT8], dsa[NT8];
 #pragma unroll
       for (int n = 0; n < NT8; ++n) {
-        FragB bd, bq;
-        load_b_perm_tf32<LD>(bd, dOt + 8 * n * LD + part * DW, 8 * nd, lane);
-        load_b_perm_tf32<LD>(bq, Qt + 8 * n * LD + part * DW, 8 * nd, lane);
-        mma_tf32x3(part_dv, pa[n], bd);
-        mma_tf32x3(part_dk, dsa[n], bq);
-      }
+        const int col = 8 * n + 2 * c;  // in the tile
+        const float2 l2 = *reinterpret_cast<const float2*>(Lt + col);
+        const float2 d2 = *reinterpret_cast<const float2*>(Lt + QT + col);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        dva[nd][e] += part_dv[e];
-        dka[nd][e] += part_dk[e];
+        for (int e = 0; e < 4; ++e) {
+          float p = expf(s[n][e] - (e % 2 ? l2.y : l2.x));
+          if (edge) {
+            const int qi = q0 + col + (e % 2);
+            const int ki = kw0 + g + 8 * (e / 2);
+            if (qi >= tq || (causal && qi + offset < ki)) p = 0.f;
+          }
+          s[n][e] = p;
+          dp[n][e] = p * (dp[n][e] - (e % 2 ? d2.y : d2.x));
+        }
+        c_to_a_tf32(pa[n], s[n]);
+        c_to_a_tf32(dsa[n], dp[n]);
+      }
+      // dv += p^T dO, dk += ds^T qs over this warp's columns, one 8-column
+      // tile at a time: B of the stage's rows in c_to_a_tf32's order, summed
+      // over the tile in zeroed partials
+#pragma unroll
+      for (int nd = 0; nd < DW / 8; ++nd) {
+        float part_dv[4] = {}, part_dk[4] = {};
+#pragma unroll
+        for (int n = 0; n < NT8; ++n) {
+          FragB bd, bq;
+          load_b_perm_tf32<LD>(bd, dOt + 8 * n * LD + part * DW, 8 * nd, lane);
+          load_b_perm_tf32<LD>(bq, Qt + 8 * n * LD + part * DW, 8 * nd, lane);
+          mma_tf32x3(part_dv, pa[n], bd);
+          mma_tf32x3(part_dk, dsa[n], bq);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dva[0][nd][e] += part_dv[e];
+          dka[0][nd][e] += part_dk[e];
+        }
+      }
+    }
+  } else {
+    // this lane's scores (a chaining warp's), the tile's p^T, this warp's
+    // partial of dP^T (then ds^T)
+    float cs[RB][CB] = {}, p[NT8][4] = {}, dp[NT8][4] = {};
+    for (int t = 0; t < n_qt; ++t) {
+      const int q0 = (qt0 + t) * QT;
+      const float* Lt = Ls + 2 * (t % STAGES) * QT;  // lse, then delta
+#pragma unroll
+      for (int j = 0; j < STEPS; ++j) {
+        const int u = t * STEPS + j;
+        float* C = Rs + (u % CS) * QT * LDC;  // the step's chunk
+        // step u has landed for this thread: pre-scale the chunk of q it
+        // copied; then every thread's share of it is in place, and every
+        // warp is done with step u - 1, whose stage the next copy refills
+        cp_async_wait<CS - 2>();
+        if (j / NCH != 1) scale_chunk_f32<CK, LDC, QT, NT>(C, q_scale, threadIdx.x);
+        __syncthreads();
+        if (u + CS - 1 < n_steps) load_step(u + CS - 1);
+        cp_async_commit();
+        if (kw0 >= tk || (causal && q0 + QT - 1 + offset < kw0)) continue;
+        if (j < NCH) {  // q's chunk j: the scores
+          if (part < Tl::CW)
+            chain_chunk<CK, NCH, LD, LDC, RB, CB, LS>(cs, Sc, Kc + j * CK, C + h_key * LDC, j,
+                                                      lane);
+        } else if (j < 2 * NCH) {  // dO's chunk jo
+          const int jo = j - NCH;
+          if (jo == 0) {
+            // the tile's scores are in St (the barrier above): p^T, masked
+            // only where the tile crosses tq or this key group's diagonal
+            gather_scores<NT8, LS>(p, St, lane);
+            const bool edge = q0 + QT > tq || (causal && q0 + offset < kw0 + 15);
+#pragma unroll
+            for (int n = 0; n < NT8; ++n) {
+              const int col = 8 * n + 2 * c;  // in the tile
+              const float2 l2 = *reinterpret_cast<const float2*>(Lt + col);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                p[n][e] = expf(p[n][e] - (e % 2 ? l2.y : l2.x));
+                if (edge) {
+                  const int qi = q0 + col + (e % 2);
+                  const int ki = kw0 + g + 8 * (e / 2);
+                  if (qi >= tq || (causal && qi + offset < ki)) p[n][e] = 0.f;
+                }
+              }
+            }
+          }
+          // dv += p^T dO over this warp's columns of the chunk, and its
+          // partial of dP^T over them
+          add_product_tf32x3<LDC, PW, NT8>(dva[jo], p, C + part * PW, lane);
+          if (jo == 0) {
+            product_tf32x3<LD, LDC, PW, NT8, Tl::KC>(dp, Vg + part * PW, C + part * PW, lane);
+          } else {
+            product_tf32x3<LD, LDC, PW, NT8, Tl::KC, false>(dp, Vg + jo * CK + part * PW,
+                                                            C + part * PW, lane);
+          }
+          if (jo < NCH - 1) continue;
+          // the exchange, then ds^T = p^T (dP^T - delta)
+#pragma unroll
+          for (int n = 0; n < NT8; ++n)
+            X[(warp * NT8 + n) * 32 + lane] = make_float4(dp[n][0], dp[n][1], dp[n][2], dp[n][3]);
+          bar_sync(1, NT);
+          sum_partials<NT8, WP>(dp, X, 0, lane);
+#pragma unroll
+          for (int n = 0; n < NT8; ++n) {
+            const float2 d2 = *reinterpret_cast<const float2*>(Lt + QT + 8 * n + 2 * c);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) dp[n][e] = p[n][e] * (dp[n][e] - (e % 2 ? d2.y : d2.x));
+          }
+        } else {  // q's chunk jq again: dk += ds^T qs over this warp's columns of it
+          add_product_tf32x3<LDC, PW, NT8>(dka[j - 2 * NCH], dp, C + part * PW, lane);
+        }
       }
     }
   }
@@ -1914,10 +2229,13 @@ flash_dkv_kernel_wide_tf32x3(const float* __restrict__ q, const float* __restric
 
   // dk and dv staged through this warp's rows and columns of K and V
   // (after the group's last barrier no warp reads them)
-  store_warp_rows_f32<DW, LD, D>(dk + (size_t)b * tk * D + part * DW, Kw, dka, 1.f, kw0, tk,
-                                 lane);
-  store_warp_rows_f32<DW, LD, D>(dv + (size_t)b * tk * D + part * DW, Vw, dva, 1.f, kw0, tk,
-                                 lane);
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    store_warp_rows_f32<PWV, LD, D>(dk + (size_t)b * tk * D + d_col(i), Kg + d_col(i), dka[i],
+                                    1.f, kw0, tk, lane);
+    store_warp_rows_f32<PWV, LD, D>(dv + (size_t)b * tk * D + d_col(i), Vg + d_col(i), dva[i],
+                                    1.f, kw0, tk, lane);
+  }
 }
 
 template <int D>
@@ -2245,7 +2563,7 @@ extern "C" int dl4j_flash_dq(const void* q, const void* k, const void* v, const 
     if (d == 128) return launch_dq_tf32x3<128>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
     if (d == 256) return launch_dq_wide_tf32x3<256>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
     if (d == 512) return launch_dq_wide_tf32x3<512>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
-    if (d == 1024) return launch_dq_f32<float, 1024>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
+    if (d == 1024) return launch_dq_wide_tf32x3<1024>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -2273,7 +2591,7 @@ extern "C" int dl4j_flash_dkv(const void* q, const void* k, const void* v, const
     if (d == 128) return launch_dkv_tf32x3<128>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
     if (d == 256) return launch_dkv_wide_tf32x3<256>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
     if (d == 512) return launch_dkv_wide_tf32x3<512>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
-    if (d == 1024) return launch_dkv_f32<float, 1024>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
+    if (d == 1024) return launch_dkv_wide_tf32x3<1024>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }

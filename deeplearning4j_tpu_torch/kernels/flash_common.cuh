@@ -8,8 +8,8 @@
 // the coalesced epilogue store; then the 3xTF32 pieces of the f32 kernels
 // on the tensor cores (the TF32 split, mma.sync m16n8k8, fragments of f32
 // rows and the f32 epilogue); then the f32 kernels' scores, each one fma
-// chain in the forward's order on the CUDA cores (score_chain,
-// scores_fwd_order), and their gather into the accumulator layout.
+// chain in the forward's order on the CUDA cores (chain_columns,
+// score_chain), and their gather into the accumulator layout.
 
 #pragma once
 
@@ -46,8 +46,8 @@ __device__ __forceinline__ float quad_sum(float x) {
 // ---------------------------------------------- the f32 (SIMT) design
 
 // The first design, on the CUDA cores through shared memory in f32, of
-// flash_bwd.cu: the f32 and bf16 backward at 1024 (every other kernel
-// runs its products on the tensor cores).
+// flash_bwd.cu: the bf16 backward at 1024 (every other kernel runs its
+// products on the tensor cores).
 // T is the element type in device memory: bf16 is widened to f32 on load,
 // rounded back where the reference rounds (the q pre-scale, p and ds
 // before their products) and narrowed on store.
@@ -439,56 +439,12 @@ __device__ __forceinline__ void store_warp_rows_f32(float* dst, float* stage,
 // quarters 0.5-1x.
 __host__ __device__ constexpr int score_chain_cols(int D) { return D < 1024 ? D : 256; }
 
-// The 16 x T scores of a group (dq: its query rows a against the key
-// tile b; dkv: its keys a against the query tile b; rows of the whole
-// head, leading dimension LD) in the forward's order (score_chain's), by
-// the wide backward kernels. The group's 32 WP threads (t: the thread's index
-// in its group) take 2 x 2 scores each at WP = 2 (rows t % 8 and t % 8 +
-// 8, columns t / 8 and t / 8 + 8: a warp's eight rows of one read lie 4
-// banks apart, so they read without conflicts; rows 2 r and 2 r + 1 took
-// a sixth longer at [32, 1024, 256] on the H100) and one each at WP = 4,
-// a warp's lanes sharing rows so that their reads broadcast, and write
-// them to St (row-major, [16][T]).
-template <int D, int LD, int T, int WP>
-__device__ __forceinline__ void scores_fwd_order(float* St, const float* a, const float* b,
-                                                 int t) {
-  constexpr int RB = WP == 2 ? 2 : 1;  // rows and columns a thread
-  static_assert(16 * T == 32 * WP * RB * RB, "every score once");
-  const int r = RB == 2 ? t % 8 : t / T;
-  const int col = RB == 2 ? t / 8 : t % T;
-  float s[RB][RB] = {};
-#pragma unroll 2
-  for (int i = 0; i < D; i += 4) {
-    float4 x[RB], y[RB];
-#pragma unroll
-    for (int u = 0; u < RB; ++u) {
-      x[u] = *reinterpret_cast<const float4*>(a + (r + 8 * u) * LD + i);
-      y[u] = *reinterpret_cast<const float4*>(b + (col + 8 * u) * LD + i);
-    }
-#pragma unroll
-    for (int u = 0; u < RB; ++u) {
-#pragma unroll
-      for (int w = 0; w < RB; ++w) {
-        s[u][w] = fmaf(x[u].x, y[w].x, s[u][w]);
-        s[u][w] = fmaf(x[u].y, y[w].y, s[u][w]);
-        s[u][w] = fmaf(x[u].z, y[w].z, s[u][w]);
-        s[u][w] = fmaf(x[u].w, y[w].w, s[u][w]);
-      }
-    }
-  }
-#pragma unroll
-  for (int u = 0; u < RB; ++u) {
-#pragma unroll
-    for (int w = 0; w < RB; ++w) St[(r + 8 * u) * T + col + 8 * w] = s[u][w];
-  }
-}
-
 // The stride in words of a row of T staged scores (score_chain): at
 // least T and 8 (mod 32)
 __host__ __device__ constexpr int score_stride(int T) { return (T + 31) / 32 * 32 + 8; }
 
-// The forward's order by a warp's tile (the f32 forward at every head
-// and the 3xTF32 backward up to 128): the 4 RB x 8 CB scores of
+// The forward's order by a warp's tile (every f32 kernel: the forward
+// and the 3xTF32 backward at every head): the 4 RB x 8 CB scores of
 // rows a (4 RB rows) against rows b (8 CB rows), each one fma chain over
 // the columns 0 .. D - 1 from 0. Lane l takes rows l / 8 + 4 u (u < RB)
 // and columns l % 8 + 8 w (w < CB), a register tile of RB x CB chains:

@@ -16,14 +16,15 @@ Which kernel runs which dtype and head:
   cores in 3xTF32);
 - backward: bf16 on the tensor cores up to 512 (``flash_dq_kernel`` /
   ``flash_dkv_kernel`` up to 128, the ``_wide`` pair at 256 and 512);
-  f32 up to 512 on the tensor cores in 3xTF32 (each f32 operand split
-  into two TF32 values, three products for each), but for the scores:
-  ``flash_dq_kernel_tf32x3`` / ``flash_dkv_kernel_tf32x3`` up to 128,
-  ``flash_dq_kernel_wide_tf32x3`` / ``flash_dkv_kernel_wide_tf32x3`` at
-  256 and 512, whose scores are the f32 forward's own chains, bit for
-  bit, so that s - lse cancels the forward's rounding of s as in the
-  reference; the f32 and bf16 heads of 1024 on the CUDA cores (the
-  ``_f32`` pair, whose scores take the f32 forward's order too).
+  f32 at every head on the tensor cores in 3xTF32 (each f32 operand
+  split into two TF32 values, three products for each), but for the
+  scores: ``flash_dq_kernel_tf32x3`` / ``flash_dkv_kernel_tf32x3`` up to
+  128, ``flash_dq_kernel_wide_tf32x3`` / ``flash_dkv_kernel_wide_tf32x3``
+  at 256, 512 and 1024, whose scores are the f32 forward's own chains
+  (at 1024 one over each quarter of the head, the sums added in order),
+  bit for bit, so that s - lse cancels the forward's rounding of s as in
+  the reference; the bf16 heads of 1024 on the CUDA cores (the ``_f32``
+  pair, whose scores take the f32 forward's order too).
 
 Which of the two runs is decided by the tensor's device alone: on the
 CPU the plain version, on a CUDA device the kernel (a build or launch
@@ -292,8 +293,7 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, causal
     the SIMT ``_f32`` kernels at 1024; in f32
     ``flash_dq_kernel_tf32x3`` / ``flash_dkv_kernel_tf32x3`` at 64 and
     128, ``flash_dq_kernel_wide_tf32x3`` /
-    ``flash_dkv_kernel_wide_tf32x3`` at 256 and 512, the SIMT ``_f32``
-    kernels at 1024."""
+    ``flash_dkv_kernel_wide_tf32x3`` at 256, 512 and 1024."""
     bh, tq, d = q.shape
     tk = k.shape[1]
     _check_inputs(q, k, v)

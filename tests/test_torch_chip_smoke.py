@@ -325,15 +325,16 @@ def test_wide_head_cases_reach_1024_and_time_the_forward_at_512():
 
 
 def _bwd_flash_report(dq_spills, dkv_spills, tf32_dq_spills=0, tf32_dkv_spills=0,
-                      wide_tf32_dq_spills=0, wide_tf32_dkv_spills=0):
+                      wide_tf32_dq_spills=0, wide_tf32_dkv_spills=0,
+                      wide_1024_dq_spills=0, wide_1024_dkv_spills=0):
     """A stand-in report of flash_bwd.cu: the bf16 mma.sync kernels, the
     wide ones at 256 and 512 (flash_dq_kernel_wide spilling
     ``dq_spills`` bytes, flash_dkv_kernel_wide ``dkv_spills``), the f32
     3xTF32 kernels at 64 and 128 (``tf32_dq_spills``,
     ``tf32_dkv_spills`` at 128), an f32 and a bf16 SIMT
-    instantiation (never gated), and the wide f32 3xTF32 kernels at 256
-    and 512 (``wide_tf32_dq_spills``, ``wide_tf32_dkv_spills`` at
-    512)."""
+    instantiation (never gated), and the wide f32 3xTF32 kernels at 256,
+    512 (``wide_tf32_dq_spills``, ``wide_tf32_dkv_spills`` at 512) and
+    1024 (``wide_1024_dq_spills``, ``wide_1024_dkv_spills``)."""
     ns = "_ZN12_GLOBAL__N_1"
     args = "EEvPK13__nv_bfloat16S3_S3_S3_S3_PKfPfPS1_iiiiiff"
     f32_args = "EEvPKfS1_S1_S1_S1_S1_PfS2_iiiiiff"
@@ -356,7 +357,10 @@ def _bwd_flash_report(dq_spills, dkv_spills, tf32_dq_spills=0, tf32_dkv_spills=0
         (f"{ns}27flash_dq_kernel_wide_tf32x3ILi512{f32_args}", 187, wide_tf32_dq_spills),
         (f"{ns}28flash_dkv_kernel_wide_tf32x3ILi256{f32_args[:-1]}", 254, 0),
         (f"{ns}28flash_dkv_kernel_wide_tf32x3ILi512{f32_args[:-1]}", 255,
-         wide_tf32_dkv_spills)])
+         wide_tf32_dkv_spills),
+        (f"{ns}27flash_dq_kernel_wide_tf32x3ILi1024{f32_args}", 168, wide_1024_dq_spills),
+        (f"{ns}28flash_dkv_kernel_wide_tf32x3ILi1024{f32_args[:-1]}", 190,
+         wide_1024_dkv_spills)])
 
 
 def test_spill_gate_reads_the_wide_flash_backward(capsys):
@@ -396,15 +400,15 @@ def test_spill_gate_rejects_a_spilling_tf32x3_flash_backward(tf32_dq_spills,
 
 
 def test_spill_gate_reads_the_wide_tf32x3_flash_backward(capsys):
-    """The wide f32 kernels at 256 and 512 are gated under their own
-    names, and the 3xTF32 gate of heads <= 128 does not read them (their
-    names extend its kernels' names)."""
+    """The wide f32 kernels at 256, 512 and 1024 are gated under their
+    own names, and the 3xTF32 gate of heads <= 128 does not read them
+    (their names extend its kernels' names)."""
     chip_smoke._spill_gate("flash_bwd", _bwd_flash_report(0, 0))
     out = capsys.readouterr().out
     assert ("f32 flash_dq_kernel_wide_tf32x3 registers, spill bytes: "
-            "[(183, 0), (187, 0)]") in out
+            "[(183, 0), (187, 0), (168, 0)]") in out
     assert ("f32 flash_dkv_kernel_wide_tf32x3 registers, spill bytes: "
-            "[(254, 0), (255, 0)]") in out
+            "[(254, 0), (255, 0), (190, 0)]") in out
     assert "f32 flash_dq_kernel_tf32x3 registers, spill bytes: [(149, 0), (203, 0)]" in out
     assert ("bf16 flash_dq_kernel_wide registers, spill bytes: "
             "[(243, 0), (223, 0)]") in out
@@ -419,6 +423,17 @@ def test_spill_gate_rejects_a_spilling_wide_tf32x3_flash_backward(dq_spills, dkv
     with pytest.raises(RuntimeError, match=f"f32 {kernel} spills"):
         chip_smoke._spill_gate("flash_bwd", _bwd_flash_report(
             0, 0, wide_tf32_dq_spills=dq_spills, wide_tf32_dkv_spills=dkv_spills))
+
+
+@pytest.mark.parametrize("dq_spills,dkv_spills,kernel", [
+    (4, 0, "flash_dq_kernel_wide_tf32x3"), (0, 40, "flash_dkv_kernel_wide_tf32x3")])
+def test_spill_gate_rejects_a_spilling_wide_tf32x3_flash_backward_at_1024(
+        dq_spills, dkv_spills, kernel):
+    """The instantiation at 1024 alone spilling fails phase 1, with the
+    instantiation named."""
+    with pytest.raises(RuntimeError, match=rf"f32 {kernel} spills.*1024"):
+        chip_smoke._spill_gate("flash_bwd", _bwd_flash_report(
+            0, 0, wide_1024_dq_spills=dq_spills, wide_1024_dkv_spills=dkv_spills))
 
 
 def test_spill_gate_needs_the_tf32x3_kernels():
@@ -439,7 +454,8 @@ def test_spill_gate_needs_the_tf32x3_kernels():
     ("float32", 256, ("flash_dq_kernel_wide_tf32x3<", "flash_dkv_kernel_wide_tf32x3<")),
     ("float32", 320, ("flash_dq_kernel_wide_tf32x3<", "flash_dkv_kernel_wide_tf32x3<")),
     ("float32", 512, ("flash_dq_kernel_wide_tf32x3<", "flash_dkv_kernel_wide_tf32x3<")),
-    ("float32", 1024, ("flash_dq_kernel_f32<", "flash_dkv_kernel_f32<"))])
+    ("float32", 640, ("flash_dq_kernel_wide_tf32x3<", "flash_dkv_kernel_wide_tf32x3<")),
+    ("float32", 1024, ("flash_dq_kernel_wide_tf32x3<", "flash_dkv_kernel_wide_tf32x3<"))])
 def test_bwd_kernel_names_follow_the_dispatch(dtype, d, names):
     assert chip_smoke.bwd_kernel_names(dtype, d) == names
     # each name finds its kernel's profiled name and no other's
@@ -452,12 +468,13 @@ def test_bwd_kernel_names_follow_the_dispatch(dtype, d, names):
 def test_wide_backward_cases_reach_512_at_t1024():
     """Phase 2's backward times the wide kernels at [32, 1024, 256] and
     [16, 1024, 512] causal (the same bound by operations: 6 d and 8 d
-    flops per live pair), checks both at t 200, and keeps 1024's SIMT
-    kernels."""
+    flops per live pair), and in f32 at [8, 1024, 1024] too, checks them
+    at t 200, and keeps bf16 1024's SIMT kernels there."""
     cases = chip_smoke.bwd_cases()
     d, bh, t = chip_smoke.WIDE_HEAD
     for case in [("bfloat16", d, bh, t, t, True), ("bfloat16", 512, 16, 1024, 1024, True),
-                 ("bfloat16", 512, 8, 200, 200, True), ("bfloat16", 1024, 4, 200, 200, True)]:
+                 ("bfloat16", 512, 8, 200, 200, True), ("bfloat16", 1024, 4, 200, 200, True),
+                 ("float32", 1024, 8, 1024, 1024, True), ("float32", 1024, 4, 200, 200, True)]:
         assert case in cases
     assert len(set(cases)) == len(cases)
     for flops, n_out in ((6, 1), (8, 2)):
@@ -472,7 +489,7 @@ def _flash_rows():
     """Stand-in phase-2 rows for the kernels line: the forward's prefill,
     training and wide rows, bf16, and its f32 rows at the f32 steps'
     shapes and at d 512, and the backward's training and wide rows, bf16
-    and f32."""
+    and f32, and its f32 row at d 1024."""
     def fwd(bh, t, d):
         return dict(dtype="bfloat16", bh=bh, tq=t, tk=t, d=d, causal=True,
                     err_o=0.01, ms=0.1, kernel_only_ms=0.1,
@@ -510,7 +527,10 @@ def _flash_rows():
             + [fwd_f32(*s, ms) for s, ms in zip(shapes[1:] + [(8, 1024, 1024)],
                                                 (0.5, 0.55, 0.7, 0.86))]
             + [fwd(8, 1024, 1024)],
-            [bwd(*s) for s in shapes[1:]] + [f32, wide_f32])
+            [bwd(*s) for s in shapes[1:]] + [f32, wide_f32, wide_f32 | dict(
+                bh=8, d=1024, err_dq=4e-6, err_dk=9e-6, err_dv=6e-6, ms=2.2,
+                dq_kernel_only_ms=1.0, dkv_kernel_only_ms=1.2, plain_ms=9.0,
+                library_ms=0.9)])
 
 
 def _phase4(train, wide_launches, f32_launches=None, wide_f32_launches=None):
@@ -552,16 +572,18 @@ def test_flash_summary_names_the_wide_kernels():
 
 def test_forward_only_case_times_the_wide_forward_at_1024():
     """Phase 2 times the wide forward at [8, 1024, 1024] bf16 causal (the
-    other wide rows' bound by bytes: bh x d = 8192), and the f32 forward
-    there, the forward alone: the backward at 1024 still runs the SIMT
-    kernels, and stays at t 200."""
-    assert chip_smoke.FWD_ONLY_CASES == [("bfloat16", 1024, 8, 1024, 1024, True),
-                                         ("float32", 1024, 8, 1024, 1024, True)]
+    other wide rows' bound by bytes: bh x d = 8192), the forward alone:
+    the bf16 backward at 1024 still runs the SIMT kernels, and stays at
+    t 200; the f32 forward there is timed with its backward
+    (``WIDE_F32_1024_CASES``)."""
+    assert chip_smoke.FWD_ONLY_CASES == [("bfloat16", 1024, 8, 1024, 1024, True)]
+    assert chip_smoke.WIDE_F32_1024_CASES == [("float32", 1024, 8, 1024, 1024, True)]
     fwd, bwd = chip_smoke.fwd_cases(), chip_smoke.bwd_cases()
-    assert fwd[-2:] == chip_smoke.FWD_ONLY_CASES and len(set(fwd)) == len(fwd)
+    assert fwd[-1:] == chip_smoke.FWD_ONLY_CASES and len(set(fwd)) == len(fwd)
     assert not set(chip_smoke.FWD_ONLY_CASES) & set(bwd)
     assert [c for c in bwd if c[1] == 1024] == [("bfloat16", 1024, 4, 200, 200, True),
-                                                ("float32", 1024, 4, 200, 200, True)]
+                                                ("float32", 1024, 4, 200, 200, True),
+                                                ("float32", 1024, 8, 1024, 1024, True)]
     assert chip_smoke.bwd_kernel_names("bfloat16", 1024) == (
         "flash_dq_kernel_f32<", "flash_dkv_kernel_f32<")
     ms, by = chip_smoke._flash_bound(8, 1024, 1024, 1024, True, "bfloat16")
@@ -655,14 +677,14 @@ def test_flash_summary_gives_the_forward_its_f32_rows():
 
 
 def test_flash_summary_gives_the_forward_its_f32_1024_row():
-    """Phase 2's f32 forward-only case, [8, 1024, 1024] f32 causal, is
-    among the forward cases and gives the forward's entry
+    """Phase 2's f32 case at [8, 1024, 1024] causal is among the forward
+    cases and gives the forward's entry
     ``wide_head_f32_1024``: the 3xTF32 kernel's time beside the plain
     version and SDPA, both bounds with their shares, the times of both
     tilings (16 and 32 rows a block), and no launches (no step runs f32
     at 1024)."""
     case = ("float32", 1024, 8, 1024, 1024, True)
-    assert case in chip_smoke.FWD_ONLY_CASES and case in chip_smoke.fwd_cases()
+    assert case in chip_smoke.WIDE_F32_1024_CASES and case in chip_smoke.fwd_cases()
     assert chip_smoke.fwd_kernel_name("float32", 1024) == "flash_fwd_kernel_tf32x3<"
     rows, bwd_rows = _flash_rows()
     rows[-2]["kernel_only_ms_by_block_q"] = {16: 0.9, 32: 0.86}
@@ -768,6 +790,32 @@ def test_flash_summary_gives_the_backward_its_wide_f32_row():
     # the f32 row at the training shape stays the 3xTF32 kernels' of heads <= 128
     assert dq["f32"]["kernel"] == "flash_dq_kernel_tf32x3"
     assert dq["f32"]["shape"] == [128, 1024, 64]
+
+
+def test_flash_summary_gives_the_backward_its_wide_f32_1024_row():
+    """The backward entries carry ``wide_head_f32_1024``: the wide 3xTF32
+    kernels at [8, 1024, 1024] f32 causal (``WIDE_F32_1024_CASES``), each
+    one's time beside the whole call, the plain version and SDPA, both
+    bounds with their shares, and no launches (no step runs f32 at
+    1024)."""
+    rows, bwd_rows = _flash_rows()
+    train = {"flash_fwd": 8, "flash_dq": 8, "flash_dkv": 8}
+    _, dq, dkv = chip_smoke._flash_summary({
+        "2": rows, "2bwd": bwd_rows, "3": ({"flash_fwd": 8}, {}),
+        "4": _phase4(train, {"flash_fwd": 2, "flash_dq": 2, "flash_dkv": 2})})
+    for e, name, ms, err in ((dq, "flash_dq", 1.0, 4e-6), (dkv, "flash_dkv", 1.2, 9e-6)):
+        w = e["wide_head_f32_1024"]
+        assert w["kernel"] == f"{name}_kernel_wide_tf32x3"
+        assert w["shape"] == [8, 1024, 1024]
+        assert (w["ms"], w["backward_ms"], w["plain_ms"], w["library_ms"]) == \
+            (ms, 2.2, 9.0, 0.9)
+        assert w["max_abs_err"] == err
+        assert "launches" not in w
+    assert dq["wide_head_f32_1024"]["bound_share"] == pytest.approx(0.385 / 1.0)
+    assert dkv["wide_head_f32_1024"]["bound_tf32x3_share"] == pytest.approx(0.208 / 1.2)
+    assert dkv["wide_head_f32_1024"]["bound_ms"] == 0.513
+    # the wide f32 step's row stays the one at [32, 1024, 256]
+    assert dq["wide_head_f32"]["shape"] == [32, 1024, 256]
 
 
 def test_wide_f32_512_row_is_timed_at_the_wide_bound():
@@ -885,7 +933,7 @@ def test_parent_rows_script_needs_the_card_and_no_jax():
 
 def test_bwd_rows_script_needs_the_card_and_no_jax():
     """``scripts/flash_bwd_rows.py`` (the parent's backward at the f32
-    [16, 1024, 512] row and its errors at scale 4) likewise."""
+    rows at d 512 and 1024 and its errors at scale 4) likewise."""
     _script_needs_the_card_and_no_jax("flash_bwd_rows.py", "flash_bwd ")
 
 

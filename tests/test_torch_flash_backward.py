@@ -174,6 +174,7 @@ def test_plain_bwd_at_tf32x3_tiles_matches_pallas_on_ragged_tiles(
 @pytest.mark.parametrize("d,bq,bk", [
     (256, 64, 16), (512, 32, 8),   # flash_dq_kernel_wide_tf32x3: resident rows, key tiles
     (256, 16, 64), (512, 8, 32),   # flash_dkv_kernel_wide_tf32x3: query tiles, resident keys
+    (1024, 16, 8), (1024, 8, 16),  # the same at 1024: 16 resident rows, 8-row tiles
 ])
 def test_plain_bwd_at_wide_tf32x3_tiles_matches_pallas_on_ragged_tiles(
         rng, causal, tq, tk, d, bq, bk):
@@ -535,7 +536,7 @@ def _bwd_kernel_names(dtype, d):
     if dtype == "bfloat16":
         suffix = "" if d <= 128 else "_wide" if d <= 512 else "_f32"
     else:
-        suffix = "_tf32x3" if d <= 128 else "_wide_tf32x3" if d <= 512 else "_f32"
+        suffix = "_tf32x3" if d <= 128 else "_wide_tf32x3"
     return (f"flash_dq_kernel{suffix}<", f"flash_dkv_kernel{suffix}<")
 
 
@@ -674,11 +675,12 @@ def test_tf32x3_kernels_hold_hard_f32_inputs_on_card(cuda_device, kind, d, causa
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,d", [("float32", 1024), ("bfloat16", 1024)])
+@pytest.mark.parametrize("dtype,d", [("bfloat16", 1024)])
 def test_simt_backward_keeps_the_heads_it_had_on_card(cuda_device, dtype, d):
-    """The f32 and the bf16 heads of 1024 still run the SIMT kernels
+    """The bf16 heads of 1024 still run the SIMT kernels
     (flash_dq_kernel_f32, flash_dkv_kernel_f32), one launch each, within
-    the tolerances of the plain backward."""
+    the tolerances of the plain backward (the f32 heads of 1024 run the
+    wide 3xTF32 kernels)."""
     bh, tq, tk = 2, 72, 200
     g = torch.Generator(device=cuda_device).manual_seed(6)
     dt = getattr(torch, dtype)
@@ -700,14 +702,14 @@ def test_simt_backward_keeps_the_heads_it_had_on_card(cuda_device, dtype, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [160, 256, 320, 512])  # run at 256 and 512
+@pytest.mark.parametrize("d", [160, 256, 320, 512, 640, 1024])  # run at 256, 512, 1024
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("bh,tq,tk", [
     (2, 72, 200),      # tq < tk: an offset with a ragged diagonal
     (8, 200, 200),     # ragged last q- and k-tiles
 ])
 def test_wide_f32_backward_matches_plain_on_card(cuda_device, d, causal, bh, tq, tk):
-    """The f32 heads of 129-512 run flash_dq_kernel_wide_tf32x3 and
+    """The f32 heads of 129-1024 run flash_dq_kernel_wide_tf32x3 and
     flash_dkv_kernel_wide_tf32x3, one launch each per backward call,
     within 2e-5 of the plain f32 backward."""
     g = torch.Generator(device=cuda_device).manual_seed(3)
@@ -736,8 +738,10 @@ def test_wide_tf32x3_kernels_hold_the_reference_error_at_scale4_on_card(cuda_dev
     more), the f32 backward's error from the f64 backward, after the
     port's f32 forward, is at most twice the JAX package's own f32 error
     (REF_SCALE4_REL) for each of dq, dk and dv: the 3xTF32 kernels at 64
-    and 128, the wide ones at 256 and 512 and the SIMT ones at 1024, all
-    of whose scores are the forward's own chains."""
+    and 128, the wide ones at 256, 512 and 1024
+    (flash_dq_kernel_wide_tf32x3<1024>, flash_dkv_kernel_wide_tf32x3<1024>,
+    each score the sum of one chain over each quarter of the head), all of
+    whose scores are the forward's own chains."""
     q, k, v, do = (torch.tensor(a, device=cuda_device)
                    for a in chip_smoke.scale4_arrays(np, d))
     ref = chip_smoke.bwd_f64(torch, q, k, v, do, True)
@@ -767,9 +771,9 @@ def test_f32_1024_forward_holds_the_reference_error_at_scale4_in_both_tilings_on
         cuda_device, block_q):
     """C4 at 1024 in each tiling of the f32 forward (16 or 32 query rows a
     block; the scale-4 arrays' small grid takes 16): its o and lse within
-    twice the JAX package's own forward error, and the SIMT backward after
-    it within twice its backward error (the two take the same quarter
-    chains, so s - lse cancels)."""
+    twice the JAX package's own forward error, and the wide 3xTF32
+    backward after it within twice its backward error (the two take the
+    same quarter chains, so s - lse cancels)."""
     q, k, v, do = (torch.tensor(a, device=cuda_device)
                    for a in chip_smoke.scale4_arrays(np, 1024))
     o, lse = _flash_fwd_cuda(q, k, v, True, block_q)
