@@ -24,9 +24,8 @@ Phases (any failure ends the run with a non-zero exit and no result):
    PyTorch version on the same inputs, at the main paths' shapes, at
    larger ones and at ragged ones (t = 200, tq 72 / tk 200, one head of
    2048; the wide heads of 256, 512 and 1024, ``WIDE_HEAD_CASES``,
-   ``WIDE_512_CASES``, ``WIDE_F32_512_CASES`` and ``WIDE_F32_1024_CASES``,
-   and the bf16 forward alone at [8, 1024, 1024], ``FWD_ONLY_CASES``),
-   with stated tolerances; a
+   ``WIDE_512_CASES``, ``WIDE_F32_512_CASES``, ``WIDE_F32_1024_CASES``
+   and ``WIDE_1024_CASES``), with stated tolerances; a
    forward call must be
    one launch of the kernel its dtype and head take
    (``fwd_kernel_name``: the bf16 heads of 256, 512 and 1024 run
@@ -34,22 +33,23 @@ Phases (any failure ends the run with a non-zero exit and no result):
    ``flash_fwd_kernel_tf32x3``), a backward
    call one launch of each of
    the two its dtype and head take (``bwd_kernel_names``: the bf16
-   heads of 256 and 512 run ``flash_dq_kernel_wide`` and
-   ``flash_dkv_kernel_wide``, 1024 the SIMT kernels; the f32 heads up
+   heads of 256, 512 and 1024 run ``flash_dq_kernel_wide`` and
+   ``flash_dkv_kernel_wide``; the f32 heads up
    to 128 ``flash_dq_kernel_tf32x3`` and ``flash_dkv_kernel_tf32x3``,
    256, 512 and 1024 ``flash_dq_kernel_wide_tf32x3`` and
    ``flash_dkv_kernel_wide_tf32x3``), and the bf16
    forward at heads of 64 and 128 is also run and timed at both of its
    tilings (64 and 128 query rows per block), and the bf16 and f32
-   forward at 1024 at both of theirs (16 and 32); median times beside the
+   forward and the bf16 ``flash_dq`` at 1024 at both of theirs (16 and
+   32); median times beside the
    plain version, the one PyTorch call that computes the same
    function (a yardstick only, never used by the port) and the least
    time the card could take (the bound). ``ms`` columns are device time
    (torch.profiler: the card's work per call); ``call_ms`` columns are
    CUDA-event time per single call, which includes the host's launch
    work. The forward (``flash_fwd``) first, then the backward
-   (``flash_dq``, ``flash_dkv``) at the same shapes but the
-   forward-only ones, ragged ones included; a backward call must launch
+   (``flash_dq``, ``flash_dkv``) at the same shapes, ragged ones
+   included; a backward call must launch
    each of the two once. The f32 backward rows also print the bound of
    each kernel on the tensor cores in 3xTF32 (``dq_bound_tf32x3_ms``,
    ``dkv_bound_tf32x3_ms``: three TF32 products per f32 one at 495
@@ -267,10 +267,11 @@ WIDE_F32_512_CASES = [("float32", 512, 16, 1024, 1024, True)]
 # at the same bound by operations as the f32 rows of WIDE_HEAD and
 # WIDE_F32_512_CASES (bh x d = 8192)
 WIDE_F32_1024_CASES = [("float32", 1024, 8, 1024, 1024, True)]
-# the forward alone at d 1024 in bf16 (the bf16 backward at 1024 still
-# runs the SIMT kernels): the bf16 wide forward at the same bound by bytes
-# (bh x d = 8192)
-FWD_ONLY_CASES = [("bfloat16", 1024, 8, 1024, 1024, True)]
+# the bf16 wide kernels at d 1024 (flash_fwd_kernel_wide<1024, 32>,
+# flash_dq_kernel_wide<1024, 32>, flash_dkv_kernel_wide<1024>; each of
+# the 16-row tilings timed beside), forward and backward, at the same
+# bound by bytes as WIDE_HEAD's (bh x d = 8192)
+WIDE_1024_CASES = [("bfloat16", 1024, 8, 1024, 1024, True)]
 # one step's loss and gradients with the kernels vs with the plain
 # versions on the card: bf16 attention outputs and gradients that differ
 # by bf16 roundings pass through 8 bf16 layers
@@ -585,20 +586,13 @@ def bwd_kernel_names(dtype: str, d: int) -> tuple:
     """The profiled names (up to their template arguments) of the two
     backward kernels that a padded head of ``d`` runs in ``dtype``, as
     ``fwd_kernel_name`` has the forward's: in bf16 the mma.sync kernels
-    up to 128 and the wide ones at 256 and 512; in f32 the 3xTF32
-    kernels up to 128 and the wide 3xTF32 ones at 256, 512 and 1024
-    (heads 129-1024); the bf16 heads of 1024 still run the SIMT
-    backward."""
-    if dtype == "bfloat16" and d <= 128:
-        suffix = ""
-    elif dtype == "bfloat16" and d <= 512:
-        suffix = "_wide"
-    elif dtype == "float32" and d <= 128:
-        suffix = "_tf32x3"
-    elif dtype == "float32":
-        suffix = "_wide_tf32x3"
+    up to 128 and the wide ones at 256, 512 and 1024 (heads 129-1024); in
+    f32 the 3xTF32 kernels up to 128 and the wide 3xTF32 ones at 256, 512
+    and 1024 (heads 129-1024)."""
+    if dtype == "bfloat16":
+        suffix = "" if d <= 128 else "_wide"
     else:
-        suffix = "_f32"
+        suffix = "_tf32x3" if d <= 128 else "_wide_tf32x3"
     return (f"flash_dq_kernel{suffix}<", f"flash_dkv_kernel{suffix}<")
 
 
@@ -675,7 +669,8 @@ def bwd_cases():
                       (dtype, d, 8, 72, 200, True), (dtype, d, 1, 2048, 2048, False),
                       (dtype, d, 1, 2048, 2048, True)]
         cases += WIDE_HEAD_CASES[dtype]
-    return cases + WIDE_512_CASES + WIDE_F32_512_CASES + WIDE_F32_1024_CASES
+    return (cases + WIDE_512_CASES + WIDE_F32_512_CASES + WIDE_F32_1024_CASES
+            + WIDE_1024_CASES)
 
 
 def bwd_row(torch, F, kernels, flash, g, case, names):
@@ -703,13 +698,17 @@ def bwd_row(torch, F, kernels, flash, g, case, names):
     want = flash.flash_attention_bwd_plain(q, k, v, o, lse, do, causal,
                                            *blocks)
     errs = {}
-    for name, a, b in zip(("dq", "dk", "dv"), got, want):
-        _check(bool(torch.isfinite(a.float()).all()), f"finite {name}")
-        err = (a.float() - b.float()).abs().max().item()
-        ref = b.float().abs().max().item()
-        tol = BWD_TOL_F32 if dtype == "float32" else BWD_REL_BF16 * ref
-        _check(err <= tol, f"flash bwd {name} {tag}: err {err} > tol {tol}")
-        errs[name] = err
+
+    def check(out, what):
+        for name, a, b in zip(("dq", "dk", "dv"), out, want):
+            _check(bool(torch.isfinite(a.float()).all()), f"finite {name} {what}")
+            err = (a.float() - b.float()).abs().max().item()
+            ref = b.float().abs().max().item()
+            tol = BWD_TOL_F32 if dtype == "float32" else BWD_REL_BF16 * ref
+            _check(err <= tol, f"flash bwd {name} {what} {tag}: err {err} > tol {tol}")
+            errs[name] = max(err, errs.get(name, 0.0))
+
+    check(got, "")
     kernel = lambda: flash.flash_attention_bwd(  # noqa: E731
         q, k, v, o, lse, do, causal)
     plain = lambda: flash.flash_attention_bwd_plain(  # noqa: E731
@@ -733,6 +732,14 @@ def bwd_row(torch, F, kernels, flash, g, case, names):
            or (all(any(n in name for n in names) for name in times)
                and all(any(n in name for name in times) for n in names)),
            f"flash_bwd call {tag} ran {sorted(times)}, not {names}")
+    # flash_dq's two tilings at bf16 1024 (16 and 32 query rows a block)
+    by_block_q = {}
+    if dtype == "bfloat16" and d == 1024 and names is not None:
+        for bq in (16, 32):
+            tiled = lambda: flash._flash_bwd_cuda(  # noqa: E731
+                q, k, v, o, lse, do, causal, bq)
+            check(tiled(), f"block_q {bq}")
+            by_block_q[bq] = _device_ms(torch, tiled, 10, "flash_dq_kernel")
     dq_bound = _flash_bwd_bound(bh, tq, tk, d, causal, dtype, 6 * d, 1)
     dkv_bound = _flash_bwd_bound(bh, tq, tk, d, causal, dtype, 8 * d, 2)
     row = dict(dtype=dtype, bh=bh, tq=tq, tk=tk, d=d, causal=causal,
@@ -740,6 +747,7 @@ def bwd_row(torch, F, kernels, flash, g, case, names):
                ms=_sum_ms(times),
                dq_kernel_only_ms=_sum_ms(times, "flash_dq_kernel"),
                dkv_kernel_only_ms=_sum_ms(times, "flash_dkv_kernel"),
+               dq_kernel_only_ms_by_block_q=by_block_q,
                plain_ms=_device_ms(torch, plain, 2),
                library_ms=(_device_ms(torch, lib_fb, 10)
                            - _device_ms(torch, lib_fwd, 10)),
@@ -881,7 +889,7 @@ def fwd_cases():
                       (dtype, d, 1, 2048, 2048, True)]
         cases += WIDE_HEAD_CASES[dtype]
     return (cases + WIDE_512_CASES + WIDE_F32_512_CASES + WIDE_F32_1024_CASES
-            + FWD_ONLY_CASES)
+            + WIDE_1024_CASES)
 
 
 def fwd_row(torch, F, flash, g, case, kernel):
@@ -2536,7 +2544,7 @@ def _flash_summary(done):
                 "shape": [r["bh"], r["tq"], r["d"]]}
 
     _, d512, bh512, t512, _, _ = WIDE_512_CASES[0]
-    _, d1024, bh1024, t1024, _, _ = FWD_ONLY_CASES[0]
+    _, d1024, bh1024, t1024, _, _ = WIDE_1024_CASES[0]
     f32_1024 = WIDE_F32_1024_CASES[0]
     f32_bwd = next(r for r in bwd_rows if r["dtype"] == "float32"
                    and r["d"] == d_head and r["tq"] == TRAIN["max_len"]
@@ -2596,7 +2604,7 @@ def _flash_summary(done):
 
     fwd_wide, bwd_wide = (wide_row(rs, *WIDE_HEAD) for rs in (rows, bwd_rows))
     fwd_512, bwd_512 = (wide_row(rs, d512, bh512, t512) for rs in (rows, bwd_rows))
-    fwd_1024 = wide_row(rows, d1024, bh1024, t1024)
+    fwd_1024, bwd_1024 = (wide_row(rs, d1024, bh1024, t1024) for rs in (rows, bwd_rows))
     fwd_f32_1024 = f32_fwd_row(*f32_1024[1:4])
     wide_train = done["4"][1]["wide_head"]
     return [{
@@ -2659,6 +2667,12 @@ def _flash_summary(done):
         "wide_head_512": wide(bwd_512, f"{name}_kernel_wide", f"{key}_",
                               max(bwd_512[f"err_{g}"] for g in grads))
         | {"backward_ms": bwd_512["ms"]},
+        # [8, 1024, 1024] causal, the wide kernels at 1024 (no step runs
+        # them; flash_dq also at each of its tilings)
+        "wide_head_1024": wide(bwd_1024, f"{name}_kernel_wide", f"{key}_",
+                               max(bwd_1024[f"err_{g}"] for g in grads))
+        | {"backward_ms": bwd_1024["ms"]}
+        | ({"ms_by_block_q": bwd_1024["dq_kernel_only_ms_by_block_q"]} if key == "dq" else {}),
         "wide_train_launches": wide_train["launches"].get(name, 0),
         "f32": f32(name, key, grads),
         # the wide f32 step's shape, [32, 1024, 256] causal: the wide 3xTF32

@@ -71,32 +71,50 @@
 // registers, and one block runs per SM.
 //
 // The wide bf16 kernels (flash_dq_kernel_wide, flash_dkv_kernel_wide) run
-// the bf16 heads of 256 and 512 (129-256 and 257-512 are zero-padded to
-// them) on the same tensor-core tools, with the structure of the wide
-// forward (flash_fwd.cu). The kernels above cannot: a warp there holds a
-// 16 x d f32 accumulator (d / 2 registers; flash_dkv two of them) and its
-// qs and dO rows as A fragments (d / 4 each), past 255 registers at 256.
-// What bounds them at [32, 1024, 256] bf16 causal: 0.0301 ms of bytes
-// for flash_dq (0.0261 of operations) and 0.0348 ms of operations for
-// flash_dkv. So:
+// the bf16 heads of 256, 512 and 1024 (129-256, 257-512 and 513-1024 are
+// zero-padded to them) on the same tensor-core tools, with the structure
+// of the wide forward (flash_fwd.cu). The kernels above cannot: a warp
+// there holds a 16 x d f32 accumulator (d / 2 registers; flash_dkv two of
+// them) and its qs and dO rows as A fragments (d / 4 each), past 255
+// registers at 256. What bounds them at [32, 1024, 256] bf16 causal, and
+// at [16, 1024, 512] and [8, 1024, 1024] (the same bh x d): 0.0301 ms of
+// bytes for flash_dq (0.0261 of operations) and 0.0348 ms of operations
+// for flash_dkv. So:
 // - a warp owns at most 256 of the head's columns of dq (128 f32
 //   registers) or 128 of dk and of dv (64 + 64); its operand rows stay
 //   in shared memory and are read by ldmatrix at every step, as the
-//   wide forward reads Q;
-// - flash_dq_kernel_wide: 8 warps a block. At d = 256 one warp owns 16
-//   query rows and all 256 columns: 128 rows a block, so K and V come
-//   from L2 once per 128 rows (q and dO 132 KB, two cp.async stages of
-//   32-key K/V tiles 66 KB, one block an SM); a warp's step is the whole
-//   tile, so it reads its qs and dO fragments once per 32 keys (on the
-//   H100 at [32, 1024, 256] causal 1.16x faster than 16-key steps; 243
-//   registers). At d = 512 two warps share 16 rows, each with 256
-//   columns of dq, and contract S = qs K^T and dP = dO V^T over their
-//   own half of d; the pair sums its 16 x 16 partials of both through
-//   shared memory under its named barrier (a + b == b + a: both hold
-//   the same p and ds). q and dO of 64 rows take 130 KB, so K/V tiles
-//   are 16 keys (two stages, 65 KB): one exchange a tile, whose buffer's
-//   reuse the block barrier orders. Each warp of a pair sums delta over
-//   the whole row alike; the first writes it;
+//   wide forward reads Q; every warp contracts its share of S and dP
+//   over 256 columns (at 1024 one quarter of the head);
+// - flash_dq_kernel_wide<D, BQ>: 8 warps a block. At d = 256 one warp
+//   owns 16 query rows and all 256 columns: 128 rows a block, so K and V
+//   come from L2 once per 128 rows (q and dO 132 KB, two cp.async stages
+//   of 32-key K/V tiles 66 KB, one block an SM); a warp's step is the
+//   whole tile, so it reads its qs and dO fragments once per 32 keys (on
+//   the H100 at [32, 1024, 256] causal 1.16x faster than 16-key steps;
+//   243 registers). At d = 512 two warps share 16 rows (64 a block), each
+//   with 256 columns of dq, and contract S = qs K^T and dP = dO V^T over
+//   their own half of d; the pair sums its 16 x 16 partials of both
+//   through shared memory under its named barrier. q and dO of 64 rows
+//   take 130 KB, so K/V tiles are 16 keys (two stages, 65 KB): one
+//   exchange a tile, whose buffer's reuse the block barrier orders. Each
+//   warp of a pair sums delta over the whole row alike; the first writes
+//   it. At d = 1024 the streamed K and V take the time (at [8, 1024,
+//   1024] a 16-row block reads 66 KB of them per 16 keys, about 1.1 GB a
+//   call from L2), so 32 rows a block where that grid fills every SM: four
+//   warps share 16 rows as at 512, each owning 256 columns, their four
+//   partials summed in column order, and the K/V tiles are 8 keys (two
+//   stages of 16 would not fit beside 32 resident rows), so that dq +=
+//   ds K runs on m16n8k8; elsewhere (short sequences, few heads) 16 rows:
+//   all eight warps share them, four taking the quarters of S and four
+//   those of dP, one mma chain each, every warp owning 128 columns of dq,
+//   with 16-key tiles (in trials on the H100 each tiling beat the f32
+//   kernels' ring of 256-column chunks, at 16 rows and at 32, where it
+//   is kept). Either way every warp of a row group sums the
+//   quarters of S in column order, ((S0 + S1) + S2) + S3, each one mma
+//   chain from 0 over its 16 depth steps: the bits of
+//   flash_fwd_kernel_wide<1024, 16 or 32>'s S, so that s - lse cancels
+//   the forward's rounding of s, as in the reference. At 1024 the warps
+//   split delta's columns and sum their partials in warp order;
 // - flash_dkv_kernel_wide: 8 warps a block. A key group of 16 keys has
 //   WPK = d / 128 warps, each owning 128 columns of dk and dv: two at
 //   d = 256 (64 keys a block; query tiles of 32, a warp's step, in
@@ -108,7 +126,12 @@
 //   its named barrier, and every warp sums the WPK partials in the
 //   order of their columns, so all hold the same p^T and ds^T; each then
 //   adds p^T dO and ds^T qs into its own columns, B from ldmatrix.trans
-//   of the query stage;
+//   of the query stage. At 1024 the block is one key group of 16 keys
+//   and eight warps (dk and dv of 32 keys would take 256 accumulator
+//   registers a lane), query tiles of 16 in two stages (198 KB with K and
+//   V), and the contraction is split as flash_dq's at 16 rows: four warps
+//   chain the quarters of S^T, four those of dP^T, and every warp sums
+//   each in column order, the forward's bits again;
 // - the numbers are those of the kernels above (q pre-scaled as it
 //   lands, p from exp2 of the rescaled score, ds and p rounded to bf16
 //   before their products, dq scaled once at the end), each block owns
@@ -153,7 +176,7 @@
 //   added to its f32 accumulator with a rounded add: the tensor cores'
 //   accumulation is not rounded to nearest, and a chain over the whole
 //   sequence carries that error;
-// - p = expf(s - lse), as the SIMT kernels and the plain version;
+// - p = expf(s - lse), as the plain version;
 //   registers 147-254, 0 spills (chip_smoke.py phase 1).
 //
 // The f32 kernels of heads 256, 512 and 1024 (flash_dq_kernel_wide_tf32x3,
@@ -221,21 +244,6 @@
 //   the first writes it; the causal tiles with the most work go first;
 //   masks are evaluated only on tiles that cross the diagonal, tq or
 //   tk; 0 spills (chip_smoke.py phase 1).
-//
-// The SIMT kernels (flash_dq_kernel_f32, flash_dkv_kernel_f32) are on no
-// main path and were not redesigned: the first version's CUDA-core FMAs
-// through shared memory in f32 (full f32 precision, no TF32), taking the
-// unscaled q and multiplying it by the scale as they load it (one
-// rounding, the torch product), and, in flash_dq, computing and writing
-// delta as the bf16 kernel does. They run the bf16 heads of 1024
-// (513-1024 are zero-padded to it), with 8 x 8 tiles in flash_dq and 8
-// keys and 4-query steps in flash_dkv (simt_tile, flash_common.cuh; ~161
-// KB of shared memory). Their scores take the f32 forward's order
-// (mm_abt over score_chain_cols: one chain over each quarter of the
-// head, the sums added in column order). Their global loads and stores
-// are templated on the element type: bf16 is widened on load, and p and
-// ds are rounded to bf16 before their products, as the reference rounds
-// them. Correct, slow first kernels for those heads: nothing was tuned.
 //
 // Exposed as plain C functions so that no PyTorch header is compiled.
 
@@ -625,46 +633,68 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
 
 // ----------------------------------------------- the wide bf16 kernels
 
-// Heads of 256 and 512: flash_dq_kernel_wide. A block of BQ query rows in
-// row groups of 16, WPR warps to a row group, each owning DW = 256 of the
-// head's columns (its share of the contraction of S and dP, and its
-// columns of dq); K and V tiles of BKW keys through a cp.async ring, one
-// step of each warp a tile.
-template <int D>
+// Heads of 256, 512 and 1024: flash_dq_kernel_wide<D, BQ>. A block of BQ
+// query rows in row groups of 16, WPR warps to a row group, each owning
+// DW of the head's columns of dq; K and V tiles of BKW keys through a
+// cp.async ring, one step of each warp a tile. Every warp contracts its
+// share of S = qs K^T and dP = dO V^T over CW = 256 columns:
+// - 256 (BQ 128): one warp a row group, the whole head, 32-key tiles;
+// - 512 (BQ 64) and 1024 at BQ = 32: WPR = D / 256 warps share a row
+//   group, each owning 256 columns, over which it contracts both S and
+//   dP; every warp of the group sums their partials in column order, as
+//   flash_fwd_kernel_wide sums its S. Tiles of 16 keys at 512; at 1024, 8
+//   keys (two stages of 16 would not fit beside 32 resident rows), dq
+//   += ds K then on m16n8k8;
+// - 1024 at BQ = 16 (SPLIT): all eight warps share one row group, each
+//   owning DW = 128 columns of dq: warps 0-3 take the four 256-column
+//   quarters of S, one mma chain each, warps 4-7 those of dP, and every
+//   warp sums the four partials of each in column order. 16-key tiles.
+// At 1024 each quarter of S is one mma chain from 0 over its 16 depth
+// steps, and the four are added ((S0 + S1) + S2) + S3: the order of
+// flash_fwd_kernel_wide<1024, 16 or 32>, whose lse the backward takes, so
+// that s - lse cancels the forward's rounding of s (a score's chain does
+// not depend on which other scores share its mma.sync). The launcher
+// takes 32 rows where that grid fills every SM, as the forward does.
+template <int D, int BQ>
 struct WideDqTiles {
-  static constexpr int WPR = D / 256;             // warps per row group
-  static constexpr int DW = D / WPR;              // head columns per warp
-  static constexpr int BQ = WPR == 1 ? 128 : 64;  // query rows per block
-  static constexpr int NT = BQ / 16 * WPR * 32;   // 8 warps at both widths
-  static constexpr int BKW = WPR == 1 ? 32 : 16;  // keys per K/V tile
-  static constexpr int NJ = BKW / 16;             // 16-key blocks per tile
+  static constexpr bool SPLIT = D == 1024 && BQ == 16;
+  static constexpr int WPR = SPLIT ? 8 : D / 256;  // warps per row group
+  static constexpr int DW = D / WPR;               // columns of dq per warp
+  static constexpr int CW = 256;                   // contracted per warp
+  static constexpr int NT = BQ / 16 * WPR * 32;    // 8 warps at every width
+  static constexpr int BKW = WPR == 1 ? 32 : WPR == 4 ? 8 : 16;  // keys per K/V tile
+  static constexpr int NS = BKW / 8;               // 8-key accumulator tiles a tile
   static constexpr int STAGES = 2;
   static constexpr int LD = D + 8;  // row stride in elements: 16 bytes of padding
   // q and dO rows of the block, then STAGES tiles of K and of V
   static constexpr size_t tile_bytes =
       sizeof(bf16) * (size_t)(2 * BQ + 2 * STAGES * BKW) * LD;
-  // WPR = 2: each warp's partial S and dP (2 NJ accumulator tiles each)
-  static constexpr size_t bytes = tile_bytes + (WPR > 1 ? sizeof(float4) * NT * 4 * NJ : 0);
-  static_assert(DW == 256 && (WPR == 1 || WPR == 2), "wide heads are 256 or 512");
+  // the exchanged partials: WPR = 2 or 4 each warp's S and dP, SPLIT its
+  // S or dP; WPR >= 4 also each warp's partial delta of its 16 rows
+  static constexpr size_t x_bytes = sizeof(float4) * NT * (WPR == 1 ? 0 : SPLIT ? NS : 2 * NS);
+  static constexpr size_t bytes = tile_bytes + x_bytes + (WPR >= 4 ? sizeof(float) * NT / 2 : 0);
+  static_assert(NT == 256 && (SPLIT ? DW == 128 && CW * 4 == D : DW == CW),
+                "wide dq: 256 (128 rows a block), 512 (64), 1024 (16 or 32)");
   static_assert(bytes <= SMEM_LIMIT, "flash_dq wide layout exceeds shared memory");
 };
 
-template <int D>
-__global__ void __launch_bounds__(WideDqTiles<D>::NT, 1)
+template <int D, int BQ>
+__global__ void __launch_bounds__(WideDqTiles<D, BQ>::NT, 1)
 flash_dq_kernel_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ o,
                      const bf16* __restrict__ dout, const float* __restrict__ lse,
                      float* __restrict__ delta, bf16* __restrict__ dq, int bh, int tq,
                      int tk, int n_qtiles, int causal, float q_scale, float scale) {
-  using Tl = WideDqTiles<D>;
-  constexpr int BQ = Tl::BQ, BKW = Tl::BKW, NJ = Tl::NJ;
+  using Tl = WideDqTiles<D, BQ>;
+  constexpr int BKW = Tl::BKW, NS = Tl::NS, CW = Tl::CW;
   constexpr int WPR = Tl::WPR, DW = Tl::DW, NT = Tl::NT, LD = Tl::LD, STAGES = Tl::STAGES;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* dOs = Qs + BQ * LD;
   bf16* Ks = dOs + BQ * LD;            // STAGES tiles of BKW rows
   bf16* Vs = Ks + STAGES * BKW * LD;   // STAGES tiles of BKW rows
-  float4* X = reinterpret_cast<float4*>(smem + Tl::tile_bytes);  // partials (WPR = 2)
+  float4* X = reinterpret_cast<float4*>(smem + Tl::tile_bytes);  // partials (WPR > 1)
+  float* Dp = reinterpret_cast<float*>(smem + Tl::tile_bytes + Tl::x_bytes);  // delta's
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, c = lane % 4;
@@ -717,17 +747,20 @@ flash_dq_kernel_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
   scale_rows<D, LD, BQ, NT>(Qs, q_scale);
   __syncthreads();
 
-  // delta = rowsum(dO O) in f32 over the whole head (both warps of a pair
-  // sum it alike): lanes l and l + 16 sum the two halves of row
-  // r0 + l % 16 (O read once a warp, straight from device memory; zero
-  // past tq), written once per row for flash_dkv; then rows g and g + 8
+  // delta = rowsum(dO O) in f32: lanes l and l + 16 sum the two halves
+  // of row r0 + l % 16 (O read straight from device memory; zero past
+  // tq) over DC columns: the whole head at 256 and 512 (both warps of a
+  // pair alike); at 1024 each warp its own DW, the group's partials then
+  // summed in warp order by every warp of it; written once per row for
+  // flash_dkv; then rows g and g + 8
+  constexpr int DC = WPR >= 4 ? DW : D;
   float dsum = 0.f;
   if (r0 + lane % 16 < tq) {
-    const int r = lane % 16, c0 = (lane / 16) * (D / 2);
+    const int r = lane % 16, c0 = (WPR >= 4 ? part * DW : 0) + (lane / 16) * (DC / 2);
     const bf16* orow = o + ((size_t)b * tq + r0 + r) * D + c0;
     const bf16* drow = dOs + (16 * rg + r) * LD + c0;
 #pragma unroll 4
-    for (int i = 0; i < D / 2; i += 8) {
+    for (int i = 0; i < DC / 2; i += 8) {
       const uint4 ov = *reinterpret_cast<const uint4*>(orow + i);
       const uint4 dv = *reinterpret_cast<const uint4*>(drow + i);
       const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
@@ -741,6 +774,13 @@ flash_dq_kernel_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   }
   dsum += __shfl_xor_sync(0xffffffffu, dsum, 16);
+  if constexpr (WPR >= 4) {
+    if (lane < 16) Dp[warp * 16 + lane] = dsum;
+    __syncthreads();
+    dsum = Dp[rg * WPR * 16 + lane % 16];
+#pragma unroll
+    for (int w = 1; w < WPR; ++w) dsum += Dp[(rg * WPR + w) * 16 + lane % 16];
+  }
   if (part == 0 && lane < 16 && r0 + lane < tq) delta[(size_t)b * tq + r0 + lane] = dsum;
   const float dlt[2] = {__shfl_sync(0xffffffffu, dsum, g), __shfl_sync(0xffffffffu, dsum, g + 8)};
 
@@ -750,7 +790,7 @@ flash_dq_kernel_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   for (int kt = 0; kt < n_kt; ++kt) {
     // tile kt has landed for every thread, every warp is done with tile
-    // kt - 1 (whose stage the next copy refills) and with its partner's
+    // kt - 1 (whose stage the next copy refills) and with its group's
     // partials of tile kt - 1
     cp_async_wait<STAGES - 2>();
     __syncthreads();
@@ -764,52 +804,125 @@ flash_dq_kernel_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (causal && kc0 > r0 + 15 + offset) continue;
     const bf16* Kt = Ks + (kt % STAGES) * BKW * LD + part * DW;
     const bf16* Vt = Vs + (kt % STAGES) * BKW * LD + part * DW;
-    // S = qs K^T and dP = dO V^T over this warp's columns: A fragments of
-    // qs and dO by ldmatrix (they stay in shared memory), B of K and V two
-    // 8-key tiles per ldmatrix
-    float s[2 * NJ][4] = {}, dp[2 * NJ][4] = {};
+    float s[NS][4] = {}, dp[NS][4] = {};
+    if constexpr (Tl::SPLIT) {
+      // warp `part` < 4: quarter `part` of S, warp 4 + i: quarter i of dP,
+      // A by ldmatrix of the resident rows, B of the tile's
+      const bool is_s = part < 4;
+      const int qc = (part % 4) * CW;
+      const bf16* A = (is_s ? Qs : dOs) + 16 * rg * LD + qc;
+      const bf16* B = (is_s ? Ks : Vs) + (kt % STAGES) * BKW * LD + qc;
 #pragma unroll
-    for (int kk = 0; kk < DW / 16; ++kk) {
-      uint32_t qa[4], da[4];
-      load_a<LD>(qa, Qw, kk, lane);
-      load_a<LD>(da, dOw, kk, lane);
+      for (int kk = 0; kk < CW / 16; ++kk) {
+        uint32_t xa[4];
+        load_a<LD>(xa, A, kk, lane);
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        uint32_t bk[4], bv[4];
-        load_bt<LD>(bk, Kt, j, kk, lane);
-        load_bt<LD>(bv, Vt, j, kk, lane);
-        mma_bf16(s[2 * j], qa, bk[0], bk[1]);
-        mma_bf16(s[2 * j + 1], qa, bk[2], bk[3]);
-        mma_bf16(dp[2 * j], da, bv[0], bv[1]);
-        mma_bf16(dp[2 * j + 1], da, bv[2], bv[3]);
+        for (int j = 0; j < NS / 2; ++j) {
+          uint32_t bx[4];
+          load_bt<LD>(bx, B, j, kk, lane);
+          mma_bf16(s[2 * j], xa, bx[0], bx[1]);
+          mma_bf16(s[2 * j + 1], xa, bx[2], bx[3]);
+        }
       }
-    }
-    if constexpr (WPR > 1) {
-      // S and dP over the whole head: this warp's partials plus its
-      // partner's (the other half of d), through shared memory under the
-      // pair's own barrier (the block's barrier of the next tile orders
-      // the buffer's reuse); a + b == b + a, so both warps hold the same
-      // p and ds
+      // the whole head, through shared memory under the group's barrier
+      // (the block's barrier of the next tile orders the buffer's reuse):
+      // S from warps 0-3, dP from 4-7, each in column order
 #pragma unroll
-      for (int n = 0; n < 2 * NJ; ++n) {
-        X[(warp * 4 * NJ + n) * 32 + lane] = make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
-        X[(warp * 4 * NJ + 2 * NJ + n) * 32 + lane] =
-            make_float4(dp[n][0], dp[n][1], dp[n][2], dp[n][3]);
-      }
+      for (int n = 0; n < NS; ++n)
+        X[(warp * NS + n) * 32 + lane] = make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
       bar_sync(1 + rg, 32 * WPR);
 #pragma unroll
-      for (int n = 0; n < 2 * NJ; ++n) {
-        const float4 y = X[((warp ^ 1) * 4 * NJ + n) * 32 + lane];
-        const float4 z = X[((warp ^ 1) * 4 * NJ + 2 * NJ + n) * 32 + lane];
-        s[n][0] += y.x, s[n][1] += y.y, s[n][2] += y.z, s[n][3] += y.w;
-        dp[n][0] += z.x, dp[n][1] += z.y, dp[n][2] += z.z, dp[n][3] += z.w;
+      for (int n = 0; n < NS; ++n) {
+        float4 y = X[(WPR * rg * NS + n) * 32 + lane];
+        float4 z = X[((WPR * rg + 4) * NS + n) * 32 + lane];
+#pragma unroll
+        for (int i = 1; i < 4; ++i) {
+          const float4 ys = X[((WPR * rg + i) * NS + n) * 32 + lane];
+          const float4 zs = X[((WPR * rg + 4 + i) * NS + n) * 32 + lane];
+          y.x += ys.x, y.y += ys.y, y.z += ys.z, y.w += ys.w;
+          z.x += zs.x, z.y += zs.y, z.z += zs.z, z.w += zs.w;
+        }
+        s[n][0] = y.x, s[n][1] = y.y, s[n][2] = y.z, s[n][3] = y.w;
+        dp[n][0] = z.x, dp[n][1] = z.y, dp[n][2] = z.z, dp[n][3] = z.w;
+      }
+    } else {
+      // S and dP over this warp's columns: A fragments of qs and dO by
+      // ldmatrix (they stay in shared memory), B of K and V two 8-key
+      // tiles per ldmatrix (NS = 1: one tile at two depth steps)
+      if constexpr (NS == 1) {
+#pragma unroll
+        for (int kk2 = 0; kk2 < CW / 32; ++kk2) {
+          uint32_t qa0[4], qa1[4], da0[4], da1[4], bk[4], bv[4];
+          load_a<LD>(qa0, Qw, 2 * kk2, lane);
+          load_a<LD>(qa1, Qw, 2 * kk2 + 1, lane);
+          load_a<LD>(da0, dOw, 2 * kk2, lane);
+          load_a<LD>(da1, dOw, 2 * kk2 + 1, lane);
+          load_bt8<LD>(bk, Kt, kk2, lane);
+          load_bt8<LD>(bv, Vt, kk2, lane);
+          mma_bf16(s[0], qa0, bk[0], bk[1]);
+          mma_bf16(dp[0], da0, bv[0], bv[1]);
+          mma_bf16(s[0], qa1, bk[2], bk[3]);
+          mma_bf16(dp[0], da1, bv[2], bv[3]);
+        }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < CW / 16; ++kk) {
+          uint32_t qa[4], da[4];
+          load_a<LD>(qa, Qw, kk, lane);
+          load_a<LD>(da, dOw, kk, lane);
+#pragma unroll
+          for (int j = 0; j < NS / 2; ++j) {
+            uint32_t bk[4], bv[4];
+            load_bt<LD>(bk, Kt, j, kk, lane);
+            load_bt<LD>(bv, Vt, j, kk, lane);
+            mma_bf16(s[2 * j], qa, bk[0], bk[1]);
+            mma_bf16(s[2 * j + 1], qa, bk[2], bk[3]);
+            mma_bf16(dp[2 * j], da, bv[0], bv[1]);
+            mma_bf16(dp[2 * j + 1], da, bv[2], bv[3]);
+          }
+        }
+      }
+      if constexpr (WPR > 1) {
+        // S and dP over the whole head: the group's WPR partials through
+        // shared memory under its barrier (the block's barrier of the
+        // next tile orders the buffer's reuse), summed by every warp in
+        // column order, so that all hold the same p and ds (at WPR = 2
+        // each warp adds its partner's to its own: a + b == b + a)
+#pragma unroll
+        for (int n = 0; n < NS; ++n) {
+          X[(warp * 2 * NS + n) * 32 + lane] = make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
+          X[(warp * 2 * NS + NS + n) * 32 + lane] =
+              make_float4(dp[n][0], dp[n][1], dp[n][2], dp[n][3]);
+        }
+        bar_sync(1 + rg, 32 * WPR);
+#pragma unroll
+        for (int n = 0; n < NS; ++n) {
+          if constexpr (WPR == 2) {
+            const float4 y = X[((warp ^ 1) * 2 * NS + n) * 32 + lane];
+            const float4 z = X[((warp ^ 1) * 2 * NS + NS + n) * 32 + lane];
+            s[n][0] += y.x, s[n][1] += y.y, s[n][2] += y.z, s[n][3] += y.w;
+            dp[n][0] += z.x, dp[n][1] += z.y, dp[n][2] += z.z, dp[n][3] += z.w;
+          } else {
+            float4 y = X[(rg * WPR * 2 * NS + n) * 32 + lane];
+            float4 z = X[(rg * WPR * 2 * NS + NS + n) * 32 + lane];
+#pragma unroll
+            for (int i = 1; i < WPR; ++i) {
+              const float4 ys = X[((rg * WPR + i) * 2 * NS + n) * 32 + lane];
+              const float4 zs = X[((rg * WPR + i) * 2 * NS + NS + n) * 32 + lane];
+              y.x += ys.x, y.y += ys.y, y.z += ys.z, y.w += ys.w;
+              z.x += zs.x, z.y += zs.y, z.z += zs.z, z.w += zs.w;
+            }
+            s[n][0] = y.x, s[n][1] = y.y, s[n][2] = y.z, s[n][3] = y.w;
+            dp[n][0] = z.x, dp[n][1] = z.y, dp[n][2] = z.z, dp[n][3] = z.w;
+          }
+        }
       }
     }
     // ds = p (dP - delta) in the S accumulators; masks only where the tile
     // crosses tk or this row group's diagonal
     const bool edge = kc0 + BKW > tk || (causal && kc0 + BKW - 1 > r0 + offset);
 #pragma unroll
-    for (int n = 0; n < 2 * NJ; ++n) {
+    for (int n = 0; n < NS; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float p = exp2f(fmaf(s[n][e], LOG2E, -lse2[e / 2]));
@@ -822,68 +935,88 @@ flash_dq_kernel_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
     // dq += ds K over this warp's columns: B by ldmatrix.trans of the same
-    // K rows
+    // K rows (NS = 1: m16n8k8 over the tile's 8 keys, four 8-column tiles
+    // a load)
+    if constexpr (NS == 1) {
+      const uint32_t a0 = pack_bf16(s[0][0], s[0][1]), a1 = pack_bf16(s[0][2], s[0][3]);
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      uint32_t dsa[4];
-      pack_a(dsa, s[2 * j], s[2 * j + 1]);
-#pragma unroll
-      for (int np = 0; np < DW / 16; ++np) {
+      for (int n4 = 0; n4 < DW / 32; ++n4) {
         uint32_t bfr[4];
-        load_b<LD>(bfr, Kt + 16 * j * LD, np, lane);
-        mma_bf16(acc[2 * np], dsa, bfr[0], bfr[1]);
-        mma_bf16(acc[2 * np + 1], dsa, bfr[2], bfr[3]);
+        load_b8<LD>(bfr, Kt, n4, lane);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) mma_bf16_k8(acc[4 * n4 + i], a0, a1, bfr[i]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < NS / 2; ++j) {
+        uint32_t dsa[4];
+        pack_a(dsa, s[2 * j], s[2 * j + 1]);
+#pragma unroll
+        for (int np = 0; np < DW / 16; ++np) {
+          uint32_t bfr[4];
+          load_b<LD>(bfr, Kt + 16 * j * LD, np, lane);
+          mma_bf16(acc[2 * np], dsa, bfr[0], bfr[1]);
+          mma_bf16(acc[2 * np + 1], dsa, bfr[2], bfr[3]);
+        }
       }
     }
   }
   cp_async_wait<0>();  // the trailing (empty) groups
 
   // dq times its scale, staged through this warp's rows and columns of q
+  // (after the group's last barrier no warp reads them)
   store_warp_rows<DW, LD, D>(dq + (size_t)b * tq * D + part * DW, Qw, acc,
                              [=](float x, int) { return x * scale; }, r0, tq, lane);
 }
 
-template <int D>
+template <int D, int BQ>
 int launch_dq_wide(const void* q, const void* k, const void* v, const void* o,
                    const void* dout, const float* lse, float* delta, void* dq, int bh, int tq,
                    int tk, int causal, float q_scale, float scale, cudaStream_t stream) {
-  using Tl = WideDqTiles<D>;
-  cudaError_t err = cudaFuncSetAttribute(flash_dq_kernel_wide<D>,
+  using Tl = WideDqTiles<D, BQ>;
+  cudaError_t err = cudaFuncSetAttribute(flash_dq_kernel_wide<D, BQ>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)Tl::bytes);
   if (err != cudaSuccess) return (int)err;
-  const int n_qtiles = (tq + Tl::BQ - 1) / Tl::BQ;
-  flash_dq_kernel_wide<D><<<bh * n_qtiles, Tl::NT, Tl::bytes, stream>>>(
+  const int n_qtiles = (tq + BQ - 1) / BQ;
+  flash_dq_kernel_wide<D, BQ><<<bh * n_qtiles, Tl::NT, Tl::bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, delta,
       static_cast<bf16*>(dq), bh, tq, tk, n_qtiles, causal, q_scale, scale);
   return (int)cudaGetLastError();
 }
 
-// Heads of 256 and 512: flash_dkv_kernel_wide. A block of BKB keys in key
-// groups of 16, WPK warps to a key group, each owning DW = 128 of the
-// head's columns (its share of the contraction of S^T and dP^T, and its
-// columns of dk and dv); query tiles of QT rows through a cp.async ring,
-// one step of each warp a tile.
+// Heads of 256, 512 and 1024: flash_dkv_kernel_wide. A block of BKB keys
+// in key groups of 16, WPK warps to a key group, each owning DW = 128 of
+// the head's columns of dk and dv; query tiles of QT rows through a
+// cp.async ring, one step of each warp a tile. At 256 and 512 a warp
+// contracts S^T and dP^T over its own columns. At 1024 (SPLIT) one key
+// group of 16 keys has all eight warps: warps 0-3 take the four
+// 256-column quarters (CW) of S^T, one mma chain each, and warps 4-7
+// those of dP^T, and every warp sums the four partials of each in column
+// order, as flash_fwd_kernel_wide<1024> sums its S.
 template <int D>
 struct WideDkvTiles {
-  static constexpr int WPK = D / 128;              // warps per key group
-  static constexpr int DW = D / WPK;               // head columns per warp
-  static constexpr int BKB = WPK == 2 ? 64 : 32;   // keys per block
-  static constexpr int NT = BKB / 16 * WPK * 32;   // 8 warps at both widths
+  static constexpr bool SPLIT = D == 1024;
+  static constexpr int WPK = SPLIT ? 8 : D / 128;  // warps per key group
+  static constexpr int DW = D / WPK;               // columns of dk and dv per warp
+  static constexpr int CW = SPLIT ? score_chain_cols(D) : DW;  // contracted per warp
+  static constexpr int BKB = WPK == 2 ? 64 : WPK == 4 ? 32 : 16;  // keys per block
+  static constexpr int NT = BKB / 16 * WPK * 32;   // 8 warps at every width
   static constexpr int QT = WPK == 2 ? 32 : 16;    // queries per ring tile
   static constexpr int NQ = QT / 16;               // 16-query blocks per tile
-  static constexpr int STAGES = 3;
+  static constexpr int STAGES = SPLIT ? 2 : 3;     // at 1024 two fit beside K and V
   static constexpr int LD = D + 8;
   // K and V rows of the block, then STAGES tiles of qs and of dO, then
-  // the partials (4 NQ accumulator tiles a thread), then
+  // the partials (4 NQ accumulator tiles a thread; SPLIT 2 NQ), then
   // STAGES tiles of lse and of delta (f32)
   static constexpr size_t stage_elems = (size_t)2 * QT * LD;
   static constexpr size_t rows_bytes =
       sizeof(bf16) * (2 * (size_t)BKB * LD + STAGES * stage_elems);
-  static constexpr size_t x_bytes = sizeof(float4) * NT * 4 * NQ;
+  static constexpr size_t x_bytes = sizeof(float4) * NT * (SPLIT ? 2 : 4) * NQ;
   static constexpr size_t bytes = rows_bytes + x_bytes + sizeof(float) * 2 * STAGES * QT;
-  static_assert(DW == 128 && (WPK == 2 || WPK == 4), "wide heads are 256 or 512");
+  static_assert(DW == 128 && (WPK == 2 || WPK == 4 || (SPLIT && CW * 4 == D)),
+                "wide heads are 256, 512 or 1024");
   static_assert(bytes <= SMEM_LIMIT, "flash_dkv wide layout exceeds shared memory");
 };
 
@@ -975,49 +1108,95 @@ flash_dkv_kernel_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (kw0 >= tk || (causal && q0 + QT - 1 + offset < kw0)) continue;
     const bf16* Qp = Qt + part * DW;  // this warp's columns of qs and dO
     const bf16* dOp = Qp + QT * LD;
-    // S^T = K qs^T and dP^T = V dO^T over this warp's columns: A of K and
-    // V by ldmatrix from the resident rows, B of qs and dO
     float s[2 * NQ][4] = {}, dp[2 * NQ][4] = {};
+    if constexpr (Tl::SPLIT) {
+      // warp `part` < 4: quarter `part` of S^T = K qs^T, warp 4 + i:
+      // quarter i of dP^T = V dO^T, each one mma chain from 0 over its 16
+      // depth steps (A by ldmatrix of the resident rows, B of the stage's
+      // rows); then over the whole head, through shared memory under the
+      // group's barrier: ((S0 + S1) + S2) + S3, the partials of
+      // flash_fwd_kernel_wide<1024> added in its order (a score's chain
+      // does not depend on which operand is the row), so that s is the
+      // forward's bits; dP^T alike (the block's barrier of the next tile
+      // orders the buffer's reuse)
+      const bool is_s = part < 4;
+      const int qc = (part % 4) * Tl::CW;
+      const bf16* A = (is_s ? Ks : Vs) + 16 * kg * LD + qc;
+      const bf16* B = (is_s ? Qt : Qt + QT * LD) + qc;
 #pragma unroll
-    for (int kk = 0; kk < DW / 16; ++kk) {
-      uint32_t ka[4], va[4];
-      load_a<LD>(ka, Kw, kk, lane);
-      load_a<LD>(va, Vw, kk, lane);
+      for (int kk = 0; kk < Tl::CW / 16; ++kk) {
+        uint32_t xa[4];
+        load_a<LD>(xa, A, kk, lane);
 #pragma unroll
-      for (int j = 0; j < NQ; ++j) {
-        uint32_t bq[4], bd[4];
-        load_bt<LD>(bq, Qp, j, kk, lane);
-        load_bt<LD>(bd, dOp, j, kk, lane);
-        mma_bf16(s[2 * j], ka, bq[0], bq[1]);
-        mma_bf16(s[2 * j + 1], ka, bq[2], bq[3]);
-        mma_bf16(dp[2 * j], va, bd[0], bd[1]);
-        mma_bf16(dp[2 * j + 1], va, bd[2], bd[3]);
+        for (int j = 0; j < NQ; ++j) {
+          uint32_t bx[4];
+          load_bt<LD>(bx, B, j, kk, lane);
+          mma_bf16(s[2 * j], xa, bx[0], bx[1]);
+          mma_bf16(s[2 * j + 1], xa, bx[2], bx[3]);
+        }
       }
-    }
-    // over the whole head: the key group's WPK partials, summed by every
-    // warp of the group in the order of their columns, so that all of
-    // them hold the same p^T and ds^T (the block's barrier of the next
-    // tile orders the buffer's reuse)
 #pragma unroll
-    for (int n = 0; n < 2 * NQ; ++n) {
-      X[(warp * 4 * NQ + n) * 32 + lane] = make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
-      X[(warp * 4 * NQ + 2 * NQ + n) * 32 + lane] =
-          make_float4(dp[n][0], dp[n][1], dp[n][2], dp[n][3]);
-    }
-    bar_sync(1 + kg, 32 * WPK);
-    const auto group_sum = [&](int n, float (&x)[4]) {
-      float4 y = X[(kg * WPK * 4 * NQ + n) * 32 + lane];
+      for (int n = 0; n < 2 * NQ; ++n)
+        X[(warp * 2 * NQ + n) * 32 + lane] = make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
+      bar_sync(1 + kg, 32 * WPK);
 #pragma unroll
-      for (int i = 1; i < WPK; ++i) {
-        const float4 z = X[((kg * WPK + i) * 4 * NQ + n) * 32 + lane];
-        y.x += z.x, y.y += z.y, y.z += z.z, y.w += z.w;
+      for (int n = 0; n < 2 * NQ; ++n) {
+        float4 y = X[(WPK * kg * 2 * NQ + n) * 32 + lane];
+        float4 z = X[((WPK * kg + 4) * 2 * NQ + n) * 32 + lane];
+#pragma unroll
+        for (int i = 1; i < 4; ++i) {
+          const float4 ys = X[((WPK * kg + i) * 2 * NQ + n) * 32 + lane];
+          const float4 zs = X[((WPK * kg + 4 + i) * 2 * NQ + n) * 32 + lane];
+          y.x += ys.x, y.y += ys.y, y.z += ys.z, y.w += ys.w;
+          z.x += zs.x, z.y += zs.y, z.z += zs.z, z.w += zs.w;
+        }
+        s[n][0] = y.x, s[n][1] = y.y, s[n][2] = y.z, s[n][3] = y.w;
+        dp[n][0] = z.x, dp[n][1] = z.y, dp[n][2] = z.z, dp[n][3] = z.w;
       }
-      x[0] = y.x, x[1] = y.y, x[2] = y.z, x[3] = y.w;
-    };
+    } else {
+      // S^T = K qs^T and dP^T = V dO^T over this warp's columns: A of K
+      // and V by ldmatrix from the resident rows, B of qs and dO
 #pragma unroll
-    for (int n = 0; n < 2 * NQ; ++n) {
-      group_sum(n, s[n]);
-      group_sum(2 * NQ + n, dp[n]);
+      for (int kk = 0; kk < DW / 16; ++kk) {
+        uint32_t ka[4], va[4];
+        load_a<LD>(ka, Kw, kk, lane);
+        load_a<LD>(va, Vw, kk, lane);
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) {
+          uint32_t bq[4], bd[4];
+          load_bt<LD>(bq, Qp, j, kk, lane);
+          load_bt<LD>(bd, dOp, j, kk, lane);
+          mma_bf16(s[2 * j], ka, bq[0], bq[1]);
+          mma_bf16(s[2 * j + 1], ka, bq[2], bq[3]);
+          mma_bf16(dp[2 * j], va, bd[0], bd[1]);
+          mma_bf16(dp[2 * j + 1], va, bd[2], bd[3]);
+        }
+      }
+      // over the whole head: the key group's WPK partials, summed by every
+      // warp of the group in the order of their columns, so that all of
+      // them hold the same p^T and ds^T (the block's barrier of the next
+      // tile orders the buffer's reuse)
+#pragma unroll
+      for (int n = 0; n < 2 * NQ; ++n) {
+        X[(warp * 4 * NQ + n) * 32 + lane] = make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
+        X[(warp * 4 * NQ + 2 * NQ + n) * 32 + lane] =
+            make_float4(dp[n][0], dp[n][1], dp[n][2], dp[n][3]);
+      }
+      bar_sync(1 + kg, 32 * WPK);
+      const auto group_sum = [&](int n, float (&x)[4]) {
+        float4 y = X[(kg * WPK * 4 * NQ + n) * 32 + lane];
+#pragma unroll
+        for (int i = 1; i < WPK; ++i) {
+          const float4 z = X[((kg * WPK + i) * 4 * NQ + n) * 32 + lane];
+          y.x += z.x, y.y += z.y, y.z += z.z, y.w += z.w;
+        }
+        x[0] = y.x, x[1] = y.y, x[2] = y.z, x[3] = y.w;
+      };
+#pragma unroll
+      for (int n = 0; n < 2 * NQ; ++n) {
+        group_sum(n, s[n]);
+        group_sum(2 * NQ + n, dp[n]);
+      }
     }
     // p^T and ds^T in the accumulators: row (key) kw0 + g + 8 (e / 2),
     // column (query) q0 + 8 n + 2 c + (e % 2); masks only where the tile
@@ -2255,299 +2434,31 @@ int launch_dkv_wide_tf32x3(const void* q, const void* k, const void* v, const vo
   return (int)cudaGetLastError();
 }
 
-// ------------------------------------------------ the f32 (SIMT) design
-
-constexpr int LDS_PAD = 1;  // f32 rows padded by one element (bank spread)
-
-// C[M, N] = A[M, K] . B[N, K]^T, A and B row-major in shared memory: each
-// entry the sum, in column order, of fma chains over CH columns each from
-// 0 (CH = K: one chain; the scores take score_chain_cols, the order of
-// the f32 forward, flash_common.cuh).
-template <int M, int N, int K, int CH = K>
-__device__ __forceinline__ void mm_abt(float* C, int ldc, const float* A, int lda,
-                                       const float* B, int ldb) {
-  static_assert(K % CH == 0, "whole chains");
-  for (int i = threadIdx.x; i < M * N; i += F32_NT) {
-    const int r = i / N, c = i % N;
-    float s = 0.f;
-    for (int c0 = 0; c0 < K; c0 += CH) {
-      float x = 0.f;
-#pragma unroll 8
-      for (int kk = c0; kk < c0 + CH; ++kk) x += A[r * lda + kk] * B[c * ldb + kk];
-      s = c0 == 0 ? x : s + x;
-    }
-    C[r * ldc + c] = s;
-  }
-}
-
-// C[M, N] += A[M, K] . B[K, N], A and B row-major in shared memory.
-template <int M, int N, int K>
-__device__ __forceinline__ void mm_ab_acc(float* C, int ldc, const float* A, int lda,
-                                          const float* B, int ldb) {
-  for (int i = threadIdx.x; i < M * N; i += F32_NT) {
-    const int r = i / N, c = i % N;
-    float s = 0.f;
-#pragma unroll 8
-    for (int kk = 0; kk < K; ++kk) s += A[r * lda + kk] * B[kk * ldb + c];
-    C[r * ldc + c] += s;
-  }
-}
-
-// p for query row qrow and key column kcol, from the raw score s
-__device__ __forceinline__ float prob(float s, float lse, int qrow, int kcol, int tq, int tk,
-                                      int offset, int causal) {
-  if (qrow >= tq || kcol >= tk) return 0.f;  // ragged edge: not in the problem at all
-  if (causal && qrow + offset < kcol) s = NEG_INF_SENTINEL;
-  return expf(s - lse);
-}
-
-// flash_dq: a block of BQ query rows over key tiles of BK keys
-template <int D, int BQ, int BK>
-struct DqLayoutF32 {
-  static constexpr int LDT = D + LDS_PAD;   // qs, dO, k, v rows
-  static constexpr int LDS = BK + LDS_PAD;  // s, dP, ds tiles
-  static constexpr size_t q_off = 0;
-  static constexpr size_t do_off = q_off + round32(sizeof(float) * BQ * LDT);
-  static constexpr size_t k_off = do_off + round32(sizeof(float) * BQ * LDT);
-  static constexpr size_t v_off = k_off + round32(sizeof(float) * BK * LDT);
-  static constexpr size_t s_off = v_off + round32(sizeof(float) * BK * LDT);
-  static constexpr size_t dp_off = s_off + round32(sizeof(float) * BQ * LDS);
-  static constexpr size_t ds_off = dp_off + round32(sizeof(float) * BQ * LDS);
-  static constexpr size_t acc_off = ds_off + round32(sizeof(float) * BQ * LDS);
-  static constexpr size_t lse_off = acc_off + round32(sizeof(float) * BQ * LDT);
-  static constexpr size_t dl_off = lse_off + round32(sizeof(float) * BQ);
-  static constexpr size_t bytes = dl_off + round32(sizeof(float) * BQ);
-  static_assert(bytes <= SMEM_LIMIT, "flash_dq f32 layout exceeds shared memory");
-};
-
-template <typename T, int D, int BQ, int BK>
-__global__ void __launch_bounds__(F32_NT)
-flash_dq_kernel_f32(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ o,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    float* __restrict__ delta, T* __restrict__ dq, int tq, int tk,
-                    int n_qtiles, int causal, float q_scale, float scale) {
-  using Lay = DqLayoutF32<D, BQ, BK>;
-  constexpr int LDT = Lay::LDT, LDS = Lay::LDS;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem + Lay::q_off);
-  float* dOs = reinterpret_cast<float*>(smem + Lay::do_off);
-  float* Ks = reinterpret_cast<float*>(smem + Lay::k_off);
-  float* Vs = reinterpret_cast<float*>(smem + Lay::v_off);
-  float* Ss = reinterpret_cast<float*>(smem + Lay::s_off);
-  float* dPs = reinterpret_cast<float*>(smem + Lay::dp_off);
-  float* dSs = reinterpret_cast<float*>(smem + Lay::ds_off);
-  float* Acc = reinterpret_cast<float*>(smem + Lay::acc_off);
-  float* lse_s = reinterpret_cast<float*>(smem + Lay::lse_off);
-  float* dl_s = reinterpret_cast<float*>(smem + Lay::dl_off);
-
-  const int bh = blockIdx.x / n_qtiles;
-  const int q0 = (blockIdx.x % n_qtiles) * BQ;
-  const int offset = tk - tq;
-  const T* kb = k + (size_t)bh * tk * D;
-  const T* vb = v + (size_t)bh * tk * D;
-
-  load_rows_f32<D, LDT>(Qs, q + (size_t)bh * tq * D, q0, tq, BQ, q_scale);
-  load_rows_f32<D, LDT>(dOs, dout + (size_t)bh * tq * D, q0, tq, BQ, 1.f);
-  for (int r = threadIdx.x; r < BQ; r += F32_NT) {
-    lse_s[r] = q0 + r < tq ? lse[(size_t)bh * tq + q0 + r] : 0.f;
-  }
-  for (int i = threadIdx.x; i < BQ * LDT; i += F32_NT) Acc[i] = 0.f;
-  // delta = rowsum(dO O), warp w summing rows w, w + 4, ..., written once
-  // per row for flash_dkv (zero past tq)
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < BQ; r += F32_NT / 32) {
-    const bool ok = q0 + r < tq;
-    const size_t at = ((size_t)bh * tq + q0 + r) * D;
-    float part = 0.f;
-    if (ok) {
-      for (int c = lane; c < D; c += 32) part = fmaf(to_f(dout[at + c]), to_f(o[at + c]), part);
-    }
-    for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
-    if (lane == 0) {
-      dl_s[r] = part;
-      if (ok) delta[(size_t)bh * tq + q0 + r] = part;
-    }
-  }
-
-  // causal: the last key any valid row of this tile may see
-  int k_end = tk;
-  if (causal) k_end = min(tk, min(q0 + BQ, tq) + offset);
-  const int n_ktiles = (k_end + BK - 1) / BK;
-
-  for (int kt = 0; kt < n_ktiles; ++kt) {
-    const int k0 = kt * BK;
-    load_rows_f32<D, LDT>(Ks, kb, k0, tk, BK, 1.f);
-    load_rows_f32<D, LDT>(Vs, vb, k0, tk, BK, 1.f);
-    __syncthreads();
-    mm_abt<BQ, BK, D, score_chain_cols(D)>(Ss, LDS, Qs, LDT, Ks, LDT);  // s = qs k^T
-    mm_abt<BQ, BK, D>(dPs, LDS, dOs, LDT, Vs, LDT);  // dP = dO v^T
-    __syncthreads();
-    for (int i = threadIdx.x; i < BQ * BK; i += F32_NT) {
-      const int r = i / BK, c = i % BK;
-      const float p = prob(Ss[r * LDS + c], lse_s[r], q0 + r, k0 + c, tq, tk, offset, causal);
-      dSs[r * LDS + c] = round_to<T>(p * (dPs[r * LDS + c] - dl_s[r]));
-    }
-    __syncthreads();
-    mm_ab_acc<BQ, D, BK>(Acc, LDT, dSs, LDS, Ks, LDT);  // acc += ds k
-    __syncthreads();
-  }
-
-  for (int i = threadIdx.x; i < BQ * D; i += F32_NT) {
-    const int r = i / D, c = i % D;
-    if (q0 + r < tq) dq[((size_t)bh * tq + q0 + r) * D + c] = from_f<T>(Acc[r * LDT + c] * scale);
-  }
-}
-
-// flash_dkv: a block of BK keys over query tiles of BQT rows
-template <int D, int BK, int BQT>
-struct DkvLayoutF32 {
-  static constexpr int LDT = D + LDS_PAD;    // k, v, qs, dO rows
-  static constexpr int LDS = BQT + LDS_PAD;  // s^T, dP^T, p^T, ds^T tiles [BK, BQT]
-  static constexpr size_t k_off = 0;
-  static constexpr size_t v_off = k_off + round32(sizeof(float) * BK * LDT);
-  static constexpr size_t q_off = v_off + round32(sizeof(float) * BK * LDT);
-  static constexpr size_t do_off = q_off + round32(sizeof(float) * BQT * LDT);
-  static constexpr size_t s_off = do_off + round32(sizeof(float) * BQT * LDT);
-  static constexpr size_t dp_off = s_off + round32(sizeof(float) * BK * LDS);
-  static constexpr size_t p_off = dp_off + round32(sizeof(float) * BK * LDS);
-  static constexpr size_t ds_off = p_off + round32(sizeof(float) * BK * LDS);
-  static constexpr size_t dk_off = ds_off + round32(sizeof(float) * BK * LDS);
-  static constexpr size_t dv_off = dk_off + round32(sizeof(float) * BK * LDT);
-  static constexpr size_t lse_off = dv_off + round32(sizeof(float) * BK * LDT);
-  static constexpr size_t dl_off = lse_off + round32(sizeof(float) * BQT);
-  static constexpr size_t bytes = dl_off + round32(sizeof(float) * BQT);
-  static_assert(bytes <= SMEM_LIMIT, "flash_dkv f32 layout exceeds shared memory");
-};
-
-template <typename T, int D, int BK, int BQT>
-__global__ void __launch_bounds__(F32_NT)
-flash_dkv_kernel_f32(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     T* __restrict__ dk, T* __restrict__ dv, int tq, int tk,
-                     int n_ktiles, int causal, float q_scale) {
-  using Lay = DkvLayoutF32<D, BK, BQT>;
-  constexpr int LDT = Lay::LDT, LDS = Lay::LDS;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* Ks = reinterpret_cast<float*>(smem + Lay::k_off);
-  float* Vs = reinterpret_cast<float*>(smem + Lay::v_off);
-  float* Qs = reinterpret_cast<float*>(smem + Lay::q_off);
-  float* dOs = reinterpret_cast<float*>(smem + Lay::do_off);
-  float* St = reinterpret_cast<float*>(smem + Lay::s_off);
-  float* dPt = reinterpret_cast<float*>(smem + Lay::dp_off);
-  float* Pt = reinterpret_cast<float*>(smem + Lay::p_off);
-  float* dSt = reinterpret_cast<float*>(smem + Lay::ds_off);
-  float* dKa = reinterpret_cast<float*>(smem + Lay::dk_off);
-  float* dVa = reinterpret_cast<float*>(smem + Lay::dv_off);
-  float* lse_s = reinterpret_cast<float*>(smem + Lay::lse_off);
-  float* dl_s = reinterpret_cast<float*>(smem + Lay::dl_off);
-
-  const int bh = blockIdx.x / n_ktiles;
-  const int k0 = (blockIdx.x % n_ktiles) * BK;
-  const int offset = tk - tq;
-  const T* qb = q + (size_t)bh * tq * D;
-  const T* db = dout + (size_t)bh * tq * D;
-
-  load_rows_f32<D, LDT>(Ks, k + (size_t)bh * tk * D, k0, tk, BK, 1.f);
-  load_rows_f32<D, LDT>(Vs, v + (size_t)bh * tk * D, k0, tk, BK, 1.f);
-  for (int i = threadIdx.x; i < BK * LDT; i += F32_NT) {
-    dKa[i] = 0.f;
-    dVa[i] = 0.f;
-  }
-
-  // causal: the first query row that sees any key of this tile (< tq,
-  // since k0 - offset <= tq - 1)
-  const int q_begin = causal ? max(0, k0 - offset) : 0;
-  const int n_qtiles = (tq + BQT - 1) / BQT;
-
-  for (int qt = q_begin / BQT; qt < n_qtiles; ++qt) {
-    const int q0 = qt * BQT;
-    load_rows_f32<D, LDT>(Qs, qb, q0, tq, BQT, q_scale);
-    load_rows_f32<D, LDT>(dOs, db, q0, tq, BQT, 1.f);
-    for (int c = threadIdx.x; c < BQT; c += F32_NT) {
-      const bool ok = q0 + c < tq;
-      lse_s[c] = ok ? lse[(size_t)bh * tq + q0 + c] : 0.f;
-      dl_s[c] = ok ? delta[(size_t)bh * tq + q0 + c] : 0.f;
-    }
-    __syncthreads();
-    mm_abt<BK, BQT, D, score_chain_cols(D)>(St, LDS, Ks, LDT, Qs, LDT);  // s^T = k qs^T
-    mm_abt<BK, BQT, D>(dPt, LDS, Vs, LDT, dOs, LDT);  // dP^T = v dO^T
-    __syncthreads();
-    for (int i = threadIdx.x; i < BK * BQT; i += F32_NT) {
-      const int r = i / BQT, c = i % BQT;  // r: key, c: query
-      const float p = prob(St[r * LDS + c], lse_s[c], q0 + c, k0 + r, tq, tk, offset, causal);
-      // p and ds rounded to the operand dtype before their products
-      Pt[r * LDS + c] = round_to<T>(p);
-      dSt[r * LDS + c] = round_to<T>(p * (dPt[r * LDS + c] - dl_s[c]));
-    }
-    __syncthreads();
-    mm_ab_acc<BK, D, BQT>(dVa, LDT, Pt, LDS, dOs, LDT);  // dv += p^T dO
-    mm_ab_acc<BK, D, BQT>(dKa, LDT, dSt, LDS, Qs, LDT);  // dk += ds^T qs
-    __syncthreads();
-  }
-
-  for (int i = threadIdx.x; i < BK * D; i += F32_NT) {
-    const int r = i / D, c = i % D;
-    if (k0 + r < tk) {
-      const size_t at = ((size_t)bh * tk + k0 + r) * D + c;
-      dk[at] = from_f<T>(dKa[r * LDT + c]);
-      dv[at] = from_f<T>(dVa[r * LDT + c]);
-    }
-  }
-}
-
-template <typename T, int D>
-int launch_dq_f32(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                  const float* lse, float* delta, void* dq, int bh, int tq, int tk,
-                  int causal, float q_scale, float scale, cudaStream_t stream) {
-  constexpr int TILE = simt_tile(D);
-  constexpr size_t smem = DqLayoutF32<D, TILE, TILE>::bytes;
-  auto kernel = flash_dq_kernel_f32<T, D, TILE, TILE>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int n_qtiles = (tq + TILE - 1) / TILE;
-  kernel<<<bh * n_qtiles, F32_NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(o), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq), tq, tk, n_qtiles, causal, q_scale, scale);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int D>
-int launch_dkv_f32(const void* q, const void* k, const void* v, const void* dout,
-                   const float* lse, const float* delta, void* dk, void* dv, int bh, int tq,
-                   int tk, int causal, float q_scale, cudaStream_t stream) {
-  // keys per block as flash_dq's tile, query rows per step half of it
-  constexpr int BK = simt_tile(D), BQT = BK / 2;
-  constexpr size_t smem = DkvLayoutF32<D, BK, BQT>::bytes;
-  auto kernel = flash_dkv_kernel_f32<T, D, BK, BQT>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int n_ktiles = (tk + BK - 1) / BK;
-  kernel<<<bh * n_ktiles, F32_NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), tq,
-      tk, n_ktiles, causal, q_scale);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // q, k, v, o, dout, dq: contiguous [bh, t, d], 16-byte aligned; lse and
 // delta (an output here): contiguous f32 [bh, tq]. q is unscaled: q_scale
 // is 1/sqrt(d) rounded to q's dtype (the pre-scale), scale the f32
 // 1/sqrt(d) that multiplies the dq sum. dtype: 0 = float32, 1 = bfloat16.
-// Returns a cudaError_t (0 on success); an unsupported head size returns
-// cudaErrorInvalidValue.
+// block_q (bf16 d 1024 only, for measurements): 16 or 32 query rows a
+// block, or 0: 32 where that grid fills every SM, else 16 (rows_1024).
+// Returns a cudaError_t (0 on success); an unsupported head size or
+// block_q returns cudaErrorInvalidValue.
 extern "C" int dl4j_flash_dq(const void* q, const void* k, const void* v, const void* o,
                              const void* dout, const float* lse, float* delta, void* dq, int bh,
                              int tq, int tk, int d, int causal, int dtype, float q_scale,
-                             float scale, void* stream) {
+                             float scale, int block_q, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bh < 1 || tq < 1 || tk < 1) return (int)cudaErrorInvalidValue;
+  if (dtype == 1 && d == 1024) {
+    if (block_q == 0) {
+      if (int err = rows_1024(bh, tq, &block_q)) return err;
+    }
+    if (block_q == 32) return launch_dq_wide<1024, 32>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
+    if (block_q == 16) return launch_dq_wide<1024, 16>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (block_q != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 1) {
     int rows = 0;
     if (int err = block_rows(bh, tq, &rows)) return err;
@@ -2555,9 +2466,8 @@ extern "C" int dl4j_flash_dq(const void* q, const void* k, const void* v, const 
     if (d == 64 && rows == 128) return launch_dq<64, 128>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
     if (d == 128 && rows == 64) return launch_dq<128, 64>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
     if (d == 128 && rows == 128) return launch_dq<128, 128>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
-    if (d == 256) return launch_dq_wide<256>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
-    if (d == 512) return launch_dq_wide<512>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
-    if (d == 1024) return launch_dq_f32<bf16, 1024>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
+    if (d == 256) return launch_dq_wide<256, 128>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
+    if (d == 512) return launch_dq_wide<512, 64>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
   } else if (dtype == 0) {
     if (d == 64) return launch_dq_tf32x3<64>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
     if (d == 128) return launch_dq_tf32x3<128>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk, causal, q_scale, scale, s);
@@ -2585,7 +2495,7 @@ extern "C" int dl4j_flash_dkv(const void* q, const void* k, const void* v, const
     if (d == 128 && rows == 128) return launch_dkv<128, 128>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
     if (d == 256) return launch_dkv_wide<256>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
     if (d == 512) return launch_dkv_wide<512>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
-    if (d == 1024) return launch_dkv_f32<bf16, 1024>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
+    if (d == 1024) return launch_dkv_wide<1024>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
   } else if (dtype == 0) {
     if (d == 64) return launch_dkv_tf32x3<64>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);
     if (d == 128) return launch_dkv_tf32x3<128>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, q_scale, s);

@@ -43,45 +43,7 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// ---------------------------------------------- the f32 (SIMT) design
-
-// The first design, on the CUDA cores through shared memory in f32, of
-// flash_bwd.cu: the bf16 backward at 1024 (every other kernel runs its
-// products on the tensor cores).
-// T is the element type in device memory: bf16 is widened to f32 on load,
-// rounded back where the reference rounds (the q pre-scale, p and ds
-// before their products) and narrowed on store.
-constexpr int F32_NT = 128;  // threads per block: 4 warps
 constexpr size_t SMEM_LIMIT = 232448;  // dynamic shared memory a block may use
-
-constexpr size_t round32(size_t n) { return (n + 31) / 32 * 32; }
-
-// the tile of a head of D (rows and keys): 8 at 1024, the one head the
-// SIMT backward runs, so that the f32 rows fit shared memory
-__host__ __device__ constexpr int simt_tile(int D) { return 8192 / D; }
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16(x); }
-// x rounded to T's precision, as f32 (the reference's casts before a product)
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
-
-// Rows [row0, row0 + nrows) of a row-major [t, D] matrix, times mul and
-// rounded to T (mul = 1 leaves a value as it is), into f32 shared memory
-// with leading dimension LD; rows at or past t become zeros.
-template <int D, int LD, typename T>
-__device__ __forceinline__ void load_rows_f32(float* dst, const T* src, int row0, int t,
-                                              int nrows, float mul) {
-  for (int i = threadIdx.x; i < nrows * D; i += F32_NT) {
-    const int r = i / D, c = i % D;
-    dst[r * LD + c] = (row0 + r < t) ? round_to<T>(to_f(src[(size_t)(row0 + r) * D + c]) * mul)
-                                     : 0.f;
-  }
-}
 
 // The current device's SM count. Returns a cudaError_t.
 inline int sm_count(int* sms) {
@@ -101,6 +63,18 @@ inline int block_rows(int bh, int t, int* rows) {
   int sms = 0;
   if (int err = sm_count(&sms)) return err;
   *rows = t > 64 && (long long)bh * ((t + 127) / 128) >= 2LL * sms ? 128 : 64;
+  return 0;
+}
+
+// Rows per block of the kernels at heads of 1024 that take two tilings
+// (flash_fwd's, bf16 flash_dq's), for t rows in each of bh heads: 32 (the
+// other axis read from L2 once per 32 rows) where that grid fills every
+// SM, else 16 (twice the blocks in flight: short sequences or few heads).
+// Returns a cudaError_t.
+inline int rows_1024(int bh, int t, int* rows) {
+  int sms = 0;
+  if (int err = sm_count(&sms)) return err;
+  *rows = (long long)bh * ((t + 31) / 32) >= sms ? 32 : 16;
   return 0;
 }
 
@@ -216,6 +190,23 @@ __device__ __forceinline__ void load_bt(uint32_t (&b)[4], const bf16* x, int j, 
 template <int LD>
 __device__ __forceinline__ void load_b(uint32_t (&b)[4], const bf16* x, int np, int lane) {
   ldmatrix_x4_trans(b, smem_addr(x + (lane % 16) * LD + 16 * np + 8 * (lane / 16)));
+}
+
+// B fragments of x^T for one 8-column tile, x 8 rows in shared memory (the
+// product's columns), at the two depth steps 2 kk2 and 2 kk2 + 1: rows
+// lane % 8, columns 32 kk2 + 8 (lane / 8); registers 0, 1 for step 2 kk2,
+// 2, 3 for 2 kk2 + 1
+template <int LD>
+__device__ __forceinline__ void load_bt8(uint32_t (&b)[4], const bf16* x, int kk2, int lane) {
+  ldmatrix_x4(b, smem_addr(x + (lane % 8) * LD + 32 * kk2 + 8 * (lane / 8)));
+}
+
+// B fragments of m16n8k8 of the 8 rows at x themselves (the product's
+// depth) for the four 8-column tiles 4 n4 .. 4 n4 + 3: ldmatrix.trans of
+// rows lane % 8, columns 32 n4 + 8 (lane / 8); register i for tile 4 n4 + i
+template <int LD>
+__device__ __forceinline__ void load_b8(uint32_t (&b)[4], const bf16* x, int n4, int lane) {
+  ldmatrix_x4_trans(b, smem_addr(x + (lane % 8) * LD + 32 * n4 + 8 * (lane / 8)));
 }
 
 // Epilogue of a warp's 16 x D f32 accumulators (fragment layout): each
@@ -432,8 +423,8 @@ __device__ __forceinline__ void store_warp_rows_f32(float* dst, float* stage,
 // The columns of one chain of a score at a head of D: the whole head up
 // to 512; at 1024 each quarter of it (256 columns), the four chains each
 // from 0 and their sums added in column order, ((c0 + c1) + c2) + c3
-// (the f32 forward's chain_columns over its 256-column chunks, the SIMT
-// backward's mm_abt). At scores of ±60 one chain over 1024 columns
+// (the f32 forward's chain_columns over its 256-column chunks, and the
+// 3xTF32 backward's chain_chunk). At scores of ±60 one chain over 1024 columns
 // carries about twice the reference's f32 error (o 2.35x, dv 2.08x in
 // scripts/scale4_emulation.py, and alike in a trial on the card), the
 // quarters 0.5-1x.

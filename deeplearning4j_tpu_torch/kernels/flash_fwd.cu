@@ -1026,9 +1026,7 @@ extern "C" int dl4j_flash_fwd(const void* q, const void* k, const void* v, void*
     // that grid fills every SM, else 16 (twice the blocks in flight:
     // short sequences or few heads)
     if (block_q == 0) {
-      int sms = 0;
-      if (int err = sm_count(&sms)) return err;
-      block_q = (long long)bh * ((tq + 31) / 32) >= sms ? 32 : 16;
+      if (int err = rows_1024(bh, tq, &block_q)) return err;
     }
     if (dtype == 1 && block_q == 32) return launch_wide<1024, 32>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
     if (dtype == 1 && block_q == 16) return launch_wide<1024, 16>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);

@@ -1,8 +1,8 @@
 // PTX helpers of the hand-written mma.sync kernels for Hopper (sm_90a),
 // shared by the flash-attention and LSTM families: 16-byte cp.async
 // copies into shared memory and their groups, ldmatrix (plain and
-// transposed) into tensor-core fragments, mma.sync m16n8k16 (bf16 in, f32
-// accumulate) and bf16 packing.
+// transposed) into tensor-core fragments, mma.sync m16n8k16 and m16n8k8
+// (bf16 in, f32 accumulate) and bf16 packing.
 //
 // Fragment layout of mma.m16n8k16 (g = lane / 4, c = lane % 4): the
 // accumulator holds rows g (registers 0, 1) and g + 8 (2, 3) at columns
@@ -53,6 +53,17 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b: a 16 x 8 (row; registers: rows g and g + 8 at columns 2c,
+// 2c + 1, the accumulator's layout), b 8 x 8 (col), bf16 in, f32
+// accumulate
+__device__ __forceinline__ void mma_bf16_k8(float (&d)[4], uint32_t a0, uint32_t a1,
+                                            uint32_t b0) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0));
 }
 
 // two floats as a bf16 pair, lo in the low half (the lower column index)

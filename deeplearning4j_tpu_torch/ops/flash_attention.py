@@ -14,17 +14,18 @@ Which kernel runs which dtype and head:
   cores, one f32 fma chain each over the head in order, at 1024 one over
   each quarter of it with the sums added in order; P.V on the tensor
   cores in 3xTF32);
-- backward: bf16 on the tensor cores up to 512 (``flash_dq_kernel`` /
-  ``flash_dkv_kernel`` up to 128, the ``_wide`` pair at 256 and 512);
-  f32 at every head on the tensor cores in 3xTF32 (each f32 operand
-  split into two TF32 values, three products for each), but for the
-  scores: ``flash_dq_kernel_tf32x3`` / ``flash_dkv_kernel_tf32x3`` up to
-  128, ``flash_dq_kernel_wide_tf32x3`` / ``flash_dkv_kernel_wide_tf32x3``
-  at 256, 512 and 1024, whose scores are the f32 forward's own chains
-  (at 1024 one over each quarter of the head, the sums added in order),
-  bit for bit, so that s - lse cancels the forward's rounding of s as in
-  the reference; the bf16 heads of 1024 on the CUDA cores (the ``_f32``
-  pair, whose scores take the f32 forward's order too).
+- backward: bf16 on the tensor cores at every head (``flash_dq_kernel`` /
+  ``flash_dkv_kernel`` up to 128, the ``_wide`` pair at 256, 512 and
+  1024, whose scores at 1024 are the bf16 forward's own: one mma chain
+  over each quarter of the head, the sums added in order); f32 at every
+  head on the tensor cores in 3xTF32 (each f32 operand split into two
+  TF32 values, three products for each), but for the scores:
+  ``flash_dq_kernel_tf32x3`` / ``flash_dkv_kernel_tf32x3`` up to 128,
+  ``flash_dq_kernel_wide_tf32x3`` / ``flash_dkv_kernel_wide_tf32x3`` at
+  256, 512 and 1024, whose scores are the f32 forward's own chains (at
+  1024 one over each quarter of the head, the sums added in order), bit
+  for bit, so that s - lse cancels the forward's rounding of s as in the
+  reference.
 
 Which of the two runs is decided by the tensor's device alone: on the
 CPU the plain version, on a CUDA device the kernel (a build or launch
@@ -68,13 +69,12 @@ def _scale(q: torch.Tensor) -> float:
 
 def _head_width(d: int) -> int:
     """The head size the kernels run a head of ``d`` at: 64, 128, 256,
-    512 or 1024, the sizes they are built for (on the tensor cores: in
-    bf16 the forward at every one of them, 256 to 1024 in its ``_wide``
-    kernel, and the backward 64 to 512, 256 and 512 in its ``_wide``
-    kernels; in f32 the forward at every one of them in
-    ``flash_fwd_kernel_tf32x3`` and the backward 64 to 512 in 3xTF32, 256
-    and 512 in its ``_wide_tf32x3`` kernels. The f32 and bf16 backward at
-    1024 run on the CUDA cores). A smaller head
+    512 or 1024, the sizes they are built for (on the tensor cores at
+    every one of them: in bf16 the forward and the backward, 256 to 1024
+    in their ``_wide`` kernels; in f32 the forward in
+    ``flash_fwd_kernel_tf32x3`` and the backward in 3xTF32, 256 to 1024 in
+    its ``_wide_tf32x3`` kernels, both with their scores on the CUDA
+    cores). A smaller head
     is padded with zeros up to it, which adds 0 to every score and
     product, so the unpadded columns of every output are the same; the
     scales stay those of ``d``."""
@@ -280,7 +280,7 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     return dq, dk, dv
 
 
-def _flash_bwd_cuda(q, k, v, o, lse, do, causal
+def _flash_bwd_cuda(q, k, v, o, lse, do, causal, block_q: int = 0
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One launch of each backward kernel on the unscaled q (each scales
     q by :func:`_scale` as it loads it; ``flash_dq`` also takes the f32
@@ -289,11 +289,13 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, causal
     f32 and writes it for ``flash_dkv``, which runs after it on the same
     stream. The kernel library picks each kernel by dtype and width: in
     bf16 ``flash_dq_kernel`` / ``flash_dkv_kernel`` at 64 and 128,
-    ``flash_dq_kernel_wide`` / ``flash_dkv_kernel_wide`` at 256 and 512,
-    the SIMT ``_f32`` kernels at 1024; in f32
-    ``flash_dq_kernel_tf32x3`` / ``flash_dkv_kernel_tf32x3`` at 64 and
-    128, ``flash_dq_kernel_wide_tf32x3`` /
-    ``flash_dkv_kernel_wide_tf32x3`` at 256, 512 and 1024."""
+    ``flash_dq_kernel_wide`` / ``flash_dkv_kernel_wide`` at 256, 512 and
+    1024; in f32 ``flash_dq_kernel_tf32x3`` / ``flash_dkv_kernel_tf32x3``
+    at 64 and 128, ``flash_dq_kernel_wide_tf32x3`` /
+    ``flash_dkv_kernel_wide_tf32x3`` at 256, 512 and 1024. ``block_q``:
+    ``flash_dq``'s query rows per block in bf16 at 1024 (for measurements
+    only), 16 or 32; or 0: the kernel chooses by tq and the size of the
+    grid (every other head takes only 0)."""
     bh, tq, d = q.shape
     tk = k.shape[1]
     _check_inputs(q, k, v)
@@ -304,7 +306,7 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, causal
     width, q_scale = _head_width(d), _scale(q)
     lib = kernels.load(BWD_SOURCE)
     lib.dl4j_flash_dq.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 \
-        + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+        + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p]
     lib.dl4j_flash_dq.restype = ctypes.c_int
     lib.dl4j_flash_dkv.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 \
         + [ctypes.c_float, ctypes.c_void_p]
@@ -324,7 +326,7 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, causal
                                 o.data_ptr(), do.data_ptr(), lse.data_ptr(),
                                 delta.data_ptr(), dq.data_ptr(), bh, tq, tk,
                                 width, int(bool(causal)), dtype, q_scale,
-                                1.0 / d ** 0.5, stream)
+                                1.0 / d ** 0.5, block_q, stream)
         if err:
             raise RuntimeError(f"flash_dq kernel launch failed: CUDA error {err}")
         kernels.LAUNCHES[DQ_KERNEL] += 1

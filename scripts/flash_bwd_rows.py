@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """The PyTorch port's flash backward in another checkout (the parent of
-a change, say), timed at ``chip_smoke.py``'s f32 backward rows at d 512
-and 1024 (``WIDE_F32_512_CASES``, ``WIDE_F32_1024_CASES``) by phase 2's
-own measurement (``chip_smoke.bwd_row``), and its f32 forward's and
+a change, say), timed at ``chip_smoke.py``'s wide-head backward rows
+(``WIDE_HEAD_CASES``' bf16 rows, ``WIDE_512_CASES``,
+``WIDE_F32_512_CASES``, ``WIDE_F32_1024_CASES``, ``WIDE_1024_CASES``) by
+phase 2's own measurement (``chip_smoke.bwd_row``), and its f32 forward's and
 backward's errors at scores of ±60 (``chip_smoke.scale4_row``, not
-gated): a same-card comparison at rows that the other checkout's
-``chip_smoke.py`` does not have.
+gated): a same-card comparison of those rows alone, some of which the
+other checkout's ``chip_smoke.py`` does not have.
 
     python3 scripts/flash_bwd_rows.py DIR    # DIR: the other checkout's root
 
@@ -57,7 +58,9 @@ def main(argv) -> int:
                          f"the port under {root}")
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(4321)
-    for case in smoke.WIDE_F32_512_CASES + smoke.WIDE_F32_1024_CASES:
+    for case in (smoke.WIDE_HEAD_CASES["bfloat16"] + smoke.WIDE_512_CASES
+                 + smoke.WIDE_F32_512_CASES + smoke.WIDE_F32_1024_CASES
+                 + smoke.WIDE_1024_CASES):
         row = smoke.bwd_row(torch, F, kernels, flash, g, case, None)
         print("flash_bwd " + json.dumps(row | {"root": root}), flush=True)
     for d in smoke.SCALE4_HEADS:

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The PyTorch port's flash forward in another checkout (the parent of a
-change, say), timed at ``chip_smoke.py``'s forward-only rows
-(``FWD_ONLY_CASES``) by phase 2's own measurement
+change, say), timed at ``chip_smoke.py``'s bf16 rows at d 1024
+(``WIDE_1024_CASES``) by phase 2's own measurement
 (``chip_smoke.fwd_row``): a same-card comparison at rows that the
 other checkout's ``chip_smoke.py`` does not have.
 
@@ -52,7 +52,7 @@ def main(argv) -> int:
                          f"the port under {root}")
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(1234)
-    for case in smoke.FWD_ONLY_CASES:
+    for case in smoke.WIDE_1024_CASES:
         row = smoke.fwd_row(torch, F, flash, g, case, None)
         print("flash_fwd " + json.dumps(row | {"root": root}), flush=True)
     return 0

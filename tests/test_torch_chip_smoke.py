@@ -326,15 +326,18 @@ def test_wide_head_cases_reach_1024_and_time_the_forward_at_512():
 
 def _bwd_flash_report(dq_spills, dkv_spills, tf32_dq_spills=0, tf32_dkv_spills=0,
                       wide_tf32_dq_spills=0, wide_tf32_dkv_spills=0,
-                      wide_1024_dq_spills=0, wide_1024_dkv_spills=0):
+                      wide_1024_dq_spills=0, wide_1024_dkv_spills=0,
+                      bf16_1024_dq_spills=0, bf16_1024_dkv_spills=0):
     """A stand-in report of flash_bwd.cu: the bf16 mma.sync kernels, the
     wide ones at 256 and 512 (flash_dq_kernel_wide spilling
-    ``dq_spills`` bytes, flash_dkv_kernel_wide ``dkv_spills``), the f32
-    3xTF32 kernels at 64 and 128 (``tf32_dq_spills``,
-    ``tf32_dkv_spills`` at 128), an f32 and a bf16 SIMT
-    instantiation (never gated), and the wide f32 3xTF32 kernels at 256,
-    512 (``wide_tf32_dq_spills``, ``wide_tf32_dkv_spills`` at 512) and
-    1024 (``wide_1024_dq_spills``, ``wide_1024_dkv_spills``)."""
+    ``dq_spills`` bytes, flash_dkv_kernel_wide ``dkv_spills``) and at
+    1024 (flash_dq_kernel_wide<1024, 16> and <1024, 32> spilling
+    ``bf16_1024_dq_spills``, flash_dkv_kernel_wide<1024>
+    ``bf16_1024_dkv_spills``), the f32 3xTF32 kernels at 64 and 128
+    (``tf32_dq_spills``, ``tf32_dkv_spills`` at 128), and the wide f32
+    3xTF32 kernels at 256, 512 (``wide_tf32_dq_spills``,
+    ``wide_tf32_dkv_spills`` at 512) and 1024 (``wide_1024_dq_spills``,
+    ``wide_1024_dkv_spills``)."""
     ns = "_ZN12_GLOBAL__N_1"
     args = "EEvPK13__nv_bfloat16S3_S3_S3_S3_PKfPfPS1_iiiiiff"
     f32_args = "EEvPKfS1_S1_S1_S1_S1_PfS2_iiiiiff"
@@ -345,14 +348,13 @@ def _bwd_flash_report(dq_spills, dkv_spills, tf32_dq_spills=0, tf32_dkv_spills=0
         (f"{ns}23flash_dkv_kernel_tf32x3ILi128{f32_args}", 254, tf32_dkv_spills),
         (f"{ns}15flash_dq_kernelILi64ELi128{args}", 125, 0),
         (f"{ns}16flash_dkv_kernelILi64ELi128{args}", 128, 0),
-        (f"{ns}20flash_dq_kernel_wideILi256{args}", 243, dq_spills),
-        (f"{ns}20flash_dq_kernel_wideILi512{args}", 223, dq_spills),
+        (f"{ns}20flash_dq_kernel_wideILi256ELi128{args}", 243, dq_spills),
+        (f"{ns}20flash_dq_kernel_wideILi512ELi64{args}", 223, dq_spills),
         (f"{ns}21flash_dkv_kernel_wideILi256{args}", 242, dkv_spills),
         (f"{ns}21flash_dkv_kernel_wideILi512{args}", 225, dkv_spills),
-        (f"{ns}19flash_dq_kernel_f32IfLi64ELi64ELi64EEEvPKT_S3_S3_S3_S3_PKfPfPS1_"
-         "iiiiiff", 90, 16),
-        (f"{ns}20flash_dkv_kernel_f32I13__nv_bfloat16Li1024ELi8ELi4EEEvPKT_S4_S4_"
-         "S4_PKfS6_PS2_S7_iiiiif", 56, 16),
+        (f"{ns}20flash_dq_kernel_wideILi1024ELi16{args}", 140, bf16_1024_dq_spills),
+        (f"{ns}20flash_dq_kernel_wideILi1024ELi32{args}", 200, bf16_1024_dq_spills),
+        (f"{ns}21flash_dkv_kernel_wideILi1024{args}", 221, bf16_1024_dkv_spills),
         (f"{ns}27flash_dq_kernel_wide_tf32x3ILi256{f32_args}", 183, 0),
         (f"{ns}27flash_dq_kernel_wide_tf32x3ILi512{f32_args}", 187, wide_tf32_dq_spills),
         (f"{ns}28flash_dkv_kernel_wide_tf32x3ILi256{f32_args[:-1]}", 254, 0),
@@ -368,15 +370,14 @@ def test_spill_gate_reads_the_wide_flash_backward(capsys):
     out = capsys.readouterr().out
     assert "bf16 flash_dq_kernel registers, spill bytes: [(125, 0)]" in out
     assert "bf16 flash_dkv_kernel registers, spill bytes: [(128, 0)]" in out
+    # the bf16 wide kernels at 256, 512 and 1024 (dq in both tilings)
     assert ("bf16 flash_dq_kernel_wide registers, spill bytes: "
-            "[(243, 0), (223, 0)]") in out
+            "[(243, 0), (223, 0), (140, 0), (200, 0)]") in out
     assert ("bf16 flash_dkv_kernel_wide registers, spill bytes: "
-            "[(242, 0), (225, 0)]") in out
+            "[(242, 0), (225, 0), (221, 0)]") in out
     assert "f32 flash_dq_kernel_tf32x3 registers, spill bytes: [(149, 0), (203, 0)]" in out
     assert "f32 flash_dkv_kernel_tf32x3 registers, spill bytes: [(241, 0), (254, 0)]" in out
-    # the SIMT kernels are not gated, and the bf16 gate does not read the
-    # 3xTF32 kernels
-    assert "flash_dq_kernel_f32 registers" not in out
+    # the bf16 gate does not read the 3xTF32 kernels
     assert "bf16 flash_dq_kernel registers, spill bytes: [(125, 0)]" in out
 
 
@@ -411,7 +412,19 @@ def test_spill_gate_reads_the_wide_tf32x3_flash_backward(capsys):
             "[(254, 0), (255, 0), (190, 0)]") in out
     assert "f32 flash_dq_kernel_tf32x3 registers, spill bytes: [(149, 0), (203, 0)]" in out
     assert ("bf16 flash_dq_kernel_wide registers, spill bytes: "
-            "[(243, 0), (223, 0)]") in out
+            "[(243, 0), (223, 0), (140, 0), (200, 0)]") in out
+
+
+@pytest.mark.parametrize("dq_spills,dkv_spills,kernel", [
+    (4, 0, "flash_dq_kernel_wide"), (0, 64, "flash_dkv_kernel_wide")])
+def test_spill_gate_rejects_a_spilling_wide_flash_backward_at_1024(dq_spills, dkv_spills,
+                                                                  kernel):
+    """A bf16 instantiation at 1024 alone spilling (flash_dq_kernel_wide
+    <1024, 16> and <1024, 32>, flash_dkv_kernel_wide<1024>) fails phase 1,
+    with the instantiation named."""
+    with pytest.raises(RuntimeError, match=rf"bf16 {kernel} spills.*1024"):
+        chip_smoke._spill_gate("flash_bwd", _bwd_flash_report(
+            0, 0, bf16_1024_dq_spills=dq_spills, bf16_1024_dkv_spills=dkv_spills))
 
 
 @pytest.mark.parametrize("dq_spills,dkv_spills,kernel", [
@@ -448,7 +461,8 @@ def test_spill_gate_needs_the_tf32x3_kernels():
     ("bfloat16", 128, ("flash_dq_kernel<", "flash_dkv_kernel<")),
     ("bfloat16", 256, ("flash_dq_kernel_wide<", "flash_dkv_kernel_wide<")),
     ("bfloat16", 512, ("flash_dq_kernel_wide<", "flash_dkv_kernel_wide<")),
-    ("bfloat16", 1024, ("flash_dq_kernel_f32<", "flash_dkv_kernel_f32<")),
+    ("bfloat16", 640, ("flash_dq_kernel_wide<", "flash_dkv_kernel_wide<")),
+    ("bfloat16", 1024, ("flash_dq_kernel_wide<", "flash_dkv_kernel_wide<")),
     ("float32", 64, ("flash_dq_kernel_tf32x3<", "flash_dkv_kernel_tf32x3<")),
     ("float32", 128, ("flash_dq_kernel_tf32x3<", "flash_dkv_kernel_tf32x3<")),
     ("float32", 256, ("flash_dq_kernel_wide_tf32x3<", "flash_dkv_kernel_wide_tf32x3<")),
@@ -466,30 +480,32 @@ def test_bwd_kernel_names_follow_the_dispatch(dtype, d, names):
 
 
 def test_wide_backward_cases_reach_512_at_t1024():
-    """Phase 2's backward times the wide kernels at [32, 1024, 256] and
-    [16, 1024, 512] causal (the same bound by operations: 6 d and 8 d
-    flops per live pair), and in f32 at [8, 1024, 1024] too, checks them
-    at t 200, and keeps bf16 1024's SIMT kernels there."""
+    """Phase 2's backward times the wide kernels at [32, 1024, 256],
+    [16, 1024, 512] and [8, 1024, 1024] causal (the same bound by
+    operations: 6 d and 8 d flops per live pair), in bf16 and in f32 at
+    1024, and checks them at t 200."""
     cases = chip_smoke.bwd_cases()
     d, bh, t = chip_smoke.WIDE_HEAD
     for case in [("bfloat16", d, bh, t, t, True), ("bfloat16", 512, 16, 1024, 1024, True),
                  ("bfloat16", 512, 8, 200, 200, True), ("bfloat16", 1024, 4, 200, 200, True),
+                 ("bfloat16", 1024, 8, 1024, 1024, True),
                  ("float32", 1024, 8, 1024, 1024, True), ("float32", 1024, 4, 200, 200, True)]:
         assert case in cases
     assert len(set(cases)) == len(cases)
     for flops, n_out in ((6, 1), (8, 2)):
-        ms, _ = chip_smoke._flash_bwd_bound(16, 1024, 1024, 512, True, "bfloat16",
-                                            flops * 512, n_out)
         ms_256, _ = chip_smoke._flash_bwd_bound(bh, t, t, d, True, "bfloat16",
                                                 flops * d, n_out)
-        assert ms == pytest.approx(ms_256, rel=2e-3)
+        for wide_bh, wide_d in ((16, 512), (8, 1024)):
+            ms, _ = chip_smoke._flash_bwd_bound(wide_bh, 1024, 1024, wide_d, True,
+                                                "bfloat16", flops * wide_d, n_out)
+            assert ms == pytest.approx(ms_256, rel=2e-3)
 
 
 def _flash_rows():
     """Stand-in phase-2 rows for the kernels line: the forward's prefill,
     training and wide rows, bf16, and its f32 rows at the f32 steps'
     shapes and at d 512, and the backward's training and wide rows, bf16
-    and f32, and its f32 row at d 1024."""
+    and f32, and its f32 and bf16 rows at d 1024."""
     def fwd(bh, t, d):
         return dict(dtype="bfloat16", bh=bh, tq=t, tk=t, d=d, causal=True,
                     err_o=0.01, ms=0.1, kernel_only_ms=0.1,
@@ -530,7 +546,10 @@ def _flash_rows():
             [bwd(*s) for s in shapes[1:]] + [f32, wide_f32, wide_f32 | dict(
                 bh=8, d=1024, err_dq=4e-6, err_dk=9e-6, err_dv=6e-6, ms=2.2,
                 dq_kernel_only_ms=1.0, dkv_kernel_only_ms=1.2, plain_ms=9.0,
-                library_ms=0.9)])
+                library_ms=0.9)] + [bwd(8, 1024, 1024) | dict(
+                    err_dq=0.004, err_dk=0.008, err_dv=0.016, ms=0.64,
+                    dq_kernel_only_ms=0.26, dkv_kernel_only_ms=0.38, plain_ms=3.1,
+                    library_ms=4.3, dq_kernel_only_ms_by_block_q={16: 0.31, 32: 0.26})])
 
 
 def _phase4(train, wide_launches, f32_launches=None, wide_f32_launches=None):
@@ -545,8 +564,8 @@ def _phase4(train, wide_launches, f32_launches=None, wide_f32_launches=None):
 
 def test_flash_summary_names_the_wide_kernels():
     """The kernels line's flash entries carry every key of the contract;
-    their wide-head entries name the wide kernels at 256 and 512 with
-    their bound shares and the wide training step's launches."""
+    their wide-head entries name the wide kernels at 256, 512 and 1024
+    with their bound shares and the wide training step's launches."""
     rows, bwd_rows = _flash_rows()
     train = {"flash_fwd": 8, "flash_dq": 8, "flash_dkv": 8}
     entries = chip_smoke._flash_summary({
@@ -562,7 +581,8 @@ def test_flash_summary_names_the_wide_kernels():
         assert e["wide_head"]["shape"] == [32, 1024, 256]
         assert e["wide_head_512"]["shape"] == [16, 1024, 512]
         assert e["wide_train_launches"] == 2
-    assert "wide_head_1024" not in entries[1] and "wide_head_1024" not in entries[2]
+    assert all(e["wide_head_1024"]["kernel"] == f"{e['name']}_kernel_wide"
+               for e in entries)
     dq, dkv = entries[1], entries[2]
     assert dq["wide_head"]["bound_share"] == pytest.approx(0.3)
     assert dkv["wide_head_512"]["bound_share"] == pytest.approx(0.175)
@@ -572,20 +592,22 @@ def test_flash_summary_names_the_wide_kernels():
 
 def test_forward_only_case_times_the_wide_forward_at_1024():
     """Phase 2 times the wide forward at [8, 1024, 1024] bf16 causal (the
-    other wide rows' bound by bytes: bh x d = 8192), the forward alone:
-    the bf16 backward at 1024 still runs the SIMT kernels, and stays at
-    t 200; the f32 forward there is timed with its backward
+    other wide rows' bound by bytes: bh x d = 8192), and now the wide
+    backward at 1024 with it (``WIDE_1024_CASES``, among the forward and
+    the backward cases alike), as the f32 kernels there are timed
     (``WIDE_F32_1024_CASES``)."""
-    assert chip_smoke.FWD_ONLY_CASES == [("bfloat16", 1024, 8, 1024, 1024, True)]
+    assert chip_smoke.WIDE_1024_CASES == [("bfloat16", 1024, 8, 1024, 1024, True)]
     assert chip_smoke.WIDE_F32_1024_CASES == [("float32", 1024, 8, 1024, 1024, True)]
+    assert not hasattr(chip_smoke, "FWD_ONLY_CASES")
     fwd, bwd = chip_smoke.fwd_cases(), chip_smoke.bwd_cases()
-    assert fwd[-1:] == chip_smoke.FWD_ONLY_CASES and len(set(fwd)) == len(fwd)
-    assert not set(chip_smoke.FWD_ONLY_CASES) & set(bwd)
+    assert fwd[-1:] == bwd[-1:] == chip_smoke.WIDE_1024_CASES
+    assert len(set(fwd)) == len(fwd)
     assert [c for c in bwd if c[1] == 1024] == [("bfloat16", 1024, 4, 200, 200, True),
                                                 ("float32", 1024, 4, 200, 200, True),
-                                                ("float32", 1024, 8, 1024, 1024, True)]
+                                                ("float32", 1024, 8, 1024, 1024, True),
+                                                ("bfloat16", 1024, 8, 1024, 1024, True)]
     assert chip_smoke.bwd_kernel_names("bfloat16", 1024) == (
-        "flash_dq_kernel_f32<", "flash_dkv_kernel_f32<")
+        "flash_dq_kernel_wide<", "flash_dkv_kernel_wide<")
     ms, by = chip_smoke._flash_bound(8, 1024, 1024, 1024, True, "bfloat16")
     d, bh, t = chip_smoke.WIDE_HEAD
     ms_256, _ = chip_smoke._flash_bound(bh, t, t, d, True, "bfloat16")
@@ -594,10 +616,12 @@ def test_forward_only_case_times_the_wide_forward_at_1024():
 
 def test_forward_cases_keep_every_earlier_row():
     """The forward cases are the backward's (bar its prefill-length
-    rows and the forward-only one) plus the forward's own t 512 rows."""
+    rows) plus the forward's own t 512 rows; the bf16 row at [8, 1024,
+    1024] is in both."""
     fwd, bwd = set(chip_smoke.fwd_cases()), set(chip_smoke.bwd_cases())
     assert bwd <= fwd
-    extra = fwd - bwd - set(chip_smoke.FWD_ONLY_CASES)
+    assert set(chip_smoke.WIDE_1024_CASES) <= bwd
+    extra = fwd - bwd
     assert {(t, tk, bh) for _, _, bh, t, tk, _ in extra} == {(512, 512, 16)}
 
 
@@ -818,6 +842,33 @@ def test_flash_summary_gives_the_backward_its_wide_f32_1024_row():
     assert dq["wide_head_f32"]["shape"] == [32, 1024, 256]
 
 
+def test_flash_summary_gives_the_backward_its_1024_row():
+    """The backward entries carry ``wide_head_1024``: the wide bf16
+    kernels at [8, 1024, 1024] causal (``WIDE_1024_CASES``), each one's
+    time beside the whole call, the plain version and SDPA, its bound and
+    share, flash_dq's time at each of its tilings, and no launches (no
+    step runs bf16 at 1024)."""
+    rows, bwd_rows = _flash_rows()
+    train = {"flash_fwd": 8, "flash_dq": 8, "flash_dkv": 8}
+    _, dq, dkv = chip_smoke._flash_summary({
+        "2": rows, "2bwd": bwd_rows, "3": ({"flash_fwd": 8}, {}),
+        "4": _phase4(train, {"flash_fwd": 2, "flash_dq": 2, "flash_dkv": 2})})
+    for e, name, ms, err, bound in ((dq, "flash_dq", 0.26, 0.004, 0.03),
+                                    (dkv, "flash_dkv", 0.38, 0.016, 0.035)):
+        w = e["wide_head_1024"]
+        assert w["kernel"] == f"{name}_kernel_wide" and w["shape"] == [8, 1024, 1024]
+        assert (w["ms"], w["backward_ms"], w["plain_ms"], w["library_ms"]) == \
+            (ms, 0.64, 3.1, 4.3)
+        assert w["max_abs_err"] == err
+        assert w["bound_ms"] == bound and w["bound_share"] == pytest.approx(bound / ms)
+        assert "launches" not in w
+    assert dq["wide_head_1024"]["ms_by_block_q"] == {16: 0.31, 32: 0.26}
+    assert "ms_by_block_q" not in dkv["wide_head_1024"]
+    # the rows at 512 and the f32 row at 1024 stay their own
+    assert dq["wide_head_512"]["shape"] == [16, 1024, 512]
+    assert dq["wide_head_f32_1024"]["kernel"] == "flash_dq_kernel_wide_tf32x3"
+
+
 def test_wide_f32_512_row_is_timed_at_the_wide_bound():
     """Phase 2 times the wide f32 kernels at [16, 1024, 512] causal too
     (forward and backward; the bound of [32, 1024, 256]), beside their
@@ -926,14 +977,14 @@ def test_f32_train_is_the_training_width_in_f32():
 
 def test_parent_rows_script_needs_the_card_and_no_jax():
     """``scripts/flash_fwd_rows.py`` (the parent's time at the
-    forward-only rows) imports nothing of JAX and exits 2 without a
+    bf16 rows at 1024) imports nothing of JAX and exits 2 without a
     card, printing no row."""
     _script_needs_the_card_and_no_jax("flash_fwd_rows.py", "flash_fwd ")
 
 
 def test_bwd_rows_script_needs_the_card_and_no_jax():
-    """``scripts/flash_bwd_rows.py`` (the parent's backward at the f32
-    rows at d 512 and 1024 and its errors at scale 4) likewise."""
+    """``scripts/flash_bwd_rows.py`` (another checkout's backward at the
+    wide rows, bf16 and f32, and its errors at scale 4) likewise."""
     _script_needs_the_card_and_no_jax("flash_bwd_rows.py", "flash_bwd ")
 
 

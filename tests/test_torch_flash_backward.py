@@ -37,6 +37,7 @@ from deeplearning4j_tpu.ops.flash_attention import (
 from deeplearning4j_tpu_torch import kernels
 from deeplearning4j_tpu_torch.ops.flash_attention import (
     _bwd_block,
+    _flash_bwd_cuda,
     _flash_fwd_cuda,
     _prescale,
     _scale,
@@ -194,6 +195,33 @@ def test_plain_bwd_at_wide_tf32x3_tiles_matches_pallas_on_ragged_tiles(
     for t, w in zip(got, want):
         assert t.dtype == torch.float32 and t.shape == w.shape
         _close(t.numpy(), w, TOL["float32"])
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("tq,tk", [(40, 40), (24, 40)])
+@pytest.mark.parametrize("bq,bk", [
+    (16, 16),  # flash_dq_kernel_wide<1024, 16>: 16 rows, 16-key tiles;
+               # flash_dkv_kernel_wide<1024>: 16 keys, 16-query tiles
+    (32, 8),   # flash_dq_kernel_wide<1024, 32>: 32 rows, 8-key tiles
+])
+def test_plain_bwd_at_wide_1024_tiles_matches_pallas_on_ragged_tiles(
+        rng, causal, tq, tk, bq, bk):
+    """The bf16 kernels' oracle at the wide bf16 kernels' own tiles at a
+    head of 1024 (one ragged tile in q and in k; at tq < tk an offset
+    diagonal) against the Pallas backward at exact blocks of 8, at the
+    bf16 tolerance."""
+    q, k, v = _arrays(rng, [(2, tq, 1024), (2, tk, 1024), (2, tk, 1024)])
+    (g,) = _arrays(rng, [(2, tq, 1024)])
+    jq, jk, jv, jg = (_jax(a, "bfloat16") for a in (q, k, v, g))
+    jo, jl = _flash_fwd_impl(jq, jk, jv, causal, 8, 8, interpret=True)
+    want = _flash_bwd_impl(jq, jk, jv, jo, jl, jg, causal, 8, 8,
+                           interpret=True)
+    got = flash_attention_bwd_plain(
+        *(_torch(a, "bfloat16") for a in (q, k, v, jo)),
+        torch.tensor(np.asarray(jl)), _torch(g, "bfloat16"), causal, bq, bk)
+    for t, w in zip(got, want):
+        assert t.dtype == torch.bfloat16 and t.shape == w.shape
+        _close(t.float().numpy(), w, TOL["bfloat16"])
 
 
 @pytest.mark.parametrize("d", sorted(REF_SCALE4_REL))
@@ -534,7 +562,7 @@ def _bwd_kernel_names(dtype, d):
     """The two backward kernels a padded head of ``d`` runs in ``dtype``
     (as chip_smoke.bwd_kernel_names has them)."""
     if dtype == "bfloat16":
-        suffix = "" if d <= 128 else "_wide" if d <= 512 else "_f32"
+        suffix = "" if d <= 128 else "_wide"
     else:
         suffix = "_tf32x3" if d <= 128 else "_wide_tf32x3"
     return (f"flash_dq_kernel{suffix}<", f"flash_dkv_kernel{suffix}<")
@@ -675,33 +703,6 @@ def test_tf32x3_kernels_hold_hard_f32_inputs_on_card(cuda_device, kind, d, causa
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,d", [("bfloat16", 1024)])
-def test_simt_backward_keeps_the_heads_it_had_on_card(cuda_device, dtype, d):
-    """The bf16 heads of 1024 still run the SIMT kernels
-    (flash_dq_kernel_f32, flash_dkv_kernel_f32), one launch each, within
-    the tolerances of the plain backward (the f32 heads of 1024 run the
-    wide 3xTF32 kernels)."""
-    bh, tq, tk = 2, 72, 200
-    g = torch.Generator(device=cuda_device).manual_seed(6)
-    dt = getattr(torch, dtype)
-    q, k, v, do = (torch.randn(bh, t, d, generator=g, device=cuda_device).to(dt)
-                   for t in (tq, tk, tk, tq))
-    o, lse = flash_attention_fwd(q, k, v, True)
-    kernels.reset_launches()
-    got = flash_attention_bwd(q, k, v, o, lse, do, True)
-    torch.cuda.synchronize()
-    assert dict(kernels.LAUNCHES) == {"flash_dq": 1, "flash_dkv": 1}
-    want = flash_attention_bwd_plain(q, k, v, o, lse, do, True)
-    for a, b in zip(got, want):
-        ref = b.float().abs().max().item()
-        tol = 2e-5 if dtype == "float32" else 2e-2 * ref
-        assert (a.float() - b.float()).abs().max().item() <= tol
-    assert _bwd_kernel_names(dtype, d) == ("flash_dq_kernel_f32<", "flash_dkv_kernel_f32<")
-    _assert_profiled(lambda: flash_attention_bwd(q, k, v, o, lse, do, True),
-                     _bwd_kernel_names(dtype, d))
-
-
-@pytest.mark.cuda
 @pytest.mark.parametrize("d", [160, 256, 320, 512, 640, 1024])  # run at 256, 512, 1024
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("bh,tq,tk", [
@@ -796,7 +797,7 @@ def test_autograd_runs_the_kernels_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [160, 256, 320, 512])  # run at 256 and 512
+@pytest.mark.parametrize("d", [160, 256, 320, 512, 640, 1024])  # run at 256, 512, 1024
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("bh,tq,tk", [
     (8, 200, 200),     # ragged last q- and k-tiles
@@ -804,7 +805,7 @@ def test_autograd_runs_the_kernels_on_card(cuda_device):
     (1, 2048, 2048),   # one head: few blocks, a long loop
 ])
 def test_wide_bf16_backward_matches_plain_on_card(cuda_device, d, causal, bh, tq, tk):
-    """The bf16 heads of 129-512 run flash_dq_kernel_wide and
+    """The bf16 heads of 129-1024 run flash_dq_kernel_wide and
     flash_dkv_kernel_wide, one launch each per backward call, within
     2e-2 x max |ref| of the plain backward (ds and p rounded to bf16,
     the partial scores summed in another order)."""
@@ -819,6 +820,38 @@ def test_wide_bf16_backward_matches_plain_on_card(cuda_device, d, causal, bh, tq
     want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
     for a, b in zip(got, want):
         assert a.shape == b.shape and a.is_contiguous()
+        assert bool(torch.isfinite(a.float()).all())
+        ref = b.float().abs().max().item()
+        assert (a.float() - b.float()).abs().max().item() <= 2e-2 * ref
+    assert _bwd_kernel_names("bfloat16", d) == ("flash_dq_kernel_wide<",
+                                                "flash_dkv_kernel_wide<")
+    _assert_profiled(lambda: flash_attention_bwd(q, k, v, o, lse, do, causal),
+                     _bwd_kernel_names("bfloat16", d))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_q", [0, 16, 32])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("bh,tq,tk", [(8, 128, 320), (8, 200, 200), (8, 72, 200),
+                                      (2, 1024, 1024)])
+def test_bf16_1024_backward_matches_plain_in_both_tilings_on_card(cuda_device, causal, bh,
+                                                                 tq, tk, block_q):
+    """The bf16 head of 1024 runs flash_dq_kernel_wide in blocks of 16
+    rows (eight warps on one row group, 16-key tiles) or 32 (two row
+    groups of four warps, 8-key tiles, a row group's rows past tq or keys
+    above its diagonal skipped), and the one the kernel picks (0), beside
+    flash_dkv_kernel_wide: one launch each, within 2e-2 x max |ref| of
+    the plain backward, at an offset, ragged tiles and full tiles."""
+    g = torch.Generator(device=cuda_device).manual_seed(10)
+    q, k, v, do = (torch.randn(bh, t, 1024, generator=g, device=cuda_device)
+                   .to(torch.bfloat16) for t in (tq, tk, tk, tq))
+    o, lse = flash_attention_fwd(q, k, v, causal)
+    kernels.reset_launches()
+    got = _flash_bwd_cuda(q, k, v, o, lse, do, causal, block_q)
+    torch.cuda.synchronize()
+    assert dict(kernels.LAUNCHES) == {"flash_dq": 1, "flash_dkv": 1}
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    for a, b in zip(got, want):
         assert bool(torch.isfinite(a.float()).all())
         ref = b.float().abs().max().item()
         assert (a.float() - b.float()).abs().max().item() <= 2e-2 * ref
