@@ -112,7 +112,13 @@ Phases (any failure ends the run with a non-zero exit and no result):
    plain versions on the card; 20 steps on the batch give finite losses
    that fall; step time, tokens/s, MFU, the device busy share (beside
    the share of the port's kernel events the profile kept) and the
-   attention kernels' device time per step are printed. Then one
+   attention kernels' device time per step are printed. Then the
+   ``fit_scan`` row (``fit_scan_row``): the port's ``gpt_benchmark`` at
+   its defaults (this width, 4 staged minibatches, 12 epochs a call, a
+   warm-up call and the best of two timed ones): finite scores that
+   fall, each flash kernel launched once per block on every step, and
+   the step on the host's clock, tokens/s, MFU and busy share printed
+   (``train_fit_scan``). Then one
    ``gradient_and_score`` step at a wide head (``WIDE_TRAIN``: d_model
    1024 over 4 heads of 256, 2 layers, seq 1024, batch 8, bf16), with
    the kernels against the plain versions on the card at the same
@@ -159,7 +165,11 @@ Phases (any failure ends the run with a non-zero exit and no result):
    launches ``lstm_fwd``, ``lstm_bwd`` and ``lstm_dw`` once and
    ``lstm_fwd_only`` never; 20 steps give a loss that falls; step time,
    tokens/s, MFU at the f32 peak, busy share and the three kernels' ms
-   per step are printed (``char_train_f32``).
+   per step are printed (``char_train_f32``). Before it, the bf16
+   stack's ``fit_scan`` row at ``bench_lstm``'s shapes (2 staged
+   minibatches of 1024, seq 128, Markov ids, ``CHAR_SCAN_EPOCHS`` a
+   call): ``lstm_fwd``, ``lstm_bwd`` and ``lstm_dw`` twice on every step
+   (``char_train_fit_scan``).
 7. LeNet-MNIST training at full width: the JAX package's flagship
    (``__graft_entry__._flagship``: conv 20@5x5, max 2x2/2, conv 50@5x5,
    max 2x2/2, dense 500, softmax 10; relu, Adam at 0.01, seed 12345,
@@ -180,13 +190,37 @@ Phases (any failure ends the run with a non-zero exit and no result):
    gated: the gradients over all 64 and the trained copy's (its softmax
    saturates), and the untrained copy's output error with the port's
    f32 scope taken away (TF32). The trained copy's zip, saved on the
-   card, restores on the CPU with the CPU net's outputs.
+   card, restores on the CPU with the CPU net's outputs. A ``fit_scan``
+   row on the 8 staged minibatches (``LENET_SCAN_EPOCHS`` a call, no
+   port kernel: ``lenet_train_fit_scan``).
 8. MLP-Iris training at full width: the JAX package's benchmark net
    (4-64-64-3, relu, Adam at 0.1, seed 3, bf16) on the 150 Iris rows
    tiled 256 times, 20 steps of 4096 (no port kernel either): losses
    that fall, step ms, examples/s and busy share; ``evaluate`` on the
    150 rows; ``check_gradients`` in f64 on the card over every
-   parameter of the trained net must pass.
+   parameter of the trained net must pass; a ``fit_scan`` row on
+   ``bench_mlp_iris``'s staging (9 minibatches of 4096, the tail dropped;
+   ``mlp_iris_train_fit_scan``).
+9. the ComputationGraph: (a) ResNet-50 through the port's
+   ``resnet50_benchmark`` at batch 128, 224 x 224, 1000 classes, bf16,
+   nesterovs 0.1 (8 staged minibatches of ``default_rng(0)`` images, 12
+   epochs a call): finite scores that fall, no port kernel, examples/s,
+   MFU (``resnet50_train_flops_per_example`` over 989 TFLOP/s), busy
+   share and peak memory (``resnet50_fit_scan``); (b) a tiny ResNet
+   (stages (1, 1), widths (8, 16), 4 classes, f32, 32 x 32) on the card
+   against the CPU: outputs, score and one step within 1e-4 relative;
+   (c) the char-RNN as a graph on phase 5's weights: a ``rnn_time_step``
+   burst equal to the MultiLayerNetwork's (``lstm_fwd_only`` once per
+   layer per step), a single step within ``SERVE_OUT_TOL``, and greedy
+   ``generate`` equal to the MultiLayerNetwork's, through
+   ``lstm_fwd_only`` only; (d) a ``gpt`` chain as a graph on phase 3's
+   weights: greedy ``generate`` equal to the MultiLayerNetwork's, with
+   the same launches, ``flash_fwd`` among them.
+
+Phase 2's rows carry their wall time (``row_s``) and each phase line
+the time since the start (``[t ... s]``); the kernels line gives each
+kernel its launches per step on the fit_scan paths and on phase 9's
+graph generate paths.
 
 The last lines are the card's name and power limit, one JSON object
 with every kernel's numbers, and ``{"ok": true, "device": {...}}``
@@ -216,6 +250,13 @@ TOL = {  # kernel vs its plain version: max |o - o_plain|, max |lse - lse_plain|
     "bfloat16": (2e-2, 1e-4),
 }
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # H100 SXM dense
+# calls per profile (and per CUDA-event timing) of the forward rows'
+# kernel, tilings and SDPA
+FWD_REPS = 10
+# calls per profile of phase 2's plain versions: a plain call at t 2048
+# launches ~10k small kernels, and the profiler's processing of their
+# events, not the card, sets those rows' wall time
+PLAIN_REPS = 1
 PEAK_BYTES = 3.35e12
 # the f32 flash backward at heads <= 128 runs on the tensor cores in
 # 3xTF32: three TF32 products for each f32 one, at the dense TF32 rate
@@ -374,6 +415,29 @@ LENET_OUT_REL, LENET_GRAD_REL = 1e-4, 1e-3
 KINK_REL, KINK_TOL, KINK_DRAWS, LENET_MIN_KEPT = 1e-6, 1e-4, 2, 56
 # MLP-Iris (phase 8): the JAX package's benchmark, its 150 rows tiled
 IRIS_TILES, IRIS_BATCH, IRIS_STEPS = 256, 4096, 20
+# the fit_scan rows of phases 6-8 (each a warm-up fit_scan and the best
+# of two timed ones, ``best_of_fit_scan``): epochs per call, over the
+# staged minibatches (2 of the char-RNN's, 8 of LeNet's, 9 of MLP-Iris's)
+CHAR_SCAN_EPOCHS, LENET_SCAN_EPOCHS, IRIS_SCAN_EPOCHS = 10, 5, 5
+# phase 9 (a): ResNet-50 through resnet50_benchmark at the JAX package's
+# benchmark size (batch 128, 224 x 224, 1000 classes, bf16, nesterovs
+# 0.1), 8 staged minibatches, 12 epochs per call
+RESNET_BATCH, RESNET_IMAGE, RESNET_STEPS = 128, 224, 8
+# phase 9 (b): a tiny ResNet in f32 on the card against the CPU
+# (tests/test_zoo.py's size): outputs, score and one step
+TINY_RESNET = dict(stages=(1, 1), widths=(8, 16), num_classes=4,
+                   compute_dtype="float32", learning_rate=0.01)
+TINY_RESNET_BATCH, TINY_RESNET_IMAGE, TINY_RESNET_REL = 8, 32, 1e-4
+# phase 9 (d): new tokens of the gpt chain's greedy generate
+GRAPH_NEW = 32
+
+
+T0 = time.perf_counter()
+
+
+def _say(msg: str, flush: bool = True) -> None:
+    """A phase line, with the seconds since the smoke started."""
+    print(f"{msg} [t {time.perf_counter() - T0:.1f} s]", flush=flush)
 
 
 def _check(ok: bool, what: str) -> None:
@@ -725,6 +789,7 @@ def bwd_row(torch, F, kernels, flash, g, case, names):
         qs_, ks_, vs_, **lib_kw)
     lib_fb = lambda: torch.autograd.grad(  # noqa: E731
         lib_fwd(), (qs_, ks_, vs_), do[None])
+    t_row = time.perf_counter()
     times = _device_times(torch, kernel, 10)
     # the whole call is one launch of each of the two kernels that
     # this dtype and head take
@@ -748,13 +813,12 @@ def bwd_row(torch, F, kernels, flash, g, case, names):
                dq_kernel_only_ms=_sum_ms(times, "flash_dq_kernel"),
                dkv_kernel_only_ms=_sum_ms(times, "flash_dkv_kernel"),
                dq_kernel_only_ms_by_block_q=by_block_q,
-               plain_ms=_device_ms(torch, plain, 2),
+               plain_ms=_device_ms(torch, plain, PLAIN_REPS),
                library_ms=(_device_ms(torch, lib_fb, 10)
                            - _device_ms(torch, lib_fwd, 10)),
                dq_bound_ms=dq_bound[0], dq_bound_by=dq_bound[1],
                dkv_bound_ms=dkv_bound[0], dkv_bound_by=dkv_bound[1],
                call_ms=_time_ms(torch, kernel, 10),
-               plain_call_ms=_time_ms(torch, plain, 2, warmup=1),
                kernels=sorted(times))
     if dtype == "float32":
         # the bound on the tensor cores in 3xTF32 beside the f32 CUDA-core
@@ -766,6 +830,7 @@ def bwd_row(torch, F, kernels, flash, g, case, names):
             row[f"{key}_bound_tf32x3_share"] = ms / row[f"{key}_kernel_only_ms"]
             row[f"{key}_bound_share"] = (row[f"{key}_bound_ms"]
                                          / row[f"{key}_kernel_only_ms"])
+    row["row_s"] = time.perf_counter() - t_row
     return row
 
 
@@ -931,7 +996,8 @@ def fwd_row(torch, F, flash, g, case, kernel):
         q[None], k[None], v[None], attn_mask=mask,
         is_causal=causal and mask is None)
     bound_ms, bound_by = _flash_bound(bh, tq, tk, d, causal, dtype)
-    times = _device_times(torch, run, 20)
+    t_row = time.perf_counter()
+    times = _device_times(torch, run, FWD_REPS)
     # the whole call is one launch of the kernel (q is scaled inside),
     # the one this dtype and head take
     _check(kernel is None or all(kernel in name for name in times),
@@ -947,19 +1013,18 @@ def fwd_row(torch, F, flash, g, case, kernel):
         for bq in tilings:
             tiled = lambda: flash._flash_fwd_cuda(q, k, v, causal, bq)  # noqa: E731
             errors(*tiled(), f"block_q {bq}")
-            by_block_q[bq] = _device_ms(torch, tiled, 20, "flash_fwd_kernel")
+            by_block_q[bq] = _device_ms(torch, tiled, FWD_REPS, "flash_fwd_kernel")
     row = dict(dtype=dtype, bh=bh, tq=tq, tk=tk, d=d, causal=causal,
                err_o=err_o, err_lse=err_l,
                ms=_sum_ms(times),
                kernel_only_ms=_sum_ms(times, "flash_fwd_kernel"),
                kernel_only_ms_by_block_q=by_block_q,
-               plain_ms=_device_ms(torch, plain, 3),
-               library_ms=_device_ms(torch, library, 20),
+               plain_ms=_device_ms(torch, plain, PLAIN_REPS),
+               library_ms=_device_ms(torch, library, FWD_REPS),
                bound_ms=bound_ms, bound_by=bound_by,
-               call_ms=_time_ms(torch, run, 20),
-               plain_call_ms=_time_ms(torch, plain, 3, warmup=1),
-               library_call_ms=_time_ms(torch, library, 20),
+               call_ms=_time_ms(torch, run, FWD_REPS),
                kernels=sorted(times))
+    row["row_s"] = time.perf_counter() - t_row
     if dtype == "float32":
         # the bound on the tensor cores in 3xTF32 beside the f32 CUDA-core
         # one (``bound_ms``), and the kernel's share of both, as the f32
@@ -1193,10 +1258,37 @@ def phase_train(torch, np, kernels, flash):
                    top_kernels_ms_per_step=[[k[:90], ms] for k, ms in top])
     print("train " + json.dumps(metrics), flush=True)
     del net
+    metrics["fit_scan"] = _gpt_fit_scan(torch, np, kernels, flash)
     metrics["wide_head"] = phase_train_wide(torch, np, kernels, flash)
     metrics["f32"] = phase_train_f32(torch, np, kernels, flash)
     metrics["wide_f32"] = phase_train_f32(torch, np, kernels, flash, "train_wide_f32")
     return launches, metrics
+
+
+def _gpt_fit_scan(torch, np, kernels, flash):
+    """Phase 4's fit_scan row: the port's ``gpt_benchmark`` at its
+    defaults (the training width: vocab 8192, d_model 512, 8 layers, seq
+    1024, batch 16, bf16, Adam 3e-4, 4 staged minibatches of
+    ``default_rng(0)`` ids, 12 epochs a call); each flash kernel
+    launches once per block on every step."""
+    from deeplearning4j_tpu_torch.models.zoo.transformer import (
+        gpt_benchmark,
+        gpt_train_flops_per_token,
+    )
+
+    def run():
+        rec = {}
+        rec["result"] = gpt_benchmark(PEAK_FLOPS["bfloat16"], record=rec)
+        return rec
+
+    t = TRAIN["max_len"]
+    return fit_scan_row(
+        torch, np, kernels, "train", run, TRAIN_BATCH * t,
+        gpt_train_flops_per_token(TRAIN["vocab_size"], TRAIN["d_model"],
+                                  TRAIN["n_layers"], t),
+        PEAK_FLOPS["bfloat16"],
+        {k: TRAIN["n_layers"] for k in (flash.KERNEL, flash.DQ_KERNEL,
+                                        flash.DKV_KERNEL)})
 
 
 def phase_train_wide(torch, np, kernels, flash):
@@ -1931,6 +2023,19 @@ def phase_char_train(torch, np, kernels, lk):
     metrics.update(witness_seed31=_char_train_witness(torch, np, lk, 31, ds),
                    witness_seed33=_char_train_witness(torch, np, lk, 33, ds2))
     print("char_train " + json.dumps(metrics), flush=True)
+    del net
+    # fit_scan at bench_lstm's shapes: 2 staged minibatches of 1024, seq
+    # 128 (Markov ids, so that the loss can fall), from these weights
+    scan_net = _char_rnn("bfloat16")
+    params_from_numpy(scan_net, _random_params(scan_net, seed=31))
+    ids = _markov_ids(np, np.random.default_rng(32), 2 * CHAR_BATCH, CHAR_SEQ)
+    metrics["fit_scan"] = fit_scan_row(
+        torch, np, kernels, "char_train",
+        _scan_run(scan_net, DataSet(eye[ids], eye[np.roll(ids, -1, axis=1)]),
+                  CHAR_BATCH, CHAR_SCAN_EPOCHS),
+        CHAR_BATCH * CHAR_SEQ, flops, PEAK_FLOPS["bfloat16"],
+        {lk.FWD_KERNEL: 2, lk.BWD_KERNEL: 2, lk.DW_KERNEL: 2})
+    del scan_net
     metrics["f32"] = _char_train_f32(torch, np, kernels, lk)
     return launches, metrics
 
@@ -2190,6 +2295,65 @@ def _train_metrics(torch, net, batches, steps, flops_per_example):
                 top_kernels_ms_per_step=[[k[:90], ms] for k, ms in top])
 
 
+def fit_scan_row(torch, np, kernels, what, run, units_per_step,
+                 flops_per_unit, peak, want):
+    """A ``fit_scan`` row: ``run()`` trains (a warm-up ``fit_scan`` and
+    the best of two timed ones, ``best_of_fit_scan``) and returns a dict
+    with the ``net``, its ``staged`` data, every call's ``scores`` in
+    order and the best call's ``seconds``; the port's kernel launches
+    are counted over it. Gates: finite scores, a loss that falls from the
+    first score to the last, and exactly ``want`` (kernel -> launches per
+    step) launched on every step. Then one epoch of ``fit_scan``
+    profiled for the device time per step. Prints and returns the step
+    on the host's clock, units/s, MFU at ``peak`` (None without
+    ``flops_per_unit``), the busy share and the launches."""
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    rec = run()
+    torch.cuda.synchronize()
+    launches = _port_launches(kernels)
+    net, staged, scores = rec["net"], rec["staged"], np.asarray(rec["scores"])
+    x0 = next(iter(staged[0].values())) if isinstance(staged[0], dict) else staged[0]
+    steps, batch = x0.shape[0], x0.shape[1]
+    total = len(scores)  # steps over the three calls
+    _check(bool(np.isfinite(scores).all()), f"{what} fit_scan: finite scores")
+    _check(scores[-1] < scores[0], f"{what} fit_scan: loss did not fall: "
+           f"{scores[0]} -> {scores[-1]}")
+    _check(launches == {k: v * total for k, v in want.items() if v},
+           f"{what} fit_scan launched {launches} in {total} steps, expected "
+           f"{want} per step")
+    step_s = rec["seconds"] / (total // 3)
+    per = _device_times(torch, lambda: net.fit_scan(None, batch, epochs=1,
+                                                    staged=staged), 1)
+    dev_ms = _sum_ms(per) / steps
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
+    m = dict(step_ms=step_s * 1e3, units_per_s=units_per_step / step_s,
+             mfu=(units_per_step / step_s * flops_per_unit / peak
+                  if flops_per_unit else None),
+             step_device_ms=dev_ms, device_busy_share=dev_ms / (step_s * 1e3),
+             profile_kept_share=getattr(per, "kept_share", None), steps=total,
+             steps_per_call=total // 3, loss_first=float(scores[0]),
+             loss_last=float(scores[-1]), launches=launches,
+             launches_per_step={k: v // total for k, v in launches.items()},
+             top_kernels_ms_per_step=[[k[:90], ms / steps] for k, ms in top])
+    if "result" in rec:
+        m["benchmark"] = rec["result"]
+    print(f"{what}_fit_scan " + json.dumps(m), flush=True)
+    return m
+
+
+def _scan_run(net, ds, batch, epochs):
+    """``fit_scan_row``'s ``run`` for a net and a dataset: staged once,
+    then ``best_of_fit_scan`` at ``epochs`` per call."""
+    from deeplearning4j_tpu_torch.models.zoo.benchmark import best_of_fit_scan
+
+    def run():
+        staged = net.stage_scan(ds, batch)
+        scores, seconds = best_of_fit_scan(net, batch, epochs, staged)
+        return dict(net=net, staged=staged, scores=scores, seconds=seconds)
+    return run
+
+
 def phase_lenet(torch, np, kernels):
     """Phase 7: LeNet-MNIST at full width; returns its metrics."""
     import tempfile
@@ -2221,6 +2385,11 @@ def phase_lenet(torch, np, kernels):
            f"{ev.confusion.counts.sum()} examples")
     print(accuracy_line("lenet evaluate", ev, LENET_TEST, synthetic=True),
           flush=True)
+    scan = fit_scan_row(
+        torch, np, kernels, "lenet_train",
+        _scan_run(MultiLayerNetwork(_lenet_conf("bfloat16")).init(),
+                  DataSet(x, train.labels), LENET_BATCH, LENET_SCAN_EPOCHS),
+        LENET_BATCH, lenet_train_flops_per_example(), PEAK_FLOPS["bfloat16"], {})
 
     # f32 copies of the net, before and after training, on the card and on
     # the CPU, with cuDNN's TF32 on (PyTorch's default): the port's
@@ -2270,7 +2439,8 @@ def phase_lenet(torch, np, kernels):
            f"CPU {grads['init_kept']} over {int(kept.sum())} examples")
     _check(restored_equal, "the zip saved on the card restores on the CPU "
            "with other outputs")
-    m.update(setup_s=setup_s, flops_per_example=lenet_train_flops_per_example(),
+    m.update(fit_scan=scan, setup_s=setup_s,
+             flops_per_example=lenet_train_flops_per_example(),
              synthetic_test_accuracy=ev.accuracy(),
              f32_out_rel_card_vs_cpu=out_rel, f32_grad_rel_card_vs_cpu=grads,
              kink_free_examples=int(kept.sum()),
@@ -2308,6 +2478,15 @@ def phase_mlp_iris(torch, np, kernels):
     _check(not m["port_kernel_launches"], "the MLP step launched port "
            f"kernels: {m['port_kernel_launches']}")
     iris = load_iris_dataset()
+    # fit_scan on bench_mlp_iris's data: the rows tiled, 9 minibatches of
+    # 4096 (the tail of 1536 dropped, with the warning)
+    tiled = DataSet(np.tile(iris.features, (IRIS_TILES, 1)).astype(np.float32),
+                    np.tile(iris.labels, (IRIS_TILES, 1)).astype(np.float32))
+    m["fit_scan"] = fit_scan_row(
+        torch, np, kernels, "mlp_iris_train",
+        _scan_run(MultiLayerNetwork(_mlp_iris_conf("bfloat16")).init(), tiled,
+                  IRIS_BATCH, IRIS_SCAN_EPOCHS),
+        IRIS_BATCH, None, None, {})
     ev = net.evaluate(DataSet(iris.features.astype(np.float32),
                               iris.labels.astype(np.float32)))
     print(accuracy_line("mlp_iris evaluate", ev, 150, synthetic=False), flush=True)
@@ -2331,7 +2510,175 @@ def phase_mlp_iris(torch, np, kernels):
     return m
 
 
-PHASES = ("2", "2b", "3", "4", "5", "6", "7", "8")
+def char_rnn_graph(compute_dtype=None, device=None):
+    """``_char_rnn``'s stack as a ComputationGraph (in -> GravesLSTM ->
+    GravesLSTM -> RnnOutputLayer) on ``device`` (cuda by default), its
+    layers named as the MultiLayerNetwork's so that one parameter tree
+    loads into both."""
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.graph import (
+        ComputationGraph,
+        ComputationGraphConfiguration,
+    )
+
+    base = (NeuralNetConfiguration.builder().seed(1).learning_rate(0.01)
+            .updater("adam").activation("tanh"))
+    if compute_dtype:
+        base = base.compute_dtype(compute_dtype)
+    conf = (ComputationGraphConfiguration.builder(base.build())
+            .add_inputs("in")
+            .add_layer("layer0", L.GravesLSTM(n_in=CHAR_VOCAB, n_out=CHAR_HIDDEN), "in")
+            .add_layer("layer1", L.GravesLSTM(n_in=CHAR_HIDDEN, n_out=CHAR_HIDDEN),
+                       "layer0")
+            .add_layer("layer2", L.RnnOutputLayer(n_in=CHAR_HIDDEN, n_out=CHAR_VOCAB,
+                                                  activation="softmax",
+                                                  loss_function="mcxent"), "layer1")
+            .set_outputs("layer2")
+            .build())
+    return ComputationGraph(conf, device=device).init()
+
+
+def gpt_graph(conf, device=None):
+    """``gpt(**conf)`` as a single-input ComputationGraph chain (embedding
+    -> blocks -> head) on ``device`` (cuda by default), its layers named
+    as the MultiLayerNetwork's."""
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.graph import (
+        ComputationGraph,
+        ComputationGraphConfiguration,
+    )
+
+    base = (NeuralNetConfiguration.builder().seed(0).learning_rate(3e-4)
+            .updater("adam").activation("identity").weight_init("xavier")
+            .compute_dtype(conf["compute_dtype"]).build())
+    d, n = conf["d_model"], conf["n_layers"]
+    g = (ComputationGraphConfiguration.builder(base).add_inputs("ids")
+         .add_layer("layer0", L.SequenceEmbeddingLayer(
+             n_in=conf["vocab_size"], n_out=d, max_len=conf["max_len"]), "ids"))
+    for i in range(1, n + 1):
+        g = g.add_layer(f"layer{i}", L.TransformerBlock(
+            n_in=d, n_out=d, num_heads=conf["num_heads"], causal=True),
+            f"layer{i - 1}")
+    g = (g.add_layer(f"layer{n + 1}", L.RnnOutputLayer(
+        n_in=d, n_out=conf["vocab_size"], activation="softmax",
+        loss_function="mcxent"), f"layer{n}").set_outputs(f"layer{n + 1}"))
+    return ComputationGraph(g.build(), device=device).init()
+
+
+def phase_graph(torch, np, kernels, flash, lk):
+    """Phase 9: the ComputationGraph. (a) ResNet-50 through the port's
+    ``resnet50_benchmark`` at the JAX package's benchmark size; (b) a tiny
+    ResNet in f32 on the card against the CPU; (c) the char-RNN as a
+    graph on phase 5's weights; (d) a ``gpt`` chain as a graph on phase
+    3's weights. Returns its metrics."""
+    from deeplearning4j_tpu_torch.datasets.dataset import MultiDataSet
+    from deeplearning4j_tpu_torch.models.zoo import resnet as zoo
+    from deeplearning4j_tpu_torch.models.zoo.transformer import gpt
+    from deeplearning4j_tpu_torch.util.model_serializer import params_from_numpy
+
+    out = {}
+    # (a) ResNet-50: no port kernel runs on this path
+    torch.cuda.reset_peak_memory_stats()
+
+    def run():
+        rec = {}
+        rec["result"] = zoo.resnet50_benchmark(
+            PEAK_FLOPS["bfloat16"], batch=RESNET_BATCH, image_size=RESNET_IMAGE,
+            steps=RESNET_STEPS, record=rec)
+        return rec
+
+    a = fit_scan_row(torch, np, kernels, "resnet50", run, RESNET_BATCH,
+                     zoo.resnet50_train_flops_per_example(RESNET_IMAGE),
+                     PEAK_FLOPS["bfloat16"], {})
+    a["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["resnet50"] = a
+    torch.cuda.empty_cache()
+
+    # (b) the tiny ResNet, f32, card against CPU (TF32 off, as set above)
+    rng = np.random.default_rng(41)
+    x = rng.standard_normal((TINY_RESNET_BATCH, TINY_RESNET_IMAGE,
+                             TINY_RESNET_IMAGE, 3)).astype(np.float32)
+    y = np.eye(4, dtype=np.float32)[rng.integers(0, 4, TINY_RESNET_BATCH)]
+    cpu = zoo.resnet(device="cpu", **TINY_RESNET).init()
+    card = params_from_numpy(zoo.resnet(**TINY_RESNET).init(), _host_tree(cpu))
+    mds = MultiDataSet([x], [y])
+    b = dict(output_rel=_rel_err(card.output(x), cpu.output(x)),
+             score_rel=_rel_err(card.score(mds), cpu.score(mds)))
+    cpu.fit(mds)
+    card.fit(mds)
+    b["step_score_rel"] = _rel_err(card.score(), cpu.score())
+    b["step_params_rel"] = max(
+        _rel_err(card.params[l][n].cpu().numpy(), cpu.params[l][n].numpy())
+        for l in cpu.params for n in cpu.params[l])
+    for k, v in b.items():
+        _check(v <= TINY_RESNET_REL, f"tiny ResNet f32 card vs CPU: {k} {v}")
+    out["tiny_resnet"] = b
+
+    # (c) the char-RNN as a graph, phase 5's weights
+    net = _char_rnn(None)
+    tree = _random_params(net, seed=21)
+    params_from_numpy(net, tree)
+    graph = params_from_numpy(char_rnn_graph(), tree)
+    prompts = np.random.default_rng(22).integers(0, CHAR_VOCAB,
+                                                 (SERVE_BATCH, SERVE_PROMPT))
+    xs = np.eye(CHAR_VOCAB, dtype=np.float32)[prompts]
+    kernels.reset_launches()
+    burst = graph.rnn_time_step(xs)[0]
+    steps_launched = _lstm_launches(kernels, lk)[lk.FWD_ONLY_KERNEL]
+    _check(steps_launched == 2 * SERVE_PROMPT, f"the char-RNN graph's "
+           f"rnn_time_step launched lstm_fwd_only {steps_launched} times")
+    graph.rnn_clear_previous_state()
+    one = graph.rnn_time_step(xs[:, 0])[0]
+    want_burst = net.rnn_time_step(xs)
+    net.rnn_clear_previous_state()
+    # the burst runs the MultiLayerNetwork's operations on the same
+    # tensors; a single step reads a contiguous copy of the first step
+    _check(np.array_equal(burst, want_burst), "the char-RNN graph's "
+           "rnn_time_step burst differs from the MultiLayerNetwork's")
+    one_err = float(np.abs(one - want_burst[:, 0]).max())
+    _check(one_err <= SERVE_OUT_TOL, "the char-RNN graph's single "
+           f"rnn_time_step is {one_err} from the MultiLayerNetwork's")
+    kernels.reset_launches()
+    toks = graph.generate(prompts, SERVE_NEW)
+    gen_launches = _lstm_launches(kernels, lk)
+    _check(gen_launches[lk.FWD_ONLY_KERNEL] > 0 and not any(
+        v for k, v in gen_launches.items() if k != lk.FWD_ONLY_KERNEL),
+        f"the char-RNN graph's generate launched {gen_launches}")
+    _check(bool((toks == net.generate(prompts, SERVE_NEW)).all()),
+           "the char-RNN graph's generate differs from the MultiLayerNetwork's")
+    out["char_rnn_graph"] = dict(rnn_time_step_launches=steps_launched,
+                                 generate_launches=gen_launches)
+    del net, graph
+
+    # (d) a gpt chain as a graph, phase 3's weights
+    net = gpt(**GPT).init()
+    tree = _random_params(net, seed=7)
+    params_from_numpy(net, tree)
+    graph = params_from_numpy(gpt_graph(GPT), tree)
+    prompts = np.random.default_rng(8).integers(0, GPT["vocab_size"],
+                                                (BATCH, PROMPT))
+    kernels.reset_launches()
+    toks = graph.generate(prompts, GRAPH_NEW)
+    torch.cuda.synchronize()
+    graph_launches = _port_launches(kernels)
+    kernels.reset_launches()
+    want = net.generate(prompts, GRAPH_NEW)
+    torch.cuda.synchronize()
+    _check(graph_launches.get(flash.KERNEL, 0) > 0
+           and graph_launches == _port_launches(kernels),
+           f"the gpt graph's generate launched {graph_launches}, the "
+           f"MultiLayerNetwork's {_port_launches(kernels)}")
+    _check(bool((toks == want).all()), "the gpt graph's greedy generate "
+           "differs from the MultiLayerNetwork's")
+    out["gpt_graph"] = dict(generate_launches=graph_launches,
+                            new_tokens=GRAPH_NEW)
+    print("graph " + json.dumps(out), flush=True)
+    return out
+
+
+PHASES = ("2", "2b", "3", "4", "5", "6", "7", "8", "9")
 # source -> its bf16 kernels, each of whose instantiations must not spill:
 # the mma.sync designs keep their tiles, sums and (LSTM) cell state in
 # registers
@@ -2360,7 +2707,7 @@ def _spill_gate(name, report):
     fns = _ptxas(report)
     regs = [r for _, r, _ in fns]
     spills = [(f[f.find("kernel"):][:60], sp) for f, _, sp in fns if sp]
-    print(f"phase 1: {name}.cu ptxas: {len(fns)} kernels, "
+    _say(f"phase 1: {name}.cu ptxas: {len(fns)} kernels, "
           f"{min(regs)}-{max(regs)} registers, spills {spills}", flush=True)
     gated = [("bf16", k, lambda f, k=k: k + "I" in f and "bfloat16" in f)
              for k in BF16_KERNELS.get(name, ())]
@@ -2370,7 +2717,7 @@ def _spill_gate(name, report):
               for k in F32_KERNELS.get(name, ())]
     for dtype, kernel, match in gated:
         typed = [(f, r, sp) for f, r, sp in fns if match(f)]
-        print(f"phase 1: {dtype} {kernel} registers, spill bytes: "
+        _say(f"phase 1: {dtype} {kernel} registers, spill bytes: "
               f"{[(r, sp) for _, r, sp in typed]}", flush=True)
         _check(typed and not any(sp for _, _, sp in typed),
                f"{dtype} {kernel} spills: {typed}")
@@ -2409,7 +2756,7 @@ def main(argv) -> int:
     # phase 0: device
     card = _card()
     kind = torch.cuda.get_device_name(0)
-    print(f"phase 0: {kind} ({card}), torch {torch.__version__}, "
+    _say(f"phase 0: {kind} ({card}), torch {torch.__version__}, "
           f"cuda {torch.version.cuda}", flush=True)
 
     # phase 1: build every source, in parallel, from an empty build directory
@@ -2418,86 +2765,115 @@ def main(argv) -> int:
     reports = kernels.build()
     for name, report in reports.items():
         _spill_gate(name, report)
-    print(f"phase 1: built {sorted(reports)} in {time.perf_counter() - t0:.1f} s",
+    _say(f"phase 1: built {sorted(reports)} in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
     done = {}
     if "2" in phases:  # kernels against their plain versions
         done["2"] = phase_kernels(torch, F, flash)
-        print(f"phase 2: {len(done['2'])} flash_fwd cases within tolerance",
+        _say(f"phase 2: {len(done['2'])} flash_fwd cases within tolerance",
               flush=True)
         done["2bwd"] = phase_bwd_kernels(torch, F, kernels, flash)
-        print(f"phase 2: {len(done['2bwd'])} flash_dq/flash_dkv cases within "
+        _say(f"phase 2: {len(done['2bwd'])} flash_dq/flash_dkv cases within "
               "tolerance", flush=True)
         done["2scale4"] = phase_scale4(torch, np, flash)
     if "2b" in phases:
         print(f"clocks: {_clocks()}", flush=True)
         phase_lstm_timer(torch, lk)
         done["2b"] = phase_lstm_kernels(torch, lk)
-        print(f"phase 2b: {len(done['2b'])} LSTM cases (lstm_fwd_only, lstm_fwd, "
+        _say(f"phase 2b: {len(done['2b'])} LSTM cases (lstm_fwd_only, lstm_fwd, "
               "lstm_bwd + lstm_dw) within tolerance", flush=True)
     if "3" in phases:  # serving at full width
         done["3"] = phase_gpt(torch, np, kernels, flash)
         m = done["3"][1]
-        print(f"phase 3: gpt generate {m['tokens_per_s']:.1f} tokens/s, "
+        _say(f"phase 3: gpt generate {m['tokens_per_s']:.1f} tokens/s, "
               f"prefill {m['prefill_ms']:.3f} ms on {card}", flush=True)
     if "4" in phases:  # training at full width
         print(f"clocks: {_clocks()}", flush=True)
         done["4"] = phase_train(torch, np, kernels, flash)
         m = done["4"][1]
-        print(f"phase 4: gpt train step {m['step_ms']:.2f} ms, "
+        _say(f"phase 4: gpt train step {m['step_ms']:.2f} ms, "
               f"{m['tokens_per_s']:.0f} tokens/s, MFU {m['mfu']:.4f}, "
               f"loss {m['loss_first']:.4f} -> {m['loss_last']:.4f} on {card}",
               flush=True)
+        f = m["fit_scan"]
+        _say(f"phase 4: gpt fit_scan step {f['step_ms']:.2f} ms, "
+              f"{f['units_per_s']:.0f} tokens/s, MFU {f['mfu']:.4f}, busy "
+              f"{f['device_busy_share']:.3f}, loss {f['loss_first']:.4f} -> "
+              f"{f['loss_last']:.4f} on {card}", flush=True)
         w = m["wide_head"]
-        print(f"phase 4: wide-head (256) step {w['step_device_ms']:.3f} device ms, "
+        _say(f"phase 4: wide-head (256) step {w['step_device_ms']:.3f} device ms, "
               f"wide flash kernels {w['wide_kernels_share']:.3f} of it, "
               f"within tolerance of the plain attention on {card}", flush=True)
         for key, what in (("f32", "f32 step"), ("wide_f32", "wide-head (256) f32 step")):
             w = m[key]
-            print(f"phase 4: {what} {w['step_device_ms']:.3f} device ms, flash "
+            _say(f"phase 4: {what} {w['step_device_ms']:.3f} device ms, flash "
                   f"backward pair {w['backward_pair_share']:.3f} of it, within "
                   f"tolerance of the plain attention on {card}", flush=True)
     if "5" in phases:  # char-RNN serving at full width
         print(f"clocks: {_clocks()}", flush=True)
         done["5"] = phase_char_serve(torch, np, kernels, lk)
         m = done["5"][1]
-        print(f"phase 5: char-RNN generate {m['tokens_per_s']:.1f} tokens/s, "
+        _say(f"phase 5: char-RNN generate {m['tokens_per_s']:.1f} tokens/s, "
               f"prefill {m['prefill_ms']:.3f} ms on {card}", flush=True)
     if "6" in phases:  # char-RNN training at full width
         print(f"clocks: {_clocks()}", flush=True)
         done["6"] = phase_char_train(torch, np, kernels, lk)
         m = done["6"][1]
-        print(f"phase 6: char-RNN train step {m['step_ms']:.2f} ms, "
+        _say(f"phase 6: char-RNN train step {m['step_ms']:.2f} ms, "
               f"{m['tokens_per_s']:.0f} tokens/s, MFU {m['mfu']:.4f}, "
               f"loss {m['loss_first']:.4f} -> {m['loss_last']:.4f} on {card}",
               flush=True)
+        f = m["fit_scan"]
+        _say(f"phase 6: char-RNN fit_scan step {f['step_ms']:.2f} ms, "
+              f"{f['units_per_s']:.0f} tokens/s, MFU {f['mfu']:.4f}, busy "
+              f"{f['device_busy_share']:.3f}, loss {f['loss_first']:.4f} -> "
+              f"{f['loss_last']:.4f} on {card}", flush=True)
         m = m["f32"]
-        print(f"phase 6: f32 char-RNN example train step {m['step_ms']:.3f} ms, "
+        _say(f"phase 6: f32 char-RNN example train step {m['step_ms']:.3f} ms, "
               f"{m['tokens_per_s']:.0f} tokens/s, MFU {m['mfu']:.4f}, busy "
               f"{m['device_busy_share']:.3f}, loss {m['loss_first']:.4f} -> "
               f"{m['loss_last']:.4f} on {card}", flush=True)
     if "7" in phases:  # LeNet-MNIST training at full width
         print(f"clocks: {_clocks()}", flush=True)
         m = done["7"] = phase_lenet(torch, np, kernels)
-        print(f"phase 7: LeNet-MNIST train step {m['step_ms']:.3f} ms, "
+        _say(f"phase 7: LeNet-MNIST train step {m['step_ms']:.3f} ms, "
               f"{m['examples_per_s']:.0f} examples/s, MFU {m['mfu']:.4f}, "
               f"busy {m['device_busy_share']:.3f}, loss {m['loss_first']:.4f} -> "
               f"{m['loss_last']:.4f} on {card}", flush=True)
+        f = m["fit_scan"]
+        _say(f"phase 7: LeNet-MNIST fit_scan step {f['step_ms']:.3f} ms, "
+              f"{f['units_per_s']:.0f} examples/s, MFU {f['mfu']:.4f}, busy "
+              f"{f['device_busy_share']:.3f} on {card}", flush=True)
     if "8" in phases:  # MLP-Iris training at full width
         print(f"clocks: {_clocks()}", flush=True)
         m = done["8"] = phase_mlp_iris(torch, np, kernels)
-        print(f"phase 8: MLP-Iris train step {m['step_ms']:.3f} ms, "
+        _say(f"phase 8: MLP-Iris train step {m['step_ms']:.3f} ms, "
               f"{m['examples_per_s']:.0f} examples/s, busy "
               f"{m['device_busy_share']:.3f}, loss {m['loss_first']:.4f} -> "
               f"{m['loss_last']:.4f}, f64 gradient check passed "
               f"({m['gradcheck_n_checked']} parameters) on {card}", flush=True)
+        f = m["fit_scan"]
+        _say(f"phase 8: MLP-Iris fit_scan step {f['step_ms']:.3f} ms, "
+              f"{f['units_per_s']:.0f} examples/s, busy "
+              f"{f['device_busy_share']:.3f} on {card}", flush=True)
+    if "9" in phases:  # ComputationGraph: ResNet-50, the tiny ResNet, chains
+        print(f"clocks: {_clocks()}", flush=True)
+        m = done["9"] = phase_graph(torch, np, kernels, flash, lk)
+        a = m["resnet50"]
+        _say(f"phase 9: ResNet-50 fit_scan {a['units_per_s']:.0f} examples/s, "
+              f"step {a['step_ms']:.2f} ms, MFU {a['mfu']:.4f}, busy "
+              f"{a['device_busy_share']:.3f}, peak memory {a['peak_mem_gb']:.2f} GB; "
+              f"tiny ResNet f32 card vs CPU within {TINY_RESNET_REL}; the "
+              f"char-RNN and gpt graphs generate as the MultiLayerNetwork "
+              f"on {card}", flush=True)
     if phases != PHASES:
         print(f"chip_smoke: ran phases 0, 1, {', '.join(phases)} only; "
               "no result", flush=True)
         return 0
 
-    summary = {"kernels": _flash_summary(done) + _lstm_summary(done, lk)}
+    summary = {"kernels": _path_launches(
+        _flash_summary(done) + _lstm_summary(done, lk), done)}
     print(card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {
@@ -2686,6 +3062,21 @@ def _flash_summary(done):
     } for name, line, key, grads in (
         (flash.DQ_KERNEL, 220, "dq", ("dq",)),
         (flash.DKV_KERNEL, 252, "dkv", ("dk", "dv")))]
+
+
+def _path_launches(entries, done):
+    """Each kernel's launches per step on the fit_scan paths (phase 4's
+    ``gpt_benchmark``, phase 6's char-RNN) and its launches on phase 9's
+    graph paths, added to its entry of the kernels line."""
+    scans = (done["4"][1]["fit_scan"], done["6"][1]["fit_scan"])
+    graph = done["9"]
+    on_graph = collections.Counter(graph["gpt_graph"]["generate_launches"])
+    on_graph.update(graph["char_rnn_graph"]["generate_launches"])
+    for e in entries:
+        e["fit_scan_launches_per_step"] = sum(
+            m["launches_per_step"].get(e["name"], 0) for m in scans)
+        e["graph_generate_launches"] = on_graph[e["name"]]
+    return entries
 
 
 def _lstm_summary(done, lk):

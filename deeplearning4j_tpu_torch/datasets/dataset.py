@@ -1,14 +1,16 @@
-"""The DataSet container.
+"""The DataSet and MultiDataSet containers.
 
-Counterpart of ``deeplearning4j_tpu/datasets/dataset.py`` ``DataSet``:
-features, labels and the two optional masks, as numpy arrays on the
-host; ``fit``/``score`` move them to the net's device.
+Counterpart of ``deeplearning4j_tpu/datasets/dataset.py``: ``DataSet``
+holds features, labels and the two optional masks, ``MultiDataSet`` a
+list of each (the ComputationGraph's currency: features in the graph's
+input order, labels in its output order), as numpy arrays on the host;
+``fit``/``score`` move them to the net's device.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 
@@ -32,3 +34,32 @@ class DataSet:
         pick = lambda a: None if a is None else a[idx]  # noqa: E731
         return DataSet(self.features[idx], self.labels[idx],
                        pick(self.features_mask), pick(self.labels_mask))
+
+
+@dataclasses.dataclass
+class MultiDataSet:
+    """Multi-input/multi-output sample batch."""
+
+    features: List[np.ndarray]
+    labels: List[np.ndarray]
+    features_masks: Optional[List[Optional[np.ndarray]]] = None
+    labels_masks: Optional[List[Optional[np.ndarray]]] = None
+
+    def num_examples(self) -> int:
+        return int(self.features[0].shape[0])
+
+    def __getitem__(self, idx) -> "MultiDataSet":
+        pick = lambda arrs: None if arrs is None else [  # noqa: E731
+            None if a is None else a[idx] for a in arrs]
+        return MultiDataSet([f[idx] for f in self.features],
+                            [y[idx] for y in self.labels],
+                            pick(self.features_masks), pick(self.labels_masks))
+
+    def batch_by(self, batch_size: int) -> List["MultiDataSet"]:
+        n = self.num_examples()
+        return [self[i:i + batch_size] for i in range(0, n, batch_size)]
+
+    def shuffle(self, seed: Optional[int] = None) -> "MultiDataSet":
+        """The rows in the order of numpy ``default_rng(seed)``'s
+        permutation, as the reference's."""
+        return self[np.random.default_rng(seed).permutation(self.num_examples())]

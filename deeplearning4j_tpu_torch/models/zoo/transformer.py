@@ -1,15 +1,20 @@
 """GPT-style causal language model for the zoo.
 
 Counterpart of ``deeplearning4j_tpu/models/zoo/transformer.py`` (``gpt``,
-``generate`` and ``gpt_train_flops_per_token``): token+position
-embedding -> N pre-LN transformer blocks (the flash-attention kernels on
-the card) -> softmax LM head, trained with Adam by ``net.fit``.
+``generate``, ``gpt_train_flops_per_token`` and ``gpt_benchmark``):
+token+position embedding -> N pre-LN transformer blocks (the
+flash-attention kernels on the card) -> softmax LM head, trained with
+Adam by ``net.fit`` or ``net.fit_scan``.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 
+from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+from deeplearning4j_tpu_torch.models.zoo.benchmark import best_of_fit_scan
 from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
 from deeplearning4j_tpu_torch.nn.conf.layers import (
     RnnOutputLayer,
@@ -61,6 +66,38 @@ def gpt_train_flops_per_token(vocab_size: int, d_model: int, n_layers: int,
     head = d_model * vocab_size
     macs = n_layers * (per_layer + attn) + head + d_model  # + embed gather
     return 6.0 * macs
+
+
+def gpt_benchmark(peak_flops: float, vocab_size: int = 8192,
+                  d_model: int = 512, n_layers: int = 8, seq_len: int = 1024,
+                  batch: int = 16, steps: int = 4, device: DeviceLike = None,
+                  record: Optional[dict] = None) -> dict:
+    """Training throughput on synthetic token streams from numpy
+    ``default_rng(0)`` (labels the ids rolled by one): the data staged
+    once (``stage_scan``), one warm-up ``fit_scan`` of 12 epochs over
+    ``steps`` minibatches, then the best of two timed ones. Returns the
+    reference's keys; with ``record`` given, also stores there the net,
+    the staged data, every call's scores in order and the best call's
+    seconds."""
+    net = gpt(vocab_size=vocab_size, d_model=d_model, n_layers=n_layers,
+              max_len=seq_len, device=device).init()
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, vocab_size, (batch * steps, seq_len))
+    staged = net.stage_scan(DataSet(ids.astype(np.float32),
+                                    np.roll(ids, -1, axis=1).astype(np.float32)),
+                            batch)
+    epochs = 12
+    scores, dt = best_of_fit_scan(net, batch, epochs, staged)
+    tps = epochs * steps * batch * seq_len / dt
+    mfu = tps * gpt_train_flops_per_token(
+        vocab_size, d_model, n_layers, seq_len) / peak_flops
+    assert np.isfinite(scores).all()
+    if record is not None:
+        record.update(net=net, staged=staged, scores=scores, seconds=dt,
+                      epochs=epochs)
+    return {"metric": "gpt_train_tokens_per_sec_per_chip",
+            "value": round(tps, 1), "unit": "tokens/sec/chip",
+            "mfu": round(mfu, 4), "vs_baseline": round(mfu / 0.30, 4)}
 
 
 def generate(net: MultiLayerNetwork, prompt_ids: np.ndarray,

@@ -25,7 +25,9 @@ Counterpart of ``deeplearning4j_tpu/nn/generate.py``:
   depend on its batch mates. ``jax.random`` cannot be replayed, so
   sampled paths match the reference in distribution, not draw for draw.
 
-The reference's decode metrics and spans, the paged pool programs and
+A ComputationGraph generates through its single-input linear layer
+chain (``_ordered_impls``), on the same two paths. The reference's
+decode metrics and spans, the paged pool programs and
 the speculative programs wait for later slices (ROADMAP Queue A).
 """
 
@@ -358,15 +360,41 @@ class RecurrentGenerator(_Generator):
         return (params, rstate), logits
 
 
+def _ordered_impls(net) -> List[Any]:
+    """The net's layer impls in forward order: a MultiLayerNetwork's
+    stack as it is; a ComputationGraph's single-input linear layer chain
+    in topological order (anything else, such as several inputs or
+    outputs or an op vertex, has no decode order and raises)."""
+    impls = net.impls
+    if isinstance(impls, list):
+        return impls
+    if len(net.input_names) != 1 or len(net.output_names) != 1:
+        raise ValueError(
+            "generate() serves single-input/single-output graphs; this "
+            f"one has inputs {net.input_names} and outputs "
+            f"{net.output_names}")
+    chain: List[Any] = []
+    for name in net.order:
+        v = net.defs[name]
+        if v.kind == "input":
+            continue
+        if v.kind != "layer" or len(v.inputs) != 1:
+            raise ValueError(
+                "generate() supports linear layer chains; vertex "
+                f"'{name}' ({v.kind}, inputs {v.inputs}) breaks the chain")
+        chain.append(impls[name])
+    return chain
+
+
 def build_generator(net):
-    """Build (or return the cached) generator: SequenceEmbedding ->
-    TransformerBlock* -> head stacks get KV-cache prefill/decode; stacks
-    with ``rnn_time_step`` layers under a head get the recurrent path.
-    Anything else raises."""
+    """Build (or return the cached) generator over ``_ordered_impls``:
+    SequenceEmbedding -> TransformerBlock* -> head stacks get KV-cache
+    prefill/decode; stacks with ``rnn_time_step`` layers under a head get
+    the recurrent path. Anything else raises."""
     gen = net.__dict__.get("_generator")
     if gen is not None and gen.net is net:
         return gen
-    impls = net.impls
+    impls = _ordered_impls(net)
     if (len(impls) >= 3 and isinstance(impls[0], SequenceEmbeddingImpl)
             and all(isinstance(i, TransformerBlockImpl) for i in impls[1:-1])
             and impls[-1].has_loss()):

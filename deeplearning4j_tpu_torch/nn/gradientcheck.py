@@ -1,7 +1,8 @@
 """Finite-difference gradient checker: the framework's correctness oracle.
 
 Counterpart of ``deeplearning4j_tpu/nn/gradientcheck.py``
-(``check_gradients_fn``, ``check_gradients``): perturb each parameter,
+(``check_gradients_fn``, ``check_gradients``, ``check_gradients_graph``):
+perturb each parameter,
 central-difference the score in float64, compare with autograd's
 gradient. The same defaults: ``epsilon`` 1e-4, a relative-error limit of
 1e-2 and an absolute floor of 1e-5. The check runs on the net's device.
@@ -80,10 +81,7 @@ def check_gradients(model, ds, epsilon: float = 1e-4, max_rel_error: float = 1e-
     its parameters in ``params_flat`` order. ``train=True`` checks the
     training graph (BN on the batch's moments) with a fixed dropout key,
     which is valid only without dropout."""
-    order = model._flat_order()
-    shapes = [model.params[l][n].shape for l, n in order]
-    flat = torch.cat([model.params[l][n].detach().reshape(-1).to(torch.float64)
-                      for l, n in order])
+    flat, unflat = _flat64(model)
     dev = flat.device
 
     def t64(a):
@@ -95,13 +93,47 @@ def check_gradients(model, ds, epsilon: float = 1e-4, max_rel_error: float = 1e-
     rng = 0 if train else None
 
     def loss(v):
+        return model._score_fn(unflat(v), model.states, x, y, train, rng,
+                               fmask, lmask)[0]
+
+    return check_gradients_fn(loss, flat, epsilon, max_rel_error,
+                              min_abs_error, subset)
+
+
+def check_gradients_graph(graph, mds, epsilon: float = 1e-4,
+                          max_rel_error: float = 1e-2, min_abs_error: float = 1e-5,
+                          subset: Optional[int] = None,
+                          train: bool = False) -> GradCheckResult:
+    """Gradient-check a ComputationGraph on a MultiDataSet in float64,
+    over its parameters in ``params_flat`` order; ``train`` as in
+    :func:`check_gradients`."""
+    flat, unflat = _flat64(graph)
+    to64 = lambda d: {k: v.to(torch.float64) for k, v in d.items()}  # noqa: E731
+    inputs, labels, fmasks, lmasks = (to64(d) for d in graph._tensors(mds))
+    rng = 0 if train else None
+
+    def loss(v):
+        return graph._score_fn(unflat(v), graph.states, inputs, labels, train,
+                               rng, fmasks, lmasks)[0]
+
+    return check_gradients_fn(loss, flat, epsilon, max_rel_error,
+                              min_abs_error, subset)
+
+
+def _flat64(model):
+    """(the parameters as one f64 vector in ``params_flat`` order, the
+    map from such a vector back to the parameter tree)."""
+    order = model._flat_order()
+    shapes = [model.params[l][n].shape for l, n in order]
+    flat = torch.cat([model.params[l][n].detach().reshape(-1).to(torch.float64)
+                      for l, n in order])
+
+    def unflat(v):
         params, at = {l: {} for l in model.params}, 0
         for (l, n), shape in zip(order, shapes):
             size = int(np.prod(shape))
             params[l][n] = v[at:at + size].reshape(shape)
             at += size
-        return model._score_fn(params, model.states, x, y, train, rng,
-                               fmask, lmask)[0]
+        return params
 
-    return check_gradients_fn(loss, flat, epsilon, max_rel_error,
-                              min_abs_error, subset)
+    return flat, unflat

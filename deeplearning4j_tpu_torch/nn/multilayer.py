@@ -14,7 +14,11 @@ carries crossing them as state; ``rnn_time_step`` streams one timestep
 (or a burst, step by step) with the carries kept between calls. The
 forward and the score return the layers' new states (BN's moving
 statistics, the LSTM carries), cast back to the stored dtypes; listeners
-(``set_listeners``) see every step's score. Parameters are a dict per
+(``set_listeners``) see every step's score. ``stage_scan`` puts a
+dataset on the device once as ``[steps, batch, ...]`` stacks and
+``fit_scan`` trains over them for whole epochs through the same step,
+keeping every step's score in one device tensor that is fetched at the
+end: no step waits on the host. Parameters are a dict per
 layer of float32 tensors (float64 after ``init(torch.float64)``, the
 gradient check's path) on the net's device, in the reference's layout
 (``params["layer1"]["Wqkv"]``), and so is the updater state
@@ -28,6 +32,7 @@ which compiles the whole step into one program, each step runs eagerly.
 
 from __future__ import annotations
 
+import logging
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple, Union
 
 import numpy as np
@@ -56,6 +61,55 @@ from deeplearning4j_tpu_torch.util.dtypes import (
 from deeplearning4j_tpu_torch.util.rng import fold_in
 
 Params = Dict[str, Dict[str, torch.Tensor]]
+#: layer -> (gradient normalization, its threshold, updater config)
+UpdateSpecs = Dict[str, Tuple[GradientNormalization, float, Any]]
+
+_log = logging.getLogger("deeplearning4j_tpu_torch")
+
+
+def update_specs(gc, impls) -> UpdateSpecs:
+    """Each layer's gradient normalization, threshold and updater
+    config, resolved against the global configuration."""
+    return {impl.name: (
+        GradientNormalization(gc.resolve(impl.conf, "gradient_normalization")),
+        gc.resolve(impl.conf, "gradient_normalization_threshold"),
+        gc.updater_config_for(impl.conf)) for impl in impls}
+
+
+def apply_updates(params: Params, grads: Params, upd_state: Dict[str, Any],
+                  specs: UpdateSpecs, it: int) -> Tuple[Params, Dict[str, Any]]:
+    """One optimizer step over every layer: per-layer gradient
+    normalization, the updater, ``params -= update``. Returns (new
+    params, new updater state)."""
+    new_params: Params = {}
+    new_upd: Dict[str, Any] = {}
+    for name, (nt, thr, ucfg) in specs.items():
+        g = normalize_gradient(nt, grads[name], thr)
+        new_params[name], new_upd[name] = {}, {}
+        for pname, gval in g.items():
+            upd, ust = apply_updater(ucfg, gval, upd_state[name][pname], it)
+            p = params[name][pname]
+            new_params[name][pname] = p - upd.to(p.dtype)
+            new_upd[name][pname] = ust
+    return new_params, new_upd
+
+
+def stage_arrays(arrays: Dict[Any, Any], batch_size: int, dtype: torch.dtype,
+                 device: torch.device) -> Dict[Any, torch.Tensor]:
+    """``fit_scan``'s staging: the full minibatches of each named array,
+    as one ``[steps, batch_size, ...]`` tensor on ``device`` in
+    ``dtype``; the tail that fills no minibatch is dropped with a
+    warning."""
+    total = int(next(iter(arrays.values())).shape[0])
+    n = (total // batch_size) * batch_size
+    if n == 0:
+        raise ValueError("batch_size larger than dataset")
+    if n != total:
+        _log.warning("fit_scan: dropping %d tail examples (dataset %d %% batch %d)",
+                     total - n, total, batch_size)
+    return {k: torch.as_tensor(np.asarray(a[:n]), dtype=dtype, device=device)
+            .reshape((-1, batch_size) + tuple(a.shape[1:]))
+            for k, a in arrays.items()}
 
 
 class MultiLayerNetwork:
@@ -82,11 +136,7 @@ class MultiLayerNetwork:
         # mixed precision: params stay f32, layer compute in
         # gc.compute_dtype, logits in f32 (util/dtypes.py policy)
         self._cd = resolve_compute_dtype(self.gc.compute_dtype)
-        self._ucfgs = [self.gc.updater_config_for(impl.conf) for impl in self.impls]
-        self._gn_specs = [
-            (GradientNormalization(self.gc.resolve(impl.conf, "gradient_normalization")),
-             self.gc.resolve(impl.conf, "gradient_normalization_threshold"))
-            for impl in self.impls]
+        self._specs = update_specs(self.gc, self.impls)
         # the fit path's dropout streams: step key = fold_in(this, step)
         self._train_key = int(self.gc.seed) + 7919
         #: rnn_time_step's carries, {layer: {"h", "c"}}; None = no history
@@ -101,7 +151,8 @@ class MultiLayerNetwork:
         self.params = {}
         self.states = {}
         upd = {}
-        for impl, ucfg in zip(self.impls, self._ucfgs):
+        for impl in self.impls:
+            ucfg = self._specs[impl.name][2]
             p = {n: v.to(dtype) for n, v in
                  impl.init_params(gen, self.device).items()}
             self.params[impl.name] = p
@@ -248,7 +299,8 @@ class MultiLayerNetwork:
                 params[impl.name]).to(score.dtype)
         return score, new_states
 
-    def _grads(self, params: Params, loss_fn
+    @staticmethod
+    def _grads(params: Params, loss_fn
                ) -> Tuple[torch.Tensor, Params, Dict[str, Any]]:
         """(loss, d loss / d params, the new states) by
         ``torch.autograd``; ``loss_fn`` returns (loss, new states). The
@@ -276,19 +328,8 @@ class MultiLayerNetwork:
         score, grads, new_states = self._grads(
             self.params, lambda p: self._score_fn(
                 p, self.states, x, y, True, rng, fmask, lmask))
-        new_params: Params = {}
-        new_upd: Dict[str, Any] = {}
-        for impl, (nt, thr), ucfg in zip(self.impls, self._gn_specs, self._ucfgs):
-            name = impl.name
-            g = normalize_gradient(nt, grads[name], thr)
-            new_params[name], new_upd[name] = {}, {}
-            for pname, gval in g.items():
-                upd, ust = apply_updater(ucfg, gval,
-                                         self.opt_state["updater"][name][pname], it)
-                p = self.params[name][pname]
-                new_params[name][pname] = p - upd.to(p.dtype)
-                new_upd[name][pname] = ust
-        self.params = new_params
+        self.params, new_upd = apply_updates(
+            self.params, grads, self.opt_state["updater"], self._specs, it)
         self.states = new_states
         self.opt_state = {"step": it + 1, "updater": new_upd}
         return score
@@ -318,7 +359,7 @@ class MultiLayerNetwork:
                  batch_size: Optional[int] = None) -> Dict[str, float]:
         raise NotImplementedError(
             "layer-wise pretraining (RBM, AutoEncoder) is not ported yet: "
-            "ROADMAP Queue A2")
+            "ROADMAP Queue A3")
 
     def _fit_batch(self, ds: DataSet) -> None:
         if (self.conf.backprop_type == BackpropType.TRUNCATED_BPTT
@@ -333,6 +374,44 @@ class MultiLayerNetwork:
                 score = float(self._score)
                 for cb in self.listeners:
                     cb(self, self.opt_state["step"], score)
+
+    # ------------------------------------------------------ scanned fit
+
+    def stage_scan(self, ds: DataSet, batch_size: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The dataset on the net's device, once, as scan-ready minibatch
+        stacks (features [steps, batch, ...], labels likewise) in the
+        parameters' dtype, for ``fit_scan(staged=...)``. Masked data
+        raises; a tail that fills no minibatch is dropped with a
+        warning."""
+        if ds.features_mask is not None or ds.labels_mask is not None:
+            raise ValueError("fit_scan does not support masked DataSets; use fit()")
+        staged = stage_arrays({"x": ds.features, "y": ds.labels},
+                              batch_size, self._dtype, self.device)
+        return staged["x"], staged["y"]
+
+    def fit_scan(self, ds: Optional[DataSet], batch_size: int, epochs: int = 1,
+                 staged=None) -> np.ndarray:
+        """``epochs`` passes over the staged minibatches (``staged``, or
+        ``stage_scan(ds, batch_size)``), ``conf.iterations`` steps of
+        ``_train_step`` each; listeners are not called. Each minibatch's
+        last score lands in one preallocated device tensor, fetched once
+        at the end: the host only queues work. Returns the scores
+        [epochs * steps]; ``score()`` is the last."""
+        if self.params is None:
+            self.init()
+        xb, yb = staged if staged is not None else self.stage_scan(ds, batch_size)
+        steps, iters = xb.shape[0], max(1, self.gc.iterations)
+        scores = torch.empty(epochs * steps, device=self.device,
+                             dtype=torch.promote_types(self._dtype, torch.float32))
+        for e in range(epochs):
+            for s in range(steps):
+                for _ in range(iters):
+                    score = self._train_step(xb[s], yb[s], None, None)
+                scores[e * steps + s] = score
+        out = scores.cpu().numpy()
+        self._score = float(out[-1])
+        return out
 
     def score(self, ds: Optional[DataSet] = None) -> float:
         """Loss on ``ds`` in eval mode (no dropout), or the last training

@@ -3,8 +3,9 @@
 Counterpart of ``deeplearning4j_tpu/util/model_serializer.py``, read and
 written with ``zipfile`` and numpy only:
 
-- ``configuration.json``: ``{"model_type", "conf"}``, the input
-  preprocessors and the input type inside the conf;
+- ``configuration.json``: ``{"model_type", "conf"}`` (``config_payload``:
+  a MultiLayerNetwork's conf with its input preprocessors and input
+  type, or a ComputationGraph's);
 - ``coefficients.npz``: one array per ``layerN/name`` key;
 - ``modelState.npz``: non-trainable state, one array per
   ``layerN/name`` key (BN's moving ``mean`` and ``var``; an LSTM's
@@ -15,7 +16,10 @@ written with ``zipfile`` and numpy only:
 - ``manifest.json``: a CRC32 per member, checked on restore.
 
 A zip written by either package restores in the other, updater state
-included. Quantized weights (``*_qscale`` keys) are not ported yet.
+included, for both containers (``restore_multi_layer_network``,
+``restore_computation_graph``, or ``restore_model`` for either); the
+``*_from_numpy`` loaders carry a reference net's trees into either
+container. Quantized weights (``*_qscale`` keys) are not ported yet.
 """
 
 from __future__ import annotations
@@ -25,14 +29,20 @@ import json
 import os
 import zipfile
 import zlib
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.nn.conf.configuration import MultiLayerConfiguration
+from deeplearning4j_tpu_torch.nn.graph import (
+    ComputationGraph,
+    ComputationGraphConfiguration,
+)
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.util.device import DeviceLike
+
+Model = Union[MultiLayerNetwork, ComputationGraph]
 
 _MANIFEST = "manifest.json"
 _REQUIRED = ("configuration.json", "coefficients.npz", "modelState.npz")
@@ -77,8 +87,8 @@ def _npz_bytes(tree: Dict[str, Any]) -> bytes:
     return buf.getvalue()
 
 
-def params_from_numpy(net: MultiLayerNetwork,
-                      tree: Dict[str, Dict[str, np.ndarray]]) -> MultiLayerNetwork:
+def params_from_numpy(net: Model,
+                      tree: Dict[str, Dict[str, np.ndarray]]) -> Model:
     """Load a ``{layer: {name: ndarray}}`` tree (the reference's
     ``net.params`` converted to numpy) into ``net``: every parameter of
     every layer must be present with the shape the net expects, and no
@@ -134,8 +144,8 @@ def _overlay(template: Dict[str, Any], stored: Dict[str, Any],
     return out
 
 
-def opt_state_from_numpy(net: MultiLayerNetwork,
-                         tree: Dict[str, Any]) -> MultiLayerNetwork:
+def opt_state_from_numpy(net: Model,
+                         tree: Dict[str, Any]) -> Model:
     """Load ``{"step": int, "updater": {layer: {param: {name: ndarray}}}}``
     (the reference's ``net.opt_state`` converted to numpy, or an
     ``updaterState.npz``) into ``net``. States the tree lacks stay at
@@ -148,8 +158,8 @@ def opt_state_from_numpy(net: MultiLayerNetwork,
     return net
 
 
-def states_from_numpy(net: MultiLayerNetwork,
-                      tree: Dict[str, Any]) -> MultiLayerNetwork:
+def states_from_numpy(net: Model,
+                      tree: Dict[str, Any]) -> Model:
     """Load ``{layer: {name: ndarray}}`` (the reference's ``net.states``
     converted to numpy, or a ``modelState.npz``: BN's moving ``mean``
     and ``var``) into ``net``. States the tree lacks keep their initial
@@ -160,12 +170,32 @@ def states_from_numpy(net: MultiLayerNetwork,
     return net
 
 
-def write_model(model: MultiLayerNetwork, path: str,
-                save_updater: bool = True) -> None:
-    """Write ``model`` as a zip the reference's
-    ``restore_multi_layer_network`` loads: temp file, fsync, rename."""
-    payload = {"model_type": "MultiLayerNetwork",
-               "conf": json.loads(model.conf.to_json())}
+def config_payload(model: Model) -> dict:
+    """The ``{"model_type", "conf"}`` payload of ``configuration.json``."""
+    if isinstance(model, MultiLayerNetwork):
+        model_type = "MultiLayerNetwork"
+    elif isinstance(model, ComputationGraph):
+        model_type = "ComputationGraph"
+    else:
+        raise TypeError(type(model))
+    return {"model_type": model_type, "conf": json.loads(model.conf.to_json())}
+
+
+def model_from_payload(payload: dict, device: DeviceLike = None) -> Model:
+    """An uninitialized model (on ``device``, cuda by default) from a
+    ``config_payload`` dict."""
+    conf_json = json.dumps(payload["conf"])
+    if payload["model_type"] == "MultiLayerNetwork":
+        return MultiLayerNetwork(MultiLayerConfiguration.from_json(conf_json),
+                                 device=device)
+    return ComputationGraph(ComputationGraphConfiguration.from_json(conf_json),
+                            device=device)
+
+
+def write_model(model: Model, path: str, save_updater: bool = True) -> None:
+    """Write ``model`` as a zip the reference's restore functions load:
+    temp file, fsync, rename."""
+    payload = config_payload(model)
     members: Dict[str, bytes] = {
         "configuration.json": json.dumps(payload, indent=2).encode(),
         "coefficients.npz": _npz_bytes(model.params),
@@ -218,8 +248,26 @@ def _npz_tree(data: bytes) -> Dict[str, Any]:
 def restore_multi_layer_network(path: str, device: DeviceLike = None,
                                 load_updater: bool = True
                                 ) -> MultiLayerNetwork:
-    """Rebuild a net from a zip written by either package (on ``device``,
-    cuda by default), with its updater state when the zip has one."""
+    """Rebuild a MultiLayerNetwork from a zip written by either package
+    (on ``device``, cuda by default), with its updater state when the
+    zip has one."""
+    return _restore(path, "MultiLayerNetwork", device, load_updater)
+
+
+def restore_computation_graph(path: str, device: DeviceLike = None,
+                              load_updater: bool = True) -> ComputationGraph:
+    """Rebuild a ComputationGraph, as ``restore_multi_layer_network``."""
+    return _restore(path, "ComputationGraph", device, load_updater)
+
+
+def restore_model(path: str, device: DeviceLike = None,
+                  load_updater: bool = True) -> Model:
+    """Rebuild whichever container the zip holds."""
+    return _restore(path, None, device, load_updater)
+
+
+def _restore(path: str, expect: Optional[str], device: DeviceLike,
+             load_updater: bool) -> Model:
     try:
         with zipfile.ZipFile(path) as z:
             _verify(z, path)
@@ -231,10 +279,9 @@ def restore_multi_layer_network(path: str, device: DeviceLike = None,
                 upd = _npz_tree(z.read("updaterState.npz"))
     except (zipfile.BadZipFile, zlib.error) as e:
         raise CheckpointCorruptError(f"{path}: unreadable checkpoint ({e})")
-    if payload["model_type"] != "MultiLayerNetwork":
+    if expect and payload["model_type"] != expect:
         raise ValueError(f"checkpoint is a {payload['model_type']}, "
-                         "expected MultiLayerNetwork")
-    conf = MultiLayerConfiguration.from_json(json.dumps(payload["conf"]))
-    net = params_from_numpy(MultiLayerNetwork(conf, device=device).init(), params)
+                         f"expected {expect}")
+    net = params_from_numpy(model_from_payload(payload, device).init(), params)
     states_from_numpy(net, states)
     return net if upd is None else opt_state_from_numpy(net, upd)

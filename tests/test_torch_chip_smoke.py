@@ -1306,3 +1306,111 @@ def test_kink_free_leaves_out_an_example_on_a_relu_kink():
     y = np.eye(3)[[0, 1]]
     assert list(chip_smoke.kink_free(net, x, y)) == [False, True]
     assert net.params["layer0"]["W"].dtype == torch.float64  # restored
+
+
+def _scan_rec(lr, n=48, batch=8):
+    """A ``fit_scan_row`` run on the CPU: a tiny MLP staged and trained
+    by ``best_of_fit_scan`` (2 epochs a call)."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    rng = np.random.default_rng(0)
+    x = rng.random((n, 4)).astype(np.float32)
+    y = np.eye(3, dtype=np.float32)[(x[:, 0] * 3).astype(int)]
+    return chip_smoke._scan_run(_tiny_mlp(lr), DataSet(x, y), batch, 2)
+
+
+@pytest.mark.parametrize("lr,want,error", [
+    (0.5, {}, None), (0.0, {}, "loss did not fall"),
+    (0.5, {"flash_fwd": 1}, "launched")])
+def test_fit_scan_row_gates_and_keys(monkeypatch, lr, want, error):
+    """A fit_scan row on a stand-in card: the step from the best timed
+    call, units/s, MFU, busy share from one profiled epoch, launches per
+    step; a loss that does not fall, or launches that are not the
+    path's, refuse the row."""
+    monkeypatch.setattr(chip_smoke, "_device_times",
+                        lambda torch, fn, reps: (fn(), {"gemm": 6.0})[1])
+    args = (_fake_torch(), np, kernels, "mlp", _scan_rec(lr), 8, 100.0, 989e12, want)
+    if error:
+        with pytest.raises(RuntimeError, match=error):
+            chip_smoke.fit_scan_row(*args)
+        return
+    m = chip_smoke.fit_scan_row(*args)
+    assert m["steps"] == 3 * 2 * 6 and m["steps_per_call"] == 12
+    assert m["step_device_ms"] == 1.0  # 6 ms over the 6 staged minibatches
+    assert m["units_per_s"] == pytest.approx(8 / (m["step_ms"] / 1e3))
+    assert m["mfu"] == pytest.approx(m["units_per_s"] * 100.0 / 989e12)
+    assert m["device_busy_share"] == pytest.approx(1.0 / m["step_ms"])
+    assert m["loss_last"] < m["loss_first"]
+    assert m["launches"] == m["launches_per_step"] == {}
+
+
+def test_path_launches_add_the_fit_scan_and_graph_counts():
+    done = {"4": (None, {"fit_scan": {"launches_per_step": {"flash_fwd": 8,
+                                                            "flash_dq": 8}}}),
+            "6": (None, {"fit_scan": {"launches_per_step": {"lstm_fwd": 2}}}),
+            "9": {"gpt_graph": {"generate_launches": {"flash_fwd": 8}},
+                  "char_rnn_graph": {"generate_launches": {"lstm_fwd_only": 318,
+                                                           "lstm_fwd": 0}}}}
+    entries = chip_smoke._path_launches(
+        [{"name": n} for n in ("flash_fwd", "flash_dkv", "lstm_fwd",
+                               "lstm_fwd_only")], done)
+    got = {e["name"]: (e["fit_scan_launches_per_step"], e["graph_generate_launches"])
+           for e in entries}
+    assert got == {"flash_fwd": (8, 8), "flash_dkv": (0, 0), "lstm_fwd": (2, 0),
+                   "lstm_fwd_only": (0, 318)}
+
+
+def test_graph_phase_sizes_are_the_benchmarks():
+    """Phase 9 runs ResNet-50 at the JAX package's benchmark size and the
+    tiny ResNet of tests/test_zoo.py; it is a phase of the full run."""
+    assert (chip_smoke.RESNET_BATCH, chip_smoke.RESNET_IMAGE,
+            chip_smoke.RESNET_STEPS) == (128, 224, 8)
+    assert chip_smoke.TINY_RESNET == dict(stages=(1, 1), widths=(8, 16),
+                                          num_classes=4, compute_dtype="float32",
+                                          learning_rate=0.01)
+    assert chip_smoke.PHASES[-1] == "9"
+    assert chip_smoke._phases(["--only", "4,9"]) == ("4", "9")
+
+
+def test_char_rnn_graph_loads_the_networks_weights():
+    """The char-RNN graph has the MultiLayerNetwork's layers, names and
+    shapes, and streams as it does."""
+    from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.util.model_serializer import params_from_numpy
+
+    g = chip_smoke.char_rnn_graph(device="cpu")
+    conf = (NeuralNetConfiguration.builder().seed(1).activation("tanh").list()
+            .layer(L.GravesLSTM(n_in=chip_smoke.CHAR_VOCAB, n_out=chip_smoke.CHAR_HIDDEN))
+            .layer(L.GravesLSTM(n_in=chip_smoke.CHAR_HIDDEN,
+                                n_out=chip_smoke.CHAR_HIDDEN))
+            .layer(L.RnnOutputLayer(n_in=chip_smoke.CHAR_HIDDEN,
+                                    n_out=chip_smoke.CHAR_VOCAB,
+                                    activation="softmax", loss_function="mcxent"))
+            .build())
+    net = MultiLayerNetwork(MultiLayerConfiguration.from_json(conf.to_json()),
+                            device="cpu").init()
+    tree = chip_smoke._random_params(net, seed=21)
+    params_from_numpy(net, tree)
+    params_from_numpy(g, tree)
+    x = np.eye(chip_smoke.CHAR_VOCAB, dtype=np.float32)[
+        np.random.default_rng(1).integers(0, chip_smoke.CHAR_VOCAB, (2, 3))]
+    np.testing.assert_array_equal(g.rnn_time_step(x)[0], net.rnn_time_step(x))
+
+
+def test_gpt_graph_generates_as_the_network():
+    """A small ``gpt`` as the phase-9 chain: the same parameter tree, and
+    the same greedy tokens on the CPU."""
+    from deeplearning4j_tpu_torch.models.zoo.transformer import gpt
+    from deeplearning4j_tpu_torch.util.model_serializer import params_from_numpy
+
+    conf = dict(vocab_size=32, d_model=32, n_layers=2, num_heads=2, max_len=32,
+                compute_dtype="float32")
+    net = gpt(device="cpu", **conf).init()
+    g = chip_smoke.gpt_graph(conf, device="cpu")
+    tree = chip_smoke._random_params(net, seed=7)
+    params_from_numpy(net, tree)
+    params_from_numpy(g, tree)
+    prompts = np.random.default_rng(8).integers(0, 32, (2, 5))
+    np.testing.assert_array_equal(g.generate(prompts, 6), net.generate(prompts, 6))

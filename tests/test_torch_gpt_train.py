@@ -485,7 +485,7 @@ def test_drop_connect_masks_the_head_weights_not_its_input():
 def test_unported_paths_raise():
     _, tn = _pair()
     tn.conf.pretrain = True
-    with pytest.raises(NotImplementedError, match="A2"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A3"):
         tn.fit(DataSet(*_data(2, 16)))
     tn.conf.pretrain = False
     # truncated BPTT is ported; on a stack without recurrent layers it

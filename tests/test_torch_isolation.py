@@ -138,3 +138,23 @@ def test_cnn_slice_modules_are_scanned():
     r = subprocess.run([sys.executable, "-c", code], cwd=_ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0 and r.stdout.strip() == "[]", r.stdout + r.stderr
+
+
+def test_graph_slice_modules_are_scanned():
+    """The scanned-fit and ComputationGraph slice's modules (the graph,
+    its vertices, MultiDataSet and its iterators, the ResNet zoo and the
+    benchmarks' timing) are among the modules the scans above cover."""
+    mods = _modules()
+    for name in ("nn.graph", "nn.conf.graph", "nn.multilayer",
+                 "datasets.dataset", "datasets.iterators", "nn.generate",
+                 "nn.gradientcheck", "util.model_serializer",
+                 "models.zoo.resnet", "models.zoo.transformer",
+                 "models.zoo.benchmark"):
+        assert f"deeplearning4j_tpu_torch.{name}" in mods, name
+    from deeplearning4j_tpu_torch.models.zoo.resnet import resnet50
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            resnet50()
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ComputationGraph(resnet50(device="cpu").conf)
