@@ -217,10 +217,37 @@ Phases (any failure ends the run with a non-zero exit and no result):
    weights: greedy ``generate`` equal to the MultiLayerNetwork's, with
    the same launches, ``flash_fwd`` among them.
 
+10. the rest of the layer library (``phase_layers``): (a) the MoE GPT
+   at phase 4's width with the zoo's routed experts (8 experts, top-1,
+   capacity factor 1.25, aux weight 0.01): each block's expert choices
+   with the kernels against the plain versions (the share routed
+   differently printed), then one step's loss and every gradient
+   against the plain versions replaying the kernel step's routing
+   (``TRAIN_*``), and routing by itself (the loss, and the layers
+   before the first block that routes differently, ``MOE_FLIP_REL``);
+   one ``fit`` step launches each flash kernel once per block; 20 steps
+   give finite losses that fall; step ms, tokens/s, MFU, busy share,
+   peak memory and the flash kernels' ms per step; (b) the MoE GPT at
+   phase 3's width: greedy ``generate`` equal to ``generate_eager``
+   through ``flash_fwd``, the prefill logits against the plain
+   attention's (``LOGIT_TOL``, the plain run replaying the kernel run's
+   routing; and by itself where no token routes differently); (c) phase
+   3's dense GPT quantized to int8 and to fp8 (``nn/quantize.py``): the
+   same checks of ``generate`` and the prefill, the parameter bytes, and
+   ``accuracy_gate`` against the float net (printed); (d) two causal
+   residual ``AttentionLayer(512 -> 512, 8 heads)`` under an
+   ``RnnOutputLayer``, b 16, seq 1024, bf16: one ``gradient_and_score``
+   against the plain attention (``TRAIN_*``), each flash kernel once
+   per layer; (e) a DBN at MNIST's width (RBM 784 -> 500, AutoEncoder
+   500 -> 250, output 10; f32, SGD 0.1) on 8 synthetic minibatches of
+   2048: ``pretrain`` gives finite per-layer losses, the AE's falls over
+   a second epoch, no port kernel launches, and one pretrain step per
+   layer agrees with the CPU given the same uniforms (``PRETRAIN_REL``).
+
 Phase 2's rows carry their wall time (``row_s``) and each phase line
 the time since the start (``[t ... s]``); the kernels line gives each
-kernel its launches per step on the fit_scan paths and on phase 9's
-graph generate paths.
+kernel its launches per step on the fit_scan paths, on phase 9's
+graph generate paths and on phase 10's paths.
 
 The last lines are the card's name and power limit, one JSON object
 with every kernel's numbers, and ``{"ok": true, "device": {...}}``
@@ -1048,11 +1075,13 @@ def phase_kernels(torch, F, flash):
 
 
 @contextlib.contextmanager
-def _plain_attention(torch, flash, transformer):
-    """Swap the blocks' attention for the flash kernels' plain versions
-    on the same card tensors, forward and backward, with the blocks the
-    wrapper would use (the comparisons of phases 3 and 4 only)."""
-    saved = transformer.dispatch_attention
+def _plain_attention(torch, flash, module):
+    """Swap the attention of ``module``'s layers (``nn/layers/transformer``'s
+    blocks, or ``nn/layers/attention``'s ``AttentionLayer``) for the flash
+    kernels' plain versions on the same card tensors, forward and
+    backward, with the blocks the wrapper would use (the comparisons of
+    phases 3, 4 and 10 only)."""
+    saved = module.dispatch_attention
 
     class PlainFlash(torch.autograd.Function):
         @staticmethod
@@ -1078,11 +1107,11 @@ def _plain_attention(torch, flash, transformer):
         o = PlainFlash.apply(fold(q), fold(k), fold(v), causal)
         return o.reshape(b, h, t, d).transpose(1, 2)
 
-    transformer.dispatch_attention = plain
+    module.dispatch_attention = plain
     try:
         yield
     finally:
-        transformer.dispatch_attention = saved
+        module.dispatch_attention = saved
 
 
 def _random_params(net, seed: int):
@@ -2678,7 +2707,505 @@ def phase_graph(torch, np, kernels, flash, lk):
     return out
 
 
-PHASES = ("2", "2b", "3", "4", "5", "6", "7", "8", "9")
+# phase 10 (a): the MoE GPT at phase 4's width, with the zoo's routed
+# experts: 8 experts (Mixtral 8x7B's count; routed top-1, as the
+# reference), capacity factor 1.25 and aux loss weight 0.01 (the zoo's
+# defaults)
+MOE_TRAIN = dict(TRAIN, num_experts=8, capacity_factor=1.25,
+                 aux_loss_weight=0.01)
+# the MoE step, kernels vs plain versions: a bf16 attention output that
+# differs by an ulp can flip a near-tie router argmax, and a flip moves
+# every later token's queue slot in two experts (and so which tokens
+# overflow). So each block's expert choices are compared first and the
+# share routed differently printed; then (1) the plain step replays the
+# kernel step's expert choices: with the same routing the loss and every
+# gradient are held to TRAIN_LOSS_TOL and TRAIN_GRAD_REL, as phase 4's
+# dense step; (2) the plain step routes by itself: its loss is held to
+# TRAIN_LOSS_TOL (a flip moves a few of 16,384 tokens' losses), and the
+# gradients of the layers before the first block whose routing differs
+# to TRAIN_GRAD_REL + MOE_FLIP_REL * sqrt(k / n), k of n tokens routed
+# differently in some block: a flip changes about three tokens'
+# contributions to every gradient sum below it (its own, and the tokens
+# its move keeps and drops at the capacity edge), and contributions that
+# add in quadrature move a relative L2 by about sqrt(3 k / n)
+MOE_FLIP_REL = 4.0
+# phase 10 (b): the MoE GPT at phase 3's serving width
+MOE_GPT = dict(GPT, num_experts=8)
+# phase 10 (d): two causal residual AttentionLayer(512 -> 512, 8 heads)
+# and an RnnOutputLayer over ATTN_CLASSES classes, batch 16, seq 1024,
+# bf16
+ATTN_WIDTH, ATTN_HEADS, ATTN_BATCH, ATTN_SEQ, ATTN_CLASSES = 512, 8, 16, 1024, 16
+# phase 10 (e): a DBN at MNIST's width (tests/test_pretrain.py's stack),
+# 8 minibatches of 2048 of the synthetic MNIST; one pretrain step per
+# layer on the card against the CPU with the same uniforms: f32 (no
+# TF32) on both, the products summed in other orders
+DBN_BATCH, DBN_BATCHES, PRETRAIN_REL = 2048, 8, 1e-4
+
+
+@contextlib.contextmanager
+def _routing(torch, record, replay=None):
+    """Record each MoE routing call's (expert choice, slot) in
+    ``record``; with ``replay`` (an earlier record), route each call by
+    the recorded expert choices (the gate and the aux loss from the
+    call's own router logits)."""
+    from deeplearning4j_tpu_torch.ops import moe
+
+    saved = moe.top1_route
+
+    def route(gate_logits, capacity, valid=None):
+        if replay is None:
+            expert = torch.softmax(gate_logits.float(), dim=-1).argmax(dim=-1)
+        else:
+            expert = replay[len(record)][0]
+        out = saved(gate_logits, capacity, valid, expert=expert)
+        record.append((expert, out[0]))
+        return out
+
+    moe.top1_route = route
+    try:
+        yield record
+    finally:
+        moe.top1_route = saved
+
+
+def _routing_shares(a, b):
+    """Per block, the share of tokens whose expert (and whose slot)
+    differs between two records."""
+    _check(len(a) == len(b), f"{len(a)} vs {len(b)} routing calls")
+    return [{"expert": (ea != eb).float().mean().item(),
+             "slot": (sa != sb).float().mean().item()}
+            for (ea, sa), (eb, sb) in zip(a, b)]
+
+
+def _moe_train(torch, np, kernels, flash):
+    """Phase 10 (a): one MoE GPT step at full width, kernels against
+    the plain versions (routing first), the launches of one ``fit``
+    step, 20 steps, the step's time and where it goes."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.models.zoo.transformer import (
+        gpt,
+        gpt_train_flops_per_token,
+    )
+    from deeplearning4j_tpu_torch.nn.layers import transformer
+    from deeplearning4j_tpu_torch.util.model_serializer import params_from_numpy
+
+    t, n_layers = MOE_TRAIN["max_len"], MOE_TRAIN["n_layers"]
+    net = gpt(**MOE_TRAIN).init()
+    params_from_numpy(net, _random_params(net, seed=41))
+    ids = np.random.default_rng(42).integers(0, MOE_TRAIN["vocab_size"],
+                                             (TRAIN_BATCH, t))
+    ds = DataSet(ids.astype(np.float32),
+                 np.roll(ids, -1, axis=1).astype(np.float32))
+    with _routing(torch, []) as routes:
+        grads, loss = net.gradient_and_score(ds)
+    with _plain_attention(torch, flash, transformer):
+        with _routing(torch, []) as routes_p:
+            grads_p, loss_p = net.gradient_and_score(ds)
+        with _routing(torch, [], replay=routes):
+            grads_r, loss_r = net.gradient_and_score(ds)
+    shares = _routing_shares(routes, routes_p)
+    _check(len(routes) == n_layers, f"{len(routes)} routing calls")
+    n = TRAIN_BATCH * t
+    moved = torch.zeros(n, dtype=torch.bool, device=net.device)
+    for (ea, _), (eb, _) in zip(routes, routes_p):
+        moved |= ea != eb
+    k = int(moved.sum())
+    print("moe_train_routing " + json.dumps(
+        {"blocks": shares, "tokens_routed_differently": k, "tokens": n}), flush=True)
+    # (1) the same routing: the loss and every gradient
+    _check(abs(loss - loss_r) <= TRAIN_LOSS_TOL,
+           f"MoE train loss kernels {loss} vs plain (same routing) {loss_r}")
+    worst_r, at_r = _grad_rel(torch, grads, grads_r)
+    _check(worst_r <= TRAIN_GRAD_REL, f"MoE grad {at_r} kernels vs plain (same "
+           f"routing): rel L2 {worst_r}")
+    # (2) each its own routing: the loss, and the layers before the
+    # first block whose routing differs
+    _check(abs(loss - loss_p) <= TRAIN_LOSS_TOL,
+           f"MoE train loss kernels {loss} vs plain {loss_p}")
+    first = next((i for i, sh in enumerate(shares) if sh["expert"] > 0), n_layers)
+    gated = {f"layer{i}" for i in range(first + 1)} | (
+        {f"layer{n_layers + 1}"} if first == n_layers else set())
+    bound = TRAIN_GRAD_REL + MOE_FLIP_REL * (k / n) ** 0.5
+    worst_g, at_g = _grad_rel(torch, {l: g for l, g in grads.items() if l in gated},
+                              grads_p)
+    _check(worst_g <= bound, f"MoE grad {at_g} kernels vs plain (before block "
+           f"{first}): rel L2 {worst_g} > {bound}")
+    worst_p, at_p = _grad_rel(torch, grads, grads_p)
+    del grads, grads_p, grads_r
+    _say("phase 10 (a): MoE step within tolerance of the plain attention")
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    net.fit(ds)
+    torch.cuda.synchronize()
+    launches = _port_launches(kernels)
+    for name in (flash.KERNEL, flash.DQ_KERNEL, flash.DKV_KERNEL):
+        _check(launches.get(name, 0) == n_layers,
+               f"{name} launched {launches.get(name, 0)} times in one MoE "
+               f"train step, expected {n_layers}: {launches}")
+    losses, times = [net.score()], []
+    for _ in range(TRAIN_STEPS - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(ds)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(net.score())
+    _check(all(np.isfinite(losses)), f"finite MoE losses {losses}")
+    _check(losses[-1] < losses[0], f"MoE loss did not fall: {losses}")
+    step_s = statistics.median(times[1:])
+    per_step = _device_times(torch, lambda: net.fit(ds), 2)
+    dev = {m: _sum_ms(per_step, m) for m in
+           ("", "flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")}
+    top = sorted(per_step.items(), key=lambda kv: -kv[1])[:12]
+    # per token, a top-1 MoE block does the dense block's products (one
+    # expert's FFN) plus the router's d x E
+    flops = gpt_train_flops_per_token(MOE_TRAIN["vocab_size"], MOE_TRAIN["d_model"],
+                                      n_layers, t) \
+        + 6.0 * n_layers * MOE_TRAIN["d_model"] * MOE_TRAIN["num_experts"]
+    torch.cuda.reset_peak_memory_stats()
+    net.fit(ds)
+    torch.cuda.synchronize()
+    m = dict(step_ms=step_s * 1e3, tokens_per_s=n / step_s,
+             mfu=n / step_s * flops / PEAK_FLOPS["bfloat16"],
+             step_device_ms=dev[""], device_busy_share=dev[""] / (step_s * 1e3),
+             profile_kept_share=per_step.kept_share,
+             flash_fwd_ms_per_step=dev["flash_fwd_kernel"],
+             flash_dq_ms_per_step=dev["flash_dq_kernel"],
+             flash_dkv_ms_per_step=dev["flash_dkv_kernel"],
+             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+             loss_first=losses[0], loss_last=losses[-1], losses=losses,
+             loss_vs_plain_same_routing=abs(loss - loss_r),
+             loss_vs_plain=abs(loss - loss_p),
+             grad_rel_l2_vs_plain_same_routing_max=worst_r,
+             grad_worst_at_same_routing=at_r,
+             grad_rel_l2_vs_plain_gated_max=worst_g,
+             grad_rel_l2_vs_plain_max=worst_p, grad_worst_at=at_p,
+             first_block_routed_differently=first, flip_grad_bound=bound,
+             launches=launches,
+             top_kernels_ms_per_step=[[name[:90], ms] for name, ms in top])
+    print("moe_train " + json.dumps(m), flush=True)
+    return m
+
+
+def _serve_check(torch, np, kernels, flash, net, what):
+    """Greedy ``generate`` of NEW tokens for BATCH prompts of PROMPT on
+    ``net`` (counts zeroed right before): ``flash_fwd`` launched,
+    ``generate == generate_eager``, tokens in range. Returns (the
+    launches, the generator, the prompts on the card, the seconds of
+    that generate)."""
+    from deeplearning4j_tpu_torch.nn import generate as gen_mod
+
+    prompts = np.random.default_rng(8).integers(0, GPT["vocab_size"],
+                                                (BATCH, PROMPT))
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = net.generate(prompts, NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = _port_launches(kernels)
+    _check(launches.get(flash.KERNEL, 0) > 0,
+           f"{what}: the flash kernel never launched in generate: {launches}")
+    _check(out.shape == (BATCH, PROMPT + NEW), f"{what}: output shape {out.shape}")
+    _check(bool(((out >= 0) & (out < GPT["vocab_size"])).all()), f"{what}: tokens")
+    _check(bool((out == gen_mod.generate_eager(net, prompts, NEW)).all()),
+           f"{what}: generate == generate_eager")
+    return (launches, gen_mod.build_generator(net),
+            torch.as_tensor(prompts, device=net.device), gen_s)
+
+
+def _moe_serve(torch, np, kernels, flash):
+    """Phase 10 (b): the MoE GPT's greedy generate at phase 3's width;
+    its prefill logits against the plain attention's (the plain run
+    replaying the kernel run's routing, and routing by itself)."""
+    from deeplearning4j_tpu_torch.models.zoo.transformer import gpt
+    from deeplearning4j_tpu_torch.nn.layers import transformer
+    from deeplearning4j_tpu_torch.util.model_serializer import params_from_numpy
+
+    net = gpt(**MOE_GPT).init()
+    params_from_numpy(net, _random_params(net, seed=43))
+    launches, g, ids, gen_s = _serve_check(torch, np, kernels, flash, net, "MoE")
+    lengths = torch.full((BATCH,), PROMPT, device=ids.device)
+
+    def prefill():
+        return g.prefill(net.cast_params(net.params), ids, lengths, PROMPT + NEW)
+
+    with _routing(torch, []) as routes:
+        _, logits = prefill()
+    with _plain_attention(torch, flash, transformer):
+        with _routing(torch, []) as routes_p:
+            _, logits_p = prefill()
+        with _routing(torch, [], replay=routes):
+            _, logits_r = prefill()
+    shares = _routing_shares(routes, routes_p)
+    _check(bool(logits.isfinite().all()), "finite MoE prefill logits")
+    err_r = (logits - logits_r).abs().max().item()
+    _check(err_r <= LOGIT_TOL, f"MoE prefill logits kernel vs plain (same "
+           f"routing): {err_r} > {LOGIT_TOL}")
+    err_p = (logits - logits_p).abs().max().item()
+    if not any(sh["expert"] for sh in shares):  # no flip: the same routing
+        _check(err_p <= LOGIT_TOL, f"MoE prefill logits kernel vs plain: "
+               f"{err_p} > {LOGIT_TOL}")
+    m = dict(generate_s=gen_s, tokens_per_s=BATCH * NEW / gen_s,
+             prefill_ms=_time_ms(torch, prefill, 5), launches=launches,
+             prefill_logit_max_abs_diff_vs_plain_same_routing=err_r,
+             prefill_logit_max_abs_diff_vs_plain=err_p,
+             prefill_routing_vs_plain=shares)
+    print("moe_generate " + json.dumps(m), flush=True)
+    return m
+
+
+def _quantized_serve(torch, np, kernels, flash):
+    """Phase 10 (c): phase 3's dense GPT quantized to int8 and to fp8:
+    greedy generate, prefill logits against the same quantized net with
+    the plain attention, the parameter bytes, and the accuracy gate
+    against the unquantized net (printed: random weights give flat
+    logits)."""
+    from deeplearning4j_tpu_torch.models.zoo.transformer import gpt
+    from deeplearning4j_tpu_torch.nn import quantize as q
+    from deeplearning4j_tpu_torch.nn.layers import transformer
+    from deeplearning4j_tpu_torch.util.model_serializer import params_from_numpy
+
+    net = gpt(**GPT).init()
+    params_from_numpy(net, _random_params(net, seed=7))
+    out = {"param_bytes": {"float32": q.quantized_param_bytes(net.params)}}
+    for mode in q.quant_modes():
+        qn = q.quantize(net, mode)
+        launches, g, ids, gen_s = _serve_check(torch, np, kernels, flash, qn, mode)
+        lengths = torch.full((BATCH,), PROMPT, device=ids.device)
+
+        def prefill():
+            return g.prefill(qn.cast_params(qn.params), ids, lengths, PROMPT + NEW)
+
+        _, logits = prefill()
+        with _plain_attention(torch, flash, transformer):
+            _, logits_p = prefill()
+        _check(bool(logits.isfinite().all()), f"{mode}: finite prefill logits")
+        err = (logits - logits_p).abs().max().item()
+        _check(err <= LOGIT_TOL, f"{mode} prefill logits kernel vs plain: "
+               f"{err} > {LOGIT_TOL}")
+        out["param_bytes"][mode] = q.quantized_param_bytes(qn.params)
+        out[mode] = dict(generate_s=gen_s, tokens_per_s=BATCH * NEW / gen_s,
+                         prefill_ms=_time_ms(torch, prefill, 5),
+                         launches=launches,
+                         prefill_logit_max_abs_diff_vs_plain=err,
+                         accuracy_gate=q.accuracy_gate(net, qn))
+        del qn, g
+    print("quantized_generate " + json.dumps(out), flush=True)
+    return out
+
+
+def attention_layer_conf(layers=2):
+    """Phase 10 (d)'s stack: causal residual AttentionLayers of
+    ATTN_WIDTH over ATTN_HEADS heads and an RnnOutputLayer, bf16."""
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.layers import (
+        AttentionLayer,
+        RnnOutputLayer,
+    )
+
+    b = (NeuralNetConfiguration.builder().seed(0).learning_rate(3e-4)
+         .updater("adam").activation("identity").weight_init("xavier")
+         .compute_dtype("bfloat16").list())
+    for _ in range(layers):
+        b = b.layer(AttentionLayer(n_in=ATTN_WIDTH, n_out=ATTN_WIDTH,
+                                   num_heads=ATTN_HEADS, causal=True,
+                                   residual=True))
+    return b.layer(RnnOutputLayer(n_in=ATTN_WIDTH, n_out=ATTN_CLASSES,
+                                  activation="softmax",
+                                  loss_function="mcxent")).build()
+
+
+def _attention_layer(torch, np, kernels, flash):
+    """Phase 10 (d): one ``gradient_and_score`` of the AttentionLayer
+    stack, kernels against the plain versions; each flash kernel
+    launches once per AttentionLayer."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.nn.layers import attention
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.util.model_serializer import params_from_numpy
+
+    net = MultiLayerNetwork(attention_layer_conf()).init()
+    params_from_numpy(net, _random_params(net, seed=44))
+    rng = np.random.default_rng(45)
+    ds = DataSet(rng.standard_normal((ATTN_BATCH, ATTN_SEQ, ATTN_WIDTH)).astype(np.float32),
+                 rng.integers(0, ATTN_CLASSES, (ATTN_BATCH, ATTN_SEQ)).astype(np.float32))
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    grads, loss = net.gradient_and_score(ds)
+    torch.cuda.synchronize()
+    launches = _port_launches(kernels)
+    for name in (flash.KERNEL, flash.DQ_KERNEL, flash.DKV_KERNEL):
+        _check(launches.get(name, 0) == 2, f"{name} launched "
+               f"{launches.get(name, 0)} times in one AttentionLayer step, "
+               f"expected 2: {launches}")
+    with _plain_attention(torch, flash, attention):
+        grads_p, loss_p = net.gradient_and_score(ds)
+    _check(abs(loss - loss_p) <= TRAIN_LOSS_TOL,
+           f"AttentionLayer loss kernels {loss} vs plain {loss_p}")
+    worst, at = _grad_rel(torch, grads, grads_p)
+    _check(worst <= TRAIN_GRAD_REL, f"AttentionLayer grad {at} kernels vs "
+           f"plain: rel L2 {worst}")
+    del grads, grads_p
+    per_step = _device_times(torch, lambda: net.gradient_and_score(ds), 3)
+    dev = {k: _sum_ms(per_step, k) for k in
+           ("", "flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")}
+    m = dict(loss=loss, loss_vs_plain=abs(loss - loss_p),
+             grad_rel_l2_vs_plain_max=worst, grad_worst_at=at, launches=launches,
+             step_device_ms=dev[""], flash_ms=dev["flash_fwd_kernel"]
+             + dev["flash_dq_kernel"] + dev["flash_dkv_kernel"],
+             profile_kept_share=per_step.kept_share)
+    print("attention_layer " + json.dumps(m), flush=True)
+    return m
+
+
+def dbn_conf():
+    """Phase 10 (e)'s DBN: RBM(784 -> 500, xent), AutoEncoder(500 ->
+    250, mse, corruption 0.3), OutputLayer(250 -> 10), sigmoid, SGD
+    0.1, f32, pretraining on."""
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.layers import (
+        RBM,
+        AutoEncoder,
+        OutputLayer,
+    )
+
+    return (NeuralNetConfiguration.builder().seed(1).learning_rate(0.1)
+            .updater("sgd").activation("sigmoid").list()
+            .layer(RBM(n_in=784, n_out=500, loss_function="xent"))
+            .layer(AutoEncoder(n_in=500, n_out=250, loss_function="mse",
+                               corruption_level=0.3))
+            .layer(OutputLayer(n_in=250, n_out=10, activation="softmax",
+                               loss_function="mcxent"))
+            .pretrain(True).build())
+
+
+def _pretrain(torch, np, kernels):
+    """Phase 10 (e): the DBN's ``pretrain`` at MNIST's width (no port
+    kernel), the AE's reconstruction loss (without corruption, on the
+    RBM's frozen activations) before and after a second epoch of its
+    own, and one pretrain step per layer on the card against the CPU
+    with the same uniforms."""
+    from deeplearning4j_tpu_torch.datasets.mnist import load_mnist
+    from deeplearning4j_tpu_torch.nn.layers import feedforward
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.updater import init_updater_state
+    from deeplearning4j_tpu_torch.util.model_serializer import params_from_numpy
+    from deeplearning4j_tpu_torch.util.rng import fold_in
+
+    data = load_mnist(train=True, num_examples=DBN_BATCH * DBN_BATCHES)
+    net = MultiLayerNetwork(dbn_conf()).init()
+    tree = _random_params(net, seed=46)
+    params_from_numpy(net, tree)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    losses = net.pretrain(data, epochs=1, batch_size=DBN_BATCH)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    _check(not _port_launches(kernels),
+           f"pretrain launched port kernels: {_port_launches(kernels)}")
+    _check(set(losses) == {"layer0", "layer1"} and all(
+        np.isfinite(v) for v in losses.values()), f"pretrain losses {losses}")
+    # the AE's second epoch, on the RBM's frozen activations: its
+    # reconstruction loss without corruption over the 8 minibatches
+    batches = [net._tensor(data.features[i:i + DBN_BATCH])
+               for i in range(0, DBN_BATCH * DBN_BATCHES, DBN_BATCH)]
+    rbm, ae = net.impls[0], net.impls[1]
+
+    @torch.no_grad()
+    def ae_loss():
+        return statistics.mean(float(ae.pretrain_loss(
+            net.params["layer1"], rbm.forward(net.params["layer0"], x, {},
+                                              False)[0], None))
+            for x in batches)
+
+    ae_before = ae_loss()
+    ucfg = net._specs["layer1"][2]
+    ust = {n: init_updater_state(ucfg, v) for n, v in net.params["layer1"].items()}
+    key = int(net.gc.seed) + 104729 * 2
+    for j, x in enumerate(batches):
+        it = DBN_BATCHES + j
+        new_p, ust, _ = net._pretrain_step(1, ust, it, x, fold_in(key, it))
+        net.params = {**net.params, "layer1": new_p}
+    ae_after = ae_loss()
+    _check(np.isfinite(ae_after) and ae_after < ae_before,
+           f"the AE's loss did not fall over a second epoch: {ae_before} -> "
+           f"{ae_after}")
+
+    # one step per layer, card against CPU, the same uniforms
+    x = data.features[:DBN_BATCH]
+    cpu = MultiLayerNetwork(dbn_conf(), device="cpu").init()
+    card = MultiLayerNetwork(dbn_conf()).init()
+    params_from_numpy(cpu, tree)
+    params_from_numpy(card, tree)
+    saved = feedforward.uniform_draw
+    rel = {}
+    try:
+        for i in (0, 1):
+            u = np.random.default_rng(47 + i).random((DBN_BATCH, 500)).astype(np.float32)
+            out = []
+            for net in (cpu, card):
+                feedforward.uniform_draw = (
+                    lambda key, shape, device, u=u: torch.as_tensor(
+                        u[:, :shape[1]], device=device))
+                ucfg = net._specs[f"layer{i}"][2]
+                ust = {n: init_updater_state(ucfg, v)
+                       for n, v in net.params[f"layer{i}"].items()}
+                new_p, _, loss = net._pretrain_step(i, ust, 0, net._tensor(x), 5)
+                out.append((new_p, float(loss)))
+            (pc, lc), (pg, lg) = out
+            rel[f"layer{i}"] = {"loss": abs(lg - lc) / abs(lc)} | {
+                n: ((pg[n].cpu() - pc[n]).norm() / pc[n].norm()).item() for n in pc}
+    finally:
+        feedforward.uniform_draw = saved
+    worst = max(v for r in rel.values() for v in r.values())
+    _check(worst <= PRETRAIN_REL, f"pretrain step card vs CPU: {rel}")
+    m = dict(losses=losses, ae_loss_after_epoch1=ae_before,
+             ae_loss_after_epoch2=ae_after,
+             pretrain_epoch_s=epoch_s, step_rel_card_vs_cpu=rel,
+             step_rel_card_vs_cpu_max=worst)
+    print("pretrain " + json.dumps(m), flush=True)
+    return m
+
+
+def phase_layers(torch, np, kernels, flash):
+    """Phase 10: the rest of the layer library on the card."""
+    out = {"moe_train": _moe_train(torch, np, kernels, flash)}
+    _say(f"phase 10 (a): MoE gpt train step {out['moe_train']['step_ms']:.2f} ms")
+    out["moe_generate"] = _moe_serve(torch, np, kernels, flash)
+    _say("phase 10 (b): MoE gpt generate "
+         f"{out['moe_generate']['tokens_per_s']:.1f} tokens/s")
+    out["quantized"] = _quantized_serve(torch, np, kernels, flash)
+    _say("phase 10 (c): int8 and fp8 gpt generate")
+    out["attention_layer"] = _attention_layer(torch, np, kernels, flash)
+    _say("phase 10 (d): AttentionLayer step within tolerance of the plain "
+         "attention")
+    out["pretrain"] = _pretrain(torch, np, kernels)
+    _say("phase 10 (e): DBN pretrain, one step per layer card vs CPU within "
+         f"{PRETRAIN_REL}")
+    return out
+
+
+def _layer_launches(entries, done):
+    """Each kernel's launches on phase 10's paths, added to its entry of
+    the kernels line: per MoE train step, per MoE generate, per int8 and
+    fp8 generate, and per AttentionLayer step."""
+    m = done["10"]
+    for e in entries:
+        name = e["name"]
+        e["moe_train_launches_per_step"] = m["moe_train"]["launches"].get(name, 0)
+        e["moe_generate_launches"] = m["moe_generate"]["launches"].get(name, 0)
+        e["quantized_generate_launches"] = {
+            mode: m["quantized"][mode]["launches"].get(name, 0)
+            for mode in ("int8", "fp8")}
+        e["attention_layer_launches_per_step"] = \
+            m["attention_layer"]["launches"].get(name, 0)
+    return entries
+
+
+PHASES = ("2", "2b", "3", "4", "5", "6", "7", "8", "9", "10")
 # source -> its bf16 kernels, each of whose instantiations must not spill:
 # the mma.sync designs keep their tiles, sums and (LSTM) cell state in
 # registers
@@ -2867,13 +3394,25 @@ def main(argv) -> int:
               f"tiny ResNet f32 card vs CPU within {TINY_RESNET_REL}; the "
               f"char-RNN and gpt graphs generate as the MultiLayerNetwork "
               f"on {card}", flush=True)
+    if "10" in phases:  # the rest of the layer library
+        print(f"clocks: {_clocks()}", flush=True)
+        m = done["10"] = phase_layers(torch, np, kernels, flash)
+        a, q = m["moe_train"], m["quantized"]
+        _say(f"phase 10: MoE gpt train step {a['step_ms']:.2f} ms, "
+             f"{a['tokens_per_s']:.0f} tokens/s, busy "
+             f"{a['device_busy_share']:.3f}, loss {a['loss_first']:.4f} -> "
+             f"{a['loss_last']:.4f}; MoE generate "
+             f"{m['moe_generate']['tokens_per_s']:.1f} tokens/s; int8 "
+             f"{q['int8']['tokens_per_s']:.1f}, fp8 {q['fp8']['tokens_per_s']:.1f} "
+             f"tokens/s; AttentionLayer and DBN pretrain within tolerance "
+             f"on {card}", flush=True)
     if phases != PHASES:
         print(f"chip_smoke: ran phases 0, 1, {', '.join(phases)} only; "
               "no result", flush=True)
         return 0
 
-    summary = {"kernels": _path_launches(
-        _flash_summary(done) + _lstm_summary(done, lk), done)}
+    summary = {"kernels": _layer_launches(_path_launches(
+        _flash_summary(done) + _lstm_summary(done, lk), done), done)}
     print(card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

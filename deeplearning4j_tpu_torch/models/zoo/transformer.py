@@ -1,17 +1,19 @@
 """GPT-style causal language model for the zoo.
 
 Counterpart of ``deeplearning4j_tpu/models/zoo/transformer.py`` (``gpt``,
-``generate``, ``gpt_train_flops_per_token`` and ``gpt_benchmark``):
-token+position embedding -> N pre-LN transformer blocks (the
-flash-attention kernels on the card) -> softmax LM head, trained with
-Adam by ``net.fit`` or ``net.fit_scan``.
+``generate``, ``gpt_stack_blocks``, ``gpt_train_flops_per_token`` and
+``gpt_benchmark``): token+position embedding -> N pre-LN transformer
+blocks (the flash-attention kernels on the card; dense MLPs, or
+Mixtral-style top-1 routed experts with ``num_experts > 0``) -> softmax
+LM head, trained with Adam by ``net.fit`` or ``net.fit_scan``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
+import torch
 
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet
 from deeplearning4j_tpu_torch.models.zoo.benchmark import best_of_fit_scan
@@ -32,8 +34,9 @@ def gpt(vocab_size: int = 50257, d_model: int = 512, n_layers: int = 8,
         capacity_factor: float = 1.25, aux_loss_weight: float = 0.01,
         seed: int = 0, device: DeviceLike = None) -> MultiLayerNetwork:
     """Decoder-only LM over int token ids [b, t], with the reference's
-    config (its JSON is the reference's). ``device`` defaults to cuda;
-    ``num_experts > 0`` is not ported yet and raises."""
+    config (its JSON is the reference's). ``device`` defaults to cuda.
+    ``num_experts > 0`` swaps the dense MLPs for top-1 routed experts
+    (``capacity_factor`` and ``aux_loss_weight`` tune the routing)."""
     b = (NeuralNetConfiguration.builder()
          .seed(seed).learning_rate(learning_rate).updater("adam")
          .activation("identity").weight_init("xavier")
@@ -53,6 +56,14 @@ def gpt(vocab_size: int = 50257, d_model: int = 512, n_layers: int = 8,
                                    loss_function="mcxent"))
             .build())
     return MultiLayerNetwork(conf, device=device)
+
+
+def gpt_stack_blocks(net: MultiLayerNetwork) -> Dict[str, torch.Tensor]:
+    """The (identical) TransformerBlock parameters of a ``gpt`` net,
+    stacked: every entry gains a leading [n_layers] dimension, the
+    layout a pipeline shards over its stages."""
+    trees = [net.params[b.name] for b in net.impls[1:-1]]
+    return {name: torch.stack([t[name] for t in trees]) for name in trees[0]}
 
 
 def gpt_train_flops_per_token(vocab_size: int, d_model: int, n_layers: int,

@@ -190,7 +190,8 @@ class SequenceEmbeddingLayer(FeedForwardLayer):
 class TransformerBlock(FeedForwardLayer):
     """Pre-LN transformer block: LN -> multi-head attention (the flash
     kernel) -> residual -> LN -> GELU MLP -> residual; n_in == n_out ==
-    d_model. ``num_experts > 0`` (routed experts) is not ported yet."""
+    d_model. ``num_experts > 0`` swaps the MLP for top-1 routed experts
+    (``capacity_factor`` and ``aux_loss_weight`` tune the routing)."""
 
     num_heads: int = 8
     ffn_mult: int = 4

@@ -44,6 +44,7 @@ from deeplearning4j_tpu_torch.nn.layers.transformer import (
     SequenceEmbeddingImpl,
     TransformerBlockImpl,
 )
+from deeplearning4j_tpu_torch.nn.quantize import qtake
 from deeplearning4j_tpu_torch.ops.lstm_kernel import pack_wr
 from deeplearning4j_tpu_torch.util.dtypes import cast_floats
 from deeplearning4j_tpu_torch.util.rng import MASK64, mix64 as _mix
@@ -236,7 +237,7 @@ class TransformerGenerator(_Generator):
 
     def _embed_token(self, pc, tok, pos) -> torch.Tensor:
         p = pc[self.emb.name]
-        return p["W"][tok] + p["P"][pos]
+        return qtake(p, "W", tok) + p["P"][pos]
 
     @torch.no_grad()
     def prefill(self, pc, ids: torch.Tensor, lengths: torch.Tensor,
@@ -246,7 +247,7 @@ class TransformerGenerator(_Generator):
         that their done-mask discards."""
         b, t_pad = ids.shape
         p_emb = pc[self.emb.name]
-        x = p_emb["W"][ids] + p_emb["P"][:t_pad][None]
+        x = qtake(p_emb, "W", ids) + p_emb["P"][:t_pad][None]
         cache_dtype = self.cd if self.cd is not None else torch.float32
         caches = []
         for blk in self.blocks:

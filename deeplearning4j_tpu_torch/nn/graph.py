@@ -18,7 +18,10 @@ single steps or [b, t, f] bursts through the recurrent vertices, and
 onto the inputs in ``add_inputs`` order, labels onto the outputs in
 ``set_outputs`` order. Parameters, states and the updater state are the
 reference's trees, so they carry across both ways
-(``util/model_serializer.py``). Each step runs eagerly.
+(``util/model_serializer.py``). ``pretrain`` trains the RBM and
+AutoEncoder vertices one by one on the frozen activations of their
+inputs; a quantized graph (``nn/quantize.py``) refuses ``fit``. Each
+step runs eagerly.
 """
 
 from __future__ import annotations
@@ -45,7 +48,10 @@ from deeplearning4j_tpu_torch.nn.multilayer import (
     MultiLayerNetwork,
     Params,
     _numpy,
+    add_aux_losses,
     apply_updates,
+    pretrain_update,
+    refuse_quantized,
     stage_arrays,
     update_specs,
 )
@@ -259,6 +265,9 @@ class ComputationGraph:
                         frontier.append(v.name)
             self._input_casts[name] = ok
         self._train_key = int(self.gc.seed) + 7919
+        self._pretrained = False
+        #: the storage mode of quantized weights ("int8", "fp8") or None
+        self.quantized: Optional[str] = None
         #: rnn_time_step's carries, {layer: {"h", "c"}}; empty = no history
         self._rnn_state: Dict[str, Any] = {}
 
@@ -278,6 +287,7 @@ class ComputationGraph:
             ucfg = self._specs[name][2]
             upd[name] = {n: init_updater_state(ucfg, v) for n, v in p.items()}
         self.opt_state = {"step": 0, "updater": upd}
+        self._pretrained = False
         return self
 
     def set_listeners(self, *listeners) -> None:
@@ -349,10 +359,7 @@ class ComputationGraph:
             score = s if score is None else score + s
         for name, impl in self.impls.items():
             score = score + impl.regularization_penalty(params[name]).to(score.dtype)
-        for ns in new_states.values():
-            if isinstance(ns, dict) and "__aux_loss__" in ns:
-                score = score + ns["__aux_loss__"].to(score.dtype)
-        return score, new_states
+        return add_aux_losses(score, new_states), new_states
 
     def _train_step(self, inputs: Tensors, labels: Tensors, fmasks: Tensors,
                     lmasks: Tensors) -> torch.Tensor:
@@ -411,10 +418,12 @@ class ComputationGraph:
         the device once, or minibatches of ``batch_size``) or an
         iterable of them, ``epochs`` times; ``conf.iterations`` steps per
         minibatch."""
+        refuse_quantized(self)
         if self.params is None:
             self.init()
-        if self.conf.pretrain:
-            self.pretrain(data)
+        if self.conf.pretrain and not self._pretrained:
+            self.pretrain(data, batch_size=batch_size)
+            self._pretrained = True
         if isinstance(data, (DataSet, MultiDataSet)):
             mds = self._to_mds(data)
             if batch_size is None:
@@ -429,9 +438,44 @@ class ComputationGraph:
 
     def pretrain(self, data, epochs: int = 1,
                  batch_size: Optional[int] = None) -> Dict[str, float]:
-        raise NotImplementedError(
-            "layer-wise pretraining (RBM, AutoEncoder) is not ported yet: "
-            "ROADMAP Queue A3")
+        """Layer-wise greedy pretraining over the DAG: each RBM and
+        AutoEncoder layer vertex, in topological order, trains on the
+        frozen activations of its input (the whole graph's inference
+        forward, taken to f32), over ``data`` (a DataSet or MultiDataSet
+        in minibatches of ``batch_size``, 32 by default, or an iterable of
+        them) for ``epochs`` passes, with its own updater state; its
+        draws come from the stream ``seed + 104729 * (vi + 1)`` (``vi``
+        the vertex's topological index) folded with the iteration.
+        Returns each trained layer's last loss."""
+        if self.params is None:
+            self.init()
+        if isinstance(data, (DataSet, MultiDataSet)):
+            data = ListMultiDataSetIterator(self._to_mds(data), batch_size or 32)
+        losses: Dict[str, float] = {}
+        for vi, name in enumerate(self.order):
+            v = self.defs[name]
+            if v.kind != "layer" or not hasattr(self.impls[name], "pretrain_loss"):
+                continue
+            impl, ucfg = self.impls[name], self._specs[name][2]
+            ustate = {n: init_updater_state(ucfg, t)
+                      for n, t in self.params[name].items()}
+            key = int(self.gc.seed) + 104729 * (vi + 1)
+            it, loss = 0, float("nan")
+            for _ in range(max(1, epochs)):
+                for mds in data:
+                    mds = self._to_mds(mds)
+                    inputs = {n: self._tensor(f)
+                              for n, f in zip(self.input_names, mds.features)}
+                    with torch.no_grad():
+                        acts, _, _ = self._forward_all(
+                            self.params, self.states, inputs, False, None, {})
+                    new_p, ustate, loss = pretrain_update(
+                        impl, self.params[name], ustate, it,
+                        acts[v.inputs[0]].float(), fold_in(key, it), ucfg)
+                    self.params = {**self.params, name: new_p}
+                    it += 1
+            losses[name] = float(loss)
+        return losses
 
     def _device_mds(self, mds: MultiDataSet) -> MultiDataSet:
         devs = lambda arrs: None if arrs is None else [  # noqa: E731

@@ -37,9 +37,8 @@ def build_layer(global_conf: NeuralNetConfiguration, layer_conf: L.Layer,
         if cls in _IMPL_REGISTRY:
             return _IMPL_REGISTRY[cls](global_conf, layer_conf, name)
     raise NotImplementedError(
-        f"{type(layer_conf).__name__} has no implementation in the port yet "
-        "(AutoEncoder, RBM, AttentionLayer and MoELayer wait for later "
-        "slices)")
+        f"{type(layer_conf).__name__} has no layer implementation (no impl "
+        "is registered for it or for a base class)")
 
 
 def apply_dropout(x: torch.Tensor, rate: float,

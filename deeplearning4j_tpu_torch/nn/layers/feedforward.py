@@ -1,10 +1,16 @@
 """Feed-forward layer family: Dense, Output/RnnOutput/Loss, Embedding,
-Activation, Dropout, GlobalPooling.
+AutoEncoder, RBM, Activation, Dropout, GlobalPooling.
 
-Counterpart of ``deeplearning4j_tpu/nn/layers/feedforward.py`` (its
-AutoEncoder and RBM wait for ROADMAP Queue A3). Scoring takes the fused
-from-logits loss where the activation and loss allow it (softmax +
-mcxent/nll, sigmoid + xent).
+Counterpart of ``deeplearning4j_tpu/nn/layers/feedforward.py``. Scoring
+takes the fused from-logits loss where the activation and loss allow it
+(softmax + mcxent/nll, sigmoid + xent). Dense products and the embedding
+gather go through ``qmatmul`` / ``qtake``, so int8/fp8 weights
+(``nn/quantize.py``) serve. The AutoEncoder and the RBM carry a visible
+bias ``vb`` and the layer-wise pretraining objectives the containers'
+``pretrain`` runs: the AutoEncoder's reconstruction loss (autograd) and
+the RBM's CD-k gradient (supplied directly). Their Bernoulli draws
+(corruption, Gibbs samples) are ``uniform < p`` on uniforms from
+``uniform_draw``, the form ``jax.random.bernoulli`` takes.
 """
 
 from __future__ import annotations
@@ -19,10 +25,11 @@ from deeplearning4j_tpu_torch.nn.layers.base import (
     apply_dropout,
     register_impl,
 )
+from deeplearning4j_tpu_torch.nn.quantize import is_quantized, qmatmul, qtake
 from deeplearning4j_tpu_torch.nn.weights import init_weights
 from deeplearning4j_tpu_torch.ops.activations import Activation, activate
 from deeplearning4j_tpu_torch.ops.losses import LossFunction, compute_loss
-from deeplearning4j_tpu_torch.util.rng import generator
+from deeplearning4j_tpu_torch.util.rng import fold_in, generator
 
 
 def _fused_logits_pair(activation: str, loss_function: str) -> bool:
@@ -61,7 +68,11 @@ class BaseDenseImpl(LayerImpl):
                                         device=device)}
 
     def preout(self, params, x: torch.Tensor) -> torch.Tensor:
-        """In the promoted dtype of x and W, as the reference's matmul."""
+        """In the promoted dtype of x and W, as the reference's matmul;
+        a quantized W in x's dtype, the bias added in that dtype."""
+        if is_quantized(params, "W"):
+            z = qmatmul(x, params, "W")
+            return z + params["b"].to(z.dtype) if "b" in params else z
         W = params["W"]
         dt = torch.promote_types(x.dtype, W.dtype)
         z = x.to(dt) @ W.to(dt)
@@ -92,12 +103,17 @@ class OutputImpl(BaseDenseImpl):
         gives the exact products the reference's
         ``preferred_element_type=f32`` matmul sums. Mixed operands (f32
         activations on a bf16 head) compute in the promoted dtype, as the
-        reference's matmul does."""
+        reference's matmul does. A quantized head computes in x's dtype
+        (``qmatmul``), as the reference's; its callers take the logits to
+        f32."""
         W = params["W"]
-        dt = torch.promote_types(x.dtype, W.dtype)
-        if dt in (torch.bfloat16, torch.float16):
+        if is_quantized(params, "W"):
+            z = qmatmul(x, params, "W")
+        elif torch.promote_types(x.dtype, W.dtype) in (torch.bfloat16,
+                                                       torch.float16):
             z = x.float() @ W.float()
         else:
+            dt = torch.promote_types(x.dtype, W.dtype)
             z = x.to(dt) @ W.to(dt)
         return z + params["b"].to(z.dtype) if "b" in params else z
 
@@ -154,7 +170,7 @@ class EmbeddingImpl(LayerImpl):
         idx = x.long()
         if idx.ndim == 2:
             idx = idx[:, 0]
-        return activate(self.activation, params["W"][idx] + params["b"]), state
+        return activate(self.activation, qtake(params, "W", idx) + params["b"]), state
 
 
 @register_impl(L.ActivationLayer)
@@ -202,3 +218,108 @@ class GlobalPoolingImpl(LayerImpl):
         if pt == L.PoolingType.SUM:
             return torch.sum(x, dim=dims), state
         return torch.mean(x, dim=dims), state
+
+
+def uniform_draw(key: int, shape, device) -> torch.Tensor:
+    """f32 uniforms in [0, 1) of ``shape`` from the stream ``key``: the
+    Bernoulli draws of the AutoEncoder's corruption and the RBM's Gibbs
+    samples are ``uniform_draw(...) < p``."""
+    return torch.rand(tuple(shape), generator=generator(key, device),
+                      device=device)
+
+
+@register_impl(L.AutoEncoder)
+class AutoEncoderImpl(BaseDenseImpl):
+    """Denoising autoencoder: encode a = act(x W + b), decode
+    x' = act(a W^T + vb); the pretraining loss is the reconstruction of
+    the uncorrupted input (plus the sparsity term)."""
+
+    def init_params(self, gen, device) -> Dict[str, torch.Tensor]:
+        p = super().init_params(gen, device)
+        p["vb"] = torch.zeros(self.conf.n_in, device=device)  # visible bias
+        return p
+
+    def encode(self, params, x):
+        return activate(self.activation, x @ params["W"] + params["b"])
+
+    def decode(self, params, a):
+        return activate(self.activation, a @ params["W"].T + params["vb"])
+
+    def forward(self, params, x, state, train, rng=None, mask=None):
+        return self.encode(params, x), state
+
+    def pretrain_loss(self, params, x, rng):
+        """Reconstruction loss of ``x`` from its corrupted copy: each
+        input kept with probability 1 - corruption_level (drawn from the
+        stream ``rng``), the rest zeroed."""
+        c = self.conf
+        corrupted = x
+        if c.corruption_level > 0.0 and rng is not None:
+            keep = uniform_draw(rng, x.shape, x.device) < 1.0 - c.corruption_level
+            corrupted = torch.where(keep, x, torch.zeros((), dtype=x.dtype,
+                                                         device=x.device))
+        recon = self.decode(params, self.encode(params, corrupted))
+        loss = compute_loss(c.loss_function, x, recon)
+        if c.sparsity > 0.0:
+            a_mean = self.encode(params, x).mean(dim=0)
+            loss = loss + torch.sum((a_mean - c.sparsity) ** 2)
+        return loss
+
+
+@register_impl(L.RBM)
+class RBMImpl(BaseDenseImpl):
+    """Restricted Boltzmann machine with CD-k pretraining: a Gibbs chain
+    of static length k, whose gradient estimate is supplied directly
+    (contrastive divergence is not the gradient of a tractable
+    objective)."""
+
+    def init_params(self, gen, device) -> Dict[str, torch.Tensor]:
+        p = super().init_params(gen, device)
+        p["vb"] = torch.zeros(self.conf.n_in, device=device)
+        return p
+
+    def _prop_up(self, params, v):
+        z = v @ params["W"] + params["b"]
+        if self.conf.hidden_unit == L.RBMHiddenUnit.BINARY:
+            return torch.sigmoid(z)
+        return torch.relu(z)
+
+    def _prop_down(self, params, h):
+        z = h @ params["W"].T + params["vb"]
+        vu = self.conf.visible_unit
+        if vu == L.RBMVisibleUnit.BINARY:
+            return torch.sigmoid(z)
+        if vu == L.RBMVisibleUnit.SOFTMAX:
+            return torch.softmax(z, dim=-1)
+        return z  # gaussian / linear: the mean-field identity
+
+    def forward(self, params, x, state, train, rng=None, mask=None):
+        x = self.maybe_dropout_input(x, train, rng)
+        return activate(self.activation, x @ params["W"] + params["b"]), state
+
+    def cd_gradients(self, params, v0, rng):
+        """(the CD-k gradient {"W", "b", "vb"}, the reconstruction error
+        of the chain's last visible sample, clipped to [1e-7, 1 - 1e-7]).
+        Gibbs step j of binary hidden units samples h from the stream
+        ``fold_in(rng, j)``."""
+        c = self.conf
+        h0 = self._prop_up(params, v0)
+        h, v = h0, v0
+        for j in range(c.k):
+            hs = h
+            if c.hidden_unit == L.RBMHiddenUnit.BINARY:
+                hs = (uniform_draw(fold_in(rng, j), h.shape, h.device)
+                      < h).to(v0.dtype)
+            v = self._prop_down(params, hs)
+            h = self._prop_up(params, v)
+        n = v0.shape[0]
+        grads = {"W": -(v0.T @ h0 - v.T @ h) / n,
+                 "b": -torch.mean(h0 - h, dim=0),
+                 "vb": -torch.mean(v0 - v, dim=0)}
+        recon_err = compute_loss(c.loss_function, v0,
+                                 torch.clamp(v, 1e-7, 1 - 1e-7))
+        return grads, recon_err
+
+    def pretrain_loss(self, params, x, rng):
+        # score reporting only: the gradients come from cd_gradients
+        return self.cd_gradients(params, x, rng)[1]

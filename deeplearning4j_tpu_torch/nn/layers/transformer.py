@@ -1,12 +1,18 @@
 """Transformer block + sequence embedding layer impls.
 
-Counterpart of ``deeplearning4j_tpu/nn/layers/transformer.py``, dense
-blocks with a dense KV cache: ``forward`` (inference or training, with
-dropout on the attention and MLP outputs; the gradient of attention runs
-through the flash backward kernels), ``prefill`` (through the
-flash-attention kernel) and ``decode_step`` (plain attention over the
-cache, as in the reference). Routed experts (``num_experts > 0``), the
-paged-pool branch and quantized weights are not ported yet and raise
+Counterpart of ``deeplearning4j_tpu/nn/layers/transformer.py``, blocks
+with a dense KV cache: ``forward`` (inference or training, with dropout
+on the attention and MLP outputs; the gradient of attention runs through
+the flash backward kernels), ``prefill`` (through the flash-attention
+kernel) and ``decode_step`` (plain attention over the cache, as in the
+reference). The feed-forward is a dense GELU MLP or, with
+``num_experts > 0``, Mixtral-style top-1 routed experts (``_ffn``, the
+one implementation the three paths share): training routes with the
+configured capacity and writes the weighted aux loss into the block's
+state; prefill and decode route with capacity n, so no token overflows.
+Projections and the token gather go through ``qmatmul`` / ``qtake``, so
+int8/fp8 weights (``nn/quantize.py``) serve on every path. The
+paged-pool branch waits for the paged KV pool and raises
 ``NotImplementedError``.
 
 Pre-LN wiring (x + Attn(LN(x)), x + MLP(LN(x))); LayerNorm runs in f32
@@ -32,6 +38,12 @@ from deeplearning4j_tpu_torch.nn.layers.base import (
     apply_dropout,
     register_impl,
 )
+from deeplearning4j_tpu_torch.nn.layers.moe import (
+    AUX_LOSS_KEY,
+    init_moe_params,
+    run_moe_ffn,
+)
+from deeplearning4j_tpu_torch.nn.quantize import qmatmul, qtake
 from deeplearning4j_tpu_torch.nn.weights import init_weights
 from deeplearning4j_tpu_torch.ops.attention import softmax_scale
 from deeplearning4j_tpu_torch.util.rng import fold_in, generator
@@ -70,17 +82,13 @@ class SequenceEmbeddingImpl(LayerImpl):
         if t > self.conf.max_len:
             raise ValueError(
                 f"sequence length {t} > max_len {self.conf.max_len}")
-        return params["W"][idx] + params["P"][:t][None], state
+        return qtake(params, "W", idx) + params["P"][:t][None], state
 
 
 @register_impl(L.TransformerBlock)
 class TransformerBlockImpl(LayerImpl):
     def __init__(self, global_conf, conf, name):
         super().__init__(global_conf, conf, name)
-        if conf.num_experts > 0:
-            raise NotImplementedError(
-                "TransformerBlock(num_experts > 0): routed experts are not "
-                "ported yet (ROADMAP Queue A)")
         if conf.n_out != conf.n_in:
             raise ValueError("TransformerBlock needs n_in == n_out (d_model)")
         if conf.n_out % conf.num_heads != 0:
@@ -98,33 +106,56 @@ class TransformerBlockImpl(LayerImpl):
 
         ones = lambda n: torch.ones(n, device=device)  # noqa: E731
         zeros = lambda n: torch.zeros(n, device=device)  # noqa: E731
-        return {
+        params = {
             "Wqkv": mk((d, 3 * d)), "Wo": mk((d, d)),
             "ln1_g": ones(d), "ln1_b": zeros(d),
             "ln2_g": ones(d), "ln2_b": zeros(d),
-            "W1": mk((d, f)), "b1": zeros(f),
-            "W2": mk((f, d)), "b2": zeros(d),
         }
+        if c.num_experts > 0:  # Mixtral-style routed MLP (shared init)
+            params.update(init_moe_params(
+                gen, d, f, c.num_experts, self.weight_init, c.dist_mean,
+                c.dist_std, dist=c.dist, device=device))
+        else:
+            params.update({"W1": mk((d, f)), "b1": zeros(f),
+                           "W2": mk((f, d)), "b2": zeros(d)})
+        return params
+
+    def init_state(self, device) -> Dict[str, torch.Tensor]:
+        if self.conf.num_experts > 0:
+            return {AUX_LOSS_KEY: torch.zeros((), device=device)}
+        return {}
 
     def _qkv(self, params, x):
         """LN1 -> fused QKV projection, split into [..., h, hd] each."""
         c = self.conf
         h = _layer_norm(x, params["ln1_g"], params["ln1_b"])
-        qkv = h @ params["Wqkv"].to(h.dtype)
+        qkv = qmatmul(h, params, "Wqkv")
         shape = x.shape[:-1] + (c.num_heads, c.n_out // c.num_heads)
         return [z.reshape(shape) for z in qkv.split(c.n_out, dim=-1)]
 
-    def _ffn(self, params, h2):
-        """Post-LN2 dense GELU MLP over [..., d]."""
-        mlp = F.gelu(h2 @ params["W1"].to(h2.dtype)
-                     + params["b1"].to(h2.dtype), approximate="tanh")
-        return mlp @ params["W2"].to(h2.dtype) + params["b2"].to(h2.dtype)
+    def _ffn(self, params, h2, state, mask=None, capacity_factor=None):
+        """Post-LN2 feed-forward over [..., d]: the dense GELU MLP, or
+        the routed experts over the flattened tokens (``mask`` [b, t]
+        keeps masked tokens out of the routing). Returns (output, the
+        new state: the weighted aux loss for experts, else ``state``)."""
+        c = self.conf
+        if c.num_experts > 0:
+            d = h2.shape[-1]
+            y2, new_state = run_moe_ffn(params, h2.reshape(-1, d),
+                                        capacity_factor, c.aux_loss_weight,
+                                        mask=mask)
+            return y2.reshape(h2.shape), new_state
+        mlp = F.gelu(qmatmul(h2, params, "W1") + params["b1"].to(h2.dtype),
+                     approximate="tanh")
+        return qmatmul(mlp, params, "W2") + params["b2"].to(h2.dtype), state
 
-    def _attn_ffn(self, params, x, o, rng=None):
-        """x + o.Wo, then + MLP(LN2(.)); o is [b, t, h, hd]. With a
-        training stream key ``rng`` and a dropout rate, the attention
-        output and the MLP output each take dropout on their own stream
-        (``rng`` folded with 1 and with 2, as in the reference)."""
+    def _attn_ffn(self, params, x, o, state, rng=None, mask=None,
+                  capacity_factor=None):
+        """x + o.Wo, then + FFN(LN2(.)); o is [b, t, h, hd] (or [b, h,
+        hd]). With a training stream key ``rng`` and a dropout rate, the
+        attention output and the FFN output each take dropout on their
+        own stream (``rng`` folded with 1 and with 2, as in the
+        reference). Returns (output, the FFN's new state)."""
         rate = self.dropout_rate if rng is not None else 0.0
 
         def drop(z, stream):
@@ -132,9 +163,15 @@ class TransformerBlockImpl(LayerImpl):
                 return z
             return apply_dropout(z, rate, generator(fold_in(rng, stream), z.device))
 
-        x = x + drop(o.reshape(x.shape) @ params["Wo"].to(x.dtype), 1)
+        x = x + drop(qmatmul(o.reshape(x.shape), params, "Wo"), 1)
         h2 = _layer_norm(x, params["ln2_g"], params["ln2_b"])
-        return x + drop(self._ffn(params, h2), 2)
+        mlp, new_state = self._ffn(params, h2, state, mask=mask,
+                                   capacity_factor=capacity_factor)
+        return x + drop(mlp, 2), new_state
+
+    def _serving_capacity(self) -> float:
+        """Prefill and decode route no-drop: capacity = n tokens."""
+        return float(max(1, self.conf.num_experts))
 
     def forward(self, params, x, state, train, rng=None, mask=None):
         if x.ndim != 3:
@@ -142,10 +179,12 @@ class TransformerBlockImpl(LayerImpl):
                              f"{tuple(x.shape)}")
         q, k, v = self._qkv(params, x)
         o = dispatch_attention(q, k, v, causal=self.conf.causal, mask=mask)
-        out = self._attn_ffn(params, x, o, rng if train else None)
+        out, new_state = self._attn_ffn(params, x, o, state,
+                                        rng if train else None, mask,
+                                        self.conf.capacity_factor)
         if mask is not None:
             out = out * mask[:, :, None].to(out.dtype)
-        return out, state
+        return out, new_state
 
     # ------------------------------------------- incremental decoding
 
@@ -169,7 +208,9 @@ class TransformerBlockImpl(LayerImpl):
         cache["k"][:, :t] = k.to(cache["k"].dtype)
         cache["v"][:, :t] = v.to(cache["v"].dtype)
         o = dispatch_attention(q, k, v, causal=self.conf.causal, mask=None)
-        return self._attn_ffn(params, x, o), cache
+        out, _ = self._attn_ffn(params, x, o, {},
+                                capacity_factor=self._serving_capacity())
+        return out, cache
 
     def decode_step(self, params, x_t, cache, pos):
         """One-token forward [b, d] over the cache. ``pos`` is the
@@ -199,4 +240,6 @@ class TransformerBlockImpl(LayerImpl):
         s = s.masked_fill(~live[:, None, :], torch.finfo(s.dtype).min)
         w = torch.softmax(s, dim=-1)
         o = torch.einsum("bhk,bkhd->bhd", w, cv.to(q.dtype))
-        return self._attn_ffn(params, x_t, o), cache
+        out, _ = self._attn_ffn(params, x_t, o, {},
+                                capacity_factor=self._serving_capacity())
+        return out, cache

@@ -5,7 +5,8 @@ Counterpart of ``deeplearning4j_tpu/nn/multilayer.py``: construction,
 (each layer's input preprocessor first), ``output``, ``feed_forward``,
 ``predict``, ``evaluate``, ``generate``, and training: ``fit`` runs,
 per minibatch, ``conf.iterations`` steps of forward, loss
-(``_score_fn``: the head's loss plus the L1/L2 penalties),
+(``_score_fn``: the head's loss plus the L1/L2 penalties and the
+layers' ``__aux_loss__`` states, the MoE load-balancing loss),
 ``torch.autograd`` backward, per-layer
 gradient normalization and the updater, ``params -= update``; ``score``
 and ``gradient_and_score`` evaluate without dropout. Truncated BPTT
@@ -18,7 +19,11 @@ statistics, the LSTM carries), cast back to the stored dtypes; listeners
 dataset on the device once as ``[steps, batch, ...]`` stacks and
 ``fit_scan`` trains over them for whole epochs through the same step,
 keeping every step's score in one device tensor that is fetched at the
-end: no step waits on the host. Parameters are a dict per
+end: no step waits on the host. ``pretrain`` trains the RBM and
+AutoEncoder layers one by one, each on the frozen activations below it
+(``fit`` runs it once first when ``conf.pretrain`` is set); a net
+quantized by ``nn/quantize.py`` serves but refuses ``fit``. Parameters
+are a dict per
 layer of float32 tensors (float64 after ``init(torch.float64)``, the
 gradient check's path) on the net's device, in the reference's layout
 (``params["layer1"]["Wqkv"]``), and so is the updater state
@@ -46,6 +51,7 @@ from deeplearning4j_tpu_torch.nn.conf.configuration import (
     MultiLayerConfiguration,
 )
 from deeplearning4j_tpu_torch.nn.layers.base import build_layer
+from deeplearning4j_tpu_torch.nn.layers.moe import AUX_LOSS_KEY
 from deeplearning4j_tpu_torch.nn.updater import (
     GradientNormalization,
     apply_updater,
@@ -139,6 +145,9 @@ class MultiLayerNetwork:
         self._specs = update_specs(self.gc, self.impls)
         # the fit path's dropout streams: step key = fold_in(this, step)
         self._train_key = int(self.gc.seed) + 7919
+        self._pretrained = False
+        #: the storage mode of quantized weights ("int8", "fp8") or None
+        self.quantized: Optional[str] = None
         #: rnn_time_step's carries, {layer: {"h", "c"}}; None = no history
         self._rnn_state: Optional[Dict[str, Any]] = None
 
@@ -159,11 +168,14 @@ class MultiLayerNetwork:
             self.states[impl.name] = impl.init_state(self.device)
             upd[impl.name] = {n: init_updater_state(ucfg, v) for n, v in p.items()}
         self.opt_state = {"step": 0, "updater": upd}
+        self._pretrained = False
         return self
 
     def set_listeners(self, *listeners) -> None:
         """Callables ``(net, iteration, score)``, called after every
-        training step with the step's number (from 1) and score."""
+        training step with the step's number (from 1) and score, and
+        after each layer's pretraining with its step count and last
+        loss."""
         self.listeners = list(listeners)
 
     def cast_params(self, params: Params) -> Params:
@@ -281,10 +293,11 @@ class MultiLayerNetwork:
                   rng: Optional[int], fmask: Optional[torch.Tensor],
                   lmask: Optional[torch.Tensor]
                   ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        """(data loss (the output layer's) plus the L1/L2 penalties, the
-        layers' new states): the quantity a step minimizes. Layers
-        compute on the compute-dtype copy of ``params``; the penalties
-        read the f32 parameters."""
+        """(data loss (the output layer's) plus the L1/L2 penalties and
+        every ``__aux_loss__`` of the layers' new states, the layers' new
+        states): the quantity a step minimizes. Layers compute on the
+        compute-dtype copy of ``params``; the penalties read the f32
+        parameters."""
         hidden, new_states = self._forward(params, states, x, train, rng,
                                            fmask, n=-1)
         x = hidden[-1] if hidden else self._cast_input(x)
@@ -297,7 +310,7 @@ class MultiLayerNetwork:
         for impl in self.impls:
             score = score + impl.regularization_penalty(
                 params[impl.name]).to(score.dtype)
-        return score, new_states
+        return add_aux_losses(score, new_states), new_states
 
     @staticmethod
     def _grads(params: Params, loss_fn
@@ -340,13 +353,16 @@ class MultiLayerNetwork:
         """Train on a DataSet (one minibatch, or minibatches of
         ``batch_size``), an iterable of DataSets (``ListDataSetIterator``)
         or features + ``labels`` arrays; ``conf.iterations`` steps per
-        minibatch. A short last minibatch is fed as it is."""
+        minibatch. A short last minibatch is fed as it is. With
+        ``conf.pretrain`` set, the first call pretrains first."""
+        refuse_quantized(self)
         if self.params is None:
             self.init()
         if isinstance(data, np.ndarray):
             data = DataSet(data, labels)
-        if self.conf.pretrain:
-            self.pretrain(data)
+        if self.conf.pretrain and not self._pretrained:
+            self.pretrain(data, batch_size=batch_size)
+            self._pretrained = True
         if isinstance(data, DataSet):
             if batch_size is None:
                 self._fit_batch(data)
@@ -355,11 +371,62 @@ class MultiLayerNetwork:
         for ds in data:
             self._fit_batch(ds)
 
+    def _pretrain_step(self, i: int, ustate: Dict[str, Any], it: int,
+                       x: torch.Tensor, rng: int):
+        """One unsupervised update of layer i on the frozen stack below
+        it (inference forward on the stored parameters): CD-k for an RBM
+        (its gradient supplied), autograd of the reconstruction loss for
+        an AutoEncoder. Returns (layer i's new parameters, its new
+        updater state, the loss)."""
+        impl = self.impls[i]
+        with torch.no_grad():
+            for j in range(i):
+                pre = self.conf.input_preprocessors.get(j)
+                if pre is not None:
+                    x = pre(x)
+                x, _ = self.impls[j].forward(self.params[self.impls[j].name], x,
+                                             self.states[self.impls[j].name],
+                                             False, None)
+            pre = self.conf.input_preprocessors.get(i)
+            if pre is not None:
+                x = pre(x)
+        return pretrain_update(impl, self.params[impl.name], ustate, it, x, rng,
+                               self._specs[impl.name][2])
+
     def pretrain(self, data, epochs: int = 1,
                  batch_size: Optional[int] = None) -> Dict[str, float]:
-        raise NotImplementedError(
-            "layer-wise pretraining (RBM, AutoEncoder) is not ported yet: "
-            "ROADMAP Queue A3")
+        """Layer-wise greedy unsupervised pretraining: each RBM and
+        AutoEncoder layer in order trains on the frozen activations of
+        the layers below it, over ``data`` (a DataSet in minibatches of
+        ``batch_size``, 32 by default, or an iterable of DataSets) for
+        ``epochs`` passes, with its own updater state; its draws come
+        from the stream ``seed + 104729 * (i + 1)`` folded with the
+        iteration. Returns each trained layer's last loss; listeners are
+        called after each layer."""
+        if self.params is None:
+            self.init()
+        if isinstance(data, DataSet):
+            data = ListDataSetIterator(data, batch_size or 32)
+        losses: Dict[str, float] = {}
+        for i, impl in enumerate(self.impls):
+            if not hasattr(impl, "pretrain_loss"):
+                continue
+            ucfg = self._specs[impl.name][2]
+            ustate = {n: init_updater_state(ucfg, v)
+                      for n, v in self.params[impl.name].items()}
+            key = int(self.gc.seed) + 104729 * (i + 1)
+            it, loss = 0, float("nan")
+            for _ in range(max(1, epochs)):
+                for ds in data:
+                    new_p, ustate, loss = self._pretrain_step(
+                        i, ustate, it, self._tensor(ds.features),
+                        fold_in(key, it))
+                    self.params = {**self.params, impl.name: new_p}
+                    it += 1
+            losses[impl.name] = self._score = float(loss)
+            for cb in self.listeners:
+                cb(self, it, self._score)
+        return losses
 
     def _fit_batch(self, ds: DataSet) -> None:
         if (self.conf.backprop_type == BackpropType.TRUNCATED_BPTT
@@ -571,6 +638,52 @@ class MultiLayerNetwork:
         ``seed``. Returns [b, t0 + max_new_tokens] int64 token ids."""
         from deeplearning4j_tpu_torch.nn.generate import generate
         return generate(self, prompt_ids, max_new_tokens, **kwargs)
+
+
+def add_aux_losses(score: torch.Tensor, states: Dict[str, Any]) -> torch.Tensor:
+    """``score`` plus every layer's ``__aux_loss__`` state (the MoE
+    load-balancing loss, produced inside the step, so it stays in the
+    autograd graph), in layer order."""
+    for ns in states.values():
+        if isinstance(ns, dict) and AUX_LOSS_KEY in ns:
+            score = score + ns[AUX_LOSS_KEY].to(score.dtype)
+    return score
+
+
+def refuse_quantized(net) -> None:
+    """``fit`` refuses a net whose weights are quantized: the round()
+    in them has no useful gradient."""
+    if getattr(net, "quantized", None) is not None:
+        raise ValueError(
+            f"this net holds {net.quantized}-quantized serving weights "
+            "(nn/quantize.py): the round() in them has no useful "
+            "gradient; train the fp32 original and re-quantize")
+
+
+def pretrain_update(impl, p: Dict[str, torch.Tensor], ustate: Dict[str, Any],
+                    it: int, x: torch.Tensor, rng: int, ucfg):
+    """One pretraining update of one layer on its input ``x``: the CD-k
+    gradient of an RBM, or autograd of an AutoEncoder's reconstruction
+    loss, then the updater. Returns (new parameters, new updater state,
+    the loss)."""
+    if hasattr(impl, "cd_gradients"):
+        with torch.no_grad():
+            g, loss = impl.cd_gradients(p, x, rng)
+    else:
+        leaves = {n: t.detach().requires_grad_() for n, t in p.items()}
+        with torch.enable_grad():
+            loss = impl.pretrain_loss(leaves, x, rng)
+            grads = torch.autograd.grad(loss, list(leaves.values()),
+                                        allow_unused=True)
+        g = {n: torch.zeros_like(t) if gr is None else gr
+             for (n, t), gr in zip(leaves.items(), grads)}
+        loss = loss.detach()
+    new_p, new_u = {}, {}
+    for pname, gval in g.items():
+        u, ust = apply_updater(ucfg, gval, ustate[pname], it)
+        new_p[pname] = p[pname] - u.to(p[pname].dtype)
+        new_u[pname] = ust
+    return new_p, new_u, loss
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:

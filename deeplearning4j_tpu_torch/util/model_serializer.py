@@ -19,7 +19,12 @@ A zip written by either package restores in the other, updater state
 included, for both containers (``restore_multi_layer_network``,
 ``restore_computation_graph``, or ``restore_model`` for either); the
 ``*_from_numpy`` loaders carry a reference net's trees into either
-container. Quantized weights (``*_qscale`` keys) are not ported yet.
+container. Quantized weights (``nn/quantize.py``: an int8 or fp8 weight
+beside its float32 ``*_qscale``) load through ``params_from_numpy`` and
+mark the net quantized. In a zip, int8 weights go both ways; an fp8
+weight is written as the reference writes it, one raw byte per value
+(numpy has no fp8 dtype: ``np.savez`` records ``|V1``), and a zip that
+holds one does not restore, as in the reference.
 """
 
 from __future__ import annotations
@@ -40,13 +45,13 @@ from deeplearning4j_tpu_torch.nn.graph import (
     ComputationGraphConfiguration,
 )
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+from deeplearning4j_tpu_torch.nn.quantize import QSCALE, mode_of
 from deeplearning4j_tpu_torch.util.device import DeviceLike
 
 Model = Union[MultiLayerNetwork, ComputationGraph]
 
 _MANIFEST = "manifest.json"
 _REQUIRED = ("configuration.json", "coefficients.npz", "modelState.npz")
-_QSCALE = "_qscale"
 
 
 class CheckpointCorruptError(RuntimeError):
@@ -63,6 +68,9 @@ def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
         key = f"{prefix}{k}"
         if isinstance(v, dict):
             out.update(_flatten(v, key + "/"))
+        elif isinstance(v, torch.Tensor) and v.dtype == torch.float8_e4m3fn:
+            # the bytes, as np.savez writes the reference's fp8 arrays
+            out[key] = v.detach().cpu().view(torch.uint8).numpy().view("V1")
         elif isinstance(v, torch.Tensor):
             out[key] = v.detach().cpu().numpy()
         else:
@@ -87,27 +95,41 @@ def _npz_bytes(tree: Dict[str, Any]) -> bytes:
     return buf.getvalue()
 
 
+def _quantized_tensor(a: np.ndarray, where: str,
+                      device: torch.device) -> torch.Tensor:
+    """A quantized weight's array as a tensor of its storage dtype: int8,
+    or fp8-e4m3 from an ``ml_dtypes`` array (its bytes, reinterpreted)."""
+    if a.dtype == np.int8:
+        return torch.tensor(a, device=device)
+    if a.dtype.name == "float8_e4m3fn":
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.uint8)).view(
+            torch.float8_e4m3fn).to(device)
+    raise TypeError(f"{where}: dtype {a.dtype} is not a quantized weight's "
+                    "(int8 or float8_e4m3fn)")
+
+
 def params_from_numpy(net: Model,
                       tree: Dict[str, Dict[str, np.ndarray]]) -> Model:
     """Load a ``{layer: {name: ndarray}}`` tree (the reference's
     ``net.params`` converted to numpy) into ``net``: every parameter of
     every layer must be present with the shape the net expects, and no
-    other key may be. Values land on the net's device in the dtype of
-    the parameter they replace."""
+    other key may be, except a quantized weight's ``<name>_qscale``
+    (float32, one per output column). Values land on the net's device in
+    the dtype of the parameter they replace; a quantized weight keeps its
+    int8 or fp8 dtype, and the net is marked quantized."""
     if net.params is None:
         net.init()
     extra = set(tree) - set(net.params)
     if extra:
         raise ValueError(f"unknown layers {sorted(extra)}")
     new: Dict[str, Dict[str, torch.Tensor]] = {}
+    modes = set()
     for layer, cur in net.params.items():
         given = tree.get(layer, {})
-        names = set(given)
-        if any(n.endswith(_QSCALE) for n in names):
-            raise NotImplementedError(
-                f"{layer}: quantized weights are not ported yet")
-        if names != set(cur):
-            raise ValueError(f"{layer}: parameters {sorted(names)}, "
+        quant = {n[:-len(QSCALE)] for n in given if n.endswith(QSCALE)}
+        if set(given) != set(cur) | {n + QSCALE for n in quant} \
+                or not quant <= set(cur):
+            raise ValueError(f"{layer}: parameters {sorted(given)}, "
                              f"expected {sorted(cur)}")
         new[layer] = {}
         for name, t in cur.items():
@@ -115,8 +137,23 @@ def params_from_numpy(net: Model,
             if a.shape != tuple(t.shape):
                 raise ValueError(f"{layer}/{name}: shape {a.shape}, "
                                  f"expected {tuple(t.shape)}")
-            new[layer][name] = torch.tensor(a, dtype=t.dtype, device=net.device)
+            if name not in quant:
+                new[layer][name] = torch.tensor(a, dtype=t.dtype,
+                                                device=net.device)
+                continue
+            q = _quantized_tensor(a, f"{layer}/{name}", net.device)
+            sc = np.asarray(given[name + QSCALE])
+            if sc.shape != (a.shape[-1],):
+                raise ValueError(f"{layer}/{name}{QSCALE}: shape {sc.shape}, "
+                                 f"expected {(a.shape[-1],)}")
+            new[layer][name] = q
+            new[layer][name + QSCALE] = torch.tensor(
+                sc, dtype=torch.float32, device=net.device)
+            modes.add(mode_of(q.dtype))
+    if len(modes) > 1:
+        raise ValueError(f"weights quantized in several modes: {sorted(modes)}")
     net.params = new
+    net.quantized = modes.pop() if modes else None
     return net
 
 
@@ -241,8 +278,17 @@ def _verify(z: zipfile.ZipFile, path: str) -> None:
 
 
 def _npz_tree(data: bytes) -> Dict[str, Any]:
+    """An npz member's tree. A raw-byte array (``|V1``: an fp8 weight as
+    ``np.savez`` writes it) raises, as the reference's restore does: its
+    dtype is not in the file."""
     with np.load(io.BytesIO(data)) as npz:
-        return _unflatten({k: npz[k] for k in npz.files})
+        flat = {k: npz[k] for k in npz.files}
+    for k, a in flat.items():
+        if a.dtype.kind == "V":
+            raise TypeError(f"{k}: dtype {a.dtype.str} is not a numeric "
+                            "array type (an fp8 weight's bytes; the zip "
+                            "does not record its dtype)")
+    return _unflatten(flat)
 
 
 def restore_multi_layer_network(path: str, device: DeviceLike = None,

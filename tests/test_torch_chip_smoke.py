@@ -1367,7 +1367,7 @@ def test_graph_phase_sizes_are_the_benchmarks():
     assert chip_smoke.TINY_RESNET == dict(stages=(1, 1), widths=(8, 16),
                                           num_classes=4, compute_dtype="float32",
                                           learning_rate=0.01)
-    assert chip_smoke.PHASES[-1] == "9"
+    assert "9" in chip_smoke.PHASES
     assert chip_smoke._phases(["--only", "4,9"]) == ("4", "9")
 
 
@@ -1414,3 +1414,72 @@ def test_gpt_graph_generates_as_the_network():
     params_from_numpy(g, tree)
     prompts = np.random.default_rng(8).integers(0, 32, (2, 5))
     np.testing.assert_array_equal(g.generate(prompts, 6), net.generate(prompts, 6))
+
+
+def test_layers_phase_is_the_last_and_runs_alone():
+    """Phase 10 (the rest of the layer library) ends the full run and
+    can be asked for alone."""
+    assert chip_smoke.PHASES[-1] == "10"
+    assert chip_smoke._phases(["--only", "10"]) == ("10",)
+    assert chip_smoke.MOE_TRAIN == dict(chip_smoke.TRAIN, num_experts=8,
+                                        capacity_factor=1.25,
+                                        aux_loss_weight=0.01)
+    assert chip_smoke.MOE_GPT == dict(chip_smoke.GPT, num_experts=8)
+
+
+def test_layer_launches_add_phase_10s_paths():
+    launches = {"flash_fwd": 8, "flash_dq": 8, "flash_dkv": 8}
+    done = {"10": {"moe_train": {"launches": launches},
+                   "moe_generate": {"launches": {"flash_fwd": 8}},
+                   "quantized": {"int8": {"launches": {"flash_fwd": 8}},
+                                 "fp8": {"launches": {"flash_fwd": 8}}},
+                   "attention_layer": {"launches": {
+                       "flash_fwd": 2, "flash_dq": 2, "flash_dkv": 2}}}}
+    got = chip_smoke._layer_launches([{"name": "flash_dq"}, {"name": "lstm_bwd"}],
+                                     done)
+    assert got[0] == {"name": "flash_dq", "moe_train_launches_per_step": 8,
+                      "moe_generate_launches": 0,
+                      "quantized_generate_launches": {"int8": 0, "fp8": 0},
+                      "attention_layer_launches_per_step": 2}
+    assert got[1]["moe_train_launches_per_step"] == 0
+
+
+def test_routing_replay_routes_by_the_recorded_experts():
+    """``_routing`` records each routing call's experts and slots, and a
+    replay routes by the recorded experts whatever the logits say; the
+    shares count the tokens that moved."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import moe
+
+    rng = np.random.default_rng(0)
+    x = torch.tensor(rng.standard_normal((32, 8)), dtype=torch.float32)
+    w = [torch.tensor(rng.standard_normal(s), dtype=torch.float32) * 0.3
+         for s in ((8, 4), (4, 8, 16), (4, 16), (4, 16, 8), (4, 8))]
+    with chip_smoke._routing(torch, []) as rec:
+        y, _ = moe.moe_ffn(x, *w)
+    other = [w[0].flip(1)] + w[1:]  # another router: other choices
+    with chip_smoke._routing(torch, [], replay=rec) as rep:
+        y_r, _ = moe.moe_ffn(x, *other)
+    with chip_smoke._routing(torch, []) as nat:
+        moe.moe_ffn(x, *other)
+    assert torch.equal(rep[0][0], rec[0][0]) and torch.equal(rep[0][1], rec[0][1])
+    shares = chip_smoke._routing_shares(rec, nat)
+    assert shares[0]["expert"] > 0 and shares[0]["slot"] > 0
+    assert chip_smoke._routing_shares(rec, rep) == [{"expert": 0.0, "slot": 0.0}]
+    assert moe.top1_route is not None and y_r.shape == y.shape
+
+
+def test_layers_phase_confs_are_the_issue_widths():
+    """Phase 10 (d)'s AttentionLayer stack and (e)'s DBN at MNIST's
+    width, as built for the card."""
+    a = chip_smoke.attention_layer_conf()
+    assert [type(l).__name__ for l in a.layers] == [
+        "AttentionLayer", "AttentionLayer", "RnnOutputLayer"]
+    assert all(l.n_in == l.n_out == 512 and l.num_heads == 8 and l.causal
+               and l.residual for l in a.layers[:2])
+    assert a.conf.compute_dtype == "bfloat16"
+    d = chip_smoke.dbn_conf()
+    assert [(type(l).__name__, l.n_in, l.n_out) for l in d.layers] == [
+        ("RBM", 784, 500), ("AutoEncoder", 500, 250), ("OutputLayer", 250, 10)]
+    assert d.pretrain and d.layers[1].corruption_level == 0.3

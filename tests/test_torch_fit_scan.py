@@ -239,9 +239,10 @@ def test_fit_scan_does_not_call_listeners():
 
 
 def test_pretrain_names_queue_a3():
-    _, tn = _pair("mlp")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A3"):
-        tn.pretrain(None)
+    # layer-wise pretraining (ROADMAP Queue A3) is ported: a stack with
+    # no RBM or AutoEncoder layer pretrains nothing, as the reference's
+    jn, tn = _pair("mlp")
+    assert tn.pretrain(None) == jn.pretrain(None) == {}
 
 
 @pytest.fixture

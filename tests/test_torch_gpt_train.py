@@ -484,9 +484,14 @@ def test_drop_connect_masks_the_head_weights_not_its_input():
 
 def test_unported_paths_raise():
     _, tn = _pair()
+    # pretraining (ROADMAP Queue A3) is ported: fit runs it once, and a
+    # stack with no RBM or AutoEncoder layer pretrains nothing
     tn.conf.pretrain = True
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A3"):
-        tn.fit(DataSet(*_data(2, 16)))
+    before = tn.params_flat()
+    assert tn.pretrain(DataSet(*_data(2, 16))) == {}
+    np.testing.assert_array_equal(tn.params_flat(), before)
+    tn.fit(DataSet(*_data(2, 16)))
+    assert tn._pretrained
     tn.conf.pretrain = False
     # truncated BPTT is ported; on a stack without recurrent layers it
     # raises as the reference's _fit_tbptt does

@@ -572,9 +572,10 @@ def test_check_gradients_graph_passes_in_f64_on_both(kind, subset):
 
 
 def test_pretrain_and_missing_outputs_raise():
-    _, tn = _pair("mlp")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A3"):
-        tn.pretrain(None)
+    # pretraining (ROADMAP Queue A3) is ported: a graph with no RBM or
+    # AutoEncoder vertex pretrains nothing, as the reference's
+    jn, tn = _pair("mlp")
+    assert tn.pretrain(None) == jn.pretrain(None) == {}
     conf = _graph(TORCH, "mlp")
     conf.outputs = []
     with pytest.raises(ValueError, match="no outputs"):

@@ -19,7 +19,6 @@ from deeplearning4j_tpu.nn.weights import Distribution as JaxDistribution
 from deeplearning4j_tpu.util import model_serializer as jser
 from deeplearning4j_tpu_torch.models.zoo.transformer import gpt
 from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
-from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.util import model_serializer as tser
 
 SIZE = dict(vocab_size=64, d_model=32, n_layers=2, num_heads=4, max_len=64)
@@ -91,8 +90,9 @@ def test_params_from_numpy_rejects_mismatches():
     with pytest.raises(ValueError, match="shape"):
         tser.params_from_numpy(tn, bad)
     bad = {k: dict(v) for k, v in tree.items()}
+    # a scale beside a float weight: not a quantized weight
     bad["layer1"]["Wqkv_qscale"] = np.ones(96, np.float32)
-    with pytest.raises(NotImplementedError, match="quantized"):
+    with pytest.raises(TypeError, match="not a quantized weight"):
         tser.params_from_numpy(tn, bad)
 
 
@@ -130,12 +130,66 @@ def test_port_builder_writes_the_reference_json():
         jax_gpt(**SIZE).conf.to_json()
 
 
-def test_unported_layers_parse_but_do_not_build():
-    # AutoEncoder waits for ROADMAP Queue A3
-    conf = MultiLayerConfiguration.from_json(
-        JaxNNC.builder().list()
-        .layer(JL.AutoEncoder(n_in=4, n_out=3))
-        .layer(JL.OutputLayer(n_in=3, n_out=2, activation="softmax"))
-        .build().to_json())
-    with pytest.raises(NotImplementedError, match="AutoEncoder"):
-        MultiLayerNetwork(conf, device="cpu")
+#: a small instance of every layer config the JAX package registers
+#: (and the routed-experts TransformerBlock), by registry name
+_EVERY_LAYER = {
+    "DenseLayer": dict(n_in=4, n_out=3), "OutputLayer": dict(n_in=4, n_out=3),
+    "RnnOutputLayer": dict(n_in=4, n_out=3), "LossLayer": {},
+    "ConvolutionLayer": dict(n_in=2, n_out=3, kernel_size=(3, 3)),
+    "SubsamplingLayer": {}, "BatchNormalization": dict(n_in=3, n_out=3),
+    "LocalResponseNormalization": {}, "GravesLSTM": dict(n_in=4, n_out=3),
+    "GravesBidirectionalLSTM": dict(n_in=4, n_out=3),
+    "AttentionLayer": dict(n_in=4, n_out=4, num_heads=2),
+    "EmbeddingLayer": dict(n_in=5, n_out=3),
+    "SequenceEmbeddingLayer": dict(n_in=5, n_out=4, max_len=8),
+    "TransformerBlock": dict(n_in=8, n_out=8, num_heads=2),
+    "MoELayer": dict(n_in=4, n_out=4, num_experts=2),
+    "AutoEncoder": dict(n_in=4, n_out=3), "RBM": dict(n_in=4, n_out=3),
+    "ActivationLayer": {}, "DropoutLayer": {}, "GlobalPoolingLayer": {},
+}
+_MOE_BLOCK = ("TransformerBlock", dict(n_in=8, n_out=8, num_heads=2,
+                                       num_experts=3))
+
+
+def test_every_layer_config_of_the_reference_is_covered():
+    # the package's own configs (a test may register a custom one)
+    assert set(_EVERY_LAYER) == {name for name, cls in JL._LAYER_REGISTRY.items()
+                                 if cls.__module__ == JL.__name__}
+
+
+@pytest.mark.parametrize("case", sorted(_EVERY_LAYER.items()) + [_MOE_BLOCK, None],
+                         ids=lambda c: "no_impl" if c is None else (
+                             c[0] + ("_experts" if "num_experts" in c[1]
+                                     and c[0] == "TransformerBlock" else "")))
+def test_unported_layers_parse_but_do_not_build(case):
+    """No layer of the JAX package is left unported: each config parses
+    from the reference's JSON, builds in the port and draws the
+    reference's parameters (the same names and shapes). A config class
+    that no impl is registered for still raises, naming it."""
+    import dataclasses
+
+    from deeplearning4j_tpu.nn.layers.base import build_layer as jax_build
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf import layers as TL
+    from deeplearning4j_tpu_torch.nn.layers.base import build_layer
+
+    gc = NeuralNetConfiguration(seed=0, weight_init="xavier", activation="tanh")
+    if case is None:
+        @dataclasses.dataclass(frozen=True)
+        class NoImplLayer(TL.FeedForwardLayer):
+            pass
+
+        with pytest.raises(NotImplementedError, match="NoImplLayer"):
+            build_layer(gc, NoImplLayer(n_in=2, n_out=2), "x")
+        return
+    name, kw = case
+    jconf = JL._LAYER_REGISTRY[name](**kw)
+    tconf = TL.layer_from_dict(jconf.to_dict())
+    assert type(tconf).__name__ == name
+    want = jax_build(JaxNNC(seed=0, weight_init="xavier", activation="tanh"),
+                     jconf, "l").init_params(jax.random.PRNGKey(0))
+    got = build_layer(gc, tconf, "l").init_params(
+        __import__("torch").Generator().manual_seed(0), "cpu")
+    assert list(got) == list(want)
+    for pname, v in want.items():
+        assert tuple(got[pname].shape) == np.asarray(v).shape, pname
