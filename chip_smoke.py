@@ -243,11 +243,29 @@ Phases (any failure ends the run with a non-zero exit and no result):
    2048: ``pretrain`` gives finite per-layer losses, the AE's falls over
    a second epoch, no port kernel launches, and one pretrain step per
    layer agrees with the CPU given the same uniforms (``PRETRAIN_REL``).
+11. paged serving (``phase_paged``): phase 3's GPT and weights behind
+   ``ContinuousDecodeScheduler`` (8 slots, bursts of 8, blocks of 16;
+   ``PAGED``), 16 one-row requests of prompts 16-64 (seed 8) and +128
+   greedy tokens, 8 submitted, one ``step()``, then 8 more. (a) the
+   admissions' prefills launch ``flash_fwd``; each request's tokens
+   equal its solo ``generate_eager``, or the first position that
+   differs is a near-tie of the eager run (top-two logits within
+   ``LOGIT_TOL``); then the same in f32 with a near-tie bound of
+   ``PAGED_TIE_F32``; tokens/s, time to first token, bursts and the busy
+   share (``paged_serve`` line). (b) the same requests on a pool of 49
+   blocks: it preempts, the tokens equal (a)'s under the same rule, the
+   pool drains fully free and a double free raises. (c) an int8 KV
+   pool twice: the runs agree token for token and every first token is
+   (a)'s; agreement with (a) and bytes per block printed. (d) a prompt
+   whose prefix comes from a shared table (``share_blocks``, its
+   partial block copied on write by ``block_copy_program``): the tail's
+   ``tail_prefill_program`` logits within ``LOGIT_TOL`` of a full
+   prefill, the shared block untouched.
 
 Phase 2's rows carry their wall time (``row_s``) and each phase line
 the time since the start (``[t ... s]``); the kernels line gives each
 kernel its launches per step on the fit_scan paths, on phase 9's
-graph generate paths and on phase 10's paths.
+graph generate paths, on phase 10's paths and on phase 11's serve.
 
 The last lines are the card's name and power limit, one JSON object
 with every kernel's numbers, and ``{"ok": true, "device": {...}}``
@@ -3205,7 +3223,329 @@ def _layer_launches(entries, done):
     return entries
 
 
-PHASES = ("2", "2b", "3", "4", "5", "6", "7", "8", "9", "10")
+# phase 11: the scheduler's knobs, the requests and the f32 near-tie bound
+PAGED = dict(slots=8, burst_tokens=8, block_size=16)
+PAGED_REQUESTS, PAGED_PROMPTS = 16, (16, 64)
+PAGED_TIE_F32 = 1e-4
+
+
+def _paged_requests(np):
+    rng = np.random.default_rng(8)
+    lengths = rng.integers(PAGED_PROMPTS[0], PAGED_PROMPTS[1] + 1,
+                           PAGED_REQUESTS)
+    return [rng.integers(0, GPT["vocab_size"], (1, int(t))) for t in lengths]
+
+
+def _paged_serve(net, prompts, **kw):
+    """Phase 11's traffic: the first half submitted, one ``step()``,
+    then the rest, drained. Returns (the scheduler, each request's ids,
+    the wall seconds)."""
+    from deeplearning4j_tpu_torch.serving.continuous import \
+        ContinuousDecodeScheduler
+
+    import torch
+
+    s = ContinuousDecodeScheduler(net=net, start=False, **dict(PAGED, **kw))
+    half = len(prompts) // 2
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    futs = [s.submit(p, NEW) for p in prompts[:half]]
+    s.step()
+    futs += [s.submit(p, NEW) for p in prompts[half:]]
+    _check(s.drain(600), "the scheduler did not drain")
+    torch.cuda.synchronize()
+    return s, [f.result(0) for f in futs], time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def _recording_gaps(torch, net):
+    """Record, while ``generate_eager`` runs on ``net``, the top-two
+    logit gap of every logits row its loop takes a token from (the
+    prefill's, then each step's; kept on the card, fetched at the end):
+    yields a list that holds one [steps, rows] array per run."""
+    g = _gen_mod().build_generator(net)
+    begin, step = g._begin, g._next
+    runs, rows = [], []
+
+    def gap(logits):
+        top = logits.float().topk(2, dim=-1).values
+        rows.append(top[:, 0] - top[:, 1])
+
+    def rec_begin(*args):
+        if rows:
+            runs.append(torch.stack(rows).cpu().numpy())
+            rows.clear()
+        out = begin(*args)
+        gap(out[2])
+        return out
+
+    def rec_next(*args):
+        out = step(*args)
+        gap(out[1])
+        return out
+
+    g._begin, g._next = rec_begin, rec_next
+    try:
+        yield runs
+    finally:
+        del g._begin, g._next
+        if rows:
+            runs.append(torch.stack(rows).cpu().numpy())
+
+
+def _gen_mod():
+    from deeplearning4j_tpu_torch.nn import generate as gen_mod
+
+    return gen_mod
+
+
+def _eager(torch, net, prompts):
+    """Each prompt's solo ``generate_eager`` of NEW tokens, and the
+    top-two logit gap at each of its generated positions."""
+    with _recording_gaps(torch, net) as runs:
+        out = [_gen_mod().generate_eager(net, p, NEW) for p in prompts]
+    return out, [r[:, 0] for r in runs]
+
+
+def _eager_gap(torch, net, prompt, tokens):
+    """The top-two logit gap of a solo eager run (the generator's own
+    prefill and decode steps, as ``generate_eager`` runs them) fed
+    ``prompt`` and then ``tokens``, at the position after them."""
+    import numpy as np
+
+    _, t = prompt.shape
+    g = _gen_mod().build_generator(net)
+    ids = np.zeros((1, g.prompt_bucket(t, NEW)), np.int64)
+    ids[:, :t] = prompt
+    _, state, logits = g._begin(net.params, ids, np.array([t]), NEW)
+    for tok in tokens:
+        state, logits = g._next(state, torch.tensor([int(tok)],
+                                                    device=net.device))
+    top = logits[0].float().topk(2).values
+    return (top[0] - top[1]).item()
+
+
+def _parity(torch, net, prompts, got, want, bound, what, eager, gaps):
+    """Each request's tokens equal ``want``'s, or the first position
+    where they part is a near-tie (top-two logit gap within ``bound``)
+    of a solo eager run along their common prefix: the gap ``eager``'s
+    run recorded (``gaps``) where that prefix is ``eager``'s, else one
+    ``_eager_gap`` replays. Returns (whole matches, the near-ties)."""
+    import numpy as np
+
+    whole, ties = 0, []
+    for i, (p, a, b) in enumerate(zip(prompts, got, want)):
+        a, b = a[0, p.shape[1]:], b[0, p.shape[1]:]
+        diff = np.flatnonzero(a != b)
+        if not len(diff):
+            whole += 1
+            continue
+        j = int(diff[0])
+        if (b[:j] == eager[i][0, p.shape[1]:p.shape[1] + j]).all():
+            gap = float(gaps[i][j])
+        else:
+            gap = _eager_gap(torch, net, p, b[:j])
+        ties.append(dict(request=i, position=j, gap=gap))
+        _check(gap <= bound, f"{what}: request {i} parts at generated token "
+               f"{j} where the eager run's top-two gap is {gap} > {bound}")
+    print(f"paged_parity {what}: {whole} of {len(got)} requests whole, "
+          f"near-ties {json.dumps(ties)}", flush=True)
+    return whole, ties
+
+
+def _paged_tail(torch, np, kernels, net, prompt):
+    """Phase 11 (d): ``prompt``'s first 72 tokens prefilled into 5 pool
+    blocks (4 full, 1 partial) held by a cache owner; a sequence shares
+    the 4 full blocks and copies the partial one on write, then
+    prefills its 5-token tail through the pool. Its logits against a
+    full prefill of all 77 tokens."""
+    from deeplearning4j_tpu_torch.nn import generate as gen_mod
+    from deeplearning4j_tpu_torch.nn.kvpool import PagedKVCachePool
+
+    g = gen_mod.build_generator(net)
+    pc = net.cast_params(net.params)
+    bs = PAGED["block_size"]
+    layers, heads, hd, dtype = g.kv_layout()
+    pool = PagedKVCachePool(64, bs, layers, heads, hd, dtype, name="tail")
+    m, t = 72, prompt.shape[1]
+    cached = pool.alloc(pool.blocks_for(m), owner="cache")
+    t_pad = g.prompt_bucket(m, 1)
+    t_blk = -(-t_pad // bs) * bs
+    ids = np.zeros((1, t_pad), np.int64)
+    ids[0, :m] = prompt[0, :m]
+    caches, _ = g.prefill_program(t_blk)(pc, ids, np.array([m]))
+    table = np.zeros((1, t_blk // bs), np.int64)
+    table[0, :len(cached)] = cached
+    pool.set_layers(g.scatter_program(1, t_blk, bs)(pool.layers, caches,
+                                                    table))
+    shared = pool.share_blocks(cached[:-1], owner="seq")
+    (cow,) = pool.alloc(1, owner="seq")
+    partial = cached[-1]
+    before = [layer["k"][partial].clone() for layer in pool.layers]
+    pool.set_layers(g.block_copy_program(1, pool.num_blocks, bs)(
+        pool.layers, [partial], [cow]))
+    tier = 8
+    tables = np.zeros((1, tier), np.int64)
+    tables[0, :len(shared) + 1] = shared + [cow]
+    tail = np.zeros((1, 8), np.int64)
+    tail[0, :t - m] = prompt[0, m:]
+    pools, tail_logits = g.tail_prefill_program(1, 8, tier, pool.num_blocks,
+                                                bs)(
+        pc, pool.layers, tail, np.array([m]), np.array([t - m]), tables)
+    pool.set_layers(pools)
+    kernels.reset_launches()
+    full = np.zeros((1, g.prompt_bucket(t, 1)), np.int64)
+    full[0, :t] = prompt[0]
+    _, full_logits = g.prefill_program(full.shape[1])(pc, full, np.array([t]))
+    _check(kernels.LAUNCHES.get("flash_fwd", 0) > 0,
+           "the full prefill did not run the flash kernel")
+    err = (tail_logits - full_logits).abs().max().item()
+    _check(bool(torch.isfinite(tail_logits).all()), "finite tail logits")
+    _check(err <= LOGIT_TOL, f"tail prefill through a shared table vs a full "
+           f"prefill: {err} > {LOGIT_TOL}")
+    _check(all(torch.equal(b, layer["k"][partial])
+               for b, layer in zip(before, pool.layers)),
+           "the tail's writes reached the shared partial block")
+    pool.free_blocks(shared + [cow], owner="seq")
+    pool.free_blocks(cached, owner="cache")
+    _check(pool.free_count == pool.total_blocks, "the tail pool drained")
+    return dict(tail_logit_max_abs_diff_vs_full_prefill=err,
+                shared_blocks=len(shared), cached_tokens=m, tail_tokens=t - m)
+
+
+def phase_paged(torch, np, kernels, flash):
+    """Phase 11: paged serving at phase 3's width; returns its metrics."""
+    from deeplearning4j_tpu_torch.models.zoo.transformer import gpt
+    from deeplearning4j_tpu_torch.nn import generate as gen_mod
+    from deeplearning4j_tpu_torch.nn.kvpool import PagedKVCachePool
+    from deeplearning4j_tpu_torch.util.model_serializer import params_from_numpy
+
+    prompts = _paged_requests(np)
+    nets = {}
+    for dtype in ("bfloat16", "float32"):
+        net = nets[dtype] = gpt(**dict(GPT, compute_dtype=dtype)).init()
+        params_from_numpy(net, _random_params(net, seed=7))
+    net = nets["bfloat16"]
+    _say("phase 11: phase 3's gpt in bf16 and in f32")
+
+    # (a) serve: the main path, counts read just after
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    s, got, first_s = _paged_serve(net, prompts)
+    launches = _port_launches(kernels)
+    _check(launches.get(flash.KERNEL, 0) > 0,
+           f"the admissions' prefills never launched flash_fwd: {launches}")
+    st = s.stats()
+    _check(st["pool"]["blocks_free"] == st["pool"]["blocks_total"],
+           f"the pool did not drain: {st['pool']}")
+    for p, out in zip(prompts, got):
+        _check(out.shape == (1, p.shape[1] + NEW), f"shape {out.shape}")
+        _check(bool(((out >= 0) & (out < GPT["vocab_size"])).all()), "tokens")
+    t0 = time.perf_counter()
+    eager, gaps = _eager(torch, net, prompts)
+    eager_s = time.perf_counter() - t0
+    whole, ties = _parity(torch, net, prompts, got, eager, LOGIT_TOL,
+                          "bf16 vs generate_eager", eager, gaps)
+    # the profile's warm-up call is the timed serve; the profiled one
+    # gives the device time
+    timed = []
+    t0 = time.perf_counter()
+    per = _device_times(torch, lambda: timed.append(_paged_serve(net, prompts)),
+                        1)
+    profile_s = time.perf_counter() - t0
+    s2, got2, serve_s = timed[0]
+    _check(all((a == b).all() for a, b in zip(got, got2)),
+           "a second serve gave other tokens")
+    ttft = sorted((c["t_first"] - c["t_submit"]) * 1e3 for c in s2.completed)
+    device_ms = _sum_ms(per)
+    _say(f"phase 11 (a): serves {first_s:.2f} and {serve_s:.2f} s, "
+         f"{len(prompts)} solo generate_eager {eager_s:.2f} s, the timed "
+         f"and the profiled serve {profile_s:.2f} s")
+    s32, got32, _ = _paged_serve(nets["float32"], prompts)
+    eager32, gaps32 = _eager(torch, nets["float32"], prompts)
+    whole32, ties32 = _parity(torch, nets["float32"], prompts, got32, eager32,
+                              PAGED_TIE_F32, "f32 vs generate_eager", eager32,
+                              gaps32)
+    tokens = PAGED_REQUESTS * NEW
+    m = dict(requests=PAGED_REQUESTS, new_tokens=NEW,
+             prompt_lengths=[int(p.shape[1]) for p in prompts],
+             tokens_per_s=tokens / serve_s, serve_s=serve_s,
+             first_serve_s=first_s, eager_s=eager_s,
+             ttft_ms_median=statistics.median(ttft),
+             ttft_ms_p90=ttft[int(0.9 * (len(ttft) - 1) + 0.5)],
+             bursts=s2.stats()["bursts"], device_ms=device_ms,
+             device_busy_share=device_ms / (serve_s * 1e3),
+             profile_kept_share=per.kept_share,
+             pool_blocks=st["pool"]["blocks_total"] + 1,
+             pool_bytes=(st["pool"]["blocks_total"] + 1)
+             * st["pools"][0]["block_bytes"],
+             whole_vs_eager=whole, near_ties_vs_eager=ties,
+             whole_vs_eager_f32=whole32, near_ties_vs_eager_f32=ties32,
+             launches=launches)
+    _say(f"phase 11 (a): {tokens} tokens in {serve_s:.3f} s, {whole} of "
+         f"{PAGED_REQUESTS} requests equal to generate_eager whole, "
+         f"{whole32} in f32")
+
+    # (b) preemption on a pool of 4 full sequences
+    blocks = 4 * -(-(PAGED_PROMPTS[1] + NEW) // PAGED["block_size"]) + 1
+    sb, gotb, _ = _paged_serve(net, prompts, num_blocks=blocks)
+    stb = sb.stats()
+    _check(stb["preemptions"] > 0, "the 49-block pool never preempted")
+    _check(stb["pool"]["blocks_free"] == stb["pool"]["blocks_total"],
+           f"the preempting pool did not drain: {stb['pool']}")
+    pool = sb._lane_for(None, None).pool
+    try:
+        pool.free_blocks([1])
+        _check(False, "a double free did not raise")
+    except RuntimeError as e:
+        _check("double free" in str(e), f"double free raised {e}")
+    whole_b, ties_b = _parity(torch, net, prompts, gotb, got, LOGIT_TOL,
+                              "preempted vs (a)", eager, gaps)
+    m.update(preemptions=stb["preemptions"], preempt_pool_blocks=blocks,
+             whole_preempted_vs_a=whole_b, near_ties_preempted_vs_a=ties_b)
+    _say(f"phase 11 (b): {stb['preemptions']} preemptions on {blocks} blocks, "
+         f"{whole_b} of {PAGED_REQUESTS} requests equal to (a) whole")
+
+    # (c) an int8 KV pool, twice
+    runs = [_paged_serve(net, prompts, kv_quant="int8") for _ in range(2)]
+    _check(all((a == b).all() for a, b in zip(runs[0][1], runs[1][1])),
+           "two int8-pool serves gave other tokens")
+    gen = [(a[0, p.shape[1]:], b[0, p.shape[1]:])
+           for p, a, b in zip(prompts, runs[0][1], got)]
+    _check(all(a[0] == b[0] for a, b in gen),
+           "an int8-pool first token differs from (a)'s")
+    layers, heads, hd, dtype = gen_mod.build_generator(net).kv_layout()
+    m.update(int8_tokens_equal_to_a=float(np.mean(
+        np.concatenate([a == b for a, b in gen]))),
+        int8_requests_whole_as_a=sum(bool((a == b).all()) for a, b in gen),
+        block_bytes={q or "bfloat16": PagedKVCachePool.bytes_per_block(
+            layers, PAGED["block_size"], heads, hd, dtype, q)
+            for q in (None, "int8")})
+    _say(f"phase 11 (c): int8 pool, {m['int8_tokens_equal_to_a']:.4f} of the "
+         f"tokens as (a)'s, block bytes {m['block_bytes']}")
+
+    # (d) a tail prefill through a shared, copied-on-write table
+    rng = np.random.default_rng(9)
+    m["tail"] = _paged_tail(torch, np, kernels, net,
+                            rng.integers(0, GPT["vocab_size"], (1, 77)))
+    _say(f"phase 11 (d): tail prefill within "
+         f"{m['tail']['tail_logit_max_abs_diff_vs_full_prefill']:.4f} of a "
+         f"full prefill")
+    print("paged_serve " + json.dumps(dict(
+        {k: v for k, v in m.items() if k != "launches"}, card=_card())),
+        flush=True)
+    return m
+
+
+def _paged_launches(entries, done):
+    """Each kernel's launches in phase 11's serve of 16 requests, added
+    to its entry of the kernels line."""
+    for e in entries:
+        e["paged_serve_launches"] = done["11"]["launches"].get(e["name"], 0)
+    return entries
+
+
+PHASES = ("2", "2b", "3", "4", "5", "6", "7", "8", "9", "10", "11")
 # source -> its bf16 kernels, each of whose instantiations must not spill:
 # the mma.sync designs keep their tiles, sums and (LSTM) cell state in
 # registers
@@ -3406,13 +3746,21 @@ def main(argv) -> int:
              f"{q['int8']['tokens_per_s']:.1f}, fp8 {q['fp8']['tokens_per_s']:.1f} "
              f"tokens/s; AttentionLayer and DBN pretrain within tolerance "
              f"on {card}", flush=True)
+    if "11" in phases:  # paged serving at full width
+        print(f"clocks: {_clocks()}", flush=True)
+        m = done["11"] = phase_paged(torch, np, kernels, flash)
+        _say(f"phase 11: paged serve {m['tokens_per_s']:.1f} tokens/s, time to "
+             f"first token median {m['ttft_ms_median']:.1f} ms, p90 "
+             f"{m['ttft_ms_p90']:.1f} ms, busy {m['device_busy_share']:.3f}, "
+             f"{m['preemptions']} preemptions on the small pool on {card}",
+             flush=True)
     if phases != PHASES:
         print(f"chip_smoke: ran phases 0, 1, {', '.join(phases)} only; "
               "no result", flush=True)
         return 0
 
-    summary = {"kernels": _layer_launches(_path_launches(
-        _flash_summary(done) + _lstm_summary(done, lk), done), done)}
+    summary = {"kernels": _paged_launches(_layer_launches(_path_launches(
+        _flash_summary(done) + _lstm_summary(done, lk), done), done), done)}
     print(card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

@@ -26,9 +26,20 @@ Counterpart of ``deeplearning4j_tpu/nn/generate.py``:
   sampled paths match the reference in distribution, not draw for draw.
 
 A ComputationGraph generates through its single-input linear layer
-chain (``_ordered_impls``), on the same two paths. The reference's
-decode metrics and spans, the paged pool programs and
-the speculative programs wait for later slices (ROADMAP Queue A).
+chain (``_ordered_impls``), on the same two paths.
+
+**Paged programs** (``TransformerGenerator``; ``serving/continuous.py``
+drives them over ``nn/kvpool.py``): ``prefill_program`` (the bucketed
+prefill above), ``scatter_program`` (dense prefill caches into pool
+blocks), ``tail_prefill_program`` (a prompt's tail through the pool),
+``block_copy_program`` (copy-on-write), ``row_sample_program`` (the
+admission's first token) and ``burst_program`` (K paged decode steps
+with a done-mask, EOS and max-new quotas, no host sync inside). Each
+is a cached callable keyed as the reference keys its compiled program;
+each takes the compute-dtype params and writes the pool tensors in
+place. The reference's decode metrics and spans wait for the port's
+monitor (ROADMAP A12), ``export_prefill`` for the serving fleet (A11)
+and the speculative programs for the serving engine (A10).
 """
 
 from __future__ import annotations
@@ -44,7 +55,7 @@ from deeplearning4j_tpu_torch.nn.layers.transformer import (
     SequenceEmbeddingImpl,
     TransformerBlockImpl,
 )
-from deeplearning4j_tpu_torch.nn.quantize import qtake
+from deeplearning4j_tpu_torch.nn.quantize import kv_quantize, qtake
 from deeplearning4j_tpu_torch.ops.lstm_kernel import pack_wr
 from deeplearning4j_tpu_torch.util.dtypes import cast_floats
 from deeplearning4j_tpu_torch.util.rng import MASK64, mix64 as _mix
@@ -278,6 +289,191 @@ class TransformerGenerator(_Generator):
     def _next(self, state, tok):
         pc, caches, pos = state
         return (pc, caches, pos + 1), self.decode(pc, caches, tok, pos)
+
+    # ------------------------------------ continuous paged decoding
+
+    def _program(self, key, builder):
+        """The cached callable of ``key`` (built once per generator)."""
+        progs = self.__dict__.setdefault("_programs", {})
+        if key not in progs:
+            progs[key] = builder()
+        return progs[key]
+
+    def _dev(self, a, dtype=torch.long) -> torch.Tensor:
+        """A host array (or tensor) as a ``dtype`` tensor on the net's
+        device."""
+        if not torch.is_tensor(a):
+            a = np.asarray(a)
+        return torch.as_tensor(a, dtype=dtype, device=self.net.device)
+
+    def kv_layout(self) -> Tuple[int, int, int, torch.dtype]:
+        """(num_layers, num_heads, head_dim, cache dtype) of this net's
+        paged caches."""
+        c = self.blocks[0].conf
+        dtype = self.cd if self.cd is not None else torch.float32
+        return (len(self.blocks), c.num_heads, c.n_out // c.num_heads,
+                dtype)
+
+    def max_context(self) -> int:
+        return int(self.emb.conf.max_len)
+
+    def prefill_program(self, cache_len: int):
+        """``(pc, ids [b, t_pad], lengths [b]) -> (dense caches [b,
+        cache_len, h, hd] per block, last-token logits [b, V] f32)``:
+        the bucketed prefill, which ``scatter_program`` then pages into
+        pool blocks."""
+        def builder():
+            def prefill(pc, ids, lengths):
+                return self.prefill(pc, self._dev(ids), self._dev(lengths),
+                                    cache_len)
+            return prefill
+        return self._program(("gen_prefill", cache_len), builder)
+
+    def scatter_program(self, rows: int, t_blk: int, block_size: int):
+        """``(pools, caches, tables [rows, t_blk / block_size]) -> pools``:
+        each layer's dense [rows, t_blk, h, hd] K/V, cut into blocks,
+        written to the rows' table ids (0, the trash block, past a
+        row's allocation). A quantized pool quantizes each position per
+        head, as the burst's own writes do."""
+        if t_blk % block_size != 0:
+            raise ValueError(
+                f"t_blk {t_blk} not a multiple of block_size {block_size}")
+        nb = t_blk // block_size
+
+        def builder():
+            @torch.no_grad()
+            def scatter(pools, caches, tables):
+                tables = self._dev(tables)
+                for pool, cache in zip(pools, caches):
+                    tail = cache["k"].shape[2:]
+                    kr = cache["k"].reshape(rows, nb, block_size, *tail)
+                    vr = cache["v"].reshape(rows, nb, block_size, *tail)
+                    if "k_scale" in pool:
+                        kr, ksc = kv_quantize(kr, pool["k"].dtype)
+                        vr, vsc = kv_quantize(vr, pool["v"].dtype)
+                        pool["k_scale"][tables] = ksc
+                        pool["v_scale"][tables] = vsc
+                    pool["k"][tables] = kr.to(pool["k"].dtype)
+                    pool["v"][tables] = vr.to(pool["v"].dtype)
+                return pools
+            return scatter
+        return self._program(("gen_pool_scatter", rows, t_blk, block_size),
+                             builder)
+
+    def tail_prefill_program(self, rows: int, t_tail: int, tier: int,
+                             num_blocks: int, block_size: int):
+        """``(pc, pools, ids [rows, t_tail], starts [rows], lens [rows],
+        tables [rows, tier]) -> (pools, logits of each row's last tail
+        token [rows, V])``: only the tail of a prompt whose prefix
+        already lies in the table's blocks; tail token j of a row sits
+        at ``start + j``, and positions past ``lens`` are padding."""
+        def builder():
+            @torch.no_grad()
+            def tail_prefill(pc, pools, ids, starts, lens, tables):
+                ids, lens = self._dev(ids), self._dev(lens)
+                tables = self._dev(tables)
+                steps = torch.arange(t_tail, device=ids.device)
+                pos = self._dev(starts)[:, None] + steps[None, :]
+                p_emb = pc[self.emb.name]
+                # a padding position may lie past max_len: its row of P
+                # is any row, since its writes are masked
+                x = qtake(p_emb, "W", ids) \
+                    + p_emb["P"][pos.clamp(max=self.max_context() - 1)]
+                write_ok = steps[None, :] < lens[:, None]
+                for blk, pool in zip(self.blocks, pools):
+                    x, _ = blk.prefill_paged(pc[blk.name], x, pool, tables,
+                                             pos, write_ok)
+                last = x[torch.arange(rows, device=ids.device),
+                         (lens - 1).clamp(min=0)]
+                return pools, self._head_logits(pc, last)
+            return tail_prefill
+        return self._program(("gen_tail_prefill", rows, t_tail, tier,
+                              num_blocks, block_size), builder)
+
+    def block_copy_program(self, n: int, num_blocks: int, block_size: int):
+        """``(pools, src [n], dst [n]) -> pools``: copy-on-write, every
+        pool tensor's blocks ``src`` copied to ``dst`` (scales too)."""
+        def builder():
+            @torch.no_grad()
+            def copy(pools, src, dst):
+                src, dst = self._dev(src), self._dev(dst)
+                for pool in pools:
+                    for arr in pool.values():
+                        arr[dst] = arr[src]
+                return pools
+            return copy
+        return self._program(("gen_block_copy", n, num_blocks, block_size),
+                             builder)
+
+    def row_sample_program(self):
+        """``(logits [b, V], keys, folds [b], temp [b], top_k [b], top_p
+        [b]) -> tokens [b]``: the rowwise sampler off prefill logits,
+        each row on its own key and fold (a resumed sequence continues
+        its token clock)."""
+        def builder():
+            @torch.no_grad()
+            def rsample(logits, keys, folds, temp_v, top_k_v, top_p_v):
+                return sample_tokens_rowwise(
+                    logits, keys, folds, self._dev(temp_v, torch.float32),
+                    self._dev(top_k_v), self._dev(top_p_v, torch.float32))
+            return rsample
+        return self._program(("gen_row_sample",), builder)
+
+    def burst_program(self, slots: int, k_burst: int, max_blocks: int,
+                      num_blocks: int, block_size: int,
+                      sampling: bool = True):
+        """One scheduler burst: ``(pc, pools, tables [slots, max_blocks],
+        pos, tok, n_gen, done, keys, temp, top_k, top_p, eos, max_new)
+        -> (pools, ys [slots, K], tok, pos, n_gen, done)``, K paged
+        decode steps over ``slots`` rows. A done row's writes go to the
+        trash block, its outputs are 0, its state freezes; a row finishes
+        on its EOS (``eos >= 0``) or when ``n_gen`` reaches ``max_new``.
+        The results stay on the device: nothing inside the K steps waits
+        on the host. A sampling row's fold at step s is its ``n_gen`` at
+        the burst's start plus s (``n_gen`` comes in as host ints); the
+        folds of a finished row draw nothing that is kept.
+        ``sampling=False`` is the greedy variant (an argmax, no
+        sampler)."""
+        def builder():
+            @torch.no_grad()
+            def burst(pc, pools, tables, pos, tok, n_gen, done, keys,
+                      temp_v, top_k_v, top_p_v, eos_v, max_new_v):
+                folds0 = np.asarray(n_gen).tolist() if sampling else None
+                tables, pos, tok = (self._dev(tables), self._dev(pos),
+                                    self._dev(tok))
+                n_gen, done = self._dev(n_gen), self._dev(done, torch.bool)
+                eos_v, max_new_v = self._dev(eos_v), self._dev(max_new_v)
+                if sampling:
+                    temp_v = self._dev(temp_v, torch.float32)
+                    top_k_v = self._dev(top_k_v)
+                    top_p_v = self._dev(top_p_v, torch.float32)
+                caches = [dict(pool, table=tables) for pool in pools]
+                ys = []
+                for s in range(k_burst):
+                    active = ~done
+                    x = self._embed_token(pc, tok, pos)
+                    for blk, cache in zip(self.blocks, caches):
+                        x, _ = blk.decode_step(pc[blk.name], x, cache, pos,
+                                               write_mask=active)
+                    logits = self._head_logits(pc, x)
+                    if sampling:
+                        nxt = sample_tokens_rowwise(
+                            logits, keys, [f + s for f in folds0], temp_v,
+                            top_k_v, top_p_v)
+                    else:
+                        nxt = logits.argmax(dim=-1)
+                    step = active.long()
+                    n_gen = n_gen + step
+                    done = done | (active & (eos_v >= 0) & (nxt == eos_v)) \
+                        | (n_gen >= max_new_v)
+                    ys.append(torch.where(active, nxt, 0))
+                    tok = torch.where(active, nxt, tok)
+                    pos = pos + step
+                return pools, torch.stack(ys, dim=1), tok, pos, n_gen, done
+            return burst
+        return self._program(("gen_burst", slots, k_burst, max_blocks,
+                              num_blocks, block_size, bool(sampling)),
+                             builder)
 
 
 class RecurrentGenerator(_Generator):

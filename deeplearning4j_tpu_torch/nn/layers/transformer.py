@@ -11,17 +11,20 @@ one implementation the three paths share): training routes with the
 configured capacity and writes the weighted aux loss into the block's
 state; prefill and decode route with capacity n, so no token overflows.
 Projections and the token gather go through ``qmatmul`` / ``qtake``, so
-int8/fp8 weights (``nn/quantize.py``) serve on every path. The
-paged-pool branch waits for the paged KV pool and raises
-``NotImplementedError``.
+int8/fp8 weights (``nn/quantize.py``) serve on every path. With a paged
+pool (``nn/kvpool.py``), ``decode_step`` (a cache carrying ``"table"``)
+and ``prefill_paged`` scatter K/V into the pool through each row's block
+table, then gather the table back and attend causally; a quantized pool
+quantizes on the scatter and dequantizes on the gather.
 
 Pre-LN wiring (x + Attn(LN(x)), x + MLP(LN(x))); LayerNorm runs in f32
 with the population variance even under a bf16 compute policy, and the
 MLP's GELU is the tanh approximation, both as in the reference.
 
-Unlike the reference's pure functions, ``prefill`` and ``decode_step``
-write K/V into the cache tensors in place and return the same tensors:
-the cache is the largest buffer of a generate call and is never shared.
+Unlike the reference's pure functions, ``prefill``, ``prefill_paged``
+and ``decode_step`` write K/V into the cache or pool tensors in place
+and return the same tensors: the cache is the largest buffer of a
+generate call and is never shared.
 """
 
 from __future__ import annotations
@@ -43,7 +46,12 @@ from deeplearning4j_tpu_torch.nn.layers.moe import (
     init_moe_params,
     run_moe_ffn,
 )
-from deeplearning4j_tpu_torch.nn.quantize import qmatmul, qtake
+from deeplearning4j_tpu_torch.nn.quantize import (
+    kv_dequantize,
+    kv_quantize,
+    qmatmul,
+    qtake,
+)
 from deeplearning4j_tpu_torch.nn.weights import init_weights
 from deeplearning4j_tpu_torch.ops.attention import softmax_scale
 from deeplearning4j_tpu_torch.util.rng import fold_in, generator
@@ -201,8 +209,6 @@ class TransformerBlockImpl(LayerImpl):
         K/V into ``cache`` (causal flash attention, maskless). Padded
         positions write garbage K/V that a decode step overwrites before
         any query can attend to it."""
-        if "table" in cache:
-            raise NotImplementedError("the paged KV pool is not ported yet")
         q, k, v = self._qkv(params, x)
         t = x.shape[1]
         cache["k"][:, :t] = k.to(cache["k"].dtype)
@@ -212,18 +218,98 @@ class TransformerBlockImpl(LayerImpl):
                                 capacity_factor=self._serving_capacity())
         return out, cache
 
-    def decode_step(self, params, x_t, cache, pos):
+    def prefill_paged(self, params, x, pool, table, pos, write_ok):
+        """Tail prefill through the paged pool: ``x`` [b, t, d] tail
+        activations, ``pos`` [b, t] each token's absolute position,
+        ``write_ok`` [b, t] masking padding (its writes go to trash
+        block 0, offset 0). The tail's K/V scatter into the table's
+        blocks first; then the whole table is gathered back and the tail
+        queries attend causally to the cached prefix and themselves.
+        Returns ([b, t, d], the pool)."""
+        q, k, v = self._qkv(params, x)
+        # a padding position may lie past the table; its write is masked
+        blk = table.gather(1, (pos // pool["k"].shape[1]).clamp(
+            max=table.shape[1] - 1))
+        o = self._paged_attention(q, k, v, pool, table, blk, pos,
+                                  write_ok)
+        out, _ = self._attn_ffn(params, x, o, {},
+                                capacity_factor=self._serving_capacity())
+        return out, pool
+
+    def _paged_attention(self, q, k, v, pool, table, blk, pos, write):
+        """Scatter ``k``/``v`` [b, (t,) h, hd] at (``blk``, ``pos`` %
+        bs), masked entries of ``write`` to (0, 0); gather every row's
+        table into [b, MB*bs, h, hd]; attend with scores past ``pos``
+        at ``finfo.min``. Returns o shaped as q."""
+        kp, vp = pool["k"], pool["v"]
+        bs, mb = kp.shape[1], table.shape[1]
+        off = pos % bs
+        if write is not None:
+            blk = torch.where(write, blk, 0)
+            off = torch.where(write, off, 0)
+        quant = "k_scale" in pool
+        if quant:
+            kq, ksc = kv_quantize(k, kp.dtype)
+            vq, vsc = kv_quantize(v, vp.dtype)
+            kp[blk, off] = kq
+            vp[blk, off] = vq
+            pool["k_scale"][blk, off] = ksc
+            pool["v_scale"][blk, off] = vsc
+        else:
+            kp[blk, off] = k.to(kp.dtype)
+            vp[blk, off] = v.to(vp.dtype)
+        b = table.shape[0]
+        kg = kp[table].reshape(b, mb * bs, *kp.shape[2:])
+        vg = vp[table].reshape(b, mb * bs, *vp.shape[2:])
+        if quant:
+            h = kp.shape[2]
+            kg = kv_dequantize(kg, pool["k_scale"][table].reshape(
+                b, mb * bs, h), q.dtype)
+            vg = kv_dequantize(vg, pool["v_scale"][table].reshape(
+                b, mb * bs, h), q.dtype)
+        slots = torch.arange(mb * bs, device=kp.device)
+        if q.ndim == 3:   # one token a row: [b, h, hd]
+            s = torch.einsum("bhd,bkhd->bhk", q, kg.to(q.dtype))
+            live = (slots[None, :] <= pos[:, None])[:, None, :]
+        else:             # [b, t, h, hd]
+            s = torch.einsum("bqhd,bkhd->bhqk", q, kg.to(q.dtype))
+            live = (slots[None, None, :] <= pos[:, :, None])[:, None]
+        s = s * softmax_scale(q.shape[-1], q.dtype)
+        s = s.masked_fill(~live, torch.finfo(s.dtype).min)
+        w = torch.softmax(s, dim=-1)
+        if q.ndim == 3:
+            return torch.einsum("bhk,bkhd->bhd", w, vg.to(q.dtype))
+        return torch.einsum("bhqk,bkhd->bqhd", w, vg.to(q.dtype))
+
+    def decode_step(self, params, x_t, cache, pos, write_mask=None):
         """One-token forward [b, d] over the cache. ``pos`` is the
         current position: an int (whole batch) or a [b] tensor (one per
         row). Writes slot ``pos`` first, then attends to slots <= pos;
         masked scores take ``finfo(dtype).min`` and the softmax runs in
-        the compute dtype, as in the reference."""
-        if "table" in cache:
-            raise NotImplementedError("the paged KV pool is not ported yet")
+        the compute dtype, as in the reference.
+
+        Paged mode: a cache with ``"table"`` [b, MB] holds the shared
+        pool tensors ``[num_blocks, block_size, h, hd]`` (and the scales
+        of a quantized pool); ``pos`` is a [b] tensor. The token's K/V
+        land at (table[pos // bs], pos % bs), or at trash block 0 where
+        ``write_mask`` [b] is False, and the row's blocks are gathered
+        back in causal order."""
         c = self.conf
         b, d = x_t.shape
         hd = c.n_out // c.num_heads
         q, k, v = self._qkv(params, x_t)
+        if "table" in cache:
+            table = cache["table"]
+            # a finished row's position may sit one past its last block;
+            # its write is masked, so any in-range block will do
+            blk_of = (pos // cache["k"].shape[1]).clamp(
+                max=table.shape[1] - 1)
+            blk = table.gather(1, blk_of[:, None])[:, 0]
+            o = self._paged_attention(q, k, v, cache, table, blk, pos,
+                                      write_mask)
+            out, _ = self._attn_ffn(params, x_t, o, {},
+                                    capacity_factor=self._serving_capacity())
+            return out, cache
         ck, cv = cache["k"], cache["v"]
         slots = torch.arange(ck.shape[1], device=ck.device)
         if isinstance(pos, int) or pos.ndim == 0:

@@ -1,7 +1,6 @@
 """Post-training weight quantization for serving, and its accuracy gate.
 
-Counterpart of ``deeplearning4j_tpu/nn/quantize.py`` (the weights half;
-the paged pool's ``kv_quantize`` family waits for the paged KV pool):
+Counterpart of ``deeplearning4j_tpu/nn/quantize.py``:
 
 - :func:`quantize` returns a NEW net (same configuration, same layer
   names) whose Dense / Embedding / TransformerBlock projection matrices
@@ -19,6 +18,10 @@ the paged pool's ``kv_quantize`` family waits for the paged KV pool):
   a seeded workload: teacher-forced greedy match rate, logit MSE and the
   relative next-token cross-entropy change, with thresholds;
   :func:`make_quality_gate` wraps it as a deploy-time gate.
+- :func:`kv_quantize` / :func:`kv_dequantize` are the quantized paged KV
+  pool's scatter and gather (``nn/kvpool.py``): one float32 scale per
+  (position, head) over head_dim, so a re-prefill stores the same bytes
+  as the incremental decode writes it replays.
 """
 
 from __future__ import annotations
@@ -106,6 +109,58 @@ def quantize_array(w, mode: str = "int8") -> Tuple[torch.Tensor, torch.Tensor]:
 def dequantize_array(q: torch.Tensor, sc: torch.Tensor) -> torch.Tensor:
     """The inverse of :func:`quantize_array` (a test oracle)."""
     return q.float() * sc.float()
+
+
+# ----------------------------------------------------- KV-pool primitive
+
+
+def kv_qparams(mode: str) -> Tuple[torch.dtype, float]:
+    """(storage dtype, qmax) of a quantized KV pool mode."""
+    if mode not in _MODES:
+        raise ValueError(f"unknown KV quantization mode {mode!r}; pick "
+                         f"from {quant_modes()}")
+    return _MODES[mode]
+
+
+def kv_qmax(storage_dtype: torch.dtype) -> float:
+    """Quantization max of a KV storage dtype (the pool tensors' dtype
+    is the mode)."""
+    for storage, qmax in _MODES.values():
+        if storage == storage_dtype:
+            return qmax
+    raise ValueError(f"not a quantized KV storage dtype: {storage_dtype}")
+
+
+def kv_quantize(x: torch.Tensor, storage_dtype: torch.dtype,
+                qmax: Optional[float] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``x`` [..., h, hd] -> (q [..., h, hd] in ``storage_dtype``, scale
+    [..., h] f32): scale = max(amax over hd * (1 / qmax), 1e-12), int8
+    rounds half to even and clips at +-qmax, fp8 saturates at +-qmax.
+    The floor keeps zero positions exactly zero after the dequant. The
+    reference runs this only inside compiled programs, where XLA turns
+    its division by the constant qmax into a product with the float32
+    reciprocal; the scale here is that product, so the stored scales
+    are the reference's bit for bit."""
+    if qmax is None:
+        qmax = kv_qmax(storage_dtype)
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    sc = torch.clamp(amax * torch.tensor(1.0 / qmax, dtype=torch.float32),
+                     min=1e-12)
+    scaled = torch.clamp(xf / sc[..., None], -qmax, qmax)
+    if storage_dtype == torch.int8:
+        q = torch.round(scaled).to(torch.int8)
+    else:
+        q = scaled.to(storage_dtype)
+    return q, sc
+
+
+def kv_dequantize(q: torch.Tensor, sc: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """Gathered ``q`` [..., h, hd] and ``sc`` [..., h] back to the compute
+    dtype: both operands cast to ``dtype`` before the product."""
+    return q.to(dtype) * sc[..., None].to(dtype)
 
 
 # ------------------------------------------------------- the net pass

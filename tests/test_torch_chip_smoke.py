@@ -1417,10 +1417,11 @@ def test_gpt_graph_generates_as_the_network():
 
 
 def test_layers_phase_is_the_last_and_runs_alone():
-    """Phase 10 (the rest of the layer library) ends the full run and
-    can be asked for alone."""
-    assert chip_smoke.PHASES[-1] == "10"
+    """Phase 10 (the rest of the layer library) is the last phase before
+    phase 11 (paged serving), and each can be asked for alone."""
+    assert chip_smoke.PHASES[-2:] == ("10", "11")
     assert chip_smoke._phases(["--only", "10"]) == ("10",)
+    assert chip_smoke._phases(["--only", "11"]) == ("11",)
     assert chip_smoke.MOE_TRAIN == dict(chip_smoke.TRAIN, num_experts=8,
                                         capacity_factor=1.25,
                                         aux_loss_weight=0.01)
@@ -1483,3 +1484,83 @@ def test_layers_phase_confs_are_the_issue_widths():
     assert [(type(l).__name__, l.n_in, l.n_out) for l in d.layers] == [
         ("RBM", 784, 500), ("AutoEncoder", 500, 250), ("OutputLayer", 250, 10)]
     assert d.pretrain and d.layers[1].corruption_level == 0.3
+
+
+def test_paged_launches_add_phase_11s_serve():
+    done = {"11": {"launches": {"flash_fwd": 48}}}
+    got = chip_smoke._paged_launches([{"name": "flash_fwd"},
+                                      {"name": "lstm_bwd"}], done)
+    assert got == [{"name": "flash_fwd", "paged_serve_launches": 48},
+                   {"name": "lstm_bwd", "paged_serve_launches": 0}]
+
+
+def test_paged_requests_and_pool_sizes():
+    """Phase 11's 16 requests: prompts 16-64 from seed 8, the same every
+    run; the preempting pool holds 4 full-context sequences."""
+    reqs = chip_smoke._paged_requests(np)
+    assert len(reqs) == chip_smoke.PAGED_REQUESTS == 16
+    assert all(r.shape[0] == 1 and 16 <= r.shape[1] <= 64 for r in reqs)
+    assert all((a == b).all() for a, b in
+               zip(reqs, chip_smoke._paged_requests(np)))
+    bs = chip_smoke.PAGED["block_size"]
+    assert 4 * -(-(chip_smoke.PAGED_PROMPTS[1] + chip_smoke.NEW) // bs) \
+        + 1 == 49
+
+
+@pytest.fixture
+def tiny_net(monkeypatch):
+    import torch
+
+    from deeplearning4j_tpu_torch.models.zoo.transformer import gpt
+
+    monkeypatch.setattr(chip_smoke, "NEW", 6)
+    torch.manual_seed(0)
+    return gpt(vocab_size=64, d_model=32, n_layers=2, num_heads=2,
+               max_len=64, compute_dtype="float32", device="cpu").init()
+
+
+def test_eager_records_the_gaps_a_replay_reads(tiny_net):
+    """``_eager``'s tokens are ``generate_eager``'s, and the gap it
+    records at each generated position is the one ``_eager_gap`` reads
+    by replaying the eager loop along the same tokens."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nn.generate import generate_eager
+
+    prompts = [np.random.default_rng(i).integers(0, 64, (1, 5))
+               for i in range(2)]
+    eager, gaps = chip_smoke._eager(torch, tiny_net, prompts)
+    for p, e, g in zip(prompts, eager, gaps):
+        np.testing.assert_array_equal(e, generate_eager(tiny_net, p, 6))
+        assert g.shape == (6,) and (g >= 0).all()
+        for j in (0, 3, 5):
+            assert chip_smoke._eager_gap(torch, tiny_net, p, e[0, 5:5 + j]) \
+                == pytest.approx(float(g[j]), abs=1e-6)
+
+
+def test_parity_passes_near_ties_and_fails_wide_gaps(tiny_net, capsys):
+    import torch
+
+    prompts = [np.random.default_rng(i).integers(0, 64, (1, 5))
+               for i in range(2)]
+    eager, gaps = chip_smoke._eager(torch, tiny_net, prompts)
+    assert chip_smoke._parity(torch, tiny_net, prompts, eager, eager, 0.0,
+                              "same", eager, gaps) == (2, [])
+    parted = [e.copy() for e in eager]
+    parted[1][0, 8] = (parted[1][0, 8] + 1) % 64
+    gap = float(gaps[1][3])
+    whole, ties = chip_smoke._parity(torch, tiny_net, prompts, parted, eager,
+                                     gap, "parted", eager, gaps)
+    assert whole == 1 and ties == [dict(request=1, position=3, gap=gap)]
+    assert "1 of 2 requests whole" in capsys.readouterr().out
+    with pytest.raises(RuntimeError, match="top-two gap"):
+        chip_smoke._parity(torch, tiny_net, prompts, parted, eager,
+                           gap / 2, "parted", eager, gaps)
+    # parted from a prefix that is not the eager run's: a replay reads it
+    off = [p.copy() for p in parted]
+    off[1][0, 9] = (off[1][0, 9] + 1) % 64
+    _, ties = chip_smoke._parity(torch, tiny_net, prompts, off, parted,
+                                 1e9, "replayed", eager, gaps)
+    assert ties[0]["position"] == 4 and ties[0]["gap"] == pytest.approx(
+        chip_smoke._eager_gap(torch, tiny_net, prompts[1],
+                              parted[1][0, 5:9]), abs=1e-6)

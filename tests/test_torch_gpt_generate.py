@@ -234,15 +234,32 @@ def test_sampled_generate_is_reproducible_and_matches_eager(nets):
 
 
 def test_moe_block_raises():
-    # routed experts are ported (tests/test_torch_moe.py); what a MoE
-    # block still raises for is the paged KV pool, as a dense one does
+    # routed experts and the paged KV pool are ported
+    # (tests/test_torch_moe.py, tests/test_torch_paged.py): a MoE block's
+    # paged decode_step equals its dense one, and what it still raises
+    # for, as the reference's does, is a paged cache handed to the dense
+    # prefill, which has no dense K/V to write
     import torch
 
     net = gpt(num_experts=2, compute_dtype="float32", device="cpu", **SIZE).init()
     blk = net.impls[1]
+    params = net.params[blk.name]
+    heads, hd = SIZE["num_heads"], SIZE["d_model"] // SIZE["num_heads"]
+    dense = blk.init_cache(2, 8)
+    pool = {n: torch.zeros(5, 4, heads, hd) for n in ("k", "v")}
+    table = torch.tensor([[3, 1], [2, 4]])
+    gen = torch.Generator().manual_seed(0)
+    for t in range(6):
+        x = torch.randn(2, SIZE["d_model"], generator=gen)
+        pos = torch.tensor([t, t])
+        y_dense, _ = blk.decode_step(params, x, dense, pos)
+        y_paged, _ = blk.decode_step(params, x, dict(pool, table=table), pos,
+                                     write_mask=torch.ones(2, dtype=torch.bool))
+        np.testing.assert_allclose(y_paged.numpy(), y_dense.numpy(),
+                                   rtol=1e-5, atol=1e-5)
     x = torch.zeros(1, 4, SIZE["d_model"])
-    with pytest.raises(NotImplementedError, match="paged KV pool"):
-        blk.prefill(net.params[blk.name], x, {"table": None})
+    with pytest.raises(KeyError):
+        blk.prefill(params, x, {"table": None})
 
 
 def test_bad_requests_raise(nets):

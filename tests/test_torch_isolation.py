@@ -158,3 +158,21 @@ def test_graph_slice_modules_are_scanned():
             resnet50()
         with pytest.raises(RuntimeError, match="device='cpu'"):
             ComputationGraph(resnet50(device="cpu").conf)
+
+
+def test_serving_slice_modules_are_scanned():
+    """The paged serving slice's modules (the pool, the scheduler, the
+    serving engine's errors) are among what the scans cover; a scheduler
+    on a net asking for nothing builds its pool on the card, never
+    silently on the CPU."""
+    mods = _modules()
+    for name in ("nn.kvpool", "nn.quantize", "nn.generate", "serving",
+                 "serving.continuous", "parallel", "parallel.inference"):
+        assert f"deeplearning4j_tpu_torch.{name}" in mods, name
+    from deeplearning4j_tpu_torch.nn.kvpool import PagedKVCachePool
+    if torch.cuda.is_available():
+        assert PagedKVCachePool(2, 4, 1, 1, 8).layers[0]["k"].is_cuda
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PagedKVCachePool(2, 4, 1, 1, 8)
+    assert PagedKVCachePool(2, 4, 1, 1, 8, device="cpu").device.type == "cpu"
