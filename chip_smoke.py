@@ -252,7 +252,9 @@ Phases (any failure ends the run with a non-zero exit and no result):
    differs is a near-tie of the eager run (top-two logits within
    ``LOGIT_TOL``); then the same in f32 with a near-tie bound of
    ``PAGED_TIE_F32``; tokens/s, time to first token, bursts and the busy
-   share (``paged_serve`` line). (b) the same requests on a pool of 49
+   share, the last from a profile of a shorter steady window: the first
+   8 requests (the slots full), +32 each (``PAGED_WINDOW_NEW``), against
+   the wall time of the same serve unprofiled (``paged_serve`` line). (b) the same requests on a pool of 49
    blocks: it preempts, the tokens equal (a)'s under the same rule, the
    pool drains fully free and a double free raises. (c) an int8 KV
    pool twice: the runs agree token for token and every first token is
@@ -261,11 +263,39 @@ Phases (any failure ends the run with a non-zero exit and no result):
    partial block copied on write by ``block_copy_program``): the tail's
    ``tail_prefill_program`` logits within ``LOGIT_TOL`` of a full
    prefill, the shared block untouched.
+12. the training services (``phase_services``) on phase 6's char-RNN
+   (bf16, b 1024, seq 128, seed-31 weights), over 8 minibatches of
+   Markov ids exported to a temporary directory (``export_dataset``).
+   First two identical runs of the step over them: every gate below is
+   bit for bit where these agree bit for bit, else within
+   ``CHAR_GRAD_REL``. (a) ``ResumableTrainer`` at a checkpoint every 2
+   steps over a shuffled ``ExportedDataSetIterator``, uninterrupted, and
+   preempted after 3 steps then resumed in a fresh trainer and iterator:
+   equal parameters and updater state; each step's ms, each save's ms,
+   the restore's ms and the unit's bytes printed. (b) a
+   ``TrainingSupervisor`` run equals the unsupervised one; a batch of
+   NaN features rolls back once (its index in ``batches_skipped``), to
+   the snapshot, and the next step equals one at 0.5x the learning rate
+   from it. (c) ``EarlyStoppingTrainer`` for 3 epochs with
+   ``ScoreImprovementEpochTerminationCondition`` and a held-out
+   ``DataSetLossCalculator``: the best model's held-out score is the one
+   recorded. (d) 20 steps in one ``fit`` with a listener of frequency 5
+   equal a run with frequency 1 at its iterations, with 4 score fetches
+   (plus the end of fit's empty call) against 20; the host ms per step
+   of both. Counts zeroed before (a)-(d) and read after: ``lstm_fwd``,
+   ``lstm_bwd``, ``lstm_dw`` (training) and ``lstm_fwd_only`` (the
+   held-out scores) must have launched. (e) ``Solver`` with ``lbfgs``, 10
+   iterations, on phase 6's f32 example net: the oracle's first gradient
+   through the kernels (one launch each of the f32 ``lstm_fwd``,
+   ``lstm_bwd``, ``lstm_dw``) against the plain versions within
+   ``EXAMPLE_GRAD_REL``, the f32 kernels launched by the solve, and a
+   loss that falls (``services`` line).
 
 Phase 2's rows carry their wall time (``row_s``) and each phase line
 the time since the start (``[t ... s]``); the kernels line gives each
 kernel its launches per step on the fit_scan paths, on phase 9's
-graph generate paths, on phase 10's paths and on phase 11's serve.
+graph generate paths, on phase 10's paths, on phase 11's serve and in
+phase 12 (``services_launches``, ``solver_launches``).
 
 The last lines are the card's name and power limit, one JSON object
 with every kernel's numbers, and ``{"ok": true, "device": {...}}``
@@ -543,9 +573,10 @@ class _Profile(dict):
     kept_share = None
 
 
-def _device_times(torch, fn, reps: int) -> dict:
+def _device_times(torch, fn, reps: int, warm: bool = True) -> dict:
     """Device ms per call of ``fn`` for each kernel, copy and fill name
-    that torch.profiler saw in ``reps`` calls (after one warm-up call).
+    that torch.profiler saw in ``reps`` calls (after one warm-up call,
+    unless ``warm`` is false: the caller has just run ``fn`` itself).
     Unlike the event time it leaves out the host's share. A profile may
     keep only some of its device events (on the chip's machine it often
     drops a few, and in a long process up to most of them), so a name's
@@ -570,7 +601,8 @@ def _device_times(torch, fn, reps: int) -> dict:
 
     from deeplearning4j_tpu_torch import kernels
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     for attempt, pad in enumerate(PROFILE_PADS):
         before = collections.Counter(kernels.LAUNCHES)
@@ -644,9 +676,9 @@ def _sum_ms(per_name: dict, match: str = "") -> float:
     return ms
 
 
-def _device_ms(torch, fn, reps: int, match: str = "") -> float:
+def _device_ms(torch, fn, reps: int, match: str = "", warm: bool = True) -> float:
     """Device ms per call of ``fn``, of the names containing ``match``."""
-    return _sum_ms(_device_times(torch, fn, reps), match)
+    return _sum_ms(_device_times(torch, fn, reps, warm), match)
 
 
 def _clocks() -> str:
@@ -858,7 +890,8 @@ def bwd_row(torch, F, kernels, flash, g, case, names):
                dq_kernel_only_ms=_sum_ms(times, "flash_dq_kernel"),
                dkv_kernel_only_ms=_sum_ms(times, "flash_dkv_kernel"),
                dq_kernel_only_ms_by_block_q=by_block_q,
-               plain_ms=_device_ms(torch, plain, PLAIN_REPS),
+               # the check above ran the plain version on these inputs
+               plain_ms=_device_ms(torch, plain, PLAIN_REPS, warm=False),
                library_ms=(_device_ms(torch, lib_fb, 10)
                            - _device_ms(torch, lib_fwd, 10)),
                dq_bound_ms=dq_bound[0], dq_bound_by=dq_bound[1],
@@ -1064,7 +1097,8 @@ def fwd_row(torch, F, flash, g, case, kernel):
                ms=_sum_ms(times),
                kernel_only_ms=_sum_ms(times, "flash_fwd_kernel"),
                kernel_only_ms_by_block_q=by_block_q,
-               plain_ms=_device_ms(torch, plain, PLAIN_REPS),
+               # the check above ran the plain version on these inputs
+               plain_ms=_device_ms(torch, plain, PLAIN_REPS, warm=False),
                library_ms=_device_ms(torch, library, FWD_REPS),
                bound_ms=bound_ms, bound_by=bound_by,
                call_ms=_time_ms(torch, run, FWD_REPS),
@@ -1806,14 +1840,15 @@ def _plain_lstm(lk, fwd=True):
         lk.lstm_fwd, lk.lstm_bwd = saved
 
 
-def _char_rnn(compute_dtype):
+def _char_rnn(compute_dtype, lr=0.01):
     """The JAX package's char-RNN benchmark stack (``bench.py``
-    ``bench_lstm``/``bench_lstm_decode``), built by the port's builder."""
+    ``bench_lstm``/``bench_lstm_decode``), built by the port's builder
+    (Adam at ``lr``, 0.01 as the benchmark's)."""
     from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
     from deeplearning4j_tpu_torch.nn.conf import layers as L
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 
-    builder = (NeuralNetConfiguration.builder().seed(1).learning_rate(0.01)
+    builder = (NeuralNetConfiguration.builder().seed(1).learning_rate(lr)
                .updater("adam").activation("tanh"))
     if compute_dtype:
         builder = builder.compute_dtype(compute_dtype)
@@ -2087,16 +2122,17 @@ def phase_char_train(torch, np, kernels, lk):
     return launches, metrics
 
 
-def _char_rnn_example():
+def _char_rnn_example(algo="stochastic_gradient_descent"):
     """``examples/train_char_rnn.py``'s net at full width, built by the
     port's builder: one GravesLSTM(256) and a softmax output layer over
-    the corpus's characters, Adam 0.01, the default f32."""
+    the corpus's characters, Adam 0.01, the default f32; ``algo`` is its
+    optimization algorithm (phase 12 runs ``lbfgs``)."""
     from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
     from deeplearning4j_tpu_torch.nn.conf import layers as L
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 
     conf = (NeuralNetConfiguration.builder().seed(12).learning_rate(0.01)
-            .updater("adam").activation("tanh").list()
+            .updater("adam").activation("tanh").optimization_algo(algo).list()
             .layer(L.GravesLSTM(n_in=EXAMPLE_VOCAB, n_out=EXAMPLE_HIDDEN))
             .layer(L.RnnOutputLayer(n_in=EXAMPLE_HIDDEN, n_out=EXAMPLE_VOCAB,
                                     activation="softmax",
@@ -3227,6 +3263,9 @@ def _layer_launches(entries, done):
 PAGED = dict(slots=8, burst_tokens=8, block_size=16)
 PAGED_REQUESTS, PAGED_PROMPTS = 16, (16, 64)
 PAGED_TIE_F32 = 1e-4
+# the serve whose profile gives the busy share: the first PAGED["slots"]
+# requests, +32 tokens each (a steady window of full slots)
+PAGED_WINDOW_NEW = 32
 
 
 def _paged_requests(np):
@@ -3236,10 +3275,11 @@ def _paged_requests(np):
     return [rng.integers(0, GPT["vocab_size"], (1, int(t))) for t in lengths]
 
 
-def _paged_serve(net, prompts, **kw):
+def _paged_serve(net, prompts, new=None, **kw):
     """Phase 11's traffic: the first half submitted, one ``step()``,
-    then the rest, drained. Returns (the scheduler, each request's ids,
-    the wall seconds)."""
+    then the rest, drained, each request for ``new`` tokens (NEW by
+    default). Returns (the scheduler, each request's ids, the wall
+    seconds)."""
     from deeplearning4j_tpu_torch.serving.continuous import \
         ContinuousDecodeScheduler
 
@@ -3249,9 +3289,10 @@ def _paged_serve(net, prompts, **kw):
     half = len(prompts) // 2
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    futs = [s.submit(p, NEW) for p in prompts[:half]]
+    new = NEW if new is None else new
+    futs = [s.submit(p, new) for p in prompts[:half]]
     s.step()
-    futs += [s.submit(p, NEW) for p in prompts[half:]]
+    futs += [s.submit(p, new) for p in prompts[half:]]
     _check(s.drain(600), "the scheduler did not drain")
     torch.cuda.synchronize()
     return s, [f.result(0) for f in futs], time.perf_counter() - t0
@@ -3446,21 +3487,24 @@ def phase_paged(torch, np, kernels, flash):
     eager_s = time.perf_counter() - t0
     whole, ties = _parity(torch, net, prompts, got, eager, LOGIT_TOL,
                           "bf16 vs generate_eager", eager, gaps)
-    # the profile's warm-up call is the timed serve; the profiled one
-    # gives the device time
-    timed = []
-    t0 = time.perf_counter()
-    per = _device_times(torch, lambda: timed.append(_paged_serve(net, prompts)),
-                        1)
-    profile_s = time.perf_counter() - t0
-    s2, got2, serve_s = timed[0]
+    s2, got2, serve_s = _paged_serve(net, prompts)
     _check(all((a == b).all() for a, b in zip(got, got2)),
            "a second serve gave other tokens")
     ttft = sorted((c["t_first"] - c["t_submit"]) * 1e3 for c in s2.completed)
+    # the busy share of a shorter steady window: one wave of requests
+    # filling the slots, +PAGED_WINDOW_NEW each (torch.profiler's
+    # processing of a whole serve's ~86,000 launches took ~29 s); the
+    # profile's warm-up call is the window's timed serve
+    window, timed = prompts[:PAGED["slots"]], []
+    t0 = time.perf_counter()
+    per = _device_times(torch, lambda: timed.append(
+        _paged_serve(net, window, PAGED_WINDOW_NEW)), 1)
+    profile_s = time.perf_counter() - t0
+    window_s = timed[0][2]
     device_ms = _sum_ms(per)
     _say(f"phase 11 (a): serves {first_s:.2f} and {serve_s:.2f} s, "
-         f"{len(prompts)} solo generate_eager {eager_s:.2f} s, the timed "
-         f"and the profiled serve {profile_s:.2f} s")
+         f"{len(prompts)} solo generate_eager {eager_s:.2f} s, the window's "
+         f"timed and profiled serves {profile_s:.2f} s")
     s32, got32, _ = _paged_serve(nets["float32"], prompts)
     eager32, gaps32 = _eager(torch, nets["float32"], prompts)
     whole32, ties32 = _parity(torch, nets["float32"], prompts, got32, eager32,
@@ -3473,8 +3517,10 @@ def phase_paged(torch, np, kernels, flash):
              first_serve_s=first_s, eager_s=eager_s,
              ttft_ms_median=statistics.median(ttft),
              ttft_ms_p90=ttft[int(0.9 * (len(ttft) - 1) + 0.5)],
-             bursts=s2.stats()["bursts"], device_ms=device_ms,
-             device_busy_share=device_ms / (serve_s * 1e3),
+             bursts=s2.stats()["bursts"],
+             busy_window=dict(requests=len(window), new_tokens=PAGED_WINDOW_NEW,
+                              wall_ms=window_s * 1e3, device_ms=device_ms),
+             device_busy_share=device_ms / (window_s * 1e3),
              profile_kept_share=per.kept_share,
              pool_blocks=st["pool"]["blocks_total"] + 1,
              pool_bytes=(st["pool"]["blocks_total"] + 1)
@@ -3545,7 +3591,377 @@ def _paged_launches(entries, done):
     return entries
 
 
-PHASES = ("2", "2b", "3", "4", "5", "6", "7", "8", "9", "10", "11")
+# phase 12: the training services on phase 6's char-RNN (bf16, b 1024,
+# seq 128, Adam 0.01): minibatches exported to disk, a checkpoint every
+# 2 steps, a preemption after 3, the deferred scores' listener frequency
+# and step count, the early-stopping epochs, and the solver's iterations
+# on the f32 example
+SERVICE_BATCHES, SERVICE_CKPT_EVERY, SERVICE_PREEMPT = 8, 2, 3
+SERVICE_FREQUENCY, SERVICE_STEPS, SERVICE_EPOCHS = 5, 20, 3
+SOLVER_ITERATIONS = 10
+
+
+def _service_net(lr=0.01):
+    """Phase 6's bf16 char-RNN on its seed-31 weights."""
+    from deeplearning4j_tpu_torch.util.model_serializer import params_from_numpy
+
+    net = _char_rnn("bfloat16", lr)
+    params_from_numpy(net, _random_params(net, seed=31))
+    return net
+
+
+def _service_batches(np, n, seed):
+    """``n`` minibatches of phase 6's shape from one Markov chain over
+    its 64 characters: one-hot features and labels (the ids rolled by
+    one) as uint8, as they are exported (``fit`` takes them to the net's
+    dtype exactly)."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+
+    ids = _markov_ids(np, np.random.default_rng(seed), n * CHAR_BATCH, CHAR_SEQ,
+                      CHAR_VOCAB)
+    eye = np.eye(CHAR_VOCAB, dtype=np.uint8)
+    return [DataSet(eye[part], eye[np.roll(part, -1, axis=1)])
+            for part in np.split(ids, n)]
+
+
+def _tree_diff(torch, got, want):
+    """(bit for bit, the worst relative L2 over the leaves) of two
+    nested dicts of tensors."""
+    same, worst = True, 0.0
+    for k, w in want.items():
+        g = got[k]
+        if isinstance(w, dict):
+            s, r = _tree_diff(torch, g, w)
+            same, worst = same and s, max(worst, r)
+            continue
+        same = same and torch.equal(g, w)
+        rel = ((g.float() - w.float()).norm()
+               / w.float().norm().clamp_min(1e-30)).item()
+        worst = max(worst, rel if torch.isfinite(g).all() else float("inf"))
+    return same, worst
+
+
+def _same_run(torch, got, want, exact, what):
+    """Gate two runs' trees: bit for bit where the step is deterministic
+    on this card (``exact``), else within CHAR_GRAD_REL (relative L2)."""
+    same, worst = _tree_diff(torch, got, want)
+    _check(same if exact else worst <= CHAR_GRAD_REL,
+           f"{what}: bit for bit {same}, worst rel L2 {worst}")
+    return worst
+
+
+def _timed(torch, fn, into):
+    """``fn`` wrapped to append each call's wall ms (synchronized) to
+    ``into``."""
+    def wrapper(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        into.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return wrapper
+
+
+def _services_resume(torch, np, data_dir, root, exact):
+    """(a) The 8 exported minibatches through ``ResumableTrainer`` at a
+    checkpoint every 2 steps, uninterrupted, and again preempted after 3
+    and resumed in a fresh trainer and a fresh shuffled iterator: the
+    parameters and the updater state of the two runs equal."""
+    from deeplearning4j_tpu_torch.datasets.export import ExportedDataSetIterator
+    from deeplearning4j_tpu_torch.optimize.resumable import ResumableTrainer
+
+    steps, saves = [], []
+
+    def trainer(directory):
+        t = ResumableTrainer(_service_net(), directory,
+                             checkpoint_every=SERVICE_CKPT_EVERY)
+        t.model.fit = _timed(torch, t.model.fit, steps)
+        t._save = _timed(torch, t._save, saves)
+        return t
+
+    def cursor():
+        return ExportedDataSetIterator(data_dir, shuffle=True, seed=9)
+
+    ref = trainer(os.path.join(root, "uninterrupted"))
+    ref.fit(cursor())
+    first = trainer(os.path.join(root, "preempted"))
+    _check(first.fit(cursor(), max_steps=SERVICE_PREEMPT) == SERVICE_PREEMPT,
+           "the preempted run took other than 3 steps")
+    again = trainer(os.path.join(root, "preempted"))
+    it = cursor()
+    t0 = time.perf_counter()
+    again.resume_or_start(it)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    _check(again.steps_done == SERVICE_PREEMPT and it.state()["position"]
+           == SERVICE_PREEMPT and again.model.device.type == "cuda",
+           f"resume: {again.steps_done} steps, cursor {it.state()}")
+    again.model.fit = _timed(torch, again.model.fit, steps)
+    again.fit(it)
+    worst = _same_run(torch, again.model.params, ref.model.params, exact,
+                      "resumed vs uninterrupted parameters")
+    worst_u = _same_run(torch, again.model.opt_state["updater"],
+                        ref.model.opt_state["updater"], exact,
+                        "resumed vs uninterrupted updater state")
+    unit = os.path.join(root, "uninterrupted", "checkpoint")
+    return dict(steps=len(steps), step_ms=steps, saves=len(saves),
+                save_ms=saves, restore_ms=restore_ms,
+                unit_bytes=sum(os.path.getsize(os.path.join(unit, f))
+                               for f in os.listdir(unit)),
+                params_rel_l2=worst, updater_rel_l2=worst_u)
+
+
+def _services_supervisor(torch, np, batches, plain, exact):
+    """(b) A supervised run over the batches against ``plain`` (the
+    unsupervised run over them); then a batch of NaN features: one
+    rollback, to the snapshot, and the next step at half the rate."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.optimize.supervisor import TrainingSupervisor
+    from deeplearning4j_tpu_torch.util.model_serializer import params_from_numpy
+
+    net = _service_net()
+    sup = TrainingSupervisor(net)
+    for ds in batches:
+        _check(sup.step(ds), "a healthy batch was rolled back")
+    worst = _same_run(torch, net.params, plain.params, exact,
+                      "supervised vs unsupervised parameters")
+    poisoned = DataSet(batches[0].features.astype(np.float32), batches[0].labels)
+    poisoned.features[0, 0, 0] = np.nan
+    before = {l: dict(p) for l, p in net.params.items()}
+    _check(not sup.step(poisoned), "the NaN batch was not rolled back")
+    rep = sup.report()
+    _check(rep["rollbacks"] == 1 and rep["batches_skipped"] == [len(batches)],
+           f"rollbacks: {rep}")
+    same, _ = _tree_diff(torch, net.params, before)
+    _check(same, "the parameters after the rollback are not the snapshot")
+    half = _service_net(lr=0.01 * sup.lr_backoff)
+    params_from_numpy(half, _host_tree(net))
+    half.opt_state = net.opt_state
+    sup.step(batches[1])
+    half.fit(batches[1])
+    worst_half = _same_run(torch, net.params, half.params, exact,
+                           "the step after the rollback vs a step at 0.5 lr")
+    return dict(rollbacks=rep["rollbacks"], batches_skipped=rep["batches_skipped"],
+                lr_scale=rep["lr_scale"], supervised_rel_l2=worst,
+                after_rollback_rel_l2=worst_half)
+
+
+def _services_early_stopping(torch, np, data_dir, held_out, exact):
+    """(c) ``EarlyStoppingTrainer`` for 3 epochs over the exported
+    batches, scored on held-out minibatches of the same chain: the best
+    model's held-out
+    score equals the best score the trainer recorded (bit for bit where
+    the step is deterministic, else within 1e-6 relative)."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.datasets.export import ExportedDataSetIterator
+    from deeplearning4j_tpu_torch.datasets.iterators import ListDataSetIterator
+    from deeplearning4j_tpu_torch.earlystopping import (
+        DataSetLossCalculator,
+        EarlyStoppingConfiguration,
+        EarlyStoppingTrainer,
+        InMemoryModelSaver,
+        MaxEpochsTerminationCondition,
+        ScoreImprovementEpochTerminationCondition,
+    )
+
+    held = DataSet(np.concatenate([d.features for d in held_out]),
+                   np.concatenate([d.labels for d in held_out]))
+    calc = lambda: DataSetLossCalculator(  # noqa: E731
+        ListDataSetIterator(held, CHAR_BATCH))
+    net = _service_net()
+    cfg = EarlyStoppingConfiguration(
+        epoch_termination_conditions=[
+            MaxEpochsTerminationCondition(SERVICE_EPOCHS),
+            ScoreImprovementEpochTerminationCondition(2)],
+        score_calculator=calc(), model_saver=InMemoryModelSaver())
+    t0 = time.perf_counter()
+    res = EarlyStoppingTrainer(cfg, net, ExportedDataSetIterator(data_dir)).fit()
+    es_s = time.perf_counter() - t0
+    best = calc().calculate_score(res.best_model)
+    rel = abs(best - res.best_model_score) / abs(res.best_model_score)
+    _check(res.best_model is not net and (rel == 0.0 if exact else rel <= 1e-6),
+           f"the best model scores {best} on the held-out set, the trainer "
+           f"recorded {res.best_model_score}")
+    return dict(total_epochs=res.total_epochs, best_epoch=res.best_model_epoch,
+                best_score=res.best_model_score, best_model_rescored=best,
+                termination=f"{res.termination_reason}/{res.termination_details}",
+                seconds=es_s)
+
+
+def _services_deferred(torch, np, batches, exact):
+    """(d) 20 steps in one ``fit`` with a listener of frequency 5 and
+    with one of frequency 1: the same scores at the listener's
+    iterations, and 4 fetches (plus the end of fit's call) against 20."""
+    from deeplearning4j_tpu_torch.optimize import CollectScoresIterationListener
+    from deeplearning4j_tpu_torch.optimize.deferred import score_sink
+
+    stream = [batches[i % len(batches)] for i in range(SERVICE_STEPS)]
+    runs = {}
+    for freq in (1, SERVICE_FREQUENCY):
+        net = _service_net()
+        listener = CollectScoresIterationListener(freq)
+        net.set_listeners(listener)
+        sink = score_sink(net)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(stream)
+        torch.cuda.synchronize()
+        runs[freq] = dict(scores=listener.scores, flushes=sink.flushes,
+                          flush_calls=sink.flush_calls,
+                          host_ms_per_step=(time.perf_counter() - t0) * 1e3
+                          / SERVICE_STEPS)
+    every, sparse = runs[1], runs[SERVICE_FREQUENCY]
+    want = [(i, s) for i, s in every["scores"] if i % SERVICE_FREQUENCY == 0]
+    _check(len(every["scores"]) == SERVICE_STEPS and len(sparse["scores"])
+           == len(want) == SERVICE_STEPS // SERVICE_FREQUENCY,
+           f"listener iterations {sparse['scores']} vs {want}")
+    worst = max(abs(a[1] - b[1]) for a, b in zip(sparse["scores"], want))
+    _check([i for i, _ in sparse["scores"]] == [i for i, _ in want]
+           and (worst == 0.0 if exact else worst <= CHAR_LOSS_TOL),
+           f"frequency {SERVICE_FREQUENCY} scores {sparse['scores']} vs {want}")
+    _check((sparse["flushes"], sparse["flush_calls"]) ==
+           (SERVICE_STEPS // SERVICE_FREQUENCY, SERVICE_STEPS // SERVICE_FREQUENCY + 1)
+           and every["flushes"] == SERVICE_STEPS,
+           f"fetches: frequency {SERVICE_FREQUENCY} {sparse['flushes']} "
+           f"({sparse['flush_calls']} calls), frequency 1 {every['flushes']}")
+    return dict(host_ms_per_step_frequency_1=every["host_ms_per_step"],
+                host_ms_per_step_frequency_5=sparse["host_ms_per_step"],
+                fetches_frequency_1=every["flushes"],
+                fetches_frequency_5=sparse["flushes"],
+                flush_calls_frequency_5=sparse["flush_calls"],
+                score_max_abs_diff=worst)
+
+
+def _services_solver(torch, np, kernels, lk):
+    """(e) ``Solver`` with ``lbfgs`` on the f32 char-RNN example: the
+    oracle's first gradient through the kernels against the plain
+    versions' (EXAMPLE_GRAD_REL), the f32 LSTM kernels launched, and a
+    loss that falls over SOLVER_ITERATIONS iterations."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.optimize.solvers import Solver, _FlatOracle
+    from deeplearning4j_tpu_torch.util.model_serializer import params_from_numpy
+
+    net = _char_rnn_example("lbfgs")
+    params_from_numpy(net, _random_params(net, seed=41))
+    ids = _markov_ids(np, np.random.default_rng(42), EXAMPLE_BATCH,
+                      EXAMPLE_SEQ, EXAMPLE_VOCAB)
+    eye = np.eye(EXAMPLE_VOCAB, dtype=np.float32)
+    ds = DataSet(eye[ids], eye[np.roll(ids, -1, axis=1)])
+    oracle = _FlatOracle(net, ds)
+    _check(oracle.dtype == torch.float32, f"the oracle runs in {oracle.dtype}")
+    kernels.reset_launches()
+    f0, g = oracle.value_and_grad(oracle.flat0)
+    grad_launches = _lstm_launches(kernels, lk)
+    want = {lk.FWD_ONLY_KERNEL: 0, lk.FWD_KERNEL: 1, lk.BWD_KERNEL: 1,
+            lk.DW_KERNEL: 1}
+    _check(grad_launches == want, f"the oracle's gradient launched "
+           f"{grad_launches}, expected {want}")
+    with _plain_lstm(lk):
+        f0_p, g_p = oracle.value_and_grad(oracle.flat0)
+    as_tree = lambda v: oracle.unravel(torch.as_tensor(v))  # noqa: E731
+    worst, at = _grad_rel(torch, as_tree(g), as_tree(g_p))
+    _check(worst <= EXAMPLE_GRAD_REL and abs(f0 - f0_p) <= EXAMPLE_LOSS_REL * abs(f0_p),
+           f"the oracle's gradient {at} kernels vs plain: rel L2 {worst}, "
+           f"loss {f0} vs {f0_p}")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    f = Solver(net).optimize(ds, iterations=SOLVER_ITERATIONS)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    launches = _lstm_launches(kernels, lk)
+    _check(np.isfinite(f) and f < f0, f"lbfgs: loss {f0} -> {f}")
+    _check(all(launches[k] > 0 for k in (lk.FWD_KERNEL, lk.BWD_KERNEL,
+                                         lk.DW_KERNEL)),
+           f"lbfgs launched {launches}")
+    return dict(loss_first=f0, loss_last=f, iterations=SOLVER_ITERATIONS,
+                solve_ms=solve_s * 1e3,
+                ms_per_iteration=solve_s * 1e3 / SOLVER_ITERATIONS,
+                first_grad_rel_l2_vs_plain=worst, first_grad_worst_at=at,
+                oracle_grad_launches=grad_launches, launches=launches)
+
+
+def phase_services(torch, np, kernels, lk):
+    """Phase 12: the training services on phase 6's char-RNN at full
+    width, and the classic solver on the f32 example. Returns its
+    metrics; ``launches`` are the LSTM kernels' over (a)-(d)."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.datasets.export import export_dataset
+
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+
+    # one Markov chain: 8 minibatches to train on, 2 held out
+    stored = _service_batches(np, SERVICE_BATCHES + 2, 32)
+    stored, held_out = stored[:SERVICE_BATCHES], stored[SERVICE_BATCHES:]
+    # the runs from memory take f32 batches, as phase 6's fit does
+    batches = [DataSet(d.features.astype(np.float32),
+                       d.labels.astype(np.float32)) for d in stored]
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_services_") as root:
+        data_dir = os.path.join(root, "data")
+        t0 = time.perf_counter()
+        export_dataset(stored, data_dir)
+        out["export_ms"] = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        # two identical runs of phase 6's step over the batches: the gates
+        # below are bit for bit where these agree bit for bit
+        plain, twin = _service_net(), _service_net()
+        for ds in batches:
+            plain.fit(ds)
+            twin.fit(ds)
+        exact, worst = _tree_diff(torch, twin.params, plain.params)
+        out["deterministic"] = dict(bit_for_bit=exact, rel_l2=worst)
+        del twin
+        _say(f"phase 12: two runs of the step bit for bit: {exact} "
+             f"(rel L2 {worst})")
+        out["resume"] = _services_resume(torch, np, data_dir, root, exact)
+        r = out["resume"]
+        _say(f"phase 12 (a): preempted at {SERVICE_PREEMPT} and resumed equals "
+             f"the uninterrupted run; {r['saves']} saves, median "
+             f"{statistics.median(r['save_ms']):.1f} ms, restore "
+             f"{r['restore_ms']:.1f} ms, unit {r['unit_bytes']} bytes")
+        out["supervisor"] = _services_supervisor(torch, np, batches, plain, exact)
+        del plain
+        _say("phase 12 (b): supervised run as the plain one; one rollback to "
+             "the snapshot, the next step at 0.5 lr")
+        out["early_stopping"] = _services_early_stopping(torch, np, data_dir,
+                                                         held_out, exact)
+        _say(f"phase 12 (c): early stopping, best epoch "
+             f"{out['early_stopping']['best_epoch']} of "
+             f"{out['early_stopping']['total_epochs']}")
+    out["deferred"] = _services_deferred(torch, np, batches, exact)
+    torch.cuda.synchronize()
+    out["launches"] = launches = _lstm_launches(kernels, lk)
+    _check(all(launches[k] > 0 for k in (lk.FWD_KERNEL, lk.BWD_KERNEL,
+                                         lk.DW_KERNEL, lk.FWD_ONLY_KERNEL)),
+           f"the services' runs launched {launches}")
+    d = out["deferred"]
+    _say(f"phase 12 (d): host ms per step {d['host_ms_per_step_frequency_1']:.2f} "
+         f"(frequency 1) and {d['host_ms_per_step_frequency_5']:.2f} "
+         f"(frequency 5), {d['fetches_frequency_5']} fetches against "
+         f"{d['fetches_frequency_1']}")
+    out["solver"] = _services_solver(torch, np, kernels, lk)
+    s = out["solver"]
+    _say(f"phase 12 (e): lbfgs loss {s['loss_first']:.4f} -> "
+         f"{s['loss_last']:.4f} in {s['solve_ms']:.0f} ms")
+    print("services " + json.dumps(dict(out, card=_card())), flush=True)
+    return out
+
+
+def _service_launches(entries, done):
+    """Each kernel's launches in phase 12: over the services' runs (a)-(d)
+    on the bf16 char-RNN, and over the f32 example's ``lbfgs`` solve."""
+    m = done["12"]
+    for e in entries:
+        e["services_launches"] = m["launches"].get(e["name"], 0)
+        e["solver_launches"] = m["solver"]["launches"].get(e["name"], 0)
+    return entries
+
+
+PHASES = ("2", "2b", "3", "4", "5", "6", "7", "8", "9", "10", "11", "12")
 # source -> its bf16 kernels, each of whose instantiations must not spill:
 # the mma.sync designs keep their tiles, sums and (LSTM) cell state in
 # registers
@@ -3754,13 +4170,22 @@ def main(argv) -> int:
              f"{m['ttft_ms_p90']:.1f} ms, busy {m['device_busy_share']:.3f}, "
              f"{m['preemptions']} preemptions on the small pool on {card}",
              flush=True)
+    if "12" in phases:  # the training services on the char-RNN
+        print(f"clocks: {_clocks()}", flush=True)
+        m = done["12"] = phase_services(torch, np, kernels, lk)
+        r, d = m["resume"], m["deferred"]
+        _say(f"phase 12: resume, supervisor, early stopping, deferred scores "
+             f"({d['fetches_frequency_5']} fetches for {SERVICE_STEPS} steps) "
+             f"and lbfgs on the card; checkpoint save median "
+             f"{statistics.median(r['save_ms']):.1f} ms on {card}", flush=True)
     if phases != PHASES:
         print(f"chip_smoke: ran phases 0, 1, {', '.join(phases)} only; "
               "no result", flush=True)
         return 0
 
-    summary = {"kernels": _paged_launches(_layer_launches(_path_launches(
-        _flash_summary(done) + _lstm_summary(done, lk), done), done), done)}
+    summary = {"kernels": _service_launches(_paged_launches(_layer_launches(
+        _path_launches(_flash_summary(done) + _lstm_summary(done, lk), done),
+        done), done), done)}
     print(card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

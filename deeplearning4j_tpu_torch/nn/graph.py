@@ -56,6 +56,7 @@ from deeplearning4j_tpu_torch.nn.multilayer import (
     update_specs,
 )
 from deeplearning4j_tpu_torch.nn.updater import init_updater_state
+from deeplearning4j_tpu_torch.optimize.deferred import score_sink
 from deeplearning4j_tpu_torch.util.device import DeviceLike, resolve_device
 from deeplearning4j_tpu_torch.util.dtypes import (
     cast_floats,
@@ -291,8 +292,11 @@ class ComputationGraph:
         return self
 
     def set_listeners(self, *listeners) -> None:
-        """Callables ``(graph, iteration, score)``, called after every
-        training step with the step's number (from 1) and score."""
+        """Callables ``(graph, iteration, score)``, called for every
+        training step with the step's number (from 1) and score; the
+        scores are fetched in batches (``optimize/deferred.py``), so the
+        calls arrive when a listener's frequency or the end of ``fit``
+        asks."""
         self.listeners = list(listeners)
 
     def cast_params(self, params: Params) -> Params:
@@ -421,20 +425,23 @@ class ComputationGraph:
         refuse_quantized(self)
         if self.params is None:
             self.init()
-        if self.conf.pretrain and not self._pretrained:
-            self.pretrain(data, batch_size=batch_size)
-            self._pretrained = True
-        if isinstance(data, (DataSet, MultiDataSet)):
-            mds = self._to_mds(data)
-            if batch_size is None:
-                mds = self._device_mds(mds)
-                for _ in range(epochs):
-                    self._fit_batch(mds)
-                return
-            data = ListMultiDataSetIterator(mds, batch_size)
-        for _ in range(epochs):
-            for mds in data:
-                self._fit_batch(self._to_mds(mds))
+        try:
+            if self.conf.pretrain and not self._pretrained:
+                self.pretrain(data, batch_size=batch_size)
+                self._pretrained = True
+            if isinstance(data, (DataSet, MultiDataSet)):
+                mds = self._to_mds(data)
+                if batch_size is None:
+                    mds = self._device_mds(mds)
+                    for _ in range(epochs):
+                        self._fit_batch(mds)
+                    return
+                data = ListMultiDataSetIterator(mds, batch_size)
+            for _ in range(epochs):
+                for mds in data:
+                    self._fit_batch(self._to_mds(mds))
+        finally:
+            score_sink(self).flush()
 
     def pretrain(self, data, epochs: int = 1,
                  batch_size: Optional[int] = None) -> Dict[str, float]:
@@ -490,12 +497,10 @@ class ComputationGraph:
             self._fit_tbptt(mds)
             return
         inputs, labels, fmasks, lmasks = self._tensors(mds)
+        sink = score_sink(self)
         for _ in range(max(1, self.gc.iterations)):
-            self._score = self._train_step(inputs, labels, fmasks, lmasks)
-            if self.listeners:
-                score = float(self._score)
-                for cb in self.listeners:
-                    cb(self, self.opt_state["step"], score)
+            score = self._train_step(inputs, labels, fmasks, lmasks)
+            sink.push(self.opt_state["step"], score)  # fetched in batches
 
     # ----------------------------------------------------------- tbptt
 

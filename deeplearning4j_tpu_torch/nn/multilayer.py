@@ -15,7 +15,8 @@ carries crossing them as state; ``rnn_time_step`` streams one timestep
 (or a burst, step by step) with the carries kept between calls. The
 forward and the score return the layers' new states (BN's moving
 statistics, the LSTM carries), cast back to the stored dtypes; listeners
-(``set_listeners``) see every step's score. ``stage_scan`` puts a
+(``set_listeners``) see every step's score, fetched from the device in
+batches (``optimize/deferred.py``). ``stage_scan`` puts a
 dataset on the device once as ``[steps, batch, ...]`` stacks and
 ``fit_scan`` trains over them for whole epochs through the same step,
 keeping every step's score in one device tensor that is fetched at the
@@ -58,6 +59,7 @@ from deeplearning4j_tpu_torch.nn.updater import (
     init_updater_state,
     normalize_gradient,
 )
+from deeplearning4j_tpu_torch.optimize.deferred import score_sink
 from deeplearning4j_tpu_torch.util.device import DeviceLike, resolve_device
 from deeplearning4j_tpu_torch.util.dtypes import (
     cast_floats,
@@ -172,10 +174,12 @@ class MultiLayerNetwork:
         return self
 
     def set_listeners(self, *listeners) -> None:
-        """Callables ``(net, iteration, score)``, called after every
+        """Callables ``(net, iteration, score)``, called for every
         training step with the step's number (from 1) and score, and
         after each layer's pretraining with its step count and last
-        loss."""
+        loss. The step scores are fetched in batches
+        (``optimize/deferred.py``): the calls arrive when a listener's
+        frequency, the ring's capacity or the end of ``fit`` asks."""
         self.listeners = list(listeners)
 
     def cast_params(self, params: Params) -> Params:
@@ -360,16 +364,19 @@ class MultiLayerNetwork:
             self.init()
         if isinstance(data, np.ndarray):
             data = DataSet(data, labels)
-        if self.conf.pretrain and not self._pretrained:
-            self.pretrain(data, batch_size=batch_size)
-            self._pretrained = True
-        if isinstance(data, DataSet):
-            if batch_size is None:
-                self._fit_batch(data)
-                return
-            data = ListDataSetIterator(data, batch_size)
-        for ds in data:
-            self._fit_batch(ds)
+        try:
+            if self.conf.pretrain and not self._pretrained:
+                self.pretrain(data, batch_size=batch_size)
+                self._pretrained = True
+            if isinstance(data, DataSet):
+                if batch_size is None:
+                    self._fit_batch(data)
+                    return
+                data = ListDataSetIterator(data, batch_size)
+            for ds in data:
+                self._fit_batch(ds)
+        finally:
+            score_sink(self).flush()
 
     def _pretrain_step(self, i: int, ustate: Dict[str, Any], it: int,
                        x: torch.Tensor, rng: int):
@@ -435,12 +442,12 @@ class MultiLayerNetwork:
             self._fit_tbptt(ds)
             return
         x, y, fm, lm = self._batch(ds)
+        sink = score_sink(self)
         for _ in range(max(1, self.gc.iterations)):
-            self._score = self._train_step(x, y, fm, lm)
-            if self.listeners:
-                score = float(self._score)
-                for cb in self.listeners:
-                    cb(self, self.opt_state["step"], score)
+            score = self._train_step(x, y, fm, lm)
+            # the score stays on the device until a listener's frequency,
+            # the ring's capacity or the end of fit() asks for it
+            sink.push(self.opt_state["step"], score)
 
     # ------------------------------------------------------ scanned fit
 
@@ -629,6 +636,20 @@ class MultiLayerNetwork:
     def num_params(self) -> int:
         return sum(t.numel() for p in self.params.values() for t in p.values())
 
+    def clone(self) -> "MultiLayerNetwork":
+        """A second net on the same configuration and device holding the
+        same parameters, states and updater state. The trees are new
+        dicts around the same tensors: no training op writes a tensor in
+        place (each step builds new ones), so the copy stays as it was
+        while this net trains on."""
+        other = MultiLayerNetwork(self.conf, device=self.device)
+        if self.params is not None:
+            other._dtype = self._dtype
+            other.params = _tree_copy(self.params)
+            other.states = _tree_copy(self.states)
+            other.opt_state = _tree_copy(self.opt_state)
+        return other
+
     def generate(self, prompt_ids, max_new_tokens: int, **kwargs) -> np.ndarray:
         """Autoregressive generation (``nn/generate.py``): for a GPT
         stack a bucketed prefill through the flash kernel, then a
@@ -691,6 +712,13 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
     if t.dtype in (torch.bfloat16, torch.float16):
         t = t.float()
     return t.cpu().numpy()
+
+
+def _tree_copy(tree: Any) -> Any:
+    """New dicts around the same leaves."""
+    if isinstance(tree, dict):
+        return {k: _tree_copy(v) for k, v in tree.items()}
+    return tree
 
 
 def _detach(tree: Any) -> Any:

@@ -62,6 +62,21 @@ def _crc32(data: bytes) -> int:
     return zlib.crc32(data) & 0xFFFFFFFF
 
 
+def fsync_dir(path: str) -> None:
+    """fsync a directory, so that a rename into it survives a power
+    loss (a no-op where the filesystem gives no directory handle)."""
+    try:
+        fd = os.open(path, os.O_RDONLY)
+    except OSError:
+        return
+    try:
+        os.fsync(fd)
+    except OSError:
+        pass
+    finally:
+        os.close(fd)
+
+
 def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
     out = {}
     for k, v in tree.items():
@@ -231,7 +246,7 @@ def model_from_payload(payload: dict, device: DeviceLike = None) -> Model:
 
 def write_model(model: Model, path: str, save_updater: bool = True) -> None:
     """Write ``model`` as a zip the reference's restore functions load:
-    temp file, fsync, rename."""
+    temp file, fsync, rename, fsync of the directory."""
     payload = config_payload(model)
     members: Dict[str, bytes] = {
         "configuration.json": json.dumps(payload, indent=2).encode(),
@@ -258,6 +273,7 @@ def write_model(model: Model, path: str, save_updater: bool = True) -> None:
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
+    fsync_dir(os.path.dirname(path))
 
 
 def _verify(z: zipfile.ZipFile, path: str) -> None:

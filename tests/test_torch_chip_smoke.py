@@ -1417,11 +1417,13 @@ def test_gpt_graph_generates_as_the_network():
 
 
 def test_layers_phase_is_the_last_and_runs_alone():
-    """Phase 10 (the rest of the layer library) is the last phase before
-    phase 11 (paged serving), and each can be asked for alone."""
-    assert chip_smoke.PHASES[-2:] == ("10", "11")
+    """Phase 10 (the rest of the layer library) comes before phase 11
+    (paged serving) and phase 12 (the training services), the last; each
+    can be asked for alone."""
+    assert chip_smoke.PHASES[-3:] == ("10", "11", "12")
     assert chip_smoke._phases(["--only", "10"]) == ("10",)
     assert chip_smoke._phases(["--only", "11"]) == ("11",)
+    assert chip_smoke._phases(["--only", "12"]) == ("12",)
     assert chip_smoke.MOE_TRAIN == dict(chip_smoke.TRAIN, num_experts=8,
                                         capacity_factor=1.25,
                                         aux_loss_weight=0.01)
@@ -1564,3 +1566,43 @@ def test_parity_passes_near_ties_and_fails_wide_gaps(tiny_net, capsys):
     assert ties[0]["position"] == 4 and ties[0]["gap"] == pytest.approx(
         chip_smoke._eager_gap(torch, tiny_net, prompts[1],
                               parted[1][0, 5:9]), abs=1e-6)
+
+
+def test_service_launches_add_phase_12s_counts():
+    done = {"12": {"launches": {"lstm_fwd": 40, "lstm_fwd_only": 6},
+                   "solver": {"launches": {"lstm_fwd": 11, "lstm_dw": 11}}}}
+    got = chip_smoke._service_launches([{"name": "lstm_fwd"},
+                                        {"name": "flash_fwd"}], done)
+    assert got == [{"name": "lstm_fwd", "services_launches": 40,
+                    "solver_launches": 11},
+                   {"name": "flash_fwd", "services_launches": 0,
+                    "solver_launches": 0}]
+
+
+def test_service_runs_are_gated_bit_for_bit_where_the_step_is():
+    """Phase 12 holds two runs bit for bit where two identical runs of
+    the step agreed bit for bit, else within CHAR_GRAD_REL."""
+    import torch
+    a = {"layer0": {"W": torch.ones(3), "m": {"v": torch.zeros(2)}}}
+    b = {"layer0": {"W": torch.ones(3) * (1 + 1e-3), "m": {"v": torch.zeros(2)}}}
+    assert chip_smoke._tree_diff(torch, a, a) == (True, 0.0)
+    same, rel = chip_smoke._tree_diff(torch, b, a)
+    assert not same and rel == pytest.approx(1e-3, rel=1e-3)
+    assert chip_smoke._same_run(torch, b, a, False, "w") == rel
+    with pytest.raises(RuntimeError, match="bit for bit False"):
+        chip_smoke._same_run(torch, b, a, True, "w")
+    nan = {"layer0": {"W": torch.full((3,), float("nan")), "m": {"v": torch.zeros(2)}}}
+    with pytest.raises(RuntimeError, match="inf"):
+        chip_smoke._same_run(torch, nan, a, False, "w")
+
+
+def test_service_batches_are_phase_6s_shape_in_uint8(monkeypatch):
+    monkeypatch.setattr(chip_smoke, "CHAR_BATCH", 4)
+    monkeypatch.setattr(chip_smoke, "CHAR_SEQ", 5)
+    batches = chip_smoke._service_batches(np, 3, 32)
+    assert len(batches) == 3
+    for ds in batches:
+        assert ds.features.shape == ds.labels.shape == (4, 5, chip_smoke.CHAR_VOCAB)
+        assert ds.features.dtype == np.uint8 and (ds.features.sum(-1) == 1).all()
+        np.testing.assert_array_equal(ds.labels.argmax(-1),
+                                      np.roll(ds.features.argmax(-1), -1, axis=1))

@@ -176,3 +176,27 @@ def test_serving_slice_modules_are_scanned():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         PagedKVCachePool(2, 4, 1, 1, 8)
     assert PagedKVCachePool(2, 4, 1, 1, 8, device="cpu").device.type == "cpu"
+
+
+def test_training_services_modules_are_scanned(tmp_path):
+    """The training services' modules are among what the scans cover; a
+    model saver that saved nothing in this process restores on the
+    card, never silently on the CPU."""
+    mods = _modules()
+    for name in ("optimize", "optimize.deferred", "optimize.training_stats",
+                 "optimize.solvers", "optimize.supervisor",
+                 "optimize.resumable", "earlystopping",
+                 "earlystopping.earlystopping", "datasets.export",
+                 "eval.roc", "eval.regression"):
+        assert f"deeplearning4j_tpu_torch.{name}" in mods, name
+    from deeplearning4j_tpu_torch.earlystopping import LocalFileModelSaver
+    path = str(tmp_path / "bestModel.zip")
+    size = dict(vocab_size=16, d_model=16, n_layers=1, num_heads=2,
+                max_len=16, compute_dtype="float32")
+    model_serializer.write_model(gpt(device="cpu", **size).init(), path)
+    saver = LocalFileModelSaver(str(tmp_path))
+    if torch.cuda.is_available():
+        assert saver.get_best_model().device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        saver.get_best_model()
