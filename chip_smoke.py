@@ -290,12 +290,37 @@ Phases (any failure ends the run with a non-zero exit and no result):
    ``lstm_bwd``, ``lstm_dw``) against the plain versions within
    ``EXAMPLE_GRAD_REL``, the f32 kernels launched by the solve, and a
    loss that falls (``services`` line).
+13. the feed pipeline (``phase_feed``): both containers' ``fit`` on an
+   iterator wrap it in the shape bucketing, the host prefetch and the
+   device staging (pinned host memory, a side stream, an event the step
+   waits on). (a) phase 6's char-RNN (bf16, b 1024, seq 128, seed-31
+   weights) over 8 full minibatches and a ragged tail of 300 rows, one
+   ``fit`` with the pipeline off and one with it on from the same
+   weights: the 8 full steps' scores and the parameters after them
+   equal bit for bit; the tail step with the pipeline is the tail padded
+   to 1024 rows with a [1024, 128] labels mask and launches
+   ``lstm_fwd``, ``lstm_bwd`` and ``lstm_dw`` twice each; its score
+   within ``CHAR_LOSS_TOL`` and its update within ``CHAR_GRAD_REL``
+   (relative L2) of the unpadded tail's; the host ms per step both
+   ways, the busy share of a steady window of pipelined steps and the
+   stream and time of the staging copy. (b) phase 4's GPT (seed-11
+   weights) over 4 full minibatches of 16, pipeline off and on: scores
+   and parameters bit for bit, 8 launches of each flash kernel per
+   step. (c) the native IO library built from the checkout's source
+   (fails on the NumPy fallback): ``csv_read_floats``, ``gather_rows``
+   (plain and fused with the standardization) and ``one_hot`` equal
+   their NumPy forms bit for bit on 8192 x 3072 (the CSV holds exact
+   binary fractions), timed both ways; then the Iris CSV through
+   ``CSVRecordReader``, ``RecordReaderDataSetIterator`` and a fitted
+   ``NormalizerStandardize`` trains phase 8's MLP-Iris for 20 steps
+   through the pipeline, and its loss falls (``feed`` line).
 
 Phase 2's rows carry their wall time (``row_s``) and each phase line
 the time since the start (``[t ... s]``); the kernels line gives each
 kernel its launches per step on the fit_scan paths, on phase 9's
 graph generate paths, on phase 10's paths, on phase 11's serve and in
-phase 12 (``services_launches``, ``solver_launches``).
+phase 12 (``services_launches``, ``solver_launches``) and in phase 13's
+pipelined runs (``feed_launches``).
 
 The last lines are the card's name and power limit, one JSON object
 with every kernel's numbers, and ``{"ok": true, "device": {...}}``
@@ -314,6 +339,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 # bf16 products on the tensor cores; f32 products in full f32 (no TF32)
@@ -3961,7 +3987,364 @@ def _service_launches(entries, done):
     return entries
 
 
-PHASES = ("2", "2b", "3", "4", "5", "6", "7", "8", "9", "10", "11", "12")
+# phase 13: the feed pipeline. (a) phase 6's char-RNN over FEED_FULL
+# minibatches of CHAR_BATCH and a ragged tail of FEED_TAIL rows; (b)
+# phase 4's GPT over FEED_GPT minibatches of TRAIN_BATCH; (c) the native
+# IO arrays (FEED_ROWS x FEED_COLS f32, and ids over FEED_COLS classes),
+# and MLP-Iris through the Iris CSV for FEED_IRIS_STEPS steps of
+# FEED_IRIS_BATCH (4 full and a padded tail of 22 an epoch); the
+# pipelined steps left out of the busy share's window
+FEED_FULL, FEED_TAIL, FEED_GPT = 8, 300, 4
+FEED_ROWS, FEED_COLS = 8192, 3072
+FEED_IRIS_BATCH, FEED_IRIS_STEPS = 32, 20
+FEED_SKIP = 2
+
+
+def _feed_run(torch, net, it, pipeline, snapshot_at=None):
+    """``net.fit(it, feed_pipeline=pipeline)``, each step timed on the
+    host up to the end of its work on the compute stream; returns each
+    step's (score, host ms, rows, labels-mask shape, launches) and the
+    parameters before step ``snapshot_at`` + 1 (cloned)."""
+    from deeplearning4j_tpu_torch import kernels
+
+    steps, snap = [], {}
+    inner = net._fit_batch
+
+    def step(ds):
+        if net.opt_state["step"] == snapshot_at:
+            snap["params"] = {k: {n: t.clone() for n, t in v.items()}
+                              for k, v in net.params.items()}
+        before = collections.Counter(kernels.LAUNCHES)
+        stream = torch.cuda.current_stream()
+        stream.synchronize()
+        t0 = time.perf_counter()
+        inner(ds)
+        stream.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        lm = ds.labels_mask
+        steps.append(dict(score=float(net._score), host_ms=ms,
+                          rows=int(ds.features.shape[0]),
+                          labels_mask=None if lm is None else list(lm.shape),
+                          launches=dict(kernels.LAUNCHES - before)))
+
+    net._fit_batch = step
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(it, feed_pipeline=pipeline)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        del net._fit_batch
+    return steps, snap.get("params"), wall_ms
+
+
+def _feed_profile(torch, fn, first):
+    """One torch.profiler trace of ``fn`` (a pipelined ``fit``): the
+    compute stream's (the LSTM kernels') busy share over a steady window,
+    from the start of its ``first``-th ``lstm_fwd_kernel`` event (0-based)
+    to the end of its last event, the window's ms, the LSTM forward
+    events kept, and each host-to-device copy name's streams, count and
+    median ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    fwd = sorted((e for e in dev if "lstm_fwd_kernel" in e.name),
+                 key=lambda e: e.time_range.start)
+    _check(len(fwd) > first, f"the profile kept {len(fwd)} lstm_fwd_kernel events")
+    stream, t0 = fwd[0].device_resource_id, fwd[first].time_range.start
+    on = [e for e in dev if e.device_resource_id == stream and e.time_range.end > t0]
+    t1 = max(e.time_range.end for e in on)
+    busy = sum(e.time_range.end - max(e.time_range.start, t0) for e in on)
+    copies = collections.defaultdict(list)
+    for e in dev:
+        if "Memcpy HtoD" in e.name:
+            copies[e.name].append((e.device_resource_id,
+                                   (e.time_range.end - e.time_range.start) / 1e3))
+    return dict(busy_share=busy / (t1 - t0), window_ms=(t1 - t0) / 1e3,
+                lstm_fwd_events=len(fwd), compute_stream=stream,
+                copies={name: dict(streams=sorted({st for st, _ in v}),
+                                   count=len(v),
+                                   ms_each_median=statistics.median(
+                                       ms for _, ms in v))
+                        for name, v in copies.items()})
+
+
+def _feed_char(torch, np, kernels, lk):
+    """Phase 13 (a): the char-RNN through the pipeline, off and on."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterators import ListDataSetIterator
+    from deeplearning4j_tpu_torch.datasets.staging import stager_of
+
+    n = FEED_FULL * CHAR_BATCH + FEED_TAIL
+    ids = _markov_ids(np, np.random.default_rng(35), n, CHAR_SEQ)
+    eye = np.eye(CHAR_VOCAB, dtype=np.float32)
+    ds = DataSet(eye[ids], eye[np.roll(ids, -1, axis=1)])
+    runs = {}
+    for pipeline in (False, True):
+        net = _service_net()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        steps, snap, wall = _feed_run(torch, net, ListDataSetIterator(ds, CHAR_BATCH),
+                                      pipeline, snapshot_at=FEED_FULL)
+        runs[pipeline] = dict(steps=steps, snap=snap, wall=wall, net=net,
+                              launches=_lstm_launches(kernels, lk))
+    off, on = runs[False], runs[True]
+    _check(len(off["steps"]) == len(on["steps"]) == FEED_FULL + 1,
+           f"steps {len(off['steps'])}, {len(on['steps'])}")
+    _check([s["score"] for s in on["steps"][:FEED_FULL]]
+           == [s["score"] for s in off["steps"][:FEED_FULL]],
+           "pipelined scores over the full steps are not the plain fit's: "
+           f"{[s['score'] for s in on['steps']]} vs "
+           f"{[s['score'] for s in off['steps']]}")
+    same, worst = _tree_diff(torch, on["snap"], off["snap"])
+    _check(same, f"parameters after {FEED_FULL} steps differ (rel L2 {worst})")
+    t_on, t_off = on["steps"][-1], off["steps"][-1]
+    _check(t_on["rows"] == CHAR_BATCH and t_on["labels_mask"] == [CHAR_BATCH, CHAR_SEQ]
+           and t_off["rows"] == FEED_TAIL and t_off["labels_mask"] is None,
+           f"tail steps: pipelined {t_on}, plain {t_off}")
+    want = {lk.FWD_KERNEL: 2, lk.BWD_KERNEL: 2, lk.DW_KERNEL: 2}
+    _check(all(t_on["launches"].get(k, 0) == v for k, v in want.items()),
+           f"the padded tail step launched {t_on['launches']}, expected {want}")
+    tail_score_diff = abs(t_on["score"] - t_off["score"])
+    _check(tail_score_diff <= CHAR_LOSS_TOL,
+           f"tail score padded {t_on['score']} vs unpadded {t_off['score']}")
+    upd_on = {k: {n: on["net"].params[k][n] - t for n, t in v.items()}
+              for k, v in on["snap"].items()}
+    upd_off = {k: {n: off["net"].params[k][n] - t for n, t in v.items()}
+               for k, v in off["snap"].items()}
+    upd_bits, upd_rel = _tree_diff(torch, upd_on, upd_off)
+    _check(upd_rel <= CHAR_GRAD_REL,
+           f"tail update padded vs unpadded: rel L2 {upd_rel}")
+    del upd_on, upd_off, off["net"], off["snap"], on["snap"]
+
+    # the full batches again in one pipelined fit, unsynchronized: its
+    # wall time, and from a profile the compute stream's busy share from
+    # step FEED_SKIP + 1 on and where the staging copies ran
+    net = on["net"]
+    full = DataSet(ds.features[:FEED_FULL * CHAR_BATCH],
+                   ds.labels[:FEED_FULL * CHAR_BATCH])
+
+    def pipelined():
+        net.fit(ListDataSetIterator(full, CHAR_BATCH))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipelined()
+    torch.cuda.synchronize()
+    fit_ms = (time.perf_counter() - t0) * 1e3
+    trace = _feed_profile(torch, pipelined, 2 * FEED_SKIP)
+    stager = stager_of(net)
+    _check(stager.stream is not None and stager.copies > 0
+           and stager.stream != torch.cuda.current_stream(),
+           "the staging copies did not run on the feed's own stream")
+    host = lambda run: [round(s["host_ms"], 3) for s in run["steps"]]  # noqa: E731
+    return dict(
+        steps=FEED_FULL + 1, rows=n, scores_bit_for_bit=True,
+        params_bit_for_bit=True, tail_rows=[t_on["rows"], t_off["rows"]],
+        tail_labels_mask=t_on["labels_mask"], tail_launches=t_on["launches"],
+        tail_score=[t_on["score"], t_off["score"]],
+        tail_score_diff=tail_score_diff, tail_update_rel_l2=upd_rel,
+        tail_update_bit_for_bit=upd_bits,
+        host_ms_per_step_off=host(off), host_ms_per_step_on=host(on),
+        host_ms_median_full_off=statistics.median(
+            s["host_ms"] for s in off["steps"][1:FEED_FULL]),
+        host_ms_median_full_on=statistics.median(
+            s["host_ms"] for s in on["steps"][1:FEED_FULL]),
+        fit_wall_ms=[off["wall"], on["wall"]],
+        full_fit_ms_per_step=fit_ms / FEED_FULL,
+        device_busy_share=trace["busy_share"],
+        window_ms_per_step=trace["window_ms"] / (FEED_FULL - FEED_SKIP),
+        trace=trace, feed_stream_id=stager.stream.stream_id,
+        compute_stream_id=torch.cuda.current_stream().stream_id,
+        staged_bytes=stager.nbytes, staged_copies=stager.copies,
+        launches=on["launches"])
+
+
+def _feed_gpt(torch, np, kernels, flash):
+    """Phase 13 (b): phase 4's GPT through the pipeline, off and on."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterators import ListDataSetIterator
+    from deeplearning4j_tpu_torch.models.zoo.transformer import gpt
+    from deeplearning4j_tpu_torch.util.model_serializer import params_from_numpy
+
+    ids = np.random.default_rng(12).integers(
+        0, TRAIN["vocab_size"], (FEED_GPT * TRAIN_BATCH, TRAIN["max_len"]))
+    ds = DataSet(ids.astype(np.float32),
+                 np.roll(ids, -1, axis=1).astype(np.float32))
+    runs = {}
+    for pipeline in (False, True):
+        net = gpt(**TRAIN).init()
+        params_from_numpy(net, _random_params(net, seed=11))
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        steps, _, wall = _feed_run(torch, net, ListDataSetIterator(ds, TRAIN_BATCH),
+                                   pipeline)
+        runs[pipeline] = dict(steps=steps, wall=wall, params=net.params,
+                              launches={k: kernels.LAUNCHES.get(k, 0) for k in (
+                                  flash.KERNEL, flash.DQ_KERNEL, flash.DKV_KERNEL)})
+        del net
+    off, on = runs[False], runs[True]
+    _check([s["score"] for s in on["steps"]] == [s["score"] for s in off["steps"]]
+           and len(on["steps"]) == FEED_GPT,
+           f"gpt scores: pipelined {[s['score'] for s in on['steps']]}, plain "
+           f"{[s['score'] for s in off['steps']]}")
+    same, worst = _tree_diff(torch, on["params"], off["params"])
+    _check(same, f"gpt parameters pipelined vs plain: rel L2 {worst}")
+    for s in on["steps"]:
+        per = {k: s["launches"].get(k, 0) for k in on["launches"]}
+        _check(all(v == TRAIN["n_layers"] for v in per.values()),
+               f"a pipelined gpt step launched {per}")
+    return dict(steps=FEED_GPT, scores=[s["score"] for s in on["steps"]],
+                scores_bit_for_bit=True, params_bit_for_bit=True,
+                host_ms_per_step_off=[s["host_ms"] for s in off["steps"]],
+                host_ms_per_step_on=[s["host_ms"] for s in on["steps"]],
+                fit_wall_ms=[off["wall"], on["wall"]], launches=on["launches"])
+
+
+def _best_ms(fn, reps=3):
+    """The least wall ms of ``reps`` calls of ``fn``, and its result."""
+    best, out = float("inf"), None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    return best, out
+
+
+def _write_fractions_csv(np, path, ints):
+    """A CSV of ``ints / 512`` (ints in [-4096, 4096)), each cell the
+    exact decimal in 12 characters: written as bytes from a table of the
+    8192 cells, which formats 25 M cells in about a second."""
+    table = np.frombuffer(b"".join(f"{k / 512:12.9f},".encode()
+                                   for k in range(-4096, 4096)),
+                          np.uint8).reshape(8192, 13)
+    cells = table[ints + 4096]
+    cells[:, -1, -1] = ord("\n")
+    cells.tofile(path)
+
+
+def _feed_native(torch, np):
+    """Phase 13 (c): the native IO library built here against NumPy, and
+    MLP-Iris trained from the Iris CSV through DataVec and the
+    pipeline."""
+    from deeplearning4j_tpu_torch import native
+    from deeplearning4j_tpu_torch.datasets import native_batcher as nb
+    from deeplearning4j_tpu_torch.datasets.iris import IRIS_CSV
+    from deeplearning4j_tpu_torch.datasets.iterators import MultipleEpochsIterator
+    from deeplearning4j_tpu_torch.datasets.normalizers import NormalizerStandardize
+    from deeplearning4j_tpu_torch.datavec import (
+        CSVRecordReader,
+        RecordReaderDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    shutil.rmtree(native.BUILD_DIR, ignore_errors=True)
+    native._lib, native._tried = None, False
+    t0 = time.perf_counter()
+    lib = native.get_lib()
+    build_s = time.perf_counter() - t0
+    _check(lib is not None and os.path.exists(native.LIB),
+           "the native IO library did not build from the checkout's source")
+    rng = np.random.default_rng(36)
+    # exact binary fractions: every parser reads the same floats
+    ints = rng.integers(-4096, 4096, (FEED_ROWS, FEED_COLS))
+    src = (ints / 512).astype(np.float32)
+    idx = rng.integers(0, FEED_ROWS, FEED_ROWS)
+    ids = rng.integers(0, FEED_COLS, FEED_ROWS)
+    mean, std = src.mean(axis=0), src.std(axis=0)
+    sd = np.where(std != 0.0, std, np.float32(1.0))
+    out = {"build_s": build_s}
+    for what, fn, plain in (
+            ("gather", lambda: nb.gather_rows(src, idx), lambda: src[idx]),
+            ("gather_normalize", lambda: nb.gather_rows(src, idx, mean, std),
+             lambda: (src[idx] - mean) / sd),
+            ("one_hot", lambda: nb.one_hot(ids, FEED_COLS),
+             lambda: np.eye(FEED_COLS, dtype=np.float32)[ids])):
+        ms, got = _best_ms(fn)
+        plain_ms, want = _best_ms(plain)
+        _check(got.dtype == want.dtype and np.array_equal(got, want),
+               f"native {what} is not its NumPy form")
+        out[what] = dict(native_ms=ms, numpy_ms=plain_ms)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_feed_") as d:
+        path = os.path.join(d, "data.csv")
+        t0 = time.perf_counter()
+        _write_fractions_csv(np, path, ints)
+        write_ms = (time.perf_counter() - t0) * 1e3
+        ms, got = _best_ms(lambda: native.csv_read_floats(path, strict=True), 2)
+        plain_ms, want = _best_ms(
+            lambda: np.loadtxt(path, delimiter=",", dtype=np.float32), 1)
+        _check(np.array_equal(got, want) and np.array_equal(got, src),
+               "native csv_read_floats is not np.loadtxt's array")
+        out["csv_parse"] = dict(native_ms=ms, numpy_loadtxt_ms=plain_ms,
+                                write_ms=write_ms, bytes=os.path.getsize(path))
+
+    it = RecordReaderDataSetIterator(CSVRecordReader(IRIS_CSV, skip_lines=1),
+                                     FEED_IRIS_BATCH, label_index=-1, num_classes=3)
+    norm = NormalizerStandardize().fit(it)
+    it.set_pre_processor(norm)
+    it.reset()
+    whole = norm.transform(RecordReaderDataSetIterator(
+        CSVRecordReader(IRIS_CSV, skip_lines=1), 150, label_index=-1,
+        num_classes=3).next())
+    net = MultiLayerNetwork(_mlp_iris_conf("bfloat16")).init()
+    before = net.score(whole)
+    epochs = FEED_IRIS_STEPS // 5
+    steps, _, wall = _feed_run(torch, net, MultipleEpochsIterator(epochs, it), True)
+    after = net.score(whole)
+    _check(len(steps) == FEED_IRIS_STEPS
+           and [s["rows"] for s in steps[:5]] == [FEED_IRIS_BATCH] * 5
+           and steps[4]["labels_mask"] == [FEED_IRIS_BATCH],
+           f"iris steps {[(s['rows'], s['labels_mask']) for s in steps]}")
+    _check(np.isfinite(after) and after < before,
+           f"MLP-Iris loss through the CSV did not fall: {before} -> {after}")
+    out["iris"] = dict(steps=len(steps), loss_before=before, loss_after=after,
+                       host_ms_per_step=[s["host_ms"] for s in steps],
+                       fit_wall_ms=wall)
+    return out
+
+
+def phase_feed(torch, np, kernels, flash, lk):
+    """Phase 13: the feed pipeline on the card. Returns its metrics;
+    ``launches`` are the port's kernels' in the pipelined runs of (a) and
+    (b)."""
+    out = {"char": _feed_char(torch, np, kernels, lk)}
+    c = out["char"]
+    _say(f"phase 13 (a): char-RNN through the pipeline bit for bit over "
+         f"{FEED_FULL} steps; host ms per full step {c['host_ms_median_full_off']:.2f}"
+         f" (off) vs {c['host_ms_median_full_on']:.2f} (on); padded tail score "
+         f"within {c['tail_score_diff']:.2e}, update rel L2 "
+         f"{c['tail_update_rel_l2']:.2e}; busy {c['device_busy_share']:.3f}")
+    out["gpt"] = _feed_gpt(torch, np, kernels, flash)
+    _say("phase 13 (b): gpt through the pipeline bit for bit, 8 launches of "
+         "each flash kernel per step")
+    out["native"] = _feed_native(torch, np)
+    n = out["native"]
+    _say(f"phase 13 (c): native gather {n['gather']['native_ms']:.1f} ms vs "
+         f"{n['gather']['numpy_ms']:.1f} (NumPy), csv parse "
+         f"{n['csv_parse']['native_ms']:.0f} ms vs "
+         f"{n['csv_parse']['numpy_loadtxt_ms']:.0f}; iris loss "
+         f"{n['iris']['loss_before']:.4f} -> {n['iris']['loss_after']:.4f}")
+    out["launches"] = dict(c["launches"])
+    out["launches"].update(out["gpt"]["launches"])
+    print("feed " + json.dumps(dict(out, card=_card())), flush=True)
+    return out
+
+
+def _feed_launches(entries, done):
+    """Each kernel's launches in phase 13's pipelined runs (the char-RNN's
+    9 steps, the gpt's 4), added to its entry of the kernels line."""
+    for e in entries:
+        e["feed_launches"] = done["13"]["launches"].get(e["name"], 0)
+    return entries
+
+
+PHASES = ("2", "2b", "3", "4", "5", "6", "7", "8", "9", "10", "11", "12", "13")
 # source -> its bf16 kernels, each of whose instantiations must not spill:
 # the mma.sync designs keep their tiles, sums and (LSTM) cell state in
 # registers
@@ -4178,14 +4561,23 @@ def main(argv) -> int:
              f"({d['fetches_frequency_5']} fetches for {SERVICE_STEPS} steps) "
              f"and lbfgs on the card; checkpoint save median "
              f"{statistics.median(r['save_ms']):.1f} ms on {card}", flush=True)
+    if "13" in phases:  # the feed pipeline
+        print(f"clocks: {_clocks()}", flush=True)
+        m = done["13"] = phase_feed(torch, np, kernels, flash, lk)
+        c = m["char"]
+        _say(f"phase 13: feed pipeline; char-RNN step {c['window_ms_per_step']:.2f} ms "
+             f"pipelined (busy {c['device_busy_share']:.3f}), staging on stream "
+             f"{c['feed_stream_id']} beside compute stream "
+             f"{c['compute_stream_id']}; native IO built on {card}", flush=True)
     if phases != PHASES:
         print(f"chip_smoke: ran phases 0, 1, {', '.join(phases)} only; "
               "no result", flush=True)
         return 0
 
-    summary = {"kernels": _service_launches(_paged_launches(_layer_launches(
-        _path_launches(_flash_summary(done) + _lstm_summary(done, lk), done),
-        done), done), done)}
+    summary = {"kernels": _feed_launches(_service_launches(_paged_launches(
+        _layer_launches(_path_launches(_flash_summary(done)
+                                       + _lstm_summary(done, lk), done),
+                        done), done), done), done)}
     print(card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

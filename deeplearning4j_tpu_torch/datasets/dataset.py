@@ -3,14 +3,15 @@
 Counterpart of ``deeplearning4j_tpu/datasets/dataset.py``: ``DataSet``
 holds features, labels and the two optional masks, ``MultiDataSet`` a
 list of each (the ComputationGraph's currency: features in the graph's
-input order, labels in its output order), as numpy arrays on the host;
-``fit``/``score`` move them to the net's device.
+input order, labels in its output order), as numpy arrays on the host
+(a batch staged by ``fit``'s feed pipeline holds tensors on the net's
+device); ``fit``/``score`` move them to the net's device.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -25,6 +26,10 @@ class DataSet:
     def num_examples(self) -> int:
         return int(self.features.shape[0])
 
+    def split_test_and_train(self, n_train: int) -> Tuple["DataSet", "DataSet"]:
+        """(the first ``n_train`` rows, the rest)."""
+        return self[:n_train], self[n_train:]
+
     def shuffle(self, seed: Optional[int] = None) -> "DataSet":
         """The rows in the order of numpy ``default_rng(seed)``'s
         permutation, as the reference's."""
@@ -34,6 +39,21 @@ class DataSet:
         pick = lambda a: None if a is None else a[idx]  # noqa: E731
         return DataSet(self.features[idx], self.labels[idx],
                        pick(self.features_mask), pick(self.labels_mask))
+
+    def batch_by(self, batch_size: int) -> List["DataSet"]:
+        """Consecutive minibatches of ``batch_size`` rows (the last may
+        be short)."""
+        n = self.num_examples()
+        return [self[i:i + batch_size] for i in range(0, n, batch_size)]
+
+    @staticmethod
+    def merge(datasets: Sequence["DataSet"]) -> "DataSet":
+        """The rows of ``datasets`` in order; a mask is kept where the
+        first DataSet has one."""
+        cat = lambda key: (None if getattr(datasets[0], key) is None  # noqa: E731
+                           else np.concatenate([getattr(d, key) for d in datasets]))
+        return DataSet(cat("features"), cat("labels"), cat("features_mask"),
+                       cat("labels_mask"))
 
 
 @dataclasses.dataclass

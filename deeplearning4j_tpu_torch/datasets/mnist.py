@@ -35,7 +35,12 @@ _IDX_DTYPES = {0x08: np.dtype(np.uint8), 0x09: np.dtype(np.int8),
 
 def read_idx(path: str) -> np.ndarray:
     """An IDX file (gzipped when its name ends in ``.gz``) as an array in
-    native byte order."""
+    native byte order; an uncompressed one through the native reader
+    (``native.idx_read``) where the library is available."""
+    from deeplearning4j_tpu_torch.native import idx_read
+    arr = idx_read(path)
+    if arr is not None:
+        return arr
     opener = gzip.open if path.endswith(".gz") else open
     with opener(path, "rb") as f:
         data = f.read()

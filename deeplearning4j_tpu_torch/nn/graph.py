@@ -11,8 +11,10 @@ outputs' losses (streams ``fold_in(rng, 10_000 + vi)``), the L1/L2
 penalties and any ``__aux_loss__``; a step is autograd's backward and
 the MultiLayerNetwork's per-layer gradient normalization and updater.
 ``fit`` takes DataSets, MultiDataSets and their iterators (truncated
-BPTT when configured), ``stage_scan``/``fit_scan`` train over staged
-minibatch stacks with one fetch at the end, ``rnn_time_step`` streams
+BPTT when configured; an iterator through the MultiLayerNetwork's feed
+pipeline, its batches staged as MultiDataSets by ``_stage_mds``),
+``stage_scan``/``fit_scan`` train over staged minibatch stacks with one
+fetch at the end, ``rnn_time_step`` streams
 single steps or [b, t, f] bursts through the recurrent vertices, and
 ``generate`` serves a single-input linear layer chain. Features map
 onto the inputs in ``add_inputs`` order, labels onto the outputs in
@@ -36,7 +38,12 @@ import torch
 
 import deeplearning4j_tpu_torch.nn.layers  # noqa: F401  (registers impls)
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet, MultiDataSet
-from deeplearning4j_tpu_torch.datasets.iterators import ListMultiDataSetIterator
+from deeplearning4j_tpu_torch.datasets.iterators import (
+    ListMultiDataSetIterator,
+    feed_pipeline_enabled,
+    wrap_feed,
+)
+from deeplearning4j_tpu_torch.datasets.staging import stager_of
 from deeplearning4j_tpu_torch.nn.conf import layers as L
 from deeplearning4j_tpu_torch.nn.conf.configuration import (
     BackpropType,
@@ -219,6 +226,9 @@ Tensors = Dict[str, torch.Tensor]
 
 
 class ComputationGraph:
+    # fit's score fetches wait for a batch (the feed pipeline) or not
+    _defer_scores = True
+
     def __init__(self, conf: ComputationGraphConfiguration,
                  device: DeviceLike = None):
         """``device`` defaults to ``cuda``; without a card that raises
@@ -417,14 +427,33 @@ class ComputationGraph:
                   if m is not None and n in self.loss_outputs}
         return inputs, labels, fmasks, lmasks
 
-    def fit(self, data, epochs: int = 1, batch_size: Optional[int] = None) -> None:
+    def _pad_tail_safe(self) -> bool:
+        """Tail padding is exact only where no layer takes statistics
+        over the batch (``ShapeBucketingIterator``)."""
+        return not any(getattr(i, "batch_statistics", False)
+                       for i in self.impls.values())
+
+    def _stage_mds(self, b) -> MultiDataSet:
+        """The feed's placement, on ``DeviceFeedIterator``'s thread: the
+        batch as a MultiDataSet with every array on the net's device in
+        the parameters' dtype (``datasets/staging.py``)."""
+        return stager_of(self).stage_mds(self._to_mds(b))
+
+    def fit(self, data, epochs: int = 1, batch_size: Optional[int] = None,
+            feed_pipeline: Optional[bool] = None) -> None:
         """Train on a DataSet or MultiDataSet (one minibatch, staged on
         the device once, or minibatches of ``batch_size``) or an
-        iterable of them, ``epochs`` times; ``conf.iterations`` steps per
-        minibatch."""
+        iterator (or other iterable) of them, ``epochs`` times;
+        ``conf.iterations`` steps per minibatch. An iterator goes through
+        the feed pipeline as in ``MultiLayerNetwork.fit``, unless
+        ``feed_pipeline=False``, which also fetches every step's score
+        at once."""
         refuse_quantized(self)
         if self.params is None:
             self.init()
+        pipeline = feed_pipeline_enabled(feed_pipeline)
+        prev_defer, self._defer_scores = self._defer_scores, pipeline
+        threads = []
         try:
             if self.conf.pretrain and not self._pretrained:
                 self.pretrain(data, batch_size=batch_size)
@@ -437,11 +466,16 @@ class ComputationGraph:
                         self._fit_batch(mds)
                     return
                 data = ListMultiDataSetIterator(mds, batch_size)
+            it, threads = wrap_feed(data, pipeline, self._pad_tail_safe(),
+                                    self._stage_mds)
             for _ in range(epochs):
-                for mds in data:
+                for mds in it:
                     self._fit_batch(self._to_mds(mds))
         finally:
+            for stage in reversed(threads):
+                stage.close()
             score_sink(self).flush()
+            self._defer_scores = prev_defer
 
     def pretrain(self, data, epochs: int = 1,
                  batch_size: Optional[int] = None) -> Dict[str, float]:
@@ -501,6 +535,8 @@ class ComputationGraph:
         for _ in range(max(1, self.gc.iterations)):
             score = self._train_step(inputs, labels, fmasks, lmasks)
             sink.push(self.opt_state["step"], score)  # fetched in batches
+            if not self._defer_scores:
+                sink.flush()
 
     # ----------------------------------------------------------- tbptt
 

@@ -66,6 +66,11 @@ class LayerImpl:
     # others reject the flag instead of silently training a bias
     supports_no_bias = False
 
+    # True for layers that take statistics over the batch (BN's moments,
+    # the MoE's load-balancing loss): fit's feed pipeline does not pad
+    # their nets' short tails, whose zero rows would change them
+    batch_statistics = False
+
     def __init__(self, global_conf: NeuralNetConfiguration, conf: L.Layer,
                  name: str):
         self.gc = global_conf

@@ -31,6 +31,9 @@ class BatchNormalizationImpl(LayerImpl):
     """Normalizes over the batch (FF [b, f]) or batch and space (NHWC
     [b, h, w, c], per channel)."""
 
+    # padded rows would change the batch moments
+    batch_statistics = True
+
     def init_params(self, gen, device) -> Dict[str, torch.Tensor]:
         c = self.conf
         if c.lock_gamma_beta:

@@ -46,7 +46,12 @@ import torch
 
 import deeplearning4j_tpu_torch.nn.layers  # noqa: F401  (registers impls)
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet
-from deeplearning4j_tpu_torch.datasets.iterators import ListDataSetIterator
+from deeplearning4j_tpu_torch.datasets.iterators import (
+    ListDataSetIterator,
+    feed_pipeline_enabled,
+    wrap_feed,
+)
+from deeplearning4j_tpu_torch.datasets.staging import stager_of
 from deeplearning4j_tpu_torch.nn.conf.configuration import (
     BackpropType,
     MultiLayerConfiguration,
@@ -121,6 +126,9 @@ def stage_arrays(arrays: Dict[Any, Any], batch_size: int, dtype: torch.dtype,
 
 
 class MultiLayerNetwork:
+    # fit's score fetches wait for a batch (the feed pipeline) or not
+    _defer_scores = True
+
     def __init__(self, conf: MultiLayerConfiguration, device: DeviceLike = None):
         """``device`` defaults to ``cuda``; without a card that raises
         unless ``device="cpu"`` is given."""
@@ -282,9 +290,12 @@ class MultiLayerNetwork:
     def _tensor(self, a) -> Optional[torch.Tensor]:
         """A batch array on the net's device in the parameters' dtype:
         features and labels are float, as in the reference (ids become
-        exact floats and the layers take them back to ints)."""
+        exact floats and the layers take them back to ints). A tensor
+        already there (a staged batch's) passes as it is."""
         if a is None:
             return None
+        if isinstance(a, torch.Tensor):
+            return a.to(device=self.device, dtype=self._dtype)
         return torch.as_tensor(np.asarray(a), dtype=self._dtype,
                                device=self.device)
 
@@ -351,19 +362,43 @@ class MultiLayerNetwork:
         self.opt_state = {"step": it + 1, "updater": new_upd}
         return score
 
+    def _pad_tail_safe(self) -> bool:
+        """Tail padding is exact only where no layer takes statistics
+        over the batch (``ShapeBucketingIterator``)."""
+        return not any(getattr(i, "batch_statistics", False) for i in self.impls)
+
+    def _stage_ds(self, ds):
+        """The feed's placement, on ``DeviceFeedIterator``'s thread: the
+        batch on the net's device in the parameters' dtype
+        (``datasets/staging.py``: on the card, from pinned memory on the
+        feed's side stream)."""
+        if not isinstance(ds, DataSet):
+            return ds
+        return stager_of(self).stage_ds(ds)
+
     def fit(self, data: Union[DataSet, Iterable[DataSet], np.ndarray],
             labels: Optional[np.ndarray] = None,
-            batch_size: Optional[int] = None) -> None:
+            batch_size: Optional[int] = None,
+            feed_pipeline: Optional[bool] = None) -> None:
         """Train on a DataSet (one minibatch, or minibatches of
-        ``batch_size``), an iterable of DataSets (``ListDataSetIterator``)
-        or features + ``labels`` arrays; ``conf.iterations`` steps per
-        minibatch. A short last minibatch is fed as it is. With
-        ``conf.pretrain`` set, the first call pretrains first."""
+        ``batch_size``), a ``DataSetIterator`` or another iterable of
+        DataSets, or features + ``labels`` arrays; ``conf.iterations``
+        steps per minibatch. With ``conf.pretrain`` set, the first call
+        pretrains first. An iterator goes through the feed pipeline
+        (``datasets/iterators.py``), unless ``feed_pipeline=False``: its
+        short tail padded to the canonical batch (not for nets with
+        batch statistics), batches prepared on a host thread and staged
+        on the device by another while the step before runs. With the
+        pipeline the scores are fetched in batches
+        (``optimize/deferred.py``); without it, after every step."""
         refuse_quantized(self)
         if self.params is None:
             self.init()
         if isinstance(data, np.ndarray):
             data = DataSet(data, labels)
+        pipeline = feed_pipeline_enabled(feed_pipeline)
+        prev_defer, self._defer_scores = self._defer_scores, pipeline
+        threads = []
         try:
             if self.conf.pretrain and not self._pretrained:
                 self.pretrain(data, batch_size=batch_size)
@@ -373,10 +408,15 @@ class MultiLayerNetwork:
                     self._fit_batch(data)
                     return
                 data = ListDataSetIterator(data, batch_size)
-            for ds in data:
+            it, threads = wrap_feed(data, pipeline, self._pad_tail_safe(),
+                                    self._stage_ds)
+            for ds in it:
                 self._fit_batch(ds)
         finally:
+            for stage in reversed(threads):
+                stage.close()
             score_sink(self).flush()
+            self._defer_scores = prev_defer
 
     def _pretrain_step(self, i: int, ustate: Dict[str, Any], it: int,
                        x: torch.Tensor, rng: int):
@@ -446,8 +486,11 @@ class MultiLayerNetwork:
         for _ in range(max(1, self.gc.iterations)):
             score = self._train_step(x, y, fm, lm)
             # the score stays on the device until a listener's frequency,
-            # the ring's capacity or the end of fit() asks for it
+            # the ring's capacity or the end of fit() asks for it; without
+            # the feed pipeline, at once
             sink.push(self.opt_state["step"], score)
+            if not self._defer_scores:
+                sink.flush()
 
     # ------------------------------------------------------ scanned fit
 
@@ -519,20 +562,24 @@ class MultiLayerNetwork:
         T = ds.features.shape[1]
         L = self.conf.tbptt_fwd_length
         b = ds.features.shape[0]
-        labels = np.asarray(ds.labels)
+        labels = ds.labels
+        if not isinstance(labels, torch.Tensor):
+            labels = np.asarray(labels)
         # sparse ids must be integers, so that a dense [b, nOut] label
-        # matrix with nOut == T is never read as per-timestep ids
-        sparse_ids = (labels.ndim == 2 and labels.shape == (b, T)
-                      and np.issubdtype(labels.dtype, np.integer))
+        # matrix with nOut == T is never read as per-timestep ids (a
+        # staged batch's labels are in the parameters' float dtype, as
+        # the reference's are)
+        sparse_ids = (labels.ndim == 2 and tuple(labels.shape) == (b, T)
+                      and _integer(labels))
         if not (labels.ndim == 3 or sparse_ids):
             hint = ""
-            if labels.ndim == 2 and labels.shape == (b, T):
+            if labels.ndim == 2 and tuple(labels.shape) == (b, T):
                 hint = (f" Labels have the [batch, T] shape but float dtype "
                         f"{labels.dtype}; cast to an integer dtype to use "
                         f"the sparse-id path.")
             raise ValueError(
                 f"TBPTT requires per-timestep labels [batch, T, nOut] (or "
-                f"sparse INT ids [batch, T]); got shape {labels.shape}. "
+                f"sparse INT ids [batch, T]); got shape {tuple(labels.shape)}. "
                 f"For sequence-level labels use backprop_type='standard'."
                 + hint)
         rec = self._recurrent_impls()
@@ -705,6 +752,13 @@ def pretrain_update(impl, p: Dict[str, torch.Tensor], ustate: Dict[str, Any],
         new_p[pname] = p[pname] - u.to(p[pname].dtype)
         new_u[pname] = ust
     return new_p, new_u, loss
+
+
+def _integer(a) -> bool:
+    """Whether an array's or a tensor's dtype is an integer one."""
+    if isinstance(a, torch.Tensor):
+        return not (a.is_floating_point() or a.is_complex() or a.dtype == torch.bool)
+    return np.issubdtype(a.dtype, np.integer)
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:

@@ -7,6 +7,12 @@ axis and reduces to the mean over examples (or over the unmasked ones);
 mcxent/nll and sigmoid cross-entropy with logits for xent. Integer
 class-id labels (one rank below the predictions) take the sparse path:
 the target is gathered from the logits, and negative ids are ignored.
+
+The mean's sum is taken in float64 and rounded once (``_sum``), so it
+does not depend on the order of its terms nor on zero terms among them:
+a short batch padded with masked rows (``ShapeBucketingIterator``)
+scores bit for bit as the short batch does. The mean is then that sum
+times ``1 / count``, the rounding of the reference's ``jnp.mean``.
 """
 
 from __future__ import annotations
@@ -19,15 +25,28 @@ import torch
 _EPS = 1e-7
 
 
+def _sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` accumulated in float64 and rounded once to its
+    dtype: for float32 terms (whose float64 sum is exact unless their
+    magnitudes span more than 2**29) the same value in any order and
+    with any zeros among the terms."""
+    return torch.sum(x, dtype=torch.float64).to(x.dtype)
+
+
+def _mean(per_ex: torch.Tensor) -> torch.Tensor:
+    """``_sum(per_ex) * (1 / n)``; its gradient is ``1 / n`` each."""
+    return _sum(per_ex) * (1.0 / per_ex.numel())
+
+
 def _masked_mean(per_ex: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Mean over the unmasked rows whose value and gradients are those of
-    a plain mean over just those rows: the gradient flows through the
+    ``_mean`` over just those rows: the gradient flows through the
     true division ``total / count``, and the value is corrected to
     ``total * (1 / count)``, the rounding of a mean over a fixed count,
     by a term that carries no gradient (``d + (r - d).detach() == r``
     exactly: r and d are within one ulp)."""
     mask = mask.to(per_ex.dtype)
-    total = torch.sum(per_ex * mask)
+    total = _sum(per_ex * mask)
     count = torch.clamp_min(torch.sum(mask), 1.0)
     d = total / count
     r = total * (1.0 / count)
@@ -148,4 +167,4 @@ def compute_loss(name: Union[str, LossFunction], labels: torch.Tensor,
         raise ValueError(f"unknown reduction {reduction!r} (use 'mean' or 'batch')")
     if mask is not None:
         return _masked_mean(per_ex, mask)
-    return torch.mean(per_ex)
+    return _mean(per_ex)

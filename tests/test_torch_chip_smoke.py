@@ -1418,12 +1418,13 @@ def test_gpt_graph_generates_as_the_network():
 
 def test_layers_phase_is_the_last_and_runs_alone():
     """Phase 10 (the rest of the layer library) comes before phase 11
-    (paged serving) and phase 12 (the training services), the last; each
-    can be asked for alone."""
-    assert chip_smoke.PHASES[-3:] == ("10", "11", "12")
+    (paged serving), phase 12 (the training services) and phase 13 (the
+    feed pipeline), the last; each can be asked for alone."""
+    assert chip_smoke.PHASES[-4:] == ("10", "11", "12", "13")
     assert chip_smoke._phases(["--only", "10"]) == ("10",)
     assert chip_smoke._phases(["--only", "11"]) == ("11",)
     assert chip_smoke._phases(["--only", "12"]) == ("12",)
+    assert chip_smoke._phases(["--only", "13"]) == ("13",)
     assert chip_smoke.MOE_TRAIN == dict(chip_smoke.TRAIN, num_experts=8,
                                         capacity_factor=1.25,
                                         aux_loss_weight=0.01)
@@ -1606,3 +1607,67 @@ def test_service_batches_are_phase_6s_shape_in_uint8(monkeypatch):
         assert ds.features.dtype == np.uint8 and (ds.features.sum(-1) == 1).all()
         np.testing.assert_array_equal(ds.labels.argmax(-1),
                                       np.roll(ds.features.argmax(-1), -1, axis=1))
+
+
+def test_feed_launches_add_phase_13s_counts():
+    done = {"13": {"launches": {"lstm_fwd": 18, "flash_dq": 32}}}
+    got = chip_smoke._feed_launches([{"name": "lstm_fwd"}, {"name": "flash_dq"},
+                                     {"name": "lstm_fwd_only"}], done)
+    assert [e["feed_launches"] for e in got] == [18, 32, 0]
+
+
+class _HostStream:
+    def synchronize(self):
+        pass
+
+
+def test_feed_run_records_each_step_of_a_pipelined_fit():
+    """Phase 13's step recorder on a CPU net (its synchronizations
+    stood in for): each step's rows and labels mask, the padded tail
+    through the pipeline, the snapshot before the tail, and the net's own
+    step restored after."""
+    import types
+
+    import torch
+
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterators import ListDataSetIterator
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    fake = types.SimpleNamespace(cuda=types.SimpleNamespace(
+        synchronize=lambda: None, current_stream=_HostStream))
+    rng = np.random.default_rng(3)
+    ds = DataSet(rng.standard_normal((2 * 8 + 3, 4)).astype(np.float32),
+                 np.eye(3, dtype=np.float32)[rng.integers(0, 3, 19)])
+    conf = (NeuralNetConfiguration.builder().seed(1).learning_rate(0.1)
+            .updater("sgd").list().layer(L.DenseLayer(n_in=4, n_out=5))
+            .layer(L.OutputLayer(n_in=5, n_out=3, activation="softmax",
+                                 loss_function="mcxent")).build())
+    runs = {}
+    for pipeline in (False, True):
+        net = MultiLayerNetwork(conf, device="cpu").init()
+        steps, snap, wall = chip_smoke._feed_run(
+            fake, net, ListDataSetIterator(ds, 8), pipeline, snapshot_at=2)
+        assert "_fit_batch" not in net.__dict__ and wall > 0
+        runs[pipeline] = steps, snap
+    (off, off_snap), (on, on_snap) = runs[False], runs[True]
+    assert [s["rows"] for s in off] == [8, 8, 3]
+    assert [s["rows"] for s in on] == [8, 8, 8]
+    assert on[-1]["labels_mask"] == [8] and off[-1]["labels_mask"] is None
+    assert [s["score"] for s in on] == [s["score"] for s in off]
+    assert chip_smoke._tree_diff(torch, on_snap, off_snap)[0]
+
+
+def test_fractions_csv_reads_back_exactly(tmp_path):
+    """Phase 13's CSV writer: every parser reads ``ints / 512`` exactly."""
+    from deeplearning4j_tpu_torch import native
+
+    ints = np.random.default_rng(4).integers(-4096, 4096, (7, 5))
+    path = str(tmp_path / "q.csv")
+    chip_smoke._write_fractions_csv(np, path, ints)
+    want = (ints / 512).astype(np.float32)
+    np.testing.assert_array_equal(np.loadtxt(path, delimiter=",",
+                                             dtype=np.float32), want)
+    np.testing.assert_array_equal(native.csv_read_floats(path, strict=True), want)

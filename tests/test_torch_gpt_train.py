@@ -216,12 +216,13 @@ def test_adam_steps_scores_and_state_match(nets):
 
 
 def test_unpadded_tail_matches_padded_tail():
-    """fit(ds, batch_size=4) over 10 rows: the port feeds the tail of 2
-    rows as it is; the JAX package's shape bucketing pads a tail to the
-    full batch with zero rows and a labels mask that leaves them out
-    (built here by hand: its own bucketing builds a [b] mask, which does
-    not broadcast over sparse [b, t] labels). ``_masked_mean`` makes the
-    two losses, and so the steps, the same."""
+    """fit(ds, batch_size=4, feed_pipeline=False) over 10 rows: the port
+    feeds the tail of 2 rows as it is; the JAX package's shape bucketing
+    pads a tail to the full batch with zero rows and a labels mask that
+    leaves them out (built here by hand: its own bucketing builds a [b]
+    mask, which does not broadcast over sparse [b, t] labels, and so does
+    the port's with the pipeline on: tests/test_torch_data_pipeline.py).
+    ``_masked_mean`` makes the two losses, and so the steps, the same."""
     jn, tn = _pair(updater="sgd", learning_rate=0.05)
     x, y = _data(10, 16, seed=6)
     for i in (0, 4):
@@ -230,20 +231,23 @@ def test_unpadded_tail_matches_padded_tail():
     lm = np.zeros((4, 16), np.float32)
     lm[:2] = 1.0
     jn.fit(JaxDataSet(pad(x[8:]), pad(y[8:]), None, lm))
-    tn.fit(DataSet(x, y), batch_size=4)
+    tn.fit(DataSet(x, y), batch_size=4, feed_pipeline=False)
     assert tn.opt_state["step"] == 3
     assert abs(tn.score() - jn.score()) <= TOL
     _assert_tree_close(tn.params, jn.params, 1e-5, 1e-5)
 
 
 def test_iterator_and_arrays_feed_fit():
+    """Without the feed pipeline (whose padded tail's [b] mask does not
+    broadcast over these float-id labels, as the reference's) an
+    iterator and arrays with a batch size train alike."""
     _, a = _pair(updater="sgd", learning_rate=0.05)
     _, b = _pair(updater="sgd", learning_rate=0.05)
     x, y = _data(6, 16, seed=7)
     it = ListDataSetIterator(DataSet(x, y), batch_size=4)
     assert [d.num_examples() for d in it] == [4, 2]
-    a.fit(it)
-    b.fit(x, y, batch_size=4)
+    a.fit(it, feed_pipeline=False)
+    b.fit(x, y, batch_size=4, feed_pipeline=False)
     for layer, p in a.params.items():
         for name, v in p.items():
             assert torch.equal(v, b.params[layer][name])
