@@ -354,9 +354,9 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # H100 SXM dense
 # calls per profile (and per CUDA-event timing) of the forward rows'
 # kernel, tilings and SDPA
 FWD_REPS = 10
-# calls per profile of phase 2's plain versions: a plain call at t 2048
-# launches ~10k small kernels, and the profiler's processing of their
-# events, not the card, sets those rows' wall time
+# calls timed of phase 2's plain versions: a plain call at t 2048
+# launches ~10k small kernels; torch.profiler's processing of their events
+# took minutes, so they are timed by CUDA events (_event_ms)
 PLAIN_REPS = 1
 PEAK_BYTES = 3.35e12
 # the f32 flash backward at heads <= 128 runs on the tensor cores in
@@ -568,6 +568,26 @@ def _time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
 EVENT_TIMED = "whole call, by CUDA events (torch.profiler kept no whole profile)"
 
 
+def _event_ms(torch, fn, reps: int, warm: bool = False) -> float:
+    """ms per call of ``fn`` by CUDA events around ``reps`` calls issued
+    back to back (after one warm-up call if ``warm``): the card's time
+    from the first launch to the last kernel's end, the host's gaps
+    between launches included. Phases 2 and 2b time the plain versions
+    so: torch.profiler's processing of their many small launches took
+    most of phase 2's time."""
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 # seconds of idle host time around the calls inside each profile, per
 # attempt: the profiler keeps only device events whose timestamps, mapped
 # to the host's clock, fall inside the profile; where that mapping is off
@@ -681,14 +701,7 @@ def _device_times(torch, fn, reps: int, warm: bool = True) -> dict:
             print(f"chip_smoke: empty profile at margin {pad} s: "
                   f"{len(prof.events())} events, none on the device",
                   flush=True)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    ms = start.elapsed_time(end) / reps
+    ms = _event_ms(torch, fn, reps)
     print(f"chip_smoke: torch.profiler kept no whole profile in "
           f"{len(PROFILE_PADS)} attempts; {EVENT_TIMED}: {ms} ms", flush=True)
     return {EVENT_TIMED: ms}
@@ -917,7 +930,7 @@ def bwd_row(torch, F, kernels, flash, g, case, names):
                dkv_kernel_only_ms=_sum_ms(times, "flash_dkv_kernel"),
                dq_kernel_only_ms_by_block_q=by_block_q,
                # the check above ran the plain version on these inputs
-               plain_ms=_device_ms(torch, plain, PLAIN_REPS, warm=False),
+               plain_ms=_event_ms(torch, plain, PLAIN_REPS),
                library_ms=(_device_ms(torch, lib_fb, 10)
                            - _device_ms(torch, lib_fwd, 10)),
                dq_bound_ms=dq_bound[0], dq_bound_by=dq_bound[1],
@@ -1124,7 +1137,7 @@ def fwd_row(torch, F, flash, g, case, kernel):
                kernel_only_ms=_sum_ms(times, "flash_fwd_kernel"),
                kernel_only_ms_by_block_q=by_block_q,
                # the check above ran the plain version on these inputs
-               plain_ms=_device_ms(torch, plain, PLAIN_REPS, warm=False),
+               plain_ms=_event_ms(torch, plain, PLAIN_REPS),
                library_ms=_device_ms(torch, library, FWD_REPS),
                bound_ms=bound_ms, bound_by=bound_by,
                call_ms=_time_ms(torch, run, FWD_REPS),
@@ -1835,9 +1848,9 @@ def phase_lstm_kernels(torch, lk):
             bwd_ms=_sum_ms(t_bwd, "lstm_bwd_kernel"),
             dw_ms=_sum_ms(t_bwd, "lstm_dw_kernel"),
             backward_ms=_sum_ms(t_bwd),
-            plain_fwd_only_ms=_device_ms(torch, plain_fo, 2),
-            plain_fwd_ms=_device_ms(torch, plain_fwd, 2),
-            plain_bwd_ms=_device_ms(torch, plain_bwd, 2),
+            plain_fwd_only_ms=_event_ms(torch, plain_fo, 2, warm=True),
+            plain_fwd_ms=_event_ms(torch, plain_fwd, 2, warm=True),
+            plain_bwd_ms=_event_ms(torch, plain_bwd, 2, warm=True),
             library_fwd_ms=lib_f,
             library_bwd_ms=_device_ms(torch, lib_fb, reps) - lib_f,
             bounds={k: list(v) for k, v in bounds.items()},
@@ -3557,6 +3570,11 @@ def phase_paged(torch, np, kernels, flash):
     _say(f"phase 11 (a): {tokens} tokens in {serve_s:.3f} s, {whole} of "
          f"{PAGED_REQUESTS} requests equal to generate_eager whole, "
          f"{whole32} in f32")
+    m["telemetry"] = _paged_traced(net, prompts, got)
+    _say(f"phase 11 (a): traced serve, counters as stats(), "
+         f"{m['telemetry']['traces']} traces; tokens/s "
+         f"{m['telemetry']['tokens_per_s_traced']:.1f} (request tracer on) vs "
+         f"{m['tokens_per_s']:.1f} (off)")
 
     # (b) preemption on a pool of 4 full sequences
     blocks = 4 * -(-(PAGED_PROMPTS[1] + NEW) // PAGED["block_size"]) + 1
@@ -3607,6 +3625,69 @@ def phase_paged(torch, np, kernels, flash):
         {k: v for k, v in m.items() if k != "launches"}, card=_card())),
         flush=True)
     return m
+
+
+def _paged_traced(net, prompts, untraced):
+    """Phase 11's serve again with a fresh registry and a request
+    tracer: the same tokens; the ``dl4j_sched_*`` counters equal the
+    scheduler's ``stats()``, the pool's free gauge its total once
+    drained, and the tokens delivered the admissions' first tokens plus
+    ``dl4j_attr_decode_tokens_total`` (the scheduler's decode count; the
+    reference's scheduler, too, ticks ``dl4j_decode_tokens_total`` only
+    through ``generate``, which is checked after on one prompt); one
+    ``decode_request`` trace per request with its ``queue_wait``,
+    ``prefill`` and ``decode_burst`` spans; the flight recorder's dump
+    and the Prometheus text pass the schema check."""
+    from deeplearning4j_tpu_torch import monitor
+    from deeplearning4j_tpu_torch.monitor import reqtrace
+    from deeplearning4j_tpu_torch.nn.generate import generate
+
+    reg = monitor.MetricsRegistry()
+    old = monitor.set_registry(reg)
+    reqtrace.configure_flight_recorder()
+    tracer = reqtrace.enable_request_tracing()
+    try:
+        s, got, serve_s = _paged_serve(net, prompts)
+        ids = generate(net, prompts[0], NEW)
+    finally:
+        reqtrace.disable_request_tracing()
+        monitor.set_registry(old)
+    _check(all((a == b).all() for a, b in zip(got, untraced)),
+           "the traced serve gave other tokens")
+    _check(ids.shape == (1, prompts[0].shape[1] + NEW), f"generate {ids.shape}")
+    st = s.stats()
+    value = lambda name, **kw: (reg.get(name, **kw).value  # noqa: E731
+                                if reg.get(name, **kw) is not None else 0)
+    counts = {k: value(f"dl4j_sched_{k}_total") for k in
+              ("admitted_rows", "retired_rows", "bursts", "preemptions")}
+    _check(counts == {k: st[k] for k in counts}, f"counters {counts} vs {st}")
+    free = value(monitor.KVPOOL_BLOCKS_FREE_GAUGE, pool="decode")
+    _check(free == st["pool"]["blocks_total"] == st["pool"]["blocks_free"],
+           f"pool gauge {free} vs {st['pool']}")
+    delivered = sum(c["tokens"] for c in s.completed)
+    decoded = value(monitor.ATTR_DECODE_TOKENS_COUNTER, model="default")
+    _check(delivered == PAGED_REQUESTS * NEW == decoded + st["admitted_rows"],
+           f"{delivered} tokens delivered, {decoded} decoded + "
+           f"{st['admitted_rows']} admissions")
+    _check(value(monitor.DECODE_TOKENS_COUNTER) == NEW
+           and value(monitor.DECODE_REQUESTS_COUNTER) == 1,
+           "generate's decode counters")
+    traces = tracer.completed_traces()
+    _check(len(traces) == PAGED_REQUESTS, f"{len(traces)} traces")
+    for tr in traces:
+        names = {sp["name"] for sp in tr["spans"]}
+        roots = [sp for sp in tr["spans"] if sp["parent"] is None]
+        _check(tr["name"] == "decode_request" and len(roots) == 1
+               and {"queue_wait", "prefill", "decode_burst"} <= names,
+               f"trace {tr['trace']}: {sorted(names)}, {len(roots)} roots")
+    with tempfile.TemporaryDirectory() as tmp:
+        dump = reqtrace.flight_recorder().dump(os.path.join(tmp, "flight.jsonl"))
+        _schema_check([dump], reg.prometheus_text(), tmp)
+    return dict(counts, pool_blocks_free=free, tokens_delivered=delivered,
+                attr_decode_tokens=decoded, traces=len(traces),
+                spans=int(reg.get(monitor.TRACE_SPANS_COUNTER).value),
+                serve_s_traced=serve_s,
+                tokens_per_s_traced=PAGED_REQUESTS * NEW / serve_s)
 
 
 def _paged_launches(entries, done):
@@ -4095,6 +4176,7 @@ def _feed_char(torch, np, kernels, lk):
         runs[pipeline] = dict(steps=steps, snap=snap, wall=wall, net=net,
                               launches=_lstm_launches(kernels, lk))
     off, on = runs[False], runs[True]
+    telemetry = _feed_traced(torch, ds, on)
     _check(len(off["steps"]) == len(on["steps"]) == FEED_FULL + 1,
            f"steps {len(off['steps'])}, {len(on['steps'])}")
     _check([s["score"] for s in on["steps"][:FEED_FULL]]
@@ -4163,7 +4245,95 @@ def _feed_char(torch, np, kernels, lk):
         trace=trace, feed_stream_id=stager.stream.stream_id,
         compute_stream_id=torch.cuda.current_stream().stream_id,
         staged_bytes=stager.nbytes, staged_copies=stager.copies,
-        launches=on["launches"])
+        telemetry=telemetry, launches=on["launches"])
+
+
+def _schema():
+    """``scripts/check_telemetry_schema.py`` of this checkout, loaded by
+    path (it imports nothing of the packages)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                        "check_telemetry_schema.py")
+    spec = importlib.util.spec_from_file_location("check_telemetry_schema", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _schema_check(files, metrics_text, tmp):
+    """``check_telemetry_schema.main`` over ``files`` and the Prometheus
+    text; fails unless it returns 0."""
+    metrics = os.path.join(tmp, "metrics.txt")
+    with open(metrics, "w") as f:
+        f.write(metrics_text)
+    rc = _schema().main(list(files) + ["--metrics", metrics, "--check-names"])
+    _check(rc == 0, f"check_telemetry_schema rejected {files} + metrics")
+
+
+def _feed_traced(torch, ds, untraced):
+    """Phase 13 (a)'s pipelined fit again from the same weights with a
+    fresh registry and a tracer: bit for bit the untraced run's scores
+    and parameters; the feed's counters equal the port's own counts (the
+    stager's bytes, one padded tail, the deferred ring's fetches, one
+    dispatch miss per signature); a ``compile`` span at each signature's
+    first step and ``device_step`` spans at the others; the JSONL, the
+    Chrome trace and the Prometheus text pass the schema check."""
+    from deeplearning4j_tpu_torch import monitor
+    from deeplearning4j_tpu_torch.datasets.iterators import ListDataSetIterator
+    from deeplearning4j_tpu_torch.datasets.staging import stager_of
+    from deeplearning4j_tpu_torch.optimize.deferred import score_sink
+
+    net = _service_net()
+    reg = monitor.MetricsRegistry()
+    old = monitor.set_registry(reg)
+    with tempfile.TemporaryDirectory() as tmp:
+        jsonl = os.path.join(tmp, "events.jsonl")
+        tracer = monitor.enable_tracing(jsonl)
+        try:
+            steps, _, wall = _feed_run(torch, net, ListDataSetIterator(ds, CHAR_BATCH),
+                                       True)
+        finally:
+            monitor.disable_tracing()
+            monitor.set_registry(old)
+        chrome = tracer.export_chrome_trace(os.path.join(tmp, "trace.json"))
+        _schema_check([jsonl, chrome], reg.prometheus_text(), tmp)
+    _check([s["score"] for s in steps] == [s["score"] for s in untraced["steps"]],
+           "traced scores are not the untraced run's: "
+           f"{[s['score'] for s in steps]} vs "
+           f"{[s['score'] for s in untraced['steps']]}")
+    same, worst = _tree_diff(torch, net.params, untraced["net"].params)
+    _check(same, f"traced parameters differ from the untraced run's (rel L2 {worst})")
+    value = lambda name: reg.get(name).value  # noqa: E731
+    stager, sigs = stager_of(net), net.__dict__["_dispatch_sigs"]
+    counts = dict(h2d_bytes=value(monitor.H2D_BYTES_COUNTER),
+                  stager_nbytes=stager.nbytes,
+                  padded_batches=value(monitor.FEED_PADDED_BATCHES_COUNTER),
+                  score_syncs=value(monitor.SCORE_SYNC_COUNTER),
+                  ring_fetches=score_sink(net).flushes,
+                  dispatch_misses=value(monitor.JIT_CACHE_MISS_COUNTER),
+                  signatures=len(sigs))
+    _check(counts["h2d_bytes"] == stager.nbytes > 0
+           and counts["padded_batches"] == 1
+           and counts["score_syncs"] == counts["ring_fetches"]
+           and counts["dispatch_misses"] == len(sigs) == 2, f"counters {counts}")
+    kinds = [e["name"] for e in tracer.events()
+             if e["name"] in ("compile", "device_step")]
+    # the padded tail carries a labels mask: the second signature
+    want = ["compile"] + ["device_step"] * (FEED_FULL - 1) + ["compile"]
+    _check(kinds == want, f"step spans {kinds}, expected {want}")
+    # one more untraced run after the traced one, so that the traced
+    # run's step time sits between two untraced ones
+    after, _, _ = _feed_run(torch, _service_net(),
+                            ListDataSetIterator(ds, CHAR_BATCH), True)
+    median = lambda run: statistics.median(  # noqa: E731
+        s["host_ms"] for s in run[1:FEED_FULL])
+    return dict(counts, step_spans=kinds, scores_bit_for_bit=True,
+                params_bit_for_bit=True, events=len(tracer.events()),
+                dropped=tracer.dropped, fit_wall_ms_traced=wall,
+                host_ms_median_full_traced=median(steps),
+                host_ms_median_full_untraced=median(untraced["steps"]),
+                host_ms_median_full_untraced_after=median(after))
 
 
 def _feed_gpt(torch, np, kernels, flash):
@@ -4320,6 +4490,11 @@ def phase_feed(torch, np, kernels, flash, lk):
          f" (off) vs {c['host_ms_median_full_on']:.2f} (on); padded tail score "
          f"within {c['tail_score_diff']:.2e}, update rel L2 "
          f"{c['tail_update_rel_l2']:.2e}; busy {c['device_busy_share']:.3f}")
+    tel = c["telemetry"]
+    _say(f"phase 13 (a): traced fit bit for bit, counters {dict((k, tel[k]) for k in ('h2d_bytes', 'padded_batches', 'score_syncs', 'dispatch_misses'))}"
+         f"; host ms per full step {tel['host_ms_median_full_traced']:.3f} "
+         f"(tracing on) vs {tel['host_ms_median_full_untraced']:.3f} and "
+         f"{tel['host_ms_median_full_untraced_after']:.3f} (off, before and after)")
     out["gpt"] = _feed_gpt(torch, np, kernels, flash)
     _say("phase 13 (b): gpt through the pipeline bit for bit, 8 launches of "
          "each flash kernel per step")

@@ -17,6 +17,7 @@ losses and updaters), the GravesLSTM char-RNN, the feed-forward and CNN
 path (dense, convolution, pooling, batch and local response
 normalization, the input types and preprocessors, ``evaluate``, the
 listeners, the f64 gradient check, the MNIST and Iris data), the config
-JSON and YAML and the model zip with its updater and layer state, and
-the flash-attention and LSTM kernels.
+JSON and YAML and the model zip with its updater and layer state, the
+flash-attention and LSTM kernels, and (``monitor/``) the metrics
+registry, phase spans and request traces every path publishes into.
 """

@@ -20,6 +20,11 @@ containers' ``fit`` wraps an iterator in:
   ``datasets/staging.py`` carries the event of its copy: the iterator
   hands it over only after the consumer's stream waits on that event.
 
+The bucketing counts each padded tail in
+``dl4j_feed_padded_batches_total``, and the device feed sets
+``dl4j_feed_queue_depth`` to the batches staged and waiting at each
+pull (``monitor``), as the reference does.
+
 The two threaded stages keep the reference's contracts: a worker's
 exception is re-raised on the consumer, the end-of-stream sentinel is
 always delivered, ``close()`` after a worker's death neither hangs nor
@@ -44,6 +49,11 @@ import torch
 
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet, MultiDataSet
 from deeplearning4j_tpu_torch.datasets.staging import claim
+from deeplearning4j_tpu_torch.monitor import (
+    FEED_PADDED_BATCHES_COUNTER,
+    FEED_QUEUE_DEPTH_GAUGE,
+    get_registry,
+)
 
 
 def feed_pipeline_enabled(flag: Optional[bool] = None) -> bool:
@@ -275,7 +285,8 @@ class _WorkerStage(DataSetIterator):
             pass
 
     def _depth_gauge(self, depth: int) -> None:
-        """The queue-depth gauge waits for ROADMAP A12."""
+        """The device feed sets ``dl4j_feed_queue_depth``; the host
+        prefetch does not (the reference's gauge is the feed's)."""
 
     def has_next(self):
         if self._peeked is not None:
@@ -337,6 +348,12 @@ class DeviceFeedIterator(_WorkerStage):
 
     def _next_impl(self):
         return claim(super()._next_impl())
+
+    def _depth_gauge(self, depth: int) -> None:
+        # late-bound: a registry swapped in for a run is the one set
+        get_registry().gauge(
+            FEED_QUEUE_DEPTH_GAUGE,
+            "Batches staged on device awaiting the step loop").set(depth)
 
     def async_supported(self) -> bool:
         return False  # already a background stage: never wrapped twice
@@ -400,7 +417,9 @@ class ShapeBucketingIterator(DataSetIterator):
         self._canon: Optional[int] = b if b and b > 0 else None
 
     def _count_padded(self) -> None:
-        """The padded-batch counter waits for ROADMAP A12."""
+        get_registry().counter(
+            FEED_PADDED_BATCHES_COUNTER,
+            "Ragged tail batches padded to the canonical shape").inc()
 
     def _target(self, n: int) -> int:
         if self._canon is None:

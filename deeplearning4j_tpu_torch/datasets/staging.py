@@ -17,6 +17,17 @@ tensor is marked used on that stream (``record_stream``), so that the
 caching allocator does not hand its memory to another tensor while the
 step still reads it.
 
+Each staging runs in a ``stage`` span (path ``device_feed``) and adds
+the bytes of the host arrays it took to ``dl4j_feed_h2d_bytes_total``,
+once per array, here only (the containers do not count them again).
+The reference counts the staged arrays after their cast to the compute
+dtype; the port copies the source dtype and casts on the card, so it
+counts the bytes it copies, in the source dtype: the same number where
+the two dtypes agree. On the CPU nothing crosses a bus, but a host
+array still becomes the net's tensor, so its bytes count there too,
+where the reference's CPU backend counts them; ``copies`` counts only
+the card's copies.
+
 The pinned buffers come from PyTorch's caching host allocator
 (``Tensor.pin_memory``). A non-blocking copy out of pinned memory records
 an event on the copy's stream, and the allocator does not reuse the
@@ -32,6 +43,11 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet, MultiDataSet
+from deeplearning4j_tpu_torch.monitor import (
+    H2D_BYTES_COUNTER,
+    get_registry,
+    span,
+)
 
 # the numpy dtypes ``torch.from_numpy`` takes; others go through float64
 _FROM_NUMPY = {np.dtype(t) for t in (np.float64, np.float32, np.float16,
@@ -65,7 +81,10 @@ class DeviceStager:
     docstring): host arrays are copied, tensors already on the device
     are only cast. One per ``fit`` call; its side stream is made at the
     first batch staged on the card. ``copies`` counts the host-to-device
-    copies made and ``nbytes`` their bytes (in the source dtype)."""
+    copies made on the card, and ``nbytes`` the bytes (in the source
+    dtype) of every host array staged: the card's copies, or on the CPU
+    the host arrays made tensors. ``dl4j_feed_h2d_bytes_total`` ticks by
+    the same bytes."""
 
     def __init__(self, device: torch.device, dtype: torch.dtype):
         self.device = torch.device(device)
@@ -76,9 +95,28 @@ class DeviceStager:
 
     def _stage(self, arrays: Sequence, batch_of):
         """``batch_of(tensors)``, the arrays (None kept) staged."""
+        before = self.nbytes
+        with span("stage", path="device_feed"):
+            batch = self._stage_on_device(arrays, batch_of)
+        if self.nbytes > before:
+            get_registry().counter(
+                H2D_BYTES_COUNTER,
+                "Host->device bytes staged by the feed pipeline").inc(
+                self.nbytes - before)
+        return batch
+
+    def _stage_on_device(self, arrays: Sequence, batch_of):
         if self.device.type != "cuda":
-            return batch_of([None if a is None else _host_tensor(a).to(
-                device=self.device, dtype=self.dtype) for a in arrays])
+            out = []
+            for a in arrays:
+                if a is None:
+                    out.append(None)
+                    continue
+                t = _host_tensor(a)
+                if not isinstance(a, torch.Tensor):
+                    self.nbytes += t.numel() * t.element_size()
+                out.append(t.to(device=self.device, dtype=self.dtype))
+            return batch_of(out)
         with torch.cuda.device(self.device):
             if self.stream is None:
                 self.stream = torch.cuda.Stream(self.device)

@@ -37,26 +37,48 @@ admission's first token) and ``burst_program`` (K paged decode steps
 with a done-mask, EOS and max-new quotas, no host sync inside). Each
 is a cached callable keyed as the reference keys its compiled program;
 each takes the compute-dtype params and writes the pool tensors in
-place. The reference's decode metrics and spans wait for the port's
-monitor (ROADMAP A12), ``export_prefill`` for the serving fleet (A11)
-and the speculative programs for the serving engine (A10).
+place. ``export_prefill`` waits for the serving fleet (ROADMAP A11) and
+the speculative programs for the serving engine (A10).
+
+**Metrics** (``monitor``), the reference's: ``generate`` ticks
+``dl4j_decode_requests_total``; ``run`` labels its prefill and decode
+``compile`` at the first dispatch of their signature (else
+``inference``; paths ``generate_prefill``/``generate_decode``) and
+adds the prompt and generated tokens and the two phases' latencies to
+the decode family. ``run`` still waits on the card once, at its token
+fetch: the reference fences its prefill with a second wait to time it,
+which the port does not. Its phase times come from CUDA events recorded
+between the phases and read after the fetch (``perf_counter`` on the
+CPU), so they are the card's times, the host's enqueue gaps included.
 """
 
 from __future__ import annotations
 
 from typing import Any, List, Optional, Sequence, Tuple
 
+import time
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.datasets.iterators import bucket_for, bucket_sizes
+from deeplearning4j_tpu_torch.monitor import (
+    DECODE_LATENCY_HISTOGRAM,
+    DECODE_PREFILL_LATENCY_HISTOGRAM,
+    DECODE_PREFILL_TOKENS_COUNTER,
+    DECODE_REQUESTS_COUNTER,
+    DECODE_TOKENS_COUNTER,
+    get_registry,
+    span,
+)
 from deeplearning4j_tpu_torch.nn.layers.transformer import (
     SequenceEmbeddingImpl,
     TransformerBlockImpl,
 )
 from deeplearning4j_tpu_torch.nn.quantize import kv_quantize, qtake
 from deeplearning4j_tpu_torch.ops.lstm_kernel import pack_wr
+from deeplearning4j_tpu_torch.optimize.deferred import note_dispatch
 from deeplearning4j_tpu_torch.util.dtypes import cast_floats
 from deeplearning4j_tpu_torch.util.rng import MASK64, mix64 as _mix
 
@@ -156,11 +178,56 @@ def sample_tokens_rowwise(logits, keys, folds, temp_v, top_k_v, top_p_v):
     return torch.where(temp_v > 0.0, sampled, greedy)
 
 
+class _PhaseClock:
+    """Phase boundaries of one call: CUDA events recorded on the
+    device's current stream (read with ``ms`` only after the call's
+    fetch has waited for them, so reading adds no wait), or
+    ``perf_counter`` readings on the CPU."""
+
+    def __init__(self, device: torch.device):
+        self.device = torch.device(device)
+        self.marks: list = []
+
+    def mark(self) -> None:
+        if self.device.type == "cuda":
+            e = torch.cuda.Event(enable_timing=True)
+            e.record(torch.cuda.current_stream(self.device))
+            self.marks.append(e)
+        else:
+            self.marks.append(time.perf_counter())
+
+    def ms(self) -> List[float]:
+        """The milliseconds between consecutive marks."""
+        pairs = zip(self.marks, self.marks[1:])
+        if self.device.type == "cuda":
+            return [a.elapsed_time(b) for a, b in pairs]
+        return [(b - a) * 1e3 for a, b in pairs]
+
+
+def _observe(rows: int, prompt_tokens: int, max_new: int, pre_ms: float,
+             dec_ms: float) -> None:
+    """The decode family of one ``run`` (the reference's ``_observe``)."""
+    reg = get_registry()
+    reg.counter(DECODE_PREFILL_TOKENS_COUNTER,
+                "Prompt tokens prefilled into decode caches").inc(
+        prompt_tokens)
+    reg.counter(DECODE_TOKENS_COUNTER,
+                "Tokens produced by fused decode dispatches").inc(
+        rows * max_new)
+    reg.histogram(DECODE_PREFILL_LATENCY_HISTOGRAM,
+                  "Prefill dispatch latency (one batched prompt "
+                  "forward)").observe(pre_ms)
+    reg.histogram(DECODE_LATENCY_HISTOGRAM,
+                  "Fused decode dispatch latency (all of "
+                  "max_new_tokens in one scan)").observe(dec_ms)
+
+
 class _Generator:
     """The sampling loop both generators share. A generator supplies
     ``_start(params, ids, lengths, max_new) -> (state, logits of each
-    row's last prompt token)`` (ids and lengths on the device) and
-    ``_next(state, tok) -> (state, next logits)``."""
+    row's last prompt token)`` (ids and lengths on the device),
+    ``_next(state, tok) -> (state, next logits)`` and the reference's
+    dispatch signatures of its two phases (``_signatures``)."""
 
     def _begin(self, params, ids, lengths, max_new):
         dev = self.net.device
@@ -176,21 +243,36 @@ class _Generator:
         generated ids. Tokens and the done-mask stay on the device; the
         tokens are fetched once."""
         temperature, top_k, top_p, eos = sampler
-        len_d, state, logits0 = self._begin(params, ids, lengths, max_new)
-        tok = sample_tokens(logits0, keys, 0, temperature, top_k, top_p)
-        if eos is not None:
-            tok = torch.where(len_d == 0, eos, tok)
-            done = tok == eos
-        out = [tok]
-        for s in range(1, max_new):
-            state, logits = self._next(state, tok)
-            nxt = sample_tokens(logits, keys, s, temperature, top_k, top_p)
+        b, t_pad = np.shape(ids)
+        pre_sig, dec_sig = self._signatures(b, t_pad, max_new)
+        clock = _PhaseClock(self.net.device)
+        fresh = note_dispatch(self.net, pre_sig)
+        clock.mark()
+        with span("compile" if fresh else "inference",
+                  path="generate_prefill", bucket=t_pad, rows=b):
+            len_d, state, logits0 = self._begin(params, ids, lengths, max_new)
+        clock.mark()
+        fresh = note_dispatch(self.net, dec_sig + tuple(sampler))
+        with span("compile" if fresh else "inference",
+                  path="generate_decode", rows=b, max_new=max_new):
+            tok = sample_tokens(logits0, keys, 0, temperature, top_k, top_p)
             if eos is not None:
-                nxt = torch.where(done, eos, nxt)
-                done = done | (nxt == eos)
-            out.append(nxt)
-            tok = nxt
-        return torch.stack(out, dim=1).cpu().numpy()
+                tok = torch.where(len_d == 0, eos, tok)
+                done = tok == eos
+            out = [tok]
+            for s in range(1, max_new):
+                state, logits = self._next(state, tok)
+                nxt = sample_tokens(logits, keys, s, temperature, top_k, top_p)
+                if eos is not None:
+                    nxt = torch.where(done, eos, nxt)
+                    done = done | (nxt == eos)
+                out.append(nxt)
+                tok = nxt
+            toks = torch.stack(out, dim=1)
+            clock.mark()
+            toks = toks.cpu().numpy()  # the call's one wait on the card
+        _observe(b, int(np.sum(lengths)), max_new, *clock.ms())
+        return toks
 
     def run_eager(self, params, ids, lengths, max_new, sampler, keys
                   ) -> np.ndarray:
@@ -285,6 +367,12 @@ class TransformerGenerator(_Generator):
         caches, logits0 = self.prefill(pc, ids, lengths,
                                        ids.shape[1] + max_new)
         return (pc, caches, lengths.clone()), logits0
+
+    @staticmethod
+    def _signatures(b: int, t_pad: int, max_new: int):
+        cache_len = t_pad + max_new
+        return (("gen_prefill", None, b, t_pad, cache_len),
+                ("gen_decode", None, b, cache_len, max_new))
 
     def _next(self, state, tok):
         pc, caches, pos = state
@@ -551,6 +639,11 @@ class RecurrentGenerator(_Generator):
         rstate, logits0 = self.prefill(params, ids, lengths)
         return (params, rstate), logits0
 
+    @staticmethod
+    def _signatures(b: int, t_pad: int, max_new: int):
+        return (("gen_rnn_prefill", None, b, t_pad),
+                ("gen_rnn_decode", None, b, max_new))
+
     def _next(self, state, tok):
         params, rstate = state
         rstate, logits = self.step(params, rstate, tok)
@@ -635,6 +728,8 @@ def generate(net, prompt_ids, max_new_tokens: int, *,
     seeded per row by ``seed``."""
     gen, prompt, ids, lengths, max_new = _prep(net, prompt_ids,
                                                max_new_tokens)
+    get_registry().counter(DECODE_REQUESTS_COUNTER,
+                           "generate() requests").inc()
     toks = gen.run(net.params, ids, lengths, max_new,
                    sampler_sig(temperature, top_k, top_p, eos_token),
                    row_keys(seed, prompt.shape[0]))

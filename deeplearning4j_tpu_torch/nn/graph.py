@@ -23,7 +23,10 @@ reference's trees, so they carry across both ways
 (``util/model_serializer.py``). ``pretrain`` trains the RBM and
 AutoEncoder vertices one by one on the frozen activations of their
 inputs; a quantized graph (``nn/quantize.py``) refuses ``fit``. Each
-step runs eagerly.
+step runs eagerly. Its spans are the reference's: ``data_load`` (path
+``graph_fit``, and ``stage_scan``), ``compile``/``device_step`` per step
+and around ``fit_scan`` (path ``graph_fit_scan``), ``eval`` (path
+``graph_score``), as ``MultiLayerNetwork``'s.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from deeplearning4j_tpu_torch.datasets.iterators import (
     wrap_feed,
 )
 from deeplearning4j_tpu_torch.datasets.staging import stager_of
+from deeplearning4j_tpu_torch.monitor import span
 from deeplearning4j_tpu_torch.nn.conf import layers as L
 from deeplearning4j_tpu_torch.nn.conf.configuration import (
     BackpropType,
@@ -59,11 +63,12 @@ from deeplearning4j_tpu_torch.nn.multilayer import (
     apply_updates,
     pretrain_update,
     refuse_quantized,
+    scan_dispatch,
     stage_arrays,
     update_specs,
 )
 from deeplearning4j_tpu_torch.nn.updater import init_updater_state
-from deeplearning4j_tpu_torch.optimize.deferred import score_sink
+from deeplearning4j_tpu_torch.optimize.deferred import note_dispatch, score_sink
 from deeplearning4j_tpu_torch.util.device import DeviceLike, resolve_device
 from deeplearning4j_tpu_torch.util.dtypes import (
     cast_floats,
@@ -298,6 +303,9 @@ class ComputationGraph:
             ucfg = self._specs[name][2]
             upd[name] = {n: init_updater_state(ucfg, v) for n, v in p.items()}
         self.opt_state = {"step": 0, "updater": upd}
+        # fresh parameters: every signature dispatches anew
+        self.__dict__.pop("_dispatch_sigs", None)
+        self.__dict__.pop("_scan_sigs", None)
         self._pretrained = False
         return self
 
@@ -530,10 +538,20 @@ class ComputationGraph:
                         for f in mds.features)):
             self._fit_tbptt(mds)
             return
-        inputs, labels, fmasks, lmasks = self._tensors(mds)
+        with span("data_load", path="graph_fit"):
+            # a staged batch's tensors pass as they are
+            inputs, labels, fmasks, lmasks = self._tensors(mds)
+        sig = lambda d, dt=False: tuple(sorted(  # noqa: E731
+            (n, tuple(a.shape)) + ((str(a.dtype),) if dt else ())
+            for n, a in d.items()))
+        compiling = note_dispatch(self, ("train", None, sig(inputs, True),
+                                         sig(labels), sig(fmasks),
+                                         sig(lmasks)))
         sink = score_sink(self)
         for _ in range(max(1, self.gc.iterations)):
-            score = self._train_step(inputs, labels, fmasks, lmasks)
+            with span("compile" if compiling else "device_step"):
+                score = self._train_step(inputs, labels, fmasks, lmasks)
+            compiling = False
             sink.push(self.opt_state["step"], score)  # fetched in batches
             if not self._defer_scores:
                 sink.flush()
@@ -601,7 +619,9 @@ class ComputationGraph:
         by_output = dict(zip(self.output_names, mds.labels))
         arrays = {("x", n): f for n, f in zip(self.input_names, mds.features)}
         arrays.update({("y", n): by_output[n] for n in self.loss_outputs})
-        staged = stage_arrays(arrays, batch_size, self._dtype, self.device)
+        n = (int(mds.features[0].shape[0]) // batch_size) * batch_size
+        with span("data_load", path="stage_scan", examples=n):
+            staged = stage_arrays(arrays, batch_size, self._dtype, self.device)
         return ({n: t for (k, n), t in staged.items() if k == "x"},
                 {n: t for (k, n), t in staged.items() if k == "y"})
 
@@ -619,14 +639,16 @@ class ComputationGraph:
         iters = max(1, self.gc.iterations)
         scores = torch.empty(epochs * steps, device=self.device,
                              dtype=torch.promote_types(self._dtype, torch.float32))
-        for e in range(epochs):
-            for s in range(steps):
-                xs = {n: t[s] for n, t in xb.items()}
-                ys = {n: t[s] for n, t in yb.items()}
-                for _ in range(iters):
-                    score = self._train_step(xs, ys, {}, {})
-                scores[e * steps + s] = score
-        out = scores.cpu().numpy()
+        with span("compile" if scan_dispatch(self, epochs) else "device_step",
+                  path="graph_fit_scan", epochs=epochs):
+            for e in range(epochs):
+                for s in range(steps):
+                    xs = {n: t[s] for n, t in xb.items()}
+                    ys = {n: t[s] for n, t in yb.items()}
+                    for _ in range(iters):
+                        score = self._train_step(xs, ys, {}, {})
+                    scores[e * steps + s] = score
+            out = scores.cpu().numpy()
         self._score = float(out[-1])
         return out
 
@@ -724,7 +746,7 @@ class ComputationGraph:
         if data is None:
             return float(self._score)
         inputs, labels, fmasks, lmasks = self._tensors(self._to_mds(data))
-        with torch.no_grad():
+        with span("eval", path="graph_score"), torch.no_grad():
             return float(self._score_fn(self.params, self.states, inputs, labels,
                                         False, None, fmasks, lmasks)[0])
 

@@ -47,9 +47,15 @@ gives each entry as numpy arrays: the stored values, in float32 where
 numpy has no type for them (bfloat16, fp8), which :meth:`host_insert`
 casts back exactly.
 
-The reference's gauges and counters (``dl4j_kvpool_*``, ``dl4j_kvtier_*``)
-wait for the port's monitor (ROADMAP A12); ``sharding=`` waits for the
-port's mesh (A9).
+Metrics, the reference's (``monitor``): after every change the pool
+publishes ``dl4j_kvpool_blocks_total`` / ``dl4j_kvpool_blocks_free``,
+``dl4j_kvtier_host_blocks`` with a host tier and
+``dl4j_quant_kv_blocks`` when quantized (each labelled ``pool=``); a
+failed allocation ticks ``dl4j_kvpool_alloc_failures_total``, the host
+tier's swaps ``dl4j_kvtier_swap_out_total`` / ``_swap_in_total`` and
+the ``dl4j_kvtier_swap_latency_ms`` histogram, and :meth:`attribution`
+sets the ``dl4j_attr_kv_*byte_seconds`` gauges per owner. All are host
+counts. ``sharding=`` waits for the port's mesh (A9).
 """
 
 from __future__ import annotations
@@ -62,6 +68,19 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.monitor import (
+    ATTR_KV_BYTE_SECONDS_GAUGE,
+    ATTR_KV_HOST_BYTE_SECONDS_GAUGE,
+    KVPOOL_ALLOC_FAILURES_COUNTER,
+    KVPOOL_BLOCKS_FREE_GAUGE,
+    KVPOOL_BLOCKS_TOTAL_GAUGE,
+    KVTIER_HOST_BLOCKS_GAUGE,
+    KVTIER_SWAP_IN_COUNTER,
+    KVTIER_SWAP_LATENCY_HISTOGRAM,
+    KVTIER_SWAP_OUT_COUNTER,
+    QUANT_KV_BLOCKS_GAUGE,
+    get_registry,
+)
 from deeplearning4j_tpu_torch.nn.quantize import kv_qparams
 from deeplearning4j_tpu_torch.util.device import DeviceLike, resolve_device
 
@@ -181,6 +200,7 @@ class PagedKVCachePool:
         self._owner_bs: Dict[str, float] = {}        # owner -> byte-seconds
         self._pool_bs = 0.0
         self._attr_t = self._clock()
+        self._publish()
 
     def _tick_attr_locked(self) -> None:
         """Bill the interval since the last tick (callers hold _lock)."""
@@ -245,6 +265,10 @@ class PagedKVCachePool:
         if got is None:
             with self._lock:
                 self._alloc_failures += 1
+            get_registry().counter(
+                KVPOOL_ALLOC_FAILURES_COUNTER,
+                "KV block allocations that found the pool exhausted",
+                pool=self.name).inc()
         self._publish()
         return got
 
@@ -396,9 +420,9 @@ class PagedKVCachePool:
                 return None
             handles = self._host_file(datas, tag)
         self.free_blocks(ids, owner)
-        self._swap_out_ms = _ewma(self._swap_out_ms,
-                                  (time.perf_counter() - t0) * 1e3
-                                  / len(handles))
+        per_blk = (time.perf_counter() - t0) * 1e3 / len(handles)
+        self._swap_out_ms = _ewma(self._swap_out_ms, per_blk)
+        self._count_swap("out", len(handles), per_blk)
         self._publish()
         return handles
 
@@ -427,11 +451,27 @@ class PagedKVCachePool:
                 for comp, val in per.items():
                     layer[comp][b] = val.to(layer[comp].device)
         self.free_host(handles, owner)
-        self._swap_in_ms = _ewma(self._swap_in_ms,
-                                 (time.perf_counter() - t0) * 1e3
-                                 / len(handles))
+        per_blk = (time.perf_counter() - t0) * 1e3 / len(handles)
+        self._swap_in_ms = _ewma(self._swap_in_ms, per_blk)
+        self._count_swap("in", len(handles), per_blk)
         self._publish()
         return got
+
+    def _count_swap(self, direction: str, blocks: int, per_blk: float) -> None:
+        reg = get_registry()
+        if direction == "out":
+            reg.counter(KVTIER_SWAP_OUT_COUNTER,
+                        "KV blocks demoted device→host (contents copied, "
+                        "device block freed)", pool=self.name).inc(blocks)
+        else:
+            reg.counter(KVTIER_SWAP_IN_COUNTER,
+                        "KV blocks promoted host→device (contents scattered "
+                        "into freshly allocated blocks)",
+                        pool=self.name).inc(blocks)
+        reg.histogram(KVTIER_SWAP_LATENCY_HISTOGRAM,
+                      "Per-block KV tier swap latency (dir=out D2H, "
+                      "dir=in H2D — the resume-crossover input)",
+                      dir=direction).observe(per_blk)
 
     def free_host(self, handles: List[int],
                   owner: Optional[str] = None) -> None:
@@ -560,13 +600,25 @@ class PagedKVCachePool:
         total_byte_seconds``."""
         with self._lock:
             self._tick_attr_locked()
-            return {"pool": self.name, "block_bytes": self._block_bytes,
-                    "byte_seconds": dict(self._owner_bs),
-                    "held_refs": dict(self._owner_refs),
-                    "total_byte_seconds": self._pool_bs,
-                    "host_byte_seconds": dict(self._owner_host_bs),
-                    "held_host_refs": dict(self._owner_host_refs),
-                    "host_total_byte_seconds": self._host_bs}
+            out = {"pool": self.name, "block_bytes": self._block_bytes,
+                   "byte_seconds": dict(self._owner_bs),
+                   "held_refs": dict(self._owner_refs),
+                   "total_byte_seconds": self._pool_bs,
+                   "host_byte_seconds": dict(self._owner_host_bs),
+                   "held_host_refs": dict(self._owner_host_refs),
+                   "host_total_byte_seconds": self._host_bs}
+        reg = get_registry()
+        for owner, bs in out["byte_seconds"].items():
+            reg.gauge(ATTR_KV_BYTE_SECONDS_GAUGE,
+                      "Cumulative KV-block byte-seconds held, per owner",
+                      pool=self.name, owner=owner).set(bs)
+        for owner, bs in out["host_byte_seconds"].items():
+            reg.gauge(ATTR_KV_HOST_BYTE_SECONDS_GAUGE,
+                      "Cumulative HOST-tier KV byte-seconds held, per "
+                      "owner (host RAM billed separately from device "
+                      "HBM — the conservation law holds per tier)",
+                      pool=self.name, owner=owner).set(bs)
+        return out
 
     def block_bytes(self) -> int:
         """Device bytes one logical block takes across every layer's K
@@ -599,8 +651,25 @@ class PagedKVCachePool:
         self.layers = layers
 
     def _publish(self) -> None:
-        """The reference's pool gauges; they wait for the port's monitor
-        (ROADMAP A12)."""
+        """The pool's gauges, from host counts."""
+        reg = get_registry()
+        reg.gauge(KVPOOL_BLOCKS_TOTAL_GAUGE,
+                  "Allocatable KV cache blocks in the paged pool",
+                  pool=self.name).set(self.total_blocks)
+        with self._lock:
+            free = len(self._free)
+            host_used = len(self._host)
+        reg.gauge(KVPOOL_BLOCKS_FREE_GAUGE,
+                  "KV cache blocks currently free in the paged pool",
+                  pool=self.name).set(free)
+        if self._host_budget:
+            reg.gauge(KVTIER_HOST_BLOCKS_GAUGE,
+                      "KV blocks resident in the host-RAM tier",
+                      pool=self.name).set(host_used)
+        if self.quant is not None:
+            reg.gauge(QUANT_KV_BLOCKS_GAUGE,
+                      "Allocatable blocks held in QUANTIZED (int8/fp8) "
+                      "paged pools", pool=self.name).set(self.total_blocks)
 
 
 def _release_tag(owners: List[str], tag: str) -> str:

@@ -5,7 +5,7 @@ Counterpart of ``deeplearning4j_tpu/nn/layers/attention.py`` without a
 sequence mesh: ``dispatch_attention`` is the flash wrapper, whose own
 rules send key masks and awkward lengths to the plain formulation (the
 reference's dispatch gate). Ring attention and the ``xla_attention()``
-override wait for ROADMAP Queue A10.
+override wait for the port's mesh, ROADMAP Queue A9.
 """
 
 from __future__ import annotations

@@ -34,6 +34,17 @@ bf16 ``compute_dtype`` the layers compute on a bf16 copy of the
 parameters, the head's logits and the loss stay f32, and the gradients,
 the updater state and the parameters are f32. Unlike the reference,
 which compiles the whole step into one program, each step runs eagerly.
+
+Telemetry (``monitor``) as in the reference: ``fit``'s batches in
+``data_load`` spans (path ``fit``), each step in a ``compile`` span at
+the first dispatch of its signature (``optimize/deferred.py``
+``note_dispatch``) and a ``device_step`` span after; ``stage_scan`` in
+``data_load`` (path ``stage_scan``), ``fit_scan`` in one
+``compile``/``device_step`` span (path ``fit_scan``, its score fetch
+inside, as in the reference), ``predict`` in ``inference``,
+``evaluate``'s batches and ``score`` in ``eval``. ``output`` has no
+span, as in the reference. A span times the host's enqueue
+(``monitor/tracing.py``).
 """
 
 from __future__ import annotations
@@ -52,6 +63,7 @@ from deeplearning4j_tpu_torch.datasets.iterators import (
     wrap_feed,
 )
 from deeplearning4j_tpu_torch.datasets.staging import stager_of
+from deeplearning4j_tpu_torch.monitor import span
 from deeplearning4j_tpu_torch.nn.conf.configuration import (
     BackpropType,
     MultiLayerConfiguration,
@@ -64,7 +76,7 @@ from deeplearning4j_tpu_torch.nn.updater import (
     init_updater_state,
     normalize_gradient,
 )
-from deeplearning4j_tpu_torch.optimize.deferred import score_sink
+from deeplearning4j_tpu_torch.optimize.deferred import note_dispatch, score_sink
 from deeplearning4j_tpu_torch.util.device import DeviceLike, resolve_device
 from deeplearning4j_tpu_torch.util.dtypes import (
     cast_floats,
@@ -179,6 +191,9 @@ class MultiLayerNetwork:
             upd[impl.name] = {n: init_updater_state(ucfg, v) for n, v in p.items()}
         self.opt_state = {"step": 0, "updater": upd}
         self._pretrained = False
+        # fresh parameters: every signature dispatches anew
+        self.__dict__.pop("_dispatch_sigs", None)
+        self.__dict__.pop("_scan_sigs", None)
         return self
 
     def set_listeners(self, *listeners) -> None:
@@ -254,9 +269,13 @@ class MultiLayerNetwork:
                                 train=train, rng=0 if train else None)
         return [_numpy(a) for a in acts]
 
-    @torch.no_grad()
     def predict(self, x) -> np.ndarray:
         """Class ids: the argmax of ``output``, taken on the device."""
+        with span("inference", path="predict"):
+            return self._predict_ids(x)
+
+    @torch.no_grad()
+    def _predict_ids(self, x) -> np.ndarray:
         acts, _ = self._forward(self.params, self.states, self._tensor(x))
         return torch.argmax(acts[-1], dim=-1).cpu().numpy().astype(np.int64)
 
@@ -271,17 +290,32 @@ class MultiLayerNetwork:
         if isinstance(data, DataSet):
             data = ListDataSetIterator(data, batch_size or data.num_examples())
         ev = Evaluation(num_classes=num_classes, labels_list=labels_list)
+        pad_safe = self._pad_tail_safe()
+        canon: Optional[int] = None
         for ds in data:
             labels = np.asarray(ds.labels)
             masked = ds.features_mask is not None or ds.labels_mask is not None
-            if (not masked and labels.ndim == 2
-                    and not np.issubdtype(labels.dtype, np.integer)):
-                ev._ensure(labels.shape[-1])
-                ev.confusion.add_batch(np.argmax(labels, axis=-1),
-                                       self.predict(ds.features))
-            else:
-                ev.eval(labels, self.output(ds.features,
-                                            features_mask=ds.features_mask),
+            fast = (not masked and labels.ndim == 2
+                    and not np.issubdtype(labels.dtype, np.integer))
+            n = int(np.shape(ds.features)[0])
+            canon = n if canon is None else canon
+            # the reference pads a short tail to the first batch's rows so
+            # that one program serves every batch; the port runs the tail
+            # as it is, and signs it as the reference's padded dispatch
+            rows = canon if pad_safe and not masked and n < canon else n
+            compiling = note_dispatch(self, (
+                "predict" if fast else "output", False, None,
+                (rows,) + tuple(np.shape(ds.features)[1:]),
+                str(_dtype_of(ds.features))))
+            with span("eval", path="evaluate", compile=bool(compiling),
+                      rows=n):
+                if fast:
+                    ev._ensure(labels.shape[-1])
+                    ev.confusion.add_batch(np.argmax(labels, axis=-1),
+                                           self._predict_ids(ds.features))
+                else:
+                    ev.eval(labels, self.output(
+                        ds.features, features_mask=ds.features_mask),
                         mask=ds.labels_mask)
         return ev
 
@@ -481,10 +515,15 @@ class MultiLayerNetwork:
                 and ds.features.shape[1] > self.conf.tbptt_fwd_length):
             self._fit_tbptt(ds)
             return
-        x, y, fm, lm = self._batch(ds)
+        with span("data_load", path="fit"):
+            # a staged batch's tensors pass as they are
+            x, y, fm, lm = self._batch(ds)
+        compiling = note_dispatch(self, train_signature(x, y, fm, lm))
         sink = score_sink(self)
         for _ in range(max(1, self.gc.iterations)):
-            score = self._train_step(x, y, fm, lm)
+            with span("compile" if compiling else "device_step"):
+                score = self._train_step(x, y, fm, lm)
+            compiling = False
             # the score stays on the device until a listener's frequency,
             # the ring's capacity or the end of fit() asks for it; without
             # the feed pipeline, at once
@@ -503,8 +542,10 @@ class MultiLayerNetwork:
         warning."""
         if ds.features_mask is not None or ds.labels_mask is not None:
             raise ValueError("fit_scan does not support masked DataSets; use fit()")
-        staged = stage_arrays({"x": ds.features, "y": ds.labels},
-                              batch_size, self._dtype, self.device)
+        n = (ds.num_examples() // batch_size) * batch_size
+        with span("data_load", path="stage_scan", examples=n):
+            staged = stage_arrays({"x": ds.features, "y": ds.labels},
+                                  batch_size, self._dtype, self.device)
         return staged["x"], staged["y"]
 
     def fit_scan(self, ds: Optional[DataSet], batch_size: int, epochs: int = 1,
@@ -521,12 +562,14 @@ class MultiLayerNetwork:
         steps, iters = xb.shape[0], max(1, self.gc.iterations)
         scores = torch.empty(epochs * steps, device=self.device,
                              dtype=torch.promote_types(self._dtype, torch.float32))
-        for e in range(epochs):
-            for s in range(steps):
-                for _ in range(iters):
-                    score = self._train_step(xb[s], yb[s], None, None)
-                scores[e * steps + s] = score
-        out = scores.cpu().numpy()
+        with span("compile" if scan_dispatch(self, epochs) else "device_step",
+                  path="fit_scan", epochs=epochs):
+            for e in range(epochs):
+                for s in range(steps):
+                    for _ in range(iters):
+                        score = self._train_step(xb[s], yb[s], None, None)
+                    scores[e * steps + s] = score
+            out = scores.cpu().numpy()
         self._score = float(out[-1])
         return out
 
@@ -536,7 +579,7 @@ class MultiLayerNetwork:
         if ds is None:
             return float(self._score)
         x, y, fm, lm = self._batch(ds)
-        with torch.no_grad():
+        with span("eval", path="score"), torch.no_grad():
             return float(self._score_fn(self.params, self.states, x, y,
                                         False, None, fm, lm)[0])
 
@@ -716,6 +759,30 @@ def add_aux_losses(score: torch.Tensor, states: Dict[str, Any]) -> torch.Tensor:
         if isinstance(ns, dict) and AUX_LOSS_KEY in ns:
             score = score + ns[AUX_LOSS_KEY].to(score.dtype)
     return score
+
+
+def train_signature(x, y, fm, lm) -> tuple:
+    """A train step's dispatch signature, the reference's: the masks'
+    presence, the mesh token (None until ROADMAP A9), the operands'
+    shapes and dtypes (an absent mask as the reference's 0-d one)."""
+    shape = lambda t: () if t is None else tuple(t.shape)  # noqa: E731
+    return ("train", fm is not None, lm is not None, None,
+            tuple(x.shape), str(x.dtype), tuple(y.shape), str(y.dtype),
+            shape(fm), shape(lm))
+
+
+def scan_dispatch(net, epochs: int) -> bool:
+    """Whether ``fit_scan`` at ``epochs`` runs for the first time since
+    ``init``: the reference labels that call ``compile`` (its scan over
+    ``epochs`` is one program), without counting a dispatch miss."""
+    seen = net.__dict__.setdefault("_scan_sigs", set())
+    fresh = epochs not in seen
+    seen.add(epochs)
+    return fresh
+
+
+def _dtype_of(a):
+    return a.dtype if hasattr(a, "dtype") else np.asarray(a).dtype
 
 
 def refuse_quantized(net) -> None:

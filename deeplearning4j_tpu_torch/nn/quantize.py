@@ -22,6 +22,13 @@ Counterpart of ``deeplearning4j_tpu/nn/quantize.py``:
   pool's scatter and gather (``nn/kvpool.py``): one float32 scale per
   (position, head) over head_dim, so a re-prefill stores the same bytes
   as the incremental decode writes it replays.
+
+Metrics, the reference's: ``dl4j_quant_models{dtype}`` counts the nets
+:func:`quantize` made in this process, ``dl4j_quant_scale_absmax{layer,
+param}`` is each quantized matrix's largest scale (set from the card's
+value without waiting on it: the registry reads it when read),
+``dl4j_quant_accuracy_gate_outcome_total{outcome}`` counts the gate's
+verdicts.
 """
 
 from __future__ import annotations
@@ -30,6 +37,13 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from deeplearning4j_tpu_torch.monitor import (
+    QUANT_GATE_OUTCOME_COUNTER,
+    QUANT_MODELS_GAUGE,
+    QUANT_SCALE_ABSMAX_GAUGE,
+    get_registry,
+)
 
 #: params-dict suffix marking a weight as quantized: ``params["W"]`` is
 #: the int8/fp8 tensor and ``params["W" + QSCALE]`` its float32
@@ -197,6 +211,10 @@ def _iter_impls(net) -> List[Any]:
     return list(impls)
 
 
+#: nets quantize() made in this process, per storage mode
+_quantized_nets: Dict[str, int] = {}
+
+
 def quantized_param_bytes(params: Dict[str, Dict[str, torch.Tensor]]) -> int:
     """The byte footprint of a params tree."""
     return sum(t.numel() * t.element_size()
@@ -223,6 +241,7 @@ def quantize(net, dtype: str = "int8"):
             "original")
     clone = type(net)(net.conf, device=net.device)
     clone.init(dtype=net._dtype)
+    reg = get_registry()
     by_name = {impl.name: impl for impl in _iter_impls(clone)}
     new_params: Dict[str, Dict[str, Any]] = {}
     for lname, p in net.params.items():
@@ -232,6 +251,11 @@ def quantize(net, dtype: str = "int8"):
         for pname, v in p.items():
             if pname in targets and v.ndim == 2:
                 q[pname], q[pname + QSCALE] = quantize_array(v, dtype)
+                reg.gauge(
+                    QUANT_SCALE_ABSMAX_GAUGE,
+                    "Largest per-output-channel dequant scale per "
+                    "quantized weight matrix",
+                    layer=lname, param=pname).set(q[pname + QSCALE].max())
             else:
                 q[pname] = v
         new_params[lname] = q
@@ -239,6 +263,10 @@ def quantize(net, dtype: str = "int8"):
     clone.states = {k: dict(v) if isinstance(v, dict) else v
                     for k, v in net.states.items()}
     clone.quantized = dtype
+    _quantized_nets[dtype] = _quantized_nets.get(dtype, 0) + 1
+    reg.gauge(QUANT_MODELS_GAUGE,
+              "Quantized nets produced by quantize() in this process",
+              dtype=dtype).set(float(_quantized_nets[dtype]))
     return clone
 
 
@@ -317,6 +345,10 @@ def accuracy_gate(ref_net, cand_net, ids: Optional[np.ndarray] = None, *,
     passed = match >= min_greedy_match and delta <= max_eval_delta
     if max_logit_mse is not None:
         passed = passed and mse <= max_logit_mse
+    get_registry().counter(
+        QUANT_GATE_OUTCOME_COUNTER,
+        "Quantization accuracy-gate verdicts by outcome",
+        outcome="pass" if passed else "fail").inc()
     return {
         "passed": bool(passed),
         "greedy_match_rate": round(match, 6),

@@ -16,12 +16,25 @@ Listeners still receive every iteration's exact score, in order; the
 calls arrive in bursts, so a listener that reads ``model.params`` during
 a burst sees the parameters at the fetch, not at its iteration.
 
+Each fetch runs inside a ``score_sync`` span (its ``count`` the scores
+fetched) and ticks ``dl4j_score_sync_total`` once: the ring's fetch is
+the only host wait on the card that either adds, and it was there
+before them.
+
 ``host_step``/``set_host_step`` keep the reference's names. The
 reference mirrors its device step counter on the host; the port's
 ``opt_state["step"]`` is a host int already, so they read and set it.
-The reference's ``note_dispatch`` counts XLA traces, which eager torch
-has none of: it waits, with the registry counter of the fetches and
-their span, for ROADMAP A12.
+
+:func:`note_dispatch` keeps the reference's meaning: the first dispatch
+of a (program kind, operand shapes, dtypes) signature. The reference
+traces and compiles there; the port has no trace, but on the card that
+dispatch is the one that builds kernels at first use and autotunes
+cuBLAS and cuDNN for the new shapes. Callers label its span ``compile``
+(later ones ``device_step`` or ``inference``) and every first-seen
+signature ticks ``dl4j_jit_cache_miss_total``, so the span sequence
+reads as the reference's, and shape bucketing's "one miss per bucket"
+means what it does there. The signatures hold the reference's mesh
+token slot as ``None`` until the port has a mesh (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -30,6 +43,13 @@ import threading
 from typing import List, Tuple
 
 import torch
+
+from deeplearning4j_tpu_torch.monitor import (
+    JIT_CACHE_MISS_COUNTER,
+    SCORE_SYNC_COUNTER,
+    get_registry,
+    span,
+)
 
 
 def host_step(model) -> int:
@@ -59,7 +79,8 @@ class DeferredScoreSync:
     """Ring of (iteration, device-scalar score) waiting to be fetched.
 
     ``push`` is called once per step with the step's score; ``flush``
-    fetches every pending score in one stacked copy, sets
+    fetches every pending score in one stacked copy (one
+    ``dl4j_score_sync_total`` tick), sets
     ``model._score`` to the last as a host float, and replays the
     listeners in iteration order. ``flushes`` counts the calls that
     fetched, ``flush_calls`` every call."""
@@ -94,7 +115,11 @@ class DeferredScoreSync:
                 return
             pending, self._pending = self._pending, []
             self.flushes += 1
-        vals = torch.stack([s for _, s in pending]).cpu().tolist()
+        with span("score_sync", count=len(pending)):
+            vals = torch.stack([s for _, s in pending]).cpu().tolist()
+        get_registry().counter(
+            SCORE_SYNC_COUNTER,
+            "Device->host score fetches (each is a chip round-trip)").inc()
         m = self.model
         m._score = float(vals[-1])
         listeners = list(getattr(m, "listeners", None) or [])
@@ -110,3 +135,19 @@ def score_sink(model) -> DeferredScoreSync:
     if s is None:
         s = model.__dict__["_deferred_scores"] = DeferredScoreSync(model)
     return s
+
+
+def note_dispatch(model, sig) -> bool:
+    """Record a dispatch signature (program kind + operand shapes and
+    dtypes); True the first time it is seen (the caller labels that
+    dispatch's span ``compile``), and each first-seen signature ticks
+    ``dl4j_jit_cache_miss_total``. The set lives on the model and
+    ``init()`` resets it, as the reference's jit cache."""
+    seen = model.__dict__.setdefault("_dispatch_sigs", set())
+    if sig in seen:
+        return False
+    seen.add(sig)
+    get_registry().counter(
+        JIT_CACHE_MISS_COUNTER,
+        "Train-step dispatches that traced+compiled a fresh program").inc()
+    return True

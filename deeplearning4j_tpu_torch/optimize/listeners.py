@@ -15,6 +15,8 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from deeplearning4j_tpu_torch.monitor import get_registry
+
 logger = logging.getLogger("deeplearning4j_tpu_torch")
 
 
@@ -40,26 +42,41 @@ class ScoreIterationListener(IterationListener):
 class PerformanceListener(IterationListener):
     """Iterations/s (and examples/s where the model reports its
     ``last_batch_size``) between reports, kept on the listener and
-    logged."""
+    logged. The rates also publish into the metrics registry
+    (``monitor``, or ``registry=``) as the ``dl4j_iterations_per_sec``
+    and ``dl4j_examples_per_sec`` gauges, beside a
+    ``dl4j_iterations_total`` counter of every iteration seen."""
 
-    def __init__(self, frequency: int = 1, report_examples: bool = True):
+    def __init__(self, frequency: int = 1, report_examples: bool = True,
+                 registry=None):
         self.frequency = max(1, frequency)
         self.report_examples = report_examples
+        self._registry = registry
         self._last_time: Optional[float] = None
         self._last_iter = 0
         self.last_iters_per_sec: float = float("nan")
         self.last_examples_per_sec: float = float("nan")
 
+    def _reg(self):
+        return self._registry if self._registry is not None else get_registry()
+
     def iteration_done(self, model, iteration, score):
         now = time.perf_counter()
+        reg = self._reg()
+        reg.counter("dl4j_iterations_total", "Training iterations seen").inc()
         if self._last_time is not None and iteration % self.frequency == 0:
             dt = now - self._last_time
             di = iteration - self._last_iter
             if dt > 0 and di > 0:
                 self.last_iters_per_sec = di / dt
+                reg.gauge("dl4j_iterations_per_sec",
+                          "Training throughput").set(self.last_iters_per_sec)
                 batch = getattr(model, "last_batch_size", None)
                 if batch:
                     self.last_examples_per_sec = self.last_iters_per_sec * batch
+                    reg.gauge("dl4j_examples_per_sec",
+                              "Example throughput").set(
+                        self.last_examples_per_sec)
                 logger.info("iteration %d: %.2f iter/sec, score %s",
                             iteration, self.last_iters_per_sec, score)
         if iteration % self.frequency == 0:

@@ -16,7 +16,9 @@ package resumes in the other.
 - ``resume_or_start`` brings back the model (on the trainer's model's
   device) and rewinds the iterator; training goes on with the same step
   and updater schedule, so an iterator that replays the same stream
-  makes the resumed run equal the uninterrupted one.
+  makes the resumed run equal the uninterrupted one. Each unreadable
+  unit a resume skips ticks ``dl4j_fault_events_total{domain=
+  "checkpoint"}``.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import tempfile
 from typing import Optional
 
 from deeplearning4j_tpu_torch.datasets.iterators import DataSetIterator
+from deeplearning4j_tpu_torch.monitor import record_fault
 from deeplearning4j_tpu_torch.util.model_serializer import (
     fsync_dir,
     restore_model,
@@ -124,6 +127,7 @@ class ResumableTrainer:
                 with open(os.path.join(unit, _CURSOR)) as f:
                     cursor = json.load(f)
             except Exception as e:
+                record_fault("checkpoint")
                 logger.warning(
                     "resume_or_start: checkpoint unit %s is unreadable "
                     "(%s: %s); falling back to the previous unit",

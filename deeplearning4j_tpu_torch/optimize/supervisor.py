@@ -21,7 +21,12 @@ learning rates reach the updater through the containers' updater specs,
 which they build at construction (``update_specs``), so a backoff
 rebuilds them. The reference's ``DL4J_TPU_DISABLE_SUPERVISOR`` switch
 is not ported (the env seams are left out); ``enabled=False`` makes a
-pass-through. Its fault counter and marks wait for ROADMAP A12.
+pass-through. Each rollback ticks ``dl4j_fault_events_total{domain=
+"training"}`` and ``dl4j_fault_rollbacks_total`` and marks
+``training_rollback`` in the trace; giving up marks
+``training_diverged``. Unlike the reference, a rollback does not empty
+the model's dispatch signatures: its steps are the same eager code at
+the new rates, with no program to build again.
 
 With ``ResumableTrainer.fit(..., supervisor=...)`` the rollback and LR
 state ride in the checkpoint's cursor.
@@ -33,6 +38,12 @@ import json
 import math
 from typing import Any, Dict, List, Optional
 
+from deeplearning4j_tpu_torch.monitor import (
+    FAULT_ROLLBACKS_COUNTER,
+    get_registry,
+    mark,
+    record_fault,
+)
 from deeplearning4j_tpu_torch.nn.multilayer import _tree_copy, update_specs
 
 
@@ -141,6 +152,11 @@ class TrainingSupervisor:
 
     def _rollback(self, score: float) -> None:
         self.rollbacks += 1
+        record_fault("training")
+        get_registry().counter(
+            FAULT_ROLLBACKS_COUNTER,
+            "Divergence rollbacks performed by the training supervisor"
+        ).inc()
         event = {"step": self.steps_done, "score": score,
                  "rollback": self.rollbacks, "lr_scale": None}
         self.batches_skipped.append(self.steps_done - 1)
@@ -148,11 +164,14 @@ class TrainingSupervisor:
         if self.rollbacks > self.max_rollbacks:
             event["action"] = "give_up"
             self.events.append(event)
+            mark("training_diverged", rollbacks=self.rollbacks, score=score)
             raise TrainingDiverged(self.report())
         self._apply_lr_scale()
         event["lr_scale"] = self.lr_scale
         event["action"] = "rollback"
         self.events.append(event)
+        mark("training_rollback", rollback=self.rollbacks, score=score,
+             lr_scale=self.lr_scale)
 
     def fit(self, iterator, epochs: int = 1) -> Dict[str, Any]:
         """Supervised epochs over ``iterator``; returns :meth:`report`."""

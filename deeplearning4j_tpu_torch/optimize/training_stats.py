@@ -4,10 +4,9 @@ Counterpart of ``deeplearning4j_tpu/optimize/training_stats.py``: time
 named phases of a training loop (``with stats.time("step"): ...`` or
 ``add(phase, ms)``), aggregate them (count, total, mean, min, max),
 keep a timeline, fold in another worker's stats (``merge``) and export
-JSON or a Chrome ``trace_event`` view. The reference takes its time
-origin from its ``monitor`` spans so that both timelines align; the
-port's ``monitor`` waits for ROADMAP A12, so the origin is this
-module's, taken at import.
+JSON or a Chrome ``trace_event`` view. The time origin is the
+``monitor`` spans' (``monitor.tracing._ORIGIN``), so that both
+timelines align in one Perfetto view.
 
 Usage::
 
@@ -26,14 +25,15 @@ import time
 from contextlib import contextmanager
 from typing import Any, Dict, List, Optional, Tuple
 
-_ORIGIN = time.perf_counter()
+from deeplearning4j_tpu_torch.monitor import tracing as _tracing
 
 
 class TrainingStats:
     def __init__(self, keep_timeline: bool = True, max_events: int = 100_000):
         self.keep_timeline = keep_timeline
         self.max_events = max_events
-        self._origin = _ORIGIN
+        # one clock: the monitor's process origin
+        self._origin = _tracing._ORIGIN
         # phase -> [count, total_ms, min_ms, max_ms]
         self._agg: Dict[str, List[float]] = {}
         # (phase, start_ms_since_origin, duration_ms)

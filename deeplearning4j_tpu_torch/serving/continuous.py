@@ -34,8 +34,31 @@ Left for later slices, each raising ``NotImplementedError`` that names
 its ROADMAP item: ``registry=`` lanes, ``prefix_cache=True``,
 ``speculative=True`` / ``draft_net=``, ``host_kv_blocks=`` and
 ``submit``'s ``model=`` / ``version=``, ``session=`` / ``hibernate=``
-and ``on_tokens=`` (A10); ``kv_state=`` (A11). The reference's metrics,
-spans and request traces wait for A12.
+and ``on_tokens=`` (A10); ``kv_state=`` (A11).
+
+Telemetry (``monitor``), the reference's for the single-net core:
+
+- counters ``dl4j_sched_admitted_rows_total``, ``_retired_rows_total``,
+  ``_preemptions_total``, ``_bursts_total`` and the burst-latency
+  histogram, the ``dl4j_sched_active_sequences`` /
+  ``dl4j_sched_queued_prefills`` gauges and their time series
+  (``dl4j_ts_sched_*``, with the pool's occupancy) after every step,
+  and the per-owner ``dl4j_attr_*`` counters; the pool publishes its own
+  (``nn/kvpool.py``);
+- spans: ``compile`` at the first dispatch of a program signature
+  (``optimize/deferred.py`` ``note_dispatch``), else ``inference``,
+  around each admission group's prefill and each burst (the burst's
+  span holds its token fetch, the host's wait that was there before);
+  ``stage`` around ``warmup``;
+- request traces (``monitor/reqtrace.py``): with a request tracer
+  enabled, each request without an ambient trace context roots a
+  ``decode_request`` trace; its rows record ``queue_wait`` and
+  ``prefill`` spans from the admission's timestamps, a ``decode_burst``
+  span for every burst they ride and a ``preempt`` event, and the trace
+  is sealed when the request resolves or fails. Every span is built
+  from host timestamps the loop takes anyway: no wait on the card.
+  ``chunk_deliver`` spans come with ``on_tokens=`` streaming (A10), as
+  do the prefix-cache, speculation and handoff metrics.
 """
 
 from __future__ import annotations
@@ -50,6 +73,28 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.datasets.iterators import bucket_for
+from deeplearning4j_tpu_torch.monitor import (
+    ATTR_DECODE_TOKENS_COUNTER,
+    ATTR_PREFILL_TOKENS_COUNTER,
+    ATTR_QUEUE_MS_COUNTER,
+    SCHED_ACTIVE_GAUGE,
+    SCHED_ADMITTED_COUNTER,
+    SCHED_BURST_LATENCY_HISTOGRAM,
+    SCHED_BURSTS_COUNTER,
+    SCHED_PREEMPTIONS_COUNTER,
+    SCHED_QUEUED_GAUGE,
+    SCHED_RETIRED_COUNTER,
+    TS_SCHED_ACTIVE,
+    TS_SCHED_POOL_OCCUPANCY,
+    TS_SCHED_QUEUED,
+    get_registry,
+    mark,
+    reqtrace,
+    span,
+    timeseries_enabled,
+    to_origin_us,
+    ts_record,
+)
 from deeplearning4j_tpu_torch.nn.generate import (
     TransformerGenerator,
     build_generator,
@@ -57,6 +102,7 @@ from deeplearning4j_tpu_torch.nn.generate import (
 )
 from deeplearning4j_tpu_torch.nn.kvpool import PagedKVCachePool, pool_spec
 from deeplearning4j_tpu_torch.nn.quantize import quant_modes
+from deeplearning4j_tpu_torch.optimize.deferred import note_dispatch
 from deeplearning4j_tpu_torch.parallel.inference import (
     EngineShutdown,
     InferenceBackpressure,
@@ -104,8 +150,8 @@ class _DecodeRequest:
     and its token clock starts at ``len(prefix)``."""
 
     __slots__ = ("prompt", "n", "t_in", "max_new", "temperature", "top_k",
-                 "top_p", "eos", "seed", "priority", "future", "rows_done", "t_submit", "t_first", "rows",
-                 "prefix")
+                 "top_p", "eos", "seed", "priority", "future", "rows_done",
+                 "t_submit", "t_first", "rows", "prefix", "trace", "root")
 
     def __init__(self, prompt: np.ndarray, max_new: int, temperature: float,
                  top_k: int, top_p: float, eos: Optional[int], seed: int,
@@ -125,6 +171,10 @@ class _DecodeRequest:
         self.t_submit = time.perf_counter()
         self.t_first: Optional[float] = None
         self.rows: List["_Seq"] = []
+        # the ambient request-trace context at submit; without one (and
+        # with a tracer on) the scheduler roots the request's own trace
+        self.trace = reqtrace.current_trace()
+        self.root = None
 
 
 class _Seq:
@@ -303,6 +353,11 @@ class ContinuousDecodeScheduler:
         self._retired_rows = 0
         self._preemptions = 0
         self._bursts = 0
+        # the last accounted burst's (t0, ms, slot bucket, tier, rows),
+        # for its riders' trace spans
+        self._last_burst: Optional[Tuple] = None
+        # per-owner dl4j_attr_* counters, made once per owner
+        self._attr_metrics: Dict[str, Tuple] = {}
         self._warmed = False
         self._stopping = False
         self._cancel = False
@@ -374,8 +429,11 @@ class ContinuousDecodeScheduler:
                 [np.asarray(prompt, np.int64), pre[None, :max_new]], axis=1)
             req = _DecodeRequest(prompt, max_new, temperature, top_k, top_p,
                                  eos_token, seed, priority, pre)
+            self._trace_begin(req)
             with self._cv:
                 self._accepted += 1
+            reqtrace.finish_trace(req.root, outcome="short_circuit",
+                                  tokens=max_new)
             req.future.set_result(out)
             self._count_resolved()
             return req.future
@@ -386,6 +444,7 @@ class ContinuousDecodeScheduler:
                                max(1, max_new - n_pre))
         req = _DecodeRequest(prompt, max_new, temperature, top_k, top_p,
                              eos_token, seed, priority, pre)
+        self._trace_begin(req)
         keys = row_keys(req.seed, req.n)
         with self._cv:
             if len(self._queue) + req.n > self.queue_capacity:
@@ -399,6 +458,7 @@ class ContinuousDecodeScheduler:
                 self._queue.append(seq)
             self._accepted += 1
             self._cv.notify_all()
+        self._gauges()
         return req.future
 
     def stats(self) -> Dict[str, Any]:
@@ -498,32 +558,42 @@ class ContinuousDecodeScheduler:
         pool, gen = lane.pool, lane.gen
         before = len(gen.__dict__.get("_programs", {}))
         params = self._params(lane)
-        rs = gen.row_sample_program()
-        vocab = int(gen.emb.conf.n_in)
-        for rows in self._admit_ladder:
-            rs(torch.zeros(rows, vocab, device=self.net.device),
-               [0] * rows, [0] * rows, np.zeros(rows, np.float32),
-               np.zeros(rows, np.int64), np.zeros(rows, np.float32))
-        done_buckets = set()
-        for t_in in prompt_lengths:
-            t_pad = gen.prompt_bucket(int(t_in), int(max_new_tokens))
-            t_blk = self._round_blocks(t_pad)
-            if (t_pad, t_blk) in done_buckets:
-                continue
-            done_buckets.add((t_pad, t_blk))
+        with span("stage", path="warmup_continuous", slots=self.slots,
+                  burst=self.burst_tokens):
+            rs = gen.row_sample_program()
+            vocab = int(gen.emb.conf.n_in)
             for rows in self._admit_ladder:
-                caches, _ = gen.prefill_program(t_blk)(
-                    params, np.zeros((rows, t_pad), np.int64),
-                    np.full(rows, min(int(t_in), t_pad), np.int64))
-                scat = gen.scatter_program(rows, t_blk, self.block_size)
-                pool.set_layers(scat(
-                    pool.layers, caches,
-                    np.zeros((rows, t_blk // self.block_size), np.int64)))
-        for tier in self._burst_tiers(lane):
-            for rows in self._slot_ladder:
-                for sampling in (False, True):
-                    self._dispatch_burst(lane, params, tier=tier,
-                                         sampling=sampling, rows=rows)
+                note_dispatch(lane.net, ("gen_row_sample", "sched", rows))
+                rs(torch.zeros(rows, vocab, device=self.net.device),
+                   [0] * rows, [0] * rows, np.zeros(rows, np.float32),
+                   np.zeros(rows, np.int64), np.zeros(rows, np.float32))
+            done_buckets = set()
+            for t_in in prompt_lengths:
+                t_pad = gen.prompt_bucket(int(t_in), int(max_new_tokens))
+                t_blk = self._round_blocks(t_pad)
+                if (t_pad, t_blk) in done_buckets:
+                    continue
+                done_buckets.add((t_pad, t_blk))
+                for rows in self._admit_ladder:
+                    fresh = note_dispatch(
+                        lane.net, ("gen_prefill", "sched", rows, t_pad, t_blk))
+                    with span("compile" if fresh else "inference",
+                              path="warmup_continuous_prefill",
+                              bucket=t_pad, rows=rows):
+                        caches, _ = gen.prefill_program(t_blk)(
+                            params, np.zeros((rows, t_pad), np.int64),
+                            np.full(rows, min(int(t_in), t_pad), np.int64))
+                    scat = gen.scatter_program(rows, t_blk, self.block_size)
+                    note_dispatch(lane.net,
+                                  ("gen_pool_scatter", "sched", rows, t_blk))
+                    pool.set_layers(scat(
+                        pool.layers, caches,
+                        np.zeros((rows, t_blk // self.block_size), np.int64)))
+            for tier in self._burst_tiers(lane):
+                for rows in self._slot_ladder:
+                    for sampling in (False, True):
+                        self._dispatch_burst(lane, params, tier=tier,
+                                             sampling=sampling, rows=rows)
         self._warmed = True
         return len(gen.__dict__.get("_programs", {})) - before
 
@@ -547,8 +617,10 @@ class ContinuousDecodeScheduler:
                 self._burst_failed(lane, e)
                 progressed = True
                 continue
+            self._trace_burst(lane)
             self._retire(lane, outs)
             progressed = True
+        self._gauges()
         return progressed
 
     # ------------------------------------------------------ lanes/pools
@@ -731,12 +803,24 @@ class ContinuousDecodeScheduler:
             top_k[i] = seq.req.top_k
             top_p[i] = seq.req.top_p
         params = self._params(lane)
+        pre = gen.prefill_program(t_blk)
         t0p = time.perf_counter()
-        caches, logits = gen.prefill_program(t_blk)(params, ids, lens)
+        fresh = note_dispatch(lane.net,
+                              ("gen_prefill", "sched", rows, t_pad, t_blk))
+        with span("compile" if fresh else "inference",
+                  path="continuous_prefill", bucket=t_pad, rows=n):
+            caches, logits = pre(params, ids, lens)
         scat = gen.scatter_program(rows, t_blk, self.block_size)
+        note_dispatch(lane.net, ("gen_pool_scatter", "sched", rows, t_blk))
         pool.set_layers(scat(pool.layers, caches, tnb))
+        note_dispatch(lane.net, ("gen_row_sample", "sched", rows))
+        # the admission group's one wait on the card: its first tokens
         toks = gen.row_sample_program()(logits, keys, folds, temp, top_k,
                                         top_p).cpu().numpy()
+        t1p = time.perf_counter()
+        self._trace_admitted(
+            [(seq, {"bucket": t_pad, "rows": n, "computed": len(seq.fed)})
+             for seq, _ in entries], t0p, t1p, "dense")
         for i, (seq, blocks) in enumerate(entries):
             self._note_prefilled(seq, len(seq.fed), t0p)
             self._install(lane, seq, blocks, int(toks[i]))
@@ -752,12 +836,82 @@ class ContinuousDecodeScheduler:
 
     def _attr_note(self, owner: str, prefill: int = 0, decode: int = 0,
                    queue_ms: float = 0.0) -> None:
+        """Tick one owner's accumulators and its ``dl4j_attr_*``
+        counters (label ``model=owner``)."""
         with self._lock:
             a = self._attr.setdefault(owner, {
                 "prefill_tokens": 0, "decode_tokens": 0, "queue_ms": 0.0})
             a["prefill_tokens"] += prefill
             a["decode_tokens"] += decode
             a["queue_ms"] += queue_ms
+        m = self._attr_metrics.get(owner)
+        if m is None:
+            reg = get_registry()
+            m = self._attr_metrics[owner] = (
+                reg.counter(ATTR_PREFILL_TOKENS_COUNTER,
+                            "Prompt tokens actually computed at prefill, "
+                            "attributed per model[@version]", model=owner),
+                reg.counter(ATTR_DECODE_TOKENS_COUNTER,
+                            "Tokens decoded, attributed per "
+                            "model[@version]", model=owner),
+                reg.counter(ATTR_QUEUE_MS_COUNTER,
+                            "Milliseconds sequences spent queued before "
+                            "admission, attributed per model[@version]",
+                            model=owner))
+        if prefill:
+            m[0].inc(prefill)
+        if decode:
+            m[1].inc(decode)
+        if queue_ms > 0:
+            m[2].inc(queue_ms)
+
+    # ------------------------------------------------- request tracing
+
+    def _trace_begin(self, req: _DecodeRequest) -> None:
+        """Root a ``decode_request`` trace for a request with no ambient
+        context while a request tracer is on; either way the owning
+        trace id rides the future as ``trace_id``."""
+        if req.trace is None and reqtrace.request_tracer() is not None:
+            req.root = reqtrace.begin_trace(
+                "decode_request", rows=req.n, t_in=req.t_in,
+                max_new=req.max_new, resume=req.prefix is not None)
+            if req.root is not None:
+                req.trace = req.root.ctx
+        if req.trace is not None:
+            req.future.trace_id = req.trace.trace_id
+
+    def _trace_admitted(self, entries, t0: float, t1: float,
+                        kind: str) -> None:
+        """An admission group's ``queue_wait`` and ``prefill`` spans from
+        its dispatch's timestamps, in two passes (every queue_wait, then
+        every prefill) so that each trace's spans close in order."""
+        if reqtrace.request_tracer() is None:
+            return
+        for seq, _extra in entries:
+            reqtrace.record_span(
+                seq.req.trace, "queue_wait", to_origin_us(seq.t_queued),
+                (t0 - seq.t_queued) * 1e6, row=seq.row,
+                requeued=seq.preemptions)
+        for seq, extra in entries:
+            reqtrace.record_span(
+                seq.req.trace, "prefill", to_origin_us(t0),
+                (t1 - t0) * 1e6, kind=kind,
+                resume=seq.req.prefix is not None,
+                preemptions=seq.preemptions, **extra)
+
+    def _trace_burst(self, lane: _Lane) -> None:
+        """One ``decode_burst`` span per traced rider of the burst just
+        dispatched: its slot bucket, block tier, K and live rows."""
+        info = self._last_burst
+        self._last_burst = None
+        if info is None or reqtrace.request_tracer() is None:
+            return
+        t0, dt_ms, rows, tier, n_active = info
+        for seq in lane.active():
+            reqtrace.record_span(
+                seq.req.trace, "decode_burst", to_origin_us(t0),
+                dt_ms * 1e3, slot_bucket=rows, tier=tier,
+                k=self.burst_tokens, rows=n_active, seq=seq.seq_id)
 
     def _install(self, lane: _Lane, seq: _Seq, blocks: List[int],
                  tok0: int) -> None:
@@ -768,6 +922,9 @@ class ContinuousDecodeScheduler:
         seq.n_gen += 1
         self._note_first_token(req)
         self._admitted_rows += 1
+        get_registry().counter(
+            SCHED_ADMITTED_COUNTER,
+            "Decode rows admitted into batch slots between bursts").inc()
         slot = lane.free_slot()
         self.events.append(
             f"admit seq={seq.seq_id} slot={slot} lane={lane.key} "
@@ -856,11 +1013,18 @@ class ContinuousDecodeScheduler:
         seq.slot = None
         seq.preemptions += 1
         seq.t_queued = time.perf_counter()
+        reqtrace.trace_event(seq.req.trace, "preempt", seq=seq.seq_id,
+                             n_gen=seq.n_gen, priority=seq.priority)
         if slot is not None:
             lane.clear_slot(slot)
         with self._lock:
             self._queue.appendleft(seq)
             self._preemptions += 1
+        get_registry().counter(
+            SCHED_PREEMPTIONS_COUNTER,
+            "Sequences preempted (blocks freed, re-queued with their "
+            "generated prefix) because the KV pool was exhausted").inc()
+        mark("decode_preempted", seq=seq.seq_id, priority=seq.priority)
         self.events.append(
             f"preempt seq={seq.seq_id} prio={seq.priority} "
             f"n_gen={seq.n_gen}")
@@ -915,18 +1079,37 @@ class ContinuousDecodeScheduler:
         bp = lane.gen.burst_program(rows, self.burst_tokens, tier,
                                     pool.num_blocks, pool.block_size,
                                     sampling=sampling)
-        pools, ys, tok2, pos2, ng2, done2 = bp(
-            params, pool.layers, compact(lane.tables[:, :tier], 0),
-            compact(lane.pos, 0), compact(lane.tok, 0),
-            compact(lane.n_gen, 0), compact(lane.done, True),
-            compact(lane.keys, 0).tolist(), compact(lane.temp, 0.0),
-            compact(lane.top_k, 0), compact(lane.top_p, 0.0),
-            compact(lane.eos, -1), compact(lane.max_new_v, 0))
-        # the burst's one fetch: tokens and row state together
-        got = torch.cat([ys, torch.stack([tok2, pos2, ng2, done2.long()],
-                                         dim=1)], dim=1).cpu().numpy()
+        fresh = note_dispatch(
+            lane.net, ("gen_burst", "sched", rows, self.burst_tokens,
+                       tier, pool.num_blocks, pool.block_size,
+                       bool(sampling)))
+        t0 = time.perf_counter()
+        with span("compile" if fresh else "inference",
+                  path="continuous_burst", slots=rows,
+                  k=self.burst_tokens, tier=tier,
+                  rows=n if accounted else 0):
+            pools, ys, tok2, pos2, ng2, done2 = bp(
+                params, pool.layers, compact(lane.tables[:, :tier], 0),
+                compact(lane.pos, 0), compact(lane.tok, 0),
+                compact(lane.n_gen, 0), compact(lane.done, True),
+                compact(lane.keys, 0).tolist(), compact(lane.temp, 0.0),
+                compact(lane.top_k, 0), compact(lane.top_p, 0.0),
+                compact(lane.eos, -1), compact(lane.max_new_v, 0))
+            # the burst's one fetch: tokens and row state together
+            got = torch.cat([ys, torch.stack([tok2, pos2, ng2, done2.long()],
+                                             dim=1)], dim=1).cpu().numpy()
         pool.set_layers(pools)
+        dt_ms = (time.perf_counter() - t0) * 1e3
         if accounted:
+            reg = get_registry()
+            reg.counter(SCHED_BURSTS_COUNTER,
+                        "Fixed-K decode bursts dispatched").inc()
+            reg.histogram(SCHED_BURST_LATENCY_HISTOGRAM,
+                          "Decode burst dispatch latency (K steps, one "
+                          "scan)").observe(dt_ms)
+            # the riders' trace spans, recorded after from these host
+            # timestamps (_trace_burst)
+            self._last_burst = (t0, dt_ms, rows, tier, n)
             with self._lock:
                 self._bursts += 1
         k = self.burst_tokens
@@ -998,6 +1181,10 @@ class ContinuousDecodeScheduler:
     def _retire_seq(self, lane: _Lane, seq: _Seq) -> None:
         req = seq.req
         self._retired_rows += 1
+        get_registry().counter(
+            SCHED_RETIRED_COUNTER,
+            "Decode rows retired (EOS/max-len) between bursts, blocks "
+            "freed").inc()
         self.events.append(
             f"retire seq={seq.seq_id} n_gen={seq.n_gen} "
             f"preemptions={seq.preemptions}")
@@ -1017,10 +1204,15 @@ class ContinuousDecodeScheduler:
             padded[:len(row)] = row[:req.max_new]
             out[seq.row, req.t_in:] = padded
         t_done = time.perf_counter()
+        t_first = req.t_first if req.t_first is not None else t_done
         self.completed.append({
-            "t_submit": req.t_submit,
-            "t_first": req.t_first if req.t_first is not None else t_done,
+            "t_submit": req.t_submit, "t_first": t_first,
             "t_done": t_done, "rows": req.n, "tokens": tokens})
+        # seal the trace before the future resolves, so that a caller
+        # reading it on completion finds it
+        reqtrace.finish_trace(
+            req.root, outcome="ok", tokens=tokens,
+            ttft_ms=round((t_first - req.t_submit) * 1e3, 3))
         req.future.set_result(out)
         self._count_resolved()
 
@@ -1028,6 +1220,8 @@ class ContinuousDecodeScheduler:
         req = seq.req
         self.events.append(f"fail seq={seq.seq_id} err={type(err).__name__}")
         if not req.future.done():
+            reqtrace.finish_trace(req.root, outcome="error",
+                                  error=type(err).__name__)
             req.future.set_exception(err)
             self._count_resolved()
         # drop the request's other rows: its future already failed
@@ -1057,6 +1251,8 @@ class ContinuousDecodeScheduler:
 
         def fail(req):
             if req not in failed and not req.future.done():
+                reqtrace.finish_trace(req.root, outcome="error",
+                                      error=type(err).__name__)
                 req.future.set_exception(err)
                 failed.add(req)
                 self._count_resolved()
@@ -1076,6 +1272,26 @@ class ContinuousDecodeScheduler:
                 fail(seq.req)
 
     # ----------------------------------------------------------- thread
+
+    def _gauges(self) -> None:
+        """The active and queued gauges and, with the time series on,
+        their samples and each pool's occupancy: host counts only."""
+        reg = get_registry()
+        with self._lock:
+            active = sum(len(lane.active()) for lane in self._lanes.values())
+            queued = len(self._queue)
+            pools = list(self._pools.values())
+        reg.gauge(SCHED_ACTIVE_GAUGE,
+                  "Decode sequences currently occupying batch slots"
+                  ).set(active)
+        reg.gauge(SCHED_QUEUED_GAUGE,
+                  "Decode sequences queued awaiting admission").set(queued)
+        if not timeseries_enabled():
+            return
+        ts_record(TS_SCHED_ACTIVE, active)
+        ts_record(TS_SCHED_QUEUED, queued)
+        for pool in pools:
+            ts_record(TS_SCHED_POOL_OCCUPANCY, pool.occupancy())
 
     def _work_available(self) -> bool:
         if self._queue:

@@ -24,7 +24,11 @@ beside its float32 ``*_qscale``) load through ``params_from_numpy`` and
 mark the net quantized. In a zip, int8 weights go both ways; an fp8
 weight is written as the reference writes it, one raw byte per value
 (numpy has no fp8 dtype: ``np.savez`` records ``|V1``), and a zip that
-holds one does not restore, as in the reference.
+holds one does not restore, as in the reference. A save runs in a
+``checkpoint`` span; a restore that finds the zip torn or its CRCs
+wrong ticks ``dl4j_fault_checkpoint_integrity_failures_total`` and
+``dl4j_fault_events_total{domain="checkpoint"}`` before it raises
+:class:`CheckpointCorruptError`.
 """
 
 from __future__ import annotations
@@ -39,6 +43,12 @@ from typing import Any, Dict, Optional, Union
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.monitor import (
+    FAULT_CKPT_INTEGRITY_COUNTER,
+    get_registry,
+    record_fault,
+    span,
+)
 from deeplearning4j_tpu_torch.nn.conf.configuration import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.graph import (
     ComputationGraph,
@@ -246,7 +256,8 @@ def model_from_payload(payload: dict, device: DeviceLike = None) -> Model:
 
 def write_model(model: Model, path: str, save_updater: bool = True) -> None:
     """Write ``model`` as a zip the reference's restore functions load:
-    temp file, fsync, rename, fsync of the directory."""
+    temp file, fsync, rename, fsync of the directory; the write in a
+    ``checkpoint`` span (op ``zip_save``)."""
     payload = config_payload(model)
     members: Dict[str, bytes] = {
         "configuration.json": json.dumps(payload, indent=2).encode(),
@@ -261,18 +272,19 @@ def write_model(model: Model, path: str, save_updater: bool = True) -> None:
                 "crc32": {n: _crc32(b) for n, b in members.items()}}
     path = os.path.abspath(path)
     tmp = f"{path}.tmp.{os.getpid()}"
-    try:
-        with open(tmp, "wb") as f:
-            with zipfile.ZipFile(f, "w", zipfile.ZIP_DEFLATED) as z:
-                for name, data in members.items():
-                    z.writestr(name, data)
-                z.writestr(_MANIFEST, json.dumps(manifest))
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    with span("checkpoint", op="zip_save", path=path):
+        try:
+            with open(tmp, "wb") as f:
+                with zipfile.ZipFile(f, "w", zipfile.ZIP_DEFLATED) as z:
+                    for name, data in members.items():
+                        z.writestr(name, data)
+                    z.writestr(_MANIFEST, json.dumps(manifest))
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, path)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
     fsync_dir(os.path.dirname(path))
 
 
@@ -339,7 +351,13 @@ def _restore(path: str, expect: Optional[str], device: DeviceLike,
             upd = None
             if load_updater and "updaterState.npz" in z.namelist():
                 upd = _npz_tree(z.read("updaterState.npz"))
-    except (zipfile.BadZipFile, zlib.error) as e:
+    except (zipfile.BadZipFile, zlib.error, CheckpointCorruptError) as e:
+        get_registry().counter(
+            FAULT_CKPT_INTEGRITY_COUNTER,
+            "Checkpoint restores that failed the integrity check").inc()
+        record_fault("checkpoint")
+        if isinstance(e, CheckpointCorruptError):
+            raise
         raise CheckpointCorruptError(f"{path}: unreadable checkpoint ({e})")
     if expect and payload["model_type"] != expect:
         raise ValueError(f"checkpoint is a {payload['model_type']}, "

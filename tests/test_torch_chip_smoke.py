@@ -1671,3 +1671,63 @@ def test_fractions_csv_reads_back_exactly(tmp_path):
     np.testing.assert_array_equal(np.loadtxt(path, delimiter=",",
                                              dtype=np.float32), want)
     np.testing.assert_array_equal(native.csv_read_floats(path, strict=True), want)
+
+
+@pytest.mark.parametrize("warm", [False, True])
+def test_event_ms_times_calls_back_to_back(warm):
+    """Phases 2 and 2b time the plain versions by CUDA events: ``reps``
+    calls between two events, per call, after a warm-up call if asked."""
+    calls, recorded = [], []
+
+    class Event:  # 4 calls in 10 ms
+        def __init__(self, enable_timing):
+            assert enable_timing
+
+        def record(self):
+            recorded.append(len(calls))
+
+        def synchronize(self):
+            pass
+
+        def elapsed_time(self, end):
+            return 10.0
+
+    fake = _fake_torch()
+    fake.cuda.Event = Event
+    ms = chip_smoke._event_ms(fake, lambda: calls.append(1), 4, warm=warm)
+    assert ms == pytest.approx(2.5)
+    assert recorded == [int(warm), int(warm) + 4]
+
+
+def test_schema_check_passes_a_traced_port_run(tmp_path):
+    """The telemetry gates of phases 11 and 13 on a traced CPU fit: the
+    JSONL, its Chrome trace and the registry's text pass the checker."""
+    from deeplearning4j_tpu_torch import monitor
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    conf = (NeuralNetConfiguration.builder().seed(1).learning_rate(0.1)
+            .updater("sgd").list()
+            .layer(L.DenseLayer(n_in=4, n_out=4))
+            .layer(L.OutputLayer(n_in=4, n_out=2, activation="softmax",
+                                 loss_function="mcxent")).build())
+    net = MultiLayerNetwork(conf, device="cpu").init()
+    reg = monitor.MetricsRegistry()
+    old = monitor.set_registry(reg)
+    jsonl = str(tmp_path / "events.jsonl")
+    tracer = monitor.enable_tracing(jsonl)
+    try:
+        x = np.ones((6, 4), np.float32)
+        net.fit(DataSet(x, np.eye(2, dtype=np.float32)[[0, 1] * 3]))
+    finally:
+        monitor.disable_tracing()
+        monitor.set_registry(old)
+    chrome = tracer.export_chrome_trace(str(tmp_path / "trace.json"))
+    chip_smoke._schema_check([jsonl, chrome], reg.prometheus_text(), str(tmp_path))
+    bad = tmp_path / "bad.jsonl"
+    bad.write_text('{"type": "span", "name": "x"}\n')
+    with pytest.raises(RuntimeError, match="check_telemetry_schema rejected"):
+        chip_smoke._schema_check([str(bad)], reg.prometheus_text(),
+                                 str(tmp_path))

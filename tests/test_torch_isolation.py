@@ -200,3 +200,24 @@ def test_training_services_modules_are_scanned(tmp_path):
         return
     with pytest.raises(RuntimeError, match="device='cpu'"):
         saver.get_best_model()
+
+
+def test_monitor_modules_are_scanned_and_import_no_torch():
+    """The monitor core and the profiler are among the modules the scans
+    cover; the monitor is the port's own copy (no module of the JAX
+    package, even one without JAX) and imports nothing of torch, so that
+    it stays a leaf every layer can publish into."""
+    mods = _modules()
+    names = ("monitor", "monitor.registry", "monitor.tracing",
+             "monitor.step_health", "monitor.timeseries", "monitor.reqtrace")
+    for name in names + ("util.profiler",):
+        assert f"deeplearning4j_tpu_torch.{name}" in mods, name
+    for name in names:
+        rel = name.replace(".", os.sep)
+        path = os.path.join(_PKG, rel, "__init__.py") if name == "monitor" \
+            else os.path.join(_PKG, rel + ".py")
+        tops = {n.split(".")[0] for n in _imports(path)}
+        assert not tops & {"torch", "jax", "deeplearning4j_tpu"}, (name, tops)
+    from deeplearning4j_tpu_torch import monitor
+    assert monitor.get_registry().__module__ == \
+        "deeplearning4j_tpu_torch.monitor.registry"
