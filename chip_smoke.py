@@ -314,13 +314,41 @@ Phases (any failure ends the run with a non-zero exit and no result):
    ``CSVRecordReader``, ``RecordReaderDataSetIterator`` and a fitted
    ``NormalizerStandardize`` trains phase 8's MLP-Iris for 20 steps
    through the pipeline, and its loss falls (``feed`` line).
+14. the serving engine (``phase_engine``, ``ParallelInference``): (a)
+   phase 7's LeNet in f32 behind ``max_batch_size=32``, warmed, then 64
+   requests of 1-8 rows from 4 threads: every caller's rows within
+   ``CLASSIFY_TOL`` of ``net.output`` of its rows alone (the callers
+   whose rows are bit for bit are counted), no first dispatch after the
+   warmup, and the busy share of one more such wave; then phase 5's
+   char-RNN, 16 one-hot requests of 1-4 rows
+   through ``submit``, within ``SERVE_OUT_TOL``, launching
+   ``lstm_fwd_only``. (b) phase 3's gpt in bf16 and in f32 behind
+   ``continuous=True`` (8 slots, bursts of 8, blocks of 16), the prefix
+   cache off and then on: 16 requests of one 48-token system prompt and
+   an own 8-40-token tail, +64 tokens each, the first alone, the other
+   15 from 4 threads, two of them streaming through ``on_tokens`` (the
+   chunks, offsets contiguous from 0, are the future's tokens); with the
+   cache every later request hits it (>= 15 hits), fewer prefill tokens
+   are computed, and its tokens are the uncached run's up to near-ties
+   (``LOGIT_TOL`` in bf16, ``PAGED_TIE_F32`` in f32); each pool drains,
+   free + cached == total, and is fully free once the caches are
+   cleared; a cold admission launches ``flash_fwd``; no first dispatch
+   after ``warmup_generate``; tokens/s, time to first token, the
+   admission groups (dense and tail, each with its host ms), in bf16
+   the busy share of one admission round (a one-token request) both
+   ways and, with the cache, that of 8 requests at once (fresh tails).
+   (c) 8 concurrent requests of one prompt bucket on the coalesced
+   generate path of (b)'s bf16 net after ``warmup_generate``: at most 2
+   batches, no first dispatch, each request solo ``generate``'s tokens
+   up to near-ties (``engine`` line).
 
 Phase 2's rows carry their wall time (``row_s``) and each phase line
 the time since the start (``[t ... s]``); the kernels line gives each
 kernel its launches per step on the fit_scan paths, on phase 9's
 graph generate paths, on phase 10's paths, on phase 11's serve and in
-phase 12 (``services_launches``, ``solver_launches``) and in phase 13's
-pipelined runs (``feed_launches``).
+phase 12 (``services_launches``, ``solver_launches``), in phase 13's
+pipelined runs (``feed_launches``) and in phase 14's engine runs
+(``engine_launches``).
 
 The last lines are the card's name and power limit, one JSON object
 with every kernel's numbers, and ``{"ok": true, "device": {...}}``
@@ -340,6 +368,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 # bf16 products on the tensor cores; f32 products in full f32 (no TF32)
@@ -3379,11 +3408,13 @@ def _gen_mod():
     return gen_mod
 
 
-def _eager(torch, net, prompts):
-    """Each prompt's solo ``generate_eager`` of NEW tokens, and the
-    top-two logit gap at each of its generated positions."""
+def _eager(torch, net, prompts, new=None):
+    """Each prompt's solo ``generate_eager`` of ``new`` tokens (NEW by
+    default), and the top-two logit gap at each of its generated
+    positions."""
+    new = NEW if new is None else new
     with _recording_gaps(torch, net) as runs:
-        out = [_gen_mod().generate_eager(net, p, NEW) for p in prompts]
+        out = [_gen_mod().generate_eager(net, p, new) for p in prompts]
     return out, [r[:, 0] for r in runs]
 
 
@@ -4519,7 +4550,460 @@ def _feed_launches(entries, done):
     return entries
 
 
-PHASES = ("2", "2b", "3", "4", "5", "6", "7", "8", "9", "10", "11", "12", "13")
+# phase 14: the serving engine (ParallelInference). (a) classification:
+# phase 7's LeNet in f32, ENGINE_REQUESTS requests of 1-8 rows from
+# ENGINE_THREADS threads behind max_batch_size 32, then phase 5's
+# char-RNN (3-D one-hot input) through submit; (b) continuous serving of
+# phase 3's gpt in bf16 and f32, each request a shared system prompt of
+# ENGINE_SYSTEM tokens plus its own tail, ENGINE_NEW new tokens, with the
+# prefix cache off and on; (c) the coalesced generate path
+ENGINE_REQUESTS, ENGINE_ROWS, ENGINE_THREADS = 64, (1, 8), 4
+ENGINE_CHAR_REQUESTS, ENGINE_CHAR_ROWS, ENGINE_CHAR_SEQ = 16, (1, 4), 32
+# LeNet's f32 softmax rows from a padded batch of up to 32 rows vs
+# net.output of the caller's rows alone: cuDNN picks its algorithms per
+# shape, so the bits may differ; the bound on |p - p_alone|
+CLASSIFY_TOL = 1e-5
+ENGINE_SERVE = dict(decode_slots=8, decode_burst=8, kv_block_size=16)
+ENGINE_SYSTEM, ENGINE_TAILS, ENGINE_NEW = 48, (8, 40), 64
+ENGINE_GEN_REQUESTS, ENGINE_STREAMS = 16, (1, 2)
+# the busy share's steady window: this many cached requests at once
+ENGINE_WINDOW = 8
+COALESCE_REQUESTS, COALESCE_PROMPTS = 8, (33, 64)
+
+
+def _in_threads(calls, threads):
+    """Run ``calls`` (callables) from ``threads`` threads, call i on
+    thread i % threads, all released together; returns their results in
+    order (re-raising the first error)."""
+    out, errs = [None] * len(calls), []
+    gate = threading.Barrier(threads)
+
+    def worker(k):
+        try:
+            gate.wait()
+            for i in range(k, len(calls), threads):
+                out[i] = calls[i]()
+        except BaseException as e:  # handed to the caller below
+            errs.append(e)
+
+    ts = [threading.Thread(target=worker, args=(k,)) for k in range(threads)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    if errs:
+        raise errs[0]
+    return out
+
+
+def _tie_parity(torch, net, prompts, got, want, bound, what, new=None):
+    """``_parity`` of ``got`` against ``want``, with the solo eager runs
+    of ``new`` tokens (and their gaps) taken only for the requests that
+    part: a whole request's are never read."""
+    parted = [i for i, (a, b) in enumerate(zip(got, want))
+              if not (a == b).all()]
+    eager, gaps = [None] * len(prompts), [None] * len(prompts)
+    if parted:
+        runs, run_gaps = _eager(torch, net, [prompts[i] for i in parted], new)
+        for i, run, gap in zip(parted, runs, run_gaps):
+            eager[i], gaps[i] = run, gap
+    return _parity(torch, net, prompts, got, want, bound, what, eager, gaps)
+
+
+def _busy_window(torch, fn):
+    """The device's busy share over one call of ``fn``: the device ms
+    torch.profiler saw in a profiled call, over the wall ms of the call
+    just before it, made the same way without the profiler."""
+    walls = []
+
+    def timed():
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+
+    per = _device_times(torch, timed, 1)
+    device_ms = _sum_ms(per)
+    return dict(wall_ms=walls[0], profiled_wall_ms=walls[1],
+                device_ms=device_ms, device_busy_share=device_ms / walls[0],
+                profile_kept_share=per.kept_share)
+
+
+def _admission_groups(sched):
+    """From now on, each admission group the scheduler runs, dense (a
+    full prefill) or tail (a prefix-cache hit), as (rows, host ms from
+    its dispatch to its first tokens on the host, the group's one fetch
+    included)."""
+    groups = {"dense": [], "tail": []}
+    for kind, name in (("dense", "_prefill_batch"),
+                       ("tail", "_prefill_tail_batch")):
+        def timed(*args, _fn=getattr(sched, name), _kind=kind):
+            t = time.perf_counter()
+            out = _fn(*args)
+            groups[_kind].append((len(args[-1]),
+                                  (time.perf_counter() - t) * 1e3))
+            return out
+        setattr(sched, name, timed)
+    return groups
+
+
+def _group_summary(groups):
+    return {k: dict(groups=len(v), rows=sum(r for r, _ in v),
+                    host_ms=sum(ms for _, ms in v),
+                    host_ms_per_group=(sum(ms for _, ms in v) / len(v)
+                                       if v else None))
+            for k, v in groups.items()}
+
+
+def _engine_classify(torch, np, kernels, lk):
+    """Phase 14 (a): LeNet and the char-RNN behind the engine."""
+    from deeplearning4j_tpu_torch import monitor
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.parallel import ParallelInference
+    from deeplearning4j_tpu_torch.util.model_serializer import params_from_numpy
+
+    net = MultiLayerNetwork(_lenet_conf(None)).init()
+    params_from_numpy(net, _random_params(net, seed=31))
+    rng = np.random.default_rng(32)
+    xs = [rng.random((int(n), 28, 28, 1), dtype=np.float32) for n in
+          rng.integers(ENGINE_ROWS[0], ENGINE_ROWS[1] + 1, ENGINE_REQUESTS)]
+    eng = ParallelInference(net, max_batch_size=32)
+    warmed = eng.warmup([(28, 28, 1)])
+    reg = monitor.get_registry()
+    miss0 = reg.family_total(monitor.JIT_CACHE_MISS_COUNTER)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    got = _in_threads([lambda x=x: eng.submit(x).result(120) for x in xs],
+                      ENGINE_THREADS)
+    wall_s = time.perf_counter() - t0
+    launches = _port_launches(kernels)
+    st = eng.stats()
+    busy = _busy_window(torch, lambda: _in_threads(
+        [lambda x=x: eng.submit(x).result(120) for x in xs], ENGINE_THREADS))
+    misses = reg.family_total(monitor.JIT_CACHE_MISS_COUNTER) - miss0
+    eng.shutdown()
+    _check(misses == 0, f"serving the warmed buckets made {misses} first "
+           "dispatches")
+    _check(st["requests"] == st["resolved"] == ENGINE_REQUESTS,
+           f"classify stats {st}")
+    errs, bitwise = [], 0
+    for x, r in zip(xs, got):
+        want = net.output(x)
+        _check(r.shape == want.shape == (x.shape[0], 10), f"rows {r.shape}")
+        _check(bool(np.isfinite(r).all()), "finite rows")
+        bitwise += bool(np.array_equal(r, want))
+        errs.append(float(np.abs(r - want).max()))
+    _check(max(errs) <= CLASSIFY_TOL, f"classify rows vs net.output alone: "
+           f"{max(errs)} > {CLASSIFY_TOL}")
+    rows = sum(x.shape[0] for x in xs)
+    m = dict(requests=ENGINE_REQUESTS, rows=rows, wall_s=wall_s,
+             requests_per_s=ENGINE_REQUESTS / wall_s, rows_per_s=rows / wall_s,
+             batches=st["batches"], rows_dispatched=st["rows_dispatched"],
+             padded_ratio=st["padded_ratio"], warmup_first_dispatches=warmed,
+             max_abs_diff_vs_output_alone=max(errs),
+             callers_bitwise=bitwise, busy_window=busy,
+             device_busy_share=busy["device_busy_share"])
+
+    char = _char_rnn(None)
+    params_from_numpy(char, _random_params(char, seed=21))
+    xc = [np.eye(CHAR_VOCAB, dtype=np.float32)[
+        rng.integers(0, CHAR_VOCAB, (int(n), ENGINE_CHAR_SEQ))] for n in
+        rng.integers(ENGINE_CHAR_ROWS[0], ENGINE_CHAR_ROWS[1] + 1,
+                     ENGINE_CHAR_REQUESTS)]
+    eng = ParallelInference(char, max_batch_size=32)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    outs = [f.result(120) for f in [eng.submit(x) for x in xc]]
+    char_s = time.perf_counter() - t0
+    char_launches = _port_launches(kernels)
+    cst = eng.stats()
+    eng.shutdown()
+    _check(char_launches.get(lk.FWD_ONLY_KERNEL, 0) > 0,
+           f"the char-RNN's batched output never launched lstm_fwd_only: "
+           f"{char_launches}")
+    cerr = 0.0
+    for x, r in zip(xc, outs):
+        want = char.output(x)
+        _check(r.shape == want.shape, f"char rows {r.shape}")
+        cerr = max(cerr, float(np.abs(r - want).max()))
+    _check(cerr <= SERVE_OUT_TOL, f"char-RNN rows vs net.output alone: "
+           f"{cerr} > {SERVE_OUT_TOL}")
+    m["char_rnn"] = dict(requests=ENGINE_CHAR_REQUESTS, wall_s=char_s,
+                         requests_per_s=ENGINE_CHAR_REQUESTS / char_s,
+                         batches=cst["batches"], max_abs_diff=cerr,
+                         launches=char_launches)
+    launches = collections.Counter(launches)
+    launches.update(char_launches)
+    m["launches"] = dict(launches)
+    return m
+
+
+def _engine_traffic(np):
+    """(b)'s requests: one system prompt, each request's own tail."""
+    rng = np.random.default_rng(33)
+    system = rng.integers(0, GPT["vocab_size"], (1, ENGINE_SYSTEM))
+    tails = rng.integers(ENGINE_TAILS[0], ENGINE_TAILS[1] + 1,
+                         ENGINE_GEN_REQUESTS)
+    return [np.concatenate([system, rng.integers(0, GPT["vocab_size"],
+                                                 (1, int(t)))], axis=1)
+            for t in tails]
+
+
+class _Chunks:
+    """An ``on_tokens`` consumer: every chunk, then the stream's tokens
+    with their offsets checked contiguous from 0."""
+
+    def __init__(self):
+        self.chunks = []
+
+    def __call__(self, off, toks):
+        self.chunks.append((int(off), [int(t) for t in toks]))
+
+    def tokens(self):
+        out = []
+        for off, toks in self.chunks:
+            _check(off == len(out), f"stream offset {off} after {len(out)} "
+                   "tokens")
+            out.extend(toks)
+        return out
+
+
+def _engine_serve(torch, np, kernels, net, prompts, prefix_cache, window,
+                  probe):
+    """One continuous engine over (b)'s traffic: warmed, then the first
+    request alone (its retirement fills the cache), then the other 15 at
+    once from ENGINE_THREADS threads, ENGINE_STREAMS streaming; each
+    admission group counted and timed. With ``window``, the busy share
+    of ENGINE_WINDOW more requests at once; with ``probe``, that of one
+    admission round (a one-token request); each of these the system
+    prompt and a fresh tail of a traffic request's length. Serving after the warmup makes no first
+    dispatch. The pool drains: free + cached == total, and free == total
+    once the caches are cleared. Returns (the outputs, metrics)."""
+    from deeplearning4j_tpu_torch import monitor
+    from deeplearning4j_tpu_torch.parallel import ParallelInference
+
+    eng = ParallelInference(net, continuous=True, prefix_cache=prefix_cache,
+                            **ENGINE_SERVE)
+    tails = [int(p.shape[1]) - ENGINE_SYSTEM for p in prompts]
+    t0 = time.perf_counter()
+    eng.warmup_generate([int(p.shape[1]) for p in prompts], ENGINE_NEW,
+                        tail_lengths=tails if prefix_cache else None)
+    warmup_s = time.perf_counter() - t0
+    reg = monitor.get_registry()
+    miss0 = reg.family_total(monitor.JIT_CACHE_MISS_COUNTER)
+    sched = eng._scheduler
+    groups = _admission_groups(sched)
+    before = sched.stats()
+    streams = {i: _Chunks() for i in ENGINE_STREAMS}
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    first = eng.generate(prompts[0], ENGINE_NEW, timeout=600)
+    rest = _in_threads([
+        lambda i=i: eng.submit_generate(prompts[i], ENGINE_NEW,
+                                        on_tokens=streams.get(i))
+        for i in range(1, len(prompts))], ENGINE_THREADS)
+    got = [first] + [f.result(600) for f in rest]
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = _port_launches(kernels)
+    _check(launches.get("flash_fwd", 0) > 0,
+           f"no admission prefill launched flash_fwd: {launches}")
+    st = sched.stats()
+    ttft = sorted((c["t_first"] - c["t_submit"]) * 1e3
+                  for c in list(sched.completed)[-len(prompts):])
+    for i, s in streams.items():
+        _check(s.tokens() == got[i][0, prompts[i].shape[1]:].tolist(),
+               f"request {i}'s stream is not its future's tokens")
+        _check(len(s.chunks) > 1, f"request {i} streamed one chunk")
+    for p, out in zip(prompts, got):
+        _check(out.shape == (1, p.shape[1] + ENGINE_NEW), f"shape {out.shape}")
+        _check(bool((out[:, :p.shape[1]] == p).all()), "prompt echoed")
+    tokens = len(prompts) * ENGINE_NEW
+    m = dict(prefix_cache=prefix_cache, requests=len(prompts),
+             new_tokens=ENGINE_NEW, warmup_s=warmup_s, wall_s=wall_s,
+             tokens_per_s=tokens / wall_s,
+             admission_groups=_group_summary(groups),
+             ttft_ms_median=statistics.median(ttft),
+             ttft_ms_p90=ttft[int(0.9 * (len(ttft) - 1) + 0.5)],
+             prefill_tokens_computed=st["prefill_tokens_computed"]
+             - before["prefill_tokens_computed"],
+             bursts=st["bursts"] - before["bursts"],
+             streamed_chunks={i: len(s.chunks) for i, s in streams.items()},
+             launches=launches)
+    if prefix_cache:
+        m["prefix_cache"] = st["prefix_cache"]
+    rng = np.random.default_rng(35)
+
+    def fresh(i):
+        """The system prompt and a new tail of request i's length."""
+        return np.concatenate([prompts[0][:, :ENGINE_SYSTEM], rng.integers(
+            0, GPT["vocab_size"], (1, tails[i]))], axis=1)
+
+    if window:
+        bw = _busy_window(torch, lambda: [f.result(600) for f in [
+            eng.submit_generate(fresh(i), ENGINE_NEW)
+            for i in range(1, 1 + ENGINE_WINDOW)]])
+        m.update(busy_window=dict(bw, requests=ENGINE_WINDOW,
+                                  new_tokens=ENGINE_NEW),
+                 device_busy_share=bw["device_busy_share"],
+                 profile_kept_share=bw["profile_kept_share"])
+    if probe:
+        m["admission_round"] = _busy_window(
+            torch, lambda: eng.generate(fresh(1), 1, timeout=600))
+    misses = reg.family_total(monitor.JIT_CACHE_MISS_COUNTER) - miss0
+    m["first_dispatches_after_warmup"] = misses
+    _check(misses == 0, f"serving after warmup_generate (prefix cache "
+           f"{prefix_cache}) made {misses} first dispatches")
+    _check(eng.drain(600), "the engine did not drain")
+    st = sched.stats()
+    cached = sum(c.cached_blocks() for c in sched.prefix_caches())
+    _check(st["pool"]["blocks_free"] + cached == st["pool"]["blocks_total"],
+           f"drained pool {st['pool']} with {cached} cached blocks")
+    for c in sched.prefix_caches():
+        c.clear()
+    st = sched.stats()
+    _check(st["pool"]["blocks_free"] == st["pool"]["blocks_total"],
+           f"the pool did not drain once the cache was cleared: {st['pool']}")
+    eng.shutdown()
+    return got, m
+
+
+def _engine_continuous(torch, np, kernels, flash):
+    """Phase 14 (b): phase 3's gpt behind the continuous engine, bf16
+    and f32, the prefix cache off and on."""
+    from deeplearning4j_tpu_torch.models.zoo.transformer import gpt
+    from deeplearning4j_tpu_torch.util.model_serializer import params_from_numpy
+
+    prompts = _engine_traffic(np)
+    out, launches = {}, collections.Counter()
+    for dtype, bound in (("bfloat16", LOGIT_TOL), ("float32", PAGED_TIE_F32)):
+        net = gpt(**dict(GPT, compute_dtype=dtype)).init()
+        params_from_numpy(net, _random_params(net, seed=7))
+        bf16 = dtype == "bfloat16"
+        cold, mc = _engine_serve(torch, np, kernels, net, prompts, False,
+                                 False, bf16)
+        warm, mw = _engine_serve(torch, np, kernels, net, prompts, True,
+                                 bf16, bf16)
+        launches.update(mc["launches"])
+        launches.update(mw["launches"])
+        pc = mw["prefix_cache"]
+        _check(pc["hits"] >= ENGINE_GEN_REQUESTS - 1,
+               f"{dtype}: {pc['hits']} prefix-cache hits")
+        _check(pc["saved_prefill_tokens"] > 0, f"{dtype}: no token saved")
+        _check(mw["prefill_tokens_computed"] < mc["prefill_tokens_computed"],
+               f"{dtype}: the cache computed {mw['prefill_tokens_computed']} "
+               f"prefill tokens, none {mc['prefill_tokens_computed']}")
+        whole, ties = _tie_parity(torch, net, prompts, warm, cold, bound,
+                                  f"{dtype} prefix cache vs none",
+                                  ENGINE_NEW)
+        out[dtype] = dict(uncached=mc, cached=mw, whole_vs_uncached=whole,
+                          near_ties_vs_uncached=ties)
+        if bf16:
+            out["net"] = net
+        gc, gw = mc["admission_groups"], mw["admission_groups"]
+        _say(f"phase 14 (b) {dtype}: {mc['tokens_per_s']:.1f} tokens/s "
+             f"without the cache, {mw['tokens_per_s']:.1f} with "
+             f"({pc['hits']} hits, {pc['saved_prefill_tokens']} prefill "
+             f"tokens saved); time to first token median "
+             f"{mc['ttft_ms_median']:.1f} vs {mw['ttft_ms_median']:.1f} ms; "
+             f"admission groups {gc['dense']['groups']} dense vs "
+             f"{gw['dense']['groups']} dense + {gw['tail']['groups']} tail; "
+             f"warmups {mc['warmup_s']:.1f} and {mw['warmup_s']:.1f} s; "
+             f"{whole} of {len(prompts)} requests whole")
+        if bf16:
+            rc, rw = mc["admission_round"], mw["admission_round"]
+            _say(f"phase 14 (b) bfloat16: one admission round "
+                 f"{rc['wall_ms']:.2f} ms wall, {rc['device_ms']:.3f} device "
+                 f"(dense) vs {rw['wall_ms']:.2f} and {rw['device_ms']:.3f} "
+                 f"(tail); group host ms {gc['dense']['host_ms_per_group']} "
+                 f"(dense) vs {gw['tail']['host_ms_per_group']} (tail)")
+    out["launches"] = dict(launches)
+    return out
+
+
+def _engine_coalesced(torch, np, kernels, flash, net):
+    """Phase 14 (c): COALESCE_REQUESTS concurrent requests of one prompt
+    bucket on the whole-run generate path of ``net`` (phase 3's gpt,
+    bf16), after warmup_generate."""
+    from deeplearning4j_tpu_torch import monitor
+    from deeplearning4j_tpu_torch.parallel import ParallelInference
+
+    rng = np.random.default_rng(34)
+    prompts = [rng.integers(0, GPT["vocab_size"], (1, int(t))) for t in
+               rng.integers(COALESCE_PROMPTS[0], COALESCE_PROMPTS[1] + 1,
+                            COALESCE_REQUESTS)]
+    eng = ParallelInference(net, max_batch_size=COALESCE_REQUESTS,
+                            max_latency_ms=200.0)
+    warmed = eng.warmup_generate([int(p.shape[1]) for p in prompts], NEW)
+    reg = monitor.get_registry()
+    miss0 = reg.family_total(monitor.JIT_CACHE_MISS_COUNTER)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    got = _in_threads([lambda p=p: eng.generate(p, NEW, timeout=600)
+                       for p in prompts], COALESCE_REQUESTS)
+    wall_s = time.perf_counter() - t0
+    launches = _port_launches(kernels)
+    misses = reg.family_total(monitor.JIT_CACHE_MISS_COUNTER) - miss0
+    st = eng.stats()
+    eng.shutdown()
+    _check(launches.get(flash.KERNEL, 0) > 0,
+           f"the coalesced prefill never launched flash_fwd: {launches}")
+    _check(st["batches"] <= 2, f"{COALESCE_REQUESTS} requests took "
+           f"{st['batches']} batches")
+    _check(misses == 0, f"serving after warmup_generate made {misses} first "
+           "dispatches")
+    solo = [net.generate(p, NEW) for p in prompts]
+    whole, ties = _tie_parity(torch, net, prompts, got, solo, LOGIT_TOL,
+                              "coalesced vs solo generate")
+    return dict(requests=COALESCE_REQUESTS, new_tokens=NEW, wall_s=wall_s,
+                tokens_per_s=COALESCE_REQUESTS * NEW / wall_s,
+                batches=st["batches"], rows_dispatched=st["rows_dispatched"],
+                warmup_first_dispatches=warmed, whole_vs_solo=whole,
+                near_ties_vs_solo=ties, launches=launches)
+
+
+def phase_engine(torch, np, kernels, flash, lk):
+    """Phase 14: the serving engine; returns its metrics."""
+    m = {"classify": _engine_classify(torch, np, kernels, lk)}
+    a = m["classify"]
+    _say(f"phase 14 (a): LeNet {a['requests_per_s']:.1f} requests/s "
+         f"({a['rows_per_s']:.0f} rows/s) in {a['batches']} batches, busy "
+         f"{a['device_busy_share']:.3f} "
+         f"({a['busy_window']['device_ms']:.3f} device ms in "
+         f"{a['busy_window']['wall_ms']:.2f} wall), "
+         f"{a['callers_bitwise']} of {ENGINE_REQUESTS} callers bitwise, "
+         f"max |diff| {a['max_abs_diff_vs_output_alone']:.3g}; char-RNN "
+         f"{a['char_rnn']['requests_per_s']:.1f} requests/s")
+    m["continuous"] = _engine_continuous(torch, np, kernels, flash)
+    m["coalesced"] = c = _engine_coalesced(torch, np, kernels, flash,
+                                           m["continuous"].pop("net"))
+    _say(f"phase 14 (c): {c['requests']} requests in {c['batches']} batches, "
+         f"{c['tokens_per_s']:.1f} tokens/s, {c['whole_vs_solo']} whole vs "
+         "solo generate")
+    launches = collections.Counter(a["launches"])
+    launches.update(m["continuous"]["launches"])
+    launches.update(c["launches"])
+    m["launches"] = dict(launches)
+    print("engine " + json.dumps(dict(
+        {k: v for k, v in m.items() if k != "launches"}, card=_card())),
+        flush=True)
+    return m
+
+
+def _engine_launches(entries, done):
+    """Each kernel's launches in phase 14's engine runs (classify,
+    continuous and coalesced), added to its entry of the kernels line."""
+    for e in entries:
+        e["engine_launches"] = done["14"]["launches"].get(e["name"], 0)
+    return entries
+
+
+PHASES = ("2", "2b", "3", "4", "5", "6", "7", "8", "9", "10", "11", "12", "13",
+          "14")
 # source -> its bf16 kernels, each of whose instantiations must not spill:
 # the mma.sync designs keep their tiles, sums and (LSTM) cell state in
 # registers
@@ -4744,15 +5228,25 @@ def main(argv) -> int:
              f"pipelined (busy {c['device_busy_share']:.3f}), staging on stream "
              f"{c['feed_stream_id']} beside compute stream "
              f"{c['compute_stream_id']}; native IO built on {card}", flush=True)
+    if "14" in phases:  # the serving engine
+        print(f"clocks: {_clocks()}", flush=True)
+        m = done["14"] = phase_engine(torch, np, kernels, flash, lk)
+        b = m["continuous"]["bfloat16"]
+        _say(f"phase 14: engine classify {m['classify']['requests_per_s']:.1f} "
+             f"requests/s; bf16 serve {b['uncached']['tokens_per_s']:.1f} "
+             f"tokens/s without the prefix cache, "
+             f"{b['cached']['tokens_per_s']:.1f} with (busy "
+             f"{b['cached']['device_busy_share']:.3f}); coalesced generate "
+             f"{m['coalesced']['batches']} batches on {card}", flush=True)
     if phases != PHASES:
         print(f"chip_smoke: ran phases 0, 1, {', '.join(phases)} only; "
               "no result", flush=True)
         return 0
 
-    summary = {"kernels": _feed_launches(_service_launches(_paged_launches(
-        _layer_launches(_path_launches(_flash_summary(done)
-                                       + _lstm_summary(done, lk), done),
-                        done), done), done), done)}
+    summary = {"kernels": _engine_launches(_feed_launches(_service_launches(
+        _paged_launches(_layer_launches(_path_launches(
+            _flash_summary(done) + _lstm_summary(done, lk), done), done),
+            done), done), done), done)}
     print(card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

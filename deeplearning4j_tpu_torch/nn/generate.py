@@ -229,28 +229,33 @@ class _Generator:
     ``_next(state, tok) -> (state, next logits)`` and the reference's
     dispatch signatures of its two phases (``_signatures``)."""
 
-    def _begin(self, params, ids, lengths, max_new):
-        dev = self.net.device
+    def _begin(self, params, ids, lengths, max_new, device=None):
+        dev = self.net.device if device is None else device
         ids_d = torch.as_tensor(np.asarray(ids), dtype=torch.long, device=dev)
         len_d = torch.as_tensor(np.asarray(lengths), dtype=torch.long,
                                 device=dev)
         return (len_d, *self._start(params, ids_d, len_d, max_new))
 
     def run(self, params, ids: np.ndarray, lengths: np.ndarray, max_new: int,
-            sampler: SamplerSig, keys: Sequence[int]) -> np.ndarray:
+            sampler: SamplerSig, keys: Sequence[int], replica=None,
+            device=None) -> np.ndarray:
         """Generation over a bucket-padded prompt batch: ``ids`` [b, t_pad]
         (rows right-padded past ``lengths``) -> the [b, max_new]
         generated ids. Tokens and the done-mask stay on the device; the
-        tokens are fetched once."""
+        tokens are fetched once. A serving replica passes its index
+        (part of the dispatch signatures) and ``device``, where its
+        ``params`` lie (the net's by default)."""
         temperature, top_k, top_p, eos = sampler
         b, t_pad = np.shape(ids)
-        pre_sig, dec_sig = self._signatures(b, t_pad, max_new)
-        clock = _PhaseClock(self.net.device)
+        pre_sig, dec_sig = self._signatures(b, t_pad, max_new, replica)
+        dev = self.net.device if device is None else device
+        clock = _PhaseClock(dev)
         fresh = note_dispatch(self.net, pre_sig)
         clock.mark()
         with span("compile" if fresh else "inference",
                   path="generate_prefill", bucket=t_pad, rows=b):
-            len_d, state, logits0 = self._begin(params, ids, lengths, max_new)
+            len_d, state, logits0 = self._begin(params, ids, lengths, max_new,
+                                                dev)
         clock.mark()
         fresh = note_dispatch(self.net, dec_sig + tuple(sampler))
         with span("compile" if fresh else "inference",
@@ -369,10 +374,10 @@ class TransformerGenerator(_Generator):
         return (pc, caches, lengths.clone()), logits0
 
     @staticmethod
-    def _signatures(b: int, t_pad: int, max_new: int):
+    def _signatures(b: int, t_pad: int, max_new: int, replica=None):
         cache_len = t_pad + max_new
-        return (("gen_prefill", None, b, t_pad, cache_len),
-                ("gen_decode", None, b, cache_len, max_new))
+        return (("gen_prefill", replica, b, t_pad, cache_len),
+                ("gen_decode", replica, b, cache_len, max_new))
 
     def _next(self, state, tok):
         pc, caches, pos = state
@@ -601,7 +606,8 @@ class RecurrentGenerator(_Generator):
         that token's logits [b, V] f32)."""
         b, t_pad = ids.shape
         xs = F.one_hot(ids, self.n_in).float()
-        rstate = self.net._init_rnn_state(b)
+        rstate = {k: {s: v.to(ids.device) for s, v in c.items()}
+                  for k, c in self.net._init_rnn_state(b).items()}
         last_h = torch.zeros(b, self._head_in, device=ids.device)
         for t in range(t_pad):
             h, new = self._one_step(params, rstate, xs[:, t])
@@ -640,9 +646,9 @@ class RecurrentGenerator(_Generator):
         return (params, rstate), logits0
 
     @staticmethod
-    def _signatures(b: int, t_pad: int, max_new: int):
-        return (("gen_rnn_prefill", None, b, t_pad),
-                ("gen_rnn_decode", None, b, max_new))
+    def _signatures(b: int, t_pad: int, max_new: int, replica=None):
+        return (("gen_rnn_prefill", replica, b, t_pad),
+                ("gen_rnn_decode", replica, b, max_new))
 
     def _next(self, state, tok):
         params, rstate = state

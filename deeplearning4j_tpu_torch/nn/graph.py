@@ -741,6 +741,29 @@ class ComputationGraph:
     def output(self, *features) -> np.ndarray:
         return self.outputs(*features)[0]
 
+    def infer_output_fn(self):
+        """The serving engine's batched output program for a
+        single-input, single-output graph (``MultiLayerNetwork.
+        infer_output_fn``'s contract): a pure ``(params, states, x,
+        fmask) -> predictions``."""
+        if len(self.input_names) != 1 or len(self.output_names) != 1:
+            raise ValueError(
+                "ParallelInference serves single-input/single-output "
+                f"graphs; this one has inputs {self.input_names} and "
+                f"outputs {self.output_names}: serve per output with "
+                "outputs() directly")
+        return self._infer_output
+
+    @torch.no_grad()
+    def _infer_output(self, params: Params, states: Dict[str, Any],
+                      x: torch.Tensor, fmask: Optional[torch.Tensor]
+                      ) -> torch.Tensor:
+        inp = self.input_names[0]
+        fmasks = {} if fmask is None else {inp: fmask}
+        acts, _, _ = self._forward_all(params, states, {inp: x}, False,
+                                       None, fmasks)
+        return acts[self.output_names[0]]
+
     def score(self, data=None) -> float:
         """Loss on ``data`` in eval mode, or the last training step's."""
         if data is None:

@@ -256,9 +256,24 @@ class MultiLayerNetwork:
         Dropout is off and BN uses its moving statistics."""
         if train:
             raise ValueError("use fit() for training-mode passes")
-        acts, _ = self._forward(self.params, self.states, self._tensor(x),
-                                fmask=self._tensor(features_mask))
-        return _numpy(acts[-1])
+        return _numpy(self.infer_output_fn()(
+            self.params, self.states, self._tensor(x),
+            self._tensor(features_mask)))
+
+    def infer_output_fn(self):
+        """The serving engine's batched output program, shared with
+        ``output()``: a pure ``(params, states, x, fmask) ->
+        predictions`` (a tensor on x's device). ``ParallelInference``
+        replicas call it with their own device copies of the parameters
+        and states."""
+        return self._infer_output
+
+    @torch.no_grad()
+    def _infer_output(self, params: Params, states: Dict[str, Any],
+                      x: torch.Tensor, fmask: Optional[torch.Tensor]
+                      ) -> torch.Tensor:
+        acts, _ = self._forward(params, states, x, fmask=fmask)
+        return acts[-1]
 
     @torch.no_grad()
     def feed_forward(self, x, train: bool = False) -> List[np.ndarray]:

@@ -1,3 +1,10 @@
-"""Parallel and serving-engine support. For now only the serving
-engine's typed errors (``parallel/inference.py``); the engine itself and
-the mesh wait for ROADMAP A10 and A9."""
+"""Parallel and serving-engine support: the serving engine
+(``parallel/inference.py`` ``ParallelInference``) and its typed errors.
+The mesh, the wrapper and the sharded paths wait for ROADMAP A9."""
+
+from deeplearning4j_tpu_torch.parallel.inference import (  # noqa: F401
+    EngineShutdown,
+    InferenceBackpressure,
+    ParallelInference,
+    SliceDegraded,
+)

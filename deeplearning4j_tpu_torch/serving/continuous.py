@@ -2,8 +2,8 @@
 KV-cache block pool.
 
 Counterpart of ``deeplearning4j_tpu/serving/continuous.py``, its
-single-net core (Orca's iteration-level scheduling over vLLM's paged
-pool):
+single-net scheduler (Orca's iteration-level scheduling over vLLM's
+paged pool):
 
 - decode runs in **short fixed-K bursts** (``TransformerGenerator.
   burst_program``) over the active rows, compacted into the smallest
@@ -24,41 +24,56 @@ pool):
   an uninterrupted run's. A sequence that cannot fit even alone fails
   with :class:`KVPoolExhausted`; a full queue sheds with
   ``InferenceBackpressure``;
+- ``prefix_cache=True`` indexes every retiring or preempted sequence's
+  written blocks in a :class:`~deeplearning4j_tpu_torch.serving.
+  prefixcache.PrefixCache` per pool; an admission whose prompt matches
+  a cached prefix shares those blocks, copies a matched partial block
+  on write (``block_copy_program``) and prefills only its tail over the
+  pool (``tail_prefill_program``, plain torch, as the reference leaves
+  it to XLA); ``prefix_cache_blocks`` caps the cache. The cache keeps
+  its blocks past a drain: ``prefix_caches()`` and ``clear()`` release
+  them;
+- ``on_tokens(offset, tokens)`` streams a single-row request's new
+  tokens after its admission and after every burst that extends it,
+  from the burst's one fetch: append-only across preemptions;
 - one fetch per admission group (its first tokens) and one per burst
   (its tokens and row state) are the host's only waits on the card.
 
 ``start=False`` skips the scheduler thread: :meth:`step` then drives a
-fully deterministic schedule. Transformer (KV-cache) stacks only.
+fully deterministic schedule. Transformer (KV-cache) stacks only; the
+scheduler runs on its net's device. ``on_resolve(n)`` tells the engine
+of every resolved request.
 
 Left for later slices, each raising ``NotImplementedError`` that names
-its ROADMAP item: ``registry=`` lanes, ``prefix_cache=True``,
-``speculative=True`` / ``draft_net=``, ``host_kv_blocks=`` and
-``submit``'s ``model=`` / ``version=``, ``session=`` / ``hibernate=``
-and ``on_tokens=`` (A10); ``kv_state=`` (A11).
+its ROADMAP item: ``registry=`` lanes, ``speculative=True`` /
+``draft_net=``, ``host_kv_blocks=`` and ``submit``'s ``model=`` /
+``version=`` and ``session=`` / ``hibernate=`` (A10b); ``kv_state=``
+(A11).
 
-Telemetry (``monitor``), the reference's for the single-net core:
+Telemetry (``monitor``), the reference's for the single-net scheduler:
 
 - counters ``dl4j_sched_admitted_rows_total``, ``_retired_rows_total``,
   ``_preemptions_total``, ``_bursts_total`` and the burst-latency
   histogram, the ``dl4j_sched_active_sequences`` /
   ``dl4j_sched_queued_prefills`` gauges and their time series
-  (``dl4j_ts_sched_*``, with the pool's occupancy) after every step,
-  and the per-owner ``dl4j_attr_*`` counters; the pool publishes its own
-  (``nn/kvpool.py``);
+  (``dl4j_ts_sched_*``, with the pool's occupancy and the prefix
+  cache's hit rate) after every step, the per-owner ``dl4j_attr_*``
+  counters, ``dl4j_stream_chunks_total`` per streamed chunk; the pool
+  and the prefix cache publish their own (``nn/kvpool.py``,
+  ``serving/prefixcache.py``);
 - spans: ``compile`` at the first dispatch of a program signature
   (``optimize/deferred.py`` ``note_dispatch``), else ``inference``,
-  around each admission group's prefill and each burst (the burst's
-  span holds its token fetch, the host's wait that was there before);
-  ``stage`` around ``warmup``;
+  around each admission group's prefill (dense or tail) and each burst
+  (the burst's span holds its token fetch, the host's wait that was
+  there before); ``stage`` around ``warmup``;
 - request traces (``monitor/reqtrace.py``): with a request tracer
   enabled, each request without an ambient trace context roots a
   ``decode_request`` trace; its rows record ``queue_wait`` and
   ``prefill`` spans from the admission's timestamps, a ``decode_burst``
-  span for every burst they ride and a ``preempt`` event, and the trace
-  is sealed when the request resolves or fails. Every span is built
-  from host timestamps the loop takes anyway: no wait on the card.
-  ``chunk_deliver`` spans come with ``on_tokens=`` streaming (A10), as
-  do the prefix-cache, speculation and handoff metrics.
+  span for every burst they ride, a ``chunk_deliver`` span for every
+  streamed chunk and a ``preempt`` event, and the trace is sealed when
+  the request resolves or fails. Every span is built from host
+  timestamps the loop takes anyway: no wait on the card.
 """
 
 from __future__ import annotations
@@ -72,7 +87,7 @@ from typing import Any, Deque, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch.datasets.iterators import bucket_for
+from deeplearning4j_tpu_torch.datasets.iterators import bucket_for, bucket_sizes
 from deeplearning4j_tpu_torch.monitor import (
     ATTR_DECODE_TOKENS_COUNTER,
     ATTR_PREFILL_TOKENS_COUNTER,
@@ -84,11 +99,14 @@ from deeplearning4j_tpu_torch.monitor import (
     SCHED_PREEMPTIONS_COUNTER,
     SCHED_QUEUED_GAUGE,
     SCHED_RETIRED_COUNTER,
+    STREAM_CHUNKS_COUNTER,
     TS_SCHED_ACTIVE,
     TS_SCHED_POOL_OCCUPANCY,
+    TS_SCHED_PREFIX_HIT_RATE,
     TS_SCHED_QUEUED,
     get_registry,
     mark,
+    record_fault,
     reqtrace,
     span,
     timeseries_enabled,
@@ -107,6 +125,7 @@ from deeplearning4j_tpu_torch.parallel.inference import (
     EngineShutdown,
     InferenceBackpressure,
 )
+from deeplearning4j_tpu_torch.serving.prefixcache import PrefixCache
 
 
 class DecodeBurstError(RuntimeError):
@@ -120,7 +139,7 @@ class KVPoolExhausted(RuntimeError):
     even with every other sequence preempted: a sizing error."""
 
 
-def _later(feature: str, item: str = "A10") -> NotImplementedError:
+def _later(feature: str, item: str = "A10b") -> NotImplementedError:
     return NotImplementedError(
         f"ContinuousDecodeScheduler: {feature} is not ported yet "
         f"(ROADMAP {item})")
@@ -146,16 +165,20 @@ def _pow2_ladder(top: int) -> Tuple[int, ...]:
 class _DecodeRequest:
     """One ``submit()``: n prompt rows sharing a sampler and seed; the
     future resolves to [n, t0 + max_new] ids once every row retires.
-    ``prefix`` makes it a resume: the row re-prefills prompt + prefix
-    and its token clock starts at ``len(prefix)``."""
+    ``on_tokens`` (one row) receives ``(offset, tokens)`` deltas;
+    ``prefix`` makes it a resume: the row re-prefills prompt + prefix,
+    its token clock starts at ``len(prefix)``, and its stream offsets
+    continue after the prefix."""
 
     __slots__ = ("prompt", "n", "t_in", "max_new", "temperature", "top_k",
                  "top_p", "eos", "seed", "priority", "future", "rows_done",
-                 "t_submit", "t_first", "rows", "prefix", "trace", "root")
+                 "t_submit", "t_first", "rows", "prefix", "trace", "root",
+                 "on_tokens")
 
     def __init__(self, prompt: np.ndarray, max_new: int, temperature: float,
                  top_k: int, top_p: float, eos: Optional[int], seed: int,
-                 priority: int, prefix: Optional[np.ndarray] = None):
+                 priority: int, prefix: Optional[np.ndarray] = None,
+                 on_tokens=None):
         self.prompt = np.asarray(prompt, np.int64)
         self.n, self.t_in = self.prompt.shape
         self.max_new = int(max_new)
@@ -166,6 +189,7 @@ class _DecodeRequest:
         self.seed = int(seed)
         self.priority = int(priority)
         self.prefix = prefix  # [p] int64 generated so far (row 0)
+        self.on_tokens = on_tokens
         self.future: "Future[np.ndarray]" = Future()
         self.rows_done = 0
         self.t_submit = time.perf_counter()
@@ -181,10 +205,13 @@ class _Seq:
     """One decode row, the schedulable unit. ``fed`` is what the next
     (re)prefill feeds: the prompt plus everything generated before the
     last preemption; ``generated`` the output so far; ``n_gen`` the
-    row's token clock (the fold of its next draw)."""
+    row's token clock (the fold of its next draw); ``emitted`` the
+    tokens already streamed through ``on_tokens`` (only advances, so a
+    resumed row never re-delivers)."""
 
     __slots__ = ("req", "row", "fed", "generated", "key", "n_gen", "slot",
-                 "blocks", "pos", "seq_id", "preemptions", "t_queued")
+                 "blocks", "pos", "seq_id", "preemptions", "t_queued",
+                 "emitted")
 
     def __init__(self, req: _DecodeRequest, row: int, key: int,
                  seq_id: int):
@@ -200,11 +227,14 @@ class _Seq:
         self.pos = 0
         self.seq_id = seq_id
         self.preemptions = 0
+        self.emitted = 0
         if req.prefix is not None and len(req.prefix):
             pre = np.asarray(req.prefix, np.int64)
             self.fed = np.concatenate([self.fed, pre])
             self.generated = [int(t) for t in pre]
             self.n_gen = len(self.generated)
+            # the prefix was delivered by the engine the stream left
+            self.emitted = self.n_gen
 
     @property
     def priority(self) -> int:
@@ -216,14 +246,21 @@ class _Seq:
 
 
 class _AdmitPlan:
-    """One admission's claimed blocks (in table order) and the group
-    signature that decides which admissions share a prefill."""
+    """One admission's claimed blocks in table order (shared prefix
+    blocks first, then the copy of a matched partial block, then fresh
+    ones), the ``start`` cached tokens its tail prefill skips, the
+    shared partial block ``cow_src`` still referenced until its copy
+    lands, and the group signature that decides which admissions share
+    a prefill: ``("dense", t_pad)`` or ``("tail", t_tail_pad, tier)``."""
 
-    __slots__ = ("seq", "blocks", "sig")
+    __slots__ = ("seq", "blocks", "start", "cow_src", "sig")
 
-    def __init__(self, seq: _Seq, blocks: List[int], sig: Tuple):
+    def __init__(self, seq: _Seq, blocks: List[int], start: int,
+                 cow_src: Optional[int], sig: Tuple):
         self.seq = seq
         self.blocks = blocks
+        self.start = start
+        self.cow_src = cow_src
         self.sig = sig
 
 
@@ -288,6 +325,11 @@ class ContinuousDecodeScheduler:
     values), ``queue_capacity`` bounded admission, ``admit_rows`` the
     widest admission group.
 
+    ``prefix_cache=True`` turns on the cross-request prefix cache
+    (``prefix_cache_blocks`` caps it); its blocks outlive a drain, so a
+    drained pool holds ``free + cached == total`` until
+    ``prefix_caches()``' ``clear()``.
+
     ``start=False`` skips the scheduler thread; tests drive :meth:`step`
     for deterministic schedules. ``burst_hook(lane_key, burst_index)``
     runs before each burst; an error it raises fails the burst's
@@ -298,7 +340,7 @@ class ContinuousDecodeScheduler:
                  burst_tokens: int = 8, block_size: int = 16,
                  num_blocks: Optional[int] = None,
                  queue_capacity: int = 256, admit_rows: int = 4,
-                 start: bool = True, burst_hook=None,
+                 start: bool = True, burst_hook=None, on_resolve=None,
                  prefix_cache: bool = False,
                  prefix_cache_blocks: Optional[int] = None,
                  kv_quant: Optional[str] = None,
@@ -307,8 +349,6 @@ class ContinuousDecodeScheduler:
                  host_kv_blocks: Optional[int] = None):
         if registry is not None:
             raise _later("registry= (model/version lanes)")
-        if prefix_cache or prefix_cache_blocks is not None:
-            raise _later("prefix_cache= (serving/prefixcache.py)")
         if speculative or draft_net is not None:
             raise _later("speculative=/draft_net= (speculative decoding)")
         if host_kv_blocks:
@@ -316,6 +356,7 @@ class ContinuousDecodeScheduler:
                          "hibernation)")
         if net is None:
             raise ValueError("ContinuousDecodeScheduler needs a net")
+        self.device = net.device
         if kv_quant is not None and kv_quant not in quant_modes():
             raise ValueError(f"unknown kv_quant {kv_quant!r}; pick from "
                              f"{quant_modes()}")
@@ -336,6 +377,15 @@ class ContinuousDecodeScheduler:
         # a burst runs the smallest slot bucket covering its active rows
         self._slot_ladder = _pow2_ladder(self.slots)
         self._burst_hook = burst_hook
+        self._on_resolve = on_resolve
+        # burst-coalesced emit: while a retire pass is open, deltas for
+        # callbacks marked with a ``burst_sink`` gather here and flush
+        # as one call per sink
+        self._emit_batch: Optional[List[Tuple[Any, int, np.ndarray]]] = None
+        # one PrefixCache per pool spec, radix roots per lane inside
+        self.prefix_cache = bool(prefix_cache)
+        self._prefix_cache_blocks = prefix_cache_blocks
+        self._caches: Dict[Tuple, PrefixCache] = {}
         self._prefill_computed_tokens = 0
         self._resume_reprefill_tokens = 0
         self._lock = threading.Lock()
@@ -394,16 +444,18 @@ class ContinuousDecodeScheduler:
         + max_new_tokens] ids a solo ``generate`` of the same rows
         returns (greedy: token for token; sampled: the same seeded draws
         whatever the admission timing, co-tenants or preemptions).
-        Higher ``priority`` sequences are preempted last. ``prefix``
-        (one row) resumes a stream: the row re-prefills prompt + prefix,
-        its token clock starts at ``len(prefix)``, and
-        ``max_new_tokens`` still counts the prefix."""
+        Higher ``priority`` sequences are preempted last.
+        ``on_tokens(offset, tokens)`` (one row) receives the row's new
+        tokens as admission and bursts produce them, tagged with their
+        offset: append-only, no gap, no repeat, across preemptions.
+        ``prefix`` (one row) resumes a stream: the row re-prefills
+        prompt + prefix, its token clock starts at ``len(prefix)``,
+        ``max_new_tokens`` still counts the prefix, and the prefix is
+        not streamed again."""
         if model is not None or version is not None:
             raise _later("model=/version= (registry lanes)")
         if session is not None or hibernate:
             raise _later("session=/hibernate= (session hibernation)")
-        if on_tokens is not None:
-            raise _later("on_tokens= (token streaming)")
         if kv_state is not None:
             raise _later("kv_state= (the disaggregated prefill handoff)",
                          "A11")
@@ -419,16 +471,17 @@ class ContinuousDecodeScheduler:
         pre = None
         if prefix is not None:
             pre = np.asarray(prefix, np.int64).reshape(-1)
-            if prompt.shape[0] != 1:
-                raise ValueError(
-                    "prefix resume is per-stream: prompt must be [1, t0], "
-                    f"got {prompt.shape}")
+        if (on_tokens is not None or pre is not None) \
+                and prompt.shape[0] != 1:
+            raise ValueError(
+                "token streaming / prefix resume are per-stream: prompt "
+                f"must be [1, t0], got {prompt.shape}")
         if pre is not None and len(pre) >= max_new:
             # every token was generated before: only the result was lost
             out = np.concatenate(
                 [np.asarray(prompt, np.int64), pre[None, :max_new]], axis=1)
             req = _DecodeRequest(prompt, max_new, temperature, top_k, top_p,
-                                 eos_token, seed, priority, pre)
+                                 eos_token, seed, priority, pre, on_tokens)
             self._trace_begin(req)
             with self._cv:
                 self._accepted += 1
@@ -443,7 +496,7 @@ class ContinuousDecodeScheduler:
         lane.gen.prompt_bucket(prompt.shape[1] + n_pre,
                                max(1, max_new - n_pre))
         req = _DecodeRequest(prompt, max_new, temperature, top_k, top_p,
-                             eos_token, seed, priority, pre)
+                             eos_token, seed, priority, pre, on_tokens)
         self._trace_begin(req)
         keys = row_keys(req.seed, req.n)
         with self._cv:
@@ -483,6 +536,7 @@ class ContinuousDecodeScheduler:
                 "resume_reprefill_tokens": self._resume_reprefill_tokens,
             }
             pools = [p.stats() for _, p in sorted(self._pools.items())]
+            caches = self._sorted_caches()
         agg = {"blocks_total": sum(p["blocks_total"] for p in pools),
                "blocks_free": sum(p["blocks_free"] for p in pools),
                "shared_blocks": sum(p["shared_blocks"] for p in pools),
@@ -493,6 +547,22 @@ class ContinuousDecodeScheduler:
         out["pool"] = agg
         out["pools"] = pools
         out["attribution"] = self.attribution()
+        if self.prefix_cache:
+            cs = [c.stats() for c in caches]
+            hits = sum(c["hits"] for c in cs)
+            misses = sum(c["misses"] for c in cs)
+            out["prefix_cache"] = {
+                "cached_blocks": sum(c["cached_blocks"] for c in cs),
+                "cached_bytes": sum(c["cached_bytes"] for c in cs),
+                "shared_blocks": sum(c["shared_blocks"] for c in cs),
+                "hits": hits, "misses": misses,
+                "hit_rate": hits / (hits + misses) if hits + misses
+                else 0.0,
+                "evictions": sum(c["evictions"] for c in cs),
+                "cow_copies": sum(c["cow_copies"] for c in cs),
+                "saved_prefill_tokens": sum(c["saved_prefill_tokens"]
+                                            for c in cs),
+            }
         return out
 
     def attribution(self) -> Dict[str, Any]:
@@ -545,13 +615,19 @@ class ContinuousDecodeScheduler:
 
     def warmup(self, prompt_lengths, max_new_tokens: int = 1,
                model: Optional[str] = None,
-               version: Optional[int] = None) -> int:
+               version: Optional[int] = None, tail_lengths=None) -> int:
         """Run the program set once, all masked (every write lands in
         the trash block; accounting untouched): the rowwise sampler at
         every admission row count, each covering prompt bucket's prefill
         and scatter, and the burst over every (block tier x slot bucket)
-        in its greedy and sampling forms. Returns how many programs were
-        built."""
+        in its greedy and sampling forms, for the tiers that requests of
+        ``prompt_lengths`` and up to ``max_new_tokens`` new tokens reach
+        (from the shortest prompt's blocks to the longest's at its last
+        token); with the prefix cache on, the
+        block copy and the tail prefill over every (tail bucket x block
+        tier x admission rows) that a prompt of ``prompt_lengths`` can
+        give (``tail_lengths`` narrows the tails, and then the tiers to
+        the prompts' own). Returns how many programs were built."""
         if model is not None or version is not None:
             raise _later("model=/version= (registry lanes)")
         lane = self._lane_for(None, None)
@@ -589,13 +665,60 @@ class ContinuousDecodeScheduler:
                     pool.set_layers(scat(
                         pool.layers, caches,
                         np.zeros((rows, t_blk // self.block_size), np.int64)))
+            lo = self._tier_cover(lane, pool.blocks_for(
+                min(int(t) for t in prompt_lengths)))
+            hi = self._tier_cover(lane, pool.blocks_for(
+                max(int(t) for t in prompt_lengths) + int(max_new_tokens)))
             for tier in self._burst_tiers(lane):
+                if not lo <= tier <= hi:
+                    continue
                 for rows in self._slot_ladder:
                     for sampling in (False, True):
                         self._dispatch_burst(lane, params, tier=tier,
                                              sampling=sampling, rows=rows)
+            if self.prefix_cache:
+                self._warm_tail_programs(lane, params, prompt_lengths,
+                                         tail_lengths)
         self._warmed = True
         return len(gen.__dict__.get("_programs", {})) - before
+
+    def _warm_tail_programs(self, lane: _Lane, params, prompt_lengths,
+                            tail_lengths) -> None:
+        """The cached admissions' programs, on all-trash tables: the
+        copy-on-write block copy and the tail-prefill ladder."""
+        pool, gen = lane.pool, lane.gen
+        cp = gen.block_copy_program(1, pool.num_blocks, self.block_size)
+        note_dispatch(lane.net, ("gen_block_copy", "sched", 1))
+        pool.set_layers(cp(pool.layers, np.zeros(1, np.int64),
+                           np.zeros(1, np.int64)))
+        sizes = bucket_sizes(gen.max_context())
+        if tail_lengths is None:
+            max_tail = max(int(t) for t in prompt_lengths)
+            tail_buckets = sorted({bucket_for(t, sizes)
+                                   for t in range(1, max_tail + 1)})
+            tiers = list(self._burst_tiers(lane))
+        else:
+            tail_buckets = sorted({bucket_for(int(t), sizes)
+                                   for t in tail_lengths})
+            tiers = sorted({self._tier_cover(lane, pool.blocks_for(int(t)))
+                            for t in prompt_lengths})
+        for t_tail in tail_buckets:
+            for tier in tiers:
+                for rows in self._admit_ladder:
+                    tp = gen.tail_prefill_program(
+                        rows, t_tail, tier, pool.num_blocks, self.block_size)
+                    fresh = note_dispatch(lane.net, ("gen_tail_prefill",
+                                                     "sched", rows, t_tail,
+                                                     tier))
+                    with span("compile" if fresh else "inference",
+                              path="warmup_continuous_tail_prefill",
+                              bucket=t_tail, rows=rows, tier=tier):
+                        pools, _ = tp(params, pool.layers,
+                                      np.zeros((rows, t_tail), np.int64),
+                                      np.zeros(rows, np.int64),
+                                      np.full(rows, t_tail, np.int64),
+                                      np.zeros((rows, tier), np.int64))
+                    pool.set_layers(pools)
 
     def step(self) -> bool:
         """One scheduling iteration: admit queued prompts into free
@@ -658,14 +781,33 @@ class ContinuousDecodeScheduler:
                     blocks = self.slots * mb + 1
                 pool = PagedKVCachePool(
                     int(blocks), self.block_size, n_layers, heads, hd,
-                    dtype, device=net.device, name="decode",
+                    dtype, device=self.device, name="decode",
                     quant=self.kv_quant)
                 self._pools[spec] = pool
+                if self.prefix_cache:
+                    self._caches[spec] = PrefixCache(
+                        pool, capacity_blocks=self._prefix_cache_blocks)
             lane = self._lanes.get(key)
             if lane is None:
                 lane = _Lane(key, net, gen, pool, self.slots)
                 self._lanes[key] = lane
         return lane
+
+    def _cache_of(self, lane: _Lane) -> Optional[PrefixCache]:
+        """The lane's prefix cache (None with the cache off)."""
+        if not self.prefix_cache:
+            return None
+        return self._caches.get(lane.pool.spec)
+
+    def _sorted_caches(self) -> List[PrefixCache]:
+        return [c for _, c in sorted(self._caches.items(),
+                                     key=lambda kv: repr(kv[0]))]
+
+    def prefix_caches(self) -> List[PrefixCache]:
+        """Every prefix cache (in pool-spec order); a drain-time audit
+        ``clear()``s them to see the pool fully free."""
+        with self._lock:
+            return self._sorted_caches()
 
     def _params(self, lane: _Lane):
         """The lane's compute-dtype parameters, cast once."""
@@ -693,28 +835,65 @@ class ContinuousDecodeScheduler:
                 return admitted
             lane, sig, entries = group
             try:
-                self._prefill_batch(lane, sig[1],
-                                    [(p.seq, p.blocks) for p in entries])
+                if sig[0] == "tail":
+                    self._prefill_tail_batch(lane, sig[1], sig[2], entries)
+                else:
+                    self._prefill_batch(lane, sig[1],
+                                        [(p.seq, p.blocks) for p in entries])
             except Exception as e:
+                record_fault("serving")
                 for p in entries:
                     self._rollback_plan(lane, p)
                     self._fail_seq(p.seq, self._typed(e, p.seq))
                 continue
             admitted = True
 
+    def _tier_cover(self, lane: _Lane, need: int) -> int:
+        return bucket_for(need, self._burst_tiers(lane))
+
     def _plan_blocks(self, lane: _Lane, seq: _Seq) -> Optional[_AdmitPlan]:
-        """Claim every block this admission needs, or None when the pool
-        cannot cover it now."""
+        """Probe the prefix cache and claim every block this admission
+        needs: the matched blocks shared, a matched partial block
+        replaced by a fresh one for its copy, fresh blocks for the
+        rest. None when the pool cannot cover it now (whatever was
+        claimed is released)."""
+        pool = lane.pool
+        owner = _owner_key(lane.key)
         t_full = len(seq.fed)
-        got = lane.pool.alloc(lane.pool.blocks_for(t_full),
-                              owner=_owner_key(lane.key))
+        need_total = pool.blocks_for(t_full)
+        cache = self._cache_of(lane)
+        m, shared, partial = (0, [], None)
+        if cache is not None:
+            m, shared, partial = cache.match(lane.key, seq.fed)
+        if m <= 0:
+            got = pool.alloc(need_total, owner=owner)
+            if got is None:
+                return None
+            t_pad = lane.gen.prompt_bucket(t_full, max(1, seq.remaining))
+            return _AdmitPlan(seq, got, 0, None, ("dense", t_pad))
+        have = len(shared) + (1 if partial is not None else 0)
+        fresh_need = (need_total - have) + (1 if partial is not None else 0)
+        got = pool.alloc(fresh_need, owner=owner)
         if got is None:
+            pool.free_blocks(shared + ([partial] if partial is not None
+                                       else []))
             return None
-        t_pad = lane.gen.prompt_bucket(t_full, max(1, seq.remaining))
-        return _AdmitPlan(seq, got, ("dense", t_pad))
+        # a matched partial block will be written (the tail starts in
+        # it): a fresh block takes its place in the table, its copy
+        # lands before the tail prefill, and the shared reference goes
+        # after the copy
+        blocks = shared + got
+        t_tail_pad = bucket_for(t_full - m,
+                                bucket_sizes(lane.gen.max_context()))
+        tier = self._tier_cover(lane, len(blocks))
+        return _AdmitPlan(seq, blocks, m, partial, ("tail", t_tail_pad, tier))
 
     def _rollback_plan(self, lane: _Lane, plan: _AdmitPlan) -> None:
-        lane.pool.free_blocks(plan.blocks, owner=_owner_key(lane.key))
+        owner = _owner_key(lane.key)
+        lane.pool.free_blocks(plan.blocks, owner=owner)
+        if plan.cow_src is not None:
+            lane.pool.free_blocks([plan.cow_src], owner=owner)
+            plan.cow_src = None
         plan.seq.blocks = []
 
     def _pick_admissions(self):
@@ -746,6 +925,8 @@ class ContinuousDecodeScheduler:
                         f"{lane.pool.total_blocks} (max {lane.mb}"
                         f"/sequence)"))
                     continue
+                # validates prompt length and max_new against the context
+                lane.gen.prompt_bucket(len(seq.fed), max(1, seq.remaining))
                 plan = self._plan_blocks(lane, seq)
                 if plan is None:
                     continue  # blocks return as running rows retire
@@ -767,7 +948,8 @@ class ContinuousDecodeScheduler:
             with self._lock:
                 self._queue.remove(seq)
             entries.append(plan)
-            if len(entries) >= min(free_slots, self._admit_ladder[-1]):
+            if anchor is not None and \
+                    len(entries) >= min(free_slots, self._admit_ladder[-1]):
                 break
         if not entries:
             return None
@@ -821,9 +1003,88 @@ class ContinuousDecodeScheduler:
         self._trace_admitted(
             [(seq, {"bucket": t_pad, "rows": n, "computed": len(seq.fed)})
              for seq, _ in entries], t0p, t1p, "dense")
+        cache = self._cache_of(lane)
         for i, (seq, blocks) in enumerate(entries):
             self._note_prefilled(seq, len(seq.fed), t0p)
+            if cache is not None:
+                cache.note_admitted(0)
             self._install(lane, seq, blocks, int(toks[i]))
+
+    def _prefill_tail_batch(self, lane: _Lane, t_tail_pad: int, tier: int,
+                            entries: List[_AdmitPlan]) -> None:
+        """One row-bucketed tail prefill of a cache-hit admission group:
+        each matched partial block copied to its row's fresh block
+        first (the shared reference released after), then one
+        ``tail_prefill_program`` writes every row's uncached tail into
+        its blocks while the tail attends to the cached prefix and
+        itself, then each row's first token is sampled on its own clock
+        (the group's one fetch), as on the dense path."""
+        gen, pool = lane.gen, lane.pool
+        cache = self._cache_of(lane)
+        t0p = time.perf_counter()
+        # the fresh block standing in at the partial's table index
+        copies = [(p.cow_src, p.blocks[p.start // self.block_size])
+                  for p in entries if p.cow_src is not None]
+        if copies:
+            cp = gen.block_copy_program(1, pool.num_blocks, self.block_size)
+            for src, dst in copies:
+                note_dispatch(lane.net, ("gen_block_copy", "sched", 1))
+                pool.set_layers(cp(pool.layers, [src], [dst]))
+            for p in entries:
+                if p.cow_src is not None:
+                    pool.free_blocks([p.cow_src])
+                    p.cow_src = None
+            if cache is not None:
+                cache.note_cow(len(copies))
+        n = len(entries)
+        rows = bucket_for(n, self._admit_ladder)
+        ids = np.zeros((rows, t_tail_pad), np.int64)
+        starts = np.zeros(rows, np.int64)
+        lens = np.zeros(rows, np.int64)
+        tables = np.zeros((rows, tier), np.int64)
+        keys = [0] * rows
+        folds = [0] * rows
+        temp = np.zeros(rows, np.float32)
+        top_k = np.zeros(rows, np.int64)
+        top_p = np.zeros(rows, np.float32)
+        for i, p in enumerate(entries):
+            seq = p.seq
+            tail = seq.fed[p.start:]
+            ids[i, :len(tail)] = tail
+            starts[i] = p.start
+            lens[i] = len(tail)
+            tables[i, :len(p.blocks)] = p.blocks
+            keys[i] = seq.key
+            folds[i] = seq.n_gen
+            temp[i] = seq.req.temperature
+            top_k[i] = seq.req.top_k
+            top_p[i] = seq.req.top_p
+        params = self._params(lane)
+        tp = gen.tail_prefill_program(rows, t_tail_pad, tier,
+                                      pool.num_blocks, self.block_size)
+        fresh = note_dispatch(lane.net, ("gen_tail_prefill", "sched", rows,
+                                         t_tail_pad, tier))
+        with span("compile" if fresh else "inference",
+                  path="continuous_tail_prefill", bucket=t_tail_pad,
+                  rows=n, tier=tier):
+            pools, logits = tp(params, pool.layers, ids, starts, lens,
+                               tables)
+        pool.set_layers(pools)
+        note_dispatch(lane.net, ("gen_row_sample", "sched", rows))
+        # the group's one wait on the card: its first tokens
+        toks = gen.row_sample_program()(logits, keys, folds, temp, top_k,
+                                        top_p).cpu().numpy()
+        t1p = time.perf_counter()
+        self._trace_admitted(
+            [(p.seq, {"bucket": t_tail_pad, "tier": tier, "rows": n,
+                      "computed": len(p.seq.fed) - p.start,
+                      "cached": p.start}) for p in entries],
+            t0p, t1p, "tail")
+        for i, p in enumerate(entries):
+            self._note_prefilled(p.seq, len(p.seq.fed) - p.start, t0p)
+            if cache is not None:
+                cache.note_admitted(p.start)
+            self._install(lane, p.seq, p.blocks, int(toks[i]))
 
     def _note_prefilled(self, seq: _Seq, computed: int, t0p: float) -> None:
         """Count the prompt tokens this admission computed and bill the
@@ -913,6 +1174,67 @@ class ContinuousDecodeScheduler:
                 dt_ms * 1e3, slot_bucket=rows, tier=tier,
                 k=self.burst_tokens, rows=n_active, seq=seq.seq_id)
 
+    def _cache_insert(self, lane: _Lane, seq: _Seq) -> None:
+        """Insert-on-retire (and on preempt, so that the victim's resume
+        matches its own prefix): pin the sequence's written token run
+        into the lane's radix index before its blocks free, so that the
+        cache's references keep the full blocks while the private tail
+        returns to the free list."""
+        cache = self._cache_of(lane)
+        if cache is None or not seq.blocks or seq.pos <= 0:
+            return
+        tokens = np.concatenate(
+            [seq.req.prompt[seq.row].astype(np.int64),
+             np.asarray(seq.generated, np.int64)])[:seq.pos]
+        cache.insert(lane.key, tokens, seq.blocks)
+
+    def _emit_tokens(self, seq: _Seq) -> None:
+        """Deliver the row's undelivered tokens through its request's
+        ``on_tokens``, tagged with their stream offset. A callback's
+        error is the consumer's: it is marked and the scheduler serves
+        on."""
+        req = seq.req
+        if req.on_tokens is None or seq.emitted >= len(seq.generated):
+            return
+        off = seq.emitted
+        new = np.asarray(seq.generated[off:], np.int64)
+        seq.emitted = len(seq.generated)
+        get_registry().counter(
+            STREAM_CHUNKS_COUNTER,
+            "Incremental decode-token chunks emitted through the "
+            "on_tokens streaming seam").inc()
+        traced = req.trace is not None and \
+            reqtrace.request_tracer() is not None
+        t0c = time.perf_counter() if traced else 0.0
+        cb = req.on_tokens
+        if self._emit_batch is not None \
+                and getattr(cb, "burst_sink", None) is not None:
+            # a coalescing callback inside a retire pass: one sink call
+            # per burst (_flush_emit_batch)
+            self._emit_batch.append((cb, off, new))
+        else:
+            try:
+                cb(off, new)
+            except Exception as e:
+                mark("stream_callback_error", error=type(e).__name__)
+        if traced:
+            reqtrace.record_span(
+                req.trace, "chunk_deliver", to_origin_us(t0c),
+                (time.perf_counter() - t0c) * 1e6, offset=off, n=len(new))
+
+    def _flush_emit_batch(self) -> None:
+        batch, self._emit_batch = self._emit_batch, None
+        if not batch:
+            return
+        by_sink: Dict[Any, List[Tuple[Any, int, np.ndarray]]] = {}
+        for cb, off, toks in batch:
+            by_sink.setdefault(cb.burst_sink, []).append((cb, off, toks))
+        for sink, entries in by_sink.items():
+            try:
+                sink(entries)
+            except Exception as e:
+                mark("stream_callback_error", error=type(e).__name__)
+
     def _install(self, lane: _Lane, seq: _Seq, blocks: List[int],
                  tok0: int) -> None:
         req = seq.req
@@ -921,6 +1243,7 @@ class ContinuousDecodeScheduler:
         seq.generated.append(tok0)
         seq.n_gen += 1
         self._note_first_token(req)
+        self._emit_tokens(seq)
         self._admitted_rows += 1
         get_registry().counter(
             SCHED_ADMITTED_COUNTER,
@@ -932,6 +1255,7 @@ class ContinuousDecodeScheduler:
         if seq.n_gen >= req.max_new or (req.eos is not None
                                         and tok0 == req.eos):
             # the first token already finished the row
+            self._cache_insert(lane, seq)
             lane.pool.free_blocks(seq.blocks, owner=_owner_key(lane.key))
             seq.blocks = []
             self._retire_seq(lane, seq)
@@ -1006,6 +1330,9 @@ class ContinuousDecodeScheduler:
         resumed tokens are an uninterrupted run's."""
         lane = self._lane_for(None, None)
         slot = seq.slot
+        # insert before the free: with the prefix cache on, the victim's
+        # full blocks stay cached and its resume clones them
+        self._cache_insert(lane, seq)
         lane.pool.free_blocks(seq.blocks, owner=_owner_key(lane.key))
         seq.blocks = []
         seq.fed = np.concatenate([seq.req.prompt[seq.row],
@@ -1126,26 +1453,34 @@ class ContinuousDecodeScheduler:
     def _retire(self, lane: _Lane, outs) -> None:
         ys, tok, pos, n_gen, done = outs
         finished: List[_Seq] = []
-        for slot in range(lane.slots):
-            seq = lane.seqs[slot]
-            if seq is None:
-                continue
-            emitted = int(n_gen[slot]) - int(lane.n_gen[slot])
-            if emitted > 0:
-                seq.generated.extend(int(t) for t in ys[slot, :emitted])
-                seq.n_gen = int(n_gen[slot])
-                seq.pos = int(pos[slot])
-                self._attr_note(_owner_key(lane.key), decode=emitted)
-                self._note_first_token(seq.req)
-            lane.tok[slot] = tok[slot]
-            lane.pos[slot] = pos[slot]
-            lane.n_gen[slot] = n_gen[slot]
-            if bool(done[slot]):
-                lane.pool.free_blocks(seq.blocks, owner=_owner_key(lane.key))
-                seq.blocks = []
-                lane.clear_slot(slot)
-                seq.slot = None
-                finished.append(seq)
+        self._emit_batch = []
+        try:
+            for slot in range(lane.slots):
+                seq = lane.seqs[slot]
+                if seq is None:
+                    continue
+                emitted = int(n_gen[slot]) - int(lane.n_gen[slot])
+                if emitted > 0:
+                    seq.generated.extend(int(t) for t in ys[slot, :emitted])
+                    seq.n_gen = int(n_gen[slot])
+                    seq.pos = int(pos[slot])
+                    self._attr_note(_owner_key(lane.key), decode=emitted)
+                    self._note_first_token(seq.req)
+                    self._emit_tokens(seq)
+                lane.tok[slot] = tok[slot]
+                lane.pos[slot] = pos[slot]
+                lane.n_gen[slot] = n_gen[slot]
+                if bool(done[slot]):
+                    self._cache_insert(lane, seq)
+                    lane.pool.free_blocks(seq.blocks,
+                                          owner=_owner_key(lane.key))
+                    seq.blocks = []
+                    lane.clear_slot(slot)
+                    seq.slot = None
+                    finished.append(seq)
+        finally:
+            # the last chunks go out before any request resolves
+            self._flush_emit_batch()
         for seq in finished:
             self._retire_seq(lane, seq)
 
@@ -1153,6 +1488,9 @@ class ContinuousDecodeScheduler:
         """Every sequence riding a failed burst fails typed and frees
         its blocks at once; the scheduler keeps serving later
         admissions."""
+        record_fault("serving")
+        mark("decode_burst_failed", lane=str(lane.key),
+             error=type(err).__name__)
         self.events.append(f"burst_failed lane={lane.key} "
                            f"err={type(err).__name__}")
         for slot in range(lane.slots):
@@ -1242,6 +1580,8 @@ class ContinuousDecodeScheduler:
     def _count_resolved(self) -> None:
         with self._lock:
             self._resolved += 1
+        if self._on_resolve is not None:
+            self._on_resolve(1)
 
     def _fail_everything(self, err: BaseException) -> None:
         with self._lock:
@@ -1281,6 +1621,7 @@ class ContinuousDecodeScheduler:
             active = sum(len(lane.active()) for lane in self._lanes.values())
             queued = len(self._queue)
             pools = list(self._pools.values())
+            caches = list(self._caches.values())
         reg.gauge(SCHED_ACTIVE_GAUGE,
                   "Decode sequences currently occupying batch slots"
                   ).set(active)
@@ -1292,6 +1633,13 @@ class ContinuousDecodeScheduler:
         ts_record(TS_SCHED_QUEUED, queued)
         for pool in pools:
             ts_record(TS_SCHED_POOL_OCCUPANCY, pool.occupancy())
+        hits = misses = 0
+        for c in caches:
+            st = c.stats()
+            hits += st["hits"]
+            misses += st["misses"]
+        if hits + misses:
+            ts_record(TS_SCHED_PREFIX_HIT_RATE, hits / (hits + misses))
 
     def _work_available(self) -> bool:
         if self._queue:

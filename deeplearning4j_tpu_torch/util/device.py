@@ -25,3 +25,15 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}: use 'cuda' or 'cpu'")
     return dev
+
+
+def same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two torch devices name the same device (``cuda`` is the
+    current CUDA device)."""
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    cur = torch.cuda.current_device()
+    return (a.index if a.index is not None else cur) == \
+        (b.index if b.index is not None else cur)

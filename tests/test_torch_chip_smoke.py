@@ -1418,13 +1418,15 @@ def test_gpt_graph_generates_as_the_network():
 
 def test_layers_phase_is_the_last_and_runs_alone():
     """Phase 10 (the rest of the layer library) comes before phase 11
-    (paged serving), phase 12 (the training services) and phase 13 (the
-    feed pipeline), the last; each can be asked for alone."""
-    assert chip_smoke.PHASES[-4:] == ("10", "11", "12", "13")
+    (paged serving), phase 12 (the training services), phase 13 (the
+    feed pipeline) and phase 14 (the serving engine), the last; each can
+    be asked for alone."""
+    assert chip_smoke.PHASES[-5:] == ("10", "11", "12", "13", "14")
     assert chip_smoke._phases(["--only", "10"]) == ("10",)
     assert chip_smoke._phases(["--only", "11"]) == ("11",)
     assert chip_smoke._phases(["--only", "12"]) == ("12",)
     assert chip_smoke._phases(["--only", "13"]) == ("13",)
+    assert chip_smoke._phases(["--only", "14"]) == ("14",)
     assert chip_smoke.MOE_TRAIN == dict(chip_smoke.TRAIN, num_experts=8,
                                         capacity_factor=1.25,
                                         aux_loss_weight=0.01)
@@ -1731,3 +1733,76 @@ def test_schema_check_passes_a_traced_port_run(tmp_path):
     with pytest.raises(RuntimeError, match="check_telemetry_schema rejected"):
         chip_smoke._schema_check([str(bad)], reg.prometheus_text(),
                                  str(tmp_path))
+
+
+def test_engine_launches_add_phase_14s_counts():
+    done = {"14": {"launches": {"flash_fwd": 12, "lstm_fwd_only": 64}}}
+    got = chip_smoke._engine_launches(
+        [{"name": "flash_fwd"}, {"name": "lstm_fwd_only"},
+         {"name": "lstm_bwd"}], done)
+    assert [e["engine_launches"] for e in got] == [12, 64, 0]
+
+
+def test_engine_traffic_shares_one_system_prompt():
+    """Phase 14 (b)'s requests: 16, each the one 48-token system prompt
+    and its own 8-40-token tail, the same on every run."""
+    prompts = chip_smoke._engine_traffic(np)
+    assert len(prompts) == chip_smoke.ENGINE_GEN_REQUESTS == 16
+    system = prompts[0][:, :chip_smoke.ENGINE_SYSTEM]
+    for p in prompts:
+        assert p.shape[0] == 1 and 56 <= p.shape[1] <= 88
+        np.testing.assert_array_equal(p[:, :48], system)
+        assert ((p >= 0) & (p < chip_smoke.GPT["vocab_size"])).all()
+    again = chip_smoke._engine_traffic(np)
+    assert all((a == b).all() for a, b in zip(prompts, again))
+    assert max(p.shape[1] for p in prompts) + chip_smoke.ENGINE_NEW \
+        <= chip_smoke.GPT["max_len"]
+
+
+def test_in_threads_runs_every_call_and_reraises():
+    import threading
+    names = chip_smoke._in_threads(
+        [lambda i=i: (i, threading.current_thread().name) for i in range(8)],
+        4)
+    assert [i for i, _ in names] == list(range(8))
+    assert len({n for _, n in names}) == 4
+    with pytest.raises(ZeroDivisionError):
+        chip_smoke._in_threads([lambda: 1, lambda: 1 / 0], 2)
+
+
+def test_chunks_check_contiguous_offsets():
+    c = chip_smoke._Chunks()
+    c(0, np.array([3]))
+    c(1, np.array([4, 5]))
+    assert c.tokens() == [3, 4, 5]
+    c(4, np.array([6]))
+    with pytest.raises(RuntimeError, match="offset 4 after 3"):
+        c.tokens()
+
+
+def test_tie_parity_takes_eager_runs_only_where_a_request_parts(
+        monkeypatch):
+    """Phase 14's parity: all requests whole reads no eager run; a
+    parting one takes them and is held to the near-tie bound."""
+    calls = []
+
+    def eager(torch_, net, prompts, new=None):
+        calls.append(new)
+        return ([np.array([[9, 1, 2, 3]]), np.array([[9, 1, 2, 3]])],
+                [np.array([0.5, 0.01, 0.5]), np.array([0.5, 0.5, 0.5])])
+
+    monkeypatch.setattr(chip_smoke, "_eager", eager)
+    prompts = [np.array([[9]]), np.array([[9]])]
+    same = [np.array([[9, 1, 2, 3]]), np.array([[9, 1, 2, 3]])]
+    assert chip_smoke._tie_parity(None, None, prompts, same, same, 0.05,
+                                  "same", 3) == (2, [])
+    assert calls == []
+    parted = [np.array([[9, 1, 7, 3]]), np.array([[9, 1, 2, 3]])]
+    whole, ties = chip_smoke._tie_parity(None, None, prompts, parted, same,
+                                         0.05, "parted", 3)
+    assert calls == [3] and whole == 1
+    assert ties == [dict(request=0, position=1, gap=0.01)]
+    with pytest.raises(RuntimeError, match="top-two gap is 0.5"):
+        chip_smoke._tie_parity(None, None, prompts, same,
+                               [np.array([[9, 4, 2, 3]])] * 2, 0.05, "wide",
+                               3)

@@ -10,15 +10,19 @@ of the port's ``generate_eager`` and of the reference scheduler, and
 the preemption order's ``events`` equal the reference's string for
 string. Typed failures (an exhausted pool, a full queue, a recurrent
 net, a killed burst), sampled draws unchanged by co-tenants, prefix
-resumes, ``warmup``, the thread, and the knobs left for later slices
-(each raising ``NotImplementedError`` that names its ROADMAP item). Every
-test ends with the pool fully free. The card cases are in
+resumes, ``warmup``, the thread, ``on_tokens`` streaming (the chunks
+are the reference's, across preemptions and resumes, and a burst sink
+gets one call per burst), the engine's ``on_resolve`` seam, the tiers
+``warmup`` covers, and the knobs left for later
+slices (each raising ``NotImplementedError`` that names its ROADMAP
+item). Every test ends with the pool fully free. The card cases are in
 ``tests/test_torch_serve_cuda.py``.
 """
 
 import jax
 import numpy as np
 import pytest
+import torch
 
 from deeplearning4j_tpu.models.zoo.transformer import gpt as jax_gpt
 from deeplearning4j_tpu.serving import continuous as jcont
@@ -33,6 +37,7 @@ from deeplearning4j_tpu_torch.serving.continuous import (
     DecodeBurstError,
     KVPoolExhausted,
 )
+from deeplearning4j_tpu_torch.util.device import same_device
 from deeplearning4j_tpu_torch.util.model_serializer import params_from_numpy
 
 VOCAB = 11
@@ -330,18 +335,17 @@ def test_prefix_resume_matches_eager(nets, sampler):
 
 
 @pytest.mark.parametrize("kw, item", [
-    (dict(registry=object()), "A10"), (dict(prefix_cache=True), "A10"),
-    (dict(speculative=True), "A10"), (dict(draft_net=object()), "A10"),
-    (dict(host_kv_blocks=8), "A10")])
+    (dict(registry=object()), "A10b"), (dict(speculative=True), "A10b"),
+    (dict(draft_net=object()), "A10b"), (dict(host_kv_blocks=8), "A10b")])
 def test_later_scheduler_knobs_raise(nets, kw, item):
     with pytest.raises(NotImplementedError, match=item):
         ContinuousDecodeScheduler(net=nets[1], **dict(KNOBS, **kw))
 
 
 @pytest.mark.parametrize("kw, item", [
-    (dict(model="lm"), "A10"), (dict(version=2), "A10"),
-    (dict(session="s"), "A10"), (dict(hibernate=True), "A10"),
-    (dict(on_tokens=print), "A10"), (dict(kv_state={}), "A11")])
+    (dict(model="lm"), "A10b"), (dict(version=2), "A10b"),
+    (dict(session="s"), "A10b"), (dict(hibernate=True), "A10b"),
+    (dict(kv_state={}), "A11")])
 def test_later_submit_knobs_raise(nets, kw, item):
     s = ContinuousDecodeScheduler(net=nets[1], **KNOBS)
     with pytest.raises(NotImplementedError, match=item):
@@ -363,7 +367,7 @@ def test_warmup_runs_masked(nets):
     _drive(s, [f])
     np.testing.assert_array_equal(
         f.result(0), generate_eager(tn, p, 6, temperature=0.5, seed=3))
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(NotImplementedError, match="A10b"):
         s.warmup([4], model="lm")
 
 
@@ -424,3 +428,205 @@ def test_concurrent_submitters_stress(nets):
     assert st["accepted"] == st["resolved"] == n
     assert st["admitted_rows"] - st["preemptions"] == st["retired_rows"] == n
     assert _free(s)
+
+
+# ------------------------------------------ streaming and the engine seams
+
+class _Collector:
+    """An ``on_tokens`` consumer that records every chunk."""
+
+    def __init__(self):
+        self.chunks = []
+
+    def __call__(self, off, toks):
+        self.chunks.append((int(off),
+                            [int(t) for t in np.asarray(toks).reshape(-1)]))
+
+    def tokens(self, base=0):
+        """The chunks' tokens, asserting contiguous offsets from
+        ``base``."""
+        toks = []
+        for off, ts in self.chunks:
+            assert off == base + len(toks), f"gap or repeat at {off}"
+            toks.extend(ts)
+        return toks
+
+
+def test_stream_deltas_match_eager_and_reference(nets):
+    """``on_tokens`` receives the admission's token and then each burst's,
+    the same chunks as the reference scheduler's; concatenated they are
+    the eager run's tokens; the chunk counter ticks once a chunk."""
+    from deeplearning4j_tpu_torch import monitor
+
+    tn = nets[1]
+    p = np.random.default_rng(20).integers(0, VOCAB, (1, 5))
+    want = generate_eager(tn, p, 10)
+    colls = []
+
+    def plan(s):
+        colls.append(_Collector())
+        return [s.submit(p, 10, on_tokens=colls[-1])]
+
+    reg = monitor.MetricsRegistry()
+    old = monitor.set_registry(reg)
+    try:
+        (_, jgot), (_, got) = _both(nets, plan)
+    finally:
+        monitor.set_registry(old)
+    np.testing.assert_array_equal(got[0], want)
+    np.testing.assert_array_equal(jgot[0], want)
+    assert colls[1].tokens() == want[0, 5:].tolist()
+    assert colls[1].chunks == colls[0].chunks and len(colls[1].chunks) > 1
+    assert reg.family_total(monitor.STREAM_CHUNKS_COUNTER) == \
+        len(colls[1].chunks)
+
+
+def test_stream_deltas_survive_preemption(nets):
+    """A preempted and resumed stream keeps its cursor: nothing is
+    delivered twice, and the chunks are the reference's."""
+    tn = nets[1]
+    prompts = _prompts(21, (5, 5, 5))
+    colls = []
+
+    def plan(s):
+        cs = [_Collector() for _ in prompts]
+        colls.append(cs)
+        return [s.submit(p, 10, on_tokens=c) for p, c in zip(prompts, cs)]
+
+    (js, _), (s, got) = _both(nets, plan, num_blocks=9)
+    assert s.stats()["preemptions"] > 0
+    for p, g, c, jc in zip(prompts, got, colls[1], colls[0]):
+        want = generate_eager(tn, p, 10)
+        np.testing.assert_array_equal(g, want)
+        assert c.tokens() == want[0, 5:].tolist()
+        assert c.chunks == jc.chunks
+
+
+@pytest.mark.parametrize("sampler", [{}, {"temperature": 0.8, "top_k": 5,
+                                          "seed": 7}])
+def test_prefix_resume_streams_after_the_prefix(nets, sampler):
+    tn = nets[1]
+    p = np.random.default_rng(22).integers(0, VOCAB, (1, 5))
+    want = generate_eager(tn, p, 10, **sampler)
+    s = ContinuousDecodeScheduler(net=tn, **KNOBS)
+    coll = _Collector()
+    f = s.submit(p, 10, prefix=want[0, 5:9], on_tokens=coll, **sampler)
+    _drive(s, [f])
+    np.testing.assert_array_equal(f.result(0), want)
+    assert coll.chunks[0][0] == 4
+    assert coll.tokens(base=4) == want[0, 9:].tolist()
+    assert _free(s)
+
+
+def test_streaming_requires_single_row(nets):
+    s = ContinuousDecodeScheduler(net=nets[1], **KNOBS)
+    with pytest.raises(ValueError, match="per-stream"):
+        s.submit(np.ones((2, 5), np.int64), 4, on_tokens=lambda o, t: 0)
+    assert s.stats()["accepted"] == 0
+
+
+def test_callback_errors_and_burst_sinks(nets):
+    """A consumer that raises is marked and the scheduler serves on; the
+    callbacks marked with a ``burst_sink`` get one sink call per burst
+    with every stream's chunk, before any request of that burst
+    resolves."""
+    tn = nets[1]
+    prompts = _prompts(23, (4, 6))
+    calls = []
+
+    def sink(entries):
+        calls.append([(off, list(map(int, t))) for _, off, t in entries])
+
+    cbs = []
+    for _ in prompts:
+        def cb(off, toks):
+            raise AssertionError("a sink's callback is not called alone")
+        cb.burst_sink = sink
+        cbs.append(cb)
+
+    def broken(off, toks):
+        raise RuntimeError("consumer bug")
+
+    s = ContinuousDecodeScheduler(net=tn, **KNOBS)
+    futs = [s.submit(p, 7, on_tokens=cb) for p, cb in zip(prompts, cbs)]
+    futs.append(s.submit(prompts[0], 7, on_tokens=broken))
+    _drive(s, futs)
+    for p, f in zip(prompts + prompts[:1], futs):
+        np.testing.assert_array_equal(f.result(0), generate_eager(tn, p, 7))
+    assert calls and all(len(c) == 2 for c in calls)
+    per = [[], []]
+    for c in calls:
+        for i, (off, toks) in enumerate(c):
+            assert off == len(per[i]) + 1  # the admission token went alone
+            per[i].extend(toks)
+    assert _free(s)
+
+
+def test_engine_seam_on_resolve(nets):
+    """``on_resolve`` hears of every resolved request: those a killed
+    burst fails and those that finish; the engine's device check reads
+    ``same_device``."""
+    tn = nets[1]
+    resolved, kills = [], [RuntimeError("killed")]
+
+    def hook(lane_key, index):
+        if index == 1 and kills:
+            raise kills.pop()
+
+    s = ContinuousDecodeScheduler(net=tn, on_resolve=resolved.append,
+                                  burst_hook=hook, **KNOBS)
+    futs = [s.submit(p, 9) for p in _prompts(24, (4, 4, 4))]
+    _drive(s, futs)  # the second burst fails them
+    assert sum(resolved) == 3
+    for f in futs:
+        with pytest.raises(DecodeBurstError):
+            f.result(0)
+    f = s.submit(np.ones((1, 4), np.int64), 3)
+    _drive(s, [f])
+    assert f.result(0).shape == (1, 7) and sum(resolved) == 4
+    assert _free(s)
+    assert not same_device(torch.device("cuda", 0), torch.device("cpu"))
+    assert same_device(torch.device("cpu"), tn.device)
+
+
+def test_warmup_covers_the_tiers_its_requests_reach(nets):
+    """warmup builds the bursts of the block tiers that its prompt
+    lengths and new tokens reach, no other: serving inside that set
+    dispatches nothing new, a longer request does."""
+    tn = nets[1]
+    tn.__dict__.pop("_dispatch_sigs", None)
+    s = ContinuousDecodeScheduler(net=tn, **KNOBS)
+    s.warmup([5, 6], 3)  # 2 blocks of 4 up to 3 (tier 4)
+
+    def tiers():
+        return sorted({sig[4] for sig in tn.__dict__["_dispatch_sigs"]
+                       if sig[0] == "gen_burst"})
+
+    assert tiers() == [2, 4]
+    seen = set(tn.__dict__["_dispatch_sigs"])
+    futs = [s.submit(p, 3) for p in _prompts(26, (5, 6, 6))]
+    _drive(s, futs)
+    assert set(tn.__dict__["_dispatch_sigs"]) == seen
+    for p, f in zip(_prompts(26, (5, 6, 6)), futs):
+        np.testing.assert_array_equal(f.result(0), generate_eager(tn, p, 3))
+    f = s.submit(_prompts(27, (6,))[0], 12)  # 18 tokens: 5 blocks, tier 8
+    _drive(s, [f])
+    assert tiers() == [2, 4, 8]
+    assert _free(s)
+
+
+def test_chunk_deliver_spans_on_the_request_trace(nets):
+    from deeplearning4j_tpu_torch.monitor import reqtrace
+
+    tn = nets[1]
+    tracer = reqtrace.enable_request_tracing()
+    try:
+        s = ContinuousDecodeScheduler(net=tn, **KNOBS)
+        coll = _Collector()
+        f = s.submit(_prompts(25, (5,))[0], 8, on_tokens=coll)
+        _drive(s, [f])
+    finally:
+        reqtrace.disable_request_tracing()
+    (tr,) = tracer.completed_traces()
+    spans = [sp for sp in tr["spans"] if sp["name"] == "chunk_deliver"]
+    assert len(spans) == len(coll.chunks) > 1

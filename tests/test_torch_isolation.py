@@ -221,3 +221,33 @@ def test_monitor_modules_are_scanned_and_import_no_torch():
     from deeplearning4j_tpu_torch import monitor
     assert monitor.get_registry().__module__ == \
         "deeplearning4j_tpu_torch.monitor.registry"
+
+
+def test_serving_engine_modules_are_scanned_and_default_to_the_card():
+    """The serving engine, the prefix cache and the serving package are
+    among the modules the scans cover; an engine asking for no device
+    places its replicas on every CUDA device, never silently on the
+    CPU."""
+    mods = _modules()
+    for name in ("parallel.inference", "serving.prefixcache", "serving",
+                 "serving.continuous"):
+        assert f"deeplearning4j_tpu_torch.{name}" in mods, name
+    for rel in (("parallel", "inference.py"), ("serving", "prefixcache.py"),
+                ("serving", "__init__.py")):
+        tops = {n.split(".")[0] for n in _imports(os.path.join(_PKG, *rel))}
+        assert not tops & {"jax", "jaxlib", "deeplearning4j_tpu"}, (rel, tops)
+    from deeplearning4j_tpu_torch.parallel import ParallelInference
+    size = dict(vocab_size=16, d_model=16, n_layers=1, num_heads=2,
+                max_len=16, compute_dtype="float32")
+    net = gpt(device="cpu", **size).init()
+    if torch.cuda.is_available():
+        eng = ParallelInference(net, start=False)
+        assert [d for d, _, _ in eng._replicas] == [
+            torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        eng.shutdown()
+        return
+    with pytest.raises(RuntimeError, match="devices=\\['cpu'\\]"):
+        ParallelInference(net)
+    eng = ParallelInference(net, devices=["cpu"], start=False)
+    assert [d.type for d, _, _ in eng._replicas] == ["cpu"]
+    eng.shutdown()
